@@ -4,10 +4,14 @@ One `train_step` runs `rollout_steps` env-steps with the actor and OU
 exploration in the loop (kernel B2 on a CUDA device, which raises for a
 shape it does not cover; its plain twin on the CPU), inserts the chunk
 into the device replay, and then runs `updates_per_step` critic + actor +
-Polyak updates on presampled column minibatches. The updates use torch autograd and an Adam written as
-optax.adam computes it (bias correction by power, eps added outside the
-square root), so a step from a converted reference state reproduces the
-reference's XLA learner.
+Polyak updates on presampled column minibatches.
+
+The updates run in one of two learners, resolved once at construction
+(`learner`): kernel B3 (ops/learner_kernel.py, the whole K-update phase as
+one launch; its plain twin on CPU tensors), or the plain learner, torch
+autograd with an Adam written as optax.adam computes it (bias correction
+by power, eps added outside the square root), so a step from a converted
+reference state reproduces the reference's XLA learner.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 
 from ..env import CartPole3D, EnvState
 from ..models import ActorMLP, CriticMLP, polyak
+from ..ops import learner_kernel as lk
 from ..ops.policy_rollout import (fusable, policy_rollout,
                                   reference_policy_rollout)
 from .common import evaluate_policy, gated_update_scan, replay_presample
@@ -54,8 +59,9 @@ class DDPGConfig:
     sample: str = "column"
     actor_grad_critic: str = "updated"
     polyak_cadence: str = "per_update"
-    # "auto" and "xla" run the plain torch learner; "kernel" (the fused
-    # update kernel, B3) is not ported yet.
+    # "kernel": B3 (its plain twin on the CPU); "xla": the plain torch
+    # learner; "auto": B3 on a CUDA device when `kernel_learner_ok`, else
+    # the plain learner (with one stderr line on a CUDA device).
     learner: str = "auto"
     learner_block: int = 512         # TPU kernel tiling; unused here
     learner_precision: str | None = None
@@ -69,11 +75,10 @@ class DDPGConfig:
 _SUPPORTED = {
     "dtype": ("float32",),
     "sample": ("column",),
-    "actor_grad_critic": ("updated",),
-    "polyak_cadence": ("per_update",),
-    "learner": ("auto", "xla"),
+    "actor_grad_critic": ("updated", "pre"),
+    "polyak_cadence": ("per_update", "per_step"),
+    "learner": ("auto", "kernel", "xla"),
     "learner_precision": (None,),
-    "lr_decay_env_steps": (0,),
 }
 
 
@@ -99,6 +104,11 @@ class DDPGState(NamedTuple):
     noise: torch.Tensor        # (B, act_dim) OU noise state
     generator: torch.Generator  # replay sampling (CPU)
     env_steps: int             # env-steps taken (per env)
+    # Kernel mode: the 8 group buffers (actor, critic, actor_target,
+    # critic_target, then the Adam moments m_a, v_a, m_c, v_c) whose views
+    # are the modules' parameters and the AdamStates' moments
+    # (ops/learner_kernel.py documents the layout). None otherwise.
+    groups: tuple | None = None
 
 
 def adam_init(module: torch.nn.Module) -> AdamState:
@@ -109,21 +119,65 @@ def adam_init(module: torch.nn.Module) -> AdamState:
 @torch.no_grad()
 def adam_update(module: torch.nn.Module, grads, opt: AdamState,
                 lr: float) -> AdamState:
-    """One optax.adam step applied to `module`'s parameters in place:
+    """One optax.adam step applied in place to `module`'s parameters and
+    to the moments (so views of the kernel-mode group buffers stay views):
     m = (1-b1) g + b1 m;  v = (1-b2) g^2 + b2 v;
     p += -lr * (m / (1 - b1^t)) / (sqrt(v / (1 - b2^t)) + eps)."""
     count = opt.count + 1
     # Bias corrections in float32, as optax computes decay**count.
     bc1 = float(np.float32(1.0) - np.float32(_ADAM_B1) ** np.float32(count))
     bc2 = float(np.float32(1.0) - np.float32(_ADAM_B2) ** np.float32(count))
-    mus, nus = [], []
     for p, g, m, v in zip(module.parameters(), grads, opt.mu, opt.nu):
-        m = (1 - _ADAM_B1) * g + _ADAM_B1 * m
-        v = (1 - _ADAM_B2) * (g * g) + _ADAM_B2 * v
+        m.copy_((1 - _ADAM_B1) * g + _ADAM_B1 * m)
+        v.copy_((1 - _ADAM_B2) * (g * g) + _ADAM_B2 * v)
         p.add_((m / bc1) / (torch.sqrt(v / bc2) + _ADAM_EPS) * -lr)
-        mus.append(m)
-        nus.append(v)
-    return AdamState(count=count, mu=mus, nu=nus)
+    return opt._replace(count=count)
+
+
+def resolve_learner(learner: str, covered: bool, on_cuda: bool) -> bool:
+    """Whether DDPG runs kernel B3 (True) or the plain learner: "kernel"
+    takes B3 and raises where it does not cover the config, "xla" takes
+    the plain learner, "auto" takes B3 on a CUDA device when covered and
+    otherwise the plain learner, saying so on stderr on a CUDA device (the
+    reference's _notice_learner_fallback). Metrics carry the same fact as
+    `learner_impl`."""
+    if learner == "kernel":
+        if not covered:
+            raise ValueError("config shape not covered by the fused update "
+                             "kernel B3 (see DDPG.kernel_learner_ok)")
+        return True
+    if learner == "xla":
+        return False
+    if learner != "auto":
+        raise ValueError(f"unknown learner {learner!r}")
+    if on_cuda and not covered:
+        print("ddpg: learner=auto resolved to the plain torch update loop "
+              "(config shape outside kernel B3 - see kernel_learner_ok)",
+              file=sys.stderr)
+    return on_cuda and covered
+
+
+def _bind_group(module: torch.nn.Module, layout) -> torch.Tensor:
+    """Copy `module`'s parameters into one flat buffer in `layout` and
+    rebind them as views of it; returns the buffer."""
+    params = list(module.named_parameters())
+    if [(n, tuple(p.shape)) for n, p in params] != [
+            (n, tuple(sh)) for n, sh in layout]:
+        raise ValueError("module parameters do not match the B3 layout")
+    buf = torch.empty(lk.layout_size(layout), dtype=torch.float32,
+                      device=params[0][1].device)
+    with torch.no_grad():
+        for (_, p), view in zip(params, lk.group_views(buf, layout)):
+            view.copy_(p)
+            p.data = view
+    return buf
+
+
+def _bind_moments(tensors, layout):
+    """(flat buffer, views) holding copies of Adam moments in `layout`."""
+    buf = torch.cat([t.detach().reshape(-1).to(torch.float32)
+                     for t in tensors])
+    return buf, lk.group_views(buf, layout)
 
 
 class DDPG:
@@ -133,9 +187,6 @@ class DDPG:
         if env.params.discrete_actions:
             raise ValueError("DDPG needs the continuous env "
                              "(CartPoleParams(discrete_actions=False))")
-        if config.learner == "kernel":
-            raise ValueError("learner='kernel': B3 not ported yet "
-                             "(use learner='xla' or 'auto')")
         for name, ok in _SUPPORTED.items():
             if getattr(config, name) not in ok:
                 raise ValueError(f"DDPGConfig.{name}="
@@ -147,12 +198,46 @@ class DDPG:
         self.replay = ReplayBuffer(env.num_envs,
                                    config.replay_capacity_per_env,
                                    env.obs_size, env.action_dim, env.device)
-        # The fused update kernel is not ported, so every learner setting
-        # runs the plain torch learner; say so where a kernel was expected.
-        if config.learner == "auto" and env.device.type == "cuda":
-            print("ddpg: learner=auto resolved to the plain torch update "
-                  "loop (the fused update kernel B3 is not ported yet)",
-                  file=sys.stderr)
+        # Resolved once: the kernel learner keeps its state in the 8 group
+        # buffers (state_from_tree), so the choice shapes init().
+        self.kernel_mode = resolve_learner(
+            config.learner, self.kernel_learner_ok(),
+            env.device.type == "cuda")
+
+    def kernel_learner_ok(self) -> bool:
+        """Whether kernel B3 covers this config: state observations, 2 to 4
+        hidden layers within its row width (the action joins at layer 1),
+        float32, the per-update Polyak cadence (per_step runs on the plain
+        learner only, as in the reference), and at least one update."""
+        c = self.cfg
+        return (self.env.obs_mode != "pixels"
+                and lk.covers(self.env.obs_size, c.hidden)
+                and c.updates_per_step >= 1
+                and c.actor_grad_critic in ("updated", "pre")
+                and c.polyak_cadence == "per_update"
+                and c.dtype == "float32")
+
+    def _lr_schedule(self):
+        """(end_frac, transition_steps) of the linear lr decay, or None
+        (constant lr): the horizon in per-env env-steps converted to
+        gradient steps."""
+        c = self.cfg
+        if c.lr_decay_env_steps <= 0:
+            return None
+        return (c.lr_end_frac,
+                max(c.lr_decay_env_steps * c.updates_per_step
+                    // max(c.rollout_steps, 1), 1))
+
+    def _lr(self, lr: float, count: int) -> float:
+        """The plain learner's lr at Adam count `count` (before the step):
+        constant, or optax.linear_schedule(lr, lr * end_frac, T) in float32."""
+        sched = self._lr_schedule()
+        if sched is None:
+            return lr
+        end = lr * sched[0]
+        frac = np.float32(1.0) - (np.float32(min(max(count, 0), sched[1]))
+                                  / np.float32(sched[1]))
+        return float(np.float32(lr - end) * frac + np.float32(end))
 
     # --- init ---------------------------------------------------------------
     def init(self, seed: int) -> DDPGState:
@@ -165,7 +250,7 @@ class DDPG:
         critic = CriticMLP(env.obs_size, env.action_dim, h,
                            generator=g).to(dev)
         env_state, obs = env.reset(seed)
-        return DDPGState(
+        st = DDPGState(
             actor=actor,
             critic=critic,
             actor_target=copy.deepcopy(actor),
@@ -179,6 +264,31 @@ class DDPG:
                               dtype=torch.float32, device=dev),
             generator=torch.Generator().manual_seed(seed + 1),
             env_steps=0)
+        return self.state_from_tree(st)
+
+    def state_from_tree(self, st: DDPGState) -> DDPGState:
+        """A state whose modules own their parameters -> this agent's native
+        layout. In kernel mode the parameters, targets and Adam moments are
+        copied into the 8 group buffers and rebound as views of them (the
+        modules, B2's pack_actor, evaluate and the plain learner keep
+        working on them); otherwise, and for a state already bound, it is
+        the identity."""
+        if not self.kernel_mode or st.groups is not None:
+            return st
+        obs_dim, h = self.env.obs_size, tuple(self.cfg.hidden)
+        lay_a, lay_c = lk.actor_layout(obs_dim, h), lk.critic_layout(obs_dim,
+                                                                     h)
+        nets = [_bind_group(net, lay) for net, lay in (
+            (st.actor, lay_a), (st.critic, lay_c), (st.actor_target, lay_a),
+            (st.critic_target, lay_c))]
+        opts, moments = [], []
+        for opt, lay in ((st.actor_opt, lay_a), (st.critic_opt, lay_c)):
+            (m_buf, mu), (v_buf, nu) = (_bind_moments(opt.mu, lay),
+                                        _bind_moments(opt.nu, lay))
+            opts.append(opt._replace(mu=mu, nu=nu))
+            moments += [m_buf, v_buf]
+        return st._replace(actor_opt=opts[0], critic_opt=opts[1],
+                           groups=tuple(nets + moments))
 
     # --- acting -------------------------------------------------------------
     def fusable(self) -> bool:
@@ -209,22 +319,75 @@ class DDPG:
     def _actor_loss(self, actor, critic, obs):
         return -torch.mean(critic(obs, actor(obs)))
 
+    def _learner_step(self, st: DDPGState, closs, obs):
+        """Critic Adam step on `closs`, then the actor's: through the critic
+        as updated ("updated") or as it was before it ("pre", whose actor
+        gradient is taken before the critic moves)."""
+        c = self.cfg
+        cgrad = torch.autograd.grad(closs, list(st.critic.parameters()))
+        pre = c.actor_grad_critic == "pre"
+        if not pre:
+            copt = adam_update(st.critic, cgrad, st.critic_opt,
+                               self._lr(c.critic_lr, st.critic_opt.count))
+        aloss = self._actor_loss(st.actor, st.critic, obs)
+        agrad = torch.autograd.grad(aloss, list(st.actor.parameters()))
+        if pre:
+            copt = adam_update(st.critic, cgrad, st.critic_opt,
+                               self._lr(c.critic_lr, st.critic_opt.count))
+        aopt = adam_update(st.actor, agrad, st.actor_opt,
+                           self._lr(c.actor_lr, st.actor_opt.count))
+        return (st._replace(actor_opt=aopt, critic_opt=copt),
+                {"critic_loss": closs.detach(), "actor_loss": aloss.detach()})
+
     def _update_once(self, st: DDPGState, batch):
-        """Critic TD step, actor step through the UPDATED critic, then
-        Polyak on both targets."""
+        """Critic TD step, actor step, then Polyak on both targets (per
+        update; the per_step cadence pulls once after the phase)."""
         c = self.cfg
         closs = self._critic_loss(st.critic, st.actor_target,
                                   st.critic_target, batch)
-        cgrad = torch.autograd.grad(closs, list(st.critic.parameters()))
-        copt = adam_update(st.critic, cgrad, st.critic_opt, c.critic_lr)
-        aloss = self._actor_loss(st.actor, st.critic, batch[0])
-        agrad = torch.autograd.grad(aloss, list(st.actor.parameters()))
-        aopt = adam_update(st.actor, agrad, st.actor_opt, c.actor_lr)
-        polyak(st.actor_target, st.actor, c.tau)
-        polyak(st.critic_target, st.critic, c.tau)
-        st = st._replace(actor_opt=aopt, critic_opt=copt)
-        return st, {"critic_loss": closs.detach(),
-                    "actor_loss": aloss.detach()}
+        st, m = self._learner_step(st, closs, batch[0])
+        if c.polyak_cadence == "per_update":
+            polyak(st.actor_target, st.actor, c.tau)
+            polyak(st.critic_target, st.critic, c.tau)
+        return st, m
+
+    def _frozen_target_update_scan(self, st: DDPGState, batches):
+        """per_step-Polyak plain learner: the targets are frozen across the
+        K updates, so the TD targets of all K minibatches are one (K*B)-row
+        pass through the target nets; then the K critic and actor steps."""
+        c = self.cfg
+        obs, action, reward, next_obs, done = batches
+        kk, bs = reward.shape
+        with torch.no_grad():
+            nobs = next_obs.reshape(kk * bs, -1)
+            q_next = st.critic_target(nobs, st.actor_target(nobs))
+            y = (reward.reshape(-1) + c.gamma
+                 * (1.0 - done.reshape(-1).to(torch.float32))
+                 * q_next).reshape(kk, bs)
+        metrics = []
+        for k in range(kk):
+            closs = torch.mean(torch.square(
+                st.critic(obs[k], action[k]) - y[k]))
+            st, m = self._learner_step(st, closs, obs[k])
+            metrics.append(m)
+        return st, {key: torch.stack([m[key] for m in metrics]).mean()
+                    for key in metrics[0]}
+
+    def _kernel_update_phase(self, st: DDPGState, batches):
+        """The K-update phase through B3's wrapper: the 8 group buffers
+        updated in place, the Adam counts advanced by K."""
+        c = self.cfg
+        t0 = st.actor_opt.count
+        closs, aloss = lk.ddpg_update_phase(
+            st.groups, tuple(x.contiguous() for x in batches), t0, c.hidden,
+            actor_lr=c.actor_lr,
+            critic_lr=c.critic_lr, gamma=c.gamma, tau=c.tau,
+            actor_grad_critic=c.actor_grad_critic,
+            lr_schedule=self._lr_schedule())
+        count = t0 + c.updates_per_step
+        st = st._replace(actor_opt=st.actor_opt._replace(count=count),
+                         critic_opt=st.critic_opt._replace(count=count))
+        return st, {"critic_loss": closs.mean(), "actor_loss": aloss.mean()}
 
     def evaluate(self, st: DDPGState, num_steps: int = 200, seed: int = 0):
         """Deterministic-actor evaluation (no OU noise): episode stats."""
@@ -240,7 +403,9 @@ class DDPG:
         launches the kernel for CUDA tensors (and raises for a shape the
         kernel does not cover) and runs the plain twin for CPU tensors.
         False runs the plain twin on any device; on a GPU it says so once
-        on stderr. `rollout_impl` reports which ran. indices: optional
+        on stderr. `rollout_impl` reports which ran. The updates run in the
+        learner resolved at construction; `learner_impl` reports which
+        (1.0 B3's wrapper, 0.0 the plain learner). indices: optional
         (slots, offs) for the presample, in place of the state's
         generator."""
         c = self.cfg
@@ -260,16 +425,34 @@ class DDPG:
                          replay=replay, env_steps=env_steps)
         ready = c.warmup_env_steps <= 0 or env_steps >= c.warmup_env_steps
         zero = torch.zeros((), dtype=torch.float32, device=self.env.device)
-        st, losses = gated_update_scan(
-            st, self._update_once, c.updates_per_step, ready,
-            {"critic_loss": zero, "actor_loss": zero},
-            presample=replay_presample(self.replay, c.batch_size, indices))
+        losses = {"critic_loss": zero, "actor_loss": zero}
+        presample = replay_presample(self.replay, c.batch_size, indices)
+        if not ready or c.updates_per_step <= 0:
+            pass
+        elif self.kernel_mode:
+            st, losses = self._kernel_update_phase(
+                st, presample(st, c.updates_per_step))
+        elif c.polyak_cadence == "per_step":
+            st, losses = self._frozen_target_update_scan(
+                st, presample(st, c.updates_per_step))
+        else:
+            st, losses = gated_update_scan(
+                st, self._update_once, c.updates_per_step, True, losses,
+                presample=presample)
+        if c.polyak_cadence == "per_step" and ready:
+            # Compounded pull: K per-update Polyaks at rate tau move a
+            # target by 1-(1-tau)^K toward a fixed online net.
+            tau_eff = float(np.float32(1.0 - (1.0 - c.tau)
+                                       ** c.updates_per_step))
+            polyak(st.actor_target, st.actor, tau_eff)
+            polyak(st.critic_target, st.critic, tau_eff)
         metrics = dict(losses)
         metrics["reward_mean"] = traj[2].mean()
         metrics["done_frac"] = traj[3].to(torch.float32).mean()
         metrics["env_steps"] = env_steps
         # 1.0 = kernel B2 ran the rollout, 0.0 = the plain twin did.
         metrics["rollout_impl"] = float(on_gpu and fused is not False)
-        # 1.0 = fused update kernel, 0.0 = plain learner (always, until B3).
-        metrics["learner_impl"] = 0.0
+        # 1.0 = kernel B3's wrapper ran the learner (its twin on the CPU),
+        # 0.0 = the plain learner did.
+        metrics["learner_impl"] = float(self.kernel_mode)
         return st, metrics

@@ -87,10 +87,12 @@ def env_state_from_jax(st, device=None) -> EnvState:
 
 
 def ddpg_state_from_jax(agent, st, generator=None):
-    """JAX DDPGState of a tree-layout (learner='xla') agent, numpy leaves
-    -> the port's DDPGState for `agent` (a port DDPG of the same config).
-    Optimizer moments, replay ring and counters carry over; the replay
-    sampling generator is the given one (or a fresh one)."""
+    """JAX DDPGState in the tree layout (learner='xla', or a kernel-mode
+    state through the reference's `state_to_tree`), numpy leaves -> the
+    port's DDPGState for `agent` (a port DDPG of the same config), in the
+    agent's native layout. Optimizer moments, replay ring and counters
+    carry over; the replay sampling generator is the given one (or a
+    fresh one)."""
     from ..agents.ddpg import AdamState, DDPGState
     from ..agents.replay import ReplayState
 
@@ -107,7 +109,7 @@ def ddpg_state_from_jax(agent, st, generator=None):
             nu=_in_param_order(module, to_sd(adam_state.nu, h, dev)))
 
     rs = st.replay
-    return DDPGState(
+    return agent.state_from_tree(DDPGState(
         actor=actor,
         critic=critic,
         actor_target=actor_from_flax(st.actor_target, obs_dim, act_dim, h,
@@ -127,4 +129,4 @@ def ddpg_state_from_jax(agent, st, generator=None):
         obs=_t(np.asarray(st.obs, np.float32), dev),
         noise=_t(np.asarray(st.noise, np.float32), dev),
         generator=generator if generator is not None else torch.Generator(),
-        env_steps=int(np.asarray(st.env_steps)))
+        env_steps=int(np.asarray(st.env_steps))))

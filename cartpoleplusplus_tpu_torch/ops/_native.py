@@ -1,16 +1,20 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
-nvcc compiles every csrc/*.cu into one shared library with a plain C
-interface, loaded with ctypes. No PyTorch headers are involved, so the
-build takes seconds. The library is built at first use into `_build/`
-next to the package sources and rebuilt when a source is newer. A failed
-build, a failed load or a failed launch raises: there is no fallback.
+nvcc compiles every csrc/*.cu into an object, one nvcc process per source
+and all of them at once, and links the objects into one shared library
+with a plain C interface, loaded with ctypes. No PyTorch headers are
+involved, so the build takes seconds. The library is built at first use
+into `_build/` next to the package sources and rebuilt when a source is
+newer. A failed build, a failed load or a failed launch raises: there is
+no fallback.
 
 Numerics: `--fmad=false` keeps nvcc from contracting a*b+c into an FMA,
 and no fast-math flag is set, so division and sqrt are IEEE and
 logf/cosf/sinf/tanhf are the accurate CUDA math library functions. The
 kernels then follow the plain torch twins operation by operation, and a
-termination threshold does not flip on a contraction.
+termination threshold does not flip on a contraction. An explicit fmaf()
+is still fused: B3 (csrc/ddpg_update.cu) uses it in its matrix-product
+and batch-sum inner loops only.
 """
 
 from __future__ import annotations
@@ -32,8 +36,7 @@ LIB_PATH = os.path.join(BUILD_DIR, "libcartpole_kernels.so")
 BUILD_LOG = os.path.join(BUILD_DIR, "build.log")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 
@@ -59,7 +62,7 @@ class EnvConsts(ctypes.Structure):
         "has_linear_damping", "has_angular_damping", "has_push")]
 
 
-MAX_LAYERS = 4  # kMaxLayers in csrc/policy_rollout.cu
+MAX_LAYERS = 4  # kMaxLayers in csrc/policy_rollout.cu and ddpg_update.cu
 
 
 class ActorDims(ctypes.Structure):
@@ -68,6 +71,36 @@ class ActorDims(ctypes.Structure):
     _fields_ = [("num_layers", ctypes.c_int), ("obs_dim", ctypes.c_int),
                 ("width", ctypes.c_int),
                 ("hidden", ctypes.c_int * MAX_LAYERS)]
+
+
+class NetLayout(ctypes.Structure):
+    """Mirror of `struct NetLayout` in csrc/ddpg_update.cu: element offsets
+    of one network's parameters in its group buffer (ops/learner_kernel.py
+    documents the layout)."""
+
+    _fields_ = [(n, ctypes.c_int * MAX_LAYERS) for n in "wbst"] + [
+        (n, ctypes.c_int) for n in ("wh", "bh", "size")]
+
+
+class LearnerDims(ctypes.Structure):
+    """Mirror of `struct LearnerDims` in csrc/ddpg_update.cu."""
+
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "num_layers", "obs_dim", "batch", "k_updates", "merged")] + [
+        ("hidden", ctypes.c_int * MAX_LAYERS), ("actor", NetLayout),
+        ("critic", NetLayout)]
+
+
+class LearnerConsts(ctypes.Structure):
+    """Mirror of `struct LearnerConsts` in csrc/ddpg_update.cu: the
+    learner's float32 constants, folded on the host
+    (ops/learner_kernel.py::_learner_consts)."""
+
+    _fields_ = [(n, ctypes.c_float) for n in (
+        "gamma", "tau", "inv_batch", "two_inv_batch", "neg_inv_batch",
+        "b1", "omb1", "b2", "omb2", "eps", "log_b1", "log_b2", "ln_eps",
+        "actor_lr", "critic_lr", "sched_steps", "actor_lr_delta",
+        "critic_lr_delta")] + [("sched", ctypes.c_int)]
 
 
 def env_consts(p: CartPoleParams) -> EnvConsts:
@@ -132,14 +165,43 @@ def build() -> float:
     compiler's output (ptxas register and shared-memory report) goes to
     BUILD_LOG."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    with open(BUILD_LOG, "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    jobs = []
+    for src in _sources():
+        obj = os.path.join(BUILD_DIR,
+                           os.path.basename(src)[:-3] + f".{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    tmp = f"{LIB_PATH}.{tag}"
+    link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+            "-o", tmp, *(obj for _, obj, _ in jobs)]
+    log, failed = [], []
+    try:
+        for cmd, _, proc in jobs:
+            out = proc.communicate(timeout=600)[0]
+            log.append(" ".join(cmd) + "\n" + out)
+            if proc.returncode != 0:
+                failed.append(out)
+        if not failed:
+            proc = subprocess.run(link, capture_output=True, text=True,
+                                  timeout=600)
+            log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(proc.stderr)
+    finally:
+        for _, obj, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(obj):
+                os.remove(obj)
+        with open(BUILD_LOG, "w") as f:
+            f.write("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, LIB_PATH)
     return time.perf_counter() - t0
 
@@ -162,6 +224,11 @@ def load_library() -> ctypes.CDLL:
     lib.cp_policy_rollout.argtypes = ([vp, vp, vp, cf, cf, ci, ci, ci]
                                       + [vp] * 21 + [vp])
     lib.cp_policy_rollout.restype = ci
+    lib.cp_ddpg_workspace_floats.argtypes = [vp]
+    lib.cp_ddpg_workspace_floats.restype = ctypes.c_longlong
+    lib.cp_ddpg_update_phase.argtypes = [vp, vp] + [vp] * 8 + [vp] * 5 + [
+        vp, vp, vp, ci, vp]
+    lib.cp_ddpg_update_phase.restype = ci
     _lib = lib
     return lib
 

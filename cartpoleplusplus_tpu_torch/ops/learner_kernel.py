@@ -1,0 +1,486 @@
+"""Kernel B3, the whole K-update DDPG learner phase: its plain torch twin and
+the wrapper that launches csrc/ddpg_update.cu.
+
+Replaces cartpoleplusplus_tpu/ops/learner_kernel.py::_update_kernel (made by
+`ddpg_update_phase`). Per update k, on the presampled minibatch k:
+
+  1. critic TD step: y = r + gamma (1 - done) Q'(s', mu'(s')), loss
+     mean((Q(s, a) - y)^2), its gradient, Adam;
+  2. actor step: loss -mean(Q(s, mu(s))) through the critic as updated in
+     step 1 (actor_grad_critic="updated") or as it was before it ("pre"),
+     its gradient through dQ/da, Adam;
+  3. Polyak on both targets: t <- t + tau (theta - t).
+
+Adam is optax.adam with the bias corrections computed as 1 - exp(t log b)
+and an optional linear lr schedule keyed on the Adam count (`_sched_lr`).
+The twin below is the same math as the JAX twin (`update_phase_math`,
+learner_kernel.py:506) written over the port's parameter layout.
+
+Parameter layout (the 8 groups). Each of actor, critic, actor target,
+critic target and the four Adam moments (m_a, v_a, m_c, v_c) is ONE
+contiguous float32 buffer holding the network's parameters in
+`module.parameters()` order, each row-major in its torch shape:
+
+    torso.0.weight (H0, in0), torso.0.bias (H0), ..., torso.{L-1}.*,
+    norms.0.weight (H0), norms.0.bias (H0), ..., norms.{L-1}.*,
+    head.weight (out, H_{L-1}), head.bias (out)
+
+with in0 = obs_dim and in_l = H_{l-1}, except the critic's layer 1, whose
+weight is (H1, H0 + action_dim): the action columns come last (the critic
+joins the action after its first layer). The actor's head has out = 2,
+the critic's out = 1. `actor_layout`/`critic_layout` give the (name, shape)
+lists; agents/ddpg.py binds the modules' parameters and the Adam moments as
+views of these buffers, so the kernel reads and updates them in place.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from . import _native
+
+_LN_EPS = 1e-6       # flax.linen.LayerNorm default epsilon
+_ADAM_B1 = 0.9       # optax.adam defaults
+_ADAM_B2 = 0.999
+_ADAM_EPS = 1e-8
+ACTION_DIM = 2
+MAX_WIDTH = 1024     # kMaxWidth in csrc/ddpg_update.cu (shared memory)
+
+
+def _f32(x) -> float:
+    """A host constant folded in double and rounded to float32 once, as the
+    JAX twin's np.float32(...) constants are."""
+    return float(np.float32(x))
+
+
+# --------------------------------------------------------------------------
+# The layout of one group buffer.
+# --------------------------------------------------------------------------
+
+def _mlp_layout(ins, hidden, out: int) -> list:
+    n = len(hidden)
+    lay = []
+    for i in range(n):
+        lay += [(f"torso.{i}.weight", (hidden[i], ins[i])),
+                (f"torso.{i}.bias", (hidden[i],))]
+    for i in range(n):
+        lay += [(f"norms.{i}.weight", (hidden[i],)),
+                (f"norms.{i}.bias", (hidden[i],))]
+    return lay + [("head.weight", (out, hidden[-1])), ("head.bias", (out,))]
+
+
+def actor_layout(obs_dim: int, hidden: Sequence[int]) -> list:
+    """(name, shape) of ActorMLP's parameters, in parameters() order."""
+    hidden = tuple(hidden)
+    return _mlp_layout((obs_dim,) + hidden[:-1], hidden, ACTION_DIM)
+
+
+def critic_layout(obs_dim: int, hidden: Sequence[int]) -> list:
+    """(name, shape) of CriticMLP's parameters (>= 2 hidden layers)."""
+    hidden = tuple(hidden)
+    ins = (obs_dim, hidden[0] + ACTION_DIM) + hidden[1:-1]
+    return _mlp_layout(ins, hidden, 1)
+
+
+def layout_size(layout) -> int:
+    return sum(int(np.prod(shape)) for _, shape in layout)
+
+
+def group_views(buf: torch.Tensor, layout) -> list:
+    """The parameters of one group as views of its flat buffer."""
+    views, off = [], 0
+    for _, shape in layout:
+        n = int(np.prod(shape))
+        views.append(buf[off:off + n].view(shape))
+        off += n
+    return views
+
+
+def covers(obs_dim: int, hidden: Sequence[int]) -> bool:
+    """The shapes B3 takes: 2 to 4 hidden layers (the action joins at
+    layer 1) and every layer input within the shared-memory row width."""
+    hidden = tuple(hidden)
+    return (2 <= len(hidden) <= _native.MAX_LAYERS
+            and max((obs_dim,) + hidden) + ACTION_DIM <= MAX_WIDTH)
+
+
+# --------------------------------------------------------------------------
+# Batch-major MLP math. Activations are (B, F); weights are torch Linear
+# (out, in). Every function mirrors the JAX function of the same name.
+# --------------------------------------------------------------------------
+
+def _ln_relu(z, s, t):
+    """LayerNorm over features (one-pass variance, no clamp) + affine +
+    relu. Returns (activation, xhat, inv, y)."""
+    mu = z.mean(1, keepdim=True)
+    var = (z * z).mean(1, keepdim=True) - mu * mu
+    inv = torch.rsqrt(var + _LN_EPS)
+    xh = (z - mu) * inv
+    y = xh * s + t
+    return torch.relu(y), xh, inv, y
+
+
+def _ln_relu_bwd(dh, z, s, t):
+    """Backward through relu + affine + LayerNorm for upstream dh, with the
+    LN intermediates recomputed from the pre-LN z. Returns (dz, ds, dt)."""
+    _, xh, inv, y = _ln_relu(z, s, t)
+    dy = dh * (y > 0.0).to(dh.dtype)
+    ds = (dy * xh).sum(0)
+    dt = dy.sum(0)
+    dxh = dy * s
+    dz = inv * (dxh - dxh.mean(1, keepdim=True)
+                - xh * (dxh * xh).mean(1, keepdim=True))
+    return dz, ds, dt
+
+
+def _unpack(flat, n: int):
+    """A group's parameter list -> (Ws, bs, LN scales, LN biases, head W,
+    head b)."""
+    return (flat[0:2 * n:2], flat[1:2 * n:2], flat[2 * n:4 * n:2],
+            flat[2 * n + 1:4 * n:2], flat[4 * n], flat[4 * n + 1])
+
+
+def _pack(ws, bs, ss, ts, wh, bh) -> list:
+    return ([x for pair in zip(ws, bs) for x in pair]
+            + [x for pair in zip(ss, ts) for x in pair] + [wh, bh])
+
+
+def mlp_fwd(obs, flat, hidden):
+    """Torso + linear head. Returns (head pre-activation (B, out),
+    residue)."""
+    ws, bs, ss, ts, wh, bh = _unpack(flat, len(hidden))
+    h, saved = obs, []
+    for i in range(len(hidden)):
+        z = h @ ws[i].t() + bs[i]
+        saved.append((h, z))
+        h = _ln_relu(z, ss[i], ts[i])[0]
+    return h @ wh.t() + bh, (saved, h)
+
+
+def mlp_bwd(dpre, flat, hidden, residue):
+    """Grads for upstream d(pre-activation) (B, out), in `flat`'s order."""
+    n = len(hidden)
+    ws, bs, ss, ts, wh, bh = _unpack(flat, n)
+    saved, h_last = residue
+    dwh = dpre.t() @ h_last
+    dbh = dpre.sum(0)
+    dh = dpre @ wh
+    dws, dbs, dss, dts = [None] * n, [None] * n, [None] * n, [None] * n
+    for i in reversed(range(n)):
+        h_in, z = saved[i]
+        dz, dss[i], dts[i] = _ln_relu_bwd(dh, z, ss[i], ts[i])
+        dws[i] = dz.t() @ h_in
+        dbs[i] = dz.sum(0)
+        if i > 0:
+            dh = dz @ ws[i]
+    return _pack(dws, dbs, dss, dts, dwh, dbh)
+
+
+def actor_fwd(obs, flat, hidden):
+    """Returns (a (B, 2), residue)."""
+    pre, res = mlp_fwd(obs, flat, hidden)
+    a = torch.tanh(pre)
+    return a, res + (a,)
+
+
+def actor_bwd(da, flat, hidden, residue):
+    saved, h_last, a = residue
+    return mlp_bwd(da * (1.0 - a * a), flat, hidden, (saved, h_last))
+
+
+def critic_fwd(obs, act, flat, hidden):
+    """Q(s, a) (B, 1); the action joins layer 1 as the split product
+    h0 W1h^T + a W1a^T."""
+    n, h0_dim = len(hidden), hidden[0]
+    ws, bs, ss, ts, wh, bh = _unpack(flat, n)
+    z0 = obs @ ws[0].t() + bs[0]
+    h0 = _ln_relu(z0, ss[0], ts[0])[0]
+    z1 = (h0 @ ws[1][:, :h0_dim].t() + act @ ws[1][:, h0_dim:].t()
+          + bs[1])
+    h = _ln_relu(z1, ss[1], ts[1])[0]
+    saved = [(obs, z0), (h0, z1)]
+    for i in range(2, n):
+        z = h @ ws[i].t() + bs[i]
+        saved.append((h, z))
+        h = _ln_relu(z, ss[i], ts[i])[0]
+    return h @ wh.t() + bh, (saved, h, act)
+
+
+def critic_bwd(dq, flat, hidden, residue, need_param_grads: bool,
+               need_daction: bool):
+    """Backward through critic_fwd for upstream dq (B, 1). Returns (grads
+    in `flat`'s order or None, d action (B, 2) or None)."""
+    n, h0_dim = len(hidden), hidden[0]
+    ws, bs, ss, ts, wh, bh = _unpack(flat, n)
+    saved, h_last, act = residue
+    dws, dbs, dss, dts = [None] * n, [None] * n, [None] * n, [None] * n
+    dwh = dq.t() @ h_last
+    dbh = dq.sum(0)
+    dh = dq @ wh
+    for i in reversed(range(2, n)):
+        h_in, z = saved[i]
+        dz, dss[i], dts[i] = _ln_relu_bwd(dh, z, ss[i], ts[i])
+        dws[i] = dz.t() @ h_in
+        dbs[i] = dz.sum(0)
+        dh = dz @ ws[i]
+    h0, z1 = saved[1]
+    dz1, dss[1], dts[1] = _ln_relu_bwd(dh, z1, ss[1], ts[1])
+    daction = dz1 @ ws[1][:, h0_dim:] if need_daction else None
+    if not need_param_grads:
+        return None, daction
+    dws[1] = torch.cat([dz1.t() @ h0, dz1.t() @ act], dim=1)
+    dbs[1] = dz1.sum(0)
+    obs, z0 = saved[0]
+    dz0, dss[0], dts[0] = _ln_relu_bwd(dz1 @ ws[1][:, :h0_dim], z0, ss[0],
+                                       ts[0])
+    dws[0] = dz0.t() @ obs
+    dbs[0] = dz0.sum(0)
+    return _pack(dws, dbs, dss, dts, dwh, dbh), daction
+
+
+def critic_phase_block(actor_t, critic, critic_t, obs, nobs, act, rew,
+                       done, gamma: float, inv_batch: float, hidden):
+    """Critic-TD gradient of one minibatch; rew/done are (B, 1) float.
+    Returns (critic grads, loss)."""
+    a_next = actor_fwd(nobs, actor_t, hidden)[0]
+    q_next = critic_fwd(nobs, a_next, critic_t, hidden)[0]
+    y = rew + _f32(gamma) * (1.0 - done) * q_next
+    q, residue = critic_fwd(obs, act, critic, hidden)
+    td = q - y
+    grads, _ = critic_bwd(_f32(2.0 * inv_batch) * td, critic, hidden,
+                          residue, need_param_grads=True, need_daction=False)
+    return grads, _f32(inv_batch) * (td * td).sum()
+
+
+def actor_phase_block(actor, critic, obs, inv_batch: float, hidden):
+    """Gradient of -mean Q(s, pi(s)) with respect to the actor, through
+    `critic`. Returns (actor grads, loss)."""
+    a, res_a = actor_fwd(obs, actor, hidden)
+    q, res_c = critic_fwd(obs, a, critic, hidden)
+    _, daction = critic_bwd(torch.full_like(q, _f32(-inv_batch)), critic,
+                            hidden, res_c, need_param_grads=False,
+                            need_daction=True)
+    return actor_bwd(daction, actor, hidden, res_a), \
+        _f32(-inv_batch) * q.sum()
+
+
+# --------------------------------------------------------------------------
+# Adam and Polyak (componentwise).
+# --------------------------------------------------------------------------
+
+def _bias_corrections(tk: float):
+    """(1 - b1^t, 1 - b2^t) as exp(t log b) in float32 (the kernel's form;
+    t is the Adam count after the update)."""
+    t = np.float32(tk)
+    return tuple(float(np.float32(1.0) - np.exp(t * np.float32(np.log(b))))
+                 for b in (_ADAM_B1, _ADAM_B2))
+
+
+def adam_step(p, m, v, g, bc1: float, bc2: float, lr: float):
+    """One optax.adam step: returns (p', m', v')."""
+    m = _f32(_ADAM_B1) * m + _f32(1.0 - _ADAM_B1) * g
+    v = _f32(_ADAM_B2) * v + _f32(1.0 - _ADAM_B2) * (g * g)
+    p = p - lr * (m / bc1) / (torch.sqrt(v / bc2) + _f32(_ADAM_EPS))
+    return p, m, v
+
+
+def _sched_lr(lr: float, sched, tk: float) -> float:
+    """optax.linear_schedule twin keyed on the Adam count: sched =
+    (end_frac, transition_steps) or None (constant). tk is the count after
+    the update, so the schedule count is tk - 1:
+    lr(c) = lr + (lr end_frac - lr) min(c / T, 1), in float32."""
+    if sched is None:
+        return _f32(lr)
+    end_frac, steps = sched
+    frac = min((np.float32(tk) - np.float32(1.0)) / np.float32(steps),
+               np.float32(1.0))
+    return float(np.float32(lr) + frac * np.float32(lr * end_frac - lr))
+
+
+def polyak_flat(target_list, online_list, tau: float):
+    """theta' <- theta' + tau (theta - theta') over parameter lists."""
+    return [t + _f32(tau) * (o - t) for t, o in zip(target_list, online_list)]
+
+
+@torch.no_grad()
+def update_phase_math(actor, critic, actor_t, critic_t, m_a, v_a, m_c, v_c,
+                      batches, t0: int, hidden, *, actor_lr, critic_lr,
+                      gamma, tau, actor_grad_critic: str = "updated",
+                      lr_schedule=None):
+    """K sequential DDPG updates on parameter lists (the layout above, one
+    list per group). batches: (obs (K, B, F), action (K, B, 2), reward
+    (K, B), next_obs (K, B, F), done (K, B)); t0 is the Adam count before
+    the phase. Returns (actor, critic, actor_t, critic_t, m_a, v_a, m_c,
+    v_c, closs (K,), aloss (K,)) as new tensors."""
+    hidden = tuple(hidden)
+    k_updates, bm = batches[0].shape[0], batches[0].shape[1]
+    inv = 1.0 / bm
+    closses, alosses = [], []
+    for k in range(k_updates):
+        obs, act, rew, nobs, done = (x[k] for x in batches)
+        rew = rew[:, None]
+        done = done.to(torch.float32)[:, None]
+        tk = float(t0 + k + 1)
+        bc1, bc2 = _bias_corrections(tk)
+        cg, closs = critic_phase_block(actor_t, critic, critic_t, obs, nobs,
+                                       act, rew, done, gamma, inv, hidden)
+        pre_critic = critic
+        lr = _sched_lr(critic_lr, lr_schedule, tk)
+        new = [adam_step(p, m, v, g, bc1, bc2, lr)
+               for p, m, v, g in zip(critic, m_c, v_c, cg)]
+        critic, m_c, v_c = ([x[i] for x in new] for i in range(3))
+        actor_critic = pre_critic if actor_grad_critic == "pre" else critic
+        ag, aloss = actor_phase_block(actor, actor_critic, obs, inv, hidden)
+        lr = _sched_lr(actor_lr, lr_schedule, tk)
+        new = [adam_step(p, m, v, g, bc1, bc2, lr)
+               for p, m, v, g in zip(actor, m_a, v_a, ag)]
+        actor, m_a, v_a = ([x[i] for x in new] for i in range(3))
+        actor_t = polyak_flat(actor_t, actor, tau)
+        critic_t = polyak_flat(critic_t, critic, tau)
+        closses.append(closs)
+        alosses.append(aloss)
+    return (actor, critic, actor_t, critic_t, m_a, v_a, m_c, v_c,
+            torch.stack(closses), torch.stack(alosses))
+
+
+# --------------------------------------------------------------------------
+# The wrapper.
+# --------------------------------------------------------------------------
+
+# Workspaces by (device, stream, shape): a call reuses its stream's buffer
+# once the previous phase on that stream has finished with it.
+_workspaces: dict = {}
+
+
+def _check(t, shape, dtype, dev, what):
+    if (t.device != dev or tuple(t.shape) != tuple(shape)
+            or t.dtype != dtype or not t.is_contiguous()):
+        raise ValueError(f"{what}: {tuple(t.shape)} {t.dtype} on {t.device}"
+                         f"{'' if t.is_contiguous() else ' (strided)'}; want "
+                         f"contiguous {tuple(shape)} {dtype} on {dev}")
+
+
+def _layout_offsets(layout, n: int):
+    """NetLayout: element offsets of each parameter in a group buffer."""
+    offs, o = [], 0
+    for _, shape in layout:
+        offs.append(o)
+        o += int(np.prod(shape))
+    net = _native.NetLayout(wh=offs[4 * n], bh=offs[4 * n + 1], size=o)
+    for i in range(n):
+        net.w[i], net.b[i] = offs[2 * i], offs[2 * i + 1]
+        net.s[i], net.t[i] = offs[2 * n + 2 * i], offs[2 * n + 2 * i + 1]
+    return net
+
+
+def _learner_consts(*, batch, actor_lr, critic_lr, gamma, tau,
+                    lr_schedule) -> "_native.LearnerConsts":
+    """The float32 constants of the twin, folded on the host."""
+    end_frac, steps = lr_schedule if lr_schedule is not None else (1.0, 1)
+    return _native.LearnerConsts(
+        gamma=_f32(gamma), tau=_f32(tau), inv_batch=_f32(1.0 / batch),
+        two_inv_batch=_f32(2.0 / batch), neg_inv_batch=_f32(-1.0 / batch),
+        b1=_f32(_ADAM_B1), omb1=_f32(1.0 - _ADAM_B1), b2=_f32(_ADAM_B2),
+        omb2=_f32(1.0 - _ADAM_B2), eps=_f32(_ADAM_EPS),
+        log_b1=_f32(np.float32(np.log(_ADAM_B1))),
+        log_b2=_f32(np.float32(np.log(_ADAM_B2))),
+        ln_eps=_f32(_LN_EPS), actor_lr=_f32(actor_lr),
+        critic_lr=_f32(critic_lr), sched_steps=_f32(steps),
+        actor_lr_delta=_f32(actor_lr * end_frac - actor_lr),
+        critic_lr_delta=_f32(critic_lr * end_frac - critic_lr),
+        sched=int(lr_schedule is not None))
+
+
+@torch.no_grad()
+def ddpg_update_phase(groups, batches, t0: int, hidden, *, actor_lr: float,
+                      critic_lr: float, gamma: float, tau: float,
+                      actor_grad_critic: str = "updated", lr_schedule=None):
+    """B3: K DDPG updates on the 8 group buffers, IN PLACE.
+
+    groups = (actor, critic, actor_t, critic_t, m_a, v_a, m_c, v_c), each a
+    contiguous 1-D float32 buffer in the layout of this module's docstring;
+    batches as `update_phase_math` takes them; t0 the Adam count before the
+    phase. Returns (closs (K,), aloss (K,)).
+
+    CUDA buffers launch the hand-written kernel (csrc/ddpg_update.cu) once,
+    on the current stream; CPU buffers run `update_phase_math` and copy its
+    results into the buffers. Any other device, a shape B3 does not cover
+    (`covers`), or a malformed argument raises."""
+    hidden = tuple(hidden)
+    obs = batches[0]
+    dev = groups[0].device
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"ddpg_update_phase runs on cuda or cpu, not {dev}")
+    if len(groups) != 8 or len(batches) != 5 or obs.dim() != 3:
+        raise ValueError("want 8 group buffers and 5 batch tensors")
+    k_updates, batch, obs_dim = obs.shape
+    if not covers(obs_dim, hidden):
+        raise ValueError(f"obs {obs_dim}, hidden {hidden}: not covered by "
+                         f"B3 (ops.learner_kernel.covers)")
+    if actor_grad_critic not in ("updated", "pre"):
+        raise ValueError(f"actor_grad_critic={actor_grad_critic!r}")
+    if k_updates < 1 or batch < 1:
+        raise ValueError(f"K {k_updates}, batch {batch}: need >= 1 each")
+    lay_a, lay_c = actor_layout(obs_dim, hidden), critic_layout(obs_dim,
+                                                                hidden)
+    lays = (lay_a, lay_c, lay_a, lay_c, lay_a, lay_a, lay_c, lay_c)
+    for i, (g, lay) in enumerate(zip(groups, lays)):
+        _check(g, (layout_size(lay),), torch.float32, dev, f"group {i}")
+    for t, shape, dtype, what in (
+            (batches[0], (k_updates, batch, obs_dim), torch.float32, "obs"),
+            (batches[1], (k_updates, batch, ACTION_DIM), torch.float32,
+             "action"),
+            (batches[2], (k_updates, batch), torch.float32, "reward"),
+            (batches[3], (k_updates, batch, obs_dim), torch.float32,
+             "next_obs"),
+            (batches[4], (k_updates, batch), torch.bool, "done")):
+        _check(t, shape, dtype, dev, what)
+    kw = dict(actor_lr=actor_lr, critic_lr=critic_lr, gamma=gamma, tau=tau)
+
+    if dev.type == "cpu":
+        views = [group_views(g, lay) for g, lay in zip(groups, lays)]
+        out = update_phase_math(*views, batches, t0, hidden,
+                                actor_grad_critic=actor_grad_critic,
+                                lr_schedule=lr_schedule, **kw)
+        for dst, src in zip(views, out[:8]):
+            for d, s in zip(dst, src):
+                d.copy_(s)
+        return out[8], out[9]
+
+    n = len(hidden)
+    dims = _native.LearnerDims(
+        num_layers=n, obs_dim=obs_dim, batch=batch, k_updates=k_updates,
+        merged=int(actor_grad_critic == "pre"),
+        actor=_layout_offsets(lay_a, n), critic=_layout_offsets(lay_c, n))
+    for i, h in enumerate(hidden):
+        dims.hidden[i] = h
+    consts = _learner_consts(batch=batch, lr_schedule=lr_schedule, **kw)
+    lib = _native.load_library()
+    closs = torch.empty(k_updates, dtype=torch.float32, device=dev)
+    aloss = torch.empty(k_updates, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        key = (dev, stream, obs_dim, batch, k_updates, hidden)
+        ws = _workspaces.get(key)
+        if ws is None:
+            size = lib.cp_ddpg_workspace_floats(_native.struct_ptr(dims))
+            if size <= 0:
+                raise ValueError(f"B3 rejected dims {key}")
+            ws = _workspaces[key] = torch.empty(size, dtype=torch.float32,
+                                                device=dev)
+        rc = lib.cp_ddpg_update_phase(
+            _native.struct_ptr(dims), _native.struct_ptr(consts),
+            *(g.data_ptr() for g in groups),
+            *(b.data_ptr() for b in batches),
+            closs.data_ptr(), aloss.data_ptr(), ws.data_ptr(),
+            ctypes.c_int(int(t0)), stream)
+    _native.check(lib, rc, "ddpg_update_phase")
+    ddpg_update_phase.launches += 1
+    return closs, aloss
+
+
+ddpg_update_phase.launches = 0

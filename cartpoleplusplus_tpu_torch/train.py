@@ -7,9 +7,11 @@ Usage:
 
 Prints one JSON line of metrics every --log-interval train steps and, with
 --final-eval, one line of greedy-policy episode statistics. On a CUDA
-device each train step's rollout runs kernel B2; a shape B2 does not
-cover is an error there. `--device cuda` without a visible GPU is an
-error, never a silent CPU run. Checkpoints, the event
+device each train step's rollout runs kernel B2 (a shape B2 does not
+cover is an error there) and, at `--ddpg.learner auto` (the default),
+each learning step's K updates run kernel B3 where it covers the config
+(`learner_impl` in the metrics says which learner ran). `--device cuda`
+without a visible GPU is an error, never a silent CPU run. Checkpoints, the event
 log, presets and the canary, and the device mesh are not ported yet: their
 flags are rejected.
 """

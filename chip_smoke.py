@@ -10,13 +10,19 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      card, 4096 envs x 25 steps, discrete and continuous params;
   4. B2 (DDPG actor-in-the-loop rollout kernel) against its twin, 4096
      envs, hidden (256, 256), 3 steps, seeded random actor weights;
+  4b. B3 (the fused K-update DDPG learner kernel) against its twin at the
+     CLI defaults (hidden (256, 256), obs 42, batch 256, K 16) from warmed
+     Adam moments: all 8 parameter groups and both loss vectors, two runs
+     bit for bit, and the "pre" / lr-schedule variant at K 4;
   5. main path with the launch counters zeroed: the train CLI
      (`train.main`) at its defaults for 64 env-steps (8 train steps) plus
-     a 200-step greedy eval; B2 must launch once per train step;
+     a 200-step greedy eval; B2 must launch once per train step and B3
+     once per learning train step (7: the warmup is 16 env-steps);
   6. with the counters zeroed again: the physics-only rollout that the
      benchmark times (4096 envs x 4096 steps), which must launch B1;
-  7. where a default train step's time goes (CUDA events per part, and
-     torch.profiler's device time of one step).
+  7. where a default train step's time goes (CUDA events per part, the B3
+     phase beside the plain learner's 16 updates, and torch.profiler's
+     device time and kernel count of one step).
 Then one JSON line of per-kernel numbers and, last, the device line.
 The script imports no JAX and nothing of the JAX package.
 """
@@ -36,6 +42,11 @@ N_ENVS = 4096
 B1_STEPS = 25           # compared window (tests/test_ops.py's length)
 B2_STEPS = 3            # compared window (tests/test_policy_rollout.py's)
 B2_TIME_STEPS = 8       # DDPG's rollout_steps: the main-path call shape
+B3_BATCH, B3_K = 256, 16  # DDPG's batch_size and updates_per_step
+B3_T0 = 100             # Adam count of the warmed state B3 starts from
+# B3 against its twin after K updates: the reference's kernel-vs-XLA bar
+# (tests/test_learner_kernel.py), float32 sums in different orders.
+B3_RTOL, B3_ATOL = 2e-4, 1e-5
 BENCH_STEPS = 4096      # the physics-only benchmark's rollout length
 SPLIT_ROUNDS = 3        # round-robin passes over the train-step parts
 
@@ -162,23 +173,146 @@ def phase_b2(dev):
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
 
 
+def _b3_inputs(dev, hidden, batch, k, seed):
+    """The 8 learner group buffers and K minibatches, from a seed: DDPG's
+    nets with the LayerNorm parameters and heads redrawn, targets near
+    them, and warmed Adam moments (m ~ 1e-2, v ~ 1e-4)."""
+    import torch
+
+    from cartpoleplusplus_tpu_torch.models import ActorMLP, CriticMLP
+
+    g = torch.Generator().manual_seed(seed)
+
+    def flat(net):
+        with torch.no_grad():
+            for prm in list(net.norms.parameters()) + list(
+                    net.head.parameters()):
+                prm.add_(0.2 * torch.randn(prm.shape, generator=g))
+        return torch.cat([p.detach().reshape(-1) for p in net.parameters()])
+
+    actor = flat(ActorMLP(42, 2, hidden, generator=g))
+    critic = flat(CriticMLP(42, 2, hidden, generator=g))
+
+    def near(x):
+        return x + 0.01 * torch.randn(x.shape, generator=g)
+
+    def moments(x):
+        return (1e-2 * torch.randn(x.shape, generator=g),
+                (1e-2 * torch.randn(x.shape, generator=g)) ** 2 + 1e-5)
+
+    groups = [actor, critic, near(actor), near(critic), *moments(actor),
+              *moments(critic)]
+    obs = 0.3 * torch.randn((k, batch, 42), generator=g)
+    batches = (obs, torch.rand((k, batch, 2), generator=g) * 2 - 1,
+               torch.rand((k, batch), generator=g),
+               obs + 0.05 * torch.randn(obs.shape, generator=g),
+               torch.rand((k, batch), generator=g) < 0.1)
+    return ([x.to(dev) for x in groups], tuple(x.to(dev) for x in batches))
+
+
+def _b3_compare(dev, hidden, k, **kw):
+    """B3 and its twin on the same inputs: max abs error over the 8 groups
+    and both loss vectors (held to B3_RTOL/B3_ATOL), and whether a second
+    run of the kernel gave the same bits."""
+    import torch
+
+    from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
+
+    groups, batches = _b3_inputs(dev, hidden, B3_BATCH, k, seed=21)
+    lay_a, lay_c = lk.actor_layout(42, hidden), lk.critic_layout(42, hidden)
+    lays = (lay_a, lay_c, lay_a, lay_c, lay_a, lay_a, lay_c, lay_c)
+    want = lk.update_phase_math(
+        *[lk.group_views(g, lay) for g, lay in zip(groups, lays)], batches,
+        B3_T0, hidden, **kw)
+    runs = []
+    for _ in range(2):
+        got = [g.clone() for g in groups]
+        losses = lk.ddpg_update_phase(got, batches, B3_T0, hidden, **kw)
+        torch.cuda.synchronize()
+        runs.append((got, losses))
+    (got, (closs, aloss)), (got2, losses2) = runs
+    bitwise = (all(torch.equal(a, b) for a, b in zip(got, got2))
+               and all(torch.equal(a, b) for a, b in zip((closs, aloss),
+                                                          losses2)))
+    names = ("actor", "critic", "actor_t", "critic_t", "m_a", "v_a", "m_c",
+             "v_c")
+    errs = {}
+    for name, g, lay, w in zip(names, got, lays, want[:8]):
+        errs[name] = max(_close(f"B3 {name} {pname}", v, x, B3_RTOL, B3_ATOL)
+                         for (pname, _), v, x in zip(
+                             lay, lk.group_views(g, lay), w))
+    errs["closs"] = _close("B3 closs", closs, want[8], B3_RTOL, B3_ATOL)
+    errs["aloss"] = _close("B3 aloss", aloss, want[9], B3_RTOL, B3_ATOL)
+    return errs, bitwise, groups, batches
+
+
+def phase_b3(dev):
+    from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
+
+    hidden = (256, 256)
+    kw = dict(actor_lr=1e-4, critic_lr=1e-3, gamma=0.99, tau=0.01)
+    errs, bitwise, groups, batches = _b3_compare(dev, hidden, B3_K, **kw)
+    assert bitwise, "B3: two runs on the same inputs differ"
+    v_errs, v_bitwise, _, _ = _b3_compare(
+        dev, hidden, 4, actor_grad_critic="pre", lr_schedule=(0.1, 50), **kw)
+    assert v_bitwise, "B3 pre/schedule: two runs differ"
+    args = (batches, B3_T0, hidden)
+    ms = _time_ms(lambda: lk.ddpg_update_phase(groups, *args, **kw), 20)
+    lay_a, lay_c = lk.actor_layout(42, hidden), lk.critic_layout(42, hidden)
+    views = [lk.group_views(g, lay) for g, lay in zip(
+        groups, (lay_a, lay_c, lay_a, lay_c, lay_a, lay_a, lay_c, lay_c))]
+    plain_ms = _time_ms(lambda: lk.update_phase_math(*views, *args, **kw), 3)
+    flop = B3_K * _b3_update_flop(hidden, B3_BATCH)
+    print(f"B3: max_abs_err {' '.join(f'{k} {v:.3g}' for k, v in errs.items())}"
+          f" (rtol {B3_RTOL}, atol {B3_ATOL}); two runs bitwise equal; pre + "
+          f"lr schedule at K 4: max_abs_err {max(v_errs.values()):.3g}, "
+          f"bitwise equal; batch {B3_BATCH} x K {B3_K}, hidden (256, 256): "
+          f"kernel {ms:.4f} ms ({flop / ms / 1e9:.4g} TFLOP/s of learner "
+          f"matmul), plain {plain_ms:.2f} ms", flush=True)
+    return dict(max_abs_err=max(list(errs.values()) + list(v_errs.values())),
+                ms=ms, plain_ms=plain_ms)
+
+
+def _b3_update_flop(hidden, batch) -> int:
+    """Matrix-product FLOPs of one DDPG update at two hidden layers (~344
+    MFLOP at the defaults): the target actor and critic, the critic's
+    forward, backward to layer 0 and weight grads, then the actor's and
+    the critic's forward, dQ/da, and the actor's backward and weight
+    grads."""
+    h0, h1 = hidden
+    actor = 42 * h0 + h0 * h1 + 2 * h1          # forward MACs per row
+    critic = 42 * h0 + (h0 + 2) * h1 + h1
+    macs = (actor + critic
+            + critic + (h1 + h0 * h1) + critic
+            + actor + critic + (h1 + 2 * h1)
+            + (2 * h1 + h0 * h1) + actor)
+    return 2 * batch * macs
+
+
 def _zero_counts():
     from cartpoleplusplus_tpu_torch.ops.fused_rollout import fused_rollout
+    from cartpoleplusplus_tpu_torch.ops.learner_kernel import \
+        ddpg_update_phase
     from cartpoleplusplus_tpu_torch.ops.policy_rollout import policy_rollout
 
     fused_rollout.launches = 0
     policy_rollout.launches = 0
+    ddpg_update_phase.launches = 0
 
 
 def _read_counts() -> dict:
     from cartpoleplusplus_tpu_torch.ops.fused_rollout import fused_rollout
+    from cartpoleplusplus_tpu_torch.ops.learner_kernel import \
+        ddpg_update_phase
     from cartpoleplusplus_tpu_torch.ops.policy_rollout import policy_rollout
 
-    return {"B1": fused_rollout.launches, "B2": policy_rollout.launches}
+    return {"B1": fused_rollout.launches, "B2": policy_rollout.launches,
+            "B3": ddpg_update_phase.launches}
 
 
 def phase_main_path():
-    """The train CLI at its defaults: every rollout must go through B2."""
+    """The train CLI at its defaults: every rollout must go through B2 and
+    every learning step's update phase through B3."""
     from cartpoleplusplus_tpu_torch import train
 
     total_env_steps, rollout = 64, 8
@@ -200,9 +334,11 @@ def phase_main_path():
     assert launches["B2"] == n_train, f"B2 launched {launches['B2']} times"
     for m in lines:
         assert all(math.isfinite(v) for v in m.values()), m
-    assert all(m["learner_impl"] == 0.0 and m["rollout_impl"] == 1.0
-               for m in steps)
     learned = [m for m in steps if m["env_steps"] >= 16]  # past warmup
+    assert launches["B3"] == len(learned) == n_train - 1, \
+        f"B3 launched {launches['B3']} times for {len(learned)} learning steps"
+    assert all(m["learner_impl"] == 1.0 and m["rollout_impl"] == 1.0
+               for m in steps)
     assert learned and all(m["critic_loss"] > 0.0 for m in learned)
     assert 0 < ev["eval_mean_episode_length"] <= 200 and ev["eval_episodes"] > 0
     for m in steps:
@@ -216,7 +352,7 @@ def phase_main_path():
           f"train step over the run, train.main total {train_s:.2f} s incl. "
           f"init and eval); eval {json.dumps(ev)}; launches {launches}",
           flush=True)
-    return launches["B2"]
+    return launches
 
 
 def phase_physics_rollout(dev):
@@ -236,7 +372,7 @@ def phase_physics_rollout(dev):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = _read_counts()
-    assert launches == {"B1": 1, "B2": 0}, launches
+    assert launches == {"B1": 1, "B2": 0, "B3": 0}, launches
     assert math.isfinite(float(checksum))
     assert int(final.steps.max()) < 200 and int(final.episode.min()) > 0
     print(f"physics-only rollout: {N_ENVS}x{BENCH_STEPS} in {secs:.4f} s "
@@ -260,8 +396,9 @@ def _device_ms(prof) -> tuple:
 def phase_step_split(dev):
     """Where a train step at the CLI defaults goes: the whole step and each
     of its parts, timed alone with CUDA events (mean of a few runs after a
-    warm-up, past the learner's warmup), and the device time of one step
-    from torch.profiler."""
+    warm-up, past the learner's warmup), with the plain learner's 16
+    updates beside the B3 phase that replaced them, and the device time and
+    kernel count of one step from torch.profiler."""
     import argparse
 
     import torch
@@ -269,12 +406,14 @@ def phase_step_split(dev):
 
     from cartpoleplusplus_tpu_torch import train
     from cartpoleplusplus_tpu_torch.config import RunConfig, from_args
+    from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
     from cartpoleplusplus_tpu_torch.ops.policy_rollout import policy_rollout
 
     ap = train.build_parser()
     args: argparse.Namespace = ap.parse_args([])
     _, agent = train.build(from_args(RunConfig, args), args, set())
     c = agent.cfg
+    assert agent.kernel_mode, "the CLI defaults did not resolve to B3"
     st = agent.init(0)
     for _ in range(3):  # 24 env-steps: past the 16-step warmup
         st, _ = agent.train_step(st)
@@ -285,10 +424,15 @@ def phase_step_split(dev):
     batches = agent.replay.presample_columns(
         st.replay, c.batch_size, c.updates_per_step, generator=st.generator)
 
-    def updates():
+    def plain_updates():
         s = st
         for k in range(c.updates_per_step):
             s, _ = agent._update_once(s, tuple(x[k] for x in batches))
+
+    def b3_phase():
+        lk.ddpg_update_phase(st.groups, batches, st.actor_opt.count,
+                             c.hidden, actor_lr=c.actor_lr,
+                             critic_lr=c.critic_lr, gamma=c.gamma, tau=c.tau)
 
     parts = {
         "whole train step": (lambda: agent.train_step(st), 5),
@@ -300,7 +444,9 @@ def phase_step_split(dev):
         "column presample": (lambda: agent.replay.presample_columns(
             st.replay, c.batch_size, c.updates_per_step,
             generator=st.generator), 20),
-        f"{c.updates_per_step} learner updates": (updates, 5),
+        f"B3 learner phase (K = {c.updates_per_step})": (b3_phase, 20),
+        f"plain learner, {c.updates_per_step} updates (not in the step)": (
+            plain_updates, 3),
     }
     # Host dispatch bounds these times, so they drift with the host's load:
     # time the parts round-robin and keep each one's median round.
@@ -316,7 +462,8 @@ def phase_step_split(dev):
         torch.cuda.synchronize()
     dev_ms, n_kernels = _device_ms(prof)
     whole = ms["whole train step"]
-    rest = whole - sum(v for k, v in ms.items() if k != "whole train step")
+    rest = whole - sum(v for k, v in ms.items()
+                       if k != "whole train step" and "not in" not in k)
     idle = (f"{1.0 - dev_ms / whole:.4f}" if dev_ms > 0 else "not measured")
     print("train-step split (ms, median of rounds): " + "; ".join(
         f"{k} {v:.4f} ({' '.join(f'{x:.4f}' for x in rounds[k])})"
@@ -359,7 +506,8 @@ def main() -> int:
 
     b1 = phase_b1(dev)
     b2 = phase_b2(dev)
-    b2_launches = phase_main_path()
+    b3 = phase_b3(dev)
+    main_launches = phase_main_path()
     b1_launches = phase_physics_rollout(dev)
     phase_step_split(dev)
 
@@ -375,9 +523,17 @@ def main() -> int:
         dict(name="B2 policy_rollout", route="cuda",
              source="cartpoleplusplus_tpu_torch/csrc/policy_rollout.cu",
              replaces="cartpoleplusplus_tpu/ops/policy_rollout.py:114",
-             launches=b2_launches, launched_by="train.main (DDPG defaults)",
+             launches=main_launches["B2"],
+             launched_by="train.main (DDPG defaults)",
              max_abs_err=b2["max_abs_err"],
              ms=b2["ms"], plain_ms=b2["plain_ms"]),
+        dict(name="B3 ddpg_update_phase", route="cuda",
+             source="cartpoleplusplus_tpu_torch/csrc/ddpg_update.cu",
+             replaces="cartpoleplusplus_tpu/ops/learner_kernel.py:564",
+             launches=main_launches["B3"],
+             launched_by="train.main (DDPG defaults)",
+             max_abs_err=b3["max_abs_err"],
+             ms=b3["ms"], plain_ms=b3["plain_ms"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

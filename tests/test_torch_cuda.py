@@ -1,19 +1,21 @@
-"""Kernels B1 and B2 against their plain torch twins on a CUDA GPU.
+"""Kernels B1, B2 and B3 against their plain torch twins on a CUDA GPU.
 
 These need the card and skip elsewhere. The GPU machine has no JAX, so run
 them there without tests/conftest.py (which imports it):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-This file imports no JAX. Batches of 1000 envs leave a ragged last tile.
+This file imports no JAX. Batches of 1000 envs leave a ragged last tile,
+and B3's minibatch of 200 rows a ragged last row tile.
 """
 
 import pytest
 import torch
 
 from cartpoleplusplus_tpu_torch import CartPole3D, CartPoleParams
-from cartpoleplusplus_tpu_torch.models import ActorMLP
+from cartpoleplusplus_tpu_torch.models import ActorMLP, CriticMLP
 from cartpoleplusplus_tpu_torch.ops import fused_rollout as fr
+from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
 from cartpoleplusplus_tpu_torch.ops import policy_rollout as pr
 from cartpoleplusplus_tpu_torch.physics.params import continuous_params
 
@@ -80,3 +82,69 @@ def test_b2_rejects_uncovered_shapes(cuda):
     with pytest.raises(ValueError):
         pr.policy_rollout(env, actor, 0.15, state, obs,
                           torch.zeros((64, 2), device=cuda), 0, 0.2, 2)
+
+
+def _b3_inputs(dev, hidden, batch, k, seed):
+    """Group buffers (nets with redrawn LayerNorm parameters and heads,
+    targets near them, warmed Adam moments) and K minibatches."""
+    g = torch.Generator().manual_seed(seed)
+
+    def flat(net):
+        with torch.no_grad():
+            for prm in list(net.norms.parameters()) + list(
+                    net.head.parameters()):
+                prm.add_(0.2 * torch.randn(prm.shape, generator=g))
+        return torch.cat([p.detach().reshape(-1) for p in net.parameters()])
+
+    nets = (flat(ActorMLP(42, 2, hidden, generator=g)),
+            flat(CriticMLP(42, 2, hidden, generator=g)))
+    groups = list(nets) + [x + 0.01 * torch.randn(x.shape, generator=g)
+                           for x in nets]
+    for x in nets:  # m ~ 1e-2, v ~ 1e-4
+        groups += [1e-2 * torch.randn(x.shape, generator=g),
+                   (1e-2 * torch.randn(x.shape, generator=g)) ** 2 + 1e-5]
+    obs = 0.3 * torch.randn((k, batch, 42), generator=g)
+    batches = (obs, torch.rand((k, batch, 2), generator=g) * 2 - 1,
+               torch.rand((k, batch), generator=g),
+               obs + 0.05 * torch.randn(obs.shape, generator=g),
+               torch.rand((k, batch), generator=g) < 0.1)
+    return [x.to(dev) for x in groups], tuple(x.to(dev) for x in batches)
+
+
+@pytest.mark.parametrize("hidden,agc,sched", [
+    ((256, 256), "updated", None), ((64, 48, 32), "pre", (0.1, 50))])
+def test_b3_matches_twin(cuda, hidden, agc, sched):
+    """4 updates from warmed moments: every group and both loss vectors
+    within the reference's kernel-vs-XLA bar (rtol 2e-4, atol 1e-5), one
+    counted launch, and the same bits from a second run."""
+    groups, batches = _b3_inputs(cuda, hidden, 200, 4, seed=2)
+    kw = dict(actor_lr=1e-3, critic_lr=2e-3, gamma=0.99, tau=0.05,
+              actor_grad_critic=agc, lr_schedule=sched)
+    la, lc = lk.actor_layout(42, hidden), lk.critic_layout(42, hidden)
+    lays = (la, lc, la, lc, la, la, lc, lc)
+    want = lk.update_phase_math(
+        *[lk.group_views(g, lay) for g, lay in zip(groups, lays)], batches,
+        30, hidden, **kw)
+    runs = []
+    for _ in range(2):
+        got = [g.clone() for g in groups]
+        before = lk.ddpg_update_phase.launches
+        losses = lk.ddpg_update_phase(got, batches, 30, hidden, **kw)
+        torch.cuda.synchronize()
+        assert lk.ddpg_update_phase.launches == before + 1
+        runs.append((got, losses))
+    (got, losses), (got2, losses2) = runs
+    for g, lay, w in zip(got, lays, want[:8]):
+        for v, x in zip(lk.group_views(g, lay), w):
+            torch.testing.assert_close(v, x, rtol=2e-4, atol=1e-5)
+    for a, b in zip(losses, want[8:]):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(got + list(losses),
+                                                 got2 + list(losses2)))
+
+
+def test_b3_rejects_uncovered_shapes(cuda):
+    groups, batches = _b3_inputs(cuda, (32, 32), 16, 1, seed=0)
+    with pytest.raises(ValueError, match="not covered"):
+        lk.ddpg_update_phase(groups, batches, 0, (32,), actor_lr=1e-3,
+                             critic_lr=1e-3, gamma=0.99, tau=0.01)
