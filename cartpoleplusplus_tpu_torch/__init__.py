@@ -3,9 +3,9 @@
 The JAX package `cartpoleplusplus_tpu` is the reference; this package
 mirrors its module names (physics/, env/, ops/, models/, agents/,
 train.py) so each counterpart is easy to find. It imports torch and never
-JAX: on a CUDA device the two rollout kernels of the DDPG train path run
-as hand-written CUDA (csrc/, built with nvcc at first use), and on the
-CPU every kernel wrapper runs its plain torch twin.
+JAX: on a CUDA device the rollout and learner kernels of the DDPG and DQN
+train paths run as hand-written CUDA (csrc/, built with nvcc at first
+use), and on the CPU every kernel wrapper runs its plain torch twin.
 """
 
 __version__ = "0.1.0"

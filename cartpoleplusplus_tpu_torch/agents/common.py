@@ -1,21 +1,112 @@
 """Shared actor-learner building blocks
 (cartpoleplusplus_tpu/agents/common.py in torch): the exploration tags,
-the warmup-gated learner loop, the replay presample hook and exact
-episode statistics for evaluation.
+the learner resolution, optax-exact Adam and the flat group storage of the
+kernel learners, the warmup-gated learner loop, the replay presample hook
+and exact episode statistics for evaluation.
 """
 
 from __future__ import annotations
 
+import sys
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
+from ..ops import learner_kernel as lk
 from ..ops.policy_rollout import TAG_OU_X, TAG_OU_Y
+from ..ops.q_rollout import TAG_EPS_ACT, TAG_EPS_GATE
 
 # Counter-PRNG stream tags for agent exploration (utils/prng.py; env-side
-# tags live in env/compute.py). The DDPG OU tags are defined beside the B2
-# kernel that draws them.
-__all__ = ["TAG_OU_X", "TAG_OU_Y", "gated_update_scan", "replay_presample",
-           "episode_length_hist", "episode_stats_from_hist",
-           "evaluate_policy"]
+# tags live in env/compute.py). The DDPG OU tags and the DQN epsilon tags
+# are defined beside the kernels that draw them (B2, B4).
+__all__ = ["TAG_OU_X", "TAG_OU_Y", "TAG_EPS_GATE", "TAG_EPS_ACT",
+           "resolve_learner", "AdamState", "adam_init", "adam_update",
+           "bind_group", "bind_moments", "gated_update_scan",
+           "replay_presample", "episode_length_hist",
+           "episode_stats_from_hist", "evaluate_policy"]
+
+_ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
+
+
+def resolve_learner(learner: str, covered: bool, on_cuda: bool,
+                    agent: str = "ddpg", kernel: str = "B3") -> bool:
+    """Whether `agent` runs its fused update kernel (True) or the plain
+    learner: "kernel" takes the kernel and raises where it does not cover
+    the config, "xla" takes the plain learner, "auto" takes the kernel on
+    a CUDA device when covered and otherwise the plain learner, saying so
+    on stderr on a CUDA device (the reference's _notice_learner_fallback).
+    Metrics carry the same fact as `learner_impl`."""
+    if learner == "kernel":
+        if not covered:
+            raise ValueError(f"config shape not covered by the fused update "
+                             f"kernel {kernel} (see "
+                             f"{agent.upper()}.kernel_learner_ok)")
+        return True
+    if learner == "xla":
+        return False
+    if learner != "auto":
+        raise ValueError(f"unknown learner {learner!r}")
+    if on_cuda and not covered:
+        print(f"{agent}: learner=auto resolved to the plain torch update "
+              f"loop (config shape outside kernel {kernel} - see "
+              f"kernel_learner_ok)", file=sys.stderr)
+    return on_cuda and covered
+
+
+class AdamState(NamedTuple):
+    """optax ScaleByAdamState: step count and per-parameter moments, in
+    `module.parameters()` order."""
+
+    count: int
+    mu: list
+    nu: list
+
+
+def adam_init(module: torch.nn.Module) -> AdamState:
+    zeros = [torch.zeros_like(p) for p in module.parameters()]
+    return AdamState(count=0, mu=zeros, nu=[z.clone() for z in zeros])
+
+
+@torch.no_grad()
+def adam_update(module: torch.nn.Module, grads, opt: AdamState,
+                lr: float) -> AdamState:
+    """One optax.adam step applied in place to `module`'s parameters and
+    to the moments (so views of the kernel-mode group buffers stay views):
+    m = (1-b1) g + b1 m;  v = (1-b2) g^2 + b2 v;
+    p += -lr * (m / (1 - b1^t)) / (sqrt(v / (1 - b2^t)) + eps)."""
+    count = opt.count + 1
+    # Bias corrections in float32, as optax computes decay**count.
+    bc1 = float(np.float32(1.0) - np.float32(_ADAM_B1) ** np.float32(count))
+    bc2 = float(np.float32(1.0) - np.float32(_ADAM_B2) ** np.float32(count))
+    for p, g, m, v in zip(module.parameters(), grads, opt.mu, opt.nu):
+        m.copy_((1 - _ADAM_B1) * g + _ADAM_B1 * m)
+        v.copy_((1 - _ADAM_B2) * (g * g) + _ADAM_B2 * v)
+        p.add_((m / bc1) / (torch.sqrt(v / bc2) + _ADAM_EPS) * -lr)
+    return opt._replace(count=count)
+
+
+def bind_group(module: torch.nn.Module, layout) -> torch.Tensor:
+    """Copy `module`'s parameters into one flat buffer in `layout` and
+    rebind them as views of it; returns the buffer."""
+    params = list(module.named_parameters())
+    if [(n, tuple(p.shape)) for n, p in params] != [
+            (n, tuple(sh)) for n, sh in layout]:
+        raise ValueError("module parameters do not match the kernel layout")
+    buf = torch.empty(lk.layout_size(layout), dtype=torch.float32,
+                      device=params[0][1].device)
+    with torch.no_grad():
+        for (_, p), view in zip(params, lk.group_views(buf, layout)):
+            view.copy_(p)
+            p.data = view
+    return buf
+
+
+def bind_moments(tensors, layout):
+    """(flat buffer, views) holding copies of Adam moments in `layout`."""
+    buf = torch.cat([t.detach().reshape(-1).to(torch.float32)
+                     for t in tensors])
+    return buf, lk.group_views(buf, layout)
 
 
 def gated_update_scan(st, upd_body, num_updates: int, ready: bool,
@@ -35,13 +126,17 @@ def gated_update_scan(st, upd_body, num_updates: int, ready: bool,
                 for key in metrics[0]}
 
 
-def replay_presample(replay, batch_size: int, indices=None):
-    """The `presample` hook of gated_update_scan for column sampling:
-    draws from the state's generator, or takes the given (slots, offs)."""
+def replay_presample(replay, batch_size: int, indices=None,
+                     sample: str = "column"):
+    """The `presample` hook of gated_update_scan for column or uniform
+    sampling: draws from the state's generator, or takes the given
+    indices ((slots, offs) for column, (env_idx, slot) for uniform)."""
+    draw = {"column": replay.presample_columns,
+            "uniform": replay.presample_uniform}[sample]
+
     def presample(st, num_updates):
-        return replay.presample_columns(st.replay, batch_size, num_updates,
-                                        generator=st.generator,
-                                        indices=indices)
+        return draw(st.replay, batch_size, num_updates,
+                    generator=st.generator, indices=indices)
     return presample
 
 

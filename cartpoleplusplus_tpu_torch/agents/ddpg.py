@@ -29,10 +29,10 @@ from ..models import ActorMLP, CriticMLP, polyak
 from ..ops import learner_kernel as lk
 from ..ops.policy_rollout import (fusable, policy_rollout,
                                   reference_policy_rollout)
-from .common import evaluate_policy, gated_update_scan, replay_presample
+from .common import (AdamState, adam_init, adam_update, bind_group,
+                     bind_moments, evaluate_policy, gated_update_scan,
+                     replay_presample, resolve_learner)
 from .replay import ReplayBuffer, ReplayState
-
-_ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,15 +82,6 @@ _SUPPORTED = {
 }
 
 
-class AdamState(NamedTuple):
-    """optax ScaleByAdamState: step count and per-parameter moments, in
-    `module.parameters()` order."""
-
-    count: int
-    mu: list
-    nu: list
-
-
 class DDPGState(NamedTuple):
     actor: ActorMLP
     critic: CriticMLP
@@ -109,75 +100,6 @@ class DDPGState(NamedTuple):
     # are the modules' parameters and the AdamStates' moments
     # (ops/learner_kernel.py documents the layout). None otherwise.
     groups: tuple | None = None
-
-
-def adam_init(module: torch.nn.Module) -> AdamState:
-    zeros = [torch.zeros_like(p) for p in module.parameters()]
-    return AdamState(count=0, mu=zeros, nu=[z.clone() for z in zeros])
-
-
-@torch.no_grad()
-def adam_update(module: torch.nn.Module, grads, opt: AdamState,
-                lr: float) -> AdamState:
-    """One optax.adam step applied in place to `module`'s parameters and
-    to the moments (so views of the kernel-mode group buffers stay views):
-    m = (1-b1) g + b1 m;  v = (1-b2) g^2 + b2 v;
-    p += -lr * (m / (1 - b1^t)) / (sqrt(v / (1 - b2^t)) + eps)."""
-    count = opt.count + 1
-    # Bias corrections in float32, as optax computes decay**count.
-    bc1 = float(np.float32(1.0) - np.float32(_ADAM_B1) ** np.float32(count))
-    bc2 = float(np.float32(1.0) - np.float32(_ADAM_B2) ** np.float32(count))
-    for p, g, m, v in zip(module.parameters(), grads, opt.mu, opt.nu):
-        m.copy_((1 - _ADAM_B1) * g + _ADAM_B1 * m)
-        v.copy_((1 - _ADAM_B2) * (g * g) + _ADAM_B2 * v)
-        p.add_((m / bc1) / (torch.sqrt(v / bc2) + _ADAM_EPS) * -lr)
-    return opt._replace(count=count)
-
-
-def resolve_learner(learner: str, covered: bool, on_cuda: bool) -> bool:
-    """Whether DDPG runs kernel B3 (True) or the plain learner: "kernel"
-    takes B3 and raises where it does not cover the config, "xla" takes
-    the plain learner, "auto" takes B3 on a CUDA device when covered and
-    otherwise the plain learner, saying so on stderr on a CUDA device (the
-    reference's _notice_learner_fallback). Metrics carry the same fact as
-    `learner_impl`."""
-    if learner == "kernel":
-        if not covered:
-            raise ValueError("config shape not covered by the fused update "
-                             "kernel B3 (see DDPG.kernel_learner_ok)")
-        return True
-    if learner == "xla":
-        return False
-    if learner != "auto":
-        raise ValueError(f"unknown learner {learner!r}")
-    if on_cuda and not covered:
-        print("ddpg: learner=auto resolved to the plain torch update loop "
-              "(config shape outside kernel B3 - see kernel_learner_ok)",
-              file=sys.stderr)
-    return on_cuda and covered
-
-
-def _bind_group(module: torch.nn.Module, layout) -> torch.Tensor:
-    """Copy `module`'s parameters into one flat buffer in `layout` and
-    rebind them as views of it; returns the buffer."""
-    params = list(module.named_parameters())
-    if [(n, tuple(p.shape)) for n, p in params] != [
-            (n, tuple(sh)) for n, sh in layout]:
-        raise ValueError("module parameters do not match the B3 layout")
-    buf = torch.empty(lk.layout_size(layout), dtype=torch.float32,
-                      device=params[0][1].device)
-    with torch.no_grad():
-        for (_, p), view in zip(params, lk.group_views(buf, layout)):
-            view.copy_(p)
-            p.data = view
-    return buf
-
-
-def _bind_moments(tensors, layout):
-    """(flat buffer, views) holding copies of Adam moments in `layout`."""
-    buf = torch.cat([t.detach().reshape(-1).to(torch.float32)
-                     for t in tensors])
-    return buf, lk.group_views(buf, layout)
 
 
 class DDPG:
@@ -278,13 +200,13 @@ class DDPG:
         obs_dim, h = self.env.obs_size, tuple(self.cfg.hidden)
         lay_a, lay_c = lk.actor_layout(obs_dim, h), lk.critic_layout(obs_dim,
                                                                      h)
-        nets = [_bind_group(net, lay) for net, lay in (
+        nets = [bind_group(net, lay) for net, lay in (
             (st.actor, lay_a), (st.critic, lay_c), (st.actor_target, lay_a),
             (st.critic_target, lay_c))]
         opts, moments = [], []
         for opt, lay in ((st.actor_opt, lay_a), (st.critic_opt, lay_c)):
-            (m_buf, mu), (v_buf, nu) = (_bind_moments(opt.mu, lay),
-                                        _bind_moments(opt.nu, lay))
+            (m_buf, mu), (v_buf, nu) = (bind_moments(opt.mu, lay),
+                                        bind_moments(opt.nu, lay))
             opts.append(opt._replace(mu=mu, nu=nu))
             moments += [m_buf, v_buf]
         return st._replace(actor_opt=opts[0], critic_opt=opts[1],

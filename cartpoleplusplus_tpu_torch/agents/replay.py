@@ -1,6 +1,6 @@
 """Device-resident experience replay (cartpoleplusplus_tpu/agents/replay.py
-in torch: the ring buffer, the aligned chunk insert and the column
-presample of the DDPG default path).
+in torch: the ring buffer with float (DDPG) or int32 (DQN) actions, the
+aligned chunk insert, and the column and uniform presamples).
 
 The ring is laid out (num_envs, capacity_per_env, ...). Next observations
 are not stored: the transition at slot i reads its successor from slot
@@ -22,7 +22,7 @@ class ReplayState(NamedTuple):
     inserts, so reading them never waits for the device)."""
 
     obs: torch.Tensor     # (B, C, obs_dim) float32
-    action: torch.Tensor  # (B, C, act_dim) float32
+    action: torch.Tensor  # (B, C) int32 or (B, C, act_dim) float32
     reward: torch.Tensor  # (B, C) float32
     done: torch.Tensor    # (B, C) bool — episode ended at this transition
     cursor: int           # next slot to write
@@ -33,20 +33,25 @@ class ReplayBuffer:
     """Static configuration + add/sample functions over a ReplayState."""
 
     def __init__(self, num_envs: int, capacity_per_env: int, obs_dim: int,
-                 action_dim: int, device="cpu"):
+                 action_dim: int, device="cpu", discrete: bool = False):
         self.num_envs = num_envs
         self.capacity = capacity_per_env
         self.obs_dim = obs_dim
         self.action_dim = action_dim
+        self.discrete = discrete
         self.device = torch.device(device)
 
     def init(self) -> ReplayState:
         b, c, dev = self.num_envs, self.capacity, self.device
+        if self.discrete:
+            action = torch.zeros((b, c), dtype=torch.int32, device=dev)
+        else:
+            action = torch.zeros((b, c, self.action_dim),
+                                 dtype=torch.float32, device=dev)
         return ReplayState(
             obs=torch.zeros((b, c, self.obs_dim), dtype=torch.float32,
                             device=dev),
-            action=torch.zeros((b, c, self.action_dim), dtype=torch.float32,
-                               device=dev),
+            action=action,
             reward=torch.zeros((b, c), dtype=torch.float32, device=dev),
             done=torch.zeros((b, c), dtype=torch.bool, device=dev),
             cursor=0,
@@ -54,8 +59,9 @@ class ReplayBuffer:
 
     def add_trajectory(self, rs: ReplayState, obs, action, reward,
                        done) -> ReplayState:
-        """Insert a time-major rollout chunk obs (T, B, obs_dim) etc. at
-        the cursor, in place. The chunk must land aligned: T divides the
+        """Insert a time-major rollout chunk obs (T, B, obs_dim), action
+        (T, B) or (T, B, act_dim), reward and done (T, B) at the cursor,
+        in place. The chunk must land aligned: T divides the
         capacity and the cursor is a multiple of T, which holds whenever
         the ring is fed only by fixed-length rollouts from cursor 0."""
         t = obs.shape[0]
@@ -119,4 +125,34 @@ class ReplayBuffer:
         nxt = (flat + 1) % self.capacity
         return (take(rs.obs, flat), take(rs.action, flat),
                 take(rs.reward, flat), take(rs.obs, nxt),
+                take(rs.done, flat))
+
+    def presample_uniform(self, rs: ReplayState, batch_size: int,
+                          num_updates: int, generator=None, indices=None):
+        """All K uniform minibatches (each (K, batch_size, ...)): per row
+        an env uniform over the batch and a slot uniform over the valid
+        history, gathered from the env-major flattened ring.
+
+        The draws come from `generator` (on the CPU), or are given as
+        `indices = (env_idx (K, Bm), slot (K, Bm))` (tests inject the
+        reference's draws through this)."""
+        if indices is None:
+            shape = (num_updates, batch_size)
+            env_idx = torch.randint(0, self.num_envs, shape,
+                                    generator=generator)
+            n_valid = max(rs.filled - 1, 1)
+            ages = torch.randint(1, n_valid + 1, shape, generator=generator)
+            indices = (env_idx, (rs.cursor - 1 - ages) % self.capacity)
+        env_idx, slot = (torch.as_tensor(x, dtype=torch.int64,
+                                         device=self.device)
+                         for x in indices)
+        base = env_idx * self.capacity
+        flat, flat_next = base + slot, base + (slot + 1) % self.capacity
+
+        def take(buf, idx):
+            rows = buf.reshape((-1,) + buf.shape[2:])
+            return rows[idx]
+
+        return (take(rs.obs, flat), take(rs.action, flat),
+                take(rs.reward, flat), take(rs.obs, flat_next),
                 take(rs.done, flat))

@@ -13,87 +13,19 @@
 // at hidden (256, 256), i.e. ~5 GFLOP per 4096-env x 8-step rollout; the
 // physics is ~1 kFLOP per env-step. Design (simple and exact first): one
 // 256-thread block per tile of 32 envs (4096 envs -> 128 blocks on 132
-// SMs). The tile's activations live in shared memory (two 32 x width
-// float buffers, 64 KB at width 256, so the launcher opts in to more than
-// 48 KB of dynamic shared memory). The weights are read from global memory
-// and stay resident in the 50 MB L2 (~300 KB at hidden 256). Each thread
-// owns one output column of a layer and keeps the tile's 32 sums in
-// registers; the activation reads are shared-memory broadcasts. LayerNorm
-// and the head reduce with warp shuffles. After the actor, one thread per
-// env runs OU, clip, physics and reset with its env state held in
-// registers across all T steps. All matrix products stay inside this
-// kernel; wgmma and TMA are later work.
-#include "cartpole_env.cuh"
-
-constexpr int kMaxLayers = 4;   // ops/_native.py::MAX_LAYERS
-
-// Mirror of ops/_native.py::ActorDims. width = max(obs_dim, hidden...), the
-// row stride of the shared-memory activation buffers. (Outside the unnamed
-// namespace: the exported launcher takes it.)
-struct ActorDims {
-  int num_layers, obs_dim, width;
-  int hidden[kMaxLayers];
-};
+// SMs), with the tile machinery of policy_tile.cuh (shared with B4): the
+// tile's activations in shared memory (64 KB at width 256, so the launcher
+// opts in to more than 48 KB of dynamic shared memory), the weights (~300
+// KB at hidden 256) resident in the 50 MB L2, one thread per output column
+// with the tile's 32 sums in registers, warp-shuffle LayerNorm. After the
+// actor, one thread per env runs OU, clip, physics and reset with its env
+// state held in registers across all T steps. All matrix products stay
+// inside this kernel; wgmma and TMA are later work.
+#include "policy_tile.cuh"
 
 namespace {
 
-constexpr int kTile = 32;       // envs per block
-constexpr int kThreads = 256;   // 8 warps
-constexpr int kWarps = kThreads / 32;
 constexpr int kActDim = 2;
-constexpr float kLnEps = 1e-6f;  // flax.linen.LayerNorm default
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// out[e][j] = sum_k in[e][k] * W[k][j] + b[j] for the tile's kTile rows.
-// W is (n_in, n_out) row-major, rows of in/out are ld floats apart.
-__device__ __forceinline__ void dense(const float* __restrict__ W,
-                                      const float* __restrict__ b,
-                                      const float* in, int n_in, float* out,
-                                      int n_out, int ld) {
-  for (int j = threadIdx.x; j < n_out; j += kThreads) {
-    float acc[kTile];
-#pragma unroll
-    for (int e = 0; e < kTile; ++e) acc[e] = 0.0f;
-    for (int k = 0; k < n_in; ++k) {
-      const float w = __ldg(W + static_cast<size_t>(k) * n_out + j);
-#pragma unroll
-      for (int e = 0; e < kTile; ++e) acc[e] = acc[e] + in[e * ld + k] * w;
-    }
-    const float bj = __ldg(b + j);
-#pragma unroll
-    for (int e = 0; e < kTile; ++e) out[e * ld + j] = acc[e] + bj;
-  }
-}
-
-// flax LayerNorm (one-pass variance) then relu, in place, one warp per row.
-__device__ __forceinline__ void layer_norm_relu(float* h, int n, int ld,
-                                                const float* __restrict__ scale,
-                                                const float* __restrict__ bias) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int e = warp; e < kTile; e += kWarps) {
-    float* row = h + e * ld;
-    float s = 0.0f, s2 = 0.0f;
-    for (int j = lane; j < n; j += 32) {
-      const float v = row[j];
-      s = s + v;
-      s2 = s2 + v * v;
-    }
-    s = warp_sum(s);
-    s2 = warp_sum(s2);
-    const float mean = s / static_cast<float>(n);
-    const float mean2 = s2 / static_cast<float>(n);
-    const float var = fmaxf(mean2 - mean * mean, 0.0f);
-    const float inv = 1.0f / sqrtf(var + kLnEps);
-    for (int j = lane; j < n; j += 32) {
-      const float y = (row[j] - mean) * (inv * __ldg(scale + j)) + __ldg(bias + j);
-      row[j] = fmaxf(y, 0.0f);
-    }
-  }
-}
 
 // mu[e][a] = tanh(sum_k h[e][k] * W[k][a] + b[a]), one warp per row.
 __device__ __forceinline__ void head_tanh(const float* __restrict__ W,
@@ -135,12 +67,7 @@ __global__ void __launch_bounds__(kThreads) policy_rollout_kernel(
   const int env0 = blockIdx.x * kTile;
   const int n_env = min(kTile, B - env0);
 
-  for (int idx = threadIdx.x; idx < kTile * ld; idx += kThreads) {
-    const int e = idx / ld, k = idx % ld;
-    buf0[idx] = (e < n_env && k < F)
-                    ? obs_in[static_cast<size_t>(env0 + e) * F + k]
-                    : 0.0f;
-  }
+  load_obs_tile(buf0, obs_in, env0, n_env, F, ld);
   // Thread e < n_env owns env env0 + e for the whole rollout.
   const int e = threadIdx.x;
   const bool owner = e < n_env;
@@ -150,9 +77,7 @@ __global__ void __launch_bounds__(kThreads) policy_rollout_kernel(
   uint32_t seed = 0;
   float nx = 0.0f, ny = 0.0f;
   if (owner) {
-    st = cp::Phys{pos[3 * g],  pos[3 * g + 1], pos[3 * g + 2], vel[3 * g],
-                  vel[3 * g + 1], vel[3 * g + 2], s[2 * g], s[2 * g + 1],
-                  sd[2 * g],   sd[2 * g + 1]};
+    st = load_phys(pos, vel, s, sd, g);
     steps = steps_in[g];
     episode = episode_in[g];
     seed = static_cast<uint32_t>(seed_in[g]);
@@ -163,32 +88,15 @@ __global__ void __launch_bounds__(kThreads) policy_rollout_kernel(
 
   for (int t = 0; t < T; ++t) {
     // Trajectory obs = the pre-step observation (contiguous for the tile).
-    float* tobs = traj_obs + (static_cast<size_t>(t) * B + env0) * F;
-    for (int idx = threadIdx.x; idx < n_env * F; idx += kThreads)
-      tobs[idx] = buf0[(idx / F) * ld + idx % F];
+    store_obs_tile(traj_obs + (static_cast<size_t>(t) * B + env0) * F, buf0,
+                   n_env, F, ld);
 
     // Actor forward over the tile.
-    const float* p = params;
-    float* in = buf0;
-    float* out = buf1;
-    int n_in = F;
-    for (int l = 0; l < d.num_layers; ++l) {
-      const int h = d.hidden[l];
-      const float* W = p;
-      const float* b = W + n_in * h;
-      const float* scale = b + h;
-      const float* bias = scale + h;
-      p = bias + h;
-      dense(W, b, in, n_in, out, h, ld);
-      __syncthreads();
-      layer_norm_relu(out, h, ld, scale, bias);
-      __syncthreads();
-      float* tmp = in;
-      in = out;
-      out = tmp;
-      n_in = h;
-    }
-    head_tanh(p, p + n_in * kActDim, in, n_in, ld, mu);
+    const TorsoOut tor = torso_forward(d, params, buf0, buf1);
+    const float* h = tor.h;
+    const float* p = tor.head;
+    const int n_in = d.hidden[d.num_layers - 1];
+    head_tanh(p, p + n_in * kActDim, h, n_in, ld, mu);
     __syncthreads();
 
     // OU exploration, clip, physics, reward, reset; next obs into buf0.
@@ -203,21 +111,11 @@ __global__ void __launch_bounds__(kThreads) policy_rollout_kernel(
       const size_t tb = static_cast<size_t>(t) * B + g;
       traj_act[2 * tb] = ax;
       traj_act[2 * tb + 1] = ay;
-      float* row = buf0 + e * ld;
       float reward;
       bool done;
-      cp::env_step(
-          c, st, steps, episode, seed, ax * c.action_force,
-          ay * c.action_force,
-          [&](int r, const cp::Phys& ph) {
-            cp::frame_components(c, ph, row + r * cp::kFrame);
-          },
-          reward, done);
-      if (done) {  // a fresh episode observes its initial pose R times
-        float fresh[cp::kFrame];
-        cp::frame_components(c, st, fresh);
-        for (int r = 0; r < c.action_repeats; ++r)
-          for (int k = 0; k < cp::kFrame; ++k) row[r * cp::kFrame + k] = fresh[k];
+      step_into_row(c, st, steps, episode, seed, ax * c.action_force,
+                    ay * c.action_force, buf0 + e * ld, reward, done);
+      if (done) {  // the OU state of a finished episode restarts at 0
         nx = 0.0f;
         ny = 0.0f;
       }
@@ -228,24 +126,14 @@ __global__ void __launch_bounds__(kThreads) policy_rollout_kernel(
   }
 
   if (owner) {
-    pos_out[3 * g] = st.x;
-    pos_out[3 * g + 1] = st.y;
-    pos_out[3 * g + 2] = st.z;
-    vel_out[3 * g] = st.vx;
-    vel_out[3 * g + 1] = st.vy;
-    vel_out[3 * g + 2] = st.vz;
-    s_out[2 * g] = st.sx;
-    s_out[2 * g + 1] = st.sy;
-    sd_out[2 * g] = st.sdx;
-    sd_out[2 * g + 1] = st.sdy;
+    store_phys(st, pos_out, vel_out, s_out, sd_out, g);
     steps_out[g] = steps;
     episode_out[g] = episode;
     noise_out[2 * g] = nx;
     noise_out[2 * g + 1] = ny;
   }
-  float* oout = obs_out + static_cast<size_t>(env0) * F;
-  for (int idx = threadIdx.x; idx < n_env * F; idx += kThreads)
-    oout[idx] = buf0[(idx / F) * ld + idx % F];
+  store_obs_tile(obs_out + static_cast<size_t>(env0) * F, buf0, n_env, F,
+                 ld);
 }
 
 }  // namespace

@@ -1,5 +1,5 @@
 """Networks of the port (flax numerics in torch)."""
 
-from .nets import ActorMLP, CriticMLP, LayerNorm, polyak
+from .nets import ActorMLP, CriticMLP, LayerNorm, QNetMLP, polyak
 
-__all__ = ["ActorMLP", "CriticMLP", "LayerNorm", "polyak"]
+__all__ = ["ActorMLP", "CriticMLP", "LayerNorm", "QNetMLP", "polyak"]

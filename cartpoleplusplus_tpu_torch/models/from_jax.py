@@ -15,7 +15,7 @@ import torch
 
 from ..env.cartpole import EnvState
 from ..physics.dynamics import PhysState
-from .nets import ActorMLP, CriticMLP
+from .nets import ActorMLP, CriticMLP, QNetMLP
 
 
 def _t(a, device=None) -> torch.Tensor:
@@ -55,6 +55,30 @@ def critic_state_dict(tree, hidden: Sequence[int], device=None) -> dict:
     return sd
 
 
+def qnet_state_dict(tree, hidden: Sequence[int], device=None) -> dict:
+    """flax QNetMLP params -> QNetMLP state dict (the actor's tree
+    structure: `_Torso_0` and a `Dense_0` head)."""
+    return actor_state_dict(tree, hidden, device)
+
+
+def unflatten_qnet(flat, hidden: Sequence[int], num_actions: int = 5):
+    """The reference's kernel-mode flat operand list of a QNetMLP
+    ([W_0..W_{n-1} (in, out), head W^T padded to (8, H), packed rows of
+    (bias, LN scale, LN bias) per layer, head bias (1, 8)];
+    ops/learner_kernel.py::flatten_actor) -> the flax tree, in numpy (the
+    reference's `unflatten_actor(..., action_dim=5)`)."""
+    flat = [np.asarray(x) for x in flat]
+    ws, wh, rows, bh = flat[:-3], flat[-3], flat[-2], flat[-1]
+    torso = {}
+    for i, h in enumerate(hidden):
+        torso[f"Dense_{i}"] = {"kernel": ws[i], "bias": rows[3 * i, :h]}
+        torso[f"LayerNorm_{i}"] = {"scale": rows[3 * i + 1, :h],
+                                   "bias": rows[3 * i + 2, :h]}
+    return {"params": {"_Torso_0": torso,
+                       "Dense_0": {"kernel": wh[:num_actions].T,
+                                   "bias": bh[0, :num_actions]}}}
+
+
 def actor_from_flax(tree, obs_dim: int, action_dim: int,
                     hidden: Sequence[int], device=None) -> ActorMLP:
     net = ActorMLP(obs_dim, action_dim, hidden).to(device)
@@ -66,6 +90,13 @@ def critic_from_flax(tree, obs_dim: int, action_dim: int,
                      hidden: Sequence[int], device=None) -> CriticMLP:
     net = CriticMLP(obs_dim, action_dim, hidden).to(device)
     net.load_state_dict(critic_state_dict(tree, hidden, device))
+    return net
+
+
+def qnet_from_flax(tree, obs_dim: int, num_actions: int,
+                   hidden: Sequence[int], device=None) -> QNetMLP:
+    net = QNetMLP(obs_dim, num_actions, hidden).to(device)
+    net.load_state_dict(qnet_state_dict(tree, hidden, device))
     return net
 
 
@@ -86,6 +117,20 @@ def env_state_from_jax(st, device=None) -> EnvState:
         episode=_t(np.asarray(st.episode, np.int32), device))
 
 
+def _replay_from_jax(rs, device):
+    from ..agents.replay import ReplayState
+
+    action = np.asarray(rs.action)
+    return ReplayState(
+        obs=_t(np.asarray(rs.obs, np.float32), device),
+        action=_t(action.astype(np.int32 if action.ndim == 2
+                                else np.float32), device),
+        reward=_t(np.asarray(rs.reward, np.float32), device),
+        done=_t(np.asarray(rs.done, bool), device),
+        cursor=int(np.asarray(rs.cursor)),
+        filled=int(np.asarray(rs.filled)))
+
+
 def ddpg_state_from_jax(agent, st, generator=None):
     """JAX DDPGState in the tree layout (learner='xla', or a kernel-mode
     state through the reference's `state_to_tree`), numpy leaves -> the
@@ -93,8 +138,8 @@ def ddpg_state_from_jax(agent, st, generator=None):
     agent's native layout. Optimizer moments, replay ring and counters
     carry over; the replay sampling generator is the given one (or a
     fresh one)."""
-    from ..agents.ddpg import AdamState, DDPGState
-    from ..agents.replay import ReplayState
+    from ..agents.common import AdamState
+    from ..agents.ddpg import DDPGState
 
     c, env, dev = agent.cfg, agent.env, agent.env.device
     h, obs_dim, act_dim = tuple(c.hidden), env.obs_size, env.action_dim
@@ -108,7 +153,6 @@ def ddpg_state_from_jax(agent, st, generator=None):
             mu=_in_param_order(module, to_sd(adam_state.mu, h, dev)),
             nu=_in_param_order(module, to_sd(adam_state.nu, h, dev)))
 
-    rs = st.replay
     return agent.state_from_tree(DDPGState(
         actor=actor,
         critic=critic,
@@ -118,15 +162,45 @@ def ddpg_state_from_jax(agent, st, generator=None):
                                        h, dev),
         actor_opt=adam(st.actor_opt, actor, actor_state_dict),
         critic_opt=adam(st.critic_opt, critic, critic_state_dict),
-        replay=ReplayState(
-            obs=_t(np.asarray(rs.obs, np.float32), dev),
-            action=_t(np.asarray(rs.action, np.float32), dev),
-            reward=_t(np.asarray(rs.reward, np.float32), dev),
-            done=_t(np.asarray(rs.done, bool), dev),
-            cursor=int(np.asarray(rs.cursor)),
-            filled=int(np.asarray(rs.filled))),
+        replay=_replay_from_jax(st.replay, dev),
         env_state=env_state_from_jax(st.env_state, dev),
         obs=_t(np.asarray(st.obs, np.float32), dev),
         noise=_t(np.asarray(st.noise, np.float32), dev),
+        generator=generator if generator is not None else torch.Generator(),
+        env_steps=int(np.asarray(st.env_steps))))
+
+
+def dqn_state_from_jax(agent, st, generator=None):
+    """JAX DQNState (numpy leaves) -> the port's DQNState for `agent` (a
+    port DQN of the same config), in the agent's native layout. Both of
+    the reference's layouts are taken: the flax trees of its XLA learner
+    and the flat operand lists of its kernel mode. Adam moments, replay
+    ring and counters carry over; the replay sampling generator is the
+    given one (or a fresh one)."""
+    from ..agents.common import AdamState
+    from ..agents.dqn import DQNState
+
+    c, env, dev = agent.cfg, agent.env, agent.env.device
+    h, na = tuple(c.hidden), env.num_actions
+
+    def tree(x):
+        return unflatten_qnet(x, h, na) if isinstance(x, (list, tuple)) \
+            else x
+
+    q = qnet_from_flax(tree(st.q), env.obs_size, na, h, dev)
+    adam_state = st.opt[0]
+    return agent.state_from_tree(DQNState(
+        q=q,
+        q_target=qnet_from_flax(tree(st.q_target), env.obs_size, na, h,
+                                dev),
+        opt=AdamState(
+            count=int(np.asarray(adam_state.count)),
+            mu=_in_param_order(q, qnet_state_dict(tree(adam_state.mu), h,
+                                                  dev)),
+            nu=_in_param_order(q, qnet_state_dict(tree(adam_state.nu), h,
+                                                  dev))),
+        replay=_replay_from_jax(st.replay, dev),
+        env_state=env_state_from_jax(st.env_state, dev),
+        obs=_t(np.asarray(st.obs, np.float32), dev),
         generator=generator if generator is not None else torch.Generator(),
         env_steps=int(np.asarray(st.env_steps))))

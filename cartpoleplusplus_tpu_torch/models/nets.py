@@ -1,10 +1,11 @@
-"""DDPG networks (cartpoleplusplus_tpu/models/nets.py ActorMLP / CriticMLP
-in torch), with flax's numerics rather than torch's defaults:
+"""DDPG and DQN networks (cartpoleplusplus_tpu/models/nets.py ActorMLP,
+CriticMLP and QNetMLP in torch), with flax's numerics rather than torch's
+defaults:
 
   * LayerNorm uses eps 1e-6 and the one-pass variance max(E[x^2] - E[x]^2,
     0), and applies (x - mean) * (rsqrt(var + eps) * scale) + bias;
   * Dense kernels initialise lecun-normal (truncated, flax's stddev
-    correction), biases zero, and the output heads U[0, 3e-3);
+    correction), biases zero, and the DDPG output heads U[0, 3e-3);
   * the critic joins the action after its first layer.
 
 Weights are stored torch-style (Linear.weight is (out, in));
@@ -65,28 +66,55 @@ def _init_dense(layer: nn.Linear, generator, head: bool = False) -> None:
         layer.bias.zero_()
 
 
-class ActorMLP(nn.Module):
-    """Deterministic policy mu(s) in [-1, 1]^action_dim (DDPG actor):
-    [Dense -> LayerNorm -> relu] x len(hidden), then a tanh head."""
+class _TorsoMLP(nn.Module):
+    """[Dense -> LayerNorm -> relu] x len(hidden), then a Dense head of
+    `out` units (flax's `_Torso` + head)."""
 
-    def __init__(self, obs_dim: int, action_dim: int = 2,
-                 hidden: Sequence[int] = (256, 256), generator=None):
+    def __init__(self, obs_dim: int, out: int, hidden: Sequence[int],
+                 generator, uniform_head: bool):
         super().__init__()
         self.hidden = tuple(hidden)
         dims = (obs_dim,) + self.hidden
         self.torso = nn.ModuleList(nn.Linear(a, b)
                                    for a, b in zip(dims[:-1], dims[1:]))
         self.norms = nn.ModuleList(LayerNorm(h) for h in self.hidden)
-        self.head = nn.Linear(dims[-1], action_dim)
+        self.head = nn.Linear(dims[-1], out)
         for layer in self.torso:
             _init_dense(layer, generator)
-        _init_dense(self.head, generator, head=True)
+        _init_dense(self.head, generator, head=uniform_head)
 
-    def forward(self, obs):
+    def features(self, obs):
         x = obs
         for dense, norm in zip(self.torso, self.norms):
             x = torch.relu(norm(dense(x)))
-        return torch.tanh(self.head(x))
+        return x
+
+
+class ActorMLP(_TorsoMLP):
+    """Deterministic policy mu(s) in [-1, 1]^action_dim (DDPG actor): the
+    torso, then a tanh head initialised U[0, 3e-3)."""
+
+    def __init__(self, obs_dim: int, action_dim: int = 2,
+                 hidden: Sequence[int] = (256, 256), generator=None):
+        super().__init__(obs_dim, action_dim, hidden, generator,
+                         uniform_head=True)
+
+    def forward(self, obs):
+        return torch.tanh(self.head(self.features(obs)))
+
+
+class QNetMLP(_TorsoMLP):
+    """Q(s, .) over the discrete actions (DQN): the actor's torso and a
+    linear head with flax's default Dense init (truncated lecun-normal
+    kernel, zero bias)."""
+
+    def __init__(self, obs_dim: int, num_actions: int = 5,
+                 hidden: Sequence[int] = (256, 256), generator=None):
+        super().__init__(obs_dim, num_actions, hidden, generator,
+                         uniform_head=False)
+
+    def forward(self, obs):
+        return self.head(self.features(obs))
 
 
 class CriticMLP(nn.Module):

@@ -6,4 +6,6 @@ twin for CPU tensors; `<wrapper>.launches` counts kernel launches.
   B1 fused_rollout.fused_rollout    csrc/fused_rollout.cu   physics-only rollout
   B2 policy_rollout.policy_rollout  csrc/policy_rollout.cu  DDPG actor in the loop
   B3 learner_kernel.ddpg_update_phase  csrc/ddpg_update.cu  K-update DDPG learner
+  B4 q_rollout.q_policy_rollout     csrc/q_rollout.cu       DQN Q-net in the loop
+  B5 learner_kernel.dqn_update_phase   csrc/dqn_update.cu   K-update DQN learner
 """

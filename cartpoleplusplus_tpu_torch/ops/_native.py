@@ -13,8 +13,8 @@ and no fast-math flag is set, so division and sqrt are IEEE and
 logf/cosf/sinf/tanhf are the accurate CUDA math library functions. The
 kernels then follow the plain torch twins operation by operation, and a
 termination threshold does not flip on a contraction. An explicit fmaf()
-is still fused: B3 (csrc/ddpg_update.cu) uses it in its matrix-product
-and batch-sum inner loops only.
+is still fused: B3 and B5 (csrc/learner_stages.cuh) use it in their
+matrix-product and batch-sum inner loops only.
 """
 
 from __future__ import annotations
@@ -62,11 +62,11 @@ class EnvConsts(ctypes.Structure):
         "has_linear_damping", "has_angular_damping", "has_push")]
 
 
-MAX_LAYERS = 4  # kMaxLayers in csrc/policy_rollout.cu and ddpg_update.cu
+MAX_LAYERS = 4  # kMaxLayers in csrc/policy_tile.cuh and learner_stages.cuh
 
 
 class ActorDims(ctypes.Structure):
-    """Mirror of `struct ActorDims` in csrc/policy_rollout.cu."""
+    """Mirror of `struct ActorDims` in csrc/policy_tile.cuh (B2 and B4)."""
 
     _fields_ = [("num_layers", ctypes.c_int), ("obs_dim", ctypes.c_int),
                 ("width", ctypes.c_int),
@@ -74,7 +74,7 @@ class ActorDims(ctypes.Structure):
 
 
 class NetLayout(ctypes.Structure):
-    """Mirror of `struct NetLayout` in csrc/ddpg_update.cu: element offsets
+    """Mirror of `struct NetLayout` in csrc/learner_stages.cuh: element offsets
     of one network's parameters in its group buffer (ops/learner_kernel.py
     documents the layout)."""
 
@@ -91,8 +91,16 @@ class LearnerDims(ctypes.Structure):
         ("critic", NetLayout)]
 
 
+class DqnDims(ctypes.Structure):
+    """Mirror of `struct DqnDims` in csrc/dqn_update.cu."""
+
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "num_layers", "obs_dim", "batch", "k_updates", "double_dqn")] + [
+        ("hidden", ctypes.c_int * MAX_LAYERS), ("q", NetLayout)]
+
+
 class LearnerConsts(ctypes.Structure):
-    """Mirror of `struct LearnerConsts` in csrc/ddpg_update.cu: the
+    """Mirror of `struct LearnerConsts` in csrc/learner_stages.cuh: the
     learner's float32 constants, folded on the host
     (ops/learner_kernel.py::_learner_consts)."""
 
@@ -229,6 +237,14 @@ def load_library() -> ctypes.CDLL:
     lib.cp_ddpg_update_phase.argtypes = [vp, vp] + [vp] * 8 + [vp] * 5 + [
         vp, vp, vp, ci, vp]
     lib.cp_ddpg_update_phase.restype = ci
+    lib.cp_q_rollout.argtypes = [vp, vp, vp, cf, ci, ci, ci] + [vp] * 19 + [
+        vp]
+    lib.cp_q_rollout.restype = ci
+    lib.cp_dqn_workspace_floats.argtypes = [vp]
+    lib.cp_dqn_workspace_floats.restype = ctypes.c_longlong
+    lib.cp_dqn_update_phase.argtypes = [vp, vp] + [vp] * 4 + [vp] * 5 + [
+        vp, vp, ci, vp]
+    lib.cp_dqn_update_phase.restype = ci
     _lib = lib
     return lib
 

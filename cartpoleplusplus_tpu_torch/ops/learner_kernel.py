@@ -1,5 +1,6 @@
-"""Kernel B3, the whole K-update DDPG learner phase: its plain torch twin and
-the wrapper that launches csrc/ddpg_update.cu.
+"""Kernels B3 and B5, the whole K-update DDPG and DQN learner phases: their
+plain torch twins and the wrappers that launch csrc/ddpg_update.cu and
+csrc/dqn_update.cu (whose shared stage engine is csrc/learner_stages.cuh).
 
 Replaces cartpoleplusplus_tpu/ops/learner_kernel.py::_update_kernel (made by
 `ddpg_update_phase`). Per update k, on the presampled minibatch k:
@@ -31,6 +32,12 @@ joins the action after its first layer). The actor's head has out = 2,
 the critic's out = 1. `actor_layout`/`critic_layout` give the (name, shape)
 lists; agents/ddpg.py binds the modules' parameters and the Adam moments as
 views of these buffers, so the kernel reads and updates them in place.
+
+B5 (replaces learner_kernel.py::_dqn_update_kernel, made by
+`dqn_update_phase`) runs K double-DQN updates on 4 groups (q, q_target and
+q's Adam moments m, v) in `qnet_layout`, which is the actor's with a
+5-wide linear head; its twin is `dqn_update_phase_math` (the JAX twin of
+the same name, learner_kernel.py:828).
 """
 
 from __future__ import annotations
@@ -48,7 +55,9 @@ _ADAM_B1 = 0.9       # optax.adam defaults
 _ADAM_B2 = 0.999
 _ADAM_EPS = 1e-8
 ACTION_DIM = 2
-MAX_WIDTH = 1024     # kMaxWidth in csrc/ddpg_update.cu (shared memory)
+NUM_ACTIONS = 5      # the DQN head
+MAX_WIDTH = 1024     # kMaxWidth in csrc/learner_stages.cuh (shared memory)
+_HUBER_DELTA = 1.0   # optax.huber_loss default
 
 
 def _f32(x) -> float:
@@ -86,6 +95,12 @@ def critic_layout(obs_dim: int, hidden: Sequence[int]) -> list:
     return _mlp_layout(ins, hidden, 1)
 
 
+def qnet_layout(obs_dim: int, hidden: Sequence[int]) -> list:
+    """(name, shape) of QNetMLP's parameters, in parameters() order."""
+    hidden = tuple(hidden)
+    return _mlp_layout((obs_dim,) + hidden[:-1], hidden, NUM_ACTIONS)
+
+
 def layout_size(layout) -> int:
     return sum(int(np.prod(shape)) for _, shape in layout)
 
@@ -106,6 +121,14 @@ def covers(obs_dim: int, hidden: Sequence[int]) -> bool:
     hidden = tuple(hidden)
     return (2 <= len(hidden) <= _native.MAX_LAYERS
             and max((obs_dim,) + hidden) + ACTION_DIM <= MAX_WIDTH)
+
+
+def dqn_covers(obs_dim: int, hidden: Sequence[int]) -> bool:
+    """The shapes B5 takes: 1 to 4 hidden layers and every layer input
+    within the shared-memory row width."""
+    hidden = tuple(hidden)
+    return (1 <= len(hidden) <= _native.MAX_LAYERS
+            and max((obs_dim,) + hidden) <= MAX_WIDTH)
 
 
 # --------------------------------------------------------------------------
@@ -348,6 +371,60 @@ def update_phase_math(actor, critic, actor_t, critic_t, m_a, v_a, m_c, v_c,
 
 
 # --------------------------------------------------------------------------
+# DQN (B5's twin).
+# --------------------------------------------------------------------------
+
+def dqn_phase_block(q, q_target, obs, nobs, act, rew, done, gamma: float,
+                    inv_batch: float, hidden, double_dqn: bool):
+    """Huber TD gradient of one minibatch; act is (B,) int, rew/done (B, 1)
+    float. The next action is the first-max argmax of the online net on s'
+    (double DQN) or of the target net. Returns (grads in `q`'s order,
+    loss)."""
+    qt, _ = mlp_fwd(nobs, q_target, hidden)
+    sel = mlp_fwd(nobs, q, hidden)[0] if double_dqn else qt
+    first = torch.argmax(sel, dim=1, keepdim=True)   # first max, as jnp
+    q_next = qt.gather(1, first)
+    y = rew + _f32(gamma) * (1.0 - done) * q_next
+    qs, residue = mlp_fwd(obs, q, hidden)
+    a = act.long()[:, None]
+    td = qs.gather(1, a) - y
+    d = _f32(_HUBER_DELTA)
+    onehot = torch.zeros_like(qs).scatter_(1, a, 1.0)
+    dq = (torch.clamp(td, -d, d) * _f32(inv_batch)) * onehot
+    grads = mlp_bwd(dq, q, hidden, residue)
+    abs_td = td.abs()
+    hub = torch.where(abs_td <= d, 0.5 * td * td, d * (abs_td - 0.5 * d))
+    return grads, _f32(inv_batch) * hub.sum()
+
+
+@torch.no_grad()
+def dqn_update_phase_math(q, q_target, m, v, batches, t0: int, hidden, *,
+                          lr, gamma, tau, double_dqn: bool = True):
+    """K sequential DQN updates on parameter lists (`qnet_layout`, one list
+    per group): the Huber TD step, constant-lr Adam, Polyak. batches:
+    (obs (K, B, F), action (K, B) int, reward (K, B), next_obs (K, B, F),
+    done (K, B)); t0 is the Adam count before the phase. Returns (q,
+    q_target, m, v, loss (K,)) as new tensors."""
+    hidden = tuple(hidden)
+    k_updates, bm = batches[0].shape[0], batches[0].shape[1]
+    inv = 1.0 / bm
+    losses = []
+    for k in range(k_updates):
+        obs, act, rew, nobs, done = (x[k] for x in batches)
+        rew = rew[:, None]
+        done = done.to(torch.float32)[:, None]
+        bc1, bc2 = _bias_corrections(float(t0 + k + 1))
+        grads, loss = dqn_phase_block(q, q_target, obs, nobs, act, rew, done,
+                                      gamma, inv, hidden, double_dqn)
+        new = [adam_step(p, mm, vv, g, bc1, bc2, _f32(lr))
+               for p, mm, vv, g in zip(q, m, v, grads)]
+        q, m, v = ([x[i] for x in new] for i in range(3))
+        q_target = polyak_flat(q_target, q, tau)
+        losses.append(loss)
+    return q, q_target, m, v, torch.stack(losses)
+
+
+# --------------------------------------------------------------------------
 # The wrapper.
 # --------------------------------------------------------------------------
 
@@ -484,3 +561,84 @@ def ddpg_update_phase(groups, batches, t0: int, hidden, *, actor_lr: float,
 
 
 ddpg_update_phase.launches = 0
+
+
+@torch.no_grad()
+def dqn_update_phase(groups, batches, t0: int, hidden, *, lr: float,
+                     gamma: float, tau: float, double_dqn: bool = True):
+    """B5: K DQN updates on the 4 group buffers, IN PLACE.
+
+    groups = (q, q_target, m, v), each a contiguous 1-D float32 buffer in
+    `qnet_layout`; batches as `dqn_update_phase_math` takes them, with
+    int32 actions; t0 the Adam count before the phase. Returns loss (K,).
+
+    CUDA buffers launch the hand-written kernel (csrc/dqn_update.cu) once,
+    on the current stream; CPU buffers run `dqn_update_phase_math` and copy
+    its results into the buffers. Any other device, a shape B5 does not
+    cover (`dqn_covers`), or a malformed argument raises."""
+    hidden = tuple(hidden)
+    obs = batches[0]
+    dev = groups[0].device
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"dqn_update_phase runs on cuda or cpu, not {dev}")
+    if len(groups) != 4 or len(batches) != 5 or obs.dim() != 3:
+        raise ValueError("want 4 group buffers and 5 batch tensors")
+    k_updates, batch, obs_dim = obs.shape
+    if not dqn_covers(obs_dim, hidden):
+        raise ValueError(f"obs {obs_dim}, hidden {hidden}: not covered by "
+                         f"B5 (ops.learner_kernel.dqn_covers)")
+    if k_updates < 1 or batch < 1:
+        raise ValueError(f"K {k_updates}, batch {batch}: need >= 1 each")
+    lay = qnet_layout(obs_dim, hidden)
+    for i, g in enumerate(groups):
+        _check(g, (layout_size(lay),), torch.float32, dev, f"group {i}")
+    for t, shape, dtype, what in (
+            (batches[0], (k_updates, batch, obs_dim), torch.float32, "obs"),
+            (batches[1], (k_updates, batch), torch.int32, "action"),
+            (batches[2], (k_updates, batch), torch.float32, "reward"),
+            (batches[3], (k_updates, batch, obs_dim), torch.float32,
+             "next_obs"),
+            (batches[4], (k_updates, batch), torch.bool, "done")):
+        _check(t, shape, dtype, dev, what)
+    kw = dict(lr=lr, gamma=gamma, tau=tau, double_dqn=double_dqn)
+
+    if dev.type == "cpu":
+        views = [group_views(g, lay) for g in groups]
+        out = dqn_update_phase_math(*views, batches, t0, hidden, **kw)
+        for dst, src in zip(views, out[:4]):
+            for d, s in zip(dst, src):
+                d.copy_(s)
+        return out[4]
+
+    n = len(hidden)
+    dims = _native.DqnDims(num_layers=n, obs_dim=obs_dim, batch=batch,
+                           k_updates=k_updates, double_dqn=int(double_dqn),
+                           q=_layout_offsets(lay, n))
+    for i, h in enumerate(hidden):
+        dims.hidden[i] = h
+    # The Q-net is net 0 of the stage engine: its lr rides in actor_lr.
+    consts = _learner_consts(batch=batch, actor_lr=lr, critic_lr=lr,
+                             gamma=gamma, tau=tau, lr_schedule=None)
+    lib = _native.load_library()
+    loss = torch.empty(k_updates, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        key = ("dqn", dev, stream, obs_dim, batch, hidden)
+        ws = _workspaces.get(key)
+        if ws is None:
+            size = lib.cp_dqn_workspace_floats(_native.struct_ptr(dims))
+            if size <= 0:
+                raise ValueError(f"B5 rejected dims {key}")
+            ws = _workspaces[key] = torch.empty(size, dtype=torch.float32,
+                                                device=dev)
+        rc = lib.cp_dqn_update_phase(
+            _native.struct_ptr(dims), _native.struct_ptr(consts),
+            *(g.data_ptr() for g in groups),
+            *(b.data_ptr() for b in batches), loss.data_ptr(),
+            ws.data_ptr(), ctypes.c_int(int(t0)), stream)
+    _native.check(lib, rc, "dqn_update_phase")
+    dqn_update_phase.launches += 1
+    return loss
+
+
+dqn_update_phase.launches = 0

@@ -1,19 +1,21 @@
-"""Training CLI of the port — the `--agent ddpg` flow of
+"""Training CLI of the port — the `--agent ddpg` and `--agent dqn` flows of
 cartpoleplusplus_tpu.train on one device.
 
 Usage:
     python -m cartpoleplusplus_tpu_torch.train                 # ddpg, cuda
+    python -m cartpoleplusplus_tpu_torch.train --agent dqn     # dqn, cuda
     python -m cartpoleplusplus_tpu_torch.train --device cpu --num-envs 64
 
 Prints one JSON line of metrics every --log-interval train steps and, with
 --final-eval, one line of greedy-policy episode statistics. On a CUDA
-device each train step's rollout runs kernel B2 (a shape B2 does not
-cover is an error there) and, at `--ddpg.learner auto` (the default),
-each learning step's K updates run kernel B3 where it covers the config
+device each train step's rollout runs a kernel (B2 for DDPG, B4 for DQN;
+a shape the kernel does not cover is an error there) and, at
+`--<agent>.learner auto` (the default), each learning step's K updates
+run the agent's fused learner kernel (B3, B5) where it covers the config
 (`learner_impl` in the metrics says which learner ran). `--device cuda`
-without a visible GPU is an error, never a silent CPU run. Checkpoints, the event
-log, presets and the canary, and the device mesh are not ported yet: their
-flags are rejected.
+without a visible GPU is an error, never a silent CPU run. The NAF, LRPG
+and random agents, checkpoints, the event log, presets and the canary,
+and the device mesh are not ported yet: their flags are rejected.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import time
 
 import torch
 
-from .agents import DDPG, DDPGConfig
+from .agents import DDPG, DQN, DDPGConfig, DQNConfig
 from .config import RunConfig, add_dataclass_args, explicit_dests, from_args
 from .env import CartPole3D
 from .physics.params import CartPoleParams, continuous_params
@@ -39,7 +41,10 @@ _NOT_PORTED = (
     "event_log", "event_log_envs", "use_mesh", "learner", "eval_only",
     "eval_render", "profile_dir", "canary_env_steps", "canary_min_eval",
     "canary_max_restarts")
-_NOT_PORTED_AGENTS = ("dqn", "naf", "lrpg", "random")
+_NOT_PORTED_AGENTS = ("naf", "lrpg", "random")
+# agent -> (class, config class, rollout kernel, its coverage check).
+_AGENTS = {"ddpg": (DDPG, DDPGConfig, "B2", "ops.policy_rollout.fusable"),
+           "dqn": (DQN, DQNConfig, "B4", "ops.q_rollout.q_fusable")}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -47,7 +52,8 @@ def build_parser() -> argparse.ArgumentParser:
                                  description=__doc__.split("\n")[0])
     add_dataclass_args(ap, RunConfig)
     add_dataclass_args(ap, CartPoleParams, prefix="env.")
-    add_dataclass_args(ap, DDPGConfig, prefix="ddpg.")
+    for name, (_, cfg_cls, _, _) in _AGENTS.items():
+        add_dataclass_args(ap, cfg_cls, prefix=f"{name}.")
     return ap
 
 
@@ -67,22 +73,24 @@ def _not_ported(unknown) -> list:
 
 def build(run: RunConfig, args: argparse.Namespace, provided: set):
     """(env, agent) from parsed configuration. DDPG's env defaults to the
-    continuous preset (continuous actions, pushes, shaped reward); env
-    fields typed on the command line always win."""
+    continuous preset (continuous actions, pushes, shaped reward), with
+    env fields typed on the command line always winning; DQN takes the
+    discrete env as the flags give it."""
+    agent_cls, cfg_cls, kernel, check = _AGENTS[run.agent]
     params = from_args(CartPoleParams, args, prefix="env.")
-    preset = continuous_params()
-    params = CartPoleParams(**{
-        f.name: (getattr(params, f.name) if ("env." + f.name) in provided
-                 else getattr(preset, f.name))
-        for f in dataclasses.fields(CartPoleParams)})
+    if run.agent == "ddpg":
+        preset = continuous_params()
+        params = CartPoleParams(**{
+            f.name: (getattr(params, f.name) if ("env." + f.name) in provided
+                     else getattr(preset, f.name))
+            for f in dataclasses.fields(CartPoleParams)})
     env = CartPole3D(params, num_envs=run.num_envs, obs_mode=run.obs_mode,
                      device=run.device)
-    cfg = from_args(DDPGConfig, args, prefix="ddpg.")
-    agent = DDPG(env, cfg)
+    agent = agent_cls(env, from_args(cfg_cls, args, prefix=f"{run.agent}."))
     if env.device.type == "cuda" and not agent.fusable():
-        raise ValueError("kernel B2 does not cover this env/actor shape "
-                         "(ops.policy_rollout.fusable); the plain rollout "
-                         "runs with --device cpu")
+        raise ValueError(f"kernel {kernel} does not cover this env/network "
+                         f"shape ({check}); the plain rollout runs with "
+                         f"--device cpu")
     return env, agent
 
 
@@ -98,9 +106,9 @@ def main(argv=None) -> int:
         ap.error(f"unrecognized arguments: {' '.join(unknown)}")
     provided = explicit_dests(build_parser(), argv)
     run = from_args(RunConfig, args)
-    if run.agent != "ddpg":
-        print(f"agent {run.agent!r} is not ported yet; only ddpg is",
-              file=sys.stderr)
+    if run.agent not in _AGENTS:
+        print(f"agent {run.agent!r} is not ported yet; only "
+              f"{' and '.join(_AGENTS)} are", file=sys.stderr)
         return 2
     device = torch.device(run.device)
     if device.type == "cuda" and not torch.cuda.is_available():

@@ -22,7 +22,20 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      benchmark times (4096 envs x 4096 steps), which must launch B1;
   7. where a default train step's time goes (CUDA events per part, the B3
      phase beside the plain learner's 16 updates, and torch.profiler's
-     device time and kernel count of one step).
+     device time and kernel count of one step);
+  8. B4 (DQN epsilon-greedy Q-net-in-the-loop rollout kernel) against its
+     twin, 4096 envs, hidden (256, 256), 3 steps, seeded random Q weights,
+     at epsilon 0.3 and 0 (greedy): actions exact except at near-ties of
+     the twin's Q values (top-2 gap below 1e-5, counted and left out of
+     the float comparison);
+  9. B5 (the fused K-update double-DQN learner kernel) against its twin at
+     the DQN defaults (hidden (256, 256), obs 42, batch 256, K 8) from
+     warmed Adam moments, double DQN on and off, two runs bit for bit;
+  10. DQN main path with the counters zeroed: `train.main --agent dqn` at
+     its defaults for 64 env-steps plus a 200-step greedy eval; B4 must
+     launch once per train step and B5 once per learning train step (7),
+     the DDPG and physics kernels never;
+  11. where a default DQN train step's time goes, as phase 7.
 Then one JSON line of per-kernel numbers and, last, the device line.
 The script imports no JAX and nothing of the JAX package.
 """
@@ -49,6 +62,9 @@ B3_T0 = 100             # Adam count of the warmed state B3 starts from
 B3_RTOL, B3_ATOL = 2e-4, 1e-5
 BENCH_STEPS = 4096      # the physics-only benchmark's rollout length
 SPLIT_ROUNDS = 3        # round-robin passes over the train-step parts
+B4_EPS = (0.3, 0.0)     # compared exploration rates: mixed, then greedy
+B4_TIE = 1e-5           # a twin top-2 Q gap below this is a near-tie
+B5_BATCH, B5_K = 256, 8  # DQN's batch_size and updates_per_step
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -289,25 +305,26 @@ def _b3_update_flop(hidden, batch) -> int:
     return 2 * batch * macs
 
 
-def _zero_counts():
+def _wrappers() -> dict:
+    """Every kernel's wrapper, whose `launches` counts its kernel."""
     from cartpoleplusplus_tpu_torch.ops.fused_rollout import fused_rollout
-    from cartpoleplusplus_tpu_torch.ops.learner_kernel import \
-        ddpg_update_phase
+    from cartpoleplusplus_tpu_torch.ops.learner_kernel import (
+        ddpg_update_phase, dqn_update_phase)
     from cartpoleplusplus_tpu_torch.ops.policy_rollout import policy_rollout
+    from cartpoleplusplus_tpu_torch.ops.q_rollout import q_policy_rollout
 
-    fused_rollout.launches = 0
-    policy_rollout.launches = 0
-    ddpg_update_phase.launches = 0
+    return {"B1": fused_rollout, "B2": policy_rollout,
+            "B3": ddpg_update_phase, "B4": q_policy_rollout,
+            "B5": dqn_update_phase}
+
+
+def _zero_counts():
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def _read_counts() -> dict:
-    from cartpoleplusplus_tpu_torch.ops.fused_rollout import fused_rollout
-    from cartpoleplusplus_tpu_torch.ops.learner_kernel import \
-        ddpg_update_phase
-    from cartpoleplusplus_tpu_torch.ops.policy_rollout import policy_rollout
-
-    return {"B1": fused_rollout.launches, "B2": policy_rollout.launches,
-            "B3": ddpg_update_phase.launches}
+    return {k: fn.launches for k, fn in _wrappers().items()}
 
 
 def phase_main_path():
@@ -332,6 +349,7 @@ def phase_main_path():
     n_train = total_env_steps // rollout
     assert [m["train_step"] for m in steps] == list(range(1, n_train + 1))
     assert launches["B2"] == n_train, f"B2 launched {launches['B2']} times"
+    assert launches["B1"] == launches["B4"] == launches["B5"] == 0, launches
     for m in lines:
         assert all(math.isfinite(v) for v in m.values()), m
     learned = [m for m in steps if m["env_steps"] >= 16]  # past warmup
@@ -372,7 +390,8 @@ def phase_physics_rollout(dev):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = _read_counts()
-    assert launches == {"B1": 1, "B2": 0, "B3": 0}, launches
+    assert launches == {"B1": 1, "B2": 0, "B3": 0, "B4": 0, "B5": 0}, \
+        launches
     assert math.isfinite(float(checksum))
     assert int(final.steps.max()) < 200 and int(final.episode.min()) > 0
     print(f"physics-only rollout: {N_ENVS}x{BENCH_STEPS} in {secs:.4f} s "
@@ -400,9 +419,6 @@ def phase_step_split(dev):
     updates beside the B3 phase that replaced them, and the device time and
     kernel count of one step from torch.profiler."""
     import argparse
-
-    import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from cartpoleplusplus_tpu_torch import train
     from cartpoleplusplus_tpu_torch.config import RunConfig, from_args
@@ -448,8 +464,16 @@ def phase_step_split(dev):
         f"plain learner, {c.updates_per_step} updates (not in the step)": (
             plain_updates, 3),
     }
-    # Host dispatch bounds these times, so they drift with the host's load:
-    # time the parts round-robin and keep each one's median round.
+    _print_split("train-step split", parts, lambda: agent.train_step(st))
+
+
+def _print_split(title, parts, step):
+    """Times each part alone, round-robin (host dispatch bounds these times,
+    so they drift with the host's load: each keeps its median round), and
+    profiles one `step()` for its device time and kernel count."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     rounds = {name: [] for name in parts}
     for _ in range(SPLIT_ROUNDS):
         for name, (fn, reps) in parts.items():
@@ -458,18 +482,293 @@ def phase_step_split(dev):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        agent.train_step(st)
+        step()
         torch.cuda.synchronize()
     dev_ms, n_kernels = _device_ms(prof)
     whole = ms["whole train step"]
     rest = whole - sum(v for k, v in ms.items()
                        if k != "whole train step" and "not in" not in k)
     idle = (f"{1.0 - dev_ms / whole:.4f}" if dev_ms > 0 else "not measured")
-    print("train-step split (ms, median of rounds): " + "; ".join(
+    print(f"{title} (ms, median of rounds): " + "; ".join(
         f"{k} {v:.4f} ({' '.join(f'{x:.4f}' for x in rounds[k])})"
         for k, v in ms.items())
         + f"; step minus parts {rest:.4f}; profiler: device {dev_ms:.4f} ms "
         f"in {n_kernels} kernels, device idle share {idle}", flush=True)
+
+
+def _random_qnet(dev, hidden, seed, head_scale=0.5):
+    """DQN's Q-net at its init, with the LayerNorm parameters and the head
+    redrawn from the generator so that every stage moves the argmax (a
+    head_scale of 0.05 keeps the Q values near 1 and their gaps small)."""
+    import torch
+
+    from cartpoleplusplus_tpu_torch.models import QNetMLP
+
+    g = torch.Generator().manual_seed(seed)
+    q = QNetMLP(42, 5, hidden, generator=g)
+    with torch.no_grad():
+        for norm in q.norms:
+            norm.weight.copy_(1.0 + 0.2 * torch.randn(norm.weight.shape,
+                                                      generator=g))
+            norm.bias.copy_(0.1 * torch.randn(norm.bias.shape, generator=g))
+        for prm in q.head.parameters():
+            prm.copy_(head_scale * torch.randn(prm.shape, generator=g))
+    return q.to(dev)
+
+
+def _b4_setup(env, dev):
+    """A seeded random Q-net and a state 6 random-action steps past a
+    reset (a reset pose is the same in every env, so the obs of a fresh
+    batch are identical). The first layer's bias is centred on those obs,
+    so the Q-net tells the envs apart: greedy actions spread over all 5
+    and the Q gaps reach down to ~1e-5."""
+    import torch
+
+    from cartpoleplusplus_tpu_torch.ops.q_rollout import reference_q_rollout
+
+    q = _random_qnet(dev, (256, 256), seed=13, head_scale=0.05)
+    state, obs, _ = reference_q_rollout(env, q, *env.reset(3), 0, 1.0, 6)
+    with torch.no_grad():
+        q.torso[0].bias.copy_(-(q.torso[0].weight @ obs.mean(0)))
+    return q, state, obs
+
+
+def _b4_compare(env, q, state, obs, eps):
+    """B4 and its twin over B2_STEPS from the same state: the action
+    streams must agree except from a step where the twin's top-2 Q gap is
+    below B4_TIE (such envs leave the float comparison), floats within
+    tests/test_policy_rollout.py's bars, integer state exact. Returns
+    (max abs error, near-tie envs)."""
+    import torch
+
+    from cartpoleplusplus_tpu_torch.ops.q_rollout import (
+        q_policy_rollout, reference_q_rollout)
+
+    k = q_policy_rollout(env, q, state, obs, 40, eps, B2_STEPS)
+    r = reference_q_rollout(env, q, state, obs, 40, eps, B2_STEPS)
+    torch.cuda.synchronize()
+    assert k[2][1].dtype == torch.int32
+    diff = k[2][1] != r[2][1]
+    # An env's first mismatch must be a near-tie; its trajectory differs
+    # from there on.
+    first = diff & (diff.int().cumsum(0) == 1)
+    with torch.no_grad():
+        top = torch.topk(q(r[2][0]), 2, dim=-1).values
+    gaps = top[..., 0] - top[..., 1]
+    gap = gaps[first]
+    assert bool((gap < B4_TIE).all()), \
+        f"B4 eps {eps}: actions differ at Q gaps {gap.tolist()[:8]}"
+    keep = ~diff.any(0)
+    errs = [_close(f"B4 eps {eps} traj {n}", a[:, keep], b[:, keep], 2e-4,
+                   2e-5)
+            for n, a, b in (("obs", k[2][0], r[2][0]),
+                            ("reward", k[2][2], r[2][2]))]
+    assert torch.equal(k[2][3][:, keep], r[2][3][:, keep]), "B4 dones differ"
+    errs += [_close(f"B4 eps {eps} final {n}", a[keep], b[keep], 2e-4, 2e-5)
+             for n, a, b in zip(("pos", "vel", "s", "sd", "obs"),
+                                (*k[0].phys, k[1]), (*r[0].phys, r[1]))]
+    assert torch.equal(k[0].steps[keep], r[0].steps[keep]), "B4 steps differ"
+    assert torch.equal(k[0].episode[keep], r[0].episode[keep]), \
+        "B4 episodes differ"
+    n_tie = int((~keep).sum())
+    explored = float((r[2][1] != torch.argmax(q(r[2][0]), -1)).float().mean())
+    per_action = torch.bincount(r[2][1].reshape(-1).long(), minlength=5)
+    print(f"B4 eps {eps}: actions exact in {int(keep.sum())} of "
+          f"{env.num_envs} envs x {B2_STEPS} steps; near-tie envs {n_tie} "
+          f"(their twin top-2 Q gaps {gap.tolist()[:8]}; smallest gap over "
+          f"all envs and steps {float(gaps.min()):.3g}); max_abs_err "
+          f"obs/reward {errs[0]:.3g} {errs[1]:.3g}, final state/obs "
+          f"{max(errs[2:]):.3g}; explored share {explored:.3f}, actions per "
+          f"index {per_action.tolist()}, dones {int(r[2][3].sum())}",
+          flush=True)
+    return max(errs), n_tie
+
+
+def phase_b4(dev):
+    import torch
+
+    from cartpoleplusplus_tpu_torch import CartPole3D, CartPoleParams
+    from cartpoleplusplus_tpu_torch.ops.q_rollout import (
+        q_policy_rollout, reference_q_rollout)
+
+    env = CartPole3D(CartPoleParams(), num_envs=N_ENVS, device=dev)
+    q, state, obs = _b4_setup(env, dev)
+    with torch.no_grad():
+        errs = [_b4_compare(env, q, state, obs, eps)[0] for eps in B4_EPS]
+    args = (env, q, state, obs, 40, 0.3)
+    ms = _time_ms(lambda: q_policy_rollout(*args, B2_TIME_STEPS), 10)
+    plain_ms = _time_ms(lambda: reference_q_rollout(*args, B2_TIME_STEPS), 2)
+    flop = N_ENVS * B2_TIME_STEPS * 2 * (42 * 256 + 256 * 256 + 256 * 5)
+    print(f"B4: {N_ENVS}x{B2_TIME_STEPS} hidden (256, 256): kernel {ms:.4f} "
+          f"ms ({flop / ms / 1e9:.4g} TFLOP/s of Q-net matmul), plain "
+          f"{plain_ms:.2f} ms", flush=True)
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
+
+
+def _b5_inputs(dev, hidden, batch, k, seed):
+    """The 4 DQN learner group buffers and K minibatches, from a seed: a
+    Q-net with the LayerNorm parameters and head redrawn, a target near
+    it, warmed Adam moments (m ~ 1e-2, v ~ 1e-4), int32 actions."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    q = _random_qnet("cpu", hidden, seed)
+    flat = torch.cat([p.detach().reshape(-1) for p in q.parameters()])
+    groups = [flat, flat + 0.01 * torch.randn(flat.shape, generator=g),
+              1e-2 * torch.randn(flat.shape, generator=g),
+              (1e-2 * torch.randn(flat.shape, generator=g)) ** 2 + 1e-5]
+    obs = 0.3 * torch.randn((k, batch, 42), generator=g)
+    batches = (obs, torch.randint(0, 5, (k, batch), generator=g,
+                                  dtype=torch.int32),
+               torch.rand((k, batch), generator=g),
+               obs + 0.05 * torch.randn(obs.shape, generator=g),
+               torch.rand((k, batch), generator=g) < 0.1)
+    return ([x.to(dev) for x in groups], tuple(x.to(dev) for x in batches))
+
+
+def phase_b5(dev):
+    import torch
+
+    from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
+
+    hidden = (256, 256)
+    lay = lk.qnet_layout(42, hidden)
+    # At seed 23 one LayerNorm output of the online net on s lands 3.4e-8
+    # below the relu edge in the twin and above it in the kernel (update 2):
+    # a rounding-order flip of one row's gradient, which moves m by up to
+    # 1e-3, far past the bar. PERF.md records the sweep that found it.
+    groups, batches = _b5_inputs(dev, hidden, B5_BATCH, B5_K, seed=21)
+    errs = {}
+    for double_dqn in (True, False):
+        kw = dict(lr=5e-5, gamma=0.99, tau=0.01, double_dqn=double_dqn)
+        want = lk.dqn_update_phase_math(
+            *[lk.group_views(g, lay) for g in groups], batches, B3_T0,
+            hidden, **kw)
+        runs = []
+        for _ in range(2):
+            got = [g.clone() for g in groups]
+            loss = lk.dqn_update_phase(got, batches, B3_T0, hidden, **kw)
+            torch.cuda.synchronize()
+            runs.append(got + [loss])
+        assert all(torch.equal(a, b) for a, b in zip(*runs)), \
+            f"B5 double_dqn={double_dqn}: two runs on the same inputs differ"
+        tag = "double" if double_dqn else "max"
+        for name, g, w in zip(("q", "q_t", "m", "v"), runs[0][:4], want[:4]):
+            errs[f"{tag} {name}"] = max(
+                _close(f"B5 {tag} {name} {pname}", v, x, B3_RTOL, B3_ATOL)
+                for (pname, _), v, x in zip(lay, lk.group_views(g, lay), w))
+        errs[f"{tag} loss"] = _close(f"B5 {tag} loss", runs[0][4], want[4],
+                                     B3_RTOL, B3_ATOL)
+    kw = dict(lr=5e-5, gamma=0.99, tau=0.01)
+    args = (batches, B3_T0, hidden)
+    ms = _time_ms(lambda: lk.dqn_update_phase(groups, *args, **kw), 20)
+    views = [lk.group_views(g, lay) for g in groups]
+    plain_ms = _time_ms(lambda: lk.dqn_update_phase_math(*views, *args, **kw),
+                        3)
+    h0, h1 = hidden
+    fwd = 42 * h0 + h0 * h1 + h1 * 5          # MACs per row and pass
+    flop = B5_K * 2 * B5_BATCH * (3 * fwd + (5 * h1 + h1 * h0) + fwd)
+    listed = " ".join(f"{k} {v:.3g}" for k, v in errs.items())
+    print(f"B5: max_abs_err {listed} (rtol {B3_RTOL}, atol {B3_ATOL}); two "
+          f"runs bitwise equal (double and max); batch {B5_BATCH} x K "
+          f"{B5_K}, hidden (256, 256): kernel {ms:.4f} ms ({flop / ms / 1e9:.4g} TFLOP/s of learner matmul), "
+          f"plain {plain_ms:.2f} ms", flush=True)
+    return dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms)
+
+
+def phase_dqn_main_path():
+    """`train --agent dqn` at its defaults: every rollout must go through
+    B4 and every learning step's update phase through B5."""
+    from cartpoleplusplus_tpu_torch import train
+
+    total_env_steps, rollout = 64, 8
+    out = io.StringIO()
+    _zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = train.main(["--agent", "dqn", "--total-env-steps",
+                         str(total_env_steps), "--log-interval", "1",
+                         "--final-eval", "--eval-steps", "200", "--seed",
+                         "0"])
+    train_s = time.perf_counter() - t0
+    launches = _read_counts()
+
+    assert rc == 0, f"train.main returned {rc}"
+    lines = [json.loads(x) for x in out.getvalue().splitlines()]
+    steps, ev = lines[:-1], lines[-1]
+    n_train = total_env_steps // rollout
+    assert [m["train_step"] for m in steps] == list(range(1, n_train + 1))
+    learned = [m for m in steps if m["env_steps"] >= 16]  # past warmup
+    assert launches == {"B1": 0, "B2": 0, "B3": 0, "B4": n_train,
+                        "B5": len(learned)} and len(learned) == n_train - 1, \
+        f"launches {launches} for {n_train} steps, {len(learned)} learning"
+    for m in lines:
+        assert all(math.isfinite(v) for v in m.values()), m
+    assert all(m["learner_impl"] == 1.0 and m["rollout_impl"] == 1.0
+               for m in steps)
+    assert all(m["loss"] > 0.0 for m in learned)
+    assert 0 < ev["eval_mean_episode_length"] <= 200
+    assert ev["eval_episodes"] > 0
+    for m in steps:
+        print(f"dqn train step {m['train_step']}: loss {m['loss']:.6g} "
+              f"epsilon {m['epsilon']:.6g} reward_mean {m['reward_mean']:.6g}"
+              f" done_frac {m['done_frac']:.6g} env_steps_per_sec "
+              f"{m['env_steps_per_sec']}", flush=True)
+    sec_per_step = N_ENVS * rollout / steps[-1]["env_steps_per_sec"]
+    print(f"dqn main path: {n_train} train steps ({sec_per_step:.4f} s per "
+          f"train step over the run, train.main total {train_s:.2f} s incl. "
+          f"init and eval); eval {json.dumps(ev)}; launches {launches}",
+          flush=True)
+    return launches
+
+
+def phase_dqn_step_split(dev):
+    """Where a DQN train step at the CLI defaults goes, as phase 7: the B5
+    phase beside the plain learner's 8 updates."""
+    from cartpoleplusplus_tpu_torch import train
+    from cartpoleplusplus_tpu_torch.config import RunConfig, from_args
+    from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
+    from cartpoleplusplus_tpu_torch.ops.q_rollout import q_policy_rollout
+
+    ap = train.build_parser()
+    args = ap.parse_args(["--agent", "dqn"])
+    _, agent = train.build(from_args(RunConfig, args), args, {"agent"})
+    c = agent.cfg
+    assert agent.kernel_mode, "the DQN defaults did not resolve to B5"
+    st = agent.init(0)
+    for _ in range(3):  # 24 env-steps: past the 16-step warmup
+        st, _ = agent.train_step(st)
+    eps = agent.epsilon(st.env_steps)
+    traj = q_policy_rollout(agent.env, st.q, st.env_state, st.obs,
+                            st.env_steps, eps, c.rollout_steps)[2]
+    batches = agent.replay.presample_columns(
+        st.replay, c.batch_size, c.updates_per_step, generator=st.generator)
+
+    def plain_updates():
+        s = st
+        for k in range(c.updates_per_step):
+            s, _ = agent._update_once(s, tuple(x[k] for x in batches))
+
+    def b5_phase():
+        lk.dqn_update_phase(st.groups, batches, st.opt.count, c.hidden,
+                            lr=c.lr, gamma=c.gamma, tau=c.tau,
+                            double_dqn=c.double_dqn)
+
+    parts = {
+        "whole train step": (lambda: agent.train_step(st), 5),
+        "B4 rollout": (lambda: q_policy_rollout(
+            agent.env, st.q, st.env_state, st.obs, st.env_steps, eps,
+            c.rollout_steps), 20),
+        "replay insert": (lambda: agent.replay.add_trajectory(st.replay,
+                                                              *traj), 20),
+        "column presample": (lambda: agent.replay.presample_columns(
+            st.replay, c.batch_size, c.updates_per_step,
+            generator=st.generator), 20),
+        f"B5 learner phase (K = {c.updates_per_step})": (b5_phase, 20),
+        f"plain learner, {c.updates_per_step} updates (not in the step)": (
+            plain_updates, 3),
+    }
+    _print_split("dqn train-step split", parts, lambda: agent.train_step(st))
 
 
 def main() -> int:
@@ -510,6 +809,10 @@ def main() -> int:
     main_launches = phase_main_path()
     b1_launches = phase_physics_rollout(dev)
     phase_step_split(dev)
+    b4 = phase_b4(dev)
+    b5 = phase_b5(dev)
+    dqn_launches = phase_dqn_main_path()
+    phase_dqn_step_split(dev)
 
     b1_main = b1["discrete"]  # the benchmark's default params
     kernels = [
@@ -534,6 +837,20 @@ def main() -> int:
              launched_by="train.main (DDPG defaults)",
              max_abs_err=b3["max_abs_err"],
              ms=b3["ms"], plain_ms=b3["plain_ms"]),
+        dict(name="B4 q_policy_rollout", route="cuda",
+             source="cartpoleplusplus_tpu_torch/csrc/q_rollout.cu",
+             replaces="cartpoleplusplus_tpu/ops/policy_rollout.py:486",
+             launches=dqn_launches["B4"],
+             launched_by="train.main --agent dqn (DQN defaults)",
+             max_abs_err=b4["max_abs_err"],
+             ms=b4["ms"], plain_ms=b4["plain_ms"]),
+        dict(name="B5 dqn_update_phase", route="cuda",
+             source="cartpoleplusplus_tpu_torch/csrc/dqn_update.cu",
+             replaces="cartpoleplusplus_tpu/ops/learner_kernel.py:862",
+             launches=dqn_launches["B5"],
+             launched_by="train.main --agent dqn (DQN defaults)",
+             max_abs_err=b5["max_abs_err"],
+             ms=b5["ms"], plain_ms=b5["plain_ms"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

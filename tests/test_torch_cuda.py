@@ -1,4 +1,4 @@
-"""Kernels B1, B2 and B3 against their plain torch twins on a CUDA GPU.
+"""Kernels B1 to B5 against their plain torch twins on a CUDA GPU.
 
 These need the card and skip elsewhere. The GPU machine has no JAX, so run
 them there without tests/conftest.py (which imports it):
@@ -6,17 +6,18 @@ them there without tests/conftest.py (which imports it):
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 This file imports no JAX. Batches of 1000 envs leave a ragged last tile,
-and B3's minibatch of 200 rows a ragged last row tile.
+and B3's and B5's minibatch of 200 rows a ragged last row tile.
 """
 
 import pytest
 import torch
 
 from cartpoleplusplus_tpu_torch import CartPole3D, CartPoleParams
-from cartpoleplusplus_tpu_torch.models import ActorMLP, CriticMLP
+from cartpoleplusplus_tpu_torch.models import ActorMLP, CriticMLP, QNetMLP
 from cartpoleplusplus_tpu_torch.ops import fused_rollout as fr
 from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
 from cartpoleplusplus_tpu_torch.ops import policy_rollout as pr
+from cartpoleplusplus_tpu_torch.ops import q_rollout as qr
 from cartpoleplusplus_tpu_torch.physics.params import continuous_params
 
 pytestmark = pytest.mark.cuda
@@ -148,3 +149,132 @@ def test_b3_rejects_uncovered_shapes(cuda):
     with pytest.raises(ValueError, match="not covered"):
         lk.ddpg_update_phase(groups, batches, 0, (32,), actor_lr=1e-3,
                              critic_lr=1e-3, gamma=0.99, tau=0.01)
+
+
+def _random_qnet(dev, hidden, seed, head_scale=0.5):
+    """A Q-net with its LayerNorm parameters and head redrawn (a head_scale
+    of 0.05 keeps the Q values near 1 and their gaps small)."""
+    g = torch.Generator().manual_seed(seed)
+    q = QNetMLP(42, 5, hidden, generator=g)
+    with torch.no_grad():
+        for norm in q.norms:
+            norm.weight.copy_(1.0 + 0.2 * torch.randn(norm.weight.shape,
+                                                      generator=g))
+            norm.bias.copy_(0.1 * torch.randn(norm.bias.shape, generator=g))
+        for prm in q.head.parameters():
+            prm.copy_(head_scale * torch.randn(prm.shape, generator=g))
+    return q.to(dev)
+
+
+def _top2_gap(q, obs):
+    """The twin's gap between the two largest Q values per env and step."""
+    with torch.no_grad():
+        top = torch.topk(q(obs), 2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+@pytest.mark.parametrize("eps", [0.3, 0.0], ids=["eps0.3", "greedy"])
+@pytest.mark.parametrize("hidden", [(256, 256), (64,), (32, 48, 16)])
+def test_b4_matches_twin(cuda, hidden, eps):
+    """Actions exact, except from an env's step where the twin's top-2 Q
+    gap is below 1e-5 (a near-tie that a different summation order may
+    break the other way; such envs leave the float comparison); obs and
+    reward within rtol 2e-4 / atol 2e-5; dones, steps and episodes exact;
+    one counted launch."""
+    env = CartPole3D(CartPoleParams(), num_envs=B, device=cuda)
+    q = _random_qnet(cuda, hidden, seed=1, head_scale=0.05)
+    # Random-action steps past the reset (whose poses are all alike), and
+    # the first layer centred on those obs so that the greedy actions and
+    # Q gaps vary across envs.
+    state, obs, _ = qr.reference_q_rollout(env, q, *env.reset(9), 0, 1.0, 6)
+    with torch.no_grad():
+        q.torso[0].bias.copy_(-(q.torso[0].weight @ obs.mean(0)))
+    before = qr.q_policy_rollout.launches
+    k = qr.q_policy_rollout(env, q, state, obs, 7, eps, 3)
+    torch.cuda.synchronize()
+    assert qr.q_policy_rollout.launches == before + 1
+    r = qr.reference_q_rollout(env, q, state, obs, 7, eps, 3)
+    assert k[2][1].dtype == torch.int32
+    diff = k[2][1] != r[2][1]
+    first = diff & (diff.int().cumsum(0) == 1)  # an env's first mismatch
+    assert bool((_top2_gap(q, r[2][0])[first] < 1e-5).all())
+    keep = ~diff.any(0)
+    for a, b in zip((k[2][0], k[2][2]), (r[2][0], r[2][2])):
+        torch.testing.assert_close(a[:, keep], b[:, keep], rtol=2e-4,
+                                   atol=2e-5)
+    assert torch.equal(k[2][3][:, keep], r[2][3][:, keep])
+    for a, b in zip((*k[0].phys, k[1]), (*r[0].phys, r[1])):
+        torch.testing.assert_close(a[keep], b[keep], rtol=2e-4, atol=2e-5)
+    assert torch.equal(k[0].steps[keep], r[0].steps[keep])
+    assert torch.equal(k[0].episode[keep], r[0].episode[keep])
+
+
+def test_b4_rejects_uncovered_shapes(cuda):
+    env = CartPole3D(CartPoleParams(), num_envs=64, device=cuda)
+    state, obs = env.reset(0)
+    with pytest.raises(ValueError, match="not covered"):
+        qr.q_policy_rollout(env, QNetMLP(42, 5, (8,) * 5).to(cuda), state,
+                            obs, 0, 0.1, 2)
+    cont = CartPole3D(continuous_params(), num_envs=64, device=cuda)
+    with pytest.raises(ValueError, match="not covered"):
+        qr.q_policy_rollout(cont, QNetMLP(42, 5, (32,)).to(cuda),
+                            *cont.reset(0), 0, 0.1, 2)
+
+
+def _b5_inputs(dev, hidden, batch, k, seed):
+    """The 4 group buffers (a Q-net with redrawn LayerNorm parameters and
+    head, a target near it, warmed Adam moments) and K minibatches with
+    int32 actions."""
+    g = torch.Generator().manual_seed(seed)
+    q = _random_qnet("cpu", hidden, seed)
+    flat = torch.cat([p.detach().reshape(-1) for p in q.parameters()])
+    groups = [flat, flat + 0.01 * torch.randn(flat.shape, generator=g),
+              1e-2 * torch.randn(flat.shape, generator=g),
+              (1e-2 * torch.randn(flat.shape, generator=g)) ** 2 + 1e-5]
+    obs = 0.3 * torch.randn((k, batch, 42), generator=g)
+    batches = (obs, torch.randint(0, 5, (k, batch), generator=g,
+                                  dtype=torch.int32),
+               torch.rand((k, batch), generator=g),
+               obs + 0.05 * torch.randn(obs.shape, generator=g),
+               torch.rand((k, batch), generator=g) < 0.1)
+    return [x.to(dev) for x in groups], tuple(x.to(dev) for x in batches)
+
+
+@pytest.mark.parametrize("hidden,double_dqn", [
+    ((256, 256), True), ((256, 256), False), ((64, 48, 32), True),
+    ((48,), True)])
+def test_b5_matches_twin(cuda, hidden, double_dqn):
+    """4 updates from warmed moments on a ragged batch of 200: every group
+    and the loss vector within the reference's kernel-vs-XLA bar (rtol
+    2e-4, atol 1e-5), one counted launch, and the same bits from a second
+    run."""
+    groups, batches = _b5_inputs(cuda, hidden, 200, 4, seed=2)
+    kw = dict(lr=1e-3, gamma=0.99, tau=0.05, double_dqn=double_dqn)
+    lay = lk.qnet_layout(42, hidden)
+    want = lk.dqn_update_phase_math(
+        *[lk.group_views(g, lay) for g in groups], batches, 30, hidden, **kw)
+    runs = []
+    for _ in range(2):
+        got = [g.clone() for g in groups]
+        before = lk.dqn_update_phase.launches
+        loss = lk.dqn_update_phase(got, batches, 30, hidden, **kw)
+        torch.cuda.synchronize()
+        assert lk.dqn_update_phase.launches == before + 1
+        runs.append((got, loss))
+    (got, loss), (got2, loss2) = runs
+    for g, w in zip(got, want[:4]):
+        for v, x in zip(lk.group_views(g, lay), w):
+            torch.testing.assert_close(v, x, rtol=2e-4, atol=1e-5)
+    torch.testing.assert_close(loss, want[4], rtol=2e-4, atol=1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(got + [loss],
+                                                 got2 + [loss2]))
+
+
+def test_b5_rejects_uncovered_shapes(cuda):
+    groups, batches = _b5_inputs(cuda, (32, 32), 16, 1, seed=0)
+    kw = dict(lr=1e-3, gamma=0.99, tau=0.01)
+    with pytest.raises(ValueError, match="not covered"):
+        lk.dqn_update_phase(groups, batches, 0, (8,) * 5, **kw)
+    with pytest.raises(ValueError, match="action"):
+        lk.dqn_update_phase(groups, (batches[0], batches[1].float())
+                            + batches[2:], 0, (32, 32), **kw)
