@@ -3,8 +3,8 @@
 The JAX package `cartpoleplusplus_tpu` is the reference; this package
 mirrors its module names (physics/, env/, ops/, models/, agents/,
 train.py) so each counterpart is easy to find. It imports torch and never
-JAX: on a CUDA device the rollout and learner kernels of the DDPG and DQN
-train paths run as hand-written CUDA (csrc/, built with nvcc at first
+JAX: on a CUDA device the rollout and learner kernels of the DDPG, DQN and
+LRPG train paths run as hand-written CUDA (csrc/, built with nvcc at first
 use), and on the CPU every kernel wrapper runs its plain torch twin.
 """
 

@@ -1,9 +1,12 @@
-"""Agents of the port (DDPG and DQN so far) and their replay and learner
-plumbing."""
+"""Agents of the port (DDPG, DQN, LRPG and the random baseline) and their
+replay and learner plumbing."""
 
 from .ddpg import DDPG, DDPGConfig, DDPGState
 from .dqn import DQN, DQNConfig, DQNState
+from .lrpg import LRPG, LRPGConfig, LRPGState
+from .random_agent import RandomAgent
 from .replay import ReplayBuffer, ReplayState
 
 __all__ = ["DDPG", "DDPGConfig", "DDPGState", "DQN", "DQNConfig", "DQNState",
-           "ReplayBuffer", "ReplayState"]
+           "LRPG", "LRPGConfig", "LRPGState", "RandomAgent", "ReplayBuffer",
+           "ReplayState"]

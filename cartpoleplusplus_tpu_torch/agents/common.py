@@ -14,15 +14,17 @@ import numpy as np
 import torch
 
 from ..ops import learner_kernel as lk
+from ..ops.pg_rollout import TAG_PG_GUMBEL
 from ..ops.policy_rollout import TAG_OU_X, TAG_OU_Y
 from ..ops.q_rollout import TAG_EPS_ACT, TAG_EPS_GATE
 
 # Counter-PRNG stream tags for agent exploration (utils/prng.py; env-side
-# tags live in env/compute.py). The DDPG OU tags and the DQN epsilon tags
-# are defined beside the kernels that draw them (B2, B4).
+# tags live in env/compute.py). The DDPG OU tags, the DQN epsilon tags and
+# the LRPG Gumbel tag are defined beside the kernels that draw them (B2,
+# B4, B8).
 __all__ = ["TAG_OU_X", "TAG_OU_Y", "TAG_EPS_GATE", "TAG_EPS_ACT",
-           "resolve_learner", "AdamState", "adam_init", "adam_update",
-           "bind_group", "bind_moments", "gated_update_scan",
+           "TAG_PG_GUMBEL", "resolve_learner", "AdamState", "adam_init",
+           "adam_update", "bind_group", "bind_moments", "gated_update_scan",
            "replay_presample", "episode_length_hist",
            "episode_stats_from_hist", "evaluate_policy"]
 
@@ -174,11 +176,14 @@ def episode_stats_from_hist(hist: torch.Tensor) -> dict:
 
 
 @torch.no_grad()
-def evaluate_policy(env, policy_fn, seed: int, num_steps: int) -> dict:
+def evaluate_policy(env, policy_fn, seed: int, num_steps: int,
+                    generator: torch.Generator | None = None) -> dict:
     """Policy evaluation over the batched env: `num_steps` steps from
     `env.reset(seed)` with masked auto-reset, reduced to exact statistics
     over completed episodes, plus mean reward and done fraction.
-    policy_fn(obs) -> action is deterministic.
+    policy_fn(obs) -> action is deterministic; with a `generator` (the
+    reference's `needs_key`, for stochastic baselines) it is called as
+    policy_fn(obs, generator) and draws from it.
 
     The reference derives its reset seed from a split JAX key; here the
     integer seed resets the envs directly."""
@@ -186,7 +191,9 @@ def evaluate_policy(env, policy_fn, seed: int, num_steps: int) -> dict:
     rew_total = torch.zeros((), dtype=torch.float32, device=env.device)
     dones = []
     for _ in range(num_steps):
-        state, obs, reward, done, _ = env.step(state, policy_fn(obs))
+        action = (policy_fn(obs) if generator is None
+                  else policy_fn(obs, generator))
+        state, obs, reward, done, _ = env.step(state, action)
         rew_total = rew_total + reward.sum()
         dones.append(done)
     done = torch.stack(dones)

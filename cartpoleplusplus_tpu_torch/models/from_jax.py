@@ -15,7 +15,7 @@ import torch
 
 from ..env.cartpole import EnvState
 from ..physics.dynamics import PhysState
-from .nets import ActorMLP, CriticMLP, QNetMLP
+from .nets import ActorMLP, CriticMLP, PolicyMLP, QNetMLP
 
 
 def _t(a, device=None) -> torch.Tensor:
@@ -61,10 +61,15 @@ def qnet_state_dict(tree, hidden: Sequence[int], device=None) -> dict:
     return actor_state_dict(tree, hidden, device)
 
 
+def policy_state_dict(tree, hidden: Sequence[int], device=None) -> dict:
+    """flax PolicyMLP params -> PolicyMLP state dict (QNetMLP's tree)."""
+    return actor_state_dict(tree, hidden, device)
+
+
 def unflatten_qnet(flat, hidden: Sequence[int], num_actions: int = 5):
-    """The reference's kernel-mode flat operand list of a QNetMLP
-    ([W_0..W_{n-1} (in, out), head W^T padded to (8, H), packed rows of
-    (bias, LN scale, LN bias) per layer, head bias (1, 8)];
+    """The reference's kernel-mode flat operand list of a QNetMLP or a
+    PolicyMLP ([W_0..W_{n-1} (in, out), head W^T padded to (8, H), packed
+    rows of (bias, LN scale, LN bias) per layer, head bias (1, 8)];
     ops/learner_kernel.py::flatten_actor) -> the flax tree, in numpy (the
     reference's `unflatten_actor(..., action_dim=5)`)."""
     flat = [np.asarray(x) for x in flat]
@@ -97,6 +102,13 @@ def qnet_from_flax(tree, obs_dim: int, num_actions: int,
                    hidden: Sequence[int], device=None) -> QNetMLP:
     net = QNetMLP(obs_dim, num_actions, hidden).to(device)
     net.load_state_dict(qnet_state_dict(tree, hidden, device))
+    return net
+
+
+def policy_from_flax(tree, obs_dim: int, num_actions: int,
+                     hidden: Sequence[int], device=None) -> PolicyMLP:
+    net = PolicyMLP(obs_dim, num_actions, hidden).to(device)
+    net.load_state_dict(policy_state_dict(tree, hidden, device))
     return net
 
 
@@ -203,4 +215,36 @@ def dqn_state_from_jax(agent, st, generator=None):
         env_state=env_state_from_jax(st.env_state, dev),
         obs=_t(np.asarray(st.obs, np.float32), dev),
         generator=generator if generator is not None else torch.Generator(),
+        env_steps=int(np.asarray(st.env_steps))))
+
+
+def lrpg_state_from_jax(agent, st):
+    """JAX LRPGState (numpy leaves) -> the port's LRPGState for `agent` (a
+    port LRPG of the same config), in the agent's native layout. Both of
+    the reference's layouts are taken: the flax tree of its XLA learner and
+    the flat operand list of its kernel mode. Policy, Adam moments and
+    count, return baseline, env state, obs and counters carry over."""
+    from ..agents.common import AdamState
+    from ..agents.lrpg import LRPGState
+
+    c, env, dev = agent.cfg, agent.env, agent.env.device
+    h, na = tuple(c.hidden), env.num_actions
+
+    def tree(x):
+        return unflatten_qnet(x, h, na) if isinstance(x, (list, tuple)) \
+            else x
+
+    policy = policy_from_flax(tree(st.params), env.obs_size, na, h, dev)
+    adam_state = st.opt[0]
+
+    def moments(x):
+        return _in_param_order(policy, policy_state_dict(tree(x), h, dev))
+
+    return agent.state_from_tree(LRPGState(
+        policy=policy,
+        opt=AdamState(count=int(np.asarray(adam_state.count)),
+                      mu=moments(adam_state.mu), nu=moments(adam_state.nu)),
+        baseline=_t(np.asarray(st.baseline, np.float32), dev),
+        env_state=env_state_from_jax(st.env_state, dev),
+        obs=_t(np.asarray(st.obs, np.float32), dev),
         env_steps=int(np.asarray(st.env_steps))))

@@ -1,6 +1,6 @@
-"""DDPG and DQN networks (cartpoleplusplus_tpu/models/nets.py ActorMLP,
-CriticMLP and QNetMLP in torch), with flax's numerics rather than torch's
-defaults:
+"""DDPG, DQN and LRPG networks (cartpoleplusplus_tpu/models/nets.py
+ActorMLP, CriticMLP, QNetMLP and PolicyMLP in torch), with flax's numerics
+rather than torch's defaults:
 
   * LayerNorm uses eps 1e-6 and the one-pass variance max(E[x^2] - E[x]^2,
     0), and applies (x - mean) * (rsqrt(var + eps) * scale) + bias;
@@ -115,6 +115,15 @@ class QNetMLP(_TorsoMLP):
 
     def forward(self, obs):
         return self.head(self.features(obs))
+
+
+class PolicyMLP(QNetMLP):
+    """Softmax policy logits over the discrete actions (LRPG): QNetMLP's
+    structure and init, hidden (64, 64) by default."""
+
+    def __init__(self, obs_dim: int, num_actions: int = 5,
+                 hidden: Sequence[int] = (64, 64), generator=None):
+        super().__init__(obs_dim, num_actions, hidden, generator)
 
 
 class CriticMLP(nn.Module):

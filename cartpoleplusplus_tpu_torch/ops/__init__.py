@@ -8,4 +8,6 @@ twin for CPU tensors; `<wrapper>.launches` counts kernel launches.
   B3 learner_kernel.ddpg_update_phase  csrc/ddpg_update.cu  K-update DDPG learner
   B4 q_rollout.q_policy_rollout     csrc/q_rollout.cu       DQN Q-net in the loop
   B5 learner_kernel.dqn_update_phase   csrc/dqn_update.cu   K-update DQN learner
+  B8 pg_rollout.pg_policy_rollout   csrc/q_rollout.cu       LRPG policy in the loop
+  B9 learner_kernel.lrpg_update_phase  csrc/lrpg_update.cu  LRPG update
 """

@@ -13,8 +13,9 @@ and no fast-math flag is set, so division and sqrt are IEEE and
 logf/cosf/sinf/tanhf are the accurate CUDA math library functions. The
 kernels then follow the plain torch twins operation by operation, and a
 termination threshold does not flip on a contraction. An explicit fmaf()
-is still fused: B3 and B5 (csrc/learner_stages.cuh) use it in their
-matrix-product and batch-sum inner loops only.
+is still fused: B3, B5 (csrc/learner_stages.cuh) and B9
+(csrc/lrpg_update.cu) use it in their matrix-product and batch-sum inner
+loops only.
 """
 
 from __future__ import annotations
@@ -63,6 +64,9 @@ class EnvConsts(ctypes.Structure):
 
 
 MAX_LAYERS = 4  # kMaxLayers in csrc/policy_tile.cuh and learner_stages.cuh
+# Bytes of shared memory one H100 block may use (kMaxSmem in
+# csrc/lrpg_update.cu; the B2/B4/B8 launchers take it from here).
+MAX_SMEM = 232_448
 
 
 class ActorDims(ctypes.Structure):
@@ -97,6 +101,24 @@ class DqnDims(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int) for n in (
         "num_layers", "obs_dim", "batch", "k_updates", "double_dqn")] + [
         ("hidden", ctypes.c_int * MAX_LAYERS), ("q", NetLayout)]
+
+
+class PgDims(ctypes.Structure):
+    """Mirror of `struct PgDims` in csrc/lrpg_update.cu (B9)."""
+
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "num_layers", "obs_dim", "n_rows")] + [
+        ("hidden", ctypes.c_int * MAX_LAYERS), ("net", NetLayout)]
+
+
+class PgConsts(ctypes.Structure):
+    """Mirror of `struct PgConsts` in csrc/lrpg_update.cu: B9's float32
+    constants, folded on the host (ops/learner_kernel.py::
+    lrpg_update_phase)."""
+
+    _fields_ = [(n, ctypes.c_float) for n in (
+        "inv_n", "coef", "lr", "b1", "omb1", "b2", "omb2", "eps", "bc1",
+        "bc2", "ln_eps")]
 
 
 class LearnerConsts(ctypes.Structure):
@@ -245,6 +267,12 @@ def load_library() -> ctypes.CDLL:
     lib.cp_dqn_update_phase.argtypes = [vp, vp] + [vp] * 4 + [vp] * 5 + [
         vp, vp, ci, vp]
     lib.cp_dqn_update_phase.restype = ci
+    lib.cp_pg_rollout.argtypes = [vp, vp, vp, ci, ci, ci] + [vp] * 19 + [vp]
+    lib.cp_pg_rollout.restype = ci
+    lib.cp_lrpg_workspace_floats.argtypes = [vp]
+    lib.cp_lrpg_workspace_floats.restype = ctypes.c_longlong
+    lib.cp_lrpg_update_phase.argtypes = [vp] * 11
+    lib.cp_lrpg_update_phase.restype = ci
     _lib = lib
     return lib
 

@@ -1,6 +1,7 @@
-"""Kernels B3 and B5, the whole K-update DDPG and DQN learner phases: their
-plain torch twins and the wrappers that launch csrc/ddpg_update.cu and
-csrc/dqn_update.cu (whose shared stage engine is csrc/learner_stages.cuh).
+"""Kernels B3 and B5, the whole K-update DDPG and DQN learner phases, and B9,
+the LRPG update: their plain torch twins and the wrappers that launch
+csrc/ddpg_update.cu and csrc/dqn_update.cu (whose shared stage engine is
+csrc/learner_stages.cuh) and csrc/lrpg_update.cu.
 
 Replaces cartpoleplusplus_tpu/ops/learner_kernel.py::_update_kernel (made by
 `ddpg_update_phase`). Per update k, on the presampled minibatch k:
@@ -38,6 +39,13 @@ B5 (replaces learner_kernel.py::_dqn_update_kernel, made by
 q's Adam moments m, v) in `qnet_layout`, which is the actor's with a
 5-wide linear head; its twin is `dqn_update_phase_math` (the JAX twin of
 the same name, learner_kernel.py:828).
+
+B9 (replaces learner_kernel.py::_lrpg_update_kernel, made by
+`lrpg_update_phase`) takes ONE Adam step of the softmax policy gradient
+with an entropy bonus over a whole rollout window, on 3 groups (the
+policy and its Adam moments m, v) in `policy_layout` (PolicyMLP has
+QNetMLP's structure); its twin is `lrpg_update_phase_math` (the JAX twin
+of the same name, learner_kernel.py:1372).
 """
 
 from __future__ import annotations
@@ -101,6 +109,11 @@ def qnet_layout(obs_dim: int, hidden: Sequence[int]) -> list:
     return _mlp_layout((obs_dim,) + hidden[:-1], hidden, NUM_ACTIONS)
 
 
+def policy_layout(obs_dim: int, hidden: Sequence[int]) -> list:
+    """(name, shape) of PolicyMLP's parameters (QNetMLP's layout)."""
+    return qnet_layout(obs_dim, hidden)
+
+
 def layout_size(layout) -> int:
     return sum(int(np.prod(shape)) for _, shape in layout)
 
@@ -129,6 +142,42 @@ def dqn_covers(obs_dim: int, hidden: Sequence[int]) -> bool:
     hidden = tuple(hidden)
     return (1 <= len(hidden) <= _native.MAX_LAYERS
             and max((obs_dim,) + hidden) <= MAX_WIDTH)
+
+
+_PG_KC = 128             # kPgKc in csrc/lrpg_update.cu: weight-tile inputs
+
+
+def pg_tile_floats(obs_dim: int, hidden, rows: int) -> int:
+    """Floats of B9's shared-memory sub-tile of `rows` rows, as
+    carve_tile in csrc/lrpg_update.cu counts them (a change to one is a
+    change to both; tests/test_torch_cuda.py holds them together): the
+    obs rows, per layer the pre-LN and relu rows and the LayerNorm
+    statistics, the 5 logits, two gradient rows, the loss terms and one
+    (<= 128, 33) weight tile."""
+    hmax = max(hidden)
+    return (rows * (obs_dim + 2 * sum(hidden) + 2 * len(hidden)
+                    + NUM_ACTIONS + 2 * hmax + 1)
+            + min(max(obs_dim, hmax), _PG_KC) * 33)
+
+
+def pg_tile_rows(obs_dim: int, hidden: Sequence[int]) -> int:
+    """B9's sub-tile row count (tile_rows in csrc/lrpg_update.cu): the
+    largest of 32, 16 and 8 whose tile fits in one block's shared memory,
+    or 0 for a shape B9 does not take (not 1 to 4 layers, or too wide)."""
+    hidden = tuple(hidden)
+    if not 1 <= len(hidden) <= _native.MAX_LAYERS:
+        return 0
+    return next((r for r in (32, 16, 8)
+                 if 4 * pg_tile_floats(obs_dim, hidden, r)
+                 <= _native.MAX_SMEM), 0)
+
+
+def lrpg_covers(obs_dim: int, hidden: Sequence[int]) -> bool:
+    """The shapes B9 takes: 1 to 4 hidden layers whose sub-tile of at
+    least 8 rows fits in shared memory. Two layers of width up to 272 run
+    32-row sub-tiles, up to 552 16 and up to 1114 8; four layers of up
+    to 162, 331 and 668 (obs 42)."""
+    return pg_tile_rows(obs_dim, hidden) > 0
 
 
 # --------------------------------------------------------------------------
@@ -425,7 +474,52 @@ def dqn_update_phase_math(q, q_target, m, v, batches, t0: int, hidden, *,
 
 
 # --------------------------------------------------------------------------
-# The wrapper.
+# LRPG (B9's twin).
+# --------------------------------------------------------------------------
+
+def lrpg_phase_block(params, obs, act, adv, hidden, entropy_coef: float,
+                     inv_n: float):
+    """Softmax policy-gradient contribution of (B, F) window rows; act is
+    (B,) int, adv (B, 1) float (already window-normalised). The gradient
+    at the logits is closed-form,
+        dlogits = inv_n (adv (p - onehot_a) + c p (logp + H)),
+    so no autograd is needed. Returns (grads in `params`' order, loss
+    contribution inv_n sum(-logp[a] adv - c H))."""
+    logits, residue = mlp_fwd(obs, params, hidden)
+    zm = logits.max(1, keepdim=True).values
+    ex = torch.exp(logits - zm)
+    z = ex.sum(1, keepdim=True)
+    p = ex / z
+    logp = logits - zm - torch.log(z)
+    onehot = torch.zeros_like(logits).scatter_(1, act.long()[:, None], 1.0)
+    lp_a = (logp * onehot).sum(1, keepdim=True)
+    ent = -(p * logp).sum(1, keepdim=True)
+    coef, inv = _f32(entropy_coef), _f32(inv_n)
+    dlogits = inv * (adv * (p - onehot) + coef * p * (logp + ent))
+    grads = mlp_bwd(dlogits, params, hidden, residue)
+    return grads, inv * (-lp_a * adv - coef * ent).sum()
+
+
+@torch.no_grad()
+def lrpg_update_phase_math(params, m, v, window, t0: int, hidden, *, lr,
+                           entropy_coef):
+    """One LRPG Adam update on parameter lists (`policy_layout`, one list
+    per group). window: (obs (N, F), action (N,) int, advantage (N,));
+    t0 is the Adam count before the update. Returns (params, m, v, loss
+    ()) as new tensors."""
+    obs, act, adv = window
+    grads, loss = lrpg_phase_block(params, obs, act, adv[:, None],
+                                   tuple(hidden), entropy_coef,
+                                   1.0 / obs.shape[0])
+    bc1, bc2 = _bias_corrections(float(t0 + 1))
+    new = [adam_step(p, mm, vv, g, bc1, bc2, _f32(lr))
+           for p, mm, vv, g in zip(params, m, v, grads)]
+    params, m, v = ([x[i] for x in new] for i in range(3))
+    return params, m, v, loss
+
+
+# --------------------------------------------------------------------------
+# The wrappers.
 # --------------------------------------------------------------------------
 
 # Workspaces by (device, stream, shape): a call reuses its stream's buffer
@@ -642,3 +736,84 @@ def dqn_update_phase(groups, batches, t0: int, hidden, *, lr: float,
 
 
 dqn_update_phase.launches = 0
+
+
+@torch.no_grad()
+def lrpg_update_phase(groups, window, t0: int, hidden, *, lr: float,
+                      entropy_coef: float):
+    """B9: one LRPG update on the 3 group buffers, IN PLACE.
+
+    groups = (params, m, v), each a contiguous 1-D float32 buffer in
+    `policy_layout`; window = (obs (N, F) float32, action (N,) int32,
+    advantage (N,) float32); t0 the Adam count before the update. Returns
+    the window's loss ().
+
+    CUDA buffers launch the hand-written kernel (csrc/lrpg_update.cu, a
+    gradient pass and an Adam pass) on the current stream; CPU buffers run
+    `lrpg_update_phase_math` and copy its results into the buffers. Any
+    other device, a shape B9 does not cover (`lrpg_covers`), or a
+    malformed argument raises."""
+    hidden = tuple(hidden)
+    dev = groups[0].device
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"lrpg_update_phase runs on cuda or cpu, not {dev}")
+    if len(groups) != 3 or len(window) != 3 or window[0].dim() != 2:
+        raise ValueError("want 3 group buffers and 3 window tensors")
+    n, obs_dim = window[0].shape
+    if not lrpg_covers(obs_dim, hidden):
+        raise ValueError(f"obs {obs_dim}, hidden {hidden}: not covered by "
+                         f"B9 (ops.learner_kernel.lrpg_covers)")
+    if n < 1:
+        raise ValueError("the window has no rows")
+    lay = policy_layout(obs_dim, hidden)
+    for i, g in enumerate(groups):
+        _check(g, (layout_size(lay),), torch.float32, dev, f"group {i}")
+    for t, shape, dtype, what in (
+            (window[0], (n, obs_dim), torch.float32, "obs"),
+            (window[1], (n,), torch.int32, "action"),
+            (window[2], (n,), torch.float32, "advantage")):
+        _check(t, shape, dtype, dev, what)
+
+    if dev.type == "cpu":
+        views = [group_views(g, lay) for g in groups]
+        out = lrpg_update_phase_math(*views, window, t0, hidden, lr=lr,
+                                     entropy_coef=entropy_coef)
+        for dst, src in zip(views, out[:3]):
+            for d, s in zip(dst, src):
+                d.copy_(s)
+        return out[3]
+
+    nl = len(hidden)
+    dims = _native.PgDims(num_layers=nl, obs_dim=obs_dim, n_rows=n,
+                          net=_layout_offsets(lay, nl))
+    for i, h in enumerate(hidden):
+        dims.hidden[i] = h
+    bc1, bc2 = _bias_corrections(float(t0 + 1))
+    consts = _native.PgConsts(
+        inv_n=_f32(1.0 / n), coef=_f32(entropy_coef), lr=_f32(lr),
+        b1=_f32(_ADAM_B1), omb1=_f32(1.0 - _ADAM_B1), b2=_f32(_ADAM_B2),
+        omb2=_f32(1.0 - _ADAM_B2), eps=_f32(_ADAM_EPS), bc1=bc1, bc2=bc2,
+        ln_eps=_f32(_LN_EPS))
+    lib = _native.load_library()
+    loss = torch.empty((), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        key = ("lrpg", dev, stream, obs_dim, n, hidden)
+        ws = _workspaces.get(key)
+        if ws is None:
+            size = lib.cp_lrpg_workspace_floats(_native.struct_ptr(dims))
+            if size <= 0:
+                raise ValueError(f"B9 rejected dims {key}")
+            ws = _workspaces[key] = torch.empty(size, dtype=torch.float32,
+                                                device=dev)
+        rc = lib.cp_lrpg_update_phase(
+            _native.struct_ptr(dims), _native.struct_ptr(consts),
+            *(g.data_ptr() for g in groups),
+            *(w.data_ptr() for w in window), loss.data_ptr(), ws.data_ptr(),
+            stream)
+    _native.check(lib, rc, "lrpg_update_phase")
+    lrpg_update_phase.launches += 1
+    return loss
+
+
+lrpg_update_phase.launches = 0

@@ -34,7 +34,6 @@ TAG_OU_X = 0x41
 TAG_OU_Y = 0x42
 
 _TILE = 32                 # envs per block (kTile in the .cu)
-_MAX_SMEM = 232_448        # bytes of shared memory one H100 block may use
 
 
 def _smem_bytes(width: int) -> int:
@@ -50,7 +49,7 @@ def fusable(env: CartPole3D, hidden: Sequence[int]) -> bool:
     return (not p.discrete_actions and env.obs_mode == "pose_stack"
             and env.auto_reset
             and 1 <= len(hidden) <= _native.MAX_LAYERS
-            and _smem_bytes(width) <= _MAX_SMEM)
+            and _smem_bytes(width) <= _native.MAX_SMEM)
 
 
 def ou_step(noise, env_seed, t: int, theta: float, sigma: float):

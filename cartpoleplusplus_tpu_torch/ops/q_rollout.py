@@ -2,8 +2,8 @@
 the wrapper that launches csrc/q_rollout.cu.
 
 Replaces cartpoleplusplus_tpu/ops/policy_rollout.py::_q_rollout_kernel in
-its mode `dqn` (the NAF and LRPG modes of that Pallas function are other
-kernels, not ported here). Both versions take
+its mode `dqn` (its mode `lrpg` is kernel B8, ops/pg_rollout.py, built from
+the same CUDA source; its mode `naf` is not ported yet). Both versions take
 
     (env state, obs (B, F), Q-net, env_steps, epsilon)
 
@@ -30,7 +30,7 @@ from ..models.nets import QNetMLP
 from ..utils.prng import hash_words, uniform
 from . import _native
 from .fused_rollout import _check_state, _empty_state, _state_ptrs
-from .policy_rollout import _MAX_SMEM, _TILE, pack_actor
+from .policy_rollout import _TILE, pack_actor
 
 # Exploration stream tags (agents/common.py re-exports them).
 TAG_EPS_GATE = 0x43
@@ -52,7 +52,7 @@ def q_fusable(env: CartPole3D, hidden: Sequence[int]) -> bool:
     return (p.discrete_actions and env.num_actions == NUM_ACTIONS
             and env.obs_mode == "pose_stack" and env.auto_reset
             and 1 <= len(hidden) <= _native.MAX_LAYERS
-            and _smem_bytes(width) <= _MAX_SMEM)
+            and _smem_bytes(width) <= _native.MAX_SMEM)
 
 
 def epsilon_greedy(q_values, env_seed, t: int, eps: float):
@@ -86,6 +86,53 @@ def pack_qnet(q: QNetMLP) -> torch.Tensor:
     return pack_actor(q)
 
 
+def launch_rollout(entry: str, kernel: str, env: CartPole3D, net, state,
+                   obs, num_steps: int, *scalars):
+    """Checks the shapes and launches one of the two 5-action rollout
+    kernels of csrc/q_rollout.cu (`entry` cp_q_rollout for B4,
+    cp_pg_rollout for B8) on the current stream; `scalars` are the entry's
+    arguments between the weights and the batch size. Returns (env state',
+    obs', traj)."""
+    dev = state.steps.device
+    hidden = net.hidden
+    b, f = env.num_envs, env.obs_size
+    if (not q_fusable(env, hidden) or net.torso[0].in_features != f
+            or net.head.out_features != NUM_ACTIONS):
+        raise ValueError(f"env/network shape not covered by the {kernel} "
+                         f"kernel (see ops.q_rollout.q_fusable)")
+    _check_state(env, state)
+    if (obs.device != dev or tuple(obs.shape) != (b, f)
+            or obs.dtype != torch.float32 or not obs.is_contiguous()):
+        raise ValueError(f"obs {tuple(obs.shape)} {obs.dtype} on "
+                         f"{obs.device}: want contiguous {(b, f)} float32 "
+                         f"on {dev}")
+    params = pack_qnet(net)
+    if params.device != dev:
+        raise ValueError(f"network on {params.device}, env state on {dev}")
+    dims = _native.ActorDims(num_layers=len(hidden), obs_dim=f,
+                             width=max((f,) + tuple(hidden)))
+    for i, h in enumerate(hidden):
+        dims.hidden[i] = h
+    lib = _native.load_library()
+    traj = (torch.empty((num_steps, b, f), dtype=torch.float32, device=dev),
+            torch.empty((num_steps, b), dtype=torch.int32, device=dev),
+            torch.empty((num_steps, b), dtype=torch.float32, device=dev),
+            torch.empty((num_steps, b), dtype=torch.bool, device=dev))
+    out = _empty_state(state)
+    obs_out = torch.empty_like(obs)
+    consts = _native.env_consts(env.params)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, entry)(
+            _native.struct_ptr(consts), _native.struct_ptr(dims),
+            params.data_ptr(), *scalars, b, num_steps,
+            *_state_ptrs(state), state.env_seed.data_ptr(), obs.data_ptr(),
+            *(x.data_ptr() for x in traj), *_state_ptrs(out),
+            obs_out.data_ptr(), stream)
+    _native.check(lib, rc, entry)
+    return out, obs_out, traj
+
+
 @torch.no_grad()
 def q_policy_rollout(env: CartPole3D, q: QNetMLP, state: EnvState, obs,
                      env_steps: int, eps: float, num_steps: int):
@@ -101,44 +148,10 @@ def q_policy_rollout(env: CartPole3D, q: QNetMLP, state: EnvState, obs,
                                    num_steps)
     if dev.type != "cuda":
         raise ValueError(f"q_policy_rollout runs on cuda or cpu, not {dev}")
-    hidden = q.hidden
-    b, f = env.num_envs, env.obs_size
-    if (not q_fusable(env, hidden) or q.torso[0].in_features != f
-            or q.head.out_features != NUM_ACTIONS):
-        raise ValueError("env/Q-net shape not covered by the B4 kernel "
-                         "(see ops.q_rollout.q_fusable)")
-    _check_state(env, state)
-    if (obs.device != dev or tuple(obs.shape) != (b, f)
-            or obs.dtype != torch.float32 or not obs.is_contiguous()):
-        raise ValueError(f"obs {tuple(obs.shape)} {obs.dtype} on "
-                         f"{obs.device}: want contiguous {(b, f)} float32 "
-                         f"on {dev}")
-    params = pack_qnet(q)
-    if params.device != dev:
-        raise ValueError(f"Q-net on {params.device}, env state on {dev}")
-    dims = _native.ActorDims(num_layers=len(hidden), obs_dim=f,
-                             width=max((f,) + tuple(hidden)))
-    for i, h in enumerate(hidden):
-        dims.hidden[i] = h
-    lib = _native.load_library()
-    traj = (torch.empty((num_steps, b, f), dtype=torch.float32, device=dev),
-            torch.empty((num_steps, b), dtype=torch.int32, device=dev),
-            torch.empty((num_steps, b), dtype=torch.float32, device=dev),
-            torch.empty((num_steps, b), dtype=torch.bool, device=dev))
-    out = _empty_state(state)
-    obs_out = torch.empty_like(obs)
-    consts = _native.env_consts(env.params)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.cp_q_rollout(
-            _native.struct_ptr(consts), _native.struct_ptr(dims),
-            params.data_ptr(), eps, env_steps, b, num_steps,
-            *_state_ptrs(state), state.env_seed.data_ptr(), obs.data_ptr(),
-            *(x.data_ptr() for x in traj), *_state_ptrs(out),
-            obs_out.data_ptr(), stream)
-    _native.check(lib, rc, "q_policy_rollout")
+    out = launch_rollout("cp_q_rollout", "B4", env, q, state, obs,
+                         num_steps, eps, env_steps)
     q_policy_rollout.launches += 1
-    return out, obs_out, traj
+    return out
 
 
 q_policy_rollout.launches = 0

@@ -1,21 +1,26 @@
-"""Training CLI of the port — the `--agent ddpg` and `--agent dqn` flows of
-cartpoleplusplus_tpu.train on one device.
+"""Training CLI of the port — the `--agent ddpg`, `dqn`, `lrpg` and `random`
+flows of cartpoleplusplus_tpu.train on one device.
 
 Usage:
     python -m cartpoleplusplus_tpu_torch.train                 # ddpg, cuda
     python -m cartpoleplusplus_tpu_torch.train --agent dqn     # dqn, cuda
+    python -m cartpoleplusplus_tpu_torch.train --agent lrpg    # lrpg, cuda
+    python -m cartpoleplusplus_tpu_torch.train --agent random  # baseline
     python -m cartpoleplusplus_tpu_torch.train --device cpu --num-envs 64
 
 Prints one JSON line of metrics every --log-interval train steps and, with
 --final-eval, one line of greedy-policy episode statistics. On a CUDA
-device each train step's rollout runs a kernel (B2 for DDPG, B4 for DQN;
-a shape the kernel does not cover is an error there) and, at
-`--<agent>.learner auto` (the default), each learning step's K updates
-run the agent's fused learner kernel (B3, B5) where it covers the config
-(`learner_impl` in the metrics says which learner ran). `--device cuda`
-without a visible GPU is an error, never a silent CPU run. The NAF, LRPG
-and random agents, checkpoints, the event log, presets and the canary,
-and the device mesh are not ported yet: their flags are rejected.
+device each train step's rollout runs a kernel (B2 for DDPG, B4 for DQN,
+B8 for LRPG; a shape the kernel does not cover is an error there) and, at
+`--<agent>.learner auto` (the default), each learning step's update runs
+the agent's fused learner kernel (B3, B5, B9) where it covers the config
+(`learner_impl` in the metrics says which learner ran). `--agent random`
+runs the uniform-random policy for `--total-env-steps` steps per env and
+prints one line of episode statistics; no kernel exists for it, so on the
+GPU it steps the plain env one step at a time. `--device cuda` without a
+visible GPU is an error, never a silent CPU run. The NAF agent,
+checkpoints, the event log, presets and the canary, and the device mesh
+are not ported yet: their flags are rejected.
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ import time
 
 import torch
 
-from .agents import DDPG, DQN, DDPGConfig, DQNConfig
+from .agents import (DDPG, DQN, LRPG, DDPGConfig, DQNConfig, LRPGConfig,
+                     RandomAgent)
 from .config import RunConfig, add_dataclass_args, explicit_dests, from_args
 from .env import CartPole3D
 from .physics.params import CartPoleParams, continuous_params
@@ -41,10 +47,11 @@ _NOT_PORTED = (
     "event_log", "event_log_envs", "use_mesh", "learner", "eval_only",
     "eval_render", "profile_dir", "canary_env_steps", "canary_min_eval",
     "canary_max_restarts")
-_NOT_PORTED_AGENTS = ("naf", "lrpg", "random")
+_NOT_PORTED_AGENTS = ("naf",)
 # agent -> (class, config class, rollout kernel, its coverage check).
 _AGENTS = {"ddpg": (DDPG, DDPGConfig, "B2", "ops.policy_rollout.fusable"),
-           "dqn": (DQN, DQNConfig, "B4", "ops.q_rollout.q_fusable")}
+           "dqn": (DQN, DQNConfig, "B4", "ops.q_rollout.q_fusable"),
+           "lrpg": (LRPG, LRPGConfig, "B8", "ops.pg_rollout.pg_fusable")}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -74,10 +81,14 @@ def _not_ported(unknown) -> list:
 def build(run: RunConfig, args: argparse.Namespace, provided: set):
     """(env, agent) from parsed configuration. DDPG's env defaults to the
     continuous preset (continuous actions, pushes, shaped reward), with
-    env fields typed on the command line always winning; DQN takes the
-    discrete env as the flags give it."""
-    agent_cls, cfg_cls, kernel, check = _AGENTS[run.agent]
+    env fields typed on the command line always winning; DQN, LRPG and
+    the random agent take the discrete env as the flags give it."""
     params = from_args(CartPoleParams, args, prefix="env.")
+    if run.agent == "random":
+        env = CartPole3D(params, num_envs=run.num_envs,
+                         obs_mode=run.obs_mode, device=run.device)
+        return env, RandomAgent(env)
+    agent_cls, cfg_cls, kernel, check = _AGENTS[run.agent]
     if run.agent == "ddpg":
         preset = continuous_params()
         params = CartPoleParams(**{
@@ -106,9 +117,9 @@ def main(argv=None) -> int:
         ap.error(f"unrecognized arguments: {' '.join(unknown)}")
     provided = explicit_dests(build_parser(), argv)
     run = from_args(RunConfig, args)
-    if run.agent not in _AGENTS:
+    if run.agent not in _AGENTS and run.agent != "random":
         print(f"agent {run.agent!r} is not ported yet; only "
-              f"{' and '.join(_AGENTS)} are", file=sys.stderr)
+              f"{', '.join(_AGENTS)} and random are", file=sys.stderr)
         return 2
     device = torch.device(run.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -120,6 +131,13 @@ def main(argv=None) -> int:
     except ValueError as e:
         print(f"invalid configuration: {e}", file=sys.stderr)
         return 2
+
+    if run.agent == "random":
+        # total_env_steps is per env, as everywhere else.
+        stats = agent.evaluate(run.seed, max(run.total_env_steps, 1))
+        print(json.dumps({k: float(v) for k, v in stats.items()}),
+              flush=True)
+        return 0
 
     state = agent.init(run.seed)
     steps_per_call = agent.cfg.rollout_steps

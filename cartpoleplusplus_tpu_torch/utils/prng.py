@@ -70,3 +70,11 @@ def normal(*words):
     u1 = uniform_from_bits(hash_words(*words, 0xB0), lo=2.0 ** -24, hi=1.0)
     u2 = uniform_from_bits(hash_words(*words, 0xB1))
     return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(_TWO_PI_F32 * u2)
+
+
+def gumbel(*words):
+    """One standard-Gumbel draw per element, -log(-log(u)), over the
+    tag-salted stream 0xB2 with u in [2^-24, 1) so both logs are finite:
+    argmax(logits + g) is an exact softmax sample."""
+    u = uniform_from_bits(hash_words(*words, 0xB2), lo=2.0 ** -24, hi=1.0)
+    return -torch.log(-torch.log(u))

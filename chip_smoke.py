@@ -35,9 +35,25 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      its defaults for 64 env-steps plus a 200-step greedy eval; B4 must
      launch once per train step and B5 once per learning train step (7),
      the DDPG and physics kernels never;
-  11. where a default DQN train step's time goes, as phase 7.
-Then one JSON line of per-kernel numbers and, last, the device line.
-The script imports no JAX and nothing of the JAX package.
+  11. where a default DQN train step's time goes, as phase 7;
+  12. B8 (LRPG softmax policy in the env loop, Gumbel-max sampling)
+     against its twin, 4096 envs, hidden (64, 64), 3 steps from a state 6
+     sampled steps past a reset, seeded random policy weights: actions
+     exact except at near-ties of the twin's logits + Gumbel draws (top-2
+     gap below 1e-5, counted), timed at T = 32 beside its twin and B4
+     re-timed in the same call;
+  13. B9 (the fused LRPG update) against its twin at the LRPG defaults (N =
+     131,072 window rows, hidden (64, 64), lr 3e-4, entropy 0.1) from
+     warmed Adam moments, two runs bit for bit;
+  14. LRPG main path with the counters zeroed: `train.main --agent lrpg`
+     for 256 env-steps (8 train steps) plus a 200-step greedy eval; B8 and
+     B9 must launch once per train step, B1-B5 never; then, zeroed again,
+     `train.main --agent random` for 200 steps, which launches no kernel;
+  15. where a default LRPG train step's time goes, as phase 7.
+Then one JSON line of per-kernel numbers (each with its bound: the larger
+of its float32 operations over 67 TFLOP/s and its bytes over 3.35 TB/s,
+counted from this run's shapes) and, last, the device line. The script
+imports no JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -65,6 +81,56 @@ SPLIT_ROUNDS = 3        # round-robin passes over the train-step parts
 B4_EPS = (0.3, 0.0)     # compared exploration rates: mixed, then greedy
 B4_TIE = 1e-5           # a twin top-2 Q gap below this is a near-tie
 B5_BATCH, B5_K = 256, 8  # DQN's batch_size and updates_per_step
+LRPG_HIDDEN = (64, 64)  # LRPG's hidden, rollout_steps and window rows
+LRPG_T = 32
+B9_N = N_ENVS * LRPG_T
+# The H100 SXM's published peaks (NVIDIA's data sheet): float32 outside
+# the tensor cores and HBM3 bandwidth. A kernel's bound is the larger of
+# its operations and its bytes over these.
+F32_FLOPS = 67e12
+HBM_BYTES = 3.35e12
+# Float operations of the env math, counted from csrc/cartpole_env.cuh (an
+# add, multiply, divide, sqrt or transcendental counts one; min, max and
+# comparisons none): one substep without the optional terms, its friction
+# (2 tanh terms), linear and angular damping terms, one pose frame, one
+# push draw, and an env-step's termination and shaped reward.
+SUBSTEP_FLOP, FRICTION_FLOP, DAMPING_FLOP = 103, 10, 4
+FRAME_FLOP, PUSH_FLOP, STEP_TAIL_FLOP = 24, 8, 13
+
+
+def _kernel_name(mangled: str) -> str:
+    """A mangled entry function -> its name, with `<0>`/`<1>` for a bool
+    template flag: the identifier ending in `_kernel` that its length
+    prefix delimits (names in an anonymous namespace carry a file hash
+    before it)."""
+    import re
+
+    end = mangled.find("_kernel") + len("_kernel")
+    for n in range(len("_kernel") + 1, end + 1):
+        if mangled[:end - n].endswith(str(n)):
+            flag = re.match(r"ILb([01])E", mangled[end:])
+            return mangled[end - n:end] + (f"<{flag.group(1)}>" if flag
+                                           else "")
+    return mangled
+
+
+def _ptxas_report(build_log: str) -> dict:
+    """Kernel name -> the compiler's register and shared-memory line, from
+    the `-Xptxas -v` output in the build log."""
+    import re
+
+    out, name = {}, None
+    for ln in open(build_log):
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = _kernel_name(m.group(1))
+        elif "Used" in ln and name is not None:
+            out[name] = ln.split(":", 1)[1].strip()
+    return out
+
+
+def _bound_keys(result: dict) -> dict:
+    return {k: result[k] for k in ("bound_ms", "bound_by", "library_ms")}
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -82,6 +148,53 @@ def _time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _env_step_flop(p) -> int:
+    """Float operations of one env-step (R repeats of S substeps, a frame
+    and a push draw per repeat, termination and reward)."""
+    sub = (SUBSTEP_FLOP + FRICTION_FLOP * (p.ground_friction != 0.0)
+           + DAMPING_FLOP * ((p.linear_damping != 0.0)
+                             + (p.angular_damping != 0.0)))
+    rep = (p.steps_per_repeat * sub + FRAME_FLOP
+           + PUSH_FLOP * (p.push_prob_per_repeat > 0.0))
+    return p.action_repeats * rep + STEP_TAIL_FLOP
+
+
+def _mlp_macs(dims) -> int:
+    """Multiply-adds of one row through dense layers of widths dims."""
+    return sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+
+
+def _nbytes(*tensors) -> int:
+    import torch
+
+    return sum(x.numel() * x.element_size() for x in tensors
+               if isinstance(x, torch.Tensor))
+
+
+def _bound(flop: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the float32 peak and the bytes over the HBM rate."""
+    t_ops, t_bytes = flop / F32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                library_ms=None)
+
+
+def _rollout_bound(env, state, obs, params, num_steps, act_width,
+                   extra_flop_per_step, net_macs, carry=()):
+    """Bound of a policy-in-the-loop rollout: the network, the env math
+    and the exploration per env-step; the state, obs, weights and carries
+    read once, the trajectory, final state and obs written once."""
+    b, f = env.num_envs, env.obs_size
+    flop = b * num_steps * (2 * net_macs + _env_step_flop(env.params)
+                            + extra_flop_per_step)
+    state_bytes = _nbytes(*state.phys, state.steps, state.episode)
+    traj = num_steps * b * (4 * f + 4 * act_width + 4 + 1)
+    nbytes = (2 * state_bytes + _nbytes(state.env_seed) + 2 * _nbytes(obs)
+              + _nbytes(params) + 2 * _nbytes(*carry) + traj)
+    return _bound(flop, nbytes)
 
 
 def _max_err(a, b) -> float:
@@ -129,7 +242,11 @@ def phase_b1(dev):
               f"{N_ENVS}x{B1_STEPS}: kernel {ms:.4f} ms ({rate:.4g} "
               f"env-steps/s), plain {plain_ms:.2f} ms ({plain_rate:.4g} "
               f"env-steps/s)", flush=True)
-        out[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
+        st_bytes = _nbytes(*state.phys, state.steps, state.episode)
+        out[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                         **_bound(N_ENVS * B1_STEPS * (_env_step_flop(p) + 2),
+                                  2 * st_bytes + _nbytes(state.env_seed)
+                                  + 4))
     return out
 
 
@@ -186,7 +303,14 @@ def phase_b2(dev):
           f"dones ended {int(r[3][3].sum())}; {N_ENVS}x{B2_TIME_STEPS} "
           f"hidden (256, 256): kernel {ms:.4f} ms ({flop / ms / 1e9:.4g} "
           f"TFLOP/s of actor matmul), plain {plain_ms:.2f} ms", flush=True)
-    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
+    from cartpoleplusplus_tpu_torch.ops.policy_rollout import pack_actor
+
+    # OU: two counter normals (log, sqrt, cos and 4 more each) and the
+    # update and clip per component.
+    bound = _rollout_bound(env, state, obs, pack_actor(actor), B2_TIME_STEPS,
+                           2, 2 * 7 + 2 * 5, _mlp_macs((42, 256, 256, 2)),
+                           carry=(noise,))
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, **bound)
 
 
 def _b3_inputs(dev, hidden, batch, k, seed):
@@ -285,8 +409,9 @@ def phase_b3(dev):
           f"bitwise equal; batch {B3_BATCH} x K {B3_K}, hidden (256, 256): "
           f"kernel {ms:.4f} ms ({flop / ms / 1e9:.4g} TFLOP/s of learner "
           f"matmul), plain {plain_ms:.2f} ms", flush=True)
+    nbytes = 2 * _nbytes(*groups) + _nbytes(*batches) + 8 * B3_K
     return dict(max_abs_err=max(list(errs.values()) + list(v_errs.values())),
-                ms=ms, plain_ms=plain_ms)
+                ms=ms, plain_ms=plain_ms, **_bound(flop, nbytes))
 
 
 def _b3_update_flop(hidden, batch) -> int:
@@ -309,13 +434,15 @@ def _wrappers() -> dict:
     """Every kernel's wrapper, whose `launches` counts its kernel."""
     from cartpoleplusplus_tpu_torch.ops.fused_rollout import fused_rollout
     from cartpoleplusplus_tpu_torch.ops.learner_kernel import (
-        ddpg_update_phase, dqn_update_phase)
+        ddpg_update_phase, dqn_update_phase, lrpg_update_phase)
+    from cartpoleplusplus_tpu_torch.ops.pg_rollout import pg_policy_rollout
     from cartpoleplusplus_tpu_torch.ops.policy_rollout import policy_rollout
     from cartpoleplusplus_tpu_torch.ops.q_rollout import q_policy_rollout
 
     return {"B1": fused_rollout, "B2": policy_rollout,
             "B3": ddpg_update_phase, "B4": q_policy_rollout,
-            "B5": dqn_update_phase}
+            "B5": dqn_update_phase, "B8": pg_policy_rollout,
+            "B9": lrpg_update_phase}
 
 
 def _zero_counts():
@@ -349,7 +476,8 @@ def phase_main_path():
     n_train = total_env_steps // rollout
     assert [m["train_step"] for m in steps] == list(range(1, n_train + 1))
     assert launches["B2"] == n_train, f"B2 launched {launches['B2']} times"
-    assert launches["B1"] == launches["B4"] == launches["B5"] == 0, launches
+    assert all(launches[k] == 0 for k in ("B1", "B4", "B5", "B8", "B9")), \
+        launches
     for m in lines:
         assert all(math.isfinite(v) for v in m.values()), m
     learned = [m for m in steps if m["env_steps"] >= 16]  # past warmup
@@ -390,8 +518,8 @@ def phase_physics_rollout(dev):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = _read_counts()
-    assert launches == {"B1": 1, "B2": 0, "B3": 0, "B4": 0, "B5": 0}, \
-        launches
+    assert launches == {"B1": 1, "B2": 0, "B3": 0, "B4": 0, "B5": 0,
+                        "B8": 0, "B9": 0}, launches
     assert math.isfinite(float(checksum))
     assert int(final.steps.max()) < 200 and int(final.episode.min()) > 0
     print(f"physics-only rollout: {N_ENVS}x{BENCH_STEPS} in {secs:.4f} s "
@@ -496,16 +624,18 @@ def _print_split(title, parts, step):
         f"in {n_kernels} kernels, device idle share {idle}", flush=True)
 
 
-def _random_qnet(dev, hidden, seed, head_scale=0.5):
-    """DQN's Q-net at its init, with the LayerNorm parameters and the head
-    redrawn from the generator so that every stage moves the argmax (a
-    head_scale of 0.05 keeps the Q values near 1 and their gaps small)."""
+def _random_qnet(dev, hidden, seed, head_scale=0.5, net_cls=None):
+    """DQN's Q-net (or another 5-action torso net, `net_cls`, such as
+    LRPG's PolicyMLP) at its init, with the LayerNorm parameters and the
+    head redrawn from the generator so that every stage moves the argmax
+    (a head_scale of 0.05 keeps the Q values near 1 and their gaps
+    small)."""
     import torch
 
     from cartpoleplusplus_tpu_torch.models import QNetMLP
 
     g = torch.Generator().manual_seed(seed)
-    q = QNetMLP(42, 5, hidden, generator=g)
+    q = (net_cls or QNetMLP)(42, 5, hidden, generator=g)
     with torch.no_grad():
         for norm in q.norms:
             norm.weight.copy_(1.0 + 0.2 * torch.randn(norm.weight.shape,
@@ -589,7 +719,7 @@ def phase_b4(dev):
 
     from cartpoleplusplus_tpu_torch import CartPole3D, CartPoleParams
     from cartpoleplusplus_tpu_torch.ops.q_rollout import (
-        q_policy_rollout, reference_q_rollout)
+        pack_qnet, q_policy_rollout, reference_q_rollout)
 
     env = CartPole3D(CartPoleParams(), num_envs=N_ENVS, device=dev)
     q, state, obs = _b4_setup(env, dev)
@@ -602,7 +732,10 @@ def phase_b4(dev):
     print(f"B4: {N_ENVS}x{B2_TIME_STEPS} hidden (256, 256): kernel {ms:.4f} "
           f"ms ({flop / ms / 1e9:.4g} TFLOP/s of Q-net matmul), plain "
           f"{plain_ms:.2f} ms", flush=True)
-    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
+    # Epsilon gate and random action: one uniform scale per env-step.
+    bound = _rollout_bound(env, state, obs, pack_qnet(q), B2_TIME_STEPS, 1,
+                           2, _mlp_macs((42, 256, 256, 5)))
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, **bound)
 
 
 def _b5_inputs(dev, hidden, batch, k, seed):
@@ -673,7 +806,9 @@ def phase_b5(dev):
           f"runs bitwise equal (double and max); batch {B5_BATCH} x K "
           f"{B5_K}, hidden (256, 256): kernel {ms:.4f} ms ({flop / ms / 1e9:.4g} TFLOP/s of learner matmul), "
           f"plain {plain_ms:.2f} ms", flush=True)
-    return dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms)
+    nbytes = 2 * _nbytes(*groups) + _nbytes(*batches) + 4 * B5_K
+    return dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
+                **_bound(flop, nbytes))
 
 
 def phase_dqn_main_path():
@@ -700,7 +835,8 @@ def phase_dqn_main_path():
     assert [m["train_step"] for m in steps] == list(range(1, n_train + 1))
     learned = [m for m in steps if m["env_steps"] >= 16]  # past warmup
     assert launches == {"B1": 0, "B2": 0, "B3": 0, "B4": n_train,
-                        "B5": len(learned)} and len(learned) == n_train - 1, \
+                        "B5": len(learned), "B8": 0, "B9": 0} \
+        and len(learned) == n_train - 1, \
         f"launches {launches} for {n_train} steps, {len(learned)} learning"
     for m in lines:
         assert all(math.isfinite(v) for v in m.values()), m
@@ -771,6 +907,284 @@ def phase_dqn_step_split(dev):
     _print_split("dqn train-step split", parts, lambda: agent.train_step(st))
 
 
+def _random_policy(dev, hidden, seed):
+    """LRPG's policy, its LayerNorm parameters and head redrawn."""
+    from cartpoleplusplus_tpu_torch.models import PolicyMLP
+
+    return _random_qnet(dev, hidden, seed, net_cls=PolicyMLP)
+
+
+def _pg_gaps(net, obs, env_seed, t0):
+    """The twin's gap between the two largest logits + Gumbel draws per
+    step and env: the margin by which each sample was taken."""
+    import torch
+
+    from cartpoleplusplus_tpu_torch.ops.pg_rollout import gumbel_scores
+
+    with torch.no_grad():
+        top = torch.stack([
+            torch.topk(gumbel_scores(net(o), env_seed, t0 + i), 2).values
+            for i, o in enumerate(obs)])
+    return top[..., 0] - top[..., 1]
+
+
+def phase_b8(dev):
+    """B8 against its twin over B2_STEPS from a state 6 sampled steps past
+    a reset, the first layer centred on its obs: the action streams must
+    agree except from a step where the twin's top-2 gap of logits +
+    Gumbel draws is below B4_TIE (such envs leave the float comparison,
+    counted), floats within tests/test_policy_rollout.py's bars, integer
+    state exact. Then B8 and its twin timed at LRPG's rollout length, and
+    B4 re-timed beside them."""
+    import torch
+
+    from cartpoleplusplus_tpu_torch import CartPole3D, CartPoleParams
+    from cartpoleplusplus_tpu_torch.ops.pg_rollout import (
+        pg_policy_rollout, reference_pg_rollout)
+    from cartpoleplusplus_tpu_torch.ops.q_rollout import (pack_qnet,
+                                                          q_policy_rollout)
+
+    env = CartPole3D(CartPoleParams(), num_envs=N_ENVS, device=dev)
+    net = _random_policy(dev, LRPG_HIDDEN, seed=17)
+    state, obs, _ = reference_pg_rollout(env, net, *env.reset(5), 0, 6)
+    # The obs of the batch are still alike: centre the first layer on them
+    # (as _b4_setup does) so that the logits, and the samples, vary.
+    with torch.no_grad():
+        net.torso[0].bias.copy_(-(net.torso[0].weight @ obs.mean(0)))
+    k = pg_policy_rollout(env, net, state, obs, 40, B2_STEPS)
+    r = reference_pg_rollout(env, net, state, obs, 40, B2_STEPS)
+    torch.cuda.synchronize()
+    assert k[2][1].dtype == torch.int32
+    diff = k[2][1] != r[2][1]
+    first = diff & (diff.int().cumsum(0) == 1)  # an env's first mismatch
+    gaps = _pg_gaps(net, r[2][0], state.env_seed, 40)
+    gap = gaps[first]
+    assert bool((gap < B4_TIE).all()), \
+        f"B8: actions differ at top-2 gaps {gap.tolist()[:8]}"
+    keep = ~diff.any(0)
+    errs = [_close(f"B8 traj {n}", a[:, keep], b[:, keep], 2e-4, 2e-5)
+            for n, a, b in (("obs", k[2][0], r[2][0]),
+                            ("reward", k[2][2], r[2][2]))]
+    assert torch.equal(k[2][3][:, keep], r[2][3][:, keep]), "B8 dones differ"
+    errs += [_close(f"B8 final {n}", a[keep], b[keep], 2e-4, 2e-5)
+             for n, a, b in zip(("pos", "vel", "s", "sd", "obs"),
+                                (*k[0].phys, k[1]), (*r[0].phys, r[1]))]
+    assert torch.equal(k[0].steps[keep], r[0].steps[keep]), "B8 steps differ"
+    assert torch.equal(k[0].episode[keep], r[0].episode[keep]), \
+        "B8 episodes differ"
+    per_action = torch.bincount(r[2][1].reshape(-1).long(), minlength=5)
+    assert bool((per_action > 0).all()), per_action.tolist()
+    n_tie = int((~keep).sum())
+    print(f"B8: actions exact in {int(keep.sum())} of {N_ENVS} envs x "
+          f"{B2_STEPS} steps; near-tie envs {n_tie} (their twin top-2 gaps "
+          f"{gap.tolist()[:8]}; smallest gap over all envs and steps "
+          f"{float(gaps.min()):.3g}); max_abs_err obs/reward {errs[0]:.3g} "
+          f"{errs[1]:.3g}, final state/obs {max(errs[2:]):.3g}; actions per "
+          f"index {per_action.tolist()}, dones {int(r[2][3].sum())}",
+          flush=True)
+
+    args = (env, net, state, obs, 40)
+    q = _random_qnet(dev, (256, 256), seed=13, head_scale=0.05)
+    q_args = (env, q, state, obs, 40, 0.3, B2_TIME_STEPS)
+    rounds = {"B8": [], "B4": []}
+    for _ in range(2):  # in turns, so that both see the same card state
+        rounds["B8"].append(_time_ms(
+            lambda: pg_policy_rollout(*args, LRPG_T), 10))
+        rounds["B4"].append(_time_ms(lambda: q_policy_rollout(*q_args), 10))
+    ms, b4_ms = (statistics.median(rounds[k]) for k in ("B8", "B4"))
+    plain_ms = _time_ms(lambda: reference_pg_rollout(*args, LRPG_T), 2)
+    # Gumbel-max: 5 draws of 2 logs, a negation and the uniform's scale.
+    bound = _rollout_bound(env, state, obs, pack_qnet(net), LRPG_T, 1,
+                           5 * 5, _mlp_macs((42,) + LRPG_HIDDEN + (5,)))
+    print(f"B8: {N_ENVS}x{LRPG_T} hidden {LRPG_HIDDEN}: kernel {ms:.4f} ms "
+          f"(rounds {' '.join(f'{x:.4f}' for x in rounds['B8'])}; bound "
+          f"{bound['bound_ms']:.4f} ms by {bound['bound_by']}), plain "
+          f"{plain_ms:.2f} ms; B4 re-timed in this call: {b4_ms:.4f} ms per "
+          f"{N_ENVS}x{B2_TIME_STEPS} at hidden (256, 256) (rounds "
+          f"{' '.join(f'{x:.4f}' for x in rounds['B4'])})", flush=True)
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                near_tie_envs=n_tie, b4_ms=b4_ms, **bound)
+
+
+def _b9_flop(n, hidden) -> int:
+    """Float operations of one LRPG update over n rows: per row the
+    forward, the weight gradients and the input gradients below the head
+    (all but layer 0's) as 2 per multiply-add, and the LayerNorm, softmax
+    and entropy epilogues at ~10 per element; then Adam at ~10 per
+    parameter."""
+    dims = (42,) + tuple(hidden) + (5,)
+    macs = _mlp_macs(dims)
+    dx = _mlp_macs(dims[1:])
+    p = sum(a * b + b for a, b in zip(dims[:-1], dims[1:])) \
+        + 2 * sum(hidden)
+    return n * (2 * (2 * macs + dx) + 10 * (sum(hidden) + 5)) + 10 * p
+
+
+def phase_b9(dev):
+    """B9 against its twin at the LRPG defaults from warmed Adam moments:
+    the 3 groups and the loss within B3's bar, two runs bit for bit."""
+    import torch
+
+    from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
+
+    hidden, kw = LRPG_HIDDEN, dict(lr=3e-4, entropy_coef=0.1)
+    g = torch.Generator().manual_seed(29)
+    net = _random_policy("cpu", hidden, seed=29)
+    flat = torch.cat([p.detach().reshape(-1) for p in net.parameters()])
+    groups = [x.to(dev) for x in (
+        flat, 1e-2 * torch.randn(flat.shape, generator=g),
+        (1e-2 * torch.randn(flat.shape, generator=g)) ** 2 + 1e-5)]
+    window = tuple(x.to(dev) for x in (
+        0.3 * torch.randn((B9_N, 42), generator=g),
+        torch.randint(0, 5, (B9_N,), generator=g, dtype=torch.int32),
+        torch.randn((B9_N,), generator=g)))
+    lay = lk.policy_layout(42, hidden)
+    views = [lk.group_views(x, lay) for x in groups]
+    want = lk.lrpg_update_phase_math(*views, window, B3_T0, hidden, **kw)
+    runs = []
+    for _ in range(2):
+        got = [x.clone() for x in groups]
+        loss = lk.lrpg_update_phase(got, window, B3_T0, hidden, **kw)
+        torch.cuda.synchronize()
+        runs.append(got + [loss])
+    assert all(torch.equal(a, b) for a, b in zip(*runs)), \
+        "B9: two runs on the same inputs differ"
+    errs = {}
+    for name, x, w in zip(("params", "m", "v"), runs[0][:3], want[:3]):
+        errs[name] = max(_close(f"B9 {name} {pname}", v, y, B3_RTOL,
+                                B3_ATOL)
+                         for (pname, _), v, y in zip(
+                             lay, lk.group_views(x, lay), w))
+    errs["loss"] = _close("B9 loss", runs[0][3], want[3], B3_RTOL, B3_ATOL)
+    ms = _time_ms(lambda: lk.lrpg_update_phase(groups, window, B3_T0, hidden,
+                                               **kw), 20)
+    plain_ms = _time_ms(lambda: lk.lrpg_update_phase_math(
+        *views, window, B3_T0, hidden, **kw), 5)
+    bound = _bound(_b9_flop(B9_N, hidden),
+                   _nbytes(*window) + 2 * _nbytes(*groups) + 4)
+    listed = " ".join(f"{k} {v:.3g}" for k, v in errs.items())
+    print(f"B9: max_abs_err {listed} (rtol {B3_RTOL}, atol {B3_ATOL}); two "
+          f"runs bitwise equal; N {B9_N}, hidden {hidden}: kernel {ms:.4f} "
+          f"ms (bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}), "
+          f"plain {plain_ms:.2f} ms", flush=True)
+    return dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
+                **bound)
+
+
+def phase_lrpg_main_path():
+    """`train --agent lrpg` for 8 train steps: every rollout must go
+    through B8 and every update through B9; then `train --agent random`,
+    which runs no kernel."""
+    from cartpoleplusplus_tpu_torch import train
+
+    total_env_steps = 8 * LRPG_T
+    out = io.StringIO()
+    _zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = train.main(["--agent", "lrpg", "--total-env-steps",
+                         str(total_env_steps), "--log-interval", "1",
+                         "--final-eval", "--eval-steps", "200", "--seed",
+                         "0"])
+    train_s = time.perf_counter() - t0
+    launches = _read_counts()
+    assert rc == 0, f"train.main returned {rc}"
+    lines = [json.loads(x) for x in out.getvalue().splitlines()]
+    steps, ev = lines[:-1], lines[-1]
+    n_train = total_env_steps // LRPG_T
+    assert [m["train_step"] for m in steps] == list(range(1, n_train + 1))
+    assert launches == {"B1": 0, "B2": 0, "B3": 0, "B4": 0, "B5": 0,
+                        "B8": n_train, "B9": n_train}, launches
+    for m in lines:
+        assert all(math.isfinite(v) for v in m.values()), m
+    assert all(m["learner_impl"] == 1.0 and m["rollout_impl"] == 1.0
+               for m in steps)
+    assert 0 < ev["eval_mean_episode_length"] <= 200
+    assert ev["eval_episodes"] > 0
+    for m in steps:
+        print(f"lrpg train step {m['train_step']}: loss {m['loss']:.6g} "
+              f"return_mean {m['return_mean']:.6g} reward_mean "
+              f"{m['reward_mean']:.6g} done_frac {m['done_frac']:.6g} "
+              f"env_steps_per_sec {m['env_steps_per_sec']}", flush=True)
+    sec_per_step = N_ENVS * LRPG_T / steps[-1]["env_steps_per_sec"]
+    print(f"lrpg main path: {n_train} train steps ({sec_per_step:.4f} s per "
+          f"train step over the run, train.main total {train_s:.2f} s incl. "
+          f"init and eval); eval {json.dumps(ev)}; launches {launches}",
+          flush=True)
+
+    out = io.StringIO()
+    _zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = train.main(["--agent", "random", "--total-env-steps", "200",
+                         "--seed", "0"])
+    random_s = time.perf_counter() - t0
+    random_launches = _read_counts()
+    assert rc == 0, f"train.main --agent random returned {rc}"
+    assert not any(random_launches.values()), random_launches
+    stats = json.loads(out.getvalue().splitlines()[-1])
+    assert all(math.isfinite(v) for v in stats.values()), stats
+    assert stats["episodes"] > 0 and stats["steps_per_episode"] > 0
+    print(f"random agent on the card: 200 steps x {N_ENVS} envs in "
+          f"{random_s:.2f} s (host clock); {json.dumps(stats)}; launches "
+          f"{random_launches}", flush=True)
+    return launches
+
+
+def phase_lrpg_step_split(dev):
+    """Where an LRPG train step at the CLI defaults goes, as phase 7: the
+    B8 rollout, the returns and advantages (plain torch), the B9 update,
+    and the plain learner's update beside it."""
+    import torch
+
+    from cartpoleplusplus_tpu_torch import train
+    from cartpoleplusplus_tpu_torch.agents.common import adam_update
+    from cartpoleplusplus_tpu_torch.agents.lrpg import returns_to_go
+    from cartpoleplusplus_tpu_torch.config import RunConfig, from_args
+    from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
+    from cartpoleplusplus_tpu_torch.ops.pg_rollout import pg_policy_rollout
+
+    ap = train.build_parser()
+    args = ap.parse_args(["--agent", "lrpg"])
+    _, agent = train.build(from_args(RunConfig, args), args, {"agent"})
+    c, b = agent.cfg, agent.env.num_envs
+    assert agent.kernel_mode, "the LRPG defaults did not resolve to B9"
+    st = agent.init(0)
+    for _ in range(2):
+        st, _ = agent.train_step(st)
+    obs_t, act_t, rew_t, done_t = pg_policy_rollout(
+        agent.env, st.policy, st.env_state, st.obs, st.env_steps,
+        c.rollout_steps)[2]
+
+    def advantages():
+        g = returns_to_go(rew_t, done_t, c.gamma, st.baseline.expand(b))
+        adv = g - g.mean()
+        return adv / (torch.sqrt(torch.mean(adv * adv)) + 1e-6)
+
+    n = b * c.rollout_steps
+    window = (obs_t.reshape(n, -1), act_t.reshape(n),
+              advantages().reshape(n))
+
+    def plain_update():
+        loss = agent._loss(st.policy, obs_t, act_t, window[2].reshape(
+            rew_t.shape))
+        grads = torch.autograd.grad(loss, list(st.policy.parameters()))
+        adam_update(st.policy, grads, st.opt, c.lr)
+
+    parts = {
+        "whole train step": (lambda: agent.train_step(st), 5),
+        "B8 rollout": (lambda: pg_policy_rollout(
+            agent.env, st.policy, st.env_state, st.obs, st.env_steps,
+            c.rollout_steps), 20),
+        "returns and advantages": (advantages, 20),
+        "B9 update": (lambda: lk.lrpg_update_phase(
+            st.groups, window, st.opt.count, c.hidden, lr=c.lr,
+            entropy_coef=c.entropy_coef), 20),
+        "plain learner update (not in the step)": (plain_update, 5),
+    }
+    _print_split("lrpg train-step split", parts, lambda: agent.train_step(st))
+
+
 def main() -> int:
     import torch
 
@@ -797,11 +1211,9 @@ def main() -> int:
     t0 = time.perf_counter()
     _native.load_library()
     build_s = time.perf_counter() - t0 if stale else 0.0
-    regs = [ln.split(":", 1)[1].strip()
-            for ln in open(_native.BUILD_LOG) if "Used" in ln]
     print(f"build: {build_s:.2f} s (nvcc, sm_90a"
           f"{'' if stale else '; library current, not rebuilt'}); "
-          f"ptxas: {regs}", flush=True)
+          f"ptxas: {_ptxas_report(_native.BUILD_LOG)}", flush=True)
 
     b1 = phase_b1(dev)
     b2 = phase_b2(dev)
@@ -813,6 +1225,10 @@ def main() -> int:
     b5 = phase_b5(dev)
     dqn_launches = phase_dqn_main_path()
     phase_dqn_step_split(dev)
+    b8 = phase_b8(dev)
+    b9 = phase_b9(dev)
+    lrpg_launches = phase_lrpg_main_path()
+    phase_lrpg_step_split(dev)
 
     b1_main = b1["discrete"]  # the benchmark's default params
     kernels = [
@@ -822,35 +1238,50 @@ def main() -> int:
              launches=b1_launches,
              launched_by="physics-only rollout (bench.py's path)",
              max_abs_err=max(v["max_abs_err"] for v in b1.values()),
-             ms=b1_main["ms"], plain_ms=b1_main["plain_ms"]),
+             ms=b1_main["ms"], plain_ms=b1_main["plain_ms"],
+             **_bound_keys(b1_main)),
         dict(name="B2 policy_rollout", route="cuda",
              source="cartpoleplusplus_tpu_torch/csrc/policy_rollout.cu",
              replaces="cartpoleplusplus_tpu/ops/policy_rollout.py:114",
              launches=main_launches["B2"],
              launched_by="train.main (DDPG defaults)",
              max_abs_err=b2["max_abs_err"],
-             ms=b2["ms"], plain_ms=b2["plain_ms"]),
+             ms=b2["ms"], plain_ms=b2["plain_ms"], **_bound_keys(b2)),
         dict(name="B3 ddpg_update_phase", route="cuda",
              source="cartpoleplusplus_tpu_torch/csrc/ddpg_update.cu",
              replaces="cartpoleplusplus_tpu/ops/learner_kernel.py:564",
              launches=main_launches["B3"],
              launched_by="train.main (DDPG defaults)",
              max_abs_err=b3["max_abs_err"],
-             ms=b3["ms"], plain_ms=b3["plain_ms"]),
+             ms=b3["ms"], plain_ms=b3["plain_ms"], **_bound_keys(b3)),
         dict(name="B4 q_policy_rollout", route="cuda",
              source="cartpoleplusplus_tpu_torch/csrc/q_rollout.cu",
              replaces="cartpoleplusplus_tpu/ops/policy_rollout.py:486",
              launches=dqn_launches["B4"],
              launched_by="train.main --agent dqn (DQN defaults)",
              max_abs_err=b4["max_abs_err"],
-             ms=b4["ms"], plain_ms=b4["plain_ms"]),
+             ms=b4["ms"], plain_ms=b4["plain_ms"], **_bound_keys(b4)),
         dict(name="B5 dqn_update_phase", route="cuda",
              source="cartpoleplusplus_tpu_torch/csrc/dqn_update.cu",
              replaces="cartpoleplusplus_tpu/ops/learner_kernel.py:862",
              launches=dqn_launches["B5"],
              launched_by="train.main --agent dqn (DQN defaults)",
              max_abs_err=b5["max_abs_err"],
-             ms=b5["ms"], plain_ms=b5["plain_ms"]),
+             ms=b5["ms"], plain_ms=b5["plain_ms"], **_bound_keys(b5)),
+        dict(name="B8 pg_policy_rollout", route="cuda",
+             source="cartpoleplusplus_tpu_torch/csrc/q_rollout.cu",
+             replaces="cartpoleplusplus_tpu/ops/policy_rollout.py:486",
+             launches=lrpg_launches["B8"],
+             launched_by="train.main --agent lrpg",
+             max_abs_err=b8["max_abs_err"],
+             ms=b8["ms"], plain_ms=b8["plain_ms"], **_bound_keys(b8)),
+        dict(name="B9 lrpg_update_phase", route="cuda",
+             source="cartpoleplusplus_tpu_torch/csrc/lrpg_update.cu",
+             replaces="cartpoleplusplus_tpu/ops/learner_kernel.py:1399",
+             launches=lrpg_launches["B9"],
+             launched_by="train.main --agent lrpg",
+             max_abs_err=b9["max_abs_err"],
+             ms=b9["ms"], plain_ms=b9["plain_ms"], **_bound_keys(b9)),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""Kernels B1 to B5 against their plain torch twins on a CUDA GPU.
+"""Kernels B1 to B5, B8 and B9 against their plain torch twins on a CUDA
+GPU.
 
 These need the card and skip elsewhere. The GPU machine has no JAX, so run
 them there without tests/conftest.py (which imports it):
@@ -6,16 +7,25 @@ them there without tests/conftest.py (which imports it):
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 This file imports no JAX. Batches of 1000 envs leave a ragged last tile,
-and B3's and B5's minibatch of 200 rows a ragged last row tile.
+B3's and B5's minibatch of 200 rows a ragged last row tile, and B9's
+windows of 1000 and 777 rows a ragged last sub-tile.
 """
+
+import contextlib
+import io
+import json
 
 import pytest
 import torch
 
 from cartpoleplusplus_tpu_torch import CartPole3D, CartPoleParams
-from cartpoleplusplus_tpu_torch.models import ActorMLP, CriticMLP, QNetMLP
+from cartpoleplusplus_tpu_torch import train
+from cartpoleplusplus_tpu_torch.models import (ActorMLP, CriticMLP, PolicyMLP,
+                                               QNetMLP)
+from cartpoleplusplus_tpu_torch.ops import _native
 from cartpoleplusplus_tpu_torch.ops import fused_rollout as fr
 from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
+from cartpoleplusplus_tpu_torch.ops import pg_rollout as pg
 from cartpoleplusplus_tpu_torch.ops import policy_rollout as pr
 from cartpoleplusplus_tpu_torch.ops import q_rollout as qr
 from cartpoleplusplus_tpu_torch.physics.params import continuous_params
@@ -151,11 +161,12 @@ def test_b3_rejects_uncovered_shapes(cuda):
                              critic_lr=1e-3, gamma=0.99, tau=0.01)
 
 
-def _random_qnet(dev, hidden, seed, head_scale=0.5):
-    """A Q-net with its LayerNorm parameters and head redrawn (a head_scale
-    of 0.05 keeps the Q values near 1 and their gaps small)."""
+def _random_qnet(dev, hidden, seed, head_scale=0.5, net_cls=QNetMLP):
+    """A Q-net (or another 5-action torso net, `net_cls`) with its
+    LayerNorm parameters and head redrawn (a head_scale of 0.05 keeps the
+    Q values near 1 and their gaps small)."""
     g = torch.Generator().manual_seed(seed)
-    q = QNetMLP(42, 5, hidden, generator=g)
+    q = net_cls(42, 5, hidden, generator=g)
     with torch.no_grad():
         for norm in q.norms:
             norm.weight.copy_(1.0 + 0.2 * torch.randn(norm.weight.shape,
@@ -278,3 +289,148 @@ def test_b5_rejects_uncovered_shapes(cuda):
     with pytest.raises(ValueError, match="action"):
         lk.dqn_update_phase(groups, (batches[0], batches[1].float())
                             + batches[2:], 0, (32, 32), **kw)
+
+
+def _random_policy(dev, hidden, seed):
+    """A PolicyMLP with its LayerNorm parameters and head redrawn, the
+    head's scale falling with the width so that the logits' spread does
+    not grow with it."""
+    return _random_qnet(dev, hidden, seed, 0.5 * (64 / hidden[-1]) ** 0.5,
+                        net_cls=PolicyMLP)
+
+
+def _pg_top2_gap(net, obs, env_seed, t0):
+    """The twin's gap between the two largest logits + Gumbel draws per
+    step and env: the margin by which each sample was taken."""
+    with torch.no_grad():
+        top = torch.stack([
+            torch.topk(pg.gumbel_scores(net(o), env_seed, t0 + i), 2).values
+            for i, o in enumerate(obs)])
+    return top[..., 0] - top[..., 1]
+
+
+@pytest.mark.parametrize("hidden", [(64, 64), (256,), (32, 48, 16)])
+def test_b8_matches_twin(cuda, hidden):
+    """Actions exact, except from an env's step where the twin's top-2 gap
+    of logits + Gumbel draws is below 1e-5 (such envs leave the float
+    comparison); obs and reward within rtol 2e-4 / atol 2e-5; dones, steps
+    and episodes exact; one counted launch."""
+    env = CartPole3D(CartPoleParams(), num_envs=B, device=cuda)
+    net = _random_policy(cuda, hidden, seed=3)
+    # Sampled steps past the reset (whose poses are all alike), and the
+    # first layer centred on those obs so that the samples vary by env.
+    state, obs, _ = pg.reference_pg_rollout(env, net, *env.reset(9), 0, 6)
+    with torch.no_grad():
+        net.torso[0].bias.copy_(-(net.torso[0].weight @ obs.mean(0)))
+    before = pg.pg_policy_rollout.launches
+    k = pg.pg_policy_rollout(env, net, state, obs, 7, 3)
+    torch.cuda.synchronize()
+    assert pg.pg_policy_rollout.launches == before + 1
+    r = pg.reference_pg_rollout(env, net, state, obs, 7, 3)
+    assert k[2][1].dtype == torch.int32
+    assert len(torch.unique(r[2][1])) >= 3  # the samples are spread
+    diff = k[2][1] != r[2][1]
+    first = diff & (diff.int().cumsum(0) == 1)  # an env's first mismatch
+    gaps = _pg_top2_gap(net, r[2][0], state.env_seed, 7)
+    assert bool((gaps[first] < 1e-5).all())
+    keep = ~diff.any(0)
+    for a, b in zip((k[2][0], k[2][2]), (r[2][0], r[2][2])):
+        torch.testing.assert_close(a[:, keep], b[:, keep], rtol=2e-4,
+                                   atol=2e-5)
+    assert torch.equal(k[2][3][:, keep], r[2][3][:, keep])
+    for a, b in zip((*k[0].phys, k[1]), (*r[0].phys, r[1])):
+        torch.testing.assert_close(a[keep], b[keep], rtol=2e-4, atol=2e-5)
+    assert torch.equal(k[0].steps[keep], r[0].steps[keep])
+    assert torch.equal(k[0].episode[keep], r[0].episode[keep])
+
+
+def test_b8_rejects_uncovered_shapes(cuda):
+    env = CartPole3D(CartPoleParams(), num_envs=64, device=cuda)
+    state, obs = env.reset(0)
+    with pytest.raises(ValueError, match="not covered by the B8"):
+        pg.pg_policy_rollout(env, PolicyMLP(42, 5, (8,) * 5).to(cuda), state,
+                             obs, 0, 2)
+
+
+def _b9_inputs(dev, hidden, n, seed):
+    """The 3 group buffers (a policy with redrawn LayerNorm parameters and
+    head, warmed Adam moments) and a window of n rows."""
+    g = torch.Generator().manual_seed(seed)
+    net = _random_policy("cpu", hidden, seed)
+    flat = torch.cat([p.detach().reshape(-1) for p in net.parameters()])
+    groups = [flat, 1e-2 * torch.randn(flat.shape, generator=g),
+              (1e-2 * torch.randn(flat.shape, generator=g)) ** 2 + 1e-5]
+    window = (0.3 * torch.randn((n, 42), generator=g),
+              torch.randint(0, 5, (n,), generator=g, dtype=torch.int32),
+              torch.randn((n,), generator=g))
+    return [x.to(dev) for x in groups], tuple(x.to(dev) for x in window)
+
+
+@pytest.mark.parametrize("hidden,n", [
+    ((64, 64), 1000), ((64, 64), 131072), ((32, 48, 16), 777), ((48,), 4096),
+    ((256, 300), 1000), ((1024, 40), 777)])
+def test_b9_matches_twin(cuda, hidden, n):
+    """One update from warmed moments (Adam count 100): the 3 groups and
+    the loss within the reference's kernel-vs-XLA bar (rtol 2e-4, atol
+    1e-5), one counted launch, and the same bits from a second run."""
+    groups, window = _b9_inputs(cuda, hidden, n, seed=2)
+    kw = dict(lr=3e-4, entropy_coef=0.1)
+    lay = lk.policy_layout(42, hidden)
+    want = lk.lrpg_update_phase_math(
+        *[lk.group_views(g, lay) for g in groups], window, 100, hidden, **kw)
+    runs = []
+    for _ in range(2):
+        got = [g.clone() for g in groups]
+        before = lk.lrpg_update_phase.launches
+        loss = lk.lrpg_update_phase(got, window, 100, hidden, **kw)
+        torch.cuda.synchronize()
+        assert lk.lrpg_update_phase.launches == before + 1
+        runs.append(got + [loss])
+    for g, w in zip(runs[0][:3], want[:3]):
+        for v, x in zip(lk.group_views(g, lay), w):
+            torch.testing.assert_close(v, x, rtol=2e-4, atol=1e-5)
+    torch.testing.assert_close(runs[0][3], want[3], rtol=2e-4, atol=1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_b9_tile_plan_matches_the_kernel(cuda):
+    """The kernel takes exactly the shapes `lrpg_covers` admits (a nonzero
+    workspace), at the boundaries of its 32-, 16- and 8-row sub-tiles."""
+    lib = _native.load_library()
+    for hidden in ((64, 64), (272, 272), (273, 273), (552, 552), (553, 553),
+                   (1114, 1114), (1115, 1115), (162,) * 4, (163,) * 4,
+                   (331,) * 4, (332,) * 4, (668,) * 4, (669,) * 4):
+        lay = lk.policy_layout(42, hidden)
+        dims = _native.PgDims(num_layers=len(hidden), obs_dim=42, n_rows=4096,
+                              net=lk._layout_offsets(lay, len(hidden)))
+        for i, h in enumerate(hidden):
+            dims.hidden[i] = h
+        size = lib.cp_lrpg_workspace_floats(_native.struct_ptr(dims))
+        assert (size > 0) == lk.lrpg_covers(42, hidden), hidden
+
+
+def test_b9_rejects_uncovered_shapes(cuda):
+    groups, window = _b9_inputs(cuda, (32, 32), 64, seed=0)
+    kw = dict(lr=1e-3, entropy_coef=0.1)
+    with pytest.raises(ValueError, match="not covered"):
+        lk.lrpg_update_phase(groups, window, 0, (1024,) * 4, **kw)
+    with pytest.raises(ValueError, match="action"):
+        lk.lrpg_update_phase(groups, (window[0], window[1].float(),
+                                      window[2]), 0, (32, 32), **kw)
+
+
+def test_lrpg_cli_launches_b8_and_b9_per_train_step(cuda):
+    """`train --agent lrpg` on the card: each train step launches B8 once
+    and B9 once, and reports both kernels in its metrics."""
+    b8, b9 = pg.pg_policy_rollout.launches, lk.lrpg_update_phase.launches
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = train.main(["--agent", "lrpg", "--num-envs", "1000",
+                         "--total-env-steps", "96", "--log-interval", "1"])
+    assert rc == 0
+    steps = [json.loads(x) for x in out.getvalue().splitlines()]
+    assert [m["train_step"] for m in steps] == [1, 2, 3]
+    assert pg.pg_policy_rollout.launches == b8 + 3
+    assert lk.lrpg_update_phase.launches == b9 + 3
+    assert all(m["rollout_impl"] == 1.0 and m["learner_impl"] == 1.0
+               for m in steps)
