@@ -14,16 +14,18 @@ import numpy as np
 import torch
 
 from ..ops import learner_kernel as lk
+from ..ops.naf_rollout import TAG_NAF_X, TAG_NAF_Y
 from ..ops.pg_rollout import TAG_PG_GUMBEL
 from ..ops.policy_rollout import TAG_OU_X, TAG_OU_Y
 from ..ops.q_rollout import TAG_EPS_ACT, TAG_EPS_GATE
 
 # Counter-PRNG stream tags for agent exploration (utils/prng.py; env-side
-# tags live in env/compute.py). The DDPG OU tags, the DQN epsilon tags and
-# the LRPG Gumbel tag are defined beside the kernels that draw them (B2,
-# B4, B8).
+# tags live in env/compute.py). The DDPG OU tags, the DQN epsilon tags, the
+# NAF Gaussian tags and the LRPG Gumbel tag are defined beside the kernels
+# that draw them (B2, B4, B6, B8).
 __all__ = ["TAG_OU_X", "TAG_OU_Y", "TAG_EPS_GATE", "TAG_EPS_ACT",
-           "TAG_PG_GUMBEL", "resolve_learner", "AdamState", "adam_init",
+           "TAG_NAF_X", "TAG_NAF_Y", "TAG_PG_GUMBEL", "resolve_learner",
+           "lr_schedule", "scheduled_lr", "AdamState", "adam_init",
            "adam_update", "bind_group", "bind_moments", "gated_update_scan",
            "replay_presample", "episode_length_hist",
            "episode_stats_from_hist", "evaluate_policy"]
@@ -54,6 +56,28 @@ def resolve_learner(learner: str, covered: bool, on_cuda: bool,
               f"loop (config shape outside kernel {kernel} - see "
               f"kernel_learner_ok)", file=sys.stderr)
     return on_cuda and covered
+
+
+def lr_schedule(cfg):
+    """(end_frac, transition_steps) of an agent config's linear lr decay,
+    or None (constant lr): the horizon `lr_decay_env_steps` in per-env
+    env-steps converted to gradient steps."""
+    if cfg.lr_decay_env_steps <= 0:
+        return None
+    return (cfg.lr_end_frac,
+            max(cfg.lr_decay_env_steps * cfg.updates_per_step
+                // max(cfg.rollout_steps, 1), 1))
+
+
+def scheduled_lr(lr: float, sched, count: int) -> float:
+    """The plain learners' lr at Adam count `count` (before the step):
+    constant, or optax.linear_schedule(lr, lr * end_frac, T) in float32."""
+    if sched is None:
+        return lr
+    end = lr * sched[0]
+    frac = np.float32(1.0) - (np.float32(min(max(count, 0), sched[1]))
+                              / np.float32(sched[1]))
+    return float(np.float32(lr - end) * frac + np.float32(end))
 
 
 class AdamState(NamedTuple):

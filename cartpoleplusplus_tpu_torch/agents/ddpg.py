@@ -31,7 +31,8 @@ from ..ops.policy_rollout import (fusable, policy_rollout,
                                   reference_policy_rollout)
 from .common import (AdamState, adam_init, adam_update, bind_group,
                      bind_moments, evaluate_policy, gated_update_scan,
-                     replay_presample, resolve_learner)
+                     lr_schedule, replay_presample, resolve_learner,
+                     scheduled_lr)
 from .replay import ReplayBuffer, ReplayState
 
 
@@ -139,28 +140,6 @@ class DDPG:
                 and c.polyak_cadence == "per_update"
                 and c.dtype == "float32")
 
-    def _lr_schedule(self):
-        """(end_frac, transition_steps) of the linear lr decay, or None
-        (constant lr): the horizon in per-env env-steps converted to
-        gradient steps."""
-        c = self.cfg
-        if c.lr_decay_env_steps <= 0:
-            return None
-        return (c.lr_end_frac,
-                max(c.lr_decay_env_steps * c.updates_per_step
-                    // max(c.rollout_steps, 1), 1))
-
-    def _lr(self, lr: float, count: int) -> float:
-        """The plain learner's lr at Adam count `count` (before the step):
-        constant, or optax.linear_schedule(lr, lr * end_frac, T) in float32."""
-        sched = self._lr_schedule()
-        if sched is None:
-            return lr
-        end = lr * sched[0]
-        frac = np.float32(1.0) - (np.float32(min(max(count, 0), sched[1]))
-                                  / np.float32(sched[1]))
-        return float(np.float32(lr - end) * frac + np.float32(end))
-
     # --- init ---------------------------------------------------------------
     def init(self, seed: int) -> DDPGState:
         """Fresh state: networks from a torch.Generator seeded with `seed`,
@@ -246,18 +225,18 @@ class DDPG:
         as updated ("updated") or as it was before it ("pre", whose actor
         gradient is taken before the critic moves)."""
         c = self.cfg
+        sched = lr_schedule(c)
+        critic_lr = scheduled_lr(c.critic_lr, sched, st.critic_opt.count)
         cgrad = torch.autograd.grad(closs, list(st.critic.parameters()))
         pre = c.actor_grad_critic == "pre"
         if not pre:
-            copt = adam_update(st.critic, cgrad, st.critic_opt,
-                               self._lr(c.critic_lr, st.critic_opt.count))
+            copt = adam_update(st.critic, cgrad, st.critic_opt, critic_lr)
         aloss = self._actor_loss(st.actor, st.critic, obs)
         agrad = torch.autograd.grad(aloss, list(st.actor.parameters()))
         if pre:
-            copt = adam_update(st.critic, cgrad, st.critic_opt,
-                               self._lr(c.critic_lr, st.critic_opt.count))
+            copt = adam_update(st.critic, cgrad, st.critic_opt, critic_lr)
         aopt = adam_update(st.actor, agrad, st.actor_opt,
-                           self._lr(c.actor_lr, st.actor_opt.count))
+                           scheduled_lr(c.actor_lr, sched, st.actor_opt.count))
         return (st._replace(actor_opt=aopt, critic_opt=copt),
                 {"critic_loss": closs.detach(), "actor_loss": aloss.detach()})
 
@@ -305,7 +284,7 @@ class DDPG:
             actor_lr=c.actor_lr,
             critic_lr=c.critic_lr, gamma=c.gamma, tau=c.tau,
             actor_grad_critic=c.actor_grad_critic,
-            lr_schedule=self._lr_schedule())
+            lr_schedule=lr_schedule(c))
         count = t0 + c.updates_per_step
         st = st._replace(actor_opt=st.actor_opt._replace(count=count),
                          critic_opt=st.critic_opt._replace(count=count))

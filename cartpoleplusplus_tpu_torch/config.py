@@ -31,7 +31,7 @@ def _field_types(cls) -> dict:
 class RunConfig:
     """Top-level settings for a training run (train.py CLI)."""
 
-    agent: str = "ddpg"              # ddpg | dqn | lrpg | random (naf: not yet)
+    agent: str = "ddpg"              # ddpg | dqn | naf | lrpg | random
     num_envs: int = 4096
     obs_mode: str = "pose_stack"     # pose_stack | state
     total_env_steps: int = 100_000   # per-env steps to train for

@@ -1,7 +1,7 @@
-// The stage engine of the cooperative learner kernels B3 (ddpg_update.cu)
-// and B5 (dqn_update.cu): one persistent launch per K-update phase in
-// which every block walks the same list of stages, separated by
-// cg::this_grid().sync().
+// The stage engine of the cooperative learner kernels B3 (ddpg_update.cu),
+// B5 (dqn_update.cu) and B7 (naf_update.cu): one persistent launch per
+// K-update phase in which every block walks the same list of stages,
+// separated by cg::this_grid().sync().
 //   * Row stages: the batch is cut into 16-row tiles and each layer's
 //     outputs into 32-column tiles; a block takes (row tile, column tile)
 //     items. It rebuilds its rows' layer input in shared memory (copy,
@@ -16,6 +16,13 @@
 //     memory; 8 fixed row slices for the vectors), then Adam and Polyak
 //     on that element in the same thread. No float atomics anywhere, so
 //     two runs on the same inputs give the same bits.
+//   * A clipped update (B7's global-norm clip) needs the norm of every
+//     gradient before any Adam step: its gradient stage only stores each
+//     element into a flat buffer in the group layout (run_grads<true>),
+//     a norm stage sums fixed slices of it as squares into one partial
+//     each (norm_partials; the slices do not depend on the grid), and an
+//     elementwise stage sums the partials in the same order in every
+//     block, scales and applies Adam and Polyak (adam_flat).
 // Parameters, targets and moments are read and written in place in their
 // group buffers (ops/learner_kernel.py documents the layout). The library
 // is built with --fmad=false; the matrix-product and batch-sum inner loops
@@ -60,6 +67,7 @@ constexpr int kTG = 32;                 // gradient tile edge
 constexpr int kMaxWidth = 1024;         // ops/learner_kernel.py::MAX_WIDTH
 constexpr int kMaxRowOps = 3;
 constexpr int kMaxGradOps = 2 * (4 * kMaxLayers + 3);
+constexpr int kNormParts = 256;         // slices of a flat gradient
 
 enum : int { kProPlain = 0, kProLnRelu = 1, kProLnBwd = 2 };
 enum : int { kEpiNone = 0, kEpiTanh = 1, kEpiTd = 2, kEpiConst = 3,
@@ -319,9 +327,13 @@ __device__ __forceinline__ void adam_elem(const NetPtr& n, int off, float g,
   n.tgt[off] = t + c.tau * (p - t);
 }
 
+// kStore: write each reduced element into gstore (at its offset in the
+// group layout) instead of applying Adam and Polyak to it.
+template <bool kStore = false>
 __device__ void grad_item(const GradOp& op, int item, int B,
                           const NetPtr* nets, const AdamStep& as,
-                          const LearnerConsts& c, float* sm) {
+                          const LearnerConsts& c, float* sm,
+                          float* gstore = nullptr) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const NetPtr& net = nets[op.net];
   const float lr = as.lr[op.net];
@@ -358,8 +370,13 @@ __device__ void grad_item(const GradOp& op, int item, int B,
 #pragma unroll
     for (int q = 0; q < kJ; ++q) {
       const int j = j0 + warp * kJ + q;
-      if (j < op.out && i < op.in)
-        adam_elem(net, op.off + j * op.in + i, acc[q], as.bc1, as.bc2, lr, c);
+      if (j < op.out && i < op.in) {
+        if constexpr (kStore)
+          gstore[op.off + j * op.in + i] = acc[q];
+        else
+          adam_elem(net, op.off + j * op.in + i, acc[q], as.bc1, as.bc2, lr,
+                    c);
+      }
     }
   } else if (op.kind == kGradV) {
     const int e = item * 32 + lane;
@@ -375,7 +392,10 @@ __device__ void grad_item(const GradOp& op, int item, int B,
     if (warp == 0 && e < op.out) {
       float g = 0.0f;
       for (int w = 0; w < kWarps; ++w) g = g + sm[w * 32 + lane];
-      adam_elem(net, op.off + e, g, as.bc1, as.bc2, lr, c);
+      if constexpr (kStore)
+        gstore[op.off + e] = g;
+      else
+        adam_elem(net, op.off + e, g, as.bc1, as.bc2, lr, c);
     }
     __syncthreads();
   } else {  // kGradLoss
@@ -395,16 +415,63 @@ __device__ void grad_item(const GradOp& op, int item, int B,
   }
 }
 
+template <bool kStore = false>
 __device__ void run_grads(const GradOp* ops, int n, int B, const NetPtr* nets,
                           const AdamStep& as, const LearnerConsts& c,
-                          float* smem) {
+                          float* smem, float* gstore = nullptr) {
   int total = 0;
   for (int o = 0; o < n; ++o) total += grad_items(ops[o]);
   for (int item = blockIdx.x; item < total; item += gridDim.x) {
     int o = 0, rest = item;
     while (rest >= grad_items(ops[o])) rest -= grad_items(ops[o++]);
-    grad_item(ops[o], rest, B, nets, as, c, smem);
+    grad_item<kStore>(ops[o], rest, B, nets, as, c, smem, gstore);
   }
+}
+
+// --- flat-gradient stages (a global-norm clip) ---------------------------------
+
+// parts[i] = the sum of squares of slice i of g[0, n), one block per slice:
+// each thread sums a strided share, thread 0 the block's shares in order.
+__device__ void norm_partials(const float* g, int n, float* parts,
+                              float* sm) {
+  const int len = cdiv(n, kNormParts);
+  for (int part = blockIdx.x; part < kNormParts; part += gridDim.x) {
+    const int lo = part * len, hi = min(n, lo + len);
+    float s = 0.0f;
+    for (int e = lo + threadIdx.x; e < hi; e += kThreads) {
+      const float v = g[e];
+      s = s + v * v;
+    }
+    sm[threadIdx.x] = s;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float total = 0.0f;
+      for (int i = 0; i < kThreads; ++i) total = total + sm[i];
+      parts[part] = total;
+    }
+    __syncthreads();
+  }
+}
+
+// optax.clip_by_global_norm then Adam and Polyak on every element of the
+// flat gradient g[0, n) of `net`: the norm is the square root of the
+// partials summed in order (the same bits in every block), the scale 1
+// below max_norm and max_norm / norm at or above it.
+__device__ void adam_flat(const float* g, int n, const float* parts,
+                          float max_norm, const NetPtr& net,
+                          const AdamStep& as, float lr,
+                          const LearnerConsts& c, float* sm) {
+  if (threadIdx.x == 0) {
+    float total = 0.0f;
+    for (int i = 0; i < kNormParts; ++i) total = total + parts[i];
+    const float norm = sqrtf(total);
+    sm[0] = norm < max_norm ? 1.0f : max_norm / norm;
+  }
+  __syncthreads();
+  const float scale = sm[0];
+  for (int e = blockIdx.x * kThreads + threadIdx.x; e < n;
+       e += gridDim.x * kThreads)
+    adam_elem(net, e, g[e] * scale, as.bc1, as.bc2, lr, c);
 }
 
 // --- stage ops (written by thread 0 of each block) ----------------------------

@@ -1,26 +1,39 @@
-// Kernel B2: the DDPG actor inside the env loop, on Hopper.
+// Kernels B2 and B6: a 2-wide tanh policy head inside the continuous env
+// loop, on Hopper. B2 is the DDPG actor with Ornstein-Uhlenbeck
+// exploration, B6 the NAF mu head with Gaussian exploration; one kernel
+// body, the exploration rule a compile-time mode.
 //
 // Replaces cartpoleplusplus_tpu/ops/policy_rollout.py::_policy_rollout_kernel
-// (the Pallas TPU kernel). T env-steps with the actor in the loop:
+// (B2, the Pallas TPU kernel) and ::_q_rollout_kernel in its mode `naf`
+// (B6, built by naf_policy_rollout; the reference runs it as a mode of its
+// DQN rollout because neither carries noise, but the port's DQN kernel
+// takes the discrete env only). T env-steps with the network in the loop:
 //   obs (B, F) -> [Dense + LayerNorm + relu] x L -> tanh head (2)
-//   -> + OU noise (counter normals keyed by (env seed, global step), scaled
-//   by sigma) -> clip -> force -> R x S substeps -> termination, reward,
+//   -> B2: + OU noise (counter normals keyed by (env seed, global step,
+//      0x41/0x42), scaled by sigma; the OU state of a finished episode
+//      restarts at 0);
+//      B6: + sigma * normal(env seed, global step, 0x45/0x46), no noise
+//      state between steps
+//   -> clip -> force -> R x S substeps -> termination, reward,
 //   masked auto-reset -> next obs;
 // the trajectory (obs, action, reward, done) streams out per step, the
-// final env state, noise and obs at the end.
+// final env state (and B2's noise) and obs at the end. The plain twins are
+// ops/policy_rollout.py::reference_policy_rollout and
+// ops/naf_rollout.py::reference_naf_rollout.
 //
-// Bound on the H100: the actor's matrix products, ~153 kFLOP per env-step
-// at hidden (256, 256), i.e. ~5 GFLOP per 4096-env x 8-step rollout; the
-// physics is ~1 kFLOP per env-step. Design (simple and exact first): one
-// 256-thread block per tile of 32 envs (4096 envs -> 128 blocks on 132
-// SMs), with the tile machinery of policy_tile.cuh (shared with B4): the
-// tile's activations in shared memory (64 KB at width 256, so the launcher
-// opts in to more than 48 KB of dynamic shared memory), the weights (~300
-// KB at hidden 256) resident in the 50 MB L2, one thread per output column
-// with the tile's 32 sums in registers, warp-shuffle LayerNorm. After the
-// actor, one thread per env runs OU, clip, physics and reset with its env
-// state held in registers across all T steps. All matrix products stay
-// inside this kernel; wgmma and TMA are later work.
+// Bound on the H100: the network's matrix products, ~153 kFLOP per
+// env-step at hidden (256, 256), i.e. ~5 GFLOP per 4096-env x 8-step
+// rollout; the physics is ~1 kFLOP per env-step. Design (simple and exact
+// first): one 256-thread block per tile of 32 envs (4096 envs -> 128
+// blocks on 132 SMs), with the tile machinery of policy_tile.cuh (shared
+// with B4 and B8): the tile's activations in shared memory (64 KB at width
+// 256, so the launcher opts in to more than 48 KB of dynamic shared
+// memory), the weights (~300 KB at hidden 256) resident in the 50 MB L2,
+// one thread per output column with the tile's 32 sums in registers,
+// warp-shuffle LayerNorm. After the network, one thread per env runs the
+// exploration, clip, physics and reset with its env state held in
+// registers across all T steps. All matrix products stay inside this
+// kernel; wgmma and TMA are later work.
 #include "policy_tile.cuh"
 
 namespace {
@@ -44,6 +57,9 @@ __device__ __forceinline__ void head_tanh(const float* __restrict__ W,
   }
 }
 
+// kNaf: B6's exploration (ou_theta, noise_in and noise_out unused);
+// otherwise B2's.
+template <bool kNaf>
 __global__ void __launch_bounds__(kThreads) policy_rollout_kernel(
     const EnvConsts c, const ActorDims d, const float* __restrict__ params,
     const float ou_theta, const float sigma, const int t0, const int B,
@@ -81,8 +97,10 @@ __global__ void __launch_bounds__(kThreads) policy_rollout_kernel(
     steps = steps_in[g];
     episode = episode_in[g];
     seed = static_cast<uint32_t>(seed_in[g]);
-    nx = noise_in[2 * g];
-    ny = noise_in[2 * g + 1];
+    if constexpr (!kNaf) {
+      nx = noise_in[2 * g];
+      ny = noise_in[2 * g + 1];
+    }
   }
   __syncthreads();
 
@@ -99,13 +117,18 @@ __global__ void __launch_bounds__(kThreads) policy_rollout_kernel(
     head_tanh(p, p + n_in * kActDim, h, n_in, ld, mu);
     __syncthreads();
 
-    // OU exploration, clip, physics, reward, reset; next obs into buf0.
+    // Exploration, clip, physics, reward, reset; next obs into buf0.
     if (owner) {
       const uint32_t tg = static_cast<uint32_t>(t0 + t);
-      const float eps_x = cp::normal(seed, tg, 0x41u);
-      const float eps_y = cp::normal(seed, tg, 0x42u);
-      nx = nx + ou_theta * (0.0f - nx) + sigma * eps_x;
-      ny = ny + ou_theta * (0.0f - ny) + sigma * eps_y;
+      if constexpr (kNaf) {
+        nx = cp::normal(seed, tg, 0x45u) * sigma;
+        ny = cp::normal(seed, tg, 0x46u) * sigma;
+      } else {
+        const float eps_x = cp::normal(seed, tg, 0x41u);
+        const float eps_y = cp::normal(seed, tg, 0x42u);
+        nx = nx + ou_theta * (0.0f - nx) + sigma * eps_x;
+        ny = ny + ou_theta * (0.0f - ny) + sigma * eps_y;
+      }
       const float ax = cp::clampf(mu[e * kActDim] + nx, -1.0f, 1.0f);
       const float ay = cp::clampf(mu[e * kActDim + 1] + ny, -1.0f, 1.0f);
       const size_t tb = static_cast<size_t>(t) * B + g;
@@ -115,8 +138,8 @@ __global__ void __launch_bounds__(kThreads) policy_rollout_kernel(
       bool done;
       step_into_row(c, st, steps, episode, seed, ax * c.action_force,
                     ay * c.action_force, buf0 + e * ld, reward, done);
-      if (done) {  // the OU state of a finished episode restarts at 0
-        nx = 0.0f;
+      if (!kNaf && done) {  // the OU state of a finished episode restarts
+        nx = 0.0f;        // at 0
         ny = 0.0f;
       }
       traj_rew[tb] = reward;
@@ -129,21 +152,60 @@ __global__ void __launch_bounds__(kThreads) policy_rollout_kernel(
     store_phys(st, pos_out, vel_out, s_out, sd_out, g);
     steps_out[g] = steps;
     episode_out[g] = episode;
-    noise_out[2 * g] = nx;
-    noise_out[2 * g + 1] = ny;
+    if constexpr (!kNaf) {
+      noise_out[2 * g] = nx;
+      noise_out[2 * g + 1] = ny;
+    }
   }
   store_obs_tile(obs_out + static_cast<size_t>(env0) * F, buf0, n_env, F,
                  ld);
+}
+
+// Checks the dims and launches mode kNaf on the stream.
+template <bool kNaf>
+int launch_rollout(const EnvConsts* consts, const ActorDims* dims,
+                   const float* params, float ou_theta, float sigma, int t0,
+                   int B, int T, const float* pos, const float* vel,
+                   const float* s, const float* sd, const int* steps,
+                   const int* episode, const int64_t* seed,
+                   const float* noise, const float* obs, float* traj_obs,
+                   float* traj_act, float* traj_rew, bool* traj_done,
+                   float* pos_out, float* vel_out, float* s_out,
+                   float* sd_out, int* steps_out, int* episode_out,
+                   float* noise_out, float* obs_out, void* stream) {
+  const ActorDims d = *dims;
+  if (B <= 0 || T < 0 || d.num_layers < 1 || d.num_layers > kMaxLayers ||
+      d.obs_dim != consts->action_repeats * cp::kFrame || d.width < d.obs_dim)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (kNaf && consts->discrete_actions)
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int l = 0; l < d.num_layers; ++l)
+    if (d.hidden[l] < 1 || d.hidden[l] > d.width)
+      return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(float) * (2 * kTile * d.width + kTile * kActDim);
+  cudaError_t err = cudaFuncSetAttribute(
+      policy_rollout_kernel<kNaf>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (B + kTile - 1) / kTile;
+  policy_rollout_kernel<kNaf><<<blocks, kThreads, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+      *consts, d, params, ou_theta, sigma, t0, B, T, pos, vel, s, sd, steps,
+      episode, seed, noise, obs, traj_obs, traj_act, traj_rew, traj_done,
+      pos_out, vel_out, s_out, sd_out, steps_out, episode_out, noise_out,
+      obs_out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// params: the actor packed as [W_l (in, out) row-major, b_l, scale_l,
+// params: the network packed as [W_l (in, out) row-major, b_l, scale_l,
 // bias_l] per torso layer, then W_head (H, 2), b_head (2); float32.
 // Trajectory outputs are time-major: obs (T, B, F), act (T, B, 2), rew and
 // done (T, B). State arrays as in cp_fused_rollout; noise (B, 2), obs (B, F).
+// B2: the DDPG actor with OU noise.
 int cp_policy_rollout(const EnvConsts* consts, const ActorDims* dims,
                       const float* params, float ou_theta, float sigma, int t0,
                       int B, int T, const float* pos, const float* vel,
@@ -154,26 +216,31 @@ int cp_policy_rollout(const EnvConsts* consts, const ActorDims* dims,
                       float* pos_out, float* vel_out, float* s_out,
                       float* sd_out, int* steps_out, int* episode_out,
                       float* noise_out, float* obs_out, void* stream) {
-  const ActorDims d = *dims;
-  if (B <= 0 || T < 0 || d.num_layers < 1 || d.num_layers > kMaxLayers ||
-      d.obs_dim != consts->action_repeats * cp::kFrame || d.width < d.obs_dim)
-    return static_cast<int>(cudaErrorInvalidValue);
-  for (int l = 0; l < d.num_layers; ++l)
-    if (d.hidden[l] < 1 || d.hidden[l] > d.width)
-      return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * (2 * kTile * d.width + kTile * kActDim);
-  cudaError_t err = cudaFuncSetAttribute(
-      policy_rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (B + kTile - 1) / kTile;
-  policy_rollout_kernel<<<blocks, kThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      *consts, d, params, ou_theta, sigma, t0, B, T, pos, vel, s, sd, steps,
-      episode, seed, noise, obs, traj_obs, traj_act, traj_rew, traj_done,
-      pos_out, vel_out, s_out, sd_out, steps_out, episode_out, noise_out,
-      obs_out);
-  return static_cast<int>(cudaGetLastError());
+  return launch_rollout<false>(consts, dims, params, ou_theta, sigma, t0, B,
+                               T, pos, vel, s, sd, steps, episode, seed,
+                               noise, obs, traj_obs, traj_act, traj_rew,
+                               traj_done, pos_out, vel_out, s_out, sd_out,
+                               steps_out, episode_out, noise_out, obs_out,
+                               stream);
+}
+
+// B6: NAF's mu head (the torso and head rows mu0, mu1 in the layout above)
+// with sigma-scaled counter normals. Same arguments as cp_policy_rollout
+// without ou_theta and the noise in and out.
+int cp_naf_rollout(const EnvConsts* consts, const ActorDims* dims,
+                   const float* params, float sigma, int t0, int B, int T,
+                   const float* pos, const float* vel, const float* s,
+                   const float* sd, const int* steps, const int* episode,
+                   const int64_t* seed, const float* obs, float* traj_obs,
+                   float* traj_act, float* traj_rew, bool* traj_done,
+                   float* pos_out, float* vel_out, float* s_out, float* sd_out,
+                   int* steps_out, int* episode_out, float* obs_out,
+                   void* stream) {
+  return launch_rollout<true>(consts, dims, params, 0.0f, sigma, t0, B, T,
+                              pos, vel, s, sd, steps, episode, seed, nullptr,
+                              obs, traj_obs, traj_act, traj_rew, traj_done,
+                              pos_out, vel_out, s_out, sd_out, steps_out,
+                              episode_out, nullptr, obs_out, stream);
 }
 
 }  // extern "C"

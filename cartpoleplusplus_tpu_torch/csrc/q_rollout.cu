@@ -5,8 +5,9 @@
 //
 // Replaces cartpoleplusplus_tpu/ops/policy_rollout.py::_q_rollout_kernel in
 // its modes `dqn` (B4) and `lrpg` (B8) (the Pallas TPU kernel built by
-// q_policy_rollout and pg_policy_rollout; its mode `naf` is another kernel,
-// not implemented here). T env-steps with the network in the loop:
+// q_policy_rollout and pg_policy_rollout; its mode `naf`, which needs the
+// continuous env, is kernel B6, a mode of B2's kernel in policy_rollout.cu).
+// T env-steps with the network in the loop:
 //   obs (B, F) -> [Dense + LayerNorm + relu] x L -> linear head (5)
 //   -> B4: first-max argmax (a strict >, jnp.argmax's tie rule), then the
 //      epsilon gate: uniform(env seed, global step, 0x43) < eps takes the

@@ -15,7 +15,7 @@ import torch
 
 from ..env.cartpole import EnvState
 from ..physics.dynamics import PhysState
-from .nets import ActorMLP, CriticMLP, PolicyMLP, QNetMLP
+from .nets import ActorMLP, CriticMLP, NafNet, PolicyMLP, QNetMLP
 
 
 def _t(a, device=None) -> torch.Tensor:
@@ -66,6 +66,37 @@ def policy_state_dict(tree, hidden: Sequence[int], device=None) -> dict:
     return actor_state_dict(tree, hidden, device)
 
 
+def naf_state_dict(tree, hidden: Sequence[int], device=None) -> dict:
+    """flax NafNet params -> NafNet state dict: the torso, and the V
+    (`Dense_0`), mu (`Dense_1`) and L-entry (`Dense_2`) heads packed into
+    the one head of rows [v, mu0, mu1, l0, l1, l2]."""
+    p = tree["params"]
+    torso = p["_Torso_0"]
+    sd = {}
+    for i in range(len(hidden)):
+        _dense(sd, f"torso.{i}", torso[f"Dense_{i}"], device)
+        _norm(sd, f"norms.{i}", torso[f"LayerNorm_{i}"], device)
+    heads = [p[f"Dense_{i}"] for i in range(3)]
+    sd["head.weight"] = _t(np.concatenate(
+        [np.asarray(h["kernel"]).T for h in heads]), device)
+    sd["head.bias"] = _t(np.concatenate(
+        [np.asarray(h["bias"]) for h in heads]), device)
+    return sd
+
+
+def unflatten_naf(flat, hidden: Sequence[int]):
+    """The reference's kernel-mode flat operand list of a NafNet (as
+    `unflatten_qnet`'s, with the head rows [v, mu0, mu1, l0, l1, l2, 0,
+    0]; ops/learner_kernel.py::flatten_naf) -> the flax tree, in numpy
+    (the reference's `unflatten_naf`, which drops the 2 pad rows)."""
+    flat = [np.asarray(x) for x in flat]
+    ws, wh, rows, bh = flat[:-3], flat[-3], flat[-2], flat[-1]
+    p = unflatten_qnet(ws + [wh, rows, bh], hidden, 1)["params"]
+    for i, (lo, hi) in enumerate([(0, 1), (1, 3), (3, 6)]):
+        p[f"Dense_{i}"] = {"kernel": wh[lo:hi].T, "bias": bh[0, lo:hi]}
+    return {"params": p}
+
+
 def unflatten_qnet(flat, hidden: Sequence[int], num_actions: int = 5):
     """The reference's kernel-mode flat operand list of a QNetMLP or a
     PolicyMLP ([W_0..W_{n-1} (in, out), head W^T padded to (8, H), packed
@@ -109,6 +140,13 @@ def policy_from_flax(tree, obs_dim: int, num_actions: int,
                      hidden: Sequence[int], device=None) -> PolicyMLP:
     net = PolicyMLP(obs_dim, num_actions, hidden).to(device)
     net.load_state_dict(policy_state_dict(tree, hidden, device))
+    return net
+
+
+def naf_from_flax(tree, obs_dim: int, action_dim: int,
+                  hidden: Sequence[int], device=None) -> NafNet:
+    net = NafNet(obs_dim, action_dim, hidden).to(device)
+    net.load_state_dict(naf_state_dict(tree, hidden, device))
     return net
 
 
@@ -247,4 +285,41 @@ def lrpg_state_from_jax(agent, st):
         baseline=_t(np.asarray(st.baseline, np.float32), dev),
         env_state=env_state_from_jax(st.env_state, dev),
         obs=_t(np.asarray(st.obs, np.float32), dev),
+        env_steps=int(np.asarray(st.env_steps))))
+
+
+def naf_state_from_jax(agent, st, generator=None):
+    """JAX NAFState (numpy leaves) -> the port's NAFState for `agent` (a
+    port NAF of the same config), in the agent's native layout. Both of the
+    reference's layouts are taken (the flax trees of its XLA learner, the
+    flat operand lists of its kernel mode), and both optax nestings: the
+    Adam state sits at opt[1][0] behind the global-norm clip
+    (max_grad_norm > 0) and at opt[0] without it (the reference's
+    NAF._adam_state). Parameters, target, Adam moments and count, replay
+    ring, env state, obs and counters carry over; the replay sampling
+    generator is the given one (or a fresh one)."""
+    from ..agents.common import AdamState
+    from ..agents.naf import NAFState
+
+    c, env, dev = agent.cfg, agent.env, agent.env.device
+    h, ad = tuple(c.hidden), env.action_dim
+
+    def tree(x):
+        return unflatten_naf(x, h) if isinstance(x, (list, tuple)) else x
+
+    net = naf_from_flax(tree(st.params), env.obs_size, ad, h, dev)
+    adam_state = st.opt[1][0] if c.max_grad_norm > 0.0 else st.opt[0]
+
+    def moments(x):
+        return _in_param_order(net, naf_state_dict(tree(x), h, dev))
+
+    return agent.state_from_tree(NAFState(
+        net=net,
+        target=naf_from_flax(tree(st.target), env.obs_size, ad, h, dev),
+        opt=AdamState(count=int(np.asarray(adam_state.count)),
+                      mu=moments(adam_state.mu), nu=moments(adam_state.nu)),
+        replay=_replay_from_jax(st.replay, dev),
+        env_state=env_state_from_jax(st.env_state, dev),
+        obs=_t(np.asarray(st.obs, np.float32), dev),
+        generator=generator if generator is not None else torch.Generator(),
         env_steps=int(np.asarray(st.env_steps))))

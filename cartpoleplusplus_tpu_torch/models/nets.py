@@ -1,6 +1,6 @@
-"""DDPG, DQN and LRPG networks (cartpoleplusplus_tpu/models/nets.py
-ActorMLP, CriticMLP, QNetMLP and PolicyMLP in torch), with flax's numerics
-rather than torch's defaults:
+"""DDPG, DQN, LRPG and NAF networks (cartpoleplusplus_tpu/models/nets.py
+ActorMLP, CriticMLP, QNetMLP, PolicyMLP and NafNet in torch), with flax's
+numerics rather than torch's defaults:
 
   * LayerNorm uses eps 1e-6 and the one-pass variance max(E[x^2] - E[x]^2,
     0), and applies (x - mean) * (rsqrt(var + eps) * scale) + bias;
@@ -124,6 +124,51 @@ class PolicyMLP(QNetMLP):
     def __init__(self, obs_dim: int, num_actions: int = 5,
                  hidden: Sequence[int] = (64, 64), generator=None):
         super().__init__(obs_dim, num_actions, hidden, generator)
+
+
+def softplus(x):
+    """jax.nn.softplus's stable form: max(x, 0) + log1p(exp(-|x|))."""
+    return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+class NafNet(_TorsoMLP):
+    """Normalized Advantage Function (NAF): Q(s, a) = V(s) + A(s, a) with
+    A = -1/2 (a - mu)^T L L^T (a - mu), L lower-triangular with a softplus
+    diagonal. The flax net's three Dense heads (V, mu, the L entries) are
+    one packed head of rows [v, mu_0..mu_{d-1}, l_0..] (the reference
+    kernel's packing, ops/learner_kernel.py::flatten_naf, without its pad
+    rows): rows v and l take flax's default Dense init, the mu rows U[0,
+    3e-3), every row with fan-in H."""
+
+    def __init__(self, obs_dim: int, action_dim: int = 2,
+                 hidden: Sequence[int] = (256, 256), generator=None):
+        self.action_dim = action_dim
+        super().__init__(obs_dim, 1 + action_dim
+                         + action_dim * (action_dim + 1) // 2, hidden,
+                         generator, uniform_head=False)
+        with torch.no_grad():
+            mu_rows = self.head.weight[1:1 + action_dim]
+            mu_rows.copy_(torch.empty_like(mu_rows).uniform_(
+                0.0, HEAD_INIT, generator=generator))
+
+    def forward(self, obs, action=None):
+        """(v, mu), or (q, mu, v) when an action is given."""
+        d = self.action_dim
+        out = self.head(self.features(obs))
+        v = out[..., 0]
+        mu = torch.tanh(out[..., 1:1 + d])
+        if action is None:
+            return v, mu
+        rows, cols = torch.tril_indices(d, d, device=out.device)
+        l_mat = torch.zeros(out.shape[:-1] + (d * d,), dtype=out.dtype,
+                            device=out.device).index_copy(
+            -1, rows * d + cols, out[..., 1 + d:]).unflatten(-1, (d, d))
+        eye = torch.eye(d, dtype=torch.bool, device=out.device)
+        l_mat = torch.where(eye, softplus(l_mat), l_mat)
+        p_mat = l_mat @ l_mat.transpose(-1, -2)
+        da = (action - mu)[..., None]
+        adv = -0.5 * (da.transpose(-1, -2) @ p_mat @ da)[..., 0, 0]
+        return v + adv, mu, v
 
 
 class CriticMLP(nn.Module):

@@ -13,7 +13,7 @@ and no fast-math flag is set, so division and sqrt are IEEE and
 logf/cosf/sinf/tanhf are the accurate CUDA math library functions. The
 kernels then follow the plain torch twins operation by operation, and a
 termination threshold does not flip on a contraction. An explicit fmaf()
-is still fused: B3, B5 (csrc/learner_stages.cuh) and B9
+is still fused: B3, B5, B7 (csrc/learner_stages.cuh) and B9
 (csrc/lrpg_update.cu) use it in their matrix-product and batch-sum inner
 loops only.
 """
@@ -65,12 +65,13 @@ class EnvConsts(ctypes.Structure):
 
 MAX_LAYERS = 4  # kMaxLayers in csrc/policy_tile.cuh and learner_stages.cuh
 # Bytes of shared memory one H100 block may use (kMaxSmem in
-# csrc/lrpg_update.cu; the B2/B4/B8 launchers take it from here).
+# csrc/lrpg_update.cu; the B2/B4/B6/B8 launchers take it from here).
 MAX_SMEM = 232_448
 
 
 class ActorDims(ctypes.Structure):
-    """Mirror of `struct ActorDims` in csrc/policy_tile.cuh (B2 and B4)."""
+    """Mirror of `struct ActorDims` in csrc/policy_tile.cuh (B2, B4, B6,
+    B8)."""
 
     _fields_ = [("num_layers", ctypes.c_int), ("obs_dim", ctypes.c_int),
                 ("width", ctypes.c_int),
@@ -101,6 +102,15 @@ class DqnDims(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int) for n in (
         "num_layers", "obs_dim", "batch", "k_updates", "double_dqn")] + [
         ("hidden", ctypes.c_int * MAX_LAYERS), ("q", NetLayout)]
+
+
+class NafDims(ctypes.Structure):
+    """Mirror of `struct NafDims` in csrc/naf_update.cu (B7)."""
+
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "num_layers", "obs_dim", "batch", "k_updates")] + [
+        ("max_norm", ctypes.c_float), ("hidden", ctypes.c_int * MAX_LAYERS),
+        ("q", NetLayout)]
 
 
 class PgDims(ctypes.Structure):
@@ -254,6 +264,9 @@ def load_library() -> ctypes.CDLL:
     lib.cp_policy_rollout.argtypes = ([vp, vp, vp, cf, cf, ci, ci, ci]
                                       + [vp] * 21 + [vp])
     lib.cp_policy_rollout.restype = ci
+    lib.cp_naf_rollout.argtypes = [vp, vp, vp, cf, ci, ci, ci] + [vp] * 19 + [
+        vp]
+    lib.cp_naf_rollout.restype = ci
     lib.cp_ddpg_workspace_floats.argtypes = [vp]
     lib.cp_ddpg_workspace_floats.restype = ctypes.c_longlong
     lib.cp_ddpg_update_phase.argtypes = [vp, vp] + [vp] * 8 + [vp] * 5 + [
@@ -267,6 +280,11 @@ def load_library() -> ctypes.CDLL:
     lib.cp_dqn_update_phase.argtypes = [vp, vp] + [vp] * 4 + [vp] * 5 + [
         vp, vp, ci, vp]
     lib.cp_dqn_update_phase.restype = ci
+    lib.cp_naf_workspace_floats.argtypes = [vp]
+    lib.cp_naf_workspace_floats.restype = ctypes.c_longlong
+    lib.cp_naf_update_phase.argtypes = [vp, vp] + [vp] * 4 + [vp] * 5 + [
+        vp, vp, ci, vp]
+    lib.cp_naf_update_phase.restype = ci
     lib.cp_pg_rollout.argtypes = [vp, vp, vp, ci, ci, ci] + [vp] * 19 + [vp]
     lib.cp_pg_rollout.restype = ci
     lib.cp_lrpg_workspace_floats.argtypes = [vp]

@@ -1,7 +1,8 @@
-"""Kernels B3 and B5, the whole K-update DDPG and DQN learner phases, and B9,
-the LRPG update: their plain torch twins and the wrappers that launch
-csrc/ddpg_update.cu and csrc/dqn_update.cu (whose shared stage engine is
-csrc/learner_stages.cuh) and csrc/lrpg_update.cu.
+"""Kernels B3, B5 and B7, the whole K-update DDPG, DQN and NAF learner
+phases, and B9, the LRPG update: their plain torch twins and the wrappers
+that launch csrc/ddpg_update.cu, csrc/dqn_update.cu and csrc/naf_update.cu
+(whose shared stage engine is csrc/learner_stages.cuh) and
+csrc/lrpg_update.cu.
 
 Replaces cartpoleplusplus_tpu/ops/learner_kernel.py::_update_kernel (made by
 `ddpg_update_phase`). Per update k, on the presampled minibatch k:
@@ -40,6 +41,14 @@ q's Adam moments m, v) in `qnet_layout`, which is the actor's with a
 5-wide linear head; its twin is `dqn_update_phase_math` (the JAX twin of
 the same name, learner_kernel.py:828).
 
+B7 (replaces learner_kernel.py::_naf_update_kernel, made by
+`naf_update_phase`) runs K NAF updates on 4 groups (the NafNet, its target
+and its Adam moments m, v) in `naf_layout`, the Q-net's with a 6-row head
+[v, mu0, mu1, l0, l1, l2]: the MSE TD step toward the target's V, the
+quadratic-advantage algebra of `naf_q`, an optional global-norm gradient
+clip, Adam at the lr schedule, Polyak; its twin is `naf_update_phase_math`
+(the JAX twin of the same name, learner_kernel.py:1110).
+
 B9 (replaces learner_kernel.py::_lrpg_update_kernel, made by
 `lrpg_update_phase`) takes ONE Adam step of the softmax policy gradient
 with an entropy bonus over a whole rollout window, on 3 groups (the
@@ -56,6 +65,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..models.nets import softplus
 from . import _native
 
 _LN_EPS = 1e-6       # flax.linen.LayerNorm default epsilon
@@ -64,6 +74,7 @@ _ADAM_B2 = 0.999
 _ADAM_EPS = 1e-8
 ACTION_DIM = 2
 NUM_ACTIONS = 5      # the DQN head
+NAF_HEAD = 6         # kHead in csrc/naf_update.cu: [v, mu0, mu1, l0, l1, l2]
 MAX_WIDTH = 1024     # kMaxWidth in csrc/learner_stages.cuh (shared memory)
 _HUBER_DELTA = 1.0   # optax.huber_loss default
 
@@ -109,6 +120,12 @@ def qnet_layout(obs_dim: int, hidden: Sequence[int]) -> list:
     return _mlp_layout((obs_dim,) + hidden[:-1], hidden, NUM_ACTIONS)
 
 
+def naf_layout(obs_dim: int, hidden: Sequence[int]) -> list:
+    """(name, shape) of NafNet's parameters: QNetMLP's with a 6-row head."""
+    hidden = tuple(hidden)
+    return _mlp_layout((obs_dim,) + hidden[:-1], hidden, NAF_HEAD)
+
+
 def policy_layout(obs_dim: int, hidden: Sequence[int]) -> list:
     """(name, shape) of PolicyMLP's parameters (QNetMLP's layout)."""
     return qnet_layout(obs_dim, hidden)
@@ -142,6 +159,12 @@ def dqn_covers(obs_dim: int, hidden: Sequence[int]) -> bool:
     hidden = tuple(hidden)
     return (1 <= len(hidden) <= _native.MAX_LAYERS
             and max((obs_dim,) + hidden) <= MAX_WIDTH)
+
+
+def naf_covers(obs_dim: int, hidden: Sequence[int]) -> bool:
+    """The shapes B7 takes: B5's (1 to 4 hidden layers and every layer
+    input within the shared-memory row width)."""
+    return dqn_covers(obs_dim, hidden)
 
 
 _PG_KC = 128             # kPgKc in csrc/lrpg_update.cu: weight-tile inputs
@@ -474,6 +497,110 @@ def dqn_update_phase_math(q, q_target, m, v, batches, t0: int, hidden, *,
 
 
 # --------------------------------------------------------------------------
+# NAF (B7's twin).
+# --------------------------------------------------------------------------
+
+def _sigmoid(x):
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def naf_q(pre, act):
+    """Q (B, 1), and the residue for `naf_q_bwd`, from the packed head's
+    pre-activations (B, 6) and the actions (B, 2): L = [[sp(l0), 0], [l1,
+    sp(l2)]], u = L^T (a - mu), Q = v - |u|^2 / 2. As in the reference
+    kernel, mu is the head's rows 1-2 without NafNet's tanh."""
+    v, mu0, mu1 = pre[:, 0:1], pre[:, 1:2], pre[:, 2:3]
+    l0, l1, l2 = pre[:, 3:4], pre[:, 4:5], pre[:, 5:6]
+    da0, da1 = act[:, 0:1] - mu0, act[:, 1:2] - mu1
+    l00, l11 = softplus(l0), softplus(l2)
+    u0 = l00 * da0 + l1 * da1
+    u1 = l11 * da1
+    q = v - 0.5 * (u0 * u0 + u1 * u1)
+    return q, (da0, da1, l00, l11, l0, l1, l2, u0, u1)
+
+
+def naf_q_bwd(dq, residue):
+    """d(pre-activations) (B, 6) for upstream dq (B, 1)."""
+    da0, da1, l00, l11, l0, l1, l2, u0, u1 = residue
+    du0 = -dq * u0
+    du1 = -dq * u1
+    dl00 = du0 * da0
+    dl10 = du0 * da1
+    dl11 = du1 * da1
+    dda0 = du0 * l00
+    dda1 = du0 * l1 + du1 * l11
+    return torch.cat([dq, -dda0, -dda1, dl00 * _sigmoid(l0), dl10,
+                      dl11 * _sigmoid(l2)], dim=1)
+
+
+def naf_phase_block(params, target, obs, nobs, act, rew, done, gamma: float,
+                    inv_batch: float, hidden):
+    """MSE TD gradient of one minibatch toward y = r + gamma (1 - done)
+    V'(s'); act is (B, 2), rew/done (B, 1) float. Returns (grads in
+    `params`' order, loss)."""
+    v_next = mlp_fwd(nobs, target, hidden)[0][:, 0:1]
+    y = rew + _f32(gamma) * (1.0 - done) * v_next
+    pre, residue = mlp_fwd(obs, params, hidden)
+    q, qres = naf_q(pre, act)
+    td = q - y
+    dpre = naf_q_bwd(_f32(2.0 * inv_batch) * td, qres)
+    return mlp_bwd(dpre, params, hidden, residue), \
+        _f32(inv_batch) * (td * td).sum()
+
+
+def global_norm(grads):
+    """sqrt of the sum over the list of each tensor's sum of squares."""
+    gsq = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+    for g in grads:
+        gsq = gsq + torch.sum(g * g)
+    return torch.sqrt(gsq)
+
+
+def clip_by_global_norm_flat(grads, max_norm: float):
+    """optax.clip_by_global_norm on a parameter list, in the reference
+    kernel's form: every gradient times 1 below max_norm, times max_norm /
+    norm at or above it."""
+    gn = global_norm(grads)
+    m = _f32(max_norm)
+    scale = torch.where(gn < m, torch.ones_like(gn), m / gn)
+    return [g * scale for g in grads]
+
+
+@torch.no_grad()
+def naf_update_phase_math(params, target, m, v, batches, t0: int, hidden, *,
+                          lr, gamma, tau, max_grad_norm: float = 0.0,
+                          lr_schedule=None):
+    """K sequential NAF updates on parameter lists (`naf_layout`, one list
+    per group): the MSE TD step, the global-norm clip when max_grad_norm >
+    0, Adam at the scheduled lr, Polyak. batches: (obs (K, B, F), action
+    (K, B, 2), reward (K, B), next_obs (K, B, F), done (K, B)); t0 is the
+    Adam count before the phase. Returns (params, target, m, v, loss (K,),
+    the pre-clip global gradient norms (K,)) as new tensors."""
+    hidden = tuple(hidden)
+    k_updates, bm = batches[0].shape[0], batches[0].shape[1]
+    inv = 1.0 / bm
+    losses, norms = [], []
+    for k in range(k_updates):
+        obs, act, rew, nobs, done = (x[k] for x in batches)
+        rew = rew[:, None]
+        done = done.to(torch.float32)[:, None]
+        tk = float(t0 + k + 1)
+        bc1, bc2 = _bias_corrections(tk)
+        grads, loss = naf_phase_block(params, target, obs, nobs, act, rew,
+                                      done, gamma, inv, hidden)
+        norms.append(global_norm(grads))
+        if max_grad_norm > 0.0:
+            grads = clip_by_global_norm_flat(grads, max_grad_norm)
+        lr_k = _sched_lr(lr, lr_schedule, tk)
+        new = [adam_step(p, mm, vv, g, bc1, bc2, lr_k)
+               for p, mm, vv, g in zip(params, m, v, grads)]
+        params, m, v = ([x[i] for x in new] for i in range(3))
+        target = polyak_flat(target, params, tau)
+        losses.append(loss)
+    return params, target, m, v, torch.stack(losses), torch.stack(norms)
+
+
+# --------------------------------------------------------------------------
 # LRPG (B9's twin).
 # --------------------------------------------------------------------------
 
@@ -736,6 +863,93 @@ def dqn_update_phase(groups, batches, t0: int, hidden, *, lr: float,
 
 
 dqn_update_phase.launches = 0
+
+
+@torch.no_grad()
+def naf_update_phase(groups, batches, t0: int, hidden, *, lr: float,
+                     gamma: float, tau: float, max_grad_norm: float = 0.0,
+                     lr_schedule=None):
+    """B7: K NAF updates on the 4 group buffers, IN PLACE.
+
+    groups = (params, target, m, v), each a contiguous 1-D float32 buffer
+    in `naf_layout`; batches as `naf_update_phase_math` takes them, with
+    float32 (K, B, 2) actions; t0 the Adam count before the phase; the
+    clip applies when max_grad_norm > 0; lr_schedule = (end_frac,
+    transition_steps) or None. Returns loss (K,).
+
+    CUDA buffers launch the hand-written kernel (csrc/naf_update.cu) once,
+    on the current stream; CPU buffers run `naf_update_phase_math` and copy
+    its results into the buffers. Any other device, a shape B7 does not
+    cover (`naf_covers`), or a malformed argument raises."""
+    hidden = tuple(hidden)
+    obs = batches[0]
+    dev = groups[0].device
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"naf_update_phase runs on cuda or cpu, not {dev}")
+    if len(groups) != 4 or len(batches) != 5 or obs.dim() != 3:
+        raise ValueError("want 4 group buffers and 5 batch tensors")
+    k_updates, batch, obs_dim = obs.shape
+    if not naf_covers(obs_dim, hidden):
+        raise ValueError(f"obs {obs_dim}, hidden {hidden}: not covered by "
+                         f"B7 (ops.learner_kernel.naf_covers)")
+    if k_updates < 1 or batch < 1:
+        raise ValueError(f"K {k_updates}, batch {batch}: need >= 1 each")
+    lay = naf_layout(obs_dim, hidden)
+    for i, g in enumerate(groups):
+        _check(g, (layout_size(lay),), torch.float32, dev, f"group {i}")
+    for t, shape, dtype, what in (
+            (batches[0], (k_updates, batch, obs_dim), torch.float32, "obs"),
+            (batches[1], (k_updates, batch, ACTION_DIM), torch.float32,
+             "action"),
+            (batches[2], (k_updates, batch), torch.float32, "reward"),
+            (batches[3], (k_updates, batch, obs_dim), torch.float32,
+             "next_obs"),
+            (batches[4], (k_updates, batch), torch.bool, "done")):
+        _check(t, shape, dtype, dev, what)
+    kw = dict(lr=lr, gamma=gamma, tau=tau, max_grad_norm=max_grad_norm,
+              lr_schedule=lr_schedule)
+
+    if dev.type == "cpu":
+        views = [group_views(g, lay) for g in groups]
+        out = naf_update_phase_math(*views, batches, t0, hidden, **kw)
+        for dst, src in zip(views, out[:4]):
+            for d, s in zip(dst, src):
+                d.copy_(s)
+        return out[4]
+
+    n = len(hidden)
+    dims = _native.NafDims(
+        num_layers=n, obs_dim=obs_dim, batch=batch, k_updates=k_updates,
+        max_norm=_f32(max_grad_norm) if max_grad_norm > 0.0 else 0.0,
+        q=_layout_offsets(lay, n))
+    for i, h in enumerate(hidden):
+        dims.hidden[i] = h
+    # The NafNet is net 0 of the stage engine: its lr rides in actor_lr.
+    consts = _learner_consts(batch=batch, actor_lr=lr, critic_lr=lr,
+                             gamma=gamma, tau=tau, lr_schedule=lr_schedule)
+    lib = _native.load_library()
+    loss = torch.empty(k_updates, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        key = ("naf", dev, stream, obs_dim, batch, hidden)
+        ws = _workspaces.get(key)
+        if ws is None:
+            size = lib.cp_naf_workspace_floats(_native.struct_ptr(dims))
+            if size <= 0:
+                raise ValueError(f"B7 rejected dims {key}")
+            ws = _workspaces[key] = torch.empty(size, dtype=torch.float32,
+                                                device=dev)
+        rc = lib.cp_naf_update_phase(
+            _native.struct_ptr(dims), _native.struct_ptr(consts),
+            *(g.data_ptr() for g in groups),
+            *(b.data_ptr() for b in batches), loss.data_ptr(),
+            ws.data_ptr(), ctypes.c_int(int(t0)), stream)
+    _native.check(lib, rc, "naf_update_phase")
+    naf_update_phase.launches += 1
+    return loss
+
+
+naf_update_phase.launches = 0
 
 
 @torch.no_grad()

@@ -77,16 +77,22 @@ def reference_policy_rollout(env: CartPole3D, actor: ActorMLP,
     return state, obs, noise, traj
 
 
-def pack_actor(actor: ActorMLP) -> torch.Tensor:
-    """The actor's weights in the kernel's flat layout: per torso layer
-    W (in, out) row-major, bias, LayerNorm scale, LayerNorm bias; then the
-    head's W (H, 2) and bias."""
+def pack_net(net, head_rows=slice(None)) -> torch.Tensor:
+    """A torso net's weights in the rollout kernels' flat layout: per torso
+    layer W (in, out) row-major, bias, LayerNorm scale, LayerNorm bias;
+    then the head's W (H, out) and bias over `head_rows` of its rows."""
     parts = []
-    for dense, norm in zip(actor.torso, actor.norms):
+    for dense, norm in zip(net.torso, net.norms):
         parts += [dense.weight.t().reshape(-1), dense.bias, norm.weight,
                   norm.bias]
-    parts += [actor.head.weight.t().reshape(-1), actor.head.bias]
+    parts += [net.head.weight[head_rows].t().reshape(-1),
+              net.head.bias[head_rows]]
     return torch.cat([p.detach().float().reshape(-1) for p in parts])
+
+
+def pack_actor(actor: ActorMLP) -> torch.Tensor:
+    """The actor's weights in B2's flat layout (`pack_net`)."""
+    return pack_net(actor)
 
 
 @torch.no_grad()

@@ -3,7 +3,9 @@ the wrapper that launches csrc/q_rollout.cu.
 
 Replaces cartpoleplusplus_tpu/ops/policy_rollout.py::_q_rollout_kernel in
 its mode `dqn` (its mode `lrpg` is kernel B8, ops/pg_rollout.py, built from
-the same CUDA source; its mode `naf` is not ported yet). Both versions take
+the same CUDA source; its mode `naf` is kernel B6, ops/naf_rollout.py, a
+mode of B2's continuous-env kernel in csrc/policy_rollout.cu). Both
+versions take
 
     (env state, obs (B, F), Q-net, env_steps, epsilon)
 

@@ -1,9 +1,10 @@
-"""Training CLI of the port — the `--agent ddpg`, `dqn`, `lrpg` and `random`
-flows of cartpoleplusplus_tpu.train on one device.
+"""Training CLI of the port — the `--agent ddpg`, `dqn`, `naf`, `lrpg` and
+`random` flows of cartpoleplusplus_tpu.train on one device.
 
 Usage:
     python -m cartpoleplusplus_tpu_torch.train                 # ddpg, cuda
     python -m cartpoleplusplus_tpu_torch.train --agent dqn     # dqn, cuda
+    python -m cartpoleplusplus_tpu_torch.train --agent naf --naf.learner kernel
     python -m cartpoleplusplus_tpu_torch.train --agent lrpg    # lrpg, cuda
     python -m cartpoleplusplus_tpu_torch.train --agent random  # baseline
     python -m cartpoleplusplus_tpu_torch.train --device cpu --num-envs 64
@@ -11,16 +12,18 @@ Usage:
 Prints one JSON line of metrics every --log-interval train steps and, with
 --final-eval, one line of greedy-policy episode statistics. On a CUDA
 device each train step's rollout runs a kernel (B2 for DDPG, B4 for DQN,
-B8 for LRPG; a shape the kernel does not cover is an error there) and, at
-`--<agent>.learner auto` (the default), each learning step's update runs
-the agent's fused learner kernel (B3, B5, B9) where it covers the config
-(`learner_impl` in the metrics says which learner ran). `--agent random`
-runs the uniform-random policy for `--total-env-steps` steps per env and
-prints one line of episode statistics; no kernel exists for it, so on the
-GPU it steps the plain env one step at a time. `--device cuda` without a
-visible GPU is an error, never a silent CPU run. The NAF agent,
-checkpoints, the event log, presets and the canary, and the device mesh
-are not ported yet: their flags are rejected.
+B6 for NAF, B8 for LRPG; a shape the kernel does not cover is an error
+there) and, at `--<agent>.learner auto` (the default but for NAF, whose
+default is the plain learner, `xla`, as in the reference), each learning
+step's update runs the agent's fused learner kernel (B3, B5, B7, B9) where
+it covers the config (`learner_impl` in the metrics says which learner
+ran). DDPG and NAF train on the continuous preset of the env. `--agent
+random` runs the uniform-random policy for `--total-env-steps` steps per
+env and prints one line of episode statistics; no kernel exists for it, so
+on the GPU it steps the plain env one step at a time. `--device cuda`
+without a visible GPU is an error, never a silent CPU run. Checkpoints,
+the event log, presets and the canary, and the device mesh are not ported
+yet: their flags are rejected.
 """
 
 from __future__ import annotations
@@ -33,8 +36,8 @@ import time
 
 import torch
 
-from .agents import (DDPG, DQN, LRPG, DDPGConfig, DQNConfig, LRPGConfig,
-                     RandomAgent)
+from .agents import (DDPG, DQN, LRPG, NAF, DDPGConfig, DQNConfig,
+                     LRPGConfig, NAFConfig, RandomAgent)
 from .config import RunConfig, add_dataclass_args, explicit_dests, from_args
 from .env import CartPole3D
 from .physics.params import CartPoleParams, continuous_params
@@ -47,11 +50,14 @@ _NOT_PORTED = (
     "event_log", "event_log_envs", "use_mesh", "learner", "eval_only",
     "eval_render", "profile_dir", "canary_env_steps", "canary_min_eval",
     "canary_max_restarts")
-_NOT_PORTED_AGENTS = ("naf",)
 # agent -> (class, config class, rollout kernel, its coverage check).
 _AGENTS = {"ddpg": (DDPG, DDPGConfig, "B2", "ops.policy_rollout.fusable"),
            "dqn": (DQN, DQNConfig, "B4", "ops.q_rollout.q_fusable"),
+           "naf": (NAF, NAFConfig, "B6", "ops.naf_rollout.naf_fusable"),
            "lrpg": (LRPG, LRPGConfig, "B8", "ops.pg_rollout.pg_fusable")}
+# The agents that train on the continuous preset (the reference's
+# train.py applies it to every continuous-action agent).
+_CONTINUOUS = ("ddpg", "naf")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -73,23 +79,24 @@ def _not_ported(unknown) -> list:
         name = tok[2:].split("=")[0]
         name = name[3:] if name.startswith("no-") else name
         dest = name.replace("-", "_")
-        if dest in _NOT_PORTED or name.split(".")[0] in _NOT_PORTED_AGENTS:
+        if dest in _NOT_PORTED:
             out.append(tok.split("=")[0])
     return out
 
 
 def build(run: RunConfig, args: argparse.Namespace, provided: set):
-    """(env, agent) from parsed configuration. DDPG's env defaults to the
-    continuous preset (continuous actions, pushes, shaped reward), with
-    env fields typed on the command line always winning; DQN, LRPG and
-    the random agent take the discrete env as the flags give it."""
+    """(env, agent) from parsed configuration. DDPG's and NAF's env
+    defaults to the continuous preset (continuous actions, pushes, shaped
+    reward), with env fields typed on the command line always winning;
+    DQN, LRPG and the random agent take the discrete env as the flags give
+    it."""
     params = from_args(CartPoleParams, args, prefix="env.")
     if run.agent == "random":
         env = CartPole3D(params, num_envs=run.num_envs,
                          obs_mode=run.obs_mode, device=run.device)
         return env, RandomAgent(env)
     agent_cls, cfg_cls, kernel, check = _AGENTS[run.agent]
-    if run.agent == "ddpg":
+    if run.agent in _CONTINUOUS:
         preset = continuous_params()
         params = CartPoleParams(**{
             f.name: (getattr(params, f.name) if ("env." + f.name) in provided

@@ -49,7 +49,23 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      for 256 env-steps (8 train steps) plus a 200-step greedy eval; B8 and
      B9 must launch once per train step, B1-B5 never; then, zeroed again,
      `train.main --agent random` for 200 steps, which launches no kernel;
-  15. where a default LRPG train step's time goes, as phase 7.
+  15. where a default LRPG train step's time goes, as phase 7;
+  16. B6 (NAF mu + Gaussian exploration in the env loop) against its twin,
+     4096 envs, hidden (256, 256), 3 steps, seeded random NafNet, at sigma
+     0.2 and 0 (greedy mu), timed at T = 8 beside its twin, B2 re-timed in
+     turns with it;
+  17. B7 (the fused K-update NAF learner kernel) against its twin at the
+     NAF defaults (hidden (256, 256), obs 42, batch 256, K 8, lr schedule
+     on) from warmed Adam moments, with the global-norm clip at 10 (the
+     default), at 0.05 (below every update's norm: the clip fires; the
+     pre-clip norms are printed) and off, two runs bit for bit each;
+  18. NAF main path with the counters zeroed: `train.main --agent naf
+     --naf.learner kernel` for 64 env-steps plus a 200-step greedy eval; B6
+     must launch once per train step and B7 once per learning train step
+     (7), every other kernel never; then, zeroed again, `--agent naf` at
+     its default (plain) learner for 2 train steps: B6 twice, B7 never;
+  19. where a NAF kernel-learner train step's time goes, as phase 7, and
+     a whole NAF train step at its default (plain) learner.
 Then one JSON line of per-kernel numbers (each with its bound: the larger
 of its float32 operations over 67 TFLOP/s and its bytes over 3.35 TB/s,
 counted from this run's shapes) and, last, the device line. The script
@@ -84,6 +100,9 @@ B5_BATCH, B5_K = 256, 8  # DQN's batch_size and updates_per_step
 LRPG_HIDDEN = (64, 64)  # LRPG's hidden, rollout_steps and window rows
 LRPG_T = 32
 B9_N = N_ENVS * LRPG_T
+NAF_SIGMAS = (0.2, 0.0)  # compared exploration scales: default, greedy mu
+B7_BATCH, B7_K = 256, 8  # NAF's batch_size and updates_per_step
+B7_CLIPS = (10.0, 0.05, 0.0)  # the default clip, one that fires, none
 # The H100 SXM's published peaks (NVIDIA's data sheet): float32 outside
 # the tensor cores and HBM3 bandwidth. A kernel's bound is the larger of
 # its operations and its bytes over these.
@@ -434,15 +453,24 @@ def _wrappers() -> dict:
     """Every kernel's wrapper, whose `launches` counts its kernel."""
     from cartpoleplusplus_tpu_torch.ops.fused_rollout import fused_rollout
     from cartpoleplusplus_tpu_torch.ops.learner_kernel import (
-        ddpg_update_phase, dqn_update_phase, lrpg_update_phase)
+        ddpg_update_phase, dqn_update_phase, lrpg_update_phase,
+        naf_update_phase)
+    from cartpoleplusplus_tpu_torch.ops.naf_rollout import naf_policy_rollout
     from cartpoleplusplus_tpu_torch.ops.pg_rollout import pg_policy_rollout
     from cartpoleplusplus_tpu_torch.ops.policy_rollout import policy_rollout
     from cartpoleplusplus_tpu_torch.ops.q_rollout import q_policy_rollout
 
     return {"B1": fused_rollout, "B2": policy_rollout,
             "B3": ddpg_update_phase, "B4": q_policy_rollout,
-            "B5": dqn_update_phase, "B8": pg_policy_rollout,
+            "B5": dqn_update_phase, "B6": naf_policy_rollout,
+            "B7": naf_update_phase, "B8": pg_policy_rollout,
             "B9": lrpg_update_phase}
+
+
+def _only(launches: dict, **want) -> bool:
+    """Whether the kernels in `want` launched that often and every other
+    kernel never."""
+    return all(n == want.get(k, 0) for k, n in launches.items())
 
 
 def _zero_counts():
@@ -476,8 +504,8 @@ def phase_main_path():
     n_train = total_env_steps // rollout
     assert [m["train_step"] for m in steps] == list(range(1, n_train + 1))
     assert launches["B2"] == n_train, f"B2 launched {launches['B2']} times"
-    assert all(launches[k] == 0 for k in ("B1", "B4", "B5", "B8", "B9")), \
-        launches
+    assert all(launches[k] == 0 for k in ("B1", "B4", "B5", "B6", "B7", "B8",
+                                          "B9")), launches
     for m in lines:
         assert all(math.isfinite(v) for v in m.values()), m
     learned = [m for m in steps if m["env_steps"] >= 16]  # past warmup
@@ -518,8 +546,7 @@ def phase_physics_rollout(dev):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = _read_counts()
-    assert launches == {"B1": 1, "B2": 0, "B3": 0, "B4": 0, "B5": 0,
-                        "B8": 0, "B9": 0}, launches
+    assert _only(launches, B1=1), launches
     assert math.isfinite(float(checksum))
     assert int(final.steps.max()) < 200 and int(final.episode.min()) > 0
     print(f"physics-only rollout: {N_ENVS}x{BENCH_STEPS} in {secs:.4f} s "
@@ -834,8 +861,7 @@ def phase_dqn_main_path():
     n_train = total_env_steps // rollout
     assert [m["train_step"] for m in steps] == list(range(1, n_train + 1))
     learned = [m for m in steps if m["env_steps"] >= 16]  # past warmup
-    assert launches == {"B1": 0, "B2": 0, "B3": 0, "B4": n_train,
-                        "B5": len(learned), "B8": 0, "B9": 0} \
+    assert _only(launches, B4=n_train, B5=len(learned)) \
         and len(learned) == n_train - 1, \
         f"launches {launches} for {n_train} steps, {len(learned)} learning"
     for m in lines:
@@ -1093,8 +1119,7 @@ def phase_lrpg_main_path():
     steps, ev = lines[:-1], lines[-1]
     n_train = total_env_steps // LRPG_T
     assert [m["train_step"] for m in steps] == list(range(1, n_train + 1))
-    assert launches == {"B1": 0, "B2": 0, "B3": 0, "B4": 0, "B5": 0,
-                        "B8": n_train, "B9": n_train}, launches
+    assert _only(launches, B8=n_train, B9=n_train), launches
     for m in lines:
         assert all(math.isfinite(v) for v in m.values()), m
     assert all(m["learner_impl"] == 1.0 and m["rollout_impl"] == 1.0
@@ -1185,6 +1210,322 @@ def phase_lrpg_step_split(dev):
     _print_split("lrpg train-step split", parts, lambda: agent.train_step(st))
 
 
+def _random_naf(dev, hidden, seed, mu_scale=None):
+    """NAF's net at its init, with the LayerNorm parameters and the head
+    redrawn from the generator so that mu, V and L move with every stage;
+    the head's scale 0.5 / sqrt(H) keeps its rows near unit size (mu
+    inside the tanh's range, a loss of order 1). A `mu_scale` redraws the
+    mu rows at that scale (0.5, as B2's actor head here, saturates the
+    actions: resets and the clip then occur within a few steps)."""
+    import torch
+
+    from cartpoleplusplus_tpu_torch.models import NafNet
+
+    g = torch.Generator().manual_seed(seed)
+    net = NafNet(42, 2, hidden, generator=g)
+    with torch.no_grad():
+        for norm in net.norms:
+            norm.weight.copy_(1.0 + 0.2 * torch.randn(norm.weight.shape,
+                                                      generator=g))
+            norm.bias.copy_(0.1 * torch.randn(norm.bias.shape, generator=g))
+        for prm in net.head.parameters():
+            prm.copy_(0.5 / hidden[-1] ** 0.5
+                      * torch.randn(prm.shape, generator=g))
+            if mu_scale is not None:
+                prm[1:3] = mu_scale * torch.randn(prm[1:3].shape,
+                                                  generator=g)
+    return net.to(dev)
+
+
+def phase_b6(dev):
+    """B6 against its twin at sigma 0.2 and 0 over B2_STEPS (the
+    trajectory, final state and obs within tests/test_policy_rollout.py's
+    bars, dones, steps and episodes exact); then B6 and its twin timed at
+    NAF's rollout length, and B2 re-timed in turns with B6."""
+    import torch
+
+    from cartpoleplusplus_tpu_torch import CartPole3D, continuous_params
+    from cartpoleplusplus_tpu_torch.ops.naf_rollout import (
+        naf_policy_rollout, pack_naf_mu, reference_naf_rollout)
+    from cartpoleplusplus_tpu_torch.ops.policy_rollout import policy_rollout
+
+    env = CartPole3D(continuous_params(), num_envs=N_ENVS, device=dev)
+    state, obs = env.reset(3)
+    net = _random_naf(dev, (256, 256), seed=31, mu_scale=0.5)
+    errs = []
+    for sigma in NAF_SIGMAS:
+        k = naf_policy_rollout(env, net, state, obs, 40, sigma, B2_STEPS)
+        r = reference_naf_rollout(env, net, state, obs, 40, sigma, B2_STEPS)
+        e = [_close(f"B6 sigma {sigma} traj {n}", a, b, 2e-4, 2e-5)
+             for n, a, b in zip(("obs", "action", "reward"), k[2], r[2])]
+        assert torch.equal(k[2][3], r[2][3]), f"B6 sigma {sigma}: dones"
+        e += [_close(f"B6 sigma {sigma} final {n}", a, b, 2e-4, 2e-5)
+              for n, a, b in zip(("pos", "vel", "s", "sd", "obs"),
+                                 (*k[0].phys, k[1]), (*r[0].phys, r[1]))]
+        assert torch.equal(k[0].steps, r[0].steps), "B6 steps differ"
+        assert torch.equal(k[0].episode, r[0].episode), "B6 episodes differ"
+        clipped = float((r[2][1].abs() == 1.0).float().mean())
+        print(f"B6 sigma {sigma}: max_abs_err obs/action/reward {e[0]:.3g} "
+              f"{e[1]:.3g} {e[2]:.3g}, final state/obs {max(e[3:]):.3g}; "
+              f"dones {int(r[2][3].sum())}, action share at the clip "
+              f"{clipped:.4f}", flush=True)
+        errs += e
+    args = (env, net, state, obs, 40, NAF_SIGMAS[0])
+    actor = _random_actor(dev, (256, 256), seed=11)
+    b2_args = (env, actor, 0.15, state, obs,
+               torch.zeros((N_ENVS, 2), device=dev), 40, 0.2, B2_TIME_STEPS)
+    rounds = {"B6": [], "B2": []}
+    for _ in range(2):  # in turns, so that both see the same card state
+        rounds["B6"].append(_time_ms(
+            lambda: naf_policy_rollout(*args, B2_TIME_STEPS), 10))
+        rounds["B2"].append(_time_ms(lambda: policy_rollout(*b2_args), 10))
+    ms, b2_ms = (statistics.median(rounds[k]) for k in ("B6", "B2"))
+    plain_ms = _time_ms(lambda: reference_naf_rollout(*args, B2_TIME_STEPS),
+                        2)
+    # Two counter normals (7 float ops each), the scale and the add per
+    # component; the clip is a min and a max.
+    bound = _rollout_bound(env, state, obs, pack_naf_mu(net), B2_TIME_STEPS,
+                           2, 2 * 7 + 2 * 2, _mlp_macs((42, 256, 256, 2)))
+    print(f"B6: {N_ENVS}x{B2_TIME_STEPS} hidden (256, 256): kernel {ms:.4f} "
+          f"ms (rounds {' '.join(f'{x:.4f}' for x in rounds['B6'])}; bound "
+          f"{bound['bound_ms']:.4f} ms by {bound['bound_by']}), plain "
+          f"{plain_ms:.2f} ms; B2 re-timed in this call: {b2_ms:.4f} ms "
+          f"(rounds {' '.join(f'{x:.4f}' for x in rounds['B2'])})",
+          flush=True)
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, b2_ms=b2_ms,
+                **bound)
+
+
+def _b7_inputs(dev, hidden, batch, k, seed):
+    """The 4 NAF learner group buffers and K minibatches, from a seed: a
+    NafNet with the LayerNorm parameters and head redrawn, a target near
+    it, warmed Adam moments (m ~ 1e-2, v ~ 1e-4), actions in [-1, 1]."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    net = _random_naf("cpu", hidden, seed)
+    flat = torch.cat([p.detach().reshape(-1) for p in net.parameters()])
+    groups = [flat, flat + 0.01 * torch.randn(flat.shape, generator=g),
+              1e-2 * torch.randn(flat.shape, generator=g),
+              (1e-2 * torch.randn(flat.shape, generator=g)) ** 2 + 1e-5]
+    obs = 0.3 * torch.randn((k, batch, 42), generator=g)
+    batches = (obs, torch.rand((k, batch, 2), generator=g) * 2 - 1,
+               torch.rand((k, batch), generator=g),
+               obs + 0.05 * torch.randn(obs.shape, generator=g),
+               torch.rand((k, batch), generator=g) < 0.1)
+    return ([x.to(dev) for x in groups], tuple(x.to(dev) for x in batches))
+
+
+def _b7_update_flop(hidden, batch) -> int:
+    """Matrix-product FLOPs of one NAF update at two hidden layers (~97
+    MFLOP at the defaults): the target's torso and V row on s', the online
+    torso and 6-row head on s, the head's and layer 1's input gradients,
+    and every weight gradient."""
+    h0, h1 = hidden
+    torso = 42 * h0 + h0 * h1
+    macs = ((torso + h1) + (torso + 6 * h1) + (6 * h1 + h1 * h0)
+            + (torso + 6 * h1))
+    return 2 * batch * macs
+
+
+def phase_b7(dev):
+    """B7 against its twin at the NAF defaults from warmed Adam moments,
+    at each of B7_CLIPS: the 4 groups and the loss within B3's bar, two
+    runs bit for bit; the twin's pre-clip global norm of every update."""
+    import torch
+
+    from cartpoleplusplus_tpu_torch.agents.common import lr_schedule
+    from cartpoleplusplus_tpu_torch.agents.naf import NAFConfig
+    from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
+
+    cfg = NAFConfig()
+    hidden = tuple(cfg.hidden)
+    lay = lk.naf_layout(42, hidden)
+    groups, batches = _b7_inputs(dev, hidden, B7_BATCH, B7_K, seed=33)
+    base = dict(lr=cfg.lr, gamma=cfg.gamma, tau=cfg.tau,
+                lr_schedule=lr_schedule(cfg))
+    errs = {}
+    for clip in B7_CLIPS:
+        kw = dict(base, max_grad_norm=clip)
+        want = lk.naf_update_phase_math(
+            *[lk.group_views(g, lay) for g in groups], batches, B3_T0,
+            hidden, **kw)
+        if 0.0 < clip < 1.0:
+            assert bool((want[5] > clip).all()), \
+                f"B7 clip {clip} does not fire: norms {want[5].tolist()}"
+        runs = []
+        for _ in range(2):
+            got = [g.clone() for g in groups]
+            loss = lk.naf_update_phase(got, batches, B3_T0, hidden, **kw)
+            torch.cuda.synchronize()
+            runs.append(got + [loss])
+        assert all(torch.equal(a, b) for a, b in zip(*runs)), \
+            f"B7 clip {clip}: two runs on the same inputs differ"
+        for name, g, w in zip(("params", "target", "m", "v"), runs[0][:4],
+                              want[:4]):
+            errs[f"clip {clip} {name}"] = max(
+                _close(f"B7 clip {clip} {name} {pname}", v, x, B3_RTOL,
+                       B3_ATOL)
+                for (pname, _), v, x in zip(lay, lk.group_views(g, lay), w))
+        errs[f"clip {clip} loss"] = _close(f"B7 clip {clip} loss",
+                                           runs[0][4], want[4], B3_RTOL,
+                                           B3_ATOL)
+        print(f"B7 clip {clip}: pre-clip global norms per update "
+              f"{' '.join(f'{x:.4g}' for x in want[5].tolist())}; losses "
+              f"{' '.join(f'{x:.4g}' for x in want[4].tolist())}",
+              flush=True)
+    kw = dict(base, max_grad_norm=cfg.max_grad_norm)
+    args = (batches, B3_T0, hidden)
+    ms = _time_ms(lambda: lk.naf_update_phase(groups, *args, **kw), 20)
+    ms_noclip = _time_ms(lambda: lk.naf_update_phase(
+        groups, *args, **dict(kw, max_grad_norm=0.0)), 20)
+    views = [lk.group_views(g, lay) for g in groups]
+    plain_ms = _time_ms(lambda: lk.naf_update_phase_math(*views, *args, **kw),
+                        3)
+    flop = B7_K * _b7_update_flop(hidden, B7_BATCH)
+    bound = _bound(flop, 2 * _nbytes(*groups) + _nbytes(*batches) + 4 * B7_K)
+    listed = " ".join(f"{k} {v:.3g}" for k, v in errs.items())
+    print(f"B7: max_abs_err {listed} (rtol {B3_RTOL}, atol {B3_ATOL}); two "
+          f"runs bitwise equal at each clip; batch {B7_BATCH} x K {B7_K}, "
+          f"hidden {hidden}: kernel {ms:.4f} ms at clip "
+          f"{cfg.max_grad_norm} ({flop / ms / 1e9:.4g} TFLOP/s of learner "
+          f"matmul; bound {bound['bound_ms']:.4f} ms by "
+          f"{bound['bound_by']}), {ms_noclip:.4f} ms without the clip "
+          f"(2 stages fewer per update), plain {plain_ms:.2f} ms",
+          flush=True)
+    return dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
+                ms_noclip=ms_noclip, **bound)
+
+
+def phase_naf_main_path():
+    """`train --agent naf --naf.learner kernel` at the other defaults:
+    every rollout must go through B6 and every learning step's update
+    phase through B7; then `--agent naf` at its default learner, whose
+    rollouts still go through B6 while the plain learner updates."""
+    from cartpoleplusplus_tpu_torch import train
+
+    total_env_steps, rollout = 64, 8
+    out = io.StringIO()
+    _zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = train.main(["--agent", "naf", "--naf.learner", "kernel",
+                         "--total-env-steps", str(total_env_steps),
+                         "--log-interval", "1", "--final-eval",
+                         "--eval-steps", "200", "--seed", "0"])
+    train_s = time.perf_counter() - t0
+    launches = _read_counts()
+    assert rc == 0, f"train.main returned {rc}"
+    lines = [json.loads(x) for x in out.getvalue().splitlines()]
+    steps, ev = lines[:-1], lines[-1]
+    n_train = total_env_steps // rollout
+    assert [m["train_step"] for m in steps] == list(range(1, n_train + 1))
+    learned = [m for m in steps if m["env_steps"] >= 16]  # past warmup
+    assert _only(launches, B6=n_train, B7=len(learned)) \
+        and len(learned) == n_train - 1, \
+        f"launches {launches} for {n_train} steps, {len(learned)} learning"
+    for m in lines:
+        assert all(math.isfinite(v) for v in m.values()), m
+    assert all(m["learner_impl"] == 1.0 and m["rollout_impl"] == 1.0
+               for m in steps)
+    assert all(m["loss"] > 0.0 for m in learned)
+    assert 0 < ev["eval_mean_episode_length"] <= 200
+    assert ev["eval_episodes"] > 0
+    for m in steps:
+        print(f"naf train step {m['train_step']}: loss {m['loss']:.6g} "
+              f"reward_mean {m['reward_mean']:.6g} done_frac "
+              f"{m['done_frac']:.6g} env_steps_per_sec "
+              f"{m['env_steps_per_sec']}", flush=True)
+    sec_per_step = N_ENVS * rollout / steps[-1]["env_steps_per_sec"]
+    print(f"naf main path: {n_train} train steps ({sec_per_step:.4f} s per "
+          f"train step over the run, train.main total {train_s:.2f} s incl. "
+          f"init and eval); eval {json.dumps(ev)}; launches {launches}",
+          flush=True)
+
+    out = io.StringIO()
+    _zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = train.main(["--agent", "naf", "--total-env-steps", "16",
+                         "--log-interval", "1", "--seed", "0"])
+    default_s = time.perf_counter() - t0
+    default_launches = _read_counts()
+    assert rc == 0, f"train.main --agent naf returned {rc}"
+    steps = [json.loads(x) for x in out.getvalue().splitlines()]
+    assert [m["train_step"] for m in steps] == [1, 2]
+    assert _only(default_launches, B6=2), default_launches
+    assert all(m["learner_impl"] == 0.0 and m["rollout_impl"] == 1.0
+               and all(math.isfinite(v) for v in m.values()) for m in steps)
+    assert steps[1]["loss"] > 0.0  # 16 env-steps: the plain learner ran
+    print(f"naf at its default learner: 2 train steps in {default_s:.2f} s "
+          f"(host clock, incl. init); last step loss {steps[1]['loss']:.6g}, "
+          f"env_steps_per_sec {steps[1]['env_steps_per_sec']}; launches "
+          f"{default_launches}", flush=True)
+    return launches
+
+
+def phase_naf_step_split(dev):
+    """Where a NAF kernel-learner train step goes, as phase 7: the B7
+    phase beside the plain learner's 8 updates, and a whole train step at
+    NAF's default (plain) learner."""
+    from cartpoleplusplus_tpu_torch import train
+    from cartpoleplusplus_tpu_torch.agents.common import lr_schedule
+    from cartpoleplusplus_tpu_torch.config import RunConfig, from_args
+    from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
+    from cartpoleplusplus_tpu_torch.ops.naf_rollout import naf_policy_rollout
+
+    ap = train.build_parser()
+    args = ap.parse_args(["--agent", "naf", "--naf.learner", "kernel"])
+    _, agent = train.build(from_args(RunConfig, args), args,
+                           {"agent", "naf.learner"})
+    c = agent.cfg
+    assert agent.kernel_mode, "--naf.learner kernel did not resolve to B7"
+    st = agent.init(0)
+    for _ in range(3):  # 24 env-steps: past the 16-step warmup
+        st, _ = agent.train_step(st)
+    sigma = agent._sigma(st.env_steps)
+    traj = naf_policy_rollout(agent.env, st.net, st.env_state, st.obs,
+                              st.env_steps, sigma, c.rollout_steps)[2]
+    batches = tuple(x.contiguous() for x in agent.replay.presample_columns(
+        st.replay, c.batch_size, c.updates_per_step, generator=st.generator))
+
+    def plain_updates():
+        s = st
+        for k in range(c.updates_per_step):
+            s, _ = agent._update_once(s, tuple(x[k] for x in batches))
+
+    def b7_phase():
+        lk.naf_update_phase(st.groups, batches, st.opt.count, c.hidden,
+                            lr=c.lr, gamma=c.gamma, tau=c.tau,
+                            max_grad_norm=c.max_grad_norm,
+                            lr_schedule=lr_schedule(c))
+
+    args = ap.parse_args(["--agent", "naf"])
+    _, plain = train.build(from_args(RunConfig, args), args, {"agent"})
+    assert not plain.kernel_mode, "the NAF default learner is not plain"
+    st_plain = plain.init(0)
+    for _ in range(3):
+        st_plain, _ = plain.train_step(st_plain)
+
+    parts = {
+        "whole train step": (lambda: agent.train_step(st), 5),
+        "B6 rollout": (lambda: naf_policy_rollout(
+            agent.env, st.net, st.env_state, st.obs, st.env_steps, sigma,
+            c.rollout_steps), 20),
+        "replay insert": (lambda: agent.replay.add_trajectory(st.replay,
+                                                              *traj), 20),
+        "column presample": (lambda: agent.replay.presample_columns(
+            st.replay, c.batch_size, c.updates_per_step,
+            generator=st.generator), 20),
+        f"B7 learner phase (K = {c.updates_per_step})": (b7_phase, 20),
+        f"plain learner, {c.updates_per_step} updates (not in the step)": (
+            plain_updates, 3),
+        "whole train step at the default plain learner (not in the step)": (
+            lambda: plain.train_step(st_plain), 3),
+    }
+    _print_split("naf train-step split", parts, lambda: agent.train_step(st))
+
+
 def main() -> int:
     import torch
 
@@ -1229,6 +1570,10 @@ def main() -> int:
     b9 = phase_b9(dev)
     lrpg_launches = phase_lrpg_main_path()
     phase_lrpg_step_split(dev)
+    b6 = phase_b6(dev)
+    b7 = phase_b7(dev)
+    naf_launches = phase_naf_main_path()
+    phase_naf_step_split(dev)
 
     b1_main = b1["discrete"]  # the benchmark's default params
     kernels = [
@@ -1268,6 +1613,20 @@ def main() -> int:
              launched_by="train.main --agent dqn (DQN defaults)",
              max_abs_err=b5["max_abs_err"],
              ms=b5["ms"], plain_ms=b5["plain_ms"], **_bound_keys(b5)),
+        dict(name="B6 naf_policy_rollout", route="cuda",
+             source="cartpoleplusplus_tpu_torch/csrc/policy_rollout.cu",
+             replaces="cartpoleplusplus_tpu/ops/policy_rollout.py:486",
+             launches=naf_launches["B6"],
+             launched_by="train.main --agent naf --naf.learner kernel",
+             max_abs_err=b6["max_abs_err"],
+             ms=b6["ms"], plain_ms=b6["plain_ms"], **_bound_keys(b6)),
+        dict(name="B7 naf_update_phase", route="cuda",
+             source="cartpoleplusplus_tpu_torch/csrc/naf_update.cu",
+             replaces="cartpoleplusplus_tpu/ops/learner_kernel.py:1144",
+             launches=naf_launches["B7"],
+             launched_by="train.main --agent naf --naf.learner kernel",
+             max_abs_err=b7["max_abs_err"],
+             ms=b7["ms"], plain_ms=b7["plain_ms"], **_bound_keys(b7)),
         dict(name="B8 pg_policy_rollout", route="cuda",
              source="cartpoleplusplus_tpu_torch/csrc/q_rollout.cu",
              replaces="cartpoleplusplus_tpu/ops/policy_rollout.py:486",

@@ -1,5 +1,4 @@
-"""Kernels B1 to B5, B8 and B9 against their plain torch twins on a CUDA
-GPU.
+"""Kernels B1 to B9 against their plain torch twins on a CUDA GPU.
 
 These need the card and skip elsewhere. The GPU machine has no JAX, so run
 them there without tests/conftest.py (which imports it):
@@ -20,11 +19,12 @@ import torch
 
 from cartpoleplusplus_tpu_torch import CartPole3D, CartPoleParams
 from cartpoleplusplus_tpu_torch import train
-from cartpoleplusplus_tpu_torch.models import (ActorMLP, CriticMLP, PolicyMLP,
-                                               QNetMLP)
+from cartpoleplusplus_tpu_torch.models import (ActorMLP, CriticMLP, NafNet,
+                                               PolicyMLP, QNetMLP)
 from cartpoleplusplus_tpu_torch.ops import _native
 from cartpoleplusplus_tpu_torch.ops import fused_rollout as fr
 from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
+from cartpoleplusplus_tpu_torch.ops import naf_rollout as nr
 from cartpoleplusplus_tpu_torch.ops import pg_rollout as pg
 from cartpoleplusplus_tpu_torch.ops import policy_rollout as pr
 from cartpoleplusplus_tpu_torch.ops import q_rollout as qr
@@ -434,3 +434,160 @@ def test_lrpg_cli_launches_b8_and_b9_per_train_step(cuda):
     assert lk.lrpg_update_phase.launches == b9 + 3
     assert all(m["rollout_impl"] == 1.0 and m["learner_impl"] == 1.0
                for m in steps)
+
+
+def _random_naf(dev, hidden, seed, mu_scale=None):
+    """A NafNet with its LayerNorm parameters and head redrawn, so that mu
+    (and the V and L rows) move with every stage; the head's scale 0.5 /
+    sqrt(H) keeps its rows near unit size. A `mu_scale` redraws the mu
+    rows at that scale (0.5 saturates the actions: resets and the clip
+    occur within a few steps)."""
+    g = torch.Generator().manual_seed(seed)
+    net = NafNet(42, 2, hidden, generator=g)
+    with torch.no_grad():
+        for norm in net.norms:
+            norm.weight.copy_(1.0 + 0.2 * torch.randn(norm.weight.shape,
+                                                      generator=g))
+            norm.bias.copy_(0.1 * torch.randn(norm.bias.shape, generator=g))
+        for prm in net.head.parameters():
+            prm.copy_(0.5 / hidden[-1] ** 0.5
+                      * torch.randn(prm.shape, generator=g))
+            if mu_scale is not None:
+                prm[1:3] = mu_scale * torch.randn(prm[1:3].shape,
+                                                  generator=g)
+    return net.to(dev)
+
+
+@pytest.mark.parametrize("sigma", [0.2, 0.0], ids=["sigma0.2", "greedy"])
+@pytest.mark.parametrize("hidden", [(256, 256), (64,), (32, 48, 16)])
+def test_b6_matches_twin(cuda, hidden, sigma):
+    """tests/test_policy_rollout.py's tolerances (rtol 2e-4, atol 2e-5)
+    on the trajectory, final state and obs; dones, steps and episodes
+    exact (some envs reset in the window); one counted launch."""
+    env = CartPole3D(continuous_params(), num_envs=B, device=cuda)
+    state, obs = env.reset(9)
+    net = _random_naf(cuda, hidden, seed=1, mu_scale=0.5)
+    before = nr.naf_policy_rollout.launches
+    k = nr.naf_policy_rollout(env, net, state, obs, 7, sigma, 3)
+    torch.cuda.synchronize()
+    assert nr.naf_policy_rollout.launches == before + 1
+    r = nr.reference_naf_rollout(env, net, state, obs, 7, sigma, 3)
+    assert r[2][3].any()
+    for a, b in zip(k[2][:3], r[2][:3]):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5)
+    assert torch.equal(k[2][3], r[2][3])
+    for a, b in zip((*k[0].phys, k[1]), (*r[0].phys, r[1])):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5)
+    assert torch.equal(k[0].steps, r[0].steps)
+    assert torch.equal(k[0].episode, r[0].episode)
+
+
+def test_b6_rejects_uncovered_shapes(cuda):
+    env = CartPole3D(continuous_params(), num_envs=64, device=cuda)
+    state, obs = env.reset(0)
+    with pytest.raises(ValueError, match="not covered by the B6"):
+        nr.naf_policy_rollout(env, NafNet(42, 2, (8,) * 5).to(cuda), state,
+                              obs, 0, 0.2, 2)
+    disc = CartPole3D(CartPoleParams(), num_envs=64, device=cuda)
+    with pytest.raises(ValueError, match="not covered by the B6"):
+        nr.naf_policy_rollout(disc, NafNet(42, 2, (32,)).to(cuda),
+                              *disc.reset(0), 0, 0.2, 2)
+
+
+def _b7_inputs(dev, hidden, batch, k, seed):
+    """The 4 group buffers (a NafNet with redrawn LayerNorm parameters and
+    head, a target near it, warmed Adam moments) and K minibatches with
+    float32 actions in [-1, 1]."""
+    g = torch.Generator().manual_seed(seed)
+    net = _random_naf("cpu", hidden, seed)
+    flat = torch.cat([p.detach().reshape(-1) for p in net.parameters()])
+    groups = [flat, flat + 0.01 * torch.randn(flat.shape, generator=g),
+              1e-2 * torch.randn(flat.shape, generator=g),
+              (1e-2 * torch.randn(flat.shape, generator=g)) ** 2 + 1e-5]
+    obs = 0.3 * torch.randn((k, batch, 42), generator=g)
+    batches = (obs, torch.rand((k, batch, 2), generator=g) * 2 - 1,
+               torch.rand((k, batch), generator=g),
+               obs + 0.05 * torch.randn(obs.shape, generator=g),
+               torch.rand((k, batch), generator=g) < 0.1)
+    return [x.to(dev) for x in groups], tuple(x.to(dev) for x in batches)
+
+
+@pytest.mark.parametrize("hidden,clip,sched", [
+    ((256, 256), 10.0, (0.1, 50)), ((256, 256), 0.0, None),
+    ((256, 256), 0.05, (0.1, 50)), ((64, 48, 32), 0.05, None),
+    ((48,), 10.0, (0.1, 50))])
+def test_b7_matches_twin(cuda, hidden, clip, sched):
+    """4 updates from warmed moments on a ragged batch of 200, with the
+    clip off, on and firing (a max norm of 0.05 is below every update's
+    gradient norm): every group and the loss vector within the reference's
+    kernel-vs-XLA bar (rtol 2e-4, atol 1e-5), one counted launch, and the
+    same bits from a second run."""
+    groups, batches = _b7_inputs(cuda, hidden, 200, 4, seed=2)
+    kw = dict(lr=1e-3, gamma=0.99, tau=0.05, max_grad_norm=clip,
+              lr_schedule=sched)
+    lay = lk.naf_layout(42, hidden)
+    want = lk.naf_update_phase_math(
+        *[lk.group_views(g, lay) for g in groups], batches, 30, hidden, **kw)
+    if clip == 0.05:
+        assert bool((want[5] > clip).all()), want[5]
+    runs = []
+    for _ in range(2):
+        got = [g.clone() for g in groups]
+        before = lk.naf_update_phase.launches
+        loss = lk.naf_update_phase(got, batches, 30, hidden, **kw)
+        torch.cuda.synchronize()
+        assert lk.naf_update_phase.launches == before + 1
+        runs.append((got, loss))
+    (got, loss), (got2, loss2) = runs
+    for g, w in zip(got, want[:4]):
+        for v, x in zip(lk.group_views(g, lay), w):
+            torch.testing.assert_close(v, x, rtol=2e-4, atol=1e-5)
+    torch.testing.assert_close(loss, want[4], rtol=2e-4, atol=1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(got + [loss],
+                                                 got2 + [loss2]))
+
+
+def test_b7_covers_matches_the_kernel(cuda):
+    """The kernel takes exactly the shapes `naf_covers` admits (a nonzero
+    workspace)."""
+    lib = _native.load_library()
+    for hidden in ((256, 256), (64,), (8,) * 4, (8,) * 5, (1024, 1024),
+                   (1025,), (32, 1025)):
+        n = min(len(hidden), 4)  # NafDims holds 4 layers; num_layers says 5
+        dims = _native.NafDims(
+            num_layers=len(hidden), obs_dim=42, batch=256, k_updates=8,
+            max_norm=10.0, q=lk._layout_offsets(lk.naf_layout(42, hidden), n))
+        for i, h in enumerate(hidden[:n]):
+            dims.hidden[i] = h
+        size = lib.cp_naf_workspace_floats(_native.struct_ptr(dims))
+        assert (size > 0) == lk.naf_covers(42, hidden), hidden
+
+
+def test_b7_rejects_uncovered_shapes(cuda):
+    groups, batches = _b7_inputs(cuda, (32, 32), 16, 1, seed=0)
+    kw = dict(lr=1e-3, gamma=0.99, tau=0.01, max_grad_norm=10.0)
+    with pytest.raises(ValueError, match="not covered"):
+        lk.naf_update_phase(groups, batches, 0, (8,) * 5, **kw)
+    with pytest.raises(ValueError, match="action"):
+        lk.naf_update_phase(groups, (batches[0], batches[1][..., :1])
+                            + batches[2:], 0, (32, 32), **kw)
+
+
+def test_naf_cli_launches_b6_and_b7_per_train_step(cuda):
+    """`train --agent naf --naf.learner kernel` on the card: each train
+    step launches B6 once, and each one past the 16-step warmup B7 once;
+    at the default learner B7 never launches."""
+    for learner, n_b7, impl in (("kernel", 3, 1.0), ("xla", 0, 0.0)):
+        b6, b7 = nr.naf_policy_rollout.launches, lk.naf_update_phase.launches
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = train.main(["--agent", "naf", "--num-envs", "1000",
+                             "--total-env-steps", "32", "--log-interval", "1",
+                             "--naf.learner", learner])
+        assert rc == 0
+        steps = [json.loads(x) for x in out.getvalue().splitlines()]
+        assert [m["train_step"] for m in steps] == [1, 2, 3, 4]
+        assert nr.naf_policy_rollout.launches == b6 + 4
+        assert lk.naf_update_phase.launches == b7 + n_b7
+        assert all(m["rollout_impl"] == 1.0 and m["learner_impl"] == impl
+                   for m in steps)

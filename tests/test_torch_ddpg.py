@@ -183,8 +183,9 @@ def test_train_cli_cuda_rejects_shapes_b2_does_not_cover(monkeypatch, argv):
 
 
 @pytest.mark.parametrize("argv", [["--ckpt-dir", "x"], ["--preset", "fast"],
-                                  ["--agent", "naf"],
-                                  ["--naf.lr", "0.1"],
+                                  ["--agent", "naf", "--naf.dtype",
+                                   "bfloat16"],
+                                  ["--agent", "naf", "--naf.sample", "block"],
                                   ["--obs-mode", "pixels"]])
 def test_train_cli_rejects_unported(argv):
     with contextlib.redirect_stderr(io.StringIO()):

@@ -327,15 +327,17 @@ def test_train_cli_cuda_rejects_shapes_b4_does_not_cover(monkeypatch, argv):
     assert "kernel B4 does not cover" in err.getvalue()
 
 
-@pytest.mark.parametrize("argv", [["--agent", "naf"], ["--naf.lr", "0.1"],
+@pytest.mark.parametrize("argv", [["--agent", "naf",
+                                   "--naf.learner-precision", "highest"],
+                                  ["--agent", "naf", "--obs-mode", "pixels"],
                                   ["--agent", "lrpg", "--lrpg.dtype",
                                    "bfloat16"],
                                   ["--agent", "dqn", "--dqn.sample", "block"],
                                   ["--agent", "dqn", "--dqn.dtype",
                                    "bfloat16"]])
 def test_train_cli_rejects_unported_dqn_neighbours(argv):
-    """The agent still unported (NAF), and DQN and LRPG settings the port
-    lacks."""
+    """DQN, NAF and LRPG settings the port lacks (pixel NAF waits for the
+    pixels slice)."""
     with contextlib.redirect_stderr(io.StringIO()):
         assert ttrain.main(["--device", "cpu", "--num-envs", "8",
                             *argv]) == 2
@@ -349,8 +351,8 @@ def test_dqn_rejects_the_continuous_env():
 
 
 def test_port_imports_no_jax():
-    """The DQN and LRPG slices, the random agent and chip_smoke.py import
-    neither JAX nor the JAX package: the GPU machine has no JAX."""
+    """The DQN, LRPG and NAF slices, the random agent and chip_smoke.py
+    import neither JAX nor the JAX package: the GPU machine has no JAX."""
     import os
     import subprocess
     import sys
@@ -362,6 +364,8 @@ def test_port_imports_no_jax():
             "cartpoleplusplus_tpu_torch.agents.lrpg, "
             "cartpoleplusplus_tpu_torch.agents.random_agent, "
             "cartpoleplusplus_tpu_torch.ops.pg_rollout, "
+            "cartpoleplusplus_tpu_torch.agents.naf, "
+            "cartpoleplusplus_tpu_torch.ops.naf_rollout, "
             "cartpoleplusplus_tpu_torch.ops.learner_kernel, "
             "cartpoleplusplus_tpu_torch.models.from_jax; "
             "print(sorted(m for m in sys.modules if m == 'jax' or "
