@@ -18,6 +18,7 @@ from ..ops.naf_rollout import TAG_NAF_X, TAG_NAF_Y
 from ..ops.pg_rollout import TAG_PG_GUMBEL
 from ..ops.policy_rollout import TAG_OU_X, TAG_OU_Y
 from ..ops.q_rollout import TAG_EPS_ACT, TAG_EPS_GATE
+from ..utils.prng import split_seed
 
 # Counter-PRNG stream tags for agent exploration (utils/prng.py; env-side
 # tags live in env/compute.py). The DDPG OU tags, the DQN epsilon tags, the
@@ -25,6 +26,7 @@ from ..ops.q_rollout import TAG_EPS_ACT, TAG_EPS_GATE
 # that draw them (B2, B4, B6, B8).
 __all__ = ["TAG_OU_X", "TAG_OU_Y", "TAG_EPS_GATE", "TAG_EPS_ACT",
            "TAG_NAF_X", "TAG_NAF_Y", "TAG_PG_GUMBEL", "resolve_learner",
+           "resolve_rollout",
            "lr_schedule", "scheduled_lr", "AdamState", "adam_init",
            "adam_update", "bind_group", "bind_moments", "gated_update_scan",
            "replay_presample", "episode_length_hist",
@@ -55,6 +57,21 @@ def resolve_learner(learner: str, covered: bool, on_cuda: bool,
         print(f"{agent}: learner=auto resolved to the plain torch update "
               f"loop (config shape outside kernel {kernel} - see "
               f"kernel_learner_ok)", file=sys.stderr)
+    return on_cuda and covered
+
+
+def resolve_rollout(agent: str, kernel: str, covered: bool, on_cuda: bool,
+                    check: str) -> bool:
+    """Whether `agent`'s rollout runs its kernel: on a CUDA device where
+    the kernel covers the config (`check` names the coverage predicate).
+    Outside that coverage the plain torch rollout runs on the card, as the
+    reference runs its XLA scan outside its kernel's window, and says so
+    once on stderr. Metrics carry the same fact as `rollout_impl`; CPU
+    tensors always run the plain rollout."""
+    if on_cuda and not covered:
+        print(f"{agent}: kernel {kernel} does not cover this env/network "
+              f"shape ({check}); the plain torch rollout runs on the GPU",
+              file=sys.stderr)
     return on_cuda and covered
 
 
@@ -154,10 +171,13 @@ def gated_update_scan(st, upd_body, num_updates: int, ready: bool,
 
 def replay_presample(replay, batch_size: int, indices=None,
                      sample: str = "column"):
-    """The `presample` hook of gated_update_scan for column or uniform
-    sampling: draws from the state's generator, or takes the given
-    indices ((slots, offs) for column, (env_idx, slot) for uniform)."""
+    """The `presample` hook of gated_update_scan for column, block or
+    uniform sampling: draws from the state's generator, or takes the given
+    indices ((slots, offs) for column and block, (env_idx, slot) for
+    uniform). A quantized (pixel) ring presamples in its storage dtype:
+    the minibatch frames stay uint8 and the pixel encoders scale them."""
     draw = {"column": replay.presample_columns,
+            "block": replay.presample_block,
             "uniform": replay.presample_uniform}[sample]
 
     def presample(st, num_updates):
@@ -207,11 +227,10 @@ def evaluate_policy(env, policy_fn, seed: int, num_steps: int,
     over completed episodes, plus mean reward and done fraction.
     policy_fn(obs) -> action is deterministic; with a `generator` (the
     reference's `needs_key`, for stochastic baselines) it is called as
-    policy_fn(obs, generator) and draws from it.
-
-    The reference derives its reset seed from a split JAX key; here the
-    integer seed resets the envs directly."""
-    state, obs = env.reset(seed)
+    policy_fn(obs, generator) and draws from it. The envs reset with the
+    seed the reference folds from split(PRNGKey(seed))[0], so both
+    evaluate the same episodes."""
+    state, obs = env.reset(split_seed(seed, 2, 0))
     rew_total = torch.zeros((), dtype=torch.float32, device=env.device)
     dones = []
     for _ in range(num_steps):

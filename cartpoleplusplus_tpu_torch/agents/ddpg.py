@@ -1,10 +1,17 @@
 """DDPG actor-learner (cartpoleplusplus_tpu/agents/ddpg.py in torch).
 
 One `train_step` runs `rollout_steps` env-steps with the actor and OU
-exploration in the loop (kernel B2 on a CUDA device, which raises for a
-shape it does not cover; its plain twin on the CPU), inserts the chunk
-into the device replay, and then runs `updates_per_step` critic + actor +
-Polyak updates on presampled column minibatches.
+exploration in the loop (kernel B2 on a CUDA device where it covers the
+config, else the plain rollout; its plain twin on the CPU), inserts the
+chunk into the device replay, and then runs `updates_per_step` critic +
+actor + Polyak updates on presampled column or block minibatches.
+
+Pixel observations (`env.obs_mode == "pixels"`) put a conv (or patch)
+encoder in front of both nets (VisualActor, VisualCritic), keep the ring
+quantized to uint8, and insert each rollout AFTER the update phase, as the
+reference does: its first learning step samples the pre-insert ring. No
+rollout kernel covers pixels (the env's render runs kernel B10), and the
+learner is the plain one.
 
 The updates run in one of two learners, resolved once at construction
 (`learner`): kernel B3 (ops/learner_kernel.py, the whole K-update phase as
@@ -18,21 +25,21 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-import sys
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..env import CartPole3D, EnvState
-from ..models import ActorMLP, CriticMLP, polyak
+from ..models import ActorMLP, CriticMLP, VisualActor, VisualCritic, polyak
 from ..ops import learner_kernel as lk
 from ..ops.policy_rollout import (fusable, policy_rollout,
                                   reference_policy_rollout)
+from ..utils.prng import split_seed
 from .common import (AdamState, adam_init, adam_update, bind_group,
                      bind_moments, evaluate_policy, gated_update_scan,
                      lr_schedule, replay_presample, resolve_learner,
-                     scheduled_lr)
+                     resolve_rollout, scheduled_lr)
 from .replay import ReplayBuffer, ReplayState
 
 
@@ -68,31 +75,32 @@ class DDPGConfig:
     learner_precision: str | None = None
     lr_decay_env_steps: int = 0
     lr_end_frac: float = 0.1
-    encoder: str = "conv"            # pixel obs only; not ported yet
-    conv_features: tuple = (16, 32, 32)
+    encoder: str = "conv"            # pixel obs only: "conv" | "patch"
+    conv_features: tuple = (16, 32, 32)  # the conv encoder's widths
 
 
 # Fields whose other values select behaviour the port does not have yet.
 _SUPPORTED = {
     "dtype": ("float32",),
-    "sample": ("column",),
+    "sample": ("column", "block"),
     "actor_grad_critic": ("updated", "pre"),
     "polyak_cadence": ("per_update", "per_step"),
     "learner": ("auto", "kernel", "xla"),
     "learner_precision": (None,),
+    "encoder": ("conv", "patch"),
 }
 
 
 class DDPGState(NamedTuple):
-    actor: ActorMLP
-    critic: CriticMLP
+    actor: ActorMLP            # VisualActor on pixel obs
+    critic: CriticMLP          # VisualCritic on pixel obs
     actor_target: ActorMLP
     critic_target: CriticMLP
     actor_opt: AdamState
     critic_opt: AdamState
     replay: ReplayState
     env_state: EnvState
-    obs: torch.Tensor          # (B, obs_dim) current observation
+    obs: torch.Tensor          # (B, *obs_shape) current observation
     noise: torch.Tensor        # (B, act_dim) OU noise state
     generator: torch.Generator  # replay sampling (CPU)
     env_steps: int             # env-steps taken (per env)
@@ -115,17 +123,28 @@ class DDPG:
                 raise ValueError(f"DDPGConfig.{name}="
                                  f"{getattr(config, name)!r} is not ported "
                                  f"yet (supported: {ok})")
+        if config.sample == "block" and (config.batch_size > env.num_envs
+                                         or env.num_envs % config.batch_size):
+            raise ValueError(
+                f"sample='block' needs the batch ({config.batch_size}) to "
+                f"divide num_envs ({env.num_envs}) - lower "
+                f"--ddpg.batch-size or use sample='column'")
         self.env = env
         self.cfg = config
-        self._told_plain_rollout = False
+        pixels = env.obs_mode == "pixels"
         self.replay = ReplayBuffer(env.num_envs,
                                    config.replay_capacity_per_env,
-                                   env.obs_size, env.action_dim, env.device)
+                                   env.obs_size, env.action_dim, env.device,
+                                   obs_shape=env.obs_shape,
+                                   quantize_obs=pixels)
+        on_cuda = env.device.type == "cuda"
         # Resolved once: the kernel learner keeps its state in the 8 group
         # buffers (state_from_tree), so the choice shapes init().
         self.kernel_mode = resolve_learner(
-            config.learner, self.kernel_learner_ok(),
-            env.device.type == "cuda")
+            config.learner, self.kernel_learner_ok(), on_cuda)
+        self.kernel_rollout = resolve_rollout(
+            "ddpg", "B2", self.fusable(), on_cuda,
+            "ops.policy_rollout.fusable")
 
     def kernel_learner_ok(self) -> bool:
         """Whether kernel B3 covers this config: state observations, 2 to 4
@@ -143,14 +162,21 @@ class DDPG:
     # --- init ---------------------------------------------------------------
     def init(self, seed: int) -> DDPGState:
         """Fresh state: networks from a torch.Generator seeded with `seed`,
-        envs reset with `seed`, empty replay."""
+        envs reset as the reference's `init` resets them (its key
+        split(PRNGKey(seed), 4)[2]), empty replay."""
         env, c, dev = self.env, self.cfg, self.env.device
         g = torch.Generator().manual_seed(seed)
         h = tuple(c.hidden)
-        actor = ActorMLP(env.obs_size, env.action_dim, h, generator=g).to(dev)
-        critic = CriticMLP(env.obs_size, env.action_dim, h,
-                           generator=g).to(dev)
-        env_state, obs = env.reset(seed)
+        if env.obs_mode == "pixels":
+            vis = dict(features=tuple(c.conv_features), encoder=c.encoder,
+                       generator=g)
+            actor = VisualActor(env.obs_shape, env.action_dim, h, **vis)
+            critic = VisualCritic(env.obs_shape, env.action_dim, h, **vis)
+        else:
+            actor = ActorMLP(env.obs_size, env.action_dim, h, generator=g)
+            critic = CriticMLP(env.obs_size, env.action_dim, h, generator=g)
+        actor, critic = actor.to(dev), critic.to(dev)
+        env_state, obs = env.reset(split_seed(seed, 4, 2))
         st = DDPGState(
             actor=actor,
             critic=critic,
@@ -260,7 +286,7 @@ class DDPG:
         obs, action, reward, next_obs, done = batches
         kk, bs = reward.shape
         with torch.no_grad():
-            nobs = next_obs.reshape(kk * bs, -1)
+            nobs = next_obs.reshape((kk * bs,) + next_obs.shape[2:])
             q_next = st.critic_target(nobs, st.actor_target(nobs))
             y = (reward.reshape(-1) + c.gamma
                  * (1.0 - done.reshape(-1).to(torch.float32))
@@ -300,34 +326,38 @@ class DDPG:
         gradient updates. Networks and the replay ring are updated in
         place; the returned state carries the new counters and tensors.
 
-        fused: None or True runs the rollout through B2's wrapper, which
-        launches the kernel for CUDA tensors (and raises for a shape the
-        kernel does not cover) and runs the plain twin for CPU tensors.
-        False runs the plain twin on any device; on a GPU it says so once
-        on stderr. `rollout_impl` reports which ran. The updates run in the
-        learner resolved at construction; `learner_impl` reports which
+        fused: None runs the rollout resolved at construction (B2 on a
+        CUDA device where it covers the config, else the plain rollout);
+        True runs it through B2's wrapper, which launches the kernel for
+        CUDA tensors (and raises for a shape the kernel does not cover) and
+        runs the plain twin for CPU tensors; False runs the plain rollout
+        on any device. `rollout_impl` reports which ran. The updates run in
+        the learner resolved at construction; `learner_impl` reports which
         (1.0 B3's wrapper, 0.0 the plain learner). indices: optional
-        (slots, offs) for the presample, in place of the state's
-        generator."""
+        presample draws ((slots, offs) for column and block sampling) in
+        place of the state's generator.
+
+        A quantized (pixel) ring takes the rollout after the update phase,
+        as the reference's late insert does."""
         c = self.cfg
         sigma = self._sigma(st.env_steps)
-        on_gpu = self.env.device.type == "cuda"
-        if fused is False and on_gpu and not self._told_plain_rollout:
-            print("ddpg: fused=False runs the plain torch rollout on the "
-                  "GPU, not kernel B2", file=sys.stderr)
-            self._told_plain_rollout = True
-        run = reference_policy_rollout if fused is False else policy_rollout
+        kernel = self.kernel_rollout if fused is None else fused
+        run = policy_rollout if kernel else reference_policy_rollout
         env_state, obs, noise, traj = run(
             self.env, st.actor, c.ou_theta, st.env_state, st.obs, st.noise,
             st.env_steps, sigma, c.rollout_steps)
-        replay = self.replay.add_trajectory(st.replay, *traj)
+        late_insert = self.replay.quantize_obs
+        if not late_insert:
+            st = st._replace(replay=self.replay.add_trajectory(st.replay,
+                                                               *traj))
         env_steps = st.env_steps + c.rollout_steps
         st = st._replace(env_state=env_state, obs=obs, noise=noise,
-                         replay=replay, env_steps=env_steps)
+                         env_steps=env_steps)
         ready = c.warmup_env_steps <= 0 or env_steps >= c.warmup_env_steps
         zero = torch.zeros((), dtype=torch.float32, device=self.env.device)
         losses = {"critic_loss": zero, "actor_loss": zero}
-        presample = replay_presample(self.replay, c.batch_size, indices)
+        presample = replay_presample(self.replay, c.batch_size, indices,
+                                     c.sample)
         if not ready or c.updates_per_step <= 0:
             pass
         elif self.kernel_mode:
@@ -340,6 +370,9 @@ class DDPG:
             st, losses = gated_update_scan(
                 st, self._update_once, c.updates_per_step, True, losses,
                 presample=presample)
+        if late_insert:
+            st = st._replace(replay=self.replay.add_trajectory(st.replay,
+                                                               *traj))
         if c.polyak_cadence == "per_step" and ready:
             # Compounded pull: K per-update Polyaks at rate tau move a
             # target by 1-(1-tau)^K toward a fixed online net.
@@ -352,7 +385,8 @@ class DDPG:
         metrics["done_frac"] = traj[3].to(torch.float32).mean()
         metrics["env_steps"] = env_steps
         # 1.0 = kernel B2 ran the rollout, 0.0 = the plain twin did.
-        metrics["rollout_impl"] = float(on_gpu and fused is not False)
+        metrics["rollout_impl"] = float(self.env.device.type == "cuda"
+                                        and kernel)
         # 1.0 = kernel B3's wrapper ran the learner (its twin on the CPU),
         # 0.0 = the plain learner did.
         metrics["learner_impl"] = float(self.kernel_mode)

@@ -2,8 +2,8 @@
 torch).
 
 One `train_step` runs `rollout_steps` env-steps with the epsilon-greedy
-Q-net in the loop (kernel B4 on a CUDA device, which raises for a shape it
-does not cover; its plain twin on the CPU), inserts the chunk into the
+Q-net in the loop (kernel B4 on a CUDA device where it covers the config,
+else the plain rollout; its plain twin on the CPU), inserts the chunk into the
 device replay with int32 actions, presamples the K minibatches (column or
 uniform), and past the warmup runs `updates_per_step` double-DQN updates:
 Huber TD toward r + gamma (1 - done) Q'(s', argmax_a Q(s', a)), Adam,
@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-import sys
 from typing import NamedTuple
 
 import numpy as np
@@ -32,7 +31,8 @@ from ..ops.q_rollout import (epsilon_greedy, q_fusable, q_policy_rollout,
                              reference_q_rollout)
 from .common import (AdamState, adam_init, adam_update, bind_group,
                      bind_moments, evaluate_policy, gated_update_scan,
-                     replay_presample, resolve_learner)
+                     replay_presample, resolve_learner, resolve_rollout)
+from ..utils.prng import split_seed
 from .replay import ReplayBuffer, ReplayState
 
 
@@ -111,9 +111,11 @@ class DQN:
                 raise ValueError(f"DQNConfig.{name}="
                                  f"{getattr(config, name)!r} is not ported "
                                  f"yet (supported: {ok})")
+        if env.obs_mode == "pixels":
+            raise ValueError("pixel observations are not ported yet for "
+                             "DQN (VisualQNet)")
         self.env = env
         self.cfg = config
-        self._told_plain_rollout = False
         self.replay = ReplayBuffer(env.num_envs,
                                    config.replay_capacity_per_env,
                                    env.obs_size, 0, env.device,
@@ -123,6 +125,9 @@ class DQN:
         self.kernel_mode = resolve_learner(
             config.learner, self.kernel_learner_ok(),
             env.device.type == "cuda", agent="dqn", kernel="B5")
+        self.kernel_rollout = resolve_rollout(
+            "dqn", "B4", self.fusable(), env.device.type == "cuda",
+            "ops.q_rollout.q_fusable")
 
     def kernel_learner_ok(self) -> bool:
         """Whether kernel B5 covers this config: state observations, 1 to 4
@@ -141,12 +146,13 @@ class DQN:
     # --- init ---------------------------------------------------------------
     def init(self, seed: int) -> DQNState:
         """Fresh state: the Q-net from a torch.Generator seeded with
-        `seed`, envs reset with `seed`, empty replay."""
+        `seed`, envs reset as the reference's `init` resets them (its key
+        split(PRNGKey(seed), 3)[1]), empty replay."""
         env, c = self.env, self.cfg
         g = torch.Generator().manual_seed(seed)
         q = QNetMLP(env.obs_size, env.num_actions, tuple(c.hidden),
                     generator=g).to(env.device)
-        env_state, obs = env.reset(seed)
+        env_state, obs = env.reset(split_seed(seed, 3, 1))
         st = DQNState(q=q, q_target=copy.deepcopy(q), opt=adam_init(q),
                       replay=self.replay.init(), env_state=env_state,
                       obs=obs,
@@ -239,23 +245,20 @@ class DQN:
         gradient updates. Networks and the replay ring are updated in
         place; the returned state carries the new counters and tensors.
 
-        fused: None or True runs the rollout through B4's wrapper, which
-        launches the kernel for CUDA tensors (and raises for a shape the
-        kernel does not cover) and runs the plain twin for CPU tensors.
-        False runs the plain twin on any device; on a GPU it says so once
-        on stderr. `rollout_impl` reports which ran. The updates run in the
+        fused: None runs the rollout resolved at construction (B4 on a
+        CUDA device where it covers the config, else the plain rollout);
+        True runs it through B4's wrapper, which launches the kernel for
+        CUDA tensors (and raises for a shape the kernel does not cover) and
+        runs the plain twin for CPU tensors; False runs the plain rollout
+        on any device. `rollout_impl` reports which ran. The updates run in the
         learner resolved at construction; `learner_impl` reports which
         (1.0 B5's wrapper, 0.0 the plain learner). indices: optional
         presample draws ((slots, offs) for column sampling, (env_idx,
         slot) for uniform) in place of the state's generator."""
         c = self.cfg
         eps = self.epsilon(st.env_steps)
-        on_gpu = self.env.device.type == "cuda"
-        if fused is False and on_gpu and not self._told_plain_rollout:
-            print("dqn: fused=False runs the plain torch rollout on the GPU, "
-                  "not kernel B4", file=sys.stderr)
-            self._told_plain_rollout = True
-        run = reference_q_rollout if fused is False else q_policy_rollout
+        kernel = self.kernel_rollout if fused is None else fused
+        run = q_policy_rollout if kernel else reference_q_rollout
         env_state, obs, traj = run(self.env, st.q, st.env_state, st.obs,
                                    st.env_steps, eps, c.rollout_steps)
         replay = self.replay.add_trajectory(st.replay, *traj)
@@ -281,7 +284,8 @@ class DQN:
         metrics["done_frac"] = traj[3].to(torch.float32).mean()
         metrics["env_steps"] = env_steps
         # 1.0 = kernel B4 ran the rollout, 0.0 = the plain twin did.
-        metrics["rollout_impl"] = float(on_gpu and fused is not False)
+        metrics["rollout_impl"] = float(self.env.device.type == "cuda"
+                                        and kernel)
         # 1.0 = kernel B5's wrapper ran the learner (its twin on the CPU),
         # 0.0 = the plain learner did.
         metrics["learner_impl"] = float(self.kernel_mode)

@@ -2,8 +2,9 @@
 (cartpoleplusplus_tpu/agents/lrpg.py in torch).
 
 One `train_step` runs `rollout_steps` env-steps of the softmax policy,
-sampled by Gumbel-max over counter draws (kernel B8 on a CUDA device,
-which raises for a shape it does not cover; its plain twin on the CPU),
+sampled by Gumbel-max over counter draws (kernel B8 on a CUDA device
+where it covers the config, else the plain rollout; its plain twin on the
+CPU),
 computes discounted returns-to-go that stop at the dones and bootstrap the
 cut-off tail with an EMA baseline, centres and normalises them over the
 window into advantages, and takes ONE Adam step of -mean(logp[a] adv) -
@@ -28,9 +29,12 @@ import torch
 from ..env import CartPole3D, EnvState
 from ..models import PolicyMLP
 from ..ops import learner_kernel as lk
-from ..ops.pg_rollout import gumbel_max, pg_fusable, pg_policy_rollout
+from ..ops.pg_rollout import (gumbel_max, pg_fusable, pg_policy_rollout,
+                              reference_pg_rollout)
+from ..utils.prng import split_seed
 from .common import (AdamState, adam_init, adam_update, bind_group,
-                     bind_moments, evaluate_policy, resolve_learner)
+                     bind_moments, evaluate_policy, resolve_learner,
+                     resolve_rollout)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,6 +104,9 @@ class LRPG:
                 raise ValueError(f"LRPGConfig.{name}="
                                  f"{getattr(config, name)!r} is not ported "
                                  f"yet (supported: {ok})")
+        if env.obs_mode == "pixels":
+            raise ValueError("pixel observations are not ported yet for "
+                             "LRPG (VisualPolicy)")
         self.env = env
         self.cfg = config
         # Resolved once: the kernel learner keeps its state in the 3 group
@@ -107,6 +114,9 @@ class LRPG:
         self.kernel_mode = resolve_learner(
             config.learner, self.kernel_learner_ok(),
             env.device.type == "cuda", agent="lrpg", kernel="B9")
+        self.kernel_rollout = resolve_rollout(
+            "lrpg", "B8", self.fusable(), env.device.type == "cuda",
+            "ops.pg_rollout.pg_fusable")
 
     def kernel_learner_ok(self) -> bool:
         """Whether kernel B9 covers this config: state observations, 1 to 4
@@ -124,12 +134,13 @@ class LRPG:
     # --- init ---------------------------------------------------------------
     def init(self, seed: int) -> LRPGState:
         """Fresh state: the policy from a torch.Generator seeded with
-        `seed`, envs reset with `seed`, zero Adam moments and baseline."""
+        `seed`, envs reset as the reference's `init` resets them (its key
+        split(PRNGKey(seed), 3)[1]), zero Adam moments and baseline."""
         env, c = self.env, self.cfg
         g = torch.Generator().manual_seed(seed)
         policy = PolicyMLP(env.obs_size, env.num_actions, tuple(c.hidden),
                            generator=g).to(env.device)
-        env_state, obs = env.reset(seed)
+        env_state, obs = env.reset(split_seed(seed, 3, 1))
         st = LRPGState(policy=policy, opt=adam_init(policy),
                        baseline=torch.zeros((), dtype=torch.float32,
                                             device=env.device),
@@ -181,13 +192,14 @@ class LRPG:
         The policy is updated in place; the returned state carries the new
         counters and tensors.
 
-        The rollout runs through B8's wrapper, which launches the kernel
-        for CUDA tensors (and raises for a shape the kernel does not
-        cover) and runs the plain twin for CPU tensors; `rollout_impl`
-        says which ran. `learner_impl` says which learner took the update
+        The rollout runs through B8's wrapper where the agent resolved it
+        at construction (a CUDA device and a config B8 covers), else
+        through the plain rollout; `rollout_impl` says which ran. `learner_impl` says which learner took the update
         (1.0 B9's wrapper, 0.0 the plain learner)."""
         c = self.cfg
-        env_state, obs, (obs_t, act_t, rew_t, done_t) = pg_policy_rollout(
+        run = (pg_policy_rollout if self.kernel_rollout
+               else reference_pg_rollout)
+        env_state, obs, (obs_t, act_t, rew_t, done_t) = run(
             self.env, st.policy, st.env_state, st.obs, st.env_steps,
             c.rollout_steps)
 
@@ -224,7 +236,7 @@ class LRPG:
             "done_frac": done_t.to(torch.float32).mean(),
             "env_steps": env_steps,
             # 1.0 = kernel B8 ran the rollout, 0.0 = the plain twin did.
-            "rollout_impl": float(self.env.device.type == "cuda"),
+            "rollout_impl": float(self.kernel_rollout),
             # 1.0 = kernel B9's wrapper ran the update (its twin on the
             # CPU), 0.0 = the plain learner did.
             "learner_impl": float(self.kernel_mode),

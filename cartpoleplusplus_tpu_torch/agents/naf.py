@@ -2,10 +2,10 @@
 (cartpoleplusplus_tpu/agents/naf.py in torch).
 
 One `train_step` runs `rollout_steps` env-steps with NAF's mu head and
-Gaussian exploration in the loop (kernel B6 on a CUDA device, which raises
-for a shape it does not cover; its plain twin on the CPU), inserts the
-chunk into the device replay, presamples the K minibatches (column or
-uniform), and past the warmup runs `updates_per_step` NAF updates: MSE TD
+Gaussian exploration in the loop (kernel B6 on a CUDA device where it
+covers the config, else the plain rollout; its plain twin on the CPU),
+inserts the chunk into the device replay, presamples the K minibatches
+(column or uniform), and past the warmup runs `updates_per_step` NAF updates: MSE TD
 toward r + gamma (1 - done) V'(s'), the global-norm gradient clip
 (`max_grad_norm`), Adam under the linear lr schedule, Polyak on the
 target.
@@ -33,11 +33,13 @@ import torch
 from ..env import CartPole3D, EnvState
 from ..models import NafNet, polyak
 from ..ops import learner_kernel as lk
-from ..ops.naf_rollout import naf_action, naf_fusable, naf_policy_rollout
+from ..ops.naf_rollout import (naf_action, naf_fusable, naf_policy_rollout,
+                               reference_naf_rollout)
+from ..utils.prng import split_seed
 from .common import (AdamState, adam_init, adam_update, bind_group,
                      bind_moments, evaluate_policy, gated_update_scan,
                      lr_schedule, replay_presample, resolve_learner,
-                     scheduled_lr)
+                     resolve_rollout, scheduled_lr)
 from .replay import ReplayBuffer, ReplayState
 
 
@@ -111,6 +113,9 @@ class NAF:
                 raise ValueError(f"NAFConfig.{name}="
                                  f"{getattr(config, name)!r} is not ported "
                                  f"yet (supported: {ok})")
+        if env.obs_mode == "pixels":
+            raise ValueError("pixel observations are not ported yet for "
+                             "NAF (VisualNafNet)")
         self.env = env
         self.cfg = config
         self.replay = ReplayBuffer(env.num_envs,
@@ -121,6 +126,9 @@ class NAF:
         self.kernel_mode = resolve_learner(
             config.learner, self.kernel_learner_ok(),
             env.device.type == "cuda", agent="naf", kernel="B7")
+        self.kernel_rollout = resolve_rollout(
+            "naf", "B6", self.fusable(), env.device.type == "cuda",
+            "ops.naf_rollout.naf_fusable")
 
     def kernel_learner_ok(self) -> bool:
         """Whether kernel B7 covers this config: state observations, 2-D
@@ -140,12 +148,13 @@ class NAF:
     # --- init ---------------------------------------------------------------
     def init(self, seed: int) -> NAFState:
         """Fresh state: the NafNet from a torch.Generator seeded with
-        `seed`, envs reset with `seed`, empty replay."""
+        `seed`, envs reset as the reference's `init` resets them (its key
+        split(PRNGKey(seed), 3)[1]), empty replay."""
         env, c = self.env, self.cfg
         g = torch.Generator().manual_seed(seed)
         net = NafNet(env.obs_size, env.action_dim, tuple(c.hidden),
                      generator=g).to(env.device)
-        env_state, obs = env.reset(seed)
+        env_state, obs = env.reset(split_seed(seed, 3, 1))
         st = NAFState(net=net, target=copy.deepcopy(net), opt=adam_init(net),
                       replay=self.replay.init(), env_state=env_state,
                       obs=obs,
@@ -249,16 +258,17 @@ class NAF:
         gradient updates. Networks and the replay ring are updated in
         place; the returned state carries the new counters and tensors.
 
-        The rollout runs through B6's wrapper, which launches the kernel
-        for CUDA tensors (and raises for a shape the kernel does not
-        cover) and runs the plain twin for CPU tensors; `rollout_impl`
-        says which ran. The updates run in the learner resolved at
+        The rollout runs through B6's wrapper where the agent resolved it
+        at construction (a CUDA device and a config B6 covers), else
+        through the plain rollout; `rollout_impl` says which ran. The updates run in the learner resolved at
         construction; `learner_impl` says which (1.0 B7's wrapper, 0.0 the
         plain learner). indices: optional presample draws ((slots, offs)
         for column sampling, (env_idx, slot) for uniform) in place of the
         state's generator."""
         c = self.cfg
-        env_state, obs, traj = naf_policy_rollout(
+        run = (naf_policy_rollout if self.kernel_rollout
+               else reference_naf_rollout)
+        env_state, obs, traj = run(
             self.env, st.net, st.env_state, st.obs, st.env_steps,
             self._sigma(st.env_steps), c.rollout_steps)
         replay = self.replay.add_trajectory(st.replay, *traj)
@@ -283,7 +293,7 @@ class NAF:
         metrics["done_frac"] = traj[3].to(torch.float32).mean()
         metrics["env_steps"] = env_steps
         # 1.0 = kernel B6 ran the rollout, 0.0 = the plain twin did.
-        metrics["rollout_impl"] = float(self.env.device.type == "cuda")
+        metrics["rollout_impl"] = float(self.kernel_rollout)
         # 1.0 = kernel B7's wrapper ran the learner (its twin on the CPU),
         # 0.0 = the plain learner did.
         metrics["learner_impl"] = float(self.kernel_mode)

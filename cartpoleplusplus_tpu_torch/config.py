@@ -33,7 +33,16 @@ class RunConfig:
 
     agent: str = "ddpg"              # ddpg | dqn | naf | lrpg | random
     num_envs: int = 4096
-    obs_mode: str = "pose_stack"     # pose_stack | state
+    obs_mode: str = "pose_stack"     # pose_stack | state | pixels
+    # Pixel-obs rendering knobs (obs_mode=pixels; env/pixels.py):
+    render_size: int = 48            # square frame edge (pixels)
+    render_grayscale: bool = False   # 1 channel per camera instead of 3
+    render_dtype: str = "float32"    # ray-cast compute dtype (float32 only)
+    render_obs_uint8: bool = False   # quantize pixel obs to uint8
+    # stack [latest frame, consecutive-frame diffs] instead of R raw
+    # frames (same shape; RenderConfig.frame_diff)
+    render_frame_diff: bool = False
+    render_frame_diff_gain: float = 1.0  # RenderConfig.frame_diff_gain
     total_env_steps: int = 100_000   # per-env steps to train for
     seed: int = 0
     log_interval: int = 10           # train_steps between metric prints

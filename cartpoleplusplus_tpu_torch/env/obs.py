@@ -12,7 +12,7 @@ import torch
 from ..physics import CartPoleParams, PhysState
 from .compute import frame_components
 
-OBS_MODES = ("pose_stack", "state")  # pixels are not ported yet
+OBS_MODES = ("pose_stack", "state", "pixels")
 
 FRAME_SIZE = 14  # 2 bodies x (pos3 + quat4)
 
@@ -34,7 +34,8 @@ def pose_frame(p: CartPoleParams, phys: PhysState) -> torch.Tensor:
 
 
 def stack_obs(frames) -> torch.Tensor:
-    """Stack R pose frames into the flat (..., R*14) observation."""
+    """Stack R frames on the last axis: pose frames into the flat (...,
+    R*14) observation, pixel frames (..., H, W, C) on channels."""
     return torch.cat(frames, dim=-1)
 
 

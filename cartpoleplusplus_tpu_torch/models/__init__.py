@@ -1,7 +1,9 @@
 """Networks of the port (flax numerics in torch)."""
 
-from .nets import (ActorMLP, CriticMLP, LayerNorm, NafNet, PolicyMLP,
-                   QNetMLP, polyak)
+from .nets import (ActorMLP, CriticMLP, LayerNorm, NafNet, PatchEncoder,
+                   PixelEncoder, PolicyMLP, QNetMLP, VisualActor,
+                   VisualCritic, polyak)
 
-__all__ = ["ActorMLP", "CriticMLP", "LayerNorm", "NafNet", "PolicyMLP",
-           "QNetMLP", "polyak"]
+__all__ = ["ActorMLP", "CriticMLP", "LayerNorm", "NafNet", "PatchEncoder",
+           "PixelEncoder", "PolicyMLP", "QNetMLP", "VisualActor",
+           "VisualCritic", "polyak"]

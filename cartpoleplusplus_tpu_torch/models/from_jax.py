@@ -3,7 +3,8 @@ and for evaluating weights trained by the reference.
 
 Every input is a tree of numpy arrays (`jax.device_get` of the reference's
 state); nothing here imports JAX. flax Dense kernels are (in, out) and are
-transposed into torch's Linear (out, in) layout.
+transposed into torch's Linear (out, in) layout; flax Conv kernels are
+(kh, kw, in, out) and become torch's (out, in, kh, kw).
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ import torch
 
 from ..env.cartpole import EnvState
 from ..physics.dynamics import PhysState
-from .nets import ActorMLP, CriticMLP, NafNet, PolicyMLP, QNetMLP
+from .nets import (ActorMLP, CriticMLP, NafNet, PolicyMLP, QNetMLP,
+                   VisualActor, VisualCritic)
 
 
 def _t(a, device=None) -> torch.Tensor:
@@ -53,6 +55,48 @@ def critic_state_dict(tree, hidden: Sequence[int], device=None) -> dict:
         _norm(sd, f"norms.{i}", p[f"LayerNorm_{i}"], device)
     _dense(sd, "head", p[f"Dense_{len(hidden)}"], device)
     return sd
+
+
+def encoder_state_dict(p, device=None) -> dict:
+    """flax PixelEncoder or PatchEncoder params (the `PixelEncoder_0` or
+    `PatchEncoder_0` subtree of a Visual* net) -> the port encoder's state
+    dict."""
+    sd = {}
+    if "PixelEncoder_0" in p:
+        convs = p["PixelEncoder_0"]
+        for i in range(len(convs)):
+            k = np.asarray(convs[f"Conv_{i}"]["kernel"])
+            sd[f"convs.{i}.weight"] = _t(k.transpose(3, 2, 0, 1).copy(),
+                                         device)
+            sd[f"convs.{i}.bias"] = _t(convs[f"Conv_{i}"]["bias"], device)
+        return sd
+    enc = p["PatchEncoder_0"]
+    for i in range(len(enc) // 2):
+        _dense(sd, f"dense.{i}", enc[f"Dense_{i}"], device)
+        _norm(sd, f"norms.{i}", enc[f"LayerNorm_{i}"], device)
+    return sd
+
+
+def _visual_state_dict(tree, hidden, mlp_name, mlp_sd, device) -> dict:
+    p = tree["params"]
+    sd = {f"encoder.{k}": v for k, v in encoder_state_dict(p, device).items()}
+    sd.update({f"mlp.{k}": v for k, v in mlp_sd(
+        {"params": p[mlp_name]}, hidden, device).items()})
+    return sd
+
+
+def visual_actor_state_dict(tree, hidden: Sequence[int],
+                            device=None) -> dict:
+    """flax VisualActor params -> VisualActor state dict."""
+    return _visual_state_dict(tree, hidden, "ActorMLP_0", actor_state_dict,
+                              device)
+
+
+def visual_critic_state_dict(tree, hidden: Sequence[int],
+                             device=None) -> dict:
+    """flax VisualCritic params -> VisualCritic state dict."""
+    return _visual_state_dict(tree, hidden, "CriticMLP_0",
+                              critic_state_dict, device)
 
 
 def qnet_state_dict(tree, hidden: Sequence[int], device=None) -> dict:
@@ -129,6 +173,26 @@ def critic_from_flax(tree, obs_dim: int, action_dim: int,
     return net
 
 
+def visual_actor_from_flax(tree, obs_shape, action_dim: int,
+                           hidden: Sequence[int], features=(16, 32, 32),
+                           encoder: str = "conv",
+                           device=None) -> VisualActor:
+    net = VisualActor(obs_shape, action_dim, hidden, features,
+                      encoder).to(device)
+    net.load_state_dict(visual_actor_state_dict(tree, hidden, device))
+    return net
+
+
+def visual_critic_from_flax(tree, obs_shape, action_dim: int,
+                            hidden: Sequence[int], features=(16, 32, 32),
+                            encoder: str = "conv",
+                            device=None) -> VisualCritic:
+    net = VisualCritic(obs_shape, action_dim, hidden, features,
+                       encoder).to(device)
+    net.load_state_dict(visual_critic_state_dict(tree, hidden, device))
+    return net
+
+
 def qnet_from_flax(tree, obs_dim: int, num_actions: int,
                    hidden: Sequence[int], device=None) -> QNetMLP:
     net = QNetMLP(obs_dim, num_actions, hidden).to(device)
@@ -167,12 +231,19 @@ def env_state_from_jax(st, device=None) -> EnvState:
         episode=_t(np.asarray(st.episode, np.int32), device))
 
 
+def _obs_from_jax(obs, device):
+    """An observation batch: uint8 frames stay uint8, the rest float32."""
+    obs = np.asarray(obs)
+    return _t(obs if obs.dtype == np.uint8 else obs.astype(np.float32),
+              device)
+
+
 def _replay_from_jax(rs, device):
     from ..agents.replay import ReplayState
 
     action = np.asarray(rs.action)
     return ReplayState(
-        obs=_t(np.asarray(rs.obs, np.float32), device),
+        obs=_obs_from_jax(rs.obs, device),  # a pixel ring stays uint8
         action=_t(action.astype(np.int32 if action.ndim == 2
                                 else np.float32), device),
         reward=_t(np.asarray(rs.reward, np.float32), device),
@@ -185,16 +256,33 @@ def ddpg_state_from_jax(agent, st, generator=None):
     """JAX DDPGState in the tree layout (learner='xla', or a kernel-mode
     state through the reference's `state_to_tree`), numpy leaves -> the
     port's DDPGState for `agent` (a port DDPG of the same config), in the
-    agent's native layout. Optimizer moments, replay ring and counters
-    carry over; the replay sampling generator is the given one (or a
-    fresh one)."""
+    agent's native layout. Optimizer moments, replay ring (uint8 for
+    pixels) and counters carry over; the replay sampling generator is the
+    given one (or a fresh one)."""
     from ..agents.common import AdamState
     from ..agents.ddpg import DDPGState
 
     c, env, dev = agent.cfg, agent.env, agent.env.device
-    h, obs_dim, act_dim = tuple(c.hidden), env.obs_size, env.action_dim
-    actor = actor_from_flax(st.actor, obs_dim, act_dim, h, dev)
-    critic = critic_from_flax(st.critic, obs_dim, act_dim, h, dev)
+    h, act_dim = tuple(c.hidden), env.action_dim
+    if env.obs_mode == "pixels":
+        vis = (env.obs_shape, act_dim, h, tuple(c.conv_features), c.encoder)
+
+        def actor_from(t):
+            return visual_actor_from_flax(t, *vis, device=dev)
+
+        def critic_from(t):
+            return visual_critic_from_flax(t, *vis, device=dev)
+
+        actor_sd, critic_sd = visual_actor_state_dict, visual_critic_state_dict
+    else:
+        def actor_from(t):
+            return actor_from_flax(t, env.obs_size, act_dim, h, dev)
+
+        def critic_from(t):
+            return critic_from_flax(t, env.obs_size, act_dim, h, dev)
+
+        actor_sd, critic_sd = actor_state_dict, critic_state_dict
+    actor, critic = actor_from(st.actor), critic_from(st.critic)
 
     def adam(opt, module, to_sd):
         adam_state = opt[0]
@@ -206,15 +294,13 @@ def ddpg_state_from_jax(agent, st, generator=None):
     return agent.state_from_tree(DDPGState(
         actor=actor,
         critic=critic,
-        actor_target=actor_from_flax(st.actor_target, obs_dim, act_dim, h,
-                                     dev),
-        critic_target=critic_from_flax(st.critic_target, obs_dim, act_dim,
-                                       h, dev),
-        actor_opt=adam(st.actor_opt, actor, actor_state_dict),
-        critic_opt=adam(st.critic_opt, critic, critic_state_dict),
+        actor_target=actor_from(st.actor_target),
+        critic_target=critic_from(st.critic_target),
+        actor_opt=adam(st.actor_opt, actor, actor_sd),
+        critic_opt=adam(st.critic_opt, critic, critic_sd),
         replay=_replay_from_jax(st.replay, dev),
         env_state=env_state_from_jax(st.env_state, dev),
-        obs=_t(np.asarray(st.obs, np.float32), dev),
+        obs=_obs_from_jax(st.obs, dev),
         noise=_t(np.asarray(st.noise, np.float32), dev),
         generator=generator if generator is not None else torch.Generator(),
         env_steps=int(np.asarray(st.env_steps))))

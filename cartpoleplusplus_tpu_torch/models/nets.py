@@ -1,12 +1,16 @@
-"""DDPG, DQN, LRPG and NAF networks (cartpoleplusplus_tpu/models/nets.py
-ActorMLP, CriticMLP, QNetMLP, PolicyMLP and NafNet in torch), with flax's
-numerics rather than torch's defaults:
+"""DDPG, DQN, LRPG and NAF networks and the pixel encoders
+(cartpoleplusplus_tpu/models/nets.py ActorMLP, CriticMLP, QNetMLP,
+PolicyMLP, NafNet, PixelEncoder, PatchEncoder, VisualActor and VisualCritic
+in torch), with flax's numerics rather than torch's defaults:
 
   * LayerNorm uses eps 1e-6 and the one-pass variance max(E[x^2] - E[x]^2,
     0), and applies (x - mean) * (rsqrt(var + eps) * scale) + bias;
   * Dense kernels initialise lecun-normal (truncated, flax's stddev
     correction), biases zero, and the DDPG output heads U[0, 3e-3);
-  * the critic joins the action after its first layer.
+  * the critic joins the action after its first layer;
+  * a Conv pads 'SAME' as flax does (at stride 2 on an even size: 0 before
+    and 1 after on each spatial axis), takes and flattens images in (H, W,
+    C) order, and scales uint8 input by float32(1/255).
 
 Weights are stored torch-style (Linear.weight is (out, in));
 models/from_jax.py converts flax parameter trees into these modules.
@@ -17,7 +21,9 @@ from __future__ import annotations
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm default epsilon
@@ -195,3 +201,132 @@ class CriticMLP(nn.Module):
             if i == 0:
                 x = torch.cat([x, action], dim=-1)
         return self.head(x).squeeze(-1)
+
+
+_INV_255 = float(np.float32(1.0 / 255.0))
+
+
+def _as_float_image(img):
+    """uint8 frames (the env's quantized obs) -> float32 * float32(1/255);
+    float frames -> float32."""
+    if img.dtype == torch.uint8:
+        return img.to(torch.float32) * _INV_255
+    return img.to(torch.float32)
+
+
+def _same_pad(size: int, stride: int, kernel: int) -> tuple:
+    """flax/XLA 'SAME' padding (before, after) of one spatial axis."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class PixelEncoder(nn.Module):
+    """Small conv stack for pixel observations -> flat features: per
+    width in `features` a 3x3 stride-2 'SAME' conv and relu, then the
+    (H', W', C') map flattened. Input (..., H, W, C) float in [0, 1] or
+    uint8. The convolutions may run in cuDNN (the reference leaves them to
+    XLA, outside any kernel of its own)."""
+
+    def __init__(self, obs_shape, features: Sequence[int] = (16, 32, 32),
+                 generator=None):
+        super().__init__()
+        h, w, c = obs_shape
+        self.convs = nn.ModuleList()
+        self.pads = []
+        for f in features:
+            conv = nn.Conv2d(c, f, kernel_size=3, stride=2)
+            with torch.no_grad():
+                std = math.sqrt(1.0 / (c * 9)) / _TRUNC_STD
+                nn.init.trunc_normal_(conv.weight, std=std, a=-2.0 * std,
+                                      b=2.0 * std, generator=generator)
+                conv.bias.zero_()
+            self.convs.append(conv)
+            ph, pw = _same_pad(h, 2, 3), _same_pad(w, 2, 3)
+            self.pads.append((pw[0], pw[1], ph[0], ph[1]))
+            h, w, c = -(-h // 2), -(-w // 2), f
+        self.out_dim = h * w * c
+
+    def forward(self, img):
+        lead = img.shape[:-3]
+        x = _as_float_image(img).reshape((-1,) + img.shape[-3:])
+        x = x.permute(0, 3, 1, 2)                      # NHWC -> NCHW
+        for conv, pad in zip(self.convs, self.pads):
+            x = torch.relu(conv(F.pad(x, pad)))
+        x = x.permute(0, 2, 3, 1)                      # flax's (H, W, C)
+        return x.reshape(lead + (self.out_dim,))
+
+
+class PatchEncoder(nn.Module):
+    """Non-overlapping patch embedding: each P x P patch (P*P*C values in
+    (row, col, channel) order) through [Dense -> LayerNorm -> relu] per
+    width in `features`, then the (H/P) (W/P) patch features flattened."""
+
+    def __init__(self, obs_shape, patch: int = 6,
+                 features: Sequence[int] = (128, 32), generator=None):
+        super().__init__()
+        h, w, c = obs_shape
+        self.patch = patch
+        self.hp, self.wp = h // patch, w // patch
+        dims = (patch * patch * c,) + tuple(features)
+        self.dense = nn.ModuleList(nn.Linear(a, b)
+                                   for a, b in zip(dims[:-1], dims[1:]))
+        self.norms = nn.ModuleList(LayerNorm(f) for f in features)
+        for layer in self.dense:
+            _init_dense(layer, generator)
+        self.out_dim = self.hp * self.wp * features[-1]
+
+    def forward(self, img):
+        lead = img.shape[:-3]
+        *_, h, w, c = img.shape
+        p, hp, wp = self.patch, self.hp, self.wp
+        x = _as_float_image(img).reshape(lead + (hp, p, wp, p, c))
+        x = x.movedim(-4, -3)                          # (..., hp, wp, p, p, c)
+        x = x.reshape(lead + (hp * wp, p * p * c))
+        for dense, norm in zip(self.dense, self.norms):
+            x = torch.relu(norm(dense(x)))
+        return x.reshape(lead + (self.out_dim,))
+
+
+def make_encoder(encoder: str, obs_shape, conv_features, generator=None):
+    """The Visual* nets' encoder: "conv" (PixelEncoder over
+    `conv_features`) or "patch" (PatchEncoder at its defaults)."""
+    if encoder == "patch":
+        return PatchEncoder(obs_shape, generator=generator)
+    if encoder != "conv":
+        raise ValueError(f"encoder must be 'conv' or 'patch', got "
+                         f"{encoder!r}")
+    return PixelEncoder(obs_shape, conv_features, generator=generator)
+
+
+class VisualActor(nn.Module):
+    """Encoder + ActorMLP: the deterministic policy from frames."""
+
+    def __init__(self, obs_shape, action_dim: int = 2,
+                 hidden: Sequence[int] = (256, 256),
+                 features: Sequence[int] = (16, 32, 32),
+                 encoder: str = "conv", generator=None):
+        super().__init__()
+        self.encoder = make_encoder(encoder, obs_shape, features, generator)
+        self.mlp = ActorMLP(self.encoder.out_dim, action_dim, hidden,
+                            generator=generator)
+        self.hidden = self.mlp.hidden
+
+    def forward(self, img):
+        return self.mlp(self.encoder(img))
+
+
+class VisualCritic(nn.Module):
+    """Encoder + CriticMLP: Q(frames, action)."""
+
+    def __init__(self, obs_shape, action_dim: int = 2,
+                 hidden: Sequence[int] = (256, 256),
+                 features: Sequence[int] = (16, 32, 32),
+                 encoder: str = "conv", generator=None):
+        super().__init__()
+        self.encoder = make_encoder(encoder, obs_shape, features, generator)
+        self.mlp = CriticMLP(self.encoder.out_dim, action_dim, hidden,
+                             generator=generator)
+
+    def forward(self, img, action):
+        return self.mlp(self.encoder(img), action)

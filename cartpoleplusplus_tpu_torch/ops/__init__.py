@@ -10,4 +10,6 @@ twin for CPU tensors; `<wrapper>.launches` counts kernel launches.
   B5 learner_kernel.dqn_update_phase   csrc/dqn_update.cu   K-update DQN learner
   B8 pg_rollout.pg_policy_rollout   csrc/q_rollout.cu       LRPG policy in the loop
   B9 learner_kernel.lrpg_update_phase  csrc/lrpg_update.cu  LRPG update
+  B10 render_kernel.render_frames   csrc/render.cu          pixel raycast renderer
+  B11 render_kernel.render_culled   csrc/render.cu          ... with row-band culling
 """

@@ -291,6 +291,8 @@ def load_library() -> ctypes.CDLL:
     lib.cp_lrpg_workspace_floats.restype = ctypes.c_longlong
     lib.cp_lrpg_update_phase.argtypes = [vp] * 11
     lib.cp_lrpg_update_phase.restype = ci
+    lib.cp_render.argtypes = [vp, ci, ci, vp, vp, vp, vp, vp]
+    lib.cp_render.restype = ci
     _lib = lib
     return lib
 

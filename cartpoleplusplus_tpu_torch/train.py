@@ -7,23 +7,32 @@ Usage:
     python -m cartpoleplusplus_tpu_torch.train --agent naf --naf.learner kernel
     python -m cartpoleplusplus_tpu_torch.train --agent lrpg    # lrpg, cuda
     python -m cartpoleplusplus_tpu_torch.train --agent random  # baseline
+    python -m cartpoleplusplus_tpu_torch.train --obs-mode pixels \
+        --num-envs 2048 --render-grayscale --render-obs-uint8 \
+        --render-frame-diff --render-frame-diff-gain 4 --ddpg.sample block \
+        --ddpg.replay-capacity-per-env 64    # pixel DDPG
     python -m cartpoleplusplus_tpu_torch.train --device cpu --num-envs 64
 
 Prints one JSON line of metrics every --log-interval train steps and, with
 --final-eval, one line of greedy-policy episode statistics. On a CUDA
 device each train step's rollout runs a kernel (B2 for DDPG, B4 for DQN,
-B6 for NAF, B8 for LRPG; a shape the kernel does not cover is an error
-there) and, at `--<agent>.learner auto` (the default but for NAF, whose
-default is the plain learner, `xla`, as in the reference), each learning
-step's update runs the agent's fused learner kernel (B3, B5, B7, B9) where
-it covers the config (`learner_impl` in the metrics says which learner
-ran). DDPG and NAF train on the continuous preset of the env. `--agent
-random` runs the uniform-random policy for `--total-env-steps` steps per
-env and prints one line of episode statistics; no kernel exists for it, so
-on the GPU it steps the plain env one step at a time. `--device cuda`
-without a visible GPU is an error, never a silent CPU run. Checkpoints,
-the event log, presets and the canary, and the device mesh are not ported
-yet: their flags are rejected.
+B6 for NAF, B8 for LRPG) where it covers the config; outside that coverage
+the plain torch rollout runs on the card, with one stderr line naming the
+kernel it does not use (`rollout_impl` 0 in the metrics). At
+`--<agent>.learner auto` (the default but for NAF, whose default is the
+plain learner, `xla`, as in the reference), each learning step's update
+runs the agent's fused learner kernel (B3, B5, B7, B9) where it covers the
+config (`learner_impl` says which learner ran). DDPG and NAF train on the
+continuous preset of the env. `--obs-mode pixels` (DDPG only) renders
+every env-step's frames through kernel B10 (B11 under
+CARTPOLE_RENDER_CULL=1); the `--render-*` flags set the frames, and
+`--render-dtype` takes float32 only. `--agent random` runs the
+uniform-random policy for `--total-env-steps` steps per env and prints one
+line of episode statistics; no kernel exists for it, so on the GPU it
+steps the plain env one step at a time. `--device cuda` without a visible
+GPU is an error, never a silent CPU run. Checkpoints, the event log,
+presets and the canary, and the device mesh are not ported yet: their
+flags are rejected.
 """
 
 from __future__ import annotations
@@ -40,21 +49,18 @@ from .agents import (DDPG, DQN, LRPG, NAF, DDPGConfig, DQNConfig,
                      LRPGConfig, NAFConfig, RandomAgent)
 from .config import RunConfig, add_dataclass_args, explicit_dests, from_args
 from .env import CartPole3D
+from .env.pixels import RenderConfig
 from .physics.params import CartPoleParams, continuous_params
 
 # The reference CLI's run flags that have no counterpart here yet.
 _NOT_PORTED = (
-    "preset", "render_size", "render_grayscale", "render_dtype",
-    "render_obs_uint8", "render_frame_diff", "render_frame_diff_gain",
-    "steps_per_dispatch", "ckpt_dir", "ckpt_interval", "ckpt_full",
+    "preset", "steps_per_dispatch", "ckpt_dir", "ckpt_interval", "ckpt_full",
     "event_log", "event_log_envs", "use_mesh", "learner", "eval_only",
     "eval_render", "profile_dir", "canary_env_steps", "canary_min_eval",
     "canary_max_restarts")
-# agent -> (class, config class, rollout kernel, its coverage check).
-_AGENTS = {"ddpg": (DDPG, DDPGConfig, "B2", "ops.policy_rollout.fusable"),
-           "dqn": (DQN, DQNConfig, "B4", "ops.q_rollout.q_fusable"),
-           "naf": (NAF, NAFConfig, "B6", "ops.naf_rollout.naf_fusable"),
-           "lrpg": (LRPG, LRPGConfig, "B8", "ops.pg_rollout.pg_fusable")}
+# agent -> (class, config class).
+_AGENTS = {"ddpg": (DDPG, DDPGConfig), "dqn": (DQN, DQNConfig),
+           "naf": (NAF, NAFConfig), "lrpg": (LRPG, LRPGConfig)}
 # The agents that train on the continuous preset (the reference's
 # train.py applies it to every continuous-action agent).
 _CONTINUOUS = ("ddpg", "naf")
@@ -65,7 +71,7 @@ def build_parser() -> argparse.ArgumentParser:
                                  description=__doc__.split("\n")[0])
     add_dataclass_args(ap, RunConfig)
     add_dataclass_args(ap, CartPoleParams, prefix="env.")
-    for name, (_, cfg_cls, _, _) in _AGENTS.items():
+    for name, (_, cfg_cls) in _AGENTS.items():
         add_dataclass_args(ap, cfg_cls, prefix=f"{name}.")
     return ap
 
@@ -89,13 +95,23 @@ def build(run: RunConfig, args: argparse.Namespace, provided: set):
     defaults to the continuous preset (continuous actions, pushes, shaped
     reward), with env fields typed on the command line always winning;
     DQN, LRPG and the random agent take the discrete env as the flags give
-    it."""
+    it. Pixel observations render with the RenderConfig the `--render-*`
+    flags give, as the reference's `build` makes it."""
     params = from_args(CartPoleParams, args, prefix="env.")
+    render_config = None
+    if run.obs_mode == "pixels":
+        render_config = RenderConfig(
+            width=run.render_size, height=run.render_size,
+            grayscale=run.render_grayscale, dtype=run.render_dtype,
+            obs_uint8=run.render_obs_uint8,
+            frame_diff=run.render_frame_diff,
+            frame_diff_gain=run.render_frame_diff_gain)
     if run.agent == "random":
         env = CartPole3D(params, num_envs=run.num_envs,
-                         obs_mode=run.obs_mode, device=run.device)
+                         obs_mode=run.obs_mode, device=run.device,
+                         render_config=render_config)
         return env, RandomAgent(env)
-    agent_cls, cfg_cls, kernel, check = _AGENTS[run.agent]
+    agent_cls, cfg_cls = _AGENTS[run.agent]
     if run.agent in _CONTINUOUS:
         preset = continuous_params()
         params = CartPoleParams(**{
@@ -103,13 +119,9 @@ def build(run: RunConfig, args: argparse.Namespace, provided: set):
                      else getattr(preset, f.name))
             for f in dataclasses.fields(CartPoleParams)})
     env = CartPole3D(params, num_envs=run.num_envs, obs_mode=run.obs_mode,
-                     device=run.device)
-    agent = agent_cls(env, from_args(cfg_cls, args, prefix=f"{run.agent}."))
-    if env.device.type == "cuda" and not agent.fusable():
-        raise ValueError(f"kernel {kernel} does not cover this env/network "
-                         f"shape ({check}); the plain rollout runs with "
-                         f"--device cpu")
-    return env, agent
+                     device=run.device, render_config=render_config)
+    return env, agent_cls(env, from_args(cfg_cls, args,
+                                         prefix=f"{run.agent}."))
 
 
 def main(argv=None) -> int:
@@ -133,6 +145,11 @@ def main(argv=None) -> int:
         print("--device cuda but no CUDA device is visible (pass --device "
               "cpu to run the plain torch path)", file=sys.stderr)
         return 2
+    if device.type == "cuda":
+        # Full float32, as the reference's f32 nets compute: cuDNN (the
+        # pixel encoders' convs) defaults to TF32.
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
     try:
         env, agent = build(run, args, provided)
     except ValueError as e:

@@ -78,3 +78,58 @@ def gumbel(*words):
     argmax(logits + g) is an exact softmax sample."""
     u = uniform_from_bits(hash_words(*words, 0xB2), lo=2.0 ** -24, hi=1.0)
     return -torch.log(-torch.log(u))
+
+
+# --- jax.random's key derivation, for the env reset seeds only -------------
+#
+# The reference resets its envs with seeds folded from split jax.random
+# keys. These numpy functions reproduce that derivation (threefry2x32 with
+# 20 rounds, `split` as jax_threefry_partitionable computes it), so the port
+# resets the same envs at the same seed. Network init and replay draws stay
+# the port's own torch.Generator streams.
+
+_THREEFRY_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def threefry2x32(key, x0, x1):
+    """Threefry-2x32 (20 rounds) of the counter words (x0, x1) under the
+    key (k0, k1); uint32 numpy arrays in, the two output words out."""
+    u32 = np.uint32
+    k0, k1 = u32(key[0]), u32(key[1])
+    ks = (k0, k1, k0 ^ k1 ^ u32(0x1BD11BDA))
+    x0 = np.asarray(x0, u32) + ks[0]
+    x1 = np.asarray(x1, u32) + ks[1]
+    for i in range(5):
+        for r in _THREEFRY_ROT[i % 2]:
+            x0 = x0 + x1
+            x1 = (x1 << u32(r)) | (x1 >> u32(32 - r))
+            x1 = x1 ^ x0
+        x0 = x0 + ks[(i + 1) % 3]
+        x1 = x1 + ks[(i + 2) % 3] + u32(i + 1)
+    return x0, x1
+
+
+def prng_key(seed: int) -> np.ndarray:
+    """jax.random.PRNGKey(seed) for an int32 seed: uint32 words (0, seed)."""
+    return np.array([0, seed & _M32], np.uint32)
+
+
+def split_key(key, num: int) -> np.ndarray:
+    """jax.random.split(key, num) of a raw uint32[2] key: (num, 2) uint32,
+    key i = threefry2x32(key, (0, i))."""
+    with np.errstate(over="ignore"):
+        hi, lo = threefry2x32(key, np.zeros(num, np.uint32),
+                              np.arange(num, dtype=np.uint32))
+    return np.stack([hi, lo], axis=-1)
+
+
+def key_seed(key) -> int:
+    """The reference's `to_seed` of a raw key: its words XOR-folded."""
+    words = np.asarray(key, np.uint32).reshape(-1)
+    return int(np.bitwise_xor.reduce(words))
+
+
+def split_seed(seed: int, num: int, index: int) -> int:
+    """to_seed(jax.random.split(PRNGKey(seed), num)[index]): the env reset
+    seed the reference derives from the integer `seed`."""
+    return key_seed(split_key(prng_key(seed), num)[index])

@@ -65,7 +65,25 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      (7), every other kernel never; then, zeroed again, `--agent naf` at
      its default (plain) learner for 2 train steps: B6 twice, B7 never;
   19. where a NAF kernel-learner train step's time goes, as phase 7, and
-     a whole NAF train step at its default (plain) learner.
+     a whole NAF train step at its default (plain) learner;
+  20. B10 (the per-pixel raycast renderer) against its twin at the pixels
+     preset's shape, 2048 envs x 3 repeat snapshots, 48 x 48, 2 cameras,
+     grayscale and RGB, on adversarial poses and on poses of a short plain
+     rollout: max abs error 1e-5 on every pixel (the pixels beyond it are
+     counted and must be none);
+     its ms per env-step beside the twin's and its bound;
+  21. B11 (B10 with row-band culling) against B10 on the same poses, atol
+     1e-6, both timed in turns, and the share of pixels culled;
+  22. pixel main path with the counters zeroed: `train.main --obs-mode
+     pixels` at the pixels preset's env and agent fields for 64 env-steps
+     plus a 200-step greedy eval; B10 must launch once per env.step and
+     env.reset and once for the cached reset frame (267 times), every other
+     kernel never, and the rollout and the learner are the plain ones; then
+     2 train steps under CARTPOLE_RENDER_CULL=1 (B11 18 times, B10 never);
+     then `--obs-mode
+     state` at the DDPG defaults for 2 train steps: one stderr line, the
+     plain rollout on the card, B2 never, B3 once;
+  23. where a pixel train step's time goes, as phase 7.
 Then one JSON line of per-kernel numbers (each with its bound: the larger
 of its float32 operations over 67 TFLOP/s and its bytes over 3.35 TB/s,
 counted from this run's shapes) and, last, the device line. The script
@@ -459,12 +477,15 @@ def _wrappers() -> dict:
     from cartpoleplusplus_tpu_torch.ops.pg_rollout import pg_policy_rollout
     from cartpoleplusplus_tpu_torch.ops.policy_rollout import policy_rollout
     from cartpoleplusplus_tpu_torch.ops.q_rollout import q_policy_rollout
+    from cartpoleplusplus_tpu_torch.ops.render_kernel import (render_culled,
+                                                              render_frames)
 
     return {"B1": fused_rollout, "B2": policy_rollout,
             "B3": ddpg_update_phase, "B4": q_policy_rollout,
             "B5": dqn_update_phase, "B6": naf_policy_rollout,
             "B7": naf_update_phase, "B8": pg_policy_rollout,
-            "B9": lrpg_update_phase}
+            "B9": lrpg_update_phase, "B10": render_frames,
+            "B11": render_culled}
 
 
 def _only(launches: dict, **want) -> bool:
@@ -642,7 +663,8 @@ def _print_split(title, parts, step):
     dev_ms, n_kernels = _device_ms(prof)
     whole = ms["whole train step"]
     rest = whole - sum(v for k, v in ms.items()
-                       if k != "whole train step" and "not in" not in k)
+                       if k != "whole train step" and "not in" not in k
+                       and not k.startswith("of which"))
     idle = (f"{1.0 - dev_ms / whole:.4f}" if dev_ms > 0 else "not measured")
     print(f"{title} (ms, median of rounds): " + "; ".join(
         f"{k} {v:.4f} ({' '.join(f'{x:.4f}' for x in rounds[k])})"
@@ -1526,6 +1548,357 @@ def phase_naf_step_split(dev):
     _print_split("naf train-step split", parts, lambda: agent.train_step(st))
 
 
+# --- the pixel DDPG slice: B10, B11 and the pixel main path -----------------
+
+PIX_ENVS, PIX_SIZE = 2048, 48   # the pixels preset's envs and frame edge
+B10_ATOL = 1e-5   # tests/test_pixels.py's kernel-vs-XLA bar
+B11_ATOL = 1e-6   # tests/test_pixels.py's culled-vs-full bar
+# Float operations of csrc/render.cu, counted as _env_step_flop counts the
+# env math: `shade` per pixel and camera (127, plus 2 per channel), and
+# B11's `row_band` per env and camera (89, once per block).
+RENDER_FLOP, RENDER_CH_FLOP, BAND_FLOP = 127, 2, 89
+# The pixels preset's env and agent fields (the reference's `--preset
+# pixels` for DDPG, whose other fields are the DDPG defaults).
+PIXEL_ARGV = ["--obs-mode", "pixels", "--num-envs", str(PIX_ENVS),
+              "--render-size", str(PIX_SIZE), "--render-grayscale",
+              "--render-obs-uint8", "--render-frame-diff",
+              "--render-frame-diff-gain", "4", "--ddpg.sample", "block",
+              "--ddpg.replay-capacity-per-env", "64",
+              "--ddpg.actor-lr", "3e-4", "--ddpg.critic-lr", "3e-4",
+              "--ddpg.ou-sigma-decay-env-steps", "20000",
+              "--ddpg.lr-decay-env-steps", "100000"]
+
+
+def _pixel_poses(dev):
+    """Two pose sets of PIX_ENVS x 3 virtual envs (the 3 repeat snapshots
+    of an env-step): adversarial poses (positions uniform in +-2.2, tilts up
+    to |s| = 0.995, tests/test_pixels.py's), and the states of 3
+    consecutive env-steps of a short plain rollout under random actions."""
+    import torch
+
+    from cartpoleplusplus_tpu_torch import CartPole3D, continuous_params
+    from cartpoleplusplus_tpu_torch.physics import rest_state
+
+    p = continuous_params()
+    n = PIX_ENVS * p.action_repeats
+    g = torch.Generator().manual_seed(31)
+    pos = torch.stack([torch.rand(n, generator=g) * 4.4 - 2.2,
+                       torch.rand(n, generator=g) * 4.4 - 2.2,
+                       torch.full((n,), 0.0978)], -1)
+    s = torch.rand((n, 2), generator=g) * 1.98 - 0.99
+    nrm = s.norm(dim=-1, keepdim=True)
+    s = torch.where(nrm > 0.995, s * 0.995 / nrm, s)
+    adv = rest_state(p, (n,), device=dev)._replace(pos=pos.to(dev),
+                                                   s=s.to(dev))
+    env = CartPole3D(p, num_envs=PIX_ENVS, device=dev)
+    state, _ = env.reset(5)
+    snaps = []
+    for t in range(6):
+        a = (torch.rand((PIX_ENVS, 2), generator=g) * 2 - 1).to(dev)
+        state, *_ = env.step(state, a)
+        if t >= 3:
+            snaps.append(state.phys)
+    rollout = type(adv)(*(torch.cat(xs) for xs in zip(*snaps)))
+    return p, {"adversarial": adv, "rollout": rollout}
+
+
+def _render_bound(cfg, n, shaded=1.0):
+    """Bound of one render of n virtual envs: the shade of a `shaded` share
+    of the pixels (B11 adds its bands), the env columns, camera rows and
+    tables read once, the frames written once."""
+    npx, ncam = cfg.width * cfg.height, len(cfg.cameras)
+    nch = cfg.channels_per_camera
+    flop = (RENDER_FLOP + RENDER_CH_FLOP * nch) * n * npx * ncam * shaded
+    if shaded < 1.0:
+        flop += BAND_FLOP * n * ncam
+    nrows = 6 + 1 + nch + 6
+    nbytes = 4 * (6 * n + ncam * nrows * npx + 10 * ncam
+                  + n * npx * ncam * nch)
+    return _bound(flop, nbytes)
+
+
+def _b10_compare(p, cfg, phys):
+    """B10 against its twin on `phys`: the max abs error, and the count of
+    pixels beyond B10_ATOL, which must be none."""
+    import torch
+
+    from cartpoleplusplus_tpu_torch.env import pixels as px
+    from cartpoleplusplus_tpu_torch.ops import render_kernel as rk
+
+    got = rk.render_frames(p, cfg, phys)
+    want = px.render_all_cameras(p, phys, cfg)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    err = (got - want).abs()
+    n_bad = int((err > B10_ATOL).sum())
+    assert n_bad == 0, \
+        f"B10: {n_bad} pixels beyond {B10_ATOL}, max {float(err.max()):.3g}"
+    return float(err.max()), n_bad
+
+
+def phase_b10(dev):
+    """B10 against its twin at the pixels preset's shape (2048 envs x 3
+    snapshots, 48 x 48, 2 cameras), grayscale and RGB, on adversarial and
+    rollout poses; its ms per env-step beside the twin's and its bound."""
+    from cartpoleplusplus_tpu_torch.env import pixels as px
+    from cartpoleplusplus_tpu_torch.ops import render_kernel as rk
+
+    p, poses = _pixel_poses(dev)
+    out = {}
+    for gray in (True, False):
+        cfg = px.RenderConfig(width=PIX_SIZE, height=PIX_SIZE,
+                              grayscale=gray)
+        errs = {}
+        for name, phys in poses.items():
+            errs[name] = _b10_compare(p, cfg, phys)
+        phys = poses["rollout"]
+        n = phys.pos.shape[0]
+        ms = _time_ms(lambda: rk.render_frames(p, cfg, phys), 20)
+        plain_ms = _time_ms(lambda: px.render_all_cameras(p, phys, cfg), 3)
+        bound = _render_bound(cfg, n)
+        tag = "gray" if gray else "rgb"
+        print(f"B10 {tag}: " + "; ".join(
+            f"{k} poses max_abs_err {e[0]:.3g}, {e[1]} pixels beyond "
+            f"{B10_ATOL}"
+            for k, e in errs.items())
+            + f"; {n} virtual envs x {PIX_SIZE}x{PIX_SIZE} x 2 cameras per "
+            f"env-step: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), kernel at "
+            f"{bound['bound_ms'] / ms:.3f} of its bound", flush=True)
+        out[tag] = dict(max_abs_err=max(e[0] for e in errs.values()),
+                        beyond=sum(e[1] for e in errs.values()), ms=ms,
+                        plain_ms=plain_ms, **bound)
+    return p, poses, out
+
+
+def phase_b11(dev, p, poses):
+    """B11 against B10 on phase 20's poses (atol 1e-6), both timed in
+    turns, and the share of pixels the bands cull."""
+    import torch
+
+    from cartpoleplusplus_tpu_torch.env import pixels as px
+    from cartpoleplusplus_tpu_torch.ops import render_kernel as rk
+
+    out = {}
+    for gray in (True, False):
+        cfg = px.RenderConfig(width=PIX_SIZE, height=PIX_SIZE,
+                              grayscale=gray)
+        errs, culled = {}, {}
+        for name, phys in poses.items():
+            full = rk.render_frames(p, cfg, phys)
+            cut = rk.render_culled(p, cfg, phys)
+            errs[name] = _close(f"B11 {name}", cut, full, 0.0, B11_ATOL)
+            cols = px.env_columns(p, phys)
+            rows = (torch.arange(cfg.width * cfg.height, device=dev)
+                    // cfg.width).to(torch.float32)[None, :]
+            shares = []
+            for cam in cfg.cameras:
+                lo, hi = px.row_band(p, cfg, px.camera_basis_np(
+                    cam, cfg.width, cfg.height), *cols)
+                shares.append(float(((rows < lo) | (rows > hi)).float()
+                                    .mean()))
+            culled[name] = sum(shares) / len(shares)
+        phys = poses["rollout"]
+        n = phys.pos.shape[0]
+        t10, t11 = [], []
+        for _ in range(3):
+            t10.append(_time_ms(lambda: rk.render_frames(p, cfg, phys), 20))
+            t11.append(_time_ms(lambda: rk.render_culled(p, cfg, phys), 20))
+        ms10, ms11 = statistics.median(t10), statistics.median(t11)
+        plain_ms = _time_ms(lambda: px.render_all_cameras(p, phys, cfg,
+                                                          cull=True), 3)
+        bound = _render_bound(cfg, n, shaded=1.0 - culled["rollout"])
+        tag = "gray" if gray else "rgb"
+        print(f"B11 {tag}: max_abs_err against B10 " + ", ".join(
+            f"{k} {v:.3g}" for k, v in errs.items()) + f" (atol {B11_ATOL}); "
+            f"pixels culled " + ", ".join(f"{k} {v:.4f}"
+                                          for k, v in culled.items())
+            + f"; in turns per env-step: B10 {ms10:.4f} ms "
+            f"({' '.join(f'{x:.4f}' for x in t10)}), B11 {ms11:.4f} ms "
+            f"({' '.join(f'{x:.4f}' for x in t11)}); culled twin "
+            f"{plain_ms:.3f} ms; B11 bound {bound['bound_ms']:.4f} ms",
+            flush=True)
+        out[tag] = dict(max_abs_err=max(errs.values()), ms=ms11,
+                        plain_ms=plain_ms, b10_ms=ms10,
+                        culled=culled["rollout"], **bound)
+    return out
+
+
+def _train_lines(argv, env=None):
+    """train.main(argv) with its stdout and stderr captured, under the
+    extra environment variables `env`: (rc, JSON lines, stderr, seconds)."""
+    import os
+
+    from cartpoleplusplus_tpu_torch import train
+
+    out, err = io.StringIO(), io.StringIO()
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = train.main(argv)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    secs = time.perf_counter() - t0
+    sys.stderr.write(err.getvalue())
+    return rc, [json.loads(x) for x in out.getvalue().splitlines()], \
+        err.getvalue(), secs
+
+
+def phase_pixel_main_path():
+    """The pixel DDPG slice through train.main at the pixels preset's env
+    and agent fields: every env-step's frames through B10, the plain
+    rollout and the plain learner, nothing else; then 2 train steps under
+    CARTPOLE_RENDER_CULL=1 (B11 in B10's place); then `--obs-mode state`
+    at the DDPG defaults, which B2 does not cover: the plain rollout on the
+    card with one stderr line, B3 for the update."""
+    total_env_steps, rollout, eval_steps = 64, 8, 200
+    n_train = total_env_steps // rollout
+    # One B10 launch per env.step (all 3 repeat snapshots x 2 cameras), one
+    # per env.reset (the initial frames) and one for the reset frame that
+    # the env renders once and caches: init, training, eval.
+    b10_want = 1 + total_env_steps + 1 + 1 + eval_steps
+    _zero_counts()
+    rc, lines, _, secs = _train_lines(
+        PIXEL_ARGV + ["--total-env-steps", str(total_env_steps),
+                      "--log-interval", "1", "--final-eval", "--eval-steps",
+                      str(eval_steps), "--seed", "0"])
+    launches = _read_counts()
+    assert rc == 0, f"pixel train.main returned {rc}"
+    steps, ev = lines[:-1], lines[-1]
+    assert [m["train_step"] for m in steps] == list(range(1, n_train + 1))
+    assert _only(launches, B10=b10_want), \
+        f"launches {launches}, want B10 {b10_want} and nothing else"
+    for m in lines:
+        assert all(math.isfinite(v) for v in m.values()), m
+    assert all(m["rollout_impl"] == 0.0 and m["learner_impl"] == 0.0
+               for m in steps)
+    learned = [m for m in steps if m["env_steps"] >= 16]
+    assert len(learned) == n_train - 1 and all(
+        m["critic_loss"] > 0.0 for m in learned)
+    assert 0 < ev["eval_mean_episode_length"] <= eval_steps
+    for m in steps:
+        print(f"pixel train step {m['train_step']}: critic_loss "
+              f"{m['critic_loss']:.6g} actor_loss {m['actor_loss']:.6g} "
+              f"reward_mean {m['reward_mean']:.6g} done_frac "
+              f"{m['done_frac']:.6g} env_steps_per_sec "
+              f"{m['env_steps_per_sec']}", flush=True)
+    sec_per_step = PIX_ENVS * rollout / steps[-1]["env_steps_per_sec"]
+    print(f"pixel main path: {n_train} train steps ({sec_per_step:.4f} s per "
+          f"train step over the run, train.main total {secs:.2f} s incl. "
+          f"init and eval); eval {json.dumps(ev)}; launches {launches}",
+          flush=True)
+
+    _zero_counts()
+    rc, lines, _, secs = _train_lines(
+        PIXEL_ARGV + ["--total-env-steps", "16", "--log-interval", "1",
+                      "--seed", "0"], env={"CARTPOLE_RENDER_CULL": "1"})
+    cull_launches = _read_counts()
+    assert rc == 0, f"culled pixel train.main returned {rc}"
+    assert _only(cull_launches, B11=1 + 1 + 16), cull_launches
+    assert all(math.isfinite(v) for m in lines for v in m.values())
+    print(f"pixel path under CARTPOLE_RENDER_CULL=1: 2 train steps in "
+          f"{secs:.2f} s (host clock, incl. init); launches {cull_launches}",
+          flush=True)
+
+    _zero_counts()
+    rc, lines, err, secs = _train_lines(
+        ["--obs-mode", "state", "--total-env-steps", "16",
+         "--log-interval", "1", "--seed", "0"])
+    state_launches = _read_counts()
+    assert rc == 0, f"train.main --obs-mode state returned {rc}"
+    told = [ln for ln in err.splitlines() if "kernel B2 does not cover" in ln]
+    assert len(told) == 1, err
+    assert _only(state_launches, B3=1), state_launches
+    assert all(m["rollout_impl"] == 0.0 and m["learner_impl"] == 1.0
+               and all(math.isfinite(v) for v in m.values()) for m in lines)
+    print(f"--obs-mode state (B2 does not cover it): 2 train steps in "
+          f"{secs:.2f} s (host clock, incl. init), stderr {told[0]!r}; "
+          f"launches {state_launches}", flush=True)
+    return launches, cull_launches
+
+
+def phase_pixel_step_split(dev):
+    """Where a pixel train step's time goes, as phase 7: the plain rollout
+    (and within it B10, the actor and the uint8 frame-diff epilogue, 8
+    env-steps' worth each), the late insert, the block presample and the
+    plain learner's 16 conv updates."""
+    import argparse
+
+    import torch
+
+    from cartpoleplusplus_tpu_torch import train
+    from cartpoleplusplus_tpu_torch.config import RunConfig, from_args
+    from cartpoleplusplus_tpu_torch.ops import render_kernel as rk
+    from cartpoleplusplus_tpu_torch.ops.policy_rollout import (
+        reference_policy_rollout)
+
+    ap = train.build_parser()
+    args: argparse.Namespace = ap.parse_args(PIXEL_ARGV)
+    _, agent = train.build(from_args(RunConfig, args), args, set())
+    c, env = agent.cfg, agent.env
+    st = agent.init(0)
+    for _ in range(3):  # 24 env-steps: past the 16-step warmup
+        st, _ = agent.train_step(st)
+    sigma = agent._sigma(st.env_steps)
+
+    def rollout():
+        return reference_policy_rollout(env, st.actor, c.ou_theta,
+                                        st.env_state, st.obs, st.noise,
+                                        st.env_steps, sigma, c.rollout_steps)
+
+    traj = rollout()[3]
+    phys = st.env_state.phys
+    snaps = type(phys)(*(torch.cat([x] * env.params.action_repeats)
+                         for x in phys))
+    frames = list(rk.render_frames(env.params, env.render_config, snaps)
+                  .split(env.num_envs))
+    done = torch.zeros(env.num_envs, dtype=torch.bool, device=dev)
+
+    def epilogue():
+        obs = env._pixel_obs(frames)
+        reset = env._reset_obs_pixels()
+        return torch.where(done[:, None, None, None], reset, obs)
+
+    def presample():
+        return agent.replay.presample_block(
+            st.replay, c.batch_size, c.updates_per_step,
+            generator=st.generator)
+
+    def plain_learner():
+        batches = presample()
+        s = st
+        for k in range(c.updates_per_step):
+            s, _ = agent._update_once(s, tuple(x[k] for x in batches))
+
+    t = c.rollout_steps
+
+    @torch.no_grad()
+    def actor():
+        return [st.actor(st.obs) for _ in range(t)]
+
+    parts = {
+        "whole train step": (lambda: agent.train_step(st), 3),
+        f"plain rollout ({t} env-steps)": (rollout, 3),
+        f"of which B10 render ({t} env-steps)": (
+            lambda: [rk.render_frames(env.params, env.render_config, snaps)
+                     for _ in range(t)], 5),
+        f"of which actor forward ({t} env-steps)": (actor, 5),
+        f"of which uint8 frame-diff epilogue ({t} env-steps)": (
+            lambda: [epilogue() for _ in range(t)], 5),
+        "late replay insert": (lambda: agent.replay.add_trajectory(
+            st.replay, *traj), 10),
+        "block presample": (presample, 10),
+        f"plain learner, {c.updates_per_step} conv updates": (
+            plain_learner, 3),
+    }
+    _print_split("pixel train-step split", parts, lambda: agent.train_step(st))
+
+
 def main() -> int:
     import torch
 
@@ -1574,6 +1947,11 @@ def main() -> int:
     b7 = phase_b7(dev)
     naf_launches = phase_naf_main_path()
     phase_naf_step_split(dev)
+    p_pix, poses, b10 = phase_b10(dev)
+    b11 = phase_b11(dev, p_pix, poses)
+    del poses
+    pixel_launches, cull_launches = phase_pixel_main_path()
+    phase_pixel_step_split(dev)
 
     b1_main = b1["discrete"]  # the benchmark's default params
     kernels = [
@@ -1641,6 +2019,24 @@ def main() -> int:
              launched_by="train.main --agent lrpg",
              max_abs_err=b9["max_abs_err"],
              ms=b9["ms"], plain_ms=b9["plain_ms"], **_bound_keys(b9)),
+        dict(name="B10 render_frames", route="cuda",
+             source="cartpoleplusplus_tpu_torch/csrc/render.cu",
+             replaces="cartpoleplusplus_tpu/ops/render_kernel.py:107",
+             launches=pixel_launches["B10"],
+             launched_by="train.main --obs-mode pixels (pixels preset "
+                         "env and agent fields)",
+             max_abs_err=max(v["max_abs_err"] for v in b10.values()),
+             ms=b10["gray"]["ms"], plain_ms=b10["gray"]["plain_ms"],
+             **_bound_keys(b10["gray"])),
+        dict(name="B11 render_culled", route="cuda",
+             source="cartpoleplusplus_tpu_torch/csrc/render.cu",
+             replaces="cartpoleplusplus_tpu/ops/render_kernel.py:125",
+             launches=cull_launches["B11"],
+             launched_by="train.main --obs-mode pixels under "
+                         "CARTPOLE_RENDER_CULL=1",
+             max_abs_err=max(v["max_abs_err"] for v in b11.values()),
+             ms=b11["gray"]["ms"], plain_ms=b11["gray"]["plain_ms"],
+             **_bound_keys(b11["gray"])),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

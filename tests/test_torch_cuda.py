@@ -1,4 +1,4 @@
-"""Kernels B1 to B9 against their plain torch twins on a CUDA GPU.
+"""Kernels B1 to B11 against their plain torch twins on a CUDA GPU.
 
 These need the card and skip elsewhere. The GPU machine has no JAX, so run
 them there without tests/conftest.py (which imports it):
@@ -591,3 +591,120 @@ def test_naf_cli_launches_b6_and_b7_per_train_step(cuda):
         assert lk.naf_update_phase.launches == b7 + n_b7
         assert all(m["rollout_impl"] == 1.0 and m["learner_impl"] == impl
                    for m in steps)
+
+
+def _pixel_poses(cuda, n, seed):
+    """n adversarial poses (positions uniform in +-2.2, tilts up to |s| =
+    0.995) as a PhysState on the card."""
+    from cartpoleplusplus_tpu_torch.physics import rest_state
+
+    g = torch.Generator().manual_seed(seed)
+    pos = torch.stack([torch.rand(n, generator=g) * 4.4 - 2.2,
+                       torch.rand(n, generator=g) * 4.4 - 2.2,
+                       torch.full((n,), 0.0978)], -1)
+    s = torch.rand((n, 2), generator=g) * 1.98 - 0.99
+    nrm = s.norm(dim=-1, keepdim=True)
+    s = torch.where(nrm > 0.995, s * 0.995 / nrm, s)
+    return rest_state(continuous_params(), (n,), device=cuda)._replace(
+        pos=pos.to(cuda), s=s.to(cuda))
+
+
+@pytest.mark.parametrize("size", [(48, 48), (20, 13)])
+@pytest.mark.parametrize("gray", [True, False], ids=["gray", "rgb"])
+def test_b10_matches_twin(cuda, gray, size):
+    """B10 against render_all_cameras on adversarial poses: every pixel
+    within 1e-5, one counted launch, the frames' layout (N, H, W, C x 2)."""
+    from cartpoleplusplus_tpu_torch.env import pixels as px
+    from cartpoleplusplus_tpu_torch.ops import render_kernel as rk
+
+    p = continuous_params()
+    cfg = px.RenderConfig(width=size[0], height=size[1], grayscale=gray)
+    phys = _pixel_poses(cuda, 3 * B, seed=1)
+    before = rk.render_frames.launches
+    got = rk.render_frames(p, cfg, phys)
+    assert rk.render_frames.launches == before + 1
+    want = px.render_all_cameras(p, phys, cfg)
+    nch = cfg.channels_per_camera
+    assert got.shape == want.shape == (3 * B, size[1], size[0], 2 * nch)
+    torch.testing.assert_close(got, want, rtol=0.0, atol=1e-5)
+    assert float((want[1:] - want[:-1]).abs().max()) > 0.05
+
+
+@pytest.mark.parametrize("gray", [True, False], ids=["gray", "rgb"])
+def test_b11_matches_b10(cuda, gray):
+    """B11 (row-band culling) gives B10's frames within 1e-6 on adversarial
+    poses, one counted launch of its own."""
+    from cartpoleplusplus_tpu_torch.env import pixels as px
+    from cartpoleplusplus_tpu_torch.ops import render_kernel as rk
+
+    p = continuous_params()
+    cfg = px.RenderConfig(grayscale=gray)
+    phys = _pixel_poses(cuda, B, seed=2)
+    before = (rk.render_frames.launches, rk.render_culled.launches)
+    full = rk.render_frames(p, cfg, phys)
+    cut = rk.render_culled(p, cfg, phys)
+    assert (rk.render_frames.launches, rk.render_culled.launches) == (
+        before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(cut, full, rtol=0.0, atol=1e-6)
+
+
+def test_render_rejects_too_many_cameras(cuda):
+    """The launcher keeps at most 8 camera bands: more cameras raise."""
+    from cartpoleplusplus_tpu_torch.env import pixels as px
+    from cartpoleplusplus_tpu_torch.ops import render_kernel as rk
+
+    cfg = px.RenderConfig(width=8, height=8,
+                          cameras=(px.CameraConfig(),) * 9)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        rk.render_frames(continuous_params(), cfg, _pixel_poses(cuda, 4, 3))
+
+
+def test_pixel_cli_launches_b10_per_env_step(cuda, monkeypatch):
+    """2 pixel train steps (512 envs, 48 x 48 gray uint8 frame-diff, block
+    sampling): B10 once per env.step, once for the initial reset and once
+    for the cached reset frame, the plain rollout and learner, no other
+    kernel; under
+    CARTPOLE_RENDER_CULL=1 the same count of B11 launches instead."""
+    from cartpoleplusplus_tpu_torch.ops import render_kernel as rk
+
+    argv = ["--obs-mode", "pixels", "--num-envs", "512",
+            "--render-grayscale", "--render-obs-uint8", "--render-frame-diff",
+            "--render-frame-diff-gain", "4", "--ddpg.sample", "block",
+            "--ddpg.replay-capacity-per-env", "64", "--total-env-steps", "16",
+            "--log-interval", "1"]
+    others = (pr.policy_rollout, lk.ddpg_update_phase)
+    for cull, wrapper in (("0", rk.render_frames), ("1", rk.render_culled)):
+        monkeypatch.setenv("CARTPOLE_RENDER_CULL", cull)
+        before = wrapper.launches
+        other = [f.launches for f in others]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(io.StringIO()):
+            assert train.main(argv) == 0
+        steps = [json.loads(x) for x in out.getvalue().splitlines()]
+        assert [m["train_step"] for m in steps] == [1, 2]
+        assert wrapper.launches == before + 1 + 1 + 16
+        assert [f.launches for f in others] == other
+        assert all(m["rollout_impl"] == 0.0 and m["learner_impl"] == 0.0
+                   for m in steps)
+        assert steps[1]["critic_loss"] > 0.0
+
+
+def test_uncovered_rollout_runs_plain_on_the_card(cuda):
+    """`--obs-mode state` (B2 does not cover it): the plain rollout on the
+    card with one stderr line naming B2, `rollout_impl` 0, B2 never
+    launched, B3 still taking the update phase."""
+    b2, b3 = pr.policy_rollout.launches, lk.ddpg_update_phase.launches
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        assert train.main(["--obs-mode", "state", "--num-envs", "1000",
+                           "--total-env-steps", "24", "--log-interval",
+                           "1"]) == 0
+    told = [ln for ln in err.getvalue().splitlines()
+            if "kernel B2 does not cover" in ln]
+    assert len(told) == 1, err.getvalue()
+    steps = [json.loads(x) for x in out.getvalue().splitlines()]
+    assert all(m["rollout_impl"] == 0.0 and m["learner_impl"] == 1.0
+               for m in steps)
+    assert pr.policy_rollout.launches == b2
+    assert lk.ddpg_update_phase.launches == b3 + 2  # past the warmup of 16

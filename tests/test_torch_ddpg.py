@@ -173,20 +173,33 @@ def test_train_cli_cpu():
 
 @pytest.mark.parametrize("argv", [["--obs-mode", "state"],
                                   ["--ddpg.hidden", *["8"] * 5]])
-def test_train_cli_cuda_rejects_shapes_b2_does_not_cover(monkeypatch, argv):
-    """On a GPU the CLI never trades kernel B2 for the plain rollout."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+def test_train_cli_cuda_rejects_shapes_b2_does_not_cover(argv):
+    """On a GPU a shape B2 does not cover runs the plain rollout on the
+    card: the agent resolves to it at construction with one stderr line
+    naming the kernel (train.build with --device cuda; no card here to
+    train on)."""
+    assert _cuda_plain_rollout(["--num-envs", "8", *argv], "B2")
+
+
+def _cuda_plain_rollout(argv, kernel):
+    """Whether train.build on --device cuda resolves the agent to the plain
+    rollout with exactly one stderr line naming `kernel`."""
+    args = ttrain.build_parser().parse_args(["--device", "cuda", *argv])
     err = io.StringIO()
     with contextlib.redirect_stderr(err):
-        assert ttrain.main(["--num-envs", "8", *argv]) == 2
-    assert "kernel B2 does not cover" in err.getvalue()
+        _, agent = ttrain.build(ttrain.from_args(ttrain.RunConfig, args),
+                                args, set())
+    told = [ln for ln in err.getvalue().splitlines()
+            if f"kernel {kernel} does not cover" in ln]
+    return agent.kernel_rollout is False and len(told) == 1
 
 
 @pytest.mark.parametrize("argv", [["--ckpt-dir", "x"], ["--preset", "fast"],
                                   ["--agent", "naf", "--naf.dtype",
                                    "bfloat16"],
                                   ["--agent", "naf", "--naf.sample", "block"],
-                                  ["--obs-mode", "pixels"]])
+                                  ["--obs-mode", "pixels", "--num-envs", "8",
+                                   "--render-dtype", "bfloat16"]])
 def test_train_cli_rejects_unported(argv):
     with contextlib.redirect_stderr(io.StringIO()):
         assert ttrain.main(["--device", "cpu", *argv]) == 2

@@ -31,7 +31,7 @@ from cartpoleplusplus_tpu_torch.models.from_jax import (
     qnet_from_flax,
     qnet_state_dict,
 )
-from test_torch_ddpg import _column_indices, _perturb
+from test_torch_ddpg import _column_indices, _cuda_plain_rollout, _perturb
 
 HIDDEN = (32, 32)
 
@@ -318,13 +318,13 @@ def test_train_cli_cuda_without_gpu_is_an_error(monkeypatch):
 @pytest.mark.parametrize("argv", [["--obs-mode", "state"],
                                   ["--dqn.hidden", *["8"] * 5],
                                   ["--dqn.hidden", "2048"]])
-def test_train_cli_cuda_rejects_shapes_b4_does_not_cover(monkeypatch, argv):
-    """On a GPU the DQN CLI never trades kernel B4 for the plain rollout."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    err = io.StringIO()
-    with contextlib.redirect_stderr(err):
-        assert ttrain.main(["--agent", "dqn", "--num-envs", "8", *argv]) == 2
-    assert "kernel B4 does not cover" in err.getvalue()
+def test_train_cli_cuda_rejects_shapes_b4_does_not_cover(argv):
+    """On a GPU a shape B4 does not cover runs the plain rollout on the
+    card: the agent resolves to it at construction with one stderr line
+    naming the kernel (train.build with --device cuda; no card here to
+    train on)."""
+    assert _cuda_plain_rollout(["--agent", "dqn", "--num-envs", "8", *argv],
+                               "B4")
 
 
 @pytest.mark.parametrize("argv", [["--agent", "naf",
@@ -351,8 +351,9 @@ def test_dqn_rejects_the_continuous_env():
 
 
 def test_port_imports_no_jax():
-    """The DQN, LRPG and NAF slices, the random agent and chip_smoke.py
-    import neither JAX nor the JAX package: the GPU machine has no JAX."""
+    """The DQN, LRPG and NAF slices, the random agent, the renderer and
+    chip_smoke.py import neither JAX nor the JAX package: the GPU machine
+    has no JAX."""
     import os
     import subprocess
     import sys
@@ -367,7 +368,9 @@ def test_port_imports_no_jax():
             "cartpoleplusplus_tpu_torch.agents.naf, "
             "cartpoleplusplus_tpu_torch.ops.naf_rollout, "
             "cartpoleplusplus_tpu_torch.ops.learner_kernel, "
-            "cartpoleplusplus_tpu_torch.models.from_jax; "
+            "cartpoleplusplus_tpu_torch.models.from_jax, "
+            "cartpoleplusplus_tpu_torch.env.pixels, "
+            "cartpoleplusplus_tpu_torch.ops.render_kernel; "
             "print(sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'cartpoleplusplus_tpu.')) or "
             "m == 'cartpoleplusplus_tpu'))")

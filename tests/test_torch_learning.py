@@ -1,5 +1,5 @@
-"""Learning assertion for the port's DQN on the CPU: the torch copy of
-tests/test_learning.py::test_dqn_learns_discrete, same config and budget,
+"""Learning assertions for the port's DQN and DDPG on the CPU: the torch
+copies of tests/test_learning.py's tests, same configs and budgets,
 against the JAX package's random-agent baseline on the same env."""
 
 import jax
@@ -38,3 +38,37 @@ def test_dqn_learns_discrete():
     assert greedy > 2.0 * random_len, (
         f"greedy {greedy:.1f} vs random {random_len:.1f} — DQN did not "
         "learn (loss sign / target / replay regression?)")
+
+
+def test_ddpg_learns_continuous():
+    """DDPG (continuous config 3, pushes + shaped reward): after 3k
+    per-env steps the greedy actor must balance at least 3x longer than
+    random and reach episodes beyond 40 steps (the reference's bars,
+    tests/test_learning.py, same config and budget). The plain learner and
+    rollout run (the CPU). Measured greedy 30.1 (max 68) against random
+    5.35 at these seeds."""
+    from cartpoleplusplus_tpu_torch.agents import DDPG, DDPGConfig
+    from cartpoleplusplus_tpu_torch.physics.params import continuous_params
+    from cartpoleplusplus_tpu.physics.params import (
+        continuous_params as jcontinuous_params)
+
+    torch.set_num_threads(1)
+    env = CartPole3D(continuous_params(), num_envs=64)
+    agent = DDPG(env, DDPGConfig(hidden=(64, 64), rollout_steps=16,
+                                 updates_per_step=8, batch_size=128,
+                                 replay_capacity_per_env=512,
+                                 ou_sigma_decay_env_steps=2000,
+                                 warmup_env_steps=32))
+    st = agent.init(0)
+    for _ in range(3000 // 16):
+        st, _ = agent.train_step(st)
+    stats = agent.evaluate(st, 400, 7)
+    greedy = float(stats["mean_episode_length"])
+    jenv = JCartPole3D(jcontinuous_params(), num_envs=64)
+    random_len = float(jax.jit(RandomAgent(jenv).evaluate,
+                               static_argnums=(1,))(
+        jax.random.PRNGKey(7), 400)["mean_episode_length"])
+    assert greedy > 3.0 * random_len, (
+        f"greedy {greedy:.1f} vs random {random_len:.1f} — DDPG did not "
+        "learn (actor/critic loss or Polyak regression?)")
+    assert float(stats["max_episode_length"]) > 40.0

@@ -43,7 +43,7 @@ from cartpoleplusplus_tpu_torch.models.from_jax import (
 from cartpoleplusplus_tpu_torch.ops import pg_rollout as tpg
 from cartpoleplusplus_tpu_torch.physics.params import continuous_params
 from cartpoleplusplus_tpu_torch.utils import prng as tprng
-from test_torch_ddpg import _perturb
+from test_torch_ddpg import _cuda_plain_rollout, _perturb
 from test_torch_q_rollout import _assert_rollouts_match, _port_inputs
 
 F = 42
@@ -422,12 +422,10 @@ def test_train_cli_random_cpu():
     assert all(np.isfinite(v) for v in stats.values())
 
 
-def test_train_cli_cuda_rejects_shapes_b8_does_not_cover(monkeypatch):
-    """On a GPU the LRPG CLI never trades kernel B8 for the plain
-    rollout."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    err = io.StringIO()
-    with contextlib.redirect_stderr(err):
-        assert ttrain.main(["--agent", "lrpg", "--num-envs", "8",
-                            "--obs-mode", "state"]) == 2
-    assert "kernel B8 does not cover" in err.getvalue()
+def test_train_cli_cuda_rejects_shapes_b8_does_not_cover():
+    """On a GPU a shape B8 does not cover runs the plain rollout on the
+    card: the agent resolves to it at construction with one stderr line
+    naming the kernel (train.build with --device cuda; no card here to
+    train on)."""
+    assert _cuda_plain_rollout(["--agent", "lrpg", "--num-envs", "8",
+                                "--obs-mode", "state"], "B8")

@@ -32,7 +32,7 @@ from cartpoleplusplus_tpu_torch.models.from_jax import (
     naf_state_from_jax,
 )
 from cartpoleplusplus_tpu_torch.physics.params import continuous_params
-from test_torch_ddpg import _column_indices, _perturb
+from test_torch_ddpg import _column_indices, _cuda_plain_rollout, _perturb
 
 HIDDEN = (32, 32)
 
@@ -331,13 +331,13 @@ def test_train_cli_cpu():
 @pytest.mark.parametrize("argv", [["--obs-mode", "state"],
                                   ["--naf.hidden", *["8"] * 5],
                                   ["--naf.hidden", "2048"]])
-def test_train_cli_cuda_rejects_shapes_b6_does_not_cover(monkeypatch, argv):
-    """On a GPU the NAF CLI never trades kernel B6 for the plain rollout."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    err = io.StringIO()
-    with contextlib.redirect_stderr(err):
-        assert ttrain.main(["--agent", "naf", "--num-envs", "8", *argv]) == 2
-    assert "kernel B6 does not cover" in err.getvalue()
+def test_train_cli_cuda_rejects_shapes_b6_does_not_cover(argv):
+    """On a GPU a shape B6 does not cover runs the plain rollout on the
+    card: the agent resolves to it at construction with one stderr line
+    naming the kernel (train.build with --device cuda; no card here to
+    train on)."""
+    assert _cuda_plain_rollout(["--agent", "naf", "--num-envs", "8", *argv],
+                               "B6")
 
 
 def test_unported_settings_and_the_discrete_env_raise():
