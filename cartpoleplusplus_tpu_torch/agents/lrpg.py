@@ -120,8 +120,7 @@ class LRPG:
 
     def kernel_learner_ok(self) -> bool:
         """Whether kernel B9 covers this config: state observations, 1 to 4
-        hidden layers whose sub-tile of at least 8 rows fits in shared
-        memory (`lk.lrpg_covers`), and float32."""
+        hidden layers of any width (`lk.lrpg_covers`), and float32."""
         c = self.cfg
         return (self.env.obs_mode != "pixels"
                 and lk.lrpg_covers(self.env.obs_size, c.hidden)

@@ -17,7 +17,7 @@
 // grid carrying accumulators in VMEM; CUDA blocks run in no order.
 //
 // Design: ONE cooperative persistent launch per phase, on the stage engine
-// of learner_stages.cuh (shared with B5): every block walks the same list
+// of learner_stages.cuh (shared with B5 and B7): every block walks the same list
 // of stages and cg::this_grid().sync() orders them, so the serial
 // dependence (stage after stage, critic Adam before the actor pass, update
 // k before k + 1) is a loop inside the kernel and the launch count does
@@ -29,6 +29,12 @@
 // in place in their 8 group buffers; activations, saved pre-LN values and
 // gradient rows go to the wrapper's workspace (a few MB at the defaults,
 // in L2).
+//
+// A second design was tried and removed: the phase in one cluster of 16
+// CTAs, each running both passes for its own batch rows in shared memory,
+// with 4 cluster barriers per update instead of 20 grid barriers. At the
+// defaults it was slower than this one on the H100 (PERF.md, Findings):
+// its products and batch sums were latency-bound on 16 SMs.
 //
 // Numerics: the library is built with --fmad=false, so a*b+c is two
 // rounded operations, as in the twin. The matrix-product and batch-sum

@@ -18,25 +18,32 @@
 // ~73 us at 67 TFLOP/s; the window is ~23 MB (~7 us at 3.35 TB/s).
 // Design: the Pallas kernel's grid over row blocks, made parallel. Pass 1:
 // each of up to kPgMaxBlocks blocks takes a fixed slice of rows and walks
-// it in sub-tiles of R rows, with the activations in shared memory and the
-// products computed thread by thread through (128 x 32) weight tiles
-// staged in shared memory; each gradient element is one thread's sum over
-// the sub-tile, added into the block's own row of the workspace. R is the
-// largest of 32, 16 and 8 whose sub-tile fits in a block's shared memory,
-// so wide networks take fewer rows at a time: two layers run 32 rows up to
-// width 272, 16 up to 552 and 8 up to 1114; four layers 32 up to 162, 16
-// up to 331 and 8 up to 668. Pass 2: one
-// thread per parameter element sums the blocks' rows in block order and
-// applies Adam. No float atomics and a block count fixed by N alone, so
-// two runs give the same bits on any card. The stage engine of B3/B5
-// (learner_stages.cuh) sums each element in one thread over the whole
-// batch, which at N = 131,072 would be ~7.5k serial 131k-long chains; only
-// its LayerNorm statistics and constants are shared.
+// it in sub-tiles of R rows, with the products computed thread by thread
+// through (128 x 32) weight tiles staged in shared memory; each gradient
+// element is one thread's sum over the sub-tile, added into the block's
+// own row of the workspace. The sub-tile's activations (obs rows, every
+// layer's pre-LN and relu rows, the gradient rows) live in shared memory
+// when a tile of 32, 16 or 8 rows fits there (R the largest that fits: two
+// layers run 32 rows up to width 272, 16 up to 552 and 8 up to 1114; four
+// layers 32 up to 162, 16 up to 331 and 8 up to 668). A wider network
+// takes the workspace route: the same 8-row sub-tile, carved from the
+// block's own slice of the global workspace (only the weight tile stays in
+// shared memory), so B9 takes every width the reference's kernel takes.
+// The two routes run the same arithmetic in the same order, so at 8 rows
+// they give the same bits. Pass 2: one thread per parameter element sums
+// the blocks' rows in block order and applies Adam. No float atomics and a
+// block count fixed by N and the widths alone (at most kPgMaxBlocks, and
+// at most kPgPartialFloats floats of partial rows), so two runs give the
+// same bits on any card. The stage engine of B3/B5 (learner_stages.cuh)
+// sums each element in one thread over the whole batch, which at N =
+// 131,072 would be ~7.5k serial 131k-long chains; only its LayerNorm
+// statistics and constants are shared.
 #include "learner_stages.cuh"
 
 // Mirror of ops/_native.py::PgDims.
 struct PgDims {
   int num_layers, obs_dim, n_rows;
+  int spill;   // 1: the sub-tile lives in the workspace, not shared memory
   int hidden[kMaxLayers];
   NetLayout net;
 };
@@ -51,6 +58,10 @@ namespace {
 
 constexpr int kPgActions = 5;               // ops/learner_kernel.py::NUM_ACTIONS
 constexpr int kPgMaxBlocks = 256;           // pass-1 blocks at most
+// Floats of pass-1 partial rows at most (blocks x (P + 1)): wide networks
+// take fewer blocks (ops/learner_kernel.py::PG_PARTIAL_FLOATS).
+constexpr long long kPgPartialFloats = 1LL << 27;
+constexpr int kPgSpillRows = kWarps;        // the workspace route's R
 constexpr int kPgKc = 128;                  // weight-tile rows (inputs)
 constexpr int kWsLd = kTC + 1;              // weight-tile row stride
 // The shared memory one H100 block may use (ops/_native.py::MAX_SMEM).
@@ -72,8 +83,9 @@ struct PgTile {
 };
 
 // Carves the tile of `rows` rows from `base` (or only counts floats when it
-// is null); the host and the kernel share this one definition of the
-// layout, and ops/learner_kernel.py::pg_tile_floats repeats its count.
+// is null), the weight tile last unless `with_wt` is false; the host and
+// the kernel share this one definition of the layout, and
+// ops/learner_kernel.py::pg_tile_floats repeats its count.
 __host__ __device__ __forceinline__ float* take(float* base, int& off,
                                                 int n) {
   float* p = base != nullptr ? base + off : nullptr;
@@ -82,7 +94,7 @@ __host__ __device__ __forceinline__ float* take(float* base, int& off,
 }
 
 __host__ __device__ int carve_tile(const PgDims& d, int rows, float* base,
-                                   PgTile* t) {
+                                   PgTile* t, bool with_wt = true) {
   int off = 0;
   int hmax = 0;
   t->x = take(base, off, rows * d.obs_dim);
@@ -98,7 +110,8 @@ __host__ __device__ int carve_tile(const PgDims& d, int rows, float* base,
   t->dh = take(base, off, rows * hmax);
   t->dz = take(base, off, rows * hmax);
   t->loss = take(base, off, rows);
-  t->wt = take(base, off, (kmax < kPgKc ? kmax : kPgKc) * kWsLd);
+  t->wt = with_wt ? take(base, off, (kmax < kPgKc ? kmax : kPgKc) * kWsLd)
+                  : nullptr;
   return off;
 }
 
@@ -188,15 +201,24 @@ __device__ void grad_b(const float* G, int out, float* dst, bool first) {
 
 // Pass 1: block b sums the gradient and the loss terms of rows [b rpb,
 // min(N, (b + 1) rpb)) into ws[b (P + 1) ...], P = d.net.size, the loss
-// sum last; rpb is a multiple of R.
+// sum last; rpb is a multiple of R. With d.spill the sub-tile is block b's
+// slice of `tiles` (tile_floats each) and only the weight tile is in
+// shared memory.
 template <int R>
 __global__ void __launch_bounds__(kThreads) lrpg_grad_kernel(
     const PgDims d, const PgConsts c, const float* __restrict__ prm,
     const float* __restrict__ obs, const int* __restrict__ act,
-    const float* __restrict__ adv, float* __restrict__ ws, const int rpb) {
+    const float* __restrict__ adv, float* __restrict__ ws, const int rpb,
+    float* __restrict__ tiles, const int tile_floats) {
   extern __shared__ float smem[];
   PgTile t;
-  carve_tile(d, R, smem, &t);
+  if (d.spill) {
+    carve_tile(d, R, tiles + static_cast<size_t>(blockIdx.x) * tile_floats,
+               &t, false);
+    t.wt = smem;
+  } else {
+    carve_tile(d, R, smem, &t);
+  }
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int F = d.obs_dim, nl = d.num_layers, N = d.n_rows;
   const int* H = d.hidden;
@@ -367,15 +389,10 @@ __global__ void __launch_bounds__(kThreads) lrpg_adam_kernel(
   v[i] = vv;
 }
 
-// The sub-tile's row count for these dims: the largest of 32, 16 and 8
-// whose tile fits in shared memory, or 0 for dims the kernel does not take
+// The shared-memory sub-tile's row count for these dims: the largest of
+// 32, 16 and 8 whose tile fits in shared memory, 0 when none fits
 // (ops/learner_kernel.py::pg_tile_rows is its twin).
-int tile_rows(const PgDims& d) {
-  if (d.num_layers < 1 || d.num_layers > kMaxLayers || d.obs_dim < 1 ||
-      d.n_rows < 1 || d.net.size < 1)
-    return 0;
-  for (int l = 0; l < d.num_layers; ++l)
-    if (d.hidden[l] < 1) return 0;
+int smem_tile_rows(const PgDims& d) {
   PgTile t;
   for (int rows = 32; rows >= kWarps; rows /= 2)
     if (static_cast<size_t>(carve_tile(d, rows, nullptr, &t)) * sizeof(float)
@@ -384,28 +401,54 @@ int tile_rows(const PgDims& d) {
   return 0;
 }
 
-// Rows per pass-1 block (a multiple of `rows`) and the block count: at most
-// kPgMaxBlocks, fixed by N and the widths alone.
-void plan(int n_rows, int rows, int* rpb, int* blocks) {
-  const int tiles = (n_rows + rows - 1) / rows;
-  *rpb = (tiles + kPgMaxBlocks - 1) / kPgMaxBlocks * rows;
-  *blocks = (n_rows + *rpb - 1) / *rpb;
+// The sub-tile's row count on the route d.spill names, or 0 for dims the
+// kernel does not take (not 1 to 4 layers, or the shared-memory route
+// where no tile fits).
+int tile_rows(const PgDims& d) {
+  if (d.num_layers < 1 || d.num_layers > kMaxLayers || d.obs_dim < 1 ||
+      d.n_rows < 1 || d.net.size < 1 || (d.spill != 0 && d.spill != 1))
+    return 0;
+  for (int l = 0; l < d.num_layers; ++l)
+    if (d.hidden[l] < 1) return 0;
+  return d.spill ? kPgSpillRows : smem_tile_rows(d);
 }
 
-// Pass 1 at R rows per sub-tile: lifts the shared-memory limit to `smem`
-// and launches.
+// Floats of one workspace-route sub-tile (the weight tile excluded),
+// rounded up to 128-byte pieces.
+long long spill_tile_floats(const PgDims& d) {
+  PgTile t;
+  return (carve_tile(d, kPgSpillRows, nullptr, &t, false) + 31) / 32 * 32;
+}
+
+// Rows per pass-1 block (a multiple of `rows`) and the block count: at most
+// kPgMaxBlocks and at most kPgPartialFloats / (P + 1), fixed by N and the
+// widths alone.
+void plan(const PgDims& d, int rows, int* rpb, int* blocks) {
+  long long cap = kPgPartialFloats / (d.net.size + 1);
+  cap = cap < 1 ? 1 : (cap > kPgMaxBlocks ? kPgMaxBlocks : cap);
+  const int tiles = (d.n_rows + rows - 1) / rows;
+  *rpb = (tiles + static_cast<int>(cap) - 1) / static_cast<int>(cap) * rows;
+  *blocks = (d.n_rows + *rpb - 1) / *rpb;
+}
+
+// Pass 1 at R rows per sub-tile: lifts the shared-memory limit to what the
+// route needs and launches.
 template <int R>
 cudaError_t launch_grad(const PgDims& d, const PgConsts& c, const float* p,
                         const float* obs, const int* act, const float* adv,
                         float* ws, int rpb, int blocks, cudaStream_t s) {
   PgTile t;
-  const size_t smem = sizeof(float) * carve_tile(d, R, nullptr, &t);
+  const int all = carve_tile(d, R, nullptr, &t);
+  const int tile = carve_tile(d, R, nullptr, &t, false);
+  const size_t smem = sizeof(float) * (d.spill ? all - tile : all);
+  const long long tf = d.spill ? spill_tile_floats(d) : 0;
+  float* tiles = ws + static_cast<size_t>(blocks) * (d.net.size + 1);
   const cudaError_t err = cudaFuncSetAttribute(
       lrpg_grad_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  lrpg_grad_kernel<R><<<blocks, kThreads, smem, s>>>(d, c, p, obs, act, adv,
-                                                     ws, rpb);
+  lrpg_grad_kernel<R><<<blocks, kThreads, smem, s>>>(
+      d, c, p, obs, act, adv, ws, rpb, tiles, static_cast<int>(tf));
   return cudaGetLastError();
 }
 
@@ -414,13 +457,15 @@ cudaError_t launch_grad(const PgDims& d, const PgConsts& c, const float* p,
 extern "C" {
 
 // Floats of workspace cp_lrpg_update_phase needs for these dims (0 when
-// the dims are outside what the kernel takes).
+// the dims are outside what the kernel takes): the blocks' partial rows,
+// then on the workspace route each block's sub-tile.
 long long cp_lrpg_workspace_floats(const PgDims* dims) {
   const int rows = tile_rows(*dims);
   if (rows == 0) return 0;
   int rpb, blocks;
-  plan(dims->n_rows, rows, &rpb, &blocks);
-  return static_cast<long long>(blocks) * (dims->net.size + 1);
+  plan(*dims, rows, &rpb, &blocks);
+  return static_cast<long long>(blocks) *
+         (dims->net.size + 1 + (dims->spill ? spill_tile_floats(*dims) : 0));
 }
 
 // One LRPG update on `stream`, as two launches (pass 1, pass 2). p, m, v:
@@ -436,7 +481,7 @@ int cp_lrpg_update_phase(const PgDims* dims, const PgConsts* consts,
   const int rows = tile_rows(d);
   if (rows == 0) return static_cast<int>(cudaErrorInvalidValue);
   int rpb, blocks;
-  plan(d.n_rows, rows, &rpb, &blocks);
+  plan(d, rows, &rpb, &blocks);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (rows == 32)

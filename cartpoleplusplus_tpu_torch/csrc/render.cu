@@ -18,23 +18,29 @@
 // Bound on the H100: ~130 float operations per pixel and camera against 4
 // or 12 bytes of output, so operations bound it (at 2048 envs x 3 repeat
 // snapshots x 2 cameras x 48 x 48, 3.7 GFLOP against 113 MB written in
-// grayscale). Design (simple and exact first): one thread per (env,
-// pixel); the thread loops over the cameras and writes the pixel's
-// channels of every camera side by side, so a warp's stores are one
-// contiguous run of the channels-last frame (N, H*W, cameras*channels) —
-// the layout the env stacks. The env's 6 columns are the same address for
-// the whole block (a broadcast load); the per-camera ray and static rows
-// (14 or 16 rows of H*W floats, 129-147 KB per camera at 48 x 48) stay in
-// L1/L2. One launch renders all R repeat snapshots of an env-step, stacked
-// as N = R x B virtual envs, and every camera.
+// grayscale). Design "env-looped": a block takes 256 pixels x E envs (E =
+// kEnvs = 8; 16 was no faster in gray and slower in RGB on the H100,
+// PERF.md). Per camera, a
+// thread loads its pixel's 14 (gray) or 16 (RGB) camera rows (the rays,
+// t_g, the background, the slab half-widths and light terms; the same for
+// every env) into registers once, then shades each of the block's envs
+// from them, the envs' 6 columns in shared memory. The design it replaced
+// (one thread per (env, pixel)) read those rows from L2 again for
+// every env, ~1.8 GB per env-step at the pixels preset; this one reads
+// them E times less. Each thread writes its pixel's channels of every
+// camera side by side, so for each env a warp's stores are one contiguous
+// run of the channels-last frame (N, H*W, cameras*channels), the layout
+// the env stacks. One launch renders all R repeat snapshots of an
+// env-step, stacked as N = R x B virtual envs, and every camera; a ragged
+// last block of envs is masked.
 //
-// B11: a block's first threads compute its env's conservative screen-row
-// band per camera into shared memory (the reference computes it per block
-// of 8 envs, the union of the same per-env bands), and every thread writes
-// the background rows for a pixel whose row lies outside it, in place of
-// the shade. The band provably holds every
-// body pixel, and outside it the shade composite is the background
-// exactly, so B11 equals B10 bit for bit.
+// B11: the block's first threads compute each of its envs' conservative
+// screen-row band per camera into shared memory (the reference computes
+// it per block of 8 envs, the union of the same per-env bands), and a
+// pixel whose row lies outside an env's band takes the background rows in
+// place of the shade. The band provably holds every body pixel, and
+// outside it the shade composite is the background exactly, so B11
+// equals B10 bit for bit.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -55,6 +61,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kCamFloats = 10;  // eye (3), forward (3), up (3), tan_u
 constexpr int kMaxCams = 8;     // cameras B11 keeps a band for
+constexpr int kEnvs = 8;        // envs a block renders
 
 // env/pixels.py::row_band's sphere_band: the screen-ys interval of a sphere.
 __device__ __forceinline__ void sphere_band(const RenderConsts& c,
@@ -97,33 +104,55 @@ __device__ __forceinline__ float clip01(float v) {
   return fminf(fmaxf(v, 0.0f), 1.0f);
 }
 
-// env/pixels.py::shade_components for one pixel of one camera: rows R
-// (stride npx) hold dx dy dz, 1/dx 1/dy 1/dz, t_g, the background (nch
-// rows), the slab half-widths and the face-normal light terms.
-__device__ __forceinline__ void shade(const RenderConsts& c, const float* E,
-                                      const float* __restrict__ R, int npx,
+// One pixel's camera rows R (stride npx): dx dy dz, 1/dx 1/dy 1/dz, t_g,
+// the background (nch rows), the slab half-widths and the face-normal
+// light terms. The same for every env.
+struct PixRows {
+  float dx, dy, dz, idx, idy, idz, t_g, bg[3], hax, hay, haz, nlx, nly, nlz;
+};
+
+__device__ __forceinline__ void load_rows(const RenderConsts& c,
+                                          const float* __restrict__ R,
+                                          int npx, PixRows& r) {
+  r.dx = R[0];
+  r.dy = R[npx];
+  r.dz = R[2 * npx];
+  r.idx = R[3 * npx];
+  r.idy = R[4 * npx];
+  r.idz = R[5 * npx];
+  r.t_g = R[6 * npx];
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) r.bg[ch] = ch < c.nch ? R[(7 + ch) * npx] : 0.0f;
+  const float* const S = R + (7 + c.nch) * npx;  // after the background
+  r.hax = S[0];
+  r.hay = S[npx];
+  r.haz = S[2 * npx];
+  r.nlx = S[3 * npx];
+  r.nly = S[4 * npx];
+  r.nlz = S[5 * npx];
+}
+
+// env/pixels.py::shade_components for one pixel of one camera whose eye
+// is (ex, ey, ez), from the pixel's rows, for the env at cart (cx, cy, cz)
+// with pole axis (ux, uy, uz).
+__device__ __forceinline__ void shade(const RenderConsts& c, float ex,
+                                      float ey, float ez, const PixRows& r,
                                       float cx, float cy, float cz, float ux,
                                       float uy, float uz, float* v) {
-  const float ex = E[0], ey = E[1], ez = E[2];
-  const float dx = R[0], dy = R[npx], dz = R[2 * npx];
-  const float idx = R[3 * npx], idy = R[4 * npx], idz = R[5 * npx];
-  const float t_g = R[6 * npx];
-  const float* const S = R + (7 + c.nch) * npx;  // after the background
-  const float hax = S[0], hay = S[npx], haz = S[2 * npx];
-  const float nlx = S[3 * npx], nly = S[4 * npx], nlz = S[5 * npx];
+  const float dx = r.dx, dy = r.dy, dz = r.dz;
 
   // --- cart
-  const float qx = (cx - ex) * idx;
-  const float qy = (cy - ey) * idy;
-  const float qz = (cz - ez) * idz;
-  const float tnx = qx - hax, txx = qx + hax;
-  const float tny = qy - hay, txy = qy + hay;
-  const float tnz = qz - haz, txz = qz + haz;
+  const float qx = (cx - ex) * r.idx;
+  const float qy = (cy - ey) * r.idy;
+  const float qz = (cz - ez) * r.idz;
+  const float tnx = qx - r.hax, txx = qx + r.hax;
+  const float tny = qy - r.hay, txy = qy + r.hay;
+  const float tnz = qz - r.haz, txz = qz + r.haz;
   const float t_near = fmaxf(tnx, fmaxf(tny, tnz));
   const float t_far = fminf(txx, fminf(txy, txz));
   const bool hit = (t_near <= t_far) && (t_far > 0.0f);
   const float t_c = hit ? (t_near > 0.0f ? t_near : t_far) : c.big;
-  const float nl_c = (tnx == t_near) ? nlx : ((tny == t_near) ? nly : nlz);
+  const float nl_c = (tnx == t_near) ? r.nlx : ((tny == t_near) ? r.nly : r.nlz);
   const float shade_c = 0.45f + 0.55f * fmaxf(nl_c, 0.0f);
 
   // --- pole: capsule pivot -> tip
@@ -168,54 +197,84 @@ __device__ __forceinline__ void shade(const RenderConsts& c, const float* E,
   const float shade_p = 0.45f + 0.55f * fmaxf(nl_p, 0.0f);
 
   // --- composite over the background
-  const bool cart_closer = t_c < t_g;
-  const bool pole_closer = t_p < fminf(t_c, t_g);
-  for (int ch = 0; ch < c.nch; ++ch) {
-    float lum = cart_closer ? c.cart[ch] * shade_c : R[(7 + ch) * npx];
-    lum = pole_closer ? c.pole[ch] * shade_p : lum;
-    v[ch] = clip01(lum);
+  const bool cart_closer = t_c < r.t_g;
+  const bool pole_closer = t_p < fminf(t_c, r.t_g);
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    if (ch < c.nch) {
+      float lum = cart_closer ? c.cart[ch] * shade_c : r.bg[ch];
+      lum = pole_closer ? c.pole[ch] * shade_p : lum;
+      v[ch] = clip01(lum);
+    }
   }
 }
 
+// A block takes kThreads pixels x kEnvs envs. Each thread loads its pixel's rows of one camera once into registers and
+// shades every env of the block from them; the envs' columns (and, for
+// B11, their bands under every camera) sit in shared memory. A ragged
+// last env block is masked.
 template <bool kCull>
-__global__ void __launch_bounds__(kThreads) render_kernel(
-    const RenderConsts c, const int chunks, const float* __restrict__ cols,
-    const float* __restrict__ rows, const float* __restrict__ cams,
-    float* __restrict__ out) {
-  const int64_t n = blockIdx.x / chunks;
+__global__ void __launch_bounds__(kThreads) render_env_kernel(
+    const RenderConsts c, const int chunks, const int N,
+    const float* __restrict__ cols, const float* __restrict__ rows,
+    const float* __restrict__ cams, float* __restrict__ out) {
+  const int n0i = static_cast<int>(blockIdx.x / chunks) * kEnvs;
+  const int64_t n0 = n0i;
   const int pix = (blockIdx.x % chunks) * kThreads + threadIdx.x;
-  const float* const col = cols + 6 * n;
-  const float cx = col[0], cy = col[1], cz = col[2];
-  const float sx = col[3], sy = col[4], w = col[5];
-  // B11: a block holds one env, so its first ncam threads compute the
-  // env's band under each camera once for the whole block.
-  __shared__ float band[2 * kMaxCams];
+  const int ne = min(kEnvs, N - n0i);
+  __shared__ float col_s[6 * kEnvs];
+  __shared__ float band[2 * kMaxCams * kEnvs];
+  if (threadIdx.x < 6 * ne) col_s[threadIdx.x] = cols[6 * n0 + threadIdx.x];
+  __syncthreads();
   if (kCull) {
-    if (threadIdx.x < c.ncam) {
-      row_band(c, cams + threadIdx.x * kCamFloats, cx, cy, cz, sx, sy, w,
-               band[2 * threadIdx.x], band[2 * threadIdx.x + 1]);
+    for (int i = threadIdx.x; i < ne * c.ncam; i += kThreads) {
+      const int e = i / c.ncam, cam = i - e * c.ncam;
+      const float* col = col_s + 6 * e;
+      float* b = band + 2 * (e * kMaxCams + cam);
+      row_band(c, cams + cam * kCamFloats, col[0], col[1], col[2], col[3],
+               col[4], col[5], b[0], b[1]);
     }
     __syncthreads();
   }
   if (pix >= c.npx) return;
-  float* const o = out + (n * c.npx + pix) * (c.ncam * c.nch);
+  const int stride = c.ncam * c.nch;
+  const float prow = static_cast<float>(pix / c.width);
   for (int cam = 0; cam < c.ncam; ++cam) {
     const float* const E = cams + cam * kCamFloats;
-    const float* const R =
-        rows + static_cast<int64_t>(cam) * c.nrows * c.npx + pix;
-    float v[3];
-    bool inside = true;
-    if (kCull) {
-      const float row = static_cast<float>(pix / c.width);
-      inside = !(row < band[2 * cam] || row > band[2 * cam + 1]);
+    const float ex = E[0], ey = E[1], ez = E[2];
+    PixRows r;
+    load_rows(c, rows + static_cast<int64_t>(cam) * c.nrows * c.npx + pix,
+              c.npx, r);
+    float* o = out + (n0 * c.npx + pix) * stride + cam * c.nch;
+    for (int e = 0; e < ne; ++e, o += static_cast<int64_t>(c.npx) * stride) {
+      const float* col = col_s + 6 * e;
+      float v[3];
+      bool inside = true;
+      if (kCull) {
+        const float* b = band + 2 * (e * kMaxCams + cam);
+        inside = !(prow < b[0] || prow > b[1]);
+      }
+      if (inside) {
+        shade(c, ex, ey, ez, r, col[0], col[1], col[2], col[3], col[4],
+              col[5], v);
+      } else {
+        for (int ch = 0; ch < c.nch; ++ch) v[ch] = r.bg[ch];
+      }
+      for (int ch = 0; ch < c.nch; ++ch) o[ch] = v[ch];
     }
-    if (inside) {
-      shade(c, E, R, c.npx, cx, cy, cz, sx, sy, w, v);
-    } else {
-      for (int ch = 0; ch < c.nch; ++ch) v[ch] = R[(7 + ch) * c.npx];
-    }
-    for (int ch = 0; ch < c.nch; ++ch) o[cam * c.nch + ch] = v[ch];
   }
+}
+
+template <bool kCull>
+cudaError_t launch_env(const RenderConsts& c, int N, int chunks,
+                       const float* cols, const float* rows,
+                       const float* cams, float* out, cudaStream_t st) {
+  const int64_t blocks =
+      static_cast<int64_t>((N + kEnvs - 1) / kEnvs) * chunks;
+  if (blocks > 0x7FFFFFFF) return cudaErrorInvalidValue;
+  render_env_kernel<kCull><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+      c, chunks, N, cols, rows, cams, out);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -235,17 +294,10 @@ int cp_render(const RenderConsts* consts, int N, int cull, const float* cols,
       c.nch < 1 || c.nch > 3)
     return static_cast<int>(cudaErrorInvalidValue);
   const int chunks = (c.npx + kThreads - 1) / kThreads;
-  const int64_t blocks = static_cast<int64_t>(N) * chunks;
-  if (blocks > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (cull) {
-    render_kernel<true><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-        c, chunks, cols, rows, cams, out);
-  } else {
-    render_kernel<false><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-        c, chunks, cols, rows, cams, out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      cull ? launch_env<true>(c, N, chunks, cols, rows, cams, out, st)
+           : launch_env<false>(c, N, chunks, cols, rows, cams, out, st));
 }
 
 }  // extern "C"

@@ -117,7 +117,7 @@ class PgDims(ctypes.Structure):
     """Mirror of `struct PgDims` in csrc/lrpg_update.cu (B9)."""
 
     _fields_ = [(n, ctypes.c_int) for n in (
-        "num_layers", "obs_dim", "n_rows")] + [
+        "num_layers", "obs_dim", "n_rows", "spill")] + [
         ("hidden", ctypes.c_int * MAX_LAYERS), ("net", NetLayout)]
 
 

@@ -168,38 +168,79 @@ def naf_covers(obs_dim: int, hidden: Sequence[int]) -> bool:
 
 
 _PG_KC = 128             # kPgKc in csrc/lrpg_update.cu: weight-tile inputs
+_PG_MAX_BLOCKS = 256     # kPgMaxBlocks: pass-1 blocks at most
+PG_PARTIAL_FLOATS = 1 << 27  # kPgPartialFloats: pass-1 partial rows at most
+_PG_SPILL_ROWS = 8       # kPgSpillRows: the workspace route's sub-tile rows
 
 
-def pg_tile_floats(obs_dim: int, hidden, rows: int) -> int:
-    """Floats of B9's shared-memory sub-tile of `rows` rows, as
-    carve_tile in csrc/lrpg_update.cu counts them (a change to one is a
-    change to both; tests/test_torch_cuda.py holds them together): the
-    obs rows, per layer the pre-LN and relu rows and the LayerNorm
-    statistics, the 5 logits, two gradient rows, the loss terms and one
+def pg_tile_floats(obs_dim: int, hidden, rows: int,
+                   with_wt: bool = True) -> int:
+    """Floats of B9's sub-tile of `rows` rows, as carve_tile in
+    csrc/lrpg_update.cu counts them (a change to one is a change to both;
+    tests/test_torch_cuda.py holds them together): the obs rows, per layer
+    the pre-LN and relu rows and the LayerNorm statistics, the 5 logits,
+    two gradient rows, the loss terms and, unless `with_wt` is false, one
     (<= 128, 33) weight tile."""
     hmax = max(hidden)
+    wt = min(max(obs_dim, hmax), _PG_KC) * 33 if with_wt else 0
     return (rows * (obs_dim + 2 * sum(hidden) + 2 * len(hidden)
-                    + NUM_ACTIONS + 2 * hmax + 1)
-            + min(max(obs_dim, hmax), _PG_KC) * 33)
+                    + NUM_ACTIONS + 2 * hmax + 1) + wt)
+
+
+def pg_tile_spills(obs_dim: int, hidden: Sequence[int]) -> bool:
+    """Whether B9 takes the workspace route: no sub-tile of 32, 16 or 8
+    rows fits in one block's shared memory (two layers wider than 1114,
+    four wider than 668 at obs 42), so the 8-row sub-tile's activations
+    live in the block's slice of the workspace."""
+    return not any(4 * pg_tile_floats(obs_dim, tuple(hidden), r)
+                   <= _native.MAX_SMEM for r in (32, 16, 8))
 
 
 def pg_tile_rows(obs_dim: int, hidden: Sequence[int]) -> int:
     """B9's sub-tile row count (tile_rows in csrc/lrpg_update.cu): the
     largest of 32, 16 and 8 whose tile fits in one block's shared memory,
-    or 0 for a shape B9 does not take (not 1 to 4 layers, or too wide)."""
+    else 8 on the workspace route (`pg_tile_spills`); 0 for a shape B9
+    does not take (not 1 to 4 layers)."""
     hidden = tuple(hidden)
-    if not 1 <= len(hidden) <= _native.MAX_LAYERS:
+    if not 1 <= len(hidden) <= _native.MAX_LAYERS or min(hidden) < 1:
         return 0
     return next((r for r in (32, 16, 8)
                  if 4 * pg_tile_floats(obs_dim, hidden, r)
-                 <= _native.MAX_SMEM), 0)
+                 <= _native.MAX_SMEM), _PG_SPILL_ROWS)
+
+
+def pg_plan(obs_dim: int, hidden: Sequence[int], n_rows: int):
+    """B9's pass-1 plan (plan in csrc/lrpg_update.cu): (sub-tile rows,
+    rows per block, blocks). The block count is at most 256 and at most
+    PG_PARTIAL_FLOATS / (P + 1) for P parameters, so that the partial rows
+    of a wide network stay within 512 MB."""
+    rows = pg_tile_rows(obs_dim, hidden)
+    p = layout_size(policy_layout(obs_dim, hidden))
+    cap = max(1, min(_PG_MAX_BLOCKS, PG_PARTIAL_FLOATS // (p + 1)))
+    tiles = -(-n_rows // rows)
+    rpb = -(-tiles // cap) * rows
+    return rows, rpb, -(-n_rows // rpb)
+
+
+def pg_workspace_floats(obs_dim: int, hidden: Sequence[int],
+                        n_rows: int) -> int:
+    """Floats of B9's workspace (cp_lrpg_workspace_floats): every block's
+    partial row of P + 1 floats and, on the workspace route, every block's
+    sub-tile (128-byte aligned)."""
+    hidden = tuple(hidden)
+    spill = pg_tile_spills(obs_dim, hidden)
+    _, _, blocks = pg_plan(obs_dim, hidden, n_rows)
+    p = layout_size(policy_layout(obs_dim, hidden))
+    tile = (-(-pg_tile_floats(obs_dim, hidden, _PG_SPILL_ROWS, False) // 32)
+            * 32 if spill else 0)
+    return blocks * (p + 1 + tile)
 
 
 def lrpg_covers(obs_dim: int, hidden: Sequence[int]) -> bool:
-    """The shapes B9 takes: 1 to 4 hidden layers whose sub-tile of at
-    least 8 rows fits in shared memory. Two layers of width up to 272 run
-    32-row sub-tiles, up to 552 16 and up to 1114 8; four layers of up
-    to 162, 331 and 668 (obs 42)."""
+    """The shapes B9 takes: 1 to 4 hidden layers of any width (the
+    reference's kernel takes any width). Up to two layers of 1114 or four
+    of 668 (obs 42) the sub-tile lives in shared memory, wider in the
+    workspace (`pg_tile_spills`)."""
     return pg_tile_rows(obs_dim, hidden) > 0
 
 
@@ -963,10 +1004,11 @@ def lrpg_update_phase(groups, window, t0: int, hidden, *, lr: float,
     the window's loss ().
 
     CUDA buffers launch the hand-written kernel (csrc/lrpg_update.cu, a
-    gradient pass and an Adam pass) on the current stream; CPU buffers run
-    `lrpg_update_phase_math` and copy its results into the buffers. Any
-    other device, a shape B9 does not cover (`lrpg_covers`), or a
-    malformed argument raises."""
+    gradient pass and an Adam pass) on the current stream, its sub-tile in
+    shared memory or, where none fits (`pg_tile_spills`), in the
+    workspace. CPU buffers run `lrpg_update_phase_math` and copy its
+    results into the buffers. Any other device, a shape B9 does not cover
+    (`lrpg_covers`), or a malformed argument raises."""
     hidden = tuple(hidden)
     dev = groups[0].device
     if dev.type not in ("cuda", "cpu"):
@@ -996,10 +1038,20 @@ def lrpg_update_phase(groups, window, t0: int, hidden, *, lr: float,
             for d, s in zip(dst, src):
                 d.copy_(s)
         return out[3]
+    return _lrpg_launch(groups, window, t0, hidden, lr, entropy_coef,
+                        pg_tile_spills(obs_dim, hidden))
 
+
+def _lrpg_launch(groups, window, t0, hidden, lr, entropy_coef, spill):
+    """One launch of csrc/lrpg_update.cu on checked CUDA inputs, its
+    sub-tile in the workspace if `spill`, else in shared memory (where no
+    tile fits there, the library rejects the dims)."""
+    n, obs_dim = window[0].shape
+    dev = groups[0].device
+    lay = policy_layout(obs_dim, hidden)
     nl = len(hidden)
     dims = _native.PgDims(num_layers=nl, obs_dim=obs_dim, n_rows=n,
-                          net=_layout_offsets(lay, nl))
+                          spill=int(spill), net=_layout_offsets(lay, nl))
     for i, h in enumerate(hidden):
         dims.hidden[i] = h
     bc1, bc2 = _bias_corrections(float(t0 + 1))
@@ -1012,7 +1064,7 @@ def lrpg_update_phase(groups, window, t0: int, hidden, *, lr: float,
     loss = torch.empty((), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        key = ("lrpg", dev, stream, obs_dim, n, hidden)
+        key = ("lrpg", dev, stream, obs_dim, n, hidden, spill)
         ws = _workspaces.get(key)
         if ws is None:
             size = lib.cp_lrpg_workspace_floats(_native.struct_ptr(dims))

@@ -1955,7 +1955,7 @@ def main() -> int:
 
     b1_main = b1["discrete"]  # the benchmark's default params
     kernels = [
-        dict(name="B1 fused_rollout", route="cuda",
+        dict(name="B1 fused_rollout", route="cuda", design="env-per-thread",
              source="cartpoleplusplus_tpu_torch/csrc/fused_rollout.cu",
              replaces="cartpoleplusplus_tpu/ops/fused_rollout.py:104",
              launches=b1_launches,
@@ -1963,63 +1963,63 @@ def main() -> int:
              max_abs_err=max(v["max_abs_err"] for v in b1.values()),
              ms=b1_main["ms"], plain_ms=b1_main["plain_ms"],
              **_bound_keys(b1_main)),
-        dict(name="B2 policy_rollout", route="cuda",
+        dict(name="B2 policy_rollout", route="cuda", design="32-env-block",
              source="cartpoleplusplus_tpu_torch/csrc/policy_rollout.cu",
              replaces="cartpoleplusplus_tpu/ops/policy_rollout.py:114",
              launches=main_launches["B2"],
              launched_by="train.main (DDPG defaults)",
              max_abs_err=b2["max_abs_err"],
              ms=b2["ms"], plain_ms=b2["plain_ms"], **_bound_keys(b2)),
-        dict(name="B3 ddpg_update_phase", route="cuda",
+        dict(name="B3 ddpg_update_phase", route="cuda", design="stages",
              source="cartpoleplusplus_tpu_torch/csrc/ddpg_update.cu",
              replaces="cartpoleplusplus_tpu/ops/learner_kernel.py:564",
              launches=main_launches["B3"],
              launched_by="train.main (DDPG defaults)",
              max_abs_err=b3["max_abs_err"],
              ms=b3["ms"], plain_ms=b3["plain_ms"], **_bound_keys(b3)),
-        dict(name="B4 q_policy_rollout", route="cuda",
+        dict(name="B4 q_policy_rollout", route="cuda", design="32-env-block",
              source="cartpoleplusplus_tpu_torch/csrc/q_rollout.cu",
              replaces="cartpoleplusplus_tpu/ops/policy_rollout.py:486",
              launches=dqn_launches["B4"],
              launched_by="train.main --agent dqn (DQN defaults)",
              max_abs_err=b4["max_abs_err"],
              ms=b4["ms"], plain_ms=b4["plain_ms"], **_bound_keys(b4)),
-        dict(name="B5 dqn_update_phase", route="cuda",
+        dict(name="B5 dqn_update_phase", route="cuda", design="stages",
              source="cartpoleplusplus_tpu_torch/csrc/dqn_update.cu",
              replaces="cartpoleplusplus_tpu/ops/learner_kernel.py:862",
              launches=dqn_launches["B5"],
              launched_by="train.main --agent dqn (DQN defaults)",
              max_abs_err=b5["max_abs_err"],
              ms=b5["ms"], plain_ms=b5["plain_ms"], **_bound_keys(b5)),
-        dict(name="B6 naf_policy_rollout", route="cuda",
+        dict(name="B6 naf_policy_rollout", route="cuda", design="32-env-block",
              source="cartpoleplusplus_tpu_torch/csrc/policy_rollout.cu",
              replaces="cartpoleplusplus_tpu/ops/policy_rollout.py:486",
              launches=naf_launches["B6"],
              launched_by="train.main --agent naf --naf.learner kernel",
              max_abs_err=b6["max_abs_err"],
              ms=b6["ms"], plain_ms=b6["plain_ms"], **_bound_keys(b6)),
-        dict(name="B7 naf_update_phase", route="cuda",
+        dict(name="B7 naf_update_phase", route="cuda", design="stages",
              source="cartpoleplusplus_tpu_torch/csrc/naf_update.cu",
              replaces="cartpoleplusplus_tpu/ops/learner_kernel.py:1144",
              launches=naf_launches["B7"],
              launched_by="train.main --agent naf --naf.learner kernel",
              max_abs_err=b7["max_abs_err"],
              ms=b7["ms"], plain_ms=b7["plain_ms"], **_bound_keys(b7)),
-        dict(name="B8 pg_policy_rollout", route="cuda",
+        dict(name="B8 pg_policy_rollout", route="cuda", design="32-env-block",
              source="cartpoleplusplus_tpu_torch/csrc/q_rollout.cu",
              replaces="cartpoleplusplus_tpu/ops/policy_rollout.py:486",
              launches=lrpg_launches["B8"],
              launched_by="train.main --agent lrpg",
              max_abs_err=b8["max_abs_err"],
              ms=b8["ms"], plain_ms=b8["plain_ms"], **_bound_keys(b8)),
-        dict(name="B9 lrpg_update_phase", route="cuda",
+        dict(name="B9 lrpg_update_phase", route="cuda", design="row-sliced",
              source="cartpoleplusplus_tpu_torch/csrc/lrpg_update.cu",
              replaces="cartpoleplusplus_tpu/ops/learner_kernel.py:1399",
              launches=lrpg_launches["B9"],
              launched_by="train.main --agent lrpg",
              max_abs_err=b9["max_abs_err"],
              ms=b9["ms"], plain_ms=b9["plain_ms"], **_bound_keys(b9)),
-        dict(name="B10 render_frames", route="cuda",
+        dict(name="B10 render_frames", route="cuda", design="env-looped",
              source="cartpoleplusplus_tpu_torch/csrc/render.cu",
              replaces="cartpoleplusplus_tpu/ops/render_kernel.py:107",
              launches=pixel_launches["B10"],
@@ -2028,7 +2028,7 @@ def main() -> int:
              max_abs_err=max(v["max_abs_err"] for v in b10.values()),
              ms=b10["gray"]["ms"], plain_ms=b10["gray"]["plain_ms"],
              **_bound_keys(b10["gray"])),
-        dict(name="B11 render_culled", route="cuda",
+        dict(name="B11 render_culled", route="cuda", design="env-looped",
              source="cartpoleplusplus_tpu_torch/csrc/render.cu",
              replaces="cartpoleplusplus_tpu/ops/render_kernel.py:125",
              launches=cull_launches["B11"],

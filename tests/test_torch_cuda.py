@@ -122,13 +122,18 @@ def _b3_inputs(dev, hidden, batch, k, seed):
     return [x.to(dev) for x in groups], tuple(x.to(dev) for x in batches)
 
 
-@pytest.mark.parametrize("hidden,agc,sched", [
-    ((256, 256), "updated", None), ((64, 48, 32), "pre", (0.1, 50))])
-def test_b3_matches_twin(cuda, hidden, agc, sched):
-    """4 updates from warmed moments: every group and both loss vectors
+@pytest.mark.parametrize("hidden,batch,k,agc,sched", [
+    ((256, 256), 200, 4, "updated", None),
+    ((64, 48, 32), 200, 4, "pre", (0.1, 50)),
+    ((256, 256), 256, 16, "updated", None),
+    ((96, 80, 64, 48), 200, 4, "updated", (0.1, 50)),
+    ((256, 256), 256, 4, "pre", (0.1, 50)),
+    ((64, 64), 1000, 2, "updated", None)])
+def test_b3_matches_twin(cuda, hidden, batch, k, agc, sched):
+    """K updates from warmed moments: every group and both loss vectors
     within the reference's kernel-vs-XLA bar (rtol 2e-4, atol 1e-5), one
     counted launch, and the same bits from a second run."""
-    groups, batches = _b3_inputs(cuda, hidden, 200, 4, seed=2)
+    groups, batches = _b3_inputs(cuda, hidden, batch, k, seed=2)
     kw = dict(actor_lr=1e-3, critic_lr=2e-3, gamma=0.99, tau=0.05,
               actor_grad_critic=agc, lr_schedule=sched)
     la, lc = lk.actor_layout(42, hidden), lk.critic_layout(42, hidden)
@@ -368,11 +373,13 @@ def _b9_inputs(dev, hidden, n, seed):
 
 @pytest.mark.parametrize("hidden,n", [
     ((64, 64), 1000), ((64, 64), 131072), ((32, 48, 16), 777), ((48,), 4096),
-    ((256, 300), 1000), ((1024, 40), 777)])
+    ((256, 300), 1000), ((1024, 40), 777), ((2048, 2048), 1000),
+    ((1024,) * 4, 777)])
 def test_b9_matches_twin(cuda, hidden, n):
     """One update from warmed moments (Adam count 100): the 3 groups and
     the loss within the reference's kernel-vs-XLA bar (rtol 2e-4, atol
-    1e-5), one counted launch, and the same bits from a second run."""
+    1e-5), one counted launch, and the same bits from a second run. The
+    last two shapes fit no shared-memory sub-tile: the workspace route."""
     groups, window = _b9_inputs(cuda, hidden, n, seed=2)
     kw = dict(lr=3e-4, entropy_coef=0.1)
     lay = lk.policy_layout(42, hidden)
@@ -394,29 +401,59 @@ def test_b9_matches_twin(cuda, hidden, n):
 
 
 def test_b9_tile_plan_matches_the_kernel(cuda):
-    """The kernel takes exactly the shapes `lrpg_covers` admits (a nonzero
-    workspace), at the boundaries of its 32-, 16- and 8-row sub-tiles."""
+    """The kernel's workspace on the route `pg_tile_spills` picks equals
+    `pg_workspace_floats` (its plan: sub-tile rows, block cap, spilled
+    tiles), at the boundaries of the 32-, 16- and 8-row shared-memory
+    sub-tiles and past them; past them the shared-memory route takes no
+    tile (a zero workspace)."""
     lib = _native.load_library()
     for hidden in ((64, 64), (272, 272), (273, 273), (552, 552), (553, 553),
                    (1114, 1114), (1115, 1115), (162,) * 4, (163,) * 4,
-                   (331,) * 4, (332,) * 4, (668,) * 4, (669,) * 4):
+                   (331,) * 4, (332,) * 4, (668,) * 4, (669,) * 4,
+                   (2048, 2048)):
         lay = lk.policy_layout(42, hidden)
-        dims = _native.PgDims(num_layers=len(hidden), obs_dim=42, n_rows=4096,
-                              net=lk._layout_offsets(lay, len(hidden)))
-        for i, h in enumerate(hidden):
-            dims.hidden[i] = h
-        size = lib.cp_lrpg_workspace_floats(_native.struct_ptr(dims))
-        assert (size > 0) == lk.lrpg_covers(42, hidden), hidden
+        assert lk.lrpg_covers(42, hidden), hidden
+        spills = lk.pg_tile_spills(42, hidden)
+        for spill in (False, True):
+            dims = _native.PgDims(num_layers=len(hidden), obs_dim=42,
+                                  n_rows=4096, spill=int(spill),
+                                  net=lk._layout_offsets(lay, len(hidden)))
+            for i, h in enumerate(hidden):
+                dims.hidden[i] = h
+            size = lib.cp_lrpg_workspace_floats(_native.struct_ptr(dims))
+            if spill == spills:
+                assert size == lk.pg_workspace_floats(42, hidden, 4096), hidden
+            elif spills:
+                assert size == 0, hidden
+
+
+def test_b9_routes_give_the_same_bits(cuda):
+    """At hidden (600, 600) the shared-memory route runs 8-row sub-tiles,
+    as the workspace route does: the two give the same bits."""
+    hidden = (600, 600)
+    assert lk.pg_tile_rows(42, hidden) == 8 and not lk.pg_tile_spills(
+        42, hidden)
+    groups, window = _b9_inputs(cuda, hidden, 1000, seed=4)
+    runs = []
+    for spill in (False, True):
+        got = [g.clone() for g in groups]
+        loss = lk._lrpg_launch(got, window, 100, hidden, 3e-4, 0.1, spill)
+        torch.cuda.synchronize()
+        runs.append(got + [loss])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 def test_b9_rejects_uncovered_shapes(cuda):
     groups, window = _b9_inputs(cuda, (32, 32), 64, seed=0)
     kw = dict(lr=1e-3, entropy_coef=0.1)
     with pytest.raises(ValueError, match="not covered"):
-        lk.lrpg_update_phase(groups, window, 0, (1024,) * 4, **kw)
+        lk.lrpg_update_phase(groups, window, 0, (8,) * 5, **kw)
     with pytest.raises(ValueError, match="action"):
         lk.lrpg_update_phase(groups, (window[0], window[1].float(),
                                       window[2]), 0, (32, 32), **kw)
+    wide, wwin = _b9_inputs(cuda, (1115, 1115), 64, seed=0)
+    with pytest.raises(ValueError, match="rejected"):  # no tile in smem
+        lk._lrpg_launch(wide, wwin, 0, (1115, 1115), 1e-3, 0.1, False)
 
 
 def test_lrpg_cli_launches_b8_and_b9_per_train_step(cuda):
@@ -612,8 +649,9 @@ def _pixel_poses(cuda, n, seed):
 @pytest.mark.parametrize("size", [(48, 48), (20, 13)])
 @pytest.mark.parametrize("gray", [True, False], ids=["gray", "rgb"])
 def test_b10_matches_twin(cuda, gray, size):
-    """B10 against render_all_cameras on adversarial poses: every pixel
-    within 1e-5, one counted launch, the frames' layout (N, H, W, C x 2)."""
+    """B10 against render_all_cameras on adversarial poses: the same bits
+    on every pixel, one counted launch, the frames' layout (N, H, W, C x
+    2)."""
     from cartpoleplusplus_tpu_torch.env import pixels as px
     from cartpoleplusplus_tpu_torch.ops import render_kernel as rk
 
@@ -627,13 +665,14 @@ def test_b10_matches_twin(cuda, gray, size):
     nch = cfg.channels_per_camera
     assert got.shape == want.shape == (3 * B, size[1], size[0], 2 * nch)
     torch.testing.assert_close(got, want, rtol=0.0, atol=1e-5)
+    assert torch.equal(got, want)
     assert float((want[1:] - want[:-1]).abs().max()) > 0.05
 
 
 @pytest.mark.parametrize("gray", [True, False], ids=["gray", "rgb"])
 def test_b11_matches_b10(cuda, gray):
-    """B11 (row-band culling) gives B10's frames within 1e-6 on adversarial
-    poses, one counted launch of its own."""
+    """B11 (row-band culling) gives B10's frames bit for bit on
+    adversarial poses, one counted launch of its own."""
     from cartpoleplusplus_tpu_torch.env import pixels as px
     from cartpoleplusplus_tpu_torch.ops import render_kernel as rk
 
@@ -646,6 +685,24 @@ def test_b11_matches_b10(cuda, gray):
     assert (rk.render_frames.launches, rk.render_culled.launches) == (
         before[0] + 1, before[1] + 1)
     torch.testing.assert_close(cut, full, rtol=0.0, atol=1e-6)
+    assert torch.equal(cut, full)
+
+
+@pytest.mark.parametrize("n", [1, 13, 33])
+@pytest.mark.parametrize("gray", [True, False], ids=["gray", "rgb"])
+def test_render_masks_a_ragged_env_block(cuda, gray, n):
+    """Env counts below and past a block of 8 envs (kEnvs in
+    csrc/render.cu): B10 equals its twin and B11 equals B10, bit for
+    bit."""
+    from cartpoleplusplus_tpu_torch.env import pixels as px
+    from cartpoleplusplus_tpu_torch.ops import render_kernel as rk
+
+    p = continuous_params()
+    cfg = px.RenderConfig(width=20, height=13, grayscale=gray)
+    phys = _pixel_poses(cuda, n, seed=5)
+    got = rk.render_frames(p, cfg, phys)
+    assert torch.equal(got, px.render_all_cameras(p, phys, cfg))
+    assert torch.equal(rk.render_culled(p, cfg, phys), got)
 
 
 def test_render_rejects_too_many_cameras(cuda):

@@ -206,9 +206,10 @@ def test_wrapper_rejects_bad_arguments():
 
 
 def test_lrpg_covers_and_layout():
-    """B9 takes 1 to 4 layers whose sub-tile of 32, 16 or 8 rows fits in
-    shared memory: hidden (64, 64) runs 32 rows in 64,256 bytes, wider
-    networks fewer rows, up to two layers of 1114 or four of 668."""
+    """B9 takes 1 to 4 layers of any width: hidden (64, 64) runs 32 rows
+    in 64,256 bytes of shared memory, wider networks fewer rows, up to two
+    layers of 1114 or four of 668; wider ones take the workspace route's
+    8-row sub-tile."""
     assert lk.pg_tile_rows(F, (64, 64)) == 32
     assert 4 * lk.pg_tile_floats(F, (64, 64), 32) == 64_256
     assert lk.pg_tile_rows(F, (16,) * 4) == 32
@@ -216,13 +217,33 @@ def test_lrpg_covers_and_layout():
     assert lk.pg_tile_rows(F, (512, 512)) == 16
     assert lk.pg_tile_rows(F, (1024, 1024)) == 8
     assert lk.pg_tile_rows(F, (512,) * 4) == 8
-    assert lk.lrpg_covers(F, (1114, 1114))
-    assert not lk.lrpg_covers(F, (1115, 1115))
-    assert not lk.lrpg_covers(F, (1024,) * 4)
+    assert not lk.pg_tile_spills(F, (1114, 1114))
+    for hidden in ((1115, 1115), (2048, 2048), (1024,) * 4, (669,) * 4):
+        assert lk.lrpg_covers(F, hidden) and lk.pg_tile_spills(F, hidden)
+        assert lk.pg_tile_rows(F, hidden) == 8
     assert not lk.lrpg_covers(F, ()) and not lk.lrpg_covers(F, (8,) * 5)
     net = PolicyMLP(F, 5, (16, 24, 8))
     assert [(n, tuple(p.shape)) for n, p in net.named_parameters()] == [
         (n, tuple(s)) for n, s in lk.policy_layout(F, (16, 24, 8))]
+
+
+def test_b9_plan_caps_the_partial_rows():
+    """B9's pass-1 plan: 256 blocks of 512 rows over the default window;
+    a wide network takes fewer blocks, so that its partial rows stay
+    within PG_PARTIAL_FLOATS, and on the workspace route each block also
+    holds its 8-row sub-tile in the workspace."""
+    assert lk.pg_plan(F, (64, 64), 131072) == (32, 512, 256)
+    p = lk.layout_size(lk.policy_layout(F, (64, 64)))
+    assert lk.pg_workspace_floats(F, (64, 64), 131072) == 256 * (p + 1)
+    for hidden in ((2048, 2048), (1024,) * 4):
+        rows, rpb, blocks = lk.pg_plan(F, hidden, 1000)
+        p = lk.layout_size(lk.policy_layout(F, hidden))
+        assert rows == 8 and rpb % 8 == 0 and blocks * rpb >= 1000
+        assert blocks * (p + 1) <= lk.PG_PARTIAL_FLOATS
+        tile = lk.pg_tile_floats(F, hidden, 8, with_wt=False)
+        assert (lk.pg_workspace_floats(F, hidden, 1000) - blocks * (p + 1)
+                == blocks * (-(-tile // 32) * 32))
+    assert lk.pg_plan(F, (2048, 2048), 1000) == (8, 40, 25)
 
 
 def test_learner_resolution():
