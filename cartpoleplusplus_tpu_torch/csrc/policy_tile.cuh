@@ -1,6 +1,7 @@
-// Device code shared by the policy-in-the-loop rollouts: kernel B2
-// (policy_rollout.cu, the DDPG actor) and kernel B4 (q_rollout.cu, the DQN
-// Q-net). Both run one 256-thread block per tile of 32 envs: the tile's
+// Device code shared by the policy-in-the-loop rollouts: kernels B2 and
+// B6 (policy_rollout.cu, the DDPG actor and NAF's mu) use all of it; B4
+// and B8 (q_rollout.cu, on q_tile.cuh) its tile constants and env-state
+// helpers. B2 and B6 run one 256-thread block per tile of 32 envs: the tile's
 // activations live in shared memory (two 32 x width float buffers), the
 // weights are read from global memory and stay resident in L2, each thread
 // owns one output column of a layer with the tile's 32 sums in registers,

@@ -65,17 +65,26 @@ class EnvConsts(ctypes.Structure):
 
 MAX_LAYERS = 4  # kMaxLayers in csrc/policy_tile.cuh and learner_stages.cuh
 # Bytes of shared memory one H100 block may use (kMaxSmem in
-# csrc/lrpg_update.cu; the B2/B4/B6/B8 launchers take it from here).
+# csrc/lrpg_update.cu and csrc/q_rollout.cu; B2's and B6's coverage
+# checks and B9's planner read it here).
 MAX_SMEM = 232_448
 
 
 class ActorDims(ctypes.Structure):
-    """Mirror of `struct ActorDims` in csrc/policy_tile.cuh (B2, B4, B6,
-    B8)."""
+    """Mirror of `struct ActorDims` in csrc/policy_tile.cuh (B2, B6)."""
 
     _fields_ = [("num_layers", ctypes.c_int), ("obs_dim", ctypes.c_int),
                 ("width", ctypes.c_int),
                 ("hidden", ctypes.c_int * MAX_LAYERS)]
+
+
+class QDims(ctypes.Structure):
+    """Mirror of `struct QDims` in csrc/q_tile.cuh (B4, B8): the torso's
+    depth, the obs width, max(obs_dim, hidden...) and the floats of the
+    padded torso weights (`ops.q_rollout.pack_qnet`)."""
+
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "num_layers", "obs_dim", "width", "wfloats")]
 
 
 class NetLayout(ctypes.Structure):
@@ -272,7 +281,9 @@ def load_library() -> ctypes.CDLL:
     lib.cp_ddpg_update_phase.argtypes = [vp, vp] + [vp] * 8 + [vp] * 5 + [
         vp, vp, vp, ci, vp]
     lib.cp_ddpg_update_phase.restype = ci
-    lib.cp_q_rollout.argtypes = [vp, vp, vp, cf, ci, ci, ci] + [vp] * 19 + [
+    lib.cp_q_workspace_floats.argtypes = [vp, ci]
+    lib.cp_q_workspace_floats.restype = ctypes.c_longlong
+    lib.cp_q_rollout.argtypes = [vp] * 5 + [cf, ci, ci, ci] + [vp] * 19 + [
         vp]
     lib.cp_q_rollout.restype = ci
     lib.cp_dqn_workspace_floats.argtypes = [vp]
@@ -285,7 +296,7 @@ def load_library() -> ctypes.CDLL:
     lib.cp_naf_update_phase.argtypes = [vp, vp] + [vp] * 4 + [vp] * 5 + [
         vp, vp, ci, vp]
     lib.cp_naf_update_phase.restype = ci
-    lib.cp_pg_rollout.argtypes = [vp, vp, vp, ci, ci, ci] + [vp] * 19 + [vp]
+    lib.cp_pg_rollout.argtypes = [vp] * 5 + [ci, ci, ci] + [vp] * 19 + [vp]
     lib.cp_pg_rollout.restype = ci
     lib.cp_lrpg_workspace_floats.argtypes = [vp]
     lib.cp_lrpg_workspace_floats.restype = ctypes.c_longlong

@@ -23,6 +23,7 @@ values. The actions index the force table noop, +x, -x, +y, -y.
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
@@ -32,29 +33,24 @@ from ..models.nets import QNetMLP
 from ..utils.prng import hash_words, uniform
 from . import _native
 from .fused_rollout import _check_state, _empty_state, _state_ptrs
-from .policy_rollout import _TILE, pack_actor
 
 # Exploration stream tags (agents/common.py re-exports them).
 TAG_EPS_GATE = 0x43
 TAG_EPS_ACT = 0x44
 NUM_ACTIONS = 5            # kNumActions in the .cu
-
-
-def _smem_bytes(width: int) -> int:
-    return 4 * (2 * _TILE * width + NUM_ACTIONS * _TILE)
+_HEAD_LD = 8               # kHeadLd in csrc/q_tile.cuh: padded head width
 
 
 def q_fusable(env: CartPole3D, hidden: Sequence[int]) -> bool:
     """The kernel covers the discrete 5-action env, pose_stack obs with
-    auto-reset, 1 to 4 torso layers, and activations of a 32-env tile that
-    fit in shared memory. Any batch size: the last tile is masked (the
-    reference's multiple-of-1024 rule is a TPU layout rule)."""
+    auto-reset, and any torso of at least one layer: any depth, any width
+    (activations too wide for shared memory go to a workspace), any batch
+    size (the last tile is masked; the reference's multiple-of-1024 rule
+    is a TPU layout rule)."""
     p = env.params
-    width = max((env.obs_size,) + tuple(hidden)) if hidden else 0
     return (p.discrete_actions and env.num_actions == NUM_ACTIONS
             and env.obs_mode == "pose_stack" and env.auto_reset
-            and 1 <= len(hidden) <= _native.MAX_LAYERS
-            and _smem_bytes(width) <= _native.MAX_SMEM)
+            and len(hidden) >= 1)
 
 
 def epsilon_greedy(q_values, env_seed, t: int, eps: float):
@@ -81,11 +77,38 @@ def reference_q_rollout(env: CartPole3D, q: QNetMLP, state: EnvState, obs,
     return state, obs, traj
 
 
+def _pad4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
 def pack_qnet(q: QNetMLP) -> torch.Tensor:
-    """The Q-net's weights in the kernel's flat layout, which is B2's
-    (`pack_actor`): per torso layer W (in, out) row-major, bias, LayerNorm
-    scale, LayerNorm bias; then the head's W (H, 5) and bias."""
-    return pack_actor(q)
+    """The network's weights in the kernel's flat layout (csrc/q_tile.cuh):
+    per torso layer W (in, Np) row-major with Np the width rounded up to 4
+    (zero columns), then the head's W (H, 8) (zero columns past 5); then
+    per layer bias, LayerNorm scale, LayerNorm bias, and the head's bias.
+    Every weight block starts on a 16-byte boundary, as cp.async needs."""
+    def padded(w, cols):
+        return torch.nn.functional.pad(w.t(), (0, cols - w.shape[0]))
+
+    parts = [padded(d.weight, _pad4(d.out_features)) for d in q.torso]
+    parts.append(padded(q.head.weight, _HEAD_LD))
+    for dense, norm in zip(q.torso, q.norms):
+        parts += [dense.bias, norm.weight, norm.bias]
+    parts.append(q.head.bias)
+    return torch.cat([p.detach().float().reshape(-1) for p in parts])
+
+
+def torso_weight_floats(obs_dim: int, hidden: Sequence[int]) -> int:
+    """Floats of the padded torso weights at the front of `pack_qnet`."""
+    dims = (obs_dim,) + tuple(hidden)
+    return sum(a * _pad4(b) for a, b in zip(dims[:-1], dims[1:]))
+
+
+@functools.lru_cache(maxsize=None)
+def _widths(hidden: tuple, dev: torch.device) -> torch.Tensor:
+    """The torso widths as the kernel reads them (int32 on the device),
+    made once per shape so that a launch copies nothing from the host."""
+    return torch.tensor(hidden, dtype=torch.int32, device=dev)
 
 
 def launch_rollout(entry: str, kernel: str, env: CartPole3D, net, state,
@@ -93,10 +116,10 @@ def launch_rollout(entry: str, kernel: str, env: CartPole3D, net, state,
     """Checks the shapes and launches one of the two 5-action rollout
     kernels of csrc/q_rollout.cu (`entry` cp_q_rollout for B4,
     cp_pg_rollout for B8) on the current stream; `scalars` are the entry's
-    arguments between the weights and the batch size. Returns (env state',
-    obs', traj)."""
+    arguments between the workspace and the batch size. Returns (env
+    state', obs', traj)."""
     dev = state.steps.device
-    hidden = net.hidden
+    hidden = tuple(net.hidden)
     b, f = env.num_envs, env.obs_size
     if (not q_fusable(env, hidden) or net.torso[0].in_features != f
             or net.head.out_features != NUM_ACTIONS):
@@ -111,11 +134,13 @@ def launch_rollout(entry: str, kernel: str, env: CartPole3D, net, state,
     params = pack_qnet(net)
     if params.device != dev:
         raise ValueError(f"network on {params.device}, env state on {dev}")
-    dims = _native.ActorDims(num_layers=len(hidden), obs_dim=f,
-                             width=max((f,) + tuple(hidden)))
-    for i, h in enumerate(hidden):
-        dims.hidden[i] = h
+    dims = _native.QDims(num_layers=len(hidden), obs_dim=f,
+                         width=max((f,) + hidden),
+                         wfloats=torso_weight_floats(f, hidden))
     lib = _native.load_library()
+    n_work = lib.cp_q_workspace_floats(_native.struct_ptr(dims), b)
+    work = (torch.empty(n_work, dtype=torch.float32, device=dev)
+            if n_work else None)
     traj = (torch.empty((num_steps, b, f), dtype=torch.float32, device=dev),
             torch.empty((num_steps, b), dtype=torch.int32, device=dev),
             torch.empty((num_steps, b), dtype=torch.float32, device=dev),
@@ -127,10 +152,11 @@ def launch_rollout(entry: str, kernel: str, env: CartPole3D, net, state,
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, entry)(
             _native.struct_ptr(consts), _native.struct_ptr(dims),
-            params.data_ptr(), *scalars, b, num_steps,
-            *_state_ptrs(state), state.env_seed.data_ptr(), obs.data_ptr(),
-            *(x.data_ptr() for x in traj), *_state_ptrs(out),
-            obs_out.data_ptr(), stream)
+            params.data_ptr(), _widths(hidden, dev).data_ptr(),
+            None if work is None else work.data_ptr(), *scalars, b,
+            num_steps, *_state_ptrs(state), state.env_seed.data_ptr(),
+            obs.data_ptr(), *(x.data_ptr() for x in traj),
+            *_state_ptrs(out), obs_out.data_ptr(), stream)
     _native.check(lib, rc, entry)
     return out, obs_out, traj
 

@@ -24,10 +24,11 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      phase beside the plain learner's 16 updates, and torch.profiler's
      device time and kernel count of one step);
   8. B4 (DQN epsilon-greedy Q-net-in-the-loop rollout kernel) against its
-     twin, 4096 envs, hidden (256, 256), 3 steps, seeded random Q weights,
-     at epsilon 0.3 and 0 (greedy): actions exact except at near-ties of
-     the twin's Q values (top-2 gap below 1e-5, counted and left out of
-     the float comparison);
+     twin, 4096 envs, 3 steps, seeded random Q weights, at hidden (256,
+     256) with epsilon 0.3 and 0 (greedy) and at (2048,) and (8,) * 5
+     with epsilon 0.3: actions exact except at near-ties of the twin's Q
+     values (top-2 gap below 1e-5, counted and left out of the float
+     comparison); its time per env-step beside B1's (the physics' floor);
   9. B5 (the fused K-update double-DQN learner kernel) against its twin at
      the DQN defaults (hidden (256, 256), obs 42, batch 256, K 8) from
      warmed Adam moments, double DQN on and off, two runs bit for bit;
@@ -37,11 +38,12 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      the DDPG and physics kernels never;
   11. where a default DQN train step's time goes, as phase 7;
   12. B8 (LRPG softmax policy in the env loop, Gumbel-max sampling)
-     against its twin, 4096 envs, hidden (64, 64), 3 steps from a state 6
-     sampled steps past a reset, seeded random policy weights: actions
-     exact except at near-ties of the twin's logits + Gumbel draws (top-2
-     gap below 1e-5, counted), timed at T = 32 beside its twin and B4
-     re-timed in the same call;
+     against its twin, 4096 envs, hidden (64, 64), (2048,) and (8,) * 5,
+     3 steps from a state 6 sampled steps past a reset, seeded random
+     policy weights: actions exact except at near-ties of the twin's
+     logits + Gumbel draws (top-2 gap below 1e-5, counted), timed at T =
+     32 beside its twin and B4 re-timed in the same call, both per
+     env-step beside B1's;
   13. B9 (the fused LRPG update) against its twin at the LRPG defaults (N =
      131,072 window rows, hidden (64, 64), lr 3e-4, entropy 0.1) from
      warmed Adam moments, two runs bit for bit;
@@ -114,6 +116,9 @@ BENCH_STEPS = 4096      # the physics-only benchmark's rollout length
 SPLIT_ROUNDS = 3        # round-robin passes over the train-step parts
 B4_EPS = (0.3, 0.0)     # compared exploration rates: mixed, then greedy
 B4_TIE = 1e-5           # a twin top-2 Q gap below this is a near-tie
+# Torsos compared beside the main-path shapes of B4 and B8: one 2048 wide
+# (its activations in the workspace) and one five layers deep.
+B4_WIDE = ((2048,), (8,) * 5)
 B5_BATCH, B5_K = 256, 8  # DQN's batch_size and updates_per_step
 LRPG_HIDDEN = (64, 64)  # LRPG's hidden, rollout_steps and window rows
 LRPG_T = 32
@@ -695,7 +700,7 @@ def _random_qnet(dev, hidden, seed, head_scale=0.5, net_cls=None):
     return q.to(dev)
 
 
-def _b4_setup(env, dev):
+def _b4_setup(env, dev, hidden=(256, 256)):
     """A seeded random Q-net and a state 6 random-action steps past a
     reset (a reset pose is the same in every env, so the obs of a fresh
     batch are identical). The first layer's bias is centred on those obs,
@@ -705,14 +710,14 @@ def _b4_setup(env, dev):
 
     from cartpoleplusplus_tpu_torch.ops.q_rollout import reference_q_rollout
 
-    q = _random_qnet(dev, (256, 256), seed=13, head_scale=0.05)
+    q = _random_qnet(dev, hidden, seed=13, head_scale=0.05)
     state, obs, _ = reference_q_rollout(env, q, *env.reset(3), 0, 1.0, 6)
     with torch.no_grad():
         q.torso[0].bias.copy_(-(q.torso[0].weight @ obs.mean(0)))
     return q, state, obs
 
 
-def _b4_compare(env, q, state, obs, eps):
+def _b4_compare(env, q, state, obs, eps, label=""):
     """B4 and its twin over B2_STEPS from the same state: the action
     streams must agree except from a step where the twin's top-2 Q gap is
     below B4_TIE (such envs leave the float comparison), floats within
@@ -736,14 +741,15 @@ def _b4_compare(env, q, state, obs, eps):
     gaps = top[..., 0] - top[..., 1]
     gap = gaps[first]
     assert bool((gap < B4_TIE).all()), \
-        f"B4 eps {eps}: actions differ at Q gaps {gap.tolist()[:8]}"
+        f"B4{label} eps {eps}: actions differ at Q gaps {gap.tolist()[:8]}"
     keep = ~diff.any(0)
-    errs = [_close(f"B4 eps {eps} traj {n}", a[:, keep], b[:, keep], 2e-4,
-                   2e-5)
+    errs = [_close(f"B4{label} eps {eps} traj {n}", a[:, keep], b[:, keep],
+                   2e-4, 2e-5)
             for n, a, b in (("obs", k[2][0], r[2][0]),
                             ("reward", k[2][2], r[2][2]))]
     assert torch.equal(k[2][3][:, keep], r[2][3][:, keep]), "B4 dones differ"
-    errs += [_close(f"B4 eps {eps} final {n}", a[keep], b[keep], 2e-4, 2e-5)
+    errs += [_close(f"B4{label} eps {eps} final {n}", a[keep], b[keep],
+                    2e-4, 2e-5)
              for n, a, b in zip(("pos", "vel", "s", "sd", "obs"),
                                 (*k[0].phys, k[1]), (*r[0].phys, r[1]))]
     assert torch.equal(k[0].steps[keep], r[0].steps[keep]), "B4 steps differ"
@@ -752,7 +758,7 @@ def _b4_compare(env, q, state, obs, eps):
     n_tie = int((~keep).sum())
     explored = float((r[2][1] != torch.argmax(q(r[2][0]), -1)).float().mean())
     per_action = torch.bincount(r[2][1].reshape(-1).long(), minlength=5)
-    print(f"B4 eps {eps}: actions exact in {int(keep.sum())} of "
+    print(f"B4{label} eps {eps}: actions exact in {int(keep.sum())} of "
           f"{env.num_envs} envs x {B2_STEPS} steps; near-tie envs {n_tie} "
           f"(their twin top-2 Q gaps {gap.tolist()[:8]}; smallest gap over "
           f"all envs and steps {float(gaps.min()):.3g}); max_abs_err "
@@ -763,7 +769,12 @@ def _b4_compare(env, q, state, obs, eps):
     return max(errs), n_tie
 
 
-def phase_b4(dev):
+def phase_b4(dev, floor_us):
+    """B4 against its twin at the DQN default (256, 256), eps 0.3 and 0,
+    and at the shapes the old kernel did not cover, (2048,) (activations
+    in the workspace) and (8,) * 5, eps 0.3; then timed at the main
+    path's shape, its time per env-step beside `floor_us`, B1's per
+    env-step time in this call (the physics' floor)."""
     import torch
 
     from cartpoleplusplus_tpu_torch import CartPole3D, CartPoleParams
@@ -771,16 +782,25 @@ def phase_b4(dev):
         pack_qnet, q_policy_rollout, reference_q_rollout)
 
     env = CartPole3D(CartPoleParams(), num_envs=N_ENVS, device=dev)
-    q, state, obs = _b4_setup(env, dev)
     with torch.no_grad():
-        errs = [_b4_compare(env, q, state, obs, eps)[0] for eps in B4_EPS]
+        errs = []
+        for hidden in B4_WIDE:
+            wq, wstate, wobs = _b4_setup(env, dev, hidden)
+            errs.append(_b4_compare(env, wq, wstate, wobs, 0.3,
+                                    f" {hidden}")[0])
+            del wq
+        q, state, obs = _b4_setup(env, dev)
+        errs += [_b4_compare(env, q, state, obs, eps)[0] for eps in B4_EPS]
     args = (env, q, state, obs, 40, 0.3)
     ms = _time_ms(lambda: q_policy_rollout(*args, B2_TIME_STEPS), 10)
     plain_ms = _time_ms(lambda: reference_q_rollout(*args, B2_TIME_STEPS), 2)
     flop = N_ENVS * B2_TIME_STEPS * 2 * (42 * 256 + 256 * 256 + 256 * 5)
+    step_us = ms / B2_TIME_STEPS * 1e3
     print(f"B4: {N_ENVS}x{B2_TIME_STEPS} hidden (256, 256): kernel {ms:.4f} "
           f"ms ({flop / ms / 1e9:.4g} TFLOP/s of Q-net matmul), plain "
-          f"{plain_ms:.2f} ms", flush=True)
+          f"{plain_ms:.2f} ms; per env-step {step_us:.2f} us, B1's "
+          f"{floor_us:.2f} us in this call, {step_us - floor_us:.2f} us "
+          f"above it", flush=True)
     # Epsilon gate and random action: one uniform scale per env-step.
     bound = _rollout_bound(env, state, obs, pack_qnet(q), B2_TIME_STEPS, 1,
                            2, _mlp_macs((42, 256, 256, 5)))
@@ -956,10 +976,13 @@ def phase_dqn_step_split(dev):
 
 
 def _random_policy(dev, hidden, seed):
-    """LRPG's policy, its LayerNorm parameters and head redrawn."""
+    """LRPG's policy, its LayerNorm parameters and head redrawn, the
+    head's scale falling with the width (0.5 at 64) so that the logits'
+    spread does not grow with it."""
     from cartpoleplusplus_tpu_torch.models import PolicyMLP
 
-    return _random_qnet(dev, hidden, seed, net_cls=PolicyMLP)
+    return _random_qnet(dev, hidden, seed, 0.5 * (64 / hidden[-1]) ** 0.5,
+                        net_cls=PolicyMLP)
 
 
 def _pg_gaps(net, obs, env_seed, t0):
@@ -976,24 +999,18 @@ def _pg_gaps(net, obs, env_seed, t0):
     return top[..., 0] - top[..., 1]
 
 
-def phase_b8(dev):
+def _b8_compare(env, net, label):
     """B8 against its twin over B2_STEPS from a state 6 sampled steps past
     a reset, the first layer centred on its obs: the action streams must
     agree except from a step where the twin's top-2 gap of logits +
     Gumbel draws is below B4_TIE (such envs leave the float comparison,
     counted), floats within tests/test_policy_rollout.py's bars, integer
-    state exact. Then B8 and its twin timed at LRPG's rollout length, and
-    B4 re-timed beside them."""
+    state exact. Returns (max abs error, near-tie envs, state, obs)."""
     import torch
 
-    from cartpoleplusplus_tpu_torch import CartPole3D, CartPoleParams
     from cartpoleplusplus_tpu_torch.ops.pg_rollout import (
         pg_policy_rollout, reference_pg_rollout)
-    from cartpoleplusplus_tpu_torch.ops.q_rollout import (pack_qnet,
-                                                          q_policy_rollout)
 
-    env = CartPole3D(CartPoleParams(), num_envs=N_ENVS, device=dev)
-    net = _random_policy(dev, LRPG_HIDDEN, seed=17)
     state, obs, _ = reference_pg_rollout(env, net, *env.reset(5), 0, 6)
     # The obs of the batch are still alike: centre the first layer on them
     # (as _b4_setup does) so that the logits, and the samples, vary.
@@ -1008,13 +1025,13 @@ def phase_b8(dev):
     gaps = _pg_gaps(net, r[2][0], state.env_seed, 40)
     gap = gaps[first]
     assert bool((gap < B4_TIE).all()), \
-        f"B8: actions differ at top-2 gaps {gap.tolist()[:8]}"
+        f"B8{label}: actions differ at top-2 gaps {gap.tolist()[:8]}"
     keep = ~diff.any(0)
-    errs = [_close(f"B8 traj {n}", a[:, keep], b[:, keep], 2e-4, 2e-5)
+    errs = [_close(f"B8{label} traj {n}", a[:, keep], b[:, keep], 2e-4, 2e-5)
             for n, a, b in (("obs", k[2][0], r[2][0]),
                             ("reward", k[2][2], r[2][2]))]
     assert torch.equal(k[2][3][:, keep], r[2][3][:, keep]), "B8 dones differ"
-    errs += [_close(f"B8 final {n}", a[keep], b[keep], 2e-4, 2e-5)
+    errs += [_close(f"B8{label} final {n}", a[keep], b[keep], 2e-4, 2e-5)
              for n, a, b in zip(("pos", "vel", "s", "sd", "obs"),
                                 (*k[0].phys, k[1]), (*r[0].phys, r[1]))]
     assert torch.equal(k[0].steps[keep], r[0].steps[keep]), "B8 steps differ"
@@ -1023,13 +1040,33 @@ def phase_b8(dev):
     per_action = torch.bincount(r[2][1].reshape(-1).long(), minlength=5)
     assert bool((per_action > 0).all()), per_action.tolist()
     n_tie = int((~keep).sum())
-    print(f"B8: actions exact in {int(keep.sum())} of {N_ENVS} envs x "
+    print(f"B8{label}: actions exact in {int(keep.sum())} of {N_ENVS} envs x "
           f"{B2_STEPS} steps; near-tie envs {n_tie} (their twin top-2 gaps "
           f"{gap.tolist()[:8]}; smallest gap over all envs and steps "
           f"{float(gaps.min()):.3g}); max_abs_err obs/reward {errs[0]:.3g} "
           f"{errs[1]:.3g}, final state/obs {max(errs[2:]):.3g}; actions per "
           f"index {per_action.tolist()}, dones {int(r[2][3].sum())}",
           flush=True)
+    return max(errs), n_tie, state, obs
+
+
+def phase_b8(dev, floor_us):
+    """B8 against its twin (`_b8_compare`) at LRPG's (64, 64) and at
+    B4_WIDE's torsos; then B8 and its twin timed at LRPG's rollout length,
+    B4 re-timed beside them, both per env-step beside `floor_us`, B1's
+    per env-step time in this call."""
+    from cartpoleplusplus_tpu_torch import CartPole3D, CartPoleParams
+    from cartpoleplusplus_tpu_torch.ops.pg_rollout import (
+        pg_policy_rollout, reference_pg_rollout)
+    from cartpoleplusplus_tpu_torch.ops.q_rollout import (pack_qnet,
+                                                          q_policy_rollout)
+
+    env = CartPole3D(CartPoleParams(), num_envs=N_ENVS, device=dev)
+    errs = [_b8_compare(env, _random_policy(dev, h, seed=17), f" {h}")[0]
+            for h in B4_WIDE]
+    net = _random_policy(dev, LRPG_HIDDEN, seed=17)
+    err, n_tie, state, obs = _b8_compare(env, net, "")
+    errs.append(err)
 
     args = (env, net, state, obs, 40)
     q = _random_qnet(dev, (256, 256), seed=13, head_scale=0.05)
@@ -1044,12 +1081,16 @@ def phase_b8(dev):
     # Gumbel-max: 5 draws of 2 logs, a negation and the uniform's scale.
     bound = _rollout_bound(env, state, obs, pack_qnet(net), LRPG_T, 1,
                            5 * 5, _mlp_macs((42,) + LRPG_HIDDEN + (5,)))
+    step_us, b4_step_us = ms / LRPG_T * 1e3, b4_ms / B2_TIME_STEPS * 1e3
     print(f"B8: {N_ENVS}x{LRPG_T} hidden {LRPG_HIDDEN}: kernel {ms:.4f} ms "
           f"(rounds {' '.join(f'{x:.4f}' for x in rounds['B8'])}; bound "
           f"{bound['bound_ms']:.4f} ms by {bound['bound_by']}), plain "
           f"{plain_ms:.2f} ms; B4 re-timed in this call: {b4_ms:.4f} ms per "
           f"{N_ENVS}x{B2_TIME_STEPS} at hidden (256, 256) (rounds "
-          f"{' '.join(f'{x:.4f}' for x in rounds['B4'])})", flush=True)
+          f"{' '.join(f'{x:.4f}' for x in rounds['B4'])}); per env-step B8 "
+          f"{step_us:.2f} us, B4 {b4_step_us:.2f} us, B1 {floor_us:.2f} us "
+          f"(above it: B8 {step_us - floor_us:.2f}, B4 "
+          f"{b4_step_us - floor_us:.2f})", flush=True)
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                 near_tie_envs=n_tie, b4_ms=b4_ms, **bound)
 
@@ -1935,11 +1976,12 @@ def main() -> int:
     main_launches = phase_main_path()
     b1_launches = phase_physics_rollout(dev)
     phase_step_split(dev)
-    b4 = phase_b4(dev)
+    floor_us = b1["discrete"]["ms"] / B1_STEPS * 1e3  # B1 per env-step
+    b4 = phase_b4(dev, floor_us)
     b5 = phase_b5(dev)
     dqn_launches = phase_dqn_main_path()
     phase_dqn_step_split(dev)
-    b8 = phase_b8(dev)
+    b8 = phase_b8(dev, floor_us)
     b9 = phase_b9(dev)
     lrpg_launches = phase_lrpg_main_path()
     phase_lrpg_step_split(dev)
@@ -1977,7 +2019,7 @@ def main() -> int:
              launched_by="train.main (DDPG defaults)",
              max_abs_err=b3["max_abs_err"],
              ms=b3["ms"], plain_ms=b3["plain_ms"], **_bound_keys(b3)),
-        dict(name="B4 q_policy_rollout", route="cuda", design="32-env-block",
+        dict(name="B4 q_policy_rollout", route="cuda", design="q-tile",
              source="cartpoleplusplus_tpu_torch/csrc/q_rollout.cu",
              replaces="cartpoleplusplus_tpu/ops/policy_rollout.py:486",
              launches=dqn_launches["B4"],
@@ -2005,7 +2047,7 @@ def main() -> int:
              launched_by="train.main --agent naf --naf.learner kernel",
              max_abs_err=b7["max_abs_err"],
              ms=b7["ms"], plain_ms=b7["plain_ms"], **_bound_keys(b7)),
-        dict(name="B8 pg_policy_rollout", route="cuda", design="32-env-block",
+        dict(name="B8 pg_policy_rollout", route="cuda", design="q-tile",
              source="cartpoleplusplus_tpu_torch/csrc/q_rollout.cu",
              replaces="cartpoleplusplus_tpu/ops/policy_rollout.py:486",
              launches=lrpg_launches["B8"],

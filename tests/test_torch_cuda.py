@@ -190,7 +190,8 @@ def _top2_gap(q, obs):
 
 
 @pytest.mark.parametrize("eps", [0.3, 0.0], ids=["eps0.3", "greedy"])
-@pytest.mark.parametrize("hidden", [(256, 256), (64,), (32, 48, 16)])
+@pytest.mark.parametrize("hidden", [(256, 256), (64,), (32, 48, 16), (2048,),
+                                    (8,) * 5])
 def test_b4_matches_twin(cuda, hidden, eps):
     """Actions exact, except from an env's step where the twin's top-2 Q
     gap is below 1e-5 (a near-tie that a different summation order may
@@ -229,8 +230,13 @@ def test_b4_rejects_uncovered_shapes(cuda):
     env = CartPole3D(CartPoleParams(), num_envs=64, device=cuda)
     state, obs = env.reset(0)
     with pytest.raises(ValueError, match="not covered"):
-        qr.q_policy_rollout(env, QNetMLP(42, 5, (8,) * 5).to(cuda), state,
-                            obs, 0, 0.1, 2)
+        qr.q_policy_rollout(env, QNetMLP(42, 5, ()).to(cuda), state, obs, 0,
+                            0.1, 2)
+    flat = CartPole3D(CartPoleParams(), num_envs=64, obs_mode="state",
+                      device=cuda)
+    with pytest.raises(ValueError, match="not covered"):
+        qr.q_policy_rollout(flat, QNetMLP(flat.obs_size, 5, (32,)).to(cuda),
+                            *flat.reset(0), 0, 0.1, 2)
     cont = CartPole3D(continuous_params(), num_envs=64, device=cuda)
     with pytest.raises(ValueError, match="not covered"):
         qr.q_policy_rollout(cont, QNetMLP(42, 5, (32,)).to(cuda),
@@ -314,7 +320,8 @@ def _pg_top2_gap(net, obs, env_seed, t0):
     return top[..., 0] - top[..., 1]
 
 
-@pytest.mark.parametrize("hidden", [(64, 64), (256,), (32, 48, 16)])
+@pytest.mark.parametrize("hidden", [(64, 64), (256,), (32, 48, 16), (2048,),
+                                    (8,) * 5])
 def test_b8_matches_twin(cuda, hidden):
     """Actions exact, except from an env's step where the twin's top-2 gap
     of logits + Gumbel draws is below 1e-5 (such envs leave the float
@@ -353,8 +360,39 @@ def test_b8_rejects_uncovered_shapes(cuda):
     env = CartPole3D(CartPoleParams(), num_envs=64, device=cuda)
     state, obs = env.reset(0)
     with pytest.raises(ValueError, match="not covered by the B8"):
-        pg.pg_policy_rollout(env, PolicyMLP(42, 5, (8,) * 5).to(cuda), state,
-                             obs, 0, 2)
+        pg.pg_policy_rollout(env, PolicyMLP(42, 5, ()).to(cuda), state, obs,
+                             0, 2)
+    flat = CartPole3D(CartPoleParams(), num_envs=64, obs_mode="state",
+                      device=cuda)
+    with pytest.raises(ValueError, match="not covered by the B8"):
+        pg.pg_policy_rollout(flat, PolicyMLP(flat.obs_size, 5, (32,)).to(
+            cuda), *flat.reset(0), 0, 2)
+    cont = CartPole3D(continuous_params(), num_envs=64, device=cuda)
+    with pytest.raises(ValueError, match="not covered by the B8"):
+        pg.pg_policy_rollout(cont, PolicyMLP(42, 5, (32,)).to(cuda),
+                             *cont.reset(0), 0, 2)
+
+
+@pytest.mark.parametrize("kernel", ["B4", "B8"])
+@pytest.mark.parametrize("hidden", [(64, 64), (256, 256), (2048,)],
+                         ids=["resident", "streamed", "workspace"])
+def test_b4_and_b8_repeat_their_bits(cuda, kernel, hidden):
+    """Two launches on the same inputs give the same bits: the weights
+    resident in shared memory, streamed through it, and the activations in
+    the workspace."""
+    env = CartPole3D(CartPoleParams(), num_envs=B, device=cuda)
+    state, obs = env.reset(4)
+    if kernel == "B4":
+        net = _random_qnet(cuda, hidden, seed=5, head_scale=0.05)
+        run = lambda: qr.q_policy_rollout(env, net, state, obs, 3, 0.3, 8)
+    else:
+        net = _random_policy(cuda, hidden, seed=5)
+        run = lambda: pg.pg_policy_rollout(env, net, state, obs, 3, 8)
+    runs = [run() for _ in range(2)]
+    torch.cuda.synchronize()
+    a, b = ((*st.phys, st.steps, st.episode, o, *traj)
+            for st, o, traj in runs)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def _b9_inputs(dev, hidden, n, seed):

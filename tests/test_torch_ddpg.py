@@ -181,9 +181,9 @@ def test_train_cli_cuda_rejects_shapes_b2_does_not_cover(argv):
     assert _cuda_plain_rollout(["--num-envs", "8", *argv], "B2")
 
 
-def _cuda_plain_rollout(argv, kernel):
-    """Whether train.build on --device cuda resolves the agent to the plain
-    rollout with exactly one stderr line naming `kernel`."""
+def _cuda_rollout_route(argv, kernel):
+    """train.build on --device cuda: the agent's `kernel_rollout` and the
+    number of stderr lines saying that `kernel` does not cover it."""
     args = ttrain.build_parser().parse_args(["--device", "cuda", *argv])
     err = io.StringIO()
     with contextlib.redirect_stderr(err):
@@ -191,7 +191,19 @@ def _cuda_plain_rollout(argv, kernel):
                                 args, set())
     told = [ln for ln in err.getvalue().splitlines()
             if f"kernel {kernel} does not cover" in ln]
-    return agent.kernel_rollout is False and len(told) == 1
+    return agent.kernel_rollout, len(told)
+
+
+def _cuda_plain_rollout(argv, kernel):
+    """Whether train.build on --device cuda resolves the agent to the plain
+    rollout with exactly one stderr line naming `kernel`."""
+    return _cuda_rollout_route(argv, kernel) == (False, 1)
+
+
+def _cuda_kernel_rollout(argv, kernel):
+    """Whether train.build on --device cuda resolves the agent to `kernel`
+    with no stderr line about its coverage."""
+    return _cuda_rollout_route(argv, kernel) == (True, 0)
 
 
 @pytest.mark.parametrize("argv", [["--ckpt-dir", "x"], ["--preset", "fast"],

@@ -31,7 +31,8 @@ from cartpoleplusplus_tpu_torch.models.from_jax import (
     qnet_from_flax,
     qnet_state_dict,
 )
-from test_torch_ddpg import _column_indices, _cuda_plain_rollout, _perturb
+from test_torch_ddpg import (_column_indices, _cuda_kernel_rollout,
+                             _cuda_plain_rollout, _perturb)
 
 HIDDEN = (32, 32)
 
@@ -319,12 +320,17 @@ def test_train_cli_cuda_without_gpu_is_an_error(monkeypatch):
                                   ["--dqn.hidden", *["8"] * 5],
                                   ["--dqn.hidden", "2048"]])
 def test_train_cli_cuda_rejects_shapes_b4_does_not_cover(argv):
-    """On a GPU a shape B4 does not cover runs the plain rollout on the
-    card: the agent resolves to it at construction with one stderr line
-    naming the kernel (train.build with --device cuda; no card here to
-    train on)."""
-    assert _cuda_plain_rollout(["--agent", "dqn", "--num-envs", "8", *argv],
-                               "B4")
+    """On a GPU a shape B4 does not cover (state obs) runs the plain
+    rollout on the card: the agent resolves to it at construction with one
+    stderr line naming the kernel. Any depth and width of the torso takes
+    the kernel route with no such line (train.build with --device cuda; no
+    card here to train on)."""
+    covered = argv[0] == "--dqn.hidden"
+    argv = ["--agent", "dqn", "--num-envs", "8", *argv]
+    if covered:
+        assert _cuda_kernel_rollout(argv, "B4")
+    else:
+        assert _cuda_plain_rollout(argv, "B4")
 
 
 @pytest.mark.parametrize("argv", [["--agent", "naf",

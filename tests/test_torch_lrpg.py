@@ -43,7 +43,8 @@ from cartpoleplusplus_tpu_torch.models.from_jax import (
 from cartpoleplusplus_tpu_torch.ops import pg_rollout as tpg
 from cartpoleplusplus_tpu_torch.physics.params import continuous_params
 from cartpoleplusplus_tpu_torch.utils import prng as tprng
-from test_torch_ddpg import _cuda_plain_rollout, _perturb
+from test_torch_ddpg import (_cuda_kernel_rollout, _cuda_plain_rollout,
+                             _perturb)
 from test_torch_q_rollout import _assert_rollouts_match, _port_inputs
 
 F = 42
@@ -231,7 +232,10 @@ def test_wrapper_runs_twin_on_cpu():
 def test_pg_fusable_gate():
     env = CartPole3D(CartPoleParams(), num_envs=100)
     assert tpg.pg_fusable(env, (64, 64)) and tpg.pg_fusable(env, (256,))
-    assert not tpg.pg_fusable(env, (8,) * 5) and not tpg.pg_fusable(env, ())
+    # Any depth and width, as the reference's kernel.
+    assert all(tpg.pg_fusable(env, h)
+               for h in ((8,) * 5, (2048,), (4096, 4096)))
+    assert not tpg.pg_fusable(env, ())
     assert not tpg.pg_fusable(CartPole3D(CartPoleParams(), num_envs=64,
                                          obs_mode="state"), (64, 64))
     assert not tpg.pg_fusable(CartPole3D(continuous_params(), num_envs=64),
@@ -429,3 +433,11 @@ def test_train_cli_cuda_rejects_shapes_b8_does_not_cover():
     train on)."""
     assert _cuda_plain_rollout(["--agent", "lrpg", "--num-envs", "8",
                                 "--obs-mode", "state"], "B8")
+
+
+@pytest.mark.parametrize("hidden", [["8"] * 5, ["2048"]])
+def test_train_cli_cuda_takes_b8_at_any_depth_and_width(hidden):
+    """Five layers and a 2048-wide torso resolve to the kernel route on a
+    GPU, with no stderr line (train.build with --device cuda)."""
+    assert _cuda_kernel_rollout(["--agent", "lrpg", "--num-envs", "8",
+                                 "--lrpg.hidden", *hidden], "B8")

@@ -146,31 +146,72 @@ def test_wrapper_rejects_other_devices(setup):
         tqr.q_policy_rollout(env, q, meta, obs, 0, EPS, T)
 
 
-def test_pack_qnet_layout(setup):
-    """The kernel's flat weight layout: per layer W (in, out), bias, LN
-    scale, LN bias; then the head's W (H, 5) and bias."""
-    _, _, q = setup
-    flat = tqr.pack_qnet(q)
-    off, dims = 0, (42,) + HIDDEN
-    for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
-        w = flat[off:off + a * b].reshape(a, b)
-        assert torch.equal(w, q.torso[i].weight.t())
-        off += a * b
-        assert torch.equal(flat[off:off + b], q.torso[i].bias)
-        assert torch.equal(flat[off + 2 * b:off + 3 * b], q.norms[i].bias)
+def _packed_forward(flat, obs, hidden):
+    """The network read from `pack_qnet`'s flat buffer at the offsets the
+    kernel computes (csrc/q_rollout.cu, q_tile.cuh): padded torso blocks,
+    the padded head block, then the vectors."""
+    dims, off, ws = (obs.shape[1],) + tuple(hidden), 0, []
+    for a, b in zip(dims[:-1], dims[1:]):
+        np_ = (b + 3) // 4 * 4
+        w = flat[off:off + a * np_].reshape(a, np_)
+        assert not w[:, b:].any()  # zero pad columns
+        ws.append(w[:, :b])
+        off += a * np_
+    assert off == tqr.torso_weight_floats(dims[0], hidden)
+    h_w = flat[off:off + 8 * dims[-1]].reshape(dims[-1], 8)
+    assert not h_w[:, 5:].any()
+    off += 8 * dims[-1]
+    x = obs
+    for w, b in zip(ws, hidden):
+        bias, scale, shift = flat[off:off + 3 * b].reshape(3, b)
         off += 3 * b
-    h = HIDDEN[-1]
-    assert torch.equal(flat[off:off + 5 * h].reshape(h, 5),
-                       q.head.weight.t())
-    assert torch.equal(flat[off + 5 * h:], q.head.bias)
+        x = x @ w + bias
+        mean = x.mean(-1, keepdim=True)
+        var = torch.clamp((x * x).mean(-1, keepdim=True) - mean * mean,
+                          min=0.0)
+        x = torch.relu((x - mean) * (torch.rsqrt(var + 1e-6) * scale)
+                       + shift)
+    assert off + 5 == flat.numel()
+    return x @ h_w[:, :5] + flat[off:]
+
+
+@pytest.mark.parametrize("hidden", [HIDDEN, (7,), (5, 6, 9, 3, 8)])
+def test_pack_qnet_layout(hidden):
+    """The kernel's flat weight layout: per layer W (in, Np) with zero pad
+    columns to a multiple of 4, the head's W (H, 8), then per layer bias,
+    LN scale, LN bias, and the head's bias; read at the kernel's offsets,
+    it is the Q-net."""
+    g = torch.Generator().manual_seed(2)
+    q = _random_port_qnet(hidden, g)
+    obs = torch.randn((16, 42), generator=g)
+    with torch.no_grad():
+        torch.testing.assert_close(_packed_forward(tqr.pack_qnet(q), obs,
+                                                   hidden), q(obs),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def _random_port_qnet(hidden, g):
+    """A port QNetMLP with its LayerNorm parameters and head redrawn."""
+    from cartpoleplusplus_tpu_torch.models import QNetMLP
+
+    q = QNetMLP(42, 5, hidden, generator=g)
+    with torch.no_grad():
+        for norm in q.norms:
+            norm.weight.copy_(1.0 + 0.2 * torch.randn(norm.weight.shape,
+                                                      generator=g))
+            norm.bias.copy_(0.1 * torch.randn(norm.bias.shape, generator=g))
+        for prm in q.head.parameters():
+            prm.copy_(0.5 * torch.randn(prm.shape, generator=g))
+    return q
 
 
 def test_q_fusable_gate():
     env = CartPole3D(CartPoleParams(), num_envs=100)
     assert tqr.q_fusable(env, HIDDEN)  # any batch size: tiles are masked
     assert tqr.q_fusable(env, (256, 256))
-    assert not tqr.q_fusable(env, (2048,))  # tile activations exceed smem
-    assert not tqr.q_fusable(env, (8,) * 5)  # more layers than the kernel
+    # Any depth and width: wide activations go to a workspace.
+    for hidden in ((2048,), (8,) * 5, (4096, 4096), (3,) * 12):
+        assert tqr.q_fusable(env, hidden)
     assert not tqr.q_fusable(env, ())
     assert not tqr.q_fusable(CartPole3D(continuous_params(), num_envs=64),
                              HIDDEN)  # continuous
