@@ -147,9 +147,9 @@ class DDPG:
             "ops.policy_rollout.fusable")
 
     def kernel_learner_ok(self) -> bool:
-        """Whether kernel B3 covers this config: state observations, 2 to 4
-        hidden layers within its row width (the action joins at layer 1),
-        float32, the per-update Polyak cadence (per_step runs on the plain
+        """Whether kernel B3 covers this config: state observations, at
+        least two hidden layers (the action joins at layer 1; any depth and
+        width), float32, the per-update Polyak cadence (per_step runs on the plain
         learner only, as in the reference), and at least one update."""
         c = self.cfg
         return (self.env.obs_mode != "pixels"

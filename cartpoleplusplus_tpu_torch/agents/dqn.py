@@ -130,9 +130,9 @@ class DQN:
             "ops.q_rollout.q_fusable")
 
     def kernel_learner_ok(self) -> bool:
-        """Whether kernel B5 covers this config: state observations, 1 to 4
-        hidden layers within its row width, float32, and at least one
-        update."""
+        """Whether kernel B5 covers this config: state observations, at
+        least one hidden layer (any depth and width), float32, and at least
+        one update."""
         c = self.cfg
         return (self.env.obs_mode != "pixels"
                 and lk.dqn_covers(self.env.obs_size, c.hidden)

@@ -119,8 +119,9 @@ class LRPG:
             "ops.pg_rollout.pg_fusable")
 
     def kernel_learner_ok(self) -> bool:
-        """Whether kernel B9 covers this config: state observations, 1 to 4
-        hidden layers of any width (`lk.lrpg_covers`), and float32."""
+        """Whether kernel B9 covers this config: state observations, at
+        least one hidden layer (any depth and width, `lk.lrpg_covers`), and
+        float32."""
         c = self.cfg
         return (self.env.obs_mode != "pixels"
                 and lk.lrpg_covers(self.env.obs_size, c.hidden)

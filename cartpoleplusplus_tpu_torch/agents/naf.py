@@ -132,8 +132,8 @@ class NAF:
 
     def kernel_learner_ok(self) -> bool:
         """Whether kernel B7 covers this config: state observations, 2-D
-        actions, 1 to 4 hidden layers within its row width, float32, and at
-        least one update."""
+        actions, at least one hidden layer (any depth and width), float32,
+        and at least one update."""
         c = self.cfg
         return (self.env.obs_mode != "pixels"
                 and self.env.action_dim == 2

@@ -21,7 +21,10 @@
 // of stages and cg::this_grid().sync() orders them, so the serial
 // dependence (stage after stage, critic Adam before the actor pass, update
 // k before k + 1) is a loop inside the kernel and the launch count does
-// not depend on the number of layers or parameter tensors. Row stages
+// not depend on the number of layers or parameter tensors. Any depth >= 2
+// and any width, as the reference's kernel takes: the widths and the
+// parameter offsets are a device table, and a row stage walks a layer
+// input wider than kKc = 1024 in chunks. Row stages
 // multiply 16-row x 32-column tiles through shared memory; gradient stages
 // give every gradient element to one thread, which sums it over the batch
 // in a fixed order and applies Adam and Polyak (no float atomics, so two
@@ -46,8 +49,8 @@
 
 // Mirror of ops/_native.py::LearnerDims.
 struct LearnerDims {
-  int num_layers, obs_dim, batch, k_updates, merged;
-  int hidden[kMaxLayers];
+  int obs_dim, batch, k_updates, merged;
+  Torso torso;
   NetLayout actor, critic;
 };
 
@@ -55,27 +58,19 @@ namespace {
 
 constexpr int kActDim = 2;
 
-// The workspace: per-layer activations and gradient rows, (batch, width)
-// row-major each. Carved by carve() on the host.
+// The workspace: per-layer regions of activations and gradient rows,
+// layer l's (batch, H_l) rows at layer_rows(region, l), the layer inputs
+// (l >= 1) at input_rows. Carved by carve() on the host.
 struct Workspace {
   // critic pass: target actor and target critic on s', critic on (s, a)
-  float* zAT[kMaxLayers];
-  float* zCT[kMaxLayers];
-  float* zC[kMaxLayers];
-  float* hinC[kMaxLayers];   // layer inputs (l >= 1) for the weight grads
-  float* dzC[kMaxLayers];
-  float* dyC[kMaxLayers];
-  float* dyxhC[kMaxLayers];
+  float *zAT, *zCT, *zC;
+  float* hinC;   // the critic's layer inputs, the action joined at layer 1
+  float *dzC, *dyC, *dyxhC;
   float *aN, *qN, *hlastC, *qC, *td, *dqC;
   // actor pass: actor on s, critic on (s, pi(s))
-  float* zA[kMaxLayers];
-  float* hinA[kMaxLayers];
-  float* zQ[kMaxLayers];
-  float* dzA[kMaxLayers];
-  float* dyA[kMaxLayers];
-  float* dyxhA[kMaxLayers];
+  float *zA, *hinA, *zQ, *dzA, *dyA, *dyxhA;
   float *hlastA, *aA, *qA, *dqA, *dpreA;
-  float* dh[2];              // upstream gradients, ping-pong
+  float* dh[2];  // upstream gradients, ping-pong
 };
 
 struct Groups {
@@ -87,35 +82,10 @@ struct Batches {
   const bool* done;
 };
 
-// Emits the gradient ops of one network (0 actor, 1 critic).
-__device__ void add_net_grads(Shared& sh, int net, const LearnerDims& d,
-                              const NetLayout& L, const float* obs,
-                              float* const* dz, float* const* dy,
-                              float* const* dyxh, float* const* hin,
-                              const float* dhead, int n_head,
-                              const float* hlast, const float* loss_src,
-                              int sq, float scale, float* dst) {
-  const int nl = d.num_layers;
-  for (int l = 0; l < nl; ++l) {
-    const int h = d.hidden[l];
-    const int in = l == 0 ? d.obs_dim
-                          : d.hidden[l - 1] + (net == 1 && l == 1 ? kActDim : 0);
-    sh.grads[sh.n_grads++] =
-        grad_op(kGradW, net, dz[l], h, l == 0 ? obs : hin[l], in, L.w[l]);
-    sh.grads[sh.n_grads++] = grad_op(kGradV, net, dz[l], h, nullptr, 0, L.b[l]);
-    sh.grads[sh.n_grads++] =
-        grad_op(kGradV, net, dyxh[l], h, nullptr, 0, L.s[l]);
-    sh.grads[sh.n_grads++] = grad_op(kGradV, net, dy[l], h, nullptr, 0, L.t[l]);
-  }
-  const int hl = d.hidden[nl - 1];
-  sh.grads[sh.n_grads++] = grad_op(kGradW, net, dhead, n_head, hlast, hl, L.wh);
-  sh.grads[sh.n_grads++] =
-      grad_op(kGradV, net, dhead, n_head, nullptr, 0, L.bh);
-  GradOp loss = grad_op(kGradLoss, net, loss_src, 1, nullptr, 0, 0);
-  loss.sq = sq;
-  loss.scale = scale;
-  loss.dst = dst;
-  sh.grads[sh.n_grads++] = loss;
+// Ints of the device table: the widths and their prefix sums, then the
+// actor's and the critic's per-layer offsets.
+__host__ __device__ inline int table_ints(const LearnerDims& d) {
+  return 10 * d.torso.L;
 }
 
 __global__ void __launch_bounds__(kThreads) ddpg_update_kernel(
@@ -126,11 +96,13 @@ __global__ void __launch_bounds__(kThreads) ddpg_update_kernel(
   extern __shared__ float smem[];
   __shared__ Shared sh;
   const bool lead = threadIdx.x == 0;
-  const int B = d.batch, F = d.obs_dim, nl = d.num_layers;
-  const int* H = d.hidden;
-  const int hl = H[nl - 1];
-  const NetLayout& LA = d.actor;
-  const NetLayout& LC = d.critic;
+  const int B = d.batch, F = d.obs_dim;
+  int* const tab = reinterpret_cast<int*>(smem + region_floats(ldh));
+  const Torso T = stage_table(d.torso, table_ints(d), tab);
+  const int nl = T.L;
+  const int hl = T.h(nl - 1);
+  const NetLayout LA = layout_on(d.actor, d.torso, T);
+  const NetLayout LC = layout_on(d.critic, d.torso, T);
   float* const A = gr.g[0];
   float* const C = gr.g[1];
   float* const AT = gr.g[2];
@@ -144,6 +116,8 @@ __global__ void __launch_bounds__(kThreads) ddpg_update_kernel(
     grid.sync();
   };
   auto add_row = [&](const RowOp& op) { sh.rows[sh.n_rows++] = op; };
+  auto Z = [&](float* region, int l) { return layer_rows(region, T, l, B); };
+  auto H = [&](int l) { return T.h(l); };
 
   for (int k = 0; k < d.k_updates; ++k) {
     const float* obs = bt.obs + static_cast<size_t>(k) * B * F;
@@ -159,58 +133,71 @@ __global__ void __launch_bounds__(kThreads) ddpg_update_kernel(
         c.sched ? fminf((tk - 1.0f) / c.sched_steps, 1.0f) : 0.0f;
     as.lr[0] = c.sched ? c.actor_lr + frac * c.actor_lr_delta : c.actor_lr;
     as.lr[1] = c.sched ? c.critic_lr + frac * c.critic_lr_delta : c.critic_lr;
+    // The two networks' gradient lists (lead thread only).
+    auto grads_c = [&]() {
+      return NetGrads{1, kActDim, 1, 1, c.inv_batch, closs + k, obs, w.dzC,
+                      w.dyC, w.dyxhC, w.hinC, w.dqC, w.hlastC, w.td, LC};
+    };
+    auto grads_a = [&]() {
+      return NetGrads{0, 0, kActDim, 0, c.neg_inv_batch, aloss + k, obs,
+                      w.dzA, w.dyA, w.dyxhA, w.hinA, w.dpreA, w.hlastA, w.qA,
+                      LA};
+    };
 
     // ---- critic pass: y from the targets on s', Q(s, a) and its grads ----
     if (lead) {
       sh.n_rows = 0;
       add_row(fwd_op(nobs, F, kProPlain, nullptr, nullptr, nullptr, 0,
-                     AT + LA.w[0], AT + LA.b[0], H[0], w.zAT[0], nullptr,
+                     AT + LA.w(0), AT + LA.b(0), H(0), Z(w.zAT, 0), nullptr,
                      kEpiNone));
       add_row(fwd_op(nobs, F, kProPlain, nullptr, nullptr, nullptr, 0,
-                     CT + LC.w[0], CT + LC.b[0], H[0], w.zCT[0], nullptr,
+                     CT + LC.w(0), CT + LC.b(0), H(0), Z(w.zCT, 0), nullptr,
                      kEpiNone));
       add_row(fwd_op(obs, F, kProPlain, nullptr, nullptr, nullptr, 0,
-                     C + LC.w[0], C + LC.b[0], H[0], w.zC[0], nullptr,
+                     C + LC.w(0), C + LC.b(0), H(0), Z(w.zC, 0), nullptr,
                      kEpiNone));
     }
     rows_stage();
     for (int l = 1; l < nl; ++l) {
       if (lead) {
         sh.n_rows = 0;
-        add_row(fwd_op(w.zAT[l - 1], H[l - 1], kProLnRelu, AT + LA.s[l - 1],
-                       AT + LA.t[l - 1], nullptr, 0, AT + LA.w[l],
-                       AT + LA.b[l], H[l], w.zAT[l], nullptr, kEpiNone));
-        add_row(fwd_op(w.zC[l - 1], H[l - 1], kProLnRelu, C + LC.s[l - 1],
-                       C + LC.t[l - 1], l == 1 ? act : nullptr,
-                       l == 1 ? kActDim : 0, C + LC.w[l], C + LC.b[l], H[l],
-                       w.zC[l], w.hinC[l], kEpiNone));
+        add_row(fwd_op(Z(w.zAT, l - 1), H(l - 1), kProLnRelu,
+                       AT + LA.s(l - 1), AT + LA.t(l - 1), nullptr, 0,
+                       AT + LA.w(l), AT + LA.b(l), H(l), Z(w.zAT, l), nullptr,
+                       kEpiNone));
+        add_row(fwd_op(Z(w.zC, l - 1), H(l - 1), kProLnRelu, C + LC.s(l - 1),
+                       C + LC.t(l - 1), l == 1 ? act : nullptr,
+                       l == 1 ? kActDim : 0, C + LC.w(l), C + LC.b(l), H(l),
+                       Z(w.zC, l), input_rows(w.hinC, T, l, kActDim, B),
+                       kEpiNone));
       }
       rows_stage();
     }
     if (lead) {
       sh.n_rows = 0;
-      add_row(fwd_op(w.zAT[nl - 1], hl, kProLnRelu, AT + LA.s[nl - 1],
-                     AT + LA.t[nl - 1], nullptr, 0, AT + LA.wh, AT + LA.bh,
+      add_row(fwd_op(Z(w.zAT, nl - 1), hl, kProLnRelu, AT + LA.s(nl - 1),
+                     AT + LA.t(nl - 1), nullptr, 0, AT + LA.wh, AT + LA.bh,
                      kActDim, w.aN, nullptr, kEpiTanh));
-      add_row(fwd_op(w.zC[nl - 1], hl, kProLnRelu, C + LC.s[nl - 1],
-                     C + LC.t[nl - 1], nullptr, 0, C + LC.wh, C + LC.bh, 1,
+      add_row(fwd_op(Z(w.zC, nl - 1), hl, kProLnRelu, C + LC.s(nl - 1),
+                     C + LC.t(nl - 1), nullptr, 0, C + LC.wh, C + LC.bh, 1,
                      w.qC, w.hlastC, kEpiNone));
     }
     rows_stage();
     for (int l = 1; l < nl; ++l) {
       if (lead) {
         sh.n_rows = 0;
-        add_row(fwd_op(w.zCT[l - 1], H[l - 1], kProLnRelu, CT + LC.s[l - 1],
-                       CT + LC.t[l - 1], l == 1 ? w.aN : nullptr,
-                       l == 1 ? kActDim : 0, CT + LC.w[l], CT + LC.b[l], H[l],
-                       w.zCT[l], nullptr, kEpiNone));
+        add_row(fwd_op(Z(w.zCT, l - 1), H(l - 1), kProLnRelu,
+                       CT + LC.s(l - 1), CT + LC.t(l - 1),
+                       l == 1 ? w.aN : nullptr, l == 1 ? kActDim : 0,
+                       CT + LC.w(l), CT + LC.b(l), H(l), Z(w.zCT, l), nullptr,
+                       kEpiNone));
       }
       rows_stage();
     }
     if (lead) {
       sh.n_rows = 0;
-      RowOp op = fwd_op(w.zCT[nl - 1], hl, kProLnRelu, CT + LC.s[nl - 1],
-                        CT + LC.t[nl - 1], nullptr, 0, CT + LC.wh, CT + LC.bh,
+      RowOp op = fwd_op(Z(w.zCT, nl - 1), hl, kProLnRelu, CT + LC.s(nl - 1),
+                        CT + LC.t(nl - 1), nullptr, 0, CT + LC.wh, CT + LC.bh,
                         1, w.qN, nullptr, kEpiTd);
       op.e0 = w.qC;
       op.e1 = rew;
@@ -230,22 +217,20 @@ __global__ void __launch_bounds__(kThreads) ddpg_update_kernel(
     for (int l = nl - 1; l >= 0; --l) {
       if (lead) {
         sh.n_rows = 0;
-        const int in_w = l == 0 ? F : H[l - 1] + (l == 1 ? kActDim : 0);
-        add_row(bwd_op(w.dh[cur], w.zC[l], H[l], C + LC.s[l], C + LC.t[l],
-                       w.dzC[l], w.dyC[l], w.dyxhC[l], C + LC.w[l], in_w, 0,
-                       l == 0 ? 0 : H[l - 1], w.dh[cur ^ 1]));
+        const int in_w = l == 0 ? F : H(l - 1) + (l == 1 ? kActDim : 0);
+        add_row(bwd_op(w.dh[cur], Z(w.zC, l), H(l), C + LC.s(l), C + LC.t(l),
+                       Z(w.dzC, l), Z(w.dyC, l), Z(w.dyxhC, l), C + LC.w(l),
+                       in_w, 0, l == 0 ? 0 : H(l - 1), w.dh[cur ^ 1]));
       }
       rows_stage();
       cur ^= 1;
     }
     if (!d.merged) {  // critic Adam before the actor pass
       if (lead) {
-        sh.n_grads = 0;
-        add_net_grads(sh, 1, d, LC, obs, w.dzC, w.dyC, w.dyxhC, w.hinC, w.dqC,
-                      1, w.hlastC, w.td, 1, c.inv_batch, closs + k);
+        sh.nets[0] = grads_c();
+        sh.n_nets = 1;
       }
-      __syncthreads();
-      run_grads(sh.grads, sh.n_grads, B, nets, as, c, smem);
+      run_net_grads(sh, T, F, B, nets, as, c, smem);
       grid.sync();
     }
 
@@ -253,43 +238,44 @@ __global__ void __launch_bounds__(kThreads) ddpg_update_kernel(
     if (lead) {
       sh.n_rows = 0;
       add_row(fwd_op(obs, F, kProPlain, nullptr, nullptr, nullptr, 0,
-                     A + LA.w[0], A + LA.b[0], H[0], w.zA[0], nullptr,
+                     A + LA.w(0), A + LA.b(0), H(0), Z(w.zA, 0), nullptr,
                      kEpiNone));
       add_row(fwd_op(obs, F, kProPlain, nullptr, nullptr, nullptr, 0,
-                     C + LC.w[0], C + LC.b[0], H[0], w.zQ[0], nullptr,
+                     C + LC.w(0), C + LC.b(0), H(0), Z(w.zQ, 0), nullptr,
                      kEpiNone));
     }
     rows_stage();
     for (int l = 1; l < nl; ++l) {
       if (lead) {
         sh.n_rows = 0;
-        add_row(fwd_op(w.zA[l - 1], H[l - 1], kProLnRelu, A + LA.s[l - 1],
-                       A + LA.t[l - 1], nullptr, 0, A + LA.w[l], A + LA.b[l],
-                       H[l], w.zA[l], w.hinA[l], kEpiNone));
+        add_row(fwd_op(Z(w.zA, l - 1), H(l - 1), kProLnRelu, A + LA.s(l - 1),
+                       A + LA.t(l - 1), nullptr, 0, A + LA.w(l), A + LA.b(l),
+                       H(l), Z(w.zA, l), input_rows(w.hinA, T, l, 0, B),
+                       kEpiNone));
       }
       rows_stage();
     }
     if (lead) {
       sh.n_rows = 0;
-      add_row(fwd_op(w.zA[nl - 1], hl, kProLnRelu, A + LA.s[nl - 1],
-                     A + LA.t[nl - 1], nullptr, 0, A + LA.wh, A + LA.bh,
+      add_row(fwd_op(Z(w.zA, nl - 1), hl, kProLnRelu, A + LA.s(nl - 1),
+                     A + LA.t(nl - 1), nullptr, 0, A + LA.wh, A + LA.bh,
                      kActDim, w.aA, w.hlastA, kEpiTanh));
     }
     rows_stage();
     for (int l = 1; l < nl; ++l) {
       if (lead) {
         sh.n_rows = 0;
-        add_row(fwd_op(w.zQ[l - 1], H[l - 1], kProLnRelu, C + LC.s[l - 1],
-                       C + LC.t[l - 1], l == 1 ? w.aA : nullptr,
-                       l == 1 ? kActDim : 0, C + LC.w[l], C + LC.b[l], H[l],
-                       w.zQ[l], nullptr, kEpiNone));
+        add_row(fwd_op(Z(w.zQ, l - 1), H(l - 1), kProLnRelu, C + LC.s(l - 1),
+                       C + LC.t(l - 1), l == 1 ? w.aA : nullptr,
+                       l == 1 ? kActDim : 0, C + LC.w(l), C + LC.b(l), H(l),
+                       Z(w.zQ, l), nullptr, kEpiNone));
       }
       rows_stage();
     }
     if (lead) {
       sh.n_rows = 0;
-      RowOp op = fwd_op(w.zQ[nl - 1], hl, kProLnRelu, C + LC.s[nl - 1],
-                        C + LC.t[nl - 1], nullptr, 0, C + LC.wh, C + LC.bh, 1,
+      RowOp op = fwd_op(Z(w.zQ, nl - 1), hl, kProLnRelu, C + LC.s(nl - 1),
+                        C + LC.t(nl - 1), nullptr, 0, C + LC.wh, C + LC.bh, 1,
                         w.qA, nullptr, kEpiConst);
       op.eout1 = w.dqA;
       add_row(op);
@@ -306,13 +292,13 @@ __global__ void __launch_bounds__(kThreads) ddpg_update_kernel(
       if (lead) {
         sh.n_rows = 0;
         if (l > 1) {
-          add_row(bwd_op(w.dh[cur], w.zQ[l], H[l], C + LC.s[l], C + LC.t[l],
-                         nullptr, nullptr, nullptr, C + LC.w[l], H[l - 1], 0,
-                         H[l - 1], w.dh[cur ^ 1]));
+          add_row(bwd_op(w.dh[cur], Z(w.zQ, l), H(l), C + LC.s(l),
+                         C + LC.t(l), nullptr, nullptr, nullptr, C + LC.w(l),
+                         H(l - 1), 0, H(l - 1), w.dh[cur ^ 1]));
         } else {
-          RowOp op = bwd_op(w.dh[cur], w.zQ[1], H[1], C + LC.s[1],
-                            C + LC.t[1], nullptr, nullptr, nullptr,
-                            C + LC.w[1], H[0] + kActDim, H[0], kActDim,
+          RowOp op = bwd_op(w.dh[cur], Z(w.zQ, 1), H(1), C + LC.s(1),
+                            C + LC.t(1), nullptr, nullptr, nullptr,
+                            C + LC.w(1), H(0) + kActDim, H(0), kActDim,
                             w.dpreA);
           op.epi = kEpiTanhBwd;
           op.e0 = w.aA;
@@ -332,61 +318,67 @@ __global__ void __launch_bounds__(kThreads) ddpg_update_kernel(
     for (int l = nl - 1; l >= 0; --l) {
       if (lead) {
         sh.n_rows = 0;
-        const int in_w = l == 0 ? F : H[l - 1];
-        add_row(bwd_op(w.dh[cur], w.zA[l], H[l], A + LA.s[l], A + LA.t[l],
-                       w.dzA[l], w.dyA[l], w.dyxhA[l], A + LA.w[l], in_w, 0,
-                       l == 0 ? 0 : H[l - 1], w.dh[cur ^ 1]));
+        const int in_w = l == 0 ? F : H(l - 1);
+        add_row(bwd_op(w.dh[cur], Z(w.zA, l), H(l), A + LA.s(l), A + LA.t(l),
+                       Z(w.dzA, l), Z(w.dyA, l), Z(w.dyxhA, l), A + LA.w(l),
+                       in_w, 0, l == 0 ? 0 : H(l - 1), w.dh[cur ^ 1]));
       }
       rows_stage();
       cur ^= 1;
     }
     if (lead) {
-      sh.n_grads = 0;
-      if (d.merged)
-        add_net_grads(sh, 1, d, LC, obs, w.dzC, w.dyC, w.dyxhC, w.hinC, w.dqC,
-                      1, w.hlastC, w.td, 1, c.inv_batch, closs + k);
-      add_net_grads(sh, 0, d, LA, obs, w.dzA, w.dyA, w.dyxhA, w.hinA,
-                    w.dpreA, kActDim, w.hlastA, w.qA, 0, c.neg_inv_batch,
-                    aloss + k);
+      sh.n_nets = 0;
+      if (d.merged) sh.nets[sh.n_nets++] = grads_c();
+      sh.nets[sh.n_nets++] = grads_a();
     }
-    __syncthreads();
-    run_grads(sh.grads, sh.n_grads, B, nets, as, c, smem);
+    run_net_grads(sh, T, F, B, nets, as, c, smem);
     grid.sync();
   }
 }
 
+// The dims as the host checks them against its copy of the widths; *sum
+// and *kmax get the widths' sum and the widest layer input.
+bool dims_ok(const LearnerDims& d, const int* widths, long long* sum,
+             int* kmax) {
+  int widest;
+  if (d.obs_dim < 1 || d.batch < 1 || d.k_updates < 1 ||
+      d.torso.tab == nullptr || d.actor.lay == nullptr ||
+      d.critic.lay == nullptr ||
+      !widths_ok(widths, d.torso.L, 2, sum, &widest, 0))
+    return false;
+  *kmax = widest + kActDim > d.obs_dim ? widest + kActDim : d.obs_dim;
+  return true;
+}
+
 // Carves the workspace from `base` (or only counts floats when it is null).
-long long carve(const LearnerDims& d, float* base, Workspace* w) {
+long long carve(const LearnerDims& d, const int* widths, float* base,
+                Workspace* w) {
   long long off = 0;
   auto take = [&](long long n) -> float* {
     float* p = base != nullptr ? base + off : nullptr;
     off += (n + 31) / 32 * 32;   // 128-byte aligned pieces
     return p;
   };
+  long long sum;
+  int kmax;
+  dims_ok(d, widths, &sum, &kmax);
   const long long B = d.batch;
-  const int nl = d.num_layers;
-  int wmax = d.obs_dim;
-  for (int l = 0; l < nl; ++l) wmax = d.hidden[l] > wmax ? d.hidden[l] : wmax;
+  const long long hl = widths[d.torso.L - 1];
+  const long long ins = sum - hl;   // the layer inputs H_0 .. H_{L-2}
   *w = Workspace{};
-  for (int l = 0; l < nl; ++l) {
-    const long long h = d.hidden[l];
-    const long long in_c = l == 0 ? 0 : d.hidden[l - 1] + (l == 1 ? kActDim : 0);
-    const long long in_a = l == 0 ? 0 : d.hidden[l - 1];
-    w->zAT[l] = take(B * h);
-    w->zCT[l] = take(B * h);
-    w->zC[l] = take(B * h);
-    w->hinC[l] = l == 0 ? nullptr : take(B * in_c);
-    w->dzC[l] = take(B * h);
-    w->dyC[l] = take(B * h);
-    w->dyxhC[l] = take(B * h);
-    w->zA[l] = take(B * h);
-    w->hinA[l] = l == 0 ? nullptr : take(B * in_a);
-    w->zQ[l] = take(B * h);
-    w->dzA[l] = take(B * h);
-    w->dyA[l] = take(B * h);
-    w->dyxhA[l] = take(B * h);
-  }
-  const long long hl = d.hidden[nl - 1];
+  w->zAT = take(B * sum);
+  w->zCT = take(B * sum);
+  w->zC = take(B * sum);
+  w->hinC = take(B * (ins + kActDim));
+  w->dzC = take(B * sum);
+  w->dyC = take(B * sum);
+  w->dyxhC = take(B * sum);
+  w->zA = take(B * sum);
+  w->hinA = take(B * ins);
+  w->zQ = take(B * sum);
+  w->dzA = take(B * sum);
+  w->dyA = take(B * sum);
+  w->dyxhA = take(B * sum);
   w->aN = take(B * kActDim);
   w->qN = take(B);
   w->hlastC = take(B * hl);
@@ -398,26 +390,9 @@ long long carve(const LearnerDims& d, float* base, Workspace* w) {
   w->qA = take(B);
   w->dqA = take(B);
   w->dpreA = take(B * kActDim);
-  w->dh[0] = take(B * (wmax + kActDim));
-  w->dh[1] = take(B * (wmax + kActDim));
+  w->dh[0] = take(B * kmax);
+  w->dh[1] = take(B * kmax);
   return off;
-}
-
-bool dims_ok(const LearnerDims& d) {
-  if (d.num_layers < 2 || d.num_layers > kMaxLayers || d.obs_dim < 1 ||
-      d.batch < 1 || d.k_updates < 1)
-    return false;
-  for (int l = 0; l < d.num_layers; ++l)
-    if (d.hidden[l] < 1 || d.hidden[l] + kActDim > kMaxWidth) return false;
-  return d.obs_dim + kActDim <= kMaxWidth;
-}
-
-// Row width of the shared-memory input rows: the widest layer input.
-int kmax_of(const LearnerDims& d) {
-  int k = d.obs_dim;
-  for (int l = 0; l < d.num_layers; ++l)
-    k = d.hidden[l] + kActDim > k ? d.hidden[l] + kActDim : k;
-  return k;
 }
 
 }  // namespace
@@ -425,34 +400,44 @@ int kmax_of(const LearnerDims& d) {
 extern "C" {
 
 // Floats of workspace cp_ddpg_update_phase needs for these dims (0 when the
-// dims are outside what the kernel takes).
-long long cp_ddpg_workspace_floats(const LearnerDims* dims) {
-  if (!dims_ok(*dims)) return 0;
+// dims are outside what the kernel takes). widths: the host's copy of the
+// torso's widths (dims->torso.L ints).
+long long cp_ddpg_workspace_floats(const LearnerDims* dims,
+                                   const int* widths) {
+  long long sum;
+  int kmax;
+  if (!dims_ok(*dims, widths, &sum, &kmax)) return 0;
   Workspace w;
-  return carve(*dims, nullptr, &w);
+  return carve(*dims, widths, nullptr, &w);
 }
 
-// The K-update phase in one cooperative launch on `stream`. groups: the 8
-// group buffers (updated in place); batches: obs (K, B, F), act (K, B, 2),
-// rew (K, B), nobs (K, B, F), done (K, B) bool; closs/aloss (K,);
-// workspace: cp_ddpg_workspace_floats(dims) floats; t0: the Adam count
-// before the phase. Returns a cudaError_t.
-int cp_ddpg_update_phase(const LearnerDims* dims, const LearnerConsts* consts,
-                         float* actor, float* critic, float* actor_t,
-                         float* critic_t, float* m_a, float* v_a, float* m_c,
-                         float* v_c, const float* obs, const float* act,
-                         const float* rew, const float* nobs, const bool* done,
-                         float* closs, float* aloss, float* workspace, int t0,
+// The K-update phase in one cooperative launch on `stream`. widths: as
+// above; dims->torso.tab and the layouts' tables: the device table
+// (ops/learner_kernel.py::_learner_table). groups: the 8 group buffers
+// (updated in place); batches: obs (K, B, F), act (K, B, 2), rew (K, B),
+// nobs (K, B, F), done (K, B) bool; closs/aloss (K,); workspace:
+// cp_ddpg_workspace_floats(dims, widths) floats; t0: the Adam count before
+// the phase. Returns a cudaError_t.
+int cp_ddpg_update_phase(const LearnerDims* dims, const int* widths,
+                         const LearnerConsts* consts, float* actor,
+                         float* critic, float* actor_t, float* critic_t,
+                         float* m_a, float* v_a, float* m_c, float* v_c,
+                         const float* obs, const float* act, const float* rew,
+                         const float* nobs, const bool* done, float* closs,
+                         float* aloss, float* workspace, int t0,
                          void* stream) {
   LearnerDims d = *dims;
   LearnerConsts c = *consts;
-  if (!dims_ok(d)) return static_cast<int>(cudaErrorInvalidValue);
+  long long sum;
+  int kmax;
+  if (!dims_ok(d, widths, &sum, &kmax))
+    return static_cast<int>(cudaErrorInvalidValue);
   Workspace w;
-  carve(d, workspace, &w);
+  carve(d, widths, workspace, &w);
   Groups gr = {{actor, critic, actor_t, critic_t, m_a, v_a, m_c, v_c}};
   Batches bt = {obs, act, rew, nobs, done};
-  int ldh = kmax_of(d);
-  const size_t smem = smem_bytes(ldh);
+  int ldh = row_ld(kmax);
+  const size_t smem = smem_bytes(ldh, table_ints(d));
 
   static int blocks = 0;
   static size_t blocks_smem = 0;

@@ -19,13 +19,15 @@
 // lockstep, the three 5-wide heads, the TD epilogue (one batch row per
 // thread), the head backward, L LayerNorm-backward stages, and one stage
 // that reduces every gradient element in a fixed order and applies Adam and
-// Polyak to it. No float atomics: two runs give the same bits.
+// Polyak to it. No float atomics: two runs give the same bits. Any depth
+// >= 1 and any width, as the reference's kernel takes (learner_stages.cuh:
+// device tables of the widths and offsets, chunked row stages).
 #include "learner_stages.cuh"
 
 // Mirror of ops/_native.py::DqnDims.
 struct DqnDims {
-  int num_layers, obs_dim, batch, k_updates, double_dqn;
-  int hidden[kMaxLayers];
+  int obs_dim, batch, k_updates, double_dqn;
+  Torso torso;
   NetLayout q;
 };
 
@@ -33,18 +35,17 @@ namespace {
 
 constexpr int kNumActions = 5;  // ops/learner_kernel.py::NUM_ACTIONS
 
-// The workspace: per-layer activations and gradient rows, (batch, width)
-// row-major each. Carved by carve() on the host.
+// The workspace: per-layer regions of activations and gradient rows,
+// layer l's (batch, H_l) rows at layer_rows(region, l), the layer inputs
+// (l >= 1) at input_rows. Carved by carve() on the host.
 struct DqnWorkspace {
-  float* zT[kMaxLayers];    // target net on s' (pre-LN)
-  float* zN[kMaxLayers];    // online net on s' (double DQN's selector)
-  float* zS[kMaxLayers];    // online net on s
-  float* hin[kMaxLayers];   // its layer inputs (l >= 1) for the weight grads
-  float* dz[kMaxLayers];
-  float* dy[kMaxLayers];
-  float* dyxh[kMaxLayers];
+  float* zT;    // target net on s' (pre-LN)
+  float* zN;    // online net on s' (double DQN's selector)
+  float* zS;    // online net on s
+  float* hin;   // its layer inputs (l >= 1) for the weight grads
+  float *dz, *dy, *dyxh;
   float *qT, *qN, *qS, *hlast, *dq, *hub;
-  float* dh[2];             // upstream gradients, ping-pong
+  float* dh[2];  // upstream gradients, ping-pong
 };
 
 struct DqnBatches {
@@ -85,6 +86,12 @@ __device__ void td_rows(const DqnWorkspace& w, const DqnBatches& bt, int k,
   }
 }
 
+// Ints of the device table: the widths and their prefix sums, then the
+// net's per-layer offsets.
+__host__ __device__ inline int table_ints(const DqnDims& d) {
+  return 6 * d.torso.L;
+}
+
 __global__ void __launch_bounds__(kThreads) dqn_update_kernel(
     const DqnDims d, const LearnerConsts c, const DqnWorkspace w,
     float* __restrict__ qp, float* __restrict__ qtp, float* __restrict__ m,
@@ -94,10 +101,12 @@ __global__ void __launch_bounds__(kThreads) dqn_update_kernel(
   extern __shared__ float smem[];
   __shared__ Shared sh;
   const bool lead = threadIdx.x == 0;
-  const int B = d.batch, F = d.obs_dim, nl = d.num_layers;
-  const int* H = d.hidden;
-  const int hl = H[nl - 1];
-  const NetLayout& L = d.q;
+  const int B = d.batch, F = d.obs_dim;
+  int* const tab = reinterpret_cast<int*>(smem + region_floats(ldh));
+  const Torso T = stage_table(d.torso, table_ints(d), tab);
+  const int nl = T.L;
+  const int hl = T.h(nl - 1);
+  const NetLayout L = layout_on(d.q, d.torso, T);
   float* const Q = qp;
   float* const QT = qtp;
   const NetPtr nets[1] = {{Q, QT, m, v}};
@@ -109,7 +118,7 @@ __global__ void __launch_bounds__(kThreads) dqn_update_kernel(
     grid.sync();
   };
   auto add_row = [&](const RowOp& op) { sh.rows[sh.n_rows++] = op; };
-  auto add_grad = [&](const GradOp& op) { sh.grads[sh.n_grads++] = op; };
+  auto Z = [&](float* region, int l) { return layer_rows(region, T, l, B); };
 
   for (int k = 0; k < d.k_updates; ++k) {
     const float* obs = bt.obs + static_cast<size_t>(k) * B * F;
@@ -124,39 +133,41 @@ __global__ void __launch_bounds__(kThreads) dqn_update_kernel(
     for (int l = 0; l < nl; ++l) {
       if (lead) {
         sh.n_rows = 0;
-        const int kx = l == 0 ? F : H[l - 1];
-        const int pro = l == 0 ? kProPlain : kProLnRelu;
         const bool first = l == 0;
-        add_row(fwd_op(first ? nobs : w.zT[l - 1], kx, pro,
-                       first ? nullptr : QT + L.s[l - 1],
-                       first ? nullptr : QT + L.t[l - 1], nullptr, 0,
-                       QT + L.w[l], QT + L.b[l], H[l], w.zT[l], nullptr,
+        const int kx = first ? F : T.h(l - 1);
+        const int pro = first ? kProPlain : kProLnRelu;
+        const int h = T.h(l);
+        add_row(fwd_op(first ? nobs : Z(w.zT, l - 1), kx, pro,
+                       first ? nullptr : QT + L.s(l - 1),
+                       first ? nullptr : QT + L.t(l - 1), nullptr, 0,
+                       QT + L.w(l), QT + L.b(l), h, Z(w.zT, l), nullptr,
                        kEpiNone));
         if (d.double_dqn)
-          add_row(fwd_op(first ? nobs : w.zN[l - 1], kx, pro,
-                         first ? nullptr : Q + L.s[l - 1],
-                         first ? nullptr : Q + L.t[l - 1], nullptr, 0,
-                         Q + L.w[l], Q + L.b[l], H[l], w.zN[l], nullptr,
+          add_row(fwd_op(first ? nobs : Z(w.zN, l - 1), kx, pro,
+                         first ? nullptr : Q + L.s(l - 1),
+                         first ? nullptr : Q + L.t(l - 1), nullptr, 0,
+                         Q + L.w(l), Q + L.b(l), h, Z(w.zN, l), nullptr,
                          kEpiNone));
-        add_row(fwd_op(first ? obs : w.zS[l - 1], kx, pro,
-                       first ? nullptr : Q + L.s[l - 1],
-                       first ? nullptr : Q + L.t[l - 1], nullptr, 0,
-                       Q + L.w[l], Q + L.b[l], H[l], w.zS[l],
-                       first ? nullptr : w.hin[l], kEpiNone));
+        add_row(fwd_op(first ? obs : Z(w.zS, l - 1), kx, pro,
+                       first ? nullptr : Q + L.s(l - 1),
+                       first ? nullptr : Q + L.t(l - 1), nullptr, 0,
+                       Q + L.w(l), Q + L.b(l), h, Z(w.zS, l),
+                       first ? nullptr : input_rows(w.hin, T, l, 0, B),
+                       kEpiNone));
       }
       rows_stage();
     }
     if (lead) {  // the three 5-wide heads
       sh.n_rows = 0;
-      add_row(fwd_op(w.zT[nl - 1], hl, kProLnRelu, QT + L.s[nl - 1],
-                     QT + L.t[nl - 1], nullptr, 0, QT + L.wh, QT + L.bh,
+      add_row(fwd_op(Z(w.zT, nl - 1), hl, kProLnRelu, QT + L.s(nl - 1),
+                     QT + L.t(nl - 1), nullptr, 0, QT + L.wh, QT + L.bh,
                      kNumActions, w.qT, nullptr, kEpiNone));
       if (d.double_dqn)
-        add_row(fwd_op(w.zN[nl - 1], hl, kProLnRelu, Q + L.s[nl - 1],
-                       Q + L.t[nl - 1], nullptr, 0, Q + L.wh, Q + L.bh,
+        add_row(fwd_op(Z(w.zN, nl - 1), hl, kProLnRelu, Q + L.s(nl - 1),
+                       Q + L.t(nl - 1), nullptr, 0, Q + L.wh, Q + L.bh,
                        kNumActions, w.qN, nullptr, kEpiNone));
-      add_row(fwd_op(w.zS[nl - 1], hl, kProLnRelu, Q + L.s[nl - 1],
-                     Q + L.t[nl - 1], nullptr, 0, Q + L.wh, Q + L.bh,
+      add_row(fwd_op(Z(w.zS, nl - 1), hl, kProLnRelu, Q + L.s(nl - 1),
+                     Q + L.t(nl - 1), nullptr, 0, Q + L.wh, Q + L.bh,
                      kNumActions, w.qS, w.hlast, kEpiNone));
     }
     rows_stage();
@@ -174,9 +185,9 @@ __global__ void __launch_bounds__(kThreads) dqn_update_kernel(
     for (int l = nl - 1; l >= 0; --l) {
       if (lead) {
         sh.n_rows = 0;
-        add_row(bwd_op(w.dh[cur], w.zS[l], H[l], Q + L.s[l], Q + L.t[l],
-                       w.dz[l], w.dy[l], w.dyxh[l], Q + L.w[l],
-                       l == 0 ? F : H[l - 1], 0, l == 0 ? 0 : H[l - 1],
+        add_row(bwd_op(w.dh[cur], Z(w.zS, l), T.h(l), Q + L.s(l), Q + L.t(l),
+                       Z(w.dz, l), Z(w.dy, l), Z(w.dyxh, l), Q + L.w(l),
+                       l == 0 ? F : T.h(l - 1), 0, l == 0 ? 0 : T.h(l - 1),
                        w.dh[cur ^ 1]));
       }
       rows_stage();
@@ -185,76 +196,59 @@ __global__ void __launch_bounds__(kThreads) dqn_update_kernel(
 
     // ---- every gradient element, Adam, Polyak; the loss ----
     if (lead) {
-      sh.n_grads = 0;
-      for (int l = 0; l < nl; ++l) {
-        add_grad(grad_op(kGradW, 0, w.dz[l], H[l], l == 0 ? obs : w.hin[l],
-                         l == 0 ? F : H[l - 1], L.w[l]));
-        add_grad(grad_op(kGradV, 0, w.dz[l], H[l], nullptr, 0, L.b[l]));
-        add_grad(grad_op(kGradV, 0, w.dyxh[l], H[l], nullptr, 0, L.s[l]));
-        add_grad(grad_op(kGradV, 0, w.dy[l], H[l], nullptr, 0, L.t[l]));
-      }
-      add_grad(grad_op(kGradW, 0, w.dq, kNumActions, w.hlast, hl, L.wh));
-      add_grad(grad_op(kGradV, 0, w.dq, kNumActions, nullptr, 0, L.bh));
-      GradOp lo = grad_op(kGradLoss, 0, w.hub, 1, nullptr, 0, 0);
-      lo.sq = 0;
-      lo.scale = c.inv_batch;
-      lo.dst = loss + k;
-      add_grad(lo);
+      sh.nets[0] = NetGrads{0, 0, kNumActions, 0, c.inv_batch, loss + k,
+                            obs, w.dz, w.dy, w.dyxh, w.hin, w.dq, w.hlast,
+                            w.hub, L};
+      sh.n_nets = 1;
     }
-    __syncthreads();
-    run_grads(sh.grads, sh.n_grads, B, nets, as, c, smem);
+    run_net_grads(sh, T, F, B, nets, as, c, smem);
     grid.sync();
   }
 }
 
+// The dims as the host checks them against its copy of the widths; *sum
+// and *kmax get the widths' sum and the widest layer input.
+bool dims_ok(const DqnDims& d, const int* widths, long long* sum,
+             int* kmax) {
+  if (d.obs_dim < 1 || d.batch < 1 || d.k_updates < 1 ||
+      d.torso.tab == nullptr || d.q.lay == nullptr ||
+      !widths_ok(widths, d.torso.L, 1, sum, kmax,
+                 d.obs_dim > kNumActions ? d.obs_dim : kNumActions))
+    return false;
+  return true;
+}
+
 // Carves the workspace from `base` (or only counts floats when it is null).
-long long carve(const DqnDims& d, float* base, DqnWorkspace* w) {
+long long carve(const DqnDims& d, const int* widths, float* base,
+                DqnWorkspace* w) {
   long long off = 0;
   auto take = [&](long long n) -> float* {
     float* p = base != nullptr ? base + off : nullptr;
     off += (n + 31) / 32 * 32;   // 128-byte aligned pieces
     return p;
   };
+  long long sum;
+  int kmax;
+  dims_ok(d, widths, &sum, &kmax);
   const long long B = d.batch;
-  const int nl = d.num_layers;
-  int wmax = d.obs_dim;
-  for (int l = 0; l < nl; ++l) wmax = d.hidden[l] > wmax ? d.hidden[l] : wmax;
+  const long long hl = widths[d.torso.L - 1];
   *w = DqnWorkspace{};
-  for (int l = 0; l < nl; ++l) {
-    const long long h = d.hidden[l];
-    w->zT[l] = take(B * h);
-    w->zN[l] = take(B * h);
-    w->zS[l] = take(B * h);
-    w->hin[l] = l == 0 ? nullptr : take(B * d.hidden[l - 1]);
-    w->dz[l] = take(B * h);
-    w->dy[l] = take(B * h);
-    w->dyxh[l] = take(B * h);
-  }
+  w->zT = take(B * sum);
+  w->zN = take(B * sum);
+  w->zS = take(B * sum);
+  w->hin = take(B * (sum - hl));
+  w->dz = take(B * sum);
+  w->dy = take(B * sum);
+  w->dyxh = take(B * sum);
   w->qT = take(B * kNumActions);
   w->qN = take(B * kNumActions);
   w->qS = take(B * kNumActions);
-  w->hlast = take(B * d.hidden[nl - 1]);
+  w->hlast = take(B * hl);
   w->dq = take(B * kNumActions);
   w->hub = take(B);
-  w->dh[0] = take(B * wmax);
-  w->dh[1] = take(B * wmax);
+  w->dh[0] = take(B * kmax);
+  w->dh[1] = take(B * kmax);
   return off;
-}
-
-bool dims_ok(const DqnDims& d) {
-  if (d.num_layers < 1 || d.num_layers > kMaxLayers || d.obs_dim < 1 ||
-      d.obs_dim > kMaxWidth || d.batch < 1 || d.k_updates < 1)
-    return false;
-  for (int l = 0; l < d.num_layers; ++l)
-    if (d.hidden[l] < 1 || d.hidden[l] > kMaxWidth) return false;
-  return true;
-}
-
-// Row width of the shared-memory input rows: the widest layer input.
-int kmax_of(const DqnDims& d) {
-  int k = d.obs_dim;
-  for (int l = 0; l < d.num_layers; ++l) k = d.hidden[l] > k ? d.hidden[l] : k;
-  return k;
 }
 
 }  // namespace
@@ -262,31 +256,39 @@ int kmax_of(const DqnDims& d) {
 extern "C" {
 
 // Floats of workspace cp_dqn_update_phase needs for these dims (0 when the
-// dims are outside what the kernel takes).
-long long cp_dqn_workspace_floats(const DqnDims* dims) {
-  if (!dims_ok(*dims)) return 0;
+// dims are outside what the kernel takes). widths: the host's copy of the
+// torso's widths (dims->torso.L ints).
+long long cp_dqn_workspace_floats(const DqnDims* dims, const int* widths) {
+  long long sum;
+  int kmax;
+  if (!dims_ok(*dims, widths, &sum, &kmax)) return 0;
   DqnWorkspace w;
-  return carve(*dims, nullptr, &w);
+  return carve(*dims, widths, nullptr, &w);
 }
 
-// The K-update phase in one cooperative launch on `stream`. q, q_t, m, v:
-// the 4 group buffers (updated in place); batches: obs (K, B, F), act
-// (K, B) int32, rew (K, B), nobs (K, B, F), done (K, B) bool; loss (K,);
-// workspace: cp_dqn_workspace_floats(dims) floats; t0: the Adam count
-// before the phase. Returns a cudaError_t.
-int cp_dqn_update_phase(const DqnDims* dims, const LearnerConsts* consts,
-                        float* q, float* q_t, float* m, float* v,
-                        const float* obs, const int* act, const float* rew,
-                        const float* nobs, const bool* done, float* loss,
-                        float* workspace, int t0, void* stream) {
+// The K-update phase in one cooperative launch on `stream`. widths: as
+// above; dims->torso.tab and dims->q.lay: the device table
+// (ops/learner_kernel.py::_learner_table). q, q_t, m, v: the 4 group
+// buffers (updated in place); batches: obs (K, B, F), act (K, B) int32,
+// rew (K, B), nobs (K, B, F), done (K, B) bool; loss (K,); workspace:
+// cp_dqn_workspace_floats(dims, widths) floats; t0: the Adam count before
+// the phase. Returns a cudaError_t.
+int cp_dqn_update_phase(const DqnDims* dims, const int* widths,
+                        const LearnerConsts* consts, float* q, float* q_t,
+                        float* m, float* v, const float* obs, const int* act,
+                        const float* rew, const float* nobs, const bool* done,
+                        float* loss, float* workspace, int t0, void* stream) {
   DqnDims d = *dims;
   LearnerConsts c = *consts;
-  if (!dims_ok(d)) return static_cast<int>(cudaErrorInvalidValue);
+  long long sum;
+  int kmax;
+  if (!dims_ok(d, widths, &sum, &kmax))
+    return static_cast<int>(cudaErrorInvalidValue);
   DqnWorkspace w;
-  carve(d, workspace, &w);
+  carve(d, widths, workspace, &w);
   DqnBatches bt = {obs, rew, nobs, act, done};
-  int ldh = kmax_of(d);
-  const size_t smem = smem_bytes(ldh);
+  int ldh = row_ld(kmax);
+  const size_t smem = smem_bytes(ldh, table_ints(d));
   static int blocks = 0;
   static size_t blocks_smem = 0;
   void* args[] = {&d, &c, &w, &q, &q_t, &m, &v, &bt, &loss, &t0, &ldh};

@@ -4,27 +4,41 @@
 // separated by cg::this_grid().sync().
 //   * Row stages: the batch is cut into 16-row tiles and each layer's
 //     outputs into 32-column tiles; a block takes (row tile, column tile)
-//     items. It rebuilds its rows' layer input in shared memory (copy,
-//     LayerNorm + relu of the previous pre-LN z, or the LayerNorm backward
-//     from the upstream gradient and the saved z), then multiplies it by
-//     a 32-column tile of the weight, also staged in shared memory. The
-//     matrix products are computed here, thread by thread (one column and
-//     two rows each); no library GEMM is called. Up to kMaxRowOps
+//     items. It first computes its rows' statistics over the whole input
+//     row (LayerNorm's mean and 1 / sqrt(var + eps); for the LayerNorm
+//     backward also the means of dxh and dxh * xh), one warp per row, then
+//     walks the input features in chunks of at most kKc: it rebuilds the
+//     chunk of its rows' layer input in shared memory (copy, LayerNorm +
+//     relu of the previous pre-LN z, or the LayerNorm backward from the
+//     upstream gradient and the saved z), stages the chunk's rows of a
+//     32-column tile of the weight beside it, and adds the chunk's
+//     products to its running sums. The chunks run in order and the sums
+//     stay in registers, so a row is summed in the same order at every
+//     width: a layer of any width takes the same bits as one chunk would.
+//     The matrix products are computed here, thread by thread (one column
+//     and two rows each); no library GEMM is called. Up to kMaxRowOps
 //     independent products share one stage.
 //   * Gradient stages: every element of a gradient is one thread's sum
 //     over the batch in a fixed order (32 x 32 weight tiles through shared
 //     memory; 8 fixed row slices for the vectors), then Adam and Polyak
 //     on that element in the same thread. No float atomics anywhere, so
-//     two runs on the same inputs give the same bits.
+//     two runs on the same inputs give the same bits. A network's
+//     gradients are 4L + 3 ops (net_grad_op), staged kGradBatch at a time;
+//     their items are dealt to the blocks as one list would be.
 //   * A clipped update (B7's global-norm clip) needs the norm of every
 //     gradient before any Adam step: its gradient stage only stores each
-//     element into a flat buffer in the group layout (run_grads<true>),
+//     element into a flat buffer in the group layout (run_net_grads<true>),
 //     a norm stage sums fixed slices of it as squares into one partial
 //     each (norm_partials; the slices do not depend on the grid), and an
 //     elementwise stage sums the partials in the same order in every
 //     block, scales and applies Adam and Polyak (adam_flat).
 // Parameters, targets and moments are read and written in place in their
-// group buffers (ops/learner_kernel.py documents the layout). The library
+// group buffers (ops/learner_kernel.py documents the layout). The depth
+// and the widths are data: a device int32 table made once per shape
+// (ops/learner_kernel.py::_learner_table) holds the widths, their prefix
+// sums (where a layer's rows sit in a per-layer region of the workspace)
+// and every network's parameter offsets, so a kernel takes any depth; a
+// block copies it into shared memory at the start of a launch. The library
 // is built with --fmad=false; the matrix-product and batch-sum inner loops
 // use explicit fmaf(), every elementwise formula follows the plain twins
 // operation by operation.
@@ -37,13 +51,27 @@
 
 namespace cg = cooperative_groups;
 
-constexpr int kMaxLayers = 4;   // ops/_native.py::MAX_LAYERS
-
 // Mirror of ops/_native.py::NetLayout: element offsets of one network's
-// parameters in its group buffer.
+// parameters in its group buffer. lay (device): per torso layer l,
+// lay[4 l .. 4 l + 3] = the offsets of W_l, b_l, LayerNorm scale_l and
+// LayerNorm bias_l; wh, bh: the head's W and b; size: the group's floats.
 struct NetLayout {
-  int w[kMaxLayers], b[kMaxLayers], s[kMaxLayers], t[kMaxLayers];
+  const int* lay;
   int wh, bh, size;
+  __device__ int w(int l) const { return lay[4 * l]; }
+  __device__ int b(int l) const { return lay[4 * l + 1]; }
+  __device__ int s(int l) const { return lay[4 * l + 2]; }
+  __device__ int t(int l) const { return lay[4 * l + 3]; }
+};
+
+// Mirror of ops/_native.py::Torso: the torso's depth L and its widths on
+// the device, tab[l] = H_l and tab[L + l] = H_0 + ... + H_{l-1} (layer l's
+// offset, in rows of the batch, in a per-layer region of the workspace).
+struct Torso {
+  const int* tab;
+  int L;
+  __device__ int h(int l) const { return tab[l]; }
+  __device__ int at(int l) const { return tab[L + l]; }
 };
 
 // Mirror of ops/_native.py::LearnerConsts: the float32 constants, folded
@@ -64,9 +92,9 @@ constexpr int kTR = 16;                 // batch rows per row-stage item
 constexpr int kRPT = kTR / kWarps;      // rows per thread
 constexpr int kTC = 32;                 // output columns per row-stage item
 constexpr int kTG = 32;                 // gradient tile edge
-constexpr int kMaxWidth = 1024;         // ops/learner_kernel.py::MAX_WIDTH
+constexpr int kKc = 1024;               // input features per row-stage chunk
 constexpr int kMaxRowOps = 3;
-constexpr int kMaxGradOps = 2 * (4 * kMaxLayers + 3);
+constexpr int kGradBatch = 32;          // gradient ops staged at a time
 constexpr int kNormParts = 256;         // slices of a flat gradient
 
 enum : int { kProPlain = 0, kProLnRelu = 1, kProLnBwd = 2 };
@@ -139,115 +167,156 @@ __device__ __forceinline__ void ln_stats(const float* row, int n, float eps,
   inv = 1.0f / sqrtf(var + eps);
 }
 
+// One (row tile rt, column tile ct) item of a row stage. Hs: the chunk of
+// the tile's input rows (kTR x ldh), Ws: the chunk's rows of the weight
+// tile (ldh x 33); ldh >= min(K, kKc).
 __device__ void row_item(const RowOp& op, int rt, int ct, int B,
                          const LearnerConsts& c, float* Hs, int ldh,
                          float* Ws) {
   const int r0 = rt * kTR, c0 = ct * kTC;
   const int K = op.bwd ? op.kx : op.kx + op.na;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool first_col = ct == 0;
 
-  // This item's 32 weight columns -> Ws[i][cc], zero past n_out.
-  if (op.n_out > 0) {
-    for (int idx = tid; idx < kTC * K; idx += kThreads) {
+  // The rows k0 .. k0 + kc of this item's 32 weight columns -> Ws[i][cc],
+  // zero past n_out.
+  auto stage_weights = [&](int k0, int kc) {
+    if (op.n_out <= 0) return;
+    for (int idx = tid; idx < kTC * kc; idx += kThreads) {
       int i, cc;
       float v = 0.0f;
       if (op.bwd) {
         i = idx / kTC;
         cc = idx - i * kTC;
         if (c0 + cc < op.n_out)
-          v = op.w[static_cast<size_t>(i) * op.in_w + op.col0 + c0 + cc];
+          v = op.w[static_cast<size_t>(k0 + i) * op.in_w + op.col0 + c0 + cc];
       } else {
-        cc = idx / K;
-        i = idx - cc * K;
+        cc = idx / kc;
+        i = idx - cc * kc;
         if (c0 + cc < op.n_out)
-          v = op.w[static_cast<size_t>(c0 + cc) * op.in_w + i];
+          v = op.w[static_cast<size_t>(c0 + cc) * op.in_w + k0 + i];
       }
       Ws[i * (kTC + 1) + cc] = v;
     }
-  }
+  };
+  // The first chunk's weights go out before the statistics' row reads,
+  // so that the two streams of loads overlap.
+  stage_weights(0, min(kKc, K));
 
-  // Prologue: the tile's input rows -> Hs, one warp per row.
-  const bool first_col = ct == 0;
-  for (int r = warp; r < kTR; r += kWarps) {
-    const int b = r0 + r;
-    float* hrow = Hs + r * ldh;
-    if (b >= B) {
-      for (int i = lane; i < K; i += 32) hrow[i] = 0.0f;
+  // Row statistics over the whole input row; warp w holds rows w and
+  // w + 8 (q = 0, 1) in registers for every chunk.
+  float mu[kRPT], inv[kRPT], m1[kRPT], m2[kRPT];
+#pragma unroll
+  for (int q = 0; q < kRPT; ++q) {
+    mu[q] = inv[q] = m1[q] = m2[q] = 0.0f;
+    const int b = r0 + warp + q * kWarps;
+    if (op.pro == kProPlain || b >= B) continue;
+    const size_t rowoff = static_cast<size_t>(b) * op.kx;
+    if (op.pro == kProLnRelu) {
+      ln_stats(op.x + rowoff, op.kx, c.ln_eps, lane, mu[q], inv[q]);
       continue;
     }
-    const size_t rowoff = static_cast<size_t>(b) * op.kx;
+    // kProLnBwd: x is dh, the gradient at the relu output
+    const float* zrow = op.z + rowoff;
     const float* xrow = op.x + rowoff;
-    if (op.pro == kProPlain) {
-      for (int i = lane; i < op.kx; i += 32) hrow[i] = xrow[i];
-    } else if (op.pro == kProLnRelu) {
-      float mu, inv;
-      ln_stats(xrow, op.kx, c.ln_eps, lane, mu, inv);
-      for (int i = lane; i < op.kx; i += 32) {
-        const float xh = (xrow[i] - mu) * inv;
-        const float y = xh * op.s[i] + op.t[i];
-        hrow[i] = fmaxf(y, 0.0f);
+    ln_stats(zrow, op.kx, c.ln_eps, lane, mu[q], inv[q]);
+    float a1 = 0.0f, a2 = 0.0f;
+    for (int i = lane; i < op.kx; i += 32) {
+      const float xh = (zrow[i] - mu[q]) * inv[q];
+      const float y = xh * op.s[i] + op.t[i];
+      const float dy = y > 0.0f ? xrow[i] : 0.0f;
+      const float dxh = dy * op.s[i];
+      a1 = a1 + dxh;
+      a2 = a2 + dxh * xh;
+    }
+    a1 = warp_sum(a1);
+    a2 = warp_sum(a2);
+    m1[q] = a1 / static_cast<float>(op.kx);
+    m2[q] = a2 / static_cast<float>(op.kx);
+  }
+
+  float acc[kRPT], acc2[kRPT];
+#pragma unroll
+  for (int q = 0; q < kRPT; ++q) acc[q] = acc2[q] = 0.0f;
+  const bool save_d = first_col && op.save_dz != nullptr;
+  for (int k0 = 0; k0 < K; k0 += kKc) {
+    const int kc = min(kKc, K - k0);
+    if (k0 > 0) {
+      __syncthreads();  // the last chunk's products are done
+      stage_weights(k0, kc);
+    }
+
+    // Prologue: the chunk of the tile's input rows -> Hs, one warp per
+    // row.
+#pragma unroll
+    for (int q = 0; q < kRPT; ++q) {
+      const int r = warp + q * kWarps;
+      const int b = r0 + r;
+      float* hrow = Hs + r * ldh;
+      if (b >= B) {
+        for (int i = lane; i < kc; i += 32) hrow[i] = 0.0f;
+        continue;
       }
-    } else {  // kProLnBwd: x is dh, the gradient at the relu output
-      const float* zrow = op.z + rowoff;
-      float mu, inv;
-      ln_stats(zrow, op.kx, c.ln_eps, lane, mu, inv);
-      float a1 = 0.0f, a2 = 0.0f;
-      for (int i = lane; i < op.kx; i += 32) {
-        const float xh = (zrow[i] - mu) * inv;
-        const float y = xh * op.s[i] + op.t[i];
-        const float dy = y > 0.0f ? xrow[i] : 0.0f;
-        const float dxh = dy * op.s[i];
-        a1 = a1 + dxh;
-        a2 = a2 + dxh * xh;
-      }
-      a1 = warp_sum(a1);
-      a2 = warp_sum(a2);
-      const float m1 = a1 / static_cast<float>(op.kx);
-      const float m2 = a2 / static_cast<float>(op.kx);
-      const bool save = first_col && op.save_dz != nullptr;
-      for (int i = lane; i < op.kx; i += 32) {
-        const float xh = (zrow[i] - mu) * inv;
-        const float y = xh * op.s[i] + op.t[i];
-        const float dy = y > 0.0f ? xrow[i] : 0.0f;
-        const float dxh = dy * op.s[i];
-        const float dz = inv * (dxh - m1 - xh * m2);
-        hrow[i] = dz;
-        if (save) {
-          op.save_dz[rowoff + i] = dz;
-          op.save_dy[rowoff + i] = dy;
-          op.save_dyxh[rowoff + i] = dy * xh;
+      const size_t rowoff = static_cast<size_t>(b) * op.kx;
+      const float* xrow = op.x + rowoff;
+      const int kend = min(kc, op.kx - k0);  // features of x in the chunk
+      if (op.pro == kProPlain) {
+        for (int i = lane; i < kend; i += 32) hrow[i] = xrow[k0 + i];
+      } else if (op.pro == kProLnRelu) {
+        for (int i = lane; i < kend; i += 32) {
+          const int gi = k0 + i;
+          const float xh = (xrow[gi] - mu[q]) * inv[q];
+          const float y = xh * op.s[gi] + op.t[gi];
+          hrow[i] = fmaxf(y, 0.0f);
+        }
+      } else {  // kProLnBwd
+        const float* zrow = op.z + rowoff;
+        for (int i = lane; i < kend; i += 32) {
+          const int gi = k0 + i;
+          const float xh = (zrow[gi] - mu[q]) * inv[q];
+          const float y = xh * op.s[gi] + op.t[gi];
+          const float dy = y > 0.0f ? xrow[gi] : 0.0f;
+          const float dxh = dy * op.s[gi];
+          const float dz = inv[q] * (dxh - m1[q] - xh * m2[q]);
+          hrow[i] = dz;
+          if (save_d) {
+            op.save_dz[rowoff + gi] = dz;
+            op.save_dy[rowoff + gi] = dy;
+            op.save_dyxh[rowoff + gi] = dy * xh;
+          }
         }
       }
+      // The appended columns (features kx .. kx + na) in the chunk.
+      for (int i = max(kend, 0) + lane; i < kc; i += 32)
+        hrow[i] = op.xa[static_cast<size_t>(b) * op.na + k0 + i - op.kx];
+      if (first_col && op.save_h != nullptr) {
+        __syncwarp();
+        for (int i = lane; i < kc; i += 32)
+          op.save_h[static_cast<size_t>(b) * K + k0 + i] = hrow[i];
+      }
     }
-    if (op.na > 0) {
-      for (int i = lane; i < op.na; i += 32)
-        hrow[op.kx + i] = op.xa[static_cast<size_t>(b) * op.na + i];
-    }
-    if (first_col && op.save_h != nullptr) {
-      __syncwarp();
-      for (int i = lane; i < K; i += 32)
-        op.save_h[static_cast<size_t>(b) * K + i] = hrow[i];
+    __syncthreads();
+
+    if (op.n_out > 0) {
+      const float* hr = Hs + (warp * kRPT) * ldh;
+      const int kend = max(min(kc, op.kx - k0), 0);
+      for (int i = 0; i < kend; ++i) {
+        const float wv = Ws[i * (kTC + 1) + lane];
+#pragma unroll
+        for (int q = 0; q < kRPT; ++q)
+          acc[q] = fmaf(hr[q * ldh + i], wv, acc[q]);
+      }
+      for (int i = kend; i < kc; ++i) {
+        const float wv = Ws[i * (kTC + 1) + lane];
+#pragma unroll
+        for (int q = 0; q < kRPT; ++q)
+          acc2[q] = fmaf(hr[q * ldh + i], wv, acc2[q]);
+      }
     }
   }
-  __syncthreads();
 
   if (op.n_out > 0) {
     const int col = c0 + lane;
-    const float* hr = Hs + (warp * kRPT) * ldh;
-    float acc[kRPT], acc2[kRPT];
-#pragma unroll
-    for (int q = 0; q < kRPT; ++q) acc[q] = acc2[q] = 0.0f;
-    for (int i = 0; i < op.kx; ++i) {
-      const float wv = Ws[i * (kTC + 1) + lane];
-#pragma unroll
-      for (int q = 0; q < kRPT; ++q) acc[q] = fmaf(hr[q * ldh + i], wv, acc[q]);
-    }
-    for (int i = op.kx; i < K; ++i) {
-      const float wv = Ws[i * (kTC + 1) + lane];
-#pragma unroll
-      for (int q = 0; q < kRPT; ++q)
-        acc2[q] = fmaf(hr[q * ldh + i], wv, acc2[q]);
-    }
     if (col < op.n_out) {
 #pragma unroll
       for (int q = 0; q < kRPT; ++q) {
@@ -288,8 +357,12 @@ __device__ void row_item(const RowOp& op, int rt, int ct, int B,
   __syncthreads();
 }
 
-__device__ void run_rows(const RowOp* ops, int n, int B,
-                         const LearnerConsts& c, float* smem, int ldh) {
+// Not inlined: the kernels call it from every stage, and one shared copy
+// of the row engine keeps each stage's code warm in the instruction cache
+// (inlined at ~20 call sites, B3's code doubled in size).
+__device__ __noinline__ void run_rows(const RowOp* ops, int n, int B,
+                                      const LearnerConsts& c, float* smem,
+                                      int ldh) {
   float* Hs = smem;
   float* Ws = smem + kTR * ldh;
   int total = 0;
@@ -415,19 +488,6 @@ __device__ void grad_item(const GradOp& op, int item, int B,
   }
 }
 
-template <bool kStore = false>
-__device__ void run_grads(const GradOp* ops, int n, int B, const NetPtr* nets,
-                          const AdamStep& as, const LearnerConsts& c,
-                          float* smem, float* gstore = nullptr) {
-  int total = 0;
-  for (int o = 0; o < n; ++o) total += grad_items(ops[o]);
-  for (int item = blockIdx.x; item < total; item += gridDim.x) {
-    int o = 0, rest = item;
-    while (rest >= grad_items(ops[o])) rest -= grad_items(ops[o++]);
-    grad_item<kStore>(ops[o], rest, B, nets, as, c, smem, gstore);
-  }
-}
-
 // --- flat-gradient stages (a global-norm clip) ---------------------------------
 
 // parts[i] = the sum of squares of slice i of g[0, n), one block per slice:
@@ -536,19 +596,171 @@ __device__ GradOp grad_op(int kind, int net, const float* g, int out,
   return op;
 }
 
-struct Shared {
-  RowOp rows[kMaxRowOps];
-  GradOp grads[kMaxGradOps];
-  int n_rows, n_grads;
+// The gradients of one network: its 4L + 3 ops (net_grad_op) read the
+// per-layer rows of dz, dy and dy * xhat, the layer inputs (x0 at layer
+// 0, then `hin`, a region of (batch, H_{l-1} + (l == 1 ? join : 0))
+// pieces: the critic's action joins at layer 1), the head's upstream
+// gradient (batch, n_head) and the last layer's activations, and the loss
+// rows (summed, or squared when sq, times scale into *dst).
+struct NetGrads {
+  int net, join, n_head, sq;
+  float scale;
+  float* dst;
+  const float *x0, *dz, *dy, *dyxh, *hin, *dhead, *hlast, *loss;
+  NetLayout lay;
 };
 
-// Shared memory of one block: a row stage's input rows and weight tile, or
-// a gradient stage's two 32 x 32 tiles, whichever is larger.
-size_t smem_bytes(int kmax) {
-  const size_t rows = static_cast<size_t>(kTR) * kmax +
-                      static_cast<size_t>(kmax) * (kTC + 1);
-  const size_t grads = 2 * kTG * (kTG + 1);
-  return sizeof(float) * (rows > grads ? rows : grads);
+// Layer l's rows in a per-layer region of (batch, H_l) pieces.
+template <typename P>
+__device__ __forceinline__ P* layer_rows(P* base, const Torso& T, int l,
+                                         int B) {
+  return base + static_cast<size_t>(B) * T.at(l);
+}
+
+// Layer l's input rows (l >= 1) in a region of (batch, H_{l-1} + (l == 1 ?
+// join : 0)) pieces.
+template <typename P>
+__device__ __forceinline__ P* input_rows(P* base, const Torso& T, int l,
+                                         int join, int B) {
+  return base + static_cast<size_t>(B) * (T.at(l - 1) + (l >= 2 ? join : 0));
+}
+
+// Op i of a network's gradient list: per torso layer l, W_l, b_l,
+// LayerNorm scale_l and bias_l; then the head's W and b; then the loss.
+__device__ GradOp net_grad_op(const NetGrads& g, int i, const Torso& T,
+                              int F, int B) {
+  const int L = T.L;
+  if (i < 4 * L) {
+    const int l = i / 4, h = T.h(l);
+    const float* rows =
+        layer_rows(i % 4 == 2 ? g.dyxh : i % 4 == 3 ? g.dy : g.dz, T, l, B);
+    switch (i % 4) {
+      case 0: {
+        const int in = l == 0 ? F : T.h(l - 1) + (l == 1 ? g.join : 0);
+        const float* x = l == 0 ? g.x0 : input_rows(g.hin, T, l, g.join, B);
+        return grad_op(kGradW, g.net, rows, h, x, in, g.lay.w(l));
+      }
+      case 1:
+        return grad_op(kGradV, g.net, rows, h, nullptr, 0, g.lay.b(l));
+      case 2:
+        return grad_op(kGradV, g.net, rows, h, nullptr, 0, g.lay.s(l));
+      default:
+        return grad_op(kGradV, g.net, rows, h, nullptr, 0, g.lay.t(l));
+    }
+  }
+  if (i == 4 * L)
+    return grad_op(kGradW, g.net, g.dhead, g.n_head, g.hlast, T.h(L - 1),
+                   g.lay.wh);
+  if (i == 4 * L + 1)
+    return grad_op(kGradV, g.net, g.dhead, g.n_head, nullptr, 0, g.lay.bh);
+  GradOp loss = grad_op(kGradLoss, g.net, g.loss, 1, nullptr, 0, 0);
+  loss.sq = g.sq;
+  loss.scale = g.scale;
+  loss.dst = g.dst;
+  return loss;
+}
+
+// A block's stage lists, written by its lead thread: a row stage's ops,
+// and a gradient stage's networks and the batch of ops being staged.
+struct Shared {
+  RowOp rows[kMaxRowOps];
+  GradOp grads[kGradBatch];
+  NetGrads nets[2];
+  int n_rows, n_nets;
+};
+
+// One gradient stage over the sh.n_nets networks' gradients (4L + 3 ops
+// each), each
+// element reduced and given to Adam and Polyak (kStore: stored into
+// gstore). The lead thread stages kGradBatch ops at a time; the items are
+// numbered across the whole list and dealt to the blocks round-robin, as
+// one list would deal them. Every element has its own sum, so the staging
+// changes no bits.
+template <bool kStore = false>
+__device__ __noinline__ void run_net_grads(Shared& sh, const Torso& T, int F,
+                                           int B, const NetPtr* ptrs,
+                                           const AdamStep& as,
+                                           const LearnerConsts& c,
+                                           float* smem,
+                                           float* gstore = nullptr) {
+  __syncthreads();  // the lead thread's sh.nets
+  const int per = 4 * T.L + 3, n_ops = sh.n_nets * per;
+  const int G = gridDim.x;
+  int base = 0;  // list-wide number of the batch's first item
+  for (int o0 = 0; o0 < n_ops; o0 += kGradBatch) {
+    const int nb = min(kGradBatch, n_ops - o0);
+    __syncthreads();  // the last batch's ops are no longer read
+    if (threadIdx.x == 0)
+      for (int o = 0; o < nb; ++o)
+        sh.grads[o] = net_grad_op(sh.nets[(o0 + o) / per], (o0 + o) % per,
+                                  T, F, B);
+    __syncthreads();
+    int total = 0;
+    for (int o = 0; o < nb; ++o) total += grad_items(sh.grads[o]);
+    for (int item = (static_cast<int>(blockIdx.x) - base % G + G) % G;
+         item < total; item += G) {
+      int o = 0, rest = item;
+      while (rest >= grad_items(sh.grads[o]))
+        rest -= grad_items(sh.grads[o++]);
+      grad_item<kStore>(sh.grads[o], rest, B, ptrs, as, c, smem, gstore);
+    }
+    base += total;
+  }
+}
+
+// The row stride of a row stage's input rows for layer inputs up to kmax
+// features wide: one chunk.
+inline int row_ld(int kmax) { return kmax < kKc ? kmax : kKc; }
+
+// Floats of a block's stage region: a row stage's input rows and weight
+// tile (one chunk of ldh features), or a gradient stage's two 32 x 32
+// tiles, whichever is larger. The shared copy of the device table
+// follows it.
+__host__ __device__ inline int region_floats(int ldh) {
+  const int rows = kTR * ldh + ldh * (kTC + 1);
+  const int grads = 2 * kTG * (kTG + 1);
+  return rows > grads ? rows : grads;
+}
+
+// Shared memory of one block: the stage region and the table's n_tab ints.
+size_t smem_bytes(int ldh, int n_tab) {
+  return sizeof(float) * static_cast<size_t>(region_floats(ldh) + n_tab);
+}
+
+// The device table (n ints from t.tab, which every NetLayout points into)
+// copied into shared memory after the stage region, so that the lead
+// thread reads widths and offsets there when it writes a stage's ops;
+// returns the torso pointing at the copy. Ends with a barrier.
+__device__ Torso stage_table(const Torso& t, int n, int* dst) {
+  for (int i = threadIdx.x; i < n; i += kThreads) dst[i] = t.tab[i];
+  __syncthreads();
+  return Torso{dst, t.L};
+}
+
+// A network's layout moved onto the shared copy of its table.
+__device__ NetLayout layout_on(const NetLayout& n, const Torso& from,
+                               const Torso& to) {
+  NetLayout m = n;
+  m.lay = to.tab + (n.lay - from.tab);
+  return m;
+}
+
+// The host's copy of the torso's widths: true when there are at least
+// min_layers of them, each >= 1; *sum, *widest (when not null) get their
+// sum and max(first, widths...).
+inline bool widths_ok(const int* widths, int L, int min_layers,
+                      long long* sum, int* widest, int first) {
+  if (widths == nullptr || L < min_layers) return false;
+  long long s = 0;
+  int m = first;
+  for (int l = 0; l < L; ++l) {
+    if (widths[l] < 1) return false;
+    s += widths[l];
+    m = widths[l] > m ? widths[l] : m;
+  }
+  if (sum != nullptr) *sum = s;
+  if (widest != nullptr) *widest = m;
+  return true;
 }
 
 // Launches `kernel` cooperatively on `stream` with as many blocks as fit,

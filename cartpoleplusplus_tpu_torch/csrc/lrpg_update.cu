@@ -34,7 +34,11 @@
 // the blocks' rows in block order and applies Adam. No float atomics and a
 // block count fixed by N and the widths alone (at most kPgMaxBlocks, and
 // at most kPgPartialFloats floats of partial rows), so two runs give the
-// same bits on any card. The stage engine of B3/B5 (learner_stages.cuh)
+// same bits on any card. Any depth >= 1, as the reference's kernel takes:
+// the widths and the parameter offsets are a device table
+// (ops/learner_kernel.py::_learner_table), the sub-tile's per-layer rows
+// regions indexed by the widths' prefix sums. The stage engine of B3/B5
+// (learner_stages.cuh)
 // sums each element in one thread over the whole batch, which at N =
 // 131,072 would be ~7.5k serial 131k-long chains; only its LayerNorm
 // statistics and constants are shared.
@@ -42,9 +46,10 @@
 
 // Mirror of ops/_native.py::PgDims.
 struct PgDims {
-  int num_layers, obs_dim, n_rows;
+  int obs_dim, n_rows;
   int spill;   // 1: the sub-tile lives in the workspace, not shared memory
-  int hidden[kMaxLayers];
+  int sum_h, hmax;  // the widths' sum and max: set by the launcher
+  Torso torso;
   NetLayout net;
 };
 
@@ -68,13 +73,15 @@ constexpr int kWsLd = kTC + 1;              // weight-tile row stride
 constexpr int kMaxSmem = 232448;
 
 // The sub-tile's buffers in shared memory, each row-major with its own
-// width as the row stride; R is the sub-tile's row count.
+// width as the row stride; R is the sub-tile's row count. Layer l's rows
+// of z and a sit at R * (H_0 + ... + H_{l-1}) in their regions, its
+// LayerNorm statistics at R * l.
 struct PgTile {
   float* x;                   // (R, F) the obs rows
-  float* z[kMaxLayers];       // (R, H_l) pre-LayerNorm
-  float* a[kMaxLayers];       // (R, H_l) relu outputs
-  float* mu[kMaxLayers];      // (R,) LayerNorm means
-  float* inv[kMaxLayers];     // (R,) LayerNorm 1 / sqrt(var + eps)
+  float* z;                   // (R, H_l) pre-LayerNorm, per layer
+  float* a;                   // (R, H_l) relu outputs, per layer
+  float* mu;                  // (R,) LayerNorm means, per layer
+  float* inv;                 // (R,) LayerNorm 1 / sqrt(var + eps), per layer
   float* lg;                  // (R, 5) logits, then d loss / d logits
   float* dh;                  // (R, Hmax) upstream gradient, then dy
   float* dz;                  // (R, Hmax)
@@ -96,15 +103,12 @@ __host__ __device__ __forceinline__ float* take(float* base, int& off,
 __host__ __device__ int carve_tile(const PgDims& d, int rows, float* base,
                                    PgTile* t, bool with_wt = true) {
   int off = 0;
-  int hmax = 0;
+  const int hmax = d.hmax;
   t->x = take(base, off, rows * d.obs_dim);
-  for (int l = 0; l < d.num_layers; ++l) {
-    t->z[l] = take(base, off, rows * d.hidden[l]);
-    t->a[l] = take(base, off, rows * d.hidden[l]);
-    t->mu[l] = take(base, off, rows);
-    t->inv[l] = take(base, off, rows);
-    hmax = d.hidden[l] > hmax ? d.hidden[l] : hmax;
-  }
+  t->z = take(base, off, rows * d.sum_h);
+  t->a = take(base, off, rows * d.sum_h);
+  t->mu = take(base, off, rows * d.torso.L);
+  t->inv = take(base, off, rows * d.torso.L);
   const int kmax = d.obs_dim > hmax ? d.obs_dim : hmax;
   t->lg = take(base, off, rows * kPgActions);
   t->dh = take(base, off, rows * hmax);
@@ -220,9 +224,14 @@ __global__ void __launch_bounds__(kThreads) lrpg_grad_kernel(
     carve_tile(d, R, smem, &t);
   }
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int F = d.obs_dim, nl = d.num_layers, N = d.n_rows;
-  const int* H = d.hidden;
+  const int F = d.obs_dim, nl = d.torso.L, N = d.n_rows;
+  const Torso& T = d.torso;
   const NetLayout& L = d.net;
+  // Layer l's rows of the sub-tile's z and a, and its statistics.
+  auto tz = [&](int l) { return t.z + R * T.at(l); };
+  auto ta = [&](int l) { return t.a + R * T.at(l); };
+  auto tmu = [&](int l) { return t.mu + R * l; };
+  auto tinv = [&](int l) { return t.inv + R * l; };
   float* const part = ws + static_cast<size_t>(blockIdx.x) * (L.size + 1);
   const int row_begin = blockIdx.x * rpb;
   const int row_end = min(N, row_begin + rpb);
@@ -238,30 +247,33 @@ __global__ void __launch_bounds__(kThreads) lrpg_grad_kernel(
 
     // ---- forward: torso, then the head's logits ----
     for (int l = 0; l < nl; ++l) {
-      const float* in = l == 0 ? t.x : t.a[l - 1];
-      const int kin = l == 0 ? F : H[l - 1];
-      tile_product<R>(in, kin, prm + L.w[l], false, H[l], prm + L.b[l],
-                      t.z[l], t.wt);
-      const float* s = prm + L.s[l];
-      const float* tb = prm + L.t[l];
+      const float* in = l == 0 ? t.x : ta(l - 1);
+      const int kin = l == 0 ? F : T.h(l - 1);
+      const int h = T.h(l);
+      float* const zl = tz(l);
+      float* const al = ta(l);
+      tile_product<R>(in, kin, prm + L.w(l), false, h, prm + L.b(l), zl,
+                      t.wt);
+      const float* s = prm + L.s(l);
+      const float* tb = prm + L.t(l);
       for (int r = warp; r < R; r += kWarps) {
-        const float* zr = t.z[l] + r * H[l];
+        const float* zr = zl + r * h;
         float mu, inv;
-        ln_stats(zr, H[l], c.ln_eps, lane, mu, inv);
+        ln_stats(zr, h, c.ln_eps, lane, mu, inv);
         if (lane == 0) {
-          t.mu[l][r] = mu;
-          t.inv[l][r] = inv;
+          tmu(l)[r] = mu;
+          tinv(l)[r] = inv;
         }
-        for (int j = lane; j < H[l]; j += 32) {
+        for (int j = lane; j < h; j += 32) {
           const float xh = (zr[j] - mu) * inv;
           const float y = xh * s[j] + tb[j];
-          t.a[l][r * H[l] + j] = fmaxf(y, 0.0f);
+          al[r * h + j] = fmaxf(y, 0.0f);
         }
       }
       __syncthreads();
     }
-    const int hl = H[nl - 1];
-    tile_product<R>(t.a[nl - 1], hl, prm + L.wh, false, kPgActions,
+    const int hl = T.h(nl - 1);
+    tile_product<R>(ta(nl - 1), hl, prm + L.wh, false, kPgActions,
                     prm + L.bh, t.lg, t.wt);
 
     // ---- softmax epilogue, one row per lane of warp 0 ----
@@ -309,18 +321,21 @@ __global__ void __launch_bounds__(kThreads) lrpg_grad_kernel(
     __syncthreads();
 
     // ---- backward: the head, then each LayerNorm/relu layer ----
-    grad_w<R>(t.lg, kPgActions, t.a[nl - 1], hl, part + L.wh, first);
+    grad_w<R>(t.lg, kPgActions, ta(nl - 1), hl, part + L.wh, first);
     grad_b<R>(t.lg, kPgActions, part + L.bh, first);
     tile_product<R>(t.lg, kPgActions, prm + L.wh, true, hl, nullptr, t.dh,
                     t.wt);
     for (int l = nl - 1; l >= 0; --l) {
-      const int h = H[l];
-      const float* s = prm + L.s[l];
-      const float* tb = prm + L.t[l];
+      const int h = T.h(l);
+      const float* s = prm + L.s(l);
+      const float* tb = prm + L.t(l);
+      const float* const zl = tz(l);
+      const float* const mul = tmu(l);
+      const float* const invl = tinv(l);
       for (int r = warp; r < R; r += kWarps) {
-        const float* zr = t.z[l] + r * h;
+        const float* zr = zl + r * h;
         float* dhr = t.dh + r * h;
-        const float mu = t.mu[l][r], inv = t.inv[l][r];
+        const float mu = mul[r], inv = invl[r];
         float a1 = 0.0f, a2 = 0.0f;
         for (int j = lane; j < h; j += 32) {
           const float xh = (zr[j] - mu) * inv;
@@ -344,24 +359,24 @@ __global__ void __launch_bounds__(kThreads) lrpg_grad_kernel(
         }
       }
       __syncthreads();
-      const float* in = l == 0 ? t.x : t.a[l - 1];
-      const int kin = l == 0 ? F : H[l - 1];
-      grad_w<R>(t.dz, h, in, kin, part + L.w[l], first);
-      grad_b<R>(t.dz, h, part + L.b[l], first);
+      const float* in = l == 0 ? t.x : ta(l - 1);
+      const int kin = l == 0 ? F : T.h(l - 1);
+      grad_w<R>(t.dz, h, in, kin, part + L.w(l), first);
+      grad_b<R>(t.dz, h, part + L.b(l), first);
       for (int j = tid; j < h; j += kThreads) {  // LayerNorm scale and bias
         float ds = 0.0f, dt = 0.0f;
         for (int r = 0; r < R; ++r) {
           const float dy = t.dh[r * h + j];
-          const float xh = (t.z[l][r * h + j] - t.mu[l][r]) * t.inv[l][r];
+          const float xh = (zl[r * h + j] - mul[r]) * invl[r];
           ds = ds + dy * xh;
           dt = dt + dy;
         }
-        add_partial(part + L.s[l] + j, ds, first);
-        add_partial(part + L.t[l] + j, dt, first);
+        add_partial(part + L.s(l) + j, ds, first);
+        add_partial(part + L.t(l) + j, dt, first);
       }
       __syncthreads();
       if (l > 0)
-        tile_product<R>(t.dz, h, prm + L.w[l], true, kin, nullptr, t.dh,
+        tile_product<R>(t.dz, h, prm + L.w(l), true, kin, nullptr, t.dh,
                         t.wt);
     }
   }
@@ -401,15 +416,25 @@ int smem_tile_rows(const PgDims& d) {
   return 0;
 }
 
-// The sub-tile's row count on the route d.spill names, or 0 for dims the
-// kernel does not take (not 1 to 4 layers, or the shared-memory route
-// where no tile fits).
+// *d = *dims with the sums of the host's copy of the widths filled in;
+// false for dims the kernel does not take (no layer, a width below 1).
+bool with_sums(const PgDims* dims, const int* widths, PgDims* d) {
+  *d = *dims;
+  long long sum;
+  int hmax;
+  if (d->obs_dim < 1 || d->n_rows < 1 || d->net.size < 1 ||
+      (d->spill != 0 && d->spill != 1) || d->torso.tab == nullptr ||
+      d->net.lay == nullptr ||
+      !widths_ok(widths, d->torso.L, 1, &sum, &hmax, 0))
+    return false;
+  d->sum_h = static_cast<int>(sum);
+  d->hmax = hmax;
+  return true;
+}
+
+// The sub-tile's row count on the route d.spill names, or 0 where the
+// shared-memory route has no tile that fits.
 int tile_rows(const PgDims& d) {
-  if (d.num_layers < 1 || d.num_layers > kMaxLayers || d.obs_dim < 1 ||
-      d.n_rows < 1 || d.net.size < 1 || (d.spill != 0 && d.spill != 1))
-    return 0;
-  for (int l = 0; l < d.num_layers; ++l)
-    if (d.hidden[l] < 1) return 0;
   return d.spill ? kPgSpillRows : smem_tile_rows(d);
 }
 
@@ -458,25 +483,32 @@ extern "C" {
 
 // Floats of workspace cp_lrpg_update_phase needs for these dims (0 when
 // the dims are outside what the kernel takes): the blocks' partial rows,
-// then on the workspace route each block's sub-tile.
-long long cp_lrpg_workspace_floats(const PgDims* dims) {
-  const int rows = tile_rows(*dims);
+// then on the workspace route each block's sub-tile. widths: the host's
+// copy of the torso's widths (dims->torso.L ints).
+long long cp_lrpg_workspace_floats(const PgDims* dims, const int* widths) {
+  PgDims d;
+  if (!with_sums(dims, widths, &d)) return 0;
+  const int rows = tile_rows(d);
   if (rows == 0) return 0;
   int rpb, blocks;
-  plan(*dims, rows, &rpb, &blocks);
+  plan(d, rows, &rpb, &blocks);
   return static_cast<long long>(blocks) *
-         (dims->net.size + 1 + (dims->spill ? spill_tile_floats(*dims) : 0));
+         (d.net.size + 1 + (d.spill ? spill_tile_floats(d) : 0));
 }
 
-// One LRPG update on `stream`, as two launches (pass 1, pass 2). p, m, v:
-// the 3 group buffers (updated in place); obs (N, F), act (N,) int32, adv
-// (N,); loss (): the window's loss; workspace: cp_lrpg_workspace_floats
-// floats. Returns a cudaError_t.
-int cp_lrpg_update_phase(const PgDims* dims, const PgConsts* consts,
-                         float* p, float* m, float* v, const float* obs,
-                         const int* act, const float* adv, float* loss,
-                         float* workspace, void* stream) {
-  const PgDims d = *dims;
+// One LRPG update on `stream`, as two launches (pass 1, pass 2). widths:
+// as above; dims->torso.tab and dims->net.lay: the device table
+// (ops/learner_kernel.py::_learner_table). p, m, v: the 3 group buffers
+// (updated in place); obs (N, F), act (N,) int32, adv (N,); loss (): the
+// window's loss; workspace: cp_lrpg_workspace_floats floats. Returns a
+// cudaError_t.
+int cp_lrpg_update_phase(const PgDims* dims, const int* widths,
+                         const PgConsts* consts, float* p, float* m, float* v,
+                         const float* obs, const int* act, const float* adv,
+                         float* loss, float* workspace, void* stream) {
+  PgDims d;
+  if (!with_sums(dims, widths, &d))
+    return static_cast<int>(cudaErrorInvalidValue);
   const PgConsts c = *consts;
   const int rows = tile_rows(d);
   if (rows == 0) return static_cast<int>(cudaErrorInvalidValue);

@@ -1,6 +1,9 @@
-// The network tile of kernels B4 and B8 (q_rollout.cu): a torso of any
-// depth and width, [Dense + LayerNorm + relu] x L, over a tile of 32 envs
-// in one 256-thread block, on Hopper.
+// The network tile of the policy-in-the-loop rollouts B2, B4, B6 and B8
+// (policy_rollout.cu, q_rollout.cu): a torso of any depth and width,
+// [Dense + LayerNorm + relu] x L, over a tile of 32 envs in one 256-thread
+// block, on Hopper, then a head of 5 (B4, B8) or 2 (B2, B6) outputs and
+// the env step; one kernel body (tile_rollout_kernel), the head and the
+// exploration rule a compile-time mode.
 //
 // Layout. Activations are env-minor: element (k, e) of a layer sits at
 // k * kLd + e, kLd = 36, so that 4 or 8 neighbouring envs of one feature
@@ -20,13 +23,20 @@
 // physics keeps its twin-exact order). Every sum runs in a fixed order,
 // so a launch repeats its bits.
 //
-// Weights. The packed torso weights (pack_qnet: W_l as (in, Np_l)
-// row-major, Np_l the width rounded up to 4, zero-padded) are copied into
-// shared memory once per launch when they fit ("resident": B8's (64, 64)
-// is 29 KB). Otherwise they are streamed every env-step in chunks of 32
-// rows x up to 256 columns through two shared-memory slots by cp.async,
-// the next chunk in flight while the current one is multiplied; the
-// chunk after the last torso chunk is the first of the next env-step.
+// Weights. The packed torso weights (ops/q_rollout.py::pack_tile_net: W_l
+// as (in, Np_l) row-major, Np_l the width rounded up to 4, zero-padded)
+// are copied into shared memory once per launch when they fit
+// ("resident": B8's (64, 64) is 29 KB). Otherwise they are streamed every
+// env-step in chunks of 32 rows x up to 256 columns through two
+// shared-memory slots by cp.async, the next chunk in flight while the
+// current one is multiplied; the chunk after the last torso chunk is the
+// first of the next env-step.
+//
+// Head and env step. The head's sums are spread over all 8 warps (a slice
+// of its features each, added in warp order by the env's owner), B8's
+// Gumbel draws over one thread per (env, action) pair beside them; then
+// lane e of warp 0 runs env e's action rule, force, physics and reset,
+// its env state (and B2's OU noise) in registers for all T steps.
 #pragma once
 
 #include "policy_tile.cuh"
@@ -47,7 +57,7 @@ constexpr int kChunkRows = 32;    // k rows of a streamed weight chunk
 constexpr int kPanel = 256;       // output columns of a panel / chunk
 constexpr int kSlot = kChunkRows * kPanel;
 constexpr int kDrawLd = 8;        // per-env stride of B8's 5 Gumbel draws
-constexpr int kHeadLd = 8;        // padded head width in pack_qnet
+constexpr int kHeadLd = 8;        // padded head width in pack_tile_net
 // Per-warp partial sums of LayerNorm (2 x 8 x 32) and the head (8 x 8 x
 // 32), in one region.
 constexpr int kPartFloats = kWarps * kHeadLd * kTile;
@@ -383,6 +393,300 @@ __device__ __forceinline__ const float* torso_tile(WeightSource& ws,
     K = N;
   }
   return in;
+}
+
+
+constexpr int kNumActions = 5;  // ops/q_rollout.py::NUM_ACTIONS (B4, B8)
+constexpr int kActDim = 2;      // the continuous action (B2, B6)
+
+// The modes of tile_rollout_kernel: the exploration rule and the head.
+enum : int {
+  kModeDqn = 0,   // B4: epsilon-greedy argmax of 5 Q values
+  kModePg = 1,    // B8: Gumbel-max sample of the 5-way softmax
+  kModeDdpg = 2,  // B2: tanh head + OU noise (tags 0x41/0x42)
+  kModeNaf = 3,   // B6: tanh head + sigma * normal (tags 0x45/0x46)
+};
+
+// The exploration scalars of a launch (each mode reads its own).
+struct Explore {
+  float eps;       // B4
+  float ou_theta;  // B2
+  float sigma;     // B2, B6
+};
+
+// -log(-log(u)), u = uniform(hash(seed, t, 0x47, a, 0xB2)) in [2^-24, 1):
+// utils/prng.py::gumbel with ops/pg_rollout.py::TAG_PG_GUMBEL.
+__device__ __forceinline__ float gumbel(uint32_t seed, uint32_t t, int a) {
+  const float u = cp::uniform_from_bits(
+      cp::hash_words(seed, t, 0x47u, static_cast<uint32_t>(a), 0xB2u),
+      cp::kTwoM24, 1.0f - cp::kTwoM24);
+  return -logf(-logf(u));
+}
+
+// The head's partial sums: warp w sums features w, w + 8, ... of env
+// `lane` for all NA outputs into part[(w * 8 + a) * 32 + lane].
+template <int NA>
+__device__ __forceinline__ void head_partials(const float* h, int H,
+                                              const float* __restrict__ W,
+                                              float* part, int warp,
+                                              int lane) {
+  float acc[NA] = {};
+#pragma unroll 4
+  for (int k = warp; k < H; k += kWarps) {
+    const float x = h[k * kLd + lane];
+    if constexpr (NA == kNumActions) {
+      const float4 w = __ldg(reinterpret_cast<const float4*>(W + k * kHeadLd));
+      acc[0] = __fmaf_rn(x, w.x, acc[0]);
+      acc[1] = __fmaf_rn(x, w.y, acc[1]);
+      acc[2] = __fmaf_rn(x, w.z, acc[2]);
+      acc[3] = __fmaf_rn(x, w.w, acc[3]);
+      acc[4] = __fmaf_rn(x, __ldg(W + k * kHeadLd + 4), acc[4]);
+    } else {
+      const float2 w = __ldg(reinterpret_cast<const float2*>(W + k * kHeadLd));
+      acc[0] = __fmaf_rn(x, w.x, acc[0]);
+      acc[1] = __fmaf_rn(x, w.y, acc[1]);
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+    part[(warp * kHeadLd + a) * kTile + lane] = acc[a];
+}
+
+// Output a of the head for env `lane`: the 8 warps' partials in warp
+// order, plus the bias.
+__device__ __forceinline__ float head_out(const float* part, int a, int lane,
+                                          const float* __restrict__ bias) {
+  float v = part[a * kTile + lane];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w)
+    v = v + part[(w * kHeadLd + a) * kTile + lane];
+  return v + __ldg(bias + a);
+}
+
+// T env-steps of a 32-env tile with the network in the loop. kSpill: the
+// activations live in the block's slice of `work`. traj_act is int32 (T,
+// B) in the discrete modes, float (T, B, 2) in the continuous ones;
+// noise_in/noise_out (B, 2) are B2's OU state (unused otherwise).
+template <int kMode, bool kSpill>
+__global__ void __launch_bounds__(kThreads, 1) tile_rollout_kernel(
+    const EnvConsts c, const QPlan p, const float* __restrict__ params,
+    const int* __restrict__ hidden, float* __restrict__ work,
+    const Explore x, const int t0, const int B, const int T,
+    const float* __restrict__ pos, const float* __restrict__ vel,
+    const float* __restrict__ s, const float* __restrict__ sd,
+    const int* __restrict__ steps_in, const int* __restrict__ episode_in,
+    const int64_t* __restrict__ seed_in, const float* __restrict__ noise_in,
+    const float* __restrict__ obs_in, float* __restrict__ traj_obs,
+    void* __restrict__ traj_act, float* __restrict__ traj_rew,
+    bool* __restrict__ traj_done, float* __restrict__ pos_out,
+    float* __restrict__ vel_out, float* __restrict__ s_out,
+    float* __restrict__ sd_out, int* __restrict__ steps_out,
+    int* __restrict__ episode_out, float* __restrict__ noise_out,
+    float* __restrict__ obs_out) {
+  constexpr bool kDiscrete = kMode == kModeDqn || kMode == kModePg;
+  constexpr int kOut = kDiscrete ? kNumActions : kActDim;
+  extern __shared__ __align__(16) float smem[];
+  const int F = p.obs_dim, ldo = p.ldo, L = p.num_layers;
+  float* const obsb = smem + p.obs_off;      // (kTile, ldo) env-major obs
+  float* const draws = smem + p.draw_off;   // (kTile, 8) Gumbel draws
+  float* const part = smem + p.part_off;     // LayerNorm / head partials
+  float* buf0;
+  if constexpr (kSpill)
+    buf0 = work + static_cast<long>(blockIdx.x) * 2 * kLd * p.width;
+  else
+    buf0 = smem + p.act_off;
+  float* const buf1 = buf0 + static_cast<long>(kLd) * p.width;
+  const int env0 = blockIdx.x * kTile;
+  const int n_env = min(kTile, B - env0);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  // The head's weights (H, 8) follow the torso's; then the layers'
+  // [bias, LN scale, LN bias] vectors and the head's bias.
+  const int H = __ldg(hidden + L - 1);
+  const float* const head_w = params + p.wfloats;
+  const float* const vec = head_w + static_cast<long>(H) * kHeadLd;
+  const float* head_b = vec;
+  for (int l = 0; l < L; ++l) head_b += 3 * __ldg(hidden + l);
+
+  WeightSource ws{params, smem + p.w_off, hidden, L, F, p.resident,
+                  stream_start(hidden, F)};
+  if (p.resident) {
+    for (int i = tid; i < p.wfloats / 4; i += kThreads)
+      cp_async16(ws.wsm + 4 * i, params + 4 * i);
+    cp_async_commit();
+  } else {
+    stream_issue(ws.s, params, ws.wsm, hidden, L, F);
+  }
+
+  for (int i = tid; i < kTile * ldo; i += kThreads) {
+    const int e = i / ldo, k = i - e * ldo;
+    obsb[i] = (e < n_env && k < F)
+                  ? obs_in[static_cast<long>(env0 + e) * F + k]
+                  : 0.0f;
+  }
+  // Lane e of every warp holds env e's seed (B8's draws); lane e of
+  // warp 0 owns env e's state (and B2's noise) for the whole rollout.
+  const int g = env0 + lane;
+  const bool live = lane < n_env;
+  const uint32_t seed = live ? static_cast<uint32_t>(seed_in[g]) : 0u;
+  const bool owner = warp == 0 && live;
+  cp::Phys st{};
+  int steps = 0, episode = 0;
+  float nx = 0.0f, ny = 0.0f;
+  if (owner) {
+    st = load_phys(pos, vel, s, sd, g);
+    steps = steps_in[g];
+    episode = episode_in[g];
+    if constexpr (kMode == kModeDdpg) {
+      nx = noise_in[2 * g];
+      ny = noise_in[2 * g + 1];
+    }
+  }
+  if (p.resident) cp_async_wait_all();
+  __syncthreads();
+
+  for (int t = 0; t < T; ++t) {
+    // Trajectory obs = the pre-step observation; the tile's obs go
+    // feature-major into buf0 for the first layer.
+    float* const dst = traj_obs + (static_cast<long>(t) * B + env0) * F;
+    for (int e = warp; e < n_env; e += kWarps)
+      for (int k = lane; k < F; k += 32) dst[e * F + k] = obsb[e * ldo + k];
+    for (int i = tid; i < F * kTile; i += kThreads) {
+      const int k = i / kTile, e = i - k * kTile;
+      buf0[k * kLd + e] = obsb[e * ldo + k];
+    }
+    __syncthreads();
+
+    const float* h = torso_tile(ws, vec, buf0, buf1, part);
+    // The head's partial sums over all warps; beside them warps 0-4 draw
+    // B8's Gumbel noise, one (env, action) pair a thread.
+    head_partials<kOut>(h, H, head_w, part, warp, lane);
+    const uint32_t tg = static_cast<uint32_t>(t0 + t);
+    if constexpr (kMode == kModePg) {
+      if (warp < kNumActions)
+        draws[lane * kDrawLd + warp] = gumbel(seed, tg, warp);
+    }
+    __syncthreads();
+
+    // The action (B4/B8: first-max argmax of the outputs, plus B8's
+    // draws, then B4's epsilon gate; B2/B6: tanh plus the noise,
+    // clipped), force, physics, reward, reset; next obs into obsb.
+    if (owner) {
+      const long tb = static_cast<long>(t) * B + g;
+      float fx, fy;
+      if constexpr (kDiscrete) {
+        int action = 0;
+        float best = 0.0f;
+#pragma unroll
+        for (int a = 0; a < kNumActions; ++a) {
+          float v = head_out(part, a, lane, head_b);
+          if constexpr (kMode == kModePg) v = v + draws[lane * kDrawLd + a];
+          if (a == 0 || v > best) {  // strict: the first maximum wins ties
+            best = v;
+            action = a;
+          }
+        }
+        if constexpr (kMode == kModeDqn) {
+          const bool explore =
+              cp::uniform_from_bits(cp::hash_words(seed, tg, 0x43u), 0.0f,
+                                    1.0f) < x.eps;
+          if (explore)
+            action = static_cast<int>(cp::hash_words(seed, tg, 0x44u) %
+                                      static_cast<uint32_t>(kNumActions));
+        }
+        static_cast<int*>(traj_act)[tb] = action;
+        fx = (action == 1 ? 1.0f : (action == 2 ? -1.0f : 0.0f)) *
+             c.action_force;
+        fy = (action == 3 ? 1.0f : (action == 4 ? -1.0f : 0.0f)) *
+             c.action_force;
+      } else {
+        const float mu0 = tanhf(head_out(part, 0, lane, head_b));
+        const float mu1 = tanhf(head_out(part, 1, lane, head_b));
+        if constexpr (kMode == kModeNaf) {
+          nx = cp::normal(seed, tg, 0x45u) * x.sigma;
+          ny = cp::normal(seed, tg, 0x46u) * x.sigma;
+        } else {
+          const float eps_x = cp::normal(seed, tg, 0x41u);
+          const float eps_y = cp::normal(seed, tg, 0x42u);
+          nx = nx + x.ou_theta * (0.0f - nx) + x.sigma * eps_x;
+          ny = ny + x.ou_theta * (0.0f - ny) + x.sigma * eps_y;
+        }
+        const float ax = cp::clampf(mu0 + nx, -1.0f, 1.0f);
+        const float ay = cp::clampf(mu1 + ny, -1.0f, 1.0f);
+        static_cast<float*>(traj_act)[2 * tb] = ax;
+        static_cast<float*>(traj_act)[2 * tb + 1] = ay;
+        fx = ax * c.action_force;
+        fy = ay * c.action_force;
+      }
+      float reward;
+      bool done;
+      step_into_row(c, st, steps, episode, seed, fx, fy, obsb + lane * ldo,
+                    reward, done);
+      if constexpr (kMode == kModeDdpg) {
+        if (done) {  // the OU state of a finished episode restarts at 0
+          nx = 0.0f;
+          ny = 0.0f;
+        }
+      }
+      traj_rew[tb] = reward;
+      traj_done[tb] = done;
+    }
+    __syncthreads();
+  }
+
+  if (owner) {
+    store_phys(st, pos_out, vel_out, s_out, sd_out, g);
+    steps_out[g] = steps;
+    episode_out[g] = episode;
+    if constexpr (kMode == kModeDdpg) {
+      noise_out[2 * g] = nx;
+      noise_out[2 * g + 1] = ny;
+    }
+  }
+  float* const fin = obs_out + static_cast<long>(env0) * F;
+  for (int e = warp; e < n_env; e += kWarps)
+    for (int k = lane; k < F; k += 32) fin[e * F + k] = obsb[e * ldo + k];
+  cp_async_wait_all();  // the stream's prefetch of a next step's chunk
+}
+
+// Checks the dims against the env and the mode, and launches mode kMode
+// on the stream. Returns a cudaError_t.
+template <int kMode>
+int launch_tile_rollout(
+    const EnvConsts* consts, const QDims* dims, const float* params,
+    const int* hidden, float* work, Explore x, int t0, int B, int T,
+    const float* pos, const float* vel, const float* s, const float* sd,
+    const int* steps, const int* episode, const int64_t* seed,
+    const float* noise, const float* obs, float* traj_obs, void* traj_act,
+    float* traj_rew, bool* traj_done, float* pos_out, float* vel_out,
+    float* s_out, float* sd_out, int* steps_out, int* episode_out,
+    float* noise_out, float* obs_out, void* stream) {
+  constexpr bool kDiscrete = kMode == kModeDqn || kMode == kModePg;
+  const EnvConsts& c = *consts;
+  const QDims& d = *dims;
+  if (B <= 0 || T < 0 || d.num_layers < 1 ||
+      d.obs_dim != c.action_repeats * cp::kFrame || d.width < d.obs_dim ||
+      d.wfloats <= 0 || d.wfloats % 4 != 0 ||
+      (c.discrete_actions != 0) != kDiscrete ||
+      (kMode == kModeDdpg && (noise == nullptr || noise_out == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const QPlan p = make_plan(d);
+  if (p.spill && work == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(float) * static_cast<size_t>(p.floats);
+  auto kernel = p.spill ? tile_rollout_kernel<kMode, true>
+                        : tile_rollout_kernel<kMode, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (B + kTile - 1) / kTile;
+  kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      c, p, params, hidden, work, x, t0, B, T, pos, vel, s, sd, steps,
+      episode, seed, noise, obs, traj_obs, traj_act, traj_rew, traj_done,
+      pos_out, vel_out, s_out, sd_out, steps_out, episode_out, noise_out,
+      obs_out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

@@ -63,71 +63,69 @@ class EnvConsts(ctypes.Structure):
         "has_linear_damping", "has_angular_damping", "has_push")]
 
 
-MAX_LAYERS = 4  # kMaxLayers in csrc/policy_tile.cuh and learner_stages.cuh
 # Bytes of shared memory one H100 block may use (kMaxSmem in
-# csrc/lrpg_update.cu and csrc/q_rollout.cu; B2's and B6's coverage
-# checks and B9's planner read it here).
+# csrc/lrpg_update.cu and csrc/q_tile.cuh; B9's planner reads it here).
 MAX_SMEM = 232_448
 
 
-class ActorDims(ctypes.Structure):
-    """Mirror of `struct ActorDims` in csrc/policy_tile.cuh (B2, B6)."""
-
-    _fields_ = [("num_layers", ctypes.c_int), ("obs_dim", ctypes.c_int),
-                ("width", ctypes.c_int),
-                ("hidden", ctypes.c_int * MAX_LAYERS)]
-
-
 class QDims(ctypes.Structure):
-    """Mirror of `struct QDims` in csrc/q_tile.cuh (B4, B8): the torso's
-    depth, the obs width, max(obs_dim, hidden...) and the floats of the
-    padded torso weights (`ops.q_rollout.pack_qnet`)."""
+    """Mirror of `struct QDims` in csrc/q_tile.cuh (B2, B4, B6, B8): the
+    torso's depth, the obs width, max(obs_dim, hidden...) and the floats of the
+    padded torso weights (`ops.q_rollout.pack_tile_net`)."""
 
     _fields_ = [(n, ctypes.c_int) for n in (
         "num_layers", "obs_dim", "width", "wfloats")]
 
 
 class NetLayout(ctypes.Structure):
-    """Mirror of `struct NetLayout` in csrc/learner_stages.cuh: element offsets
-    of one network's parameters in its group buffer (ops/learner_kernel.py
-    documents the layout)."""
+    """Mirror of `struct NetLayout` in csrc/learner_stages.cuh: one
+    network's parameter offsets in its group buffer. `lay` points into the
+    device table of ops/learner_kernel.py::_learner_table (per torso layer
+    the offsets of W, b, LayerNorm scale and bias); wh, bh: the head's;
+    size: the group's floats."""
 
-    _fields_ = [(n, ctypes.c_int * MAX_LAYERS) for n in "wbst"] + [
+    _fields_ = [("lay", ctypes.c_void_p)] + [
         (n, ctypes.c_int) for n in ("wh", "bh", "size")]
 
 
+class Torso(ctypes.Structure):
+    """Mirror of `struct Torso` in csrc/learner_stages.cuh: the device
+    table's widths and their prefix sums, and the depth."""
+
+    _fields_ = [("tab", ctypes.c_void_p), ("num_layers", ctypes.c_int)]
+
+
 class LearnerDims(ctypes.Structure):
-    """Mirror of `struct LearnerDims` in csrc/ddpg_update.cu."""
+    """Mirror of `struct LearnerDims` in csrc/ddpg_update.cu (B3)."""
 
     _fields_ = [(n, ctypes.c_int) for n in (
-        "num_layers", "obs_dim", "batch", "k_updates", "merged")] + [
-        ("hidden", ctypes.c_int * MAX_LAYERS), ("actor", NetLayout),
-        ("critic", NetLayout)]
+        "obs_dim", "batch", "k_updates", "merged")] + [
+        ("torso", Torso), ("actor", NetLayout), ("critic", NetLayout)]
 
 
 class DqnDims(ctypes.Structure):
-    """Mirror of `struct DqnDims` in csrc/dqn_update.cu."""
+    """Mirror of `struct DqnDims` in csrc/dqn_update.cu (B5)."""
 
     _fields_ = [(n, ctypes.c_int) for n in (
-        "num_layers", "obs_dim", "batch", "k_updates", "double_dqn")] + [
-        ("hidden", ctypes.c_int * MAX_LAYERS), ("q", NetLayout)]
+        "obs_dim", "batch", "k_updates", "double_dqn")] + [
+        ("torso", Torso), ("q", NetLayout)]
 
 
 class NafDims(ctypes.Structure):
     """Mirror of `struct NafDims` in csrc/naf_update.cu (B7)."""
 
     _fields_ = [(n, ctypes.c_int) for n in (
-        "num_layers", "obs_dim", "batch", "k_updates")] + [
-        ("max_norm", ctypes.c_float), ("hidden", ctypes.c_int * MAX_LAYERS),
-        ("q", NetLayout)]
+        "obs_dim", "batch", "k_updates")] + [
+        ("max_norm", ctypes.c_float), ("torso", Torso), ("q", NetLayout)]
 
 
 class PgDims(ctypes.Structure):
-    """Mirror of `struct PgDims` in csrc/lrpg_update.cu (B9)."""
+    """Mirror of `struct PgDims` in csrc/lrpg_update.cu (B9); the launcher
+    fills sum_h and hmax from the host's copy of the widths."""
 
     _fields_ = [(n, ctypes.c_int) for n in (
-        "num_layers", "obs_dim", "n_rows", "spill")] + [
-        ("hidden", ctypes.c_int * MAX_LAYERS), ("net", NetLayout)]
+        "obs_dim", "n_rows", "spill", "sum_h", "hmax")] + [
+        ("torso", Torso), ("net", NetLayout)]
 
 
 class PgConsts(ctypes.Structure):
@@ -270,15 +268,15 @@ def load_library() -> ctypes.CDLL:
     lib.cp_fused_rollout_blocks.restype = ci
     lib.cp_fused_rollout.argtypes = [vp, ci, ci] + [vp] * 15 + [vp]
     lib.cp_fused_rollout.restype = ci
-    lib.cp_policy_rollout.argtypes = ([vp, vp, vp, cf, cf, ci, ci, ci]
+    lib.cp_policy_rollout.argtypes = ([vp] * 5 + [cf, cf, ci, ci, ci]
                                       + [vp] * 21 + [vp])
     lib.cp_policy_rollout.restype = ci
-    lib.cp_naf_rollout.argtypes = [vp, vp, vp, cf, ci, ci, ci] + [vp] * 19 + [
+    lib.cp_naf_rollout.argtypes = [vp] * 5 + [cf, ci, ci, ci] + [vp] * 19 + [
         vp]
     lib.cp_naf_rollout.restype = ci
-    lib.cp_ddpg_workspace_floats.argtypes = [vp]
+    lib.cp_ddpg_workspace_floats.argtypes = [vp, vp]
     lib.cp_ddpg_workspace_floats.restype = ctypes.c_longlong
-    lib.cp_ddpg_update_phase.argtypes = [vp, vp] + [vp] * 8 + [vp] * 5 + [
+    lib.cp_ddpg_update_phase.argtypes = [vp] * 3 + [vp] * 8 + [vp] * 5 + [
         vp, vp, vp, ci, vp]
     lib.cp_ddpg_update_phase.restype = ci
     lib.cp_q_workspace_floats.argtypes = [vp, ci]
@@ -286,21 +284,21 @@ def load_library() -> ctypes.CDLL:
     lib.cp_q_rollout.argtypes = [vp] * 5 + [cf, ci, ci, ci] + [vp] * 19 + [
         vp]
     lib.cp_q_rollout.restype = ci
-    lib.cp_dqn_workspace_floats.argtypes = [vp]
+    lib.cp_dqn_workspace_floats.argtypes = [vp, vp]
     lib.cp_dqn_workspace_floats.restype = ctypes.c_longlong
-    lib.cp_dqn_update_phase.argtypes = [vp, vp] + [vp] * 4 + [vp] * 5 + [
+    lib.cp_dqn_update_phase.argtypes = [vp] * 3 + [vp] * 4 + [vp] * 5 + [
         vp, vp, ci, vp]
     lib.cp_dqn_update_phase.restype = ci
-    lib.cp_naf_workspace_floats.argtypes = [vp]
+    lib.cp_naf_workspace_floats.argtypes = [vp, vp]
     lib.cp_naf_workspace_floats.restype = ctypes.c_longlong
-    lib.cp_naf_update_phase.argtypes = [vp, vp] + [vp] * 4 + [vp] * 5 + [
+    lib.cp_naf_update_phase.argtypes = [vp] * 3 + [vp] * 4 + [vp] * 5 + [
         vp, vp, ci, vp]
     lib.cp_naf_update_phase.restype = ci
     lib.cp_pg_rollout.argtypes = [vp] * 5 + [ci, ci, ci] + [vp] * 19 + [vp]
     lib.cp_pg_rollout.restype = ci
-    lib.cp_lrpg_workspace_floats.argtypes = [vp]
+    lib.cp_lrpg_workspace_floats.argtypes = [vp, vp]
     lib.cp_lrpg_workspace_floats.restype = ctypes.c_longlong
-    lib.cp_lrpg_update_phase.argtypes = [vp] * 11
+    lib.cp_lrpg_update_phase.argtypes = [vp] * 12
     lib.cp_lrpg_update_phase.restype = ci
     lib.cp_render.argtypes = [vp, ci, ci, vp, vp, vp, vp, vp]
     lib.cp_render.restype = ci

@@ -60,6 +60,7 @@ of the same name, learner_kernel.py:1372).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -75,7 +76,6 @@ _ADAM_EPS = 1e-8
 ACTION_DIM = 2
 NUM_ACTIONS = 5      # the DQN head
 NAF_HEAD = 6         # kHead in csrc/naf_update.cu: [v, mu0, mu1, l0, l1, l2]
-MAX_WIDTH = 1024     # kMaxWidth in csrc/learner_stages.cuh (shared memory)
 _HUBER_DELTA = 1.0   # optax.huber_loss default
 
 
@@ -146,24 +146,20 @@ def group_views(buf: torch.Tensor, layout) -> list:
 
 
 def covers(obs_dim: int, hidden: Sequence[int]) -> bool:
-    """The shapes B3 takes: 2 to 4 hidden layers (the action joins at
-    layer 1) and every layer input within the shared-memory row width."""
-    hidden = tuple(hidden)
-    return (2 <= len(hidden) <= _native.MAX_LAYERS
-            and max((obs_dim,) + hidden) + ACTION_DIM <= MAX_WIDTH)
+    """The shapes B3 takes: any torso of at least 2 hidden layers (the
+    action joins at layer 1), any width, as the reference's kernel (a row
+    stage walks a layer input wider than 1024 in chunks)."""
+    return len(tuple(hidden)) >= 2
 
 
 def dqn_covers(obs_dim: int, hidden: Sequence[int]) -> bool:
-    """The shapes B5 takes: 1 to 4 hidden layers and every layer input
-    within the shared-memory row width."""
-    hidden = tuple(hidden)
-    return (1 <= len(hidden) <= _native.MAX_LAYERS
-            and max((obs_dim,) + hidden) <= MAX_WIDTH)
+    """The shapes B5 takes: any torso of at least 1 hidden layer, any
+    width, as the reference's kernel."""
+    return len(tuple(hidden)) >= 1
 
 
 def naf_covers(obs_dim: int, hidden: Sequence[int]) -> bool:
-    """The shapes B7 takes: B5's (1 to 4 hidden layers and every layer
-    input within the shared-memory row width)."""
+    """The shapes B7 takes: B5's (any torso of at least 1 hidden layer)."""
     return dqn_covers(obs_dim, hidden)
 
 
@@ -200,9 +196,9 @@ def pg_tile_rows(obs_dim: int, hidden: Sequence[int]) -> int:
     """B9's sub-tile row count (tile_rows in csrc/lrpg_update.cu): the
     largest of 32, 16 and 8 whose tile fits in one block's shared memory,
     else 8 on the workspace route (`pg_tile_spills`); 0 for a shape B9
-    does not take (not 1 to 4 layers)."""
+    does not take (no layer, or a width below 1)."""
     hidden = tuple(hidden)
-    if not 1 <= len(hidden) <= _native.MAX_LAYERS or min(hidden) < 1:
+    if not hidden or min(hidden) < 1:
         return 0
     return next((r for r in (32, 16, 8)
                  if 4 * pg_tile_floats(obs_dim, hidden, r)
@@ -237,9 +233,9 @@ def pg_workspace_floats(obs_dim: int, hidden: Sequence[int],
 
 
 def lrpg_covers(obs_dim: int, hidden: Sequence[int]) -> bool:
-    """The shapes B9 takes: 1 to 4 hidden layers of any width (the
-    reference's kernel takes any width). Up to two layers of 1114 or four
-    of 668 (obs 42) the sub-tile lives in shared memory, wider in the
+    """The shapes B9 takes: any torso of at least 1 hidden layer, any
+    width, as the reference's kernel. Up to two layers of 1114 or four of
+    668 (obs 42) the sub-tile lives in shared memory, wider in the
     workspace (`pg_tile_spills`)."""
     return pg_tile_rows(obs_dim, hidden) > 0
 
@@ -704,16 +700,45 @@ def _check(t, shape, dtype, dev, what):
 
 
 def _layout_offsets(layout, n: int):
-    """NetLayout: element offsets of each parameter in a group buffer."""
+    """One network's parameter offsets in a group buffer: (per torso layer
+    the offsets of W, b, LayerNorm scale and bias, flattened; the head's W
+    and b offsets; the group's floats)."""
     offs, o = [], 0
     for _, shape in layout:
         offs.append(o)
         o += int(np.prod(shape))
-    net = _native.NetLayout(wh=offs[4 * n], bh=offs[4 * n + 1], size=o)
-    for i in range(n):
-        net.w[i], net.b[i] = offs[2 * i], offs[2 * i + 1]
-        net.s[i], net.t[i] = offs[2 * n + 2 * i], offs[2 * n + 2 * i + 1]
-    return net
+    per_layer = tuple(x for i in range(n) for x in (
+        offs[2 * i], offs[2 * i + 1], offs[2 * n + 2 * i],
+        offs[2 * n + 2 * i + 1]))
+    return per_layer, offs[4 * n], offs[4 * n + 1], o
+
+
+@functools.lru_cache(maxsize=None)
+def _learner_table(dev: torch.device, hidden: tuple,
+                   *per_layer: tuple) -> torch.Tensor:
+    """The device table of a learner kernel (Torso and NetLayout in
+    csrc/learner_stages.cuh): the widths H_l, their prefix sums H_0 + ...
+    + H_{l-1}, then each network's per-layer offsets. Made once per shape,
+    so a launch copies no table from the host."""
+    prefix = np.cumsum((0,) + hidden[:-1]).tolist()
+    vals = list(hidden) + prefix + [x for offs in per_layer for x in offs]
+    return torch.tensor(vals, dtype=torch.int32, device=dev)
+
+
+@functools.lru_cache(maxsize=None)
+def _learner_shape(dev, hidden: tuple, layouts: tuple):
+    """(Torso, [NetLayout per layout], the host's copy of the widths) of a
+    learner launch, the structures pointing into `_learner_table`; made
+    once per shape (`layouts`: tuples of (name, shape) tuples)."""
+    n = len(hidden)
+    offs = [_layout_offsets(lay, n) for lay in layouts]
+    tab = _learner_table(dev, hidden, *(o[0] for o in offs))
+    base = tab.data_ptr()
+    nets = [_native.NetLayout(lay=base + 4 * (2 * n + 4 * n * i), wh=wh,
+                              bh=bh, size=size)
+            for i, (_, wh, bh, size) in enumerate(offs)]
+    return (_native.Torso(tab=base, num_layers=n), nets,
+            (ctypes.c_int * n)(*hidden))
 
 
 def _learner_consts(*, batch, actor_lr, critic_lr, gamma, tau,
@@ -790,13 +815,12 @@ def ddpg_update_phase(groups, batches, t0: int, hidden, *, actor_lr: float,
                 d.copy_(s)
         return out[8], out[9]
 
-    n = len(hidden)
+    torso, (net_a, net_c), widths = _learner_shape(
+        dev, hidden, (tuple(lay_a), tuple(lay_c)))
     dims = _native.LearnerDims(
-        num_layers=n, obs_dim=obs_dim, batch=batch, k_updates=k_updates,
-        merged=int(actor_grad_critic == "pre"),
-        actor=_layout_offsets(lay_a, n), critic=_layout_offsets(lay_c, n))
-    for i, h in enumerate(hidden):
-        dims.hidden[i] = h
+        obs_dim=obs_dim, batch=batch, k_updates=k_updates,
+        merged=int(actor_grad_critic == "pre"), torso=torso, actor=net_a,
+        critic=net_c)
     consts = _learner_consts(batch=batch, lr_schedule=lr_schedule, **kw)
     lib = _native.load_library()
     closs = torch.empty(k_updates, dtype=torch.float32, device=dev)
@@ -806,13 +830,14 @@ def ddpg_update_phase(groups, batches, t0: int, hidden, *, actor_lr: float,
         key = (dev, stream, obs_dim, batch, k_updates, hidden)
         ws = _workspaces.get(key)
         if ws is None:
-            size = lib.cp_ddpg_workspace_floats(_native.struct_ptr(dims))
+            size = lib.cp_ddpg_workspace_floats(_native.struct_ptr(dims),
+                                                widths)
             if size <= 0:
                 raise ValueError(f"B3 rejected dims {key}")
             ws = _workspaces[key] = torch.empty(size, dtype=torch.float32,
                                                 device=dev)
         rc = lib.cp_ddpg_update_phase(
-            _native.struct_ptr(dims), _native.struct_ptr(consts),
+            _native.struct_ptr(dims), widths, _native.struct_ptr(consts),
             *(g.data_ptr() for g in groups),
             *(b.data_ptr() for b in batches),
             closs.data_ptr(), aloss.data_ptr(), ws.data_ptr(),
@@ -872,12 +897,9 @@ def dqn_update_phase(groups, batches, t0: int, hidden, *, lr: float,
                 d.copy_(s)
         return out[4]
 
-    n = len(hidden)
-    dims = _native.DqnDims(num_layers=n, obs_dim=obs_dim, batch=batch,
-                           k_updates=k_updates, double_dqn=int(double_dqn),
-                           q=_layout_offsets(lay, n))
-    for i, h in enumerate(hidden):
-        dims.hidden[i] = h
+    torso, (net,), widths = _learner_shape(dev, hidden, (tuple(lay),))
+    dims = _native.DqnDims(obs_dim=obs_dim, batch=batch, k_updates=k_updates,
+                           double_dqn=int(double_dqn), torso=torso, q=net)
     # The Q-net is net 0 of the stage engine: its lr rides in actor_lr.
     consts = _learner_consts(batch=batch, actor_lr=lr, critic_lr=lr,
                              gamma=gamma, tau=tau, lr_schedule=None)
@@ -888,13 +910,14 @@ def dqn_update_phase(groups, batches, t0: int, hidden, *, lr: float,
         key = ("dqn", dev, stream, obs_dim, batch, hidden)
         ws = _workspaces.get(key)
         if ws is None:
-            size = lib.cp_dqn_workspace_floats(_native.struct_ptr(dims))
+            size = lib.cp_dqn_workspace_floats(_native.struct_ptr(dims),
+                                               widths)
             if size <= 0:
                 raise ValueError(f"B5 rejected dims {key}")
             ws = _workspaces[key] = torch.empty(size, dtype=torch.float32,
                                                 device=dev)
         rc = lib.cp_dqn_update_phase(
-            _native.struct_ptr(dims), _native.struct_ptr(consts),
+            _native.struct_ptr(dims), widths, _native.struct_ptr(consts),
             *(g.data_ptr() for g in groups),
             *(b.data_ptr() for b in batches), loss.data_ptr(),
             ws.data_ptr(), ctypes.c_int(int(t0)), stream)
@@ -958,13 +981,11 @@ def naf_update_phase(groups, batches, t0: int, hidden, *, lr: float,
                 d.copy_(s)
         return out[4]
 
-    n = len(hidden)
+    torso, (net,), widths = _learner_shape(dev, hidden, (tuple(lay),))
     dims = _native.NafDims(
-        num_layers=n, obs_dim=obs_dim, batch=batch, k_updates=k_updates,
+        obs_dim=obs_dim, batch=batch, k_updates=k_updates,
         max_norm=_f32(max_grad_norm) if max_grad_norm > 0.0 else 0.0,
-        q=_layout_offsets(lay, n))
-    for i, h in enumerate(hidden):
-        dims.hidden[i] = h
+        torso=torso, q=net)
     # The NafNet is net 0 of the stage engine: its lr rides in actor_lr.
     consts = _learner_consts(batch=batch, actor_lr=lr, critic_lr=lr,
                              gamma=gamma, tau=tau, lr_schedule=lr_schedule)
@@ -975,13 +996,14 @@ def naf_update_phase(groups, batches, t0: int, hidden, *, lr: float,
         key = ("naf", dev, stream, obs_dim, batch, hidden)
         ws = _workspaces.get(key)
         if ws is None:
-            size = lib.cp_naf_workspace_floats(_native.struct_ptr(dims))
+            size = lib.cp_naf_workspace_floats(_native.struct_ptr(dims),
+                                               widths)
             if size <= 0:
                 raise ValueError(f"B7 rejected dims {key}")
             ws = _workspaces[key] = torch.empty(size, dtype=torch.float32,
                                                 device=dev)
         rc = lib.cp_naf_update_phase(
-            _native.struct_ptr(dims), _native.struct_ptr(consts),
+            _native.struct_ptr(dims), widths, _native.struct_ptr(consts),
             *(g.data_ptr() for g in groups),
             *(b.data_ptr() for b in batches), loss.data_ptr(),
             ws.data_ptr(), ctypes.c_int(int(t0)), stream)
@@ -1048,12 +1070,10 @@ def _lrpg_launch(groups, window, t0, hidden, lr, entropy_coef, spill):
     tile fits there, the library rejects the dims)."""
     n, obs_dim = window[0].shape
     dev = groups[0].device
-    lay = policy_layout(obs_dim, hidden)
-    nl = len(hidden)
-    dims = _native.PgDims(num_layers=nl, obs_dim=obs_dim, n_rows=n,
-                          spill=int(spill), net=_layout_offsets(lay, nl))
-    for i, h in enumerate(hidden):
-        dims.hidden[i] = h
+    torso, (net,), widths = _learner_shape(
+        dev, hidden, (tuple(policy_layout(obs_dim, hidden)),))
+    dims = _native.PgDims(obs_dim=obs_dim, n_rows=n, spill=int(spill),
+                          torso=torso, net=net)
     bc1, bc2 = _bias_corrections(float(t0 + 1))
     consts = _native.PgConsts(
         inv_n=_f32(1.0 / n), coef=_f32(entropy_coef), lr=_f32(lr),
@@ -1067,13 +1087,14 @@ def _lrpg_launch(groups, window, t0, hidden, lr, entropy_coef, spill):
         key = ("lrpg", dev, stream, obs_dim, n, hidden, spill)
         ws = _workspaces.get(key)
         if ws is None:
-            size = lib.cp_lrpg_workspace_floats(_native.struct_ptr(dims))
+            size = lib.cp_lrpg_workspace_floats(_native.struct_ptr(dims),
+                                                widths)
             if size <= 0:
                 raise ValueError(f"B9 rejected dims {key}")
             ws = _workspaces[key] = torch.empty(size, dtype=torch.float32,
                                                 device=dev)
         rc = lib.cp_lrpg_update_phase(
-            _native.struct_ptr(dims), _native.struct_ptr(consts),
+            _native.struct_ptr(dims), widths, _native.struct_ptr(consts),
             *(g.data_ptr() for g in groups),
             *(w.data_ptr() for w in window), loss.data_ptr(), ws.data_ptr(),
             stream)

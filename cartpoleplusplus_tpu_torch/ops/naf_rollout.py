@@ -3,12 +3,11 @@ its plain torch twin and the wrapper that launches it.
 
 Replaces cartpoleplusplus_tpu/ops/policy_rollout.py::_q_rollout_kernel in
 its mode `naf` (the Pallas TPU kernel built by naf_policy_rollout). The
-Pallas function runs B6 as a mode of B4's body because both explore
-without state; the port's B4 kernel takes the discrete env only, while B6
-needs B2's continuous env and 2-wide tanh head. So B6 is the second entry
-point of csrc/policy_rollout.cu (`cp_naf_rollout`), the exploration rule a
-compile-time mode of B2's kernel, and it covers B2's shape window, as the
-reference's `naf_fusable` does.
+Pallas function runs B6 as a mode of B4's body; the port runs B2, B4, B6
+and B8 as compile-time modes of one body (csrc/q_tile.cuh). B6 is the
+second entry point of csrc/policy_rollout.cu (`cp_naf_rollout`), on B2's
+continuous env and 2-wide tanh head, and it covers B2's shape window, as
+the reference's `naf_fusable` does.
 
 Both versions take
 
@@ -34,13 +33,13 @@ import torch
 from ..env.cartpole import CartPole3D, EnvState
 from ..models.nets import NafNet
 from ..utils.prng import normal
-from . import _native
-from .fused_rollout import _check_state, _empty_state, _state_ptrs
-from .policy_rollout import fusable, pack_net
+from .policy_rollout import fusable
+from .q_rollout import launch_rollout, pack_tile_net
 
 # Exploration stream tags (agents/common.py re-exports them).
 TAG_NAF_X = 0x45
 TAG_NAF_Y = 0x46
+_MU_ROWS = slice(1, 3)     # NafNet's packed head: [v, mu0, mu1, l0, l1, l2]
 
 
 def naf_fusable(env: CartPole3D, hidden: Sequence[int]) -> bool:
@@ -74,8 +73,8 @@ def reference_naf_rollout(env: CartPole3D, net: NafNet, state: EnvState,
 
 def pack_naf_mu(net: NafNet) -> torch.Tensor:
     """The torso and the mu rows (1 and 2) of the packed head in B2's flat
-    layout (`pack_net`). The V and L rows are the learner's only."""
-    return pack_net(net, slice(1, 3))
+    layout (`pack_tile_net`). The V and L rows are the learner's only."""
+    return pack_tile_net(net, _MU_ROWS)
 
 
 @torch.no_grad()
@@ -85,53 +84,20 @@ def naf_policy_rollout(env: CartPole3D, net: NafNet, state: EnvState, obs,
     the loop.
 
     A CUDA state launches the hand-written kernel (entry cp_naf_rollout of
-    csrc/policy_rollout.cu) on the current stream; a CPU state runs
-    `reference_naf_rollout`. Any other device, or a shape the kernel does
-    not cover, raises."""
+    csrc/policy_rollout.cu, through `ops.q_rollout.launch_rollout`) on the
+    current stream; a CPU state runs `reference_naf_rollout`. Any other
+    device, or a shape the kernel does not cover, raises."""
     dev = state.steps.device
     if dev.type == "cpu":
         return reference_naf_rollout(env, net, state, obs, env_steps, sigma,
                                      num_steps)
     if dev.type != "cuda":
         raise ValueError(f"naf_policy_rollout runs on cuda or cpu, not {dev}")
-    hidden = net.hidden
-    b, f = env.num_envs, env.obs_size
-    if (not naf_fusable(env, hidden) or net.torso[0].in_features != f
-            or net.action_dim != 2):
-        raise ValueError("env/network shape not covered by the B6 kernel "
-                         "(see ops.naf_rollout.naf_fusable)")
-    _check_state(env, state)
-    if (obs.device != dev or tuple(obs.shape) != (b, f)
-            or obs.dtype != torch.float32 or not obs.is_contiguous()):
-        raise ValueError(f"obs {tuple(obs.shape)} {obs.dtype} on "
-                         f"{obs.device}: want contiguous {(b, f)} float32 "
-                         f"on {dev}")
-    params = pack_naf_mu(net)
-    if params.device != dev:
-        raise ValueError(f"network on {params.device}, env state on {dev}")
-    dims = _native.ActorDims(num_layers=len(hidden), obs_dim=f,
-                             width=max((f,) + tuple(hidden)))
-    for i, h in enumerate(hidden):
-        dims.hidden[i] = h
-    lib = _native.load_library()
-    traj = (torch.empty((num_steps, b, f), dtype=torch.float32, device=dev),
-            torch.empty((num_steps, b, 2), dtype=torch.float32, device=dev),
-            torch.empty((num_steps, b), dtype=torch.float32, device=dev),
-            torch.empty((num_steps, b), dtype=torch.bool, device=dev))
-    out = _empty_state(state)
-    obs_out = torch.empty_like(obs)
-    consts = _native.env_consts(env.params)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.cp_naf_rollout(
-            _native.struct_ptr(consts), _native.struct_ptr(dims),
-            params.data_ptr(), sigma, env_steps, b, num_steps,
-            *_state_ptrs(state), state.env_seed.data_ptr(), obs.data_ptr(),
-            *(x.data_ptr() for x in traj), *_state_ptrs(out),
-            obs_out.data_ptr(), stream)
-    _native.check(lib, rc, "naf_policy_rollout")
+    out = launch_rollout("cp_naf_rollout", "B6", naf_fusable, env, net,
+                         state, obs, num_steps, sigma, env_steps,
+                         head_rows=_MU_ROWS)
     naf_policy_rollout.launches += 1
-    return out, obs_out, traj
+    return out
 
 
 naf_policy_rollout.launches = 0

@@ -91,8 +91,8 @@ def pg_policy_rollout(env: CartPole3D, policy: PolicyMLP, state: EnvState,
                                     num_steps)
     if dev.type != "cuda":
         raise ValueError(f"pg_policy_rollout runs on cuda or cpu, not {dev}")
-    out = launch_rollout("cp_pg_rollout", "B8", env, policy, state, obs,
-                         num_steps, env_steps)
+    out = launch_rollout("cp_pg_rollout", "B8", pg_fusable, env, policy,
+                         state, obs, num_steps, env_steps)
     pg_policy_rollout.launches += 1
     return out
 

@@ -3,9 +3,10 @@ the wrapper that launches csrc/q_rollout.cu.
 
 Replaces cartpoleplusplus_tpu/ops/policy_rollout.py::_q_rollout_kernel in
 its mode `dqn` (its mode `lrpg` is kernel B8, ops/pg_rollout.py, built from
-the same CUDA source; its mode `naf` is kernel B6, ops/naf_rollout.py, a
-mode of B2's continuous-env kernel in csrc/policy_rollout.cu). Both
-versions take
+the same CUDA source; its mode `naf` is kernel B6, ops/naf_rollout.py, on
+the continuous env). B2, B4, B6 and B8 run one kernel body
+(csrc/q_tile.cuh), launched through `launch_rollout` here. Both versions
+take
 
     (env state, obs (B, F), Q-net, env_steps, epsilon)
 
@@ -37,8 +38,9 @@ from .fused_rollout import _check_state, _empty_state, _state_ptrs
 # Exploration stream tags (agents/common.py re-exports them).
 TAG_EPS_GATE = 0x43
 TAG_EPS_ACT = 0x44
-NUM_ACTIONS = 5            # kNumActions in the .cu
-_HEAD_LD = 8               # kHeadLd in csrc/q_tile.cuh: padded head width
+NUM_ACTIONS = 5            # kNumActions in csrc/q_tile.cuh
+ACTION_DIM = 2             # kActDim there: B2's and B6's continuous action
+_HEAD_LD = 8               # kHeadLd there: padded head width
 
 
 def q_fusable(env: CartPole3D, hidden: Sequence[int]) -> bool:
@@ -81,25 +83,33 @@ def _pad4(n: int) -> int:
     return (n + 3) // 4 * 4
 
 
-def pack_qnet(q: QNetMLP) -> torch.Tensor:
-    """The network's weights in the kernel's flat layout (csrc/q_tile.cuh):
-    per torso layer W (in, Np) row-major with Np the width rounded up to 4
-    (zero columns), then the head's W (H, 8) (zero columns past 5); then
-    per layer bias, LayerNorm scale, LayerNorm bias, and the head's bias.
+def pack_tile_net(net, head_rows=slice(None)) -> torch.Tensor:
+    """A torso net's weights in the rollout kernels' flat layout
+    (csrc/q_tile.cuh): per torso layer W (in, Np) row-major with Np the
+    width rounded up to 4 (zero columns), then the head's W (H, 8) over
+    `head_rows` of its rows (zero columns past them); then per layer bias,
+    LayerNorm scale, LayerNorm bias, and the head's bias over `head_rows`.
     Every weight block starts on a 16-byte boundary, as cp.async needs."""
     def padded(w, cols):
         return torch.nn.functional.pad(w.t(), (0, cols - w.shape[0]))
 
-    parts = [padded(d.weight, _pad4(d.out_features)) for d in q.torso]
-    parts.append(padded(q.head.weight, _HEAD_LD))
-    for dense, norm in zip(q.torso, q.norms):
+    parts = [padded(d.weight, _pad4(d.out_features)) for d in net.torso]
+    parts.append(padded(net.head.weight[head_rows], _HEAD_LD))
+    for dense, norm in zip(net.torso, net.norms):
         parts += [dense.bias, norm.weight, norm.bias]
-    parts.append(q.head.bias)
+    parts.append(net.head.bias[head_rows])
     return torch.cat([p.detach().float().reshape(-1) for p in parts])
 
 
+def pack_qnet(q: QNetMLP) -> torch.Tensor:
+    """The Q-net's weights in B4's flat layout (`pack_tile_net`, all 5
+    head rows)."""
+    return pack_tile_net(q)
+
+
 def torso_weight_floats(obs_dim: int, hidden: Sequence[int]) -> int:
-    """Floats of the padded torso weights at the front of `pack_qnet`."""
+    """Floats of the padded torso weights at the front of
+    `pack_tile_net`."""
     dims = (obs_dim,) + tuple(hidden)
     return sum(a * _pad4(b) for a, b in zip(dims[:-1], dims[1:]))
 
@@ -111,27 +121,38 @@ def _widths(hidden: tuple, dev: torch.device) -> torch.Tensor:
     return torch.tensor(hidden, dtype=torch.int32, device=dev)
 
 
-def launch_rollout(entry: str, kernel: str, env: CartPole3D, net, state,
-                   obs, num_steps: int, *scalars):
-    """Checks the shapes and launches one of the two 5-action rollout
-    kernels of csrc/q_rollout.cu (`entry` cp_q_rollout for B4,
-    cp_pg_rollout for B8) on the current stream; `scalars` are the entry's
-    arguments between the workspace and the batch size. Returns (env
-    state', obs', traj)."""
+def launch_rollout(entry: str, kernel: str, gate, env: CartPole3D, net,
+                   state, obs, num_steps: int, *scalars,
+                   head_rows=slice(None), noise=None):
+    """Checks the shapes and launches one of the rollout kernels that run
+    csrc/q_tile.cuh's body (`entry` cp_q_rollout for B4, cp_pg_rollout for
+    B8, cp_policy_rollout for B2, cp_naf_rollout for B6) on the current
+    stream; `gate` is the kernel's coverage check (`q_fusable`,
+    `ops.policy_rollout.fusable`), `scalars` are the entry's arguments
+    between the workspace and the batch size. On the discrete env the head
+    has 5 outputs and the actions are int32 (T, B); on the continuous env
+    `head_rows` selects the head's 2 rows and the actions are float (T, B,
+    2); `noise` is B2's OU state (B, 2). Returns (env state', obs', traj),
+    with noise' after obs' when `noise` is given."""
     dev = state.steps.device
     hidden = tuple(net.hidden)
     b, f = env.num_envs, env.obs_size
-    if (not q_fusable(env, hidden) or net.torso[0].in_features != f
-            or net.head.out_features != NUM_ACTIONS):
+    discrete = env.params.discrete_actions
+    n_out = len(range(net.head.out_features)[head_rows])
+    if (not gate(env, hidden) or net.torso[0].in_features != f
+            or n_out != (NUM_ACTIONS if discrete else ACTION_DIM)):
         raise ValueError(f"env/network shape not covered by the {kernel} "
-                         f"kernel (see ops.q_rollout.q_fusable)")
+                         f"kernel (see ops.{gate.__module__.split('.')[-1]}."
+                         f"{gate.__name__})")
     _check_state(env, state)
-    if (obs.device != dev or tuple(obs.shape) != (b, f)
-            or obs.dtype != torch.float32 or not obs.is_contiguous()):
-        raise ValueError(f"obs {tuple(obs.shape)} {obs.dtype} on "
-                         f"{obs.device}: want contiguous {(b, f)} float32 "
-                         f"on {dev}")
-    params = pack_qnet(net)
+    for t, shape in ((obs, (b, f)),) + (
+            () if noise is None else ((noise, (b, ACTION_DIM)),)):
+        if (t.device != dev or tuple(t.shape) != shape
+                or t.dtype != torch.float32 or not t.is_contiguous()):
+            raise ValueError(f"tensor {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}: want contiguous {shape} float32 "
+                             f"on {dev}")
+    params = pack_tile_net(net, head_rows)
     if params.device != dev:
         raise ValueError(f"network on {params.device}, env state on {dev}")
     dims = _native.QDims(num_layers=len(hidden), obs_dim=f,
@@ -141,12 +162,15 @@ def launch_rollout(entry: str, kernel: str, env: CartPole3D, net, state,
     n_work = lib.cp_q_workspace_floats(_native.struct_ptr(dims), b)
     work = (torch.empty(n_work, dtype=torch.float32, device=dev)
             if n_work else None)
+    act = ((num_steps, b), torch.int32) if discrete else (
+        (num_steps, b, ACTION_DIM), torch.float32)
     traj = (torch.empty((num_steps, b, f), dtype=torch.float32, device=dev),
-            torch.empty((num_steps, b), dtype=torch.int32, device=dev),
+            torch.empty(act[0], dtype=act[1], device=dev),
             torch.empty((num_steps, b), dtype=torch.float32, device=dev),
             torch.empty((num_steps, b), dtype=torch.bool, device=dev))
     out = _empty_state(state)
     obs_out = torch.empty_like(obs)
+    noise_io = () if noise is None else (noise, torch.empty_like(noise))
     consts = _native.env_consts(env.params)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -155,10 +179,12 @@ def launch_rollout(entry: str, kernel: str, env: CartPole3D, net, state,
             params.data_ptr(), _widths(hidden, dev).data_ptr(),
             None if work is None else work.data_ptr(), *scalars, b,
             num_steps, *_state_ptrs(state), state.env_seed.data_ptr(),
-            obs.data_ptr(), *(x.data_ptr() for x in traj),
-            *_state_ptrs(out), obs_out.data_ptr(), stream)
+            *(x.data_ptr() for x in noise_io[:1]), obs.data_ptr(),
+            *(x.data_ptr() for x in traj), *_state_ptrs(out),
+            *(x.data_ptr() for x in noise_io[1:]), obs_out.data_ptr(),
+            stream)
     _native.check(lib, rc, entry)
-    return out, obs_out, traj
+    return (out, obs_out) + noise_io[1:] + (traj,)
 
 
 @torch.no_grad()
@@ -176,8 +202,8 @@ def q_policy_rollout(env: CartPole3D, q: QNetMLP, state: EnvState, obs,
                                    num_steps)
     if dev.type != "cuda":
         raise ValueError(f"q_policy_rollout runs on cuda or cpu, not {dev}")
-    out = launch_rollout("cp_q_rollout", "B4", env, q, state, obs,
-                         num_steps, eps, env_steps)
+    out = launch_rollout("cp_q_rollout", "B4", q_fusable, env, q, state,
+                         obs, num_steps, eps, env_steps)
     q_policy_rollout.launches += 1
     return out
 

@@ -8,12 +8,15 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
   2. build: nvcc builds csrc/*.cu from the checkout on first use;
   3. B1 (physics-only rollout kernel) against its plain torch twin on the
      card, 4096 envs x 25 steps, discrete and continuous params;
-  4. B2 (DDPG actor-in-the-loop rollout kernel) against its twin, 4096
-     envs, hidden (256, 256), 3 steps, seeded random actor weights;
+  4. B2 (DDPG actor-in-the-loop rollout kernel, on the q-tile of B4)
+     against its twin, 4096 envs, 3 steps, seeded random actor weights,
+     at hidden (256, 256), (2048,) and (8,) * 5; its time per env-step
+     beside B1's (the physics' floor);
   4b. B3 (the fused K-update DDPG learner kernel) against its twin at the
      CLI defaults (hidden (256, 256), obs 42, batch 256, K 16) from warmed
      Adam moments: all 8 parameter groups and both loss vectors, two runs
-     bit for bit, and the "pre" / lr-schedule variant at K 4;
+     bit for bit, the "pre" / lr-schedule variant at K 4, K 4 at (8,) * 5
+     and K 1 at (1536, 1536) (wider than a row stage's chunk of 1024);
   5. main path with the launch counters zeroed: the train CLI
      (`train.main`) at its defaults for 64 env-steps (8 train steps) plus
      a 200-step greedy eval; B2 must launch once per train step and B3
@@ -31,7 +34,8 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      comparison); its time per env-step beside B1's (the physics' floor);
   9. B5 (the fused K-update double-DQN learner kernel) against its twin at
      the DQN defaults (hidden (256, 256), obs 42, batch 256, K 8) from
-     warmed Adam moments, double DQN on and off, two runs bit for bit;
+     warmed Adam moments, double DQN on and off, and at (2048,) and (8,) *
+     5, two runs bit for bit each;
   10. DQN main path with the counters zeroed: `train.main --agent dqn` at
      its defaults for 64 env-steps plus a 200-step greedy eval; B4 must
      launch once per train step and B5 once per learning train step (7),
@@ -45,22 +49,24 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      32 beside its twin and B4 re-timed in the same call, both per
      env-step beside B1's;
   13. B9 (the fused LRPG update) against its twin at the LRPG defaults (N =
-     131,072 window rows, hidden (64, 64), lr 3e-4, entropy 0.1) from
-     warmed Adam moments, two runs bit for bit;
+     131,072 window rows, hidden (64, 64), lr 3e-4, entropy 0.1) and at
+     (2048,) and (8,) * 5 from warmed Adam moments, two runs bit for bit;
   14. LRPG main path with the counters zeroed: `train.main --agent lrpg`
      for 256 env-steps (8 train steps) plus a 200-step greedy eval; B8 and
      B9 must launch once per train step, B1-B5 never; then, zeroed again,
      `train.main --agent random` for 200 steps, which launches no kernel;
   15. where a default LRPG train step's time goes, as phase 7;
-  16. B6 (NAF mu + Gaussian exploration in the env loop) against its twin,
-     4096 envs, hidden (256, 256), 3 steps, seeded random NafNet, at sigma
-     0.2 and 0 (greedy mu), timed at T = 8 beside its twin, B2 re-timed in
-     turns with it;
+  16. B6 (NAF mu + Gaussian exploration in the env loop, on the q-tile)
+     against its twin, 4096 envs, 3 steps, seeded random NafNet, at hidden
+     (256, 256) with sigma 0.2 and 0 (greedy mu) and at (2048,) and (8,) *
+     5 with sigma 0.2, timed at T = 8 beside its twin, B2 re-timed in
+     turns with it, both per env-step beside B1's;
   17. B7 (the fused K-update NAF learner kernel) against its twin at the
      NAF defaults (hidden (256, 256), obs 42, batch 256, K 8, lr schedule
      on) from warmed Adam moments, with the global-norm clip at 10 (the
      default), at 0.05 (below every update's norm: the clip fires; the
-     pre-clip norms are printed) and off, two runs bit for bit each;
+     pre-clip norms are printed) and off, and at (2048,) and (8,) * 5 at
+     the default clip, two runs bit for bit each;
   18. NAF main path with the counters zeroed: `train.main --agent naf
      --naf.learner kernel` for 64 env-steps plus a 200-step greedy eval; B6
      must launch once per train step and B7 once per learning train step
@@ -116,9 +122,19 @@ BENCH_STEPS = 4096      # the physics-only benchmark's rollout length
 SPLIT_ROUNDS = 3        # round-robin passes over the train-step parts
 B4_EPS = (0.3, 0.0)     # compared exploration rates: mixed, then greedy
 B4_TIE = 1e-5           # a twin top-2 Q gap below this is a near-tie
-# Torsos compared beside the main-path shapes of B4 and B8: one 2048 wide
-# (its activations in the workspace) and one five layers deep.
-B4_WIDE = ((2048,), (8,) * 5)
+# Torsos compared beside the main-path shapes of the rollout kernels (B2,
+# B4, B6, B8) and of B5 and B7: one 2048 wide (the rollouts' activations
+# in the workspace, the learners' row stages in chunks) and one five
+# layers deep.
+WIDE_TORSOS = ((2048,), (8,) * 5)
+# B3's, each with its compared update count: five layers deep, and two
+# layers wider than a row stage's chunk of 1024 inputs. One update at
+# (1536, 1536) runs every chunked stage type; from the 2nd update on, one
+# of its ~0.8 M LayerNorm outputs per pass sits within the twins'
+# accumulated rounding of the relu edge (under 1e-6 at seed 21) and flips
+# there, which moves a row of the critic's gradient, and the actor loss
+# through it, past the bar (PERF.md, §6).
+B3_WIDE = (((8,) * 5, 4), ((1536, 1536), 1))
 B5_BATCH, B5_K = 256, 8  # DQN's batch_size and updates_per_step
 LRPG_HIDDEN = (64, 64)  # LRPG's hidden, rollout_steps and window rows
 LRPG_T = 32
@@ -239,6 +255,11 @@ def _rollout_bound(env, state, obs, params, num_steps, act_width,
     return _bound(flop, nbytes)
 
 
+def _listed_ms(times: dict) -> str:
+    """'kernel at <shape> <ms> ms, ...' for a dict of shape -> ms."""
+    return ", ".join(f"kernel at {k} {v:.4f} ms" for k, v in times.items())
+
+
 def _max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
@@ -311,42 +332,70 @@ def _random_actor(dev, hidden, seed):
     return actor.to(dev)
 
 
-def phase_b2(dev):
+def _b2_compare(env, actor, state, obs, noise, label=""):
+    """B2 and its twin over B2_STEPS from the same state: the trajectory,
+    final state, obs and noise within tests/test_policy_rollout.py's bars,
+    dones, steps and episodes exact. Returns the max abs error."""
+    import torch
+
+    from cartpoleplusplus_tpu_torch.ops.policy_rollout import (
+        policy_rollout, reference_policy_rollout)
+
+    args = (env, actor, 0.15, state, obs, noise, 40, 0.2, B2_STEPS)
+    k = policy_rollout(*args)
+    r = reference_policy_rollout(*args)
+    torch.cuda.synchronize()
+    errs = [_close(f"B2{label} traj {n}", a, b, 2e-4, 2e-5)
+            for n, a, b in zip(("obs", "action", "reward"), k[3], r[3])]
+    assert bool((k[3][3] == r[3][3]).all()), f"B2{label} dones differ"
+    errs += [_close(f"B2{label} final {n}", a, b, 2e-4, 2e-5)
+             for n, a, b in zip(("pos", "vel", "s", "sd", "obs", "noise"),
+                                (*k[0].phys, k[1], k[2]),
+                                (*r[0].phys, r[1], r[2]))]
+    assert bool((k[0].steps == r[0].steps).all()), f"B2{label} steps differ"
+    assert bool((k[0].episode == r[0].episode).all()), \
+        f"B2{label} episodes differ"
+    print(f"B2{label}: max_abs_err obs/action/reward {errs[0]:.3g} "
+          f"{errs[1]:.3g} {errs[2]:.3g}, final state/obs/noise "
+          f"{max(errs[3:]):.3g}, dones ended {int(r[3][3].sum())}",
+          flush=True)
+    return max(errs)
+
+
+def phase_b2(dev, floor_us):
+    """B2 against its twin at the DDPG default (256, 256) and at WIDE_TORSOS,
+    the torsos the old tile did not take; then timed at the main path's
+    shape, its time per env-step beside `floor_us` (B1's in this call)."""
     import torch
 
     from cartpoleplusplus_tpu_torch import CartPole3D, continuous_params
     from cartpoleplusplus_tpu_torch.ops.policy_rollout import (
-        policy_rollout, reference_policy_rollout)
+        pack_actor, policy_rollout, reference_policy_rollout)
 
     env = CartPole3D(continuous_params(), num_envs=N_ENVS, device=dev)
     state, obs = env.reset(3)
-    actor = _random_actor(dev, (256, 256), seed=11)
     g = torch.Generator().manual_seed(12)
     noise = (0.1 * torch.randn((N_ENVS, 2), generator=g)).to(dev)
+    errs, wide_ms = [], {}
+    for hidden in WIDE_TORSOS:
+        wide = _random_actor(dev, hidden, seed=11)
+        errs.append(_b2_compare(env, wide, state, obs, noise, f" {hidden}"))
+        wide_ms[hidden] = _time_ms(lambda: policy_rollout(
+            env, wide, 0.15, state, obs, noise, 40, 0.2, B2_TIME_STEPS), 10)
+        del wide
+    actor = _random_actor(dev, (256, 256), seed=11)
+    errs.append(_b2_compare(env, actor, state, obs, noise))
     args = (env, actor, 0.15, state, obs, noise, 40, 0.2)
-    k = policy_rollout(*args, B2_STEPS)
-    r = reference_policy_rollout(*args, B2_STEPS)
-    # tests/test_policy_rollout.py's tolerances.
-    errs = [_close(f"B2 traj {n}", a, b, 2e-4, 2e-5)
-            for n, a, b in zip(("obs", "action", "reward"), k[3], r[3])]
-    assert bool((k[3][3] == r[3][3]).all()), "B2 dones differ"
-    errs += [_close(f"B2 final {n}", a, b, 2e-4, 2e-5)
-             for n, a, b in zip(("pos", "vel", "s", "sd", "obs", "noise"),
-                                (*k[0].phys, k[1], k[2]),
-                                (*r[0].phys, r[1], r[2]))]
-    assert bool((k[0].steps == r[0].steps).all()), "B2 steps differ"
-    assert bool((k[0].episode == r[0].episode).all()), "B2 episodes differ"
     ms = _time_ms(lambda: policy_rollout(*args, B2_TIME_STEPS), 10)
     plain_ms = _time_ms(lambda: reference_policy_rollout(*args,
                                                          B2_TIME_STEPS), 2)
     flop = N_ENVS * B2_TIME_STEPS * 2 * (42 * 256 + 256 * 256 + 256 * 2)
-    print(f"B2: max_abs_err obs/action/reward {errs[0]:.3g} {errs[1]:.3g} "
-          f"{errs[2]:.3g}, final state/obs/noise {max(errs[3:]):.3g}, "
-          f"dones ended {int(r[3][3].sum())}; {N_ENVS}x{B2_TIME_STEPS} "
-          f"hidden (256, 256): kernel {ms:.4f} ms ({flop / ms / 1e9:.4g} "
-          f"TFLOP/s of actor matmul), plain {plain_ms:.2f} ms", flush=True)
-    from cartpoleplusplus_tpu_torch.ops.policy_rollout import pack_actor
-
+    step_us = ms / B2_TIME_STEPS * 1e3
+    print(f"B2: {N_ENVS}x{B2_TIME_STEPS} hidden (256, 256): kernel {ms:.4f} "
+          f"ms ({flop / ms / 1e9:.4g} TFLOP/s of actor matmul), plain "
+          f"{plain_ms:.2f} ms; per env-step {step_us:.2f} us, B1's "
+          f"{floor_us:.2f} us in this call, {step_us - floor_us:.2f} us "
+          f"above it; {_listed_ms(wide_ms)}", flush=True)
     # OU: two counter normals (log, sqrt, cos and 4 more each) and the
     # update and clip per component.
     bound = _rollout_bound(env, state, obs, pack_actor(actor), B2_TIME_STEPS,
@@ -438,6 +487,19 @@ def phase_b3(dev):
     v_errs, v_bitwise, _, _ = _b3_compare(
         dev, hidden, 4, actor_grad_critic="pre", lr_schedule=(0.1, 50), **kw)
     assert v_bitwise, "B3 pre/schedule: two runs differ"
+    wide_errs = {}
+    for wide, k in B3_WIDE:
+        w_errs, w_bitwise, w_groups, w_batches = _b3_compare(dev, wide, k,
+                                                             **kw)
+        assert w_bitwise, f"B3 {wide}: two runs differ"
+        wide_errs.update({f"{wide} {key}": v for key, v in w_errs.items()})
+        w_ms = _time_ms(lambda: lk.ddpg_update_phase(
+            w_groups, w_batches, B3_T0, wide, **kw), 5)
+        print(f"B3 {wide}: max_abs_err {max(w_errs.values()):.3g} at K {k} "
+              f"(rtol {B3_RTOL}, atol {B3_ATOL}); two runs bitwise equal; "
+              f"kernel {w_ms:.4f} ms per K {k} phase, {w_ms / k:.4f} ms per "
+              f"update", flush=True)
+        del w_groups, w_batches
     args = (batches, B3_T0, hidden)
     ms = _time_ms(lambda: lk.ddpg_update_phase(groups, *args, **kw), 20)
     lay_a, lay_c = lk.actor_layout(42, hidden), lk.critic_layout(42, hidden)
@@ -452,7 +514,8 @@ def phase_b3(dev):
           f"kernel {ms:.4f} ms ({flop / ms / 1e9:.4g} TFLOP/s of learner "
           f"matmul), plain {plain_ms:.2f} ms", flush=True)
     nbytes = 2 * _nbytes(*groups) + _nbytes(*batches) + 8 * B3_K
-    return dict(max_abs_err=max(list(errs.values()) + list(v_errs.values())),
+    return dict(max_abs_err=max(list(errs.values()) + list(v_errs.values())
+                                + list(wide_errs.values())),
                 ms=ms, plain_ms=plain_ms, **_bound(flop, nbytes))
 
 
@@ -784,7 +847,7 @@ def phase_b4(dev, floor_us):
     env = CartPole3D(CartPoleParams(), num_envs=N_ENVS, device=dev)
     with torch.no_grad():
         errs = []
-        for hidden in B4_WIDE:
+        for hidden in WIDE_TORSOS:
             wq, wstate, wobs = _b4_setup(env, dev, hidden)
             errs.append(_b4_compare(env, wq, wstate, wobs, 0.3,
                                     f" {hidden}")[0])
@@ -828,9 +891,38 @@ def _b5_inputs(dev, hidden, batch, k, seed):
     return ([x.to(dev) for x in groups], tuple(x.to(dev) for x in batches))
 
 
-def phase_b5(dev):
+def _b5_compare(groups, batches, hidden, double_dqn, tag) -> dict:
+    """B5 and its twin on the same inputs: max abs error per group and of
+    the loss (held to B3_RTOL/B3_ATOL); two runs must give the same
+    bits."""
     import torch
 
+    from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
+
+    lay = lk.qnet_layout(42, hidden)
+    kw = dict(lr=5e-5, gamma=0.99, tau=0.01, double_dqn=double_dqn)
+    want = lk.dqn_update_phase_math(
+        *[lk.group_views(g, lay) for g in groups], batches, B3_T0, hidden,
+        **kw)
+    runs = []
+    for _ in range(2):
+        got = [g.clone() for g in groups]
+        loss = lk.dqn_update_phase(got, batches, B3_T0, hidden, **kw)
+        torch.cuda.synchronize()
+        runs.append(got + [loss])
+    assert all(torch.equal(a, b) for a, b in zip(*runs)), \
+        f"B5 {tag}: two runs on the same inputs differ"
+    errs = {}
+    for name, g, w in zip(("q", "q_t", "m", "v"), runs[0][:4], want[:4]):
+        errs[f"{tag} {name}"] = max(
+            _close(f"B5 {tag} {name} {pname}", v, x, B3_RTOL, B3_ATOL)
+            for (pname, _), v, x in zip(lay, lk.group_views(g, lay), w))
+    errs[f"{tag} loss"] = _close(f"B5 {tag} loss", runs[0][4], want[4],
+                                 B3_RTOL, B3_ATOL)
+    return errs
+
+
+def phase_b5(dev):
     from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
 
     hidden = (256, 256)
@@ -842,25 +934,19 @@ def phase_b5(dev):
     groups, batches = _b5_inputs(dev, hidden, B5_BATCH, B5_K, seed=21)
     errs = {}
     for double_dqn in (True, False):
-        kw = dict(lr=5e-5, gamma=0.99, tau=0.01, double_dqn=double_dqn)
-        want = lk.dqn_update_phase_math(
-            *[lk.group_views(g, lay) for g in groups], batches, B3_T0,
-            hidden, **kw)
-        runs = []
-        for _ in range(2):
-            got = [g.clone() for g in groups]
-            loss = lk.dqn_update_phase(got, batches, B3_T0, hidden, **kw)
-            torch.cuda.synchronize()
-            runs.append(got + [loss])
-        assert all(torch.equal(a, b) for a, b in zip(*runs)), \
-            f"B5 double_dqn={double_dqn}: two runs on the same inputs differ"
         tag = "double" if double_dqn else "max"
-        for name, g, w in zip(("q", "q_t", "m", "v"), runs[0][:4], want[:4]):
-            errs[f"{tag} {name}"] = max(
-                _close(f"B5 {tag} {name} {pname}", v, x, B3_RTOL, B3_ATOL)
-                for (pname, _), v, x in zip(lay, lk.group_views(g, lay), w))
-        errs[f"{tag} loss"] = _close(f"B5 {tag} loss", runs[0][4], want[4],
-                                     B3_RTOL, B3_ATOL)
+        errs.update(_b5_compare(groups, batches, hidden, double_dqn, tag))
+    for wide in WIDE_TORSOS:
+        w_groups, w_batches = _b5_inputs(dev, wide, B5_BATCH, B5_K, seed=21)
+        w_errs = _b5_compare(w_groups, w_batches, wide, True, f"{wide}")
+        errs.update(w_errs)
+        w_ms = _time_ms(lambda: lk.dqn_update_phase(
+            w_groups, w_batches, B3_T0, wide, lr=5e-5, gamma=0.99, tau=0.01),
+            10)
+        print(f"B5 {wide}: max_abs_err {max(w_errs.values()):.3g} (rtol "
+              f"{B3_RTOL}, atol {B3_ATOL}); two runs bitwise equal; kernel "
+              f"{w_ms:.4f} ms per K {B5_K} phase", flush=True)
+        del w_groups, w_batches
     kw = dict(lr=5e-5, gamma=0.99, tau=0.01)
     args = (batches, B3_T0, hidden)
     ms = _time_ms(lambda: lk.dqn_update_phase(groups, *args, **kw), 20)
@@ -1052,7 +1138,7 @@ def _b8_compare(env, net, label):
 
 def phase_b8(dev, floor_us):
     """B8 against its twin (`_b8_compare`) at LRPG's (64, 64) and at
-    B4_WIDE's torsos; then B8 and its twin timed at LRPG's rollout length,
+    WIDE_TORSOS's torsos; then B8 and its twin timed at LRPG's rollout length,
     B4 re-timed beside them, both per env-step beside `floor_us`, B1's
     per env-step time in this call."""
     from cartpoleplusplus_tpu_torch import CartPole3D, CartPoleParams
@@ -1063,7 +1149,7 @@ def phase_b8(dev, floor_us):
 
     env = CartPole3D(CartPoleParams(), num_envs=N_ENVS, device=dev)
     errs = [_b8_compare(env, _random_policy(dev, h, seed=17), f" {h}")[0]
-            for h in B4_WIDE]
+            for h in WIDE_TORSOS]
     net = _random_policy(dev, LRPG_HIDDEN, seed=17)
     err, n_tie, state, obs = _b8_compare(env, net, "")
     errs.append(err)
@@ -1109,16 +1195,13 @@ def _b9_flop(n, hidden) -> int:
     return n * (2 * (2 * macs + dx) + 10 * (sum(hidden) + 5)) + 10 * p
 
 
-def phase_b9(dev):
-    """B9 against its twin at the LRPG defaults from warmed Adam moments:
-    the 3 groups and the loss within B3's bar, two runs bit for bit."""
+def _b9_inputs(dev, hidden, seed):
+    """B9's 3 group buffers (a policy with redrawn LayerNorm parameters
+    and head, warmed Adam moments) and a window of B9_N rows."""
     import torch
 
-    from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
-
-    hidden, kw = LRPG_HIDDEN, dict(lr=3e-4, entropy_coef=0.1)
-    g = torch.Generator().manual_seed(29)
-    net = _random_policy("cpu", hidden, seed=29)
+    g = torch.Generator().manual_seed(seed)
+    net = _random_policy("cpu", hidden, seed=seed)
     flat = torch.cat([p.detach().reshape(-1) for p in net.parameters()])
     groups = [x.to(dev) for x in (
         flat, 1e-2 * torch.randn(flat.shape, generator=g),
@@ -1127,6 +1210,17 @@ def phase_b9(dev):
         0.3 * torch.randn((B9_N, 42), generator=g),
         torch.randint(0, 5, (B9_N,), generator=g, dtype=torch.int32),
         torch.randn((B9_N,), generator=g)))
+    return groups, window
+
+
+def _b9_compare(groups, window, hidden, kw, tag) -> dict:
+    """B9 and its twin on the same inputs: max abs error per group and of
+    the loss (held to B3_RTOL/B3_ATOL); two runs must give the same
+    bits."""
+    import torch
+
+    from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
+
     lay = lk.policy_layout(42, hidden)
     views = [lk.group_views(x, lay) for x in groups]
     want = lk.lrpg_update_phase_math(*views, window, B3_T0, hidden, **kw)
@@ -1137,14 +1231,40 @@ def phase_b9(dev):
         torch.cuda.synchronize()
         runs.append(got + [loss])
     assert all(torch.equal(a, b) for a, b in zip(*runs)), \
-        "B9: two runs on the same inputs differ"
+        f"B9 {tag}: two runs on the same inputs differ"
     errs = {}
     for name, x, w in zip(("params", "m", "v"), runs[0][:3], want[:3]):
-        errs[name] = max(_close(f"B9 {name} {pname}", v, y, B3_RTOL,
-                                B3_ATOL)
-                         for (pname, _), v, y in zip(
-                             lay, lk.group_views(x, lay), w))
-    errs["loss"] = _close("B9 loss", runs[0][3], want[3], B3_RTOL, B3_ATOL)
+        errs[f"{tag}{name}"] = max(
+            _close(f"B9 {tag}{name} {pname}", v, y, B3_RTOL, B3_ATOL)
+            for (pname, _), v, y in zip(lay, lk.group_views(x, lay), w))
+    errs[f"{tag}loss"] = _close(f"B9 {tag}loss", runs[0][3], want[3],
+                                B3_RTOL, B3_ATOL)
+    return errs
+
+
+def phase_b9(dev):
+    """B9 against its twin at the LRPG defaults and at WIDE_TORSOS (the
+    2048-wide one on the workspace route), from warmed Adam moments: the
+    3 groups and the loss within B3's bar, two runs bit for bit; each
+    timed."""
+    from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
+
+    hidden, kw = LRPG_HIDDEN, dict(lr=3e-4, entropy_coef=0.1)
+    d_errs = {}
+    for wide in WIDE_TORSOS:
+        w_groups, w_window = _b9_inputs(dev, wide, seed=29)
+        w_errs = _b9_compare(w_groups, w_window, wide, kw, f"{wide} ")
+        d_errs.update(w_errs)
+        w_ms = _time_ms(lambda: lk.lrpg_update_phase(
+            w_groups, w_window, B3_T0, wide, **kw), 10)
+        print(f"B9 {wide}: max_abs_err {max(w_errs.values()):.3g} (rtol "
+              f"{B3_RTOL}, atol {B3_ATOL}); two runs bitwise equal; N "
+              f"{B9_N}: kernel {w_ms:.4f} ms", flush=True)
+        del w_groups, w_window
+    groups, window = _b9_inputs(dev, hidden, seed=29)
+    errs = _b9_compare(groups, window, hidden, kw, "")
+    lay = lk.policy_layout(42, hidden)
+    views = [lk.group_views(x, lay) for x in groups]
     ms = _time_ms(lambda: lk.lrpg_update_phase(groups, window, B3_T0, hidden,
                                                **kw), 20)
     plain_ms = _time_ms(lambda: lk.lrpg_update_phase_math(
@@ -1156,8 +1276,8 @@ def phase_b9(dev):
           f"runs bitwise equal; N {B9_N}, hidden {hidden}: kernel {ms:.4f} "
           f"ms (bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}), "
           f"plain {plain_ms:.2f} ms", flush=True)
-    return dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
-                **bound)
+    return dict(max_abs_err=max(list(errs.values()) + list(d_errs.values())),
+                ms=ms, plain_ms=plain_ms, **bound)
 
 
 def phase_lrpg_main_path():
@@ -1300,11 +1420,12 @@ def _random_naf(dev, hidden, seed, mu_scale=None):
     return net.to(dev)
 
 
-def phase_b6(dev):
+def phase_b6(dev, floor_us):
     """B6 against its twin at sigma 0.2 and 0 over B2_STEPS (the
     trajectory, final state and obs within tests/test_policy_rollout.py's
-    bars, dones, steps and episodes exact); then B6 and its twin timed at
-    NAF's rollout length, and B2 re-timed in turns with B6."""
+    bars, dones, steps and episodes exact), at (256, 256) and, at sigma
+    0.2, at WIDE_TORSOS; then B6 and its twin timed at NAF's rollout length,
+    B2 re-timed in turns with B6, each per env-step beside `floor_us`."""
     import torch
 
     from cartpoleplusplus_tpu_torch import CartPole3D, continuous_params
@@ -1315,24 +1436,36 @@ def phase_b6(dev):
     env = CartPole3D(continuous_params(), num_envs=N_ENVS, device=dev)
     state, obs = env.reset(3)
     net = _random_naf(dev, (256, 256), seed=31, mu_scale=0.5)
-    errs = []
-    for sigma in NAF_SIGMAS:
-        k = naf_policy_rollout(env, net, state, obs, 40, sigma, B2_STEPS)
-        r = reference_naf_rollout(env, net, state, obs, 40, sigma, B2_STEPS)
-        e = [_close(f"B6 sigma {sigma} traj {n}", a, b, 2e-4, 2e-5)
+    cases = [((256, 256), sigma, net) for sigma in NAF_SIGMAS]
+    cases += [(hidden, NAF_SIGMAS[0], None) for hidden in WIDE_TORSOS]
+    errs, wide_ms = [], {}
+    for hidden, sigma, case_net in cases:
+        if case_net is None:
+            case_net = _random_naf(dev, hidden, seed=31, mu_scale=0.5)
+            wide_ms[hidden] = _time_ms(lambda: naf_policy_rollout(
+                env, case_net, state, obs, 40, sigma, B2_TIME_STEPS), 10)
+        label = f"B6 {hidden} sigma {sigma}"
+        k = naf_policy_rollout(env, case_net, state, obs, 40, sigma,
+                               B2_STEPS)
+        r = reference_naf_rollout(env, case_net, state, obs, 40, sigma,
+                                  B2_STEPS)
+        torch.cuda.synchronize()
+        e = [_close(f"{label} traj {n}", a, b, 2e-4, 2e-5)
              for n, a, b in zip(("obs", "action", "reward"), k[2], r[2])]
-        assert torch.equal(k[2][3], r[2][3]), f"B6 sigma {sigma}: dones"
-        e += [_close(f"B6 sigma {sigma} final {n}", a, b, 2e-4, 2e-5)
+        assert torch.equal(k[2][3], r[2][3]), f"{label}: dones"
+        e += [_close(f"{label} final {n}", a, b, 2e-4, 2e-5)
               for n, a, b in zip(("pos", "vel", "s", "sd", "obs"),
                                  (*k[0].phys, k[1]), (*r[0].phys, r[1]))]
-        assert torch.equal(k[0].steps, r[0].steps), "B6 steps differ"
-        assert torch.equal(k[0].episode, r[0].episode), "B6 episodes differ"
+        assert torch.equal(k[0].steps, r[0].steps), f"{label}: steps differ"
+        assert torch.equal(k[0].episode, r[0].episode), \
+            f"{label}: episodes differ"
         clipped = float((r[2][1].abs() == 1.0).float().mean())
-        print(f"B6 sigma {sigma}: max_abs_err obs/action/reward {e[0]:.3g} "
+        print(f"{label}: max_abs_err obs/action/reward {e[0]:.3g} "
               f"{e[1]:.3g} {e[2]:.3g}, final state/obs {max(e[3:]):.3g}; "
               f"dones {int(r[2][3].sum())}, action share at the clip "
               f"{clipped:.4f}", flush=True)
         errs += e
+        del case_net
     args = (env, net, state, obs, 40, NAF_SIGMAS[0])
     actor = _random_actor(dev, (256, 256), seed=11)
     b2_args = (env, actor, 0.15, state, obs,
@@ -1349,11 +1482,14 @@ def phase_b6(dev):
     # component; the clip is a min and a max.
     bound = _rollout_bound(env, state, obs, pack_naf_mu(net), B2_TIME_STEPS,
                            2, 2 * 7 + 2 * 2, _mlp_macs((42, 256, 256, 2)))
+    us = {k: v / B2_TIME_STEPS * 1e3 for k, v in (("B6", ms), ("B2", b2_ms))}
     print(f"B6: {N_ENVS}x{B2_TIME_STEPS} hidden (256, 256): kernel {ms:.4f} "
           f"ms (rounds {' '.join(f'{x:.4f}' for x in rounds['B6'])}; bound "
           f"{bound['bound_ms']:.4f} ms by {bound['bound_by']}), plain "
           f"{plain_ms:.2f} ms; B2 re-timed in this call: {b2_ms:.4f} ms "
-          f"(rounds {' '.join(f'{x:.4f}' for x in rounds['B2'])})",
+          f"(rounds {' '.join(f'{x:.4f}' for x in rounds['B2'])}); per "
+          f"env-step B6 {us['B6']:.2f} us, B2 {us['B2']:.2f} us, B1's "
+          f"{floor_us:.2f} us in this call; B6 {_listed_ms(wide_ms)}",
           flush=True)
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, b2_ms=b2_ms,
                 **bound)
@@ -1391,12 +1527,51 @@ def _b7_update_flop(hidden, batch) -> int:
     return 2 * batch * macs
 
 
+def _b7_compare(groups, batches, hidden, kw, tag) -> dict:
+    """B7 and its twin on the same inputs at the settings kw: max abs
+    error per group and of the loss (held to B3_RTOL/B3_ATOL); two runs
+    must give the same bits; a clip below 1 must fire at every update.
+    Prints the twin's pre-clip global norms and losses."""
+    import torch
+
+    from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
+
+    lay = lk.naf_layout(42, hidden)
+    clip = kw["max_grad_norm"]
+    want = lk.naf_update_phase_math(
+        *[lk.group_views(g, lay) for g in groups], batches, B3_T0, hidden,
+        **kw)
+    if 0.0 < clip < 1.0:
+        assert bool((want[5] > clip).all()), \
+            f"B7 {tag} does not fire: norms {want[5].tolist()}"
+    runs = []
+    for _ in range(2):
+        got = [g.clone() for g in groups]
+        loss = lk.naf_update_phase(got, batches, B3_T0, hidden, **kw)
+        torch.cuda.synchronize()
+        runs.append(got + [loss])
+    assert all(torch.equal(a, b) for a, b in zip(*runs)), \
+        f"B7 {tag}: two runs on the same inputs differ"
+    errs = {}
+    for name, g, w in zip(("params", "target", "m", "v"), runs[0][:4],
+                          want[:4]):
+        errs[f"{tag} {name}"] = max(
+            _close(f"B7 {tag} {name} {pname}", v, x, B3_RTOL, B3_ATOL)
+            for (pname, _), v, x in zip(lay, lk.group_views(g, lay), w))
+    errs[f"{tag} loss"] = _close(f"B7 {tag} loss", runs[0][4], want[4],
+                                 B3_RTOL, B3_ATOL)
+    print(f"B7 {tag}: max_abs_err {max(errs.values()):.3g}, bitwise "
+          f"repeatable; pre-clip global norms per update "
+          f"{' '.join(f'{x:.4g}' for x in want[5].tolist())}; losses "
+          f"{' '.join(f'{x:.4g}' for x in want[4].tolist())}", flush=True)
+    return errs
+
+
 def phase_b7(dev):
     """B7 against its twin at the NAF defaults from warmed Adam moments,
     at each of B7_CLIPS: the 4 groups and the loss within B3's bar, two
-    runs bit for bit; the twin's pre-clip global norm of every update."""
-    import torch
-
+    runs bit for bit; the twin's pre-clip global norm of every update;
+    then at WIDE_TORSOS at the default clip."""
     from cartpoleplusplus_tpu_torch.agents.common import lr_schedule
     from cartpoleplusplus_tpu_torch.agents.naf import NAFConfig
     from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
@@ -1409,34 +1584,19 @@ def phase_b7(dev):
                 lr_schedule=lr_schedule(cfg))
     errs = {}
     for clip in B7_CLIPS:
-        kw = dict(base, max_grad_norm=clip)
-        want = lk.naf_update_phase_math(
-            *[lk.group_views(g, lay) for g in groups], batches, B3_T0,
-            hidden, **kw)
-        if 0.0 < clip < 1.0:
-            assert bool((want[5] > clip).all()), \
-                f"B7 clip {clip} does not fire: norms {want[5].tolist()}"
-        runs = []
-        for _ in range(2):
-            got = [g.clone() for g in groups]
-            loss = lk.naf_update_phase(got, batches, B3_T0, hidden, **kw)
-            torch.cuda.synchronize()
-            runs.append(got + [loss])
-        assert all(torch.equal(a, b) for a, b in zip(*runs)), \
-            f"B7 clip {clip}: two runs on the same inputs differ"
-        for name, g, w in zip(("params", "target", "m", "v"), runs[0][:4],
-                              want[:4]):
-            errs[f"clip {clip} {name}"] = max(
-                _close(f"B7 clip {clip} {name} {pname}", v, x, B3_RTOL,
-                       B3_ATOL)
-                for (pname, _), v, x in zip(lay, lk.group_views(g, lay), w))
-        errs[f"clip {clip} loss"] = _close(f"B7 clip {clip} loss",
-                                           runs[0][4], want[4], B3_RTOL,
-                                           B3_ATOL)
-        print(f"B7 clip {clip}: pre-clip global norms per update "
-              f"{' '.join(f'{x:.4g}' for x in want[5].tolist())}; losses "
-              f"{' '.join(f'{x:.4g}' for x in want[4].tolist())}",
-              flush=True)
+        errs.update(_b7_compare(groups, batches, hidden,
+                                dict(base, max_grad_norm=clip),
+                                f"clip {clip}"))
+    for wide in WIDE_TORSOS:
+        w_groups, w_batches = _b7_inputs(dev, wide, B7_BATCH, B7_K, seed=33)
+        w_kw = dict(base, max_grad_norm=cfg.max_grad_norm)
+        errs.update(_b7_compare(w_groups, w_batches, wide, w_kw,
+                                f"{wide} clip {cfg.max_grad_norm}"))
+        w_ms = _time_ms(lambda: lk.naf_update_phase(
+            w_groups, w_batches, B3_T0, wide, **w_kw), 10)
+        print(f"B7 {wide}: kernel {w_ms:.4f} ms per K {B7_K} phase at clip "
+              f"{cfg.max_grad_norm}", flush=True)
+        del w_groups, w_batches
     kw = dict(base, max_grad_norm=cfg.max_grad_norm)
     args = (batches, B3_T0, hidden)
     ms = _time_ms(lambda: lk.naf_update_phase(groups, *args, **kw), 20)
@@ -1970,13 +2130,21 @@ def main() -> int:
           f"{'' if stale else '; library current, not rebuilt'}); "
           f"ptxas: {_ptxas_report(_native.BUILD_LOG)}", flush=True)
 
+    # A few seconds of matrix products first: timed from a cold card, B4
+    # read 0.52 ms against 0.34-0.41 warm (PERF.md).
+    warm = torch.randn((8192, 8192), device=dev)
+    t_warm = time.perf_counter()
+    while time.perf_counter() - t_warm < 5.0:
+        warm @ warm
+    torch.cuda.synchronize()
+    del warm
     b1 = phase_b1(dev)
-    b2 = phase_b2(dev)
+    floor_us = b1["discrete"]["ms"] / B1_STEPS * 1e3  # B1 per env-step
+    b2 = phase_b2(dev, floor_us)
     b3 = phase_b3(dev)
     main_launches = phase_main_path()
     b1_launches = phase_physics_rollout(dev)
     phase_step_split(dev)
-    floor_us = b1["discrete"]["ms"] / B1_STEPS * 1e3  # B1 per env-step
     b4 = phase_b4(dev, floor_us)
     b5 = phase_b5(dev)
     dqn_launches = phase_dqn_main_path()
@@ -1985,7 +2153,7 @@ def main() -> int:
     b9 = phase_b9(dev)
     lrpg_launches = phase_lrpg_main_path()
     phase_lrpg_step_split(dev)
-    b6 = phase_b6(dev)
+    b6 = phase_b6(dev, floor_us)
     b7 = phase_b7(dev)
     naf_launches = phase_naf_main_path()
     phase_naf_step_split(dev)
@@ -2005,7 +2173,7 @@ def main() -> int:
              max_abs_err=max(v["max_abs_err"] for v in b1.values()),
              ms=b1_main["ms"], plain_ms=b1_main["plain_ms"],
              **_bound_keys(b1_main)),
-        dict(name="B2 policy_rollout", route="cuda", design="32-env-block",
+        dict(name="B2 policy_rollout", route="cuda", design="q-tile",
              source="cartpoleplusplus_tpu_torch/csrc/policy_rollout.cu",
              replaces="cartpoleplusplus_tpu/ops/policy_rollout.py:114",
              launches=main_launches["B2"],
@@ -2033,7 +2201,7 @@ def main() -> int:
              launched_by="train.main --agent dqn (DQN defaults)",
              max_abs_err=b5["max_abs_err"],
              ms=b5["ms"], plain_ms=b5["plain_ms"], **_bound_keys(b5)),
-        dict(name="B6 naf_policy_rollout", route="cuda", design="32-env-block",
+        dict(name="B6 naf_policy_rollout", route="cuda", design="q-tile",
              source="cartpoleplusplus_tpu_torch/csrc/policy_rollout.cu",
              replaces="cartpoleplusplus_tpu/ops/policy_rollout.py:486",
              launches=naf_launches["B6"],

@@ -62,19 +62,33 @@ def test_b1_matches_twin(cuda, params):
     assert abs(float(k_acc) - float(r_acc)) / abs(float(r_acc)) < 1e-4
 
 
-@pytest.mark.parametrize("hidden", [(256, 256), (64,), (32, 48, 16)])
-def test_b2_matches_twin(cuda, hidden):
-    env = CartPole3D(continuous_params(), num_envs=B, device=cuda)
-    state, obs = env.reset(9)
-    g = torch.Generator().manual_seed(1)
+def _random_actor(dev, hidden, seed):
+    """An actor with its head redrawn at 0.5 (the U[0, 3e-3) init would
+    hide torso errors)."""
+    g = torch.Generator().manual_seed(seed)
     actor = ActorMLP(42, 2, hidden, generator=g)
     with torch.no_grad():
         for prm in actor.head.parameters():
             prm.copy_(0.5 * torch.randn(prm.shape, generator=g))
-    actor = actor.to(cuda)
+    return actor.to(dev)
+
+
+@pytest.mark.parametrize("hidden", [(256, 256), (64,), (32, 48, 16), (2048,),
+                                    (8,) * 5])
+def test_b2_matches_twin(cuda, hidden):
+    """tests/test_policy_rollout.py's tolerances (rtol 2e-4, atol 2e-5)
+    on the trajectory, final state, obs and noise; dones, steps and
+    episodes exact; one counted launch. (2048,) keeps its activations in
+    the workspace, (8,) * 5 is deeper than the old cap of 4 layers."""
+    env = CartPole3D(continuous_params(), num_envs=B, device=cuda)
+    state, obs = env.reset(9)
+    actor = _random_actor(cuda, hidden, seed=1)
     noise = torch.zeros((B, 2), device=cuda)
     args = (env, actor, 0.15, state, obs, noise, 7, 0.2, 3)
+    before = pr.policy_rollout.launches
     k = pr.policy_rollout(*args)
+    torch.cuda.synchronize()
+    assert pr.policy_rollout.launches == before + 1
     r = pr.reference_policy_rollout(*args)
     # tests/test_policy_rollout.py's tolerances.
     for a, b in zip(k[3][:3], r[3][:3]):
@@ -87,12 +101,22 @@ def test_b2_matches_twin(cuda, hidden):
 
 
 def test_b2_rejects_uncovered_shapes(cuda):
+    """An empty torso, state obs and the discrete env: what the reference's
+    `fusable` rejects too."""
+    noise = torch.zeros((64, 2), device=cuda)
     env = CartPole3D(continuous_params(), num_envs=64, device=cuda)
-    state, obs = env.reset(0)
-    actor = ActorMLP(42, 2, (8,) * 5).to(cuda)
-    with pytest.raises(ValueError):
-        pr.policy_rollout(env, actor, 0.15, state, obs,
-                          torch.zeros((64, 2), device=cuda), 0, 0.2, 2)
+    with pytest.raises(ValueError, match="not covered by the B2"):
+        pr.policy_rollout(env, ActorMLP(42, 2, ()).to(cuda), 0.15,
+                          *env.reset(0), noise, 0, 0.2, 2)
+    flat = CartPole3D(continuous_params(), num_envs=64, obs_mode="state",
+                      device=cuda)
+    with pytest.raises(ValueError, match="not covered by the B2"):
+        pr.policy_rollout(flat, ActorMLP(flat.obs_size, 2, (32,)).to(cuda),
+                          0.15, *flat.reset(0), noise, 0, 0.2, 2)
+    disc = CartPole3D(CartPoleParams(), num_envs=64, device=cuda)
+    with pytest.raises(ValueError, match="not covered by the B2"):
+        pr.policy_rollout(disc, ActorMLP(42, 2, (32,)).to(cuda), 0.15,
+                          *disc.reset(0), noise, 0, 0.2, 2)
 
 
 def _b3_inputs(dev, hidden, batch, k, seed):
@@ -128,11 +152,15 @@ def _b3_inputs(dev, hidden, batch, k, seed):
     ((256, 256), 256, 16, "updated", None),
     ((96, 80, 64, 48), 200, 4, "updated", (0.1, 50)),
     ((256, 256), 256, 4, "pre", (0.1, 50)),
-    ((64, 64), 1000, 2, "updated", None)])
+    ((64, 64), 1000, 2, "updated", None),
+    ((8,) * 5, 200, 4, "updated", (0.1, 50)),
+    ((1536, 1536), 200, 2, "pre", None)])
 def test_b3_matches_twin(cuda, hidden, batch, k, agc, sched):
     """K updates from warmed moments: every group and both loss vectors
     within the reference's kernel-vs-XLA bar (rtol 2e-4, atol 1e-5), one
-    counted launch, and the same bits from a second run."""
+    counted launch, and the same bits from a second run. (8,) * 5 is
+    deeper than the old cap of 4 layers; (1536, 1536) wider than a row
+    stage's chunk of 1024 inputs."""
     groups, batches = _b3_inputs(cuda, hidden, batch, k, seed=2)
     kw = dict(actor_lr=1e-3, critic_lr=2e-3, gamma=0.99, tau=0.05,
               actor_grad_critic=agc, lr_schedule=sched)
@@ -264,7 +292,7 @@ def _b5_inputs(dev, hidden, batch, k, seed):
 
 @pytest.mark.parametrize("hidden,double_dqn", [
     ((256, 256), True), ((256, 256), False), ((64, 48, 32), True),
-    ((48,), True)])
+    ((48,), True), ((8,) * 5, True), ((2048,), False)])
 def test_b5_matches_twin(cuda, hidden, double_dqn):
     """4 updates from warmed moments on a ragged batch of 200: every group
     and the loss vector within the reference's kernel-vs-XLA bar (rtol
@@ -296,7 +324,7 @@ def test_b5_rejects_uncovered_shapes(cuda):
     groups, batches = _b5_inputs(cuda, (32, 32), 16, 1, seed=0)
     kw = dict(lr=1e-3, gamma=0.99, tau=0.01)
     with pytest.raises(ValueError, match="not covered"):
-        lk.dqn_update_phase(groups, batches, 0, (8,) * 5, **kw)
+        lk.dqn_update_phase(groups, batches, 0, (), **kw)
     with pytest.raises(ValueError, match="action"):
         lk.dqn_update_phase(groups, (batches[0], batches[1].float())
                             + batches[2:], 0, (32, 32), **kw)
@@ -412,12 +440,13 @@ def _b9_inputs(dev, hidden, n, seed):
 @pytest.mark.parametrize("hidden,n", [
     ((64, 64), 1000), ((64, 64), 131072), ((32, 48, 16), 777), ((48,), 4096),
     ((256, 300), 1000), ((1024, 40), 777), ((2048, 2048), 1000),
-    ((1024,) * 4, 777)])
+    ((1024,) * 4, 777), ((8,) * 5, 1000)])
 def test_b9_matches_twin(cuda, hidden, n):
     """One update from warmed moments (Adam count 100): the 3 groups and
     the loss within the reference's kernel-vs-XLA bar (rtol 2e-4, atol
     1e-5), one counted launch, and the same bits from a second run. The
-    last two shapes fit no shared-memory sub-tile: the workspace route."""
+    shapes (2048, 2048) and (1024,) * 4 fit no shared-memory sub-tile:
+    the workspace route."""
     groups, window = _b9_inputs(cuda, hidden, n, seed=2)
     kw = dict(lr=3e-4, entropy_coef=0.1)
     lay = lk.policy_layout(42, hidden)
@@ -452,13 +481,12 @@ def test_b9_tile_plan_matches_the_kernel(cuda):
         lay = lk.policy_layout(42, hidden)
         assert lk.lrpg_covers(42, hidden), hidden
         spills = lk.pg_tile_spills(42, hidden)
+        torso, (net,), widths = lk._learner_shape(cuda, hidden, (tuple(lay),))
         for spill in (False, True):
-            dims = _native.PgDims(num_layers=len(hidden), obs_dim=42,
-                                  n_rows=4096, spill=int(spill),
-                                  net=lk._layout_offsets(lay, len(hidden)))
-            for i, h in enumerate(hidden):
-                dims.hidden[i] = h
-            size = lib.cp_lrpg_workspace_floats(_native.struct_ptr(dims))
+            dims = _native.PgDims(obs_dim=42, n_rows=4096, spill=int(spill),
+                                  torso=torso, net=net)
+            size = lib.cp_lrpg_workspace_floats(_native.struct_ptr(dims),
+                                                widths)
             if spill == spills:
                 assert size == lk.pg_workspace_floats(42, hidden, 4096), hidden
             elif spills:
@@ -485,7 +513,7 @@ def test_b9_rejects_uncovered_shapes(cuda):
     groups, window = _b9_inputs(cuda, (32, 32), 64, seed=0)
     kw = dict(lr=1e-3, entropy_coef=0.1)
     with pytest.raises(ValueError, match="not covered"):
-        lk.lrpg_update_phase(groups, window, 0, (8,) * 5, **kw)
+        lk.lrpg_update_phase(groups, window, 0, (), **kw)
     with pytest.raises(ValueError, match="action"):
         lk.lrpg_update_phase(groups, (window[0], window[1].float(),
                                       window[2]), 0, (32, 32), **kw)
@@ -534,11 +562,14 @@ def _random_naf(dev, hidden, seed, mu_scale=None):
 
 
 @pytest.mark.parametrize("sigma", [0.2, 0.0], ids=["sigma0.2", "greedy"])
-@pytest.mark.parametrize("hidden", [(256, 256), (64,), (32, 48, 16)])
+@pytest.mark.parametrize("hidden", [(256, 256), (64,), (32, 48, 16), (2048,),
+                                    (8,) * 5])
 def test_b6_matches_twin(cuda, hidden, sigma):
     """tests/test_policy_rollout.py's tolerances (rtol 2e-4, atol 2e-5)
     on the trajectory, final state and obs; dones, steps and episodes
-    exact (some envs reset in the window); one counted launch."""
+    exact (some envs reset in the window); one counted launch. (2048,)
+    keeps its activations in the workspace, (8,) * 5 is deeper than the
+    old cap of 4 layers."""
     env = CartPole3D(continuous_params(), num_envs=B, device=cuda)
     state, obs = env.reset(9)
     net = _random_naf(cuda, hidden, seed=1, mu_scale=0.5)
@@ -558,15 +589,46 @@ def test_b6_matches_twin(cuda, hidden, sigma):
 
 
 def test_b6_rejects_uncovered_shapes(cuda):
+    """An empty torso, state obs and the discrete env: what the reference's
+    `naf_fusable` rejects too."""
     env = CartPole3D(continuous_params(), num_envs=64, device=cuda)
     state, obs = env.reset(0)
     with pytest.raises(ValueError, match="not covered by the B6"):
-        nr.naf_policy_rollout(env, NafNet(42, 2, (8,) * 5).to(cuda), state,
-                              obs, 0, 0.2, 2)
+        nr.naf_policy_rollout(env, NafNet(42, 2, ()).to(cuda), state, obs,
+                              0, 0.2, 2)
+    flat = CartPole3D(continuous_params(), num_envs=64, obs_mode="state",
+                      device=cuda)
+    with pytest.raises(ValueError, match="not covered by the B6"):
+        nr.naf_policy_rollout(flat, NafNet(flat.obs_size, 2, (32,)).to(cuda),
+                              *flat.reset(0), 0, 0.2, 2)
     disc = CartPole3D(CartPoleParams(), num_envs=64, device=cuda)
     with pytest.raises(ValueError, match="not covered by the B6"):
         nr.naf_policy_rollout(disc, NafNet(42, 2, (32,)).to(cuda),
                               *disc.reset(0), 0, 0.2, 2)
+
+
+@pytest.mark.parametrize("kernel", ["B2", "B6"])
+@pytest.mark.parametrize("hidden", [(64, 64), (256, 256), (2048,)],
+                         ids=["resident", "streamed", "workspace"])
+def test_b2_and_b6_repeat_their_bits(cuda, kernel, hidden):
+    """Two launches on the same inputs give the same bits: the weights
+    resident in shared memory, streamed through it, and the activations in
+    the workspace."""
+    env = CartPole3D(continuous_params(), num_envs=B, device=cuda)
+    state, obs = env.reset(4)
+    if kernel == "B2":
+        actor = _random_actor(cuda, hidden, seed=5)
+        noise = 0.1 * torch.ones((B, 2), device=cuda)
+        run = lambda: pr.policy_rollout(env, actor, 0.15, state, obs, noise,
+                                        3, 0.2, 8)
+    else:
+        net = _random_naf(cuda, hidden, seed=5, mu_scale=0.5)
+        run = lambda: nr.naf_policy_rollout(env, net, state, obs, 3, 0.2, 8)
+    runs = [run() for _ in range(2)]
+    torch.cuda.synchronize()
+    a, b = ((*out[0].phys, out[0].steps, out[0].episode, *out[1:-1],
+             *out[-1]) for out in runs)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def _b7_inputs(dev, hidden, batch, k, seed):
@@ -590,7 +652,8 @@ def _b7_inputs(dev, hidden, batch, k, seed):
 @pytest.mark.parametrize("hidden,clip,sched", [
     ((256, 256), 10.0, (0.1, 50)), ((256, 256), 0.0, None),
     ((256, 256), 0.05, (0.1, 50)), ((64, 48, 32), 0.05, None),
-    ((48,), 10.0, (0.1, 50))])
+    ((48,), 10.0, (0.1, 50)), ((8,) * 5, 10.0, (0.1, 50)),
+    ((2048,), 0.05, None)])
 def test_b7_matches_twin(cuda, hidden, clip, sched):
     """4 updates from warmed moments on a ragged batch of 200, with the
     clip off, on and firing (a max norm of 0.05 is below every update's
@@ -624,25 +687,27 @@ def test_b7_matches_twin(cuda, hidden, clip, sched):
 
 def test_b7_covers_matches_the_kernel(cuda):
     """The kernel takes exactly the shapes `naf_covers` admits (a nonzero
-    workspace)."""
+    workspace): any depth and width; no torso at all is rejected."""
     lib = _native.load_library()
     for hidden in ((256, 256), (64,), (8,) * 4, (8,) * 5, (1024, 1024),
-                   (1025,), (32, 1025)):
-        n = min(len(hidden), 4)  # NafDims holds 4 layers; num_layers says 5
-        dims = _native.NafDims(
-            num_layers=len(hidden), obs_dim=42, batch=256, k_updates=8,
-            max_norm=10.0, q=lk._layout_offsets(lk.naf_layout(42, hidden), n))
-        for i, h in enumerate(hidden[:n]):
-            dims.hidden[i] = h
-        size = lib.cp_naf_workspace_floats(_native.struct_ptr(dims))
+                   (1025,), (32, 1025), (3,) * 12, (4096, 4096)):
+        torso, (net,), widths = lk._learner_shape(
+            cuda, hidden, (tuple(lk.naf_layout(42, hidden)),))
+        dims = _native.NafDims(obs_dim=42, batch=256, k_updates=8,
+                               max_norm=10.0, torso=torso, q=net)
+        size = lib.cp_naf_workspace_floats(_native.struct_ptr(dims), widths)
         assert (size > 0) == lk.naf_covers(42, hidden), hidden
+        dims.torso.num_layers = 0
+        assert lib.cp_naf_workspace_floats(_native.struct_ptr(dims),
+                                           widths) == 0
+    assert not lk.naf_covers(42, ())
 
 
 def test_b7_rejects_uncovered_shapes(cuda):
     groups, batches = _b7_inputs(cuda, (32, 32), 16, 1, seed=0)
     kw = dict(lr=1e-3, gamma=0.99, tau=0.01, max_grad_norm=10.0)
     with pytest.raises(ValueError, match="not covered"):
-        lk.naf_update_phase(groups, batches, 0, (8,) * 5, **kw)
+        lk.naf_update_phase(groups, batches, 0, (), **kw)
     with pytest.raises(ValueError, match="action"):
         lk.naf_update_phase(groups, (batches[0], batches[1][..., :1])
                             + batches[2:], 0, (32, 32), **kw)

@@ -174,11 +174,16 @@ def test_train_cli_cpu():
 @pytest.mark.parametrize("argv", [["--obs-mode", "state"],
                                   ["--ddpg.hidden", *["8"] * 5]])
 def test_train_cli_cuda_rejects_shapes_b2_does_not_cover(argv):
-    """On a GPU a shape B2 does not cover runs the plain rollout on the
-    card: the agent resolves to it at construction with one stderr line
-    naming the kernel (train.build with --device cuda; no card here to
-    train on)."""
-    assert _cuda_plain_rollout(["--num-envs", "8", *argv], "B2")
+    """On a GPU a shape B2 does not cover (state obs) runs the plain
+    rollout on the card: the agent resolves to it at construction with one
+    stderr line naming the kernel. Any depth and width of the torso takes
+    the kernel route with no such line (train.build with --device cuda; no
+    card here to train on)."""
+    argv = ["--num-envs", "8", *argv]
+    if "--ddpg.hidden" in argv:
+        assert _cuda_kernel_rollout(argv, "B2")
+    else:
+        assert _cuda_plain_rollout(argv, "B2")
 
 
 def _cuda_rollout_route(argv, kernel):

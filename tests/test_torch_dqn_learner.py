@@ -89,8 +89,9 @@ def _run_both(hidden, double_dqn, seed):
 
 
 @pytest.mark.parametrize("double_dqn", [True, False], ids=["double", "max"])
-@pytest.mark.parametrize("hidden", [(32, 32), (16, 24, 8), (24,)],
-                         ids=["h32x2", "h16-24-8", "h24"])
+@pytest.mark.parametrize("hidden", [(32, 32), (16, 24, 8), (24,), (8,) * 5,
+                                    (2048,)],
+                         ids=["h32x2", "h16-24-8", "h24", "h8x5", "h2048"])
 def test_dqn_update_phase_math_matches_jax(hidden, double_dqn):
     """K = 3 updates of the torch twin against the JAX twin: all 4 groups
     and the loss vector within rtol 1e-5, atol 1e-6 (float32 matmuls of
@@ -175,16 +176,20 @@ def test_wrapper_rejects_bad_arguments():
                                      .transpose(0, 1),) + bat[1:], 0,
                             hidden, **LRS)
     with pytest.raises(ValueError, match="not covered"):
-        lk.dqn_update_phase(groups, bat, 0, (16,) * 5, **LRS)
+        lk.dqn_update_phase(groups, bat, 0, (), **LRS)
     meta = [g.to("meta") for g in groups]
     with pytest.raises(ValueError, match="cuda or cpu"):
         lk.dqn_update_phase(meta, bat, 0, hidden, **LRS)
 
 
 def test_dqn_covers_and_layout():
+    """B5 takes any torso of at least one layer, as the reference's
+    kernel: any depth, and any width (row stages walk wide inputs in
+    chunks)."""
     assert lk.dqn_covers(F, (256, 256)) and lk.dqn_covers(F, (64,))
-    assert lk.dqn_covers(F, (8,) * 4) and not lk.dqn_covers(F, (8,) * 5)
-    assert not lk.dqn_covers(F, ()) and not lk.dqn_covers(F, (2048,))
+    assert lk.dqn_covers(F, (8,) * 4) and lk.dqn_covers(F, (8,) * 5)
+    assert lk.dqn_covers(F, (2048,)) and lk.dqn_covers(F, (3,) * 12)
+    assert not lk.dqn_covers(F, ())
     q = QNetMLP(F, 5, (16, 24, 8))
     assert [(n, tuple(p.shape)) for n, p in q.named_parameters()] == [
         (n, tuple(s)) for n, s in lk.qnet_layout(F, (16, 24, 8))]
@@ -200,7 +205,7 @@ def test_learner_resolution():
         _, m = agent.train_step(agent.init(0))
         assert m["learner_impl"] == impl, learner
         assert np.isfinite(float(m["loss"])) and float(m["loss"]) > 0.0
-    for bad in (dict(hidden=(8,) * 5), dict(updates_per_step=0)):
+    for bad in (dict(hidden=()), dict(updates_per_step=0)):
         with pytest.raises(ValueError, match="not covered by the fused "
                                              "update kernel B5"):
             DQN(env, DQNConfig(learner="kernel", **dict(kw, **bad)))
@@ -213,6 +218,21 @@ def test_learner_resolution():
     assert err.getvalue().startswith("dqn: learner=auto resolved to the "
                                      "plain")
     assert "kernel B5" in err.getvalue()
+
+
+@pytest.mark.parametrize("hidden", [(8,) * 5, (2048,)], ids=["h8x5", "h2048"])
+def test_kernel_learner_takes_any_torso(hidden):
+    """learner="kernel" builds and trains at a depth and a width beyond
+    the old caps of 4 layers and 1024 (B5's twin here)."""
+    env = CartPole3D(CartPoleParams(), num_envs=16)
+    agent = DQN(env, DQNConfig(learner="kernel", hidden=hidden,
+                               batch_size=16, rollout_steps=4,
+                               updates_per_step=1, warmup_env_steps=0,
+                               replay_capacity_per_env=8))
+    assert agent.kernel_learner_ok()
+    _, m = agent.train_step(agent.init(0))
+    assert m["learner_impl"] == 1.0
+    assert np.isfinite(float(m["loss"])) and float(m["loss"]) > 0.0
 
 
 def test_flat_storage_views():

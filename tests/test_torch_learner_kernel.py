@@ -100,8 +100,8 @@ def _jax_flat_to_port(flat, hidden, actor: bool):
 
 @pytest.mark.parametrize("sched", [None, (0.1, 100)], ids=["const", "sched"])
 @pytest.mark.parametrize("agc", ["updated", "pre"])
-@pytest.mark.parametrize("hidden", [(32, 32), (16, 24, 8)],
-                         ids=["h32x2", "h16-24-8"])
+@pytest.mark.parametrize("hidden", [(32, 32), (16, 24, 8), (8,) * 5],
+                         ids=["h32x2", "h16-24-8", "h8x5"])
 def test_update_phase_math_matches_jax(hidden, agc, sched):
     """K = 3 updates of the torch twin against the JAX twin: all 8 groups
     and both loss vectors within rtol 1e-5, atol 1e-6 (float32 matmuls of
@@ -283,6 +283,22 @@ def test_learner_resolution():
         assert resolve_learner("auto", False, True) is False
     assert err.getvalue().count("\n") == 1
     assert "learner=auto resolved to the plain" in err.getvalue()
+
+
+@pytest.mark.parametrize("hidden", [(8,) * 5, (1536, 1536)],
+                         ids=["h8x5", "h1536x2"])
+def test_kernel_learner_takes_any_torso(hidden):
+    """learner="kernel" builds and trains at a depth and a width beyond
+    the old caps of 4 layers and 1024 (B3's twin here)."""
+    env = CartPole3D(continuous_params(), num_envs=16)
+    agent = DDPG(env, DDPGConfig(learner="kernel", hidden=hidden,
+                                 batch_size=16, rollout_steps=4,
+                                 updates_per_step=1, warmup_env_steps=0,
+                                 replay_capacity_per_env=8))
+    assert agent.kernel_learner_ok()
+    _, m = agent.train_step(agent.init(0))
+    assert m["learner_impl"] == 1.0
+    assert np.isfinite(float(m["critic_loss"]))
 
 
 def test_flat_storage_views_and_state_dict_roundtrip():

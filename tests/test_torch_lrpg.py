@@ -327,7 +327,7 @@ def test_lrpg_config_rejections():
         LRPG(CartPole3D(continuous_params(), num_envs=4), LRPGConfig())
     with pytest.raises(ValueError, match="not covered by the fused update "
                                          "kernel B9"):
-        LRPG(env, LRPGConfig(hidden=(8,) * 5, learner="kernel"))
+        LRPG(env, LRPGConfig(hidden=(), learner="kernel"))
 
 
 # --- the random agent ------------------------------------------------------------

@@ -127,8 +127,8 @@ def _assert_groups_close(got, want_flat, hidden, rtol, atol):
                                        err_msg=f"group {g} param {i}")
 
 
-@pytest.mark.parametrize("hidden", [(32, 32), (24,), (16, 24, 8)],
-                         ids=["h32x2", "h24", "h16-24-8"])
+@pytest.mark.parametrize("hidden", [(32, 32), (24,), (16, 24, 8), (8,) * 5],
+                         ids=["h32x2", "h24", "h16-24-8", "h8x5"])
 def test_lrpg_update_phase_math_matches_jax_twin(hidden):
     """The torch twin against the JAX twin of the same name: all 3 groups
     within rtol 1e-5, atol 1e-7, the loss within rtol 1e-5 (float32
@@ -199,14 +199,14 @@ def test_wrapper_rejects_bad_arguments():
         lk.lrpg_update_phase(groups, (win[0].t().contiguous().t(),)
                              + win[1:], 0, hidden, **KW)
     with pytest.raises(ValueError, match="not covered"):
-        lk.lrpg_update_phase(groups, win, 0, (16,) * 5, **KW)
+        lk.lrpg_update_phase(groups, win, 0, (), **KW)
     meta = [g.to("meta") for g in groups]
     with pytest.raises(ValueError, match="cuda or cpu"):
         lk.lrpg_update_phase(meta, win, 0, hidden, **KW)
 
 
 def test_lrpg_covers_and_layout():
-    """B9 takes 1 to 4 layers of any width: hidden (64, 64) runs 32 rows
+    """B9 takes any depth >= 1 and any width: hidden (64, 64) runs 32 rows
     in 64,256 bytes of shared memory, wider networks fewer rows, up to two
     layers of 1114 or four of 668; wider ones take the workspace route's
     8-row sub-tile."""
@@ -221,7 +221,9 @@ def test_lrpg_covers_and_layout():
     for hidden in ((1115, 1115), (2048, 2048), (1024,) * 4, (669,) * 4):
         assert lk.lrpg_covers(F, hidden) and lk.pg_tile_spills(F, hidden)
         assert lk.pg_tile_rows(F, hidden) == 8
-    assert not lk.lrpg_covers(F, ()) and not lk.lrpg_covers(F, (8,) * 5)
+    assert lk.lrpg_covers(F, (8,) * 5) and lk.pg_tile_rows(F, (8,) * 5) == 32
+    assert lk.lrpg_covers(F, (2048,)) and lk.lrpg_covers(F, (3,) * 12)
+    assert not lk.lrpg_covers(F, ())
     net = PolicyMLP(F, 5, (16, 24, 8))
     assert [(n, tuple(p.shape)) for n, p in net.named_parameters()] == [
         (n, tuple(s)) for n, s in lk.policy_layout(F, (16, 24, 8))]
@@ -262,6 +264,19 @@ def test_learner_resolution():
     assert err.getvalue().startswith("lrpg: learner=auto resolved to the "
                                      "plain")
     assert "kernel B9" in err.getvalue()
+
+
+@pytest.mark.parametrize("hidden", [(8,) * 5, (2048,)], ids=["h8x5", "h2048"])
+def test_kernel_learner_takes_any_torso(hidden):
+    """learner="kernel" builds and trains at a depth beyond the old cap of
+    4 layers, and at a width on the workspace route (B9's twin here)."""
+    env = CartPole3D(CartPoleParams(), num_envs=16)
+    agent = LRPG(env, LRPGConfig(learner="kernel", hidden=hidden,
+                                 rollout_steps=4))
+    assert agent.kernel_learner_ok()
+    st, m = agent.train_step(agent.init(0))
+    assert m["learner_impl"] == 1.0
+    assert np.isfinite(float(m["loss"])) and st.opt.count == 1
 
 
 def test_flat_storage_views():

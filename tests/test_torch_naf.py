@@ -32,7 +32,8 @@ from cartpoleplusplus_tpu_torch.models.from_jax import (
     naf_state_from_jax,
 )
 from cartpoleplusplus_tpu_torch.physics.params import continuous_params
-from test_torch_ddpg import _column_indices, _cuda_plain_rollout, _perturb
+from test_torch_ddpg import (_column_indices, _cuda_kernel_rollout,
+                             _cuda_plain_rollout, _perturb)
 
 HIDDEN = (32, 32)
 
@@ -332,12 +333,16 @@ def test_train_cli_cpu():
                                   ["--naf.hidden", *["8"] * 5],
                                   ["--naf.hidden", "2048"]])
 def test_train_cli_cuda_rejects_shapes_b6_does_not_cover(argv):
-    """On a GPU a shape B6 does not cover runs the plain rollout on the
-    card: the agent resolves to it at construction with one stderr line
-    naming the kernel (train.build with --device cuda; no card here to
-    train on)."""
-    assert _cuda_plain_rollout(["--agent", "naf", "--num-envs", "8", *argv],
-                               "B6")
+    """On a GPU a shape B6 does not cover (state obs) runs the plain
+    rollout on the card: the agent resolves to it at construction with one
+    stderr line naming the kernel. Any depth and width of the torso takes
+    the kernel route with no such line (train.build with --device cuda; no
+    card here to train on)."""
+    argv = ["--agent", "naf", "--num-envs", "8", *argv]
+    if "--naf.hidden" in argv:
+        assert _cuda_kernel_rollout(argv, "B6")
+    else:
+        assert _cuda_plain_rollout(argv, "B6")
 
 
 def test_unported_settings_and_the_discrete_env_raise():

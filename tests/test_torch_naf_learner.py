@@ -102,8 +102,9 @@ def _run_both(hidden, clip, seed, sched=SCHED):
 
 @pytest.mark.parametrize("clip", [10.0, 0.0, FIRING],
                          ids=["clip10", "noclip", "firing"])
-@pytest.mark.parametrize("hidden", [(32, 32), (16, 24, 8), (24,)],
-                         ids=["h32x2", "h16-24-8", "h24"])
+@pytest.mark.parametrize("hidden", [(32, 32), (16, 24, 8), (24,), (8,) * 5,
+                                    (2048,)],
+                         ids=["h32x2", "h16-24-8", "h24", "h8x5", "h2048"])
 def test_naf_update_phase_math_matches_jax(hidden, clip):
     """K = 3 updates of the torch twin against the JAX twin with the lr
     schedule on: all 4 groups and the loss vector within rtol 1e-5, atol
@@ -224,16 +225,20 @@ def test_wrapper_rejects_bad_arguments():
                                      .transpose(0, 1),) + bat[1:], 0,
                             hidden, **kw)
     with pytest.raises(ValueError, match="not covered"):
-        lk.naf_update_phase(groups, bat, 0, (16,) * 5, **kw)
+        lk.naf_update_phase(groups, bat, 0, (), **kw)
     meta = [g.to("meta") for g in groups]
     with pytest.raises(ValueError, match="cuda or cpu"):
         lk.naf_update_phase(meta, bat, 0, hidden, **kw)
 
 
 def test_naf_covers_and_layout():
+    """B7 takes any torso of at least one layer, as the reference's
+    kernel: any depth, and any width (row stages walk wide inputs in
+    chunks)."""
     assert lk.naf_covers(F, (256, 256)) and lk.naf_covers(F, (64,))
-    assert lk.naf_covers(F, (8,) * 4) and not lk.naf_covers(F, (8,) * 5)
-    assert not lk.naf_covers(F, ()) and not lk.naf_covers(F, (2048,))
+    assert lk.naf_covers(F, (8,) * 4) and lk.naf_covers(F, (8,) * 5)
+    assert lk.naf_covers(F, (2048,)) and lk.naf_covers(F, (3,) * 12)
+    assert not lk.naf_covers(F, ())
     net = NafNet(F, 2, (16, 24, 8))
     assert [(n, tuple(p.shape)) for n, p in net.named_parameters()] == [
         (n, tuple(s)) for n, s in lk.naf_layout(F, (16, 24, 8))]
@@ -253,7 +258,7 @@ def test_learner_resolution():
         _, m = agent.train_step(agent.init(0))
         assert m["learner_impl"] == impl, learner
         assert np.isfinite(float(m["loss"])) and float(m["loss"]) > 0.0
-    for bad in (dict(hidden=(8,) * 5), dict(updates_per_step=0)):
+    for bad in (dict(hidden=()), dict(updates_per_step=0)):
         with pytest.raises(ValueError, match="not covered by the fused "
                                              "update kernel B7"):
             NAF(env, NAFConfig(learner="kernel", **dict(kw, **bad)))
@@ -263,6 +268,21 @@ def test_learner_resolution():
     assert err.getvalue().startswith("naf: learner=auto resolved to the "
                                      "plain")
     assert "kernel B7" in err.getvalue()
+
+
+@pytest.mark.parametrize("hidden", [(8,) * 5, (2048,)], ids=["h8x5", "h2048"])
+def test_kernel_learner_takes_any_torso(hidden):
+    """learner="kernel" builds and trains at a depth and a width beyond
+    the old caps of 4 layers and 1024 (B7's twin here)."""
+    env = CartPole3D(continuous_params(), num_envs=16)
+    agent = NAF(env, NAFConfig(learner="kernel", hidden=hidden,
+                               batch_size=16, rollout_steps=4,
+                               updates_per_step=1, warmup_env_steps=0,
+                               replay_capacity_per_env=8))
+    assert agent.kernel_learner_ok()
+    _, m = agent.train_step(agent.init(0))
+    assert m["learner_impl"] == 1.0
+    assert np.isfinite(float(m["loss"])) and float(m["loss"]) > 0.0
 
 
 def test_flat_storage_views():

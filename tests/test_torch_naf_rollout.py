@@ -147,30 +147,35 @@ def test_wrapper_runs_twin_on_cpu(setup):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-def test_pack_naf_mu_layout(setup):
-    """B2's flat layout over the torso, then the packed head's mu rows (1
-    and 2) transposed, and their biases; the V and L rows stay out."""
-    _, _, net = setup
-    flat = tnr.pack_naf_mu(net)
-    off, dims = 0, (42,) + HIDDEN
-    for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
-        w = flat[off:off + a * b].reshape(a, b)
-        torch.testing.assert_close(w, net.torso[i].weight.t(), rtol=0,
-                                   atol=0)
-        off += a * b + 3 * b  # W, bias, LN scale, LN bias
-    h = HIDDEN[-1]
-    torch.testing.assert_close(flat[off:off + 2 * h].reshape(h, 2),
-                               net.head.weight[1:3].t(), rtol=0, atol=0)
-    torch.testing.assert_close(flat[off + 2 * h:], net.head.bias[1:3],
-                               rtol=0, atol=0)
+@pytest.mark.parametrize("hidden", [HIDDEN, (7,), (5, 6, 9, 3, 8)])
+def test_pack_naf_mu_layout(hidden):
+    """B2's flat layout (csrc/q_tile.cuh) over the torso, then the packed
+    head's mu rows (1 and 2) in the padded (H, 8) block, and their biases;
+    the V and L rows stay out. Read at the kernel's offsets, tanh of its
+    head is NafNet's mu."""
+    from cartpoleplusplus_tpu_torch.models import NafNet
+    from test_torch_q_rollout import _packed_forward, _redrawn
+
+    g = torch.Generator().manual_seed(5)
+    net = _redrawn(NafNet(42, 2, hidden, generator=g), g)
+    obs = torch.randn((16, 42), generator=g)
+    with torch.no_grad():
+        torch.testing.assert_close(
+            torch.tanh(_packed_forward(tnr.pack_naf_mu(net), obs, hidden,
+                                       2)),
+            net(obs)[1], rtol=1e-5, atol=1e-5)
 
 
 def test_naf_fusable_is_b2s_window():
     env = CartPole3D(continuous_params(), num_envs=100)
-    for hidden in (HIDDEN, (256, 256), (2048,), (8,) * 5, (64,)):
+    for hidden in (HIDDEN, (256, 256), (2048,), (8,) * 5, (64,),
+                   (4096, 4096), (3,) * 12, ()):
         assert tnr.naf_fusable(env, hidden) == tnr.fusable(env, hidden)
     assert tnr.naf_fusable(env, (256, 256))
-    assert not tnr.naf_fusable(env, (8,) * 5)
+    # Any depth and width, as B2 (and the reference's naf_fusable).
+    for hidden in ((2048,), (8,) * 5, (4096, 4096), (3,) * 12):
+        assert tnr.naf_fusable(env, hidden)
+    assert not tnr.naf_fusable(env, ())
     assert not tnr.naf_fusable(CartPole3D(CartPoleParams(), num_envs=64),
                                HIDDEN)  # discrete
     assert not tnr.naf_fusable(CartPole3D(continuous_params(), num_envs=64,

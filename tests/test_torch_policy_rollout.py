@@ -133,29 +133,33 @@ def test_wrapper_runs_twin_on_cpu(setup):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-def test_pack_actor_layout(setup):
-    """The kernel's flat weight layout: per layer W (in, out), bias, LN
-    scale, LN bias; then the head."""
-    _, _, actor = setup
-    flat = tpr.pack_actor(actor)
-    off, dims = 0, (42,) + HIDDEN
-    for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
-        w = flat[off:off + a * b].reshape(a, b)
-        torch.testing.assert_close(w, actor.torso[i].weight.t(), rtol=0,
-                                   atol=0)
-        off += a * b
-        torch.testing.assert_close(flat[off + b:off + 2 * b],
-                                   actor.norms[i].weight, rtol=0, atol=0)
-        off += 3 * b
-    assert flat.numel() == off + HIDDEN[-1] * 2 + 2
+@pytest.mark.parametrize("hidden", [HIDDEN, (7,), (5, 6, 9, 3, 8)])
+def test_pack_actor_layout(hidden):
+    """The kernel's flat weight layout (B4's, csrc/q_tile.cuh): per layer
+    W (in, Np) with zero pad columns to a multiple of 4, the head's W (H,
+    8), then per layer bias, LN scale, LN bias, and the head's bias; read
+    at the kernel's offsets, tanh of its head is the actor."""
+    from cartpoleplusplus_tpu_torch.models import ActorMLP
+    from test_torch_q_rollout import _packed_forward, _redrawn
+
+    g = torch.Generator().manual_seed(3)
+    actor = _redrawn(ActorMLP(42, 2, hidden, generator=g), g)
+    obs = torch.randn((16, 42), generator=g)
+    with torch.no_grad():
+        torch.testing.assert_close(
+            torch.tanh(_packed_forward(tpr.pack_actor(actor), obs, hidden,
+                                       2)),
+            actor(obs), rtol=1e-5, atol=1e-5)
 
 
 def test_fusable_gate():
     env = CartPole3D(continuous_params(), num_envs=100)
     assert tpr.fusable(env, HIDDEN)  # any batch size: tiles are masked
     assert tpr.fusable(env, (256, 256))
-    assert not tpr.fusable(env, (2048,))  # tile activations exceed smem
-    assert not tpr.fusable(env, (8,) * 5)  # more layers than the kernel
+    # Any depth and width: wide activations go to a workspace.
+    for hidden in ((2048,), (8,) * 5, (4096, 4096), (3,) * 12):
+        assert tpr.fusable(env, hidden)
+    assert not tpr.fusable(env, ())
     assert not tpr.fusable(CartPole3D(CartPoleParams(), num_envs=64),
                            HIDDEN)  # discrete
     assert not tpr.fusable(CartPole3D(continuous_params(), num_envs=64,

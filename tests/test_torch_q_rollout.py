@@ -146,10 +146,11 @@ def test_wrapper_rejects_other_devices(setup):
         tqr.q_policy_rollout(env, q, meta, obs, 0, EPS, T)
 
 
-def _packed_forward(flat, obs, hidden):
-    """The network read from `pack_qnet`'s flat buffer at the offsets the
-    kernel computes (csrc/q_rollout.cu, q_tile.cuh): padded torso blocks,
-    the padded head block, then the vectors."""
+def _packed_forward(flat, obs, hidden, n_out=5):
+    """The network read from `pack_tile_net`'s flat buffer (n_out head
+    rows) at the offsets the kernel computes (csrc/q_tile.cuh): padded
+    torso blocks, the padded head block, then the vectors; the head's
+    pre-activations."""
     dims, off, ws = (obs.shape[1],) + tuple(hidden), 0, []
     for a, b in zip(dims[:-1], dims[1:]):
         np_ = (b + 3) // 4 * 4
@@ -159,7 +160,7 @@ def _packed_forward(flat, obs, hidden):
         off += a * np_
     assert off == tqr.torso_weight_floats(dims[0], hidden)
     h_w = flat[off:off + 8 * dims[-1]].reshape(dims[-1], 8)
-    assert not h_w[:, 5:].any()
+    assert not h_w[:, n_out:].any()
     off += 8 * dims[-1]
     x = obs
     for w, b in zip(ws, hidden):
@@ -171,8 +172,8 @@ def _packed_forward(flat, obs, hidden):
                           min=0.0)
         x = torch.relu((x - mean) * (torch.rsqrt(var + 1e-6) * scale)
                        + shift)
-    assert off + 5 == flat.numel()
-    return x @ h_w[:, :5] + flat[off:]
+    assert off + n_out == flat.numel()
+    return x @ h_w[:, :n_out] + flat[off:]
 
 
 @pytest.mark.parametrize("hidden", [HIDDEN, (7,), (5, 6, 9, 3, 8)])
@@ -194,7 +195,12 @@ def _random_port_qnet(hidden, g):
     """A port QNetMLP with its LayerNorm parameters and head redrawn."""
     from cartpoleplusplus_tpu_torch.models import QNetMLP
 
-    q = QNetMLP(42, 5, hidden, generator=g)
+    return _redrawn(QNetMLP(42, 5, hidden, generator=g), g)
+
+
+def _redrawn(q, g):
+    """A port torso net with its LayerNorm parameters and head redrawn
+    (the heads' default inits would hide layout errors)."""
     with torch.no_grad():
         for norm in q.norms:
             norm.weight.copy_(1.0 + 0.2 * torch.randn(norm.weight.shape,
