@@ -1,7 +1,8 @@
-// The stage engine of the cooperative learner kernels B3 (ddpg_update.cu),
-// B5 (dqn_update.cu) and B7 (naf_update.cu): one persistent launch per
-// K-update phase in which every block walks the same list of stages,
-// separated by cg::this_grid().sync().
+// The stage engine of the cooperative learner kernels B3 (ddpg_update.cu)
+// and B7 (naf_update.cu): one persistent launch per K-update phase in which
+// every block walks the same list of stages, separated by
+// cg::this_grid().sync(). B5 (dqn_update.cu) and B9 (lrpg_update.cu) take
+// its tables, its LayerNorm helpers and B5 its gradient items and Adam.
 //   * Row stages: the batch is cut into 16-row tiles and each layer's
 //     outputs into 32-column tiles; a block takes (row tile, column tile)
 //     items. It first computes its rows' statistics over the whole input
@@ -49,7 +50,87 @@
 
 #include <cstddef>
 
+#ifdef CP_STAGE_CLOCK
+// A separate build that measures how a kernel's time splits (chip_smoke.py's
+// stage split; the library the wrappers load never defines this): thread 0
+// of every block records clock64() when the kernel starts and when every
+// grid barrier is reached and left (cg::grid_group below stands in for
+// cooperative_groups' own), when a row or gradient stage's items start,
+// after the lead thread has written the stage's ops (CP_MARK_ITEMS), and
+// where a kernel marks the end of one of its phases (CP_MARK(id), id 3 to
+// 15, right after a block barrier; a kernel without a grid barrier marks
+// its start with CP_MARK_START). One kernel source per library: the
+// buffers and the readers are defined here.
+namespace cp_clock {
+constexpr int kBlocks = 512, kMarks = 2048;
+enum : int { kRelease = 0, kItems = 1, kArrive = 2 };
+static __device__ long long marks[kBlocks * kMarks];
+static __device__ int counts[kBlocks];
+
+// The block's count of marks, in shared memory (set by start()).
+__device__ __forceinline__ int& count() {
+  __shared__ int n;
+  return n;
+}
+
+// Mark (clock << 4 | kind) for this block, by thread 0: a shared-memory
+// count and two stores, nothing that waits on device memory.
+__device__ __forceinline__ void mark(int kind) {
+  if (threadIdx.x != 0 || blockIdx.x >= kBlocks) return;
+  const int n = count();
+  if (n >= kMarks) return;
+  marks[blockIdx.x * kMarks + n] = (clock64() << 4) | kind;
+  counts[blockIdx.x] = n + 1;
+  count() = n + 1;
+}
+
+// The kernel's start: the count reset, and a first mark.
+__device__ __forceinline__ void start() {
+  if (threadIdx.x == 0) count() = 0;
+  mark(kRelease);
+}
+
+struct grid_group {
+  cooperative_groups::grid_group g;
+  __device__ void sync() {
+    __syncthreads();
+    mark(kArrive);
+    g.sync();
+    mark(kRelease);
+  }
+};
+
+__device__ inline grid_group this_grid() {
+  start();
+  return grid_group{cooperative_groups::this_grid()};
+}
+}  // namespace cp_clock
+namespace cg = cp_clock;
+#define CP_MARK_ITEMS() cp_clock::mark(cp_clock::kItems)
+#define CP_MARK(id) cp_clock::mark(id)
+#define CP_MARK_START() cp_clock::start()
+
+// The marks of the last launch: counts (kBlocks ints) and marks (kBlocks x
+// kMarks, block-major); reset zeroes the counts. Return a cudaError_t.
+extern "C" int cp_stage_clock_read(long long* marks, int* counts) {
+  cudaError_t err = cudaMemcpyFromSymbol(counts, cp_clock::counts,
+                                         sizeof(cp_clock::counts));
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(marks, cp_clock::marks,
+                               sizeof(cp_clock::marks));
+  return static_cast<int>(err);
+}
+extern "C" int cp_stage_clock_reset() {
+  static const int zeros[cp_clock::kBlocks] = {};
+  return static_cast<int>(
+      cudaMemcpyToSymbol(cp_clock::counts, zeros, sizeof(zeros)));
+}
+#else
 namespace cg = cooperative_groups;
+#define CP_MARK_ITEMS()
+#define CP_MARK(id)
+#define CP_MARK_START()
+#endif
 
 // Mirror of ops/_native.py::NetLayout: element offsets of one network's
 // parameters in its group buffer. lay (device): per torso layer l,
@@ -363,6 +444,7 @@ __device__ void row_item(const RowOp& op, int rt, int ct, int B,
 __device__ __noinline__ void run_rows(const RowOp* ops, int n, int B,
                                       const LearnerConsts& c, float* smem,
                                       int ldh) {
+  CP_MARK_ITEMS();
   float* Hs = smem;
   float* Ws = smem + kTR * ldh;
   int total = 0;
@@ -684,6 +766,7 @@ __device__ __noinline__ void run_net_grads(Shared& sh, const Torso& T, int F,
                                            float* smem,
                                            float* gstore = nullptr) {
   __syncthreads();  // the lead thread's sh.nets
+  CP_MARK_ITEMS();
   const int per = 4 * T.L + 3, n_ops = sh.n_nets * per;
   const int G = gridDim.x;
   int base = 0;  // list-wide number of the batch's first item

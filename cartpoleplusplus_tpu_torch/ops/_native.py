@@ -104,11 +104,12 @@ class LearnerDims(ctypes.Structure):
 
 
 class DqnDims(ctypes.Structure):
-    """Mirror of `struct DqnDims` in csrc/dqn_update.cu (B5)."""
+    """Mirror of `struct DqnDims` in csrc/dqn_update.cu (B5); spill 1
+    puts every row tile's buffers in the workspace at any width."""
 
     _fields_ = [(n, ctypes.c_int) for n in (
         "obs_dim", "batch", "k_updates", "double_dqn")] + [
-        ("torso", Torso), ("q", NetLayout)]
+        ("torso", Torso), ("q", NetLayout), ("spill", ctypes.c_int)]
 
 
 class NafDims(ctypes.Structure):
@@ -121,10 +122,10 @@ class NafDims(ctypes.Structure):
 
 class PgDims(ctypes.Structure):
     """Mirror of `struct PgDims` in csrc/lrpg_update.cu (B9); the launcher
-    fills sum_h and hmax from the host's copy of the widths."""
+    fills sum_h, hmax and wt from the host's copy of the widths."""
 
     _fields_ = [(n, ctypes.c_int) for n in (
-        "obs_dim", "n_rows", "spill", "sum_h", "hmax")] + [
+        "obs_dim", "n_rows", "spill", "sum_h", "hmax", "wt")] + [
         ("torso", Torso), ("net", NetLayout)]
 
 

@@ -154,8 +154,64 @@ def covers(obs_dim: int, hidden: Sequence[int]) -> bool:
 
 def dqn_covers(obs_dim: int, hidden: Sequence[int]) -> bool:
     """The shapes B5 takes: any torso of at least 1 hidden layer, any
-    width, as the reference's kernel."""
+    width, as the reference's kernel (`dqn_plan`)."""
     return len(tuple(hidden)) >= 1
+
+
+def _pad4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+_DQN_ROWS = 8            # kRowsF in csrc/dqn_update.cu: a forward item's rows
+_DQN_LDF = _DQN_ROWS + 4  # kLdF: the feature stride of its activations
+# kFixed: the weight ring (4 chunks of 256 x 36 floats) and a backward
+# item's d loss / dQ (4 rows of 8 floats).
+_DQN_FIXED = 4 * 256 * 36 + 4 * 8
+
+
+def _dqn_tile_floats(obs_dim: int, hidden: tuple) -> int:
+    """Floats of one B5 forward item's buffers (row_plan in
+    csrc/dqn_update.cu; a backward item's are fewer): the activations of
+    its 8 rows, feature-major over max(obs_dim, widths) features, and their
+    pre-LN rows, row-major at a stride of the widest layer padded to 4."""
+    return (_DQN_LDF * max(obs_dim, *hidden)
+            + _DQN_ROWS * _pad4(max(hidden)))
+
+
+def dqn_plan(obs_dim: int, hidden: Sequence[int], batch: int,
+             spill: bool = False):
+    """B5's plan (row_plan in csrc/dqn_update.cu): (forward item rows,
+    forward items, spill). A forward item runs one of the three passes
+    through every layer for 8 batch rows (a backward item, 4 rows); an
+    item's buffers sit in shared memory beside the weight ring unless that
+    takes more than MAX_SMEM less 4 KB (one layer wider than 1008 at obs
+    42) or `spill` asks for it, then in the workspace."""
+    hidden = tuple(hidden)
+    items = 3 * -(-batch // _DQN_ROWS)
+    floats = _DQN_FIXED + _dqn_tile_floats(obs_dim, hidden) + 6 * len(hidden)
+    return (_DQN_ROWS, items,
+            spill or 4 * floats > _native.MAX_SMEM - 4096)
+
+
+def dqn_workspace_floats(obs_dim: int, hidden: Sequence[int], batch: int,
+                         spill: bool = False) -> int:
+    """Floats of B5's workspace (cp_dqn_workspace_floats), each piece
+    rounded up to 32: per layer the online net's pre-LN rows on s, dz, dy
+    and dy * xhat; the layer inputs past layer 0 and the last layer's
+    output; d loss / dQ and the Huber terms; the three passes' Q values;
+    on the spill route every forward item's buffers."""
+    hidden = tuple(hidden)
+    _, items, spill = dqn_plan(obs_dim, hidden, batch, spill)
+
+    def r32(n):
+        return -(-n // 32) * 32
+
+    s, hl = sum(hidden), hidden[-1]
+    tile = r32(_dqn_tile_floats(obs_dim, hidden))
+    return (4 * r32(batch * s) + r32(batch * (s - hl)) + r32(batch * hl)
+            + r32(batch * NUM_ACTIONS) + r32(batch)
+            + r32(3 * batch * NUM_ACTIONS)
+            + (r32(items * tile) if spill else 0))
 
 
 def naf_covers(obs_dim: int, hidden: Sequence[int]) -> bool:
@@ -163,56 +219,71 @@ def naf_covers(obs_dim: int, hidden: Sequence[int]) -> bool:
     return dqn_covers(obs_dim, hidden)
 
 
-_PG_KC = 128             # kPgKc in csrc/lrpg_update.cu: weight-tile inputs
-_PG_MAX_BLOCKS = 256     # kPgMaxBlocks: pass-1 blocks at most
-PG_PARTIAL_FLOATS = 1 << 27  # kPgPartialFloats: pass-1 partial rows at most
-_PG_SPILL_ROWS = 8       # kPgSpillRows: the workspace route's sub-tile rows
+_PG_ROWS = 64            # kPgRows in csrc/lrpg_update.cu: rows of a tile
+_PG_LD = _PG_ROWS + 4    # kPgLd: a tile's feature stride
+_PG_HEAD_LD = 8          # kPgHeadLd: the head's padded width
+_PG_MAX_BLOCKS = 128     # kPgMaxBlocks: pass-1 blocks at most
+PG_WORK_FLOATS = 1 << 27  # kPgWorkFloats: B9's workspace at most
 
 
-def pg_tile_floats(obs_dim: int, hidden, rows: int,
-                   with_wt: bool = True) -> int:
-    """Floats of B9's sub-tile of `rows` rows, as carve_tile in
+def pg_tile_floats(obs_dim: int, hidden, spill: bool = False) -> int:
+    """Floats of one B9 tile of 64 rows, as carve_tile in
     csrc/lrpg_update.cu counts them (a change to one is a change to both;
-    tests/test_torch_cuda.py holds them together): the obs rows, per layer
-    the pre-LN and relu rows and the LayerNorm statistics, the 5 logits,
-    two gradient rows, the loss terms and, unless `with_wt` is false, one
-    (<= 128, 33) weight tile."""
-    hmax = max(hidden)
-    wt = min(max(obs_dim, hmax), _PG_KC) * 33 if with_wt else 0
-    return (rows * (obs_dim + 2 * sum(hidden) + 2 * len(hidden)
-                    + NUM_ACTIONS + 2 * hmax + 1) + wt)
+    tests/test_torch_cuda.py holds them together): feature-major buffers
+    of stride 68 for the obs rows (two on the shared-memory route, one on
+    the workspace route), every layer's pre-LN rows, one layer's relu
+    rows, two gradient rows and the 5 logits; per layer the rows'
+    LayerNorm statistics; the rows' loss terms."""
+    hidden = tuple(hidden)
+    feats = ((1 if spill else 2) * obs_dim + sum(hidden) + 3 * max(hidden)
+             + NUM_ACTIONS)
+    return feats * _PG_LD + (2 * len(hidden) + 1) * _PG_ROWS
+
+
+def pg_smem_floats(obs_dim: int, hidden: Sequence[int]) -> int:
+    """Floats of B9's block on the shared-memory route (smem_floats in
+    csrc/lrpg_update.cu): the weights transposed to (in, out) with the
+    outputs padded to 4 (the head's to 8), one accumulator per parameter
+    and the loss (padded to 4), and a tile with two obs buffers."""
+    hidden = tuple(hidden)
+    ins = (obs_dim,) + hidden[:-1]
+    wt = (sum(k * _pad4(h) for k, h in zip(ins, hidden))
+          + hidden[-1] * _PG_HEAD_LD)
+    p = layout_size(policy_layout(obs_dim, hidden))
+    return wt + _pad4(p + 1) + pg_tile_floats(obs_dim, hidden)
 
 
 def pg_tile_spills(obs_dim: int, hidden: Sequence[int]) -> bool:
-    """Whether B9 takes the workspace route: no sub-tile of 32, 16 or 8
-    rows fits in one block's shared memory (two layers wider than 1114,
-    four wider than 668 at obs 42), so the 8-row sub-tile's activations
-    live in the block's slice of the workspace."""
-    return not any(4 * pg_tile_floats(obs_dim, tuple(hidden), r)
-                   <= _native.MAX_SMEM for r in (32, 16, 8))
+    """Whether B9 takes the workspace route: its shared-memory block
+    (`pg_smem_floats`) does not fit in one block's shared memory (one
+    layer wider than 139, two wider than 84, three wider than 65, at obs
+    42), so the weights are read from the group buffer and the tile and
+    the accumulators live in the block's slice of the workspace."""
+    return 4 * pg_smem_floats(obs_dim, tuple(hidden)) > _native.MAX_SMEM
 
 
 def pg_tile_rows(obs_dim: int, hidden: Sequence[int]) -> int:
-    """B9's sub-tile row count (tile_rows in csrc/lrpg_update.cu): the
-    largest of 32, 16 and 8 whose tile fits in one block's shared memory,
-    else 8 on the workspace route (`pg_tile_spills`); 0 for a shape B9
-    does not take (no layer, or a width below 1)."""
+    """B9's tile rows (kPgRows in csrc/lrpg_update.cu): 64 on either
+    route; 0 for a shape B9 does not take (no layer, or a width below
+    1)."""
     hidden = tuple(hidden)
     if not hidden or min(hidden) < 1:
         return 0
-    return next((r for r in (32, 16, 8)
-                 if 4 * pg_tile_floats(obs_dim, hidden, r)
-                 <= _native.MAX_SMEM), _PG_SPILL_ROWS)
+    return _PG_ROWS
 
 
 def pg_plan(obs_dim: int, hidden: Sequence[int], n_rows: int):
-    """B9's pass-1 plan (plan in csrc/lrpg_update.cu): (sub-tile rows,
-    rows per block, blocks). The block count is at most 256 and at most
-    PG_PARTIAL_FLOATS / (P + 1) for P parameters, so that the partial rows
-    of a wide network stay within 512 MB."""
+    """B9's pass-1 plan (plan in csrc/lrpg_update.cu): (tile rows, rows per
+    block, blocks). The block count is at most 128 and at most
+    PG_WORK_FLOATS / (P + 1 + tile) for P parameters (tile: the workspace
+    route's tile, else 0), so that the workspace of a wide network stays
+    within 512 MB."""
+    hidden = tuple(hidden)
     rows = pg_tile_rows(obs_dim, hidden)
-    p = layout_size(policy_layout(obs_dim, hidden))
-    cap = max(1, min(_PG_MAX_BLOCKS, PG_PARTIAL_FLOATS // (p + 1)))
+    per = layout_size(policy_layout(obs_dim, hidden)) + 1
+    if pg_tile_spills(obs_dim, hidden):
+        per += -(-pg_tile_floats(obs_dim, hidden, True) // 32) * 32
+    cap = max(1, min(_PG_MAX_BLOCKS, PG_WORK_FLOATS // per))
     tiles = -(-n_rows // rows)
     rpb = -(-tiles // cap) * rows
     return rows, rpb, -(-n_rows // rpb)
@@ -221,22 +292,21 @@ def pg_plan(obs_dim: int, hidden: Sequence[int], n_rows: int):
 def pg_workspace_floats(obs_dim: int, hidden: Sequence[int],
                         n_rows: int) -> int:
     """Floats of B9's workspace (cp_lrpg_workspace_floats): every block's
-    partial row of P + 1 floats and, on the workspace route, every block's
-    sub-tile (128-byte aligned)."""
+    partial row of P + 1 floats (all of them rounded up to 32) and, on the
+    workspace route, every block's tile (rounded up to 32)."""
     hidden = tuple(hidden)
-    spill = pg_tile_spills(obs_dim, hidden)
     _, _, blocks = pg_plan(obs_dim, hidden, n_rows)
     p = layout_size(policy_layout(obs_dim, hidden))
-    tile = (-(-pg_tile_floats(obs_dim, hidden, _PG_SPILL_ROWS, False) // 32)
-            * 32 if spill else 0)
-    return blocks * (p + 1 + tile)
+    tile = (-(-pg_tile_floats(obs_dim, hidden, True) // 32) * 32
+            if pg_tile_spills(obs_dim, hidden) else 0)
+    return -(-blocks * (p + 1) // 32) * 32 + blocks * tile
 
 
 def lrpg_covers(obs_dim: int, hidden: Sequence[int]) -> bool:
     """The shapes B9 takes: any torso of at least 1 hidden layer, any
-    width, as the reference's kernel. Up to two layers of 1114 or four of
-    668 (obs 42) the sub-tile lives in shared memory, wider in the
-    workspace (`pg_tile_spills`)."""
+    width, as the reference's kernel. Where its block fits in shared
+    memory (hidden (64, 64) at obs 42), the weights, the accumulators and
+    the tile live there, wider in the workspace (`pg_tile_spills`)."""
     return pg_tile_rows(obs_dim, hidden) > 0
 
 
@@ -897,17 +967,29 @@ def dqn_update_phase(groups, batches, t0: int, hidden, *, lr: float,
                 d.copy_(s)
         return out[4]
 
+    return _dqn_launch(groups, batches, t0, hidden, lr, gamma, tau,
+                       double_dqn, False)
+
+
+def _dqn_launch(groups, batches, t0, hidden, lr, gamma, tau, double_dqn,
+                spill):
+    """One launch of csrc/dqn_update.cu on checked CUDA inputs; `spill`
+    puts the row tiles' buffers in the workspace at any width."""
+    k_updates, batch, obs_dim = batches[0].shape
+    dev = groups[0].device
+    lay = qnet_layout(obs_dim, hidden)
     torso, (net,), widths = _learner_shape(dev, hidden, (tuple(lay),))
     dims = _native.DqnDims(obs_dim=obs_dim, batch=batch, k_updates=k_updates,
-                           double_dqn=int(double_dqn), torso=torso, q=net)
-    # The Q-net is net 0 of the stage engine: its lr rides in actor_lr.
+                           double_dqn=int(double_dqn), torso=torso, q=net,
+                           spill=int(spill))
+    # The Q-net is net 0 of the gradient stage: its lr rides in actor_lr.
     consts = _learner_consts(batch=batch, actor_lr=lr, critic_lr=lr,
                              gamma=gamma, tau=tau, lr_schedule=None)
     lib = _native.load_library()
     loss = torch.empty(k_updates, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        key = ("dqn", dev, stream, obs_dim, batch, hidden)
+        key = ("dqn", dev, stream, obs_dim, batch, hidden, spill)
         ws = _workspaces.get(key)
         if ws is None:
             size = lib.cp_dqn_workspace_floats(_native.struct_ptr(dims),
@@ -1026,9 +1108,9 @@ def lrpg_update_phase(groups, window, t0: int, hidden, *, lr: float,
     the window's loss ().
 
     CUDA buffers launch the hand-written kernel (csrc/lrpg_update.cu, a
-    gradient pass and an Adam pass) on the current stream, its sub-tile in
-    shared memory or, where none fits (`pg_tile_spills`), in the
-    workspace. CPU buffers run `lrpg_update_phase_math` and copy its
+    gradient pass and an Adam pass) on the current stream, its weights,
+    accumulators and tile in shared memory or, where they do not fit
+    (`pg_tile_spills`), in the workspace. CPU buffers run `lrpg_update_phase_math` and copy its
     results into the buffers. Any other device, a shape B9 does not cover
     (`lrpg_covers`), or a malformed argument raises."""
     hidden = tuple(hidden)
@@ -1065,9 +1147,9 @@ def lrpg_update_phase(groups, window, t0: int, hidden, *, lr: float,
 
 
 def _lrpg_launch(groups, window, t0, hidden, lr, entropy_coef, spill):
-    """One launch of csrc/lrpg_update.cu on checked CUDA inputs, its
-    sub-tile in the workspace if `spill`, else in shared memory (where no
-    tile fits there, the library rejects the dims)."""
+    """One launch of csrc/lrpg_update.cu on checked CUDA inputs, on the
+    workspace route if `spill`, else on the shared-memory route (where its
+    block does not fit there, the library rejects the dims)."""
     n, obs_dim = window[0].shape
     dev = groups[0].device
     torso, (net,), widths = _learner_shape(

@@ -32,15 +32,24 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      with epsilon 0.3: actions exact except at near-ties of the twin's Q
      values (top-2 gap below 1e-5, counted and left out of the float
      comparison); its time per env-step beside B1's (the physics' floor);
-  9. B5 (the fused K-update double-DQN learner kernel) against its twin at
-     the DQN defaults (hidden (256, 256), obs 42, batch 256, K 8) from
-     warmed Adam moments, double DQN on and off, and at (2048,) and (8,) *
-     5, two runs bit for bit each;
+  9. B5 (the fused K-update double-DQN learner kernel: forward items of
+     a pass x 8 rows, backward items of 4 rows, then the gradient tiles,
+     3 grid barriers per update) against its twin at the DQN
+     defaults (hidden (256, 256), obs 42, batch 256, K 8) from warmed Adam
+     moments, double DQN on and off, and at (2048,) (its items' buffers in
+     the workspace) and (8,) * 5, two runs bit for bit each;
   10. DQN main path with the counters zeroed: `train.main --agent dqn` at
      its defaults for 64 env-steps plus a 200-step greedy eval; B4 must
      launch once per train step and B5 once per learning train step (7),
      the DDPG and physics kernels never;
   11. where a default DQN train step's time goes, as phase 7;
+  11b. the stage split: B5 (DQN defaults, K 8) and B3 (DDPG defaults, K
+     16), each built again from its source with -DCP_STAGE_CLOCK into a
+     library of its own (clock64() marks of every block at each grid
+     barrier and at each stage's items' start): per grid-synced stage of
+     an update, its work on the slowest block, of which the lead thread's
+     op building, and the barrier, and B5's item phases; B9's tile phases
+     the same way; B5 must take at most 3 barriers per update;
   12. B8 (LRPG softmax policy in the env loop, Gumbel-max sampling)
      against its twin, 4096 envs, hidden (64, 64), (2048,) and (8,) * 5,
      3 steps from a state 6 sampled steps past a reset, seeded random
@@ -48,9 +57,11 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      logits + Gumbel draws (top-2 gap below 1e-5, counted), timed at T =
      32 beside its twin and B4 re-timed in the same call, both per
      env-step beside B1's;
-  13. B9 (the fused LRPG update) against its twin at the LRPG defaults (N =
-     131,072 window rows, hidden (64, 64), lr 3e-4, entropy 0.1) and at
-     (2048,) and (8,) * 5 from warmed Adam moments, two runs bit for bit;
+  13. B9 (the fused LRPG update: 64-row tiles, register-tiled products,
+     weights and accumulators resident in shared memory) against its twin
+     at the LRPG defaults (N = 131,072 window rows, hidden (64, 64), lr
+     3e-4, entropy 0.1) and at (2048,) (the workspace route) and (8,) * 5
+     from warmed Adam moments, two runs bit for bit;
   14. LRPG main path with the counters zeroed: `train.main --agent lrpg`
      for 256 env-steps (8 train steps) plus a 200-step greedy eval; B8 and
      B9 must launch once per train step, B1-B5 never; then, zeroed again,
@@ -141,6 +152,11 @@ LRPG_T = 32
 B9_N = N_ENVS * LRPG_T
 NAF_SIGMAS = (0.2, 0.0)  # compared exploration scales: default, greedy mu
 B7_BATCH, B7_K = 256, 8  # NAF's batch_size and updates_per_step
+# The phase marks of B5's items and of B9's tile (CP_MARK ids 3, 4, ...
+# in csrc/dqn_update.cu and csrc/lrpg_update.cu), for the stage split.
+B5_PHASES = ("inputs", "torso forward", "head", "TD and backward")
+B9_PHASES = ("obs in", "torso forward", "head", "softmax", "head backward",
+             "LayerNorm backward", "layer grads", "dh = dz W")
 B7_CLIPS = (10.0, 0.05, 0.0)  # the default clip, one that fires, none
 # The H100 SXM's published peaks (NVIDIA's data sheet): float32 outside
 # the tensor cores and HBM3 bandwidth. A kernel's bound is the larger of
@@ -1059,6 +1075,224 @@ def phase_dqn_step_split(dev):
             plain_updates, 3),
     }
     _print_split("dqn train-step split", parts, lambda: agent.train_step(st))
+
+
+def _stage_clock_build(src: str, tag: str):
+    """Starts nvcc on one learner source with -DCP_STAGE_CLOCK (the stage
+    clock of csrc/learner_stages.cuh) into a library of its own beside the
+    main one, compiled beside this checkout's csrc/*.cuh; the wrappers
+    never load it. Returns (the process, the library path)."""
+    import glob
+    import os
+    import shutil
+
+    from cartpoleplusplus_tpu_torch.ops import _native
+
+    out = os.path.join(_native.BUILD_DIR, "stage_clock", tag)
+    os.makedirs(out, exist_ok=True)
+    for h in glob.glob(os.path.join(_native.CSRC, "*.cuh")):
+        shutil.copy(h, out)
+    dst = os.path.join(out, os.path.basename(src))
+    shutil.copy(src, dst)
+    lib = os.path.join(out, "libstageclock.so")
+    cmd = [_native._nvcc(), *_native.NVCC_FLAGS, "-DCP_STAGE_CLOCK",
+           "-shared", "-o", lib, dst]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), lib
+
+
+def _stage_clock_load(proc, path):
+    """Waits for _stage_clock_build's nvcc and loads its library with the
+    main library's argument types."""
+    import ctypes
+
+    from cartpoleplusplus_tpu_torch.ops import _native
+
+    out = proc.communicate(timeout=600)[0]
+    assert proc.returncode == 0, f"stage-clock nvcc failed:\n{out}"
+    main_lib, lib = _native.load_library(), ctypes.CDLL(path)
+    for name in ("cp_ddpg_workspace_floats", "cp_ddpg_update_phase",
+                 "cp_dqn_workspace_floats", "cp_dqn_update_phase",
+                 "cp_lrpg_workspace_floats", "cp_lrpg_update_phase"):
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = getattr(main_lib, name).argtypes
+            fn.restype = getattr(main_lib, name).restype
+    lib.cp_stage_clock_read.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.cp_error_string = main_lib.cp_error_string
+    return lib
+
+
+@contextlib.contextmanager
+def _use_library(lib):
+    """The learner wrappers launch from `lib` (and a workspace cache of
+    their own) inside the block."""
+    from cartpoleplusplus_tpu_torch.ops import _native
+    from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
+
+    saved = _native._lib, lk._workspaces
+    _native._lib, lk._workspaces = lib, {}
+    try:
+        yield
+    finally:
+        _native._lib, lk._workspaces = saved
+
+
+def _clock_run(lib, run):
+    """One launch of run() through a stage-clock library, after a warm-up
+    launch: (its CUDA-event ms, per block the marks' kinds and clocks)."""
+    import numpy as np
+    import torch
+
+    k_blocks, k_marks = 512, 2048  # cp_clock::kBlocks, kMarks
+    with _use_library(lib):
+        run()
+        torch.cuda.synchronize()
+        assert lib.cp_stage_clock_reset() == 0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        torch.cuda.synchronize()
+    counts = np.zeros(k_blocks, np.int32)
+    marks = np.zeros(k_blocks * k_marks, np.int64)
+    assert lib.cp_stage_clock_read(marks.ctypes.data, counts.ctypes.data) == 0
+    blocks = [marks[b * k_marks:b * k_marks + counts[b]]
+              for b in range(k_blocks) if counts[b] > 0]
+    return start.elapsed_time(end), [(m & 15, m >> 4) for m in blocks]
+
+
+def _phase_totals(kind, t) -> dict:
+    """Clocks from each mark to the next, summed by the later mark's kind
+    (the phase it ends) for kinds 3 and up."""
+    out = {}
+    for kd, dt in zip(kind[1:], t[1:] - t[:-1]):
+        if kd >= 3:
+            out[int(kd)] = out.get(int(kd), 0) + int(dt)
+    return out
+
+
+def _stage_split(lib, run, k_updates, label, phases=None) -> dict:
+    """One launch of run() through a stage-clock library, split by its
+    marks: per grid-synced stage of an update, the critical path of its
+    work (the slowest block, from the last barrier's release to its own
+    arrival at the next), of which the lead thread's op building (to the
+    items' start), and the barrier itself (the release after the last
+    block's arrival: the least wait over the blocks); each the mean over
+    the K updates, in us at the clock that the launch's CUDA-event time
+    implies (block 0's first to last mark). phases: names of the kernel's
+    own phase marks (CP_MARK ids from 3), reported per update on the
+    slowest block."""
+    ms, blocks = _clock_run(lib, run)
+    stages = []  # per block: [(start, items or None, arrive, release)]
+    for kind, t in blocks:
+        assert kind[0] == 0, "the first mark is the kernel's start"
+        rows, t0, items, arrive = [], t[0], None, None
+        for kd, tt in zip(kind[1:], t[1:]):
+            if kd == 1:
+                items = tt
+            elif kd == 2:
+                arrive = tt
+            elif kd == 0:
+                rows.append((t0, items, arrive, tt))
+                t0, items, arrive = tt, None, None
+        stages.append(rows)
+    n_stages = len(stages[0])
+    assert all(len(r) == n_stages for r in stages), "blocks disagree"
+    assert n_stages % k_updates == 0
+    per = n_stages // k_updates
+    first = stages[0]
+    mhz = float(first[-1][3] - first[0][0]) / (ms * 1e3)  # cycles per us
+    split = []
+    for s in range(per):
+        work, build, barrier = [], [], []
+        for k in range(k_updates):
+            i = k * per + s
+            work.append(max(r[i][2] - r[i][0] for r in stages) / mhz)
+            build.append(max((r[i][1] - r[i][0]) if r[i][1] is not None
+                             else 0 for r in stages) / mhz)
+            barrier.append(min(r[i][3] - r[i][2] for r in stages) / mhz)
+        split.append((statistics.mean(work), statistics.mean(build),
+                      statistics.mean(barrier)))
+    total = sum(w + b for w, _, b in split)
+    listed = "; ".join(
+        f"stage {i + 1}: work {w:.2f} us (op building {o:.2f}), barrier "
+        f"{b:.2f} us" for i, (w, o, b) in enumerate(split))
+    own = ""
+    if phases:
+        tot = [_phase_totals(kind, t) for kind, t in blocks]
+        own = "; phases per update on the slowest block: " + ", ".join(
+            f"{name} {max(x.get(i + 3, 0) for x in tot) / mhz / k_updates:.2f}"
+            f" us" for i, name in enumerate(phases))
+    print(f"{label} stage split: {len(stages)} blocks, {per} grid barriers "
+          f"per update; per update (mean of K {k_updates}): {listed}; work "
+          f"{sum(w for w, _, _ in split):.2f} us (op building "
+          f"{sum(o for _, o, _ in split):.2f}), barriers "
+          f"{sum(b for _, _, b in split):.2f} us, sum {total:.2f} us; the "
+          f"launch {ms:.4f} ms = {ms * 1e3 / k_updates:.2f} us per update "
+          f"(clock {mhz:.0f} MHz by the marks){own}", flush=True)
+    return dict(barriers_per_update=per, split=split, ms=ms)
+
+
+def _phase_split(lib, run, label, phases, per_block) -> dict:
+    """One launch of run() through a stage-clock library, split by the
+    kernel's own phase marks (CP_MARK ids from 3, in `phases` order): each
+    phase's clocks on the slowest block over its whole launch, in us per
+    `per_block` (e.g. tiles a block), at the clock that the launch's
+    CUDA-event time implies (the slowest block's first to last mark)."""
+    ms, blocks = _clock_run(lib, run)
+    span = max(int(t[-1] - t[0]) for _, t in blocks)
+    mhz = span / (ms * 1e3)
+    tot = [_phase_totals(kind, t) for kind, t in blocks]
+    us = {name: max(x.get(i + 3, 0) for x in tot) / mhz / per_block
+          for i, name in enumerate(phases)}
+    print(f"{label} phase split: {len(blocks)} blocks; per {per_block} "
+          f"of a block's work, on the slowest block: " + ", ".join(
+              f"{k} {v:.2f} us" for k, v in us.items())
+          + f"; the launch {ms:.4f} ms (clock {mhz:.0f} MHz by the marks)",
+          flush=True)
+    return dict(us=us, ms=ms)
+
+
+def phase_stage_split(dev, dqn_src=None, label="B5"):
+    """How an update's time splits between its grid barriers, the lead
+    thread's op building and the work between them: B5 at the DQN
+    defaults (K 8, batch 256, hidden (256, 256), double DQN; and its row
+    chain's phases) and B3, the stage engine, at the DDPG defaults (K 16),
+    each through a separate build of its source with the stage clock; and
+    B9's tile at the LRPG defaults by its phases. dqn_src: another B5
+    source to measure in place of this checkout's (an earlier version's,
+    whose DqnDims the wrapper's fills)."""
+    import os
+
+    from cartpoleplusplus_tpu_torch.ops import _native
+    from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
+
+    builds = {
+        label: _stage_clock_build(
+            dqn_src or os.path.join(_native.CSRC, "dqn_update.cu"),
+            label.replace(" ", "_")),
+        "B3": _stage_clock_build(os.path.join(_native.CSRC,
+                                              "ddpg_update.cu"), "B3"),
+        "B9": _stage_clock_build(os.path.join(_native.CSRC,
+                                              "lrpg_update.cu"), "B9")}
+    libs = {k: _stage_clock_load(*v) for k, v in builds.items()}
+    hidden = (256, 256)
+    groups, batches = _b5_inputs(dev, hidden, B5_BATCH, B5_K, seed=21)
+    out = {label: _stage_split(libs[label], lambda: lk.dqn_update_phase(
+        groups, batches, B3_T0, hidden, lr=5e-5, gamma=0.99, tau=0.01),
+        B5_K, label, phases=B5_PHASES)}
+    groups, batches = _b3_inputs(dev, hidden, B3_BATCH, B3_K, seed=21)
+    out["B3"] = _stage_split(libs["B3"], lambda: lk.ddpg_update_phase(
+        groups, batches, B3_T0, hidden, actor_lr=1e-4, critic_lr=1e-3,
+        gamma=0.99, tau=0.01), B3_K, "B3")
+    groups, window = _b9_inputs(dev, LRPG_HIDDEN, seed=29)
+    _, rpb, _ = lk.pg_plan(42, LRPG_HIDDEN, B9_N)
+    out["B9"] = _phase_split(libs["B9"], lambda: lk.lrpg_update_phase(
+        groups, window, B3_T0, LRPG_HIDDEN, lr=3e-4, entropy_coef=0.1),
+        "B9", B9_PHASES, rpb // lk.pg_tile_rows(42, LRPG_HIDDEN))
+    return out
 
 
 def _random_policy(dev, hidden, seed):
@@ -2149,6 +2383,8 @@ def main() -> int:
     b5 = phase_b5(dev)
     dqn_launches = phase_dqn_main_path()
     phase_dqn_step_split(dev)
+    split = phase_stage_split(dev)
+    assert split["B5"]["barriers_per_update"] <= 3, split["B5"]
     b8 = phase_b8(dev, floor_us)
     b9 = phase_b9(dev)
     lrpg_launches = phase_lrpg_main_path()
@@ -2194,7 +2430,7 @@ def main() -> int:
              launched_by="train.main --agent dqn (DQN defaults)",
              max_abs_err=b4["max_abs_err"],
              ms=b4["ms"], plain_ms=b4["plain_ms"], **_bound_keys(b4)),
-        dict(name="B5 dqn_update_phase", route="cuda", design="stages",
+        dict(name="B5 dqn_update_phase", route="cuda", design="row-chain",
              source="cartpoleplusplus_tpu_torch/csrc/dqn_update.cu",
              replaces="cartpoleplusplus_tpu/ops/learner_kernel.py:862",
              launches=dqn_launches["B5"],
@@ -2222,7 +2458,7 @@ def main() -> int:
              launched_by="train.main --agent lrpg",
              max_abs_err=b8["max_abs_err"],
              ms=b8["ms"], plain_ms=b8["plain_ms"], **_bound_keys(b8)),
-        dict(name="B9 lrpg_update_phase", route="cuda", design="row-sliced",
+        dict(name="B9 lrpg_update_phase", route="cuda", design="tiled",
              source="cartpoleplusplus_tpu_torch/csrc/lrpg_update.cu",
              replaces="cartpoleplusplus_tpu/ops/learner_kernel.py:1399",
              launches=lrpg_launches["B9"],

@@ -7,7 +7,7 @@ them there without tests/conftest.py (which imports it):
 
 This file imports no JAX. Batches of 1000 envs leave a ragged last tile,
 B3's and B5's minibatch of 200 rows a ragged last row tile, and B9's
-windows of 1000 and 777 rows a ragged last sub-tile.
+windows of 1000 and 777 rows a ragged last tile.
 """
 
 import contextlib
@@ -320,6 +320,46 @@ def test_b5_matches_twin(cuda, hidden, double_dqn):
                                                  got2 + [loss2]))
 
 
+def test_b5_plan_matches_the_kernel(cuda):
+    """The kernel's workspace equals `dqn_workspace_floats` (its plan:
+    forward items of 8 rows, their buffers in shared memory up to one layer
+    of 1008 at obs 42 and in the workspace past it, or wherever spill
+    asks), at batches 200 and 256 and on both sides of the boundary."""
+    lib = _native.load_library()
+    for hidden in ((256, 256), (8,) * 5, (1008,), (1009,), (2048,),
+                   (64, 48, 32)):
+        lay = lk.qnet_layout(42, hidden)
+        torso, (net,), widths = lk._learner_shape(cuda, hidden, (tuple(lay),))
+        for batch in (200, 256):
+            for spill in (False, True):
+                dims = _native.DqnDims(obs_dim=42, batch=batch, k_updates=8,
+                                       double_dqn=1, torso=torso, q=net,
+                                       spill=int(spill))
+                size = lib.cp_dqn_workspace_floats(_native.struct_ptr(dims),
+                                                   widths)
+                assert size == lk.dqn_workspace_floats(42, hidden, batch,
+                                                       spill), (hidden, batch)
+
+
+@pytest.mark.parametrize("double_dqn", [True, False], ids=["double", "max"])
+def test_b5_routes_repeat_their_bits(cuda, double_dqn):
+    """At the DQN defaults (batch 256, K 8, hidden (256, 256)) the items'
+    buffers in shared memory and in the workspace give the same bits, and
+    each route gives the same bits twice."""
+    hidden = (256, 256)
+    assert not lk.dqn_plan(42, hidden, 256)[2]
+    groups, batches = _b5_inputs(cuda, hidden, 256, 8, seed=21)
+    runs = []
+    for spill in (False, True, False, True):
+        got = [g.clone() for g in groups]
+        loss = lk._dqn_launch(got, batches, 100, hidden, 5e-5, 0.99, 0.01,
+                              double_dqn, spill)
+        torch.cuda.synchronize()
+        runs.append(got + [loss])
+    for run in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], run))
+
+
 def test_b5_rejects_uncovered_shapes(cuda):
     groups, batches = _b5_inputs(cuda, (32, 32), 16, 1, seed=0)
     kw = dict(lr=1e-3, gamma=0.99, tau=0.01)
@@ -439,14 +479,14 @@ def _b9_inputs(dev, hidden, n, seed):
 
 @pytest.mark.parametrize("hidden,n", [
     ((64, 64), 1000), ((64, 64), 131072), ((32, 48, 16), 777), ((48,), 4096),
-    ((256, 300), 1000), ((1024, 40), 777), ((2048, 2048), 1000),
-    ((1024,) * 4, 777), ((8,) * 5, 1000)])
+    ((64,) * 3, 1000), ((256, 300), 1000), ((1024, 40), 777),
+    ((2048, 2048), 1000), ((1024,) * 4, 777), ((8,) * 5, 1000)])
 def test_b9_matches_twin(cuda, hidden, n):
     """One update from warmed moments (Adam count 100): the 3 groups and
     the loss within the reference's kernel-vs-XLA bar (rtol 2e-4, atol
     1e-5), one counted launch, and the same bits from a second run. The
-    shapes (2048, 2048) and (1024,) * 4 fit no shared-memory sub-tile:
-    the workspace route."""
+    shapes from (256, 300) on do not fit in shared memory: the workspace
+    route."""
     groups, window = _b9_inputs(cuda, hidden, n, seed=2)
     kw = dict(lr=3e-4, entropy_coef=0.1)
     lay = lk.policy_layout(42, hidden)
@@ -469,14 +509,13 @@ def test_b9_matches_twin(cuda, hidden, n):
 
 def test_b9_tile_plan_matches_the_kernel(cuda):
     """The kernel's workspace on the route `pg_tile_spills` picks equals
-    `pg_workspace_floats` (its plan: sub-tile rows, block cap, spilled
-    tiles), at the boundaries of the 32-, 16- and 8-row shared-memory
-    sub-tiles and past them; past them the shared-memory route takes no
-    tile (a zero workspace)."""
+    `pg_workspace_floats` (its plan: 64-row tiles, block cap, spilled
+    tiles), at the boundaries of the shared-memory route for one to four
+    layers and past them; past them the shared-memory route takes no
+    block (a zero workspace)."""
     lib = _native.load_library()
-    for hidden in ((64, 64), (272, 272), (273, 273), (552, 552), (553, 553),
-                   (1114, 1114), (1115, 1115), (162,) * 4, (163,) * 4,
-                   (331,) * 4, (332,) * 4, (668,) * 4, (669,) * 4,
+    for hidden in ((64, 64), (139,), (140,), (84, 84), (85, 85), (65,) * 3,
+                   (66,) * 3, (55,) * 4, (56,) * 4, (8,) * 5, (2048,),
                    (2048, 2048)):
         lay = lk.policy_layout(42, hidden)
         assert lk.lrpg_covers(42, hidden), hidden
@@ -493,12 +532,13 @@ def test_b9_tile_plan_matches_the_kernel(cuda):
                 assert size == 0, hidden
 
 
-def test_b9_routes_give_the_same_bits(cuda):
-    """At hidden (600, 600) the shared-memory route runs 8-row sub-tiles,
-    as the workspace route does: the two give the same bits."""
-    hidden = (600, 600)
-    assert lk.pg_tile_rows(42, hidden) == 8 and not lk.pg_tile_spills(
-        42, hidden)
+@pytest.mark.parametrize("hidden", [(64, 64), (32, 48, 16)],
+                         ids=["h64x2", "h32-48-16"])
+def test_b9_routes_give_the_same_bits(cuda, hidden):
+    """Where the shared-memory route takes the network, the workspace route
+    runs the same arithmetic in the same order: the two give the same
+    bits, on a window with a ragged last tile."""
+    assert not lk.pg_tile_spills(42, hidden)
     groups, window = _b9_inputs(cuda, hidden, 1000, seed=4)
     runs = []
     for spill in (False, True):
@@ -517,9 +557,9 @@ def test_b9_rejects_uncovered_shapes(cuda):
     with pytest.raises(ValueError, match="action"):
         lk.lrpg_update_phase(groups, (window[0], window[1].float(),
                                       window[2]), 0, (32, 32), **kw)
-    wide, wwin = _b9_inputs(cuda, (1115, 1115), 64, seed=0)
-    with pytest.raises(ValueError, match="rejected"):  # no tile in smem
-        lk._lrpg_launch(wide, wwin, 0, (1115, 1115), 1e-3, 0.1, False)
+    wide, wwin = _b9_inputs(cuda, (85, 85), 64, seed=0)
+    with pytest.raises(ValueError, match="rejected"):  # no block in smem
+        lk._lrpg_launch(wide, wwin, 0, (85, 85), 1e-3, 0.1, False)
 
 
 def test_lrpg_cli_launches_b8_and_b9_per_train_step(cuda):

@@ -184,8 +184,8 @@ def test_wrapper_rejects_bad_arguments():
 
 def test_dqn_covers_and_layout():
     """B5 takes any torso of at least one layer, as the reference's
-    kernel: any depth, and any width (row stages walk wide inputs in
-    chunks)."""
+    kernel: any depth, and any width (a wide layer's row tiles keep their
+    buffers in the workspace)."""
     assert lk.dqn_covers(F, (256, 256)) and lk.dqn_covers(F, (64,))
     assert lk.dqn_covers(F, (8,) * 4) and lk.dqn_covers(F, (8,) * 5)
     assert lk.dqn_covers(F, (2048,)) and lk.dqn_covers(F, (3,) * 12)
@@ -193,6 +193,28 @@ def test_dqn_covers_and_layout():
     q = QNetMLP(F, 5, (16, 24, 8))
     assert [(n, tuple(p.shape)) for n, p in q.named_parameters()] == [
         (n, tuple(s)) for n, s in lk.qnet_layout(F, (16, 24, 8))]
+
+
+def test_b5_plan_and_workspace():
+    """B5's plan: forward items of one pass over 8 batch rows (96 at the
+    DQN defaults, 3 passes x 32 tiles), their buffers in shared memory up
+    to one layer of 1008 at obs 42 and in the workspace past it or when
+    asked; the workspace holds the gradient stage's rows, the passes' Q
+    values and, on the spill route, every forward item's buffers."""
+    assert lk.dqn_plan(F, (256, 256), 256) == (8, 96, False)
+    assert lk.dqn_plan(F, (256, 256), 200) == (8, 75, False)
+    assert lk.dqn_plan(F, (256, 256), 256, spill=True) == (8, 96, True)
+    assert not lk.dqn_plan(F, (1008,), 256)[2]
+    assert lk.dqn_plan(F, (1009,), 256)[2] and lk.dqn_plan(F, (2048,), 256)[2]
+    assert not lk.dqn_plan(F, (8,) * 5, 256)[2]
+    rows = (4 * 256 * 512 + 256 * 256 + 256 * 256 + 256 * 5 + 256
+            + 3 * 256 * 5)
+    assert lk.dqn_workspace_floats(F, (256, 256), 256) == rows
+    tile = 12 * 256 + 8 * 256
+    assert lk.dqn_workspace_floats(F, (256, 256), 256, spill=True) == (
+        rows + 96 * tile)
+    assert lk.dqn_workspace_floats(F, (8,) * 5, 200) == (
+        4 * 200 * 40 + 200 * 32 + 200 * 8 + 1024 + 224 + 3008)
 
 
 def test_learner_resolution():

@@ -206,22 +206,23 @@ def test_wrapper_rejects_bad_arguments():
 
 
 def test_lrpg_covers_and_layout():
-    """B9 takes any depth >= 1 and any width: hidden (64, 64) runs 32 rows
-    in 64,256 bytes of shared memory, wider networks fewer rows, up to two
-    layers of 1114 or four of 668; wider ones take the workspace route's
-    8-row sub-tile."""
-    assert lk.pg_tile_rows(F, (64, 64)) == 32
-    assert 4 * lk.pg_tile_floats(F, (64, 64), 32) == 64_256
-    assert lk.pg_tile_rows(F, (16,) * 4) == 32
-    assert lk.pg_tile_rows(F, (256, 256)) == 32
-    assert lk.pg_tile_rows(F, (512, 512)) == 16
-    assert lk.pg_tile_rows(F, (1024, 1024)) == 8
-    assert lk.pg_tile_rows(F, (512,) * 4) == 8
-    assert not lk.pg_tile_spills(F, (1114, 1114))
-    for hidden in ((1115, 1115), (2048, 2048), (1024,) * 4, (669,) * 4):
+    """B9 takes any depth >= 1 and any width, in tiles of 64 rows: hidden
+    (64, 64) keeps its weights, accumulators and tile in 171,696 bytes of
+    shared memory, and so do three layers of 64 and the deep narrow
+    torsos; wider networks (two layers past 84 at obs 42) take the
+    workspace route."""
+    assert lk.pg_tile_rows(F, (64, 64)) == 64
+    assert 4 * lk.pg_smem_floats(F, (64, 64)) == 171_696
+    assert lk.pg_tile_floats(F, (64, 64)) == 28_132
+    assert lk.pg_tile_floats(F, (64, 64), spill=True) == 28_132 - F * 68
+    for hidden in ((64, 64), (64,) * 3, (16,) * 4, (8,) * 5, (84, 84),
+                   (139,), (32, 48, 16)):
+        assert not lk.pg_tile_spills(F, hidden), hidden
+    for hidden in ((85, 85), (140,), (66,) * 3, (256, 256), (2048, 2048),
+                   (1024,) * 4):
         assert lk.lrpg_covers(F, hidden) and lk.pg_tile_spills(F, hidden)
-        assert lk.pg_tile_rows(F, hidden) == 8
-    assert lk.lrpg_covers(F, (8,) * 5) and lk.pg_tile_rows(F, (8,) * 5) == 32
+        assert lk.pg_tile_rows(F, hidden) == 64
+    assert lk.lrpg_covers(F, (8,) * 5) and lk.pg_tile_rows(F, (8,) * 5) == 64
     assert lk.lrpg_covers(F, (2048,)) and lk.lrpg_covers(F, (3,) * 12)
     assert not lk.lrpg_covers(F, ())
     net = PolicyMLP(F, 5, (16, 24, 8))
@@ -230,22 +231,24 @@ def test_lrpg_covers_and_layout():
 
 
 def test_b9_plan_caps_the_partial_rows():
-    """B9's pass-1 plan: 256 blocks of 512 rows over the default window;
-    a wide network takes fewer blocks, so that its partial rows stay
-    within PG_PARTIAL_FLOATS, and on the workspace route each block also
-    holds its 8-row sub-tile in the workspace."""
-    assert lk.pg_plan(F, (64, 64), 131072) == (32, 512, 256)
+    """B9's pass-1 plan: 128 blocks of 1024 rows (16 tiles) over the
+    default window; a wide network takes fewer blocks, so that its
+    workspace stays within PG_WORK_FLOATS, and on the workspace route each
+    block also holds its tile there."""
+    assert lk.pg_plan(F, (64, 64), 131072) == (64, 1024, 128)
     p = lk.layout_size(lk.policy_layout(F, (64, 64)))
-    assert lk.pg_workspace_floats(F, (64, 64), 131072) == 256 * (p + 1)
-    for hidden in ((2048, 2048), (1024,) * 4):
-        rows, rpb, blocks = lk.pg_plan(F, hidden, 1000)
+    assert lk.pg_workspace_floats(F, (64, 64), 131072) == 128 * (p + 1)
+    for hidden in ((2048, 2048), (1024,) * 4, (1024, 40)):
+        rows, rpb, blocks = lk.pg_plan(F, hidden, 777)
         p = lk.layout_size(lk.policy_layout(F, hidden))
-        assert rows == 8 and rpb % 8 == 0 and blocks * rpb >= 1000
-        assert blocks * (p + 1) <= lk.PG_PARTIAL_FLOATS
-        tile = lk.pg_tile_floats(F, hidden, 8, with_wt=False)
-        assert (lk.pg_workspace_floats(F, hidden, 1000) - blocks * (p + 1)
-                == blocks * (-(-tile // 32) * 32))
-    assert lk.pg_plan(F, (2048, 2048), 1000) == (8, 40, 25)
+        tile = -(-lk.pg_tile_floats(F, hidden, spill=True) // 32) * 32
+        assert rows == 64 and rpb % 64 == 0 and blocks * rpb >= 777
+        parts = -(-blocks * (p + 1) // 32) * 32  # the tiles 128-byte aligned
+        assert parts - blocks * (p + 1) < 32
+        assert lk.pg_workspace_floats(F, hidden, 777) == parts + blocks * tile
+        assert parts + blocks * tile <= lk.PG_WORK_FLOATS
+    assert lk.pg_plan(F, (2048, 2048), 1000) == (64, 64, 16)
+    assert lk.pg_plan(F, (2048, 2048), 131072) == (64, 5056, 26)
 
 
 def test_learner_resolution():
