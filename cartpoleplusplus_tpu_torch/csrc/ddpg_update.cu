@@ -9,68 +9,96 @@
 //
 // Bound on the H100: not arithmetic. At the defaults (batch 256, obs 42,
 // hidden (256, 256), K = 16) one update is ~340 MFLOP of small matrix
-// products whose results feed each other: 20 dependent stages per update
-// (each layer of each pass needs the whole previous layer of its rows for
-// LayerNorm, and Adam needs the whole batch's gradient). The work per stage
-// is a few hundred thousand multiply-adds, so what bounds the phase is the
-// latency of the stage chain. The TPU kernel ran the chain as a sequential
-// grid carrying accumulators in VMEM; CUDA blocks run in no order.
+// products whose results feed each other: each layer of each pass needs the
+// whole previous layer of its rows for LayerNorm, and Adam needs the whole
+// batch's gradient, so what bounds the phase is the latency of the chain.
+// The TPU kernel ran the chain as a sequential grid carrying accumulators in
+// VMEM; CUDA blocks run in no order.
 //
-// Design: ONE cooperative persistent launch per phase, on the stage engine
-// of learner_stages.cuh (shared with B5 and B7): every block walks the same list
-// of stages and cg::this_grid().sync() orders them, so the serial
-// dependence (stage after stage, critic Adam before the actor pass, update
-// k before k + 1) is a loop inside the kernel and the launch count does
-// not depend on the number of layers or parameter tensors. Any depth >= 2
-// and any width, as the reference's kernel takes: the widths and the
-// parameter offsets are a device table, and a row stage walks a layer
-// input wider than kKc = 1024 in chunks. Row stages
-// multiply 16-row x 32-column tiles through shared memory; gradient stages
-// give every gradient element to one thread, which sums it over the batch
-// in a fixed order and applies Adam and Polyak (no float atomics, so two
-// runs give the same bits). Parameters, targets and moments are updated
-// in place in their 8 group buffers; activations, saved pre-LN values and
-// gradient rows go to the wrapper's workspace (a few MB at the defaults,
-// in L2).
+// Design: ONE cooperative persistent launch per phase on the row chains of
+// row_chain.cuh (shared with B5 and B7): per update a few stages, each a
+// list of independent items dealt to the blocks, with a grid barrier after
+// each. At actor_grad_critic "updated" (6 barriers per update, at any
+// depth):
+//   1. Critic forward: an item is a tile of kRowsF = 8 batch rows through
+//      the target actor on s' (a'), through the target critic's front on
+//      s' (layer 0, and layer 1's sums over its first H_0 inputs: the
+//      action joins there, and a' is not known yet), or through the online
+//      critic on (s, a), which keeps its pre-LN rows, layer inputs (the
+//      action joined at layer 1) and Q.
+//   2. Critic backward: an item is a tile of kRowsB = 4 rows: the target
+//      critic's rest for its rows (layer 1 from the front's sums and a',
+//      the layers above, the head: Q'), the TD epilogue, the head's
+//      backward, and per layer the LayerNorm/relu backward and dh = dz W.
+//   3. Critic gradients: every weight gradient in 32 x 32 tiles, the
+//      vectors and the loss; Adam and Polyak on each element.
+//   4. Actor forward (tiles of kRowsA = 4 rows): the actor on s (tanh
+//      head), or the updated critic's front on s.
+//   5. Actor backward: the critic's rest on (s, pi(s)), its backward from
+//      d loss / dQ = -1/B down to dQ/da (no parameter gradients), the
+//      tanh's backward, then the actor's head and layers.
+//   6. Actor gradients, Adam and Polyak.
+// Splitting the critic at layer 1 keeps each forward item to one network's
+// chain (the actor's and the critic's fronts run side by side). At "pre"
+// the actor's chain reads the critic as it was before the update, so the
+// five forward passes share stage 1, the backward lists stage 2 and the
+// gradients stage 3: 3 barriers. Any depth >= 2 and any width, as the
+// reference's kernel takes: the widths and the parameter offsets are a
+// device table, and where an item's buffers do not fit in shared memory
+// beside the weight ring (two layers wider than 1468 at obs 42) they live in
+// the item's slice of the workspace. Parameters, targets and moments are
+// updated in place in their 8 group buffers; the rows the gradient stages
+// read go to the wrapper's workspace (a few MB at the defaults, in L2).
 //
-// A second design was tried and removed: the phase in one cluster of 16
-// CTAs, each running both passes for its own batch rows in shared memory,
-// with 4 cluster barriers per update instead of 20 grid barriers. At the
-// defaults it was slower than this one on the H100 (PERF.md, Findings):
-// its products and batch sums were latency-bound on 16 SMs.
+// Not a single cluster of CTAs: one such design measured slower, its
+// products and batch sums latency-bound on 16 SMs (PERF.md, Findings).
 //
 // Numerics: the library is built with --fmad=false, so a*b+c is two
 // rounded operations, as in the twin. The matrix-product and batch-sum
-// inner loops use explicit fmaf() (one rounding, half the instructions);
-// every elementwise formula (LayerNorm, Adam, Polyak, the TD target)
-// follows the twin operation by operation. The float32 constants (log b,
-// gamma, tau, 1/batch, the lr schedule) are folded on the host.
-#include "learner_stages.cuh"
+// inner loops use explicit fmaf() (one rounding, half the instructions) in
+// the orders of the stage-engine design this one replaced (row_chain.cuh),
+// so the bits are that design's; every elementwise formula (LayerNorm,
+// Adam, Polyak, the TD target) follows the twin operation by operation.
+// The float32 constants (log b, gamma, tau, 1/batch, the lr schedule) are
+// folded on the host. No float atomics: two runs give the same bits.
+#include "row_chain.cuh"
 
 // Mirror of ops/_native.py::LearnerDims.
 struct LearnerDims {
   int obs_dim, batch, k_updates, merged;
   Torso torso;
   NetLayout actor, critic;
+  int spill;  // 1: the items' buffers in the workspace at any width
 };
 
 namespace {
 
 constexpr int kActDim = 2;
+static_assert(kActDim <= kMaxJoin && kActDim <= kQLd, "the action's room");
+constexpr int kLdB4 = kRowsB + 4;  // feature stride of a backward item's rows
+// A forward item's action rows (feature-major) after its pre-LN rows; a
+// backward item's dQ/da and d loss / d pre-tanh rows after its dz, then
+// (the critic's rest of the forward) its activations over wmax features
+// and its action rows.
+constexpr int kFwdExtra = kActDim * kLdF;
+__host__ __device__ inline int bwd_extra(int wmax) {
+  return 2 * kRowsB * kQLd + kLdB4 * wmax + kActDim * kLdB4;
+}
 
-// The workspace: per-layer regions of activations and gradient rows,
-// layer l's (batch, H_l) rows at layer_rows(region, l), the layer inputs
-// (l >= 1) at input_rows. Carved by carve() on the host.
+// The workspace: per-layer regions of the rows the gradient stages and the
+// backward items read, layer l's (batch, H_l) rows at layer_rows(region,
+// l), the layer inputs (l >= 1) at input_rows, and on the spill route every
+// item's buffers. Carved by carve() on the host.
 struct Workspace {
-  // critic pass: target actor and target critic on s', critic on (s, a)
-  float *zAT, *zCT, *zC;
-  float* hinC;   // the critic's layer inputs, the action joined at layer 1
-  float *dzC, *dyC, *dyxhC;
-  float *aN, *qN, *hlastC, *qC, *td, *dqC;
-  // actor pass: actor on s, critic on (s, pi(s))
-  float *zA, *hinA, *zQ, *dzA, *dyA, *dyxhA;
-  float *hlastA, *aA, *qA, *dqA, *dpreA;
-  float* dh[2];  // upstream gradients, ping-pong
+  // critic pass: the online critic on (s, a); the target critic's layer-1
+  // sums over its first H_0 inputs on s', the target actor's a'
+  float *zC, *hinC, *dzC, *dyC, *dyxhC, *hlastC;
+  float *zTm, *aN, *qC, *td, *dqC;  // ..., Q(s, a), TD error, d loss / dQ
+  // actor pass: the actor on s, the critic on (s, pi(s)) (its layer-1 sums
+  // over its first H_0 inputs apart)
+  float *zA, *hinA, *zQ, *zQm, *dzA, *dyA, *dyxhA, *hlastA;
+  float *aA, *qA, *dpreA;     // pi(s), Q(s, pi(s)), d loss / d pre-tanh
+  float* tiles;
 };
 
 struct Groups {
@@ -88,43 +116,269 @@ __host__ __device__ inline int table_ints(const LearnerDims& d) {
   return 10 * d.torso.L;
 }
 
-__global__ void __launch_bounds__(kThreads) ddpg_update_kernel(
+// One shared copy of each of the row chain's pieces for B3's many call
+// sites: inlined at each, the kernel's code outgrew the instruction cache.
+template <int R>
+__device__ __noinline__ void torso_fwd_once(
+    const Torso& T, const NetLayout& L, const float* net, int F,
+    const float* xa, int na, float* act, float* zr, int ldz, float* ring,
+    const LearnerConsts& c, const FwdSave& sv, int b0, int nr, int B, int l0,
+    int l1, const float* zmain) {
+  torso_fwd<R>(T, L, net, F, xa, na, act, zr, ldz, ring, c, sv, b0, nr, B,
+               l0, l1, zmain);
+}
+
+__device__ __noinline__ void torso_bwd_once(
+    const Torso& T, const NetLayout& L, const float* net, int join,
+    const float* z, float* dh, float* dzs, int ldz, float* ring,
+    const LearnerConsts& c, const BwdSave& sv, int b0, int nr, int B, int lo,
+    float* tail) {
+  torso_bwd(T, L, net, join, z, dh, dzs, ldz, ring, c, sv, b0, nr, B, lo,
+            tail);
+}
+
+__device__ __noinline__ void grad_stage_once(
+    const NetGrads* g, int n_nets, const Torso& T, int F, int B,
+    const NetPtr* nets, const AdamStep& as, const LearnerConsts& c,
+    float* sm) {
+  grad_stage<false>(g, n_nets, T, F, B, nets, as, c, sm, FlatStore{});
+}
+
+// The critic's front on R rows whose layer-0 input is in act: layer 0 (its
+// pre-LN rows kept when sv.z), then layer 1's sums over its first H_0
+// inputs (the action's sums and the bias come later), rows b0 .. b0 + nr -
+// 1 of them into zm (batch, H_1).
+template <int R>
+__device__ __noinline__ void critic_front(
+    const Torso& T, const NetLayout& LC, const float* net, int F, float* act,
+    float* zr, int ldz, float* ring, const LearnerConsts& c,
+    const FwdSave& sv, int b0, int nr, int B, float* zm) {
+  torso_fwd<R>(T, LC, net, F, nullptr, 0, act, zr, ldz, ring, c, sv, b0, nr,
+               B, 0, 1, nullptr);
+  const int h0 = T.h(0), h1 = T.h(1);
+  rows_product<R, R + 4, true, kColsF>(act, h0, h1, net + LC.w(1),
+                                       h0 + kActDim, nullptr, zr, ldz, ring);
+  for (int o = threadIdx.x; o < nr * h1; o += kThreads) {
+    const int r = o / h1, cc = o - r * h1;
+    zm[static_cast<size_t>(b0 + r) * h1 + cc] = zr[r * ldz + cc];
+  }
+}
+
+// The action rows of a backward item: xa[a][r] = src[(b0 + r) 2 + a] for
+// the nr real rows, 0 past them (stride kLdB4). Ends with a barrier.
+__device__ __forceinline__ void load_actions(const float* src, int b0,
+                                             int nr, float* xa) {
+  if (threadIdx.x < kRowsB * kActDim) {
+    const int r = threadIdx.x / kActDim, a = threadIdx.x - r * kActDim;
+    xa[a * kLdB4 + r] =
+        r < nr ? src[static_cast<size_t>(b0 + r) * kActDim + a] : 0.0f;
+  }
+  __syncthreads();
+}
+
+enum : int { kPassTarget = 0, kPassTargetFront = 1, kPassCritic = 2,
+             kPassActor = 3, kPassActorFront = 4 };
+// Rows of the actor's forward items at "updated": 4, so that its two
+// passes give the card 128 items at batch 256 (at "pre" the five passes
+// share one stage at kRowsF).
+constexpr int kRowsA = 4;
+template <int R>
+struct Rows {
+  static constexpr int value = R;
+};
+enum : int { kBwdCritic = 0, kBwdActor = 1 };
+
+// Forward item of pass p over the R rows from b0: kPassTarget, the target
+// actor on s' into w.aN; kPassTargetFront, the target critic's front on s'
+// into w.zTm; kPassCritic, the critic on (s, a) into w.qC, its rows kept;
+// kPassActor, the actor on s (kept) into w.aA; kPassActorFront, the
+// critic's front on s (its layer-0 rows kept) into w.zQm.
+template <int R>
+__device__ void fwd_item(const LearnerDims& d, const LearnerConsts& c,
+                         const Workspace& w, const RowPlan& rp,
+                         const Torso& T, const NetLayout& LA,
+                         const NetLayout& LC, const Groups& gr,
+                         const Batches& bt, int k, int b0, int p, float* smem,
+                         float* bufs) {
+  const int B = d.batch, F = d.obs_dim, hl = T.h(T.L - 1);
+  constexpr int LD = R + 4;
+  const int nr = min(R, B - b0), ldz = rp.ldz;
+  float* const act = bufs;                      // (wmax, LD)
+  float* const zr = bufs + LD * rp.wmax;        // (R, ldz)
+  float* const xa = zr + R * ldz;               // (kActDim, LD)
+  const size_t kb = static_cast<size_t>(k) * B;
+  const float* const obs = bt.obs + kb * F;
+  const float* const nobs = bt.nobs + kb * F;
+  float* const ring = smem;
+  const float* A = gr.g[0];
+  const float* C = gr.g[1];
+
+  __syncthreads();  // the last item is done with the buffers
+  if (p == kPassTarget || p == kPassActor) {
+    const bool tgt = p == kPassTarget;
+    const float* net = tgt ? gr.g[2] : A;
+    float* const aout = tgt ? w.aN : w.aA;
+    load_rows<R>(tgt ? nobs : obs, F, b0, nr, act);
+    torso_fwd_once<R>(T, LA, net, F, nullptr, 0, act, zr, ldz, ring, c,
+                           tgt ? FwdSave{} : FwdSave{w.zA, w.hinA, w.hlastA,
+                                                     0},
+                           b0, nr, B, 0, 0, nullptr);
+    CP_MARK(3);  // the actor's torso
+    head_fwd<R>(net + LA.wh, net + LA.bh, kActDim, hl, act, ring,
+                     [&](int r, int a, float v) {
+                       if (r < nr) aout[(b0 + r) * kActDim + a] = tanhf(v);
+                     });
+    CP_MARK(4);  // its head
+  } else if (p == kPassTargetFront || p == kPassActorFront) {
+    const bool tgt = p == kPassTargetFront;
+    load_rows<R>(tgt ? nobs : obs, F, b0, nr, act);
+    critic_front<R>(T, LC, tgt ? gr.g[3] : C, F, act, zr, ldz, ring, c,
+                 tgt ? FwdSave{} : FwdSave{w.zQ, nullptr, nullptr, kActDim},
+                 b0, nr, B, tgt ? w.zTm : w.zQm);
+    CP_MARK(5);  // the critic's front
+  } else {
+    for (int i = threadIdx.x; i < R * kActDim; i += kThreads) {
+      const int r = i / kActDim, a = i - r * kActDim;
+      xa[a * LD + r] =
+          r < nr ? bt.act[(kb + b0 + r) * kActDim + a] : 0.0f;
+    }
+    load_rows<R>(obs, F, b0, nr, act);
+    torso_fwd_once<R>(T, LC, C, F, xa, kActDim, act, zr, ldz, ring, c,
+                           FwdSave{w.zC, w.hinC, w.hlastC, kActDim}, b0, nr,
+                           B, 0, 0, nullptr);
+    head_fwd<R>(C + LC.wh, C + LC.bh, 1, hl, act, ring,
+                     [&](int r, int, float v) {
+                       if (r < nr) w.qC[b0 + r] = v;
+                     });
+    CP_MARK(6);  // the critic on (s, a)
+  }
+}
+
+// Backward item over the kRowsB rows from b0. kBwdCritic: the target
+// critic's rest on (s', a') (layer 1 from its front's sums and a', the
+// layers above, the head: Q'), the TD epilogue and the critic's backward
+// (its dz, dy, dy * xhat kept). kBwdActor: the critic's rest on (s,
+// pi(s)) (its pre-LN rows kept; Q into w.qA), its backward from d loss /
+// dQ = -1/B down to dQ/da, the tanh's backward into w.dpreA, then the
+// actor's backward (kept).
+__device__ void bwd_item(const LearnerDims& d, const LearnerConsts& c,
+                         const Workspace& w, const RowPlan& rp,
+                         const Torso& T, const NetLayout& LA,
+                         const NetLayout& LC, const Groups& gr,
+                         const Batches& bt, int k, int b0, int which,
+                         float* smem, float* bufs) {
+  const int tid = threadIdx.x;
+  const int B = d.batch, F = d.obs_dim, hl = T.h(T.L - 1);
+  const int ldz = rp.ldz, nr = min(kRowsB, B - b0);
+  float* const ring = smem;
+  float* const dqs = smem + kRing;           // (kRowsB, kQLd) d loss / dQ
+  float* const dh = bufs;                    // (kRowsB, ldz); the rest's zr
+  float* const dzs = bufs + kRowsB * ldz;    // (ldz, kLdB)
+  float* const da = dzs + kLdB * ldz;        // (kRowsB, kQLd) dQ/da; Q'
+  float* const dps = da + kRowsB * kQLd;     // (kRowsB, kQLd) d / d pre-tanh
+  float* const act = dps + kRowsB * kQLd;    // (wmax, kLdB4) the rest's rows
+  float* const xa = act + kLdB4 * rp.wmax;   // (kActDim, kLdB4)
+  const float* A = gr.g[0];
+  const float* C = gr.g[1];
+  const bool critic = which == kBwdCritic;
+  const float* net = critic ? gr.g[3] : C;
+  const size_t kb = static_cast<size_t>(k) * B;
+
+  __syncthreads();  // the last item is done with the buffers
+  load_actions(critic ? w.aN : w.aA, b0, nr, xa);
+  torso_fwd_once<kRowsB>(T, LC, net, F, xa, kActDim, act, dh, ldz, ring, c,
+                         critic ? FwdSave{}
+                                : FwdSave{w.zQ, nullptr, nullptr, kActDim},
+                         b0, nr, B, 1, 0, critic ? w.zTm : w.zQm);
+  head_fwd<kRowsB>(net + LC.wh, net + LC.bh, 1, hl, act, ring,
+                   [&](int r, int, float v) {
+                     if (critic)
+                       da[r] = v;
+                     else if (r < nr)
+                       w.qA[b0 + r] = v;
+                   });
+  CP_MARK(7);  // the critic's rest
+  if (critic) {
+    if (tid < kRowsB) {  // the TD epilogue, one row a thread
+      float g = 0.0f;
+      if (tid < nr) {
+        const int b = b0 + tid;
+        const float v = da[tid];
+        const float notdone = 1.0f - (bt.done[kb + b] ? 1.0f : 0.0f);
+        const float target = bt.rew[kb + b] + (c.gamma * notdone) * v;
+        const float td = w.qC[b] - target;
+        w.td[b] = td;
+        g = c.two_inv_batch * td;
+        w.dqC[b] = g;
+      }
+      dqs[tid * kQLd] = g;
+    }
+    __syncthreads();
+    head_bwd(dqs, 1, C + LC.wh, hl, dh, ldz);
+    torso_bwd_once(T, LC, C, kActDim, w.zC, dh, dzs, ldz, ring, c,
+                   BwdSave{w.dzC, w.dyC, w.dyxhC}, b0, nr, B, 0, nullptr);
+    CP_MARK(8);  // the TD epilogue and the critic's backward
+    return;
+  }
+  if (tid < kRowsB) dqs[tid * kQLd] = tid < nr ? c.neg_inv_batch : 0.0f;
+  __syncthreads();
+  head_bwd(dqs, 1, C + LC.wh, hl, dh, ldz);
+  torso_bwd_once(T, LC, C, kActDim, w.zQ, dh, dzs, ldz, ring, c, BwdSave{},
+                 b0, nr, B, 1, da);
+  if (tid < kRowsB * kActDim) {  // through the tanh head
+    const int r = tid / kActDim, a = tid - r * kActDim;
+    float g = 0.0f;
+    if (r < nr) {
+      const size_t o = static_cast<size_t>(b0 + r) * kActDim + a;
+      const float t = w.aA[o];
+      g = da[r * kQLd + a] * (1.0f - t * t);
+      w.dpreA[o] = g;
+    }
+    dps[r * kQLd + a] = g;
+  }
+  __syncthreads();
+  head_bwd(dps, kActDim, A + LA.wh, hl, dh, ldz);
+  torso_bwd_once(T, LA, A, 0, w.zA, dh, dzs, ldz, ring, c,
+                 BwdSave{w.dzA, w.dyA, w.dyxhA}, b0, nr, B, 0, nullptr);
+  CP_MARK(9);  // the actor's backward
+}
+
+__global__ void __launch_bounds__(kThreads, 1) ddpg_update_kernel(
     const LearnerDims d, const LearnerConsts c, const Workspace w,
     const Groups gr, const Batches bt, float* __restrict__ closs,
-    float* __restrict__ aloss, const int t0, const int ldh) {
+    float* __restrict__ aloss, const int t0, const RowPlan rp) {
   cg::grid_group grid = cg::this_grid();
-  extern __shared__ float smem[];
-  __shared__ Shared sh;
-  const bool lead = threadIdx.x == 0;
+  extern __shared__ __align__(16) float smem[];
   const int B = d.batch, F = d.obs_dim;
-  int* const tab = reinterpret_cast<int*>(smem + region_floats(ldh));
+  int* const tab = reinterpret_cast<int*>(smem + rp.region);
   const Torso T = stage_table(d.torso, table_ints(d), tab);
-  const int nl = T.L;
-  const int hl = T.h(nl - 1);
   const NetLayout LA = layout_on(d.actor, d.torso, T);
   const NetLayout LC = layout_on(d.critic, d.torso, T);
-  float* const A = gr.g[0];
-  float* const C = gr.g[1];
-  float* const AT = gr.g[2];
-  float* const CT = gr.g[3];
-  NetPtr nets[2] = {{A, AT, gr.g[4], gr.g[5]}, {C, CT, gr.g[6], gr.g[7]}};
-
-  // Stage boundaries: every block runs the same sequence of these.
-  auto rows_stage = [&]() {
-    __syncthreads();
-    run_rows(sh.rows, sh.n_rows, B, c, smem, ldh);
-    grid.sync();
+  const NetPtr nets[2] = {{gr.g[0], gr.g[2], gr.g[4], gr.g[5]},
+                          {gr.g[1], gr.g[3], gr.g[6], gr.g[7]}};
+  const int tiles_b = (B + kRowsB - 1) / kRowsB;
+  auto bufs_of = [&](int item) {
+    return rp.spill ? w.tiles + rp.tile_floats * item : smem + kFixed;
   };
-  auto add_row = [&](const RowOp& op) { sh.rows[sh.n_rows++] = op; };
-  auto Z = [&](float* region, int l) { return layer_rows(region, T, l, B); };
-  auto H = [&](int l) { return T.h(l); };
+  // The forward items of passes p0 .. p0 + np - 1 over tiles of R rows,
+  // the backward items of kinds q0 .. q0 + nq - 1: (pass or kind, tile),
+  // dealt round-robin.
+  auto forward = [&](auto rows, int k, int p0, int np) {
+    constexpr int R = decltype(rows)::value;
+    const int tiles = (B + R - 1) / R;
+    for (int item = blockIdx.x; item < np * tiles; item += gridDim.x)
+      fwd_item<R>(d, c, w, rp, T, LA, LC, gr, bt, k, (item % tiles) * R,
+                  p0 + item / tiles, smem, bufs_of(item));
+  };
+  auto backward = [&](int k, int q0, int nq) {
+    for (int item = blockIdx.x; item < nq * tiles_b; item += gridDim.x)
+      bwd_item(d, c, w, rp, T, LA, LC, gr, bt, k,
+               (item % tiles_b) * kRowsB, q0 + item / tiles_b, smem,
+               bufs_of(item));
+  };
 
   for (int k = 0; k < d.k_updates; ++k) {
     const float* obs = bt.obs + static_cast<size_t>(k) * B * F;
-    const float* nobs = bt.nobs + static_cast<size_t>(k) * B * F;
-    const float* act = bt.act + static_cast<size_t>(k) * B * kActDim;
-    const float* rew = bt.rew + static_cast<size_t>(k) * B;
-    const bool* done = bt.done + static_cast<size_t>(k) * B;
     const float tk = static_cast<float>(t0 + k + 1);
     AdamStep as;
     as.bc1 = 1.0f - expf(tk * c.log_b1);
@@ -133,221 +387,53 @@ __global__ void __launch_bounds__(kThreads) ddpg_update_kernel(
         c.sched ? fminf((tk - 1.0f) / c.sched_steps, 1.0f) : 0.0f;
     as.lr[0] = c.sched ? c.actor_lr + frac * c.actor_lr_delta : c.actor_lr;
     as.lr[1] = c.sched ? c.critic_lr + frac * c.critic_lr_delta : c.critic_lr;
-    // The two networks' gradient lists (lead thread only).
-    auto grads_c = [&]() {
-      return NetGrads{1, kActDim, 1, 1, c.inv_batch, closs + k, obs, w.dzC,
-                      w.dyC, w.dyxhC, w.hinC, w.dqC, w.hlastC, w.td, LC};
-    };
-    auto grads_a = [&]() {
-      return NetGrads{0, 0, kActDim, 0, c.neg_inv_batch, aloss + k, obs,
-                      w.dzA, w.dyA, w.dyxhA, w.hinA, w.dpreA, w.hlastA, w.qA,
-                      LA};
-    };
+    // The two networks' gradient lists: the critic (net 1), the actor.
+    const NetGrads g[2] = {
+        {1, kActDim, 1, 1, c.inv_batch, closs + k, obs, w.dzC, w.dyC,
+         w.dyxhC, w.hinC, w.dqC, w.hlastC, w.td, LC},
+        {0, 0, kActDim, 0, c.neg_inv_batch, aloss + k, obs, w.dzA, w.dyA,
+         w.dyxhA, w.hinA, w.dpreA, w.hlastA, w.qA, LA}};
 
-    // ---- critic pass: y from the targets on s', Q(s, a) and its grads ----
-    if (lead) {
-      sh.n_rows = 0;
-      add_row(fwd_op(nobs, F, kProPlain, nullptr, nullptr, nullptr, 0,
-                     AT + LA.w(0), AT + LA.b(0), H(0), Z(w.zAT, 0), nullptr,
-                     kEpiNone));
-      add_row(fwd_op(nobs, F, kProPlain, nullptr, nullptr, nullptr, 0,
-                     CT + LC.w(0), CT + LC.b(0), H(0), Z(w.zCT, 0), nullptr,
-                     kEpiNone));
-      add_row(fwd_op(obs, F, kProPlain, nullptr, nullptr, nullptr, 0,
-                     C + LC.w(0), C + LC.b(0), H(0), Z(w.zC, 0), nullptr,
-                     kEpiNone));
-    }
-    rows_stage();
-    for (int l = 1; l < nl; ++l) {
-      if (lead) {
-        sh.n_rows = 0;
-        add_row(fwd_op(Z(w.zAT, l - 1), H(l - 1), kProLnRelu,
-                       AT + LA.s(l - 1), AT + LA.t(l - 1), nullptr, 0,
-                       AT + LA.w(l), AT + LA.b(l), H(l), Z(w.zAT, l), nullptr,
-                       kEpiNone));
-        add_row(fwd_op(Z(w.zC, l - 1), H(l - 1), kProLnRelu, C + LC.s(l - 1),
-                       C + LC.t(l - 1), l == 1 ? act : nullptr,
-                       l == 1 ? kActDim : 0, C + LC.w(l), C + LC.b(l), H(l),
-                       Z(w.zC, l), input_rows(w.hinC, T, l, kActDim, B),
-                       kEpiNone));
-      }
-      rows_stage();
-    }
-    if (lead) {
-      sh.n_rows = 0;
-      add_row(fwd_op(Z(w.zAT, nl - 1), hl, kProLnRelu, AT + LA.s(nl - 1),
-                     AT + LA.t(nl - 1), nullptr, 0, AT + LA.wh, AT + LA.bh,
-                     kActDim, w.aN, nullptr, kEpiTanh));
-      add_row(fwd_op(Z(w.zC, nl - 1), hl, kProLnRelu, C + LC.s(nl - 1),
-                     C + LC.t(nl - 1), nullptr, 0, C + LC.wh, C + LC.bh, 1,
-                     w.qC, w.hlastC, kEpiNone));
-    }
-    rows_stage();
-    for (int l = 1; l < nl; ++l) {
-      if (lead) {
-        sh.n_rows = 0;
-        add_row(fwd_op(Z(w.zCT, l - 1), H(l - 1), kProLnRelu,
-                       CT + LC.s(l - 1), CT + LC.t(l - 1),
-                       l == 1 ? w.aN : nullptr, l == 1 ? kActDim : 0,
-                       CT + LC.w(l), CT + LC.b(l), H(l), Z(w.zCT, l), nullptr,
-                       kEpiNone));
-      }
-      rows_stage();
-    }
-    if (lead) {
-      sh.n_rows = 0;
-      RowOp op = fwd_op(Z(w.zCT, nl - 1), hl, kProLnRelu, CT + LC.s(nl - 1),
-                        CT + LC.t(nl - 1), nullptr, 0, CT + LC.wh, CT + LC.bh,
-                        1, w.qN, nullptr, kEpiTd);
-      op.e0 = w.qC;
-      op.e1 = rew;
-      op.edone = done;
-      op.eout0 = w.td;
-      op.eout1 = w.dqC;
-      add_row(op);
-    }
-    rows_stage();
-    if (lead) {
-      sh.n_rows = 0;
-      add_row(bwd_op(w.dqC, nullptr, 1, nullptr, nullptr, nullptr, nullptr,
-                     nullptr, C + LC.wh, hl, 0, hl, w.dh[0]));
-    }
-    rows_stage();
-    int cur = 0;
-    for (int l = nl - 1; l >= 0; --l) {
-      if (lead) {
-        sh.n_rows = 0;
-        const int in_w = l == 0 ? F : H(l - 1) + (l == 1 ? kActDim : 0);
-        add_row(bwd_op(w.dh[cur], Z(w.zC, l), H(l), C + LC.s(l), C + LC.t(l),
-                       Z(w.dzC, l), Z(w.dyC, l), Z(w.dyxhC, l), C + LC.w(l),
-                       in_w, 0, l == 0 ? 0 : H(l - 1), w.dh[cur ^ 1]));
-      }
-      rows_stage();
-      cur ^= 1;
-    }
-    if (!d.merged) {  // critic Adam before the actor pass
-      if (lead) {
-        sh.nets[0] = grads_c();
-        sh.n_nets = 1;
-      }
-      run_net_grads(sh, T, F, B, nets, as, c, smem);
+    if (d.merged) {  // "pre": the actor's chain beside the critic's
+      forward(Rows<kRowsF>{}, k, kPassTarget, 5);
       grid.sync();
+      backward(k, kBwdCritic, 2);
+      grid.sync();
+      grad_stage_once(g, 2, T, F, B, nets, as, c, smem);
+    } else {  // "updated": critic Adam before the actor's chain
+      forward(Rows<kRowsF>{}, k, kPassTarget, 3);
+      grid.sync();
+      backward(k, kBwdCritic, 1);
+      grid.sync();
+      grad_stage_once(g, 1, T, F, B, nets, as, c, smem);
+      grid.sync();
+      forward(Rows<kRowsA>{}, k, kPassActor, 2);
+      grid.sync();
+      backward(k, kBwdActor, 1);
+      grid.sync();
+      grad_stage_once(g + 1, 1, T, F, B, nets, as, c, smem);
     }
-
-    // ---- actor pass: -mean Q(s, pi(s)) through dQ/da into the actor ----
-    if (lead) {
-      sh.n_rows = 0;
-      add_row(fwd_op(obs, F, kProPlain, nullptr, nullptr, nullptr, 0,
-                     A + LA.w(0), A + LA.b(0), H(0), Z(w.zA, 0), nullptr,
-                     kEpiNone));
-      add_row(fwd_op(obs, F, kProPlain, nullptr, nullptr, nullptr, 0,
-                     C + LC.w(0), C + LC.b(0), H(0), Z(w.zQ, 0), nullptr,
-                     kEpiNone));
-    }
-    rows_stage();
-    for (int l = 1; l < nl; ++l) {
-      if (lead) {
-        sh.n_rows = 0;
-        add_row(fwd_op(Z(w.zA, l - 1), H(l - 1), kProLnRelu, A + LA.s(l - 1),
-                       A + LA.t(l - 1), nullptr, 0, A + LA.w(l), A + LA.b(l),
-                       H(l), Z(w.zA, l), input_rows(w.hinA, T, l, 0, B),
-                       kEpiNone));
-      }
-      rows_stage();
-    }
-    if (lead) {
-      sh.n_rows = 0;
-      add_row(fwd_op(Z(w.zA, nl - 1), hl, kProLnRelu, A + LA.s(nl - 1),
-                     A + LA.t(nl - 1), nullptr, 0, A + LA.wh, A + LA.bh,
-                     kActDim, w.aA, w.hlastA, kEpiTanh));
-    }
-    rows_stage();
-    for (int l = 1; l < nl; ++l) {
-      if (lead) {
-        sh.n_rows = 0;
-        add_row(fwd_op(Z(w.zQ, l - 1), H(l - 1), kProLnRelu, C + LC.s(l - 1),
-                       C + LC.t(l - 1), l == 1 ? w.aA : nullptr,
-                       l == 1 ? kActDim : 0, C + LC.w(l), C + LC.b(l), H(l),
-                       Z(w.zQ, l), nullptr, kEpiNone));
-      }
-      rows_stage();
-    }
-    if (lead) {
-      sh.n_rows = 0;
-      RowOp op = fwd_op(Z(w.zQ, nl - 1), hl, kProLnRelu, C + LC.s(nl - 1),
-                        C + LC.t(nl - 1), nullptr, 0, C + LC.wh, C + LC.bh, 1,
-                        w.qA, nullptr, kEpiConst);
-      op.eout1 = w.dqA;
-      add_row(op);
-    }
-    rows_stage();
-    if (lead) {
-      sh.n_rows = 0;
-      add_row(bwd_op(w.dqA, nullptr, 1, nullptr, nullptr, nullptr, nullptr,
-                     nullptr, C + LC.wh, hl, 0, hl, w.dh[0]));
-    }
-    rows_stage();
-    cur = 0;
-    for (int l = nl - 1; l >= 1; --l) {  // critic layers down to dQ/da
-      if (lead) {
-        sh.n_rows = 0;
-        if (l > 1) {
-          add_row(bwd_op(w.dh[cur], Z(w.zQ, l), H(l), C + LC.s(l),
-                         C + LC.t(l), nullptr, nullptr, nullptr, C + LC.w(l),
-                         H(l - 1), 0, H(l - 1), w.dh[cur ^ 1]));
-        } else {
-          RowOp op = bwd_op(w.dh[cur], Z(w.zQ, 1), H(1), C + LC.s(1),
-                            C + LC.t(1), nullptr, nullptr, nullptr,
-                            C + LC.w(1), H(0) + kActDim, H(0), kActDim,
-                            w.dpreA);
-          op.epi = kEpiTanhBwd;
-          op.e0 = w.aA;
-          add_row(op);
-        }
-      }
-      rows_stage();
-      cur ^= 1;
-    }
-    if (lead) {
-      sh.n_rows = 0;
-      add_row(bwd_op(w.dpreA, nullptr, kActDim, nullptr, nullptr, nullptr,
-                     nullptr, nullptr, A + LA.wh, hl, 0, hl, w.dh[0]));
-    }
-    rows_stage();
-    cur = 0;
-    for (int l = nl - 1; l >= 0; --l) {
-      if (lead) {
-        sh.n_rows = 0;
-        const int in_w = l == 0 ? F : H(l - 1);
-        add_row(bwd_op(w.dh[cur], Z(w.zA, l), H(l), A + LA.s(l), A + LA.t(l),
-                       Z(w.dzA, l), Z(w.dyA, l), Z(w.dyxhA, l), A + LA.w(l),
-                       in_w, 0, l == 0 ? 0 : H(l - 1), w.dh[cur ^ 1]));
-      }
-      rows_stage();
-      cur ^= 1;
-    }
-    if (lead) {
-      sh.n_nets = 0;
-      if (d.merged) sh.nets[sh.n_nets++] = grads_c();
-      sh.nets[sh.n_nets++] = grads_a();
-    }
-    run_net_grads(sh, T, F, B, nets, as, c, smem);
     grid.sync();
   }
 }
 
 // The dims as the host checks them against its copy of the widths; *sum
-// and *kmax get the widths' sum and the widest layer input.
+// and *hmax get the widths' sum and max.
 bool dims_ok(const LearnerDims& d, const int* widths, long long* sum,
-             int* kmax) {
-  int widest;
-  if (d.obs_dim < 1 || d.batch < 1 || d.k_updates < 1 ||
-      d.torso.tab == nullptr || d.actor.lay == nullptr ||
-      d.critic.lay == nullptr ||
-      !widths_ok(widths, d.torso.L, 2, sum, &widest, 0))
-    return false;
-  *kmax = widest + kActDim > d.obs_dim ? widest + kActDim : d.obs_dim;
-  return true;
+             int* hmax) {
+  return d.obs_dim >= 1 && d.batch >= 1 && d.k_updates >= 1 &&
+         (d.merged == 0 || d.merged == 1) && (d.spill == 0 || d.spill == 1) &&
+         d.torso.tab != nullptr && d.actor.lay != nullptr &&
+         d.critic.lay != nullptr &&
+         widths_ok(widths, d.torso.L, 2, sum, hmax, 0);
+}
+
+// The items' plan: the spill route when d.spill asks for it or an item's
+// buffers do not fit in shared memory beside the ring and the table.
+RowPlan ddpg_row_plan(const LearnerDims& d, int hmax) {
+  const int wmax = d.obs_dim > hmax ? d.obs_dim : hmax;
+  return row_plan(d.obs_dim, hmax, table_ints(d), d.spill, kRowsF,
+                  kFwdExtra, bwd_extra(wmax));
 }
 
 // Carves the workspace from `base` (or only counts floats when it is null).
@@ -360,38 +446,44 @@ long long carve(const LearnerDims& d, const int* widths, float* base,
     return p;
   };
   long long sum;
-  int kmax;
-  dims_ok(d, widths, &sum, &kmax);
+  int hmax;
+  dims_ok(d, widths, &sum, &hmax);
+  const RowPlan rp = ddpg_row_plan(d, hmax);
   const long long B = d.batch;
   const long long hl = widths[d.torso.L - 1];
   const long long ins = sum - hl;   // the layer inputs H_0 .. H_{L-2}
+  const long long tiles_f = (B + kRowsF - 1) / kRowsF;
+  const long long tiles_b = (B + kRowsB - 1) / kRowsB;
+  const long long tiles_a = (B + kRowsA - 1) / kRowsA;
+  const long long n_f = d.merged ? 5 * tiles_f
+                                 : (3 * tiles_f > 2 * tiles_a ? 3 * tiles_f
+                                                              : 2 * tiles_a);
+  const long long n_b = (d.merged ? 2 : 1) * tiles_b;
   *w = Workspace{};
-  w->zAT = take(B * sum);
-  w->zCT = take(B * sum);
   w->zC = take(B * sum);
   w->hinC = take(B * (ins + kActDim));
   w->dzC = take(B * sum);
   w->dyC = take(B * sum);
   w->dyxhC = take(B * sum);
-  w->zA = take(B * sum);
-  w->hinA = take(B * ins);
-  w->zQ = take(B * sum);
-  w->dzA = take(B * sum);
-  w->dyA = take(B * sum);
-  w->dyxhA = take(B * sum);
-  w->aN = take(B * kActDim);
-  w->qN = take(B);
   w->hlastC = take(B * hl);
+  w->zTm = take(B * widths[1]);
+  w->aN = take(B * kActDim);
   w->qC = take(B);
   w->td = take(B);
   w->dqC = take(B);
+  w->zA = take(B * sum);
+  w->hinA = take(B * ins);
+  w->zQ = take(B * sum);
+  w->zQm = take(B * widths[1]);
+  w->dzA = take(B * sum);
+  w->dyA = take(B * sum);
+  w->dyxhA = take(B * sum);
   w->hlastA = take(B * hl);
   w->aA = take(B * kActDim);
   w->qA = take(B);
-  w->dqA = take(B);
   w->dpreA = take(B * kActDim);
-  w->dh[0] = take(B * kmax);
-  w->dh[1] = take(B * kmax);
+  w->tiles = rp.spill ? take((n_f > n_b ? n_f : n_b) * rp.tile_floats)
+                      : nullptr;
   return off;
 }
 
@@ -405,8 +497,8 @@ extern "C" {
 long long cp_ddpg_workspace_floats(const LearnerDims* dims,
                                    const int* widths) {
   long long sum;
-  int kmax;
-  if (!dims_ok(*dims, widths, &sum, &kmax)) return 0;
+  int hmax;
+  if (!dims_ok(*dims, widths, &sum, &hmax)) return 0;
   Workspace w;
   return carve(*dims, widths, nullptr, &w);
 }
@@ -429,19 +521,18 @@ int cp_ddpg_update_phase(const LearnerDims* dims, const int* widths,
   LearnerDims d = *dims;
   LearnerConsts c = *consts;
   long long sum;
-  int kmax;
-  if (!dims_ok(d, widths, &sum, &kmax))
+  int hmax;
+  if (!dims_ok(d, widths, &sum, &hmax))
     return static_cast<int>(cudaErrorInvalidValue);
   Workspace w;
   carve(d, widths, workspace, &w);
   Groups gr = {{actor, critic, actor_t, critic_t, m_a, v_a, m_c, v_c}};
   Batches bt = {obs, act, rew, nobs, done};
-  int ldh = row_ld(kmax);
-  const size_t smem = smem_bytes(ldh, table_ints(d));
-
+  RowPlan rp = ddpg_row_plan(d, hmax);
+  const size_t smem = plan_smem(rp, table_ints(d));
   static int blocks = 0;
   static size_t blocks_smem = 0;
-  void* args[] = {&d, &c, &w, &gr, &bt, &closs, &aloss, &t0, &ldh};
+  void* args[] = {&d, &c, &w, &gr, &bt, &closs, &aloss, &t0, &rp};
   return static_cast<int>(launch_cooperative(
       reinterpret_cast<const void*>(ddpg_update_kernel), smem, args,
       static_cast<cudaStream_t>(stream), blocks, blocks_smem));

@@ -42,7 +42,7 @@
 // runs give the same bits on any card. The widths and the parameter
 // offsets are the learners' device table (ops/learner_kernel.py::
 // _learner_table); only its LayerNorm constants and helpers are shared with
-// the stage engine of B3/B5/B7 (learner_stages.cuh).
+// B3/B5/B7 (learner_stages.cuh).
 #include "learner_stages.cuh"
 
 // Mirror of ops/_native.py::PgDims.

@@ -16,21 +16,32 @@
 // ops/learner_kernel.py::naf_update_phase_math.
 //
 // Bound on the H100: as B3 and B5, the latency of a chain of small
-// dependent stages, not arithmetic (~0.1 GFLOP of matrix products per
-// update at batch 256, obs 42, hidden (256, 256)). Design: B5's, on the
-// same stage engine (learner_stages.cuh): one cooperative persistent launch
-// per phase, every block walking the same stage list between grid
-// barriers. An update is L forward stages that run the target (on s') and
-// the online net (on s) in lockstep, the two heads (the target's 1 row, the
-// online net's 6), the NAF epilogue (one batch row per thread), the head
-// backward, L LayerNorm-backward stages, and the gradient stage: 2L + 4
-// stages. Under the clip the gradient stage only stores the flat gradient,
-// and two more stages follow: the partial sums of its squares over fixed
-// slices, then the scale and Adam and Polyak per element (2L + 6, 10 at two
-// hidden layers). No float atomics: two runs give the same bits. Any depth
-// >= 1 and any width, as the reference's kernel takes (learner_stages.cuh:
-// device tables of the widths and offsets, chunked row stages).
-#include "learner_stages.cuh"
+// dependent steps, not arithmetic (~0.1 GFLOP of matrix products per
+// update at batch 256, obs 42, hidden (256, 256)). Design: B5's, on the row
+// chains of row_chain.cuh: one cooperative persistent launch per phase;
+// per update three stages of independent items with a grid barrier after
+// each, and under the clip a fourth:
+//   * Forward: an item is one pass over a tile of kRowsN = 4 batch rows
+//     through every layer and the head: the target net on s' (its head row
+//     v only) or the online net on s (all 6 rows; it keeps its pre-LN rows,
+//     layer inputs and head rows in the workspace).
+//   * Backward: an item is a tile of kRowsB = 4 rows: the NAF epilogue
+//     (naf_row), the head backward, and per layer the LayerNorm/relu
+//     backward and dh = dz W.
+//   * Gradients: every weight gradient in 32 x 32 tiles, the bias and
+//     LayerNorm gradients and the loss; Adam and Polyak on each element.
+//     Under the clip the stage stores the flat gradient and sums the
+//     squares of its kNormParts fixed slices as they complete; after a
+//     barrier, adam_flat sums the partials in order, scales and applies
+//     Adam and Polyak.
+// 3 grid barriers per update without the clip, 4 with it, at any depth.
+// Every sum keeps the order of the earlier stage-engine design (2L + 6
+// grid-synced stages per update; row_chain.cuh), so B7 gives its bits. No
+// float atomics: two runs give the same bits. Any depth >= 1 and any
+// width, as the reference's kernel takes; where an
+// item's buffers do not fit in shared memory beside the ring (a layer wider
+// than 2449 at obs 42) they live in the item's slice of the workspace.
+#include "row_chain.cuh"
 
 // Mirror of ops/_native.py::NafDims.
 struct NafDims {
@@ -38,25 +49,34 @@ struct NafDims {
   float max_norm;  // the gradient's global-norm clip; 0 = none
   Torso torso;
   NetLayout q;
+  int spill;       // 1: the items' buffers in the workspace at any width
 };
 
 namespace {
 
 constexpr int kHead = 6;  // ops/learner_kernel.py::NAF_HEAD
+static_assert(kHead <= kQLd, "a head row in a row of d loss / d head");
+// Batch rows of a forward item: 4 (not row_chain.cuh's 8), so that the
+// target's and the online net's passes give the card 128 items at batch
+// 256 (64 at 8 rows).
+constexpr int kRowsN = 4;
+constexpr int kLdN = kRowsN + 4;  // feature stride of its activations
 
-// The workspace: per-layer regions of activations and gradient rows,
-// layer l's (batch, H_l) rows at layer_rows(region, l), the layer inputs
-// (l >= 1) at input_rows, and the flat gradient of a clipped update.
-// Carved by carve() on the host.
+// The workspace: per-layer regions of the rows the gradient stage reads
+// (layer l's (batch, H_l) rows at layer_rows(region, l), the layer inputs
+// l >= 1 at input_rows), the online net's pre-LN z on s, the target's V,
+// the head rows and their gradients, the flat gradient of a clipped update
+// with its slices' partial sums and counts and, on the spill route, every
+// item's buffers. Carved by carve() on the host.
 struct NafWorkspace {
-  float* zT;    // target net on s' (pre-LN)
-  float* zS;    // online net on s
+  float* zS;    // online net on s (pre-LN)
   float* hin;   // its layer inputs (l >= 1) for the weight grads
   float *dz, *dy, *dyxh;
   float *vT, *pre, *hlast, *dpre, *td;
-  float* dh[2];             // upstream gradients, ping-pong
   float* grad;              // the flat gradient, in the group layout
   float* parts;             // kNormParts partial sums of its squares
+  int* cnt;                 // kNormParts counts of its stored elements
+  float* tiles;
 };
 
 struct NafBatches {
@@ -74,38 +94,36 @@ __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-// The NAF epilogue, one batch row per thread: the TD target from the
-// target's V, Q from the online head (naf_q), the row's TD error for the
-// loss, and d loss / d head = naf_q_bwd(2 (Q - y) / B) (B, 6).
-__device__ void naf_rows(const NafWorkspace& w, const NafBatches& bt, int k,
-                         int B, const LearnerConsts& c) {
-  for (int b = blockIdx.x * kThreads + threadIdx.x; b < B;
-       b += gridDim.x * kThreads) {
-    const size_t r = static_cast<size_t>(k) * B + b;
-    const float* pre = w.pre + static_cast<size_t>(b) * kHead;
-    const float notdone = 1.0f - (bt.done[r] ? 1.0f : 0.0f);
-    const float y = bt.rew[r] + (c.gamma * notdone) * w.vT[b];
-    const float da0 = bt.act[2 * r] - pre[1];
-    const float da1 = bt.act[2 * r + 1] - pre[2];
-    const float l0 = pre[3], l1 = pre[4], l2 = pre[5];
-    const float l00 = softplus(l0), l11 = softplus(l2);
-    const float u0 = l00 * da0 + l1 * da1;
-    const float u1 = l11 * da1;
-    const float td = (pre[0] - 0.5f * (u0 * u0 + u1 * u1)) - y;
-    w.td[b] = td;
-    const float dq = c.two_inv_batch * td;
-    const float du0 = -dq * u0;
-    const float du1 = -dq * u1;
-    const float dda0 = du0 * l00;
-    const float dda1 = du0 * l1 + du1 * l11;
-    float* d = w.dpre + static_cast<size_t>(b) * kHead;
-    d[0] = dq;
-    d[1] = -dda0;
-    d[2] = -dda1;
-    d[3] = (du0 * da0) * sigmoid(l0);
-    d[4] = du0 * da1;
-    d[5] = (du1 * da1) * sigmoid(l2);
-  }
+// The NAF epilogue of batch row b: the TD target from the target's V, Q
+// from the online head (naf_q), the row's TD error for the loss, and d
+// loss / d head = naf_q_bwd(2 (Q - y) / B) into w.dpre and d (6 floats).
+__device__ void naf_row(const NafWorkspace& w, const NafBatches& bt, int k,
+                        int B, int b, const LearnerConsts& c, float* d) {
+  const size_t r = static_cast<size_t>(k) * B + b;
+  const float* pre = w.pre + static_cast<size_t>(b) * kHead;
+  const float notdone = 1.0f - (bt.done[r] ? 1.0f : 0.0f);
+  const float y = bt.rew[r] + (c.gamma * notdone) * w.vT[b];
+  const float da0 = bt.act[2 * r] - pre[1];
+  const float da1 = bt.act[2 * r + 1] - pre[2];
+  const float l0 = pre[3], l1 = pre[4], l2 = pre[5];
+  const float l00 = softplus(l0), l11 = softplus(l2);
+  const float u0 = l00 * da0 + l1 * da1;
+  const float u1 = l11 * da1;
+  const float td = (pre[0] - 0.5f * (u0 * u0 + u1 * u1)) - y;
+  w.td[b] = td;
+  const float dq = c.two_inv_batch * td;
+  const float du0 = -dq * u0;
+  const float du1 = -dq * u1;
+  const float dda0 = du0 * l00;
+  const float dda1 = du0 * l1 + du1 * l11;
+  d[0] = dq;
+  d[1] = -dda0;
+  d[2] = -dda1;
+  d[3] = (du0 * da0) * sigmoid(l0);
+  d[4] = du0 * da1;
+  d[5] = (du1 * da1) * sigmoid(l2);
+  float* const g = w.dpre + static_cast<size_t>(b) * kHead;
+  for (int i = 0; i < kHead; ++i) g[i] = d[i];
 }
 
 // Ints of the device table: the widths and their prefix sums, then the
@@ -114,38 +132,99 @@ __host__ __device__ inline int table_ints(const NafDims& d) {
   return 6 * d.torso.L;
 }
 
-__global__ void __launch_bounds__(kThreads) naf_update_kernel(
+// Forward item: pass p (0: the target on s', head row v into w.vT; 1: the
+// online net on s, its 6 head rows into w.pre, its pre-LN rows and layer
+// inputs kept) over the kRowsN rows from b0.
+__device__ void fwd_item(const NafDims& d, const LearnerConsts& c,
+                         const NafWorkspace& w, const RowPlan& rp,
+                         const Torso& T, const NetLayout& L, const float* net,
+                         const NafBatches& bt, int k, int b0, int p,
+                         float* smem, float* bufs) {
+  const int B = d.batch, F = d.obs_dim;
+  const int nr = min(kRowsN, B - b0);
+  float* const act = bufs;                    // (wmax, kLdN)
+  float* const zr = bufs + kLdN * rp.wmax;    // (kRowsN, ldz)
+  const size_t kb = static_cast<size_t>(k) * B;
+
+  __syncthreads();  // the last item is done with the buffers
+  load_rows<kRowsN>((p == 0 ? bt.nobs : bt.obs) + kb * F, F, b0, nr, act);
+  const FwdSave sv = p == 1 ? FwdSave{w.zS, w.hin, w.hlast, 0} : FwdSave{};
+  torso_fwd<kRowsN>(T, L, net, F, nullptr, 0, act, zr, rp.ldz, smem, c, sv,
+                    b0, nr, B);
+  const int hl = T.h(T.L - 1);
+  if (p == 0) {
+    head_fwd<kRowsN>(net + L.wh, net + L.bh, 1, hl, act, smem,
+                     [&](int r, int, float v) {
+                       if (r < nr) w.vT[b0 + r] = v;
+                     });
+  } else {
+    float* const pre = w.pre + static_cast<size_t>(b0) * kHead;
+    head_fwd<kRowsN>(net + L.wh, net + L.bh, kHead, hl, act, smem,
+                     [&](int r, int a, float v) {
+                       if (r < nr) pre[r * kHead + a] = v;
+                     });
+  }
+  CP_MARK(3);  // the forward item
+}
+
+// Backward item: the kRowsB rows from b0: the NAF epilogue, the head
+// backward, and per layer the LayerNorm/relu backward and dh = dz W;
+// writes dz, dy, dy * xhat, d loss / d head and the TD errors.
+__device__ void bwd_item(const NafDims& d, const LearnerConsts& c,
+                         const NafWorkspace& w, const RowPlan& rp,
+                         const Torso& T, const NetLayout& L, const float* Q,
+                         const NafBatches& bt, int k, int b0, float* smem,
+                         float* bufs) {
+  const int tid = threadIdx.x;
+  const int B = d.batch, hl = T.h(T.L - 1);
+  const int ldz = rp.ldz, nr = min(kRowsB, B - b0);
+  float* const ring = smem;
+  float* const dqs = smem + kRing;          // (kRowsB, kQLd) d loss / d head
+  float* const dh = bufs;                   // (kRowsB, ldz)
+  float* const dzs = bufs + kRowsB * ldz;   // (hmax, kLdB)
+
+  __syncthreads();  // the last item is done with the buffers
+  if (tid < kRowsB) {  // the NAF epilogue, one row a thread
+    float* const dqr = dqs + tid * kQLd;
+    if (tid < nr) {
+      naf_row(w, bt, k, B, b0 + tid, c, dqr);
+    } else {
+      for (int a = 0; a < kHead; ++a) dqr[a] = 0.0f;
+    }
+  }
+  __syncthreads();
+  head_bwd(dqs, kHead, Q + L.wh, hl, dh, ldz);
+  torso_bwd(T, L, Q, 0, w.zS, dh, dzs, ldz, ring, c,
+            BwdSave{w.dz, w.dy, w.dyxh}, b0, nr, B, 0, nullptr);
+  CP_MARK(4);  // the backward item
+}
+
+__global__ void __launch_bounds__(kThreads, 1) naf_update_kernel(
     const NafDims d, const LearnerConsts c, const NafWorkspace w,
     float* __restrict__ qp, float* __restrict__ qtp, float* __restrict__ m,
     float* __restrict__ v, const NafBatches bt, float* __restrict__ loss,
-    const int t0, const int ldh) {
+    const int t0, const RowPlan rp) {
   cg::grid_group grid = cg::this_grid();
-  extern __shared__ float smem[];
-  __shared__ Shared sh;
-  const bool lead = threadIdx.x == 0;
+  extern __shared__ __align__(16) float smem[];
   const int B = d.batch, F = d.obs_dim;
-  int* const tab = reinterpret_cast<int*>(smem + region_floats(ldh));
+  int* const tab = reinterpret_cast<int*>(smem + rp.region);
   const Torso T = stage_table(d.torso, table_ints(d), tab);
-  const int nl = T.L;
-  const int hl = T.h(nl - 1);
   const NetLayout L = layout_on(d.q, d.torso, T);
-  float* const Q = qp;
-  float* const QT = qtp;
-  const NetPtr nets[1] = {{Q, QT, m, v}};
+  const NetPtr nets[1] = {{qp, qtp, m, v}};
   const bool clip = d.max_norm > 0.0f;
-
-  // Stage boundaries: every block runs the same sequence of these.
-  auto rows_stage = [&]() {
-    __syncthreads();
-    run_rows(sh.rows, sh.n_rows, B, c, smem, ldh);
-    grid.sync();
+  const int tiles_f = (B + kRowsN - 1) / kRowsN;
+  const int tiles_b = (B + kRowsB - 1) / kRowsB;
+  auto bufs_of = [&](int item) {
+    return rp.spill ? w.tiles + rp.tile_floats * item : smem + kFixed;
   };
-  auto add_row = [&](const RowOp& op) { sh.rows[sh.n_rows++] = op; };
-  auto Z = [&](float* region, int l) { return layer_rows(region, T, l, B); };
+  if (clip && blockIdx.x == 0) {  // the slices' counts start at zero
+    for (int i = threadIdx.x; i < kNormParts; i += kThreads) {
+      w.cnt[i] = 0;
+      w.parts[i] = 0.0f;
+    }
+  }
 
   for (int k = 0; k < d.k_updates; ++k) {
-    const float* obs = bt.obs + static_cast<size_t>(k) * B * F;
-    const float* nobs = bt.nobs + static_cast<size_t>(k) * B * F;
     const float tk = static_cast<float>(t0 + k + 1);
     AdamStep as;
     as.bc1 = 1.0f - expf(tk * c.log_b1);
@@ -155,91 +234,48 @@ __global__ void __launch_bounds__(kThreads) naf_update_kernel(
     as.lr[0] = as.lr[1] =
         c.sched ? c.actor_lr + frac * c.actor_lr_delta : c.actor_lr;
 
-    // ---- forward: the target on s', the online net on s ----
-    for (int l = 0; l < nl; ++l) {
-      if (lead) {
-        sh.n_rows = 0;
-        const bool first = l == 0;
-        const int kx = first ? F : T.h(l - 1);
-        const int pro = first ? kProPlain : kProLnRelu;
-        const int h = T.h(l);
-        add_row(fwd_op(first ? nobs : Z(w.zT, l - 1), kx, pro,
-                       first ? nullptr : QT + L.s(l - 1),
-                       first ? nullptr : QT + L.t(l - 1), nullptr, 0,
-                       QT + L.w(l), QT + L.b(l), h, Z(w.zT, l), nullptr,
-                       kEpiNone));
-        add_row(fwd_op(first ? obs : Z(w.zS, l - 1), kx, pro,
-                       first ? nullptr : Q + L.s(l - 1),
-                       first ? nullptr : Q + L.t(l - 1), nullptr, 0,
-                       Q + L.w(l), Q + L.b(l), h, Z(w.zS, l),
-                       first ? nullptr : input_rows(w.hin, T, l, 0, B),
-                       kEpiNone));
-      }
-      rows_stage();
+    // Forward items: (pass, tile), the target's passes first.
+    for (int item = blockIdx.x; item < 2 * tiles_f; item += gridDim.x) {
+      const int p = item / tiles_f;
+      fwd_item(d, c, w, rp, T, L, p == 0 ? qtp : qp, bt, k,
+               (item % tiles_f) * kRowsN, p, smem, bufs_of(item));
     }
-    if (lead) {  // the target's V row, the online net's 6 rows
-      sh.n_rows = 0;
-      add_row(fwd_op(Z(w.zT, nl - 1), hl, kProLnRelu, QT + L.s(nl - 1),
-                     QT + L.t(nl - 1), nullptr, 0, QT + L.wh, QT + L.bh, 1,
-                     w.vT, nullptr, kEpiNone));
-      add_row(fwd_op(Z(w.zS, nl - 1), hl, kProLnRelu, Q + L.s(nl - 1),
-                     Q + L.t(nl - 1), nullptr, 0, Q + L.wh, Q + L.bh, kHead,
-                     w.pre, w.hlast, kEpiNone));
-    }
-    rows_stage();
-    naf_rows(w, bt, k, B, c);
     grid.sync();
-
-    // ---- backward through the online net on s ----
-    if (lead) {
-      sh.n_rows = 0;
-      add_row(bwd_op(w.dpre, nullptr, kHead, nullptr, nullptr, nullptr,
-                     nullptr, nullptr, Q + L.wh, hl, 0, hl, w.dh[0]));
-    }
-    rows_stage();
-    int cur = 0;
-    for (int l = nl - 1; l >= 0; --l) {
-      if (lead) {
-        sh.n_rows = 0;
-        add_row(bwd_op(w.dh[cur], Z(w.zS, l), T.h(l), Q + L.s(l), Q + L.t(l),
-                       Z(w.dz, l), Z(w.dy, l), Z(w.dyxh, l), Q + L.w(l),
-                       l == 0 ? F : T.h(l - 1), 0, l == 0 ? 0 : T.h(l - 1),
-                       w.dh[cur ^ 1]));
-      }
-      rows_stage();
-      cur ^= 1;
-    }
-
+    for (int item = blockIdx.x; item < tiles_b; item += gridDim.x)
+      bwd_item(d, c, w, rp, T, L, qp, bt, k, item * kRowsB, smem,
+               bufs_of(item));
+    grid.sync();
     // ---- every gradient element (clip), Adam, Polyak; the loss ----
-    if (lead) {
-      sh.nets[0] = NetGrads{0, 0, kHead, 1, c.inv_batch, loss + k, obs,
-                            w.dz, w.dy, w.dyxh, w.hin, w.dpre, w.hlast, w.td,
-                            L};
-      sh.n_nets = 1;
-    }
+    const NetGrads ng{0, 0, kHead, 1, c.inv_batch, loss + k,
+                      bt.obs + static_cast<size_t>(k) * B * F, w.dz, w.dy,
+                      w.dyxh, w.hin, w.dpre, w.hlast, w.td, L};
     if (clip) {
-      run_net_grads<true>(sh, T, F, B, nets, as, c, smem, w.grad);
-      grid.sync();
-      norm_partials(w.grad, L.size, w.parts, smem);
+      grad_stage<true>(&ng, 1, T, F, B, nets, as, c, smem,
+                       FlatStore{w.grad, w.parts, w.cnt, L.size, k});
       grid.sync();
       adam_flat(w.grad, L.size, w.parts, d.max_norm, nets[0], as, as.lr[0],
                 c, smem);
     } else {
-      run_net_grads(sh, T, F, B, nets, as, c, smem);
+      grad_stage<false>(&ng, 1, T, F, B, nets, as, c, smem, FlatStore{});
     }
     grid.sync();
   }
 }
 
 // The dims as the host checks them against its copy of the widths; *sum
-// and *kmax get the widths' sum and the widest layer input.
+// and *hmax get the widths' sum and max.
 bool dims_ok(const NafDims& d, const int* widths, long long* sum,
-             int* kmax) {
+             int* hmax) {
   return d.obs_dim >= 1 && d.batch >= 1 && d.k_updates >= 1 &&
-         d.max_norm >= 0.0f && d.q.size >= 1 && d.torso.tab != nullptr &&
-         d.q.lay != nullptr &&
-         widths_ok(widths, d.torso.L, 1, sum, kmax,
-                   d.obs_dim > kHead ? d.obs_dim : kHead);
+         d.max_norm >= 0.0f && d.q.size >= 1 &&
+         (d.spill == 0 || d.spill == 1) && d.torso.tab != nullptr &&
+         d.q.lay != nullptr && widths_ok(widths, d.torso.L, 1, sum, hmax, 0);
+}
+
+// The items' plan: the spill route when d.spill asks for it or an item's
+// buffers do not fit in shared memory beside the ring and the table.
+RowPlan naf_row_plan(const NafDims& d, int hmax) {
+  return row_plan(d.obs_dim, hmax, table_ints(d), d.spill, kRowsN, 0, 0);
 }
 
 // Carves the workspace from `base` (or only counts floats when it is null).
@@ -252,12 +288,15 @@ long long carve(const NafDims& d, const int* widths, float* base,
     return p;
   };
   long long sum;
-  int kmax;
-  dims_ok(d, widths, &sum, &kmax);
+  int hmax;
+  dims_ok(d, widths, &sum, &hmax);
+  const RowPlan rp = naf_row_plan(d, hmax);
   const long long B = d.batch;
   const long long hl = widths[d.torso.L - 1];
+  const long long tiles_f = (B + kRowsN - 1) / kRowsN;
+  const long long tiles_b = (B + kRowsB - 1) / kRowsB;
+  const long long items = 2 * tiles_f > tiles_b ? 2 * tiles_f : tiles_b;
   *w = NafWorkspace{};
-  w->zT = take(B * sum);
   w->zS = take(B * sum);
   w->hin = take(B * (sum - hl));
   w->dz = take(B * sum);
@@ -268,10 +307,10 @@ long long carve(const NafDims& d, const int* widths, float* base,
   w->hlast = take(B * hl);
   w->dpre = take(B * kHead);
   w->td = take(B);
-  w->dh[0] = take(B * kmax);
-  w->dh[1] = take(B * kmax);
   w->grad = take(d.q.size);
   w->parts = take(kNormParts);
+  w->cnt = reinterpret_cast<int*>(take(kNormParts));
+  w->tiles = rp.spill ? take(items * rp.tile_floats) : nullptr;
   return off;
 }
 
@@ -284,8 +323,8 @@ extern "C" {
 // torso's widths (dims->torso.L ints).
 long long cp_naf_workspace_floats(const NafDims* dims, const int* widths) {
   long long sum;
-  int kmax;
-  if (!dims_ok(*dims, widths, &sum, &kmax)) return 0;
+  int hmax;
+  if (!dims_ok(*dims, widths, &sum, &hmax)) return 0;
   NafWorkspace w;
   return carve(*dims, widths, nullptr, &w);
 }
@@ -306,17 +345,17 @@ int cp_naf_update_phase(const NafDims* dims, const int* widths,
   NafDims d = *dims;
   LearnerConsts c = *consts;
   long long sum;
-  int kmax;
-  if (!dims_ok(d, widths, &sum, &kmax))
+  int hmax;
+  if (!dims_ok(d, widths, &sum, &hmax))
     return static_cast<int>(cudaErrorInvalidValue);
   NafWorkspace w;
   carve(d, widths, workspace, &w);
   NafBatches bt = {obs, act, rew, nobs, done};
-  int ldh = row_ld(kmax);
-  const size_t smem = smem_bytes(ldh, table_ints(d));
+  RowPlan rp = naf_row_plan(d, hmax);
+  const size_t smem = plan_smem(rp, table_ints(d));
   static int blocks = 0;
   static size_t blocks_smem = 0;
-  void* args[] = {&d, &c, &w, &q, &q_t, &m, &v, &bt, &loss, &t0, &ldh};
+  void* args[] = {&d, &c, &w, &q, &q_t, &m, &v, &bt, &loss, &t0, &rp};
   return static_cast<int>(launch_cooperative(
       reinterpret_cast<const void*>(naf_update_kernel), smem, args,
       static_cast<cudaStream_t>(stream), blocks, blocks_smem));

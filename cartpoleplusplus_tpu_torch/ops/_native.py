@@ -13,7 +13,7 @@ and no fast-math flag is set, so division and sqrt are IEEE and
 logf/cosf/sinf/tanhf are the accurate CUDA math library functions. The
 kernels then follow the plain torch twins operation by operation, and a
 termination threshold does not flip on a contraction. An explicit fmaf()
-is still fused: B3, B5, B7 (csrc/learner_stages.cuh) and B9
+is still fused: B3, B5, B7 (csrc/row_chain.cuh) and B9
 (csrc/lrpg_update.cu) use it in their matrix-product and batch-sum inner
 loops only.
 """
@@ -96,11 +96,13 @@ class Torso(ctypes.Structure):
 
 
 class LearnerDims(ctypes.Structure):
-    """Mirror of `struct LearnerDims` in csrc/ddpg_update.cu (B3)."""
+    """Mirror of `struct LearnerDims` in csrc/ddpg_update.cu (B3); spill 1
+    puts every row tile's buffers in the workspace at any width."""
 
     _fields_ = [(n, ctypes.c_int) for n in (
         "obs_dim", "batch", "k_updates", "merged")] + [
-        ("torso", Torso), ("actor", NetLayout), ("critic", NetLayout)]
+        ("torso", Torso), ("actor", NetLayout), ("critic", NetLayout),
+        ("spill", ctypes.c_int)]
 
 
 class DqnDims(ctypes.Structure):
@@ -113,11 +115,13 @@ class DqnDims(ctypes.Structure):
 
 
 class NafDims(ctypes.Structure):
-    """Mirror of `struct NafDims` in csrc/naf_update.cu (B7)."""
+    """Mirror of `struct NafDims` in csrc/naf_update.cu (B7); spill 1
+    puts every row tile's buffers in the workspace at any width."""
 
     _fields_ = [(n, ctypes.c_int) for n in (
         "obs_dim", "batch", "k_updates")] + [
-        ("max_norm", ctypes.c_float), ("torso", Torso), ("q", NetLayout)]
+        ("max_norm", ctypes.c_float), ("torso", Torso), ("q", NetLayout),
+        ("spill", ctypes.c_int)]
 
 
 class PgDims(ctypes.Structure):

@@ -1,8 +1,7 @@
 """Kernels B3, B5 and B7, the whole K-update DDPG, DQN and NAF learner
 phases, and B9, the LRPG update: their plain torch twins and the wrappers
 that launch csrc/ddpg_update.cu, csrc/dqn_update.cu and csrc/naf_update.cu
-(whose shared stage engine is csrc/learner_stages.cuh) and
-csrc/lrpg_update.cu.
+(whose shared row chains are csrc/row_chain.cuh) and csrc/lrpg_update.cu.
 
 Replaces cartpoleplusplus_tpu/ops/learner_kernel.py::_update_kernel (made by
 `ddpg_update_phase`). Per update k, on the presampled minibatch k:
@@ -147,8 +146,8 @@ def group_views(buf: torch.Tensor, layout) -> list:
 
 def covers(obs_dim: int, hidden: Sequence[int]) -> bool:
     """The shapes B3 takes: any torso of at least 2 hidden layers (the
-    action joins at layer 1), any width, as the reference's kernel (a row
-    stage walks a layer input wider than 1024 in chunks)."""
+    action joins at layer 1), any width, as the reference's kernel
+    (`ddpg_plan`)."""
     return len(tuple(hidden)) >= 2
 
 
@@ -162,35 +161,68 @@ def _pad4(n: int) -> int:
     return (n + 3) // 4 * 4
 
 
-_DQN_ROWS = 8            # kRowsF in csrc/dqn_update.cu: a forward item's rows
-_DQN_LDF = _DQN_ROWS + 4  # kLdF: the feature stride of its activations
-# kFixed: the weight ring (4 chunks of 256 x 36 floats) and a backward
-# item's d loss / dQ (4 rows of 8 floats).
-_DQN_FIXED = 4 * 256 * 36 + 4 * 8
+def _r32(n: int) -> int:
+    return -(-n // 32) * 32
 
 
-def _dqn_tile_floats(obs_dim: int, hidden: tuple) -> int:
-    """Floats of one B5 forward item's buffers (row_plan in
-    csrc/dqn_update.cu; a backward item's are fewer): the activations of
-    its 8 rows, feature-major over max(obs_dim, widths) features, and their
-    pre-LN rows, row-major at a stride of the widest layer padded to 4."""
-    return (_DQN_LDF * max(obs_dim, *hidden)
-            + _DQN_ROWS * _pad4(max(hidden)))
+# csrc/row_chain.cuh, the row chains of B3, B5 and B7.
+_ROWS_F = 8              # kRowsF: a forward item's batch rows (B3, B5)
+_LD_F = _ROWS_F + 4      # kLdF: the feature stride of its activations
+_ROWS_N = 4              # kRowsN in csrc/naf_update.cu: B7's forward rows
+_ROWS_A = 4              # kRowsA in csrc/ddpg_update.cu: B3's actor pass
+_ROWS_B = 4              # kRowsB: a backward item's batch rows
+_LD_B = _ROWS_B          # kLdB: the feature stride of its dz
+_QLD = 8                 # kQLd: the stride of a row's head values
+# kFixed: the weight ring (3 chunks of 256 x 36 floats) and a backward
+# item's d loss / d head (4 rows of 8 floats).
+_ROW_FIXED = 3 * 256 * 36 + _ROWS_B * _QLD
+_B3_FWD_EXTRA = ACTION_DIM * _LD_F   # kFwdExtra in csrc/ddpg_update.cu
+
+
+def _b3_bwd_extra(obs_dim: int, hidden: tuple) -> int:
+    """bwd_extra in csrc/ddpg_update.cu: a backward item's dQ/da and d loss
+    / d pre-tanh rows, then the critic's rest of the forward: its 4 rows'
+    activations over max(obs_dim, widths) features and action rows."""
+    ld4 = _ROWS_B + 4
+    return (2 * _ROWS_B * _QLD + ld4 * max(obs_dim, *hidden)
+            + ACTION_DIM * ld4)
+
+
+def _row_plan(obs_dim: int, hidden: tuple, n_tab: int, spill: bool,
+              fwd_extra: int = 0, bwd_extra: int = 0, rows_f: int = _ROWS_F):
+    """row_plan in csrc/row_chain.cuh: (floats of an item's buffers rounded
+    up to 32, spill, bytes of a block's dynamic shared memory). A forward
+    item's buffers: its rows_f rows' activations, feature-major (stride
+    rows_f + 4) over max(obs_dim, widths) features, their pre-LN rows,
+    row-major at a stride of the widest layer padded to 4, and fwd_extra
+    floats; a backward item's: its 4 rows of dh and their dz at that
+    stride and bwd_extra floats. They sit in shared memory beside the
+    weight ring and the device table (n_tab ints) unless that takes more
+    than MAX_SMEM less 4 KB or `spill` asks for it, then in the
+    workspace."""
+    hmax = max(hidden)
+    ldz = _pad4(hmax)
+    fwd = (rows_f + 4) * max(obs_dim, hmax) + rows_f * ldz + fwd_extra
+    bwd = (_ROWS_B + _LD_B) * ldz + bwd_extra
+    bufs = max(fwd, bwd)
+    spill = bool(spill) or 4 * (_ROW_FIXED + bufs + n_tab) > (
+        _native.MAX_SMEM - 4096)
+    return (_r32(bufs), spill,
+            4 * (_ROW_FIXED + (0 if spill else bufs) + n_tab))
 
 
 def dqn_plan(obs_dim: int, hidden: Sequence[int], batch: int,
              spill: bool = False):
-    """B5's plan (row_plan in csrc/dqn_update.cu): (forward item rows,
+    """B5's plan (dqn_row_plan in csrc/dqn_update.cu): (forward item rows,
     forward items, spill). A forward item runs one of the three passes
     through every layer for 8 batch rows (a backward item, 4 rows); an
     item's buffers sit in shared memory beside the weight ring unless that
-    takes more than MAX_SMEM less 4 KB (one layer wider than 1008 at obs
+    takes more than MAX_SMEM less 4 KB (one layer wider than 1468 at obs
     42) or `spill` asks for it, then in the workspace."""
     hidden = tuple(hidden)
-    items = 3 * -(-batch // _DQN_ROWS)
-    floats = _DQN_FIXED + _dqn_tile_floats(obs_dim, hidden) + 6 * len(hidden)
-    return (_DQN_ROWS, items,
-            spill or 4 * floats > _native.MAX_SMEM - 4096)
+    items = 3 * -(-batch // _ROWS_F)
+    return (_ROWS_F, items,
+            _row_plan(obs_dim, hidden, 6 * len(hidden), spill)[1])
 
 
 def dqn_workspace_floats(obs_dim: int, hidden: Sequence[int], batch: int,
@@ -202,21 +234,104 @@ def dqn_workspace_floats(obs_dim: int, hidden: Sequence[int], batch: int,
     on the spill route every forward item's buffers."""
     hidden = tuple(hidden)
     _, items, spill = dqn_plan(obs_dim, hidden, batch, spill)
-
-    def r32(n):
-        return -(-n // 32) * 32
-
     s, hl = sum(hidden), hidden[-1]
-    tile = r32(_dqn_tile_floats(obs_dim, hidden))
-    return (4 * r32(batch * s) + r32(batch * (s - hl)) + r32(batch * hl)
-            + r32(batch * NUM_ACTIONS) + r32(batch)
-            + r32(3 * batch * NUM_ACTIONS)
-            + (r32(items * tile) if spill else 0))
+    tile = _row_plan(obs_dim, hidden, 6 * len(hidden), spill)[0]
+    return (4 * _r32(batch * s) + _r32(batch * (s - hl)) + _r32(batch * hl)
+            + _r32(batch * NUM_ACTIONS) + _r32(batch)
+            + _r32(3 * batch * NUM_ACTIONS)
+            + (items * tile if spill else 0))
+
+
+def ddpg_plan(obs_dim: int, hidden: Sequence[int], batch: int,
+              actor_grad_critic: str = "updated", spill: bool = False):
+    """B3's plan (ddpg_row_plan in csrc/ddpg_update.cu): (forward item
+    rows, the items of each forward and backward stage of an update in
+    order, spill, bytes of a block's dynamic shared memory). At "updated"
+    the critic's forward (8 rows an item: the target actor, the target
+    critic's front (layer 0 and layer 1's sums before the action), the
+    online critic), its backward (4 rows: the target critic's rest, TD,
+    backward), then the actor's forward (4 rows: the actor, the critic's
+    front) and backward (the critic's rest, its backward to dQ/da, the
+    actor's); at "pre" one forward stage of all five passes (8 rows) and
+    one backward stage of both chains. A forward item's buffers also hold its action rows, a
+    backward item's dQ/da, d loss / d pre-tanh and the rest's rows; they
+    spill past two layers of 1468 at obs 42."""
+    hidden = tuple(hidden)
+    tf, tb = -(-batch // _ROWS_F), -(-batch // _ROWS_B)
+    ta = -(-batch // _ROWS_A)
+    items = ((5 * tf, 2 * tb) if actor_grad_critic == "pre"
+             else (3 * tf, tb, 2 * ta, tb))
+    _, spill, smem = _row_plan(obs_dim, hidden, 10 * len(hidden), spill,
+                               _B3_FWD_EXTRA, _b3_bwd_extra(obs_dim, hidden))
+    return _ROWS_F, items, spill, smem
+
+
+def ddpg_workspace_floats(obs_dim: int, hidden: Sequence[int], batch: int,
+                          actor_grad_critic: str = "updated",
+                          spill: bool = False) -> int:
+    """Floats of B3's workspace (cp_ddpg_workspace_floats), each piece
+    rounded up to 32: for the online critic on (s, a) per layer its pre-LN
+    rows, dz, dy and dy * xhat, its layer inputs past layer 0 (the action
+    joined at layer 1) and its last layer's output; the target critic's
+    layer-1 sums before the action and a'; Q(s, a), the TD errors and d
+    loss / dQ; for the actor on s the same rows (no action joined), for
+    the critic on (s, pi(s)) its pre-LN rows and layer-1 sums before the
+    action; pi(s), Q(s, pi(s)) and d loss / d pre-tanh; on the spill route
+    the buffers of every item of the largest stage."""
+    hidden = tuple(hidden)
+    _, items, spill, _ = ddpg_plan(obs_dim, hidden, batch,
+                                   actor_grad_critic, spill)
+    s, hl, h1 = sum(hidden), hidden[-1], hidden[1]
+    tile = _row_plan(obs_dim, hidden, 10 * len(hidden), spill,
+                     _B3_FWD_EXTRA, _b3_bwd_extra(obs_dim, hidden))[0]
+    critic = (4 * _r32(batch * s) + _r32(batch * (s - hl + ACTION_DIM))
+              + _r32(batch * hl) + _r32(batch * h1)
+              + _r32(batch * ACTION_DIM) + 3 * _r32(batch))
+    actor = (5 * _r32(batch * s) + _r32(batch * (s - hl)) + _r32(batch * hl)
+             + _r32(batch * h1) + 2 * _r32(batch * ACTION_DIM)
+             + _r32(batch))
+    return critic + actor + (max(items) * tile if spill else 0)
 
 
 def naf_covers(obs_dim: int, hidden: Sequence[int]) -> bool:
-    """The shapes B7 takes: B5's (any torso of at least 1 hidden layer)."""
+    """The shapes B7 takes: B5's (any torso of at least 1 hidden layer,
+    any width; `naf_plan`)."""
     return dqn_covers(obs_dim, hidden)
+
+
+def naf_plan(obs_dim: int, hidden: Sequence[int], batch: int,
+             spill: bool = False):
+    """B7's plan (naf_row_plan in csrc/naf_update.cu): (forward item rows,
+    the items of its forward and backward stages, spill, bytes of a
+    block's dynamic shared memory). The forward stage runs the target on
+    s' and the online net on s over 4-row tiles (128 items at batch 256),
+    the backward stage 4-row tiles; the buffers spill past one layer of
+    2449 at obs 42."""
+    hidden = tuple(hidden)
+    items = (2 * -(-batch // _ROWS_N), -(-batch // _ROWS_B))
+    _, spill, smem = _row_plan(obs_dim, hidden, 6 * len(hidden), spill,
+                               rows_f=_ROWS_N)
+    return _ROWS_N, items, spill, smem
+
+
+def naf_workspace_floats(obs_dim: int, hidden: Sequence[int], batch: int,
+                         spill: bool = False) -> int:
+    """Floats of B7's workspace (cp_naf_workspace_floats), each piece
+    rounded up to 32: per layer the online net's pre-LN rows on s, dz, dy
+    and dy * xhat; its layer inputs past layer 0 and its last layer's
+    output; the target's V, the head rows and their gradients, the TD
+    errors; the flat gradient of a clipped update, its 256 slices' partial
+    sums and counts; on the spill route the buffers of every item of the
+    larger stage."""
+    hidden = tuple(hidden)
+    _, items, spill, _ = naf_plan(obs_dim, hidden, batch, spill)
+    s, hl = sum(hidden), hidden[-1]
+    tile = _row_plan(obs_dim, hidden, 6 * len(hidden), spill,
+                     rows_f=_ROWS_N)[0]
+    size = layout_size(naf_layout(obs_dim, hidden))
+    return (4 * _r32(batch * s) + _r32(batch * (s - hl)) + _r32(batch * hl)
+            + 2 * _r32(batch) + 2 * _r32(batch * NAF_HEAD) + _r32(size)
+            + 2 * 256 + (max(items) * tile if spill else 0))
 
 
 _PG_ROWS = 64            # kPgRows in csrc/lrpg_update.cu: rows of a tile
@@ -885,19 +1000,31 @@ def ddpg_update_phase(groups, batches, t0: int, hidden, *, actor_lr: float,
                 d.copy_(s)
         return out[8], out[9]
 
+    return _ddpg_launch(groups, batches, t0, hidden, kw, lr_schedule,
+                        actor_grad_critic == "pre", False)
+
+
+def _ddpg_launch(groups, batches, t0, hidden, kw, lr_schedule, merged,
+                 spill):
+    """One launch of csrc/ddpg_update.cu on checked CUDA inputs; `spill`
+    puts the row tiles' buffers in the workspace at any width."""
+    k_updates, batch, obs_dim = batches[0].shape
+    dev = groups[0].device
+    lay_a, lay_c = actor_layout(obs_dim, hidden), critic_layout(obs_dim,
+                                                                hidden)
     torso, (net_a, net_c), widths = _learner_shape(
         dev, hidden, (tuple(lay_a), tuple(lay_c)))
     dims = _native.LearnerDims(
         obs_dim=obs_dim, batch=batch, k_updates=k_updates,
-        merged=int(actor_grad_critic == "pre"), torso=torso, actor=net_a,
-        critic=net_c)
+        merged=int(merged), torso=torso, actor=net_a, critic=net_c,
+        spill=int(spill))
     consts = _learner_consts(batch=batch, lr_schedule=lr_schedule, **kw)
     lib = _native.load_library()
     closs = torch.empty(k_updates, dtype=torch.float32, device=dev)
     aloss = torch.empty(k_updates, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        key = (dev, stream, obs_dim, batch, k_updates, hidden)
+        key = ("ddpg", dev, stream, obs_dim, batch, hidden, merged, spill)
         ws = _workspaces.get(key)
         if ws is None:
             size = lib.cp_ddpg_workspace_floats(_native.struct_ptr(dims),
@@ -1063,19 +1190,30 @@ def naf_update_phase(groups, batches, t0: int, hidden, *, lr: float,
                 d.copy_(s)
         return out[4]
 
+    return _naf_launch(groups, batches, t0, hidden, kw, False)
+
+
+def _naf_launch(groups, batches, t0, hidden, kw, spill):
+    """One launch of csrc/naf_update.cu on checked CUDA inputs; `spill`
+    puts the row tiles' buffers in the workspace at any width."""
+    k_updates, batch, obs_dim = batches[0].shape
+    dev = groups[0].device
+    lay = naf_layout(obs_dim, hidden)
     torso, (net,), widths = _learner_shape(dev, hidden, (tuple(lay),))
+    max_grad_norm = kw["max_grad_norm"]
     dims = _native.NafDims(
         obs_dim=obs_dim, batch=batch, k_updates=k_updates,
         max_norm=_f32(max_grad_norm) if max_grad_norm > 0.0 else 0.0,
-        torso=torso, q=net)
-    # The NafNet is net 0 of the stage engine: its lr rides in actor_lr.
-    consts = _learner_consts(batch=batch, actor_lr=lr, critic_lr=lr,
-                             gamma=gamma, tau=tau, lr_schedule=lr_schedule)
+        torso=torso, q=net, spill=int(spill))
+    # The NafNet is net 0 of the gradient stage: its lr rides in actor_lr.
+    consts = _learner_consts(batch=batch, actor_lr=kw["lr"],
+                             critic_lr=kw["lr"], gamma=kw["gamma"],
+                             tau=kw["tau"], lr_schedule=kw["lr_schedule"])
     lib = _native.load_library()
     loss = torch.empty(k_updates, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        key = ("naf", dev, stream, obs_dim, batch, hidden)
+        key = ("naf", dev, stream, obs_dim, batch, hidden, spill)
         ws = _workspaces.get(key)
         if ws is None:
             size = lib.cp_naf_workspace_floats(_native.struct_ptr(dims),

@@ -12,11 +12,13 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      against its twin, 4096 envs, 3 steps, seeded random actor weights,
      at hidden (256, 256), (2048,) and (8,) * 5; its time per env-step
      beside B1's (the physics' floor);
-  4b. B3 (the fused K-update DDPG learner kernel) against its twin at the
-     CLI defaults (hidden (256, 256), obs 42, batch 256, K 16) from warmed
-     Adam moments: all 8 parameter groups and both loss vectors, two runs
-     bit for bit, the "pre" / lr-schedule variant at K 4, K 4 at (8,) * 5
-     and K 1 at (1536, 1536) (wider than a row stage's chunk of 1024);
+  4b. B3 (the fused K-update DDPG learner kernel on the row chains:
+     forward items of 8 rows, backward items of 4, gradient tiles; 6 grid
+     barriers per update) against its twin at the CLI defaults (hidden
+     (256, 256), obs 42, batch 256, K 16) from warmed Adam moments: all 8
+     parameter groups and both loss vectors, two runs bit for bit, the
+     "pre" / lr-schedule variant at K 4, K 4 at (8,) * 5 and K 1 at (1536,
+     1536) (its row tiles' buffers in the workspace);
   5. main path with the launch counters zeroed: the train CLI
      (`train.main`) at its defaults for 64 env-steps (8 train steps) plus
      a 200-step greedy eval; B2 must launch once per train step and B3
@@ -43,13 +45,15 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      launch once per train step and B5 once per learning train step (7),
      the DDPG and physics kernels never;
   11. where a default DQN train step's time goes, as phase 7;
-  11b. the stage split: B5 (DQN defaults, K 8) and B3 (DDPG defaults, K
-     16), each built again from its source with -DCP_STAGE_CLOCK into a
+  11b. the stage split: B5 (DQN defaults, K 8), B3 (DDPG defaults, K 16,
+     "updated" and "pre") and B7 (NAF defaults, K 8, the clip at 10 and
+     off), each built again from its source with -DCP_STAGE_CLOCK into a
      library of its own (clock64() marks of every block at each grid
-     barrier and at each stage's items' start): per grid-synced stage of
-     an update, its work on the slowest block, of which the lead thread's
-     op building, and the barrier, and B5's item phases; B9's tile phases
-     the same way; B5 must take at most 3 barriers per update;
+     barrier): per grid-synced stage of an update, its work on the
+     slowest block and the barrier, and B5's item phases; B9's tile phases
+     the same way; B5 must take at most 3 barriers per update, B3 at most
+     6 at "updated" and 3 at "pre", B7 at most 4 with the clip and 3
+     without;
   12. B8 (LRPG softmax policy in the env loop, Gumbel-max sampling)
      against its twin, 4096 envs, hidden (64, 64), (2048,) and (8,) * 5,
      3 steps from a state 6 sampled steps past a reset, seeded random
@@ -72,7 +76,8 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      (256, 256) with sigma 0.2 and 0 (greedy mu) and at (2048,) and (8,) *
      5 with sigma 0.2, timed at T = 8 beside its twin, B2 re-timed in
      turns with it, both per env-step beside B1's;
-  17. B7 (the fused K-update NAF learner kernel) against its twin at the
+  17. B7 (the fused K-update NAF learner kernel, on the row chains of B3
+     and B5) against its twin at the
      NAF defaults (hidden (256, 256), obs 42, batch 256, K 8, lr schedule
      on) from warmed Adam moments, with the global-norm clip at 10 (the
      default), at 0.05 (below every update's norm: the clip fires; the
@@ -135,12 +140,11 @@ B4_EPS = (0.3, 0.0)     # compared exploration rates: mixed, then greedy
 B4_TIE = 1e-5           # a twin top-2 Q gap below this is a near-tie
 # Torsos compared beside the main-path shapes of the rollout kernels (B2,
 # B4, B6, B8) and of B5 and B7: one 2048 wide (the rollouts' activations
-# in the workspace, the learners' row stages in chunks) and one five
-# layers deep.
+# and B5's row tiles' buffers in the workspace) and one five layers deep.
 WIDE_TORSOS = ((2048,), (8,) * 5)
 # B3's, each with its compared update count: five layers deep, and two
-# layers wider than a row stage's chunk of 1024 inputs. One update at
-# (1536, 1536) runs every chunked stage type; from the 2nd update on, one
+# layers of 1536 (its row tiles' buffers in the workspace). One update at
+# (1536, 1536) runs the workspace route; from the 2nd update on, one
 # of its ~0.8 M LayerNorm outputs per pass sits within the twins'
 # accumulated rounding of the relu edge (under 1e-6 at seed 21) and flips
 # there, which moves a row of the critic's gradient, and the actor loss
@@ -152,12 +156,20 @@ LRPG_T = 32
 B9_N = N_ENVS * LRPG_T
 NAF_SIGMAS = (0.2, 0.0)  # compared exploration scales: default, greedy mu
 B7_BATCH, B7_K = 256, 8  # NAF's batch_size and updates_per_step
-# The phase marks of B5's items and of B9's tile (CP_MARK ids 3, 4, ...
-# in csrc/dqn_update.cu and csrc/lrpg_update.cu), for the stage split.
+# The phase marks of B5's, B7's and B3's items and of B9's tile (CP_MARK
+# ids 3, 4, ... in csrc/dqn_update.cu, naf_update.cu, ddpg_update.cu and
+# lrpg_update.cu), for the stage split.
 B5_PHASES = ("inputs", "torso forward", "head", "TD and backward")
+B7_PHASES = ("forward item", "backward item", "gradient items",
+             "completed slices' sums", "norm", "Adam and Polyak")
+B3_PHASES = ("actor torso", "actor head", "critic front",
+             "critic on (s, a)", "critic rest", "TD and critic backward",
+             "actor backward")
 B9_PHASES = ("obs in", "torso forward", "head", "softmax", "head backward",
              "LayerNorm backward", "layer grads", "dh = dz W")
 B7_CLIPS = (10.0, 0.05, 0.0)  # the default clip, one that fires, none
+# The row chains' grid barriers per update at most, by stage-split label.
+SPLIT_BARRIERS = {"B5": 3, "B3": 6, "B3 pre": 3, "B7": 4, "B7 no clip": 3}
 # The H100 SXM's published peaks (NVIDIA's data sheet): float32 outside
 # the tensor cores and HBM3 bandwidth. A kernel's bound is the larger of
 # its operations and its bytes over these.
@@ -1113,6 +1125,7 @@ def _stage_clock_load(proc, path):
     main_lib, lib = _native.load_library(), ctypes.CDLL(path)
     for name in ("cp_ddpg_workspace_floats", "cp_ddpg_update_phase",
                  "cp_dqn_workspace_floats", "cp_dqn_update_phase",
+                 "cp_naf_workspace_floats", "cp_naf_update_phase",
                  "cp_lrpg_workspace_floats", "cp_lrpg_update_phase"):
         if hasattr(lib, name):
             fn = getattr(lib, name)
@@ -1177,48 +1190,42 @@ def _stage_split(lib, run, k_updates, label, phases=None) -> dict:
     """One launch of run() through a stage-clock library, split by its
     marks: per grid-synced stage of an update, the critical path of its
     work (the slowest block, from the last barrier's release to its own
-    arrival at the next), of which the lead thread's op building (to the
-    items' start), and the barrier itself (the release after the last
-    block's arrival: the least wait over the blocks); each the mean over
-    the K updates, in us at the clock that the launch's CUDA-event time
-    implies (block 0's first to last mark). phases: names of the kernel's
-    own phase marks (CP_MARK ids from 3), reported per update on the
-    slowest block."""
+    arrival at the next) and the barrier itself (the release after the
+    last block's arrival: the least wait over the blocks); each the mean
+    over the K updates, in us at the clock that the launch's CUDA-event
+    time implies (block 0's first to last mark). phases: names of the
+    kernel's own phase marks (CP_MARK ids from 3), reported per update on
+    the slowest block."""
     ms, blocks = _clock_run(lib, run)
-    stages = []  # per block: [(start, items or None, arrive, release)]
+    stages = []  # per block: [(start, arrive, release)]
     for kind, t in blocks:
         assert kind[0] == 0, "the first mark is the kernel's start"
-        rows, t0, items, arrive = [], t[0], None, None
+        rows, t0, arrive = [], t[0], None
         for kd, tt in zip(kind[1:], t[1:]):
-            if kd == 1:
-                items = tt
-            elif kd == 2:
+            if kd == 2:
                 arrive = tt
             elif kd == 0:
-                rows.append((t0, items, arrive, tt))
-                t0, items, arrive = tt, None, None
+                rows.append((t0, arrive, tt))
+                t0, arrive = tt, None
         stages.append(rows)
     n_stages = len(stages[0])
     assert all(len(r) == n_stages for r in stages), "blocks disagree"
     assert n_stages % k_updates == 0
     per = n_stages // k_updates
     first = stages[0]
-    mhz = float(first[-1][3] - first[0][0]) / (ms * 1e3)  # cycles per us
+    mhz = float(first[-1][2] - first[0][0]) / (ms * 1e3)  # cycles per us
     split = []
     for s in range(per):
-        work, build, barrier = [], [], []
+        work, barrier = [], []
         for k in range(k_updates):
             i = k * per + s
-            work.append(max(r[i][2] - r[i][0] for r in stages) / mhz)
-            build.append(max((r[i][1] - r[i][0]) if r[i][1] is not None
-                             else 0 for r in stages) / mhz)
-            barrier.append(min(r[i][3] - r[i][2] for r in stages) / mhz)
-        split.append((statistics.mean(work), statistics.mean(build),
-                      statistics.mean(barrier)))
-    total = sum(w + b for w, _, b in split)
+            work.append(max(r[i][1] - r[i][0] for r in stages) / mhz)
+            barrier.append(min(r[i][2] - r[i][1] for r in stages) / mhz)
+        split.append((statistics.mean(work), statistics.mean(barrier)))
+    total = sum(w + b for w, b in split)
     listed = "; ".join(
-        f"stage {i + 1}: work {w:.2f} us (op building {o:.2f}), barrier "
-        f"{b:.2f} us" for i, (w, o, b) in enumerate(split))
+        f"stage {i + 1}: work {w:.2f} us, barrier {b:.2f} us"
+        for i, (w, b) in enumerate(split))
     own = ""
     if phases:
         tot = [_phase_totals(kind, t) for kind, t in blocks]
@@ -1227,9 +1234,8 @@ def _stage_split(lib, run, k_updates, label, phases=None) -> dict:
             f" us" for i, name in enumerate(phases))
     print(f"{label} stage split: {len(stages)} blocks, {per} grid barriers "
           f"per update; per update (mean of K {k_updates}): {listed}; work "
-          f"{sum(w for w, _, _ in split):.2f} us (op building "
-          f"{sum(o for _, o, _ in split):.2f}), barriers "
-          f"{sum(b for _, _, b in split):.2f} us, sum {total:.2f} us; the "
+          f"{sum(w for w, _ in split):.2f} us, barriers "
+          f"{sum(b for _, b in split):.2f} us, sum {total:.2f} us; the "
           f"launch {ms:.4f} ms = {ms * 1e3 / k_updates:.2f} us per update "
           f"(clock {mhz:.0f} MHz by the marks){own}", flush=True)
     return dict(barriers_per_update=per, split=split, ms=ms)
@@ -1255,38 +1261,45 @@ def _phase_split(lib, run, label, phases, per_block) -> dict:
     return dict(us=us, ms=ms)
 
 
-def phase_stage_split(dev, dqn_src=None, label="B5"):
-    """How an update's time splits between its grid barriers, the lead
-    thread's op building and the work between them: B5 at the DQN
-    defaults (K 8, batch 256, hidden (256, 256), double DQN; and its row
-    chain's phases) and B3, the stage engine, at the DDPG defaults (K 16),
-    each through a separate build of its source with the stage clock; and
-    B9's tile at the LRPG defaults by its phases. dqn_src: another B5
-    source to measure in place of this checkout's (an earlier version's,
-    whose DqnDims the wrapper's fills)."""
+def phase_stage_split(dev):
+    """How an update's time splits between its grid barriers and the work
+    between them, each learner through a separate build of its source with
+    the stage clock: B5 at the DQN defaults (K 8, batch 256, hidden (256,
+    256), double DQN; and its row chain's phases), B3 at the DDPG defaults
+    (K 16) at "updated" and "pre", B7 at the NAF defaults (K 8, lr
+    schedule) with the clip at 10 and off; and B9's tile at the LRPG
+    defaults by its phases."""
     import os
 
+    from cartpoleplusplus_tpu_torch.agents.common import lr_schedule
+    from cartpoleplusplus_tpu_torch.agents.naf import NAFConfig
     from cartpoleplusplus_tpu_torch.ops import _native
     from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
 
-    builds = {
-        label: _stage_clock_build(
-            dqn_src or os.path.join(_native.CSRC, "dqn_update.cu"),
-            label.replace(" ", "_")),
-        "B3": _stage_clock_build(os.path.join(_native.CSRC,
-                                              "ddpg_update.cu"), "B3"),
-        "B9": _stage_clock_build(os.path.join(_native.CSRC,
-                                              "lrpg_update.cu"), "B9")}
+    src = {"B5": os.path.join(_native.CSRC, "dqn_update.cu"),
+           "B3": os.path.join(_native.CSRC, "ddpg_update.cu"),
+           "B7": os.path.join(_native.CSRC, "naf_update.cu"),
+           "B9": os.path.join(_native.CSRC, "lrpg_update.cu")}
+    builds = {k: _stage_clock_build(v, k) for k, v in src.items()}
     libs = {k: _stage_clock_load(*v) for k, v in builds.items()}
     hidden = (256, 256)
     groups, batches = _b5_inputs(dev, hidden, B5_BATCH, B5_K, seed=21)
-    out = {label: _stage_split(libs[label], lambda: lk.dqn_update_phase(
+    out = {"B5": _stage_split(libs["B5"], lambda: lk.dqn_update_phase(
         groups, batches, B3_T0, hidden, lr=5e-5, gamma=0.99, tau=0.01),
-        B5_K, label, phases=B5_PHASES)}
+        B5_K, "B5", phases=B5_PHASES)}
     groups, batches = _b3_inputs(dev, hidden, B3_BATCH, B3_K, seed=21)
-    out["B3"] = _stage_split(libs["B3"], lambda: lk.ddpg_update_phase(
-        groups, batches, B3_T0, hidden, actor_lr=1e-4, critic_lr=1e-3,
-        gamma=0.99, tau=0.01), B3_K, "B3")
+    for agc, tag in (("updated", "B3"), ("pre", "B3 pre")):
+        out[tag] = _stage_split(libs["B3"], lambda: lk.ddpg_update_phase(
+            groups, batches, B3_T0, hidden, actor_lr=1e-4, critic_lr=1e-3,
+            gamma=0.99, tau=0.01, actor_grad_critic=agc), B3_K, tag,
+            phases=B3_PHASES)
+    cfg = NAFConfig()
+    groups, batches = _b7_inputs(dev, hidden, B7_BATCH, B7_K, seed=33)
+    for clip, tag in ((cfg.max_grad_norm, "B7"), (0.0, "B7 no clip")):
+        out[tag] = _stage_split(libs["B7"], lambda: lk.naf_update_phase(
+            groups, batches, B3_T0, hidden, lr=cfg.lr, gamma=cfg.gamma,
+            tau=cfg.tau, max_grad_norm=clip, lr_schedule=lr_schedule(cfg)),
+            B7_K, tag, phases=B7_PHASES)
     groups, window = _b9_inputs(dev, LRPG_HIDDEN, seed=29)
     _, rpb, _ = lk.pg_plan(42, LRPG_HIDDEN, B9_N)
     out["B9"] = _phase_split(libs["B9"], lambda: lk.lrpg_update_phase(
@@ -1848,7 +1861,7 @@ def phase_b7(dev):
           f"{cfg.max_grad_norm} ({flop / ms / 1e9:.4g} TFLOP/s of learner "
           f"matmul; bound {bound['bound_ms']:.4f} ms by "
           f"{bound['bound_by']}), {ms_noclip:.4f} ms without the clip "
-          f"(2 stages fewer per update), plain {plain_ms:.2f} ms",
+          f"(1 grid barrier fewer per update), plain {plain_ms:.2f} ms",
           flush=True)
     return dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
                 ms_noclip=ms_noclip, **bound)
@@ -2384,7 +2397,9 @@ def main() -> int:
     dqn_launches = phase_dqn_main_path()
     phase_dqn_step_split(dev)
     split = phase_stage_split(dev)
-    assert split["B5"]["barriers_per_update"] <= 3, split["B5"]
+    for label, most in SPLIT_BARRIERS.items():
+        assert split[label]["barriers_per_update"] <= most, (label,
+                                                             split[label])
     b8 = phase_b8(dev, floor_us)
     b9 = phase_b9(dev)
     lrpg_launches = phase_lrpg_main_path()
@@ -2416,7 +2431,7 @@ def main() -> int:
              launched_by="train.main (DDPG defaults)",
              max_abs_err=b2["max_abs_err"],
              ms=b2["ms"], plain_ms=b2["plain_ms"], **_bound_keys(b2)),
-        dict(name="B3 ddpg_update_phase", route="cuda", design="stages",
+        dict(name="B3 ddpg_update_phase", route="cuda", design="row-chain",
              source="cartpoleplusplus_tpu_torch/csrc/ddpg_update.cu",
              replaces="cartpoleplusplus_tpu/ops/learner_kernel.py:564",
              launches=main_launches["B3"],
@@ -2444,7 +2459,7 @@ def main() -> int:
              launched_by="train.main --agent naf --naf.learner kernel",
              max_abs_err=b6["max_abs_err"],
              ms=b6["ms"], plain_ms=b6["plain_ms"], **_bound_keys(b6)),
-        dict(name="B7 naf_update_phase", route="cuda", design="stages",
+        dict(name="B7 naf_update_phase", route="cuda", design="row-chain",
              source="cartpoleplusplus_tpu_torch/csrc/naf_update.cu",
              replaces="cartpoleplusplus_tpu/ops/learner_kernel.py:1144",
              launches=naf_launches["B7"],

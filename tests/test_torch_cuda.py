@@ -159,8 +159,8 @@ def test_b3_matches_twin(cuda, hidden, batch, k, agc, sched):
     """K updates from warmed moments: every group and both loss vectors
     within the reference's kernel-vs-XLA bar (rtol 2e-4, atol 1e-5), one
     counted launch, and the same bits from a second run. (8,) * 5 is
-    deeper than the old cap of 4 layers; (1536, 1536) wider than a row
-    stage's chunk of 1024 inputs."""
+    deeper than the old cap of 4 layers; (1536, 1536) keeps its row
+    tiles' buffers in the workspace."""
     groups, batches = _b3_inputs(cuda, hidden, batch, k, seed=2)
     kw = dict(actor_lr=1e-3, critic_lr=2e-3, gamma=0.99, tau=0.05,
               actor_grad_critic=agc, lr_schedule=sched)
@@ -185,6 +185,51 @@ def test_b3_matches_twin(cuda, hidden, batch, k, agc, sched):
         torch.testing.assert_close(a, b, rtol=2e-4, atol=1e-5)
     assert all(torch.equal(a, b) for a, b in zip(got + list(losses),
                                                  got2 + list(losses2)))
+
+
+def test_b3_plan_matches_the_kernel(cuda):
+    """The kernel's workspace equals `ddpg_workspace_floats` (its plan:
+    8-row forward and 4-row backward items, their buffers in shared memory
+    up to two layers of 1468 at obs 42 and in the workspace past them, or
+    wherever spill asks), at "updated" and "pre", batches 200 and 256, and
+    on both sides of the boundary."""
+    lib = _native.load_library()
+    for hidden in ((256, 256), (8,) * 5, (1468, 1468), (1469, 1469),
+                   (1536, 1536), (64, 48, 32)):
+        la, lc = lk.actor_layout(42, hidden), lk.critic_layout(42, hidden)
+        torso, (na, nc), widths = lk._learner_shape(cuda, hidden,
+                                                    (tuple(la), tuple(lc)))
+        for batch in (200, 256):
+            for agc in ("updated", "pre"):
+                for spill in (False, True):
+                    dims = _native.LearnerDims(
+                        obs_dim=42, batch=batch, k_updates=16,
+                        merged=int(agc == "pre"), torso=torso, actor=na,
+                        critic=nc, spill=int(spill))
+                    size = lib.cp_ddpg_workspace_floats(
+                        _native.struct_ptr(dims), widths)
+                    assert size == lk.ddpg_workspace_floats(
+                        42, hidden, batch, agc, spill), (hidden, batch, agc)
+
+
+@pytest.mark.parametrize("agc", ["updated", "pre"])
+def test_b3_routes_repeat_their_bits(cuda, agc):
+    """At the DDPG defaults (batch 256, K 16, hidden (256, 256)) the items'
+    buffers in shared memory and in the workspace give the same bits, and
+    each route gives the same bits twice."""
+    hidden = (256, 256)
+    assert not lk.ddpg_plan(42, hidden, 256, agc)[2]
+    groups, batches = _b3_inputs(cuda, hidden, 256, 16, seed=21)
+    kw = dict(actor_lr=1e-4, critic_lr=1e-3, gamma=0.99, tau=0.01)
+    runs = []
+    for spill in (False, True, False, True):
+        got = [g.clone() for g in groups]
+        losses = lk._ddpg_launch(got, batches, 100, hidden, kw, None,
+                                 agc == "pre", spill)
+        torch.cuda.synchronize()
+        runs.append(got + list(losses))
+    for run in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], run))
 
 
 def test_b3_rejects_uncovered_shapes(cuda):
@@ -323,10 +368,10 @@ def test_b5_matches_twin(cuda, hidden, double_dqn):
 def test_b5_plan_matches_the_kernel(cuda):
     """The kernel's workspace equals `dqn_workspace_floats` (its plan:
     forward items of 8 rows, their buffers in shared memory up to one layer
-    of 1008 at obs 42 and in the workspace past it, or wherever spill
+    of 1468 at obs 42 and in the workspace past it, or wherever spill
     asks), at batches 200 and 256 and on both sides of the boundary."""
     lib = _native.load_library()
-    for hidden in ((256, 256), (8,) * 5, (1008,), (1009,), (2048,),
+    for hidden in ((256, 256), (8,) * 5, (1468,), (1469,), (2048,),
                    (64, 48, 32)):
         lay = lk.qnet_layout(42, hidden)
         torso, (net,), widths = lk._learner_shape(cuda, hidden, (tuple(lay),))
@@ -741,6 +786,49 @@ def test_b7_covers_matches_the_kernel(cuda):
         assert lib.cp_naf_workspace_floats(_native.struct_ptr(dims),
                                            widths) == 0
     assert not lk.naf_covers(42, ())
+
+
+def test_b7_plan_matches_the_kernel(cuda):
+    """The kernel's workspace equals `naf_workspace_floats` (its plan:
+    4-row forward and backward items, their buffers in shared memory up to
+    one layer of 2449 at obs 42 and in the workspace past it, or wherever
+    spill asks), at batches 200 and 256 and on both sides of the
+    boundary."""
+    lib = _native.load_library()
+    for hidden in ((256, 256), (8,) * 5, (2449,), (2450,), (4096,),
+                   (64, 48, 32)):
+        torso, (net,), widths = lk._learner_shape(
+            cuda, hidden, (tuple(lk.naf_layout(42, hidden)),))
+        for batch in (200, 256):
+            for spill in (False, True):
+                dims = _native.NafDims(obs_dim=42, batch=batch, k_updates=8,
+                                       max_norm=10.0, torso=torso, q=net,
+                                       spill=int(spill))
+                size = lib.cp_naf_workspace_floats(_native.struct_ptr(dims),
+                                                   widths)
+                assert size == lk.naf_workspace_floats(42, hidden, batch,
+                                                       spill), (hidden, batch)
+
+
+@pytest.mark.parametrize("clip", [10.0, 0.0], ids=["clip10", "noclip"])
+def test_b7_routes_repeat_their_bits(cuda, clip):
+    """At the NAF defaults (batch 256, K 8, hidden (256, 256), the lr
+    schedule) the items' buffers in shared memory and in the workspace
+    give the same bits, and each route gives the same bits twice, with
+    the clip and without it."""
+    hidden = (256, 256)
+    assert not lk.naf_plan(42, hidden, 256)[2]
+    groups, batches = _b7_inputs(cuda, hidden, 256, 8, seed=21)
+    kw = dict(lr=1e-3, gamma=0.99, tau=0.01, max_grad_norm=clip,
+              lr_schedule=(0.1, 50))
+    runs = []
+    for spill in (False, True, False, True):
+        got = [g.clone() for g in groups]
+        loss = lk._naf_launch(got, batches, 100, hidden, kw, spill)
+        torch.cuda.synchronize()
+        runs.append(got + [loss])
+    for run in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], run))
 
 
 def test_b7_rejects_uncovered_shapes(cuda):

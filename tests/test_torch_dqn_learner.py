@@ -198,14 +198,14 @@ def test_dqn_covers_and_layout():
 def test_b5_plan_and_workspace():
     """B5's plan: forward items of one pass over 8 batch rows (96 at the
     DQN defaults, 3 passes x 32 tiles), their buffers in shared memory up
-    to one layer of 1008 at obs 42 and in the workspace past it or when
+    to one layer of 1468 at obs 42 and in the workspace past it or when
     asked; the workspace holds the gradient stage's rows, the passes' Q
     values and, on the spill route, every forward item's buffers."""
     assert lk.dqn_plan(F, (256, 256), 256) == (8, 96, False)
     assert lk.dqn_plan(F, (256, 256), 200) == (8, 75, False)
     assert lk.dqn_plan(F, (256, 256), 256, spill=True) == (8, 96, True)
-    assert not lk.dqn_plan(F, (1008,), 256)[2]
-    assert lk.dqn_plan(F, (1009,), 256)[2] and lk.dqn_plan(F, (2048,), 256)[2]
+    assert not lk.dqn_plan(F, (1468,), 256)[2]
+    assert lk.dqn_plan(F, (1469,), 256)[2] and lk.dqn_plan(F, (2048,), 256)[2]
     assert not lk.dqn_plan(F, (8,) * 5, 256)[2]
     rows = (4 * 256 * 512 + 256 * 256 + 256 * 256 + 256 * 5 + 256
             + 3 * 256 * 5)

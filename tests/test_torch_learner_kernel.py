@@ -158,6 +158,45 @@ def test_wrapper_cpu_runs_twin_in_place():
     assert torch.equal(closs, want[8]) and torch.equal(aloss, want[9])
 
 
+def test_b3_plan_and_workspace():
+    """B3's plan on the row chains: forward items of 8 batch rows (at
+    "updated" the target actor, the target critic's front and the online
+    critic, 96 at the DDPG defaults, then the actor and the critic's front
+    over 4 rows, 128; at "pre" all five passes in one stage, 160; 8 rows
+    each), backward items
+    of 4 rows (64 a stage, or 128 for both chains at "pre"); 131,376 bytes
+    of shared memory a block at the defaults (the weight ring, a row
+    tile's buffers with its action rows, the device table), the buffers in
+    the workspace past two layers of 1468 at obs 42 or when asked; the
+    workspace holds the rows the gradient stages and the backward items
+    read and, on the spill route, every item's buffers of the largest
+    stage."""
+    hid = (256, 256)
+    assert lk.ddpg_plan(F, hid, 256) == (8, (96, 64, 128, 64), False, 131376)
+    assert lk.ddpg_plan(F, hid, 256, "pre") == (8, (160, 128), False, 131376)
+    assert lk.ddpg_plan(F, hid, 200) == (8, (75, 50, 100, 50), False, 131376)
+    assert lk.ddpg_plan(F, hid, 256, spill=True) == (
+        8, (96, 64, 128, 64), True, 4 * (3 * 256 * 36 + 32 + 20))
+    assert not lk.ddpg_plan(F, (1468, 1468), 256)[2]
+    assert lk.ddpg_plan(F, (1469, 1469), 256)[2]
+    assert lk.ddpg_plan(F, (1536, 1536), 256)[2]
+    assert not lk.ddpg_plan(F, (8,) * 5, 256)[2]
+    critic = (4 * 256 * 512 + 256 * 258 + 256 * 256 + 256 * 256 + 512
+              + 3 * 256)
+    actor = (5 * 256 * 512 + 256 * 256 + 256 * 256 + 256 * 256 + 2 * 512
+             + 256)
+    assert lk.ddpg_workspace_floats(F, hid, 256) == critic + actor
+    assert lk.ddpg_workspace_floats(F, hid, 256, "pre") == critic + actor
+    tile = 12 * 256 + 8 * 256 + 2 * 12 + 8   # rounded up to 32 floats
+    assert lk.ddpg_workspace_floats(F, hid, 256, spill=True) == (
+        critic + actor + 128 * tile)
+    assert lk.ddpg_workspace_floats(F, hid, 256, "pre", spill=True) == (
+        critic + actor + 160 * tile)
+    assert lk.ddpg_workspace_floats(F, (8,) * 5, 200) == (
+        4 * 200 * 40 + 6816 + 2 * 200 * 8 + 416 + 3 * 224
+        + 5 * 200 * 40 + 200 * 32 + 2 * 200 * 8 + 2 * 416 + 224)
+
+
 def test_wrapper_rejects_bad_arguments():
     hidden = (16, 24)
     groups = _flat_groups(hidden, seed=7)

@@ -233,8 +233,8 @@ def test_wrapper_rejects_bad_arguments():
 
 def test_naf_covers_and_layout():
     """B7 takes any torso of at least one layer, as the reference's
-    kernel: any depth, and any width (row stages walk wide inputs in
-    chunks)."""
+    kernel: any depth, and any width (a row tile's buffers go to the
+    workspace past a layer of 2449)."""
     assert lk.naf_covers(F, (256, 256)) and lk.naf_covers(F, (64,))
     assert lk.naf_covers(F, (8,) * 4) and lk.naf_covers(F, (8,) * 5)
     assert lk.naf_covers(F, (2048,)) and lk.naf_covers(F, (3,) * 12)
@@ -242,6 +242,37 @@ def test_naf_covers_and_layout():
     net = NafNet(F, 2, (16, 24, 8))
     assert [(n, tuple(p.shape)) for n, p in net.named_parameters()] == [
         (n, tuple(s)) for n, s in lk.naf_layout(F, (16, 24, 8))]
+
+
+def test_b7_plan_and_workspace():
+    """B7's plan on the row chains: forward items of 4 batch rows (the
+    target on s' and the online net on s: 128 at the NAF defaults),
+    backward items of 4 rows (64); 123,056 bytes of shared memory a block
+    at the defaults (the weight ring, a row tile's buffers, the device
+    table), the buffers in the workspace past one layer of 2449 at obs 42
+    or when asked; the workspace holds the gradient stage's rows, the
+    head rows and their gradients, the flat gradient of a clipped update
+    with its 256 slices' sums and counts and, on the spill route, every
+    item's buffers of the larger stage."""
+    hid = (256, 256)
+    assert lk.naf_plan(F, hid, 256) == (4, (128, 64), False, 123056)
+    assert lk.naf_plan(F, hid, 200) == (4, (100, 50), False, 123056)
+    assert lk.naf_plan(F, hid, 256, spill=True) == (
+        4, (128, 64), True, 4 * (3 * 256 * 36 + 32 + 12))
+    assert not lk.naf_plan(F, (2449,), 256)[2]
+    assert lk.naf_plan(F, (2450,), 256)[2] and lk.naf_plan(F, (4096,), 256)[2]
+    assert not lk.naf_plan(F, (8,) * 5, 256)[2]
+    size = lk.layout_size(lk.naf_layout(F, hid))
+    assert size == 79366
+    rows = (4 * 256 * 512 + 256 * 256 + 256 * 256 + 2 * 256 + 2 * 256 * 6
+            + 79392 + 2 * 256)
+    assert lk.naf_workspace_floats(F, hid, 256) == rows
+    assert lk.naf_workspace_floats(F, hid, 256, spill=True) == (
+        rows + 128 * (8 * 256 + 4 * 256))
+    small = lk.layout_size(lk.naf_layout(F, (8,) * 5))
+    assert lk.naf_workspace_floats(F, (8,) * 5, 200) == (
+        4 * 200 * 40 + 200 * 32 + 200 * 8 + 2 * 224 + 2 * 1216
+        + -(-small // 32) * 32 + 512)
 
 
 def test_learner_resolution():
