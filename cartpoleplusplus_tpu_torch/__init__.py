@@ -1,4 +1,5 @@
-"""cartpoleplusplus_tpu_torch — the PyTorch/CUDA port of cartpoleplusplus_tpu.
+"""cartpoleplusplus_tpu_torch — the PyTorch/CUDA port of the JAX package
+cartpoleplusplus_tpu (the reference).
 
 The JAX package `cartpoleplusplus_tpu` is the reference; this package
 mirrors its module names (physics/, env/, ops/, models/, agents/,

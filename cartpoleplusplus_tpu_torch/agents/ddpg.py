@@ -316,12 +316,17 @@ class DDPG:
                          critic_opt=st.critic_opt._replace(count=count))
         return st, {"critic_loss": closs.mean(), "actor_loss": aloss.mean()}
 
+    def greedy_policy(self, st: DDPGState):
+        """Deterministic actor fn(obs) -> action (no OU noise)."""
+        return st.actor
+
     def evaluate(self, st: DDPGState, num_steps: int = 200, seed: int = 0):
         """Deterministic-actor evaluation (no OU noise): episode stats."""
         return evaluate_policy(self.env, st.actor, seed, num_steps)
 
     # --- the actor-learner step ---------------------------------------------
-    def train_step(self, st: DDPGState, fused=None, indices=None):
+    def train_step(self, st: DDPGState, fused=None, indices=None,
+                   capture: bool = False):
         """rollout_steps env-steps + replay insert + updates_per_step
         gradient updates. Networks and the replay ring are updated in
         place; the returned state carries the new counters and tensors.
@@ -338,7 +343,9 @@ class DDPG:
         place of the state's generator.
 
         A quantized (pixel) ring takes the rollout after the update phase,
-        as the reference's late insert does."""
+        as the reference's late insert does. capture=True adds the rollout's time-major trajectory (obs, action,
+        reward, done) to the metrics as "traj", the event-log sink's
+        input (the reference's `make_train_step(capture=True)`)."""
         c = self.cfg
         sigma = self._sigma(st.env_steps)
         kernel = self.kernel_rollout if fused is None else fused
@@ -390,4 +397,6 @@ class DDPG:
         # 1.0 = kernel B3's wrapper ran the learner (its twin on the CPU),
         # 0.0 = the plain learner did.
         metrics["learner_impl"] = float(self.kernel_mode)
+        if capture:
+            metrics["traj"] = traj
         return st, metrics

@@ -240,7 +240,8 @@ class DQN:
         return st, {"loss": loss.mean()}
 
     # --- the actor-learner step ---------------------------------------------
-    def train_step(self, st: DQNState, fused=None, indices=None):
+    def train_step(self, st: DQNState, fused=None, indices=None,
+                   capture: bool = False):
         """rollout_steps env-steps + replay insert + updates_per_step
         gradient updates. Networks and the replay ring are updated in
         place; the returned state carries the new counters and tensors.
@@ -254,7 +255,9 @@ class DQN:
         learner resolved at construction; `learner_impl` reports which
         (1.0 B5's wrapper, 0.0 the plain learner). indices: optional
         presample draws ((slots, offs) for column sampling, (env_idx,
-        slot) for uniform) in place of the state's generator."""
+        slot) for uniform) in place of the state's generator. capture=True adds the rollout's time-major trajectory (obs, action,
+        reward, done) to the metrics as "traj", the event-log sink's
+        input (the reference's `make_train_step(capture=True)`)."""
         c = self.cfg
         eps = self.epsilon(st.env_steps)
         kernel = self.kernel_rollout if fused is None else fused
@@ -289,4 +292,6 @@ class DQN:
         # 1.0 = kernel B5's wrapper ran the learner (its twin on the CPU),
         # 0.0 = the plain learner did.
         metrics["learner_impl"] = float(self.kernel_mode)
+        if capture:
+            metrics["traj"] = traj
         return st, metrics

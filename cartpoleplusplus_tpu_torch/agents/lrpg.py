@@ -187,7 +187,7 @@ class LRPG:
         entropy = -torch.mean(torch.sum(torch.exp(logp) * logp, dim=-1))
         return pg - self.cfg.entropy_coef * entropy
 
-    def train_step(self, st: LRPGState):
+    def train_step(self, st: LRPGState, capture: bool = False):
         """rollout_steps env-steps, returns and advantages, one Adam step.
         The policy is updated in place; the returned state carries the new
         counters and tensors.
@@ -195,7 +195,9 @@ class LRPG:
         The rollout runs through B8's wrapper where the agent resolved it
         at construction (a CUDA device and a config B8 covers), else
         through the plain rollout; `rollout_impl` says which ran. `learner_impl` says which learner took the update
-        (1.0 B9's wrapper, 0.0 the plain learner)."""
+        (1.0 B9's wrapper, 0.0 the plain learner). capture=True adds the rollout's time-major trajectory (obs, action,
+        reward, done) to the metrics as "traj", the event-log sink's
+        input (the reference's `make_train_step(capture=True)`)."""
         c = self.cfg
         run = (pg_policy_rollout if self.kernel_rollout
                else reference_pg_rollout)
@@ -241,4 +243,6 @@ class LRPG:
             # CPU), 0.0 = the plain learner did.
             "learner_impl": float(self.kernel_mode),
         }
+        if capture:
+            metrics["traj"] = (obs_t, act_t, rew_t, done_t)
         return st, metrics

@@ -253,7 +253,7 @@ class NAF:
         return st, {"loss": loss.mean()}
 
     # --- the actor-learner step ---------------------------------------------
-    def train_step(self, st: NAFState, indices=None):
+    def train_step(self, st: NAFState, indices=None, capture: bool = False):
         """rollout_steps env-steps + replay insert + updates_per_step
         gradient updates. Networks and the replay ring are updated in
         place; the returned state carries the new counters and tensors.
@@ -264,7 +264,9 @@ class NAF:
         construction; `learner_impl` says which (1.0 B7's wrapper, 0.0 the
         plain learner). indices: optional presample draws ((slots, offs)
         for column sampling, (env_idx, slot) for uniform) in place of the
-        state's generator."""
+        state's generator. capture=True adds the rollout's time-major trajectory (obs, action,
+        reward, done) to the metrics as "traj", the event-log sink's
+        input (the reference's `make_train_step(capture=True)`)."""
         c = self.cfg
         run = (naf_policy_rollout if self.kernel_rollout
                else reference_naf_rollout)
@@ -297,4 +299,6 @@ class NAF:
         # 1.0 = kernel B7's wrapper ran the learner (its twin on the CPU),
         # 0.0 = the plain learner did.
         metrics["learner_impl"] = float(self.kernel_mode)
+        if capture:
+            metrics["traj"] = traj
         return st, metrics

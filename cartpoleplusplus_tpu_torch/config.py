@@ -4,8 +4,8 @@
 cartpoleplusplus_tpu/config.py's flag machinery (pure Python; the port
 cannot import the reference package, whose `__init__` loads JAX).
 tests/test_torch_env.py holds the copy equal to the original. `RunConfig`
-keeps the reference's fields that the port's train CLI supports, plus the
-device to run on.
+keeps the reference's fields, with its defaults, but the device mesh's
+(`use_mesh`, `learner`), plus the device to run on.
 """
 
 from __future__ import annotations
@@ -32,6 +32,10 @@ class RunConfig:
     """Top-level settings for a training run (train.py CLI)."""
 
     agent: str = "ddpg"              # ddpg | dqn | naf | lrpg | random
+    # "" (agent defaults = the quality recipes), "fast", or "pixels": lift
+    # unset run/agent fields to one of the reference's measured recipes
+    # (train.py _PRESETS; explicitly-typed flags always win).
+    preset: str = ""
     num_envs: int = 4096
     obs_mode: str = "pose_stack"     # pose_stack | state | pixels
     # Pixel-obs rendering knobs (obs_mode=pixels; env/pixels.py):
@@ -46,8 +50,30 @@ class RunConfig:
     total_env_steps: int = 100_000   # per-env steps to train for
     seed: int = 0
     log_interval: int = 10           # train_steps between metric prints
+    # Train steps per dispatch window: the loop runs k train steps, then
+    # decides logging and checkpoints once for the window (the same math
+    # as k = 1, bit for bit). Saves and metric prints land on window
+    # boundaries; keep 1 when an exact per-step checkpoint cadence
+    # matters.
+    steps_per_dispatch: int = 1
+    ckpt_dir: str = ""               # empty = no checkpointing
+    ckpt_interval: int = 100         # train_steps between saves
+    ckpt_full: bool = True           # False = weights-only (no replay/env)
+    event_log: str = ""              # empty = no event log
+    event_log_envs: int = 0          # log only the first k envs (0 = all)
+    eval_only: bool = False          # restore from ckpt_dir, evaluate, exit
     final_eval: bool = False         # greedy-policy eval line after training
     eval_steps: int = 400            # env-steps per eval run
+    eval_render: str = ""            # with --eval-only: dump frames of env 0 here
+    profile_dir: str = ""            # empty = no torch.profiler trace
+    # Collapse-detection canary: at `canary_env_steps` per-env steps (clamped
+    # to the budget), run a deterministic eval; if the mean episode length
+    # is below `canary_min_eval`, restart training from a re-seeded init
+    # (seed + 1000 per attempt, up to `canary_max_restarts`). The
+    # reference's presets fire it at the end of the budget. 0 = off.
+    canary_env_steps: int = 0
+    canary_min_eval: float = 100.0
+    canary_max_restarts: int = 2
     device: str = "cuda"             # cuda | cpu (never falls back)
 
 

@@ -107,7 +107,27 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      then `--obs-mode
      state` at the DDPG defaults for 2 train steps: one stderr line, the
      plain rollout on the card, B2 never, B3 once;
-  23. where a pixel train step's time goes, as phase 7.
+  23. where a pixel train step's time goes, as phase 7;
+  24. the presets through `train.main` with the run flags, each at its
+     full widths with only `--total-env-steps` cut (to 2 dispatch
+     windows), in a temporary directory: `--preset fast --agent ddpg`
+     (4096 envs, rollout 64, K 8, batch 8192, dispatch 32) with
+     checkpoints every 16 train steps, the event log of 64 envs, the
+     final eval and the profiler (B2 and B3 every train step, the saved
+     steps the reference's save policy gives, a valid log of exactly 64
+     env ids, a Chrome trace), its resume with a larger budget, and
+     `--eval-only` at 256 envs on the kernel and the plain learner
+     layouts (equal lines); `--preset fast --agent lrpg` (2048 envs, B8
+     + B9) with the canary forced to fail: 3 attempts, the card memory
+     the run holds at the last canary eval within 5 % of the first's;
+     `--preset fast --agent naf` (1024 envs, B6 + B7); `--preset pixels`
+     (B10) with its weights-only saves (no replay or env field on disk);
+     the fast ddpg train step, each preset's checkpoint save and the
+     event-log sink timed; and the presets' new kernel shapes against
+     their twins: B3 at batch 8192, K 8 from warmed moments and B9 over a
+     65,536-row window. The canary is disarmed (`--canary-env-steps 0`)
+     in the runs that count launches and saves: an untrained policy fails
+     it.
 Then one JSON line of per-kernel numbers (each with its bound: the larger
 of its float32 operations over 67 TFLOP/s and its bytes over 3.35 TB/s,
 counted from this run's shapes) and, last, the device line. The script
@@ -117,6 +137,7 @@ imports no JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import math
@@ -469,7 +490,7 @@ def _b3_inputs(dev, hidden, batch, k, seed):
     return ([x.to(dev) for x in groups], tuple(x.to(dev) for x in batches))
 
 
-def _b3_compare(dev, hidden, k, **kw):
+def _b3_compare(dev, hidden, k, batch=B3_BATCH, **kw):
     """B3 and its twin on the same inputs: max abs error over the 8 groups
     and both loss vectors (held to B3_RTOL/B3_ATOL), and whether a second
     run of the kernel gave the same bits."""
@@ -477,7 +498,7 @@ def _b3_compare(dev, hidden, k, **kw):
 
     from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
 
-    groups, batches = _b3_inputs(dev, hidden, B3_BATCH, k, seed=21)
+    groups, batches = _b3_inputs(dev, hidden, batch, k, seed=21)
     lay_a, lay_c = lk.actor_layout(42, hidden), lk.critic_layout(42, hidden)
     lays = (lay_a, lay_c, lay_a, lay_c, lay_a, lay_a, lay_c, lay_c)
     want = lk.update_phase_math(
@@ -1442,9 +1463,9 @@ def _b9_flop(n, hidden) -> int:
     return n * (2 * (2 * macs + dx) + 10 * (sum(hidden) + 5)) + 10 * p
 
 
-def _b9_inputs(dev, hidden, seed):
+def _b9_inputs(dev, hidden, seed, n=B9_N):
     """B9's 3 group buffers (a policy with redrawn LayerNorm parameters
-    and head, warmed Adam moments) and a window of B9_N rows."""
+    and head, warmed Adam moments) and a window of n rows."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
@@ -1454,9 +1475,9 @@ def _b9_inputs(dev, hidden, seed):
         flat, 1e-2 * torch.randn(flat.shape, generator=g),
         (1e-2 * torch.randn(flat.shape, generator=g)) ** 2 + 1e-5)]
     window = tuple(x.to(dev) for x in (
-        0.3 * torch.randn((B9_N, 42), generator=g),
-        torch.randint(0, 5, (B9_N,), generator=g, dtype=torch.int32),
-        torch.randn((B9_N,), generator=g)))
+        0.3 * torch.randn((n, 42), generator=g),
+        torch.randint(0, 5, (n,), generator=g, dtype=torch.int32),
+        torch.randn((n,), generator=g)))
     return groups, window
 
 
@@ -2347,6 +2368,418 @@ def phase_pixel_step_split(dev):
     _print_split("pixel train-step split", parts, lambda: agent.train_step(st))
 
 
+# The presets' run: each preset through train.main with its run flags
+# (phase 24). `--total-env-steps` is cut to a few dispatch windows; the
+# preset's end-of-budget canary is disarmed (`--canary-env-steps 0`) in
+# the runs whose checks count train steps, launches and saves, since an
+# untrained policy fails it, and is forced in the LRPG run instead.
+FAST_WINDOWS = 2                 # dispatch windows of a preset run
+# Each preset's rollout length t and dispatch window spd (train.py's
+# _PRESETS and the agents' defaults), and what phase 24 sets beside them.
+FAST_DDPG = dict(t=64, k=8, batch=8192, spd=32, interval=16, log_envs=64)
+FAST_LRPG = dict(envs=2048, t=32, spd=16)
+FAST_NAF = dict(t=8, spd=16)
+PIXELS = dict(t=8, spd=16)
+EVAL_ENVS = 256                  # --eval-only's env count
+CANARY_RESTARTS = 2
+CANARY_MEM_BAR = 1.05            # canary attempts' memory, last / first
+B9_FAST_N = FAST_LRPG["envs"] * FAST_LRPG["t"]   # 65,536 window rows
+
+
+def _expected_saves(runs, interval, keep=3):
+    """The steps on disk after train.py's windowed save cadence over
+    `runs` ([(n_calls, steps_per_dispatch)], each resuming at the latest
+    step + 1), under the reference's save policy (a save when past the
+    latest step and a multiple of the interval or the directory's first;
+    a forced save at each such window's end and at the final call; the
+    last `keep` saves kept), written out here apart from
+    ckpt/checkpoint.py."""
+    saved, start = [], 0
+    for n_calls, spd in runs:
+        i = start
+        while i < n_calls:
+            k = min(spd, n_calls - i)
+            i += k
+            if any((not saved or j > saved[-1])
+                   and (j % interval == 0 or not saved)
+                   for j in range(i - k, i)):
+                saved.append(i - 1)
+        if not saved or saved[-1] != n_calls - 1:
+            saved.append(n_calls - 1)
+        saved = saved[-keep:]
+        start = saved[-1] + 1
+    return sorted(saved)
+
+
+@functools.lru_cache(maxsize=1)
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+
+
+def _dir_bytes(path) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def _preset_run(argv, tag, want=None):
+    """train.main(argv) with the counters zeroed: (JSON lines, stderr,
+    launches, seconds). `want` are the launches that must be counted
+    (every other kernel never)."""
+    _zero_counts()
+    rc, lines, err, secs = _train_lines(argv)
+    launches = _read_counts()
+    assert rc == 0, f"{tag}: train.main returned {rc}:\n{err}"
+    for m in lines:
+        assert all(math.isfinite(v) for v in m.values()
+                   if not isinstance(v, bool)), (tag, m)
+    if want is not None:
+        assert _only(launches, **want), f"{tag}: launches {launches}, " \
+                                        f"want {want}"
+    return lines, err, launches, secs
+
+
+def phase_fast_ddpg(tmp):
+    """`--preset fast --agent ddpg` (4096 envs, rollout 64, K 8, batch
+    8192, dispatch 32) with checkpoints every 16 train steps, the event
+    log of 64 envs, the final eval and the profiler: B2 and B3 on every
+    train step, the reference policy's saved steps, a valid log of
+    exactly 64 env ids, a trace; then a resume with a larger budget, and
+    `--eval-only` at 256 envs on both learner layouts, equal."""
+    import os
+
+    from cartpoleplusplus_tpu_torch.eventlog import (EventLogWriter,
+                                                     read_records, validate)
+
+    c = FAST_DDPG
+    ck, log, prof = (os.path.join(tmp, n) for n in ("ddpg_ck", "ddpg.cpe",
+                                                   "ddpg_prof"))
+    n_calls = FAST_WINDOWS * c["spd"]
+    base = ["--preset", "fast", "--agent", "ddpg", "--seed", "0",
+            "--canary-env-steps", "0", "--ckpt-dir", ck,
+            "--ckpt-interval", str(c["interval"]), "--event-log", log,
+            "--event-log-envs", str(c["log_envs"])]
+    lines, _, launches, secs = _preset_run(
+        base + ["--total-env-steps", str(n_calls * c["t"]), "--final-eval",
+                "--profile-dir", prof], "fast ddpg",
+        dict(B2=n_calls, B3=n_calls))
+    steps, ev = lines[:-1], lines[-1]
+    assert [m["train_step"] for m in steps] == [
+        c["spd"] * (w + 1) for w in range(FAST_WINDOWS)]
+    assert all(m["rollout_impl"] == 1.0 and m["learner_impl"] == 1.0
+               for m in steps)
+    assert ev["eval_episodes"] > 0
+    on_disk = sorted(int(n) for n in os.listdir(ck) if n.isdigit())
+    want = _expected_saves([(n_calls, c["spd"])], c["interval"])
+    assert on_disk == want, (on_disk, want)
+    n_records = validate(log)
+    envs = {r["env_id"] for k, r in read_records(log) if k == "chunk"}
+    assert envs == set(range(c["log_envs"])), sorted(envs)
+    with EventLogWriter(os.path.join(tmp, "probe.cpe")) as w:
+        backend = w.backend
+    trace = os.path.join(prof, "trace.json")
+    assert os.path.getsize(trace) > 0
+    rate = steps[-1]["env_steps_per_sec"]
+    print(f"fast ddpg: {n_calls} train steps ({FAST_WINDOWS} windows of "
+          f"{c['spd']}) in {secs:.2f} s incl. init, saves and eval, "
+          f"{rate} env-steps/s over the run; launches {launches}; saved "
+          f"steps {on_disk} (the policy's {want}); event log {n_records} "
+          f"records, env ids 0-{c['log_envs'] - 1}, backend {backend}, "
+          f"{os.path.getsize(log)} bytes; trace {os.path.getsize(trace)} "
+          f"bytes; eval {json.dumps(ev)} [{_card()}]", flush=True)
+
+    more = n_calls + c["spd"]
+    lines, err, launches, secs = _preset_run(
+        base + ["--total-env-steps", str(more * c["t"])], "fast ddpg resume",
+        dict(B2=c["spd"], B3=c["spd"]))
+    assert f"resumed from step {n_calls - 1}" in err, err
+    assert lines[-1]["train_step"] == more
+    on_disk = sorted(int(n) for n in os.listdir(ck) if n.isdigit())
+    want = _expected_saves([(n_calls, c["spd"]), (more, c["spd"])],
+                           c["interval"])
+    assert on_disk == want and on_disk[-1] == more - 1, (on_disk, want)
+    assert validate(log) > n_records
+    assert {r["env_id"] for k, r in read_records(log)
+            if k == "chunk"} == set(range(c["log_envs"]))
+    print(f"fast ddpg resume: 'resumed from step {n_calls - 1}', ended at "
+          f"train step {more}; saved steps {on_disk}; the log appended "
+          f"({validate(log)} records) [{_card()}]", flush=True)
+
+    evals = []
+    for learner in ("kernel", "xla"):
+        lines, _, _, _ = _preset_run(
+            ["--preset", "fast", "--agent", "ddpg", "--ckpt-dir", ck,
+             "--eval-only", "--num-envs", str(EVAL_ENVS), "--ddpg.learner",
+             learner], f"eval-only {learner}")
+        assert len(lines) == 1
+        evals.append(lines[0])
+    assert evals[0] == evals[1], evals
+    print(f"fast ddpg --eval-only at {EVAL_ENVS} envs, kernel and xla "
+          f"learner layouts: equal lines {json.dumps(evals[0])} "
+          f"[{_card()}]", flush=True)
+
+
+def phase_canary(tmp):
+    """`--preset fast --agent lrpg` (2048 envs, B8 + B9, dispatch 16) with
+    the canary forced to fail at the end of the budget: three attempts,
+    each `healthy: false`, then a finished run; the card memory the run
+    holds at the last attempt's canary eval within CANARY_MEM_BAR of the
+    first's (the collapsed state is freed before the fresh one)."""
+    import torch
+
+    from cartpoleplusplus_tpu_torch import train
+
+    c = FAST_LRPG
+    n_calls = FAST_WINDOWS * c["spd"]
+    budget = n_calls * c["t"]
+    mem = []
+    orig_build = train.build
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()   # what the run did not allocate
+
+    def build(*a, **k):
+        env, agent = orig_build(*a, **k)
+        evaluate = agent.evaluate
+
+        def recorded(*x, **y):
+            torch.cuda.synchronize()
+            mem.append(torch.cuda.memory_allocated() - base)
+            return evaluate(*x, **y)
+
+        agent.evaluate = recorded
+        return env, agent
+
+    train.build = build
+    try:
+        lines, _, launches, secs = _preset_run(
+            ["--preset", "fast", "--agent", "lrpg", "--seed", "0",
+             "--total-env-steps", str(budget), "--canary-env-steps",
+             str(budget), "--canary-min-eval", "1e9",
+             "--canary-max-restarts", str(CANARY_RESTARTS)], "canary",
+            dict(B8=(CANARY_RESTARTS + 1) * n_calls,
+                 B9=(CANARY_RESTARTS + 1) * n_calls))
+    finally:
+        train.build = orig_build
+    canary = [m for m in lines if "canary_eval_mean" in m]
+    assert [m["attempt"] for m in canary] == list(range(CANARY_RESTARTS + 1))
+    assert not any(m["healthy"] for m in canary)
+    assert all(m["canary_at_step"] == n_calls for m in canary)
+    assert lines[-1]["train_step"] == n_calls
+    assert all(m["learner_impl"] == 1.0 and m["rollout_impl"] == 1.0
+               for m in lines if "train_step" in m)
+    assert len(mem) == CANARY_RESTARTS + 1
+    assert mem[-1] <= CANARY_MEM_BAR * mem[0], mem
+    print(f"fast lrpg, canary forced: {len(canary)} attempts "
+          f"{[m['canary_eval_mean'] for m in canary]}, healthy none, then "
+          f"train step {lines[-1]['train_step']}, {secs:.2f} s; memory "
+          f"allocated by the run at each canary eval {mem} bytes (over "
+          f"{base} allocated before it; last/first "
+          f"{mem[-1] / max(mem[0], 1):.4f}, bar {CANARY_MEM_BAR}); launches "
+          f"{launches} [{_card()}]", flush=True)
+
+
+def phase_fast_naf():
+    """`--preset fast --agent naf` (1024 envs, B6 + B7, dispatch 16) for a
+    few windows: B6 every train step, B7 every learning one."""
+    c = FAST_NAF
+    n_calls = FAST_WINDOWS * c["spd"]
+    lines, _, launches, secs = _preset_run(
+        ["--preset", "fast", "--agent", "naf", "--seed", "0",
+         "--canary-env-steps", "0", "--total-env-steps",
+         str(n_calls * c["t"])], "fast naf",
+        dict(B6=n_calls, B7=n_calls - 1))   # the 16-step warmup: 1 call
+    assert [m["train_step"] for m in lines] == [
+        c["spd"] * (w + 1) for w in range(FAST_WINDOWS)]
+    assert all(m["rollout_impl"] == 1.0 and m["learner_impl"] == 1.0
+               for m in lines)
+    print(f"fast naf: {n_calls} train steps in {secs:.2f} s incl. init, "
+          f"{lines[-1]['env_steps_per_sec']} env-steps/s over the run; "
+          f"launches {launches} [{_card()}]", flush=True)
+
+
+def phase_pixels_preset(tmp):
+    """`--preset pixels --agent ddpg` for a few windows with its
+    weights-only saves: B10 every env-step, the checkpoints without any
+    replay or env field."""
+    import os
+
+    from cartpoleplusplus_tpu_torch.ckpt import CheckpointManager
+
+    c = PIXELS
+    ck = os.path.join(tmp, "pixels_ck")
+    n_calls = FAST_WINDOWS * c["spd"]
+    lines, _, launches, secs = _preset_run(
+        ["--preset", "pixels", "--agent", "ddpg", "--seed", "0",
+         "--canary-env-steps", "0", "--total-env-steps",
+         str(n_calls * c["t"]), "--ckpt-dir", ck], "pixels preset",
+        dict(B10=1 + 1 + n_calls * c["t"]))  # reset, cached frame, steps
+    assert lines[-1]["train_step"] == n_calls
+    keys = CheckpointManager(ck).saved_keys()
+    assert not {"replay", "env_state", "obs", "noise"} & set(keys), keys
+    assert {"actor", "critic", "actor_opt", "rng", "env_steps"} <= set(keys)
+    on_disk = sorted(int(n) for n in os.listdir(ck) if n.isdigit())
+    print(f"pixels preset: {n_calls} train steps in {secs:.2f} s incl. "
+          f"init, {lines[-1]['env_steps_per_sec']} env-steps/s; saved steps "
+          f"{on_disk}, checkpoint directory {_dir_bytes(ck)} bytes, keys "
+          f"{keys}; launches {launches} [{_card()}]", flush=True)
+
+
+def phase_preset_costs(tmp):
+    """The costs beside the train step at each preset: the `fast` ddpg
+    train step (CUDA events) and its env-steps/s, the checkpoint save
+    (host clock: the copy to the host and the write) at each preset, and
+    the event-log sink's ms per `fast` ddpg train step (the 64 logged
+    envs sliced on the card, copied and written)."""
+    import argparse
+    import dataclasses
+    import os
+    import shutil
+
+    import torch
+
+    from cartpoleplusplus_tpu_torch import train
+    from cartpoleplusplus_tpu_torch.ckpt import save_checkpoint
+    from cartpoleplusplus_tpu_torch.config import (RunConfig, explicit_dests,
+                                                   from_args)
+    from cartpoleplusplus_tpu_torch.eventlog import (EpisodeSink,
+                                                     EventLogWriter)
+
+    out = {}
+    for preset, agent in (("fast", "ddpg"), ("fast", "lrpg"),
+                          ("fast", "naf"), ("pixels", "ddpg")):
+        argv = ["--preset", preset, "--agent", agent]
+        ap = train.build_parser()
+        args: argparse.Namespace = ap.parse_args(argv)
+        provided = explicit_dests(train.build_parser(), argv)
+        run = from_args(RunConfig, args)
+        run = dataclasses.replace(run, **{
+            k: v for k, v in train._PRESETS[preset][agent]["run"].items()
+            if k not in provided})
+        _, ag = train.build(run, args, provided)
+        st = ag.init(0)
+        st, _ = ag.train_step(st)
+        tag = f"{preset} {agent}"
+        line = [tag]
+        if (preset, agent) == ("fast", "ddpg"):
+            def step():
+                nonlocal st
+                st, _ = ag.train_step(st)
+            ms = _time_ms(step, 5)
+            rate = run.num_envs * ag.cfg.rollout_steps / ms * 1e3
+            out["fast_ddpg_step_ms"] = ms
+            line.append(f"train step {ms:.4f} ms ({rate:.4g} env-steps/s, "
+                        f"CUDA events, 5 steps)")
+            n = FAST_DDPG["log_envs"]
+            with EventLogWriter(os.path.join(tmp, "cost.cpe")) as w:
+                sink = EpisodeSink(w, n)
+                sink_ms = []
+                for _ in range(3):
+                    st, m = ag.train_step(st, capture=True)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    sink.add_rollout(*(x[:, :n].contiguous().cpu().numpy()
+                                       for x in m["traj"]))
+                    sink_ms.append((time.perf_counter() - t0) * 1e3)
+                backend = w.backend
+            out["sink_ms"] = statistics.median(sink_ms)
+            line.append(f"event-log sink {out['sink_ms']:.4f} ms per train "
+                        f"step ({n} envs x {ag.cfg.rollout_steps} steps, "
+                        f"backend {backend}, median of "
+                        f"{' '.join(f'{x:.4f}' for x in sink_ms)})")
+        exclude = train.ckpt_exclude(st, run)
+        path = os.path.join(tmp, f"cost_{preset}_{agent}")
+        save_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save_checkpoint(path, st, exclude)
+            save_ms.append((time.perf_counter() - t0) * 1e3)
+            size = _dir_bytes(path)
+            shutil.rmtree(path)
+        out[f"save_ms {tag}"] = statistics.median(save_ms)
+        line.append(f"checkpoint save {statistics.median(save_ms):.2f} ms "
+                    f"({'full' if run.ckpt_full else 'weights-only'}, "
+                    f"{size} bytes; host clock, median of "
+                    f"{' '.join(f'{x:.2f}' for x in save_ms)})")
+        print("preset costs, " + "; ".join(line) + f" [{_card()}]", flush=True)
+        del st, ag
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_preset_kernels(dev):
+    """The presets' new kernel shapes, each held against its twin: B3 at
+    batch 8192, K 8 (the `fast` ddpg learner phase) from warmed moments,
+    and B9 over a 65,536-row window (the `fast` lrpg update)."""
+    from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
+
+    hidden = (256, 256)
+    b, k = FAST_DDPG["batch"], FAST_DDPG["k"]
+    kw = dict(actor_lr=1e-4, critic_lr=1e-3, gamma=0.99, tau=0.01)
+    errs, bitwise, groups, batches = _b3_compare(dev, hidden, k, batch=b,
+                                                 **kw)
+    assert bitwise, "B3 at batch 8192: two runs differ"
+    ms = _time_ms(lambda: lk.ddpg_update_phase(groups, batches, B3_T0,
+                                               hidden, **kw), 10)
+    lay_a, lay_c = lk.actor_layout(42, hidden), lk.critic_layout(42, hidden)
+    views = [lk.group_views(g, lay) for g, lay in zip(
+        groups, (lay_a, lay_c, lay_a, lay_c, lay_a, lay_a, lay_c, lay_c))]
+    plain_ms = _time_ms(lambda: lk.update_phase_math(
+        *views, batches, B3_T0, hidden, **kw), 3)
+    b3 = dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
+              **_bound(k * _b3_update_flop(hidden, b),
+                       2 * _nbytes(*groups) + _nbytes(*batches) + 8 * k))
+    print(f"B3 at batch {b} x K {k}, hidden {hidden}: max_abs_err "
+          f"{b3['max_abs_err']:.3g} over K {k} (rtol {B3_RTOL}, "
+          f"atol {B3_ATOL}); two runs bitwise equal; kernel {ms:.4f} ms "
+          f"per phase, plain {plain_ms:.2f} ms, bound "
+          f"{b3['bound_ms']:.4f} ms by {b3['bound_by']} [{_card()}]",
+          flush=True)
+    del groups, batches, views
+
+    hidden, kw = LRPG_HIDDEN, dict(lr=3e-4, entropy_coef=0.1)
+    groups, window = _b9_inputs(dev, hidden, seed=29, n=B9_FAST_N)
+    errs = _b9_compare(groups, window, hidden, kw, "")
+    ms = _time_ms(lambda: lk.lrpg_update_phase(groups, window, B3_T0, hidden,
+                                               **kw), 20)
+    lay = lk.policy_layout(42, hidden)
+    views = [lk.group_views(x, lay) for x in groups]
+    plain_ms = _time_ms(lambda: lk.lrpg_update_phase_math(
+        *views, window, B3_T0, hidden, **kw), 5)
+    b9 = dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
+              **_bound(_b9_flop(B9_FAST_N, hidden),
+                       _nbytes(*window) + 2 * _nbytes(*groups) + 4))
+    print(f"B9 over {B9_FAST_N} rows, hidden {hidden}: max_abs_err "
+          f"{b9['max_abs_err']:.3g} (rtol {B3_RTOL}, atol {B3_ATOL}); two "
+          f"runs bitwise equal; kernel {ms:.4f} ms, plain {plain_ms:.2f} "
+          f"ms, bound {b9['bound_ms']:.4f} ms by {b9['bound_by']} [{_card()}]",
+          flush=True)
+    return b3, b9
+
+
+def phase_presets(dev):
+    """Phase 24: the presets' runs and costs, in a temporary directory
+    (TMPDIR) removed afterwards."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="cartpole_presets_")
+    try:
+        phase_fast_ddpg(tmp)
+        phase_canary(tmp)
+        phase_fast_naf()
+        phase_pixels_preset(tmp)
+        phase_preset_costs(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return phase_preset_kernels(dev)
+
+
 def main() -> int:
     import torch
 
@@ -2359,10 +2792,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # full-float32 twins
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip()
+    smi = _card()
     print(f"device: {name}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
     print(smi, flush=True)
@@ -2413,6 +2843,7 @@ def main() -> int:
     del poses
     pixel_launches, cull_launches = phase_pixel_main_path()
     phase_pixel_step_split(dev)
+    phase_presets(dev)
 
     b1_main = b1["discrete"]  # the benchmark's default params
     kernels = [

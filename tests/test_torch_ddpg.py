@@ -211,7 +211,7 @@ def _cuda_kernel_rollout(argv, kernel):
     return _cuda_rollout_route(argv, kernel) == (True, 0)
 
 
-@pytest.mark.parametrize("argv", [["--ckpt-dir", "x"], ["--preset", "fast"],
+@pytest.mark.parametrize("argv", [["--use-mesh"], ["--learner", "shardmap"],
                                   ["--agent", "naf", "--naf.dtype",
                                    "bfloat16"],
                                   ["--agent", "naf", "--naf.sample", "block"],
