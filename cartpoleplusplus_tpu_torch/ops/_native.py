@@ -9,7 +9,8 @@ newer. A failed build, a failed load or a failed launch raises: there is
 no fallback.
 
 Numerics: `--fmad=false` keeps nvcc from contracting a*b+c into an FMA,
-and no fast-math flag is set, so division and sqrt are IEEE and
+and no fast-math flag is set, so division and sqrt are IEEE (or, in the
+env math, exact fast forms with IEEE's bits: csrc/cartpole_env.cuh) and
 logf/cosf/sinf/tanhf are the accurate CUDA math library functions. The
 kernels then follow the plain torch twins operation by operation, and a
 termination threshold does not flip on a contraction. An explicit fmaf()
@@ -21,12 +22,15 @@ loops only.
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import math
 import os
 import shutil
 import subprocess
 import time
+
+import numpy as np
 
 from ..physics.params import CartPoleParams
 
@@ -46,10 +50,11 @@ class EnvConsts(ctypes.Structure):
     """Mirror of `struct EnvConsts` in csrc/cartpole_env.cuh (same field
     order). Each float is the float32 rounding of the Python-float
     subexpression that the torch and JAX code fold before touching a
-    tensor, so the kernels see the same constants."""
+    tensor, so the kernels see the same constants; `s2_clamp` and the
+    float64 reciprocals serve the exact fast forms of the env math."""
 
     _fields_ = [(n, ctypes.c_float) for n in (
-        "dt", "vel_max", "s_norm_max", "w_min2",
+        "dt", "vel_max", "s_norm_max", "w_min2", "s2_clamp",
         "mt", "jc", "kg", "mgl", "mt_g", "inv_den",
         "cart_rest_z", "contact_stiffness", "contact_damping",
         "ground_friction", "friction_vel_eps", "linear_damping",
@@ -60,7 +65,8 @@ class EnvConsts(ctypes.Structure):
         "pos_limit2")] + [(n, ctypes.c_int) for n in (
         "steps_per_repeat", "action_repeats", "max_episode_steps",
         "discrete_actions", "reward_shaped", "has_friction",
-        "has_linear_damping", "has_angular_damping", "has_push")]
+        "has_linear_damping", "has_angular_damping", "has_push")] + [
+        (n, ctypes.c_double) for n in ("inv_mt", "inv_reset_det")]
 
 
 # Bytes of shared memory one H100 block may use (kMaxSmem in
@@ -155,12 +161,33 @@ class LearnerConsts(ctypes.Structure):
         "critic_lr_delta")] + [("sched", ctypes.c_int)]
 
 
+@functools.lru_cache(maxsize=64)
+def s2_clamp(p: CartPoleParams) -> float:
+    """The largest float32 s2 = sx^2 + sy^2 whose float32 square root is
+    at most float32(s_norm_max). Up to it the substep's chart clamp
+    min(1, s_norm_max / max(|s|, 1e-9)) is exactly 1, so the kernels skip
+    the clamp there (csrc/cartpole_env.cuh). Cached: the search takes tens
+    of microseconds, as long as a short launch."""
+    snm, inf = np.float32(p.s_norm_max), np.float32(np.inf)
+    x = np.float32(snm * snm)
+    for _ in range(8):   # start below: the root halves the relative gap
+        x = np.nextafter(x, np.float32(0.0))
+    while x < inf and np.sqrt(np.nextafter(x, inf)) <= snm:
+        x = np.nextafter(x, inf)
+    return float(x)
+
+
 def env_consts(p: CartPoleParams) -> EnvConsts:
-    """The folded constants of physics/dynamics.py and env/compute.py."""
+    """The folded constants of physics/dynamics.py and env/compute.py.
+    Raises for a w_min below 1e-15, whose square leaves the range where
+    the kernels' fast square root is exact (csrc/cartpole_env.cuh)."""
+    if not p.w_min * p.w_min >= 1e-30:
+        raise ValueError(f"the CUDA kernels take w_min >= 1e-15, not "
+                         f"{p.w_min}")
     mt, jc, kg, l = p.total_mass, p.coupling, p.pole_gen_inertia, p.half_length
-    return EnvConsts(
+    c = EnvConsts(
         dt=p.dt, vel_max=p.vel_max, s_norm_max=p.s_norm_max,
-        w_min2=p.w_min * p.w_min,
+        w_min2=p.w_min * p.w_min, s2_clamp=s2_clamp(p),
         mt=mt, jc=jc, kg=kg, mgl=p.pole_mass * p.gravity * p.half_length,
         mt_g=mt * p.gravity, inv_den=1.0 / p.schur_denom,
         cart_rest_z=p.cart_rest_z, contact_stiffness=p.contact_stiffness,
@@ -189,6 +216,9 @@ def env_consts(p: CartPoleParams) -> EnvConsts:
         has_linear_damping=int(p.linear_damping != 0.0),
         has_angular_damping=int(p.angular_damping != 0.0),
         has_push=int(p.push_prob_per_repeat > 0.0))
+    # Reciprocals of the float32 constants, for the exact divides by them.
+    c.inv_mt, c.inv_reset_det = 1.0 / c.mt, 1.0 / c.reset_det
+    return c
 
 
 def _sources() -> list:
@@ -269,8 +299,8 @@ def load_library() -> ctypes.CDLL:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.cp_error_string.argtypes = [ci]
     lib.cp_error_string.restype = ctypes.c_char_p
-    lib.cp_fused_rollout_blocks.argtypes = [ci]
-    lib.cp_fused_rollout_blocks.restype = ci
+    lib.cp_fused_rollout_workspace.argtypes = [ci]
+    lib.cp_fused_rollout_workspace.restype = ci
     lib.cp_fused_rollout.argtypes = [vp, ci, ci] + [vp] * 15 + [vp]
     lib.cp_fused_rollout.restype = ci
     lib.cp_policy_rollout.argtypes = ([vp] * 5 + [cf, cf, ci, ci, ci]

@@ -90,9 +90,10 @@ def _state_ptrs(state: EnvState) -> list:
 def fused_rollout(env: CartPole3D, state: EnvState, num_steps: int):
     """B1: `num_steps` benchmark env-steps -> (final EnvState, checksum).
 
-    A CUDA state launches the hand-written kernel (csrc/fused_rollout.cu)
-    on the current stream; a CPU state runs `reference_rollout`. Any other
-    device, or an env the kernel does not cover, raises."""
+    A CUDA state launches the hand-written kernel (csrc/fused_rollout.cu,
+    one launch) on the current stream; a CPU state runs
+    `reference_rollout`. Any other device, or an env the kernel does not
+    cover, raises."""
     dev = state.steps.device
     if dev.type == "cpu":
         return reference_rollout(env, state, num_steps)
@@ -103,18 +104,18 @@ def fused_rollout(env: CartPole3D, state: EnvState, num_steps: int):
                          "auto-reset only")
     _check_state(env, state)
     lib = _native.load_library()
-    b = env.num_envs
     out = _empty_state(state)
-    partials = torch.empty(lib.cp_fused_rollout_blocks(b),
-                           dtype=torch.float64, device=dev)
+    # The per-block checksum partials and the launch's block ticket.
+    work = torch.empty(lib.cp_fused_rollout_workspace(env.num_envs),
+                       dtype=torch.float64, device=dev)
     checksum = torch.empty((), dtype=torch.float32, device=dev)
     consts = _native.env_consts(env.params)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.cp_fused_rollout(
-            _native.struct_ptr(consts), b, num_steps, *_state_ptrs(state),
-            state.env_seed.data_ptr(), *_state_ptrs(out),
-            partials.data_ptr(), checksum.data_ptr(), stream)
+            _native.struct_ptr(consts), env.num_envs, num_steps,
+            *_state_ptrs(state), state.env_seed.data_ptr(),
+            *_state_ptrs(out), work.data_ptr(), checksum.data_ptr(), stream)
     _native.check(lib, rc, "fused_rollout")
     fused_rollout.launches += 1
     return out, checksum

@@ -7,7 +7,12 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
   1. device: the card's name and `nvidia-smi` name and power limit;
   2. build: nvcc builds csrc/*.cu from the checkout on first use;
   3. B1 (physics-only rollout kernel) against its plain torch twin on the
-     card, 4096 envs x 25 steps, discrete and continuous params;
+     card, 4096 envs x 25 steps, discrete and continuous params; at the
+     benchmark's 4096 x 4096, two launches bit for bit and its time (CUDA
+     events); the B1 probe: the env math's exact fast forms against the
+     IEEE forms over every float of their ranges, the dependent latency
+     of each instruction kind on the substep's chains, and from them B1's
+     latency floor (`python3 chip_smoke.py --b1-probe` runs it alone);
   4. B2 (DDPG actor-in-the-loop rollout kernel, on the q-tile of B4)
      against its twin, 4096 envs, 3 steps, seeded random actor weights,
      at hidden (256, 256), (2048,) and (8,) * 5; its time per env-step
@@ -24,7 +29,8 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      a 200-step greedy eval; B2 must launch once per train step and B3
      once per learning train step (7: the warmup is 16 env-steps);
   6. with the counters zeroed again: the physics-only rollout that the
-     benchmark times (4096 envs x 4096 steps), which must launch B1;
+     benchmark times (4096 envs x 4096 steps), which must launch B1, its
+     rate by the host clock (first call) and by CUDA events;
   7. where a default train step's time goes (CUDA events per part, the B3
      phase beside the plain learner's 16 updates, and torch.profiler's
      device time and kernel count of one step);
@@ -321,7 +327,232 @@ def _close(name, got, want, rtol, atol):
     return _max_err(got, want)
 
 
+def b1_times(dev) -> dict:
+    """B1's ms by CUDA events (mean of several launches after a warm-up)
+    for the package on sys.path, discrete and continuous params: 4096 envs
+    x B1_STEPS and x BENCH_STEPS, and one env alone x BENCH_STEPS (its
+    chain's dependent latency, the card otherwise idle). `python3
+    chip_smoke.py --b1-times` prints them; from another checkout's root,
+    `python -c "import runpy, sys; sys.argv = ['', '--b1-times'];
+    runpy.run_path('<this checkout>/chip_smoke.py', run_name='__main__')"`
+    times that checkout's kernel."""
+    from cartpoleplusplus_tpu_torch import (CartPole3D, CartPoleParams,
+                                            continuous_params)
+    from cartpoleplusplus_tpu_torch.ops.fused_rollout import fused_rollout
+
+    import hashlib
+
+    out = {}
+    for name, p in (("discrete", CartPoleParams()),
+                    ("continuous", continuous_params())):
+        for b, t, reps in ((N_ENVS, B1_STEPS, 50), (N_ENVS, BENCH_STEPS, 5),
+                           (1, BENCH_STEPS, 5)):
+            env = CartPole3D(p, num_envs=b, device=dev)
+            state, _ = env.reset(7)
+            out[f"{name} {b}x{t}"] = _time_ms(
+                lambda: fused_rollout(env, state, t), reps)
+            # A digest of the output bits, to hold two checkouts equal.
+            final, checksum = fused_rollout(env, state, t)
+            h = hashlib.sha1()
+            for x in (*final.phys, final.steps, final.episode, checksum):
+                h.update(x.cpu().numpy().tobytes())
+            out[f"{name} {b}x{t} bits"] = h.hexdigest()[:16]
+    return out
+
+
+# A probe of B1's substep on the card, compiled apart from the library:
+# the exact fast forms of csrc/cartpole_env.cuh against nvcc's IEEE forms
+# over every float they are claimed for, each instruction's dependent
+# latency (a chain of 4096 in one thread, clock64), the SM clock, and the
+# substep chain alone in one thread.
+_B1_PROBE_CU = r"""
+#include "cartpole_env.cuh"
+namespace {
+__global__ void exact_kernel(int which, uint32_t lo, uint32_t n, float b,
+                             double inv_b, unsigned long long* bad) {
+  unsigned long long mine = 0;
+  for (uint32_t k = blockIdx.x * blockDim.x + threadIdx.x; k < n;
+       k += gridDim.x * blockDim.x) {
+    const float x = __uint_as_float(lo + k);
+    float got, want;
+    if (which == 0) { got = cp::sqrt_fast(x); want = sqrtf(x); }
+    else if (which == 1) { got = cp::rcp_fast(x); want = 1.0f / x; }
+    else { got = cp::div_by(x, inv_b); want = x / b; }
+    mine += __float_as_uint(got) != __float_as_uint(want);
+  }
+  if (mine) atomicAdd(bad, mine);
+}
+constexpr int kChain = 4096;
+#define CHAIN(i, body) { const long long t0 = clock64();                  \
+  _Pragma("unroll 16") for (int k = 0; k < kChain; ++k) { body; }         \
+  cyc[i] = clock64() - t0; }
+__global__ void latency_kernel(float x, double* out, long long* cyc,
+                               float* sink) {
+  float a = x, b = x, c = x, d = x, e = x, f = x, g = x;
+  double h = x;
+  CHAIN(0, asm volatile("add.f32 %0, %0, %1;" : "+f"(a) : "f"(x)))
+  CHAIN(1, asm volatile("mul.f32 %0, %0, %1;" : "+f"(b) : "f"(x)))
+  CHAIN(2, asm volatile("fma.rn.f32 %0, %0, %1, %1;" : "+f"(c) : "f"(x)))
+  CHAIN(3, asm volatile("max.f32 %0, %0, %1;" : "+f"(d) : "f"(x)))
+  CHAIN(4, asm volatile("rsqrt.approx.ftz.f32 %0, %0;" : "+f"(e)))
+  CHAIN(5, asm volatile("rcp.approx.ftz.f32 %0, %0;" : "+f"(f));
+           asm volatile("add.f32 %0, %0, %1;" : "+f"(f) : "f"(x)))
+  CHAIN(6, asm volatile("mul.f64 %0, %0, %1;" : "+d"(h) : "d"(1.0)))
+  CHAIN(7, asm volatile("{.reg .f64 t; cvt.f64.f32 t, %0; "
+                        "cvt.rn.f32.f64 %0, t;}" : "+f"(g)))
+  unsigned long long ns0, ns1;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns0));
+  const long long c0 = clock64();
+  while (clock64() - c0 < 200000000ll) {}
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns1));
+  *out = 2e8 / static_cast<double>(ns1 - ns0);  // cycles per ns
+  *sink = a + b + c + d + e + f + g + static_cast<float>(h);
+}
+__global__ void substep_kernel(EnvConsts c, int n, long long* cyc,
+                               float* sink) {
+  const cp::Phys s0{0.0f, 0.0f, c.z0, 0.3f, -0.2f, 0.0f, 0.0f, 0.0f, 0.4f,
+                   0.2f};
+  cp::Phys s = s0;
+  const long long t0 = clock64();
+  for (int k = 0; k < n; ++k) {  // an episode's start every 5 env-steps
+    cp::substep(c, s, 1.0f, 0.0f, 0.0f, 0.0f);
+    if (k % 75 == 74) s = s0;
+  }
+  *cyc = clock64() - t0;
+  *sink = s.x + s.y + s.z + s.vx + s.vy + s.vz + s.sx + s.sy + s.sdx + s.sdy;
+}
+}  // namespace
+extern "C" {
+long long probe_exact(int which, uint32_t lo, uint32_t hi, float b,
+                      double inv_b) {
+  unsigned long long* bad;
+  unsigned long long host = 0;
+  cudaMalloc(&bad, sizeof(host));
+  cudaMemset(bad, 0, sizeof(host));
+  exact_kernel<<<1024, 256>>>(which, lo, hi - lo + 1, b, inv_b, bad);
+  cudaMemcpy(&host, bad, sizeof(host), cudaMemcpyDeviceToHost);
+  cudaFree(bad);
+  return cudaGetLastError() == cudaSuccess ? static_cast<long long>(host)
+                                           : -1;
+}
+int probe_latency(double* cycles_per_op, double* cycles_per_ns) {
+  long long* cyc;
+  double* out;
+  float* sink;
+  cudaMalloc(&cyc, 8 * sizeof(long long));
+  cudaMalloc(&out, sizeof(double));
+  cudaMalloc(&sink, sizeof(float));
+  long long host[8];
+  for (int rep = 0; rep < 2; ++rep)  // the first run warms the code
+    latency_kernel<<<1, 1>>>(0.999f, out, cyc, sink);
+  cudaMemcpy(host, cyc, sizeof(host), cudaMemcpyDeviceToHost);
+  cudaMemcpy(cycles_per_ns, out, sizeof(double), cudaMemcpyDeviceToHost);
+  for (int i = 0; i < 8; ++i) cycles_per_op[i] = host[i] / 4096.0;
+  cudaFree(cyc);
+  cudaFree(out);
+  cudaFree(sink);
+  return static_cast<int>(cudaGetLastError());
+}
+int probe_substep(const EnvConsts* c, int n, double* cycles_per_substep) {
+  long long* cyc;
+  float* sink;
+  long long host = 0;
+  cudaMalloc(&cyc, sizeof(long long));
+  cudaMalloc(&sink, sizeof(float));
+  for (int rep = 0; rep < 2; ++rep)
+    substep_kernel<<<1, 1>>>(*c, n, cyc, sink);
+  cudaMemcpy(&host, cyc, sizeof(host), cudaMemcpyDeviceToHost);
+  *cycles_per_substep = static_cast<double>(host) / n;
+  cudaFree(cyc);
+  cudaFree(sink);
+  return static_cast<int>(cudaGetLastError());
+}
+}
+"""
+_PROBE_OPS = ("FADD", "FMUL", "FFMA", "FMNMX", "MUFU.RSQ", "MUFU.RCP",
+              "DMUL", "F2F pair")
+# The substep's two loop-carried chains at the defaults (no friction or
+# damping), counted from cp::substep: the instructions of each kind that
+# each wait on the one before. The s chain runs sx^2, w2, sqrt_fast,
+# rcp_fast, inv_w^2, c_z, rv_z, the (jc sx inv_w) rv_z product and its
+# difference, div_by, rhs, dot, asx, sdx, sx and the clamp test (its FSETP
+# counted as an FMNMX); the z chain runs pen, the contact force and its
+# select (as an FMNMX), rv_z, the same rhs, dot and asx, the az sum and its
+# div_by, vz and z.
+_SUBSTEP_CHAINS = {
+    "s": {"FADD": 13, "FMUL": 12, "FFMA": 4, "FMNMX": 4, "MUFU.RSQ": 1,
+          "MUFU.RCP": 1, "DMUL": 1, "F2F pair": 1},
+    "z": {"FADD": 11, "FMUL": 10, "FFMA": 0, "FMNMX": 4, "MUFU.RSQ": 0,
+          "MUFU.RCP": 0, "DMUL": 2, "F2F pair": 2},
+}
+
+
+def b1_probe(dev) -> dict:
+    """Builds and runs the probe above: asserts every fast form gives the
+    IEEE bits over its range, and returns the latencies (cycles), the SM
+    clock, the substep chain's latency floor and the substep alone."""
+    import ctypes
+    import os
+
+    import numpy as np
+
+    from cartpoleplusplus_tpu_torch import CartPoleParams, continuous_params
+    from cartpoleplusplus_tpu_torch.ops import _native
+
+    os.makedirs(_native.BUILD_DIR, exist_ok=True)
+    src = os.path.join(_native.BUILD_DIR, "b1_probe.cu")
+    lib_path = os.path.join(_native.BUILD_DIR, "libb1_probe.so")
+    with open(src, "w") as f:
+        f.write(_B1_PROBE_CU)
+    flags = [x for x in _native.NVCC_FLAGS if x not in ("-Xptxas", "-v")]
+    subprocess.run([_native._nvcc(), *flags, "-shared", "-I", _native.CSRC,
+                    "-o", lib_path, src], check=True, capture_output=True,
+                   timeout=300)
+    lib = ctypes.CDLL(lib_path)
+    lib.probe_exact.argtypes = [ctypes.c_int, ctypes.c_uint32,
+                                ctypes.c_uint32, ctypes.c_float,
+                                ctypes.c_double]
+    lib.probe_exact.restype = ctypes.c_longlong
+    bits = lambda v: int(np.float32(v).view(np.uint32))  # noqa: E731
+    ranges = {"sqrt_fast [1e-30, 2^100]": (0, bits(1e-30), bits(2.0 ** 100),
+                                            1.0, 1.0),
+              "rcp_fast [1e-15, 4]": (1, bits(1e-15), bits(4.0), 1.0, 1.0)}
+    for p in (CartPoleParams(), continuous_params()):
+        c = _native.env_consts(p)
+        for name, inv in (("mt", c.inv_mt), ("reset_det", c.inv_reset_det)):
+            b = getattr(c, name)
+            for sign, (lo, hi) in (("+", (0, 0x7F7FFFFF)),
+                                   ("-", (0x80000000, 0xFF7FFFFF))):
+                ranges[f"div_by {name} {b:.6g} {sign}finite"] = (2, lo, hi,
+                                                                  b, inv)
+    exact = {}
+    for name, (which, lo, hi, b, inv) in ranges.items():
+        exact[name] = int(lib.probe_exact(which, lo, hi, b, inv))
+        assert exact[name] == 0, (name, exact[name])
+    lat = (ctypes.c_double * len(_PROBE_OPS))()
+    per_ns = ctypes.c_double()
+    assert lib.probe_latency(lat, ctypes.byref(per_ns)) == 0
+    lat = dict(zip(_PROBE_OPS, lat))
+    # ptxas folds rcp(rcp(x)), so that chain interleaves an FADD.
+    lat["MUFU.RCP"] -= lat["FADD"]
+    cyc = ctypes.c_double()
+    c = _native.env_consts(CartPoleParams())
+    assert lib.probe_substep(_native.struct_ptr(c), 4096,
+                             ctypes.byref(cyc)) == 0
+    chains = {k: sum(n * lat[op] for op, n in ops.items())
+              for k, ops in _SUBSTEP_CHAINS.items()}
+    floor = max(chains.values())
+    p = CartPoleParams()
+    substeps = B1_STEPS * p.action_repeats * p.steps_per_repeat
+    return dict(exact=exact, latency_cycles=lat,
+                ghz=per_ns.value, chain_cycles=chains,
+                substep_alone_cycles=cyc.value,
+                floor_ms=substeps * floor / per_ns.value * 1e-6)
+
+
 def phase_b1(dev):
+    import torch
+
     from cartpoleplusplus_tpu_torch import (CartPole3D, CartPoleParams,
                                             continuous_params)
     from cartpoleplusplus_tpu_torch.ops.fused_rollout import (
@@ -343,23 +574,57 @@ def phase_b1(dev):
         assert bool((ks.episode == rs.episode).all()), "B1 episodes differ"
         rel = abs(float(kc) - float(rc)) / max(abs(float(rc)), 1.0)
         assert rel < 1e-4, f"B1 {name} checksum rel err {rel}"
-        ms = _time_ms(lambda: fused_rollout(env, state, B1_STEPS), 20)
+        # The benchmark's length: two launches bit for bit.
+        bench = [fused_rollout(env, state, BENCH_STEPS) for _ in range(2)]
+        assert all(torch.equal(a, b) for a, b in zip(
+            (*bench[0][0].phys, bench[0][0].steps, bench[0][0].episode,
+             bench[0][1]),
+            (*bench[1][0].phys, bench[1][0].steps, bench[1][0].episode,
+             bench[1][1]))), f"B1 {name} {BENCH_STEPS} steps not repeatable"
         plain_ms = _time_ms(lambda: reference_rollout(env, state, B1_STEPS),
                             2)
-        rate = N_ENVS * B1_STEPS / (ms / 1e3)
-        plain_rate = N_ENVS * B1_STEPS / (plain_ms / 1e3)
-        print(f"B1 {name}: max_abs_err pos/s/vel/sd "
-              f"{' '.join(f'{e:.3g}' for e in errs)}, checksum rel err "
-              f"{rel:.3g}, episodes ended {int(rs.episode.sum())}; "
-              f"{N_ENVS}x{B1_STEPS}: kernel {ms:.4f} ms ({rate:.4g} "
-              f"env-steps/s), plain {plain_ms:.2f} ms ({plain_rate:.4g} "
-              f"env-steps/s)", flush=True)
         st_bytes = _nbytes(*state.phys, state.steps, state.episode)
-        out[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+        out[name] = dict(max_abs_err=max(errs), errs=errs, plain_ms=plain_ms,
+                         rel=rel, ended=int(rs.episode.sum()),
                          **_bound(N_ENVS * B1_STEPS * (_env_step_flop(p) + 2),
                                   2 * st_bytes + _nbytes(state.env_seed)
                                   + 4))
+    times = b1_times(dev)
+    for name, r in out.items():
+        ms = times[f"{name} {N_ENVS}x{B1_STEPS}"]
+        bench_ms = times[f"{name} {N_ENVS}x{BENCH_STEPS}"]
+        one_ms = times[f"{name} 1x{BENCH_STEPS}"]
+        print(f"B1 {name}: max_abs_err pos/s/vel/sd "
+              f"{' '.join(f'{e:.3g}' for e in r.pop('errs'))}, checksum rel "
+              f"err {r['rel']:.3g}, episodes ended "
+              f"{r['ended']}; {N_ENVS}x{B1_STEPS}: kernel {ms:.4f} ms "
+              f"({N_ENVS * B1_STEPS / ms * 1e3:.4g} env-steps/s), plain "
+              f"{r['plain_ms']:.2f} ms; {N_ENVS}x{BENCH_STEPS}: kernel "
+              f"{bench_ms:.4f} ms ({N_ENVS * BENCH_STEPS / bench_ms * 1e3:.4g}"
+              f" env-steps/s, CUDA events), two runs bit for bit; one env "
+              f"alone x {BENCH_STEPS} (the chain's latency) {one_ms:.4f} ms, "
+              f"{bench_ms / one_ms:.3f} of it for {N_ENVS} envs", flush=True)
+        r.update(ms=ms, bench_ms=bench_ms, chain_ms=one_ms)
+    probe = b1_probe(dev)
+    _print_b1_probe(probe, {k: r["ms"] for k, r in out.items()})
     return out
+
+
+def _print_b1_probe(probe: dict, ms: dict) -> None:
+    """The probe's line; `ms`: B1's ms at N_ENVS x B1_STEPS by params."""
+    lat = ", ".join(f"{k} {v:.2f}" for k, v in
+                    probe["latency_cycles"].items())
+    chains = ", ".join(f"{k} {v:.1f}" for k, v in
+                       probe["chain_cycles"].items())
+    shares = "".join(f", {k} kernel {v:.4f} ms at {probe['floor_ms'] / v:.3f}"
+                     f" of it" for k, v in ms.items())
+    print(f"B1 probe: fast forms bit for bit the IEEE forms over "
+          f"{len(probe['exact'])} ranges (every float); dependent latency "
+          f"(cycles, one thread) {lat}; SM clock {probe['ghz']:.4f} GHz; "
+          f"substep chains (cycles) {chains}; the substep alone in one "
+          f"thread {probe['substep_alone_cycles']:.1f} cycles; latency floor "
+          f"at {N_ENVS}x{B1_STEPS} (375 substeps x the longer chain) "
+          f"{probe['floor_ms']:.4f} ms{shares} ({_card()})", flush=True)
 
 
 def _random_actor(dev, hidden, seed):
@@ -687,9 +952,12 @@ def phase_physics_rollout(dev):
     assert _only(launches, B1=1), launches
     assert math.isfinite(float(checksum))
     assert int(final.steps.max()) < 200 and int(final.episode.min()) > 0
+    ms = _time_ms(lambda: fused_rollout(env, state, BENCH_STEPS), 3)
     print(f"physics-only rollout: {N_ENVS}x{BENCH_STEPS} in {secs:.4f} s "
           f"({N_ENVS * BENCH_STEPS / secs:.4g} env-steps/s, host clock, "
-          f"first call); launches {launches}", flush=True)
+          f"first call), {ms:.4f} ms ({N_ENVS * BENCH_STEPS / (ms / 1e3):.4g} "
+          f"env-steps/s, CUDA events, mean of 3 after a warm-up); launches "
+          f"{launches}", flush=True)
     return launches["B1"]
 
 
@@ -2780,6 +3048,18 @@ def phase_presets(dev):
     return phase_preset_kernels(dev)
 
 
+def _warm_card(dev, seconds: float):
+    """A few seconds of matrix products: timed from a cold card, B4 read
+    0.52 ms against 0.34-0.41 warm (PERF.md)."""
+    import torch
+
+    warm = torch.randn((8192, 8192), device=dev)
+    t_warm = time.perf_counter()
+    while time.perf_counter() - t_warm < seconds:
+        warm @ warm
+    torch.cuda.synchronize()
+
+
 def main() -> int:
     import torch
 
@@ -2789,6 +3069,16 @@ def main() -> int:
     from cartpoleplusplus_tpu_torch.ops import _native
 
     dev = torch.device("cuda", 0)
+    if sys.argv[1:] == ["--b1-times"]:
+        _warm_card(dev, 2.0)
+        print(json.dumps({"b1_ms": b1_times(dev), "card": _card()}),
+              flush=True)
+        return 0
+    if sys.argv[1:] == ["--b1-probe"]:
+        probe = b1_probe(dev)
+        print(json.dumps(probe), flush=True)
+        _print_b1_probe(probe, {})
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False  # full-float32 twins
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
@@ -2807,14 +3097,7 @@ def main() -> int:
           f"{'' if stale else '; library current, not rebuilt'}); "
           f"ptxas: {_ptxas_report(_native.BUILD_LOG)}", flush=True)
 
-    # A few seconds of matrix products first: timed from a cold card, B4
-    # read 0.52 ms against 0.34-0.41 warm (PERF.md).
-    warm = torch.randn((8192, 8192), device=dev)
-    t_warm = time.perf_counter()
-    while time.perf_counter() - t_warm < 5.0:
-        warm @ warm
-    torch.cuda.synchronize()
-    del warm
+    _warm_card(dev, 5.0)
     b1 = phase_b1(dev)
     floor_us = b1["discrete"]["ms"] / B1_STEPS * 1e3  # B1 per env-step
     b2 = phase_b2(dev, floor_us)

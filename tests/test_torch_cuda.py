@@ -42,8 +42,10 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("params", [CartPoleParams(), continuous_params()],
-                         ids=["discrete", "continuous"])
+@pytest.mark.parametrize("params", [
+    CartPoleParams(), continuous_params(),
+    continuous_params(ground_friction=0.3, linear_damping=0.1)],
+    ids=["discrete", "continuous", "friction"])
 def test_b1_matches_twin(cuda, params):
     env = CartPole3D(params, num_envs=B, device=cuda)
     state, _ = env.reset(5)
@@ -60,6 +62,27 @@ def test_b1_matches_twin(cuda, params):
     assert torch.equal(k_state.steps, r_state.steps)
     assert torch.equal(k_state.episode, r_state.episode)
     assert abs(float(k_acc) - float(r_acc)) / abs(float(r_acc)) < 1e-4
+
+
+@pytest.mark.parametrize("params", [CartPoleParams(), continuous_params()],
+                         ids=["discrete", "continuous"])
+def test_b1_benchmark_length_repeats_its_bits(cuda, params):
+    """B1 at the benchmark's 4096 envs x 4096 steps, where the twin would
+    take minutes: two launches give the same bits in the final state and
+    the checksum, every value is finite, and the steps and episodes keep
+    chip_smoke.py phase_physics_rollout's invariants."""
+    env = CartPole3D(params, num_envs=4096, device=cuda)
+    state, _ = env.reset(0)
+    before = fr.fused_rollout.launches
+    (s1, c1), (s2, c2) = (fr.fused_rollout(env, state, 4096)
+                          for _ in range(2))
+    assert fr.fused_rollout.launches == before + 2
+    for a, b in zip((*s1.phys, s1.steps, s1.episode, c1),
+                    (*s2.phys, s2.steps, s2.episode, c2)):
+        assert torch.equal(a, b)
+    assert all(bool(torch.isfinite(x).all()) for x in (*s1.phys, c1))
+    assert 0 <= int(s1.steps.min()) and int(s1.steps.max()) < 200
+    assert int(s1.episode.min()) > 0
 
 
 def _random_actor(dev, hidden, seed):
@@ -237,6 +260,168 @@ def test_b3_rejects_uncovered_shapes(cuda):
     with pytest.raises(ValueError, match="not covered"):
         lk.ddpg_update_phase(groups, batches, 0, (32,), actor_lr=1e-3,
                              critic_lr=1e-3, gamma=0.99, tau=0.01)
+
+
+# The teacher-forced DDPG check at the CLI defaults: 1024 envs (the
+# reference's DDPG recipe), hidden (256, 256), K 16, batch 256, a ring of
+# 1024 slots per env. Two starting states: "early", 3 CPU train steps past
+# init, and "late", the end of the default recipe (5000 train steps, 40k
+# env-steps per env, seed 0) trained on the card with B2 and B3.
+TF_ENVS, TF_WARM, TF_LATE, TF_STEPS = 1024, 3, 5000, 32
+# Bars per float leaf, normwise: max |card - cpu| <= atol + rtol * max |cpu|
+# over the leaf (a product's or a sum's rounding scales with its terms, not
+# with one element of the result). B2's bar on the env side (obs, env
+# state, ring, noise), B3's on the learner side; integers, bools and counts
+# exact; both losses within TF_LOSS_RTOL every step.
+TF_ENV_BAR, TF_LEARNER_BAR, TF_LOSS_RTOL = (2e-4, 2e-5), (2e-4, 1e-5), 1e-4
+TF_ENV_FIELDS = ("replay", "env_state", "obs", "noise")
+# An edge step: a LayerNorm output within rounding of 0 takes the other side
+# of a relu in one of the two runs, or an Adam step of a gradient within
+# rounding of 0 takes the other sign; the rest of the step's updates carry
+# it on. The reference and the port part so on the CPU at these shapes
+# (tests/test_torch_ddpg.py's `ddpg_teacher_forced`). The learner side may
+# leave its bar on at most TF_EDGE_STEPS steps, and there each leaf stays
+# within TF_EDGE_REL of its own scale (max |cpu| over the leaf); the env
+# side never leaves its bar.
+TF_EDGE_STEPS, TF_EDGE_REL = 3, 1e-2
+
+
+def _tree_parts(got, want, path, worst, parted):
+    """Walks two `to_tree` dicts: worst[top field] = (max abs error, max of
+    error / scale over its leaves), parted gets (path, error, scale) for
+    each leaf beyond its field's bar (unequal, where exact)."""
+    if isinstance(want, dict):
+        for k in want:
+            _tree_parts(got[k], want[k], f"{path}.{k}", worst, parted)
+        return
+    if isinstance(want, list):
+        for a, b in zip(got, want):
+            _tree_parts(a, b, path, worst, parted)
+        return
+    top = path.split(".")[1]
+    if isinstance(want, torch.Tensor) and want.is_floating_point():
+        err = float((got.double() - want.double()).abs().max())
+        scale = float(want.double().abs().max())
+        rtol, atol = (TF_ENV_BAR if top in TF_ENV_FIELDS else TF_LEARNER_BAR)
+        beyond = not err <= atol + rtol * scale
+    else:
+        same = (torch.equal(got, want) if isinstance(want, torch.Tensor)
+                else got == want)
+        err, scale, beyond = (0.0 if same else float("inf")), 1.0, not same
+    if beyond:
+        parted.append((path, err, scale))
+    e, r = worst.get(top, (0.0, 0.0))
+    worst[top] = (max(e, err), max(r, err / scale if scale else err))
+
+
+def ddpg_teacher_forced(cuda, learner, st, steps, label=""):
+    """`steps` DDPG train steps, each run twice from one CPU state `st` (of
+    a CPU DDPG at the CLI defaults but `learner`) with one set of replay
+    draws: on the card (B2, and B3 or the plain learner) and on the CPU
+    (the plain rollout, and B3's twin or the plain learner); both restart
+    from the CPU's next state. Every step holds the bars above; returns the
+    edge steps with their parted leaves (path, error, scale) and prints
+    each step's max errors."""
+    from cartpoleplusplus_tpu_torch.agents import DDPG, DDPGConfig
+    from cartpoleplusplus_tpu_torch.ckpt.checkpoint import (merge_restored,
+                                                            to_tree)
+
+    cfg = DDPGConfig(learner=learner)
+    n = st.obs.shape[0]
+    cpu = DDPG(CartPole3D(continuous_params(), num_envs=n), cfg)
+    card = DDPG(CartPole3D(continuous_params(), num_envs=n, device=cuda),
+                cfg)
+    gst, draws = card.init(0), torch.Generator().manual_seed(1)
+    cap, t = cpu.replay.capacity, cfg.rollout_steps
+    b2, b3 = pr.policy_rollout.launches, lk.ddpg_update_phase.launches
+    fmt = lambda d: json.dumps({k: [float(f"{x:.3g}") for x in v]  # noqa
+                                for k, v in d.items()})
+    overall, edge_steps = {}, []
+    for step in range(1, steps + 1):
+        after = st.replay._replace(cursor=(st.replay.cursor + t) % cap,
+                                   filled=min(st.replay.filled + t, cap))
+        indices = cpu.replay.draw_columns(after, cfg.updates_per_step,
+                                          cfg.batch_size, draws)
+        gst = merge_restored(gst, to_tree(st))
+        gst, gm = card.train_step(gst, indices=indices)
+        st, m = cpu.train_step(st, indices=indices)
+        assert gm["rollout_impl"] == 1.0
+        assert gm["learner_impl"] == m["learner_impl"] == float(
+            learner == "kernel")
+        worst, parted = {}, []
+        want = {k: v for k, v in to_tree(st).items() if k != "rng"}
+        got = {k: v for k, v in to_tree(gst).items() if k != "rng"}
+        _tree_parts(got, want, "", worst, parted)
+        for key in ("critic_loss", "actor_loss"):
+            err = abs(float(gm[key]) - float(m[key]))
+            worst[key] = (err, err / max(abs(float(m[key])), 1e-6))
+        print(f"teacher-forced {label}{learner} step {step} (max abs error, "
+              f"max error / scale): {fmt(worst)}", flush=True)
+        for k, (e, r) in worst.items():
+            e0, r0 = overall.get(k, (0.0, 0.0))
+            overall[k] = (max(e0, e), max(r0, r))
+        assert worst["critic_loss"][1] <= TF_LOSS_RTOL, (step, worst)
+        assert worst["actor_loss"][1] <= TF_LOSS_RTOL, (step, worst)
+        if parted:
+            env_side = [p for p in parted if p[0].split(".")[1]
+                        in TF_ENV_FIELDS + ("env_steps",)]
+            assert not env_side, (step, env_side[:4])
+            assert all(e <= TF_EDGE_REL * sc for _, e, sc in parted), (
+                step, parted[:4])
+            edge_steps.append((step, parted))
+    edges = [(s, [(p, float(f"{e:.3g}"), float(f"{sc:.3g}"))
+                  for p, e, sc in ps[:6]]) for s, ps in edge_steps]
+    print(f"teacher-forced {label}{learner} max over {steps} steps: "
+          f"{fmt(overall)}; edge steps (path, error, scale) {edges}",
+          flush=True)
+    assert pr.policy_rollout.launches == b2 + steps
+    assert lk.ddpg_update_phase.launches == b3 + steps * (
+        learner == "kernel")
+    return edge_steps
+
+
+@pytest.fixture(scope="module")
+def ddpg_late_tree():
+    """The default recipe's end on the card: `to_tree` of a DDPG state after
+    TF_LATE train steps with B2 and B3 from seed 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cartpoleplusplus_tpu_torch.agents import DDPG, DDPGConfig
+    from cartpoleplusplus_tpu_torch.ckpt.checkpoint import to_tree
+
+    card = DDPG(CartPole3D(continuous_params(), num_envs=TF_ENVS,
+                           device=torch.device("cuda", 0)),
+                DDPGConfig(learner="kernel"))
+    st = card.init(0)
+    for _ in range(TF_LATE):
+        st, m = card.train_step(st)
+    print(f"late state: {TF_LATE} train steps on the card, last critic "
+          f"loss {float(m['critic_loss']):.4g}", flush=True)
+    return to_tree(st)
+
+
+@pytest.mark.parametrize("start", ["early", "late"])
+@pytest.mark.parametrize("learner", ["kernel", "xla"], ids=["b3", "plain"])
+def test_ddpg_teacher_forced_at_the_defaults(cuda, request, learner, start):
+    """32 DDPG train steps at the CLI defaults (`ddpg_teacher_forced`), from
+    a state 3 CPU train steps past init and from the default recipe's end:
+    the card's state holds the bars above against the CPU's every step,
+    with at most TF_EDGE_STEPS edge steps (run with -s for the per-step
+    errors)."""
+    from cartpoleplusplus_tpu_torch.agents import DDPG, DDPGConfig
+    from cartpoleplusplus_tpu_torch.ckpt.checkpoint import merge_restored
+
+    cpu = DDPG(CartPole3D(continuous_params(), num_envs=TF_ENVS),
+               DDPGConfig(learner=learner))
+    st = cpu.init(0)
+    if start == "early":
+        for _ in range(TF_WARM):
+            st, _ = cpu.train_step(st)
+    else:
+        st = merge_restored(st, request.getfixturevalue("ddpg_late_tree"))
+    edge_steps = ddpg_teacher_forced(cuda, learner, st, TF_STEPS,
+                                     label=f"{start} ")
+    assert len(edge_steps) <= TF_EDGE_STEPS, [s for s, _ in edge_steps]
 
 
 def _random_qnet(dev, hidden, seed, head_scale=0.5, net_cls=QNetMLP):

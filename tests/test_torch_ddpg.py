@@ -2,6 +2,7 @@
 reference on the CPU."""
 
 import contextlib
+import functools
 import io
 import json
 
@@ -20,6 +21,7 @@ from cartpoleplusplus_tpu.physics import params as jparams
 from cartpoleplusplus_tpu_torch import CartPole3D
 from cartpoleplusplus_tpu_torch import train as ttrain
 from cartpoleplusplus_tpu_torch.agents import DDPG, DDPGConfig
+from cartpoleplusplus_tpu_torch.ckpt.checkpoint import to_tree
 from cartpoleplusplus_tpu_torch.models.from_jax import (
     actor_from_flax,
     actor_state_dict,
@@ -137,6 +139,99 @@ def test_train_step_matches_jax_xla_learner():
     np.testing.assert_allclose(pst2.replay.obs.numpy(),
                                np.asarray(st2.replay.obs), rtol=2e-4,
                                atol=2e-5)
+
+
+# The teacher-forced run: 64 envs, rollout 8, a ring of 32 slots per env
+# (it wraps every 4 train steps), OU sigma at its floor from env-step 64
+# (train step 8), batch 32 = one trimmed ring column of the 64 envs.
+TF_ENVS, TF_STEPS = 64, 16
+TF_KW = dict(hidden=HIDDEN, rollout_steps=8, updates_per_step=4,
+             batch_size=32, replay_capacity_per_env=32,
+             ou_sigma_decay_env_steps=64)
+TF_RTOL, TF_ATOL = 2e-4, 1e-5
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_ddpg(num_envs, kw_items):
+    """A reference DDPG(learner='xla') and its jitted train_step, shared
+    by the cases of one config."""
+    jagent = JDDPG(JCartPole3D(jparams.continuous_params(),
+                               num_envs=num_envs),
+                   JDDPGConfig(learner="xla", **dict(kw_items)))
+    return jagent, jax.jit(jagent.train_step)
+
+
+def _assert_trees_close(got, want, path=""):
+    """Two `to_tree` dicts: float tensors within TF_RTOL / TF_ATOL, every
+    integer, bool and count exact."""
+    if isinstance(want, dict):
+        assert set(got) == set(want), path
+        for k in want:
+            _assert_trees_close(got[k], want[k], f"{path}.{k}")
+    elif isinstance(want, list):
+        assert len(got) == len(want), path
+        for a, b in zip(got, want):
+            _assert_trees_close(a, b, path)
+    elif isinstance(want, torch.Tensor) and want.is_floating_point():
+        torch.testing.assert_close(got, want, rtol=TF_RTOL, atol=TF_ATOL,
+                                   msg=lambda m: f"{path}: {m}")
+    elif isinstance(want, torch.Tensor):
+        assert torch.equal(got, want), path
+    else:
+        assert got == want, path
+
+
+def ddpg_teacher_forced(num_envs, kw, steps, learner, seed=0):
+    """Each of `steps` train steps from the reference's state: the
+    reference's state converted, one port train_step with the reference's
+    replay draws, and the port's next state held to the reference's next
+    state (every network, target, Adam moment and count, the OU noise,
+    the obs, the env state and the ring with its cursor and fill), the
+    losses too. Returns the port's critic loss of each step."""
+    jagent, jstep = _jax_ddpg(num_envs, tuple(sorted(kw.items())))
+    agent = DDPG(CartPole3D(continuous_params(), num_envs=num_envs),
+                 DDPGConfig(learner=learner, **kw))
+    c, cap = jagent.cfg, jagent.replay.capacity
+    jst, losses = jagent.init(seed), []
+    for _ in range(steps):
+        host = jax.device_get(jst)
+        filled = min(int(host.replay.filled) + c.rollout_steps, cap)
+        cursor = (int(host.replay.cursor) + c.rollout_steps) % cap
+        indices = _column_indices(jagent, jst, c.updates_per_step, filled,
+                                  cursor)
+        pst, m = agent.train_step(ddpg_state_from_jax(agent, host),
+                                  indices=indices)
+        jst, jm = jstep(jst)
+        want = ddpg_state_from_jax(agent, jax.device_get(jst))
+        try:
+            _assert_trees_close(
+                {k: v for k, v in to_tree(pst).items() if k != "rng"},
+                {k: v for k, v in to_tree(want).items() if k != "rng"})
+            for key in ("critic_loss", "actor_loss", "reward_mean",
+                        "done_frac"):
+                np.testing.assert_allclose(float(m[key]), float(jm[key]),
+                                           rtol=TF_RTOL, atol=TF_ATOL,
+                                           err_msg=key)
+        except AssertionError as e:
+            raise AssertionError(f"train step {len(losses) + 1}: {e}") from e
+        losses.append(float(m["critic_loss"]))
+    return losses
+
+
+@pytest.mark.parametrize("warmup", [0, 16], ids=["warmup0", "warmup16"])
+@pytest.mark.parametrize("learner", ["xla", "kernel"],
+                         ids=["plain", "b3_twin"])
+def test_train_steps_track_jax_teacher_forced(learner, warmup):
+    """16 train steps, each from the reference's state with its replay
+    draws injected: the ring wraps (4 times), sigma reaches its floor
+    (step 8), and with warmup 16 the first step only rolls out. Every
+    field stays within rtol 2e-4 / atol 1e-5 of the reference's after
+    every step; cursor, fill, counts, steps, episodes and dones exact."""
+    kw = dict(TF_KW, warmup_env_steps=warmup)
+    losses = ddpg_teacher_forced(TF_ENVS, kw, TF_STEPS, learner)
+    gated = max(warmup // TF_KW["rollout_steps"] - 1, 0)  # before the gate
+    assert losses[:gated] == [0.0] * gated
+    assert all(loss > 0.0 for loss in losses[gated:])
 
 
 def test_unported_learner_settings_raise():

@@ -101,3 +101,66 @@ def test_env_consts_are_the_folded_float32_constants():
         assert c.has_push == int(p.push_prob_per_repeat > 0)
         assert c.has_friction == int(p.ground_friction != 0)
         assert c.action_repeats == p.action_repeats
+
+
+@pytest.mark.parametrize("params", [CartPoleParams(), continuous_params(),
+                                    CartPoleParams(s_norm_max=0.9)],
+                         ids=["discrete", "continuous", "snm0.9"])
+def test_s2_clamp_bounds_the_clamp_that_is_exactly_one(params):
+    """The kernels skip the substep's chart clamp for s2 <= s2_clamp: the
+    twin's scale min(1, s_norm_max / max(sqrt(s2), 1e-9)) is exactly 1 on
+    every s2 up to it (the 4096 floats below it, random ones in [0, it],
+    zero and tiny ones) and below 1 just above it."""
+    t = np.float32(_native.s2_clamp(params))
+    assert np.float32(_native.env_consts(params).s2_clamp) == t
+    snm = np.float32(params.s_norm_max)
+    up = np.nextafter(t, np.float32(np.inf))
+    assert np.sqrt(t) <= snm < np.sqrt(up)
+    below = t.view(np.int32) - np.arange(4096, dtype=np.int32)
+    rng = np.random.RandomState(0)
+    s2 = np.concatenate([below.view(np.float32),
+                         rng.uniform(0, t, 4096).astype(np.float32),
+                         np.float32([0.0, 1e-45, 1e-30, 1e-18, t])])
+    x = torch.from_numpy(s2)
+    scale = torch.clamp(params.s_norm_max
+                        / torch.clamp(torch.sqrt(x), min=1e-9), max=1.0)
+    assert bool((scale == 1.0).all())
+    over = torch.from_numpy(np.float32([up]))
+    assert float(torch.clamp(params.s_norm_max / torch.sqrt(over),
+                             max=1.0)) < 1.0
+
+
+@pytest.mark.parametrize("name", ["mt", "reset_det"])
+def test_constant_divides_as_double_products_are_exact(name):
+    """The env math divides by the mass and the reset determinant as
+    float(a * inv_b), inv_b = 1/b in double (env_consts' inv_mt and
+    inv_reset_det): equal to the float quotient a / b bit for bit on
+    random float bit patterns over the whole finite range, on the
+    physics' own scale, and at signed zeros."""
+    for p in (CartPoleParams(), continuous_params()):
+        c = _native.env_consts(p)
+        b = np.float32(getattr(c, name))
+        y = np.float64(getattr(c, {"mt": "inv_mt",
+                                   "reset_det": "inv_reset_det"}[name]))
+        assert y == np.float64(1.0) / np.float64(b)
+        rng = np.random.RandomState(1)
+        bits = rng.randint(0, 2**32, size=400_000, dtype=np.uint64)
+        a = bits.astype(np.uint32).view(np.float32)
+        a = np.concatenate([a[np.isfinite(a)],
+                            rng.uniform(-50, 50, 100_000).astype(np.float32),
+                            np.float32([0.0, -0.0, 1.0, -1.0])])
+        with np.errstate(over="ignore", under="ignore"):
+            got = (a.astype(np.float64) * y).astype(np.float32)
+            want = a / b
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32))
+
+
+@pytest.mark.parametrize("w_min", [0.0, 1e-16])
+def test_env_consts_reject_a_w_min_below_the_exact_root_range(w_min):
+    """The kernels' fast square root is exact for operands from 2^-101 up,
+    and the substep's smallest operand is w_min^2, so the constants
+    builder refuses a w_min below 1e-15; 1e-15 itself is taken."""
+    with pytest.raises(ValueError, match="w_min"):
+        _native.env_consts(CartPoleParams(w_min=w_min))
+    assert _native.env_consts(CartPoleParams(w_min=1e-15)).w_min2 > 0.0
