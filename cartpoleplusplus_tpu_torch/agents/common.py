@@ -26,7 +26,7 @@ from ..utils.prng import split_seed
 # that draw them (B2, B4, B6, B8).
 __all__ = ["TAG_OU_X", "TAG_OU_Y", "TAG_EPS_GATE", "TAG_EPS_ACT",
            "TAG_NAF_X", "TAG_NAF_Y", "TAG_PG_GUMBEL", "resolve_learner",
-           "resolve_rollout",
+           "resolve_rollout", "check_block_batch",
            "lr_schedule", "scheduled_lr", "AdamState", "adam_init",
            "adam_update", "bind_group", "bind_moments", "gated_update_scan",
            "replay_presample", "episode_length_hist",
@@ -73,6 +73,19 @@ def resolve_rollout(agent: str, kernel: str, covered: bool, on_cuda: bool,
               f"shape ({check}); the plain torch rollout runs on the GPU",
               file=sys.stderr)
     return on_cuda and covered
+
+
+def check_block_batch(sample: str, batch_size: int, num_envs: int,
+                      agent: str) -> None:
+    """The reference's gate on block sampling: each update's minibatch is
+    one aligned block of consecutive envs, so the batch must divide
+    num_envs."""
+    if sample == "block" and (batch_size > num_envs
+                              or num_envs % batch_size):
+        raise ValueError(
+            f"sample='block' needs the batch ({batch_size}) to divide "
+            f"num_envs ({num_envs}) - lower --{agent}.batch-size or use "
+            f"sample='column'")
 
 
 def lr_schedule(cfg):

@@ -4,7 +4,8 @@ One `train_step` runs `rollout_steps` env-steps with the actor and OU
 exploration in the loop (kernel B2 on a CUDA device where it covers the
 config, else the plain rollout; its plain twin on the CPU), inserts the
 chunk into the device replay, and then runs `updates_per_step` critic +
-actor + Polyak updates on presampled column or block minibatches.
+actor + Polyak updates on presampled column, block or uniform
+minibatches.
 
 Pixel observations (`env.obs_mode == "pixels"`) put a conv (or patch)
 encoder in front of both nets (VisualActor, VisualCritic), keep the ring
@@ -37,9 +38,9 @@ from ..ops.policy_rollout import (fusable, policy_rollout,
                                   reference_policy_rollout)
 from ..utils.prng import split_seed
 from .common import (AdamState, adam_init, adam_update, bind_group,
-                     bind_moments, evaluate_policy, gated_update_scan,
-                     lr_schedule, replay_presample, resolve_learner,
-                     resolve_rollout, scheduled_lr)
+                     bind_moments, check_block_batch, evaluate_policy,
+                     gated_update_scan, lr_schedule, replay_presample,
+                     resolve_learner, resolve_rollout, scheduled_lr)
 from .replay import ReplayBuffer, ReplayState
 
 
@@ -64,7 +65,7 @@ class DDPGConfig:
     ou_sigma_decay_env_steps: int = 20000  # linear decay horizon (0 = constant)
     warmup_env_steps: int = 16       # slots to fill before learning starts
     dtype: str = "float32"
-    sample: str = "column"
+    sample: str = "column"           # column | block | uniform
     actor_grad_critic: str = "updated"
     polyak_cadence: str = "per_update"
     # "kernel": B3 (its plain twin on the CPU); "xla": the plain torch
@@ -82,7 +83,7 @@ class DDPGConfig:
 # Fields whose other values select behaviour the port does not have yet.
 _SUPPORTED = {
     "dtype": ("float32",),
-    "sample": ("column", "block"),
+    "sample": ("column", "block", "uniform"),
     "actor_grad_critic": ("updated", "pre"),
     "polyak_cadence": ("per_update", "per_step"),
     "learner": ("auto", "kernel", "xla"),
@@ -123,12 +124,8 @@ class DDPG:
                 raise ValueError(f"DDPGConfig.{name}="
                                  f"{getattr(config, name)!r} is not ported "
                                  f"yet (supported: {ok})")
-        if config.sample == "block" and (config.batch_size > env.num_envs
-                                         or env.num_envs % config.batch_size):
-            raise ValueError(
-                f"sample='block' needs the batch ({config.batch_size}) to "
-                f"divide num_envs ({env.num_envs}) - lower "
-                f"--ddpg.batch-size or use sample='column'")
+        check_block_batch(config.sample, config.batch_size, env.num_envs,
+                          "ddpg")
         self.env = env
         self.cfg = config
         pixels = env.obs_mode == "pixels"
@@ -339,8 +336,8 @@ class DDPG:
         on any device. `rollout_impl` reports which ran. The updates run in
         the learner resolved at construction; `learner_impl` reports which
         (1.0 B3's wrapper, 0.0 the plain learner). indices: optional
-        presample draws ((slots, offs) for column and block sampling) in
-        place of the state's generator.
+        presample draws ((slots, offs) for column and block sampling,
+        (env_idx, slot) for uniform) in place of the state's generator.
 
         A quantized (pixel) ring takes the rollout after the update phase,
         as the reference's late insert does. capture=True adds the rollout's time-major trajectory (obs, action,

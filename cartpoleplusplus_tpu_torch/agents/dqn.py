@@ -4,10 +4,17 @@ torch).
 One `train_step` runs `rollout_steps` env-steps with the epsilon-greedy
 Q-net in the loop (kernel B4 on a CUDA device where it covers the config,
 else the plain rollout; its plain twin on the CPU), inserts the chunk into the
-device replay with int32 actions, presamples the K minibatches (column or
-uniform), and past the warmup runs `updates_per_step` double-DQN updates:
-Huber TD toward r + gamma (1 - done) Q'(s', argmax_a Q(s', a)), Adam,
-Polyak on the target.
+device replay with int32 actions, presamples the K minibatches (column,
+block or uniform), and past the warmup runs `updates_per_step` double-DQN
+updates: Huber TD toward r + gamma (1 - done) Q'(s', argmax_a Q(s', a)),
+Adam, Polyak on the target.
+
+Pixel observations (`env.obs_mode == "pixels"`) put a conv (or patch)
+encoder in front of the Q-net (VisualQNet), keep the ring quantized to
+uint8, and insert each rollout AFTER the update phase, as the reference
+does: a learning step samples the ring as it was before this step's
+rollout. No rollout kernel covers pixels (the env's render runs kernel
+B10), and the learner is the plain one.
 
 The updates run in one of two learners, resolved once at construction
 (`learner`): kernel B5 (ops/learner_kernel.py, the whole K-update phase as
@@ -25,13 +32,14 @@ import numpy as np
 import torch
 
 from ..env import CartPole3D, EnvState
-from ..models import QNetMLP, polyak
+from ..models import QNetMLP, VisualQNet, polyak
 from ..ops import learner_kernel as lk
 from ..ops.q_rollout import (epsilon_greedy, q_fusable, q_policy_rollout,
                              reference_q_rollout)
 from .common import (AdamState, adam_init, adam_update, bind_group,
-                     bind_moments, evaluate_policy, gated_update_scan,
-                     replay_presample, resolve_learner, resolve_rollout)
+                     bind_moments, check_block_batch, evaluate_policy,
+                     gated_update_scan, replay_presample, resolve_learner,
+                     resolve_rollout)
 from ..utils.prng import split_seed
 from .replay import ReplayBuffer, ReplayState
 
@@ -56,33 +64,34 @@ class DQNConfig:
     warmup_env_steps: int = 16
     double_dqn: bool = True
     dtype: str = "float32"
-    sample: str = "column"           # replay sampling: column | uniform
+    sample: str = "column"           # column | block | uniform
     # "kernel": B5 (its plain twin on the CPU); "xla": the plain torch
     # learner; "auto": B5 on a CUDA device when `kernel_learner_ok`, else
     # the plain learner (with one stderr line on a CUDA device).
     learner: str = "auto"
     learner_block: int = 512         # TPU kernel tiling; unused here
     learner_precision: str | None = None
-    encoder: str = "conv"            # pixel obs only; not ported yet
-    conv_features: tuple = (16, 32, 32)
+    encoder: str = "conv"            # pixel obs only: "conv" | "patch"
+    conv_features: tuple = (16, 32, 32)  # the conv encoder's widths
 
 
 # Fields whose other values select behaviour the port does not have yet.
 _SUPPORTED = {
     "dtype": ("float32",),
-    "sample": ("column", "uniform"),
+    "sample": ("column", "block", "uniform"),
     "learner": ("auto", "kernel", "xla"),
     "learner_precision": (None,),
+    "encoder": ("conv", "patch"),
 }
 
 
 class DQNState(NamedTuple):
-    q: QNetMLP
+    q: QNetMLP                 # VisualQNet on pixel obs
     q_target: QNetMLP
     opt: AdamState
     replay: ReplayState
     env_state: EnvState
-    obs: torch.Tensor          # (B, obs_dim) current observation
+    obs: torch.Tensor          # (B, *obs_shape) current observation
     generator: torch.Generator  # replay sampling (CPU)
     env_steps: int             # env-steps taken (per env)
     # Kernel mode: the 4 group buffers (q, q_target, then q's Adam moments
@@ -111,15 +120,15 @@ class DQN:
                 raise ValueError(f"DQNConfig.{name}="
                                  f"{getattr(config, name)!r} is not ported "
                                  f"yet (supported: {ok})")
-        if env.obs_mode == "pixels":
-            raise ValueError("pixel observations are not ported yet for "
-                             "DQN (VisualQNet)")
+        check_block_batch(config.sample, config.batch_size, env.num_envs,
+                          "dqn")
         self.env = env
         self.cfg = config
         self.replay = ReplayBuffer(env.num_envs,
                                    config.replay_capacity_per_env,
                                    env.obs_size, 0, env.device,
-                                   discrete=True)
+                                   discrete=True, obs_shape=env.obs_shape,
+                                   quantize_obs=env.obs_mode == "pixels")
         # Resolved once: the kernel learner keeps its state in the 4 group
         # buffers (state_from_tree), so the choice shapes init().
         self.kernel_mode = resolve_learner(
@@ -145,13 +154,19 @@ class DQN:
 
     # --- init ---------------------------------------------------------------
     def init(self, seed: int) -> DQNState:
-        """Fresh state: the Q-net from a torch.Generator seeded with
-        `seed`, envs reset as the reference's `init` resets them (its key
-        split(PRNGKey(seed), 3)[1]), empty replay."""
+        """Fresh state: the Q-net (VisualQNet on pixel obs) from a
+        torch.Generator seeded with `seed`, envs reset as the reference's
+        `init` resets them (its key split(PRNGKey(seed), 3)[1]), empty
+        replay."""
         env, c = self.env, self.cfg
         g = torch.Generator().manual_seed(seed)
-        q = QNetMLP(env.obs_size, env.num_actions, tuple(c.hidden),
-                    generator=g).to(env.device)
+        if env.obs_mode == "pixels":
+            q = VisualQNet(env.obs_shape, env.num_actions, tuple(c.hidden),
+                           tuple(c.conv_features), c.encoder, generator=g)
+        else:
+            q = QNetMLP(env.obs_size, env.num_actions, tuple(c.hidden),
+                        generator=g)
+        q = q.to(env.device)
         env_state, obs = env.reset(split_seed(seed, 3, 1))
         st = DQNState(q=q, q_target=copy.deepcopy(q), opt=adam_init(q),
                       replay=self.replay.init(), env_state=env_state,
@@ -254,20 +269,26 @@ class DQN:
         on any device. `rollout_impl` reports which ran. The updates run in the
         learner resolved at construction; `learner_impl` reports which
         (1.0 B5's wrapper, 0.0 the plain learner). indices: optional
-        presample draws ((slots, offs) for column sampling, (env_idx,
-        slot) for uniform) in place of the state's generator. capture=True adds the rollout's time-major trajectory (obs, action,
-        reward, done) to the metrics as "traj", the event-log sink's
-        input (the reference's `make_train_step(capture=True)`)."""
+        presample draws ((slots, offs) for column and block sampling,
+        (env_idx, slot) for uniform) in place of the state's generator.
+
+        A quantized (pixel) ring takes the rollout after the update phase,
+        as the reference's late insert does. capture=True adds the
+        rollout's time-major trajectory (obs, action, reward, done) to the
+        metrics as "traj", the event-log sink's input (the reference's
+        `make_train_step(capture=True)`)."""
         c = self.cfg
         eps = self.epsilon(st.env_steps)
         kernel = self.kernel_rollout if fused is None else fused
         run = q_policy_rollout if kernel else reference_q_rollout
         env_state, obs, traj = run(self.env, st.q, st.env_state, st.obs,
                                    st.env_steps, eps, c.rollout_steps)
-        replay = self.replay.add_trajectory(st.replay, *traj)
+        late_insert = self.replay.quantize_obs
+        if not late_insert:
+            st = st._replace(replay=self.replay.add_trajectory(st.replay,
+                                                               *traj))
         env_steps = st.env_steps + c.rollout_steps
-        st = st._replace(env_state=env_state, obs=obs, replay=replay,
-                         env_steps=env_steps)
+        st = st._replace(env_state=env_state, obs=obs, env_steps=env_steps)
         ready = c.warmup_env_steps <= 0 or env_steps >= c.warmup_env_steps
         losses = {"loss": torch.zeros((), dtype=torch.float32,
                                       device=self.env.device)}
@@ -281,6 +302,9 @@ class DQN:
                 st, losses = gated_update_scan(
                     st, self._update_once, c.updates_per_step, True, losses,
                     presample=presample)
+        if late_insert:
+            st = st._replace(replay=self.replay.add_trajectory(st.replay,
+                                                               *traj))
         metrics = dict(losses)
         metrics["epsilon"] = eps
         metrics["reward_mean"] = traj[2].mean()

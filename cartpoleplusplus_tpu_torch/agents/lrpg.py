@@ -17,6 +17,13 @@ on CPU tensors), or the plain learner, torch autograd through `_loss` with
 optax-exact Adam. The reference's rule that T x B be a multiple of 8
 (agents/lrpg.py:138) is a TPU layout rule and does not carry over: B9
 takes any window.
+
+Pixel observations (`env.obs_mode == "pixels"`) put a conv (or patch)
+encoder in front of the policy (VisualPolicy). On-policy, the window holds
+the env's frames directly (uint8 where the env quantizes them), with no
+replay ring. No rollout kernel covers pixels (the env's render runs kernel
+B10), and the learner is the plain one, over the whole window in one
+autograd pass.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ from typing import NamedTuple
 import torch
 
 from ..env import CartPole3D, EnvState
-from ..models import PolicyMLP
+from ..models import PolicyMLP, VisualPolicy
 from ..ops import learner_kernel as lk
 from ..ops.pg_rollout import (gumbel_max, pg_fusable, pg_policy_rollout,
                               reference_pg_rollout)
@@ -56,8 +63,8 @@ class LRPGConfig:
     learner: str = "auto"
     learner_block: int = 1024        # TPU kernel tiling; unused here
     learner_precision: str | None = None
-    encoder: str = "conv"            # pixel obs only; not ported yet
-    conv_features: tuple = (16, 32, 32)
+    encoder: str = "conv"            # pixel obs only: "conv" | "patch"
+    conv_features: tuple = (16, 32, 32)  # the conv encoder's widths
 
 
 # Fields whose other values select behaviour the port does not have yet.
@@ -65,15 +72,16 @@ _SUPPORTED = {
     "dtype": ("float32",),
     "learner": ("auto", "kernel", "xla"),
     "learner_precision": (None,),
+    "encoder": ("conv", "patch"),
 }
 
 
 class LRPGState(NamedTuple):
-    policy: PolicyMLP
+    policy: PolicyMLP          # VisualPolicy on pixel obs
     opt: AdamState
     baseline: torch.Tensor     # () float32, EMA of the window's returns
     env_state: EnvState
-    obs: torch.Tensor          # (B, obs_dim) current observation
+    obs: torch.Tensor          # (B, *obs_shape) current observation
     env_steps: int             # env-steps taken (per env)
     # Kernel mode: the 3 group buffers (the policy, then its Adam moments
     # m, v) whose views are the module's parameters and the AdamState's
@@ -104,9 +112,6 @@ class LRPG:
                 raise ValueError(f"LRPGConfig.{name}="
                                  f"{getattr(config, name)!r} is not ported "
                                  f"yet (supported: {ok})")
-        if env.obs_mode == "pixels":
-            raise ValueError("pixel observations are not ported yet for "
-                             "LRPG (VisualPolicy)")
         self.env = env
         self.cfg = config
         # Resolved once: the kernel learner keeps its state in the 3 group
@@ -133,13 +138,20 @@ class LRPG:
 
     # --- init ---------------------------------------------------------------
     def init(self, seed: int) -> LRPGState:
-        """Fresh state: the policy from a torch.Generator seeded with
-        `seed`, envs reset as the reference's `init` resets them (its key
-        split(PRNGKey(seed), 3)[1]), zero Adam moments and baseline."""
+        """Fresh state: the policy (VisualPolicy on pixel obs) from a
+        torch.Generator seeded with `seed`, envs reset as the reference's
+        `init` resets them (its key split(PRNGKey(seed), 3)[1]), zero Adam
+        moments and baseline."""
         env, c = self.env, self.cfg
         g = torch.Generator().manual_seed(seed)
-        policy = PolicyMLP(env.obs_size, env.num_actions, tuple(c.hidden),
-                           generator=g).to(env.device)
+        if env.obs_mode == "pixels":
+            policy = VisualPolicy(env.obs_shape, env.num_actions,
+                                  tuple(c.hidden), tuple(c.conv_features),
+                                  c.encoder, generator=g)
+        else:
+            policy = PolicyMLP(env.obs_size, env.num_actions,
+                               tuple(c.hidden), generator=g)
+        policy = policy.to(env.device)
         env_state, obs = env.reset(split_seed(seed, 3, 1))
         st = LRPGState(policy=policy, opt=adam_init(policy),
                        baseline=torch.zeros((), dtype=torch.float32,

@@ -5,10 +5,16 @@ One `train_step` runs `rollout_steps` env-steps with NAF's mu head and
 Gaussian exploration in the loop (kernel B6 on a CUDA device where it
 covers the config, else the plain rollout; its plain twin on the CPU),
 inserts the chunk into the device replay, presamples the K minibatches
-(column or uniform), and past the warmup runs `updates_per_step` NAF updates: MSE TD
-toward r + gamma (1 - done) V'(s'), the global-norm gradient clip
-(`max_grad_norm`), Adam under the linear lr schedule, Polyak on the
-target.
+(column, block or uniform), and past the warmup runs `updates_per_step`
+NAF updates: MSE TD toward r + gamma (1 - done) V'(s'), the global-norm
+gradient clip (`max_grad_norm`), Adam under the linear lr schedule, Polyak
+on the target.
+
+Pixel observations (`env.obs_mode == "pixels"`) put a conv (or patch)
+encoder in front of the net (VisualNafNet), keep the ring quantized to
+uint8, and insert each rollout AFTER the update phase, as the reference
+does. No rollout kernel covers pixels (the env's render runs kernel B10),
+and the learner is the plain one.
 
 The updates run in one of two learners, resolved once at construction
 (`learner`): kernel B7 (ops/learner_kernel.py, the whole K-update phase as
@@ -31,15 +37,15 @@ import numpy as np
 import torch
 
 from ..env import CartPole3D, EnvState
-from ..models import NafNet, polyak
+from ..models import NafNet, VisualNafNet, polyak
 from ..ops import learner_kernel as lk
 from ..ops.naf_rollout import (naf_action, naf_fusable, naf_policy_rollout,
                                reference_naf_rollout)
 from ..utils.prng import split_seed
 from .common import (AdamState, adam_init, adam_update, bind_group,
-                     bind_moments, evaluate_policy, gated_update_scan,
-                     lr_schedule, replay_presample, resolve_learner,
-                     resolve_rollout, scheduled_lr)
+                     bind_moments, check_block_batch, evaluate_policy,
+                     gated_update_scan, lr_schedule, replay_presample,
+                     resolve_learner, resolve_rollout, scheduled_lr)
 from .replay import ReplayBuffer, ReplayState
 
 
@@ -63,7 +69,7 @@ class NAFConfig:
     max_grad_norm: float = 10.0      # global-norm gradient clip (0 = none)
     warmup_env_steps: int = 16
     dtype: str = "float32"
-    sample: str = "column"           # replay sampling: column | uniform
+    sample: str = "column"           # column | block | uniform
     # "kernel": B7 (its plain twin on the CPU); "xla" (the default, as in
     # the reference; module docstring): the plain torch learner; "auto": B7
     # on a CUDA device when `kernel_learner_ok`, else the plain learner
@@ -73,26 +79,27 @@ class NAFConfig:
     learner_precision: str | None = None
     lr_decay_env_steps: int = 40000  # linear lr decay horizon (0 = constant)
     lr_end_frac: float = 0.1
-    encoder: str = "conv"            # pixel obs only; not ported yet
-    conv_features: tuple = (16, 32, 32)
+    encoder: str = "conv"            # pixel obs only: "conv" | "patch"
+    conv_features: tuple = (16, 32, 32)  # the conv encoder's widths
 
 
 # Fields whose other values select behaviour the port does not have yet.
 _SUPPORTED = {
     "dtype": ("float32",),
-    "sample": ("column", "uniform"),
+    "sample": ("column", "block", "uniform"),
     "learner": ("auto", "kernel", "xla"),
     "learner_precision": (None,),
+    "encoder": ("conv", "patch"),
 }
 
 
 class NAFState(NamedTuple):
-    net: NafNet
+    net: NafNet                # VisualNafNet on pixel obs
     target: NafNet
     opt: AdamState
     replay: ReplayState
     env_state: EnvState
-    obs: torch.Tensor          # (B, obs_dim) current observation
+    obs: torch.Tensor          # (B, *obs_shape) current observation
     generator: torch.Generator  # replay sampling (CPU)
     env_steps: int             # env-steps taken (per env)
     # Kernel mode: the 4 group buffers (net, target, then net's Adam moments
@@ -113,14 +120,15 @@ class NAF:
                 raise ValueError(f"NAFConfig.{name}="
                                  f"{getattr(config, name)!r} is not ported "
                                  f"yet (supported: {ok})")
-        if env.obs_mode == "pixels":
-            raise ValueError("pixel observations are not ported yet for "
-                             "NAF (VisualNafNet)")
+        check_block_batch(config.sample, config.batch_size, env.num_envs,
+                          "naf")
         self.env = env
         self.cfg = config
         self.replay = ReplayBuffer(env.num_envs,
                                    config.replay_capacity_per_env,
-                                   env.obs_size, env.action_dim, env.device)
+                                   env.obs_size, env.action_dim, env.device,
+                                   obs_shape=env.obs_shape,
+                                   quantize_obs=env.obs_mode == "pixels")
         # Resolved once: the kernel learner keeps its state in the 4 group
         # buffers (state_from_tree), so the choice shapes init().
         self.kernel_mode = resolve_learner(
@@ -147,13 +155,20 @@ class NAF:
 
     # --- init ---------------------------------------------------------------
     def init(self, seed: int) -> NAFState:
-        """Fresh state: the NafNet from a torch.Generator seeded with
-        `seed`, envs reset as the reference's `init` resets them (its key
-        split(PRNGKey(seed), 3)[1]), empty replay."""
+        """Fresh state: the NafNet (VisualNafNet on pixel obs) from a
+        torch.Generator seeded with `seed`, envs reset as the reference's
+        `init` resets them (its key split(PRNGKey(seed), 3)[1]), empty
+        replay."""
         env, c = self.env, self.cfg
         g = torch.Generator().manual_seed(seed)
-        net = NafNet(env.obs_size, env.action_dim, tuple(c.hidden),
-                     generator=g).to(env.device)
+        if env.obs_mode == "pixels":
+            net = VisualNafNet(env.obs_shape, env.action_dim,
+                               tuple(c.hidden), tuple(c.conv_features),
+                               c.encoder, generator=g)
+        else:
+            net = NafNet(env.obs_size, env.action_dim, tuple(c.hidden),
+                         generator=g)
+        net = net.to(env.device)
         env_state, obs = env.reset(split_seed(seed, 3, 1))
         st = NAFState(net=net, target=copy.deepcopy(net), opt=adam_init(net),
                       replay=self.replay.init(), env_state=env_state,
@@ -263,20 +278,26 @@ class NAF:
         through the plain rollout; `rollout_impl` says which ran. The updates run in the learner resolved at
         construction; `learner_impl` says which (1.0 B7's wrapper, 0.0 the
         plain learner). indices: optional presample draws ((slots, offs)
-        for column sampling, (env_idx, slot) for uniform) in place of the
-        state's generator. capture=True adds the rollout's time-major trajectory (obs, action,
-        reward, done) to the metrics as "traj", the event-log sink's
-        input (the reference's `make_train_step(capture=True)`)."""
+        for column and block sampling, (env_idx, slot) for uniform) in
+        place of the state's generator.
+
+        A quantized (pixel) ring takes the rollout after the update phase,
+        as the reference's late insert does. capture=True adds the
+        rollout's time-major trajectory (obs, action, reward, done) to the
+        metrics as "traj", the event-log sink's input (the reference's
+        `make_train_step(capture=True)`)."""
         c = self.cfg
         run = (naf_policy_rollout if self.kernel_rollout
                else reference_naf_rollout)
         env_state, obs, traj = run(
             self.env, st.net, st.env_state, st.obs, st.env_steps,
             self._sigma(st.env_steps), c.rollout_steps)
-        replay = self.replay.add_trajectory(st.replay, *traj)
+        late_insert = self.replay.quantize_obs
+        if not late_insert:
+            st = st._replace(replay=self.replay.add_trajectory(st.replay,
+                                                               *traj))
         env_steps = st.env_steps + c.rollout_steps
-        st = st._replace(env_state=env_state, obs=obs, replay=replay,
-                         env_steps=env_steps)
+        st = st._replace(env_state=env_state, obs=obs, env_steps=env_steps)
         ready = c.warmup_env_steps <= 0 or env_steps >= c.warmup_env_steps
         losses = {"loss": torch.zeros((), dtype=torch.float32,
                                       device=self.env.device)}
@@ -290,6 +311,9 @@ class NAF:
                 st, losses = gated_update_scan(
                     st, self._update_once, c.updates_per_step, True, losses,
                     presample=presample)
+        if late_insert:
+            st = st._replace(replay=self.replay.add_trajectory(st.replay,
+                                                               *traj))
         metrics = dict(losses)
         metrics["reward_mean"] = traj[2].mean()
         metrics["done_frac"] = traj[3].to(torch.float32).mean()

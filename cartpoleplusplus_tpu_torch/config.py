@@ -41,7 +41,7 @@ class RunConfig:
     # Pixel-obs rendering knobs (obs_mode=pixels; env/pixels.py):
     render_size: int = 48            # square frame edge (pixels)
     render_grayscale: bool = False   # 1 channel per camera instead of 3
-    render_dtype: str = "float32"    # ray-cast compute dtype (float32 only)
+    render_dtype: str = "float32"    # ray-cast compute dtype (or bfloat16)
     render_obs_uint8: bool = False   # quantize pixel obs to uint8
     # stack [latest frame, consecutive-frame diffs] instead of R raw
     # frames (same shape; RenderConfig.frame_diff)

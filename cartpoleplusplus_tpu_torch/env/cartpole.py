@@ -21,7 +21,7 @@ from ..physics import CartPoleParams, PhysState, rest_state, run_substeps
 from ..utils.prng import as_words, hash_words
 from . import compute
 from .obs import OBS_MODES, obs_size, pose_frame, stack_obs, state_obs
-from .pixels import RenderConfig, pixel_obs_shape
+from .pixels import RENDER_DTYPES, RenderConfig, pixel_obs_shape
 
 # Discrete action -> force direction table (noop, +x, -x, +y, -y).
 _ACTION_TABLE = ((0.0, 0.0), (1.0, 0.0), (-1.0, 0.0), (0.0, 1.0),
@@ -86,10 +86,10 @@ class CartPole3D:
         self.device = torch.device(device)
         self.render_config = (render_config if render_config is not None
                               else RenderConfig())
-        if obs_mode == "pixels" and self.render_config.dtype != "float32":
-            raise ValueError(f"RenderConfig.dtype="
-                             f"{self.render_config.dtype!r} is not ported "
-                             f"yet (the renderer computes in float32)")
+        if self.render_config.dtype not in RENDER_DTYPES:
+            raise ValueError(f"RenderConfig.dtype must be one of "
+                             f"{RENDER_DTYPES}, got "
+                             f"{self.render_config.dtype!r}")
         self._reset_obs = None  # the constant pixel reset obs, made once
 
     # --- spaces ------------------------------------------------------------

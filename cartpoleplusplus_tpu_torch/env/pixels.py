@@ -27,6 +27,7 @@ import torch
 from ..physics import CartPoleParams, PhysState, pole_w
 
 _BIG = 1e9
+RENDER_DTYPES = ("float32", "bfloat16")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,8 +58,9 @@ class RenderConfig:
     # Visual sizes (match the physics footprint; purely cosmetic beyond it).
     cart_half_extents: tuple = (0.25, 0.25, 0.1)
     pole_radius: float = 0.06
-    # Ray-cast compute dtype. The port renders in float32 only; the
-    # reference's "bfloat16" is rejected by CartPole3D.
+    # Ray-cast compute dtype, "float32" or "bfloat16": the plain renderer
+    # takes its inputs at that precision (`render`); kernels B10 and B11
+    # render in float32 whatever it says, as the reference's kernel does.
     dtype: str = "float32"
     # uint8 observations: the env quantizes rendered frames to 0..255 at
     # obs-assembly time; the pixel encoders scale uint8 input by 1/255.
@@ -396,18 +398,31 @@ def env_columns(p: CartPoleParams, phys: PhysState):
         phys.pos[..., 0], phys.pos[..., 1], phys.pos[..., 2], sx, sy, w)]
 
 
+def _at_render_dtype(x: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
+    """`x` rounded to the render dtype, held in float32. At "bfloat16" the
+    reference casts the ray and static rows and the env columns to
+    bfloat16, and every operation of the shade then promotes to float32
+    (its constants are numpy float32 scalars, which JAX types strongly): so
+    bfloat16 inputs and float32 arithmetic, as here."""
+    if cfg.dtype == "bfloat16":
+        return x.to(torch.bfloat16).to(torch.float32)
+    return x
+
+
 def render(p: CartPoleParams, phys: PhysState, cfg: RenderConfig,
            cam: CameraConfig, gray: bool = False,
            cull: bool = False) -> torch.Tensor:
     """One camera view of every env: (B, H, W, 3) float32 in [0, 1]
-    ((B, H, W, 1) luminance when `gray`). With `cull`, pixels outside each
-    env's `row_band` take the background row instead of the shade: the
-    twin of B11, equal to the full shade wherever the band is sound."""
+    ((B, H, W, 1) luminance when `gray`), computed at `cfg.dtype`'s input
+    precision (`_at_render_dtype`). With `cull`, pixels outside each env's
+    `row_band` take the background row instead of the shade: the twin of
+    B11, equal to the full shade wherever the band is sound."""
     eye, rows = camera_rows(cam, cfg, gray, phys.pos.device)
+    rows = _at_render_dtype(rows, cfg)
     rays = list(rows[:6, None])
     static = tuple(rows[6:, None])
     b = phys.pos.shape[0]
-    cols = env_columns(p, phys)
+    cols = [_at_render_dtype(c, cfg) for c in env_columns(p, phys)]
     chans = shade_components(p, cfg, eye, *rays, static, *cols, gray=gray)
     if cull:
         lo, hi = row_band(p, cfg, camera_basis_np(cam, cfg.width,

@@ -2,8 +2,10 @@
 
 from .nets import (ActorMLP, CriticMLP, LayerNorm, NafNet, PatchEncoder,
                    PixelEncoder, PolicyMLP, QNetMLP, VisualActor,
-                   VisualCritic, polyak)
+                   VisualCritic, VisualNafNet, VisualPolicy, VisualQNet,
+                   polyak)
 
 __all__ = ["ActorMLP", "CriticMLP", "LayerNorm", "NafNet", "PatchEncoder",
            "PixelEncoder", "PolicyMLP", "QNetMLP", "VisualActor",
-           "VisualCritic", "polyak"]
+           "VisualCritic", "VisualNafNet", "VisualPolicy", "VisualQNet",
+           "polyak"]

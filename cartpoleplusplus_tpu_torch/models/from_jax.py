@@ -17,7 +17,8 @@ import torch
 from ..env.cartpole import EnvState
 from ..physics.dynamics import PhysState
 from .nets import (ActorMLP, CriticMLP, NafNet, PolicyMLP, QNetMLP,
-                   VisualActor, VisualCritic)
+                   VisualActor, VisualCritic, VisualNafNet, VisualPolicy,
+                   VisualQNet)
 
 
 def _t(a, device=None) -> torch.Tensor:
@@ -97,6 +98,28 @@ def visual_critic_state_dict(tree, hidden: Sequence[int],
     """flax VisualCritic params -> VisualCritic state dict."""
     return _visual_state_dict(tree, hidden, "CriticMLP_0",
                               critic_state_dict, device)
+
+
+def visual_qnet_state_dict(tree, hidden: Sequence[int],
+                           device=None) -> dict:
+    """flax VisualQNet params -> VisualQNet state dict."""
+    return _visual_state_dict(tree, hidden, "QNetMLP_0", qnet_state_dict,
+                              device)
+
+
+def visual_naf_state_dict(tree, hidden: Sequence[int],
+                          device=None) -> dict:
+    """flax VisualNafNet params -> VisualNafNet state dict (NafNet's
+    three heads packed into one, as `naf_state_dict` packs them)."""
+    return _visual_state_dict(tree, hidden, "NafNet_0", naf_state_dict,
+                              device)
+
+
+def visual_policy_state_dict(tree, hidden: Sequence[int],
+                             device=None) -> dict:
+    """flax VisualPolicy params -> VisualPolicy state dict."""
+    return _visual_state_dict(tree, hidden, "PolicyMLP_0",
+                              policy_state_dict, device)
 
 
 def qnet_state_dict(tree, hidden: Sequence[int], device=None) -> dict:
@@ -306,106 +329,124 @@ def ddpg_state_from_jax(agent, st, generator=None):
         env_steps=int(np.asarray(st.env_steps))))
 
 
+def _net_bridge(agent, n_out: int, flat, visual, unflatten):
+    """(net_from, sd_of) for one network of `agent`: a flax tree (or the
+    reference's kernel-mode flat list, through `unflatten`) -> a module of
+    the agent's obs mode on its device, and -> that module's state dict
+    (for the Adam moments). `flat` and `visual` are (module class,
+    state-dict bridge) for state and pixel observations."""
+    c, env, dev = agent.cfg, agent.env, agent.env.device
+    h = tuple(c.hidden)
+    if env.obs_mode == "pixels":
+        cls, to_sd = visual
+
+        def make():
+            return cls(env.obs_shape, n_out, h, tuple(c.conv_features),
+                       c.encoder)
+    else:
+        cls, to_sd = flat
+
+        def make():
+            return cls(env.obs_size, n_out, h)
+
+    def sd_of(x):
+        if isinstance(x, (list, tuple)):
+            x = unflatten(x, h)
+        return to_sd(x, h, dev)
+
+    def net_from(x):
+        net = make().to(dev)
+        net.load_state_dict(sd_of(x))
+        return net
+    return net_from, sd_of
+
+
 def dqn_state_from_jax(agent, st, generator=None):
     """JAX DQNState (numpy leaves) -> the port's DQNState for `agent` (a
-    port DQN of the same config), in the agent's native layout. Both of
-    the reference's layouts are taken: the flax trees of its XLA learner
-    and the flat operand lists of its kernel mode. Adam moments, replay
-    ring and counters carry over; the replay sampling generator is the
-    given one (or a fresh one)."""
+    port DQN of the same config, state or pixel obs), in the agent's native
+    layout. Both of the reference's layouts are taken: the flax trees of
+    its XLA learner and the flat operand lists of its kernel mode. Adam
+    moments, replay ring (uint8 for pixels) and counters carry over; the
+    replay sampling generator is the given one (or a fresh one)."""
     from ..agents.common import AdamState
     from ..agents.dqn import DQNState
 
-    c, env, dev = agent.cfg, agent.env, agent.env.device
-    h, na = tuple(c.hidden), env.num_actions
-
-    def tree(x):
-        return unflatten_qnet(x, h, na) if isinstance(x, (list, tuple)) \
-            else x
-
-    q = qnet_from_flax(tree(st.q), env.obs_size, na, h, dev)
+    na, dev = agent.env.num_actions, agent.env.device
+    net_from, sd_of = _net_bridge(
+        agent, na, (QNetMLP, qnet_state_dict),
+        (VisualQNet, visual_qnet_state_dict),
+        lambda x, h: unflatten_qnet(x, h, na))
+    q = net_from(st.q)
     adam_state = st.opt[0]
     return agent.state_from_tree(DQNState(
         q=q,
-        q_target=qnet_from_flax(tree(st.q_target), env.obs_size, na, h,
-                                dev),
-        opt=AdamState(
-            count=int(np.asarray(adam_state.count)),
-            mu=_in_param_order(q, qnet_state_dict(tree(adam_state.mu), h,
-                                                  dev)),
-            nu=_in_param_order(q, qnet_state_dict(tree(adam_state.nu), h,
-                                                  dev))),
+        q_target=net_from(st.q_target),
+        opt=AdamState(count=int(np.asarray(adam_state.count)),
+                      mu=_in_param_order(q, sd_of(adam_state.mu)),
+                      nu=_in_param_order(q, sd_of(adam_state.nu))),
         replay=_replay_from_jax(st.replay, dev),
         env_state=env_state_from_jax(st.env_state, dev),
-        obs=_t(np.asarray(st.obs, np.float32), dev),
+        obs=_obs_from_jax(st.obs, dev),
         generator=generator if generator is not None else torch.Generator(),
         env_steps=int(np.asarray(st.env_steps))))
 
 
 def lrpg_state_from_jax(agent, st):
     """JAX LRPGState (numpy leaves) -> the port's LRPGState for `agent` (a
-    port LRPG of the same config), in the agent's native layout. Both of
-    the reference's layouts are taken: the flax tree of its XLA learner and
-    the flat operand list of its kernel mode. Policy, Adam moments and
-    count, return baseline, env state, obs and counters carry over."""
+    port LRPG of the same config, state or pixel obs), in the agent's
+    native layout. Both of the reference's layouts are taken: the flax tree
+    of its XLA learner and the flat operand list of its kernel mode.
+    Policy, Adam moments and count, return baseline, env state, obs (uint8
+    frames stay uint8) and counters carry over."""
     from ..agents.common import AdamState
     from ..agents.lrpg import LRPGState
 
-    c, env, dev = agent.cfg, agent.env, agent.env.device
-    h, na = tuple(c.hidden), env.num_actions
-
-    def tree(x):
-        return unflatten_qnet(x, h, na) if isinstance(x, (list, tuple)) \
-            else x
-
-    policy = policy_from_flax(tree(st.params), env.obs_size, na, h, dev)
+    na, dev = agent.env.num_actions, agent.env.device
+    net_from, sd_of = _net_bridge(
+        agent, na, (PolicyMLP, policy_state_dict),
+        (VisualPolicy, visual_policy_state_dict),
+        lambda x, h: unflatten_qnet(x, h, na))
+    policy = net_from(st.params)
     adam_state = st.opt[0]
-
-    def moments(x):
-        return _in_param_order(policy, policy_state_dict(tree(x), h, dev))
-
     return agent.state_from_tree(LRPGState(
         policy=policy,
         opt=AdamState(count=int(np.asarray(adam_state.count)),
-                      mu=moments(adam_state.mu), nu=moments(adam_state.nu)),
+                      mu=_in_param_order(policy, sd_of(adam_state.mu)),
+                      nu=_in_param_order(policy, sd_of(adam_state.nu))),
         baseline=_t(np.asarray(st.baseline, np.float32), dev),
         env_state=env_state_from_jax(st.env_state, dev),
-        obs=_t(np.asarray(st.obs, np.float32), dev),
+        obs=_obs_from_jax(st.obs, dev),
         env_steps=int(np.asarray(st.env_steps))))
 
 
 def naf_state_from_jax(agent, st, generator=None):
     """JAX NAFState (numpy leaves) -> the port's NAFState for `agent` (a
-    port NAF of the same config), in the agent's native layout. Both of the
-    reference's layouts are taken (the flax trees of its XLA learner, the
-    flat operand lists of its kernel mode), and both optax nestings: the
-    Adam state sits at opt[1][0] behind the global-norm clip
-    (max_grad_norm > 0) and at opt[0] without it (the reference's
+    port NAF of the same config, state or pixel obs), in the agent's native
+    layout. Both of the reference's layouts are taken (the flax trees of
+    its XLA learner, the flat operand lists of its kernel mode), and both
+    optax nestings: the Adam state sits at opt[1][0] behind the global-norm
+    clip (max_grad_norm > 0) and at opt[0] without it (the reference's
     NAF._adam_state). Parameters, target, Adam moments and count, replay
-    ring, env state, obs and counters carry over; the replay sampling
-    generator is the given one (or a fresh one)."""
+    ring (uint8 for pixels), env state, obs and counters carry over; the
+    replay sampling generator is the given one (or a fresh one)."""
     from ..agents.common import AdamState
     from ..agents.naf import NAFState
 
-    c, env, dev = agent.cfg, agent.env, agent.env.device
-    h, ad = tuple(c.hidden), env.action_dim
-
-    def tree(x):
-        return unflatten_naf(x, h) if isinstance(x, (list, tuple)) else x
-
-    net = naf_from_flax(tree(st.params), env.obs_size, ad, h, dev)
-    adam_state = st.opt[1][0] if c.max_grad_norm > 0.0 else st.opt[0]
-
-    def moments(x):
-        return _in_param_order(net, naf_state_dict(tree(x), h, dev))
-
+    dev = agent.env.device
+    net_from, sd_of = _net_bridge(
+        agent, agent.env.action_dim, (NafNet, naf_state_dict),
+        (VisualNafNet, visual_naf_state_dict), unflatten_naf)
+    net = net_from(st.params)
+    adam_state = (st.opt[1][0] if agent.cfg.max_grad_norm > 0.0
+                  else st.opt[0])
     return agent.state_from_tree(NAFState(
         net=net,
-        target=naf_from_flax(tree(st.target), env.obs_size, ad, h, dev),
+        target=net_from(st.target),
         opt=AdamState(count=int(np.asarray(adam_state.count)),
-                      mu=moments(adam_state.mu), nu=moments(adam_state.nu)),
+                      mu=_in_param_order(net, sd_of(adam_state.mu)),
+                      nu=_in_param_order(net, sd_of(adam_state.nu))),
         replay=_replay_from_jax(st.replay, dev),
         env_state=env_state_from_jax(st.env_state, dev),
-        obs=_t(np.asarray(st.obs, np.float32), dev),
+        obs=_obs_from_jax(st.obs, dev),
         generator=generator if generator is not None else torch.Generator(),
         env_steps=int(np.asarray(st.env_steps))))

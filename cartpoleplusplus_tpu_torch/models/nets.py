@@ -1,7 +1,7 @@
 """DDPG, DQN, LRPG and NAF networks and the pixel encoders
 (cartpoleplusplus_tpu/models/nets.py ActorMLP, CriticMLP, QNetMLP,
-PolicyMLP, NafNet, PixelEncoder, PatchEncoder, VisualActor and VisualCritic
-in torch), with flax's numerics rather than torch's defaults:
+PolicyMLP, NafNet, PixelEncoder, PatchEncoder and the Visual* nets in
+torch), with flax's numerics rather than torch's defaults:
 
   * LayerNorm uses eps 1e-6 and the one-pass variance max(E[x^2] - E[x]^2,
     0), and applies (x - mean) * (rsqrt(var + eps) * scale) + bias;
@@ -299,34 +299,57 @@ def make_encoder(encoder: str, obs_shape, conv_features, generator=None):
     return PixelEncoder(obs_shape, conv_features, generator=generator)
 
 
-class VisualActor(nn.Module):
-    """Encoder + ActorMLP: the deterministic policy from frames."""
+class _VisualNet(nn.Module):
+    """An encoder (`make_encoder`: "conv" or "patch") in front of the MLP
+    `mlp_cls`, which takes the encoder's flat features and any further
+    arguments (an action) as it takes a flat observation."""
 
-    def __init__(self, obs_shape, action_dim: int = 2,
-                 hidden: Sequence[int] = (256, 256),
+    mlp_cls = None
+
+    def __init__(self, obs_shape, n_out: int, hidden: Sequence[int],
                  features: Sequence[int] = (16, 32, 32),
                  encoder: str = "conv", generator=None):
         super().__init__()
         self.encoder = make_encoder(encoder, obs_shape, features, generator)
-        self.mlp = ActorMLP(self.encoder.out_dim, action_dim, hidden,
-                            generator=generator)
+        self.mlp = self.mlp_cls(self.encoder.out_dim, n_out, hidden,
+                                generator=generator)
         self.hidden = self.mlp.hidden
 
-    def forward(self, img):
-        return self.mlp(self.encoder(img))
+    def forward(self, img, *args):
+        return self.mlp(self.encoder(img), *args)
 
 
-class VisualCritic(nn.Module):
-    """Encoder + CriticMLP: Q(frames, action)."""
+class VisualActor(_VisualNet):
+    """Encoder + ActorMLP: the deterministic policy from frames;
+    (obs_shape, action_dim, hidden, ...)."""
 
-    def __init__(self, obs_shape, action_dim: int = 2,
-                 hidden: Sequence[int] = (256, 256),
-                 features: Sequence[int] = (16, 32, 32),
-                 encoder: str = "conv", generator=None):
-        super().__init__()
-        self.encoder = make_encoder(encoder, obs_shape, features, generator)
-        self.mlp = CriticMLP(self.encoder.out_dim, action_dim, hidden,
-                             generator=generator)
+    mlp_cls = ActorMLP
 
-    def forward(self, img, action):
-        return self.mlp(self.encoder(img), action)
+
+class VisualCritic(_VisualNet):
+    """Encoder + CriticMLP: Q(frames, action); (obs_shape, action_dim,
+    hidden, ...)."""
+
+    mlp_cls = CriticMLP
+
+
+class VisualQNet(_VisualNet):
+    """Encoder + QNetMLP: discrete Q-values from frames (pixel DQN);
+    (obs_shape, num_actions, hidden, ...)."""
+
+    mlp_cls = QNetMLP
+
+
+class VisualNafNet(_VisualNet):
+    """Encoder + NafNet: the quadratic-advantage Q from frames (pixel NAF),
+    with NafNet's contract: (v, mu) without an action, (q, mu, v) with
+    one; (obs_shape, action_dim, hidden, ...)."""
+
+    mlp_cls = NafNet
+
+
+class VisualPolicy(_VisualNet):
+    """Encoder + PolicyMLP: softmax policy logits from frames (pixel LRPG);
+    (obs_shape, num_actions, hidden, ...)."""
+
+    mlp_cls = PolicyMLP

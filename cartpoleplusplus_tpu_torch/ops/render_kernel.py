@@ -134,6 +134,11 @@ def render(p: CartPoleParams, cfg: px.RenderConfig,
            phys: PhysState) -> torch.Tensor:
     """The env's renderer: B11 under CARTPOLE_RENDER_CULL=1 (the
     reference's opt-in), else B10."""
+    # On a CUDA state B10 and B11 compute in float32 whatever
+    # `cfg.dtype` says, as the reference's render kernel does
+    # (ops/render_kernel.py:183-188 there): a "bfloat16" config gives the
+    # float32 config's frames bit for bit. Only the plain twins, on a CPU
+    # state, take the bfloat16 inputs (env/pixels.py::render).
     if os.environ.get("CARTPOLE_RENDER_CULL", "0") == "1":
         return render_culled(p, cfg, phys)
     return render_frames(p, cfg, phys)

@@ -13,6 +13,9 @@ Usage:
         --final-eval                         # a measured recipe (_PRESETS)
     python -m cartpoleplusplus_tpu_torch.train --preset pixels \
         --ckpt-dir ckpt/ --final-eval        # pixel DDPG, weights-only saves
+    python -m cartpoleplusplus_tpu_torch.train --agent dqn --obs-mode pixels \
+        --render-grayscale --render-obs-uint8 --render-frame-diff \
+        --dqn.sample block --dqn.replay-capacity-per-env 64   # pixel DQN
     python -m cartpoleplusplus_tpu_torch.train --ckpt-dir ckpt/ \
         --event-log run.cpe --event-log-envs 64   # resumable, traced
     python -m cartpoleplusplus_tpu_torch.train --ckpt-dir ckpt/ --eval-only
@@ -28,10 +31,13 @@ kernel it does not use (`rollout_impl` 0 in the metrics). At
 plain learner, `xla`, as in the reference), each learning step's update
 runs the agent's fused learner kernel (B3, B5, B7, B9) where it covers the
 config (`learner_impl` says which learner ran). DDPG and NAF train on the
-continuous preset of the env. `--obs-mode pixels` (DDPG only) renders
-every env-step's frames through kernel B10 (B11 under
-CARTPOLE_RENDER_CULL=1); the `--render-*` flags set the frames, and
-`--render-dtype` takes float32 only. `--agent random` runs the
+continuous preset of the env. `--obs-mode pixels` (DDPG, DQN, NAF and
+LRPG) renders every env-step's frames through kernel B10 (B11 under
+CARTPOLE_RENDER_CULL=1), and the agent's plain rollout and plain learner
+run the conv (or patch) nets on the card; the `--render-*` flags set the
+frames, and `--render-dtype bfloat16` rounds the plain renderer's inputs
+(on the card B10 renders in float32 whatever it says, as the reference's
+kernel does). `--agent random` runs the
 uniform-random policy for `--total-env-steps` steps per env and prints one
 line of episode statistics; no kernel exists for it, so on the GPU it
 steps the plain env one step at a time. `--device cuda` without a visible

@@ -133,7 +133,31 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      their twins: B3 at batch 8192, K 8 from warmed moments and B9 over a
      65,536-row window. The canary is disarmed (`--canary-env-steps 0`)
      in the runs that count launches and saves: an untrained policy fails
-     it.
+     it;
+  25. pixel DQN, NAF and LRPG main paths with the counters zeroed:
+     `train.main --obs-mode pixels --agent dqn|naf|lrpg` at the pixels
+     preset's env fields (2048 envs, 48 x 48 gray uint8 frame-diff, 2
+     cameras) and each agent's default widths, DQN and NAF with block
+     sampling and 64 replay slots per env, for 64 env-steps (LRPG 256)
+     plus a 200-step greedy eval: B10 once per env.step and env.reset and
+     once for the cached reset frame (267, LRPG 459), every other kernel
+     never, one stderr line naming the rollout kernel pixels leave out,
+     the plain learner; LRPG's peak card memory; then 2 train steps of
+     pixel DQN under CARTPOLE_RENDER_CULL=1 (B11 18 times, B10 never);
+  26. where a pixel DQN, NAF and LRPG train step's time goes, as phase 23
+     (LRPG: the window's returns and the plain update's gradient), with
+     env-steps/s and LRPG's peak card memory over one train step;
+  27. block sampling on state obs at the CLI defaults, `--agent dqn
+     --dqn.sample block` (B4 8, B5 7) and `--agent naf --naf.learner
+     kernel --naf.sample block` (B6 8, B7 7), and `--ddpg.sample uniform`
+     (B2 8, B3 7), nothing else; then B5 and B7 on a block presample and
+     B3 on a uniform one, each drawn from a filled ring, from warmed
+     moments, against their twins at phases 9, 17 and 4b's bars;
+  28. `--render-dtype bfloat16` on the card: 2 pixel DDPG train steps
+     launch B10 as often as at float32 (18), and their frames (the current
+     ones and the ring after the late insert) equal float32's bit for bit:
+     B10 renders in float32 whatever the dtype, as the reference's kernel
+     does.
 Then one JSON line of per-kernel numbers (each with its bound: the larger
 of its float32 operations over 67 TFLOP/s and its bytes over 3.35 TB/s,
 counted from this run's shapes) and, last, the device line. The script
@@ -755,15 +779,17 @@ def _b3_inputs(dev, hidden, batch, k, seed):
     return ([x.to(dev) for x in groups], tuple(x.to(dev) for x in batches))
 
 
-def _b3_compare(dev, hidden, k, batch=B3_BATCH, **kw):
-    """B3 and its twin on the same inputs: max abs error over the 8 groups
-    and both loss vectors (held to B3_RTOL/B3_ATOL), and whether a second
-    run of the kernel gave the same bits."""
+def _b3_compare(dev, hidden, k, batch=B3_BATCH, batches=None, **kw):
+    """B3 and its twin on the same inputs (`batches`, or seeded random
+    ones): max abs error over the 8 groups and both loss vectors (held to
+    B3_RTOL/B3_ATOL), and whether a second run of the kernel gave the same
+    bits."""
     import torch
 
     from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
 
-    groups, batches = _b3_inputs(dev, hidden, batch, k, seed=21)
+    groups, drawn = _b3_inputs(dev, hidden, batch, k, seed=21)
+    batches = drawn if batches is None else batches
     lay_a, lay_c = lk.actor_layout(42, hidden), lk.critic_layout(42, hidden)
     lays = (lay_a, lay_c, lay_a, lay_c, lay_a, lay_a, lay_c, lay_c)
     want = lk.update_phase_math(
@@ -1056,6 +1082,7 @@ def _print_split(title, parts, step):
         for k, v in ms.items())
         + f"; step minus parts {rest:.4f}; profiler: device {dev_ms:.4f} ms "
         f"in {n_kernels} kernels, device idle share {idle}", flush=True)
+    return ms
 
 
 def _random_qnet(dev, hidden, seed, head_scale=0.5, net_cls=None):
@@ -3048,6 +3075,326 @@ def phase_presets(dev):
     return phase_preset_kernels(dev)
 
 
+# Pixel DQN, NAF and LRPG (phases 25-26): the `pixels` preset's env fields
+# (2048 envs, 48 x 48 gray uint8 frames, 2 cameras, frame-diff gain 4) with
+# each agent's default widths; DQN and NAF take the DDPG pixel preset's
+# replay fields (64 slots per env, block sampling), the one cut of depth.
+PIXEL_ENV_ARGV = PIXEL_ARGV[:PIXEL_ARGV.index("--ddpg.sample")]
+PIXEL_AGENT_ARGV = {
+    "dqn": ["--agent", "dqn", "--dqn.sample", "block",
+            "--dqn.replay-capacity-per-env", "64"],
+    "naf": ["--agent", "naf", "--naf.sample", "block",
+            "--naf.replay-capacity-per-env", "64"],
+    "lrpg": ["--agent", "lrpg"],
+}
+# Each agent's rollout kernel, which pixels leave out (the plain rollout
+# runs on the card and says so once on stderr), and the env-steps run.
+PIXEL_AGENT_ROLLOUT = {"dqn": ("B4", 64), "naf": ("B6", 64),
+                       "lrpg": ("B8", 256)}
+
+
+def phase_pixel_agents_main_path():
+    """Phase 25: pixel DQN, NAF and LRPG through train.main at this slice's
+    widths with the counters zeroed (DQN and NAF 64 env-steps, LRPG 256,
+    each plus a 200-step greedy eval): B10 once per env.step and env.reset
+    and once for the cached reset frame, every other kernel never, the
+    plain rollout (one stderr line naming the kernel it leaves out) and the
+    plain learner; LRPG's peak card memory over its run. Then 2 train
+    steps of pixel DQN under CARTPOLE_RENDER_CULL=1: B11 in B10's place."""
+    import torch
+
+    eval_steps = 200
+    out = {}
+    for name, argv in PIXEL_AGENT_ARGV.items():
+        kernel, total = PIXEL_AGENT_ROLLOUT[name]
+        _zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        rc, lines, err, secs = _train_lines(
+            PIXEL_ENV_ARGV + argv + [
+                "--total-env-steps", str(total), "--log-interval", "1",
+                "--final-eval", "--eval-steps", str(eval_steps), "--seed",
+                "0"])
+        peak = torch.cuda.max_memory_allocated()
+        launches = _read_counts()
+        assert rc == 0, f"pixel {name} train.main returned {rc}"
+        steps, ev = lines[:-1], lines[-1]
+        t = total // len(steps)
+        b10_want = 1 + total + 1 + 1 + eval_steps
+        assert _only(launches, B10=b10_want), \
+            f"pixel {name}: launches {launches}, want B10 {b10_want} only"
+        told = [ln for ln in err.splitlines()
+                if f"kernel {kernel} does not cover" in ln]
+        assert len(told) == 1, err
+        for m in lines:
+            assert all(math.isfinite(v) for v in m.values()), m
+        assert all(m["rollout_impl"] == 0.0 and m["learner_impl"] == 0.0
+                   for m in steps)
+        assert steps[-1]["loss"] != 0.0
+        assert 0 < ev["eval_mean_episode_length"] <= eval_steps
+        for m in steps:
+            print(f"pixel {name} train step {m['train_step']}: loss "
+                  f"{m['loss']:.6g} reward_mean {m['reward_mean']:.6g} "
+                  f"done_frac {m['done_frac']:.6g} env_steps_per_sec "
+                  f"{m['env_steps_per_sec']}", flush=True)
+        sec_per_step = PIX_ENVS * t / steps[-1]["env_steps_per_sec"]
+        print(f"pixel {name} main path: {len(steps)} train steps "
+              f"({sec_per_step:.4f} s per train step over the run, "
+              f"train.main total {secs:.2f} s incl. init and eval); peak "
+              f"card memory {peak / 2**30:.3f} GiB; eval {json.dumps(ev)}; "
+              f"launches {launches}; {_card()}", flush=True)
+        out[name] = dict(launches=launches, peak=peak)
+
+    _zero_counts()
+    rc, lines, _, secs = _train_lines(
+        PIXEL_ENV_ARGV + PIXEL_AGENT_ARGV["dqn"] + [
+            "--total-env-steps", "16", "--log-interval", "1", "--seed", "0"],
+        env={"CARTPOLE_RENDER_CULL": "1"})
+    cull = _read_counts()
+    assert rc == 0, f"culled pixel dqn train.main returned {rc}"
+    assert _only(cull, B11=1 + 1 + 16), cull
+    assert all(math.isfinite(v) for m in lines for v in m.values())
+    print(f"pixel dqn under CARTPOLE_RENDER_CULL=1: 2 train steps in "
+          f"{secs:.2f} s (host clock, incl. init); launches {cull}",
+          flush=True)
+    out["cull"] = cull
+    return out
+
+
+def phase_pixel_agents_step_split(dev):
+    """Phase 26: where a pixel DQN, NAF and LRPG train step's time goes, as
+    phase 23: the plain rollout (and within it B10), the late insert and
+    the block presample (LRPG: the window's returns and advantages), the
+    plain learner, the profiler's device time, kernel count and idle
+    share, the env-steps/s of the whole step, and LRPG's peak card memory
+    over one train step."""
+    import argparse
+
+    import torch
+
+    from cartpoleplusplus_tpu_torch import train
+    from cartpoleplusplus_tpu_torch.agents.lrpg import returns_to_go
+    from cartpoleplusplus_tpu_torch.config import RunConfig, from_args
+    from cartpoleplusplus_tpu_torch.ops import render_kernel as rk
+    from cartpoleplusplus_tpu_torch.ops.naf_rollout import (
+        reference_naf_rollout)
+    from cartpoleplusplus_tpu_torch.ops.pg_rollout import (
+        reference_pg_rollout)
+    from cartpoleplusplus_tpu_torch.ops.q_rollout import reference_q_rollout
+
+    out = {}
+    for name, argv in PIXEL_AGENT_ARGV.items():
+        ap = train.build_parser()
+        args: argparse.Namespace = ap.parse_args(PIXEL_ENV_ARGV + argv)
+        with contextlib.redirect_stderr(io.StringIO()):
+            _, agent = train.build(from_args(RunConfig, args), args, set())
+        c, env = agent.cfg, agent.env
+        t = c.rollout_steps
+        st = agent.init(0)
+        for _ in range(3 if name != "lrpg" else 1):  # past the warmup
+            st, _ = agent.train_step(st)
+        phys = st.env_state.phys
+        snaps = type(phys)(*(torch.cat([x] * env.params.action_repeats)
+                             for x in phys))
+        reps = 1 if name == "lrpg" else 3
+        parts = {"whole train step": (lambda: agent.train_step(st), reps)}
+        if name == "lrpg":
+            def rollout():
+                return reference_pg_rollout(env, st.policy, st.env_state,
+                                            st.obs, st.env_steps, t)
+        elif name == "dqn":
+            def rollout():
+                return reference_q_rollout(env, st.q, st.env_state, st.obs,
+                                           st.env_steps,
+                                           agent.epsilon(st.env_steps), t)
+        else:
+            def rollout():
+                return reference_naf_rollout(env, st.net, st.env_state,
+                                             st.obs, st.env_steps,
+                                             agent._sigma(st.env_steps), t)
+        traj = rollout()[2]
+        parts[f"plain rollout ({t} env-steps)"] = (rollout, reps)
+        parts[f"of which B10 render ({t} env-steps)"] = (
+            lambda: [rk.render_frames(env.params, env.render_config, snaps)
+                     for _ in range(t)], 3)
+        if name == "lrpg":
+            obs_t, act_t, rew_t, done_t = traj
+
+            def advantages():
+                g = returns_to_go(rew_t, done_t, c.gamma,
+                                  st.baseline.expand(env.num_envs))
+                adv = g - g.mean()
+                return adv / (torch.sqrt(torch.mean(adv * adv)) + 1e-6)
+
+            adv = advantages()
+
+            def plain_update():
+                loss = agent._loss(st.policy, obs_t, act_t, adv)
+                return torch.autograd.grad(loss,
+                                           list(st.policy.parameters()))
+
+            parts["returns-to-go and advantages"] = (advantages, 3)
+            parts[f"plain update's gradient over "
+                  f"{obs_t.shape[0] * obs_t.shape[1]} frames"] = (
+                plain_update, 1)
+        else:
+            def presample():
+                return agent.replay.presample_block(
+                    st.replay, c.batch_size, c.updates_per_step,
+                    generator=st.generator)
+
+            def plain_learner():
+                batches = presample()
+                s = st
+                for k in range(c.updates_per_step):
+                    s, _ = agent._update_once(s, tuple(x[k] for x in
+                                                       batches))
+
+            parts["late replay insert"] = (
+                lambda: agent.replay.add_trajectory(st.replay, *traj), 5)
+            parts["block presample"] = (presample, 5)
+            parts[f"plain learner, {c.updates_per_step} conv updates"] = (
+                plain_learner, 3)
+        ms = _print_split(f"pixel {name} train-step split ({_card()})",
+                          parts, lambda: agent.train_step(st))
+        rate = env.num_envs * t / (ms["whole train step"] / 1e3)
+        line = f"pixel {name}: {rate:.6g} env-steps/s over the whole step"
+        if name == "lrpg":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            agent.train_step(st)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            line += (f"; peak card memory over one train step "
+                     f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} "
+                     f"GiB above the {base / 2**30:.3f} GiB held before it)")
+            out["lrpg_peak"] = peak
+        print(line + f"; {_card()}", flush=True)
+        out[name] = ms
+        del st, agent, traj
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_sampling(dev):
+    """Phase 27: block sampling on state obs for DQN and NAF, uniform for
+    DDPG, at the CLI defaults with the counters zeroed (64 env-steps): B4 x
+    8 and B5 x 7, B6 x 8 and B7 x 7 (`--naf.learner kernel`), B2 x 8 and B3
+    x 7, nothing else. Then each learner kernel on one presample of that
+    mode drawn from a filled ring, from warmed moments, against its twin:
+    B5 and B7 at phases 9 and 17's bars, B3 at phase 4b's."""
+    import argparse
+
+    from cartpoleplusplus_tpu_torch import train
+    from cartpoleplusplus_tpu_torch.agents.common import lr_schedule
+    from cartpoleplusplus_tpu_torch.config import RunConfig, from_args
+
+    runs = {"dqn": (["--agent", "dqn", "--dqn.sample", "block"],
+                    dict(B4=8, B5=7)),
+            "naf": (["--agent", "naf", "--naf.learner", "kernel",
+                     "--naf.sample", "block"], dict(B6=8, B7=7)),
+            "ddpg": (["--ddpg.sample", "uniform"], dict(B2=8, B3=7))}
+    out = {}
+    for name, (argv, want) in runs.items():
+        _zero_counts()
+        rc, lines, _, secs = _train_lines(argv + [
+            "--total-env-steps", "64", "--log-interval", "1", "--seed",
+            "0"])
+        launches = _read_counts()
+        assert rc == 0, f"{name} {argv} returned {rc}"
+        assert _only(launches, **want), (name, launches)
+        assert all(m["rollout_impl"] == 1.0 and m["learner_impl"] == 1.0
+                   and all(math.isfinite(v) for v in m.values())
+                   for m in lines)
+        loss = "critic_loss" if name == "ddpg" else "loss"
+        assert all(m[loss] > 0.0 for m in lines[1:])
+        print(f"{name} {' '.join(argv)}: 8 train steps in {secs:.2f} s (host "
+              f"clock, incl. init), last step {loss} {lines[-1][loss]:.6g}, "
+              f"env_steps_per_sec {lines[-1]['env_steps_per_sec']}; "
+              f"launches {launches}", flush=True)
+
+        ap = train.build_parser()
+        args: argparse.Namespace = ap.parse_args(argv)
+        _, agent = train.build(from_args(RunConfig, args), args, set())
+        c = agent.cfg
+        st = agent.init(0)
+        for _ in range(3):
+            st, _ = agent.train_step(st)
+        draw = {"block": agent.replay.presample_block,
+                "uniform": agent.replay.presample_uniform}[c.sample]
+        batches = tuple(x.contiguous() for x in draw(
+            st.replay, c.batch_size, c.updates_per_step,
+            generator=st.generator))
+        hidden = tuple(c.hidden)
+        tag = f"{c.sample} presample"
+        if name == "dqn":
+            groups, _ = _b5_inputs(dev, hidden, B5_BATCH, B5_K, seed=21)
+            errs = _b5_compare(groups, batches, hidden, c.double_dqn, tag)
+        elif name == "naf":
+            groups, _ = _b7_inputs(dev, hidden, B7_BATCH, B7_K, seed=33)
+            errs = _b7_compare(groups, batches, hidden, dict(
+                lr=c.lr, gamma=c.gamma, tau=c.tau,
+                max_grad_norm=c.max_grad_norm, lr_schedule=lr_schedule(c)),
+                tag)
+        else:
+            errs, bitwise, _, _ = _b3_compare(
+                dev, hidden, c.updates_per_step, batches=batches,
+                actor_lr=c.actor_lr, critic_lr=c.critic_lr, gamma=c.gamma,
+                tau=c.tau)
+            assert bitwise, "B3: two runs on the uniform presample differ"
+        kernel = {"dqn": "B5", "naf": "B7", "ddpg": "B3"}[name]
+        err = max(errs.values())
+        print(f"{kernel} on a {tag} of the filled ring (batch "
+              f"{c.batch_size} x K {c.updates_per_step}, warmed moments): "
+              f"max_abs_err {err:.3g} (rtol {B3_RTOL}, atol {B3_ATOL}), "
+              f"two runs bitwise equal", flush=True)
+        out[name] = dict(launches=launches, max_abs_err=err)
+        del st, agent, batches
+    return out
+
+
+def phase_render_bfloat16(dev):
+    """Phase 28: `--render-dtype bfloat16` on the card. Two pixel DDPG
+    train steps through train.main at float32 and at bfloat16 launch B10
+    equally often (18 each) and nothing else; the same two train steps
+    through train.build give frames equal bit for bit (the current frames
+    and the ring after the late insert), since B10 renders in float32
+    whatever the dtype, as the reference's kernel does."""
+    import argparse
+
+    import torch
+
+    from cartpoleplusplus_tpu_torch import train
+    from cartpoleplusplus_tpu_torch.config import RunConfig, from_args
+
+    counts, states = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        argv = PIXEL_ARGV + ["--render-dtype", dtype]
+        _zero_counts()
+        rc, lines, _, _ = _train_lines(argv + [
+            "--total-env-steps", "16", "--log-interval", "1", "--seed", "0"])
+        counts[dtype] = _read_counts()
+        assert rc == 0 and len(lines) == 2, f"--render-dtype {dtype}: {rc}"
+        assert _only(counts[dtype], B10=1 + 1 + 16), counts[dtype]
+        args: argparse.Namespace = train.build_parser().parse_args(argv)
+        env, agent = train.build(from_args(RunConfig, args), args, set())
+        assert env.render_config.dtype == dtype
+        st = agent.init(0)
+        for _ in range(2):
+            st, _ = agent.train_step(st)
+        states[dtype] = (st.obs, st.replay.obs)
+        del agent, st
+    same = all(torch.equal(a, b) for a, b in zip(states["float32"],
+                                                 states["bfloat16"]))
+    assert same, "bfloat16-config frames differ from float32's on the card"
+    print(f"--render-dtype bfloat16 on the card: 2 pixel DDPG train steps, "
+          f"launches float32 {counts['float32']}, bfloat16 "
+          f"{counts['bfloat16']}; current frames and the ring's "
+          f"{int(states['float32'][1].numel())} uint8 values equal bit for "
+          f"bit", flush=True)
+    return counts
+
+
 def _warm_card(dev, seconds: float):
     """A few seconds of matrix products: timed from a cold card, B4 read
     0.52 ms against 0.34-0.41 warm (PERF.md)."""
@@ -3127,6 +3474,10 @@ def main() -> int:
     pixel_launches, cull_launches = phase_pixel_main_path()
     phase_pixel_step_split(dev)
     phase_presets(dev)
+    phase_pixel_agents_main_path()
+    phase_pixel_agents_step_split(dev)
+    phase_sampling(dev)
+    phase_render_bfloat16(dev)
 
     b1_main = b1["discrete"]  # the benchmark's default params
     kernels = [

@@ -21,9 +21,11 @@ from cartpoleplusplus_tpu_torch.ckpt import (CheckpointManager,
                                              restore_checkpoint,
                                              save_checkpoint)
 from cartpoleplusplus_tpu_torch.ckpt.checkpoint import to_tree
+from cartpoleplusplus_tpu_torch.env.pixels import RenderConfig
 from cartpoleplusplus_tpu_torch.physics.params import continuous_params
 
 AGENTS = ("ddpg", "dqn", "naf", "lrpg")
+PIXEL_AGENTS = ("pixel-dqn", "pixel-naf", "pixel-lrpg")
 
 
 @pytest.fixture(autouse=True)
@@ -32,18 +34,26 @@ def _one_thread():
 
 
 def _agent(name, learner="xla", num_envs=16):
-    """Small agents: 16 envs, hidden (16, 16), no warmup."""
+    """Small agents: 16 envs, hidden (16, 16), no warmup; "pixel-<agent>"
+    on 16 x 16 gray uint8 frame-diff frames, block sampling."""
     replay = dict(updates_per_step=2, batch_size=16,
                   replay_capacity_per_env=8, warmup_env_steps=0)
+    env_kw = {}
+    if name.startswith("pixel-"):
+        name = name[len("pixel-"):]
+        env_kw = dict(obs_mode="pixels", render_config=RenderConfig(
+            width=16, height=16, grayscale=True, obs_uint8=True,
+            frame_diff=True, frame_diff_gain=4.0))
+        replay["sample"] = "block"
     if name == "ddpg":
         env = CartPole3D(continuous_params(), num_envs=num_envs)
         return DDPG(env, DDPGConfig(hidden=(16, 16), rollout_steps=2,
                                     learner=learner, **replay))
     if name == "naf":
-        env = CartPole3D(continuous_params(), num_envs=num_envs)
+        env = CartPole3D(continuous_params(), num_envs=num_envs, **env_kw)
         return NAF(env, NAFConfig(hidden=(16, 16), rollout_steps=2,
                                   learner=learner, **replay))
-    env = CartPole3D(CartPoleParams(), num_envs=num_envs)
+    env = CartPole3D(CartPoleParams(), num_envs=num_envs, **env_kw)
     if name == "dqn":
         return DQN(env, DQNConfig(hidden=(16, 16), rollout_steps=2,
                                   learner=learner, **replay))
@@ -75,7 +85,7 @@ def _steps(agent, st, n):
     return st, metrics
 
 
-@pytest.mark.parametrize("name", AGENTS)
+@pytest.mark.parametrize("name", AGENTS + PIXEL_AGENTS)
 def test_save_restore_roundtrip(tmp_path, name):
     agent = _agent(name)
     st, _ = _steps(agent, agent.init(0), 2)
@@ -198,24 +208,26 @@ def test_saved_steps_equal_orbax(tmp_path, case):
     assert got == want
 
 
-@pytest.mark.parametrize("name", ("ddpg", "naf"))
+@pytest.mark.parametrize("name", ("ddpg", "naf") + PIXEL_AGENTS)
 def test_weights_only_checkpoint(tmp_path, name):
-    """exclude=("replay",): saves skip the ring; a restore takes weights
-    and env state from disk and the fresh target's empty ring."""
+    """exclude=("replay",) (pixel LRPG, which has no ring: its frames and
+    env state): saves skip those fields; a restore takes the rest from
+    disk and those from the fresh target."""
     agent = _agent(name)
     st, _ = _steps(agent, agent.init(0), 2)
-    with CheckpointManager(str(tmp_path / "w"), exclude=("replay",)) as mgr:
+    skip = ("replay",) if "replay" in st._fields else ("env_state", "obs")
+    with CheckpointManager(str(tmp_path / "w"), exclude=skip) as mgr:
         assert mgr.save(0, st)
-        assert "replay" not in mgr.saved_keys()
+        assert not set(skip) & set(mgr.saved_keys())
         fresh = agent.init(1)
-        fresh_ring = to_tree(fresh)["replay"]
+        fresh_tree = to_tree(fresh)
         restored = mgr.restore(fresh)
     tree, back = to_tree(st), to_tree(restored)
     for key in tree:
-        if key != "replay":
-            _assert_tree_equal(tree[key], back[key], key)
-    _assert_tree_equal(fresh_ring, back["replay"])
-    assert restored.replay.filled == 0
+        _assert_tree_equal(fresh_tree[key] if key in skip else tree[key],
+                           back[key], key)
+    if "replay" in skip:
+        assert restored.replay.filled == 0
 
 
 def test_restore_adapts_to_weights_only_save(tmp_path, capsys):

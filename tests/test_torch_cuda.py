@@ -1163,6 +1163,46 @@ def test_pixel_cli_launches_b10_per_env_step(cuda, monkeypatch):
         assert steps[1]["critic_loss"] > 0.0
 
 
+@pytest.mark.parametrize("agent", ["dqn", "naf", "lrpg"])
+def test_pixel_agent_cli_launches_b10_per_env_step(cuda, monkeypatch, agent):
+    """2 pixel train steps of DQN, NAF or LRPG (512 envs, 48 x 48 gray
+    uint8 frame-diff, block sampling for DQN and NAF, LRPG at rollout 8):
+    B10 once per env.step, once for the initial reset and once for the
+    cached reset frame, the plain rollout and learner, no other kernel;
+    under CARTPOLE_RENDER_CULL=1 the same count of B11 launches
+    instead."""
+    from cartpoleplusplus_tpu_torch.ops import render_kernel as rk
+
+    argv = ["--agent", agent, "--obs-mode", "pixels", "--num-envs", "512",
+            "--render-grayscale", "--render-obs-uint8", "--render-frame-diff",
+            "--render-frame-diff-gain", "4", "--total-env-steps", "16",
+            "--log-interval", "1"]
+    argv += (["--lrpg.rollout-steps", "8"] if agent == "lrpg" else
+             [f"--{agent}.sample", "block",
+              f"--{agent}.replay-capacity-per-env", "64"])
+    others = (fr.fused_rollout, pr.policy_rollout, lk.ddpg_update_phase,
+              qr.q_policy_rollout, lk.dqn_update_phase,
+              nr.naf_policy_rollout, lk.naf_update_phase,
+              pg.pg_policy_rollout, lk.lrpg_update_phase)
+    for cull, wrapper, idle in (("0", rk.render_frames, rk.render_culled),
+                                ("1", rk.render_culled, rk.render_frames)):
+        monkeypatch.setenv("CARTPOLE_RENDER_CULL", cull)
+        before, idle_before = wrapper.launches, idle.launches
+        other = [f.launches for f in others]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(io.StringIO()):
+            assert train.main(argv) == 0
+        steps = [json.loads(x) for x in out.getvalue().splitlines()]
+        assert [m["train_step"] for m in steps] == [1, 2]
+        assert wrapper.launches == before + 1 + 1 + 16
+        assert idle.launches == idle_before
+        assert [f.launches for f in others] == other
+        assert all(m["rollout_impl"] == 0.0 and m["learner_impl"] == 0.0
+                   for m in steps)
+        assert steps[1]["loss"] != 0.0
+
+
 def test_uncovered_rollout_runs_plain_on_the_card(cuda):
     """`--obs-mode state` (B2 does not cover it): the plain rollout on the
     card with one stderr line naming B2, `rollout_impl` 0, B2 never

@@ -99,6 +99,45 @@ def _column_indices(jagent, st, num_updates, filled, cursor):
     return np.stack(slots), np.asarray(offs)
 
 
+def _uniform_indices(jagent, st, num_updates, filled, cursor):
+    """The (env_idx, slot) the reference's presample_uniform draws for the
+    next learning step (agents/common.py::gated_update_scan splits st.rng,
+    then one key per update)."""
+    rb, bs = jagent.replay, jagent.cfg.batch_size
+    n_valid = max(filled - 1, 1)
+    _, k = jax.random.split(st.rng)
+    env_idx, slots = [], []
+    for key in jax.random.split(k, num_updates):
+        k_env, k_slot = jax.random.split(key)
+        env_idx.append(np.asarray(jax.random.randint(k_env, (bs,), 0,
+                                                     rb.num_envs)))
+        age = np.asarray(jax.random.randint(k_slot, (bs,), 1, n_valid + 1))
+        slots.append((cursor - 1 - age) % rb.capacity)
+    return np.stack(env_idx), np.stack(slots)
+
+
+def _block_indices(jagent, st, num_updates, filled, cursor):
+    """The (slots, offs) the reference's presample_block draws for the
+    next learning step: per update one valid slot and the first env of an
+    aligned block of batch_size envs."""
+    rb, bs = jagent.replay, jagent.cfg.batch_size
+    n_valid = max(filled - 1, 1)
+    _, k = jax.random.split(st.rng)
+    slots, offs = [], []
+    for key in jax.random.split(k, num_updates):
+        k_slot, k_env = jax.random.split(key)
+        age = int(jax.random.randint(k_slot, (), 1, n_valid + 1))
+        slots.append((cursor - 1 - age) % rb.capacity)
+        offs.append(bs * int(jax.random.randint(k_env, (), 0,
+                                                rb.num_envs // bs)))
+    return np.asarray(slots), np.asarray(offs)
+
+
+# The reference's draws of each sampling mode, as the port's `indices`.
+DRAWS = {"column": _column_indices, "uniform": _uniform_indices,
+         "block": _block_indices}
+
+
 def test_train_step_matches_jax_xla_learner():
     """One train_step(fused=False) from a converted JAX DDPG(learner='xla')
     state, with the reference's replay draws injected: losses and every
@@ -197,7 +236,7 @@ def ddpg_teacher_forced(num_envs, kw, steps, learner, seed=0):
         host = jax.device_get(jst)
         filled = min(int(host.replay.filled) + c.rollout_steps, cap)
         cursor = (int(host.replay.cursor) + c.rollout_steps) % cap
-        indices = _column_indices(jagent, jst, c.updates_per_step, filled,
+        indices = DRAWS[c.sample](jagent, jst, c.updates_per_step, filled,
                                   cursor)
         pst, m = agent.train_step(ddpg_state_from_jax(agent, host),
                                   indices=indices)
@@ -234,14 +273,30 @@ def test_train_steps_track_jax_teacher_forced(learner, warmup):
     assert all(loss > 0.0 for loss in losses[gated:])
 
 
+@pytest.mark.parametrize("learner", ["xla", "kernel"],
+                         ids=["plain", "b3_twin"])
+def test_uniform_train_steps_track_jax_teacher_forced(learner):
+    """The teacher-forced run of test_train_steps_track_jax_teacher_forced
+    under uniform sampling (per row an env and a slot, drawn by the
+    reference and injected), warmup 16, 8 train steps (the ring wraps
+    twice): every field within rtol 2e-4 / atol 1e-5 of the reference's
+    after every step, on the plain learner and on B3's twin."""
+    kw = dict(TF_KW, warmup_env_steps=16, sample="uniform")
+    losses = ddpg_teacher_forced(TF_ENVS, kw, 8, learner)
+    assert losses[0] == 0.0 and all(loss > 0.0 for loss in losses[1:])
+
+
 def test_unported_learner_settings_raise():
     """The learner settings the port still lacks raise at construction, and
-    so does learner='kernel' where B3 does not cover the config."""
+    so does learner='kernel' where B3 does not cover the config; uniform
+    sampling, ported since, constructs on both learners."""
     env = CartPole3D(continuous_params(), num_envs=8)
-    for kw in (dict(learner_precision="bfloat16"), dict(dtype="bfloat16"),
-               dict(sample="uniform")):
+    for kw in (dict(learner_precision="bfloat16"), dict(dtype="bfloat16")):
         with pytest.raises(ValueError, match="not ported"):
             DDPG(env, DDPGConfig(**kw))
+    for learner in ("xla", "kernel"):
+        agent = DDPG(env, DDPGConfig(sample="uniform", learner=learner))
+        assert agent.kernel_mode == (learner == "kernel")
     with pytest.raises(ValueError, match="not covered by the fused update"):
         DDPG(env, DDPGConfig(learner="kernel", polyak_cadence="per_step"))
 
@@ -306,15 +361,36 @@ def _cuda_kernel_rollout(argv, kernel):
     return _cuda_rollout_route(argv, kernel) == (True, 0)
 
 
+# Flags that shrink a CLI run on the CPU to a few small train steps.
+SMALL_RUN = ["--num-envs", "8", "--total-env-steps", "16",
+             "--log-interval", "1"]
+SMALL_PIXELS = ["--obs-mode", "pixels", "--render-size", "16",
+                "--render-grayscale", "--render-obs-uint8"]
+
+
+def cli_rc(argv) -> int:
+    """train.main on the CPU, its output swallowed: the exit code."""
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        return ttrain.main(["--device", "cpu", *argv])
+
+
 @pytest.mark.parametrize("argv", [["--use-mesh"], ["--learner", "shardmap"],
                                   ["--agent", "naf", "--naf.dtype",
                                    "bfloat16"],
-                                  ["--agent", "naf", "--naf.sample", "block"],
-                                  ["--obs-mode", "pixels", "--num-envs", "8",
-                                   "--render-dtype", "bfloat16"]])
+                                  ["--agent", "naf", "--naf.sample", "block",
+                                   "--naf.hidden", "8", "--naf.batch-size",
+                                   "8", *SMALL_RUN],
+                                  [*SMALL_PIXELS, "--render-dtype",
+                                   "bfloat16", "--ddpg.hidden", "8",
+                                   "--ddpg.replay-capacity-per-env", "8",
+                                   *SMALL_RUN]])
 def test_train_cli_rejects_unported(argv):
-    with contextlib.redirect_stderr(io.StringIO()):
-        assert ttrain.main(["--device", "cpu", *argv]) == 2
+    """The flags the port lacks exit 2. `--naf.sample block` and
+    `--render-dtype bfloat16`, rejected until they were ported, now train
+    on the CPU and exit 0."""
+    ported = "--naf.sample" in argv or "--render-dtype" in argv
+    assert cli_rc(argv) == (0 if ported else 2)
 
 
 def test_train_cli_cuda_without_gpu_is_an_error(monkeypatch):

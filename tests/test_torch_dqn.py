@@ -31,8 +31,9 @@ from cartpoleplusplus_tpu_torch.models.from_jax import (
     qnet_from_flax,
     qnet_state_dict,
 )
-from test_torch_ddpg import (_column_indices, _cuda_kernel_rollout,
-                             _cuda_plain_rollout, _perturb)
+from test_torch_ddpg import (DRAWS, SMALL_PIXELS, SMALL_RUN,
+                             _cuda_kernel_rollout, _cuda_plain_rollout,
+                             _perturb, cli_rc)
 
 HIDDEN = (32, 32)
 
@@ -166,23 +167,6 @@ def test_loss_and_plain_update_match_jax(double_dqn):
                                        rtol=1e-5, atol=1e-7, err_msg=name)
 
 
-def _uniform_indices(jagent, st, num_updates, filled, cursor):
-    """The (env_idx, slot) the reference's presample_uniform draws for the
-    next learning step (agents/common.py::gated_update_scan splits st.rng,
-    then one key per update)."""
-    rb, bs = jagent.replay, jagent.cfg.batch_size
-    n_valid = max(filled - 1, 1)
-    _, k = jax.random.split(st.rng)
-    env_idx, slots = [], []
-    for key in jax.random.split(k, num_updates):
-        k_env, k_slot = jax.random.split(key)
-        env_idx.append(np.asarray(jax.random.randint(k_env, (bs,), 0,
-                                                     rb.num_envs)))
-        age = np.asarray(jax.random.randint(k_slot, (bs,), 1, n_valid + 1))
-        slots.append((cursor - 1 - age) % rb.capacity)
-    return np.stack(env_idx), np.stack(slots)
-
-
 def _train_pair(learner, sample, steps=4):
     """`steps` reference train steps (fused=False) and the port's from the
     converted initial state, with the reference's replay draws injected."""
@@ -193,7 +177,7 @@ def _train_pair(learner, sample, steps=4):
                           eps_decay_env_steps=100, sample=sample)
     assert agent.kernel_mode == (learner == "kernel") == jagent.kernel_mode
     jstep = jax.jit(functools.partial(jagent.train_step, fused=False))
-    draw = _column_indices if sample == "column" else _uniform_indices
+    draw = DRAWS[sample]
     jst = jagent.init(0)
     pst = dqn_state_from_jax(agent, jax.device_get(jst))
     pairs = []
@@ -231,7 +215,7 @@ def _assert_train_match(jagent, jst, pst, pairs, rtol, atol):
                                atol=2e-5)
 
 
-@pytest.mark.parametrize("sample", ["column", "uniform"])
+@pytest.mark.parametrize("sample", ["column", "uniform", "block"])
 def test_train_steps_match_jax_xla_learner(sample):
     """4 train steps (3 past the warmup, 6 updates) of the plain learner
     from the converted initial state against JAX train_step(fused=False)
@@ -246,6 +230,15 @@ def test_train_steps_match_jax_kernel_learner():
     mode), 4 train steps: within the reference's own kernel-vs-XLA bar,
     rtol 2e-4, atol 1e-5 (tests/test_learner_kernel.py)."""
     _assert_train_match(*_train_pair("kernel", "column"), rtol=2e-4,
+                        atol=1e-5)
+
+
+def test_block_train_steps_match_jax_kernel_learner():
+    """test_train_steps_match_jax_kernel_learner under block sampling: B5's
+    twin fed the reference's block draws (each update one slot of an
+    aligned block of 32 of the 64 envs) against the reference's kernel
+    mode, at its kernel-vs-XLA bar."""
+    _assert_train_match(*_train_pair("kernel", "block"), rtol=2e-4,
                         atol=1e-5)
 
 
@@ -335,18 +328,23 @@ def test_train_cli_cuda_rejects_shapes_b4_does_not_cover(argv):
 
 @pytest.mark.parametrize("argv", [["--agent", "naf",
                                    "--naf.learner-precision", "highest"],
-                                  ["--agent", "naf", "--obs-mode", "pixels"],
+                                  ["--agent", "naf", *SMALL_PIXELS,
+                                   "--naf.hidden", "8", "--naf.batch-size",
+                                   "8", "--naf.replay-capacity-per-env", "8",
+                                   *SMALL_RUN],
                                   ["--agent", "lrpg", "--lrpg.dtype",
                                    "bfloat16"],
-                                  ["--agent", "dqn", "--dqn.sample", "block"],
+                                  ["--agent", "dqn", "--dqn.sample", "block",
+                                   "--dqn.hidden", "8", "--dqn.batch-size",
+                                   "8", *SMALL_RUN],
                                   ["--agent", "dqn", "--dqn.dtype",
                                    "bfloat16"]])
 def test_train_cli_rejects_unported_dqn_neighbours(argv):
-    """DQN, NAF and LRPG settings the port lacks (pixel NAF waits for the
-    pixels slice)."""
-    with contextlib.redirect_stderr(io.StringIO()):
-        assert ttrain.main(["--device", "cpu", "--num-envs", "8",
-                            *argv]) == 2
+    """DQN, NAF and LRPG settings the port lacks exit 2. Pixel NAF and DQN
+    block sampling, rejected until they were ported, now train on the CPU
+    and exit 0."""
+    ported = "pixels" in argv or "--dqn.sample" in argv
+    assert cli_rc(["--num-envs", "8", *argv]) == (0 if ported else 2)
 
 
 def test_dqn_rejects_the_continuous_env():
@@ -357,9 +355,9 @@ def test_dqn_rejects_the_continuous_env():
 
 
 def test_port_imports_no_jax():
-    """The DQN, LRPG and NAF slices, the random agent, the renderer and
-    chip_smoke.py import neither JAX nor the JAX package: the GPU machine
-    has no JAX."""
+    """The DQN, LRPG and NAF slices (their pixel nets and bridges too), the
+    random agent, the renderer and chip_smoke.py import neither JAX nor the
+    JAX package: the GPU machine has no JAX."""
     import os
     import subprocess
     import sys
@@ -367,6 +365,10 @@ def test_port_imports_no_jax():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = ("import sys, chip_smoke, cartpoleplusplus_tpu_torch.train, "
             "cartpoleplusplus_tpu_torch.agents.dqn, "
+            "cartpoleplusplus_tpu_torch.agents.ddpg, "
+            "cartpoleplusplus_tpu_torch.agents.common, "
+            "cartpoleplusplus_tpu_torch.models.nets, "
+            "cartpoleplusplus_tpu_torch.env.cartpole, "
             "cartpoleplusplus_tpu_torch.ops.q_rollout, "
             "cartpoleplusplus_tpu_torch.agents.lrpg, "
             "cartpoleplusplus_tpu_torch.agents.random_agent, "

@@ -32,7 +32,7 @@ from cartpoleplusplus_tpu_torch.models.from_jax import (
     naf_state_from_jax,
 )
 from cartpoleplusplus_tpu_torch.physics.params import continuous_params
-from test_torch_ddpg import (_column_indices, _cuda_kernel_rollout,
+from test_torch_ddpg import (DRAWS, _cuda_kernel_rollout,
                              _cuda_plain_rollout, _perturb)
 
 HIDDEN = (32, 32)
@@ -204,7 +204,7 @@ def test_loss_and_plain_update_match_jax(clip):
                                        rtol=1e-5, atol=1e-7, err_msg=name)
 
 
-def _train_pair(learner, steps=4):
+def _train_pair(learner, steps=4, sample="column"):
     """`steps` reference train steps (fused=False) and the port's from the
     converted initial state, with the reference's replay draws injected."""
     k, t, cap = 2, 4, 16
@@ -212,7 +212,7 @@ def _train_pair(learner, steps=4):
                           batch_size=32, rollout_steps=t,
                           replay_capacity_per_env=cap,
                           noise_sigma_decay_env_steps=100,
-                          lr_decay_env_steps=64)
+                          lr_decay_env_steps=64, sample=sample)
     assert agent.kernel_mode == (learner == "kernel") == jagent.kernel_mode
     jstep = jax.jit(functools.partial(jagent.train_step, fused=False))
     jst = jagent.init(0)
@@ -220,8 +220,8 @@ def _train_pair(learner, steps=4):
     pairs = []
     for i in range(1, steps + 1):
         ready = i * t >= agent.cfg.warmup_env_steps
-        indices = (_column_indices(jagent, jst, k, min(i * t, cap),
-                                   (i * t) % cap) if ready else None)
+        indices = (DRAWS[sample](jagent, jst, k, min(i * t, cap),
+                                 (i * t) % cap) if ready else None)
         jst, jm = jstep(jst)
         pst, m = agent.train_step(pst, indices=indices)
         pairs.append((m, jm))
@@ -237,7 +237,18 @@ def test_train_steps_match_jax(learner):
     atol 1e-5 (the reference's kernel-vs-XLA bar). "kernel" is B7's twin
     through its wrapper against the reference's Pallas kernel in interpret
     mode."""
-    jagent, jst, pst, pairs = _train_pair(learner)
+    _assert_train_match(*_train_pair(learner))
+
+
+@pytest.mark.parametrize("learner", ["xla", "kernel"])
+def test_block_train_steps_match_jax(learner):
+    """test_train_steps_match_jax under block sampling (each update one
+    slot of an aligned block of 32 of the 64 envs, the reference's draws
+    injected), on the plain learner and on B7's twin, at the same bar."""
+    _assert_train_match(*_train_pair(learner, sample="block"))
+
+
+def _assert_train_match(jagent, jst, pst, pairs):
     tol = dict(rtol=2e-4, atol=1e-5)
     for m, jm in pairs:
         assert m["rollout_impl"] == 0.0
@@ -346,10 +357,16 @@ def test_train_cli_cuda_rejects_shapes_b6_does_not_cover(argv):
 
 
 def test_unported_settings_and_the_discrete_env_raise():
+    """The settings the port lacks raise at construction; block sampling,
+    ported since, constructs (a batch that divides the envs) on both
+    learners."""
     env = CartPole3D(continuous_params(), num_envs=8)
-    for kw in (dict(dtype="bfloat16"), dict(sample="block"),
-               dict(learner_precision="highest")):
+    for kw in (dict(dtype="bfloat16"), dict(learner_precision="highest")):
         with pytest.raises(ValueError, match="not ported"):
             NAF(env, NAFConfig(**kw))
+    for learner in ("xla", "kernel"):
+        agent = NAF(env, NAFConfig(sample="block", batch_size=8,
+                                   learner=learner))
+        assert agent.kernel_mode == (learner == "kernel")
     with pytest.raises(ValueError, match="continuous env"):
         NAF(CartPole3D(CartPoleParams(), num_envs=4), NAFConfig())

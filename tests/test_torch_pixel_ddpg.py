@@ -184,12 +184,29 @@ def test_pixel_cli_cpu():
 
 
 def test_pixel_cli_rejects_other_render_dtypes_and_agents():
-    """bfloat16 rendering and the other agents' pixel nets are not ported:
-    the CLI says so and exits 2."""
+    """bfloat16 rendering and the other agents' pixel nets, rejected until
+    they were ported: each argv now trains one step on the CPU (16 envs,
+    16 x 16 gray uint8 frame-diff frames) and exits 0, with finite
+    metrics and the plain rollout and learner."""
+    small = {"dqn": ["--dqn.hidden", "16", "--dqn.batch-size", "16",
+                     "--dqn.replay-capacity-per-env", "16"],
+             "naf": ["--naf.hidden", "16", "--naf.batch-size", "16",
+                     "--naf.replay-capacity-per-env", "16"],
+             "lrpg": ["--lrpg.hidden", "16", "--lrpg.rollout-steps", "8"],
+             "ddpg": ["--ddpg.hidden", "16", "16", "--ddpg.batch-size", "16",
+                      "--ddpg.replay-capacity-per-env", "16"]}
     for argv in (["--render-dtype", "bfloat16"], ["--agent", "dqn"],
                  ["--agent", "naf"], ["--agent", "lrpg"]):
-        err = io.StringIO()
-        with contextlib.redirect_stderr(err):
-            assert ttrain.main(["--device", "cpu", "--obs-mode", "pixels",
-                                "--num-envs", "8", *argv]) == 2
-        assert "not ported" in err.getvalue()
+        agent = argv[1] if argv[0] == "--agent" else "ddpg"
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(io.StringIO()):
+            assert ttrain.main([
+                "--device", "cpu", "--obs-mode", "pixels", "--num-envs",
+                "16", "--render-size", "16", "--render-grayscale",
+                "--render-obs-uint8", "--render-frame-diff",
+                "--total-env-steps", "8", *small[agent], *argv]) == 0
+        (m,) = [json.loads(x) for x in out.getvalue().splitlines()]
+        assert m["train_step"] == 1, argv
+        assert all(np.isfinite(v) for v in m.values()), m
+        assert m["rollout_impl"] == 0.0 and m["learner_impl"] == 0.0

@@ -213,3 +213,64 @@ def test_kernel_constants_are_the_twins(gray):
         _, r = tpx.camera_rows(cam, cfg, gray, torch.device("cpu"))
         assert torch.equal(rows[i], r)
         assert cams[i, :3].tolist() == [float(np.float32(v)) for v in cam.eye]
+
+
+# The reference's bfloat16 frames against its float32 frames on the
+# adversarial poses below, jit-compiled, 24 x 24, gray / RGB: largest
+# pixel difference 0.448 / 0.709, mean 2.39e-3 / 3.71e-3 (99.6 % of the
+# pixels differ: bfloat16 rays and env columns move every shade). The
+# port's bfloat16 frames must be at least as close to the reference's as
+# that, and they are much closer (largest 3.2e-4 / 5.7e-4, the fused
+# evaluation's near-silhouette pixels).
+@pytest.mark.parametrize("gray", [True, False])
+def test_bfloat16_twin_matches_jax(gray):
+    """render_all_cameras at RenderConfig.dtype "bfloat16" against the
+    reference's render at "bfloat16": op by op (jax.disable_jit) within
+    rtol 1e-5 / atol 1e-5 (bfloat16 inputs, float32 arithmetic, as the
+    reference promotes them); jit-compiled, its largest and its mean
+    difference at most the reference's own bfloat16-vs-float32 ones, and
+    the pixels beyond 1e-5 at most test_twin_matches_jax_xla_and_pallas_
+    interpret's share (0.5 %)."""
+    n = 24
+    pos, s = _poses(64, seed=11 + gray)
+    jphys, tphys = _phys(pos, s)
+    jb = jpx.RenderConfig(width=n, height=n, grayscale=gray,
+                          dtype="bfloat16")
+    jf = jpx.RenderConfig(width=n, height=n, grayscale=gray)
+    tb = tpx.RenderConfig(width=n, height=n, grayscale=gray,
+                          dtype="bfloat16")
+    got = tpx.render_all_cameras(CartPoleParams(), tphys, tb).numpy()
+    with jax.disable_jit():
+        ref_op = np.asarray(jpx.render_all_cameras(JParams(), jphys, jb))
+    np.testing.assert_allclose(got, ref_op, rtol=1e-5, atol=1e-5)
+    ref_b, ref_f = (np.asarray(jax.jit(
+        lambda ph, c=c: jpx.render_all_cameras(JParams(), ph, c))(jphys))
+        for c in (jb, jf))
+    own = np.abs(ref_b - ref_f)
+    err = np.abs(got - ref_b)
+    assert own.max() > 0.1 and own.mean() > 1e-3   # bfloat16 moved them
+    assert err.max() <= own.max() and err.mean() <= own.mean()
+    assert (err > 1e-5).mean() <= 5e-3, (err > 1e-5).mean()
+    f32 = tpx.render_all_cameras(CartPoleParams(), tphys, tpx.RenderConfig(
+        width=n, height=n, grayscale=gray)).numpy()
+    assert np.abs(got - f32).max() > 0.1   # the dtype reached the twin
+
+
+def test_render_dispatch_on_the_cpu_takes_the_dtype():
+    """The env's renderer on a CPU state (ops/render_kernel.render, the
+    plain twin) renders a "bfloat16" config at bfloat16 inputs, and a
+    CartPole3D takes the dtype; any other dtype is refused."""
+    from cartpoleplusplus_tpu_torch import CartPole3D
+
+    pos, s = _poses(4, seed=5)
+    _, tphys = _phys(pos, s)
+    cfg = tpx.RenderConfig(width=16, height=16, grayscale=True,
+                           dtype="bfloat16")
+    assert torch.equal(trk.render(CartPoleParams(), cfg, tphys),
+                       tpx.render_all_cameras(CartPoleParams(), tphys, cfg))
+    env = CartPole3D(CartPoleParams(), num_envs=4, obs_mode="pixels",
+                     render_config=cfg)
+    assert env.reset(0)[1].shape == (4, 16, 16, 6)
+    with pytest.raises(ValueError, match="RenderConfig.dtype"):
+        CartPole3D(CartPoleParams(), num_envs=4, obs_mode="pixels",
+                   render_config=tpx.RenderConfig(dtype="float16"))
