@@ -1,8 +1,10 @@
 """Shared actor-learner building blocks
 (cartpoleplusplus_tpu/agents/common.py in torch): the exploration tags,
 the learner resolution, optax-exact Adam and the flat group storage of the
-kernel learners, the warmup-gated learner loop, the replay presample hook
-and exact episode statistics for evaluation.
+kernel learners, the warmup-gated learner loop, the replay presample hook,
+exact episode statistics for evaluation, and the hooks of the sharded
+learners (dist/): the per-shard draws, the gradient all-reduce, the batch
+all-gather and the global metrics.
 """
 
 from __future__ import annotations
@@ -13,12 +15,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..dist.mesh import all_gather_cat, all_reduce_sum
 from ..ops import learner_kernel as lk
 from ..ops.naf_rollout import TAG_NAF_X, TAG_NAF_Y
 from ..ops.pg_rollout import TAG_PG_GUMBEL
 from ..ops.policy_rollout import TAG_OU_X, TAG_OU_Y
 from ..ops.q_rollout import TAG_EPS_ACT, TAG_EPS_GATE
-from ..utils.prng import split_seed
+from ..utils.prng import hash_words, split_seed
 
 # Counter-PRNG stream tags for agent exploration (utils/prng.py; env-side
 # tags live in env/compute.py). The DDPG OU tags, the DQN epsilon tags, the
@@ -30,7 +33,9 @@ __all__ = ["TAG_OU_X", "TAG_OU_Y", "TAG_EPS_GATE", "TAG_EPS_ACT",
            "lr_schedule", "scheduled_lr", "AdamState", "adam_init",
            "adam_update", "bind_group", "bind_moments", "gated_update_scan",
            "replay_presample", "episode_length_hist",
-           "episode_stats_from_hist", "evaluate_policy"]
+           "episode_stats_from_hist", "evaluate_policy", "local_batch",
+           "dist_setup", "shard_generator", "dist_presample", "pmean",
+           "gather_batches", "global_means"]
 
 _ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
 
@@ -199,6 +204,103 @@ def replay_presample(replay, batch_size: int, indices=None,
     return presample
 
 
+def local_batch(global_batch: int, num_shards: int) -> int:
+    """Minibatch rows each shard samples under the shardmap learner."""
+    return max(global_batch // max(num_shards, 1), 1)
+
+
+def dist_setup(agent, group, num_shards: int, spmd: bool) -> None:
+    """The sharding attributes of an agent built on this rank's envs:
+    `group` (a dist.mesh.Mesh) of `num_shards` ranks, the learner (`spmd`:
+    the unsharded program's result; else the shardmap learner's per-shard
+    draws and all-reduced gradients), this rank and the global index of
+    its first env. One shard (or no group) is the unsharded agent."""
+    if num_shards > 1 and (group is None or group.size != num_shards):
+        raise ValueError(f"num_shards={num_shards} needs a group of that "
+                         f"many ranks")
+    agent.group = group if num_shards > 1 else None
+    agent.num_shards = num_shards if agent.group is not None else 1
+    agent.spmd = bool(spmd)
+    agent.rank = agent.group.rank if agent.group is not None else 0
+    agent.index_offset = agent.rank * agent.env.num_envs
+
+
+def _shardmap(agent) -> bool:
+    return agent.group is not None and not agent.spmd
+
+
+def shard_generator(generator: torch.Generator, rank: int):
+    """A shard's sampling stream for one learner phase: one word drawn from
+    the replicated generator (every rank draws the same) folded with the
+    rank, the reference's fold_in(key, axis_index)."""
+    base = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator))
+    return torch.Generator().manual_seed(int(hash_words(base, rank)))
+
+
+def dist_presample(agent, batch_size: int, indices, sample: str):
+    """The agent's `presample` hook: unsharded, the ring's own draw; under
+    SPMD the global draw assembled from every rank's rows; under shardmap
+    batch_size / num_shards rows of this rank's ring from its shard
+    stream (or the given per-shard `indices`)."""
+    replay = agent.replay
+    if agent.group is None:
+        return replay_presample(replay, batch_size, indices, sample)
+    if agent.spmd:
+        def presample(st, num_updates):
+            return replay.presample_global(
+                st.replay, sample, batch_size, num_updates, agent.group,
+                generator=st.generator, indices=indices)
+        return presample
+    draw = replay_presample(replay, local_batch(batch_size, agent.num_shards),
+                            indices, sample)
+
+    def presample(st, num_updates):
+        gen = (st.generator if indices is not None
+               else shard_generator(st.generator, agent.rank))
+        return draw(st._replace(generator=gen), num_updates)
+    return presample
+
+
+def pmean(agent, loss, grads):
+    """The shardmap learner's pmean of (loss, gradients) over the ranks:
+    one all-reduce of their concatenation, divided by the rank count.
+    Identity for the unsharded and the SPMD learners."""
+    if not _shardmap(agent):
+        return loss, grads
+    flat = torch.cat([loss.reshape(1)] + [g.reshape(-1) for g in grads])
+    flat = all_reduce_sum(flat, agent.group) / agent.num_shards
+    out, i = [], 1
+    for g in grads:
+        out.append(flat[i:i + g.numel()].view_as(g))
+        i += g.numel()
+    return flat[0], out
+
+
+def gather_batches(agent, batches):
+    """The shardmap kernel learner's batch replication: each (K, local Bm,
+    ...) minibatch stack all-gathered along the batch axis in rank order,
+    so every rank runs its learner kernel on the same (K, Bm) union batch
+    (the reference's all_gather(axis=1, tiled=True)). Identity
+    otherwise."""
+    if not _shardmap(agent):
+        return batches
+    return tuple(all_gather_cat(x, agent.group, dim=1) for x in batches)
+
+
+def global_means(agent, *xs):
+    """Means of this rank's (T, B_local) rollout tensors over the GLOBAL
+    batch: under SPMD from the gathered (T, B) tensors (the unsharded
+    program's bits), under shardmap the pmean of the shard means (the
+    reference's)."""
+    xs = [x.to(torch.float32) for x in xs]
+    if agent.group is None:
+        return [x.mean() for x in xs]
+    if agent.spmd:
+        return [all_gather_cat(x, agent.group, dim=1).mean() for x in xs]
+    return list(all_reduce_sum(torch.stack([x.mean() for x in xs]),
+                               agent.group) / agent.num_shards)
+
+
 def episode_length_hist(done: torch.Tensor, cap: int) -> torch.Tensor:
     """Histogram of COMPLETED-episode lengths from a time-major (T, B) done
     matrix: hist[L] = number of episodes that finished after exactly L
@@ -234,7 +336,9 @@ def episode_stats_from_hist(hist: torch.Tensor) -> dict:
 
 @torch.no_grad()
 def evaluate_policy(env, policy_fn, seed: int, num_steps: int,
-                    generator: torch.Generator | None = None) -> dict:
+                    generator: torch.Generator | None = None,
+                    index_offset: int = 0, mesh=None,
+                    spmd: bool = False) -> dict:
     """Policy evaluation over the batched env: `num_steps` steps from
     `env.reset(seed)` with masked auto-reset, reduced to exact statistics
     over completed episodes, plus mean reward and done fraction.
@@ -242,20 +346,45 @@ def evaluate_policy(env, policy_fn, seed: int, num_steps: int,
     reference's `needs_key`, for stochastic baselines) it is called as
     policy_fn(obs, generator) and draws from it. The envs reset with the
     seed the reference folds from split(PRNGKey(seed))[0], so both
-    evaluate the same episodes."""
-    state, obs = env.reset(split_seed(seed, 2, 0))
+    evaluate the same episodes.
+
+    Sharded evaluation: `env` is this rank's shard, `index_offset` the
+    global index of its first env (the same episodes as the unsharded
+    eval), and over a `mesh` of several ranks the episode histogram, the
+    reward and done totals and the env count are all-reduced, so every
+    rank returns the global statistics: the integer ones exactly the
+    unsharded eval's, reward_mean and done_frac to summation order. With
+    `spmd` the (T, B_local) rewards and dones are all-gathered instead and
+    reduced as the unsharded eval reduces them: its bits."""
+    state, obs = env.reset(split_seed(seed, 2, 0), index_offset)
+    sharded = mesh is not None and mesh.size > 1
+    gather = sharded and spmd
     rew_total = torch.zeros((), dtype=torch.float32, device=env.device)
-    dones = []
+    dones, rewards = [], []
     for _ in range(num_steps):
         action = (policy_fn(obs) if generator is None
                   else policy_fn(obs, generator))
         state, obs, reward, done, _ = env.step(state, action)
-        rew_total = rew_total + reward.sum()
+        if gather:
+            rewards.append(reward)
+        else:
+            rew_total = rew_total + reward.sum()
         dones.append(done)
     done = torch.stack(dones)
-    stats = episode_stats_from_hist(
-        episode_length_hist(done, env.params.max_episode_steps))
-    denom = float(num_steps * env.num_envs)
+    if gather:
+        done = all_gather_cat(done, mesh, dim=1)
+        for reward in all_gather_cat(torch.stack(rewards), mesh, dim=1):
+            rew_total = rew_total + reward.sum()
+    hist = episode_length_hist(done, env.params.max_episode_steps)
+    done_total = done.to(torch.float32).sum()
+    n_envs = done.shape[1]
+    if sharded and not gather:
+        hist = all_reduce_sum(hist, mesh)
+        rew_total, done_total = all_reduce_sum(
+            torch.stack([rew_total, done_total]), mesh)
+        n_envs *= mesh.size
+    stats = episode_stats_from_hist(hist)
+    denom = float(num_steps * n_envs)
     stats["reward_mean"] = rew_total / denom
-    stats["done_frac"] = done.to(torch.float32).sum() / denom
+    stats["done_frac"] = done_total / denom
     return stats

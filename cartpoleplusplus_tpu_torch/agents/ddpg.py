@@ -14,6 +14,14 @@ reference does: its first learning step samples the pre-insert ring. No
 rollout kernel covers pixels (the env's render runs kernel B10), and the
 learner is the plain one.
 
+Sharded (dist/): built on this rank's envs with `group` and `num_shards`,
+the agent takes the SPMD learner (`spmd=True`: global replay draws, the
+minibatch assembled from every rank's rows, the unsharded program's
+result) or the shardmap learner (per-shard draws of batch_size /
+num_shards rows, the critic's and the actor's (loss, gradient) each
+all-reduced to their mean, or on the kernel route the K minibatches
+all-gathered so that every rank runs B3 on the union batch).
+
 The updates run in one of two learners, resolved once at construction
 (`learner`): kernel B3 (ops/learner_kernel.py, the whole K-update phase as
 one launch; its plain twin on CPU tensors), or the plain learner, torch
@@ -38,9 +46,10 @@ from ..ops.policy_rollout import (fusable, policy_rollout,
                                   reference_policy_rollout)
 from ..utils.prng import split_seed
 from .common import (AdamState, adam_init, adam_update, bind_group,
-                     bind_moments, check_block_batch, evaluate_policy,
-                     gated_update_scan, lr_schedule, replay_presample,
-                     resolve_learner, resolve_rollout, scheduled_lr)
+                     bind_moments, check_block_batch, dist_presample,
+                     dist_setup, evaluate_policy, gated_update_scan,
+                     gather_batches, global_means, local_batch, lr_schedule,
+                     pmean, resolve_learner, resolve_rollout, scheduled_lr)
 from .replay import ReplayBuffer, ReplayState
 
 
@@ -113,9 +122,15 @@ class DDPGState(NamedTuple):
 
 
 class DDPG:
-    """DDPG agent over a batched CartPole3D on one device."""
+    """DDPG agent over a batched CartPole3D on one device (this rank's
+    shard of the envs when `group` is given)."""
 
-    def __init__(self, env: CartPole3D, config: DDPGConfig = DDPGConfig()):
+    def __init__(self, env: CartPole3D, config: DDPGConfig = DDPGConfig(),
+                 group=None, num_shards: int = 1, spmd: bool = False):
+        """group / num_shards: a dist.mesh.Mesh of num_shards ranks when
+        the agent runs one rank's shard of the envs (env is then the
+        per-rank env); spmd picks the SPMD learner, else the shardmap
+        learner (the reference's dist_axis)."""
         if env.params.discrete_actions:
             raise ValueError("DDPG needs the continuous env "
                              "(CartPoleParams(discrete_actions=False))")
@@ -124,10 +139,12 @@ class DDPG:
                 raise ValueError(f"DDPGConfig.{name}="
                                  f"{getattr(config, name)!r} is not ported "
                                  f"yet (supported: {ok})")
-        check_block_batch(config.sample, config.batch_size, env.num_envs,
-                          "ddpg")
         self.env = env
         self.cfg = config
+        dist_setup(self, group, num_shards, spmd)
+        check_block_batch(config.sample, self.local_batch_size,
+                          env.num_envs * (self.num_shards if spmd else 1),
+                          "ddpg")
         pixels = env.obs_mode == "pixels"
         self.replay = ReplayBuffer(env.num_envs,
                                    config.replay_capacity_per_env,
@@ -143,13 +160,22 @@ class DDPG:
             "ddpg", "B2", self.fusable(), on_cuda,
             "ops.policy_rollout.fusable")
 
+    @property
+    def local_batch_size(self) -> int:
+        """Rows this rank samples per update: batch_size / num_shards under
+        the shardmap learner, else the whole batch."""
+        return local_batch(self.cfg.batch_size,
+                           1 if self.spmd else self.num_shards)
+
     def kernel_learner_ok(self) -> bool:
         """Whether kernel B3 covers this config: state observations, at
         least two hidden layers (the action joins at layer 1; any depth and
         width), float32, the per-update Polyak cadence (per_step runs on the plain
-        learner only, as in the reference), and at least one update."""
+        learner only, as in the reference), at least one update, and under
+        the shardmap learner a batch that splits evenly over the shards."""
         c = self.cfg
         return (self.env.obs_mode != "pixels"
+                and (self.spmd or c.batch_size % self.num_shards == 0)
                 and lk.covers(self.env.obs_size, c.hidden)
                 and c.updates_per_step >= 1
                 and c.actor_grad_critic in ("updated", "pre")
@@ -173,7 +199,7 @@ class DDPG:
             actor = ActorMLP(env.obs_size, env.action_dim, h, generator=g)
             critic = CriticMLP(env.obs_size, env.action_dim, h, generator=g)
         actor, critic = actor.to(dev), critic.to(dev)
-        env_state, obs = env.reset(split_seed(seed, 4, 2))
+        env_state, obs = env.reset(split_seed(seed, 4, 2), self.index_offset)
         st = DDPGState(
             actor=actor,
             critic=critic,
@@ -251,11 +277,13 @@ class DDPG:
         sched = lr_schedule(c)
         critic_lr = scheduled_lr(c.critic_lr, sched, st.critic_opt.count)
         cgrad = torch.autograd.grad(closs, list(st.critic.parameters()))
+        closs, cgrad = pmean(self, closs, cgrad)
         pre = c.actor_grad_critic == "pre"
         if not pre:
             copt = adam_update(st.critic, cgrad, st.critic_opt, critic_lr)
         aloss = self._actor_loss(st.actor, st.critic, obs)
         agrad = torch.autograd.grad(aloss, list(st.actor.parameters()))
+        aloss, agrad = pmean(self, aloss, agrad)
         if pre:
             copt = adam_update(st.critic, cgrad, st.critic_opt, critic_lr)
         aopt = adam_update(st.actor, agrad, st.actor_opt,
@@ -299,8 +327,10 @@ class DDPG:
 
     def _kernel_update_phase(self, st: DDPGState, batches):
         """The K-update phase through B3's wrapper: the 8 group buffers
-        updated in place, the Adam counts advanced by K."""
+        updated in place, the Adam counts advanced by K (under shardmap on
+        the all-gathered union batches)."""
         c = self.cfg
+        batches = gather_batches(self, batches)
         t0 = st.actor_opt.count
         closs, aloss = lk.ddpg_update_phase(
             st.groups, tuple(x.contiguous() for x in batches), t0, c.hidden,
@@ -318,8 +348,11 @@ class DDPG:
         return st.actor
 
     def evaluate(self, st: DDPGState, num_steps: int = 200, seed: int = 0):
-        """Deterministic-actor evaluation (no OU noise): episode stats."""
-        return evaluate_policy(self.env, st.actor, seed, num_steps)
+        """Deterministic-actor evaluation (no OU noise): episode stats (over
+        every rank's envs when sharded)."""
+        return evaluate_policy(self.env, st.actor, seed, num_steps,
+                               index_offset=self.index_offset,
+                               mesh=self.group, spmd=self.spmd)
 
     # --- the actor-learner step ---------------------------------------------
     def train_step(self, st: DDPGState, fused=None, indices=None,
@@ -337,7 +370,9 @@ class DDPG:
         the learner resolved at construction; `learner_impl` reports which
         (1.0 B3's wrapper, 0.0 the plain learner). indices: optional
         presample draws ((slots, offs) for column and block sampling,
-        (env_idx, slot) for uniform) in place of the state's generator.
+        (env_idx, slot) for uniform) in place of the state's generator
+        (under shardmap this rank's draws over its ring, under SPMD the
+        global draws).
 
         A quantized (pixel) ring takes the rollout after the update phase,
         as the reference's late insert does. capture=True adds the rollout's time-major trajectory (obs, action,
@@ -360,8 +395,7 @@ class DDPG:
         ready = c.warmup_env_steps <= 0 or env_steps >= c.warmup_env_steps
         zero = torch.zeros((), dtype=torch.float32, device=self.env.device)
         losses = {"critic_loss": zero, "actor_loss": zero}
-        presample = replay_presample(self.replay, c.batch_size, indices,
-                                     c.sample)
+        presample = dist_presample(self, c.batch_size, indices, c.sample)
         if not ready or c.updates_per_step <= 0:
             pass
         elif self.kernel_mode:
@@ -385,8 +419,8 @@ class DDPG:
             polyak(st.actor_target, st.actor, tau_eff)
             polyak(st.critic_target, st.critic, tau_eff)
         metrics = dict(losses)
-        metrics["reward_mean"] = traj[2].mean()
-        metrics["done_frac"] = traj[3].to(torch.float32).mean()
+        metrics["reward_mean"], metrics["done_frac"] = global_means(
+            self, traj[2], traj[3])
         metrics["env_steps"] = env_steps
         # 1.0 = kernel B2 ran the rollout, 0.0 = the plain twin did.
         metrics["rollout_impl"] = float(self.env.device.type == "cuda"

@@ -20,6 +20,12 @@ The updates run in one of two learners, resolved once at construction
 (`learner`): kernel B5 (ops/learner_kernel.py, the whole K-update phase as
 one launch; its plain twin on CPU tensors), or the plain learner, torch
 autograd through optax's Huber loss with optax-exact Adam.
+
+Sharded (dist/, `group` / `num_shards`): the SPMD learner (`spmd=True`)
+gives the unsharded program's result; the shardmap learner samples
+batch_size / num_shards rows per rank and all-reduces the mean of (loss,
+gradient) once per update, or on the kernel route all-gathers the K
+minibatches so that every rank runs B5 on the union batch.
 """
 
 from __future__ import annotations
@@ -37,9 +43,10 @@ from ..ops import learner_kernel as lk
 from ..ops.q_rollout import (epsilon_greedy, q_fusable, q_policy_rollout,
                              reference_q_rollout)
 from .common import (AdamState, adam_init, adam_update, bind_group,
-                     bind_moments, check_block_batch, evaluate_policy,
-                     gated_update_scan, replay_presample, resolve_learner,
-                     resolve_rollout)
+                     bind_moments, check_block_batch, dist_presample,
+                     dist_setup, evaluate_policy, gated_update_scan,
+                     gather_batches, global_means, local_batch, pmean,
+                     resolve_learner, resolve_rollout)
 from ..utils.prng import split_seed
 from .replay import ReplayBuffer, ReplayState
 
@@ -111,7 +118,12 @@ def huber_loss(pred, target, delta: float = 1.0):
 class DQN:
     """DQN agent over a batched discrete CartPole3D on one device."""
 
-    def __init__(self, env: CartPole3D, config: DQNConfig = DQNConfig()):
+    def __init__(self, env: CartPole3D, config: DQNConfig = DQNConfig(),
+                 group=None, num_shards: int = 1, spmd: bool = False):
+        """group / num_shards: a dist.mesh.Mesh of num_shards ranks when
+        the agent runs one rank's shard of the envs (env is then the
+        per-rank env); spmd picks the SPMD learner, else the shardmap
+        learner (the reference's dist_axis)."""
         if not env.params.discrete_actions:
             raise ValueError("DQN needs the discrete env "
                              "(CartPoleParams(discrete_actions=True))")
@@ -120,10 +132,12 @@ class DQN:
                 raise ValueError(f"DQNConfig.{name}="
                                  f"{getattr(config, name)!r} is not ported "
                                  f"yet (supported: {ok})")
-        check_block_batch(config.sample, config.batch_size, env.num_envs,
-                          "dqn")
         self.env = env
         self.cfg = config
+        dist_setup(self, group, num_shards, spmd)
+        check_block_batch(config.sample, self.local_batch_size,
+                          env.num_envs * (self.num_shards if spmd else 1),
+                          "dqn")
         self.replay = ReplayBuffer(env.num_envs,
                                    config.replay_capacity_per_env,
                                    env.obs_size, 0, env.device,
@@ -138,12 +152,21 @@ class DQN:
             "dqn", "B4", self.fusable(), env.device.type == "cuda",
             "ops.q_rollout.q_fusable")
 
+    @property
+    def local_batch_size(self) -> int:
+        """Rows this rank samples per update: batch_size / num_shards under
+        the shardmap learner, else the whole batch."""
+        return local_batch(self.cfg.batch_size,
+                           1 if self.spmd else self.num_shards)
+
     def kernel_learner_ok(self) -> bool:
         """Whether kernel B5 covers this config: state observations, at
-        least one hidden layer (any depth and width), float32, and at least
-        one update."""
+        least one hidden layer (any depth and width), float32, at least
+        one update, and under the shardmap learner a batch that splits
+        evenly over the shards."""
         c = self.cfg
         return (self.env.obs_mode != "pixels"
+                and (self.spmd or c.batch_size % self.num_shards == 0)
                 and lk.dqn_covers(self.env.obs_size, c.hidden)
                 and c.updates_per_step >= 1
                 and c.dtype == "float32")
@@ -167,7 +190,7 @@ class DQN:
             q = QNetMLP(env.obs_size, env.num_actions, tuple(c.hidden),
                         generator=g)
         q = q.to(env.device)
-        env_state, obs = env.reset(split_seed(seed, 3, 1))
+        env_state, obs = env.reset(split_seed(seed, 3, 1), self.index_offset)
         st = DQNState(q=q, q_target=copy.deepcopy(q), opt=adam_init(q),
                       replay=self.replay.init(), env_state=env_state,
                       obs=obs,
@@ -216,7 +239,8 @@ class DQN:
     def evaluate(self, st: DQNState, num_steps: int = 200, seed: int = 0):
         """Greedy-policy evaluation (epsilon = 0): episode stats."""
         return evaluate_policy(self.env, self.greedy_policy(st), seed,
-                               num_steps)
+                               num_steps, index_offset=self.index_offset,
+                               mesh=self.group, spmd=self.spmd)
 
     # --- learning -----------------------------------------------------------
     def _loss(self, q, q_target, batch):
@@ -238,6 +262,7 @@ class DQN:
         """One Huber TD step with Adam, then Polyak on the target."""
         loss = self._loss(st.q, st.q_target, batch)
         grads = torch.autograd.grad(loss, list(st.q.parameters()))
+        loss, grads = pmean(self, loss, grads)
         opt = adam_update(st.q, grads, st.opt, self.cfg.lr)
         polyak(st.q_target, st.q, self.cfg.tau)
         return st._replace(opt=opt), {"loss": loss.detach()}
@@ -246,6 +271,7 @@ class DQN:
         """The K-update phase through B5's wrapper: the 4 group buffers
         updated in place, the Adam count advanced by K."""
         c = self.cfg
+        batches = gather_batches(self, batches)
         loss = lk.dqn_update_phase(
             st.groups, tuple(x.contiguous() for x in batches), st.opt.count,
             c.hidden, lr=c.lr, gamma=c.gamma, tau=c.tau,
@@ -292,8 +318,7 @@ class DQN:
         ready = c.warmup_env_steps <= 0 or env_steps >= c.warmup_env_steps
         losses = {"loss": torch.zeros((), dtype=torch.float32,
                                       device=self.env.device)}
-        presample = replay_presample(self.replay, c.batch_size, indices,
-                                     c.sample)
+        presample = dist_presample(self, c.batch_size, indices, c.sample)
         if ready and c.updates_per_step > 0:
             if self.kernel_mode:
                 st, losses = self._kernel_update_phase(
@@ -307,8 +332,8 @@ class DQN:
                                                                *traj))
         metrics = dict(losses)
         metrics["epsilon"] = eps
-        metrics["reward_mean"] = traj[2].mean()
-        metrics["done_frac"] = traj[3].to(torch.float32).mean()
+        metrics["reward_mean"], metrics["done_frac"] = global_means(
+            self, traj[2], traj[3])
         metrics["env_steps"] = env_steps
         # 1.0 = kernel B4 ran the rollout, 0.0 = the plain twin did.
         metrics["rollout_impl"] = float(self.env.device.type == "cuda"

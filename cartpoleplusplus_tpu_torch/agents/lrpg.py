@@ -24,6 +24,15 @@ the env's frames directly (uint8 where the env quantizes them), with no
 replay ring. No rollout kernel covers pixels (the env's render runs kernel
 B10), and the learner is the plain one, over the whole window in one
 autograd pass.
+
+Sharded (dist/, `group` / `num_shards`): under the SPMD learner
+(`spmd=True`) every rank all-gathers the (T, B) window along the env axis
+and takes the unsharded step on it; under the shardmap learner the window
+statistics (the return mean, the advantages' second moment, the metrics)
+are pmeans of the shard means and the plain gradient is all-reduced, or
+on the kernel route the (T x B_local)-row windows are all-gathered in rank
+order and every rank runs B9 on the union window (the reference's
+agents/lrpg.py:254-328).
 """
 
 from __future__ import annotations
@@ -39,9 +48,10 @@ from ..ops import learner_kernel as lk
 from ..ops.pg_rollout import (gumbel_max, pg_fusable, pg_policy_rollout,
                               reference_pg_rollout)
 from ..utils.prng import split_seed
+from ..dist.mesh import all_gather_cat, all_reduce_sum
 from .common import (AdamState, adam_init, adam_update, bind_group,
-                     bind_moments, evaluate_policy, resolve_learner,
-                     resolve_rollout)
+                     bind_moments, dist_setup, evaluate_policy, pmean,
+                     resolve_learner, resolve_rollout)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,7 +113,12 @@ def returns_to_go(reward, done, gamma: float, bootstrap):
 class LRPG:
     """LRPG agent over a batched discrete CartPole3D on one device."""
 
-    def __init__(self, env: CartPole3D, config: LRPGConfig = LRPGConfig()):
+    def __init__(self, env: CartPole3D, config: LRPGConfig = LRPGConfig(),
+                 group=None, num_shards: int = 1, spmd: bool = False):
+        """group / num_shards: a dist.mesh.Mesh of num_shards ranks when
+        the agent runs one rank's shard of the envs (env is then the
+        per-rank env); spmd picks the SPMD learner, else the shardmap
+        learner (the reference's dist_axis)."""
         if not env.params.discrete_actions:
             raise ValueError("LRPG needs the discrete env "
                              "(CartPoleParams(discrete_actions=True))")
@@ -114,6 +129,7 @@ class LRPG:
                                  f"yet (supported: {ok})")
         self.env = env
         self.cfg = config
+        dist_setup(self, group, num_shards, spmd)
         # Resolved once: the kernel learner keeps its state in the 3 group
         # buffers (state_from_tree), so the choice shapes init().
         self.kernel_mode = resolve_learner(
@@ -152,7 +168,7 @@ class LRPG:
             policy = PolicyMLP(env.obs_size, env.num_actions,
                                tuple(c.hidden), generator=g)
         policy = policy.to(env.device)
-        env_state, obs = env.reset(split_seed(seed, 3, 1))
+        env_state, obs = env.reset(split_seed(seed, 3, 1), self.index_offset)
         st = LRPGState(policy=policy, opt=adam_init(policy),
                        baseline=torch.zeros((), dtype=torch.float32,
                                             device=env.device),
@@ -188,7 +204,8 @@ class LRPG:
     def evaluate(self, st: LRPGState, num_steps: int = 200, seed: int = 0):
         """Argmax-policy evaluation: episode stats."""
         return evaluate_policy(self.env, self.greedy_policy(st), seed,
-                               num_steps)
+                               num_steps, index_offset=self.index_offset,
+                               mesh=self.group, spmd=self.spmd)
 
     # --- learning -----------------------------------------------------------
     def _loss(self, policy, obs, action, advantage):
@@ -213,41 +230,61 @@ class LRPG:
         c = self.cfg
         run = (pg_policy_rollout if self.kernel_rollout
                else reference_pg_rollout)
-        env_state, obs, (obs_t, act_t, rew_t, done_t) = run(
+        env_state, obs, traj = run(
             self.env, st.policy, st.env_state, st.obs, st.env_steps,
             c.rollout_steps)
+        shardmap = self.group is not None and not self.spmd
+        if self.group is not None and self.spmd:
+            # The unsharded program: every rank takes the whole window.
+            obs_t, act_t, rew_t, done_t = (
+                all_gather_cat(x, self.group, dim=1) for x in traj)
+        else:
+            obs_t, act_t, rew_t, done_t = traj
+
+        def gmean(*xs):
+            """Window means, over every shard's window under shardmap
+            (equal shards: the mean of the shard means)."""
+            m = torch.stack([x.to(torch.float32).mean() for x in xs])
+            if shardmap:
+                m = all_reduce_sum(m, self.group) / self.num_shards
+            return m[0] if len(xs) == 1 else list(m)
 
         # Bootstrap the cut-off tail with the baseline; window-centred,
         # normalised advantages (the reference's comments say why).
         g = returns_to_go(rew_t, done_t, c.gamma,
-                          st.baseline.expand(self.env.num_envs))
-        g_mean = g.mean()
+                          st.baseline.expand(rew_t.shape[1]))
+        g_mean = gmean(g)
         baseline = ((1.0 - c.baseline_rate) * st.baseline
                     + c.baseline_rate * g_mean)
         adv = g - g_mean
-        adv = adv / (torch.sqrt(torch.mean(adv * adv)) + 1e-6)
+        adv = adv / (torch.sqrt(gmean(adv * adv)) + 1e-6)
 
         if self.kernel_mode:
             n = obs_t.shape[0] * obs_t.shape[1]
+            window = (obs_t.reshape(n, -1), act_t.reshape(n), adv.reshape(n))
+            if shardmap:
+                window = tuple(all_gather_cat(x, self.group)
+                               for x in window)
             loss = lk.lrpg_update_phase(
-                st.groups, (obs_t.reshape(n, -1), act_t.reshape(n),
-                            adv.reshape(n)), st.opt.count, c.hidden,
+                st.groups, window, st.opt.count, c.hidden,
                 lr=c.lr, entropy_coef=c.entropy_coef)
             opt = st.opt._replace(count=st.opt.count + 1)
         else:
             loss = self._loss(st.policy, obs_t, act_t, adv)
             grads = torch.autograd.grad(loss, list(st.policy.parameters()))
+            loss, grads = pmean(self, loss, grads)
             opt = adam_update(st.policy, grads, st.opt, c.lr)
             loss = loss.detach()
 
         env_steps = st.env_steps + c.rollout_steps
         st = st._replace(opt=opt, baseline=baseline, env_state=env_state,
                          obs=obs, env_steps=env_steps)
+        reward_mean, done_frac = gmean(rew_t, done_t)
         metrics = {
             "loss": loss,
             "return_mean": g_mean,
-            "reward_mean": rew_t.mean(),
-            "done_frac": done_t.to(torch.float32).mean(),
+            "reward_mean": reward_mean,
+            "done_frac": done_frac,
             "env_steps": env_steps,
             # 1.0 = kernel B8 ran the rollout, 0.0 = the plain twin did.
             "rollout_impl": float(self.kernel_rollout),
@@ -256,5 +293,5 @@ class LRPG:
             "learner_impl": float(self.kernel_mode),
         }
         if capture:
-            metrics["traj"] = (obs_t, act_t, rew_t, done_t)
+            metrics["traj"] = traj
         return st, metrics

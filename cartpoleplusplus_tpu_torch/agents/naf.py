@@ -25,6 +25,13 @@ basin boundary where the choice of matmul arithmetic alone reroutes whole
 runs (docs/design.md §16), and the reference kernel's Q reads the raw mu
 rows where NafNet applies tanh (ops/learner_kernel.py::naf_q), so the two
 learners are different arithmetic on purpose.
+
+Sharded (dist/, `group` / `num_shards`): the SPMD learner (`spmd=True`)
+gives the unsharded program's result; the shardmap learner samples
+batch_size / num_shards rows per rank and all-reduces the mean of (loss,
+gradient) once per update, the global-norm clip taken after it, or on the
+kernel route all-gathers the K minibatches so that every rank runs B7 on
+the union batch.
 """
 
 from __future__ import annotations
@@ -43,9 +50,10 @@ from ..ops.naf_rollout import (naf_action, naf_fusable, naf_policy_rollout,
                                reference_naf_rollout)
 from ..utils.prng import split_seed
 from .common import (AdamState, adam_init, adam_update, bind_group,
-                     bind_moments, check_block_batch, evaluate_policy,
-                     gated_update_scan, lr_schedule, replay_presample,
-                     resolve_learner, resolve_rollout, scheduled_lr)
+                     bind_moments, check_block_batch, dist_presample,
+                     dist_setup, evaluate_policy, gated_update_scan,
+                     gather_batches, global_means, local_batch, lr_schedule,
+                     pmean, resolve_learner, resolve_rollout, scheduled_lr)
 from .replay import ReplayBuffer, ReplayState
 
 
@@ -111,7 +119,12 @@ class NAFState(NamedTuple):
 class NAF:
     """NAF agent over a batched continuous CartPole3D on one device."""
 
-    def __init__(self, env: CartPole3D, config: NAFConfig = NAFConfig()):
+    def __init__(self, env: CartPole3D, config: NAFConfig = NAFConfig(),
+                 group=None, num_shards: int = 1, spmd: bool = False):
+        """group / num_shards: a dist.mesh.Mesh of num_shards ranks when
+        the agent runs one rank's shard of the envs (env is then the
+        per-rank env); spmd picks the SPMD learner, else the shardmap
+        learner (the reference's dist_axis)."""
         if env.params.discrete_actions:
             raise ValueError("NAF needs the continuous env "
                              "(CartPoleParams(discrete_actions=False))")
@@ -120,10 +133,12 @@ class NAF:
                 raise ValueError(f"NAFConfig.{name}="
                                  f"{getattr(config, name)!r} is not ported "
                                  f"yet (supported: {ok})")
-        check_block_batch(config.sample, config.batch_size, env.num_envs,
-                          "naf")
         self.env = env
         self.cfg = config
+        dist_setup(self, group, num_shards, spmd)
+        check_block_batch(config.sample, self.local_batch_size,
+                          env.num_envs * (self.num_shards if spmd else 1),
+                          "naf")
         self.replay = ReplayBuffer(env.num_envs,
                                    config.replay_capacity_per_env,
                                    env.obs_size, env.action_dim, env.device,
@@ -138,12 +153,21 @@ class NAF:
             "naf", "B6", self.fusable(), env.device.type == "cuda",
             "ops.naf_rollout.naf_fusable")
 
+    @property
+    def local_batch_size(self) -> int:
+        """Rows this rank samples per update: batch_size / num_shards under
+        the shardmap learner, else the whole batch."""
+        return local_batch(self.cfg.batch_size,
+                           1 if self.spmd else self.num_shards)
+
     def kernel_learner_ok(self) -> bool:
         """Whether kernel B7 covers this config: state observations, 2-D
         actions, at least one hidden layer (any depth and width), float32,
-        and at least one update."""
+        at least one update, and under the shardmap learner a batch that
+        splits evenly over the shards."""
         c = self.cfg
         return (self.env.obs_mode != "pixels"
+                and (self.spmd or c.batch_size % self.num_shards == 0)
                 and self.env.action_dim == 2
                 and lk.naf_covers(self.env.obs_size, c.hidden)
                 and c.updates_per_step >= 1
@@ -169,7 +193,7 @@ class NAF:
             net = NafNet(env.obs_size, env.action_dim, tuple(c.hidden),
                          generator=g)
         net = net.to(env.device)
-        env_state, obs = env.reset(split_seed(seed, 3, 1))
+        env_state, obs = env.reset(split_seed(seed, 3, 1), self.index_offset)
         st = NAFState(net=net, target=copy.deepcopy(net), opt=adam_init(net),
                       replay=self.replay.init(), env_state=env_state,
                       obs=obs,
@@ -224,7 +248,8 @@ class NAF:
     def evaluate(self, st: NAFState, num_steps: int = 200, seed: int = 0):
         """mu-policy evaluation (no exploration): episode stats."""
         return evaluate_policy(self.env, self.greedy_policy(st), seed,
-                               num_steps)
+                               num_steps, index_offset=self.index_offset,
+                               mesh=self.group, spmd=self.spmd)
 
     # --- learning -----------------------------------------------------------
     def _loss(self, net, target, batch):
@@ -244,6 +269,7 @@ class NAF:
         c = self.cfg
         loss = self._loss(st.net, st.target, batch)
         grads = torch.autograd.grad(loss, list(st.net.parameters()))
+        loss, grads = pmean(self, loss, grads)
         if c.max_grad_norm > 0.0:
             norm = lk.global_norm(grads)
             grads = [torch.where(norm < c.max_grad_norm, g,
@@ -259,6 +285,7 @@ class NAF:
         updated in place, the Adam count advanced by K (the lr schedule is
         keyed on it)."""
         c = self.cfg
+        batches = gather_batches(self, batches)
         loss = lk.naf_update_phase(
             st.groups, tuple(x.contiguous() for x in batches), st.opt.count,
             c.hidden, lr=c.lr, gamma=c.gamma, tau=c.tau,
@@ -301,8 +328,7 @@ class NAF:
         ready = c.warmup_env_steps <= 0 or env_steps >= c.warmup_env_steps
         losses = {"loss": torch.zeros((), dtype=torch.float32,
                                       device=self.env.device)}
-        presample = replay_presample(self.replay, c.batch_size, indices,
-                                     c.sample)
+        presample = dist_presample(self, c.batch_size, indices, c.sample)
         if ready and c.updates_per_step > 0:
             if self.kernel_mode:
                 st, losses = self._kernel_update_phase(
@@ -315,8 +341,8 @@ class NAF:
             st = st._replace(replay=self.replay.add_trajectory(st.replay,
                                                                *traj))
         metrics = dict(losses)
-        metrics["reward_mean"] = traj[2].mean()
-        metrics["done_frac"] = traj[3].to(torch.float32).mean()
+        metrics["reward_mean"], metrics["done_frac"] = global_means(
+            self, traj[2], traj[3])
         metrics["env_steps"] = env_steps
         # 1.0 = kernel B6 ran the rollout, 0.0 = the plain twin did.
         metrics["rollout_impl"] = float(self.kernel_rollout)

@@ -108,11 +108,13 @@ class ReplayBuffer:
                            filled=min(rs.filled + t, self.capacity))
 
     def draw_columns(self, rs: ReplayState, num_updates: int,
-                     batch_size: int, generator: torch.Generator):
+                     batch_size: int, generator: torch.Generator,
+                     num_envs: int | None = None):
         """The random part of column sampling: per update, ceil(batch / B)
         valid slots `slots` (K, C) and a wrap-around row offset `offs`
-        (K,). Drawn on the CPU from `generator`."""
-        b = self.num_envs
+        (K,). Drawn on the CPU from `generator`; B is the ring's env count
+        unless `num_envs` gives the global one (the SPMD learner's draw)."""
+        b = num_envs or self.num_envs
         k_cols = -(-batch_size // b)
         n_valid = max(rs.filled - 1, 1)
         ages = torch.randint(1, n_valid + 1, (num_updates, k_cols),
@@ -131,41 +133,17 @@ class ReplayBuffer:
         The slots and offsets come from `draw_columns(generator)`, or are
         given as `indices = (slots (K, C), offs (K,))` (tests inject the
         reference's draws through this)."""
-        b = self.num_envs
         if indices is None:
             indices = self.draw_columns(rs, num_updates, batch_size,
                                         generator)
-        slots, offs = (torch.as_tensor(x, dtype=torch.int64,
-                                       device=self.device) for x in indices)
-        kk, k_cols = slots.shape
-        flat = slots.reshape(-1)
-        row_idx = (offs[:, None]
-                   + torch.arange(batch_size, device=self.device)[None, :]) \
-            % (k_cols * b)                                     # (K, bs)
-
-        def take(buf, idx):
-            # (B, K*C, ...) -> (K, C*B, ...): column-major over envs within
-            # each update, then the trimmed rows.
-            out = buf[:, idx].transpose(0, 1)
-            out = out.reshape((kk, k_cols * b) + buf.shape[2:])
-            if batch_size == k_cols * b:  # whole columns: no trim
-                return out
-            ridx = row_idx.reshape(row_idx.shape + (1,) * (out.ndim - 2))
-            return torch.take_along_dim(out, ridx.expand(
-                (kk, batch_size) + out.shape[2:]), dim=1)
-
-        nxt = (flat + 1) % self.capacity
-        return (self._unflatten_obs(take(rs.obs, flat)),
-                take(rs.action, flat), take(rs.reward, flat),
-                self._unflatten_obs(take(rs.obs, nxt)),
-                take(rs.done, flat))
+        return self.take_rows(rs, *self.row_indices(
+            "column", indices, batch_size, self.num_envs))
 
     def presample_block(self, rs: ReplayState, batch_size: int,
                         num_updates: int, generator=None, indices=None):
         """All K block minibatches (each (K, batch_size, ...)): per update
         one valid slot and one aligned block of batch_size consecutive
-        envs (batch_size must divide num_envs), gathered as one index per
-        buffer that reads only the rows it returns.
+        envs (batch_size must divide num_envs).
 
         The draws come from `generator` (on the CPU), or are given as
         `indices = (slots (K,), offs (K,))` with offs the block's first env
@@ -174,50 +152,106 @@ class ReplayBuffer:
         if batch_size > b or b % batch_size:
             raise ValueError("block sampling needs batch_size | num_envs")
         if indices is None:
-            n_valid = max(rs.filled - 1, 1)
-            ages = torch.randint(1, n_valid + 1, (num_updates,),
-                                 generator=generator)
-            blk = torch.randint(0, b // batch_size, (num_updates,),
-                                generator=generator)
-            indices = ((rs.cursor - 1 - ages) % self.capacity,
-                       blk * batch_size)
-        slots, offs = (torch.as_tensor(x, dtype=torch.int64,
-                                       device=self.device) for x in indices)
-        envs = offs[:, None] + torch.arange(batch_size,
-                                            device=self.device)[None, :]
-        cur, nxt = slots[:, None], ((slots + 1) % self.capacity)[:, None]
-        return (self._unflatten_obs(rs.obs[envs, cur]),
-                rs.action[envs, cur], rs.reward[envs, cur],
-                self._unflatten_obs(rs.obs[envs, nxt]),
-                rs.done[envs, cur])
+            indices = self.draw_block(rs, num_updates, batch_size, generator)
+        return self.take_rows(rs, *self.row_indices(
+            "block", indices, batch_size, b))
 
     def presample_uniform(self, rs: ReplayState, batch_size: int,
                           num_updates: int, generator=None, indices=None):
         """All K uniform minibatches (each (K, batch_size, ...)): per row
         an env uniform over the batch and a slot uniform over the valid
-        history, gathered from the env-major flattened ring.
+        history.
 
         The draws come from `generator` (on the CPU), or are given as
         `indices = (env_idx (K, Bm), slot (K, Bm))` (tests inject the
         reference's draws through this)."""
         if indices is None:
-            shape = (num_updates, batch_size)
-            env_idx = torch.randint(0, self.num_envs, shape,
-                                    generator=generator)
-            n_valid = max(rs.filled - 1, 1)
-            ages = torch.randint(1, n_valid + 1, shape, generator=generator)
-            indices = (env_idx, (rs.cursor - 1 - ages) % self.capacity)
-        env_idx, slot = (torch.as_tensor(x, dtype=torch.int64,
-                                         device=self.device)
-                         for x in indices)
-        base = env_idx * self.capacity
-        flat, flat_next = base + slot, base + (slot + 1) % self.capacity
+            indices = self.draw_uniform(rs, num_updates, batch_size,
+                                        generator)
+        return self.take_rows(rs, *self.row_indices(
+            "uniform", indices, batch_size, self.num_envs))
 
-        def take(buf, idx):
-            rows = buf.reshape((-1,) + buf.shape[2:])
-            return rows[idx]
+    def draw_block(self, rs: ReplayState, num_updates: int, batch_size: int,
+                   generator: torch.Generator, num_envs: int | None = None):
+        """The random part of block sampling: per update one valid slot and
+        the first env of an aligned block of batch_size envs, (slots (K,),
+        offs (K,)), over `num_envs` envs (default: the ring's)."""
+        b = num_envs or self.num_envs
+        n_valid = max(rs.filled - 1, 1)
+        ages = torch.randint(1, n_valid + 1, (num_updates,),
+                             generator=generator)
+        blk = torch.randint(0, b // batch_size, (num_updates,),
+                            generator=generator)
+        return (rs.cursor - 1 - ages) % self.capacity, blk * batch_size
 
-        return (self._unflatten_obs(take(rs.obs, flat)),
-                take(rs.action, flat), take(rs.reward, flat),
-                self._unflatten_obs(take(rs.obs, flat_next)),
-                take(rs.done, flat))
+    def draw_uniform(self, rs: ReplayState, num_updates: int,
+                     batch_size: int, generator: torch.Generator,
+                     num_envs: int | None = None):
+        """The random part of uniform sampling: per row an env and a valid
+        slot, (env_idx (K, Bm), slot (K, Bm)), over `num_envs` envs
+        (default: the ring's)."""
+        shape = (num_updates, batch_size)
+        env_idx = torch.randint(0, num_envs or self.num_envs, shape,
+                                generator=generator)
+        n_valid = max(rs.filled - 1, 1)
+        ages = torch.randint(1, n_valid + 1, shape, generator=generator)
+        return env_idx, (rs.cursor - 1 - ages) % self.capacity
+
+    def row_indices(self, sample: str, indices, batch_size: int,
+                    num_envs: int):
+        """(env (K, Bm), slot) int64 on the ring's device, slot (K, Bm) or
+        (K, 1) for a block's one slot per update: every minibatch row of a
+        column, block or uniform draw over `num_envs` envs, the rows the
+        presamples read with take_rows."""
+        a, b = (torch.as_tensor(x, dtype=torch.int64, device=self.device)
+                for x in indices)
+        if sample == "uniform":
+            return a, b
+        rows = torch.arange(batch_size, device=self.device)[None, :]
+        if sample == "block":
+            return b[:, None] + rows, a[:, None]
+        # column: row j of the concatenated columns is env j % B of column
+        # j // B, the rows trimmed from offset offs with wrap-around (whole
+        # columns are taken untrimmed, from row 0).
+        k_cols = a.shape[1]
+        j = rows.expand(a.shape[0], -1)
+        if batch_size != k_cols * num_envs:
+            j = (b[:, None] + j) % (k_cols * num_envs)
+        return j % num_envs, torch.gather(a, 1, j // num_envs)
+
+    def take_rows(self, rs: ReplayState, env, slot):
+        """The transitions (obs, action, reward, next_obs, done) at ring
+        rows (env, slot), each (K, Bm, ...): one index per buffer that
+        reads only the rows it returns."""
+        nxt = (slot + 1) % self.capacity
+        return (self._unflatten_obs(rs.obs[env, slot]),
+                rs.action[env, slot], rs.reward[env, slot],
+                self._unflatten_obs(rs.obs[env, nxt]), rs.done[env, slot])
+
+    def presample_global(self, rs: ReplayState, sample: str,
+                         batch_size: int, num_updates: int, mesh,
+                         generator=None, indices=None):
+        """The SPMD learner's presample: the K minibatches of the
+        unsharded ring of mesh.size * num_envs envs, drawn over GLOBAL env
+        indices (the generator is replicated, so every rank draws the
+        same), each rank reading the rows of the envs it owns and the
+        minibatch assembled by `owned_rows` (one all-reduce of the rows,
+        zero where not owned: exact). Equal, bit for bit, to the
+        unsharded ring's presample of the same draws."""
+        from ..dist.mesh import owned_rows
+
+        b_glob = self.num_envs * mesh.size
+        if indices is None:
+            draw = {"column": self.draw_columns, "block": self.draw_block,
+                    "uniform": self.draw_uniform}[sample]
+            if sample == "block" and (batch_size > b_glob
+                                      or b_glob % batch_size):
+                raise ValueError("block sampling needs batch_size | "
+                                 "num_envs")
+            indices = draw(rs, num_updates, batch_size, generator,
+                           num_envs=b_glob)
+        env, slot = self.row_indices(sample, indices, batch_size, b_glob)
+        local = env - mesh.rank * self.num_envs
+        mine = (local >= 0) & (local < self.num_envs)
+        rows = self.take_rows(rs, torch.where(mine, local, 0), slot)
+        return owned_rows(rows, mine, mesh)

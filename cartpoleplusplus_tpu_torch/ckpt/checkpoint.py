@@ -28,6 +28,14 @@ interval policy, the retention of the newest `max_to_keep`, atomic saves
 through a temporary directory and `os.replace`) and the reference's
 restore rules: fields missing on disk keep the target's values, with the
 reference's stderr note, and a full save restores weights-only.
+
+Sharded runs (a `mesh` of several ranks, dist/) save the GLOBAL state:
+every rank's env-shaped fields are gathered in rank order to rank 0 alone,
+rank 0 writes, and the other ranks wait at a barrier. A restore maps the
+global file and each rank reads only its own envs' rows, so a checkpoint
+moves between runs of any rank count that divides its env count. The
+ranks share the checkpoint directory, as the reference's multi-host
+saves do.
 """
 
 from __future__ import annotations
@@ -44,6 +52,8 @@ _NAMES = {"net": "params", "policy": "params", "generator": "rng"}
 # The kernel learners' flat group buffers: storage behind the modules'
 # parameters and the Adam moments, never saved.
 _DERIVED = ("groups",)
+# Checkpoint keys whose tensors lead with the env axis (sharded by rank).
+_BATCH_KEYS = ("replay", "env_state", "obs", "noise")
 
 
 def _is_record(x) -> bool:
@@ -74,12 +84,20 @@ def _to_tree(x):
     return x
 
 
-def to_tree(state, exclude=()) -> dict:
+def to_tree(state, exclude=(), mesh=None) -> dict:
     """An agent state -> the plain dict a checkpoint holds, without the
     `exclude`d keys (reference names: e.g. "replay" for weights-only
-    saves)."""
-    return {key: _to_tree(getattr(state, f))
+    saves). Over a `mesh` of several ranks the env-shaped fields are
+    gathered into the global layout on rank 0 (None on the other ranks;
+    a collective: every rank calls it)."""
+    tree = {key: _to_tree(getattr(state, f))
             for f, key in state_fields(state) if key not in exclude}
+    if mesh is not None and mesh.size > 1:
+        from ..dist.mesh import gather_batch_tree
+        for key in _BATCH_KEYS:
+            if key in tree:
+                tree[key] = gather_batch_tree(tree[key], mesh)
+    return tree
 
 
 @torch.no_grad()
@@ -111,12 +129,18 @@ def _merge(target, saved):
     return saved
 
 
-def merge_restored(target, tree: dict, exclude=()):
+def merge_restored(target, tree: dict, exclude=(), mesh=None):
     """The reference's `_reconcile` + `_merge_restored`: `tree`'s fields
     restored into `target` (a fresh state of the agent, in its native
     layout); fields not on disk (a weights-only save) keep the target's
     values with one stderr note, and `exclude`d or extra fields on disk
-    are not read."""
+    are not read. Over a `mesh` of several ranks `tree` is the global
+    state and this rank's env rows are restored (sliced before they are
+    copied: of a mapped file only these rows are read)."""
+    if mesh is not None and mesh.size > 1:
+        from ..dist.mesh import shard_batch_tree
+        tree = {k: (shard_batch_tree(v, mesh) if k in _BATCH_KEYS
+                    and k not in exclude else v) for k, v in tree.items()}
     request = [(f, key) for f, key in state_fields(target)
                if key not in exclude]
     dropped = sorted(key for _, key in request if key not in tree)
@@ -147,16 +171,24 @@ def _write(path: str, tree: dict) -> None:
     os.replace(tmp, path)
 
 
-def save_checkpoint(path: str, state, exclude: tuple = ()) -> None:
-    """Write one checkpoint to `path` (a directory)."""
-    _write(path, to_tree(state, exclude))
+def save_checkpoint(path: str, state, exclude: tuple = (),
+                    mesh=None) -> None:
+    """Write one checkpoint to `path` (a directory); over a `mesh`, the
+    global state, written by rank 0."""
+    tree = to_tree(state, exclude, mesh)
+    if mesh is None or mesh.rank == 0:
+        _write(path, tree)
+    if mesh is not None:
+        from ..dist.mesh import barrier
+        barrier(mesh)
 
 
-def restore_checkpoint(path: str, target, exclude: tuple = ()):
+def restore_checkpoint(path: str, target, exclude: tuple = (), mesh=None):
     """Restore into `target` (a fresh agent state); tensors land on the
     target's devices. Fields absent on disk keep target's values;
-    `exclude` drops further fields from the request."""
-    return merge_restored(target, _load(path), exclude)
+    `exclude` drops further fields from the request; over a `mesh`, this
+    rank's rows of the global state."""
+    return merge_restored(target, _load(path), exclude, mesh)
 
 
 class CheckpointManager:
@@ -167,11 +199,14 @@ class CheckpointManager:
     `max_to_keep` saves (in save order, the directory's own steps first,
     sorted) are kept, and the latest step is the one saved last.
     tests/test_torch_ckpt.py holds it to the reference's manager call
-    for call."""
+    for call. Over a `mesh` of several ranks, every rank keeps the same
+    bookkeeping, saves are collective (rank 0 writes the global state)
+    and restores give each rank its rows."""
 
     def __init__(self, directory: str, save_interval_steps: int = 1,
-                 max_to_keep: int = 3, exclude: tuple = ()):
+                 max_to_keep: int = 3, exclude: tuple = (), mesh=None):
         self.directory = os.path.abspath(directory)
+        self._mesh = mesh
         self._interval = save_interval_steps
         self._keep = max_to_keep
         self._exclude = tuple(exclude)
@@ -210,11 +245,13 @@ class CheckpointManager:
             return False
         if step in self._steps:
             raise ValueError(f"Checkpoint for step {step} already exists.")
-        _write(self._path(step), to_tree(state, self._exclude))
+        save_checkpoint(self._path(step), state, self._exclude, self._mesh)
         self._steps.append(step)
+        writer = self._mesh is None or self._mesh.rank == 0
         while len(self._steps) > self._keep:
-            shutil.rmtree(self._path(self._steps.pop(0)),
-                          ignore_errors=True)
+            old = self._path(self._steps.pop(0))
+            if writer:
+                shutil.rmtree(old, ignore_errors=True)
         return True
 
     def restore(self, target, step: int | None = None):
@@ -225,7 +262,7 @@ class CheckpointManager:
         if step is None:
             raise FileNotFoundError("no checkpoint to restore")
         return merge_restored(target, _load(self._path(step)),
-                              self._exclude)
+                              self._exclude, self._mesh)
 
     def saved_keys(self, step: int | None = None) -> list:
         """The field keys on disk at `step` (default: the latest)."""

@@ -4,8 +4,9 @@
 cartpoleplusplus_tpu/config.py's flag machinery (pure Python; the port
 cannot import the reference package, whose `__init__` loads JAX).
 tests/test_torch_env.py holds the copy equal to the original. `RunConfig`
-keeps the reference's fields, with its defaults, but the device mesh's
-(`use_mesh`, `learner`), plus the device to run on.
+keeps the reference's fields, with its defaults, plus the device to run on
+and the process group's backend (`dist_backend`; torchrun's environment
+gives the rest of what `jax.distributed.initialize` discovers by itself).
 """
 
 from __future__ import annotations
@@ -74,7 +75,13 @@ class RunConfig:
     canary_env_steps: int = 0
     canary_min_eval: float = 100.0
     canary_max_restarts: int = 2
+    use_mesh: bool = True            # shard envs over the ranks (dist/)
+    learner: str = "spmd"            # spmd (unsharded result) | shardmap
     device: str = "cuda"             # cuda | cpu (never falls back)
+    # The process group of a multi-rank launch (torchrun's WORLD_SIZE > 1):
+    # "auto" = gloo on the CPU, NCCL on CUDA with a card per rank; ranks
+    # that share a card need "gloo".
+    dist_backend: str = "auto"       # auto | gloo | nccl
 
 
 def _flag(name: str) -> str:

@@ -1,7 +1,8 @@
 """Training CLI of the port — the `--agent ddpg`, `dqn`, `naf`, `lrpg` and
-`random` flows of cartpoleplusplus_tpu/train.py on one device, with its
-run flags: presets, checkpoints and resume, the event log, `--eval-only`,
-chunked dispatch, the canary and the profiler.
+`random` flows of cartpoleplusplus_tpu/train.py, on one device or sharded
+over the ranks of a torchrun launch, with its run flags: presets,
+checkpoints and resume, the event log, `--eval-only`, chunked dispatch,
+the canary and the profiler.
 
 Usage:
     python -m cartpoleplusplus_tpu_torch.train                 # ddpg, cuda
@@ -20,6 +21,10 @@ Usage:
         --event-log run.cpe --event-log-envs 64   # resumable, traced
     python -m cartpoleplusplus_tpu_torch.train --ckpt-dir ckpt/ --eval-only
     python -m cartpoleplusplus_tpu_torch.train --device cpu --num-envs 64
+    torchrun --nproc-per-node 2 -m cartpoleplusplus_tpu_torch.train \
+        --learner shardmap                   # 2 ranks, one card each (NCCL)
+    torchrun --nproc-per-node 2 -m cartpoleplusplus_tpu_torch.train \
+        --dist-backend gloo                  # 2 ranks sharing one card
 
 Prints one JSON line of metrics every --log-interval train steps and, with
 --final-eval, one line of greedy-policy episode statistics. On a CUDA
@@ -55,14 +60,27 @@ dumps up to 120 RGB frames of env 0, rendered through B10 on the card);
 envs') to a .cpe log (eventlog/); `--steps-per-dispatch k` runs windows
 of k train steps, logging and saving once per window; the canary
 (`--canary-*`) re-seeds a collapsed run; `--profile-dir` writes a
-torch.profiler Chrome trace. The device mesh (`--use-mesh`, `--learner
-spmd|shardmap`) is not ported: its flags are rejected.
+torch.profiler Chrome trace.
+
+Under torchrun (WORLD_SIZE > 1) with `--use-mesh` (the default) the run is
+sharded (dist/): each rank owns `num_envs / world size` envs (the global
+indices `rank * local ...`), its own card (or `cuda:0` shared, over gloo)
+and its replay rows. `--learner spmd` (the default) gives the unsharded
+run's result: global replay draws, the minibatch assembled from every
+rank's rows, the same learner on every rank; `--learner shardmap` samples
+per rank and all-reduces gradients (or all-gathers the minibatches for
+the kernel learners). The evals are sharded, checkpoints hold the global
+state (written by rank 0, restored into any rank count that divides the
+envs), the event log holds the global envs, and rank 0 alone prints and
+writes. `--dist-backend` picks the process group's backend; torchrun's
+environment gives the rest.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import sys
@@ -75,13 +93,12 @@ from .agents import (DDPG, DQN, LRPG, NAF, DDPGConfig, DQNConfig,
 from .ckpt import CheckpointManager
 from .ckpt.checkpoint import state_fields
 from .config import RunConfig, add_dataclass_args, explicit_dests, from_args
+from .dist import make_distributed_train_step, make_shardmap_train_step
 from .env import CartPole3D
 from .env.pixels import RenderConfig
 from .eventlog import EpisodeSink, EventLogWriter, next_episode_ids
 from .physics.params import CartPoleParams, continuous_params
 
-# The reference CLI's run flags that have no counterpart here yet.
-_NOT_PORTED = ("use_mesh", "learner")
 # agent -> (class, config class).
 _AGENTS = {"ddpg": (DDPG, DDPGConfig), "dqn": (DQN, DQNConfig),
            "naf": (NAF, NAFConfig), "lrpg": (LRPG, LRPGConfig)}
@@ -178,28 +195,25 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _not_ported(unknown) -> list:
-    """The reference CLI flags among `unknown` that are not ported yet."""
-    out = []
-    for tok in unknown:
-        if not tok.startswith("--"):
-            continue
-        name = tok[2:].split("=")[0]
-        name = name[3:] if name.startswith("no-") else name
-        dest = name.replace("-", "_")
-        if dest in _NOT_PORTED:
-            out.append(tok.split("=")[0])
-    return out
-
-
-def build(run: RunConfig, args: argparse.Namespace, provided: set):
+def build(run: RunConfig, args: argparse.Namespace, provided: set,
+          mesh=None, spmd: bool = True):
     """(env, agent) from parsed configuration. DDPG's and NAF's env
     defaults to the continuous preset (continuous actions, pushes, shaped
     reward), with env fields typed on the command line always winning;
     DQN, LRPG and the random agent take the discrete env as the flags give
     it. Pixel observations render with the RenderConfig the `--render-*`
     flags give, as the reference's `build` makes it. A `run.preset` lifts
-    the agent fields the user did not type to the preset's."""
+    the agent fields the user did not type to the preset's. Over a `mesh`
+    the env lives on the rank's device and, when num_envs divides over the
+    ranks, is this rank's shard (num_envs / mesh.size envs) under the
+    sharded learner (`spmd` or shardmap); otherwise every rank runs all
+    envs."""
+    device = mesh.device if mesh else run.device
+    if mesh and run.num_envs % mesh.size == 0:
+        shard = dict(group=mesh, num_shards=mesh.size)
+        num_envs = run.num_envs // mesh.size
+    else:
+        shard, num_envs = {}, run.num_envs
     params = from_args(CartPoleParams, args, prefix="env.")
     render_config = None
     if run.obs_mode == "pixels":
@@ -210,10 +224,10 @@ def build(run: RunConfig, args: argparse.Namespace, provided: set):
             frame_diff=run.render_frame_diff,
             frame_diff_gain=run.render_frame_diff_gain)
     if run.agent == "random":
-        env = CartPole3D(params, num_envs=run.num_envs,
-                         obs_mode=run.obs_mode, device=run.device,
+        env = CartPole3D(params, num_envs=num_envs,
+                         obs_mode=run.obs_mode, device=device,
                          render_config=render_config)
-        return env, RandomAgent(env)
+        return env, RandomAgent(env, **shard)
     agent_cls, cfg_cls = _AGENTS[run.agent]
     if run.agent in _CONTINUOUS:
         preset = continuous_params()
@@ -221,14 +235,14 @@ def build(run: RunConfig, args: argparse.Namespace, provided: set):
             f.name: (getattr(params, f.name) if ("env." + f.name) in provided
                      else getattr(preset, f.name))
             for f in dataclasses.fields(CartPoleParams)})
-    env = CartPole3D(params, num_envs=run.num_envs, obs_mode=run.obs_mode,
-                     device=run.device, render_config=render_config)
+    env = CartPole3D(params, num_envs=num_envs, obs_mode=run.obs_mode,
+                     device=device, render_config=render_config)
     cfg = from_args(cfg_cls, args, prefix=f"{run.agent}.")
     if run.preset and run.agent in _PRESETS.get(run.preset, {}):
         cfg = dataclasses.replace(cfg, **{
             k: v for k, v in _PRESETS[run.preset][run.agent]["agent"].items()
             if f"{run.agent}.{k}" not in provided})
-    return env, agent_cls(env, cfg)
+    return env, agent_cls(env, cfg, spmd=spmd, **shard)
 
 
 def ckpt_exclude(state, run: RunConfig) -> tuple:
@@ -278,16 +292,20 @@ def _stats_line(stats: dict, prefix: str = "") -> str:
     return json.dumps({prefix + k: float(v) for k, v in stats.items()})
 
 
+def _join_group(run: RunConfig):
+    """The process group of a multi-rank launch (WORLD_SIZE > 1 and
+    --use-mesh): its Mesh, or None for a single-process run."""
+    from .dist import initialize_multihost, make_mesh
+
+    if not run.use_mesh or int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return None
+    initialize_multihost(backend=run.dist_backend, device=run.device)
+    return make_mesh()
+
+
 def main(argv=None) -> int:
     ap = build_parser()
-    args, unknown = ap.parse_known_args(argv)
-    skipped = _not_ported(unknown)
-    if skipped:
-        print(f"not ported to cartpoleplusplus_tpu_torch yet: "
-              f"{' '.join(skipped)}", file=sys.stderr)
-        return 2
-    if unknown:
-        ap.error(f"unrecognized arguments: {' '.join(unknown)}")
+    args = ap.parse_args(argv)
     provided = explicit_dests(build_parser(), argv)
     run = from_args(RunConfig, args)
     if run.agent not in _AGENTS and run.agent != "random":
@@ -315,36 +333,82 @@ def main(argv=None) -> int:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        env, agent = build(run, args, provided)
+        mesh = _join_group(run)
+    except ValueError as e:
+        print(f"invalid distribution: {e}", file=sys.stderr)
+        return 2
+    try:
+        return _run(run, args, provided, mesh)
+    finally:
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
+
+
+def _run(run: RunConfig, args, provided: set, mesh) -> int:
+    """main() past the flags and the process group."""
+    lead = mesh is None or mesh.rank == 0
+
+    def say(line: str, err: bool = False) -> None:
+        # Rank 0 alone prints: every rank computes the same lines.
+        if lead:
+            print(line, file=sys.stderr if err else sys.stdout, flush=True)
+
+    use_shardmap = False
+    if run.agent != "random":
+        if run.learner not in ("spmd", "shardmap"):
+            say(f"unknown learner {run.learner!r}; choose spmd or shardmap",
+                err=True)
+            return 2
+        use_shardmap = run.learner == "shardmap"
+    if use_shardmap and mesh is None:
+        say("--learner shardmap needs >1 device and a learning agent "
+            "(ddpg/dqn/naf/lrpg); falling back to spmd", err=True)
+        use_shardmap = False
+    if mesh is not None and run.num_envs % mesh.size:
+        if use_shardmap:
+            say(f"--learner shardmap needs num_envs divisible by the "
+                f"{mesh.size}-device mesh", err=True)
+            return 2
+        # The reference's partitioner replicates what does not divide:
+        # every rank runs the unsharded program, rank 0 reports.
+        say(f"num_envs {run.num_envs} does not divide over {mesh.size} "
+            f"ranks: every rank runs all envs", err=True)
+    try:
+        env, agent = build(run, args, provided, mesh, spmd=not use_shardmap)
     except ValueError as e:
         # e.g. --preset fast pins the lrpg and naf kernel learners, which
         # reject configs outside their coverage.
         hint = (" (note: --preset {} may pin fields, e.g. learner="
                 "\"kernel\" for lrpg; override with explicit flags)"
                 .format(run.preset) if run.preset else "")
-        print(f"invalid configuration: {e}{hint}", file=sys.stderr)
+        say(f"invalid configuration: {e}{hint}", err=True)
         return 2
+    device = env.device
+    shard = agent.group   # the mesh when the envs are sharded, else None
 
     if run.agent == "random":
         # total_env_steps is per env, as everywhere else.
         stats = agent.evaluate(run.seed, max(run.total_env_steps, 1))
-        print(_stats_line(stats), flush=True)
+        say(_stats_line(stats))
         return 0
 
     state = agent.init(run.seed)
     steps_per_call = agent.cfg.rollout_steps
     mgr, start_call = None, 0
+    # Saves are collective over a sharded mesh (rank 0 writes the global
+    # state); replicated ranks leave them to rank 0.
+    saves = shard is not None or lead
     if run.ckpt_dir:
         mgr = CheckpointManager(run.ckpt_dir,
                                 save_interval_steps=run.ckpt_interval,
-                                exclude=ckpt_exclude(state, run))
+                                exclude=ckpt_exclude(state, run), mesh=shard)
         latest = mgr.latest_step()
         if latest is not None:
             state = mgr.restore(state, latest)
             # The checkpoint step is the train-call index: continue at
             # latest + 1 (and the save policy's skip-older-steps lines up).
             start_call = latest + 1
-            print(f"resumed from step {latest}", file=sys.stderr)
+            say(f"resumed from step {latest}", err=True)
             # The agents insert rollout_steps-long chunks from cursor 0; a
             # checkpoint written under another rollout length is the one
             # way to break that: floor the cursor to the chunk grid.
@@ -353,21 +417,22 @@ def main(argv=None) -> int:
                 cur = rs.cursor
                 state = state._replace(replay=rs._replace(
                     cursor=cur // steps_per_call * steps_per_call))
-                print(f"realigned replay cursor {cur} -> "
-                      f"{state.replay.cursor} (rollout_steps="
-                      f"{steps_per_call})", file=sys.stderr)
+                say(f"realigned replay cursor {cur} -> "
+                    f"{state.replay.cursor} (rollout_steps="
+                    f"{steps_per_call})", err=True)
 
     if run.eval_only:
         # Deterministic-policy evaluation of the restored (or fresh)
-        # weights.
-        print(_stats_line(agent.evaluate(state, run.eval_steps, run.seed)),
-              flush=True)
-        if run.eval_render:
+        # weights, sharded over the ranks.
+        say(_stats_line(agent.evaluate(state, run.eval_steps, run.seed)))
+        if run.eval_render and lead:
+            # Env 0 lies in rank 0's shard.
             _eval_render(run, env, agent, state)
         return 0
 
+    capture = bool(run.event_log)
     sink, log_envs = None, run.num_envs
-    if run.event_log:
+    if capture and lead:
         if run.event_log_envs > 0:
             log_envs = min(run.event_log_envs, run.num_envs)
         appending = start_call > 0 and os.path.exists(run.event_log)
@@ -386,8 +451,18 @@ def main(argv=None) -> int:
                                next_episode_ids(run.event_log, log_envs)
                                if appending else None))
 
+    if shard is None:
+        step = functools.partial(agent.train_step, capture=capture)
+    elif use_shardmap:
+        # Shard-local replay draws; the gradients all-reduced, or the
+        # minibatches all-gathered for the kernel learners.
+        step = make_shardmap_train_step(agent, shard, capture=capture)
+    else:
+        # The unsharded program's result (dist/train.py).
+        step = make_distributed_train_step(agent, shard, capture=capture)
+
     prof = None
-    if run.profile_dir:
+    if run.profile_dir and lead:
         from torch.profiler import ProfilerActivity, profile
 
         os.makedirs(run.profile_dir, exist_ok=True)
@@ -413,11 +488,13 @@ def main(argv=None) -> int:
         k = min(spd, n_calls - i)
         trajs = []
         for _ in range(k):
-            state, metrics = agent.train_step(state, capture=sink is not None)
+            state, metrics = step(state)
+            if capture:
+                traj = metrics.pop("traj")
             if sink is not None:
                 # Slice the logged envs on the device, before the host copy.
                 trajs.append(tuple(x[:, :log_envs].contiguous()
-                                   for x in metrics.pop("traj")))
+                                   for x in traj))
         if sink is not None:
             sink.add_rollout(*(torch.cat(x).cpu().numpy()
                                for x in zip(*trajs)))
@@ -425,14 +502,16 @@ def main(argv=None) -> int:
         i += k
         if (canary_call is not None and i >= canary_call
                 and attempt <= run.canary_max_restarts):
+            # Every rank computes the same (all-reduced) statistics, so
+            # every rank takes the same branch.
             mean_len = float(agent.evaluate(state, run.eval_steps,
                                             run.seed + 97)
                              ["mean_episode_length"])
             healthy = mean_len >= run.canary_min_eval
-            print(json.dumps({"canary_eval_mean": round(mean_len, 2),
-                              "canary_at_step": i,
-                              "attempt": attempt,
-                              "healthy": healthy}), flush=True)
+            say(json.dumps({"canary_eval_mean": round(mean_len, 2),
+                            "canary_at_step": i,
+                            "attempt": attempt,
+                            "healthy": healthy}))
             if healthy or attempt == run.canary_max_restarts:
                 canary_call = None   # pass (or out of restarts): train on
             else:
@@ -449,7 +528,8 @@ def main(argv=None) -> int:
                 t0 = time.perf_counter()
                 continue
         window = range(i - k, i)
-        if mgr is not None and any(mgr.should_save(j) for j in window):
+        if mgr is not None and saves and any(mgr.should_save(j)
+                                             for j in window):
             # force: the window check above is the cadence decision; the
             # policy's own re-check would skip window-end steps that are
             # no multiple of the interval.
@@ -461,18 +541,18 @@ def main(argv=None) -> int:
                 run.num_envs * steps_per_call * (i - start_call)
                 / (time.perf_counter() - t0))
             m["train_step"] = i
-            print(json.dumps(m), flush=True)
+            say(json.dumps(m))
 
     if prof is not None:
         prof.stop()
         prof.export_chrome_trace(os.path.join(run.profile_dir, "trace.json"))
-    if mgr is not None and mgr.latest_step() != n_calls - 1:
+    if mgr is not None and saves and mgr.latest_step() != n_calls - 1:
         # The interval window rarely lands on the final call: the final
         # training state must always be on disk.
         mgr.save(n_calls - 1, state, force=True)
     if run.final_eval:
         stats = agent.evaluate(state, run.eval_steps, run.seed + 1)
-        print(_stats_line(stats, "eval_"), flush=True)
+        say(_stats_line(stats, "eval_"))
     if sink is not None:
         sink.writer.close()
     return 0

@@ -157,7 +157,27 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      launch B10 as often as at float32 (18), and their frames (the current
      ones and the ring after the late insert) equal float32's bit for bit:
      B10 renders in float32 whatever the dtype, as the reference's kernel
-     does.
+     does;
+  29. distribution (cartpoleplusplus_tpu_torch/dist): two ranks spawned by
+     the script share cuda:0 over gloo (first a probe that gloo takes
+     all-reduce, of float32 and of uint8, and all-gather of CUDA tensors,
+     and that `gather_to_root` brings both ranks' rows to rank 0 alone).
+     The presample's time at the DDPG defaults (column, block and
+     uniform: `python3 chip_smoke.py --presample-times` runs it alone,
+     over whichever package the script's directory holds). DDPG at its defaults at 8192 global envs (4096 per
+     rank, replay 1024 per env): the SPMD learner (B2 per rank, B3 on the
+     assembled global batch) for 4 train steps bit-equal to one process at
+     8192 envs on the same card (parameters, targets, Adam moments, env
+     state, obs, noise and a per-env digest of the ring); the shardmap
+     learner (B3 on the all-gathered union batch) with both ranks'
+     parameters bit-identical and B2 / B3 counted per rank; DQN, NAF
+     (kernel learner) and LRPG shardmap steps at 4096 global envs, ranks
+     bit-identical, B4-B9 counted per rank; the per-rank step time, the
+     collectives' ms per step and the 1-process step time at 8192 envs;
+     then one rank over NCCL (all-reduce of float32 and uint8, all-gather
+     and `gather_to_root` of CUDA tensors).
+     Two ranks on one card measure correctness and the collectives' cost,
+     not scaling.
 Then one JSON line of per-kernel numbers (each with its bound: the larger
 of its float32 operations over 67 TFLOP/s and its bytes over 3.35 TB/s,
 counted from this run's shapes) and, last, the device line. The script
@@ -3395,6 +3415,406 @@ def phase_render_bfloat16(dev):
     return counts
 
 
+DIST_ENVS = 8192         # BASELINE config 5's global envs (2 x 4096)
+DIST_CHECK_STEPS = 4     # train steps held bit for bit (3 learn)
+DIST_TIME_STEPS = 6      # train steps timed per rank, then as many with
+                         # the collectives timed
+DIST_AGENT_ENVS = 4096   # DQN, NAF and LRPG shardmap steps
+DIST_AGENT_STEPS = 3
+DIST_TIMEOUT_S = 420
+
+
+def _state_digest(st, with_ring: bool = True) -> dict:
+    """A state's tree on the CPU for bitwise comparison: everything but
+    the replay ring's tensors, which become a per-env int64 sum of their
+    bit patterns (computed on the card)."""
+    import torch
+
+    from cartpoleplusplus_tpu_torch.ckpt.checkpoint import to_tree
+
+    tree = to_tree(st, exclude=("replay",))
+    rs = getattr(st, "replay", None)
+    if rs is not None and with_ring:
+        def bits(x):
+            x = x.reshape(x.shape[0], -1)
+            if x.dtype == torch.float32:
+                x = x.view(torch.int32)
+            return x.to(torch.int64).sum(1).cpu()
+        tree["replay"] = {"obs": bits(rs.obs), "action": bits(rs.action),
+                          "reward": bits(rs.reward), "done": bits(rs.done),
+                          "cursor": rs.cursor, "filled": rs.filled}
+    return tree
+
+
+def _trees_equal(a, b, path="") -> list:
+    """The paths where two digest trees differ (bit for bit)."""
+    import torch
+
+    if isinstance(a, dict):
+        return [p for k in a for p in _trees_equal(a[k], b[k],
+                                                   f"{path}.{k}")]
+    if isinstance(a, (list, tuple)):
+        return [p for i, (x, y) in enumerate(zip(a, b))
+                for p in _trees_equal(x, y, f"{path}[{i}]")]
+    if isinstance(a, torch.Tensor):
+        return [] if a.dtype == b.dtype and torch.equal(a, b) else [path]
+    return [] if a == b else [path]
+
+
+def _dist_agent(name, num_envs, mesh=None, spmd=True, **cfg):
+    """A port agent at its CLI defaults (DDPG and NAF on the continuous
+    preset) on `num_envs` global envs, this rank's shard over `mesh`."""
+    import torch
+
+    from cartpoleplusplus_tpu_torch import agents
+    from cartpoleplusplus_tpu_torch.env import CartPole3D
+    from cartpoleplusplus_tpu_torch.physics.params import (
+        CartPoleParams, continuous_params)
+
+    cls, cfg_cls = {"ddpg": (agents.DDPG, agents.DDPGConfig),
+                    "dqn": (agents.DQN, agents.DQNConfig),
+                    "naf": (agents.NAF, agents.NAFConfig),
+                    "lrpg": (agents.LRPG, agents.LRPGConfig)}[name]
+    params = (continuous_params() if name in ("ddpg", "naf")
+              else CartPoleParams())
+    n = mesh.size if mesh is not None else 1
+    dev = mesh.device if mesh is not None else torch.device("cuda", 0)
+    env = CartPole3D(params, num_envs=num_envs // n, device=dev)
+    shard = dict(group=mesh, num_shards=n) if mesh is not None else {}
+    return cls(env, cfg_cls(**cfg), spmd=spmd, **shard)
+
+
+def _timed_steps(step, st, n, timed_collectives=False):
+    """n train steps: (state, seconds per step by the host clock, the
+    collectives' calls, bytes and seconds per step)."""
+    import torch
+
+    from cartpoleplusplus_tpu_torch.dist import STATS, reset_stats
+
+    torch.cuda.synchronize()
+    reset_stats(timed=timed_collectives)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        st, m = step(st)
+    float(m["reward_mean"])
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / n
+    per = {k: STATS[k] / n for k in ("calls", "bytes", "seconds")}
+    reset_stats()
+    return st, secs, per
+
+
+def _dist_worker(spec_path: str, rank: int) -> int:
+    """One rank of phase 29 (run as `chip_smoke.py --dist-rank SPEC RANK`
+    by phase_distribution): joins the group, runs the spec's jobs with
+    the launch counters zeroed around each, and saves its results."""
+    import os
+
+    import torch
+
+    from cartpoleplusplus_tpu_torch.dist import (
+        initialize_multihost, make_distributed_train_step, make_mesh,
+        make_shardmap_train_step)
+
+    spec = json.load(open(spec_path))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_multihost(spec["init"], spec["world"], rank,
+                         backend=spec["backend"], device="cuda",
+                         timeout_s=DIST_TIMEOUT_S)
+    mesh = make_mesh()
+    out = {}
+    if spec.get("job") == "probe":
+        # Which collectives gloo (or NCCL) takes on CUDA tensors.
+        from cartpoleplusplus_tpu_torch.dist.mesh import gather_to_root
+
+        x = torch.arange(4.0, device=mesh.device) + rank
+        u = (torch.arange(4, device=mesh.device) * (rank + 1)).to(
+            torch.uint8)
+
+        def reduce_uint8():
+            w = u.clone()
+            torch.distributed.all_reduce(w)
+            want = sum(torch.arange(4) * (r + 1) for r in range(mesh.size))
+            assert torch.equal(w.cpu(), want.to(torch.uint8)), w
+
+        def gather():
+            got = gather_to_root(x, mesh)
+            want = torch.cat([torch.arange(4.0) + r
+                              for r in range(mesh.size)])
+            assert (got is None) == (rank != 0)
+            assert got is None or torch.equal(got, want), got
+
+        res = {}
+        for name, fn in (("all_reduce", lambda: torch.distributed
+                          .all_reduce(x.clone())),
+                         ("all_reduce_uint8", reduce_uint8),
+                         ("all_gather", lambda: torch.distributed.all_gather(
+                             [torch.empty_like(x) for _ in
+                              range(mesh.size)], x)),
+                         ("gather_to_root", gather)):
+            try:
+                fn()
+                torch.cuda.synchronize()
+                res[name] = "ok"
+            except Exception as e:  # reported, and the phase decides
+                res[name] = f"{type(e).__name__}: {e}"[:200]
+        if spec["backend"] == "nccl":
+            # One rank: the sum and the gather of one tensor are the tensor.
+            y = torch.randn(1 << 20, device=mesh.device)
+            w, g = y.clone(), [torch.empty_like(y)]
+            torch.distributed.all_reduce(w)
+            torch.distributed.all_gather(g, y)
+            torch.cuda.synchronize()
+            res["exact"] = bool(torch.equal(w, y) and torch.equal(g[0], y))
+            t0 = time.perf_counter()
+            for _ in range(20):
+                torch.distributed.all_reduce(w)
+            torch.cuda.synchronize()
+            res["all_reduce_4MiB_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+        out = res
+    else:
+        _zero_counts()
+        for job in spec["jobs"]:
+            name, spmd = job["agent"], job["learner"] == "spmd"
+            agent = _dist_agent(name, job["envs"], mesh, spmd, **job["cfg"])
+            st = agent.init(0)
+            make = (make_distributed_train_step if spmd
+                    else make_shardmap_train_step)
+            step = make(agent, mesh)
+            _zero_counts()
+            for _ in range(job["steps"]):
+                st, m = step(st)
+            torch.cuda.synchronize()
+            res = {"digest": _state_digest(st), "launches": _read_counts(),
+                   "metrics": {k: float(v) for k, v in m.items()}}
+            if job.get("time"):
+                st, res["step_s"], _ = _timed_steps(step, st,
+                                                    DIST_TIME_STEPS)
+                st, res["timed_step_s"], res["collectives"] = _timed_steps(
+                    step, st, DIST_TIME_STEPS, timed_collectives=True)
+            out[job["tag"]] = res
+            del st, agent, step
+            torch.cuda.empty_cache()
+    torch.save(out, os.path.join(spec["out"], f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _spawn_ranks(tmp, tag, spec):
+    """Run phase 29's ranks (this script with --dist-rank) and return
+    their results; any rank that fails or outlives the timeout fails the
+    phase (every rank is killed first)."""
+    import os
+
+    import torch
+
+    out = os.path.join(tmp, tag)
+    os.makedirs(out)
+    spec = dict(spec, out=out, init=f"file://{out}/rendezvous")
+    path = os.path.join(out, "spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    env = dict(os.environ, WORLD_SIZE=str(spec["world"]),
+               LOCAL_WORLD_SIZE=str(spec["world"]))
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "--dist-rank", path, str(r)],
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(spec["world"])]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DIST_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"{tag} rank {r} exit {p.returncode}:\n" \
+            f"{log[-4000:]}"
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(spec["world"])]
+
+
+def phase_distribution(dev) -> dict:
+    """Phase 29 (see the module docstring): returns the per-rank launches
+    of each sharded path."""
+    import tempfile
+
+    import torch
+
+    card = _card()
+    tmp = tempfile.mkdtemp(prefix="cp_dist_")
+    pre = presample_times(dev)
+    print(f"presample (DDPG defaults: {N_ENVS} envs, ring 1024, K 16, "
+          f"batch 256; card {card}), ms: {json.dumps(pre)}", flush=True)
+    probe = _spawn_ranks(tmp, "probe", dict(world=2, backend="gloo",
+                                            job="probe"))
+    print(f"dist: gloo on cuda tensors, 2 ranks on cuda:0: "
+          f"{json.dumps(probe)}", flush=True)
+    assert all(v == "ok" for r in probe for v in r.values()), probe
+
+    # One process at 8192 envs: the SPMD learner's reference and the
+    # 1-process step time.
+    agent = _dist_agent("ddpg", DIST_ENVS)
+    st = agent.init(0)
+    step = functools.partial(agent.train_step)
+    _zero_counts()
+    for _ in range(DIST_CHECK_STEPS):
+        st, m = step(st)
+    one_launches = _read_counts()
+    want = _state_digest(st)
+    st, one_s, _ = _timed_steps(step, st, DIST_TIME_STEPS)
+    del st, agent, step
+    torch.cuda.empty_cache()
+    assert one_launches["B2"] == DIST_CHECK_STEPS and \
+        one_launches["B3"] == DIST_CHECK_STEPS - 1, one_launches
+
+    jobs = [dict(tag="spmd", agent="ddpg", learner="spmd", envs=DIST_ENVS,
+                 steps=DIST_CHECK_STEPS, cfg={}, time=True),
+            dict(tag="shardmap", agent="ddpg", learner="shardmap",
+                 envs=DIST_ENVS, steps=DIST_CHECK_STEPS, cfg={}, time=True),
+            dict(tag="dqn", agent="dqn", learner="shardmap",
+                 envs=DIST_AGENT_ENVS, steps=DIST_AGENT_STEPS, cfg={}),
+            dict(tag="naf", agent="naf", learner="shardmap",
+                 envs=DIST_AGENT_ENVS, steps=DIST_AGENT_STEPS,
+                 cfg={"learner": "kernel"}),
+            dict(tag="lrpg", agent="lrpg", learner="shardmap",
+                 envs=DIST_AGENT_ENVS, steps=DIST_AGENT_STEPS, cfg={})]
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks(tmp, "ranks", dict(world=2, backend="gloo",
+                                            jobs=jobs))
+    ranks_s = time.perf_counter() - t0
+
+    # SPMD: the ranks' shards concatenated equal one process, bit for bit.
+    spmd = [r["spmd"] for r in ranks]
+    got = dict(spmd[0]["digest"])
+    for key in ("env_state", "obs", "noise", "replay"):
+        got[key] = _cat_digest([r["digest"][key] for r in spmd])
+    diff = _trees_equal(got, want)
+    err = _digest_err(got, want)
+    print(f"dist spmd ddpg 2 ranks x 4096 vs 1 process x 8192, "
+          f"{DIST_CHECK_STEPS} steps: {len(diff)} fields differ "
+          f"(max abs err {err:.3g}); launches per rank "
+          f"{[r['launches'] for r in spmd]}", flush=True)
+    assert not diff, f"SPMD differs from one process at {diff[:10]}"
+
+    per_rank = {}
+    for tag, want_k in (("spmd", dict(B2=DIST_CHECK_STEPS,
+                                      B3=DIST_CHECK_STEPS - 1)),
+                        ("shardmap", dict(B2=DIST_CHECK_STEPS,
+                                          B3=DIST_CHECK_STEPS - 1)),
+                        ("dqn", dict(B4=DIST_AGENT_STEPS,
+                                     B5=DIST_AGENT_STEPS - 1)),
+                        ("naf", dict(B6=DIST_AGENT_STEPS,
+                                     B7=DIST_AGENT_STEPS - 1)),
+                        ("lrpg", dict(B8=DIST_AGENT_STEPS,
+                                      B9=DIST_AGENT_STEPS))):
+        rs = [r[tag] for r in ranks]
+        for r in rs:
+            assert _only(r["launches"], **want_k), (tag, r["launches"])
+            for v in r["metrics"].values():
+                assert math.isfinite(v), (tag, r["metrics"])
+        # Replicated fields (everything but the env-shaped ones) equal.
+        rep = [{k: v for k, v in r["digest"].items()
+                if k not in ("env_state", "obs", "noise", "replay")}
+               for r in rs]
+        diff = _trees_equal(rep[1], rep[0])
+        assert not diff, f"{tag}: ranks differ at {diff[:10]}"
+        per_rank[tag] = rs[0]["launches"]
+        print(f"dist {tag}: ranks bit-identical; launches per rank "
+              f"{rs[0]['launches']}; metrics {json.dumps(rs[0]['metrics'])}",
+              flush=True)
+
+    timing = {}
+    for tag in ("spmd", "shardmap"):
+        rs = [r[tag] for r in ranks]
+        timing[tag] = dict(
+            step_ms=[r["step_s"] * 1e3 for r in rs],
+            timed_step_ms=[r["timed_step_s"] * 1e3 for r in rs],
+            collective_ms=[r["collectives"]["seconds"] * 1e3 for r in rs],
+            collective_calls=rs[0]["collectives"]["calls"],
+            collective_bytes=rs[0]["collectives"]["bytes"])
+    print(f"dist timing (DDPG defaults, 8192 global envs; card {card}): "
+          f"1 process {one_s * 1e3:.4f} ms per train step; "
+          f"{json.dumps(timing)}; the 2-rank spawn {ranks_s:.1f} s",
+          flush=True)
+
+    nccl = _spawn_ranks(tmp, "nccl", dict(world=1, backend="nccl",
+                                          job="probe"))[0]
+    print(f"dist nccl 1 rank: {json.dumps(nccl)}", flush=True)
+    assert all(nccl[k] == "ok" for k in ("all_reduce", "all_reduce_uint8",
+                                         "all_gather", "gather_to_root")), \
+        nccl
+    assert nccl["exact"], nccl
+    return {"per_rank": per_rank, "timing": timing, "one_ms": one_s * 1e3,
+            "presample_ms": pre}
+
+
+PRESAMPLE_REPS = 50
+
+
+def presample_times(dev) -> dict:
+    """Milliseconds (host clock, the card synchronised; median of
+    PRESAMPLE_REPS) of one presample of K minibatches at the DDPG
+    defaults (4096 envs, ring 1024 per env, K 16, batch 256) from a full
+    ring, per sample mode, the CPU draw included as on the train path."""
+    import torch
+
+    from cartpoleplusplus_tpu_torch import agents
+    from cartpoleplusplus_tpu_torch.env import CartPole3D
+    from cartpoleplusplus_tpu_torch.physics.params import continuous_params
+
+    agent = agents.DDPG(CartPole3D(continuous_params(), num_envs=N_ENVS,
+                                   device=dev), agents.DDPGConfig())
+    cfg, rb = agent.cfg, agent.replay
+    rs = agent.init(0).replay
+    rs = rs._replace(filled=rb.capacity, cursor=0)
+    gen = torch.Generator().manual_seed(0)
+    out = {}
+    for mode, fn in (("column", rb.presample_columns),
+                     ("block", rb.presample_block),
+                     ("uniform", rb.presample_uniform)):
+        times = []
+        for _ in range(PRESAMPLE_REPS + 3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(rs, cfg.batch_size, cfg.updates_per_step, generator=gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[mode] = statistics.median(times[3:])
+    return out
+
+
+def _cat_digest(parts):
+    """Rank digests' env-shaped tensors concatenated in rank order."""
+    import torch
+
+    a = parts[0]
+    if isinstance(a, dict):
+        return {k: _cat_digest([p[k] for p in parts]) for k in a}
+    if isinstance(a, list):
+        return [_cat_digest([p[i] for p in parts]) for i in range(len(a))]
+    if isinstance(a, torch.Tensor) and a.ndim >= 1:
+        return torch.cat(parts)
+    return a
+
+
+def _digest_err(a, b) -> float:
+    """The largest absolute float difference between two digest trees."""
+    import torch
+
+    if isinstance(a, dict):
+        return max([_digest_err(a[k], b[k]) for k in a] or [0.0])
+    if isinstance(a, (list, tuple)):
+        return max([_digest_err(x, y) for x, y in zip(a, b)] or [0.0])
+    if isinstance(a, torch.Tensor) and a.is_floating_point():
+        return float((a - b).abs().max()) if a.numel() else 0.0
+    return 0.0
+
+
 def _warm_card(dev, seconds: float):
     """A few seconds of matrix products: timed from a cold card, B4 read
     0.52 ms against 0.34-0.41 warm (PERF.md)."""
@@ -3420,6 +3840,18 @@ def main() -> int:
         _warm_card(dev, 2.0)
         print(json.dumps({"b1_ms": b1_times(dev), "card": _card()}),
               flush=True)
+        return 0
+    if sys.argv[1:] == ["--presample-times"]:
+        print(json.dumps({"presample_ms": presample_times(dev),
+                          "card": _card()}), flush=True)
+        return 0
+    if sys.argv[1:2] == ["--dist-rank"]:
+        return _dist_worker(sys.argv[2], int(sys.argv[3]))
+    if sys.argv[1:] == ["--dist-only"]:
+        print(_card(), flush=True)
+        _native.load_library()
+        dist = phase_distribution(dev)
+        print(json.dumps({"dist": dist}), flush=True)
         return 0
     if sys.argv[1:] == ["--b1-probe"]:
         probe = b1_probe(dev)
@@ -3478,6 +3910,7 @@ def main() -> int:
     phase_pixel_agents_step_split(dev)
     phase_sampling(dev)
     phase_render_bfloat16(dev)
+    dist = phase_distribution(dev)["per_rank"]
 
     b1_main = b1["discrete"]  # the benchmark's default params
     kernels = [
@@ -3564,6 +3997,11 @@ def main() -> int:
              ms=b11["gray"]["ms"], plain_ms=b11["gray"]["plain_ms"],
              **_bound_keys(b11["gray"])),
     ]
+    # Per-rank launches on the sharded paths of phase 29.
+    for entry in kernels:
+        key = entry["name"].split()[0]
+        entry["dist_launches_per_rank"] = {
+            tag: n[key] for tag, n in dist.items() if n.get(key)}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -69,22 +69,29 @@ def test_presets_equal_reference():
 
 
 def test_run_fields_equal_reference_but_the_mesh():
-    """RunConfig keeps every reference field, with its default, but the
-    mesh's two; the port adds only `device`."""
+    """RunConfig keeps every reference field, with its default, the mesh's
+    two (`use_mesh`, `learner`) too since they were ported; the port adds
+    only `device` and the process group's `dist_backend`."""
     ref = {f.name: f.default for f in dataclasses.fields(JRunConfig)}
     port = {f.name: f.default for f in dataclasses.fields(RunConfig)}
-    assert set(ref) - set(port) == set(ttrain._NOT_PORTED) == {"use_mesh",
-                                                              "learner"}
-    assert set(port) - set(ref) == {"device"}
+    assert not hasattr(ttrain, "_NOT_PORTED")
+    assert set(ref) - set(port) == set()
+    assert set(port) - set(ref) == {"device", "dist_backend"}
     assert all(port[k] == ref[k] for k in port if k in ref)
 
 
 @pytest.mark.parametrize("flag", (["--use-mesh"], ["--no-use-mesh"],
                                   ["--learner", "shardmap"]))
 def test_mesh_flags_rejected(flag):
-    rc, lines, err = _run(ttrain.main, CPU + flag)
-    assert rc == 2 and not lines
-    assert f"not ported to cartpoleplusplus_tpu_torch yet: {flag[0]}" in err
+    """The mesh's flags, rejected until they were ported, are accepted: a
+    1-process run trains (the mesh is built only over several ranks), and
+    `--learner shardmap` says on stderr, as the reference does, that it
+    falls back to spmd there."""
+    rc, lines, err = _run(ttrain.main, CPU + DDPG_SMALL + [
+        "--total-env-steps", "4", "--log-interval", "1"] + flag)
+    assert rc == 0 and len(lines) == 2
+    assert ("falling back to spmd" in err) == (flag[0] == "--learner")
+    assert "not ported" not in err
 
 
 def _merged(main_mod, argv, preset, agent):
@@ -121,7 +128,7 @@ def test_preset_merges_keep_typed_flags(case):
     argv = ["--agent", agent, "--preset", preset] + extra
     t_run, t_cfg = _merged(ttrain, argv + CPU, preset, agent)
     j_run, j_cfg = _merged(jtrain, argv, preset, agent)
-    skip = {"device", "use_mesh", "learner"}
+    skip = {"device", "dist_backend"}  # the port's own
     assert {k: v for k, v in dataclasses.asdict(t_run).items()
             if k not in skip} == {k: v for k, v in
                                   dataclasses.asdict(j_run).items()

@@ -375,7 +375,12 @@ def cli_rc(argv) -> int:
         return ttrain.main(["--device", "cpu", *argv])
 
 
-@pytest.mark.parametrize("argv", [["--use-mesh"], ["--learner", "shardmap"],
+@pytest.mark.parametrize("argv", [["--use-mesh", "--ddpg.hidden", "8",
+                                   "--ddpg.replay-capacity-per-env", "8",
+                                   *SMALL_RUN],
+                                  ["--learner", "shardmap", "--ddpg.hidden",
+                                   "8", "--ddpg.replay-capacity-per-env", "8",
+                                   *SMALL_RUN],
                                   ["--agent", "naf", "--naf.dtype",
                                    "bfloat16"],
                                   ["--agent", "naf", "--naf.sample", "block",
@@ -386,10 +391,11 @@ def cli_rc(argv) -> int:
                                    "--ddpg.replay-capacity-per-env", "8",
                                    *SMALL_RUN]])
 def test_train_cli_rejects_unported(argv):
-    """The flags the port lacks exit 2. `--naf.sample block` and
-    `--render-dtype bfloat16`, rejected until they were ported, now train
-    on the CPU and exit 0."""
-    ported = "--naf.sample" in argv or "--render-dtype" in argv
+    """The flags the port lacks exit 2. `--naf.sample block`,
+    `--render-dtype bfloat16`, `--use-mesh` and `--learner shardmap`,
+    rejected until they were ported, now train on the CPU and exit 0."""
+    ported = any(f in argv for f in ("--naf.sample", "--render-dtype",
+                                     "--use-mesh", "--learner"))
     assert cli_rc(argv) == (0 if ported else 2)
 
 
