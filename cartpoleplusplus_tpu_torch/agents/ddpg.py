@@ -41,6 +41,7 @@ import torch
 
 from ..env import CartPole3D, EnvState
 from ..models import ActorMLP, CriticMLP, VisualActor, VisualCritic, polyak
+from ..models.nets import compute_dtype
 from ..ops import learner_kernel as lk
 from ..ops.policy_rollout import (fusable, policy_rollout,
                                   reference_policy_rollout)
@@ -91,7 +92,7 @@ class DDPGConfig:
 
 # Fields whose other values select behaviour the port does not have yet.
 _SUPPORTED = {
-    "dtype": ("float32",),
+    "dtype": ("float32", "bfloat16"),
     "sample": ("column", "block", "uniform"),
     "actor_grad_critic": ("updated", "pre"),
     "polyak_cadence": ("per_update", "per_step"),
@@ -189,15 +190,17 @@ class DDPG:
         split(PRNGKey(seed), 4)[2]), empty replay."""
         env, c, dev = self.env, self.cfg, self.env.device
         g = torch.Generator().manual_seed(seed)
-        h = tuple(c.hidden)
+        h, dt = tuple(c.hidden), compute_dtype(c.dtype)
         if env.obs_mode == "pixels":
             vis = dict(features=tuple(c.conv_features), encoder=c.encoder,
-                       generator=g)
+                       generator=g, dtype=dt)
             actor = VisualActor(env.obs_shape, env.action_dim, h, **vis)
             critic = VisualCritic(env.obs_shape, env.action_dim, h, **vis)
         else:
-            actor = ActorMLP(env.obs_size, env.action_dim, h, generator=g)
-            critic = CriticMLP(env.obs_size, env.action_dim, h, generator=g)
+            actor = ActorMLP(env.obs_size, env.action_dim, h, generator=g,
+                             dtype=dt)
+            critic = CriticMLP(env.obs_size, env.action_dim, h, generator=g,
+                               dtype=dt)
         actor, critic = actor.to(dev), critic.to(dev)
         env_state, obs = env.reset(split_seed(seed, 4, 2), self.index_offset)
         st = DDPGState(

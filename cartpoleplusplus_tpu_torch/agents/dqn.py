@@ -39,6 +39,7 @@ import torch
 
 from ..env import CartPole3D, EnvState
 from ..models import QNetMLP, VisualQNet, polyak
+from ..models.nets import compute_dtype
 from ..ops import learner_kernel as lk
 from ..ops.q_rollout import (epsilon_greedy, q_fusable, q_policy_rollout,
                              reference_q_rollout)
@@ -84,7 +85,7 @@ class DQNConfig:
 
 # Fields whose other values select behaviour the port does not have yet.
 _SUPPORTED = {
-    "dtype": ("float32",),
+    "dtype": ("float32", "bfloat16"),
     "sample": ("column", "block", "uniform"),
     "learner": ("auto", "kernel", "xla"),
     "learner_precision": (None,),
@@ -182,13 +183,14 @@ class DQN:
         `init` resets them (its key split(PRNGKey(seed), 3)[1]), empty
         replay."""
         env, c = self.env, self.cfg
-        g = torch.Generator().manual_seed(seed)
+        g, dt = torch.Generator().manual_seed(seed), compute_dtype(c.dtype)
         if env.obs_mode == "pixels":
             q = VisualQNet(env.obs_shape, env.num_actions, tuple(c.hidden),
-                           tuple(c.conv_features), c.encoder, generator=g)
+                           tuple(c.conv_features), c.encoder, generator=g,
+                           dtype=dt)
         else:
             q = QNetMLP(env.obs_size, env.num_actions, tuple(c.hidden),
-                        generator=g)
+                        generator=g, dtype=dt)
         q = q.to(env.device)
         env_state, obs = env.reset(split_seed(seed, 3, 1), self.index_offset)
         st = DQNState(q=q, q_target=copy.deepcopy(q), opt=adam_init(q),

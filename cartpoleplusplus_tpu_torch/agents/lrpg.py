@@ -44,6 +44,7 @@ import torch
 
 from ..env import CartPole3D, EnvState
 from ..models import PolicyMLP, VisualPolicy
+from ..models.nets import compute_dtype
 from ..ops import learner_kernel as lk
 from ..ops.pg_rollout import (gumbel_max, pg_fusable, pg_policy_rollout,
                               reference_pg_rollout)
@@ -79,7 +80,7 @@ class LRPGConfig:
 
 # Fields whose other values select behaviour the port does not have yet.
 _SUPPORTED = {
-    "dtype": ("float32",),
+    "dtype": ("float32", "bfloat16"),
     "learner": ("auto", "kernel", "xla"),
     "learner_precision": (None,),
     "encoder": ("conv", "patch"),
@@ -159,14 +160,14 @@ class LRPG:
         `init` resets them (its key split(PRNGKey(seed), 3)[1]), zero Adam
         moments and baseline."""
         env, c = self.env, self.cfg
-        g = torch.Generator().manual_seed(seed)
+        g, dt = torch.Generator().manual_seed(seed), compute_dtype(c.dtype)
         if env.obs_mode == "pixels":
             policy = VisualPolicy(env.obs_shape, env.num_actions,
                                   tuple(c.hidden), tuple(c.conv_features),
-                                  c.encoder, generator=g)
+                                  c.encoder, generator=g, dtype=dt)
         else:
             policy = PolicyMLP(env.obs_size, env.num_actions,
-                               tuple(c.hidden), generator=g)
+                               tuple(c.hidden), generator=g, dtype=dt)
         policy = policy.to(env.device)
         env_state, obs = env.reset(split_seed(seed, 3, 1), self.index_offset)
         st = LRPGState(policy=policy, opt=adam_init(policy),

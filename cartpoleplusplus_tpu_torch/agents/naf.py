@@ -45,6 +45,7 @@ import torch
 
 from ..env import CartPole3D, EnvState
 from ..models import NafNet, VisualNafNet, polyak
+from ..models.nets import compute_dtype
 from ..ops import learner_kernel as lk
 from ..ops.naf_rollout import (naf_action, naf_fusable, naf_policy_rollout,
                                reference_naf_rollout)
@@ -93,7 +94,7 @@ class NAFConfig:
 
 # Fields whose other values select behaviour the port does not have yet.
 _SUPPORTED = {
-    "dtype": ("float32",),
+    "dtype": ("float32", "bfloat16"),
     "sample": ("column", "block", "uniform"),
     "learner": ("auto", "kernel", "xla"),
     "learner_precision": (None,),
@@ -184,14 +185,14 @@ class NAF:
         `init` resets them (its key split(PRNGKey(seed), 3)[1]), empty
         replay."""
         env, c = self.env, self.cfg
-        g = torch.Generator().manual_seed(seed)
+        g, dt = torch.Generator().manual_seed(seed), compute_dtype(c.dtype)
         if env.obs_mode == "pixels":
             net = VisualNafNet(env.obs_shape, env.action_dim,
                                tuple(c.hidden), tuple(c.conv_features),
-                               c.encoder, generator=g)
+                               c.encoder, generator=g, dtype=dt)
         else:
             net = NafNet(env.obs_size, env.action_dim, tuple(c.hidden),
-                         generator=g)
+                         generator=g, dtype=dt)
         net = net.to(env.device)
         env_state, obs = env.reset(split_seed(seed, 3, 1), self.index_offset)
         st = NAFState(net=net, target=copy.deepcopy(net), opt=adam_init(net),

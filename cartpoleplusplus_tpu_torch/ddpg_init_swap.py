@@ -38,7 +38,9 @@ def _weights(st) -> dict:
 
 
 def make(path: str, seeds: list) -> None:
-    agent = DDPG(CartPole3D(continuous_params(), num_envs=1), DDPGConfig())
+    # The env only shapes the agent; the weights come from CPU generators.
+    agent = DDPG(CartPole3D(continuous_params(), num_envs=1, device="cpu"),
+                 DDPGConfig())
     torch.save({s: _weights(agent.init(s)) for s in seeds}, path)
 
 

@@ -66,16 +66,19 @@ def _map_action(p: CartPoleParams, action) -> torch.Tensor:
 
 class CartPole3D:
     """Batched env on one device. `self` carries static configuration only.
+    The device is the card unless the caller asks for another (no
+    fallback: without a card, "cuda" fails in torch).
 
     Usage:
-        env = CartPole3D(CartPoleParams(), num_envs=4096, device="cuda")
+        env = CartPole3D(CartPoleParams(), num_envs=4096)
+        env = CartPole3D(CartPoleParams(), num_envs=64, device="cpu")
         state, obs = env.reset(0)
         state, obs, reward, done, info = env.step(state, action)
     """
 
     def __init__(self, params: CartPoleParams = CartPoleParams(),
                  num_envs: int = 1, obs_mode: str = "pose_stack",
-                 auto_reset: bool = True, device="cpu",
+                 auto_reset: bool = True, device="cuda",
                  render_config: RenderConfig | None = None):
         if obs_mode not in OBS_MODES:
             raise ValueError(f"obs_mode must be one of {OBS_MODES}")

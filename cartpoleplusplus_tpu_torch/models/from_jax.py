@@ -4,7 +4,10 @@ and for evaluating weights trained by the reference.
 Every input is a tree of numpy arrays (`jax.device_get` of the reference's
 state); nothing here imports JAX. flax Dense kernels are (in, out) and are
 transposed into torch's Linear (out, in) layout; flax Conv kernels are
-(kh, kw, in, out) and become torch's (out, in, kh, kw).
+(kh, kw, in, out) and become torch's (out, in, kh, kw). flax keeps the
+parameters of a bfloat16 net in float32 (`param_dtype`), so one bridge
+serves both compute dtypes: the `dtype` argument of the builders only
+selects the module's compute dtype.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from ..env.cartpole import EnvState
 from ..physics.dynamics import PhysState
 from .nets import (ActorMLP, CriticMLP, NafNet, PolicyMLP, QNetMLP,
                    VisualActor, VisualCritic, VisualNafNet, VisualPolicy,
-                   VisualQNet)
+                   VisualQNet, compute_dtype)
 
 
 def _t(a, device=None) -> torch.Tensor:
@@ -183,56 +186,61 @@ def unflatten_qnet(flat, hidden: Sequence[int], num_actions: int = 5):
 
 
 def actor_from_flax(tree, obs_dim: int, action_dim: int,
-                    hidden: Sequence[int], device=None) -> ActorMLP:
-    net = ActorMLP(obs_dim, action_dim, hidden).to(device)
+                    hidden: Sequence[int], device=None,
+                    dtype=torch.float32) -> ActorMLP:
+    net = ActorMLP(obs_dim, action_dim, hidden, dtype=dtype).to(device)
     net.load_state_dict(actor_state_dict(tree, hidden, device))
     return net
 
 
 def critic_from_flax(tree, obs_dim: int, action_dim: int,
-                     hidden: Sequence[int], device=None) -> CriticMLP:
-    net = CriticMLP(obs_dim, action_dim, hidden).to(device)
+                     hidden: Sequence[int], device=None,
+                     dtype=torch.float32) -> CriticMLP:
+    net = CriticMLP(obs_dim, action_dim, hidden, dtype=dtype).to(device)
     net.load_state_dict(critic_state_dict(tree, hidden, device))
     return net
 
 
 def visual_actor_from_flax(tree, obs_shape, action_dim: int,
                            hidden: Sequence[int], features=(16, 32, 32),
-                           encoder: str = "conv",
-                           device=None) -> VisualActor:
-    net = VisualActor(obs_shape, action_dim, hidden, features,
-                      encoder).to(device)
+                           encoder: str = "conv", device=None,
+                           dtype=torch.float32) -> VisualActor:
+    net = VisualActor(obs_shape, action_dim, hidden, features, encoder,
+                      dtype=dtype).to(device)
     net.load_state_dict(visual_actor_state_dict(tree, hidden, device))
     return net
 
 
 def visual_critic_from_flax(tree, obs_shape, action_dim: int,
                             hidden: Sequence[int], features=(16, 32, 32),
-                            encoder: str = "conv",
-                            device=None) -> VisualCritic:
-    net = VisualCritic(obs_shape, action_dim, hidden, features,
-                       encoder).to(device)
+                            encoder: str = "conv", device=None,
+                            dtype=torch.float32) -> VisualCritic:
+    net = VisualCritic(obs_shape, action_dim, hidden, features, encoder,
+                       dtype=dtype).to(device)
     net.load_state_dict(visual_critic_state_dict(tree, hidden, device))
     return net
 
 
 def qnet_from_flax(tree, obs_dim: int, num_actions: int,
-                   hidden: Sequence[int], device=None) -> QNetMLP:
-    net = QNetMLP(obs_dim, num_actions, hidden).to(device)
+                   hidden: Sequence[int], device=None,
+                   dtype=torch.float32) -> QNetMLP:
+    net = QNetMLP(obs_dim, num_actions, hidden, dtype=dtype).to(device)
     net.load_state_dict(qnet_state_dict(tree, hidden, device))
     return net
 
 
 def policy_from_flax(tree, obs_dim: int, num_actions: int,
-                     hidden: Sequence[int], device=None) -> PolicyMLP:
-    net = PolicyMLP(obs_dim, num_actions, hidden).to(device)
+                     hidden: Sequence[int], device=None,
+                     dtype=torch.float32) -> PolicyMLP:
+    net = PolicyMLP(obs_dim, num_actions, hidden, dtype=dtype).to(device)
     net.load_state_dict(policy_state_dict(tree, hidden, device))
     return net
 
 
 def naf_from_flax(tree, obs_dim: int, action_dim: int,
-                  hidden: Sequence[int], device=None) -> NafNet:
-    net = NafNet(obs_dim, action_dim, hidden).to(device)
+                  hidden: Sequence[int], device=None,
+                  dtype=torch.float32) -> NafNet:
+    net = NafNet(obs_dim, action_dim, hidden, dtype=dtype).to(device)
     net.load_state_dict(naf_state_dict(tree, hidden, device))
     return net
 
@@ -287,22 +295,23 @@ def ddpg_state_from_jax(agent, st, generator=None):
 
     c, env, dev = agent.cfg, agent.env, agent.env.device
     h, act_dim = tuple(c.hidden), env.action_dim
+    dt = compute_dtype(c.dtype)
     if env.obs_mode == "pixels":
         vis = (env.obs_shape, act_dim, h, tuple(c.conv_features), c.encoder)
 
         def actor_from(t):
-            return visual_actor_from_flax(t, *vis, device=dev)
+            return visual_actor_from_flax(t, *vis, device=dev, dtype=dt)
 
         def critic_from(t):
-            return visual_critic_from_flax(t, *vis, device=dev)
+            return visual_critic_from_flax(t, *vis, device=dev, dtype=dt)
 
         actor_sd, critic_sd = visual_actor_state_dict, visual_critic_state_dict
     else:
         def actor_from(t):
-            return actor_from_flax(t, env.obs_size, act_dim, h, dev)
+            return actor_from_flax(t, env.obs_size, act_dim, h, dev, dt)
 
         def critic_from(t):
-            return critic_from_flax(t, env.obs_size, act_dim, h, dev)
+            return critic_from_flax(t, env.obs_size, act_dim, h, dev, dt)
 
         actor_sd, critic_sd = actor_state_dict, critic_state_dict
     actor, critic = actor_from(st.actor), critic_from(st.critic)
@@ -336,18 +345,18 @@ def _net_bridge(agent, n_out: int, flat, visual, unflatten):
     (for the Adam moments). `flat` and `visual` are (module class,
     state-dict bridge) for state and pixel observations."""
     c, env, dev = agent.cfg, agent.env, agent.env.device
-    h = tuple(c.hidden)
+    h, dt = tuple(c.hidden), compute_dtype(c.dtype)
     if env.obs_mode == "pixels":
         cls, to_sd = visual
 
         def make():
             return cls(env.obs_shape, n_out, h, tuple(c.conv_features),
-                       c.encoder)
+                       c.encoder, dtype=dt)
     else:
         cls, to_sd = flat
 
         def make():
-            return cls(env.obs_size, n_out, h)
+            return cls(env.obs_size, n_out, h, dtype=dt)
 
     def sd_of(x):
         if isinstance(x, (list, tuple)):

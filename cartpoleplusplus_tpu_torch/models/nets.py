@@ -10,7 +10,16 @@ torch), with flax's numerics rather than torch's defaults:
   * the critic joins the action after its first layer;
   * a Conv pads 'SAME' as flax does (at stride 2 on an even size: 0 before
     and 1 after on each spatial axis), takes and flattens images in (H, W,
-    C) order, and scales uint8 input by float32(1/255).
+    C) order, and scales uint8 input by float32(1/255);
+  * every net takes `dtype`, its compute dtype (flax's `dtype`): float32,
+    or bfloat16 with the parameters still float32 (flax's `param_dtype`)
+    and flax's rounding order under jit (what the reference trains
+    with): each Dense and Conv casts input, weight and bias to bfloat16
+    and rounds the product to bfloat16 before the bias joins it (never
+    one fused addmm); a Dense's sum reaches its LayerNorm or float32 head
+    unrounded (XLA's excess precision), a Conv's is rounded to bfloat16;
+    LayerNorm takes its statistics, scale and bias in float32 and casts
+    once; a tanh head takes tanh in float32 of its rounded sum.
 
 Weights are stored torch-style (Linear.weight is (out, in));
 models/from_jax.py converts flax parameter trees into these modules.
@@ -33,15 +42,43 @@ _TRUNC_STD = 0.87962566103423978
 HEAD_INIT = 3e-3
 
 
-class LayerNorm(nn.Module):
-    """flax.linen.LayerNorm over the last axis (fast variance)."""
+def compute_dtype(name: str) -> torch.dtype:
+    """An agent config's `dtype` string -> the nets' compute dtype."""
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
 
-    def __init__(self, features: int):
+
+def dense(layer: nn.Linear, x, dtype=torch.float32):
+    """flax.linen.Dense at compute dtype `dtype`, as the jit-compiled apply
+    computes it. float32 is the Linear itself; bfloat16 casts input,
+    kernel and bias (flax's promote_dtype), rounds the product to
+    bfloat16, and adds the bias in float32, returning the float32 sum:
+    every Dense of the nets feeds a LayerNorm or a float32 head, and under
+    jit XLA drops the sum's rounding to bfloat16 there (its excess
+    precision), so the sum reaches them unrounded."""
+    if dtype == torch.float32:
+        return layer(x)
+    return (F.linear(x.to(dtype), layer.weight.to(dtype)).to(torch.float32)
+            + layer.bias.to(dtype).to(torch.float32))
+
+
+class LayerNorm(nn.Module):
+    """flax.linen.LayerNorm over the last axis (fast variance). At a
+    bfloat16 `dtype` the statistics, rsqrt, scale and bias are float32 on
+    the bfloat16 input (flax's _compute_stats promotes), and the result
+    is cast to bfloat16 once."""
+
+    def __init__(self, features: int, dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x):
+        if self.dtype != torch.float32:
+            return self._normalize(x.to(torch.float32)).to(self.dtype)
+        return self._normalize(x)
+
+    def _normalize(self, x):
         mean = x.mean(-1, keepdim=True)
         mean2 = (x * x).mean(-1, keepdim=True)
         var = torch.clamp(mean2 - mean * mean, min=0.0)
@@ -72,28 +109,40 @@ def _init_dense(layer: nn.Linear, generator, head: bool = False) -> None:
         layer.bias.zero_()
 
 
+def _tanh_head(a, dtype):
+    """flax's tanh(Dense(x)).astype(float32) as the jit-compiled apply
+    computes it: the head's sum rounded to the compute dtype, then tanh in
+    float32 (XLA keeps tanh's float32 result, not rounding it first)."""
+    return torch.tanh(a.to(dtype).to(torch.float32))
+
+
 class _TorsoMLP(nn.Module):
     """[Dense -> LayerNorm -> relu] x len(hidden), then a Dense head of
-    `out` units (flax's `_Torso` + head)."""
+    `out` units (flax's `_Torso` + head), computed at `dtype`."""
 
     def __init__(self, obs_dim: int, out: int, hidden: Sequence[int],
-                 generator, uniform_head: bool):
+                 generator, uniform_head: bool, dtype=torch.float32):
         super().__init__()
         self.hidden = tuple(hidden)
+        self.dtype = dtype
         dims = (obs_dim,) + self.hidden
         self.torso = nn.ModuleList(nn.Linear(a, b)
                                    for a, b in zip(dims[:-1], dims[1:]))
-        self.norms = nn.ModuleList(LayerNorm(h) for h in self.hidden)
+        self.norms = nn.ModuleList(LayerNorm(h, dtype) for h in self.hidden)
         self.head = nn.Linear(dims[-1], out)
         for layer in self.torso:
             _init_dense(layer, generator)
         _init_dense(self.head, generator, head=uniform_head)
 
     def features(self, obs):
-        x = obs
-        for dense, norm in zip(self.torso, self.norms):
-            x = torch.relu(norm(dense(x)))
+        x = obs.to(self.dtype)
+        for layer, norm in zip(self.torso, self.norms):
+            x = torch.relu(norm(dense(layer, x, self.dtype)))
         return x
+
+    def head_out(self, obs):
+        """The head's output at the compute dtype."""
+        return dense(self.head, self.features(obs), self.dtype)
 
 
 class ActorMLP(_TorsoMLP):
@@ -101,12 +150,13 @@ class ActorMLP(_TorsoMLP):
     torso, then a tanh head initialised U[0, 3e-3)."""
 
     def __init__(self, obs_dim: int, action_dim: int = 2,
-                 hidden: Sequence[int] = (256, 256), generator=None):
+                 hidden: Sequence[int] = (256, 256), generator=None,
+                 dtype=torch.float32):
         super().__init__(obs_dim, action_dim, hidden, generator,
-                         uniform_head=True)
+                         uniform_head=True, dtype=dtype)
 
     def forward(self, obs):
-        return torch.tanh(self.head(self.features(obs)))
+        return _tanh_head(self.head_out(obs), self.dtype)
 
 
 class QNetMLP(_TorsoMLP):
@@ -115,12 +165,13 @@ class QNetMLP(_TorsoMLP):
     kernel, zero bias)."""
 
     def __init__(self, obs_dim: int, num_actions: int = 5,
-                 hidden: Sequence[int] = (256, 256), generator=None):
+                 hidden: Sequence[int] = (256, 256), generator=None,
+                 dtype=torch.float32):
         super().__init__(obs_dim, num_actions, hidden, generator,
-                         uniform_head=False)
+                         uniform_head=False, dtype=dtype)
 
     def forward(self, obs):
-        return self.head(self.features(obs))
+        return self.head_out(obs).to(torch.float32)
 
 
 class PolicyMLP(QNetMLP):
@@ -128,8 +179,9 @@ class PolicyMLP(QNetMLP):
     structure and init, hidden (64, 64) by default."""
 
     def __init__(self, obs_dim: int, num_actions: int = 5,
-                 hidden: Sequence[int] = (64, 64), generator=None):
-        super().__init__(obs_dim, num_actions, hidden, generator)
+                 hidden: Sequence[int] = (64, 64), generator=None,
+                 dtype=torch.float32):
+        super().__init__(obs_dim, num_actions, hidden, generator, dtype)
 
 
 def softplus(x):
@@ -147,11 +199,12 @@ class NafNet(_TorsoMLP):
     3e-3), every row with fan-in H."""
 
     def __init__(self, obs_dim: int, action_dim: int = 2,
-                 hidden: Sequence[int] = (256, 256), generator=None):
+                 hidden: Sequence[int] = (256, 256), generator=None,
+                 dtype=torch.float32):
         self.action_dim = action_dim
         super().__init__(obs_dim, 1 + action_dim
                          + action_dim * (action_dim + 1) // 2, hidden,
-                         generator, uniform_head=False)
+                         generator, uniform_head=False, dtype=dtype)
         with torch.no_grad():
             mu_rows = self.head.weight[1:1 + action_dim]
             mu_rows.copy_(torch.empty_like(mu_rows).uniform_(
@@ -160,9 +213,9 @@ class NafNet(_TorsoMLP):
     def forward(self, obs, action=None):
         """(v, mu), or (q, mu, v) when an action is given."""
         d = self.action_dim
-        out = self.head(self.features(obs))
-        v = out[..., 0]
-        mu = torch.tanh(out[..., 1:1 + d])
+        out = self.head_out(obs).to(torch.float32)
+        v = out[..., 0].to(self.dtype).to(torch.float32)
+        mu = _tanh_head(out[..., 1:1 + d], self.dtype)
         if action is None:
             return v, mu
         rows, cols = torch.tril_indices(d, d, device=out.device)
@@ -181,13 +234,15 @@ class CriticMLP(nn.Module):
     """Q(s, a): the action joins after the first layer (DDPG critic)."""
 
     def __init__(self, obs_dim: int, action_dim: int = 2,
-                 hidden: Sequence[int] = (256, 256), generator=None):
+                 hidden: Sequence[int] = (256, 256), generator=None,
+                 dtype=torch.float32):
         super().__init__()
         self.hidden = tuple(hidden)
+        self.dtype = dtype
         ins = (obs_dim, self.hidden[0] + action_dim) + self.hidden[1:-1]
         self.torso = nn.ModuleList(nn.Linear(a, b)
                                    for a, b in zip(ins, self.hidden))
-        self.norms = nn.ModuleList(LayerNorm(h) for h in self.hidden)
+        self.norms = nn.ModuleList(LayerNorm(h, dtype) for h in self.hidden)
         head_in = self.hidden[-1] + (action_dim if len(hidden) == 1 else 0)
         self.head = nn.Linear(head_in, 1)
         for layer in self.torso:
@@ -195,23 +250,28 @@ class CriticMLP(nn.Module):
         _init_dense(self.head, generator, head=True)
 
     def forward(self, obs, action):
-        x = obs
-        for i, (dense, norm) in enumerate(zip(self.torso, self.norms)):
-            x = torch.relu(norm(dense(x)))
+        x = obs.to(self.dtype)
+        for i, (layer, norm) in enumerate(zip(self.torso, self.norms)):
+            x = torch.relu(norm(dense(layer, x, self.dtype)))
             if i == 0:
-                x = torch.cat([x, action], dim=-1)
-        return self.head(x).squeeze(-1)
+                x = torch.cat([x, action.to(self.dtype)], dim=-1)
+        return dense(self.head, x, self.dtype).to(self.dtype).squeeze(-1).to(torch.float32)
 
 
 _INV_255 = float(np.float32(1.0 / 255.0))
 
 
-def _as_float_image(img):
-    """uint8 frames (the env's quantized obs) -> float32 * float32(1/255);
-    float frames -> float32."""
-    if img.dtype == torch.uint8:
+def _as_float_image(img, dtype=torch.float32):
+    """uint8 frames (the env's quantized obs) -> `dtype` * `dtype`(1/255),
+    rounded to `dtype`; float frames -> `dtype`."""
+    if img.dtype != torch.uint8:
+        return img.to(dtype)
+    if dtype == torch.float32:
         return img.to(torch.float32) * _INV_255
-    return img.to(torch.float32)
+    # A tensor of `dtype`, not a Python scalar: torch would take a scalar
+    # at float32 where flax multiplies by dtype(1/255).
+    return img.to(dtype) * torch.tensor(1.0 / 255.0, dtype=dtype,
+                                        device=img.device)
 
 
 def _same_pad(size: int, stride: int, kernel: int) -> tuple:
@@ -229,9 +289,10 @@ class PixelEncoder(nn.Module):
     XLA, outside any kernel of its own)."""
 
     def __init__(self, obs_shape, features: Sequence[int] = (16, 32, 32),
-                 generator=None):
+                 generator=None, dtype=torch.float32):
         super().__init__()
         h, w, c = obs_shape
+        self.dtype = dtype
         self.convs = nn.ModuleList()
         self.pads = []
         for f in features:
@@ -249,12 +310,19 @@ class PixelEncoder(nn.Module):
 
     def forward(self, img):
         lead = img.shape[:-3]
-        x = _as_float_image(img).reshape((-1,) + img.shape[-3:])
+        dt = self.dtype
+        x = _as_float_image(img, dt).reshape((-1,) + img.shape[-3:])
         x = x.permute(0, 3, 1, 2)                      # NHWC -> NCHW
         for conv, pad in zip(self.convs, self.pads):
-            x = torch.relu(conv(F.pad(x, pad)))
+            x = F.pad(x, pad)
+            if dt == torch.float32:
+                x = conv(x)
+            else:  # product, then bias, as `dense`
+                x = (F.conv2d(x, conv.weight.to(dt), None, conv.stride)
+                     + conv.bias.to(dt)[:, None, None])
+            x = torch.relu(x)
         x = x.permute(0, 2, 3, 1)                      # flax's (H, W, C)
-        return x.reshape(lead + (self.out_dim,))
+        return x.reshape(lead + (self.out_dim,)).to(torch.float32)
 
 
 class PatchEncoder(nn.Module):
@@ -263,15 +331,17 @@ class PatchEncoder(nn.Module):
     width in `features`, then the (H/P) (W/P) patch features flattened."""
 
     def __init__(self, obs_shape, patch: int = 6,
-                 features: Sequence[int] = (128, 32), generator=None):
+                 features: Sequence[int] = (128, 32), generator=None,
+                 dtype=torch.float32):
         super().__init__()
         h, w, c = obs_shape
+        self.dtype = dtype
         self.patch = patch
         self.hp, self.wp = h // patch, w // patch
         dims = (patch * patch * c,) + tuple(features)
         self.dense = nn.ModuleList(nn.Linear(a, b)
                                    for a, b in zip(dims[:-1], dims[1:]))
-        self.norms = nn.ModuleList(LayerNorm(f) for f in features)
+        self.norms = nn.ModuleList(LayerNorm(f, dtype) for f in features)
         for layer in self.dense:
             _init_dense(layer, generator)
         self.out_dim = self.hp * self.wp * features[-1]
@@ -280,23 +350,26 @@ class PatchEncoder(nn.Module):
         lead = img.shape[:-3]
         *_, h, w, c = img.shape
         p, hp, wp = self.patch, self.hp, self.wp
-        x = _as_float_image(img).reshape(lead + (hp, p, wp, p, c))
+        x = _as_float_image(img, self.dtype).reshape(lead
+                                                     + (hp, p, wp, p, c))
         x = x.movedim(-4, -3)                          # (..., hp, wp, p, p, c)
         x = x.reshape(lead + (hp * wp, p * p * c))
-        for dense, norm in zip(self.dense, self.norms):
-            x = torch.relu(norm(dense(x)))
-        return x.reshape(lead + (self.out_dim,))
+        for layer, norm in zip(self.dense, self.norms):
+            x = torch.relu(norm(dense(layer, x, self.dtype)))
+        return x.reshape(lead + (self.out_dim,)).to(torch.float32)
 
 
-def make_encoder(encoder: str, obs_shape, conv_features, generator=None):
+def make_encoder(encoder: str, obs_shape, conv_features, generator=None,
+                 dtype=torch.float32):
     """The Visual* nets' encoder: "conv" (PixelEncoder over
     `conv_features`) or "patch" (PatchEncoder at its defaults)."""
     if encoder == "patch":
-        return PatchEncoder(obs_shape, generator=generator)
+        return PatchEncoder(obs_shape, generator=generator, dtype=dtype)
     if encoder != "conv":
         raise ValueError(f"encoder must be 'conv' or 'patch', got "
                          f"{encoder!r}")
-    return PixelEncoder(obs_shape, conv_features, generator=generator)
+    return PixelEncoder(obs_shape, conv_features, generator=generator,
+                        dtype=dtype)
 
 
 class _VisualNet(nn.Module):
@@ -308,11 +381,12 @@ class _VisualNet(nn.Module):
 
     def __init__(self, obs_shape, n_out: int, hidden: Sequence[int],
                  features: Sequence[int] = (16, 32, 32),
-                 encoder: str = "conv", generator=None):
+                 encoder: str = "conv", generator=None, dtype=torch.float32):
         super().__init__()
-        self.encoder = make_encoder(encoder, obs_shape, features, generator)
+        self.encoder = make_encoder(encoder, obs_shape, features, generator,
+                                    dtype)
         self.mlp = self.mlp_cls(self.encoder.out_dim, n_out, hidden,
-                                generator=generator)
+                                generator=generator, dtype=dtype)
         self.hidden = self.mlp.hidden
 
     def forward(self, img, *args):

@@ -195,6 +195,15 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def pixel_render_config(run: RunConfig) -> RenderConfig:
+    """The RenderConfig of a pixel run's `--render-*` flags."""
+    return RenderConfig(
+        width=run.render_size, height=run.render_size,
+        grayscale=run.render_grayscale, dtype=run.render_dtype,
+        obs_uint8=run.render_obs_uint8, frame_diff=run.render_frame_diff,
+        frame_diff_gain=run.render_frame_diff_gain)
+
+
 def build(run: RunConfig, args: argparse.Namespace, provided: set,
           mesh=None, spmd: bool = True):
     """(env, agent) from parsed configuration. DDPG's and NAF's env
@@ -215,14 +224,8 @@ def build(run: RunConfig, args: argparse.Namespace, provided: set,
     else:
         shard, num_envs = {}, run.num_envs
     params = from_args(CartPoleParams, args, prefix="env.")
-    render_config = None
-    if run.obs_mode == "pixels":
-        render_config = RenderConfig(
-            width=run.render_size, height=run.render_size,
-            grayscale=run.render_grayscale, dtype=run.render_dtype,
-            obs_uint8=run.render_obs_uint8,
-            frame_diff=run.render_frame_diff,
-            frame_diff_gain=run.render_frame_diff_gain)
+    render_config = (None if run.obs_mode != "pixels"
+                     else pixel_render_config(run))
     if run.agent == "random":
         env = CartPole3D(params, num_envs=num_envs,
                          obs_mode=run.obs_mode, device=device,
@@ -329,9 +332,12 @@ def main(argv=None) -> int:
         return 2
     if device.type == "cuda":
         # Full float32, as the reference's f32 nets compute: cuDNN (the
-        # pixel encoders' convs) defaults to TF32.
+        # pixel encoders' convs) defaults to TF32. bfloat16 products
+        # reduce in float32 and round once, as XLA's do.
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+            = False
     try:
         mesh = _join_group(run)
     except ValueError as e:

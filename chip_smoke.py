@@ -177,7 +177,38 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      then one rank over NCCL (all-reduce of float32 and uint8, all-gather
      and `gather_to_root` of CUDA tensors).
      Two ranks on one card measure correctness and the collectives' cost,
-     not scaling.
+     not scaling. Then pixel DDPG under shardmap on the same 2 ranks (the
+     pixels preset's agent fields and frames at 16 x 16, 2048 global envs,
+     2 train steps): ranks bit-identical, B10 once per env.step and once
+     for the cached reset frame on each rank, nothing else;
+  30. bfloat16 (`python3 chip_smoke.py --bf16-only` runs it alone): DDPG,
+     DQN, NAF and LRPG at their CLI defaults with `--<agent>.dtype
+     bfloat16`, 3 train steps each with the counters zeroed: the rollout
+     kernel (B2, B4, B6, B8) launches from the float32 weights every step
+     and no learner kernel launches (the plain learner, as the reference's
+     kernel_learner_ok refuses bfloat16), parameters and Adam moments
+     float32, metrics finite; pixel DDPG at the pixels preset's fields for
+     2 train steps (B10 only); each one's train step ms in turns beside
+     float32's on the plain and the kernel learner; then each of the ten
+     bfloat16 nets at (256, 256) (the pixel nets on the conv encoder over
+     B10's 48 x 48 frames), weights perturbed off their init (biases and
+     LayerNorm scales nonzero), on the card against the same net on the
+     CPU at 4096 rows, end to end: the max error in bfloat16 ulps of the
+     output's magnitude and the share of elements off the float32 bar,
+     the state nets inside one ulp and 0.5 % (bf16_parity.TIGHT), the
+     pixel nets inside 4 ulps and 40 % (bf16_parity.PIXEL_CARD: through the
+     convolutions a product's rounding flips compound); and each net with
+     the rounding-order fault planted on the card (bf16_parity.fused_bias)
+     outside its bar;
+  31. the tools: the gym adapter's episode on the card to termination and
+     one render() through B10; params_from_urdf from a copy of the bodies
+     with the pole 1.5 long through B1 at 4096 x 25 against its twin, its
+     states apart from the defaults' run; checked_step clean over 8 steps
+     at 4096 envs, then raising "non-finite pos in EnvState" on a
+     NaN-corrupted state; measure_env_steps_per_sec at 4096 envs x 512
+     steps of the plain env.step (no kernel); a 2-point sweep of a tiny
+     DQN run (B4, B5) and the plot of its results (where matplotlib is
+     installed; the card's machine has none, and the phase says so).
 Then one JSON line of per-kernel numbers (each with its bound: the larger
 of its float32 operations over 67 TFLOP/s and its bytes over 3.35 TB/s,
 counted from this run's shapes) and, last, the device line. The script
@@ -3422,6 +3453,10 @@ DIST_TIME_STEPS = 6      # train steps timed per rank, then as many with
 DIST_AGENT_ENVS = 4096   # DQN, NAF and LRPG shardmap steps
 DIST_AGENT_STEPS = 3
 DIST_TIMEOUT_S = 420
+# Pixel DDPG under shardmap: the pixels preset's agent fields on its
+# frames (gray, uint8, frame-diff gain 4) at 16 x 16, 2 train steps.
+DIST_PIXEL_STEPS = 2
+DIST_PIXEL_ARGV = PIXEL_ARGV + ["--render-size", "16"]
 
 
 def _state_digest(st, with_ring: bool = True) -> dict:
@@ -3461,9 +3496,11 @@ def _trees_equal(a, b, path="") -> list:
     return [] if a == b else [path]
 
 
-def _dist_agent(name, num_envs, mesh=None, spmd=True, **cfg):
+def _dist_agent(name, num_envs, mesh=None, spmd=True, argv=None, **cfg):
     """A port agent at its CLI defaults (DDPG and NAF on the continuous
-    preset) on `num_envs` global envs, this rank's shard over `mesh`."""
+    preset) on `num_envs` global envs, this rank's shard over `mesh`; or,
+    given `argv`, pixel DDPG at the env and agent fields train.main takes
+    from it."""
     import torch
 
     from cartpoleplusplus_tpu_torch import agents
@@ -3479,9 +3516,13 @@ def _dist_agent(name, num_envs, mesh=None, spmd=True, **cfg):
               else CartPoleParams())
     n = mesh.size if mesh is not None else 1
     dev = mesh.device if mesh is not None else torch.device("cuda", 0)
-    env = CartPole3D(params, num_envs=num_envs // n, device=dev)
+    pixels, config = {}, cfg_cls(**cfg)
+    if argv is not None:
+        render_config, config = _preset(argv)
+        pixels = dict(obs_mode="pixels", render_config=render_config)
+    env = CartPole3D(params, num_envs=num_envs // n, device=dev, **pixels)
     shard = dict(group=mesh, num_shards=n) if mesh is not None else {}
-    return cls(env, cfg_cls(**cfg), spmd=spmd, **shard)
+    return cls(env, config, spmd=spmd, **shard)
 
 
 def _timed_steps(step, st, n, timed_collectives=False):
@@ -3577,7 +3618,8 @@ def _dist_worker(spec_path: str, rank: int) -> int:
         _zero_counts()
         for job in spec["jobs"]:
             name, spmd = job["agent"], job["learner"] == "spmd"
-            agent = _dist_agent(name, job["envs"], mesh, spmd, **job["cfg"])
+            agent = _dist_agent(name, job["envs"], mesh, spmd,
+                                job.get("argv"), **job["cfg"])
             st = agent.init(0)
             make = (make_distributed_train_step if spmd
                     else make_shardmap_train_step)
@@ -3682,7 +3724,10 @@ def phase_distribution(dev) -> dict:
                  envs=DIST_AGENT_ENVS, steps=DIST_AGENT_STEPS,
                  cfg={"learner": "kernel"}),
             dict(tag="lrpg", agent="lrpg", learner="shardmap",
-                 envs=DIST_AGENT_ENVS, steps=DIST_AGENT_STEPS, cfg={})]
+                 envs=DIST_AGENT_ENVS, steps=DIST_AGENT_STEPS, cfg={}),
+            dict(tag="pixel", agent="ddpg", learner="shardmap",
+                 envs=PIX_ENVS, steps=DIST_PIXEL_STEPS, cfg={},
+                 argv=DIST_PIXEL_ARGV)]
     t0 = time.perf_counter()
     ranks = _spawn_ranks(tmp, "ranks", dict(world=2, backend="gloo",
                                             jobs=jobs))
@@ -3711,7 +3756,10 @@ def phase_distribution(dev) -> dict:
                         ("naf", dict(B6=DIST_AGENT_STEPS,
                                      B7=DIST_AGENT_STEPS - 1)),
                         ("lrpg", dict(B8=DIST_AGENT_STEPS,
-                                      B9=DIST_AGENT_STEPS))):
+                                      B9=DIST_AGENT_STEPS)),
+                        # Counted from after init: the cached reset frame,
+                        # then one launch per env.step.
+                        ("pixel", dict(B10=1 + DIST_PIXEL_STEPS * 8))):
         rs = [r[tag] for r in ranks]
         for r in rs:
             assert _only(r["launches"], **want_k), (tag, r["launches"])
@@ -3815,6 +3863,344 @@ def _digest_err(a, b) -> float:
     return 0.0
 
 
+BF16_STEPS = 3           # phase 30: train steps of each agent at bfloat16
+BF16_PIXEL_STEPS = 2     # and of pixel DDPG
+BF16_ROUNDS = 2          # timing rounds, the configs in turns
+BF16_ROWS = 4096         # rows of the card-vs-CPU forward comparison
+BF16_ROLLOUT = {"ddpg": "B2", "dqn": "B4", "naf": "B6", "lrpg": "B8"}
+BF16_LEARNER = {"ddpg": "B3", "dqn": "B5", "naf": "B7", "lrpg": "B9"}
+BF16_NETS = ("actor", "critic", "qnet", "policy", "naf", "visual_actor",
+             "visual_critic", "visual_qnet", "visual_policy", "visual_naf")
+
+
+def _build(argv):
+    """(env, agent) as train.main builds them from `argv`."""
+    from cartpoleplusplus_tpu_torch import train
+    from cartpoleplusplus_tpu_torch.config import RunConfig, from_args
+
+    args = train.build_parser().parse_args(argv)
+    return train.build(from_args(RunConfig, args), args, set())
+
+
+def _float32_state(st) -> bool:
+    """Whether every parameter and Adam moment of an agent state is
+    float32."""
+    import torch
+
+    ok = True
+    for v in st._asdict().values():
+        if isinstance(v, torch.nn.Module):
+            ok &= all(p.dtype == torch.float32 for p in v.parameters())
+        elif hasattr(v, "mu") and hasattr(v, "nu"):
+            ok &= all(x.dtype == torch.float32 for x in v.mu + v.nu)
+    return ok
+
+
+def _steps_ms(agent, st, n):
+    """n train steps: (state, last metrics, ms per step by the host clock
+    with the card synchronised)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        st, m = agent.train_step(st)
+    torch.cuda.synchronize()
+    return st, m, (time.perf_counter() - t0) / n * 1e3
+
+
+def _preset(argv):
+    """(RenderConfig, DDPGConfig) that train.main builds from `argv`."""
+    from cartpoleplusplus_tpu_torch import train
+    from cartpoleplusplus_tpu_torch.agents import DDPGConfig
+    from cartpoleplusplus_tpu_torch.config import RunConfig, from_args
+
+    args = train.build_parser().parse_args(argv)
+    return (train.pixel_render_config(from_args(RunConfig, args)),
+            from_args(DDPGConfig, args, prefix="ddpg."))
+
+
+def _bf16_frames(dev, n):
+    """n uint8 frames of the pixels preset's env (PIXEL_ARGV) after 3
+    env-steps of random actions (B10 renders them)."""
+    import torch
+
+    from cartpoleplusplus_tpu_torch import CartPole3D, CartPoleParams
+
+    env = CartPole3D(CartPoleParams(), num_envs=n, obs_mode="pixels",
+                     device=dev, render_config=_preset(PIXEL_ARGV)[0])
+    st, _ = env.reset(0)
+    g = torch.Generator().manual_seed(0)
+    for _ in range(3):
+        a = torch.randint(0, 5, (n,), generator=g, dtype=torch.int32)
+        st, obs, *_ = env.step(st, a.to(dev))
+    return obs
+
+
+def phase_bfloat16_agents(dev) -> dict:
+    """Phase 30 (`--bf16-only` runs it alone): every agent at its CLI
+    defaults with `--<agent>.dtype bfloat16` for BF16_STEPS train steps
+    (pixel DDPG at the pixels preset's fields for BF16_PIXEL_STEPS) with
+    the counters zeroed: the rollout kernel (B2, B4, B6, B8; B10 for
+    pixels) launches from the float32 weights, no learner kernel does,
+    parameters and Adam moments stay float32, metrics finite. Then the
+    train step's ms at bfloat16 (the plain learner) beside float32's on
+    the plain and on the kernel learner, in turns; then each bfloat16
+    net's forward on the card against the CPU at BF16_ROWS rows, end to
+    end (bf16_parity.card_vs_cpu): the state nets inside
+    bf16_parity.TIGHT, the pixel nets inside bf16_parity.PIXEL_CARD, and
+    each net with the fault planted outside its bar."""
+    import torch
+
+    from cartpoleplusplus_tpu_torch.utils import bf16_parity as bp
+
+    card = _card()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    launches, times = {}, {}
+    for name in ("ddpg", "dqn", "naf", "lrpg"):
+        base = ["--agent", name, "--seed", "0"]
+        configs = {"bfloat16": [f"--{name}.dtype", "bfloat16"],
+                   "float32 plain": [f"--{name}.learner", "xla"],
+                   "float32 kernel": [f"--{name}.learner", "kernel"]}
+        built = {}
+        for label, extra in configs.items():
+            env, agent = _build(base + extra)
+            st = agent.init(0)
+            if label == "bfloat16":
+                assert not agent.kernel_mode and agent.kernel_rollout
+                _zero_counts()
+                st, m, _ = _steps_ms(agent, st, BF16_STEPS)
+                torch.cuda.synchronize()
+                launches[name] = _read_counts()
+                want = {BF16_ROLLOUT[name]: BF16_STEPS}
+                assert _only(launches[name], **want), (name, launches[name])
+                assert _float32_state(st), f"{name}: non-float32 state"
+                assert all(math.isfinite(float(v)) for v in m.values()), m
+                assert m["learner_impl"] == 0.0 and m["rollout_impl"] == 1.0
+            else:
+                st, m, _ = _steps_ms(agent, st, BF16_STEPS)
+            built[label] = [agent, st]
+        ms = {label: [] for label in configs}
+        for _ in range(BF16_ROUNDS):
+            for label, pair in built.items():
+                pair[1], _, t = _steps_ms(pair[0], pair[1], 1)
+                ms[label].append(t)
+        times[name] = ms
+        print(f"bfloat16 {name} (CLI defaults, {N_ENVS} envs; card {card}): "
+              f"{BF16_STEPS} train steps launch {launches[name]}; "
+              f"parameters and Adam moments float32; train step ms in "
+              f"turns: {json.dumps(ms)}", flush=True)
+        del built, env, agent, st
+        torch.cuda.empty_cache()
+
+    built, pix = {}, {}
+    for label, extra in (("bfloat16", ["--ddpg.dtype", "bfloat16"]),
+                         ("float32", [])):
+        env, agent = _build(PIXEL_ARGV + extra + ["--seed", "0"])
+        st = agent.init(0)
+        _zero_counts()
+        st, m, _ = _steps_ms(agent, st, BF16_PIXEL_STEPS)
+        pix[label] = _read_counts()
+        assert _only(pix[label], B10=1 + BF16_PIXEL_STEPS * 8), pix[label]
+        assert _float32_state(st) and all(
+            math.isfinite(float(v)) for v in m.values()), m
+        built[label] = [agent, st]
+    launches["pixel ddpg"] = pix["bfloat16"]
+    ms = {label: [] for label in built}
+    for _ in range(BF16_ROUNDS):
+        for label, pair in built.items():
+            pair[1], _, t = _steps_ms(pair[0], pair[1], 1)
+            ms[label].append(t)
+    times["pixel ddpg"] = ms
+    print(f"bfloat16 pixel ddpg (pixels preset fields, {PIX_ENVS} envs, "
+          f"{PIX_SIZE} x {PIX_SIZE}; card {card}): {BF16_PIXEL_STEPS} train "
+          f"steps launch {pix['bfloat16']} (float32 {pix['float32']}: B10 "
+          f"once per env.step and once for the cached reset frame); train "
+          f"step ms in turns: {json.dumps(ms)}", flush=True)
+    del built, env, agent, st
+    torch.cuda.empty_cache()
+
+    frames = _bf16_frames(dev, BF16_ROWS)
+    forward = {}
+    for name in BF16_NETS:
+        ends, bar, faults = bp.card_vs_cpu(name, dev, frames, BF16_ROWS)
+        naf = name.endswith("naf")
+        forward[name] = dict(ulps=[u for u, _ in ends],
+                             off=[o for _, o in ends],
+                             fault_ulps=[u for u, _ in faults],
+                             fault_off=[o for _, o in faults])
+
+        def show(errs):
+            return (f"max err {', '.join(f'{u:.3f}' for u, _ in errs)} "
+                    f"bfloat16 ulps of the magnitude, elements off "
+                    f"{', '.join(f'{o:.5f}' for _, o in errs)}")
+
+        print(f"bfloat16 {name} forward, card vs CPU ({BF16_ROWS} rows, "
+              f"(256, 256), weights perturbed"
+              f"{', conv encoder on B10 frames' if 'visual' in name else ''}"
+              f"): per output {show(ends)} (bar {bar[0]} ulps, {bar[1]}); "
+              f"with the fused-bias fault planted on the card "
+              f"{show(faults)}", flush=True)
+        assert bp.within(ends, bar, naf), (name, ends)
+        assert not bp.within(faults, bar, naf), (name, faults)
+    del frames
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms": times, "forward": forward}
+
+
+def phase_tools(dev) -> dict:
+    """Phase 31: the gym adapter's episode on the card to termination and
+    one render() (B10); params_from_urdf from an edited copy of the
+    bodies through B1 at N_ENVS x B1_STEPS against its twin, apart from
+    the defaults' run; checked_step clean over 8 steps, then raising on a
+    NaN-corrupted state; measure_env_steps_per_sec at N_ENVS x 512; a
+    2-point sweep of a tiny DQN run, and the plot of its results where
+    matplotlib is installed."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cartpoleplusplus_tpu_torch import CartPole3D, CartPoleParams
+    from cartpoleplusplus_tpu_torch import plot, sweep
+    from cartpoleplusplus_tpu_torch.bench.harness import (
+        measure_env_steps_per_sec)
+    from cartpoleplusplus_tpu_torch.env.gym_adapter import GymCartPole3D
+    from cartpoleplusplus_tpu_torch.ops.fused_rollout import (
+        fused_rollout, reference_rollout)
+    from cartpoleplusplus_tpu_torch.physics import urdf
+    from cartpoleplusplus_tpu_torch.utils.checks import checked_step
+
+    card = _card()
+    out = {}
+    # The gym adapter: an episode to termination, one render through B10.
+    gym = GymCartPole3D(seed=3)
+    assert gym._env.device.type == "cuda"
+    gym.reset()
+    rng = np.random.RandomState(0)
+    _zero_counts()
+    t0 = time.perf_counter()
+    for steps in range(1, 301):
+        _, reward, done, info = gym.step(gym.action_space.sample(rng))
+        if done:
+            break
+    gym_s = time.perf_counter() - t0
+    assert done and steps <= 200, steps
+    img = gym.render()
+    counts = _read_counts()
+    assert _only(counts, B10=1), counts
+    assert img.dtype == np.uint8 and img.shape == (PIX_SIZE, PIX_SIZE, 3)
+    print(f"gym adapter on the card: an episode of {steps} steps to "
+          f"termination ({gym_s / steps * 1e3:.3f} ms per step, host clock); "
+          f"render() {img.shape} uint8 through B10 (launches {counts})",
+          flush=True)
+
+    # URDF: an edited pole through B1 against its twin.
+    tmp = tempfile.mkdtemp(prefix="cp_tools_")
+    for f in ("cart.urdf", "pole.urdf", "ground.urdf"):
+        shutil.copy(os.path.join(urdf.DEFAULT_ASSET_DIR, f), tmp)
+    path = os.path.join(tmp, "pole.urdf")
+    text = open(path).read()
+    assert 'length="1.0"' in text
+    open(path, "w").write(text.replace('length="1.0"', 'length="1.5"'))
+    p = urdf.params_from_urdf(tmp)
+    assert p.pole_length == 1.5 and p != CartPoleParams()
+    finals = {}
+    for label, params in (("edited", p), ("defaults", CartPoleParams())):
+        env = CartPole3D(params, num_envs=N_ENVS, device=dev)
+        state, _ = env.reset(7)
+        _zero_counts()
+        ks, kc = fused_rollout(env, state, B1_STEPS)
+        assert _read_counts()["B1"] == 1
+        rs, rc = reference_rollout(env, state, B1_STEPS)
+        errs = [_close(f"B1 urdf {label} {k}", getattr(ks.phys, k),
+                       getattr(rs.phys, k), tol, tol)
+                for k, tol in (("pos", 2e-5), ("s", 2e-5), ("vel", 5e-4),
+                               ("sd", 5e-4))]
+        assert bool((ks.steps == rs.steps).all())
+        assert bool((ks.episode == rs.episode).all())
+        finals[label] = (ks, errs)
+    moved = float((finals["edited"][0].phys.s
+                   - finals["defaults"][0].phys.s).abs().max())
+    assert moved > 0.0, "the edited pole ran the defaults' physics"
+    out["urdf_errs"] = finals["edited"][1]
+    print(f"params_from_urdf (pole length 1.0 -> 1.5 in a copy of "
+          f"pole.urdf) through B1 at {N_ENVS} x {B1_STEPS}: max abs err "
+          f"pos/s/vel/sd {' '.join(f'{e:.3g}' for e in finals['edited'][1])}"
+          f" against its twin; the defaults' run "
+          f"{' '.join(f'{e:.3g}' for e in finals['defaults'][1])}; final "
+          f"tilts part from the defaults' by up to {moved:.4g}", flush=True)
+
+    # checked_step: clean, then a NaN position.
+    env = CartPole3D(CartPoleParams(), num_envs=N_ENVS, device=dev)
+    step = checked_step(env)
+    st, _ = env.reset(0)
+    a = torch.zeros(N_ENVS, dtype=torch.int32, device=dev)
+    for _ in range(8):
+        err, (st, obs, reward, done, info) = step(st, a)
+        err.throw()
+    # A fresh state with one NaN (a corrupted env that terminates would be
+    # auto-reset clean in the same step).
+    st, _ = env.reset(1)
+    pos = st.phys.pos.clone()
+    pos[0, 0] = float("nan")
+    err, _ = step(st._replace(phys=st.phys._replace(pos=pos)), a)
+    assert err.get() == "non-finite pos in EnvState", err.get()
+    try:
+        err.throw()
+        raise AssertionError("checked_step did not raise")
+    except ValueError as e:
+        assert "non-finite pos" in str(e)
+    print(f"checked_step at {N_ENVS} envs: 8 clean steps, then "
+          f"'{err.get()}' raised on a NaN position", flush=True)
+
+    # The throughput harness (the plain env.step loop, no kernel).
+    env = CartPole3D(CartPoleParams(), num_envs=N_ENVS, device=dev)
+    _zero_counts()
+    rate = measure_env_steps_per_sec(env, num_steps=512, repeats=1)
+    assert _only(_read_counts()), _read_counts()
+    assert math.isfinite(rate["checksum"])
+    out["harness"] = rate
+    print(f"measure_env_steps_per_sec ({N_ENVS} envs x 512 steps of the "
+          f"plain env.step, best of 1 after a warm-up; card {card}): "
+          f"{rate['env_steps_per_sec']:.6g} env-steps/s, "
+          f"{rate['best_seconds']:.4f} s; backend {rate['backend']}",
+          flush=True)
+
+    # A 2-point sweep of a tiny DQN run and its plot.
+    res = os.path.join(tmp, "sweep.jsonl")
+    _zero_counts()
+    with contextlib.redirect_stderr(io.StringIO()):
+        rc = sweep.main([
+            "--out", res, "--base",
+            "--agent dqn --num-envs 256 --total-env-steps 32 "
+            "--log-interval 1 --dqn.hidden 32 32 "
+            "--dqn.replay-capacity-per-env 64", "--grid", "seed=0,1"])
+    recs = [json.loads(x) for x in open(res)]
+    counts = _read_counts()
+    assert rc == 0 and len(recs) == 2 and all(
+        r["rc"] == 0 and r["final"] for r in recs), recs
+    assert counts["B4"] == 2 * 4 and counts["B5"] == 2 * 3, counts
+    try:
+        import matplotlib  # noqa: F401  (plot's only dependency)
+    except ImportError:
+        plotted = "plot not run: matplotlib is not installed here"
+    else:
+        png = os.path.join(tmp, "sweep.png")
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert plot.main([res, "--sweep", "--key", "final.loss",
+                              "--out", png]) == 0
+        assert open(png, "rb").read(8) == b"\x89PNG\r\n\x1a\n"
+        plotted = f"plot wrote {os.path.getsize(png)} bytes of PNG"
+    print(f"sweep: 2 points of a tiny DQN run on the card (launches "
+          f"{counts}), final losses "
+          f"{[r['final']['loss'] for r in recs]}; {plotted}", flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def _warm_card(dev, seconds: float):
     """A few seconds of matrix products: timed from a cold card, B4 read
     0.52 ms against 0.34-0.41 warm (PERF.md)."""
@@ -3852,6 +4238,13 @@ def main() -> int:
         _native.load_library()
         dist = phase_distribution(dev)
         print(json.dumps({"dist": dist}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--bf16-only"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        print(_card(), flush=True)
+        _native.load_library()
+        print(json.dumps({"bf16": phase_bfloat16_agents(dev)}), flush=True)
         return 0
     if sys.argv[1:] == ["--b1-probe"]:
         probe = b1_probe(dev)
@@ -3911,6 +4304,8 @@ def main() -> int:
     phase_sampling(dev)
     phase_render_bfloat16(dev)
     dist = phase_distribution(dev)["per_rank"]
+    bf16 = phase_bfloat16_agents(dev)["launches"]
+    phase_tools(dev)
 
     b1_main = b1["discrete"]  # the benchmark's default params
     kernels = [
@@ -3997,11 +4392,14 @@ def main() -> int:
              ms=b11["gray"]["ms"], plain_ms=b11["gray"]["plain_ms"],
              **_bound_keys(b11["gray"])),
     ]
-    # Per-rank launches on the sharded paths of phase 29.
+    # Per-rank launches on the sharded paths of phase 29, and launches on
+    # phase 30's bfloat16 paths.
     for entry in kernels:
         key = entry["name"].split()[0]
         entry["dist_launches_per_rank"] = {
             tag: n[key] for tag, n in dist.items() if n.get(key)}
+        entry["bf16_launches"] = {
+            tag: n[key] for tag, n in bf16.items() if n.get(key)}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

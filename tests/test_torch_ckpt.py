@@ -46,14 +46,16 @@ def _agent(name, learner="xla", num_envs=16):
             frame_diff=True, frame_diff_gain=4.0))
         replay["sample"] = "block"
     if name == "ddpg":
-        env = CartPole3D(continuous_params(), num_envs=num_envs)
+        env = CartPole3D(continuous_params(), num_envs=num_envs, device="cpu")
         return DDPG(env, DDPGConfig(hidden=(16, 16), rollout_steps=2,
                                     learner=learner, **replay))
     if name == "naf":
-        env = CartPole3D(continuous_params(), num_envs=num_envs, **env_kw)
+        env = CartPole3D(continuous_params(), num_envs=num_envs, **env_kw,
+                         device="cpu")
         return NAF(env, NAFConfig(hidden=(16, 16), rollout_steps=2,
                                   learner=learner, **replay))
-    env = CartPole3D(CartPoleParams(), num_envs=num_envs, **env_kw)
+    env = CartPole3D(CartPoleParams(), num_envs=num_envs, **env_kw,
+                     device="cpu")
     if name == "dqn":
         return DQN(env, DQNConfig(hidden=(16, 16), rollout_steps=2,
                                   learner=learner, **replay))

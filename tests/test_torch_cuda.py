@@ -328,7 +328,7 @@ def ddpg_teacher_forced(cuda, learner, st, steps, label=""):
 
     cfg = DDPGConfig(learner=learner)
     n = st.obs.shape[0]
-    cpu = DDPG(CartPole3D(continuous_params(), num_envs=n), cfg)
+    cpu = DDPG(CartPole3D(continuous_params(), num_envs=n, device="cpu"), cfg)
     card = DDPG(CartPole3D(continuous_params(), num_envs=n, device=cuda),
                 cfg)
     gst, draws = card.init(0), torch.Generator().manual_seed(1)
@@ -411,7 +411,7 @@ def test_ddpg_teacher_forced_at_the_defaults(cuda, request, learner, start):
     from cartpoleplusplus_tpu_torch.agents import DDPG, DDPGConfig
     from cartpoleplusplus_tpu_torch.ckpt.checkpoint import merge_restored
 
-    cpu = DDPG(CartPole3D(continuous_params(), num_envs=TF_ENVS),
+    cpu = DDPG(CartPole3D(continuous_params(), num_envs=TF_ENVS, device="cpu"),
                DDPGConfig(learner=learner))
     st = cpu.init(0)
     if start == "early":
@@ -1221,3 +1221,104 @@ def test_uncovered_rollout_runs_plain_on_the_card(cuda):
                for m in steps)
     assert pr.policy_rollout.launches == b2
     assert lk.ddpg_update_phase.launches == b3 + 2  # past the warmup of 16
+
+
+# --- bfloat16 nets and the gym adapter on the card ---------------------------
+
+BF16_NETS = ("actor", "critic", "qnet", "policy", "naf", "visual_actor",
+             "visual_critic", "visual_qnet", "visual_policy", "visual_naf")
+
+
+def _pixel_frames(cuda, n):
+    """n uint8 frames of the pixels preset's env (48 x 48 gray, frame-diff
+    gain 4) after 3 env-steps of random actions, rendered by B10."""
+    from cartpoleplusplus_tpu_torch.env.pixels import RenderConfig
+
+    env = CartPole3D(CartPoleParams(), num_envs=n, obs_mode="pixels",
+                     device=cuda, render_config=RenderConfig(
+                         grayscale=True, obs_uint8=True, frame_diff=True,
+                         frame_diff_gain=4.0))
+    st, _ = env.reset(0)
+    g = torch.Generator().manual_seed(0)
+    for _ in range(3):
+        a = torch.randint(0, 5, (n,), generator=g, dtype=torch.int32)
+        st, obs, *_ = env.step(st, a.to(cuda))
+    return obs.cpu()
+
+
+@pytest.mark.parametrize("name", BF16_NETS)
+def test_bf16_net_on_the_card_matches_the_cpu(cuda, monkeypatch, name):
+    """Each bfloat16 net at (256, 256), weights perturbed off their init,
+    on 4096 rows (the pixel nets on B10's frames of the pixels preset at
+    48 x 48), on the card against the same net on the CPU, end to end
+    (bf16_parity.card_vs_cpu): the state nets inside bf16_parity.TIGHT
+    (one ulp, 0.5 %), the pixel nets inside bf16_parity.PIXEL_CARD (4
+    ulps, 40 %: through their convolutions a product's rounding flips
+    compound);
+    and with the rounding-order fault planted on the card
+    (bf16_parity.fused_bias) outside the bar."""
+    from cartpoleplusplus_tpu_torch.utils import bf16_parity as bp
+
+    monkeypatch.setattr(torch.backends.cuda.matmul,
+                        "allow_bf16_reduced_precision_reduction", False)
+    frames = _pixel_frames(cuda, 4096) if name.startswith("visual") else None
+    ends, bar, faults = bp.card_vs_cpu(name, cuda, frames)
+    print(name, ends, faults)
+    naf = name.endswith("naf")
+    assert bp.within(ends, bar, naf), ends
+    assert not bp.within(faults, bar, naf), faults
+
+
+@pytest.mark.parametrize("agent", ["ddpg", "dqn", "naf", "lrpg"])
+def test_bf16_cli_launches_the_rollout_kernel_not_the_learner(cuda, agent):
+    """`--<agent>.dtype bfloat16` at 1000 envs: the rollout kernel (B2,
+    B4, B6, B8) launches once per train step from the float32 weights,
+    the learner is the plain one (no B3, B5, B7 or B9), metrics finite."""
+    rollout = {"ddpg": pr.policy_rollout, "dqn": qr.q_policy_rollout,
+               "naf": nr.naf_policy_rollout, "lrpg": pg.pg_policy_rollout}
+    learners = (lk.ddpg_update_phase, lk.dqn_update_phase,
+                lk.naf_update_phase, lk.lrpg_update_phase)
+    t = 32 if agent == "lrpg" else 8
+    before = rollout[agent].launches
+    other = [f.launches for f in learners]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        assert train.main(["--agent", agent, f"--{agent}.dtype", "bfloat16",
+                           "--num-envs", "1000", "--total-env-steps",
+                           str(3 * t), "--log-interval", "1"]) == 0
+    steps = [json.loads(x) for x in out.getvalue().splitlines()]
+    assert [m["train_step"] for m in steps] == [1, 2, 3]
+    assert rollout[agent].launches == before + 3
+    assert [f.launches for f in learners] == other
+    for m in steps:
+        assert m["rollout_impl"] == 1.0 and m["learner_impl"] == 0.0
+        assert all(v == v and abs(v) != float("inf") for v in m.values())
+
+
+def test_gym_adapter_renders_through_b10(cuda):
+    """GymCartPole3D on the card (its default device) runs an episode to
+    termination beside the same adapter on the CPU; render() launches B10
+    once and gives the CPU twin's uint8 frame."""
+    import numpy as np
+
+    from cartpoleplusplus_tpu_torch.env.gym_adapter import GymCartPole3D
+    from cartpoleplusplus_tpu_torch.ops import render_kernel as rk
+
+    card, cpu = GymCartPole3D(seed=3), GymCartPole3D(seed=3, device="cpu")
+    assert card._env.device.type == "cuda"
+    np.testing.assert_allclose(card.reset(), cpu.reset(), rtol=2e-5,
+                               atol=2e-5)
+    rng = np.random.RandomState(0)
+    for steps in range(1, 301):
+        a = card.action_space.sample(rng)
+        got, want = card.step(a), cpu.step(a)
+        assert got[2] == want[2]
+        if got[2]:
+            break
+    assert got[2] and steps <= 200
+    before = rk.render_frames.launches
+    img = card.render()
+    assert rk.render_frames.launches == before + 1
+    assert img.dtype == np.uint8 and img.shape == (48, 48, 3)
+    assert np.abs(img.astype(int) - cpu.render().astype(int)).max() <= 1

@@ -147,7 +147,7 @@ def test_train_step_matches_jax_xla_learner():
               batch_size=32, rollout_steps=t, replay_capacity_per_env=16)
     jagent = JDDPG(JCartPole3D(jparams.continuous_params(), num_envs=b),
                    JDDPGConfig(learner="xla", **kw))
-    agent = DDPG(CartPole3D(continuous_params(), num_envs=b),
+    agent = DDPG(CartPole3D(continuous_params(), num_envs=b, device="cpu"),
                  DDPGConfig(learner="xla", **kw))
     jstep = jax.jit(jagent.train_step)
     st1, _ = jstep(jagent.init(0))  # a state with replay and Adam moments
@@ -228,7 +228,8 @@ def ddpg_teacher_forced(num_envs, kw, steps, learner, seed=0):
     the obs, the env state and the ring with its cursor and fill), the
     losses too. Returns the port's critic loss of each step."""
     jagent, jstep = _jax_ddpg(num_envs, tuple(sorted(kw.items())))
-    agent = DDPG(CartPole3D(continuous_params(), num_envs=num_envs),
+    agent = DDPG(CartPole3D(continuous_params(), num_envs=num_envs,
+                            device="cpu"),
                  DDPGConfig(learner=learner, **kw))
     c, cap = jagent.cfg, jagent.replay.capacity
     jst, losses = jagent.init(seed), []
@@ -287,13 +288,21 @@ def test_uniform_train_steps_track_jax_teacher_forced(learner):
 
 
 def test_unported_learner_settings_raise():
-    """The learner settings the port still lacks raise at construction, and
-    so does learner='kernel' where B3 does not cover the config; uniform
-    sampling, ported since, constructs on both learners."""
-    env = CartPole3D(continuous_params(), num_envs=8)
-    for kw in (dict(learner_precision="bfloat16"), dict(dtype="bfloat16")):
-        with pytest.raises(ValueError, match="not ported"):
-            DDPG(env, DDPGConfig(**kw))
+    """The learner setting the port does not take (learner_precision, the
+    TPU's single-pass products) raises at construction, and so does
+    learner='kernel' where B3 does not cover the config: bfloat16, ported
+    since, constructs on the plain learner ("auto" and "xla") and raises
+    with "kernel", as the reference's kernel_learner_ok refuses it;
+    uniform sampling, ported since, constructs on both learners."""
+    env = CartPole3D(continuous_params(), num_envs=8, device="cpu")
+    with pytest.raises(ValueError, match="not ported"):
+        DDPG(env, DDPGConfig(learner_precision="bfloat16"))
+    for learner in ("auto", "xla"):
+        agent = DDPG(env, DDPGConfig(dtype="bfloat16", learner=learner))
+        assert not agent.kernel_mode and not agent.kernel_learner_ok()
+        assert agent.fusable()  # B2 still covers it: float32 weights
+    with pytest.raises(ValueError, match="not covered by the fused update"):
+        DDPG(env, DDPGConfig(dtype="bfloat16", learner="kernel"))
     for learner in ("xla", "kernel"):
         agent = DDPG(env, DDPGConfig(sample="uniform", learner=learner))
         assert agent.kernel_mode == (learner == "kernel")
@@ -382,7 +391,10 @@ def cli_rc(argv) -> int:
                                    "8", "--ddpg.replay-capacity-per-env", "8",
                                    *SMALL_RUN],
                                   ["--agent", "naf", "--naf.dtype",
-                                   "bfloat16"],
+                                   "bfloat16", "--naf.hidden", "8",
+                                   "--naf.batch-size", "8",
+                                   "--naf.replay-capacity-per-env", "8",
+                                   *SMALL_RUN],
                                   ["--agent", "naf", "--naf.sample", "block",
                                    "--naf.hidden", "8", "--naf.batch-size",
                                    "8", *SMALL_RUN],
@@ -392,10 +404,12 @@ def cli_rc(argv) -> int:
                                    *SMALL_RUN]])
 def test_train_cli_rejects_unported(argv):
     """The flags the port lacks exit 2. `--naf.sample block`,
-    `--render-dtype bfloat16`, `--use-mesh` and `--learner shardmap`,
-    rejected until they were ported, now train on the CPU and exit 0."""
+    `--render-dtype bfloat16`, `--use-mesh`, `--learner shardmap` and
+    `--naf.dtype bfloat16`, rejected until they were ported, now train on
+    the CPU and exit 0."""
     ported = any(f in argv for f in ("--naf.sample", "--render-dtype",
-                                     "--use-mesh", "--learner"))
+                                     "--use-mesh", "--learner",
+                                     "--naf.dtype"))
     assert cli_rc(argv) == (0 if ported else 2)
 
 
@@ -427,7 +441,7 @@ def test_sigma_schedule_matches_jax():
     cfg = dict(ou_sigma_decay_env_steps=1000)
     jagent = JDDPG(JCartPole3D(jparams.continuous_params(), num_envs=8),
                    JDDPGConfig(learner="xla", **cfg))
-    agent = DDPG(CartPole3D(continuous_params(), num_envs=8),
+    agent = DDPG(CartPole3D(continuous_params(), num_envs=8, device="cpu"),
                  DDPGConfig(**cfg))
     for steps in (0, 8, 333, 999, 1000, 5000):
         assert agent._sigma(steps) == float(jagent._sigma(jnp.int32(steps)))

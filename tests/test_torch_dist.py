@@ -45,6 +45,22 @@ AGENTS = ("ddpg", "dqn", "naf", "lrpg")
 LEARNERS = ("xla", "kernel")
 BATCH_FIELDS = ("replay", "env_state", "obs", "noise")
 TWIN_RTOL, TWIN_ATOL = 2e-4, 1e-5       # the learner twins' bar
+# tests/test_dist.py's pixel cases: 16 x 16 gray uint8 frame-diff frames,
+# pixel DDPG at hidden (32, 32), rollout 2, K 2, batch 32, 8 ring slots.
+PIXEL_RENDER = dict(width=16, height=16, grayscale=True, obs_uint8=True,
+                    frame_diff=True, frame_diff_gain=4.0)
+PIXEL_DDPG = dict(hidden=[32, 32], rollout_steps=2, updates_per_step=2,
+                  batch_size=32, replay_capacity_per_env=8,
+                  warmup_env_steps=0)
+PIXEL_STEPS = 8
+# tests/test_multihost.py's 2-process DQN learning run: 2 ranks of 32 envs
+# (the port's mesh holds one shard per rank; the reference's 2 processes
+# hold 2 shards of 16 envs each: the same 64 global envs).
+LEARN_DQN = dict(hidden=[64, 64], rollout_steps=16, updates_per_step=8,
+                 batch_size=128, replay_capacity_per_env=512, lr=5e-4,
+                 eps_decay_env_steps=1200, eps_end=0.05,
+                 warmup_env_steps=32, sample="uniform")
+LEARN_TIMEOUT_S = 90
 SHARDMAP_RTOL, SHARDMAP_ATOL = 1e-4, 2e-5  # test_dist.py's shard_map bar
 
 
@@ -60,12 +76,12 @@ def _cfg(agent, learner, **kw):
     return cfg
 
 
-def spawn(world, jobs, out):
+def spawn(world, jobs, out, timeout_s=TIMEOUT_S):
     """Start `jobs` on `world` gloo ranks (rendezvous through a file in
     `out`); `finish` waits for them."""
     os.makedirs(out, exist_ok=True)
     spec = dict(world=world, init=f"file://{out}/rendezvous", out=str(out),
-                jobs=jobs, timeout_s=TIMEOUT_S)
+                jobs=jobs, timeout_s=timeout_s)
     with open(os.path.join(out, "spec.json"), "w") as f:
         json.dump(spec, f)
     env = {k: v for k, v in os.environ.items()
@@ -76,18 +92,18 @@ def spawn(world, jobs, out):
                               env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for r in range(world)]
-    return procs, jobs, out
+    return procs, jobs, out, timeout_s
 
 
 def finish(started):
     """{job: [rank 0's result, ...]} of a spawn; its ranks are killed if
-    they outlive TIMEOUT_S."""
-    procs, jobs, out = started
+    they outlive the spawn's timeout."""
+    procs, jobs, out, timeout_s = started
     world = len(procs)
     logs = []
     try:
         for p in procs:
-            logs.append(p.communicate(timeout=TIMEOUT_S)[0])
+            logs.append(p.communicate(timeout=timeout_s)[0])
     finally:
         for p in procs:
             if p.poll() is None:
@@ -268,11 +284,17 @@ def runs(tmp_path_factory):
                 steps=3)
     own["rollout"] = dict(kind="rollout", num_envs=ENVS, steps=24)
     own["collectives"] = dict(kind="collectives", seed=2)
+    own["pixel-rollout"] = dict(kind="pixel_rollout", num_envs=ENVS,
+                                steps=PIXEL_STEPS, render=PIXEL_RENDER)
+    for learner in ("spmd", "shardmap"):
+        own[f"pixel-{learner}"] = dict(
+            kind="train", agent="ddpg", learner=learner, num_envs=ENVS,
+            cfg=PIXEL_DDPG, render=PIXEL_RENDER, steps=2)
     started = [spawn(2, own, os.path.join(tmp, "own"))]
     try:
         return _start_the_rest(tmp, started, two, four)
     finally:
-        for procs, _, _ in started:
+        for procs, *_ in started:
             for p in procs:
                 if p.poll() is None:
                     p.kill()
@@ -498,7 +520,7 @@ def test_multihost_rollout_totals(runs):
     assert torch.equal(got[0]["total"], got[1]["total"])
     assert float(got[0]["total"]) == float(
         (got[0]["local"] + got[1]["local"]).reshape(1))
-    env = CartPole3D(CartPoleParams(), num_envs=ENVS)
+    env = CartPole3D(CartPoleParams(), num_envs=ENVS, device="cpu")
     st, _ = fused_rollout(env, env.reset(0)[0], 24)
     assert torch.equal(torch.cat([r["pos"] for r in got]), st.phys.pos)
     rep = got[0]["scaling"]
@@ -571,3 +593,84 @@ def test_placement_rule_and_its_inverse():
     assert specs.env_state.env_seed == "data"
     assert all(s is None for s in jax.tree.leaves(
         [specs.actor_opt.count], is_leaf=lambda x: x is None))
+
+
+# --- pixels and learning across ranks ---------------------------------------
+
+def test_pixel_rollout_layout_independent(runs):
+    """tests/test_dist.py::test_pixel_rollout_layout_independent on 2
+    ranks of 16 envs: every step's uint8 frames and rewards over 8
+    env-steps, the ranks' envs concatenated, equal one process's at 32
+    envs bit for bit (rendering is a pure function of the state, and the
+    randomness keys on the global env index)."""
+    torch.set_num_threads(1)
+    got = runs[2]["pixel-rollout"]
+    env = W.make_env(W.CartPoleParams(), ENVS, PIXEL_RENDER)
+    st, _ = env.reset(0)
+    idx = torch.arange(ENVS, dtype=torch.int32)
+    for t in range(PIXEL_STEPS):
+        st, obs, reward, _, _ = env.step(st, (idx + t) % 5)
+        frames = torch.cat([r["frames"][t] for r in got])
+        assert frames.dtype == torch.uint8
+        assert torch.equal(frames, obs), t
+        assert torch.equal(torch.cat([r["rewards"][t] for r in got]),
+                           reward), t
+
+
+def test_spmd_pixel_ddpg_is_the_unsharded_program(runs):
+    """tests/test_dist.py::test_spmd_pixel_ddpg_train_step on 2 ranks:
+    2 SPMD train steps of pixel DDPG (the quantized ring, the render and
+    the conv learner) equal the 1-process port's bit for bit after each
+    step, the ring uint8."""
+    torch.set_num_threads(1)
+    got = runs[2]["pixel-spmd"]
+    one = W.build("ddpg", ENVS, PIXEL_DDPG, render=PIXEL_RENDER)
+    st = one.init(0)
+    for k in range(2):
+        st, m = one.train_step(st)
+        ranks = [r["steps"][k] for r in got]
+        assert_trees(global_tree([r["state"] for r in ranks]), to_tree(st),
+                     f"step {k + 1}")
+        assert st.replay.obs.dtype == torch.uint8
+        for r in ranks:
+            assert r["metrics"] == {key: float(v) for key, v in m.items()}
+
+
+def test_shardmap_pixel_ddpg_train_step(runs):
+    """tests/test_dist.py::test_shardmap_pixel_ddpg_train_step on 2 ranks:
+    2 shardmap train steps of pixel DDPG (each rank's ring and render,
+    one gradient all-reduce per net and update): the replicated fields
+    bit-identical on both ranks, losses and rewards finite, the ring
+    uint8 and sharded."""
+    got = runs[2]["pixel-shardmap"]
+    for k in range(2):
+        ranks = [r["steps"][k] for r in got]
+        assert_trees({f: v for f, v in ranks[1]["state"].items()
+                      if f not in BATCH_FIELDS},
+                     {f: v for f, v in ranks[0]["state"].items()
+                      if f not in BATCH_FIELDS}, f"step {k + 1}")
+        for r in ranks:
+            for key in ("critic_loss", "actor_loss", "reward_mean"):
+                assert np.isfinite(r["metrics"][key]), key
+            ring = r["state"]["replay"]["obs"]
+            assert ring.dtype == torch.uint8 and ring.shape[0] == ENVS // 2
+    assert ranks[0]["metrics"]["critic_loss"] > 0.0
+
+
+def test_two_rank_dqn_learns(tmp_path):
+    """tests/test_multihost.py::test_two_process_dqn_learns on the port:
+    DQN trained through the shardmap learner on 2 gloo ranks (2000
+    env-steps at the reference's config, its scans of 5 train steps) beats
+    the random agent at least 2x in mean episode length through the
+    sharded eval (400 steps, seed 7), with episodes to count, and both
+    ranks print the same line."""
+    started = spawn(2, {"learn": dict(kind="learn", num_envs=2 * 32,
+                                      cfg=LEARN_DQN, env_steps=2000,
+                                      eval_steps=400)},
+                    str(tmp_path), timeout_s=LEARN_TIMEOUT_S)
+    got = finish(started)["learn"]
+    assert got[0]["line"] == got[1]["line"], [r["line"] for r in got]
+    stats, rand = got[0]["stats"], got[0]["random"]
+    assert stats["episodes"] > 0
+    assert stats["mean_episode_length"] > 2.0 * rand["mean_episode_length"], \
+        got[0]["line"]

@@ -47,7 +47,7 @@ def _pair(learner="xla", b=64, **kw):
     cfg = dict(hidden=HIDDEN, **kw)
     jagent = JDQN(JCartPole3D(JCartPoleParams(), num_envs=b),
                   JDQNConfig(learner=learner, **cfg))
-    agent = DQN(CartPole3D(CartPoleParams(), num_envs=b),
+    agent = DQN(CartPole3D(CartPoleParams(), num_envs=b, device="cpu"),
                 DQNConfig(learner=learner, **cfg))
     return jagent, agent
 
@@ -333,17 +333,23 @@ def test_train_cli_cuda_rejects_shapes_b4_does_not_cover(argv):
                                    "8", "--naf.replay-capacity-per-env", "8",
                                    *SMALL_RUN],
                                   ["--agent", "lrpg", "--lrpg.dtype",
-                                   "bfloat16"],
+                                   "bfloat16", "--lrpg.hidden", "8", "8",
+                                   "--lrpg.rollout-steps", "4",
+                                   *SMALL_RUN],
                                   ["--agent", "dqn", "--dqn.sample", "block",
                                    "--dqn.hidden", "8", "--dqn.batch-size",
                                    "8", *SMALL_RUN],
                                   ["--agent", "dqn", "--dqn.dtype",
-                                   "bfloat16"]])
+                                   "bfloat16", "--dqn.hidden", "8",
+                                   "--dqn.batch-size", "8",
+                                   "--dqn.replay-capacity-per-env", "8",
+                                   *SMALL_RUN]])
 def test_train_cli_rejects_unported_dqn_neighbours(argv):
-    """DQN, NAF and LRPG settings the port lacks exit 2. Pixel NAF and DQN
-    block sampling, rejected until they were ported, now train on the CPU
-    and exit 0."""
-    ported = "pixels" in argv or "--dqn.sample" in argv
+    """DQN, NAF and LRPG settings the port lacks exit 2. Pixel NAF, DQN
+    block sampling and bfloat16 LRPG and DQN, rejected until they were
+    ported, now train on the CPU and exit 0."""
+    ported = any(f in argv for f in ("pixels", "--dqn.sample",
+                                     "--lrpg.dtype", "--dqn.dtype"))
     assert cli_rc(["--num-envs", "8", *argv]) == (0 if ported else 2)
 
 
@@ -351,7 +357,8 @@ def test_dqn_rejects_the_continuous_env():
     from cartpoleplusplus_tpu_torch.physics.params import continuous_params
 
     with pytest.raises(ValueError, match="discrete env"):
-        DQN(CartPole3D(continuous_params(), num_envs=4), DQNConfig())
+        DQN(CartPole3D(continuous_params(), num_envs=4,
+                       device="cpu"), DQNConfig())
 
 
 def test_port_imports_no_jax():

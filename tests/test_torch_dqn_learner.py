@@ -218,7 +218,7 @@ def test_b5_plan_and_workspace():
 
 
 def test_learner_resolution():
-    env = CartPole3D(CartPoleParams(), num_envs=16)
+    env = CartPole3D(CartPoleParams(), num_envs=16, device="cpu")
     kw = dict(hidden=(16, 16), batch_size=16, rollout_steps=4,
               updates_per_step=1, warmup_env_steps=0,
               replay_capacity_per_env=8)
@@ -246,7 +246,7 @@ def test_learner_resolution():
 def test_kernel_learner_takes_any_torso(hidden):
     """learner="kernel" builds and trains at a depth and a width beyond
     the old caps of 4 layers and 1024 (B5's twin here)."""
-    env = CartPole3D(CartPoleParams(), num_envs=16)
+    env = CartPole3D(CartPoleParams(), num_envs=16, device="cpu")
     agent = DQN(env, DQNConfig(learner="kernel", hidden=hidden,
                                batch_size=16, rollout_steps=4,
                                updates_per_step=1, warmup_env_steps=0,
@@ -261,7 +261,7 @@ def test_flat_storage_views():
     """Kernel mode keeps each group in one buffer: every Q-net parameter,
     target parameter and Adam moment is a view of its group's buffer, and
     loading a state_dict writes through to the buffer."""
-    env = CartPole3D(CartPoleParams(), num_envs=8)
+    env = CartPole3D(CartPoleParams(), num_envs=8, device="cpu")
     agent = DQN(env, DQNConfig(hidden=(16, 24), learner="kernel"))
     st = agent.init(0)
     tensors = [list(st.q.parameters()), list(st.q_target.parameters()),

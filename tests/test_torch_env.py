@@ -36,7 +36,7 @@ def test_golden_replay(name):
     """tests/golden/*.npz replay within test_golden.py's tolerances."""
     ref = np.load(os.path.join(GOLDEN_DIR, f"{name}.npz"))
     p = PARAMS[name]
-    env = CartPole3D(p, num_envs=int(ref["num_envs"]))
+    env = CartPole3D(p, num_envs=int(ref["num_envs"]), device="cpu")
     state, _ = env.reset(int(ref["seed"]))
     states, obs_l, rew_l, done_l = [], [], [], []
     for t in range(int(ref["num_steps"])):
@@ -73,7 +73,7 @@ def test_step_matches_jax(name, obs_mode):
     p = PARAMS[name]
     b = 128
     jenv = JCartPole3D(JPARAMS[name], num_envs=b, obs_mode=obs_mode)
-    env = CartPole3D(p, num_envs=b, obs_mode=obs_mode)
+    env = CartPole3D(p, num_envs=b, obs_mode=obs_mode, device="cpu")
     jstate, jobs = jax.jit(jenv.reset)(3)
     state = env_state_from_jax(jax.device_get(jstate))
     jstep = jax.jit(jenv.step)
@@ -106,7 +106,8 @@ def test_reset_matches_jax():
     p = continuous_params()
     jenv = JCartPole3D(jparams.continuous_params(), num_envs=64)
     jstate, jobs = jenv.reset(11, index_offset=5)
-    state, obs = CartPole3D(p, num_envs=64).reset(11, index_offset=5)
+    state, obs = CartPole3D(p, num_envs=64,
+                            device="cpu").reset(11, index_offset=5)
     np.testing.assert_array_equal(state.env_seed.numpy(),
                                   np.asarray(jstate.env_seed).astype(np.int64))
     np.testing.assert_allclose(obs.numpy(), np.asarray(jobs), rtol=1e-6,
@@ -174,3 +175,18 @@ def test_dynamics_helpers_match_jax():
     for a, b in zip(tst, jst):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
                                    atol=1e-7)
+
+
+def test_env_defaults_to_the_card():
+    """The package's env runs on the card unless the caller asks for the
+    CPU: its default device is cuda (no fallback; nothing is allocated
+    before reset), the same class the package exports."""
+    import inspect
+
+    import cartpoleplusplus_tpu_torch as pkg
+
+    assert pkg.CartPole3D is CartPole3D
+    sig = inspect.signature(CartPole3D.__init__)
+    assert sig.parameters["device"].default == "cuda"
+    assert CartPole3D(CartPoleParams()).device == torch.device("cuda")
+    assert CartPole3D(CartPoleParams(), device="cpu").device.type == "cpu"

@@ -100,7 +100,7 @@ def test_sink_of_a_port_trajectory_equals_reference(tmp_path):
     from cartpoleplusplus_tpu_torch import CartPole3D, CartPoleParams
     from cartpoleplusplus_tpu_torch.agents import DQN, DQNConfig
 
-    env = CartPole3D(CartPoleParams(), num_envs=16)
+    env = CartPole3D(CartPoleParams(), num_envs=16, device="cpu")
     agent = DQN(env, DQNConfig(hidden=(16,), rollout_steps=24,
                                updates_per_step=1, batch_size=16,
                                replay_capacity_per_env=32,

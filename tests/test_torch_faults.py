@@ -82,7 +82,8 @@ def test_init_env_state_matches_reference(name, seed):
     jp = jparams.continuous_params() if cont else jparams.CartPoleParams()
     tp = continuous_params() if cont else CartPoleParams()
     jagent = jcls(JCartPole3D(jp, num_envs=16), jcfg(**_SMALL[name]))
-    agent = tcls(CartPole3D(tp, num_envs=16), tcfg(**_SMALL[name]))
+    agent = tcls(CartPole3D(tp, num_envs=16,
+                            device="cpu"), tcfg(**_SMALL[name]))
     jst, st = jagent.init(seed), agent.init(seed)
     np.testing.assert_array_equal(
         st.env_state.env_seed.numpy(),
@@ -102,7 +103,7 @@ def test_evaluate_matches_reference_episodes():
               warmup_env_steps=0, updates_per_step=1, batch_size=32)
     jagent = JDDPG(JCartPole3D(jparams.continuous_params(), num_envs=64),
                    JDDPGConfig(learner="xla", **kw))
-    agent = DDPG(CartPole3D(continuous_params(), num_envs=64),
+    agent = DDPG(CartPole3D(continuous_params(), num_envs=64, device="cpu"),
                  DDPGConfig(learner="xla", **kw))
     jst, _ = jax.jit(jagent.train_step)(jagent.init(0))
     pst = ddpg_state_from_jax(agent, jax.device_get(jst))
@@ -121,7 +122,7 @@ def test_evaluate_matches_reference_episodes():
 def test_random_agent_resets_as_the_reference(monkeypatch):
     """The random agent evaluates from the envs the reference's resets
     (split(PRNGKey(seed))[0] folded); its actions stay its own draws."""
-    env = CartPole3D(CartPoleParams(), num_envs=8)
+    env = CartPole3D(CartPoleParams(), num_envs=8, device="cpu")
     seeds = []
     reset = env.reset
     monkeypatch.setattr(env, "reset",

@@ -34,7 +34,8 @@ def test_reference_rollout_matches_jax(name):
     state0 = env_state_from_jax(jax.device_get(jstate0))
     jstate, jacc = jfr.reference_rollout(jenv, T)(
         jax.tree.map(jnp.copy, jstate0))
-    state, acc = tfr.reference_rollout(CartPole3D(tp, num_envs=B), state0, T)
+    state, acc = tfr.reference_rollout(CartPole3D(tp, num_envs=B,
+                                                  device="cpu"), state0, T)
     jph = jstate.phys
     np.testing.assert_allclose(state.phys.pos.numpy(), np.asarray(jph.pos),
                                rtol=2e-5, atol=2e-5)
@@ -66,7 +67,7 @@ def test_bench_action_force_matches_jax(name):
 
 def test_wrapper_runs_twin_on_cpu():
     """On CPU tensors the wrapper is the plain twin and launches nothing."""
-    env = CartPole3D(continuous_params(), num_envs=64)
+    env = CartPole3D(continuous_params(), num_envs=64, device="cpu")
     state, _ = env.reset(3)
     before = tfr.fused_rollout.launches
     s1, acc1 = tfr.fused_rollout(env, state, 5)
@@ -77,7 +78,7 @@ def test_wrapper_runs_twin_on_cpu():
 
 
 def test_wrapper_rejects_other_devices():
-    env = CartPole3D(CartPoleParams(), num_envs=8)
+    env = CartPole3D(CartPoleParams(), num_envs=8, device="cpu")
     state, _ = env.reset(0)
     meta = type(state)(*(x.to("meta") if isinstance(x, torch.Tensor) else
                          type(x)(*(y.to("meta") for y in x))

@@ -224,7 +224,7 @@ def _agent_pair(learner, b=64, **extra):
               **extra)
     jagent = JDDPG(JCartPole3D(jparams.continuous_params(), num_envs=b),
                    JDDPGConfig(learner=learner, **kw))
-    agent = DDPG(CartPole3D(continuous_params(), num_envs=b),
+    agent = DDPG(CartPole3D(continuous_params(), num_envs=b, device="cpu"),
                  DDPGConfig(learner=learner, **kw))
     return jagent, agent
 
@@ -296,7 +296,7 @@ def test_plain_learner_settings_match_jax_xla(extra):
 
 
 def test_learner_resolution():
-    env = CartPole3D(continuous_params(), num_envs=16)
+    env = CartPole3D(continuous_params(), num_envs=16, device="cpu")
     kw = dict(hidden=(16, 16), batch_size=16, rollout_steps=4,
               updates_per_step=1, warmup_env_steps=0,
               replay_capacity_per_env=8)
@@ -329,7 +329,7 @@ def test_learner_resolution():
 def test_kernel_learner_takes_any_torso(hidden):
     """learner="kernel" builds and trains at a depth and a width beyond
     the old caps of 4 layers and 1024 (B3's twin here)."""
-    env = CartPole3D(continuous_params(), num_envs=16)
+    env = CartPole3D(continuous_params(), num_envs=16, device="cpu")
     agent = DDPG(env, DDPGConfig(learner="kernel", hidden=hidden,
                                  batch_size=16, rollout_steps=4,
                                  updates_per_step=1, warmup_env_steps=0,
@@ -345,7 +345,7 @@ def test_flat_storage_views_and_state_dict_roundtrip():
     and Adam moment is a view of its group's buffer, a state_dict round
     trip is exact, and loading a state_dict writes through to the
     buffer."""
-    env = CartPole3D(continuous_params(), num_envs=8)
+    env = CartPole3D(continuous_params(), num_envs=8, device="cpu")
     agent = DDPG(env, DDPGConfig(hidden=(16, 24), learner="kernel"))
     st = agent.init(0)
     nets = (st.actor, st.critic, st.actor_target, st.critic_target)

@@ -19,7 +19,7 @@ def test_dqn_learns_discrete():
     (learner "auto" on the CPU). Measured greedy 14.8 against random
     5.1 at these seeds."""
     torch.set_num_threads(1)
-    env = CartPole3D(CartPoleParams(), num_envs=64)
+    env = CartPole3D(CartPoleParams(), num_envs=64, device="cpu")
     agent = DQN(env, DQNConfig(hidden=(64, 64), rollout_steps=16,
                                updates_per_step=8, batch_size=128,
                                replay_capacity_per_env=512, lr=5e-4,
@@ -53,7 +53,7 @@ def test_ddpg_learns_continuous():
         continuous_params as jcontinuous_params)
 
     torch.set_num_threads(1)
-    env = CartPole3D(continuous_params(), num_envs=64)
+    env = CartPole3D(continuous_params(), num_envs=64, device="cpu")
     agent = DDPG(env, DDPGConfig(hidden=(64, 64), rollout_steps=16,
                                  updates_per_step=8, batch_size=128,
                                  replay_capacity_per_env=512,

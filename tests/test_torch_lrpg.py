@@ -104,7 +104,7 @@ def test_act_matches_jax():
     """Softmax samples from the same weights, seeds and step are JAX's."""
     jagent = JLRPG(JCartPole3D(JCartPoleParams(), num_envs=256),
                    JLRPGConfig(hidden=(32, 32), learner="xla"))
-    agent = LRPG(CartPole3D(CartPoleParams(), num_envs=256),
+    agent = LRPG(CartPole3D(CartPoleParams(), num_envs=256, device="cpu"),
                  LRPGConfig(hidden=(32, 32), learner="xla"))
     st = jagent.init(0)
     params = _perturb(st.params, 2)
@@ -173,7 +173,7 @@ def _pg_setup(b, hidden, t):
         p["Dense_0"][name] = jnp.asarray(rng.normal(
             0, scale, p["Dense_0"][name].shape).astype(np.float32))
     policy = policy_from_flax(jax.device_get(st.params), F, 5, hidden)
-    env = CartPole3D(CartPoleParams(), num_envs=b)
+    env = CartPole3D(CartPoleParams(), num_envs=b, device="cpu")
     return jagent, st, policy, env
 
 
@@ -230,15 +230,17 @@ def test_wrapper_runs_twin_on_cpu():
 
 
 def test_pg_fusable_gate():
-    env = CartPole3D(CartPoleParams(), num_envs=100)
+    env = CartPole3D(CartPoleParams(), num_envs=100, device="cpu")
     assert tpg.pg_fusable(env, (64, 64)) and tpg.pg_fusable(env, (256,))
     # Any depth and width, as the reference's kernel.
     assert all(tpg.pg_fusable(env, h)
                for h in ((8,) * 5, (2048,), (4096, 4096)))
     assert not tpg.pg_fusable(env, ())
     assert not tpg.pg_fusable(CartPole3D(CartPoleParams(), num_envs=64,
-                                         obs_mode="state"), (64, 64))
-    assert not tpg.pg_fusable(CartPole3D(continuous_params(), num_envs=64),
+                                         obs_mode="state", device="cpu"),
+                              (64, 64))
+    assert not tpg.pg_fusable(CartPole3D(continuous_params(), num_envs=64,
+                                         device="cpu"),
                               (64, 64))
 
 
@@ -251,7 +253,7 @@ def _slice_pair(jlearner, learner, steps=4):
     cfg = dict(hidden=(32, 32), rollout_steps=8)
     jagent = JLRPG(JCartPole3D(JCartPoleParams(), num_envs=64),
                    JLRPGConfig(learner=jlearner, **cfg))
-    agent = LRPG(CartPole3D(CartPoleParams(), num_envs=64),
+    agent = LRPG(CartPole3D(CartPoleParams(), num_envs=64, device="cpu"),
                  LRPGConfig(learner=learner, **cfg))
     assert jagent.kernel_mode == (jlearner == "kernel")
     assert agent.kernel_mode == (learner == "kernel")
@@ -300,7 +302,7 @@ def test_lrpg_state_from_jax_round_trip():
     """A reference state after one step, in its kernel layout, converts
     exactly: policy, Adam moments and count, baseline, env state."""
     jagent, jst, _, _ = _slice_pair("kernel", "xla", steps=1)
-    agent = LRPG(CartPole3D(CartPoleParams(), num_envs=64),
+    agent = LRPG(CartPole3D(CartPoleParams(), num_envs=64, device="cpu"),
                  LRPGConfig(hidden=(32, 32), rollout_steps=8, learner="xla"))
     pst = lrpg_state_from_jax(agent, jax.device_get(jst))
     tree = jax.device_get(jagent.state_to_tree(jst))
@@ -318,13 +320,21 @@ def test_lrpg_state_from_jax_round_trip():
 
 
 def test_lrpg_config_rejections():
-    env = CartPole3D(CartPoleParams(), num_envs=8)
-    for bad in (dict(dtype="bfloat16"), dict(learner="tpu"),
-                dict(learner_precision="highest")):
+    """Unknown learners and learner_precision raise; bfloat16, ported
+    since, takes the plain learner and raises with learner='kernel' (B9
+    is float32, as the reference's kernel_learner_ok says)."""
+    env = CartPole3D(CartPoleParams(), num_envs=8, device="cpu")
+    for bad in (dict(learner="tpu"), dict(learner_precision="highest")):
         with pytest.raises(ValueError, match="not ported|unknown"):
             LRPG(env, LRPGConfig(**bad))
+    agent = LRPG(env, LRPGConfig(dtype="bfloat16"))
+    assert not agent.kernel_mode and agent.fusable()
+    with pytest.raises(ValueError, match="not covered by the fused update "
+                                         "kernel B9"):
+        LRPG(env, LRPGConfig(dtype="bfloat16", learner="kernel"))
     with pytest.raises(ValueError, match="discrete env"):
-        LRPG(CartPole3D(continuous_params(), num_envs=4), LRPGConfig())
+        LRPG(CartPole3D(continuous_params(), num_envs=4,
+                        device="cpu"), LRPGConfig())
     with pytest.raises(ValueError, match="not covered by the fused update "
                                          "kernel B9"):
         LRPG(env, LRPGConfig(hidden=(), learner="kernel"))
@@ -333,7 +343,7 @@ def test_lrpg_config_rejections():
 # --- the random agent ------------------------------------------------------------
 
 def test_random_agent_smoke():
-    env = CartPole3D(CartPoleParams(), num_envs=16)
+    env = CartPole3D(CartPoleParams(), num_envs=16, device="cpu")
     stats = RandomAgent(env).evaluate(0, 64)
     assert all(np.isfinite(float(v)) for v in stats.values())
     assert float(stats["episodes"]) > 0  # random policy must fail sometimes
@@ -344,7 +354,7 @@ def test_evaluate_policy_exact_invariants():
     """The episode count equals the total number of dones (every done
     completes exactly one episode; censored tails are excluded from the
     length stats)."""
-    env = CartPole3D(CartPoleParams(), num_envs=16)
+    env = CartPole3D(CartPoleParams(), num_envs=16, device="cpu")
     num_steps = 64
     stats = evaluate_policy(env, RandomAgent(env).policy, 0, num_steps,
                             generator=torch.Generator().manual_seed(0))
@@ -362,14 +372,16 @@ def test_random_agent_draws():
     [-1, 1)^2; the same seed gives the same statistics."""
     obs = torch.zeros((4096, F))
     g = torch.Generator().manual_seed(1)
-    a = RandomAgent(CartPole3D(CartPoleParams(), num_envs=4096)).policy(obs, g)
+    a = RandomAgent(CartPole3D(CartPoleParams(), num_envs=4096,
+                               device="cpu")).policy(obs, g)
     assert a.dtype == torch.int32
     assert sorted(torch.unique(a).tolist()) == [0, 1, 2, 3, 4]
-    c = RandomAgent(CartPole3D(continuous_params(), num_envs=4096)).policy(
+    c = RandomAgent(CartPole3D(continuous_params(), num_envs=4096,
+                               device="cpu")).policy(
         obs, g)
     assert c.shape == (4096, 2) and float(c.min()) >= -1.0
     assert float(c.max()) < 1.0 and float(c.min()) < -0.99
-    env = CartPole3D(CartPoleParams(), num_envs=16)
+    env = CartPole3D(CartPoleParams(), num_envs=16, device="cpu")
     s1, s2 = (RandomAgent(env).evaluate(5, 32) for _ in range(2))
     assert all(float(s1[k]) == float(s2[k]) for k in s1)
 
@@ -381,7 +393,8 @@ def test_random_agent_episode_length_matches_jax():
     want = jax.jit(JRandom(JCartPole3D(JCartPoleParams(), num_envs=64))
                    .evaluate, static_argnums=(1,))(jax.random.PRNGKey(0),
                                                    400)
-    got = RandomAgent(CartPole3D(CartPoleParams(), num_envs=64)).evaluate(
+    got = RandomAgent(CartPole3D(CartPoleParams(), num_envs=64,
+                                 device="cpu")).evaluate(
         0, 400)
     ratio = (float(got["mean_episode_length"])
              / float(want["mean_episode_length"]))

@@ -252,7 +252,7 @@ def test_b9_plan_caps_the_partial_rows():
 
 
 def test_learner_resolution():
-    env = CartPole3D(CartPoleParams(), num_envs=16)
+    env = CartPole3D(CartPoleParams(), num_envs=16, device="cpu")
     kw = dict(hidden=(16, 16), rollout_steps=4)
     for learner, impl in (("auto", 0.0), ("xla", 0.0), ("kernel", 1.0)):
         agent = LRPG(env, LRPGConfig(learner=learner, **kw))
@@ -273,7 +273,7 @@ def test_learner_resolution():
 def test_kernel_learner_takes_any_torso(hidden):
     """learner="kernel" builds and trains at a depth beyond the old cap of
     4 layers, and at a width on the workspace route (B9's twin here)."""
-    env = CartPole3D(CartPoleParams(), num_envs=16)
+    env = CartPole3D(CartPoleParams(), num_envs=16, device="cpu")
     agent = LRPG(env, LRPGConfig(learner="kernel", hidden=hidden,
                                  rollout_steps=4))
     assert agent.kernel_learner_ok()
@@ -286,7 +286,7 @@ def test_flat_storage_views():
     """Kernel mode keeps each group in one buffer: every policy parameter
     and Adam moment is a view of its group's buffer, and an update through
     the wrapper moves the module's parameters."""
-    env = CartPole3D(CartPoleParams(), num_envs=8)
+    env = CartPole3D(CartPoleParams(), num_envs=8, device="cpu")
     agent = LRPG(env, LRPGConfig(hidden=(16, 24), rollout_steps=4,
                                  learner="kernel"))
     st = agent.init(0)

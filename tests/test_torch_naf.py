@@ -47,7 +47,7 @@ def _pair(learner="xla", b=64, **kw):
     cfg = dict(hidden=HIDDEN, **kw)
     jagent = JNAF(JCartPole3D(jparams.continuous_params(), num_envs=b),
                   JNAFConfig(learner=learner, **cfg))
-    agent = NAF(CartPole3D(continuous_params(), num_envs=b),
+    agent = NAF(CartPole3D(continuous_params(), num_envs=b, device="cpu"),
                 NAFConfig(learner=learner, **cfg))
     return jagent, agent
 
@@ -357,16 +357,22 @@ def test_train_cli_cuda_rejects_shapes_b6_does_not_cover(argv):
 
 
 def test_unported_settings_and_the_discrete_env_raise():
-    """The settings the port lacks raise at construction; block sampling,
-    ported since, constructs (a batch that divides the envs) on both
-    learners."""
-    env = CartPole3D(continuous_params(), num_envs=8)
-    for kw in (dict(dtype="bfloat16"), dict(learner_precision="highest")):
-        with pytest.raises(ValueError, match="not ported"):
-            NAF(env, NAFConfig(**kw))
+    """The setting the port lacks (learner_precision) raises at
+    construction; bfloat16, ported since, constructs on the plain learner
+    and raises with learner='kernel' (B7 is float32, as the reference's
+    kernel_learner_ok says); block sampling, ported since, constructs (a
+    batch that divides the envs) on both learners."""
+    env = CartPole3D(continuous_params(), num_envs=8, device="cpu")
+    with pytest.raises(ValueError, match="not ported"):
+        NAF(env, NAFConfig(learner_precision="highest"))
+    agent = NAF(env, NAFConfig(dtype="bfloat16"))
+    assert not agent.kernel_mode and agent.fusable()
+    with pytest.raises(ValueError, match="not covered by the fused update"):
+        NAF(env, NAFConfig(dtype="bfloat16", learner="kernel"))
     for learner in ("xla", "kernel"):
         agent = NAF(env, NAFConfig(sample="block", batch_size=8,
                                    learner=learner))
         assert agent.kernel_mode == (learner == "kernel")
     with pytest.raises(ValueError, match="continuous env"):
-        NAF(CartPole3D(CartPoleParams(), num_envs=4), NAFConfig())
+        NAF(CartPole3D(CartPoleParams(), num_envs=4,
+                       device="cpu"), NAFConfig())

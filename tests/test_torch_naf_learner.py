@@ -280,7 +280,7 @@ def test_learner_resolution():
     takes B7's wrapper (its twin here) and raises where B7 does not
     cover the config; "auto" takes the plain learner off a GPU."""
     assert NAFConfig().learner == "xla"
-    env = CartPole3D(continuous_params(), num_envs=16)
+    env = CartPole3D(continuous_params(), num_envs=16, device="cpu")
     kw = dict(hidden=(16, 16), batch_size=16, rollout_steps=4,
               updates_per_step=1, warmup_env_steps=0,
               replay_capacity_per_env=8)
@@ -305,7 +305,7 @@ def test_learner_resolution():
 def test_kernel_learner_takes_any_torso(hidden):
     """learner="kernel" builds and trains at a depth and a width beyond
     the old caps of 4 layers and 1024 (B7's twin here)."""
-    env = CartPole3D(continuous_params(), num_envs=16)
+    env = CartPole3D(continuous_params(), num_envs=16, device="cpu")
     agent = NAF(env, NAFConfig(learner="kernel", hidden=hidden,
                                batch_size=16, rollout_steps=4,
                                updates_per_step=1, warmup_env_steps=0,
@@ -320,7 +320,7 @@ def test_flat_storage_views():
     """Kernel mode keeps each group in one buffer: every NafNet parameter,
     target parameter and Adam moment is a view of its group's buffer, and
     loading a state_dict writes through to the buffer."""
-    env = CartPole3D(continuous_params(), num_envs=8)
+    env = CartPole3D(continuous_params(), num_envs=8, device="cpu")
     agent = NAF(env, NAFConfig(hidden=(16, 24), learner="kernel"))
     st = agent.init(0)
     tensors = [list(st.net.parameters()), list(st.target.parameters()),

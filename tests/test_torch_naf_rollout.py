@@ -82,7 +82,7 @@ def _assert_rollouts_match(got, want):
 
 def test_reference_naf_rollout_matches_jax(setup):
     jagent, st, net = setup
-    env = CartPole3D(continuous_params(), num_envs=B)
+    env = CartPole3D(continuous_params(), num_envs=B, device="cpu")
     want = jax.jit(j_reference_naf_rollout(jagent, T))(
         st.env_state, st.obs, st.params, jnp.int32(0), jnp.float32(SIGMA))
     got = tnr.reference_naf_rollout(env, net, *_port_inputs(st), 0, SIGMA, T)
@@ -95,7 +95,7 @@ def test_reference_naf_rollout_matches_jax_pallas_kernel(setup):
     """The twin against the reference's B6 (the Pallas kernel in interpret
     mode, ~10 s here) at the same bars."""
     jagent, st, net = setup
-    env = CartPole3D(continuous_params(), num_envs=B)
+    env = CartPole3D(continuous_params(), num_envs=B, device="cpu")
     run = jax.jit(j_naf_policy_rollout(jagent.env, HIDDEN, T,
                                        interpret=True))
     want = run(st.env_state, st.obs, st.params, jnp.int32(5),
@@ -108,7 +108,7 @@ def test_rollout_continues_counters(setup):
     """A second chunk at env_steps=T keeps the noise aligned with the
     reference: the counters, not call boundaries, define it."""
     jagent, st, net = setup
-    env = CartPole3D(continuous_params(), num_envs=B)
+    env = CartPole3D(continuous_params(), num_envs=B, device="cpu")
     ref = jax.jit(j_reference_naf_rollout(jagent, T))
     w1 = ref(st.env_state, st.obs, st.params, jnp.int32(0), jnp.float32(0.1))
     w2 = ref(w1[0], w1[1], st.params, jnp.int32(T), jnp.float32(0.1))
@@ -137,7 +137,7 @@ def test_naf_action_matches_jax_act(setup, t, sigma):
 
 def test_wrapper_runs_twin_on_cpu(setup):
     _, st, net = setup
-    env = CartPole3D(continuous_params(), num_envs=B)
+    env = CartPole3D(continuous_params(), num_envs=B, device="cpu")
     before = tnr.naf_policy_rollout.launches
     got = tnr.naf_policy_rollout(env, net, *_port_inputs(st), 0, SIGMA, T)
     want = tnr.reference_naf_rollout(env, net, *_port_inputs(st), 0, SIGMA,
@@ -167,7 +167,7 @@ def test_pack_naf_mu_layout(hidden):
 
 
 def test_naf_fusable_is_b2s_window():
-    env = CartPole3D(continuous_params(), num_envs=100)
+    env = CartPole3D(continuous_params(), num_envs=100, device="cpu")
     for hidden in (HIDDEN, (256, 256), (2048,), (8,) * 5, (64,),
                    (4096, 4096), (3,) * 12, ()):
         assert tnr.naf_fusable(env, hidden) == tnr.fusable(env, hidden)
@@ -176,7 +176,9 @@ def test_naf_fusable_is_b2s_window():
     for hidden in ((2048,), (8,) * 5, (4096, 4096), (3,) * 12):
         assert tnr.naf_fusable(env, hidden)
     assert not tnr.naf_fusable(env, ())
-    assert not tnr.naf_fusable(CartPole3D(CartPoleParams(), num_envs=64),
+    assert not tnr.naf_fusable(CartPole3D(CartPoleParams(), num_envs=64,
+                                          device="cpu"),
                                HIDDEN)  # discrete
     assert not tnr.naf_fusable(CartPole3D(continuous_params(), num_envs=64,
-                                          obs_mode="state"), HIDDEN)
+                                          obs_mode="state", device="cpu"),
+                               HIDDEN)

@@ -81,7 +81,7 @@ def _agents(name, **over):
                        render_config=jpx.RenderConfig(**RENDER))
     env = CartPole3D(continuous_params() if continuous else CartPoleParams(),
                      num_envs=B, obs_mode="pixels",
-                     render_config=tpx.RenderConfig(**RENDER))
+                     render_config=tpx.RenderConfig(**RENDER), device="cpu")
     return jcls(jenv, jcfg(**kw)), cls(env, cfg(**kw))
 
 

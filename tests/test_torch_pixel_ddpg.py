@@ -61,7 +61,7 @@ def _agents(**over):
                        obs_mode="pixels",
                        render_config=jpx.RenderConfig(**RENDER))
     env = CartPole3D(continuous_params(), num_envs=B, obs_mode="pixels",
-                     render_config=tpx.RenderConfig(**RENDER))
+                     render_config=tpx.RenderConfig(**RENDER), device="cpu")
     return (JDDPG(jenv, JDDPGConfig(learner="xla", **kw)),
             DDPG(env, DDPGConfig(learner="xla", **kw)))
 

@@ -42,7 +42,7 @@ def _envs(mode, b=8, n=16):
                        obs_mode="pixels",
                        render_config=jpx.RenderConfig(**kw))
     env = CartPole3D(continuous_params(), num_envs=b, obs_mode="pixels",
-                     render_config=tpx.RenderConfig(**kw))
+                     render_config=tpx.RenderConfig(**kw), device="cpu")
     return jenv, env
 
 

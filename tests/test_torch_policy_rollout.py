@@ -83,7 +83,7 @@ def _assert_rollouts_match(got, want):
 
 def test_reference_policy_rollout_matches_jax(setup):
     jagent, st, actor = setup
-    env = CartPole3D(continuous_params(), num_envs=B)
+    env = CartPole3D(continuous_params(), num_envs=B, device="cpu")
     sigma = 0.2
     want = jax.jit(j_reference_policy_rollout(jagent, T))(
         st.env_state, st.obs, st.noise, st.actor, jnp.int32(0),
@@ -98,7 +98,7 @@ def test_rollout_continues_counters(setup):
     """A second chunk at env_steps=T keeps the OU streams aligned with the
     reference: the counters, not call boundaries, define the noise."""
     jagent, st, actor = setup
-    env = CartPole3D(continuous_params(), num_envs=B)
+    env = CartPole3D(continuous_params(), num_envs=B, device="cpu")
     ref = jax.jit(j_reference_policy_rollout(jagent, T))
     sigma = jnp.float32(0.1)
     w1 = ref(st.env_state, st.obs, st.noise, st.actor, jnp.int32(0), sigma)
@@ -123,7 +123,7 @@ def test_ou_step_matches_jax(setup):
 
 def test_wrapper_runs_twin_on_cpu(setup):
     _, st, actor = setup
-    env = CartPole3D(continuous_params(), num_envs=B)
+    env = CartPole3D(continuous_params(), num_envs=B, device="cpu")
     before = tpr.policy_rollout.launches
     got = tpr.policy_rollout(env, actor, THETA, *_port_inputs(st), 0, 0.2, T)
     want = tpr.reference_policy_rollout(env, actor, THETA,
@@ -153,14 +153,16 @@ def test_pack_actor_layout(hidden):
 
 
 def test_fusable_gate():
-    env = CartPole3D(continuous_params(), num_envs=100)
+    env = CartPole3D(continuous_params(), num_envs=100, device="cpu")
     assert tpr.fusable(env, HIDDEN)  # any batch size: tiles are masked
     assert tpr.fusable(env, (256, 256))
     # Any depth and width: wide activations go to a workspace.
     for hidden in ((2048,), (8,) * 5, (4096, 4096), (3,) * 12):
         assert tpr.fusable(env, hidden)
     assert not tpr.fusable(env, ())
-    assert not tpr.fusable(CartPole3D(CartPoleParams(), num_envs=64),
+    assert not tpr.fusable(CartPole3D(CartPoleParams(), num_envs=64,
+                                      device="cpu"),
                            HIDDEN)  # discrete
     assert not tpr.fusable(CartPole3D(continuous_params(), num_envs=64,
-                                      obs_mode="state"), HIDDEN)
+                                      obs_mode="state", device="cpu"),
+                           HIDDEN)

@@ -89,7 +89,7 @@ def _assert_rollouts_match(got, want):
 
 def test_reference_q_rollout_matches_jax(setup):
     jagent, st, q = setup
-    env = CartPole3D(CartPoleParams(), num_envs=B)
+    env = CartPole3D(CartPoleParams(), num_envs=B, device="cpu")
     want = jax.jit(j_reference_q_rollout(jagent, T))(
         st.env_state, st.obs, st.q, jnp.int32(0), jnp.float32(EPS))
     got = tqr.reference_q_rollout(env, q, *_port_inputs(st), 0, EPS, T)
@@ -102,7 +102,7 @@ def test_reference_q_rollout_matches_jax(setup):
 def test_reference_q_rollout_matches_jax_pallas_kernel(setup):
     """The twin against the reference's own kernel B4 (interpret mode)."""
     _, st, q = setup
-    env = CartPole3D(CartPoleParams(), num_envs=B)
+    env = CartPole3D(CartPoleParams(), num_envs=B, device="cpu")
     run = j_q_policy_rollout(JCartPole3D(JCartPoleParams(), num_envs=B),
                              HIDDEN, T, interpret=True)
     want = jax.jit(run)(st.env_state, st.obs, st.q, jnp.int32(0),
@@ -115,7 +115,7 @@ def test_rollout_continues_counters(setup):
     """A second greedy chunk at env_steps=T stays aligned with the
     reference: the counters, not call boundaries, key the draws."""
     jagent, st, q = setup
-    env = CartPole3D(CartPoleParams(), num_envs=B)
+    env = CartPole3D(CartPoleParams(), num_envs=B, device="cpu")
     ref = jax.jit(j_reference_q_rollout(jagent, T))
     w1 = ref(st.env_state, st.obs, st.q, jnp.int32(0), jnp.float32(EPS))
     w2 = ref(w1[0], w1[1], st.q, jnp.int32(T), jnp.float32(0.0))
@@ -126,7 +126,7 @@ def test_rollout_continues_counters(setup):
 
 def test_wrapper_runs_twin_on_cpu(setup):
     _, st, q = setup
-    env = CartPole3D(CartPoleParams(), num_envs=B)
+    env = CartPole3D(CartPoleParams(), num_envs=B, device="cpu")
     before = tqr.q_policy_rollout.launches
     got = tqr.q_policy_rollout(env, q, *_port_inputs(st), 5, EPS, T)
     want = tqr.reference_q_rollout(env, q, *_port_inputs(st), 5, EPS, T)
@@ -139,7 +139,7 @@ def test_wrapper_runs_twin_on_cpu(setup):
 
 def test_wrapper_rejects_other_devices(setup):
     _, st, q = setup
-    env = CartPole3D(CartPoleParams(), num_envs=B)
+    env = CartPole3D(CartPoleParams(), num_envs=B, device="cpu")
     state, obs = _port_inputs(st)
     meta = state._replace(steps=state.steps.to("meta"))
     with pytest.raises(ValueError, match="cuda or cpu"):
@@ -212,16 +212,19 @@ def _redrawn(q, g):
 
 
 def test_q_fusable_gate():
-    env = CartPole3D(CartPoleParams(), num_envs=100)
+    env = CartPole3D(CartPoleParams(), num_envs=100, device="cpu")
     assert tqr.q_fusable(env, HIDDEN)  # any batch size: tiles are masked
     assert tqr.q_fusable(env, (256, 256))
     # Any depth and width: wide activations go to a workspace.
     for hidden in ((2048,), (8,) * 5, (4096, 4096), (3,) * 12):
         assert tqr.q_fusable(env, hidden)
     assert not tqr.q_fusable(env, ())
-    assert not tqr.q_fusable(CartPole3D(continuous_params(), num_envs=64),
+    assert not tqr.q_fusable(CartPole3D(continuous_params(), num_envs=64,
+                                        device="cpu"),
                              HIDDEN)  # continuous
     assert not tqr.q_fusable(CartPole3D(CartPoleParams(), num_envs=64,
-                                        obs_mode="state"), HIDDEN)
+                                        obs_mode="state", device="cpu"),
+                           HIDDEN)
     assert not tqr.q_fusable(CartPole3D(CartPoleParams(), num_envs=64,
-                                        auto_reset=False), HIDDEN)
+                                        auto_reset=False, device="cpu"),
+                             HIDDEN)

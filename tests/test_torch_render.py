@@ -269,8 +269,9 @@ def test_render_dispatch_on_the_cpu_takes_the_dtype():
     assert torch.equal(trk.render(CartPoleParams(), cfg, tphys),
                        tpx.render_all_cameras(CartPoleParams(), tphys, cfg))
     env = CartPole3D(CartPoleParams(), num_envs=4, obs_mode="pixels",
-                     render_config=cfg)
+                     render_config=cfg, device="cpu")
     assert env.reset(0)[1].shape == (4, 16, 16, 6)
     with pytest.raises(ValueError, match="RenderConfig.dtype"):
         CartPole3D(CartPoleParams(), num_envs=4, obs_mode="pixels",
-                   render_config=tpx.RenderConfig(dtype="float16"))
+                   render_config=tpx.RenderConfig(dtype="float16"),
+                   device="cpu")

@@ -27,6 +27,7 @@ from cartpoleplusplus_tpu_torch.dist import (  # noqa: E402
     all_reduce_sum, initialize_multihost, make_distributed_train_step,
     make_mesh, make_shardmap_evaluate, make_shardmap_train_step)
 from cartpoleplusplus_tpu_torch.env import CartPole3D  # noqa: E402
+from cartpoleplusplus_tpu_torch.env.pixels import RenderConfig  # noqa: E402
 from cartpoleplusplus_tpu_torch.physics.params import (  # noqa: E402
     CartPoleParams, continuous_params)
 
@@ -34,17 +35,26 @@ AGENTS = {"ddpg": (DDPG, DDPGConfig, True), "dqn": (DQN, DQNConfig, False),
           "naf": (NAF, NAFConfig, True), "lrpg": (LRPG, LRPGConfig, False)}
 
 
+def make_env(params, num_envs: int, render=None) -> CartPole3D:
+    """A CPU env: pixel observations rendered with RenderConfig(**render)
+    when `render` is given."""
+    if render is None:
+        return CartPole3D(params, num_envs=num_envs, device="cpu")
+    return CartPole3D(params, num_envs=num_envs, obs_mode="pixels",
+                      device="cpu", render_config=RenderConfig(**render))
+
+
 def build(agent: str, num_envs: int, cfg: dict, mesh=None,
-          spmd: bool = True):
-    """The agent on `num_envs` envs (this rank's shard over a mesh)."""
+          spmd: bool = True, render=None):
+    """The agent on `num_envs` envs (this rank's shard over a mesh), on
+    pixel observations when `render` is given."""
     cls, cfg_cls, continuous = AGENTS[agent]
     params = continuous_params() if continuous else CartPoleParams()
     kw = cfg.copy()
     if "hidden" in kw:
         kw["hidden"] = tuple(kw["hidden"])
     shard = dict(group=mesh, num_shards=mesh.size) if mesh else {}
-    env = CartPole3D(params, num_envs=num_envs // (mesh.size if mesh
-                                                   else 1))
+    env = make_env(params, num_envs // (mesh.size if mesh else 1), render)
     return cls(env, cfg_cls(**kw), spmd=spmd, **shard)
 
 
@@ -56,7 +66,8 @@ def train(job: dict, mesh) -> dict:
     the global draws) when given; returns the state tree (this rank's
     rows) and the metrics after every step."""
     spmd = job["learner"] == "spmd"
-    agent = build(job["agent"], job["num_envs"], job["cfg"], mesh, spmd)
+    agent = build(job["agent"], job["num_envs"], job["cfg"], mesh, spmd,
+                  job.get("render"))
     st = agent.init(job.get("seed", 0))
     if job.get("state"):
         st = merge_restored(st, torch.load(job["state"], weights_only=True),
@@ -100,14 +111,56 @@ def rollout(job: dict, mesh) -> dict:
     from cartpoleplusplus_tpu_torch.ops.fused_rollout import fused_rollout
 
     n = job["num_envs"] // mesh.size
-    env = CartPole3D(CartPoleParams(), num_envs=n)
+    env = CartPole3D(CartPoleParams(), num_envs=n, device="cpu")
     st, _ = env.reset(0, mesh.rank * n)
     st, acc = fused_rollout(env, st, job["steps"])
     report = scaling_report(lambda num_envs_scale: CartPole3D(
-        CartPoleParams(), num_envs=n * num_envs_scale), num_steps=4,
-        mesh=mesh)
+        CartPoleParams(), num_envs=n * num_envs_scale, device="cpu"),
+        num_steps=4, mesh=mesh)
     return {"local": acc, "total": all_reduce_sum(acc.reshape(1), mesh),
             "pos": st.phys.pos, "scaling": report}
+
+
+def pixel_rollout(job: dict, mesh) -> dict:
+    """job["steps"] env-steps of this rank's pixel envs under the action
+    (global env index + t) % 5: every step's frames and rewards."""
+    n = job["num_envs"] // mesh.size
+    env = make_env(CartPoleParams(), n, job["render"])
+    st, _ = env.reset(0, mesh.rank * n)
+    idx = torch.arange(n, dtype=torch.int32) + mesh.rank * n
+    frames, rewards = [], []
+    for t in range(job["steps"]):
+        st, obs, reward, _, _ = env.step(st, (idx + t) % 5)
+        frames.append(obs)
+        rewards.append(reward)
+    return {"frames": torch.stack(frames), "rewards": torch.stack(rewards)}
+
+
+def learn(job: dict, mesh) -> dict:
+    """tests/test_multihost.py's 2-process DQN learning run on the port:
+    the shardmap learner for job["env_steps"] env-steps (scans of 5 train
+    steps), then the sharded greedy eval (job["eval_steps"] steps, seed 7)
+    and the random agent's on the global env shape; prints the LEARN line
+    and returns the statistics."""
+    from cartpoleplusplus_tpu_torch.agents import RandomAgent
+    from cartpoleplusplus_tpu_torch.dist import make_shardmap_train_scan
+
+    agent = build("dqn", job["num_envs"], job["cfg"], mesh, spmd=False)
+    st = agent.init(0)
+    k = 5
+    scan = make_shardmap_train_scan(agent, mesh, k)
+    for _ in range((job["env_steps"] // job["cfg"]["rollout_steps"]) // k):
+        st, _ = scan(st)
+    stats = {key: float(v) for key, v in make_shardmap_evaluate(
+        agent, mesh, st, job["eval_steps"], 7)(st).items()}
+    rand = {key: float(v) for key, v in RandomAgent(
+        make_env(CartPoleParams(), job["num_envs"])).evaluate(
+            7, job["eval_steps"]).items()}
+    line = (f"LEARN {stats['mean_episode_length']:.4f} RAND "
+            f"{rand['mean_episode_length']:.4f} EPISODES "
+            f"{int(stats['episodes'])}")
+    print(line, flush=True)
+    return {"line": line, "stats": stats, "random": rand}
 
 
 def collectives(job: dict, mesh) -> dict:
@@ -141,7 +194,8 @@ def collectives(job: dict, mesh) -> dict:
 
 
 JOBS = {"train": train, "eval": evaluate, "rollout": rollout,
-        "collectives": collectives}
+        "collectives": collectives, "pixel_rollout": pixel_rollout,
+        "learn": learn}
 
 
 def main() -> int:
