@@ -83,6 +83,8 @@ class DDPGConfig:
     # the plain learner (with one stderr line on a CUDA device).
     learner: str = "auto"
     learner_block: int = 512         # TPU kernel tiling; unused here
+    # The kernel learner's product precision (ops.learner_kernel.mm_mode);
+    # the plain learner ignores it.
     learner_precision: str | None = None
     lr_decay_env_steps: int = 0
     lr_end_frac: float = 0.1
@@ -97,7 +99,7 @@ _SUPPORTED = {
     "actor_grad_critic": ("updated", "pre"),
     "polyak_cadence": ("per_update", "per_step"),
     "learner": ("auto", "kernel", "xla"),
-    "learner_precision": (None,),
+    "learner_precision": lk.PRECISIONS,
     "encoder": ("conv", "patch"),
 }
 
@@ -340,7 +342,7 @@ class DDPG:
             actor_lr=c.actor_lr,
             critic_lr=c.critic_lr, gamma=c.gamma, tau=c.tau,
             actor_grad_critic=c.actor_grad_critic,
-            lr_schedule=lr_schedule(c))
+            lr_schedule=lr_schedule(c), mm_precision=c.learner_precision)
         count = t0 + c.updates_per_step
         st = st._replace(actor_opt=st.actor_opt._replace(count=count),
                          critic_opt=st.critic_opt._replace(count=count))

@@ -78,6 +78,8 @@ class DQNConfig:
     # the plain learner (with one stderr line on a CUDA device).
     learner: str = "auto"
     learner_block: int = 512         # TPU kernel tiling; unused here
+    # The kernel learner's product precision (ops.learner_kernel.mm_mode);
+    # the plain learner ignores it.
     learner_precision: str | None = None
     encoder: str = "conv"            # pixel obs only: "conv" | "patch"
     conv_features: tuple = (16, 32, 32)  # the conv encoder's widths
@@ -88,7 +90,7 @@ _SUPPORTED = {
     "dtype": ("float32", "bfloat16"),
     "sample": ("column", "block", "uniform"),
     "learner": ("auto", "kernel", "xla"),
-    "learner_precision": (None,),
+    "learner_precision": lk.PRECISIONS,
     "encoder": ("conv", "patch"),
 }
 
@@ -277,7 +279,7 @@ class DQN:
         loss = lk.dqn_update_phase(
             st.groups, tuple(x.contiguous() for x in batches), st.opt.count,
             c.hidden, lr=c.lr, gamma=c.gamma, tau=c.tau,
-            double_dqn=c.double_dqn)
+            double_dqn=c.double_dqn, mm_precision=c.learner_precision)
         st = st._replace(opt=st.opt._replace(
             count=st.opt.count + c.updates_per_step))
         return st, {"loss": loss.mean()}

@@ -73,6 +73,8 @@ class LRPGConfig:
     # the plain learner (with one stderr line on a CUDA device).
     learner: str = "auto"
     learner_block: int = 1024        # TPU kernel tiling; unused here
+    # The kernel learner's product precision (ops.learner_kernel.mm_mode);
+    # the plain learner ignores it.
     learner_precision: str | None = None
     encoder: str = "conv"            # pixel obs only: "conv" | "patch"
     conv_features: tuple = (16, 32, 32)  # the conv encoder's widths
@@ -82,7 +84,7 @@ class LRPGConfig:
 _SUPPORTED = {
     "dtype": ("float32", "bfloat16"),
     "learner": ("auto", "kernel", "xla"),
-    "learner_precision": (None,),
+    "learner_precision": lk.PRECISIONS,
     "encoder": ("conv", "patch"),
 }
 
@@ -268,7 +270,8 @@ class LRPG:
                                for x in window)
             loss = lk.lrpg_update_phase(
                 st.groups, window, st.opt.count, c.hidden,
-                lr=c.lr, entropy_coef=c.entropy_coef)
+                lr=c.lr, entropy_coef=c.entropy_coef,
+                mm_precision=c.learner_precision)
             opt = st.opt._replace(count=st.opt.count + 1)
         else:
             loss = self._loss(st.policy, obs_t, act_t, adv)

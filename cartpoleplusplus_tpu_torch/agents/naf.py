@@ -85,6 +85,8 @@ class NAFConfig:
     # (with one stderr line on a CUDA device).
     learner: str = "xla"
     learner_block: int = 512         # TPU kernel tiling; unused here
+    # The kernel learner's product precision (ops.learner_kernel.mm_mode);
+    # the plain learner ignores it.
     learner_precision: str | None = None
     lr_decay_env_steps: int = 40000  # linear lr decay horizon (0 = constant)
     lr_end_frac: float = 0.1
@@ -97,7 +99,7 @@ _SUPPORTED = {
     "dtype": ("float32", "bfloat16"),
     "sample": ("column", "block", "uniform"),
     "learner": ("auto", "kernel", "xla"),
-    "learner_precision": (None,),
+    "learner_precision": lk.PRECISIONS,
     "encoder": ("conv", "patch"),
 }
 
@@ -290,7 +292,8 @@ class NAF:
         loss = lk.naf_update_phase(
             st.groups, tuple(x.contiguous() for x in batches), st.opt.count,
             c.hidden, lr=c.lr, gamma=c.gamma, tau=c.tau,
-            max_grad_norm=c.max_grad_norm, lr_schedule=lr_schedule(c))
+            max_grad_norm=c.max_grad_norm, lr_schedule=lr_schedule(c),
+            mm_precision=c.learner_precision)
         st = st._replace(opt=st.opt._replace(
             count=st.opt.count + c.updates_per_step))
         return st, {"loss": loss.mean()}

@@ -60,7 +60,10 @@
 // so the bits are that design's; every elementwise formula (LayerNorm,
 // Adam, Polyak, the TD target) follows the twin operation by operation.
 // The float32 constants (log b, gamma, tau, 1/batch, the lr schedule) are
-// folded on the host. No float atomics: two runs give the same bits.
+// folded on the host. No float atomics: two runs give the same bits. The
+// kernel is instantiated per products' mode (dims.mm: float32, bfloat16 or
+// TF32 operands, learner_stages.cuh's mm_in), and the launcher picks the
+// instance.
 #include "row_chain.cuh"
 
 // Mirror of ops/_native.py::LearnerDims.
@@ -69,6 +72,7 @@ struct LearnerDims {
   Torso torso;
   NetLayout actor, critic;
   int spill;  // 1: the items' buffers in the workspace at any width
+  int mm;     // the products' mode: kMmF32, kMmBf16 or kMmTf32
 };
 
 namespace {
@@ -118,46 +122,49 @@ __host__ __device__ inline int table_ints(const LearnerDims& d) {
 
 // One shared copy of each of the row chain's pieces for B3's many call
 // sites: inlined at each, the kernel's code outgrew the instruction cache.
-template <int R>
+template <int M, int R>
 __device__ __noinline__ void torso_fwd_once(
     const Torso& T, const NetLayout& L, const float* net, int F,
     const float* xa, int na, float* act, float* zr, int ldz, float* ring,
     const LearnerConsts& c, const FwdSave& sv, int b0, int nr, int B, int l0,
     int l1, const float* zmain) {
-  torso_fwd<R>(T, L, net, F, xa, na, act, zr, ldz, ring, c, sv, b0, nr, B,
-               l0, l1, zmain);
+  torso_fwd<M, R>(T, L, net, F, xa, na, act, zr, ldz, ring, c, sv, b0, nr,
+                  B, l0, l1, zmain);
 }
 
+template <int M>
 __device__ __noinline__ void torso_bwd_once(
     const Torso& T, const NetLayout& L, const float* net, int join,
     const float* z, float* dh, float* dzs, int ldz, float* ring,
     const LearnerConsts& c, const BwdSave& sv, int b0, int nr, int B, int lo,
     float* tail) {
-  torso_bwd(T, L, net, join, z, dh, dzs, ldz, ring, c, sv, b0, nr, B, lo,
-            tail);
+  torso_bwd<M>(T, L, net, join, z, dh, dzs, ldz, ring, c, sv, b0, nr, B, lo,
+               tail);
 }
 
+template <int M>
 __device__ __noinline__ void grad_stage_once(
     const NetGrads* g, int n_nets, const Torso& T, int F, int B,
     const NetPtr* nets, const AdamStep& as, const LearnerConsts& c,
     float* sm) {
-  grad_stage<false>(g, n_nets, T, F, B, nets, as, c, sm, FlatStore{});
+  grad_stage<false, M>(g, n_nets, T, F, B, nets, as, c, sm, FlatStore{});
 }
 
 // The critic's front on R rows whose layer-0 input is in act: layer 0 (its
 // pre-LN rows kept when sv.z), then layer 1's sums over its first H_0
 // inputs (the action's sums and the bias come later), rows b0 .. b0 + nr -
 // 1 of them into zm (batch, H_1).
-template <int R>
+template <int M, int R>
 __device__ __noinline__ void critic_front(
     const Torso& T, const NetLayout& LC, const float* net, int F, float* act,
     float* zr, int ldz, float* ring, const LearnerConsts& c,
     const FwdSave& sv, int b0, int nr, int B, float* zm) {
-  torso_fwd<R>(T, LC, net, F, nullptr, 0, act, zr, ldz, ring, c, sv, b0, nr,
-               B, 0, 1, nullptr);
+  torso_fwd<M, R>(T, LC, net, F, nullptr, 0, act, zr, ldz, ring, c, sv, b0,
+                  nr, B, 0, 1, nullptr);
   const int h0 = T.h(0), h1 = T.h(1);
-  rows_product<R, R + 4, true, kColsF>(act, h0, h1, net + LC.w(1),
-                                       h0 + kActDim, nullptr, zr, ldz, ring);
+  rows_product<M, R, R + 4, true, kColsF>(act, h0, h1, net + LC.w(1),
+                                          h0 + kActDim, nullptr, zr, ldz,
+                                          ring);
   for (int o = threadIdx.x; o < nr * h1; o += kThreads) {
     const int r = o / h1, cc = o - r * h1;
     zm[static_cast<size_t>(b0 + r) * h1 + cc] = zr[r * ldz + cc];
@@ -193,7 +200,7 @@ enum : int { kBwdCritic = 0, kBwdActor = 1 };
 // into w.zTm; kPassCritic, the critic on (s, a) into w.qC, its rows kept;
 // kPassActor, the actor on s (kept) into w.aA; kPassActorFront, the
 // critic's front on s (its layer-0 rows kept) into w.zQm.
-template <int R>
+template <int M, int R>
 __device__ void fwd_item(const LearnerDims& d, const LearnerConsts& c,
                          const Workspace& w, const RowPlan& rp,
                          const Torso& T, const NetLayout& LA,
@@ -219,22 +226,23 @@ __device__ void fwd_item(const LearnerDims& d, const LearnerConsts& c,
     const float* net = tgt ? gr.g[2] : A;
     float* const aout = tgt ? w.aN : w.aA;
     load_rows<R>(tgt ? nobs : obs, F, b0, nr, act);
-    torso_fwd_once<R>(T, LA, net, F, nullptr, 0, act, zr, ldz, ring, c,
-                           tgt ? FwdSave{} : FwdSave{w.zA, w.hinA, w.hlastA,
-                                                     0},
-                           b0, nr, B, 0, 0, nullptr);
+    torso_fwd_once<M, R>(T, LA, net, F, nullptr, 0, act, zr, ldz, ring, c,
+                         tgt ? FwdSave{} : FwdSave{w.zA, w.hinA, w.hlastA,
+                                                   0},
+                         b0, nr, B, 0, 0, nullptr);
     CP_MARK(3);  // the actor's torso
-    head_fwd<R>(net + LA.wh, net + LA.bh, kActDim, hl, act, ring,
-                     [&](int r, int a, float v) {
-                       if (r < nr) aout[(b0 + r) * kActDim + a] = tanhf(v);
-                     });
+    head_fwd<M, R>(net + LA.wh, net + LA.bh, kActDim, hl, act, ring,
+                   [&](int r, int a, float v) {
+                     if (r < nr) aout[(b0 + r) * kActDim + a] = tanhf(v);
+                   });
     CP_MARK(4);  // its head
   } else if (p == kPassTargetFront || p == kPassActorFront) {
     const bool tgt = p == kPassTargetFront;
     load_rows<R>(tgt ? nobs : obs, F, b0, nr, act);
-    critic_front<R>(T, LC, tgt ? gr.g[3] : C, F, act, zr, ldz, ring, c,
-                 tgt ? FwdSave{} : FwdSave{w.zQ, nullptr, nullptr, kActDim},
-                 b0, nr, B, tgt ? w.zTm : w.zQm);
+    critic_front<M, R>(T, LC, tgt ? gr.g[3] : C, F, act, zr, ldz, ring, c,
+                       tgt ? FwdSave{}
+                           : FwdSave{w.zQ, nullptr, nullptr, kActDim},
+                       b0, nr, B, tgt ? w.zTm : w.zQm);
     CP_MARK(5);  // the critic's front
   } else {
     for (int i = threadIdx.x; i < R * kActDim; i += kThreads) {
@@ -243,13 +251,13 @@ __device__ void fwd_item(const LearnerDims& d, const LearnerConsts& c,
           r < nr ? bt.act[(kb + b0 + r) * kActDim + a] : 0.0f;
     }
     load_rows<R>(obs, F, b0, nr, act);
-    torso_fwd_once<R>(T, LC, C, F, xa, kActDim, act, zr, ldz, ring, c,
-                           FwdSave{w.zC, w.hinC, w.hlastC, kActDim}, b0, nr,
-                           B, 0, 0, nullptr);
-    head_fwd<R>(C + LC.wh, C + LC.bh, 1, hl, act, ring,
-                     [&](int r, int, float v) {
-                       if (r < nr) w.qC[b0 + r] = v;
-                     });
+    torso_fwd_once<M, R>(T, LC, C, F, xa, kActDim, act, zr, ldz, ring, c,
+                         FwdSave{w.zC, w.hinC, w.hlastC, kActDim}, b0, nr,
+                         B, 0, 0, nullptr);
+    head_fwd<M, R>(C + LC.wh, C + LC.bh, 1, hl, act, ring,
+                   [&](int r, int, float v) {
+                     if (r < nr) w.qC[b0 + r] = v;
+                   });
     CP_MARK(6);  // the critic on (s, a)
   }
 }
@@ -261,6 +269,7 @@ __device__ void fwd_item(const LearnerDims& d, const LearnerConsts& c,
 // pi(s)) (its pre-LN rows kept; Q into w.qA), its backward from d loss /
 // dQ = -1/B down to dQ/da, the tanh's backward into w.dpreA, then the
 // actor's backward (kept).
+template <int M>
 __device__ void bwd_item(const LearnerDims& d, const LearnerConsts& c,
                          const Workspace& w, const RowPlan& rp,
                          const Torso& T, const NetLayout& LA,
@@ -286,17 +295,18 @@ __device__ void bwd_item(const LearnerDims& d, const LearnerConsts& c,
 
   __syncthreads();  // the last item is done with the buffers
   load_actions(critic ? w.aN : w.aA, b0, nr, xa);
-  torso_fwd_once<kRowsB>(T, LC, net, F, xa, kActDim, act, dh, ldz, ring, c,
-                         critic ? FwdSave{}
-                                : FwdSave{w.zQ, nullptr, nullptr, kActDim},
-                         b0, nr, B, 1, 0, critic ? w.zTm : w.zQm);
-  head_fwd<kRowsB>(net + LC.wh, net + LC.bh, 1, hl, act, ring,
-                   [&](int r, int, float v) {
-                     if (critic)
-                       da[r] = v;
-                     else if (r < nr)
-                       w.qA[b0 + r] = v;
-                   });
+  torso_fwd_once<M, kRowsB>(T, LC, net, F, xa, kActDim, act, dh, ldz, ring,
+                            c,
+                            critic ? FwdSave{}
+                                   : FwdSave{w.zQ, nullptr, nullptr, kActDim},
+                            b0, nr, B, 1, 0, critic ? w.zTm : w.zQm);
+  head_fwd<M, kRowsB>(net + LC.wh, net + LC.bh, 1, hl, act, ring,
+                      [&](int r, int, float v) {
+                        if (critic)
+                          da[r] = v;
+                        else if (r < nr)
+                          w.qA[b0 + r] = v;
+                      });
   CP_MARK(7);  // the critic's rest
   if (critic) {
     if (tid < kRowsB) {  // the TD epilogue, one row a thread
@@ -314,17 +324,17 @@ __device__ void bwd_item(const LearnerDims& d, const LearnerConsts& c,
       dqs[tid * kQLd] = g;
     }
     __syncthreads();
-    head_bwd(dqs, 1, C + LC.wh, hl, dh, ldz);
-    torso_bwd_once(T, LC, C, kActDim, w.zC, dh, dzs, ldz, ring, c,
-                   BwdSave{w.dzC, w.dyC, w.dyxhC}, b0, nr, B, 0, nullptr);
+    head_bwd<M>(dqs, 1, C + LC.wh, hl, dh, ldz);
+    torso_bwd_once<M>(T, LC, C, kActDim, w.zC, dh, dzs, ldz, ring, c,
+                      BwdSave{w.dzC, w.dyC, w.dyxhC}, b0, nr, B, 0, nullptr);
     CP_MARK(8);  // the TD epilogue and the critic's backward
     return;
   }
   if (tid < kRowsB) dqs[tid * kQLd] = tid < nr ? c.neg_inv_batch : 0.0f;
   __syncthreads();
-  head_bwd(dqs, 1, C + LC.wh, hl, dh, ldz);
-  torso_bwd_once(T, LC, C, kActDim, w.zQ, dh, dzs, ldz, ring, c, BwdSave{},
-                 b0, nr, B, 1, da);
+  head_bwd<M>(dqs, 1, C + LC.wh, hl, dh, ldz);
+  torso_bwd_once<M>(T, LC, C, kActDim, w.zQ, dh, dzs, ldz, ring, c,
+                    BwdSave{}, b0, nr, B, 1, da);
   if (tid < kRowsB * kActDim) {  // through the tanh head
     const int r = tid / kActDim, a = tid - r * kActDim;
     float g = 0.0f;
@@ -337,12 +347,13 @@ __device__ void bwd_item(const LearnerDims& d, const LearnerConsts& c,
     dps[r * kQLd + a] = g;
   }
   __syncthreads();
-  head_bwd(dps, kActDim, A + LA.wh, hl, dh, ldz);
-  torso_bwd_once(T, LA, A, 0, w.zA, dh, dzs, ldz, ring, c,
-                 BwdSave{w.dzA, w.dyA, w.dyxhA}, b0, nr, B, 0, nullptr);
+  head_bwd<M>(dps, kActDim, A + LA.wh, hl, dh, ldz);
+  torso_bwd_once<M>(T, LA, A, 0, w.zA, dh, dzs, ldz, ring, c,
+                    BwdSave{w.dzA, w.dyA, w.dyxhA}, b0, nr, B, 0, nullptr);
   CP_MARK(9);  // the actor's backward
 }
 
+template <int M>
 __global__ void __launch_bounds__(kThreads, 1) ddpg_update_kernel(
     const LearnerDims d, const LearnerConsts c, const Workspace w,
     const Groups gr, const Batches bt, float* __restrict__ closs,
@@ -367,14 +378,14 @@ __global__ void __launch_bounds__(kThreads, 1) ddpg_update_kernel(
     constexpr int R = decltype(rows)::value;
     const int tiles = (B + R - 1) / R;
     for (int item = blockIdx.x; item < np * tiles; item += gridDim.x)
-      fwd_item<R>(d, c, w, rp, T, LA, LC, gr, bt, k, (item % tiles) * R,
-                  p0 + item / tiles, smem, bufs_of(item));
+      fwd_item<M, R>(d, c, w, rp, T, LA, LC, gr, bt, k, (item % tiles) * R,
+                     p0 + item / tiles, smem, bufs_of(item));
   };
   auto backward = [&](int k, int q0, int nq) {
     for (int item = blockIdx.x; item < nq * tiles_b; item += gridDim.x)
-      bwd_item(d, c, w, rp, T, LA, LC, gr, bt, k,
-               (item % tiles_b) * kRowsB, q0 + item / tiles_b, smem,
-               bufs_of(item));
+      bwd_item<M>(d, c, w, rp, T, LA, LC, gr, bt, k,
+                  (item % tiles_b) * kRowsB, q0 + item / tiles_b, smem,
+                  bufs_of(item));
   };
 
   for (int k = 0; k < d.k_updates; ++k) {
@@ -399,19 +410,19 @@ __global__ void __launch_bounds__(kThreads, 1) ddpg_update_kernel(
       grid.sync();
       backward(k, kBwdCritic, 2);
       grid.sync();
-      grad_stage_once(g, 2, T, F, B, nets, as, c, smem);
+      grad_stage_once<M>(g, 2, T, F, B, nets, as, c, smem);
     } else {  // "updated": critic Adam before the actor's chain
       forward(Rows<kRowsF>{}, k, kPassTarget, 3);
       grid.sync();
       backward(k, kBwdCritic, 1);
       grid.sync();
-      grad_stage_once(g, 1, T, F, B, nets, as, c, smem);
+      grad_stage_once<M>(g, 1, T, F, B, nets, as, c, smem);
       grid.sync();
       forward(Rows<kRowsA>{}, k, kPassActor, 2);
       grid.sync();
       backward(k, kBwdActor, 1);
       grid.sync();
-      grad_stage_once(g + 1, 1, T, F, B, nets, as, c, smem);
+      grad_stage_once<M>(g + 1, 1, T, F, B, nets, as, c, smem);
     }
     grid.sync();
   }
@@ -423,7 +434,7 @@ bool dims_ok(const LearnerDims& d, const int* widths, long long* sum,
              int* hmax) {
   return d.obs_dim >= 1 && d.batch >= 1 && d.k_updates >= 1 &&
          (d.merged == 0 || d.merged == 1) && (d.spill == 0 || d.spill == 1) &&
-         d.torso.tab != nullptr && d.actor.lay != nullptr &&
+         mm_ok(d.mm) && d.torso.tab != nullptr && d.actor.lay != nullptr &&
          d.critic.lay != nullptr &&
          widths_ok(widths, d.torso.L, 2, sum, hmax, 0);
 }
@@ -509,7 +520,7 @@ long long cp_ddpg_workspace_floats(const LearnerDims* dims,
 // (updated in place); batches: obs (K, B, F), act (K, B, 2), rew (K, B),
 // nobs (K, B, F), done (K, B) bool; closs/aloss (K,); workspace:
 // cp_ddpg_workspace_floats(dims, widths) floats; t0: the Adam count before
-// the phase. Returns a cudaError_t.
+// the phase; dims->mm picks the kernel's instance. Returns a cudaError_t.
 int cp_ddpg_update_phase(const LearnerDims* dims, const int* widths,
                          const LearnerConsts* consts, float* actor,
                          float* critic, float* actor_t, float* critic_t,
@@ -530,12 +541,16 @@ int cp_ddpg_update_phase(const LearnerDims* dims, const int* widths,
   Batches bt = {obs, act, rew, nobs, done};
   RowPlan rp = ddpg_row_plan(d, hmax);
   const size_t smem = plan_smem(rp, table_ints(d));
-  static int blocks = 0;
-  static size_t blocks_smem = 0;
+  // Each instance keeps its own block count.
+  static int blocks[3] = {};
+  static size_t blocks_smem[3] = {};
+  const void* kernels[3] = CP_MM_INSTANCES(ddpg_update_kernel);
+  if (kernels[d.mm] == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   void* args[] = {&d, &c, &w, &gr, &bt, &closs, &aloss, &t0, &rp};
   return static_cast<int>(launch_cooperative(
-      reinterpret_cast<const void*>(ddpg_update_kernel), smem, args,
-      static_cast<cudaStream_t>(stream), blocks, blocks_smem));
+      kernels[d.mm], smem, args, static_cast<cudaStream_t>(stream),
+      blocks[d.mm], blocks_smem[d.mm]));
 }
 
 }  // extern "C"

@@ -38,7 +38,9 @@
 // stage-engine design's order (row_chain.cuh), so B5 gives that design's
 // bits. No float atomics: two runs give the same bits. Any depth >= 1 and
 // any width, as the reference's kernel takes (the widths and offsets are
-// the learners' device table).
+// the learners' device table). The kernel is instantiated per products'
+// mode (dims.mm: float32, bfloat16 or TF32 operands, learner_stages.cuh's
+// mm_in), and the launcher picks the instance.
 #include "row_chain.cuh"
 
 // Mirror of ops/_native.py::DqnDims.
@@ -47,6 +49,7 @@ struct DqnDims {
   Torso torso;
   NetLayout q;
   int spill;  // 1: the items' buffers in the workspace at any width
+  int mm;     // the products' mode: kMmF32, kMmBf16 or kMmTf32
 };
 
 namespace {
@@ -83,6 +86,7 @@ __host__ __device__ inline int table_ints(const DqnDims& d) {
 // Forward item: pass p over the kRowsF rows from b0 through every layer
 // and the head; Q values to w.qv, and for pass 0 the pre-LN rows and the
 // layer inputs to the workspace.
+template <int M>
 __device__ void fwd_item(const DqnDims& d, const LearnerConsts& c,
                          const DqnWorkspace& w, const RowPlan& rp,
                          const Torso& T, const NetLayout& L, const float* net,
@@ -98,20 +102,21 @@ __device__ void fwd_item(const DqnDims& d, const LearnerConsts& c,
   load_rows<kRowsF>((p == 0 ? bt.obs : bt.nobs) + kb * F, F, b0, nr, act);
   CP_MARK(3);  // the item's inputs
   const FwdSave sv = p == 0 ? FwdSave{w.zS, w.hin, w.hlast, 0} : FwdSave{};
-  torso_fwd<kRowsF>(T, L, net, F, nullptr, 0, act, zr, rp.ldz, smem, c, sv,
-                    b0, nr, B);
+  torso_fwd<M, kRowsF>(T, L, net, F, nullptr, 0, act, zr, rp.ldz, smem, c,
+                       sv, b0, nr, B);
   CP_MARK(4);  // the torso
   float* const qv = w.qv + (static_cast<size_t>(p) * B + b0) * kNumActions;
-  head_fwd<kRowsF>(net + L.wh, net + L.bh, kNumActions, T.h(T.L - 1), act,
-                   smem, [&](int r, int a, float v) {
-                     if (r < nr) qv[r * kNumActions + a] = v;
-                   });
+  head_fwd<M, kRowsF>(net + L.wh, net + L.bh, kNumActions, T.h(T.L - 1),
+                      act, smem, [&](int r, int a, float v) {
+                        if (r < nr) qv[r * kNumActions + a] = v;
+                      });
   CP_MARK(5);  // the head
 }
 
 // Backward item: the kRowsB rows from b0: the TD epilogue, the head
 // backward, and per layer the LayerNorm/relu backward and dh = dz W;
 // writes dz, dy, dy * xhat, d loss / dQ and the Huber terms.
+template <int M>
 __device__ void bwd_item(const DqnDims& d, const LearnerConsts& c,
                          const DqnWorkspace& w, const RowPlan& rp,
                          const Torso& T, const NetLayout& L, const float* Q,
@@ -167,12 +172,13 @@ __device__ void bwd_item(const DqnDims& d, const LearnerConsts& c,
   __syncthreads();
 
   // ---- the head, then each layer ----
-  head_bwd(dqs, kNumActions, Q + L.wh, hl, dh, ldz);
-  torso_bwd(T, L, Q, 0, w.zS, dh, dzs, ldz, ring, c,
-            BwdSave{w.dz, w.dy, w.dyxh}, b0, nr, B, 0, nullptr);
+  head_bwd<M>(dqs, kNumActions, Q + L.wh, hl, dh, ldz);
+  torso_bwd<M>(T, L, Q, 0, w.zS, dh, dzs, ldz, ring, c,
+               BwdSave{w.dz, w.dy, w.dyxh}, b0, nr, B, 0, nullptr);
   CP_MARK(6);  // the backward
 }
 
+template <int M>
 __global__ void __launch_bounds__(kThreads, 1) dqn_update_kernel(
     const DqnDims d, const LearnerConsts c, const DqnWorkspace w,
     float* __restrict__ qp, float* __restrict__ qtp, float* __restrict__ m,
@@ -203,18 +209,18 @@ __global__ void __launch_bounds__(kThreads, 1) dqn_update_kernel(
     for (int item = blockIdx.x; item < n_f; item += gridDim.x) {
       int p = item / tiles_f;
       if (p == 1 && !d.double_dqn) p = 2;
-      fwd_item(d, c, w, rp, T, L, p == 2 ? qtp : qp, bt, k,
-               (item % tiles_f) * kRowsF, p, smem, bufs_of(item));
+      fwd_item<M>(d, c, w, rp, T, L, p == 2 ? qtp : qp, bt, k,
+                  (item % tiles_f) * kRowsF, p, smem, bufs_of(item));
     }
     grid.sync();
     for (int item = blockIdx.x; item < tiles_b; item += gridDim.x)
-      bwd_item(d, c, w, rp, T, L, qp, bt, k, item * kRowsB, smem,
-               bufs_of(item));
+      bwd_item<M>(d, c, w, rp, T, L, qp, bt, k, item * kRowsB, smem,
+                  bufs_of(item));
     grid.sync();
     const NetGrads ng{0, 0, kNumActions, 0, c.inv_batch, loss + k,
                       bt.obs + static_cast<size_t>(k) * B * F, w.dz, w.dy,
                       w.dyxh, w.hin, w.dq, w.hlast, w.hub, L};
-    grad_stage<false>(&ng, 1, T, F, B, nets, as, c, smem, FlatStore{});
+    grad_stage<false, M>(&ng, 1, T, F, B, nets, as, c, smem, FlatStore{});
     grid.sync();
   }
 }
@@ -224,8 +230,8 @@ __global__ void __launch_bounds__(kThreads, 1) dqn_update_kernel(
 bool dims_ok(const DqnDims& d, const int* widths, long long* sum,
              int* hmax) {
   return d.obs_dim >= 1 && d.batch >= 1 && d.k_updates >= 1 &&
-         (d.spill == 0 || d.spill == 1) && d.torso.tab != nullptr &&
-         d.q.lay != nullptr &&
+         (d.spill == 0 || d.spill == 1) && mm_ok(d.mm) &&
+         d.torso.tab != nullptr && d.q.lay != nullptr &&
          widths_ok(widths, d.torso.L, 1, sum, hmax, 0);
 }
 
@@ -287,7 +293,7 @@ long long cp_dqn_workspace_floats(const DqnDims* dims, const int* widths) {
 // buffers (updated in place); batches: obs (K, B, F), act (K, B) int32,
 // rew (K, B), nobs (K, B, F), done (K, B) bool; loss (K,); workspace:
 // cp_dqn_workspace_floats(dims, widths) floats; t0: the Adam count before
-// the phase. Returns a cudaError_t.
+// the phase; dims->mm picks the kernel's instance. Returns a cudaError_t.
 int cp_dqn_update_phase(const DqnDims* dims, const int* widths,
                         const LearnerConsts* consts, float* q, float* q_t,
                         float* m, float* v, const float* obs, const int* act,
@@ -304,12 +310,16 @@ int cp_dqn_update_phase(const DqnDims* dims, const int* widths,
   DqnBatches bt = {obs, rew, nobs, act, done};
   RowPlan rp = dqn_row_plan(d, hmax);
   const size_t smem = plan_smem(rp, table_ints(d));
-  static int blocks = 0;
-  static size_t blocks_smem = 0;
+  // Each instance keeps its own block count.
+  static int blocks[3] = {};
+  static size_t blocks_smem[3] = {};
+  const void* kernels[3] = CP_MM_INSTANCES(dqn_update_kernel);
+  if (kernels[d.mm] == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   void* args[] = {&d, &c, &w, &q, &q_t, &m, &v, &bt, &loss, &t0, &rp};
   return static_cast<int>(launch_cooperative(
-      reinterpret_cast<const void*>(dqn_update_kernel), smem, args,
-      static_cast<cudaStream_t>(stream), blocks, blocks_smem));
+      kernels[d.mm], smem, args, static_cast<cudaStream_t>(stream),
+      blocks[d.mm], blocks_smem[d.mm]));
 }
 
 }  // extern "C"

@@ -169,6 +169,50 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
 
+// The products' mode (ops/learner_kernel.py::mm_mode, the reference's
+// learner_precision): a template parameter M of the product helpers and of
+// every learner kernel, which the launchers instantiate per mode. kMmF32:
+// float32 operands (the code as it was before the modes). kMmBf16: each
+// operand rounded to bfloat16, to nearest, ties to even. kMmTf32: each
+// operand rounded to TF32's 10 mantissa bits, to nearest, ties away from
+// zero (as cvt.rna.tf32.f32). Either way the product of two rounded
+// operands is exact in float32, and the sums stay float32.
+enum : int { kMmF32 = 0, kMmBf16 = 1, kMmTf32 = 2 };
+
+__host__ __device__ inline bool mm_ok(int m) { return m >= 0 && m <= 2; }
+
+// Every mode's instance of a learner kernel template, indexed by mode; a
+// stage-clock build (chip_smoke.py's stage split, which times the float32
+// kernels) instantiates the float32 one alone, in a third of the time.
+#ifdef CP_STAGE_CLOCK
+#define CP_MM_INSTANCES(kernel) \
+  { reinterpret_cast<const void*>(kernel<kMmF32>), nullptr, nullptr }
+#else
+#define CP_MM_INSTANCES(kernel)                          \
+  {                                                      \
+    reinterpret_cast<const void*>(kernel<kMmF32>),       \
+        reinterpret_cast<const void*>(kernel<kMmBf16>),  \
+        reinterpret_cast<const void*>(kernel<kMmTf32>)   \
+  }
+#endif
+
+// x as mode M takes it into a product: integer operations on its float32
+// bits (ops/learner_kernel.py::round_operand); a NaN unchanged, an infinity
+// to itself, a value past the format's largest to the infinity.
+template <int M>
+__device__ __forceinline__ float mm_in(float x) {
+  if constexpr (M == kMmF32) {
+    return x;
+  } else {
+    unsigned u = __float_as_uint(x);
+    if constexpr (M == kMmBf16)
+      u = (u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u;
+    else
+      u = (u + 0x1000u) & 0xffffe000u;
+    return x != x ? x : __uint_as_float(u);
+  }
+}
+
 // LayerNorm statistics of one row (one-pass variance, as the twin).
 __device__ __forceinline__ void ln_stats(const float* row, int n, float eps,
                                          int lane, float& mu, float& inv) {

@@ -42,7 +42,10 @@
 // runs give the same bits on any card. The widths and the parameter
 // offsets are the learners' device table (ops/learner_kernel.py::
 // _learner_table); only its LayerNorm constants and helpers are shared with
-// B3/B5/B7 (learner_stages.cuh).
+// B3/B5/B7 (learner_stages.cuh). Pass 1 is instantiated per products' mode
+// (dims.mm: float32, bfloat16 or TF32 operands, learner_stages.cuh's
+// mm_in, each operand rounded in registers as it enters the fmaf chain);
+// pass 2 makes no product.
 #include "learner_stages.cuh"
 
 // Mirror of ops/_native.py::PgDims.
@@ -53,6 +56,7 @@ struct PgDims {
                         // transposed weights: set by the launcher
   Torso torso;
   NetLayout net;
+  int mm;      // the products' mode: kMmF32, kMmBf16 or kMmTf32
 };
 
 // Mirror of ops/_native.py::PgConsts: the float32 constants, folded on the
@@ -162,9 +166,10 @@ struct MatStrided {
 };
 
 // Y(c, r) = sum_k X(k, r) M(k, c) (+ bias[c]) for c < n and the tile's
-// rows, k in order. A unit is RB rows x 4 columns: unit u takes row group
-// u % (kPgRows / RB), so a warp's lanes spread over rows and share M.
-template <int RB, class Mat>
+// rows, k in order, both operands as mode MM takes them. A unit is RB rows
+// x 4 columns: unit u takes row group u % (kPgRows / RB), so a warp's
+// lanes spread over rows and share M.
+template <int MM, int RB, class Mat>
 __device__ __forceinline__ void prod_rows(const float* X, int K,
                                           const Mat& M, int n,
                                           const float* __restrict__ bias,
@@ -191,8 +196,11 @@ __device__ __forceinline__ void prod_rows(const float* X, int K,
       } else {
         x[0] = xp[k * kPgLd];
       }
+#pragma unroll
+      for (int i = 0; i < RB; ++i) x[i] = mm_in<MM>(x[i]);
       const float4 w4 = M.at4(k, c0);
-      const float w[4] = {w4.x, w4.y, w4.z, w4.w};
+      const float w[4] = {mm_in<MM>(w4.x), mm_in<MM>(w4.y), mm_in<MM>(w4.z),
+                          mm_in<MM>(w4.w)};
 #pragma unroll
       for (int i = 0; i < RB; ++i)
 #pragma unroll
@@ -219,8 +227,9 @@ __device__ __forceinline__ void prod_rows(const float* X, int K,
 // dst[j in + k] += sum_r G(j, r) X(k, r) over the tile's rows in order, j
 // < out, k < in: a weight gradient into its accumulators. A unit is JB
 // output rows x 4 inputs k, kg + nkg i (strided, so that a warp's lanes
-// read neighbouring features of X); lanes spread over the inputs.
-template <int JB>
+// read neighbouring features of X); lanes spread over the inputs. Both
+// operands as mode M takes them.
+template <int M, int JB>
 __device__ __forceinline__ void prod_grad(const float* G, int out,
                                           const float* X, int in,
                                           float* dst) {
@@ -248,18 +257,18 @@ __device__ __forceinline__ void prod_grad(const float* G, int out,
 #pragma unroll
       for (int a = 0; a < JB; ++a) {
         const float4 v = *reinterpret_cast<const float4*>(gp[a] + r);
-        g[a][0] = v.x;
-        g[a][1] = v.y;
-        g[a][2] = v.z;
-        g[a][3] = v.w;
+        g[a][0] = mm_in<M>(v.x);
+        g[a][1] = mm_in<M>(v.y);
+        g[a][2] = mm_in<M>(v.z);
+        g[a][3] = mm_in<M>(v.w);
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float4 v = *reinterpret_cast<const float4*>(xp[i] + r);
-        x[i][0] = v.x;
-        x[i][1] = v.y;
-        x[i][2] = v.z;
-        x[i][3] = v.w;
+        x[i][0] = mm_in<M>(v.x);
+        x[i][1] = mm_in<M>(v.y);
+        x[i][2] = mm_in<M>(v.z);
+        x[i][3] = mm_in<M>(v.w);
       }
 #pragma unroll
       for (int q = 0; q < 4; ++q)
@@ -440,8 +449,8 @@ __device__ __forceinline__ void load_obs(float* x0,
 // min(N, (b + 1) rpb)) into ws[b (P + 1) ...], P = d.net.size, the loss
 // sum last; rpb is a multiple of kPgRows. kSpill: the workspace route (the
 // tile is block b's slice of `tiles`, tile_floats each, and the
-// accumulators are the partial row itself).
-template <bool kSpill>
+// accumulators are the partial row itself). M: the products' mode.
+template <bool kSpill, int M>
 __global__ void __launch_bounds__(kThreads, 1) lrpg_grad_kernel(
     const PgDims d, const PgConsts c, const float* __restrict__ prm,
     const float* __restrict__ obs, const int* __restrict__ act,
@@ -516,11 +525,11 @@ __global__ void __launch_bounds__(kThreads, 1) lrpg_grad_kernel(
       const int h = T.h(l);
       float* const zl = t.z + kPgLd * T.at(l);
       if constexpr (kSpill)
-        prod_rows<4>(in, K, MatStrided{prm + L.w(l), 1, K, h}, h,
-                     prm + L.b(l), zl);
+        prod_rows<M, 4>(in, K, MatStrided{prm + L.w(l), 1, K, h}, h,
+                        prm + L.b(l), zl);
       else
-        prod_rows<4>(in, K, MatRows{smem + woff, pad4(h)}, h, prm + L.b(l),
-                     zl);
+        prod_rows<M, 4>(in, K, MatRows{smem + woff, pad4(h)}, h,
+                        prm + L.b(l), zl);
       woff += K * pad4(h);
       __syncthreads();
       ln_relu_fwd(zl, h, prm + L.s(l), prm + L.t(l), c.ln_eps, t.a,
@@ -529,11 +538,11 @@ __global__ void __launch_bounds__(kThreads, 1) lrpg_grad_kernel(
     }
     CP_MARK(4);  // the torso's forward
     if constexpr (kSpill)
-      prod_rows<1>(t.a, hl, MatStrided{prm + L.wh, 1, hl, kPgActions},
-                   kPgActions, prm + L.bh, t.lg);
+      prod_rows<M, 1>(t.a, hl, MatStrided{prm + L.wh, 1, hl, kPgActions},
+                      kPgActions, prm + L.bh, t.lg);
     else
-      prod_rows<1>(t.a, hl, MatRows{smem + woff, kPgHeadLd}, kPgActions,
-                   prm + L.bh, t.lg);
+      prod_rows<M, 1>(t.a, hl, MatRows{smem + woff, kPgHeadLd}, kPgActions,
+                      prm + L.bh, t.lg);
     __syncthreads();
     CP_MARK(5);  // the head's logits
 
@@ -583,15 +592,15 @@ __global__ void __launch_bounds__(kThreads, 1) lrpg_grad_kernel(
       const float s = warp_sum(t.loss[tid] + t.loss[tid + 32]);
       if (tid == 0) g[P] = g[P] + s;
     }
-    prod_grad<1>(t.lg, kPgActions, t.a, hl, g + L.wh);
+    prod_grad<M, 1>(t.lg, kPgActions, t.a, hl, g + L.wh);
     grad_bias(t.lg, kPgActions, g + L.bh);
     if constexpr (kSpill)
-      prod_rows<4>(t.lg, kPgActions, MatStrided{prm + L.wh, hl, 1, hl}, hl,
-                   nullptr, t.dh);
+      prod_rows<M, 4>(t.lg, kPgActions, MatStrided{prm + L.wh, hl, 1, hl},
+                      hl, nullptr, t.dh);
     else
-      prod_rows<4>(t.lg, kPgActions,
-                   MatStrided{smem + woff, 1, kPgHeadLd, hl}, hl, nullptr,
-                   t.dh);
+      prod_rows<M, 4>(t.lg, kPgActions,
+                      MatStrided{smem + woff, 1, kPgHeadLd, hl}, hl, nullptr,
+                      t.dh);
     __syncthreads();
     CP_MARK(7);  // the head's gradients and dh
     for (int l = nl - 1; l >= 0; --l) {
@@ -611,19 +620,19 @@ __global__ void __launch_bounds__(kThreads, 1) lrpg_grad_kernel(
       const float* in = l == 0 ? x0 : t.a;
       ln_param_grads(zl, h, mul, invl, t.dh, g + L.s(l), g + L.t(l));
       if (h >= 16)
-        prod_grad<4>(t.dz, h, in, K, g + L.w(l));
+        prod_grad<M, 4>(t.dz, h, in, K, g + L.w(l));
       else
-        prod_grad<1>(t.dz, h, in, K, g + L.w(l));
+        prod_grad<M, 1>(t.dz, h, in, K, g + L.w(l));
       grad_bias(t.dz, h, g + L.b(l));
       __syncthreads();
       CP_MARK(9);  // the layer's weight, bias and LayerNorm gradients
       if (l > 0) {
         if constexpr (kSpill)
-          prod_rows<4>(t.dz, h, MatStrided{prm + L.w(l), K, 1, K}, K,
-                       nullptr, t.dh);
+          prod_rows<M, 4>(t.dz, h, MatStrided{prm + L.w(l), K, 1, K}, K,
+                          nullptr, t.dh);
         else
-          prod_rows<4>(t.dz, h, MatStrided{smem + woff, 1, pad4(h), K}, K,
-                       nullptr, t.dh);
+          prod_rows<M, 4>(t.dz, h, MatStrided{smem + woff, 1, pad4(h), K},
+                          K, nullptr, t.dh);
         __syncthreads();
         CP_MARK(10);  // dh = dz W
       }
@@ -666,7 +675,8 @@ bool with_sums(const PgDims* dims, const int* widths, PgDims* d) {
   long long sum;
   int hmax;
   if (d->obs_dim < 1 || d->n_rows < 1 || d->net.size < 1 ||
-      (d->spill != 0 && d->spill != 1) || d->torso.tab == nullptr ||
+      (d->spill != 0 && d->spill != 1) || !mm_ok(d->mm) ||
+      d->torso.tab == nullptr ||
       d->net.lay == nullptr ||
       !widths_ok(widths, d->torso.L, 1, &sum, &hmax, 0))
     return false;
@@ -715,6 +725,27 @@ void plan(const PgDims& d, int* rpb, int* blocks) {
   *blocks = (d.n_rows + *rpb - 1) / *rpb;
 }
 
+// Pass 1 of mode M on the route d.spill names.
+template <int M>
+cudaError_t launch_grad(const PgDims& d, const PgConsts& c, const float* p,
+                        const float* obs, const int* act, const float* adv,
+                        float* workspace, int rpb, float* tiles, int blocks,
+                        cudaStream_t s) {
+  if (d.spill) {
+    lrpg_grad_kernel<true, M><<<blocks, kThreads, 0, s>>>(
+        d, c, p, obs, act, adv, workspace, rpb, tiles, spill_tile_floats(d));
+    return cudaSuccess;
+  }
+  const int smem = static_cast<int>(smem_floats(d) * sizeof(float));
+  const cudaError_t err = cudaFuncSetAttribute(
+      lrpg_grad_kernel<false, M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  lrpg_grad_kernel<false, M><<<blocks, kThreads, smem, s>>>(
+      d, c, p, obs, act, adv, workspace, rpb, tiles, 0);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -737,8 +768,8 @@ long long cp_lrpg_workspace_floats(const PgDims* dims, const int* widths) {
 // as above; dims->torso.tab and dims->net.lay: the device table
 // (ops/learner_kernel.py::_learner_table). p, m, v: the 3 group buffers
 // (updated in place); obs (N, F), act (N,) int32, adv (N,); loss (): the
-// window's loss; workspace: cp_lrpg_workspace_floats floats. Returns a
-// cudaError_t.
+// window's loss; workspace: cp_lrpg_workspace_floats floats; dims->mm
+// picks pass 1's instance. Returns a cudaError_t.
 int cp_lrpg_update_phase(const PgDims* dims, const int* widths,
                          const PgConsts* consts, float* p, float* m, float* v,
                          const float* obs, const int* act, const float* adv,
@@ -752,20 +783,19 @@ int cp_lrpg_update_phase(const PgDims* dims, const int* widths,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int P = d.net.size;
   float* tiles = workspace + partial_floats(d, blocks);
-  cudaError_t err;
-  if (d.spill) {
-    lrpg_grad_kernel<true><<<blocks, kThreads, 0, s>>>(
-        d, c, p, obs, act, adv, workspace, rpb, tiles, spill_tile_floats(d));
-  } else {
-    const int smem = static_cast<int>(smem_floats(d) * sizeof(float));
-    err = cudaFuncSetAttribute(lrpg_grad_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    lrpg_grad_kernel<false><<<blocks, kThreads, smem, s>>>(
-        d, c, p, obs, act, adv, workspace, rpb, tiles, 0);
-  }
-  err = cudaGetLastError();
+  cudaError_t err = cudaErrorInvalidValue;
+  if (d.mm == kMmF32)
+    err = launch_grad<kMmF32>(d, c, p, obs, act, adv, workspace, rpb, tiles,
+                              blocks, s);
+#ifndef CP_STAGE_CLOCK  // a stage-clock build times the float32 pass alone
+  else if (d.mm == kMmBf16)
+    err = launch_grad<kMmBf16>(d, c, p, obs, act, adv, workspace, rpb, tiles,
+                               blocks, s);
+  else
+    err = launch_grad<kMmTf32>(d, c, p, obs, act, adv, workspace, rpb, tiles,
+                               blocks, s);
+#endif
+  if (err == cudaSuccess) err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   lrpg_adam_kernel<<<(P + kThreads) / kThreads, kThreads, 0, s>>>(
       c, P, blocks, workspace, p, m, v, loss);

@@ -41,6 +41,9 @@
 // width, as the reference's kernel takes; where an
 // item's buffers do not fit in shared memory beside the ring (a layer wider
 // than 2449 at obs 42) they live in the item's slice of the workspace.
+// The kernel is instantiated per products' mode (dims.mm: float32,
+// bfloat16 or TF32 operands, learner_stages.cuh's mm_in), and the launcher
+// picks the instance.
 #include "row_chain.cuh"
 
 // Mirror of ops/_native.py::NafDims.
@@ -50,6 +53,7 @@ struct NafDims {
   Torso torso;
   NetLayout q;
   int spill;       // 1: the items' buffers in the workspace at any width
+  int mm;          // the products' mode: kMmF32, kMmBf16 or kMmTf32
 };
 
 namespace {
@@ -135,6 +139,7 @@ __host__ __device__ inline int table_ints(const NafDims& d) {
 // Forward item: pass p (0: the target on s', head row v into w.vT; 1: the
 // online net on s, its 6 head rows into w.pre, its pre-LN rows and layer
 // inputs kept) over the kRowsN rows from b0.
+template <int M>
 __device__ void fwd_item(const NafDims& d, const LearnerConsts& c,
                          const NafWorkspace& w, const RowPlan& rp,
                          const Torso& T, const NetLayout& L, const float* net,
@@ -149,20 +154,20 @@ __device__ void fwd_item(const NafDims& d, const LearnerConsts& c,
   __syncthreads();  // the last item is done with the buffers
   load_rows<kRowsN>((p == 0 ? bt.nobs : bt.obs) + kb * F, F, b0, nr, act);
   const FwdSave sv = p == 1 ? FwdSave{w.zS, w.hin, w.hlast, 0} : FwdSave{};
-  torso_fwd<kRowsN>(T, L, net, F, nullptr, 0, act, zr, rp.ldz, smem, c, sv,
-                    b0, nr, B);
+  torso_fwd<M, kRowsN>(T, L, net, F, nullptr, 0, act, zr, rp.ldz, smem, c,
+                       sv, b0, nr, B);
   const int hl = T.h(T.L - 1);
   if (p == 0) {
-    head_fwd<kRowsN>(net + L.wh, net + L.bh, 1, hl, act, smem,
-                     [&](int r, int, float v) {
-                       if (r < nr) w.vT[b0 + r] = v;
-                     });
+    head_fwd<M, kRowsN>(net + L.wh, net + L.bh, 1, hl, act, smem,
+                        [&](int r, int, float v) {
+                          if (r < nr) w.vT[b0 + r] = v;
+                        });
   } else {
     float* const pre = w.pre + static_cast<size_t>(b0) * kHead;
-    head_fwd<kRowsN>(net + L.wh, net + L.bh, kHead, hl, act, smem,
-                     [&](int r, int a, float v) {
-                       if (r < nr) pre[r * kHead + a] = v;
-                     });
+    head_fwd<M, kRowsN>(net + L.wh, net + L.bh, kHead, hl, act, smem,
+                        [&](int r, int a, float v) {
+                          if (r < nr) pre[r * kHead + a] = v;
+                        });
   }
   CP_MARK(3);  // the forward item
 }
@@ -170,6 +175,7 @@ __device__ void fwd_item(const NafDims& d, const LearnerConsts& c,
 // Backward item: the kRowsB rows from b0: the NAF epilogue, the head
 // backward, and per layer the LayerNorm/relu backward and dh = dz W;
 // writes dz, dy, dy * xhat, d loss / d head and the TD errors.
+template <int M>
 __device__ void bwd_item(const NafDims& d, const LearnerConsts& c,
                          const NafWorkspace& w, const RowPlan& rp,
                          const Torso& T, const NetLayout& L, const float* Q,
@@ -193,12 +199,13 @@ __device__ void bwd_item(const NafDims& d, const LearnerConsts& c,
     }
   }
   __syncthreads();
-  head_bwd(dqs, kHead, Q + L.wh, hl, dh, ldz);
-  torso_bwd(T, L, Q, 0, w.zS, dh, dzs, ldz, ring, c,
-            BwdSave{w.dz, w.dy, w.dyxh}, b0, nr, B, 0, nullptr);
+  head_bwd<M>(dqs, kHead, Q + L.wh, hl, dh, ldz);
+  torso_bwd<M>(T, L, Q, 0, w.zS, dh, dzs, ldz, ring, c,
+               BwdSave{w.dz, w.dy, w.dyxh}, b0, nr, B, 0, nullptr);
   CP_MARK(4);  // the backward item
 }
 
+template <int M>
 __global__ void __launch_bounds__(kThreads, 1) naf_update_kernel(
     const NafDims d, const LearnerConsts c, const NafWorkspace w,
     float* __restrict__ qp, float* __restrict__ qtp, float* __restrict__ m,
@@ -237,26 +244,27 @@ __global__ void __launch_bounds__(kThreads, 1) naf_update_kernel(
     // Forward items: (pass, tile), the target's passes first.
     for (int item = blockIdx.x; item < 2 * tiles_f; item += gridDim.x) {
       const int p = item / tiles_f;
-      fwd_item(d, c, w, rp, T, L, p == 0 ? qtp : qp, bt, k,
-               (item % tiles_f) * kRowsN, p, smem, bufs_of(item));
+      fwd_item<M>(d, c, w, rp, T, L, p == 0 ? qtp : qp, bt, k,
+                  (item % tiles_f) * kRowsN, p, smem, bufs_of(item));
     }
     grid.sync();
     for (int item = blockIdx.x; item < tiles_b; item += gridDim.x)
-      bwd_item(d, c, w, rp, T, L, qp, bt, k, item * kRowsB, smem,
-               bufs_of(item));
+      bwd_item<M>(d, c, w, rp, T, L, qp, bt, k, item * kRowsB, smem,
+                  bufs_of(item));
     grid.sync();
     // ---- every gradient element (clip), Adam, Polyak; the loss ----
     const NetGrads ng{0, 0, kHead, 1, c.inv_batch, loss + k,
                       bt.obs + static_cast<size_t>(k) * B * F, w.dz, w.dy,
                       w.dyxh, w.hin, w.dpre, w.hlast, w.td, L};
     if (clip) {
-      grad_stage<true>(&ng, 1, T, F, B, nets, as, c, smem,
-                       FlatStore{w.grad, w.parts, w.cnt, L.size, k});
+      grad_stage<true, M>(&ng, 1, T, F, B, nets, as, c, smem,
+                          FlatStore{w.grad, w.parts, w.cnt, L.size, k});
       grid.sync();
       adam_flat(w.grad, L.size, w.parts, d.max_norm, nets[0], as, as.lr[0],
                 c, smem);
     } else {
-      grad_stage<false>(&ng, 1, T, F, B, nets, as, c, smem, FlatStore{});
+      grad_stage<false, M>(&ng, 1, T, F, B, nets, as, c, smem,
+                           FlatStore{});
     }
     grid.sync();
   }
@@ -268,8 +276,9 @@ bool dims_ok(const NafDims& d, const int* widths, long long* sum,
              int* hmax) {
   return d.obs_dim >= 1 && d.batch >= 1 && d.k_updates >= 1 &&
          d.max_norm >= 0.0f && d.q.size >= 1 &&
-         (d.spill == 0 || d.spill == 1) && d.torso.tab != nullptr &&
-         d.q.lay != nullptr && widths_ok(widths, d.torso.L, 1, sum, hmax, 0);
+         (d.spill == 0 || d.spill == 1) && mm_ok(d.mm) &&
+         d.torso.tab != nullptr && d.q.lay != nullptr &&
+         widths_ok(widths, d.torso.L, 1, sum, hmax, 0);
 }
 
 // The items' plan: the spill route when d.spill asks for it or an item's
@@ -335,7 +344,7 @@ long long cp_naf_workspace_floats(const NafDims* dims, const int* widths) {
 // buffers (updated in place); batches: obs (K, B, F), act (K, B, 2), rew
 // (K, B), nobs (K, B, F), done (K, B) bool; loss (K,); workspace:
 // cp_naf_workspace_floats(dims, widths) floats; t0: the Adam count before
-// the phase. Returns a cudaError_t.
+// the phase; dims->mm picks the kernel's instance. Returns a cudaError_t.
 int cp_naf_update_phase(const NafDims* dims, const int* widths,
                         const LearnerConsts* consts, float* q, float* q_t,
                         float* m, float* v, const float* obs,
@@ -353,12 +362,16 @@ int cp_naf_update_phase(const NafDims* dims, const int* widths,
   NafBatches bt = {obs, act, rew, nobs, done};
   RowPlan rp = naf_row_plan(d, hmax);
   const size_t smem = plan_smem(rp, table_ints(d));
-  static int blocks = 0;
-  static size_t blocks_smem = 0;
+  // Each instance keeps its own block count.
+  static int blocks[3] = {};
+  static size_t blocks_smem[3] = {};
+  const void* kernels[3] = CP_MM_INSTANCES(naf_update_kernel);
+  if (kernels[d.mm] == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   void* args[] = {&d, &c, &w, &q, &q_t, &m, &v, &bt, &loss, &t0, &rp};
   return static_cast<int>(launch_cooperative(
-      reinterpret_cast<const void*>(naf_update_kernel), smem, args,
-      static_cast<cudaStream_t>(stream), blocks, blocks_smem));
+      kernels[d.mm], smem, args, static_cast<cudaStream_t>(stream),
+      blocks[d.mm], blocks_smem[d.mm]));
 }
 
 }  // extern "C"

@@ -32,7 +32,11 @@
 // the orders of the stage-engine design these kernels replaced, whose bits
 // they give. The bits do not depend on the grid, the route or the block
 // that takes an item. No float atomics (the slice counts are integers):
-// two runs give the same bits.
+// two runs give the same bits. Every product helper takes the products'
+// mode M (learner_stages.cuh's mm_in): each operand is rounded as it
+// enters the fmaf chain, in registers (a weight-gradient tile's staged
+// rows once in shared memory, where 16 threads read each of them), and
+// nothing else is; at kMmF32 the code is the float32 code it was.
 #pragma once
 
 #include <cstdint>
@@ -232,8 +236,9 @@ __device__ __forceinline__ void ring_start(float* ring, int n, int K,
 // columns t + j kPanel / CC (j < CC) of each 256-column panel for its
 // group's rows, so that every activation it loads serves CC columns; the
 // weights stream through the ring kStages - 1 chunks ahead (the first of
-// them already in flight when `started`: ring_start). Ends with a barrier.
-template <int R, int LDX, bool kTrans, int CC>
+// them already in flight when `started`: ring_start). Both operands of
+// every product enter as mode M takes them. Ends with a barrier.
+template <int M, int R, int LDX, bool kTrans, int CC>
 __device__ void rows_product(const float* X, int K, int n, const float* W,
                              int ldw, const float* bias, float* Y, int ldy,
                              float* ring, bool started = false,
@@ -284,6 +289,8 @@ __device__ void rows_product(const float* X, int K, int n, const float* W,
           }
         }
 #pragma unroll
+        for (int r = 0; r < RH; ++r) x[r] = mm_in<M>(x[r]);
+#pragma unroll
         for (int j = 0; j < CC; ++j)
 #pragma unroll
           for (int r = 0; r < RH; ++r) acc[j][r] = fmaf(x[r], w[j], acc[j][r]);
@@ -294,10 +301,10 @@ __device__ void rows_product(const float* X, int K, int n, const float* W,
         for (int j = 0; j < CC; ++j) {
           const float4 v = *reinterpret_cast<const float4*>(
               wp + j * kCols * kWT + kk);
-          w[0][j] = v.x;
-          w[1][j] = v.y;
-          w[2][j] = v.z;
-          w[3][j] = v.w;
+          w[0][j] = mm_in<M>(v.x);
+          w[1][j] = mm_in<M>(v.y);
+          w[2][j] = mm_in<M>(v.z);
+          w[3][j] = mm_in<M>(v.w);
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i) step(kk + i, w[i]);
@@ -306,7 +313,8 @@ __device__ void rows_product(const float* X, int K, int n, const float* W,
         float w[CC];
 #pragma unroll
         for (int j = 0; j < CC; ++j)
-          w[j] = kTrans ? wp[j * kCols * kWT + kk] : wp[kk * kWLd + j * kCols];
+          w[j] = mm_in<M>(kTrans ? wp[j * kCols * kWT + kk]
+                                 : wp[kk * kWLd + j * kCols]);
         step(kk, w);
       };
       const int kc = min(kWk, K - k0);
@@ -332,7 +340,9 @@ __device__ void rows_product(const float* X, int K, int n, const float* W,
             float wa[kMaxJoin];
 #pragma unroll
             for (int i = 0; i < kMaxJoin; ++i)
-              wa[i] = i < na ? W[static_cast<size_t>(c) * ldw + K + i] : 0.0f;
+              wa[i] = i < na ? mm_in<M>(W[static_cast<size_t>(c) * ldw + K +
+                                          i])
+                             : 0.0f;
 #pragma unroll
             for (int r = 0; r < RH; ++r) {
               float v = acc[j][r];
@@ -340,7 +350,8 @@ __device__ void rows_product(const float* X, int K, int n, const float* W,
                 float a2 = 0.0f;
 #pragma unroll
                 for (int i = 0; i < kMaxJoin; ++i)
-                  if (i < na) a2 = fmaf(xa[i * LDX + r0 + r], wa[i], a2);
+                  if (i < na)
+                    a2 = fmaf(mm_in<M>(xa[i * LDX + r0 + r]), wa[i], a2);
                 v = v + a2;
               }
               Y[(r0 + r) * ldy + c] = bias != nullptr ? v + b : v;
@@ -373,8 +384,8 @@ struct FwdSave {
 // sums over its first inputs are given instead of multiplied (rows b0 .. of
 // a (batch, H_l0) region): z = (zmain + the join's sums) + b_l0. On return
 // act holds layer l1 - 1's output. The next layer's first chunks fly during
-// each LayerNorm.
-template <int R>
+// each LayerNorm. M: the products' mode.
+template <int M, int R>
 __device__ __forceinline__ void torso_fwd(
     const Torso& T, const NetLayout& L, const float* net, int F,
     const float* xa, int na, float* act, float* zr, int ldz, float* ring,
@@ -396,14 +407,14 @@ __device__ __forceinline__ void torso_fwd(
         float v = zmain[static_cast<size_t>(b0 + min(r, nr - 1)) * h + cc];
         float a2 = 0.0f;
         for (int i = 0; i < na; ++i)
-          a2 = fmaf(xa[i * LD + r], W[static_cast<size_t>(cc) * ldw + K + i],
-                    a2);
+          a2 = fmaf(mm_in<M>(xa[i * LD + r]),
+                    mm_in<M>(W[static_cast<size_t>(cc) * ldw + K + i]), a2);
         if (na > 0) v = v + a2;
         zr[r * ldz + cc] = v + net[L.b(l) + cc];
       }
       __syncthreads();
     } else {
-      rows_product<R, LD, true, kColsF>(
+      rows_product<M, R, LD, true, kColsF>(
           act, K, h, W, ldw_of(l), net + L.b(l), zr, ldz, ring, l > l0,
           l == 1 ? xa : nullptr, l == 1 ? na : 0);
     }
@@ -447,8 +458,9 @@ __device__ __forceinline__ void torso_fwd(
 // The head of R rows: v(r, a) = sum_j act[j][r] wh[a hl + j] + bh[a] for a
 // < n_head (act feature-major, (hl, R + 4)), one thread an output, its
 // weights and bias first copied into the (free) ring where they fit;
-// emit(r, a, v) takes each (rows past the batch too). Ends with a barrier.
-template <int R, class Emit>
+// emit(r, a, v) takes each (rows past the batch too); the products'
+// operands as mode M takes them. Ends with a barrier.
+template <int M, int R, class Emit>
 __device__ void head_fwd(const float* wh, const float* bh, int n_head,
                          int hl, const float* act, float* ring, Emit emit) {
   constexpr int LD = R + 4;
@@ -467,7 +479,8 @@ __device__ void head_fwd(const float* wh, const float* bh, int n_head,
     const float b = wh_in ? ring[nwh + a] : bh[a];
     float acc = 0.0f;
 #pragma unroll 16
-    for (int j = 0; j < hl; ++j) acc = fmaf(act[j * LD + r], w[j], acc);
+    for (int j = 0; j < hl; ++j)
+      acc = fmaf(mm_in<M>(act[j * LD + r]), mm_in<M>(w[j]), acc);
     emit(r, a, acc + b);
   }
   __syncthreads();
@@ -487,8 +500,9 @@ __device__ __forceinline__ void load_rows(const float* src, int F, int b0,
 }
 
 // The head's backward of a backward item: dh[r ldz + cc] = sum_a dqs[r kQLd
-// + a] wh[a hl + cc] (from zero, a in order) for its kRowsB rows. Ends with
-// a barrier.
+// + a] wh[a hl + cc] (from zero, a in order) for its kRowsB rows, the
+// operands as mode M takes them. Ends with a barrier.
+template <int M>
 __device__ __forceinline__ void head_bwd(const float* dqs, int n_head,
                                          const float* wh, int hl, float* dh,
                                          int ldz) {
@@ -496,7 +510,8 @@ __device__ __forceinline__ void head_bwd(const float* dqs, int n_head,
     const int r = o / hl, cc = o - r * hl;
     float acc = 0.0f;
     for (int a = 0; a < n_head; ++a)
-      acc = fmaf(dqs[r * kQLd + a], wh[a * hl + cc], acc);
+      acc = fmaf(mm_in<M>(dqs[r * kQLd + a]), mm_in<M>(wh[a * hl + cc]),
+                 acc);
     dh[r * ldz + cc] = acc;
   }
   __syncthreads();
@@ -517,7 +532,8 @@ struct BwdSave {
 // critic's dQ/da: the join columns of W_1, copied into the free ring
 // during the LayerNorm backward, each of the kRowsB x join sums in order
 // by one thread), into tail (kRowsB, kQLd). dh = dz W's first chunks fly
-// during each LayerNorm backward.
+// during each LayerNorm backward. M: the products' mode.
+template <int M>
 __device__ __forceinline__ void torso_bwd(
     const Torso& T, const NetLayout& L, const float* net, int join,
     const float* z, float* dh, float* dzs, int ldz, float* ring,
@@ -585,15 +601,17 @@ __device__ __forceinline__ void torso_bwd(
     }
     __syncthreads();
     if (pn > 0)
-      rows_product<kRowsB, kLdB, false, kColsB>(dzs, h, pn, W, ldw, nullptr,
-                                                dh, ldz, ring, true);
+      rows_product<M, kRowsB, kLdB, false, kColsB>(dzs, h, pn, W, ldw,
+                                                   nullptr, dh, ldz, ring,
+                                                   true);
     if (tl) {
       if (threadIdx.x < kRowsB * join) {
         const int r = threadIdx.x / join, i = threadIdx.x - r * join;
         float acc = 0.0f;
 #pragma unroll 8
         for (int j = 0; j < h; ++j)
-          acc = fmaf(dzs[j * kLdB + r], ring[j * join + i], acc);
+          acc = fmaf(mm_in<M>(dzs[j * kLdB + r]),
+                     mm_in<M>(ring[j * join + i]), acc);
         tail[r * kQLd + i] = acc;
       }
       __syncthreads();
@@ -694,9 +712,10 @@ __device__ void norm_slices(const FlatStore& fs, const int* ps, int nd,
 // in [j0, j0 + 32) (< out) and i in [i0, i0 + 32) (< in), b in order from
 // 0, then Adam and Polyak on each element at `off` + j in + i (kStore: the
 // element stored into the flat gradient and counted). The tile's columns
-// of G and X come into shared memory kGB rows at a time; a thread owns 2 x
-// 2 elements.
-template <bool kStore>
+// of G and X come into shared memory kGB rows at a time, where a thread
+// rounds the elements it staged as mode M takes them (each is read by 16
+// threads); a thread owns 2 x 2 elements.
+template <bool kStore, int M>
 __device__ void grad_w_tile(const float* G, int out, const float* X, int in,
                             int B, int off, int j0, int i0, const NetPtr& net,
                             float bc1, float bc2, float lr,
@@ -742,6 +761,15 @@ __device__ void grad_w_tile(const float* G, int out, const float* X, int in,
     }
     cp_async_commit();
     cp_async_wait<0>();
+    if constexpr (M != kMmF32) {  // this thread's pieces are in
+      for (int idx = tid; idx < nb * kGT / 4; idx += kThreads) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          Gs[4 * idx + u] = mm_in<M>(Gs[4 * idx + u]);
+          Xs[4 * idx + u] = mm_in<M>(Xs[4 * idx + u]);
+        }
+      }
+    }
     __syncthreads();
 #pragma unroll 4
     for (int bb = 0; bb < nb; ++bb) {
@@ -854,8 +882,8 @@ __device__ __forceinline__ int w_tiles(const GradOp& op) {
 // one list dealt to the blocks round-robin. Each element is reduced in a
 // fixed order whichever block takes it. kStore (one network): the elements
 // go to the flat gradient, and the slices this block completes are summed
-// at the end of the stage.
-template <bool kStore>
+// at the end of the stage. M: the weight gradients' products' mode.
+template <bool kStore, int M>
 __device__ __forceinline__ void grad_stage(const NetGrads* g, int n_nets,
                                            const Torso& T, int F, int B,
                                            const NetPtr* nets,
@@ -890,10 +918,10 @@ __device__ __forceinline__ void grad_stage(const NetGrads* g, int n_nets,
           const int m = w_tiles(op);
           if (rest < m) {
             const int ti = cdiv(op.in, kGT);
-            grad_w_tile<kStore>(op.g, op.out, op.x, op.in, B, op.off,
-                                (rest / ti) * kGT, (rest % ti) * kGT,
-                                nets[op.net], as.bc1, as.bc2, as.lr[op.net],
-                                c, sm, fs);
+            grad_w_tile<kStore, M>(op.g, op.out, op.x, op.in, B, op.off,
+                                   (rest / ti) * kGT, (rest % ti) * kGT,
+                                   nets[op.net], as.bc1, as.bc2,
+                                   as.lr[op.net], c, sm, fs);
           }
           rest -= m;
         }

@@ -87,21 +87,26 @@ def resolve_backend(device: str, backend: str | None, local_world: int,
 def initialize_multihost(coordinator_address: str | None = None,
                          num_processes: int | None = None,
                          process_id: int | None = None,
-                         backend: str | None = None, device: str = "cpu",
+                         backend: str | None = None, device: str = "cuda",
                          timeout_s: float = 600.0) -> torch.device:
     """Join the process group and return this rank's device.
 
     coordinator_address: "host:port", "tcp://host:port" or "file://path";
     None takes torchrun's MASTER_ADDR/MASTER_PORT. Missing num_processes
-    and process_id come from WORLD_SIZE and RANK. device "cuda" gives local
-    rank r the card r (modulo the card count when ranks share cards);
-    `backend` follows `resolve_backend`."""
+    and process_id come from WORLD_SIZE and RANK. device "cuda" (the
+    default) gives local rank r the card r (modulo the card count when
+    ranks share cards) and raises when no card is visible; "cpu" runs the
+    rank on the host. `backend` follows `resolve_backend`."""
     global _DEVICE
     n = int(num_processes if num_processes is not None
             else os.environ["WORLD_SIZE"])
     r = int(process_id if process_id is not None else os.environ["RANK"])
     local_rank, local_world = _local_layout(n, r)
     on_cuda = torch.device(device).type == "cuda"
+    if on_cuda and not torch.cuda.is_available():
+        raise RuntimeError("initialize_multihost(device='cuda'): no CUDA "
+                           "device is visible (pass device='cpu' to run "
+                           "the rank on the host)")
     cards = torch.cuda.device_count() if on_cuda else 0
     backend = resolve_backend(device, backend, local_world, cards)
     if on_cuda:

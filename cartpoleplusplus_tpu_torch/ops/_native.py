@@ -103,12 +103,14 @@ class Torso(ctypes.Structure):
 
 class LearnerDims(ctypes.Structure):
     """Mirror of `struct LearnerDims` in csrc/ddpg_update.cu (B3); spill 1
-    puts every row tile's buffers in the workspace at any width."""
+    puts every row tile's buffers in the workspace at any width; mm, the
+    products' mode (ops/learner_kernel.py::mm_mode), picks the kernel's
+    instance (as in DqnDims, NafDims and PgDims)."""
 
     _fields_ = [(n, ctypes.c_int) for n in (
         "obs_dim", "batch", "k_updates", "merged")] + [
         ("torso", Torso), ("actor", NetLayout), ("critic", NetLayout),
-        ("spill", ctypes.c_int)]
+        ("spill", ctypes.c_int), ("mm", ctypes.c_int)]
 
 
 class DqnDims(ctypes.Structure):
@@ -117,7 +119,8 @@ class DqnDims(ctypes.Structure):
 
     _fields_ = [(n, ctypes.c_int) for n in (
         "obs_dim", "batch", "k_updates", "double_dqn")] + [
-        ("torso", Torso), ("q", NetLayout), ("spill", ctypes.c_int)]
+        ("torso", Torso), ("q", NetLayout), ("spill", ctypes.c_int),
+        ("mm", ctypes.c_int)]
 
 
 class NafDims(ctypes.Structure):
@@ -127,7 +130,7 @@ class NafDims(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int) for n in (
         "obs_dim", "batch", "k_updates")] + [
         ("max_norm", ctypes.c_float), ("torso", Torso), ("q", NetLayout),
-        ("spill", ctypes.c_int)]
+        ("spill", ctypes.c_int), ("mm", ctypes.c_int)]
 
 
 class PgDims(ctypes.Structure):
@@ -136,7 +139,7 @@ class PgDims(ctypes.Structure):
 
     _fields_ = [(n, ctypes.c_int) for n in (
         "obs_dim", "n_rows", "spill", "sum_h", "hmax", "wt")] + [
-        ("torso", Torso), ("net", NetLayout)]
+        ("torso", Torso), ("net", NetLayout), ("mm", ctypes.c_int)]
 
 
 class PgConsts(ctypes.Structure):

@@ -85,6 +85,68 @@ def _f32(x) -> float:
 
 
 # --------------------------------------------------------------------------
+# The precision of the learners' matrix products: the reference's
+# `learner_precision`, which traces its Pallas learners under
+# jax.default_matmul_precision (learner_kernel.py::_with_mm_precision).
+# --------------------------------------------------------------------------
+
+# kMmF32, kMmBf16, kMmTf32 in csrc/learner_stages.cuh.
+F32, BF16, TF32 = 0, 1, 2
+_MM_MODES = {None: F32, "float32": F32, "highest": F32,
+             "bfloat16": BF16, "default": BF16,
+             "tensorfloat32": TF32, "high": TF32}
+# The values `learner_precision` takes: jax.default_matmul_precision's
+# legacy names, and None (the ambient float32).
+PRECISIONS = tuple(_MM_MODES)
+
+
+def mm_mode(value) -> int:
+    """The product mode of a `learner_precision` value.
+
+    None, "float32" and "highest": F32, every product in float32 (the
+    default; the code that ran before the setting was ported). "bfloat16"
+    and "default": BF16, each operand of a product rounded to bfloat16 (to
+    nearest, ties to even), products and sums in float32: XLA's
+    BF16_BF16_F32, the TPU's one MXU pass. "tensorfloat32" and "high":
+    TF32, each operand rounded to TF32's 10 mantissa bits (to nearest,
+    ties away from zero, as cvt.rna.tf32.f32), products and sums in
+    float32: what XLA computes for HIGH on a GPU. On a TPU, HIGH is three
+    bfloat16 passes (about 16 mantissa bits), so the port's "high" is the
+    GPU's meaning and less precise than the TPU's. Either way a product
+    of two rounded operands is exact in float32. The dot-algorithm preset
+    names ("BF16_BF16_F32_X3" and the others) are not ported: any other
+    value raises ValueError."""
+    try:
+        return _MM_MODES[value]
+    except (KeyError, TypeError):
+        raise ValueError(
+            f"learner_precision={value!r} is not ported; the port takes "
+            f"{PRECISIONS} (the dot-algorithm presets are not)") from None
+
+
+def round_operand(x: torch.Tensor, mode: int) -> torch.Tensor:
+    """x (float32) with every element rounded as a product operand of
+    `mode` (mm_mode), by integer operations on the float32 bits, as
+    mm_in<M> in csrc/learner_stages.cuh: bfloat16 to nearest even, TF32 to
+    nearest away from zero; a NaN unchanged (an infinity rounds to itself,
+    a value past the format's largest to the infinity). F32 returns x
+    itself."""
+    if mode == F32:
+        return x
+    u = x.view(torch.int32)
+    if mode == BF16:
+        r = (u + (0x7FFF + ((u >> 16) & 1))) & -0x10000
+    else:
+        r = (u + 0x1000) & -0x2000
+    return torch.where(torch.isnan(x), x, r.view(torch.float32))
+
+
+def _mm(a, b, mode: int):
+    """a @ b with both operands rounded as `mode` takes them."""
+    return round_operand(a, mode) @ round_operand(b, mode)
+
+
+# --------------------------------------------------------------------------
 # The layout of one group buffer.
 # --------------------------------------------------------------------------
 
@@ -466,122 +528,130 @@ def _pack(ws, bs, ss, ts, wh, bh) -> list:
             + [x for pair in zip(ss, ts) for x in pair] + [wh, bh])
 
 
-def mlp_fwd(obs, flat, hidden):
-    """Torso + linear head. Returns (head pre-activation (B, out),
+def mlp_fwd(obs, flat, hidden, mode: int = F32):
+    """Torso + linear head, each product's operands rounded as `mode`
+    (mm_mode) takes them. Returns (head pre-activation (B, out),
     residue)."""
     ws, bs, ss, ts, wh, bh = _unpack(flat, len(hidden))
     h, saved = obs, []
     for i in range(len(hidden)):
-        z = h @ ws[i].t() + bs[i]
+        z = _mm(h, ws[i].t(), mode) + bs[i]
         saved.append((h, z))
         h = _ln_relu(z, ss[i], ts[i])[0]
-    return h @ wh.t() + bh, (saved, h)
+    return _mm(h, wh.t(), mode) + bh, (saved, h)
 
 
-def mlp_bwd(dpre, flat, hidden, residue):
-    """Grads for upstream d(pre-activation) (B, out), in `flat`'s order."""
+def mlp_bwd(dpre, flat, hidden, residue, mode: int = F32):
+    """Grads for upstream d(pre-activation) (B, out), in `flat`'s order;
+    the products' operands rounded as `mode` takes them, the bias and
+    LayerNorm sums in float32."""
     n = len(hidden)
     ws, bs, ss, ts, wh, bh = _unpack(flat, n)
     saved, h_last = residue
-    dwh = dpre.t() @ h_last
+    dwh = _mm(dpre.t(), h_last, mode)
     dbh = dpre.sum(0)
-    dh = dpre @ wh
+    dh = _mm(dpre, wh, mode)
     dws, dbs, dss, dts = [None] * n, [None] * n, [None] * n, [None] * n
     for i in reversed(range(n)):
         h_in, z = saved[i]
         dz, dss[i], dts[i] = _ln_relu_bwd(dh, z, ss[i], ts[i])
-        dws[i] = dz.t() @ h_in
+        dws[i] = _mm(dz.t(), h_in, mode)
         dbs[i] = dz.sum(0)
         if i > 0:
-            dh = dz @ ws[i]
+            dh = _mm(dz, ws[i], mode)
     return _pack(dws, dbs, dss, dts, dwh, dbh)
 
 
-def actor_fwd(obs, flat, hidden):
+def actor_fwd(obs, flat, hidden, mode: int = F32):
     """Returns (a (B, 2), residue)."""
-    pre, res = mlp_fwd(obs, flat, hidden)
+    pre, res = mlp_fwd(obs, flat, hidden, mode)
     a = torch.tanh(pre)
     return a, res + (a,)
 
 
-def actor_bwd(da, flat, hidden, residue):
+def actor_bwd(da, flat, hidden, residue, mode: int = F32):
     saved, h_last, a = residue
-    return mlp_bwd(da * (1.0 - a * a), flat, hidden, (saved, h_last))
+    return mlp_bwd(da * (1.0 - a * a), flat, hidden, (saved, h_last), mode)
 
 
-def critic_fwd(obs, act, flat, hidden):
+def critic_fwd(obs, act, flat, hidden, mode: int = F32):
     """Q(s, a) (B, 1); the action joins layer 1 as the split product
     h0 W1h^T + a W1a^T."""
     n, h0_dim = len(hidden), hidden[0]
     ws, bs, ss, ts, wh, bh = _unpack(flat, n)
-    z0 = obs @ ws[0].t() + bs[0]
+    z0 = _mm(obs, ws[0].t(), mode) + bs[0]
     h0 = _ln_relu(z0, ss[0], ts[0])[0]
-    z1 = (h0 @ ws[1][:, :h0_dim].t() + act @ ws[1][:, h0_dim:].t()
-          + bs[1])
+    z1 = (_mm(h0, ws[1][:, :h0_dim].t(), mode)
+          + _mm(act, ws[1][:, h0_dim:].t(), mode) + bs[1])
     h = _ln_relu(z1, ss[1], ts[1])[0]
     saved = [(obs, z0), (h0, z1)]
     for i in range(2, n):
-        z = h @ ws[i].t() + bs[i]
+        z = _mm(h, ws[i].t(), mode) + bs[i]
         saved.append((h, z))
         h = _ln_relu(z, ss[i], ts[i])[0]
-    return h @ wh.t() + bh, (saved, h, act)
+    return _mm(h, wh.t(), mode) + bh, (saved, h, act)
 
 
 def critic_bwd(dq, flat, hidden, residue, need_param_grads: bool,
-               need_daction: bool):
+               need_daction: bool, mode: int = F32):
     """Backward through critic_fwd for upstream dq (B, 1). Returns (grads
     in `flat`'s order or None, d action (B, 2) or None)."""
     n, h0_dim = len(hidden), hidden[0]
     ws, bs, ss, ts, wh, bh = _unpack(flat, n)
     saved, h_last, act = residue
     dws, dbs, dss, dts = [None] * n, [None] * n, [None] * n, [None] * n
-    dwh = dq.t() @ h_last
+    dwh = _mm(dq.t(), h_last, mode)
     dbh = dq.sum(0)
-    dh = dq @ wh
+    dh = _mm(dq, wh, mode)
     for i in reversed(range(2, n)):
         h_in, z = saved[i]
         dz, dss[i], dts[i] = _ln_relu_bwd(dh, z, ss[i], ts[i])
-        dws[i] = dz.t() @ h_in
+        dws[i] = _mm(dz.t(), h_in, mode)
         dbs[i] = dz.sum(0)
-        dh = dz @ ws[i]
+        dh = _mm(dz, ws[i], mode)
     h0, z1 = saved[1]
     dz1, dss[1], dts[1] = _ln_relu_bwd(dh, z1, ss[1], ts[1])
-    daction = dz1 @ ws[1][:, h0_dim:] if need_daction else None
+    daction = (_mm(dz1, ws[1][:, h0_dim:], mode) if need_daction
+               else None)
     if not need_param_grads:
         return None, daction
-    dws[1] = torch.cat([dz1.t() @ h0, dz1.t() @ act], dim=1)
+    dws[1] = torch.cat([_mm(dz1.t(), h0, mode), _mm(dz1.t(), act, mode)],
+                       dim=1)
     dbs[1] = dz1.sum(0)
     obs, z0 = saved[0]
-    dz0, dss[0], dts[0] = _ln_relu_bwd(dz1 @ ws[1][:, :h0_dim], z0, ss[0],
-                                       ts[0])
-    dws[0] = dz0.t() @ obs
+    dz0, dss[0], dts[0] = _ln_relu_bwd(_mm(dz1, ws[1][:, :h0_dim], mode),
+                                       z0, ss[0], ts[0])
+    dws[0] = _mm(dz0.t(), obs, mode)
     dbs[0] = dz0.sum(0)
     return _pack(dws, dbs, dss, dts, dwh, dbh), daction
 
 
 def critic_phase_block(actor_t, critic, critic_t, obs, nobs, act, rew,
-                       done, gamma: float, inv_batch: float, hidden):
+                       done, gamma: float, inv_batch: float, hidden,
+                       mode: int = F32):
     """Critic-TD gradient of one minibatch; rew/done are (B, 1) float.
     Returns (critic grads, loss)."""
-    a_next = actor_fwd(nobs, actor_t, hidden)[0]
-    q_next = critic_fwd(nobs, a_next, critic_t, hidden)[0]
+    a_next = actor_fwd(nobs, actor_t, hidden, mode)[0]
+    q_next = critic_fwd(nobs, a_next, critic_t, hidden, mode)[0]
     y = rew + _f32(gamma) * (1.0 - done) * q_next
-    q, residue = critic_fwd(obs, act, critic, hidden)
+    q, residue = critic_fwd(obs, act, critic, hidden, mode)
     td = q - y
     grads, _ = critic_bwd(_f32(2.0 * inv_batch) * td, critic, hidden,
-                          residue, need_param_grads=True, need_daction=False)
+                          residue, need_param_grads=True, need_daction=False,
+                          mode=mode)
     return grads, _f32(inv_batch) * (td * td).sum()
 
 
-def actor_phase_block(actor, critic, obs, inv_batch: float, hidden):
+def actor_phase_block(actor, critic, obs, inv_batch: float, hidden,
+                      mode: int = F32):
     """Gradient of -mean Q(s, pi(s)) with respect to the actor, through
     `critic`. Returns (actor grads, loss)."""
-    a, res_a = actor_fwd(obs, actor, hidden)
-    q, res_c = critic_fwd(obs, a, critic, hidden)
+    a, res_a = actor_fwd(obs, actor, hidden, mode)
+    q, res_c = critic_fwd(obs, a, critic, hidden, mode)
     _, daction = critic_bwd(torch.full_like(q, _f32(-inv_batch)), critic,
                             hidden, res_c, need_param_grads=False,
-                            need_daction=True)
-    return actor_bwd(daction, actor, hidden, res_a), \
+                            need_daction=True, mode=mode)
+    return actor_bwd(daction, actor, hidden, res_a, mode), \
         _f32(-inv_batch) * q.sum()
 
 
@@ -627,13 +697,15 @@ def polyak_flat(target_list, online_list, tau: float):
 def update_phase_math(actor, critic, actor_t, critic_t, m_a, v_a, m_c, v_c,
                       batches, t0: int, hidden, *, actor_lr, critic_lr,
                       gamma, tau, actor_grad_critic: str = "updated",
-                      lr_schedule=None):
+                      lr_schedule=None, mm_precision=None):
     """K sequential DDPG updates on parameter lists (the layout above, one
     list per group). batches: (obs (K, B, F), action (K, B, 2), reward
     (K, B), next_obs (K, B, F), done (K, B)); t0 is the Adam count before
-    the phase. Returns (actor, critic, actor_t, critic_t, m_a, v_a, m_c,
-    v_c, closs (K,), aloss (K,)) as new tensors."""
+    the phase; mm_precision, a `learner_precision` value (mm_mode). Returns
+    (actor, critic, actor_t, critic_t, m_a, v_a, m_c, v_c, closs (K,),
+    aloss (K,)) as new tensors."""
     hidden = tuple(hidden)
+    mode = mm_mode(mm_precision)
     k_updates, bm = batches[0].shape[0], batches[0].shape[1]
     inv = 1.0 / bm
     closses, alosses = [], []
@@ -644,14 +716,16 @@ def update_phase_math(actor, critic, actor_t, critic_t, m_a, v_a, m_c, v_c,
         tk = float(t0 + k + 1)
         bc1, bc2 = _bias_corrections(tk)
         cg, closs = critic_phase_block(actor_t, critic, critic_t, obs, nobs,
-                                       act, rew, done, gamma, inv, hidden)
+                                       act, rew, done, gamma, inv, hidden,
+                                       mode)
         pre_critic = critic
         lr = _sched_lr(critic_lr, lr_schedule, tk)
         new = [adam_step(p, m, v, g, bc1, bc2, lr)
                for p, m, v, g in zip(critic, m_c, v_c, cg)]
         critic, m_c, v_c = ([x[i] for x in new] for i in range(3))
         actor_critic = pre_critic if actor_grad_critic == "pre" else critic
-        ag, aloss = actor_phase_block(actor, actor_critic, obs, inv, hidden)
+        ag, aloss = actor_phase_block(actor, actor_critic, obs, inv, hidden,
+                                      mode)
         lr = _sched_lr(actor_lr, lr_schedule, tk)
         new = [adam_step(p, m, v, g, bc1, bc2, lr)
                for p, m, v, g in zip(actor, m_a, v_a, ag)]
@@ -669,23 +743,24 @@ def update_phase_math(actor, critic, actor_t, critic_t, m_a, v_a, m_c, v_c,
 # --------------------------------------------------------------------------
 
 def dqn_phase_block(q, q_target, obs, nobs, act, rew, done, gamma: float,
-                    inv_batch: float, hidden, double_dqn: bool):
+                    inv_batch: float, hidden, double_dqn: bool,
+                    mode: int = F32):
     """Huber TD gradient of one minibatch; act is (B,) int, rew/done (B, 1)
     float. The next action is the first-max argmax of the online net on s'
     (double DQN) or of the target net. Returns (grads in `q`'s order,
     loss)."""
-    qt, _ = mlp_fwd(nobs, q_target, hidden)
-    sel = mlp_fwd(nobs, q, hidden)[0] if double_dqn else qt
+    qt, _ = mlp_fwd(nobs, q_target, hidden, mode)
+    sel = mlp_fwd(nobs, q, hidden, mode)[0] if double_dqn else qt
     first = torch.argmax(sel, dim=1, keepdim=True)   # first max, as jnp
     q_next = qt.gather(1, first)
     y = rew + _f32(gamma) * (1.0 - done) * q_next
-    qs, residue = mlp_fwd(obs, q, hidden)
+    qs, residue = mlp_fwd(obs, q, hidden, mode)
     a = act.long()[:, None]
     td = qs.gather(1, a) - y
     d = _f32(_HUBER_DELTA)
     onehot = torch.zeros_like(qs).scatter_(1, a, 1.0)
     dq = (torch.clamp(td, -d, d) * _f32(inv_batch)) * onehot
-    grads = mlp_bwd(dq, q, hidden, residue)
+    grads = mlp_bwd(dq, q, hidden, residue, mode)
     abs_td = td.abs()
     hub = torch.where(abs_td <= d, 0.5 * td * td, d * (abs_td - 0.5 * d))
     return grads, _f32(inv_batch) * hub.sum()
@@ -693,13 +768,16 @@ def dqn_phase_block(q, q_target, obs, nobs, act, rew, done, gamma: float,
 
 @torch.no_grad()
 def dqn_update_phase_math(q, q_target, m, v, batches, t0: int, hidden, *,
-                          lr, gamma, tau, double_dqn: bool = True):
+                          lr, gamma, tau, double_dqn: bool = True,
+                          mm_precision=None):
     """K sequential DQN updates on parameter lists (`qnet_layout`, one list
     per group): the Huber TD step, constant-lr Adam, Polyak. batches:
     (obs (K, B, F), action (K, B) int, reward (K, B), next_obs (K, B, F),
-    done (K, B)); t0 is the Adam count before the phase. Returns (q,
-    q_target, m, v, loss (K,)) as new tensors."""
+    done (K, B)); t0 is the Adam count before the phase; mm_precision as
+    `update_phase_math` takes it. Returns (q, q_target, m, v, loss (K,))
+    as new tensors."""
     hidden = tuple(hidden)
+    mode = mm_mode(mm_precision)
     k_updates, bm = batches[0].shape[0], batches[0].shape[1]
     inv = 1.0 / bm
     losses = []
@@ -709,7 +787,7 @@ def dqn_update_phase_math(q, q_target, m, v, batches, t0: int, hidden, *,
         done = done.to(torch.float32)[:, None]
         bc1, bc2 = _bias_corrections(float(t0 + k + 1))
         grads, loss = dqn_phase_block(q, q_target, obs, nobs, act, rew, done,
-                                      gamma, inv, hidden, double_dqn)
+                                      gamma, inv, hidden, double_dqn, mode)
         new = [adam_step(p, mm, vv, g, bc1, bc2, _f32(lr))
                for p, mm, vv, g in zip(q, m, v, grads)]
         q, m, v = ([x[i] for x in new] for i in range(3))
@@ -756,17 +834,17 @@ def naf_q_bwd(dq, residue):
 
 
 def naf_phase_block(params, target, obs, nobs, act, rew, done, gamma: float,
-                    inv_batch: float, hidden):
+                    inv_batch: float, hidden, mode: int = F32):
     """MSE TD gradient of one minibatch toward y = r + gamma (1 - done)
     V'(s'); act is (B, 2), rew/done (B, 1) float. Returns (grads in
     `params`' order, loss)."""
-    v_next = mlp_fwd(nobs, target, hidden)[0][:, 0:1]
+    v_next = mlp_fwd(nobs, target, hidden, mode)[0][:, 0:1]
     y = rew + _f32(gamma) * (1.0 - done) * v_next
-    pre, residue = mlp_fwd(obs, params, hidden)
+    pre, residue = mlp_fwd(obs, params, hidden, mode)
     q, qres = naf_q(pre, act)
     td = q - y
     dpre = naf_q_bwd(_f32(2.0 * inv_batch) * td, qres)
-    return mlp_bwd(dpre, params, hidden, residue), \
+    return mlp_bwd(dpre, params, hidden, residue, mode), \
         _f32(inv_batch) * (td * td).sum()
 
 
@@ -791,14 +869,16 @@ def clip_by_global_norm_flat(grads, max_norm: float):
 @torch.no_grad()
 def naf_update_phase_math(params, target, m, v, batches, t0: int, hidden, *,
                           lr, gamma, tau, max_grad_norm: float = 0.0,
-                          lr_schedule=None):
+                          lr_schedule=None, mm_precision=None):
     """K sequential NAF updates on parameter lists (`naf_layout`, one list
     per group): the MSE TD step, the global-norm clip when max_grad_norm >
     0, Adam at the scheduled lr, Polyak. batches: (obs (K, B, F), action
     (K, B, 2), reward (K, B), next_obs (K, B, F), done (K, B)); t0 is the
-    Adam count before the phase. Returns (params, target, m, v, loss (K,),
-    the pre-clip global gradient norms (K,)) as new tensors."""
+    Adam count before the phase; mm_precision as `update_phase_math` takes
+    it. Returns (params, target, m, v, loss (K,), the pre-clip global
+    gradient norms (K,)) as new tensors."""
     hidden = tuple(hidden)
+    mode = mm_mode(mm_precision)
     k_updates, bm = batches[0].shape[0], batches[0].shape[1]
     inv = 1.0 / bm
     losses, norms = [], []
@@ -809,7 +889,7 @@ def naf_update_phase_math(params, target, m, v, batches, t0: int, hidden, *,
         tk = float(t0 + k + 1)
         bc1, bc2 = _bias_corrections(tk)
         grads, loss = naf_phase_block(params, target, obs, nobs, act, rew,
-                                      done, gamma, inv, hidden)
+                                      done, gamma, inv, hidden, mode)
         norms.append(global_norm(grads))
         if max_grad_norm > 0.0:
             grads = clip_by_global_norm_flat(grads, max_grad_norm)
@@ -827,14 +907,14 @@ def naf_update_phase_math(params, target, m, v, batches, t0: int, hidden, *,
 # --------------------------------------------------------------------------
 
 def lrpg_phase_block(params, obs, act, adv, hidden, entropy_coef: float,
-                     inv_n: float):
+                     inv_n: float, mode: int = F32):
     """Softmax policy-gradient contribution of (B, F) window rows; act is
     (B,) int, adv (B, 1) float (already window-normalised). The gradient
     at the logits is closed-form,
         dlogits = inv_n (adv (p - onehot_a) + c p (logp + H)),
     so no autograd is needed. Returns (grads in `params`' order, loss
     contribution inv_n sum(-logp[a] adv - c H))."""
-    logits, residue = mlp_fwd(obs, params, hidden)
+    logits, residue = mlp_fwd(obs, params, hidden, mode)
     zm = logits.max(1, keepdim=True).values
     ex = torch.exp(logits - zm)
     z = ex.sum(1, keepdim=True)
@@ -845,21 +925,23 @@ def lrpg_phase_block(params, obs, act, adv, hidden, entropy_coef: float,
     ent = -(p * logp).sum(1, keepdim=True)
     coef, inv = _f32(entropy_coef), _f32(inv_n)
     dlogits = inv * (adv * (p - onehot) + coef * p * (logp + ent))
-    grads = mlp_bwd(dlogits, params, hidden, residue)
+    grads = mlp_bwd(dlogits, params, hidden, residue, mode)
     return grads, inv * (-lp_a * adv - coef * ent).sum()
 
 
 @torch.no_grad()
 def lrpg_update_phase_math(params, m, v, window, t0: int, hidden, *, lr,
-                           entropy_coef):
+                           entropy_coef, mm_precision=None):
     """One LRPG Adam update on parameter lists (`policy_layout`, one list
     per group). window: (obs (N, F), action (N,) int, advantage (N,));
-    t0 is the Adam count before the update. Returns (params, m, v, loss
-    ()) as new tensors."""
+    t0 is the Adam count before the update; mm_precision as
+    `update_phase_math` takes it. Returns (params, m, v, loss ()) as new
+    tensors."""
     obs, act, adv = window
     grads, loss = lrpg_phase_block(params, obs, act, adv[:, None],
                                    tuple(hidden), entropy_coef,
-                                   1.0 / obs.shape[0])
+                                   1.0 / obs.shape[0],
+                                   mm_mode(mm_precision))
     bc1, bc2 = _bias_corrections(float(t0 + 1))
     new = [adam_step(p, mm, vv, g, bc1, bc2, _f32(lr))
            for p, mm, vv, g in zip(params, m, v, grads)]
@@ -947,13 +1029,16 @@ def _learner_consts(*, batch, actor_lr, critic_lr, gamma, tau,
 @torch.no_grad()
 def ddpg_update_phase(groups, batches, t0: int, hidden, *, actor_lr: float,
                       critic_lr: float, gamma: float, tau: float,
-                      actor_grad_critic: str = "updated", lr_schedule=None):
+                      actor_grad_critic: str = "updated", lr_schedule=None,
+                      mm_precision=None):
     """B3: K DDPG updates on the 8 group buffers, IN PLACE.
 
     groups = (actor, critic, actor_t, critic_t, m_a, v_a, m_c, v_c), each a
     contiguous 1-D float32 buffer in the layout of this module's docstring;
     batches as `update_phase_math` takes them; t0 the Adam count before the
-    phase. Returns (closs (K,), aloss (K,)).
+    phase; mm_precision, a `learner_precision` value (mm_mode: the
+    precision of every product's operands). Returns (closs (K,), aloss
+    (K,)).
 
     CUDA buffers launch the hand-written kernel (csrc/ddpg_update.cu) once,
     on the current stream; CPU buffers run `update_phase_math` and copy its
@@ -972,6 +1057,7 @@ def ddpg_update_phase(groups, batches, t0: int, hidden, *, actor_lr: float,
                          f"B3 (ops.learner_kernel.covers)")
     if actor_grad_critic not in ("updated", "pre"):
         raise ValueError(f"actor_grad_critic={actor_grad_critic!r}")
+    mode = mm_mode(mm_precision)
     if k_updates < 1 or batch < 1:
         raise ValueError(f"K {k_updates}, batch {batch}: need >= 1 each")
     lay_a, lay_c = actor_layout(obs_dim, hidden), critic_layout(obs_dim,
@@ -994,20 +1080,22 @@ def ddpg_update_phase(groups, batches, t0: int, hidden, *, actor_lr: float,
         views = [group_views(g, lay) for g, lay in zip(groups, lays)]
         out = update_phase_math(*views, batches, t0, hidden,
                                 actor_grad_critic=actor_grad_critic,
-                                lr_schedule=lr_schedule, **kw)
+                                lr_schedule=lr_schedule,
+                                mm_precision=mm_precision, **kw)
         for dst, src in zip(views, out[:8]):
             for d, s in zip(dst, src):
                 d.copy_(s)
         return out[8], out[9]
 
     return _ddpg_launch(groups, batches, t0, hidden, kw, lr_schedule,
-                        actor_grad_critic == "pre", False)
+                        actor_grad_critic == "pre", False, mode)
 
 
 def _ddpg_launch(groups, batches, t0, hidden, kw, lr_schedule, merged,
-                 spill):
+                 spill, mode=F32):
     """One launch of csrc/ddpg_update.cu on checked CUDA inputs; `spill`
-    puts the row tiles' buffers in the workspace at any width."""
+    puts the row tiles' buffers in the workspace at any width; `mode`
+    (mm_mode) picks the kernel's instance."""
     k_updates, batch, obs_dim = batches[0].shape
     dev = groups[0].device
     lay_a, lay_c = actor_layout(obs_dim, hidden), critic_layout(obs_dim,
@@ -1017,7 +1105,7 @@ def _ddpg_launch(groups, batches, t0, hidden, kw, lr_schedule, merged,
     dims = _native.LearnerDims(
         obs_dim=obs_dim, batch=batch, k_updates=k_updates,
         merged=int(merged), torso=torso, actor=net_a, critic=net_c,
-        spill=int(spill))
+        spill=int(spill), mm=mode)
     consts = _learner_consts(batch=batch, lr_schedule=lr_schedule, **kw)
     lib = _native.load_library()
     closs = torch.empty(k_updates, dtype=torch.float32, device=dev)
@@ -1049,12 +1137,14 @@ ddpg_update_phase.launches = 0
 
 @torch.no_grad()
 def dqn_update_phase(groups, batches, t0: int, hidden, *, lr: float,
-                     gamma: float, tau: float, double_dqn: bool = True):
+                     gamma: float, tau: float, double_dqn: bool = True,
+                     mm_precision=None):
     """B5: K DQN updates on the 4 group buffers, IN PLACE.
 
     groups = (q, q_target, m, v), each a contiguous 1-D float32 buffer in
     `qnet_layout`; batches as `dqn_update_phase_math` takes them, with
-    int32 actions; t0 the Adam count before the phase. Returns loss (K,).
+    int32 actions; t0 the Adam count before the phase; mm_precision as
+    `ddpg_update_phase` takes it. Returns loss (K,).
 
     CUDA buffers launch the hand-written kernel (csrc/dqn_update.cu) once,
     on the current stream; CPU buffers run `dqn_update_phase_math` and copy
@@ -1071,6 +1161,7 @@ def dqn_update_phase(groups, batches, t0: int, hidden, *, lr: float,
     if not dqn_covers(obs_dim, hidden):
         raise ValueError(f"obs {obs_dim}, hidden {hidden}: not covered by "
                          f"B5 (ops.learner_kernel.dqn_covers)")
+    mode = mm_mode(mm_precision)
     if k_updates < 1 or batch < 1:
         raise ValueError(f"K {k_updates}, batch {batch}: need >= 1 each")
     lay = qnet_layout(obs_dim, hidden)
@@ -1088,27 +1179,29 @@ def dqn_update_phase(groups, batches, t0: int, hidden, *, lr: float,
 
     if dev.type == "cpu":
         views = [group_views(g, lay) for g in groups]
-        out = dqn_update_phase_math(*views, batches, t0, hidden, **kw)
+        out = dqn_update_phase_math(*views, batches, t0, hidden,
+                                    mm_precision=mm_precision, **kw)
         for dst, src in zip(views, out[:4]):
             for d, s in zip(dst, src):
                 d.copy_(s)
         return out[4]
 
     return _dqn_launch(groups, batches, t0, hidden, lr, gamma, tau,
-                       double_dqn, False)
+                       double_dqn, False, mode)
 
 
 def _dqn_launch(groups, batches, t0, hidden, lr, gamma, tau, double_dqn,
-                spill):
+                spill, mode=F32):
     """One launch of csrc/dqn_update.cu on checked CUDA inputs; `spill`
-    puts the row tiles' buffers in the workspace at any width."""
+    puts the row tiles' buffers in the workspace at any width; `mode`
+    (mm_mode) picks the kernel's instance."""
     k_updates, batch, obs_dim = batches[0].shape
     dev = groups[0].device
     lay = qnet_layout(obs_dim, hidden)
     torso, (net,), widths = _learner_shape(dev, hidden, (tuple(lay),))
     dims = _native.DqnDims(obs_dim=obs_dim, batch=batch, k_updates=k_updates,
                            double_dqn=int(double_dqn), torso=torso, q=net,
-                           spill=int(spill))
+                           spill=int(spill), mm=mode)
     # The Q-net is net 0 of the gradient stage: its lr rides in actor_lr.
     consts = _learner_consts(batch=batch, actor_lr=lr, critic_lr=lr,
                              gamma=gamma, tau=tau, lr_schedule=None)
@@ -1141,14 +1234,15 @@ dqn_update_phase.launches = 0
 @torch.no_grad()
 def naf_update_phase(groups, batches, t0: int, hidden, *, lr: float,
                      gamma: float, tau: float, max_grad_norm: float = 0.0,
-                     lr_schedule=None):
+                     lr_schedule=None, mm_precision=None):
     """B7: K NAF updates on the 4 group buffers, IN PLACE.
 
     groups = (params, target, m, v), each a contiguous 1-D float32 buffer
     in `naf_layout`; batches as `naf_update_phase_math` takes them, with
     float32 (K, B, 2) actions; t0 the Adam count before the phase; the
     clip applies when max_grad_norm > 0; lr_schedule = (end_frac,
-    transition_steps) or None. Returns loss (K,).
+    transition_steps) or None; mm_precision as `ddpg_update_phase` takes
+    it. Returns loss (K,).
 
     CUDA buffers launch the hand-written kernel (csrc/naf_update.cu) once,
     on the current stream; CPU buffers run `naf_update_phase_math` and copy
@@ -1165,6 +1259,7 @@ def naf_update_phase(groups, batches, t0: int, hidden, *, lr: float,
     if not naf_covers(obs_dim, hidden):
         raise ValueError(f"obs {obs_dim}, hidden {hidden}: not covered by "
                          f"B7 (ops.learner_kernel.naf_covers)")
+    mode = mm_mode(mm_precision)
     if k_updates < 1 or batch < 1:
         raise ValueError(f"K {k_updates}, batch {batch}: need >= 1 each")
     lay = naf_layout(obs_dim, hidden)
@@ -1184,18 +1279,20 @@ def naf_update_phase(groups, batches, t0: int, hidden, *, lr: float,
 
     if dev.type == "cpu":
         views = [group_views(g, lay) for g in groups]
-        out = naf_update_phase_math(*views, batches, t0, hidden, **kw)
+        out = naf_update_phase_math(*views, batches, t0, hidden,
+                                    mm_precision=mm_precision, **kw)
         for dst, src in zip(views, out[:4]):
             for d, s in zip(dst, src):
                 d.copy_(s)
         return out[4]
 
-    return _naf_launch(groups, batches, t0, hidden, kw, False)
+    return _naf_launch(groups, batches, t0, hidden, kw, False, mode)
 
 
-def _naf_launch(groups, batches, t0, hidden, kw, spill):
+def _naf_launch(groups, batches, t0, hidden, kw, spill, mode=F32):
     """One launch of csrc/naf_update.cu on checked CUDA inputs; `spill`
-    puts the row tiles' buffers in the workspace at any width."""
+    puts the row tiles' buffers in the workspace at any width; `mode`
+    (mm_mode) picks the kernel's instance."""
     k_updates, batch, obs_dim = batches[0].shape
     dev = groups[0].device
     lay = naf_layout(obs_dim, hidden)
@@ -1204,7 +1301,7 @@ def _naf_launch(groups, batches, t0, hidden, kw, spill):
     dims = _native.NafDims(
         obs_dim=obs_dim, batch=batch, k_updates=k_updates,
         max_norm=_f32(max_grad_norm) if max_grad_norm > 0.0 else 0.0,
-        torso=torso, q=net, spill=int(spill))
+        torso=torso, q=net, spill=int(spill), mm=mode)
     # The NafNet is net 0 of the gradient stage: its lr rides in actor_lr.
     consts = _learner_consts(batch=batch, actor_lr=kw["lr"],
                              critic_lr=kw["lr"], gamma=kw["gamma"],
@@ -1237,13 +1334,14 @@ naf_update_phase.launches = 0
 
 @torch.no_grad()
 def lrpg_update_phase(groups, window, t0: int, hidden, *, lr: float,
-                      entropy_coef: float):
+                      entropy_coef: float, mm_precision=None):
     """B9: one LRPG update on the 3 group buffers, IN PLACE.
 
     groups = (params, m, v), each a contiguous 1-D float32 buffer in
     `policy_layout`; window = (obs (N, F) float32, action (N,) int32,
-    advantage (N,) float32); t0 the Adam count before the update. Returns
-    the window's loss ().
+    advantage (N,) float32); t0 the Adam count before the update;
+    mm_precision as `ddpg_update_phase` takes it. Returns the window's
+    loss ().
 
     CUDA buffers launch the hand-written kernel (csrc/lrpg_update.cu, a
     gradient pass and an Adam pass) on the current stream, its weights,
@@ -1261,6 +1359,7 @@ def lrpg_update_phase(groups, window, t0: int, hidden, *, lr: float,
     if not lrpg_covers(obs_dim, hidden):
         raise ValueError(f"obs {obs_dim}, hidden {hidden}: not covered by "
                          f"B9 (ops.learner_kernel.lrpg_covers)")
+    mode = mm_mode(mm_precision)
     if n < 1:
         raise ValueError("the window has no rows")
     lay = policy_layout(obs_dim, hidden)
@@ -1275,25 +1374,28 @@ def lrpg_update_phase(groups, window, t0: int, hidden, *, lr: float,
     if dev.type == "cpu":
         views = [group_views(g, lay) for g in groups]
         out = lrpg_update_phase_math(*views, window, t0, hidden, lr=lr,
-                                     entropy_coef=entropy_coef)
+                                     entropy_coef=entropy_coef,
+                                     mm_precision=mm_precision)
         for dst, src in zip(views, out[:3]):
             for d, s in zip(dst, src):
                 d.copy_(s)
         return out[3]
     return _lrpg_launch(groups, window, t0, hidden, lr, entropy_coef,
-                        pg_tile_spills(obs_dim, hidden))
+                        pg_tile_spills(obs_dim, hidden), mode)
 
 
-def _lrpg_launch(groups, window, t0, hidden, lr, entropy_coef, spill):
+def _lrpg_launch(groups, window, t0, hidden, lr, entropy_coef, spill,
+                 mode=F32):
     """One launch of csrc/lrpg_update.cu on checked CUDA inputs, on the
     workspace route if `spill`, else on the shared-memory route (where its
-    block does not fit there, the library rejects the dims)."""
+    block does not fit there, the library rejects the dims); `mode`
+    (mm_mode) picks the kernel's instance."""
     n, obs_dim = window[0].shape
     dev = groups[0].device
     torso, (net,), widths = _learner_shape(
         dev, hidden, (tuple(policy_layout(obs_dim, hidden)),))
     dims = _native.PgDims(obs_dim=obs_dim, n_rows=n, spill=int(spill),
-                          torso=torso, net=net)
+                          torso=torso, net=net, mm=mode)
     bc1, bc2 = _bias_corrections(float(t0 + 1))
     consts = _native.PgConsts(
         inv_n=_f32(1.0 / n), coef=_f32(entropy_coef), lr=_f32(lr),

@@ -208,7 +208,28 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      NaN-corrupted state; measure_env_steps_per_sec at 4096 envs x 512
      steps of the plain env.step (no kernel); a 2-point sweep of a tiny
      DQN run (B4, B5) and the plot of its results (where matplotlib is
-     installed; the card's machine has none, and the phase says so).
+     installed; the card's machine has none, and the phase says so);
+  32. learner_precision (`python3 chip_smoke.py --precision-only` runs it
+     alone): B3, B5, B7 and B9 at each product mode against their twins at
+     the same mode, at the defaults (B3 batch 256 at "updated" and "pre",
+     B5, B7 with the clip at 10 and off, B9 at 131,072 rows and at 1,000):
+     the float32 spellings give the default's bits; at bfloat16 and TF32
+     two runs give the same bits, and at most a set share of the elements
+     lies past the learners' elementwise bar (rtol 2e-4, atol 1e-5) where
+     the float32 kernel against the same twin has more past it: 1e-5 after
+     one update, none for B5 and B7 after K 8, 0.15 at bfloat16 and 0.06
+     at TF32 for B3 after K 16, 0.02 after the fast preset's batch 8192 x
+     K 8; besides, after one update each tensor normwise within that bar
+     (max error <= 1e-5 + 2e-4 x its largest magnitude), after K the
+     networks, targets and losses within the reference's bfloat16 bar
+     (rtol 2e-2, atol 2e-3); each kernel timed at float32, bfloat16 and
+     TF32 in turns; then each agent's CLI defaults at
+     `--<agent>.learner-precision bfloat16` with the counters zeroed (the
+     learner kernel 7 times, 8 for LRPG, the rollout kernel 8, nothing
+     else), and each agent at the other five legacy values for 3 train
+     steps at 1000 envs. (`--learner-bits PATH` saves, or compares with
+     PATH, the float32 learners' outputs and times, for an A/B against an
+     unpacked parent.)
 Then one JSON line of per-kernel numbers (each with its bound: the larger
 of its float32 operations over 67 TFLOP/s and its bytes over 3.35 TB/s,
 counted from this run's shapes) and, last, the device line. The script
@@ -287,17 +308,18 @@ FRAME_FLOP, PUSH_FLOP, STEP_TAIL_FLOP = 24, 8, 13
 
 
 def _kernel_name(mangled: str) -> str:
-    """A mangled entry function -> its name, with `<0>`/`<1>` for a bool
-    template flag: the identifier ending in `_kernel` that its length
-    prefix delimits (names in an anonymous namespace carry a file hash
-    before it)."""
+    """A mangled entry function -> its name, with its bool and int
+    template arguments (`<0>`, `<1, 2>`): the identifier ending in
+    `_kernel` that its length prefix delimits (names in an anonymous
+    namespace carry a file hash before it)."""
     import re
 
     end = mangled.find("_kernel") + len("_kernel")
     for n in range(len("_kernel") + 1, end + 1):
         if mangled[:end - n].endswith(str(n)):
-            flag = re.match(r"ILb([01])E", mangled[end:])
-            return mangled[end - n:end] + (f"<{flag.group(1)}>" if flag
+            args = re.match(r"I((?:L[bi]\d+E)+)E", mangled[end:])
+            vals = re.findall(r"L[bi](\d+)E", args.group(1)) if args else []
+            return mangled[end - n:end] + (f"<{', '.join(vals)}>" if vals
                                            else "")
     return mangled
 
@@ -4201,6 +4223,426 @@ def phase_tools(dev) -> dict:
     return out
 
 
+# The reduced product modes of the learners (learner_precision), and the
+# reference's bar for its bfloat16 kernel learner against its float32 plain
+# learner (tests/test_learner_kernel.py:545-578).
+PRECISION_MODES = ("bfloat16", "tensorfloat32")
+REF_RTOL, REF_ATOL = 2e-2, 2e-3
+# The fast preset's B3 shape (rollout 64, K 8, batch 8192).
+B3_FAST_BATCH, B3_FAST_K = 8192, 8
+# B9's window besides the defaults' 131,072 rows.
+B9_SMALL_N = 1000
+# A CLI run at each of the other legacy values: envs and train steps.
+PRECISION_CLI_ENVS, PRECISION_CLI_STEPS = 1000, 3
+# The share of all the elements that a reduced-mode learner may have past
+# B3's elementwise bar against its twin at the same mode, where the float32
+# kernel against that twin must have more (_mode_holds; PERF.md §6 has the
+# readings behind each): after one update (B9: its one window), B3 after
+# K 16 at batch 256 (per mode) and after K 8 at batch 8192, B5 and B7
+# after K 8.
+ONE_UPDATE_SHARE = 1e-5
+B3_K_SHARE = {"bfloat16": 0.15, "tensorfloat32": 0.06}
+B3_FAST_SHARE, ROW_CHAIN_K_SHARE = 0.02, 0.0
+
+
+def _flat_run(groups, losses) -> list:
+    return [x for g in groups for x in g] + list(losses)
+
+
+def _beyond(got, want, rtol=B3_RTOL, atol=B3_ATOL) -> int:
+    """Elements of the tensor lists outside the bar."""
+    import torch
+
+    return sum(int((~torch.isclose(a, b, rtol=rtol, atol=atol)).sum())
+               for a, b in zip(got, want))
+
+
+def _mode_holds(tag, run, twin, nets, one_update, share) -> dict:
+    """A learner kernel at the product modes. run(p) and twin(p) give (the
+    groups' parameter lists, the losses) of the kernel (synchronised) and
+    of its twin at learner_precision p; the first `nets` groups are the
+    networks and targets, the rest Adam's moments. The float32 spellings
+    ("float32", "highest") give the default's bits. At each reduced mode
+    two runs give the same bits, and against the twin at that mode at most
+    `share` (a number, or one for each mode) of all the elements lie past
+    B3's elementwise bar, while the float32 kernel against the same twin
+    has more past it than that limit (the check tells the modes apart:
+    PERF.md §6 has the readings behind each share). Where an ulp between
+    two summation orders crosses a rounding edge, one term of a sum moves
+    by a whole bfloat16 or TF32 step, so a few elements part: after one
+    update (or B9's one window)
+    each tensor stays normwise within B3's bar (max error <= B3_ATOL +
+    B3_RTOL x its largest magnitude); after several, the weights differ by
+    such steps and a few LayerNorm outputs flip at the relu edge, and the
+    networks, targets and losses stay within the reference's bar (REF_RTOL
+    / REF_ATOL). Returns each mode's max abs error and counts."""
+    import torch
+
+    base = _flat_run(*run(None))
+    for p in ("float32", "highest"):
+        assert all(torch.equal(a, b) for a, b in zip(_flat_run(*run(p)),
+                                                     base)), \
+            f"{tag}: learner_precision={p!r} parts from the default's bits"
+    out = {}
+    for p in PRECISION_MODES:
+        want_g, want_l = twin(p)
+        got_g, got_l = run(p)
+        again = _flat_run(*run(p))
+        got, want = _flat_run(got_g, got_l), _flat_run(want_g, want_l)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+            f"{tag} {p}: two runs on the same inputs differ"
+        elements = sum(x.numel() for x in got)
+        res = dict(beyond_tight=_beyond(got, want), elements=elements,
+                   f32_beyond_tight=_beyond(base, want),
+                   limit=int((share[p] if isinstance(share, dict)
+                              else share) * elements))
+        assert res["beyond_tight"] <= res["limit"] < \
+            res["f32_beyond_tight"], \
+            f"{tag} {p}: elements past rtol {B3_RTOL}, atol {B3_ATOL} " \
+            f"(the kernel, its limit, the float32 kernel): {res}"
+        if one_update:
+            err = 0.0
+            for i, (a, b) in enumerate(zip(got, want)):
+                e, scale = _max_err(a, b), float(b.abs().max())
+                assert e <= B3_ATOL + B3_RTOL * scale, \
+                    f"{tag} {p} [{i}]: max abs err {e} at scale {scale}"
+                err = max(err, e)
+        else:
+            held = zip(_flat_run(got_g[:nets], got_l),
+                       _flat_run(want_g[:nets], want_l))
+            err = max(_close(f"{tag} {p} [{i}]", a, b, REF_RTOL, REF_ATOL)
+                      for i, (a, b) in enumerate(held))
+        out[p] = dict(res, max_abs_err=err)
+    print(f"{tag}: " + "; ".join(
+        f"{p} max_abs_err {v['max_abs_err']:.3g} " + (
+            f"(normwise rtol {B3_RTOL}, atol {B3_ATOL})" if one_update else
+            f"(networks, targets, losses: rtol {REF_RTOL}, atol {REF_ATOL})")
+        + f", {v['beyond_tight']} of {v['elements']} elements past rtol "
+        f"{B3_RTOL}, atol {B3_ATOL} elementwise (limit {v['limit']}; the "
+        f"float32 kernel {v['f32_beyond_tight']})"
+        for p, v in out.items()) + "; float32, highest: the default's "
+        "bits", flush=True)
+    return out
+
+
+def _mode_times(fn, reps) -> dict:
+    """fn(p)'s CUDA-event ms at each product mode, in turns (float32,
+    bfloat16, TF32, then back): mode -> [ms, ms]."""
+    order = (None,) + PRECISION_MODES
+    out = {p or "float32": [] for p in order}
+    for p in order + order[::-1]:
+        out[p or "float32"].append(_time_ms(lambda: fn(p), reps))
+    return out
+
+
+def _times_line(times: dict, bound_ms: float) -> str:
+    return ", ".join(f"{p} {' '.join(f'{t:.4f}' for t in ts)}"
+                     for p, ts in times.items()) + \
+        f" ms (bound {bound_ms:.4f} ms, FFMA arithmetic at every mode)"
+
+
+def phase_learner_precision(dev) -> dict:
+    """learner_precision on the card: B3, B5, B7 and B9 at each product
+    mode against their twins (_mode_holds) at the defaults (B3 batch 256
+    at "updated" and "pre", K 1 and 16; B5 K 1 and 8; B7 K 1 and 8 with the
+    clip at 10 and off; B9 at 131,072 rows and at 1,000), B3 also at the
+    fast preset's batch 8192 x K 8; each timed at float32, bfloat16 and
+    TF32 in turns;
+    then the CLI at each agent's defaults with `--<agent>.learner-precision
+    bfloat16` (the counters zeroed before each run and read after it: the
+    learner kernel as often as at float32, the rollout kernel every step),
+    and each agent at the other legacy values for a few steps."""
+    import torch
+
+    from cartpoleplusplus_tpu_torch.agents.common import lr_schedule
+    from cartpoleplusplus_tpu_torch.agents.naf import NAFConfig
+    from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
+
+    card = _card()
+    out = {"card": card}
+    hidden = (256, 256)
+    la, lc = lk.actor_layout(42, hidden), lk.critic_layout(42, hidden)
+    b3_lays = (la, lc, la, lc, la, la, lc, lc)
+    b3_kw = dict(actor_lr=1e-4, critic_lr=1e-3, gamma=0.99, tau=0.01)
+
+    def b3_case(batch, k, agc):
+        groups, batches = _b3_inputs(dev, hidden, batch, k, seed=21)
+        kw = dict(b3_kw, actor_grad_critic=agc)
+
+        def run(p):
+            got = [g.clone() for g in groups]
+            losses = lk.ddpg_update_phase(got, batches, B3_T0, hidden,
+                                          mm_precision=p, **kw)
+            torch.cuda.synchronize()
+            return ([lk.group_views(g, lay) for g, lay in zip(got,
+                                                               b3_lays)],
+                    losses)
+
+        def twin(p):
+            res = lk.update_phase_math(
+                *[lk.group_views(g, lay) for g, lay in zip(groups, b3_lays)],
+                batches, B3_T0, hidden, mm_precision=p, **kw)
+            return res[:8], res[8:]
+
+        return groups, batches, kw, run, twin
+
+    res = {}
+    for agc in ("updated", "pre"):
+        *_, run, twin = b3_case(B3_BATCH, 1, agc)
+        res[f"K 1 {agc}"] = _mode_holds(f"B3 K 1 {agc}", run, twin, 4, True,
+                                            ONE_UPDATE_SHARE)
+    groups, batches, kw, run, twin = b3_case(B3_BATCH, B3_K, "updated")
+    res[f"K {B3_K}"] = _mode_holds(f"B3 K {B3_K}", run, twin, 4, False,
+                                      B3_K_SHARE)
+
+    times = _mode_times(lambda p: lk.ddpg_update_phase(
+        groups, batches, B3_T0, hidden, mm_precision=p, **kw), 10)
+    bound = _bound(B3_K * _b3_update_flop(hidden, B3_BATCH),
+                   2 * _nbytes(*groups) + _nbytes(*batches) + 8 * B3_K)
+    print(f"B3 batch {B3_BATCH} x K {B3_K} (card {card}): "
+          f"{_times_line(times, bound['bound_ms'])}", flush=True)
+    out["B3"] = dict(holds=res, ms=times, **bound)
+    del groups, batches
+    groups, batches, kw, run, twin = b3_case(B3_FAST_BATCH, B3_FAST_K,
+                                             "updated")
+    res = _mode_holds(f"B3 batch {B3_FAST_BATCH} K {B3_FAST_K}", run, twin,
+                      4, False, B3_FAST_SHARE)
+    times = _mode_times(lambda p: lk.ddpg_update_phase(
+        groups, batches, B3_T0, hidden, mm_precision=p, **kw), 3)
+    bound = _bound(B3_FAST_K * _b3_update_flop(hidden, B3_FAST_BATCH),
+                   2 * _nbytes(*groups) + _nbytes(*batches) + 8 * B3_FAST_K)
+    print(f"B3 batch {B3_FAST_BATCH} x K {B3_FAST_K} (card {card}): "
+          f"{_times_line(times, bound['bound_ms'])}", flush=True)
+    out["B3 fast"] = dict(holds=res, ms=times, **bound)
+    del groups, batches
+
+    lay = lk.qnet_layout(42, hidden)
+    b5_kw = dict(lr=5e-5, gamma=0.99, tau=0.01)
+
+    def b5_case(k):
+        groups, batches = _b5_inputs(dev, hidden, B5_BATCH, k, seed=21)
+
+        def run(p):
+            got = [g.clone() for g in groups]
+            loss = lk.dqn_update_phase(got, batches, B3_T0, hidden,
+                                       mm_precision=p, **b5_kw)
+            torch.cuda.synchronize()
+            return [lk.group_views(g, lay) for g in got], [loss]
+
+        def twin(p):
+            res = lk.dqn_update_phase_math(
+                *[lk.group_views(g, lay) for g in groups], batches, B3_T0,
+                hidden, mm_precision=p, **b5_kw)
+            return res[:4], res[4:]
+
+        return groups, batches, run, twin
+
+    res = {}
+    *_, run, twin = b5_case(1)
+    res["K 1"] = _mode_holds("B5 K 1", run, twin, 2, True, ONE_UPDATE_SHARE)
+    groups, batches, run, twin = b5_case(B5_K)
+    res[f"K {B5_K}"] = _mode_holds(f"B5 K {B5_K}", run, twin, 2, False,
+                                  ROW_CHAIN_K_SHARE)
+    times = _mode_times(lambda p: lk.dqn_update_phase(
+        groups, batches, B3_T0, hidden, mm_precision=p, **b5_kw), 10)
+    h0, h1 = hidden
+    fwd = 42 * h0 + h0 * h1 + h1 * 5
+    bound = _bound(B5_K * 2 * B5_BATCH * (3 * fwd + (5 * h1 + h1 * h0)
+                                          + fwd),
+                   2 * _nbytes(*groups) + _nbytes(*batches) + 4 * B5_K)
+    print(f"B5 batch {B5_BATCH} x K {B5_K} (card {card}): "
+          f"{_times_line(times, bound['bound_ms'])}", flush=True)
+    out["B5"] = dict(holds=res, ms=times, **bound)
+
+    cfg = NAFConfig()
+    lay = lk.naf_layout(42, hidden)
+    b7_kw = dict(lr=cfg.lr, gamma=cfg.gamma, tau=cfg.tau,
+                 lr_schedule=lr_schedule(cfg))
+
+    def b7_case(k, clip):
+        groups, batches = _b7_inputs(dev, hidden, B7_BATCH, k, seed=33)
+        kw = dict(b7_kw, max_grad_norm=clip)
+
+        def run(p):
+            got = [g.clone() for g in groups]
+            loss = lk.naf_update_phase(got, batches, B3_T0, hidden,
+                                       mm_precision=p, **kw)
+            torch.cuda.synchronize()
+            return [lk.group_views(g, lay) for g in got], [loss]
+
+        def twin(p):
+            res = lk.naf_update_phase_math(
+                *[lk.group_views(g, lay) for g in groups], batches, B3_T0,
+                hidden, mm_precision=p, **kw)
+            return res[:4], res[4:5]
+
+        return groups, batches, kw, run, twin
+
+    res = {}
+    for clip in (cfg.max_grad_norm, 0.0):
+        *_, run, twin = b7_case(1, clip)
+        res[f"K 1 clip {clip}"] = _mode_holds(f"B7 K 1 clip {clip}", run,
+                                              twin, 2, True, ONE_UPDATE_SHARE)
+    groups, batches, kw, run, twin = b7_case(B7_K, cfg.max_grad_norm)
+    res[f"K {B7_K}"] = _mode_holds(f"B7 K {B7_K} clip {cfg.max_grad_norm}",
+                                   run, twin, 2, False, ROW_CHAIN_K_SHARE)
+    times = _mode_times(lambda p: lk.naf_update_phase(
+        groups, batches, B3_T0, hidden, mm_precision=p, **kw), 10)
+    bound = _bound(B7_K * _b7_update_flop(hidden, B7_BATCH),
+                   2 * _nbytes(*groups) + _nbytes(*batches) + 4 * B7_K)
+    print(f"B7 batch {B7_BATCH} x K {B7_K}, clip {cfg.max_grad_norm} (card "
+          f"{card}): {_times_line(times, bound['bound_ms'])}", flush=True)
+    out["B7"] = dict(holds=res, ms=times, **bound)
+
+    lay = lk.policy_layout(42, LRPG_HIDDEN)
+    b9_kw = dict(lr=3e-4, entropy_coef=0.1)
+
+    def b9_case(n):
+        groups, window = _b9_inputs(dev, LRPG_HIDDEN, seed=29, n=n)
+
+        def run(p):
+            got = [x.clone() for x in groups]
+            loss = lk.lrpg_update_phase(got, window, B3_T0, LRPG_HIDDEN,
+                                        mm_precision=p, **b9_kw)
+            torch.cuda.synchronize()
+            return [lk.group_views(x, lay) for x in got], [loss]
+
+        def twin(p):
+            res = lk.lrpg_update_phase_math(
+                *[lk.group_views(x, lay) for x in groups], window, B3_T0,
+                LRPG_HIDDEN, mm_precision=p, **b9_kw)
+            return res[:3], res[3:]
+
+        return groups, window, run, twin
+
+    # A window of 1000 rows besides the defaults' 131,072: the mean over
+    # 131,072 rows hides a weight gradient's operand left unrounded.
+    *_, run, twin = b9_case(B9_SMALL_N)
+    res = {f"N {B9_SMALL_N}": _mode_holds(f"B9 N {B9_SMALL_N}", run, twin,
+                                          1, True, ONE_UPDATE_SHARE)}
+    groups, window, run, twin = b9_case(B9_N)
+    res[f"N {B9_N}"] = _mode_holds(f"B9 N {B9_N}", run, twin, 1, True,
+                                   ONE_UPDATE_SHARE)
+    times = _mode_times(lambda p: lk.lrpg_update_phase(
+        groups, window, B3_T0, LRPG_HIDDEN, mm_precision=p, **b9_kw), 10)
+    bound = _bound(_b9_flop(B9_N, LRPG_HIDDEN),
+                   _nbytes(*window) + 2 * _nbytes(*groups) + 4)
+    print(f"B9 N {B9_N}, hidden {LRPG_HIDDEN} (card {card}): "
+          f"{_times_line(times, bound['bound_ms'])}", flush=True)
+    out["B9"] = dict(holds=res, ms=times, **bound)
+    del groups, window
+
+    # The CLI: each agent's defaults at bfloat16 (the launches the kernels
+    # line reports), then the other legacy values at a small size.
+    learner = {"ddpg": "B3", "dqn": "B5", "naf": "B7", "lrpg": "B9"}
+    rollout = {"ddpg": "B2", "dqn": "B4", "naf": "B6", "lrpg": "B8"}
+    launches, t0 = {}, time.perf_counter()
+    for agent in learner:
+        t = LRPG_T if agent == "lrpg" else 8
+        _zero_counts()
+        rc, lines, _, secs = _train_lines([
+            "--agent", agent, "--total-env-steps", str(8 * t),
+            "--log-interval", "1", f"--{agent}.learner", "kernel",
+            f"--{agent}.learner-precision", "bfloat16", "--seed", "0"])
+        counts = _read_counts()
+        assert rc == 0, f"{agent} at bfloat16 returned {rc}"
+        n_learn = 8 if agent == "lrpg" else 7
+        assert _only(counts, **{rollout[agent]: 8,
+                                learner[agent]: n_learn}), (agent, counts)
+        for m in lines:
+            assert all(math.isfinite(v) for v in m.values()), m
+        assert lines[-1]["learner_impl"] == 1.0
+        launches[f"{agent} bfloat16"] = counts
+        print(f"{agent} --{agent}.learner-precision bfloat16 at its defaults "
+              f"(8 train steps, {secs:.2f} s): launches "
+              f"{ {k: v for k, v in counts.items() if v} }; last loss "
+              f"{lines[-1].get('critic_loss', lines[-1].get('loss')):.6g}",
+              flush=True)
+    others = ("default", "tensorfloat32", "high", "float32", "highest")
+    for agent in learner:
+        t = LRPG_T if agent == "lrpg" else 8
+        for value in others:
+            _zero_counts()
+            rc, lines, _, _ = _train_lines([
+                "--agent", agent, "--num-envs", str(PRECISION_CLI_ENVS),
+                "--total-env-steps", str(PRECISION_CLI_STEPS * t),
+                "--log-interval", "1", f"--{agent}.learner", "kernel",
+                f"--{agent}.learner-precision", value])
+            counts = _read_counts()
+            n_learn = PRECISION_CLI_STEPS - (agent != "lrpg")
+            assert rc == 0 and counts[learner[agent]] == n_learn, \
+                (agent, value, rc, counts)
+            assert all(math.isfinite(v) for m in lines for v in m.values())
+    print(f"the other legacy values {others} through each agent's learner "
+          f"kernel ({PRECISION_CLI_ENVS} envs, {PRECISION_CLI_STEPS} train "
+          f"steps each): rc 0, finite metrics, the learner kernel past the "
+          f"warmup; CLI runs {time.perf_counter() - t0:.2f} s in all",
+          flush=True)
+    out["launches"] = launches
+    return out
+
+
+def learner_bits(dev, path: str) -> int:
+    """The float32 outputs of B3 ("updated", "pre"), B5, B7 (the clip at
+    10 and off) and B9 at their defaults through whichever package sits
+    beside the script (the wrappers' default call, which every version of
+    the package takes), and each kernel's ms (CUDA events): saved to
+    `path`, or, where `path` exists, compared with it bit for bit (exit 1
+    on a difference). Copy the script into an unpacked parent and run it
+    there and here in turns to hold a change to the parent's bits and
+    time."""
+    import os
+
+    import torch
+
+    from cartpoleplusplus_tpu_torch.agents.common import lr_schedule
+    from cartpoleplusplus_tpu_torch.agents.naf import NAFConfig
+    from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
+
+    hidden, cfg = (256, 256), NAFConfig()
+    b3_kw = dict(actor_lr=1e-4, critic_lr=1e-3, gamma=0.99, tau=0.01)
+    b5_kw = dict(lr=5e-5, gamma=0.99, tau=0.01)
+    b7_kw = dict(lr=cfg.lr, gamma=cfg.gamma, tau=cfg.tau,
+                 lr_schedule=lr_schedule(cfg))
+    b9_kw = dict(lr=3e-4, entropy_coef=0.1)
+    calls = {}
+    for agc in ("updated", "pre"):
+        g, b = _b3_inputs(dev, hidden, B3_BATCH, B3_K, seed=21)
+        calls[f"B3 {agc}"] = (g, lambda gs, b=b, agc=agc: lk.ddpg_update_phase(
+            gs, b, B3_T0, hidden, actor_grad_critic=agc, **b3_kw))
+    g, b = _b5_inputs(dev, hidden, B5_BATCH, B5_K, seed=21)
+    calls["B5"] = (g, lambda gs, b=b: lk.dqn_update_phase(
+        gs, b, B3_T0, hidden, **b5_kw))
+    for clip in (cfg.max_grad_norm, 0.0):
+        g, b = _b7_inputs(dev, hidden, B7_BATCH, B7_K, seed=33)
+        calls[f"B7 clip {clip}"] = (g, lambda gs, b=b, clip=clip:
+                                    lk.naf_update_phase(
+                                        gs, b, B3_T0, hidden,
+                                        max_grad_norm=clip, **b7_kw))
+    g, w = _b9_inputs(dev, LRPG_HIDDEN, seed=29)
+    calls["B9"] = (g, lambda gs, w=w: lk.lrpg_update_phase(
+        gs, w, B3_T0, LRPG_HIDDEN, **b9_kw))
+    outs, ms = {}, {}
+    for name, (groups, call) in calls.items():
+        got = [x.clone() for x in groups]
+        losses = call(got)
+        losses = list(losses) if isinstance(losses, tuple) else [losses]
+        outs[name] = [x.cpu() for x in got + losses]
+        ms[name] = _time_ms(lambda: call([x.clone() for x in groups]), 20)
+    torch.cuda.synchronize()
+    print(json.dumps({"learner_ms": ms, "card": _card()}), flush=True)
+    if not os.path.exists(path):
+        torch.save(outs, path)
+        print(f"learner bits saved to {path}", flush=True)
+        return 0
+    want = torch.load(path)
+    same = {name: all(torch.equal(a, b) for a, b in zip(outs[name],
+                                                         want[name]))
+            for name in outs}
+    print(json.dumps({"bit_equal": same}), flush=True)
+    return 0 if all(same.values()) else 1
+
+
 def _warm_card(dev, seconds: float):
     """A few seconds of matrix products: timed from a cold card, B4 read
     0.52 ms against 0.34-0.41 warm (PERF.md)."""
@@ -4231,6 +4673,10 @@ def main() -> int:
         print(json.dumps({"presample_ms": presample_times(dev),
                           "card": _card()}), flush=True)
         return 0
+    if sys.argv[1:2] == ["--learner-bits"] and len(sys.argv) == 3:
+        _native.load_library()
+        _warm_card(dev, 2.0)
+        return learner_bits(dev, sys.argv[2])
     if sys.argv[1:2] == ["--dist-rank"]:
         return _dist_worker(sys.argv[2], int(sys.argv[3]))
     if sys.argv[1:] == ["--dist-only"]:
@@ -4245,6 +4691,15 @@ def main() -> int:
         print(_card(), flush=True)
         _native.load_library()
         print(json.dumps({"bf16": phase_bfloat16_agents(dev)}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--precision-only"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        print(_card(), flush=True)
+        _native.load_library()
+        _warm_card(dev, 2.0)
+        print(json.dumps({"precision": phase_learner_precision(dev)}),
+              flush=True)
         return 0
     if sys.argv[1:] == ["--b1-probe"]:
         probe = b1_probe(dev)
@@ -4306,6 +4761,7 @@ def main() -> int:
     dist = phase_distribution(dev)["per_rank"]
     bf16 = phase_bfloat16_agents(dev)["launches"]
     phase_tools(dev)
+    precision = phase_learner_precision(dev)
 
     b1_main = b1["discrete"]  # the benchmark's default params
     kernels = [
@@ -4392,14 +4848,22 @@ def main() -> int:
              ms=b11["gray"]["ms"], plain_ms=b11["gray"]["plain_ms"],
              **_bound_keys(b11["gray"])),
     ]
-    # Per-rank launches on the sharded paths of phase 29, and launches on
-    # phase 30's bfloat16 paths.
+    # Per-rank launches on the sharded paths of phase 29, launches on
+    # phase 30's bfloat16 paths and on phase 32's runs at
+    # learner_precision="bfloat16", and phase 32's ms at each product mode.
     for entry in kernels:
         key = entry["name"].split()[0]
         entry["dist_launches_per_rank"] = {
             tag: n[key] for tag, n in dist.items() if n.get(key)}
         entry["bf16_launches"] = {
             tag: n[key] for tag, n in bf16.items() if n.get(key)}
+        entry["precision_launches"] = {
+            tag: n[key] for tag, n in precision["launches"].items()
+            if n.get(key)}
+        if key in precision:
+            entry["precision_ms"] = {
+                mode: statistics.mean(ts)
+                for mode, ts in precision[key]["ms"].items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1322,3 +1322,218 @@ def test_gym_adapter_renders_through_b10(cuda):
     assert rk.render_frames.launches == before + 1
     assert img.dtype == np.uint8 and img.shape == (48, 48, 3)
     assert np.abs(img.astype(int) - cpu.render().astype(int)).max() <= 1
+
+
+# --- learner_precision: B3, B5, B7 and B9 at bfloat16 and TF32 ----------------
+
+PRECISIONS = ("bfloat16", "tensorfloat32")
+# The reference's bar for its bfloat16 kernel learner against its float32
+# plain learner (tests/test_learner_kernel.py:545-578).
+REF_BAR = dict(rtol=2e-2, atol=2e-3)
+# The share of all the elements that a reduced-mode kernel may have past
+# the learners' elementwise bar against its twin, where the float32 kernel
+# must have more (_check_modes; PERF.md §6 has the readings behind each):
+# after one update (B9: its one window), and B3, B5 and B7 after K 4.
+ONE_UPDATE_SHARE = 1e-5
+B3_K_SHARE, B5_K_SHARE, B7_K_SHARE = 0.03, 0.01, 0.0
+
+
+def _outside(got, want, rtol=2e-4, atol=1e-5) -> int:
+    """Elements of the tensor lists outside the bar."""
+    return sum(int((~torch.isclose(a, b, rtol=rtol, atol=atol)).sum())
+               for a, b in zip(got, want))
+
+
+def _flat(groups, losses):
+    return [x for g in groups for x in g] + list(losses)
+
+
+def _check_modes(run_kernel, run_twin, precision, one_update: bool,
+                 nets: int, share: float):
+    """The kernel at `precision` against its twin at the same mode (each
+    run gives its groups' parameter lists and its losses; the first `nets`
+    groups are the networks and targets, the rest Adam's moments), one
+    counted launch and the same bits from a second run.
+
+    At most `share` of all the elements lie past the learners' elementwise
+    bar (rtol 2e-4, atol 1e-5), and the float32 kernel against the same
+    twin has more past it than that limit: the check tells the modes
+    apart. With rounded operands an ulp between two summation orders
+    moves an operand by a whole bfloat16 or TF32 step where it crosses a
+    rounding edge (the twin on the card and the twin on the CPU part the
+    same way), so a few elements part. Besides, after one update (or
+    B9's one window) each tensor is held normwise to the learners' bar
+    (max error <= 1e-5 + 2e-4 x the tensor's largest magnitude); from the
+    second update on the weights differ by such steps too and a few
+    LayerNorm outputs flip at the relu edge, and after several updates
+    the networks, targets and losses are held to the reference's
+    bfloat16 bar (rtol 2e-2, atol 2e-3)."""
+    want_g, want_l = run_twin(precision)
+    (got_g, got_l), launched = run_kernel(precision)
+    assert launched == 1
+    got, want = _flat(got_g, got_l), _flat(want_g, want_l)
+    f32 = _flat(*run_kernel(None)[0])
+    limit = int(share * sum(x.numel() for x in got))
+    counts = (_outside(got, want), limit, _outside(f32, want))
+    assert counts[0] <= limit < counts[2], counts
+    if one_update:
+        for i, (a, b) in enumerate(zip(got, want)):
+            err = float((a - b).abs().max())
+            assert err <= 1e-5 + 2e-4 * float(b.abs().max()), (i, err)
+    else:
+        for a, b in zip(_flat(got_g[:nets], got_l),
+                        _flat(want_g[:nets], want_l)):
+            torch.testing.assert_close(a, b, **REF_BAR)
+    (again_g, again_l), _ = run_kernel(precision)
+    assert all(torch.equal(a, b) for a, b in zip(got,
+                                                 _flat(again_g, again_l)))
+
+
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("agc", ["updated", "pre"])
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_b3_at_reduced_precision_matches_its_twin(cuda, precision, agc, k):
+    """B3 at (256, 256), batch 200 (a ragged row tile), K 1 and 4 from
+    warmed moments, at both actor_grad_critic values."""
+    hidden = (256, 256)
+    groups, batches = _b3_inputs(cuda, hidden, 200, k, seed=2)
+    kw = dict(actor_lr=1e-3, critic_lr=2e-3, gamma=0.99, tau=0.05,
+              actor_grad_critic=agc, lr_schedule=(0.1, 50))
+    la, lc = lk.actor_layout(42, hidden), lk.critic_layout(42, hidden)
+    lays = (la, lc, la, lc, la, la, lc, lc)
+
+    def twin(p):
+        out = lk.update_phase_math(
+            *[lk.group_views(g, lay) for g, lay in zip(groups, lays)],
+            batches, 30, hidden, mm_precision=p, **kw)
+        return out[:8], out[8:]
+
+    def kernel(p):
+        got = [g.clone() for g in groups]
+        before = lk.ddpg_update_phase.launches
+        losses = lk.ddpg_update_phase(got, batches, 30, hidden,
+                                      mm_precision=p, **kw)
+        torch.cuda.synchronize()
+        views = [lk.group_views(g, lay) for g, lay in zip(got, lays)]
+        return (views, losses), lk.ddpg_update_phase.launches - before
+
+    _check_modes(kernel, twin, precision, k == 1, 4,
+                 ONE_UPDATE_SHARE if k == 1 else B3_K_SHARE)
+
+
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_b5_at_reduced_precision_matches_its_twin(cuda, precision, k):
+    """B5 at (256, 256), batch 200, K 1 and 4 from warmed moments."""
+    hidden = (256, 256)
+    groups, batches = _b5_inputs(cuda, hidden, 200, k, seed=2)
+    kw = dict(lr=1e-3, gamma=0.99, tau=0.05, double_dqn=True)
+    lay = lk.qnet_layout(42, hidden)
+
+    def twin(p):
+        out = lk.dqn_update_phase_math(
+            *[lk.group_views(g, lay) for g in groups], batches, 30, hidden,
+            mm_precision=p, **kw)
+        return out[:4], out[4:]
+
+    def kernel(p):
+        got = [g.clone() for g in groups]
+        before = lk.dqn_update_phase.launches
+        loss = lk.dqn_update_phase(got, batches, 30, hidden, mm_precision=p,
+                                   **kw)
+        torch.cuda.synchronize()
+        views = [lk.group_views(g, lay) for g in got]
+        return (views, [loss]), lk.dqn_update_phase.launches - before
+
+    _check_modes(kernel, twin, precision, k == 1, 2,
+                 ONE_UPDATE_SHARE if k == 1 else B5_K_SHARE)
+
+
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("clip", [10.0, 0.0], ids=["clip10", "noclip"])
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_b7_at_reduced_precision_matches_its_twin(cuda, precision, clip, k):
+    """B7 at (256, 256), batch 200, K 1 and 4 from warmed moments, the lr
+    schedule on, with the clip at 10 and off."""
+    hidden = (256, 256)
+    groups, batches = _b7_inputs(cuda, hidden, 200, k, seed=2)
+    kw = dict(lr=1e-3, gamma=0.99, tau=0.05, max_grad_norm=clip,
+              lr_schedule=(0.1, 50))
+    lay = lk.naf_layout(42, hidden)
+
+    def twin(p):
+        out = lk.naf_update_phase_math(
+            *[lk.group_views(g, lay) for g in groups], batches, 30, hidden,
+            mm_precision=p, **kw)
+        return out[:4], out[4:5]
+
+    def kernel(p):
+        got = [g.clone() for g in groups]
+        before = lk.naf_update_phase.launches
+        loss = lk.naf_update_phase(got, batches, 30, hidden, mm_precision=p,
+                                   **kw)
+        torch.cuda.synchronize()
+        views = [lk.group_views(g, lay) for g in got]
+        return (views, [loss]), lk.naf_update_phase.launches - before
+
+    _check_modes(kernel, twin, precision, k == 1, 2,
+                 ONE_UPDATE_SHARE if k == 1 else B7_K_SHARE)
+
+
+@pytest.mark.parametrize("hidden,n", [((64, 64), 1000), ((256, 300), 777)],
+                         ids=["smem", "workspace"])
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_b9_at_reduced_precision_matches_its_twin(cuda, precision, hidden, n):
+    """B9's one update from warmed moments on both of its routes (shared
+    memory at (64, 64), the workspace at (256, 300))."""
+    groups, window = _b9_inputs(cuda, hidden, n, seed=2)
+    kw = dict(lr=3e-4, entropy_coef=0.1)
+    lay = lk.policy_layout(42, hidden)
+
+    def twin(p):
+        out = lk.lrpg_update_phase_math(
+            *[lk.group_views(g, lay) for g in groups], window, 100, hidden,
+            mm_precision=p, **kw)
+        return out[:3], out[3:]
+
+    def kernel(p):
+        got = [g.clone() for g in groups]
+        before = lk.lrpg_update_phase.launches
+        loss = lk.lrpg_update_phase(got, window, 100, hidden, mm_precision=p,
+                                    **kw)
+        torch.cuda.synchronize()
+        views = [lk.group_views(g, lay) for g in got]
+        return (views, [loss]), lk.lrpg_update_phase.launches - before
+
+    _check_modes(kernel, twin, precision, True, 1, ONE_UPDATE_SHARE)
+
+
+@pytest.mark.parametrize("agent", ["ddpg", "dqn", "naf", "lrpg"])
+def test_learner_precision_cli_launches_the_learner_kernel(cuda, agent):
+    """`--<agent>.learner-precision bfloat16` at 1000 envs for 8 train
+    steps: the learner kernel launches as often as at float32 (7 past
+    DDPG's, DQN's and NAF's warmup, 8 for LRPG), learner_impl 1.0,
+    metrics finite."""
+    learner = {"ddpg": lk.ddpg_update_phase, "dqn": lk.dqn_update_phase,
+               "naf": lk.naf_update_phase, "lrpg": lk.lrpg_update_phase}
+    t = 32 if agent == "lrpg" else 8
+    launches = {}
+    for precision in (None, "bfloat16"):
+        argv = ["--agent", agent, "--num-envs", "1000", "--total-env-steps",
+                str(8 * t), "--log-interval", "1", f"--{agent}.learner",
+                "kernel"]
+        if precision is not None:
+            argv += [f"--{agent}.learner-precision", precision]
+        before = learner[agent].launches
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(io.StringIO()):
+            assert train.main(argv) == 0
+        launches[precision] = learner[agent].launches - before
+        steps = [json.loads(x) for x in out.getvalue().splitlines()]
+        assert len(steps) == 8
+        assert all(v == v and abs(v) != float("inf")
+                   for m in steps for v in m.values())
+        assert steps[-1]["learner_impl"] == 1.0
+    assert launches["bfloat16"] == launches[None] == (
+        8 if agent == "lrpg" else 7)

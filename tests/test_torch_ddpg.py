@@ -288,15 +288,19 @@ def test_uniform_train_steps_track_jax_teacher_forced(learner):
 
 
 def test_unported_learner_settings_raise():
-    """The learner setting the port does not take (learner_precision, the
-    TPU's single-pass products) raises at construction, and so does
-    learner='kernel' where B3 does not cover the config: bfloat16, ported
-    since, constructs on the plain learner ("auto" and "xla") and raises
-    with "kernel", as the reference's kernel_learner_ok refuses it;
+    """The learner setting the port does not take (a dot-algorithm preset
+    as learner_precision) raises at construction, and so does
+    learner='kernel' where B3 does not cover the config. learner_precision
+    "bfloat16", ported since, constructs on B3; bfloat16 nets, ported
+    since, construct on the plain learner ("auto" and "xla") and raise
+    with "kernel", as the reference's kernel_learner_ok refuses them;
     uniform sampling, ported since, constructs on both learners."""
     env = CartPole3D(continuous_params(), num_envs=8, device="cpu")
+    agent = DDPG(env, DDPGConfig(learner_precision="bfloat16",
+                                 learner="kernel"))
+    assert agent.kernel_mode and agent.cfg.learner_precision == "bfloat16"
     with pytest.raises(ValueError, match="not ported"):
-        DDPG(env, DDPGConfig(learner_precision="bfloat16"))
+        DDPG(env, DDPGConfig(learner_precision="BF16_BF16_F32_X3"))
     for learner in ("auto", "xla"):
         agent = DDPG(env, DDPGConfig(dtype="bfloat16", learner=learner))
         assert not agent.kernel_mode and not agent.kernel_learner_ok()

@@ -327,6 +327,21 @@ def _start_the_rest(tmp, started, two, four):
     return {2: dict(own, **two), 4: four}
 
 
+def test_initialize_multihost_defaults_to_the_card(monkeypatch):
+    """initialize_multihost's device defaults to "cuda", as the port's
+    entry points run on the card unless asked for the CPU (the spawned
+    ranks pass device="cpu"); with no card visible it raises before it
+    joins any group, with no fallback to the CPU."""
+    from cartpoleplusplus_tpu_torch.dist import initialize_multihost
+
+    sig = inspect.signature(initialize_multihost)
+    assert sig.parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device is visible"):
+        initialize_multihost("localhost:1", 1, 0, backend="gloo")
+    assert not torch.distributed.is_initialized()
+
+
 def test_cpu_matmul_rounds_by_row_count():
     """Why each rank owns 16 envs in these tests: torch's CPU product of
     an (M, 16) batch with the 16 -> 2 actor head gives other bits for a

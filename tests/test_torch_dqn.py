@@ -327,7 +327,11 @@ def test_train_cli_cuda_rejects_shapes_b4_does_not_cover(argv):
 
 
 @pytest.mark.parametrize("argv", [["--agent", "naf",
-                                   "--naf.learner-precision", "highest"],
+                                   "--naf.learner-precision", "highest",
+                                   "--naf.learner", "kernel",
+                                   "--naf.hidden", "8", "--naf.batch-size",
+                                   "8", "--naf.replay-capacity-per-env", "8",
+                                   *SMALL_RUN],
                                   ["--agent", "naf", *SMALL_PIXELS,
                                    "--naf.hidden", "8", "--naf.batch-size",
                                    "8", "--naf.replay-capacity-per-env", "8",
@@ -346,11 +350,18 @@ def test_train_cli_cuda_rejects_shapes_b4_does_not_cover(argv):
                                    *SMALL_RUN]])
 def test_train_cli_rejects_unported_dqn_neighbours(argv):
     """DQN, NAF and LRPG settings the port lacks exit 2. Pixel NAF, DQN
-    block sampling and bfloat16 LRPG and DQN, rejected until they were
-    ported, now train on the CPU and exit 0."""
+    block sampling, bfloat16 LRPG and DQN, and NAF's learner precision,
+    rejected until they were ported, now train on the CPU and exit 0; a
+    dot-algorithm preset as the learner precision still exits 2."""
     ported = any(f in argv for f in ("pixels", "--dqn.sample",
-                                     "--lrpg.dtype", "--dqn.dtype"))
+                                     "--lrpg.dtype", "--dqn.dtype",
+                                     "--naf.learner-precision"))
     assert cli_rc(["--num-envs", "8", *argv]) == (0 if ported else 2)
+    if "--naf.learner-precision" in argv:
+        preset = list(argv)
+        preset[preset.index("--naf.learner-precision") + 1] = \
+            "BF16_BF16_F32_X3"
+        assert cli_rc(["--num-envs", "8", *preset]) == 2
 
 
 def test_dqn_rejects_the_continuous_env():

@@ -357,14 +357,18 @@ def test_train_cli_cuda_rejects_shapes_b6_does_not_cover(argv):
 
 
 def test_unported_settings_and_the_discrete_env_raise():
-    """The setting the port lacks (learner_precision) raises at
-    construction; bfloat16, ported since, constructs on the plain learner
-    and raises with learner='kernel' (B7 is float32, as the reference's
-    kernel_learner_ok says); block sampling, ported since, constructs (a
-    batch that divides the envs) on both learners."""
+    """The setting the port lacks (a dot-algorithm preset as
+    learner_precision) raises at construction; learner_precision "highest",
+    ported since, constructs on B7; bfloat16 nets, ported since, construct
+    on the plain learner and raise with learner='kernel' (B7 is float32,
+    as the reference's kernel_learner_ok says); block sampling, ported
+    since, constructs (a batch that divides the envs) on both learners."""
     env = CartPole3D(continuous_params(), num_envs=8, device="cpu")
+    agent = NAF(env, NAFConfig(learner_precision="highest",
+                               learner="kernel"))
+    assert agent.kernel_mode and agent.cfg.learner_precision == "highest"
     with pytest.raises(ValueError, match="not ported"):
-        NAF(env, NAFConfig(learner_precision="highest"))
+        NAF(env, NAFConfig(learner_precision="BF16_BF16_F32_X3"))
     agent = NAF(env, NAFConfig(dtype="bfloat16"))
     assert not agent.kernel_mode and agent.fusable()
     with pytest.raises(ValueError, match="not covered by the fused update"):

@@ -203,7 +203,7 @@ def main() -> int:
     spec = json.load(open(sys.argv[1]))
     rank = int(sys.argv[2])
     initialize_multihost(spec["init"], spec["world"], rank, backend="gloo",
-                         timeout_s=spec.get("timeout_s", 120))
+                         device="cpu", timeout_s=spec.get("timeout_s", 120))
     mesh = make_mesh()
     for name, job in spec["jobs"].items():
         res = JOBS[job["kind"]](job, mesh)
