@@ -39,8 +39,10 @@
 // bits. No float atomics: two runs give the same bits. Any depth >= 1 and
 // any width, as the reference's kernel takes (the widths and offsets are
 // the learners' device table). The kernel is instantiated per products'
-// mode (dims.mm: float32, bfloat16 or TF32 operands, learner_stages.cuh's
-// mm_in), and the launcher picks the instance.
+// mode (dims.mm, learner_stages.cuh's modes), and the launcher picks the
+// instance; the X3, X6, F64 and F16 instances are built in
+// dqn_update_x3x6.cu and dqn_update_f64f16.cu, this source with
+// CP_MM_PRESET_UNIT defined, beside this one.
 #include "row_chain.cuh"
 
 // Mirror of ops/_native.py::DqnDims.
@@ -49,7 +51,7 @@ struct DqnDims {
   Torso torso;
   NetLayout q;
   int spill;  // 1: the items' buffers in the workspace at any width
-  int mm;     // the products' mode: kMmF32, kMmBf16 or kMmTf32
+  int mm;     // the products' mode (learner_stages.cuh's kMm*)
 };
 
 namespace {
@@ -274,6 +276,30 @@ long long carve(const DqnDims& d, const int* widths, float* base,
 
 }  // namespace
 
+// The X3 and X6 instances of the kernel (dqn_update_x3x6.cu) and the F64
+// and F16 ones (dqn_update_f64f16.cu), each made in a translation unit that
+// includes this source with CP_MM_PRESET_UNIT defined; null for another
+// mode.
+const void* cp_dqn_x3x6_kernel(int m);
+const void* cp_dqn_f64f16_kernel(int m);
+
+#if CP_MM_PRESET_UNIT == 1
+const void* cp_dqn_x3x6_kernel(int m) {
+  if (m == kMmX3)
+    return reinterpret_cast<const void*>(dqn_update_kernel<kMmX3>);
+  if (m == kMmX6)
+    return reinterpret_cast<const void*>(dqn_update_kernel<kMmX6>);
+  return nullptr;
+}
+#elif CP_MM_PRESET_UNIT == 2
+const void* cp_dqn_f64f16_kernel(int m) {
+  if (m == kMmF64)
+    return reinterpret_cast<const void*>(dqn_update_kernel<kMmF64>);
+  if (m == kMmF16)
+    return reinterpret_cast<const void*>(dqn_update_kernel<kMmF16>);
+  return nullptr;
+}
+#else
 extern "C" {
 
 // Floats of workspace cp_dqn_update_phase needs for these dims (0 when the
@@ -311,9 +337,11 @@ int cp_dqn_update_phase(const DqnDims* dims, const int* widths,
   RowPlan rp = dqn_row_plan(d, hmax);
   const size_t smem = plan_smem(rp, table_ints(d));
   // Each instance keeps its own block count.
-  static int blocks[3] = {};
-  static size_t blocks_smem[3] = {};
-  const void* kernels[3] = CP_MM_INSTANCES(dqn_update_kernel);
+  static int blocks[kMmModes] = {};
+  static size_t blocks_smem[kMmModes] = {};
+  const void* kernels[kMmModes] =
+      CP_MM_INSTANCES(dqn_update_kernel, cp_dqn_x3x6_kernel,
+                      cp_dqn_f64f16_kernel);
   if (kernels[d.mm] == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   void* args[] = {&d, &c, &w, &q, &q_t, &m, &v, &bt, &loss, &t0, &rp};
@@ -323,3 +351,4 @@ int cp_dqn_update_phase(const DqnDims* dims, const int* widths,
 }
 
 }  // extern "C"
+#endif  // CP_MM_PRESET_UNIT

@@ -23,6 +23,7 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -171,46 +172,170 @@ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // The products' mode (ops/learner_kernel.py::mm_mode, the reference's
 // learner_precision): a template parameter M of the product helpers and of
-// every learner kernel, which the launchers instantiate per mode. kMmF32:
-// float32 operands (the code as it was before the modes). kMmBf16: each
-// operand rounded to bfloat16, to nearest, ties to even. kMmTf32: each
-// operand rounded to TF32's 10 mantissa bits, to nearest, ties away from
-// zero (as cvt.rna.tf32.f32). Either way the product of two rounded
-// operands is exact in float32, and the sums stay float32.
-enum : int { kMmF32 = 0, kMmBf16 = 1, kMmTf32 = 2 };
+// every learner kernel, which the launchers instantiate per mode. Every
+// product site computes acc = mm_fma<M>(mm_in<M>(a), mm_in<M>(b), acc) from
+// acc = 0, k in order, and stores mm_out<M>(acc) where the dot's result
+// goes on (ops/learner_kernel.py's docstring states the modes once):
+//   kMmF32: float32 operands (the code as it was before the modes).
+//   kMmBf16: each operand rounded to bfloat16, to nearest, ties to even.
+//   kMmTf32: each operand rounded to TF32's 10 mantissa bits, to nearest,
+//     ties away from zero (as cvt.rna.tf32.f32).
+//   kMmX3, kMmX6 (BF16_BF16_F32_X3 and _X6): each operand split into
+//     bfloat16 parts (mm_split), and the 3 or 6 part products added into
+//     the float32 chain, the smallest first: X3 lo.hi, hi.lo, hi.hi; X6
+//     mid.mid, lo.hi, hi.lo, mid.hi, hi.mid, hi.hi.
+//   kMmF64: both operands widened to double, the products and their sum a
+//     DFMA chain in double, rounded once to float32 by mm_out.
+//   kMmF16 (F16_F16_F16): each operand rounded to float16 (to nearest
+//     even, float16's range), products and sums in float32, the dot's
+//     result rounded to float16 by mm_out.
+// A product of two rounded operands or parts is exact in float32 (in
+// double at kMmF64), so each step of the chain rounds once.
+enum : int {
+  kMmF32 = 0,
+  kMmBf16 = 1,
+  kMmTf32 = 2,
+  kMmX3 = 3,
+  kMmX6 = 4,
+  kMmF64 = 5,
+  kMmF16 = 6,
+  kMmModes = 7
+};
 
-__host__ __device__ inline bool mm_ok(int m) { return m >= 0 && m <= 2; }
+__host__ __device__ inline bool mm_ok(int m) { return m >= 0 && m < kMmModes; }
 
-// Every mode's instance of a learner kernel template, indexed by mode; a
-// stage-clock build (chip_smoke.py's stage split, which times the float32
-// kernels) instantiates the float32 one alone, in a third of the time.
+// Every mode's instance of a learner kernel template, indexed by mode. The
+// last four are built two by two in translation units of their own (the
+// source with CP_MM_PRESET_UNIT 1 or 2), so that they compile beside the
+// others: x3x6(m) and f64f16(m) return them. A stage-clock build
+// (chip_smoke.py's stage split, which times the float32 kernels)
+// instantiates the float32 one alone.
 #ifdef CP_STAGE_CLOCK
-#define CP_MM_INSTANCES(kernel) \
-  { reinterpret_cast<const void*>(kernel<kMmF32>), nullptr, nullptr }
+#define CP_MM_INSTANCES(kernel, x3x6, f64f16)                             \
+  {                                                                       \
+    reinterpret_cast<const void*>(kernel<kMmF32>), nullptr, nullptr,      \
+        nullptr, nullptr, nullptr, nullptr                                \
+  }
 #else
-#define CP_MM_INSTANCES(kernel)                          \
-  {                                                      \
-    reinterpret_cast<const void*>(kernel<kMmF32>),       \
-        reinterpret_cast<const void*>(kernel<kMmBf16>),  \
-        reinterpret_cast<const void*>(kernel<kMmTf32>)   \
+#define CP_MM_INSTANCES(kernel, x3x6, f64f16)                             \
+  {                                                                       \
+    reinterpret_cast<const void*>(kernel<kMmF32>),                        \
+        reinterpret_cast<const void*>(kernel<kMmBf16>),                   \
+        reinterpret_cast<const void*>(kernel<kMmTf32>), x3x6(kMmX3),      \
+        x3x6(kMmX6), f64f16(kMmF64), f64f16(kMmF16)                       \
   }
 #endif
 
-// x as mode M takes it into a product: integer operations on its float32
-// bits (ops/learner_kernel.py::round_operand); a NaN unchanged, an infinity
-// to itself, a value past the format's largest to the infinity.
+// X3's bfloat16 parts of an operand: hi = bf16(x), lo = bf16(x - hi).
+struct MmX3 {
+  float hi, lo;
+};
+// X6's: hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid).
+struct MmX6 {
+  float hi, mid, lo;
+};
+
+// The type an operand enters a product as (mm_in), and the chain's.
 template <int M>
-__device__ __forceinline__ float mm_in(float x) {
+struct MmTypes {
+  using In = float;
+  using Acc = float;
+};
+template <>
+struct MmTypes<kMmX3> {
+  using In = MmX3;
+  using Acc = float;
+};
+template <>
+struct MmTypes<kMmX6> {
+  using In = MmX6;
+  using Acc = float;
+};
+template <>
+struct MmTypes<kMmF64> {
+  using In = double;
+  using Acc = double;
+};
+template <int M>
+using mm_in_t = typename MmTypes<M>::In;
+template <int M>
+using mm_acc_t = typename MmTypes<M>::Acc;
+
+// x rounded to bfloat16 by integer operations on its float32 bits (to
+// nearest, ties to even; a NaN unchanged, an infinity to itself, a value
+// past bfloat16's largest to the infinity).
+__device__ __forceinline__ float bf16_rn(float x) {
+  const unsigned u = __float_as_uint(x);
+  const float r = __uint_as_float((u + 0x7fffu + ((u >> 16) & 1u)) &
+                                  0xffff0000u);
+  return x != x ? x : r;
+}
+
+// The parts' residual: x - hi (exact in float32), or 0 where hi is not
+// finite (x a NaN or an infinity, or rounded past bfloat16's largest), so
+// that such an x goes whole into hi.
+__device__ __forceinline__ float mm_rest(float x, float hi) {
+  return fabsf(hi) < __uint_as_float(0x7f800000u) ? x - hi : 0.0f;
+}
+
+// x as mode M takes it into a product (ops/learner_kernel.py's
+// round_operand and split_operand).
+template <int M>
+__device__ __forceinline__ mm_in_t<M> mm_in(float x) {
   if constexpr (M == kMmF32) {
     return x;
-  } else {
-    unsigned u = __float_as_uint(x);
-    if constexpr (M == kMmBf16)
-      u = (u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u;
-    else
-      u = (u + 0x1000u) & 0xffffe000u;
+  } else if constexpr (M == kMmBf16) {
+    return bf16_rn(x);
+  } else if constexpr (M == kMmTf32) {
+    const unsigned u = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
     return x != x ? x : __uint_as_float(u);
+  } else if constexpr (M == kMmF16) {
+    return __half2float(__float2half_rn(x));
+  } else if constexpr (M == kMmF64) {
+    return static_cast<double>(x);
+  } else if constexpr (M == kMmX3) {
+    const float hi = bf16_rn(x);
+    return MmX3{hi, bf16_rn(mm_rest(x, hi))};
+  } else {
+    const float hi = bf16_rn(x);
+    const float r = mm_rest(x, hi);
+    const float mid = bf16_rn(r);
+    return MmX6{hi, mid, bf16_rn(r - mid)};
   }
+}
+
+// acc + a b as mode M forms it: one fmaf (one DFMA at kMmF64), or the part
+// products added one by one, the smallest first.
+template <int M>
+__device__ __forceinline__ mm_acc_t<M> mm_fma(const mm_in_t<M>& a,
+                                              const mm_in_t<M>& b,
+                                              mm_acc_t<M> acc) {
+  if constexpr (M == kMmX3) {
+    acc = fmaf(a.lo, b.hi, acc);
+    acc = fmaf(a.hi, b.lo, acc);
+    return fmaf(a.hi, b.hi, acc);
+  } else if constexpr (M == kMmX6) {
+    acc = fmaf(a.mid, b.mid, acc);
+    acc = fmaf(a.lo, b.hi, acc);
+    acc = fmaf(a.hi, b.lo, acc);
+    acc = fmaf(a.mid, b.hi, acc);
+    acc = fmaf(a.hi, b.mid, acc);
+    return fmaf(a.hi, b.hi, acc);
+  } else if constexpr (M == kMmF64) {
+    return fma(a, b, static_cast<double>(acc));
+  } else {
+    return fmaf(a, b, acc);
+  }
+}
+
+// A dot's result as it goes on: float32 (kMmF64 rounds its double sum once;
+// kMmF16 rounds to float16).
+template <int M>
+__device__ __forceinline__ float mm_out(mm_acc_t<M> acc) {
+  if constexpr (M == kMmF16)
+    return __half2float(__float2half_rn(acc));
+  else
+    return static_cast<float>(acc);
 }
 
 // LayerNorm statistics of one row (one-pass variance, as the twin).

@@ -43,9 +43,16 @@
 // offsets are the learners' device table (ops/learner_kernel.py::
 // _learner_table); only its LayerNorm constants and helpers are shared with
 // B3/B5/B7 (learner_stages.cuh). Pass 1 is instantiated per products' mode
-// (dims.mm: float32, bfloat16 or TF32 operands, learner_stages.cuh's
-// mm_in, each operand rounded in registers as it enters the fmaf chain);
-// pass 2 makes no product.
+// (dims.mm, learner_stages.cuh's modes: each operand rounded, split or
+// widened in registers as it enters the chain); the X3, X6, F64 and F16
+// instances are built in lrpg_update_x3x6.cu and lrpg_update_f64f16.cu,
+// this source with CP_MM_PRESET_UNIT defined, beside this one. A weight
+// gradient is one dot over the whole window, so its result is formed in
+// pass 2: at kMmF64 the accumulators and the partial rows are doubles, a
+// weight gradient summed in double and rounded once (the bias, LayerNorm
+// and loss sums, which are no dots, stay float32 sums at every mode, held
+// in those doubles: sum_into); at kMmF16 the weight gradients' float32
+// sums are rounded to float16 there. Pass 2 makes no product.
 #include "learner_stages.cuh"
 
 // Mirror of ops/_native.py::PgDims.
@@ -56,7 +63,7 @@ struct PgDims {
                         // transposed weights: set by the launcher
   Torso torso;
   NetLayout net;
-  int mm;      // the products' mode: kMmF32, kMmBf16 or kMmTf32
+  int mm;      // the products' mode (learner_stages.cuh's kMm*)
 };
 
 // Mirror of ops/_native.py::PgConsts: the float32 constants, folded on the
@@ -80,6 +87,11 @@ constexpr int kMaxSmem = 232448;
 static_assert(kThreads == 4 * kPgRows, "4 threads per row");
 
 __host__ __device__ inline int pad4(int n) { return (n + 3) & ~3; }
+
+// Floats of one accumulator of mode m: a double's two at kMmF64.
+__host__ __device__ inline int acc_floats(int m) {
+  return m == kMmF64 ? 2 : 1;
+}
 
 // A tile's feature-major buffers ((features, kPgLd) each): the obs rows
 // (two on the shared-memory route, the next tile's streaming in), every
@@ -120,10 +132,12 @@ __host__ __device__ long long carve_tile(const PgDims& d, float* base,
 }
 
 // Floats of the shared-memory route's block: the transposed weights, the
-// accumulators (P + 1, padded to 4) and a tile with two obs buffers.
+// accumulators (P + 1, padded to 4; doubles at kMmF64) and a tile with two
+// obs buffers.
 __host__ __device__ long long smem_floats(const PgDims& d) {
   PgTile t;
-  return d.wt + pad4(d.net.size + 1) + carve_tile(d, nullptr, &t, 2);
+  return d.wt + acc_floats(d.mm) * pad4(d.net.size + 1) +
+         carve_tile(d, nullptr, &t, 2);
 }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
@@ -166,7 +180,8 @@ struct MatStrided {
 };
 
 // Y(c, r) = sum_k X(k, r) M(k, c) (+ bias[c]) for c < n and the tile's
-// rows, k in order, both operands as mode MM takes them. A unit is RB rows
+// rows, k in order, both operands as mode MM takes them and the sum as it
+// goes on (mm_out) before the bias. A unit is RB rows
 // x 4 columns: unit u takes row group u % (kPgRows / RB), so a warp's
 // lanes spread over rows and share M.
 template <int MM, int RB, class Mat>
@@ -179,7 +194,7 @@ __device__ __forceinline__ void prod_rows(const float* X, int K,
   for (int u = threadIdx.x; u < units; u += kThreads) {
     const int eg = u % kGroups, c0 = (u / kGroups) * 4;
     const float* xp = X + eg * RB;
-    float acc[RB][4];
+    mm_acc_t<MM> acc[RB][4];
 #pragma unroll
     for (int i = 0; i < RB; ++i)
 #pragma unroll
@@ -196,15 +211,17 @@ __device__ __forceinline__ void prod_rows(const float* X, int K,
       } else {
         x[0] = xp[k * kPgLd];
       }
+      mm_in_t<MM> xm[RB];
 #pragma unroll
-      for (int i = 0; i < RB; ++i) x[i] = mm_in<MM>(x[i]);
+      for (int i = 0; i < RB; ++i) xm[i] = mm_in<MM>(x[i]);
       const float4 w4 = M.at4(k, c0);
-      const float w[4] = {mm_in<MM>(w4.x), mm_in<MM>(w4.y), mm_in<MM>(w4.z),
-                          mm_in<MM>(w4.w)};
+      const mm_in_t<MM> w[4] = {mm_in<MM>(w4.x), mm_in<MM>(w4.y),
+                                mm_in<MM>(w4.z), mm_in<MM>(w4.w)};
 #pragma unroll
       for (int i = 0; i < RB; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(x[i], w[j], acc[i][j]);
+        for (int j = 0; j < 4; ++j)
+          acc[i][j] = mm_fma<MM>(xm[i], w[j], acc[i][j]);
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -215,7 +232,8 @@ __device__ __forceinline__ void prod_rows(const float* X, int K,
       float v[RB];
 #pragma unroll
       for (int i = 0; i < RB; ++i)
-        v[i] = bias != nullptr ? acc[i][j] + b : acc[i][j];
+        v[i] = bias != nullptr ? mm_out<MM>(acc[i][j]) + b
+                               : mm_out<MM>(acc[i][j]);
       if constexpr (RB == 4)
         *reinterpret_cast<float4*>(yp) = make_float4(v[0], v[1], v[2], v[3]);
       else
@@ -228,17 +246,17 @@ __device__ __forceinline__ void prod_rows(const float* X, int K,
 // < out, k < in: a weight gradient into its accumulators. A unit is JB
 // output rows x 4 inputs k, kg + nkg i (strided, so that a warp's lanes
 // read neighbouring features of X); lanes spread over the inputs. Both
-// operands as mode M takes them.
+// operands as mode M takes them, the accumulators of its chain's type.
 template <int M, int JB>
 __device__ __forceinline__ void prod_grad(const float* G, int out,
                                           const float* X, int in,
-                                          float* dst) {
+                                          mm_acc_t<M>* dst) {
   const int nkg = (in + 3) / 4, njg = (out + JB - 1) / JB;
   for (int u = threadIdx.x; u < nkg * njg; u += kThreads) {
     const int kg = u % nkg, j0 = (u / nkg) * JB;
     const float* gp[JB];
     const float* xp[4];
-    float acc[JB][4];
+    mm_acc_t<M> acc[JB][4];
 #pragma unroll
     for (int a = 0; a < JB; ++a) {
       const int j = j0 + a;
@@ -253,7 +271,7 @@ __device__ __forceinline__ void prod_grad(const float* G, int out,
     for (int i = 0; i < 4; ++i) xp[i] = X + min(kg + nkg * i, in - 1) * kPgLd;
 #pragma unroll 4
     for (int r = 0; r < kPgRows; r += 4) {
-      float g[JB][4], x[4][4];
+      mm_in_t<M> g[JB][4], x[4][4];
 #pragma unroll
       for (int a = 0; a < JB; ++a) {
         const float4 v = *reinterpret_cast<const float4*>(gp[a] + r);
@@ -276,7 +294,7 @@ __device__ __forceinline__ void prod_grad(const float* G, int out,
         for (int a = 0; a < JB; ++a)
 #pragma unroll
           for (int i = 0; i < 4; ++i)
-            acc[a][i] = fmaf(g[a][q], x[i][q], acc[a][i]);
+            acc[a][i] = mm_fma<M>(g[a][q], x[i][q], acc[a][i]);
     }
 #pragma unroll
     for (int a = 0; a < JB; ++a)
@@ -288,6 +306,14 @@ __device__ __forceinline__ void prod_grad(const float* G, int out,
   }
 }
 
+// dst += s for a sum that is no dot (a bias, LayerNorm or loss sum): a
+// float32 sum at every mode, whatever the accumulator's type (a double at
+// kMmF64 holds the float32 value).
+template <class A>
+__device__ __forceinline__ void sum_into(A& dst, float s) {
+  dst = static_cast<A>(static_cast<float>(dst) + s);
+}
+
 // The sum of v over the 4 threads of a row (lanes 4 r .. 4 r + 3): the same
 // bits in all four.
 __device__ __forceinline__ float row_sum4(float v) {
@@ -297,8 +323,8 @@ __device__ __forceinline__ float row_sum4(float v) {
 
 // dst[j] += sum_r G(j, r): a bias gradient. Thread 4 j + q sums rows q
 // kPgRows / 4 .. in order, the four quarters added by row_sum4.
-__device__ __forceinline__ void grad_bias(const float* G, int out,
-                                          float* dst) {
+template <class A>
+__device__ __forceinline__ void grad_bias(const float* G, int out, A* dst) {
   constexpr int kQ = kPgRows / 4;
   for (int base = 0; base < out; base += kThreads / 4) {
     const int j = base + (threadIdx.x >> 2), q = threadIdx.x & 3;
@@ -307,7 +333,7 @@ __device__ __forceinline__ void grad_bias(const float* G, int out,
 #pragma unroll 4
     for (int r = 0; r < kQ; ++r) s = s + gp[r];
     s = row_sum4(s);
-    if (j < out && q == 0) dst[j] = dst[j] + s;
+    if (j < out && q == 0) sum_into(dst[j], s);
   }
 }
 
@@ -397,11 +423,12 @@ __device__ __forceinline__ void ln_relu_bwd(const float* z, int h,
 
 // The LayerNorm scale and bias gradients: ds[j] += sum_r dy xh, dt[j] +=
 // sum_r dy, four threads a feature as in grad_bias.
+template <class A>
 __device__ __forceinline__ void ln_param_grads(const float* z, int h,
                                                const float* mu,
                                                const float* inv,
-                                               const float* dy, float* ds,
-                                               float* dt) {
+                                               const float* dy, A* ds,
+                                               A* dt) {
   constexpr int kQ = kPgRows / 4;
   for (int base = 0; base < h; base += kThreads / 4) {
     const int j = base + (threadIdx.x >> 2), q = threadIdx.x & 3;
@@ -417,8 +444,8 @@ __device__ __forceinline__ void ln_param_grads(const float* z, int h,
     a = row_sum4(a);
     b = row_sum4(b);
     if (j < h && q == 0) {
-      ds[j] = ds[j] + a;
-      dt[j] = dt[j] + b;
+      sum_into(ds[j], a);
+      sum_into(dt[j], b);
     }
   }
 }
@@ -462,16 +489,18 @@ __global__ void __launch_bounds__(kThreads, 1) lrpg_grad_kernel(
   const Torso& T = d.torso;
   const NetLayout& L = d.net;
   const int hl = T.h(nl - 1);
-  float* const part = ws + static_cast<size_t>(blockIdx.x) * (P + 1);
+  using A = mm_acc_t<M>;
+  A* const part = reinterpret_cast<A*>(ws) + static_cast<size_t>(blockIdx.x) *
+                                                 (P + 1);
   PgTile t;
-  float* g;   // the accumulators
+  A* g;   // the accumulators
   if constexpr (kSpill) {
     carve_tile(d, tiles + static_cast<size_t>(blockIdx.x) * tile_floats, &t,
                1);
     g = part;
   } else {
-    g = smem + d.wt;
-    carve_tile(d, g + pad4(P + 1), &t, 2);
+    g = reinterpret_cast<A*>(smem + d.wt);
+    carve_tile(d, smem + d.wt + acc_floats(M) * pad4(P + 1), &t, 2);
   }
   const int row_begin = blockIdx.x * rpb;
   const int row_end = min(N, row_begin + rpb);
@@ -590,7 +619,7 @@ __global__ void __launch_bounds__(kThreads, 1) lrpg_grad_kernel(
     // ---- backward: the head, then each LayerNorm/relu layer ----
     if (tid < 32) {  // the tile's loss terms: lane i takes rows i, i + 32
       const float s = warp_sum(t.loss[tid] + t.loss[tid + 32]);
-      if (tid == 0) g[P] = g[P] + s;
+      if (tid == 0) sum_into(g[P], s);
     }
     prod_grad<M, 1>(t.lg, kPgActions, t.a, hl, g + L.wh);
     grad_bias(t.lg, kPgActions, g + L.bh);
@@ -645,18 +674,52 @@ __global__ void __launch_bounds__(kThreads, 1) lrpg_grad_kernel(
   }
 }
 
+// Whether element i of the group is a weight's (a dot's result over the
+// window), not a bias's or a LayerNorm parameter's.
+__device__ bool is_weight(int i, const Torso& T, const NetLayout& L, int F) {
+  const int hl = T.h(T.L - 1);
+  if (i >= L.wh && i < L.wh + kPgActions * hl) return true;
+  for (int l = 0; l < T.L; ++l) {
+    const int K = l == 0 ? F : T.h(l - 1);
+    if (i >= L.w(l) && i < L.w(l) + T.h(l) * K) return true;
+  }
+  return false;
+}
+
 // Pass 2: element i < P sums the blocks' partials in block order and takes
-// one Adam step; element P is the loss.
+// one Adam step; element P is the loss. M: kMmF32 (the modes whose partials
+// are float32 sums that go on as they are), kMmF64 (a weight's double
+// partials summed in double and rounded once, every other sum float32) or
+// kMmF16 (a weight's sum rounded to float16).
+template <int M>
 __global__ void __launch_bounds__(kThreads) lrpg_adam_kernel(
     const PgConsts c, const int P, const int blocks,
-    const float* __restrict__ ws, float* __restrict__ p,
-    float* __restrict__ m, float* __restrict__ v, float* __restrict__ loss) {
+    const float* __restrict__ wsf, float* __restrict__ p,
+    float* __restrict__ m, float* __restrict__ v, float* __restrict__ loss,
+    const Torso T, const NetLayout L, const int F) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i > P) return;
-  float g = 0.0f;
+  using A = mm_acc_t<M>;
+  const A* __restrict__ ws = reinterpret_cast<const A*>(wsf);
+  const bool dot =
+      (M == kMmF64 || M == kMmF16) && i < P && is_weight(i, T, L, F);
+  float g;
+  if (M == kMmF64 && dot) {
+    A s = 0.0;
 #pragma unroll 16
-  for (int b = 0; b < blocks; ++b)
-    g = g + ws[static_cast<size_t>(b) * (P + 1) + i];
+    for (int b = 0; b < blocks; ++b)
+      s = s + ws[static_cast<size_t>(b) * (P + 1) + i];
+    g = static_cast<float>(s);
+  } else {
+    float s = 0.0f;
+#pragma unroll 16
+    for (int b = 0; b < blocks; ++b)
+      s = s + static_cast<float>(ws[static_cast<size_t>(b) * (P + 1) + i]);
+    g = s;
+  }
+  if constexpr (M == kMmF16) {
+    if (dot) g = mm_out<M>(g);
+  }
   if (i == P) {
     *loss = c.inv_n * g;
     return;
@@ -705,18 +768,22 @@ long long spill_tile_floats(const PgDims& d) {
   return (carve_tile(d, nullptr, &t, 1) + 31) / 32 * 32;
 }
 
-// Floats of the blocks' partial rows, rounded up to 128-byte pieces (the
-// workspace route's tiles follow).
+// Floats of the blocks' partial rows (doubles at kMmF64), rounded up to
+// 128-byte pieces (the workspace route's tiles follow).
 long long partial_floats(const PgDims& d, int blocks) {
-  return (static_cast<long long>(blocks) * (d.net.size + 1) + 31) / 32 * 32;
+  return (static_cast<long long>(blocks) * (d.net.size + 1) *
+              acc_floats(d.mm) +
+          31) /
+         32 * 32;
 }
 
 // Rows per pass-1 block (a multiple of kPgRows) and the block count: at
-// most kPgMaxBlocks and at most kPgWorkFloats / (P + 1 + tile), fixed by N
-// and the widths alone.
+// most kPgMaxBlocks and at most kPgWorkFloats / (a partial row + tile),
+// fixed by N, the widths and the mode's accumulators alone.
 void plan(const PgDims& d, int* rpb, int* blocks) {
-  const long long per =
-      d.net.size + 1 + (d.spill ? spill_tile_floats(d) : 0);
+  const long long per = static_cast<long long>(d.net.size + 1) *
+                            acc_floats(d.mm) +
+                        (d.spill ? spill_tile_floats(d) : 0);
   long long cap = kPgWorkFloats / per;
   cap = cap < 1 ? 1 : (cap > kPgMaxBlocks ? kPgMaxBlocks : cap);
   const int tiles = (d.n_rows + kPgRows - 1) / kPgRows;
@@ -725,28 +792,73 @@ void plan(const PgDims& d, int* rpb, int* blocks) {
   *blocks = (d.n_rows + *rpb - 1) / *rpb;
 }
 
-// Pass 1 of mode M on the route d.spill names.
+// Both passes of mode M, pass 1 on the route d.spill names.
 template <int M>
-cudaError_t launch_grad(const PgDims& d, const PgConsts& c, const float* p,
-                        const float* obs, const int* act, const float* adv,
-                        float* workspace, int rpb, float* tiles, int blocks,
-                        cudaStream_t s) {
+cudaError_t run_phase(const PgDims& d, const PgConsts& c, float* p,
+                      float* m, float* v, const float* obs, const int* act,
+                      const float* adv, float* loss, float* workspace,
+                      cudaStream_t s) {
+  int rpb, blocks;
+  plan(d, &rpb, &blocks);
+  float* tiles = workspace + partial_floats(d, blocks);
   if (d.spill) {
     lrpg_grad_kernel<true, M><<<blocks, kThreads, 0, s>>>(
         d, c, p, obs, act, adv, workspace, rpb, tiles, spill_tile_floats(d));
-    return cudaSuccess;
+  } else {
+    const int smem = static_cast<int>(smem_floats(d) * sizeof(float));
+    const cudaError_t err = cudaFuncSetAttribute(
+        lrpg_grad_kernel<false, M>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    lrpg_grad_kernel<false, M><<<blocks, kThreads, smem, s>>>(
+        d, c, p, obs, act, adv, workspace, rpb, tiles, 0);
   }
-  const int smem = static_cast<int>(smem_floats(d) * sizeof(float));
-  const cudaError_t err = cudaFuncSetAttribute(
-      lrpg_grad_kernel<false, M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  lrpg_grad_kernel<false, M><<<blocks, kThreads, smem, s>>>(
-      d, c, p, obs, act, adv, workspace, rpb, tiles, 0);
-  return cudaSuccess;
+  constexpr int kPass2 = M == kMmF64 || M == kMmF16 ? M : kMmF32;
+  const int P = d.net.size;
+  lrpg_adam_kernel<kPass2><<<(P + kThreads) / kThreads, kThreads, 0, s>>>(
+      c, P, blocks, workspace, p, m, v, loss, d.torso, d.net, d.obs_dim);
+  return cudaGetLastError();
 }
 
 }  // namespace
+
+// Both passes at the X3 and X6 instances (lrpg_update_x3x6.cu) and at the
+// F64 and F16 ones (lrpg_update_f64f16.cu), each made in a translation
+// unit that includes this source with CP_MM_PRESET_UNIT defined.
+cudaError_t cp_lrpg_x3x6_phase(const PgDims& d, const PgConsts& c, float* p,
+                               float* m, float* v, const float* obs,
+                               const int* act, const float* adv, float* loss,
+                               float* workspace, cudaStream_t s);
+cudaError_t cp_lrpg_f64f16_phase(const PgDims& d, const PgConsts& c,
+                                 float* p, float* m, float* v,
+                                 const float* obs, const int* act,
+                                 const float* adv, float* loss,
+                                 float* workspace, cudaStream_t s);
+
+#if CP_MM_PRESET_UNIT == 1
+cudaError_t cp_lrpg_x3x6_phase(const PgDims& d, const PgConsts& c, float* p,
+                               float* m, float* v, const float* obs,
+                               const int* act, const float* adv, float* loss,
+                               float* workspace, cudaStream_t s) {
+  if (d.mm == kMmX3)
+    return run_phase<kMmX3>(d, c, p, m, v, obs, act, adv, loss, workspace,
+                            s);
+  return run_phase<kMmX6>(d, c, p, m, v, obs, act, adv, loss, workspace, s);
+}
+#elif CP_MM_PRESET_UNIT == 2
+cudaError_t cp_lrpg_f64f16_phase(const PgDims& d, const PgConsts& c,
+                                 float* p, float* m, float* v,
+                                 const float* obs, const int* act,
+                                 const float* adv, float* loss,
+                                 float* workspace, cudaStream_t s) {
+  if (d.mm == kMmF64)
+    return run_phase<kMmF64>(d, c, p, m, v, obs, act, adv, loss, workspace,
+                             s);
+  return run_phase<kMmF16>(d, c, p, m, v, obs, act, adv, loss, workspace, s);
+}
+#else
 
 extern "C" {
 
@@ -778,28 +890,26 @@ int cp_lrpg_update_phase(const PgDims* dims, const int* widths,
   if (!with_sums(dims, widths, &d) || !route_ok(d))
     return static_cast<int>(cudaErrorInvalidValue);
   const PgConsts c = *consts;
-  int rpb, blocks;
-  plan(d, &rpb, &blocks);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int P = d.net.size;
-  float* tiles = workspace + partial_floats(d, blocks);
   cudaError_t err = cudaErrorInvalidValue;
   if (d.mm == kMmF32)
-    err = launch_grad<kMmF32>(d, c, p, obs, act, adv, workspace, rpb, tiles,
-                              blocks, s);
+    err = run_phase<kMmF32>(d, c, p, m, v, obs, act, adv, loss, workspace, s);
 #ifndef CP_STAGE_CLOCK  // a stage-clock build times the float32 pass alone
   else if (d.mm == kMmBf16)
-    err = launch_grad<kMmBf16>(d, c, p, obs, act, adv, workspace, rpb, tiles,
-                               blocks, s);
+    err = run_phase<kMmBf16>(d, c, p, m, v, obs, act, adv, loss, workspace,
+                             s);
+  else if (d.mm == kMmTf32)
+    err = run_phase<kMmTf32>(d, c, p, m, v, obs, act, adv, loss, workspace,
+                             s);
+  else if (d.mm == kMmX3 || d.mm == kMmX6)
+    err = cp_lrpg_x3x6_phase(d, c, p, m, v, obs, act, adv, loss, workspace,
+                             s);
   else
-    err = launch_grad<kMmTf32>(d, c, p, obs, act, adv, workspace, rpb, tiles,
-                               blocks, s);
+    err = cp_lrpg_f64f16_phase(d, c, p, m, v, obs, act, adv, loss,
+                               workspace, s);
 #endif
-  if (err == cudaSuccess) err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  lrpg_adam_kernel<<<(P + kThreads) / kThreads, kThreads, 0, s>>>(
-      c, P, blocks, workspace, p, m, v, loss);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 }  // extern "C"
+#endif  // CP_MM_PRESET_UNIT

@@ -33,10 +33,14 @@
 // they give. The bits do not depend on the grid, the route or the block
 // that takes an item. No float atomics (the slice counts are integers):
 // two runs give the same bits. Every product helper takes the products'
-// mode M (learner_stages.cuh's mm_in): each operand is rounded as it
-// enters the fmaf chain, in registers (a weight-gradient tile's staged
-// rows once in shared memory, where 16 threads read each of them), and
-// nothing else is; at kMmF32 the code is the float32 code it was.
+// mode M (learner_stages.cuh's mm_in, mm_fma, mm_out): each operand is
+// rounded, split into bfloat16 parts or widened as it enters the chain,
+// in registers, once per load and used for every product it serves (a
+// weight-gradient tile's staged rows once in shared memory, where 16
+// threads read each of them: rounded in place, or split or widened into
+// the same bytes, fewer rows at a time), each dot's sum goes on as
+// mm_out gives it, and nothing else changes; at kMmF32 the code is the
+// float32 code it was.
 #pragma once
 
 #include <cstdint>
@@ -253,7 +257,8 @@ __device__ void rows_product(const float* X, int K, int n, const float* W,
   const int nq = nch * ((n + kPanel - 1) / kPanel);
   const int vec = ring_vec(W, ldw);
   if (!started) ring_start<kTrans>(ring, n, K, W, ldw);
-  float acc[CC][RH];
+  using In = mm_in_t<M>;
+  mm_acc_t<M> acc[CC][RH];
 #pragma unroll
   for (int j = 0; j < CC; ++j)
 #pragma unroll
@@ -267,7 +272,7 @@ __device__ void rows_product(const float* X, int K, int n, const float* W,
       const float* wp =
           ring + (q % kStages) * kWSlot + (kTrans ? ct * kWT : ct);
       const float* xp = X + k0 * LDX + r0;
-      auto step = [&](int kk, const float* w) {
+      auto step = [&](int kk, const In* w) {
         float x[RH];
         if constexpr (RH % 4 == 0) {
 #pragma unroll
@@ -288,15 +293,17 @@ __device__ void rows_product(const float* X, int K, int n, const float* W,
             x[2 * g + 1] = v.y;
           }
         }
+        In xm[RH];
 #pragma unroll
-        for (int r = 0; r < RH; ++r) x[r] = mm_in<M>(x[r]);
+        for (int r = 0; r < RH; ++r) xm[r] = mm_in<M>(x[r]);
 #pragma unroll
         for (int j = 0; j < CC; ++j)
 #pragma unroll
-          for (int r = 0; r < RH; ++r) acc[j][r] = fmaf(x[r], w[j], acc[j][r]);
+          for (int r = 0; r < RH; ++r)
+            acc[j][r] = mm_fma<M>(xm[r], w[j], acc[j][r]);
       };
       auto step4 = [&](int kk) {
-        float w[4][CC];
+        In w[4][CC];
 #pragma unroll
         for (int j = 0; j < CC; ++j) {
           const float4 v = *reinterpret_cast<const float4*>(
@@ -310,7 +317,7 @@ __device__ void rows_product(const float* X, int K, int n, const float* W,
         for (int i = 0; i < 4; ++i) step(kk + i, w[i]);
       };
       auto step1 = [&](int kk) {
-        float w[CC];
+        In w[CC];
 #pragma unroll
         for (int j = 0; j < CC; ++j)
           w[j] = mm_in<M>(kTrans ? wp[j * kCols * kWT + kk]
@@ -337,22 +344,22 @@ __device__ void rows_product(const float* X, int K, int n, const float* W,
           const int c = c0 + ct + j * kCols;
           if (c < n) {
             const float b = bias != nullptr ? bias[c] : 0.0f;
-            float wa[kMaxJoin];
+            In wa[kMaxJoin];
 #pragma unroll
             for (int i = 0; i < kMaxJoin; ++i)
-              wa[i] = i < na ? mm_in<M>(W[static_cast<size_t>(c) * ldw + K +
-                                          i])
-                             : 0.0f;
+              wa[i] = mm_in<M>(i < na ? W[static_cast<size_t>(c) * ldw + K +
+                                          i]
+                                      : 0.0f);
 #pragma unroll
             for (int r = 0; r < RH; ++r) {
-              float v = acc[j][r];
+              float v = mm_out<M>(acc[j][r]);
               if (na > 0) {
-                float a2 = 0.0f;
+                mm_acc_t<M> a2 = 0.0f;
 #pragma unroll
                 for (int i = 0; i < kMaxJoin; ++i)
                   if (i < na)
-                    a2 = fmaf(mm_in<M>(xa[i * LDX + r0 + r]), wa[i], a2);
-                v = v + a2;
+                    a2 = mm_fma<M>(mm_in<M>(xa[i * LDX + r0 + r]), wa[i], a2);
+                v = v + mm_out<M>(a2);
               }
               Y[(r0 + r) * ldy + c] = bias != nullptr ? v + b : v;
             }
@@ -405,11 +412,12 @@ __device__ __forceinline__ void torso_fwd(
       for (int o = tid; o < R * h; o += kThreads) {
         const int r = o / h, cc = o - r * h;
         float v = zmain[static_cast<size_t>(b0 + min(r, nr - 1)) * h + cc];
-        float a2 = 0.0f;
+        mm_acc_t<M> a2 = 0.0f;
         for (int i = 0; i < na; ++i)
-          a2 = fmaf(mm_in<M>(xa[i * LD + r]),
-                    mm_in<M>(W[static_cast<size_t>(cc) * ldw + K + i]), a2);
-        if (na > 0) v = v + a2;
+          a2 = mm_fma<M>(mm_in<M>(xa[i * LD + r]),
+                         mm_in<M>(W[static_cast<size_t>(cc) * ldw + K + i]),
+                         a2);
+        if (na > 0) v = v + mm_out<M>(a2);
         zr[r * ldz + cc] = v + net[L.b(l) + cc];
       }
       __syncthreads();
@@ -477,11 +485,11 @@ __device__ void head_fwd(const float* wh, const float* bh, int n_head,
     const int r = tid / n_head, a = tid - r * n_head;
     const float* w = (wh_in ? ring : wh) + a * hl;
     const float b = wh_in ? ring[nwh + a] : bh[a];
-    float acc = 0.0f;
+    mm_acc_t<M> acc = 0.0f;
 #pragma unroll 16
     for (int j = 0; j < hl; ++j)
-      acc = fmaf(mm_in<M>(act[j * LD + r]), mm_in<M>(w[j]), acc);
-    emit(r, a, acc + b);
+      acc = mm_fma<M>(mm_in<M>(act[j * LD + r]), mm_in<M>(w[j]), acc);
+    emit(r, a, mm_out<M>(acc) + b);
   }
   __syncthreads();
 }
@@ -508,11 +516,11 @@ __device__ __forceinline__ void head_bwd(const float* dqs, int n_head,
                                          int ldz) {
   for (int o = threadIdx.x; o < kRowsB * hl; o += kThreads) {
     const int r = o / hl, cc = o - r * hl;
-    float acc = 0.0f;
+    mm_acc_t<M> acc = 0.0f;
     for (int a = 0; a < n_head; ++a)
-      acc = fmaf(mm_in<M>(dqs[r * kQLd + a]), mm_in<M>(wh[a * hl + cc]),
-                 acc);
-    dh[r * ldz + cc] = acc;
+      acc = mm_fma<M>(mm_in<M>(dqs[r * kQLd + a]), mm_in<M>(wh[a * hl + cc]),
+                      acc);
+    dh[r * ldz + cc] = mm_out<M>(acc);
   }
   __syncthreads();
 }
@@ -607,12 +615,12 @@ __device__ __forceinline__ void torso_bwd(
     if (tl) {
       if (threadIdx.x < kRowsB * join) {
         const int r = threadIdx.x / join, i = threadIdx.x - r * join;
-        float acc = 0.0f;
+        mm_acc_t<M> acc = 0.0f;
 #pragma unroll 8
         for (int j = 0; j < h; ++j)
-          acc = fmaf(mm_in<M>(dzs[j * kLdB + r]),
-                     mm_in<M>(ring[j * join + i]), acc);
-        tail[r * kQLd + i] = acc;
+          acc = mm_fma<M>(mm_in<M>(dzs[j * kLdB + r]),
+                          mm_in<M>(ring[j * join + i]), acc);
+        tail[r * kQLd + i] = mm_out<M>(acc);
       }
       __syncthreads();
     }
@@ -714,73 +722,105 @@ __device__ void norm_slices(const FlatStore& fs, const int* ps, int nd,
 // element stored into the flat gradient and counted). The tile's columns
 // of G and X come into shared memory kGB rows at a time, where a thread
 // rounds the elements it staged as mode M takes them (each is read by 16
-// threads); a thread owns 2 x 2 elements.
+// threads); a thread owns 2 x 2 elements. Where an operand enters as parts
+// or as a double (kMmX3, kMmX6, kMmF64), a thread loads its elements, splits
+// or widens them once and stages them so, fewer rows at a time (the same
+// bytes), and the sum over b runs in the same order.
 template <bool kStore, int M>
 __device__ void grad_w_tile(const float* G, int out, const float* X, int in,
                             int B, int off, int j0, int i0, const NetPtr& net,
                             float bc1, float bc2, float lr,
                             const LearnerConsts& c, float* sm,
                             const FlatStore& fs) {
-  float* const Gs = sm;              // (kGB, kGT)
-  float* const Xs = sm + kGB * kGT;  // (kGB, kGT)
+  using In = mm_in_t<M>;
   const int tid = threadIdx.x, ig = tid % 16, jg = tid / 16;
-  float acc[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
-  // Whole 16-byte pieces where the rows allow and the tile is full.
-  const bool gv = (reinterpret_cast<uintptr_t>(G) & 15) == 0 &&
-                  out % 4 == 0 && j0 + kGT <= out;
-  const bool xv = (reinterpret_cast<uintptr_t>(X) & 15) == 0 &&
-                  in % 4 == 0 && i0 + kGT <= in;
-  for (int b0 = 0; b0 < B; b0 += kGB) {
-    const int nb = min(kGB, B - b0);
-    __syncthreads();  // the last rows are read
-    for (int idx = tid; idx < nb * kGT / 4; idx += kThreads) {
-      const int e = 4 * (idx % (kGT / 4));
-      const size_t b = static_cast<size_t>(b0 + idx / (kGT / 4));
-      float* const gs = Gs + 4 * idx;
-      float* const xs = Xs + 4 * idx;
-      if (gv) {
-        cp_async16(gs, G + b * out + j0 + e);
-      } else {
-        for (int u = 0; u < 4; ++u) {
-          if (j0 + e + u < out)
-            cp_async4(gs + u, G + b * out + j0 + e + u);
-          else
-            gs[u] = 0.0f;
-        }
-      }
-      if (xv) {
-        cp_async16(xs, X + b * in + i0 + e);
-      } else {
-        for (int u = 0; u < 4; ++u) {
-          if (i0 + e + u < in)
-            cp_async4(xs + u, X + b * in + i0 + e + u);
-          else
-            xs[u] = 0.0f;
-        }
-      }
-    }
-    cp_async_commit();
-    cp_async_wait<0>();
-    if constexpr (M != kMmF32) {  // this thread's pieces are in
+  mm_acc_t<M> acc[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+  if constexpr (sizeof(In) == sizeof(float)) {
+    float* const Gs = sm;              // (kGB, kGT)
+    float* const Xs = sm + kGB * kGT;  // (kGB, kGT)
+    // Whole 16-byte pieces where the rows allow and the tile is full.
+    const bool gv = (reinterpret_cast<uintptr_t>(G) & 15) == 0 &&
+                    out % 4 == 0 && j0 + kGT <= out;
+    const bool xv = (reinterpret_cast<uintptr_t>(X) & 15) == 0 &&
+                    in % 4 == 0 && i0 + kGT <= in;
+    for (int b0 = 0; b0 < B; b0 += kGB) {
+      const int nb = min(kGB, B - b0);
+      __syncthreads();  // the last rows are read
       for (int idx = tid; idx < nb * kGT / 4; idx += kThreads) {
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          Gs[4 * idx + u] = mm_in<M>(Gs[4 * idx + u]);
-          Xs[4 * idx + u] = mm_in<M>(Xs[4 * idx + u]);
+        const int e = 4 * (idx % (kGT / 4));
+        const size_t b = static_cast<size_t>(b0 + idx / (kGT / 4));
+        float* const gs = Gs + 4 * idx;
+        float* const xs = Xs + 4 * idx;
+        if (gv) {
+          cp_async16(gs, G + b * out + j0 + e);
+        } else {
+          for (int u = 0; u < 4; ++u) {
+            if (j0 + e + u < out)
+              cp_async4(gs + u, G + b * out + j0 + e + u);
+            else
+              gs[u] = 0.0f;
+          }
+        }
+        if (xv) {
+          cp_async16(xs, X + b * in + i0 + e);
+        } else {
+          for (int u = 0; u < 4; ++u) {
+            if (i0 + e + u < in)
+              cp_async4(xs + u, X + b * in + i0 + e + u);
+            else
+              xs[u] = 0.0f;
+          }
         }
       }
-    }
-    __syncthreads();
+      cp_async_commit();
+      cp_async_wait<0>();
+      if constexpr (M != kMmF32) {  // this thread's pieces are in
+        for (int idx = tid; idx < nb * kGT / 4; idx += kThreads) {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            Gs[4 * idx + u] = mm_in<M>(Gs[4 * idx + u]);
+            Xs[4 * idx + u] = mm_in<M>(Xs[4 * idx + u]);
+          }
+        }
+      }
+      __syncthreads();
 #pragma unroll 4
-    for (int bb = 0; bb < nb; ++bb) {
-      const float2 g = *reinterpret_cast<const float2*>(Gs + bb * kGT +
-                                                        2 * jg);
-      const float2 x = *reinterpret_cast<const float2*>(Xs + bb * kGT +
-                                                        2 * ig);
-      acc[0][0] = fmaf(g.x, x.x, acc[0][0]);
-      acc[0][1] = fmaf(g.x, x.y, acc[0][1]);
-      acc[1][0] = fmaf(g.y, x.x, acc[1][0]);
-      acc[1][1] = fmaf(g.y, x.y, acc[1][1]);
+      for (int bb = 0; bb < nb; ++bb) {
+        const float2 g = *reinterpret_cast<const float2*>(Gs + bb * kGT +
+                                                          2 * jg);
+        const float2 x = *reinterpret_cast<const float2*>(Xs + bb * kGT +
+                                                          2 * ig);
+        acc[0][0] = fmaf(g.x, x.x, acc[0][0]);
+        acc[0][1] = fmaf(g.x, x.y, acc[0][1]);
+        acc[1][0] = fmaf(g.y, x.x, acc[1][0]);
+        acc[1][1] = fmaf(g.y, x.y, acc[1][1]);
+      }
+    }
+  } else {
+    // rows staged at a time: kGB rows' bytes
+    constexpr int kGBm = kGB * 4 / static_cast<int>(sizeof(In));
+    In* const Gs = reinterpret_cast<In*>(sm);  // (kGBm, kGT)
+    In* const Xs = Gs + kGBm * kGT;            // (kGBm, kGT)
+    for (int b0 = 0; b0 < B; b0 += kGBm) {
+      const int nb = min(kGBm, B - b0);
+      __syncthreads();  // the last rows are read
+      for (int idx = tid; idx < nb * kGT; idx += kThreads) {
+        const int e = idx % kGT;
+        const size_t b = static_cast<size_t>(b0 + idx / kGT);
+        Gs[idx] =
+            mm_in<M>(j0 + e < out ? __ldcg(G + b * out + j0 + e) : 0.0f);
+        Xs[idx] = mm_in<M>(i0 + e < in ? __ldcg(X + b * in + i0 + e) : 0.0f);
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int bb = 0; bb < nb; ++bb) {
+        const In g0 = Gs[bb * kGT + 2 * jg], g1 = Gs[bb * kGT + 2 * jg + 1];
+        const In x0 = Xs[bb * kGT + 2 * ig], x1 = Xs[bb * kGT + 2 * ig + 1];
+        acc[0][0] = mm_fma<M>(g0, x0, acc[0][0]);
+        acc[0][1] = mm_fma<M>(g0, x1, acc[0][1]);
+        acc[1][0] = mm_fma<M>(g1, x0, acc[1][0]);
+        acc[1][1] = mm_fma<M>(g1, x1, acc[1][1]);
+      }
     }
   }
   int offs[4];
@@ -793,7 +833,7 @@ __device__ void grad_w_tile(const float* G, int out, const float* X, int in,
       const int j = j0 + 2 * jg + a, i = i0 + 2 * ig + e;
       offs[2 * a + e] = off + j * in + i;
       ok[2 * a + e] = j < out && i < in;
-      gs[2 * a + e] = acc[a][e];
+      gs[2 * a + e] = mm_out<M>(acc[a][e]);
     }
   if constexpr (kStore) {
 #pragma unroll

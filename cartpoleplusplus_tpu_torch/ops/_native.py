@@ -16,7 +16,7 @@ kernels then follow the plain torch twins operation by operation, and a
 termination threshold does not flip on a contraction. An explicit fmaf()
 is still fused: B3, B5, B7 (csrc/row_chain.cuh) and B9
 (csrc/lrpg_update.cu) use it in their matrix-product and batch-sum inner
-loops only.
+loops only (and fma() on doubles at the F64_F64_F64 product mode).
 """
 
 from __future__ import annotations
@@ -340,6 +340,10 @@ def load_library() -> ctypes.CDLL:
     lib.cp_lrpg_update_phase.restype = ci
     lib.cp_render.argtypes = [vp, ci, ci, vp, vp, vp, vp, vp]
     lib.cp_render.restype = ci
+    lib.cp_mm_probe.argtypes = [ci, vp, vp, vp, ci, ci, ci, vp]
+    lib.cp_mm_probe.restype = ci
+    lib.cp_mm_split.argtypes = [ci, vp, vp, ci, vp]
+    lib.cp_mm_split.restype = ci
     _lib = lib
     return lib
 

@@ -90,49 +90,93 @@ def _f32(x) -> float:
 # jax.default_matmul_precision (learner_kernel.py::_with_mm_precision).
 # --------------------------------------------------------------------------
 
-# kMmF32, kMmBf16, kMmTf32 in csrc/learner_stages.cuh.
-F32, BF16, TF32 = 0, 1, 2
-_MM_MODES = {None: F32, "float32": F32, "highest": F32,
-             "bfloat16": BF16, "default": BF16,
-             "tensorfloat32": TF32, "high": TF32}
-# The values `learner_precision` takes: jax.default_matmul_precision's
-# legacy names, and None (the ambient float32).
+# kMmF32 .. kMmF16 in csrc/learner_stages.cuh.
+F32, BF16, TF32, X3, X6, F64, F16 = range(7)
+_MM_MODES = {None: F32, "float32": F32, "highest": F32, "F32_F32_F32": F32,
+             "bfloat16": BF16, "default": BF16, "BF16_BF16_F32": BF16,
+             "tensorfloat32": TF32, "high": TF32,
+             "BF16_BF16_F32_X3": X3, "BF16_BF16_F32_X6": X6,
+             "F64_F64_F64": F64, "F16_F16_F16": F16}
+# The values `learner_precision` takes: None (the ambient float32), the
+# legacy names of jax.default_matmul_precision, and the dot-algorithm
+# presets that the JAX package's kernel learners run on the CPU.
 PRECISIONS = tuple(_MM_MODES)
+# A name for each mode, in mode order.
+MODE_NAMES = ("float32", "bfloat16", "tensorfloat32", "BF16_BF16_F32_X3",
+              "BF16_BF16_F32_X6", "F64_F64_F64", "F16_F16_F16")
+# X3's and X6's part products (indices into split_operand's parts) in the
+# order they are summed, the smallest first.
+_PASSES = {X3: ((1, 0), (0, 1), (0, 0)),
+           X6: ((1, 1), (2, 0), (0, 2), (1, 0), (0, 1), (0, 0))}
 
 
 def mm_mode(value) -> int:
-    """The product mode of a `learner_precision` value.
+    """The product mode of a `learner_precision` value, the port's reading
+    of the JAX package's setting (which traces its Pallas learners under
+    jax.default_matmul_precision(value)). Every product of B3, B5, B7, B9
+    and their twins sums its terms from zero, in float32 unless stated; a
+    product of two rounded operands or parts is exact there.
 
-    None, "float32" and "highest": F32, every product in float32 (the
-    default; the code that ran before the setting was ported). "bfloat16"
-    and "default": BF16, each operand of a product rounded to bfloat16 (to
-    nearest, ties to even), products and sums in float32: XLA's
-    BF16_BF16_F32, the TPU's one MXU pass. "tensorfloat32" and "high":
-    TF32, each operand rounded to TF32's 10 mantissa bits (to nearest,
-    ties away from zero, as cvt.rna.tf32.f32), products and sums in
-    float32: what XLA computes for HIGH on a GPU. On a TPU, HIGH is three
-    bfloat16 passes (about 16 mantissa bits), so the port's "high" is the
-    GPU's meaning and less precise than the TPU's. Either way a product
-    of two rounded operands is exact in float32. The dot-algorithm preset
-    names ("BF16_BF16_F32_X3" and the others) are not ported: any other
-    value raises ValueError."""
+    F32: None, "float32", "highest", "F32_F32_F32": float32 operands (the
+    default; the code that ran before the setting was ported).
+    BF16: "bfloat16", "default", "BF16_BF16_F32": each operand rounded to
+    bfloat16 (to nearest, ties to even): the TPU's one MXU pass.
+    TF32: "tensorfloat32", "high": each operand rounded to TF32's 10
+    mantissa bits (to nearest, ties away from zero, as cvt.rna.tf32.f32),
+    what XLA computes for HIGH on a GPU; a TPU's HIGH is three bfloat16
+    passes, so the port's "high" is less precise than the TPU's.
+    X3, X6: "BF16_BF16_F32_X3" and "_X6", the TPU's multi-pass float32
+    forms. Each operand x is split into bfloat16 parts (`split_operand`):
+    hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), each bf16
+    rounding to nearest even by round_operand's integer operations, each
+    residual exact in float32. X3 takes (hi, bf16(x - hi)) and sums lo.hi
+    + hi.lo + hi.hi; X6 sums mid.mid + lo.hi + hi.lo + mid.hi + hi.mid +
+    hi.hi (it drops mid.lo, lo.mid and lo.lo). The sum is float32 with the
+    smallest terms first: the kernels add the parts term by term into their
+    fmaf chains (per k), the twins pass by pass (a whole product per pass),
+    so the two part by float32 roundings. A NaN or an infinity (or a value
+    whose hi rounds past bfloat16's largest) goes whole into hi with zero
+    residuals, so it meets a zero part of the other operand: such a
+    product is NaN where float32's is infinite. hi + mid + lo == x for a
+    normal x down to 2^-110 (below it the residuals fall under bfloat16's
+    subnormal grid) and short of bfloat16's largest.
+    F64: "F64_F64_F64": both operands widened to float64, the products and
+    their sum in float64, the result rounded once to float32 where the dot
+    goes on (LayerNorm, heads and Adam stay float32), as the JAX package
+    computes it on the CPU. B9 sums a weight gradient over its window in
+    float64 and rounds it once; its bias, LayerNorm and loss sums are no
+    dots and stay float32 sums, as in the twin.
+    F16: "F16_F16_F16": each operand rounded to float16 (to nearest even,
+    float16's range: past 65504 to infinity, small values to its
+    subnormals), products and sums in float32, the dot's result rounded to
+    float16, as the JAX package computes it on the CPU.
+
+    Every other value raises ValueError: the JAX package's kernel learners
+    raise for them on the CPU too ("DEFAULT", "TF32_TF32_F32",
+    "TF32_TF32_F32_X3", "BF16_BF16_F32_X9", "F16_F16_F32",
+    "BF16_BF16_BF16", every "ANY_F8_*" name, and names
+    jax.default_matmul_precision does not know)."""
     try:
         return _MM_MODES[value]
     except (KeyError, TypeError):
         raise ValueError(
             f"learner_precision={value!r} is not ported; the port takes "
-            f"{PRECISIONS} (the dot-algorithm presets are not)") from None
+            f"{PRECISIONS}, the values the JAX package's kernel learners "
+            f"take on the CPU ({value!r} raises there too)") from None
 
 
 def round_operand(x: torch.Tensor, mode: int) -> torch.Tensor:
     """x (float32) with every element rounded as a product operand of
-    `mode` (mm_mode), by integer operations on the float32 bits, as
-    mm_in<M> in csrc/learner_stages.cuh: bfloat16 to nearest even, TF32 to
-    nearest away from zero; a NaN unchanged (an infinity rounds to itself,
-    a value past the format's largest to the infinity). F32 returns x
-    itself."""
-    if mode == F32:
+    `mode` (mm_mode), as mm_in<M> in csrc/learner_stages.cuh: bfloat16 to
+    nearest even and TF32 to nearest away from zero by integer operations
+    on the float32 bits (a NaN unchanged, an infinity to itself, a value
+    past the format's largest to the infinity), float16 to nearest even by
+    the IEEE conversion. F32 returns x itself; X3, X6 and F64 take their
+    operands whole (`split_operand`, `_mm`)."""
+    if mode in (F32, X3, X6, F64):
         return x
+    if mode == F16:
+        return x.half().float()
     u = x.view(torch.int32)
     if mode == BF16:
         r = (u + (0x7FFF + ((u >> 16) & 1))) & -0x10000
@@ -141,9 +185,35 @@ def round_operand(x: torch.Tensor, mode: int) -> torch.Tensor:
     return torch.where(torch.isnan(x), x, r.view(torch.float32))
 
 
+def split_operand(x: torch.Tensor, mode: int) -> list:
+    """X3's (hi, lo) or X6's (hi, mid, lo) bfloat16 parts of x (float32),
+    as mm_in<kMmX3 / kMmX6> in csrc/learner_stages.cuh: each part
+    round_operand(., BF16) of the residual before it, the residuals zero
+    where hi is not finite."""
+    hi = round_operand(x, BF16)
+    rest = torch.where(torch.isfinite(hi), x - hi, torch.zeros_like(x))
+    mid = round_operand(rest, BF16)
+    if mode == X3:
+        return [hi, mid]
+    return [hi, mid, round_operand(rest - mid, BF16)]
+
+
 def _mm(a, b, mode: int):
-    """a @ b with both operands rounded as `mode` takes them."""
-    return round_operand(a, mode) @ round_operand(b, mode)
+    """a @ b as `mode` (mm_mode) forms it: operands rounded (BF16, TF32,
+    F16, the result rounded to float16 at F16), split into parts whose
+    products are summed pass by pass, the smallest first (X3, X6), or
+    widened to float64 and the result rounded once to float32 (F64)."""
+    if mode in _PASSES:
+        pa, pb = split_operand(a, mode), split_operand(b, mode)
+        out = None
+        for i, j in _PASSES[mode]:
+            t = pa[i] @ pb[j]
+            out = t if out is None else out + t
+        return out
+    if mode == F64:
+        return (a.double() @ b.double()).float()
+    out = round_operand(a, mode) @ round_operand(b, mode)
+    return out.half().float() if mode == F16 else out
 
 
 # --------------------------------------------------------------------------
@@ -417,26 +487,38 @@ def pg_tile_floats(obs_dim: int, hidden, spill: bool = False) -> int:
     return feats * _PG_LD + (2 * len(hidden) + 1) * _PG_ROWS
 
 
-def pg_smem_floats(obs_dim: int, hidden: Sequence[int]) -> int:
+def _acc_floats(mode: int) -> int:
+    """Floats of one of B9's accumulators at `mode` (acc_floats in
+    csrc/lrpg_update.cu): a double's two at F64."""
+    return 2 if mode == F64 else 1
+
+
+def pg_smem_floats(obs_dim: int, hidden: Sequence[int],
+                   mode: int = F32) -> int:
     """Floats of B9's block on the shared-memory route (smem_floats in
     csrc/lrpg_update.cu): the weights transposed to (in, out) with the
     outputs padded to 4 (the head's to 8), one accumulator per parameter
-    and the loss (padded to 4), and a tile with two obs buffers."""
+    and the loss (padded to 4; doubles at F64), and a tile with two obs
+    buffers."""
     hidden = tuple(hidden)
     ins = (obs_dim,) + hidden[:-1]
     wt = (sum(k * _pad4(h) for k, h in zip(ins, hidden))
           + hidden[-1] * _PG_HEAD_LD)
     p = layout_size(policy_layout(obs_dim, hidden))
-    return wt + _pad4(p + 1) + pg_tile_floats(obs_dim, hidden)
+    return (wt + _acc_floats(mode) * _pad4(p + 1)
+            + pg_tile_floats(obs_dim, hidden))
 
 
-def pg_tile_spills(obs_dim: int, hidden: Sequence[int]) -> bool:
+def pg_tile_spills(obs_dim: int, hidden: Sequence[int],
+                   mode: int = F32) -> bool:
     """Whether B9 takes the workspace route: its shared-memory block
     (`pg_smem_floats`) does not fit in one block's shared memory (one
     layer wider than 139, two wider than 84, three wider than 65, at obs
-    42), so the weights are read from the group buffer and the tile and
-    the accumulators live in the block's slice of the workspace."""
-    return 4 * pg_smem_floats(obs_dim, tuple(hidden)) > _native.MAX_SMEM
+    42; at F64, whose accumulators are doubles, somewhat narrower), so the
+    weights are read from the group buffer and the tile and the
+    accumulators live in the block's slice of the workspace."""
+    return 4 * pg_smem_floats(obs_dim, tuple(hidden), mode) > \
+        _native.MAX_SMEM
 
 
 def pg_tile_rows(obs_dim: int, hidden: Sequence[int]) -> int:
@@ -449,16 +531,18 @@ def pg_tile_rows(obs_dim: int, hidden: Sequence[int]) -> int:
     return _PG_ROWS
 
 
-def pg_plan(obs_dim: int, hidden: Sequence[int], n_rows: int):
+def pg_plan(obs_dim: int, hidden: Sequence[int], n_rows: int,
+            mode: int = F32):
     """B9's pass-1 plan (plan in csrc/lrpg_update.cu): (tile rows, rows per
     block, blocks). The block count is at most 128 and at most
-    PG_WORK_FLOATS / (P + 1 + tile) for P parameters (tile: the workspace
-    route's tile, else 0), so that the workspace of a wide network stays
-    within 512 MB."""
+    PG_WORK_FLOATS / ((P + 1) a + tile) for P parameters (a: 2 at F64,
+    else 1; tile: the workspace route's tile, else 0), so that the
+    workspace of a wide network stays within 512 MB."""
     hidden = tuple(hidden)
     rows = pg_tile_rows(obs_dim, hidden)
-    per = layout_size(policy_layout(obs_dim, hidden)) + 1
-    if pg_tile_spills(obs_dim, hidden):
+    per = (layout_size(policy_layout(obs_dim, hidden)) + 1) * \
+        _acc_floats(mode)
+    if pg_tile_spills(obs_dim, hidden, mode):
         per += -(-pg_tile_floats(obs_dim, hidden, True) // 32) * 32
     cap = max(1, min(_PG_MAX_BLOCKS, PG_WORK_FLOATS // per))
     tiles = -(-n_rows // rows)
@@ -467,16 +551,18 @@ def pg_plan(obs_dim: int, hidden: Sequence[int], n_rows: int):
 
 
 def pg_workspace_floats(obs_dim: int, hidden: Sequence[int],
-                        n_rows: int) -> int:
+                        n_rows: int, mode: int = F32) -> int:
     """Floats of B9's workspace (cp_lrpg_workspace_floats): every block's
-    partial row of P + 1 floats (all of them rounded up to 32) and, on the
-    workspace route, every block's tile (rounded up to 32)."""
+    partial row of P + 1 accumulators (doubles at F64; all of them rounded
+    up to 32 floats) and, on the workspace route, every block's tile
+    (rounded up to 32)."""
     hidden = tuple(hidden)
-    _, _, blocks = pg_plan(obs_dim, hidden, n_rows)
+    _, _, blocks = pg_plan(obs_dim, hidden, n_rows, mode)
     p = layout_size(policy_layout(obs_dim, hidden))
     tile = (-(-pg_tile_floats(obs_dim, hidden, True) // 32) * 32
-            if pg_tile_spills(obs_dim, hidden) else 0)
-    return -(-blocks * (p + 1) // 32) * 32 + blocks * tile
+            if pg_tile_spills(obs_dim, hidden, mode) else 0)
+    return (-(-blocks * (p + 1) * _acc_floats(mode) // 32) * 32
+            + blocks * tile)
 
 
 def lrpg_covers(obs_dim: int, hidden: Sequence[int]) -> bool:
@@ -1381,7 +1467,7 @@ def lrpg_update_phase(groups, window, t0: int, hidden, *, lr: float,
                 d.copy_(s)
         return out[3]
     return _lrpg_launch(groups, window, t0, hidden, lr, entropy_coef,
-                        pg_tile_spills(obs_dim, hidden), mode)
+                        pg_tile_spills(obs_dim, hidden, mode), mode)
 
 
 def _lrpg_launch(groups, window, t0, hidden, lr, entropy_coef, spill,
@@ -1406,7 +1492,8 @@ def _lrpg_launch(groups, window, t0, hidden, lr, entropy_coef, spill,
     loss = torch.empty((), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        key = ("lrpg", dev, stream, obs_dim, n, hidden, spill)
+        key = ("lrpg", dev, stream, obs_dim, n, hidden, spill,
+               _acc_floats(mode))
         ws = _workspaces.get(key)
         if ws is None:
             size = lib.cp_lrpg_workspace_floats(_native.struct_ptr(dims),
@@ -1426,3 +1513,123 @@ def _lrpg_launch(groups, window, t0, hidden, lr, entropy_coef, spill,
 
 
 lrpg_update_phase.launches = 0
+
+
+# --------------------------------------------------------------------------
+# The product probe (csrc/mm_probe.cu): the learners' product helpers alone.
+# --------------------------------------------------------------------------
+
+def _round_f32(s: np.ndarray, e: np.ndarray) -> np.ndarray:
+    """float32 nearest (ties to even) to the exact s + e, where s is a
+    float64 sum and e its exact error (|e| <= half an ulp of s): s rounded
+    to float32, stepped once where s lies exactly halfway between two
+    float32 values and e breaks the tie."""
+    r = s.astype(np.float32)
+    with np.errstate(over="ignore", invalid="ignore"):
+        toward = np.nextafter(r, np.where(s > r.astype(np.float64),
+                                          np.float32(np.inf),
+                                          np.float32(-np.inf)))
+        d = s - r.astype(np.float64)
+        half = (toward.astype(np.float64) - r.astype(np.float64)) / 2.0
+    step = (d != 0.0) & (d == half) & (e != 0.0) & (np.sign(e) == np.sign(d))
+    return np.where(step, toward, r)
+
+
+def _fmaf(a: np.ndarray, b: np.ndarray, acc: np.ndarray) -> np.ndarray:
+    """fmaf(a, b, acc) elementwise on float32 arrays, exactly: a b is exact
+    in float64, the sum's error by TwoSum, rounded once to float32."""
+    p = a.astype(np.float64) * b.astype(np.float64)
+    c = acc.astype(np.float64)
+    s = c + p
+    bb = s - c
+    e = (c - (s - bb)) + (p - bb)
+    return _round_f32(s, e)
+
+
+def mm_chain(a: np.ndarray, b: np.ndarray, mode: int) -> np.ndarray:
+    """A (rows, k) @ B (k, cols) (float32 numpy arrays) exactly as the
+    probe's kernel forms it at `mode` (mm_in, mm_fma, mm_out of
+    csrc/learner_stages.cuh): k in order from zero, each step one fmaf (a
+    DFMA at F64; the part products one by one at X3 and X6), emulated
+    bit for bit in float64 arithmetic. The probe's plain version."""
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    if mode in _PASSES:
+        pa = [x.numpy() for x in split_operand(ta, mode)]
+        pb = [x.numpy() for x in split_operand(tb, mode)]
+        terms = _PASSES[mode]
+    else:
+        pa = [round_operand(ta, mode).numpy()]
+        pb = [round_operand(tb, mode).numpy()]
+        terms = ((0, 0),)
+    rows, k = a.shape
+    if mode == F64:
+        acc = np.zeros((rows, b.shape[1]), np.float64)
+        for q in range(k):
+            acc = acc + (pa[0][:, q:q + 1].astype(np.float64)
+                         * pb[0][q:q + 1, :].astype(np.float64))
+        return acc.astype(np.float32)
+    acc = np.zeros((rows, b.shape[1]), np.float32)
+    for q in range(k):
+        for i, j in terms:
+            acc = _fmaf(pa[i][:, q:q + 1], pb[j][q:q + 1, :], acc)
+    return acc.astype(np.float16).astype(np.float32) if mode == F16 else acc
+
+
+def probe_operands(rng: np.random.RandomState, rows: int = 64,
+                   k: int = 384, cols: int = 64):
+    """The probe's operands A (rows, k), B (k, cols), float32, drawn from
+    `rng` so that every mode's chain parts from every other's: normal
+    draws (every mantissa bit set at random), and the second half of the k
+    terms the first half's negation times (1 + 2^-12), so that each sum
+    cancels to a small remainder after its terms have grown."""
+    a = rng.normal(size=(rows, k)).astype(np.float32)
+    b = rng.normal(size=(k, cols)).astype(np.float32)
+    h = k // 2
+    a[:, h:2 * h] = -a[:, :h] * np.float32(1 + 2.0 ** -12)
+    b[h:2 * h] = b[:h]
+    return a, b
+
+
+def mm_probe(a: torch.Tensor, b: torch.Tensor, mode: int) -> torch.Tensor:
+    """a (rows, k) @ b (k, cols), float32, through the product helpers of
+    the learners at `mode` (mm_mode). CUDA tensors launch the probe kernel
+    (csrc/mm_probe.cu) on the current stream; CPU tensors run its plain
+    version, `mm_chain`."""
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"mm_probe: {tuple(a.shape)} @ {tuple(b.shape)}")
+    if not 0 <= mode < len(MODE_NAMES):
+        raise ValueError(f"mm_probe: mode {mode}")
+    if a.device.type == "cpu":
+        return torch.from_numpy(mm_chain(a.numpy(), b.numpy(), mode))
+    a, b = a.contiguous(), b.contiguous()
+    rows, k = a.shape
+    out = torch.empty(rows, b.shape[1], dtype=torch.float32, device=a.device)
+    lib = _native.load_library()
+    with torch.cuda.device(a.device):
+        rc = lib.cp_mm_probe(mode, a.data_ptr(), b.data_ptr(),
+                             out.data_ptr(), rows, k, b.shape[1],
+                             torch.cuda.current_stream().cuda_stream)
+    _native.check(lib, rc, "mm_probe")
+    return out
+
+
+def mm_split(x: torch.Tensor, mode: int) -> torch.Tensor:
+    """(n, 3): each element of x (float32, 1-D) as `mode` takes it into a
+    product: X3's (hi, lo, 0), X6's (hi, mid, lo), else (round_operand, 0,
+    0). CUDA tensors launch the probe's split kernel; CPU tensors run
+    split_operand and round_operand."""
+    if x.dim() != 1 or not 0 <= mode < len(MODE_NAMES):
+        raise ValueError(f"mm_split: {tuple(x.shape)}, mode {mode}")
+    if x.device.type == "cpu":
+        parts = (split_operand(x, mode) if mode in _PASSES
+                 else [round_operand(x, mode)])
+        parts += [torch.zeros_like(x)] * (3 - len(parts))
+        return torch.stack(parts, dim=1)
+    x = x.contiguous()
+    out = torch.empty(x.numel(), 3, dtype=torch.float32, device=x.device)
+    lib = _native.load_library()
+    with torch.cuda.device(x.device):
+        rc = lib.cp_mm_split(mode, x.data_ptr(), out.data_ptr(), x.numel(),
+                             torch.cuda.current_stream().cuda_stream)
+    _native.check(lib, rc, "mm_split")
+    return out

@@ -210,29 +210,44 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      DQN run (B4, B5) and the plot of its results (where matplotlib is
      installed; the card's machine has none, and the phase says so);
   32. learner_precision (`python3 chip_smoke.py --precision-only` runs it
-     alone): B3, B5, B7 and B9 at each product mode against their twins at
-     the same mode, at the defaults (B3 batch 256 at "updated" and "pre",
-     B5, B7 with the clip at 10 and off, B9 at 131,072 rows and at 1,000):
-     the float32 spellings give the default's bits; at bfloat16 and TF32
-     two runs give the same bits, and at most a set share of the elements
-     lies past the learners' elementwise bar (rtol 2e-4, atol 1e-5) where
-     the float32 kernel against the same twin has more past it: 1e-5 after
-     one update, none for B5 and B7 after K 8, 0.15 at bfloat16 and 0.06
-     at TF32 for B3 after K 16, 0.02 after the fast preset's batch 8192 x
-     K 8; besides, after one update each tensor normwise within that bar
-     (max error <= 1e-5 + 2e-4 x its largest magnitude), after K the
-     networks, targets and losses within the reference's bfloat16 bar
-     (rtol 2e-2, atol 2e-3); each kernel timed at float32, bfloat16 and
-     TF32 in turns; then each agent's CLI defaults at
+     alone): first the product probe (csrc/mm_probe.cu: the learners'
+     product helpers alone, 64 x 384 @ 384 x 64 on operands whose sums
+     cancel) at every mode equal bit for bit to its own mode's exact chain
+     and apart from every other mode's in more than a tenth of the
+     elements, and the operands' split on the card equal to the CPU's;
+     then B3, B5, B7 and B9 at each
+     product mode against their twins at the same mode, at the defaults
+     (B3 batch 256 at "updated" and "pre", B5, B7 with the clip at 10 and
+     off, B9 at 131,072 rows and at 1,000): the float32 spellings give the
+     default's bits and BF16_BF16_F32 bfloat16's; at every other mode two
+     runs give the same bits, and at most a set share of the elements lies
+     past the learners' elementwise bar (rtol 2e-4, atol 1e-5), where the
+     float32 kernel against the same twin has more past it (at X3, X6 and
+     F64, within that bar of float32, the bits differ from float32's
+     instead): shares per mode and case in ONE_UPDATE_SHARE, B3_K_SHARE,
+     B3_FAST_SHARE and ROW_CHAIN_K_SHARE; besides, after one update each
+     tensor normwise within that bar (max error <= 1e-5 + 2e-4 x its
+     largest magnitude), after K the networks, targets and losses within
+     the reference's bfloat16 bar (rtol 2e-2, atol 2e-3); after one update
+     the kernel at float32, X3, X6 and F64 against the twins of all four
+     (_mode_identity: X3's kernel nearest its own twin; against the nearer
+     of the float32 and F64 twins, F64's kernel nearer than float32's and
+     float32's than X6's); each kernel timed at every mode in turns with
+     float32, each mode beside its bound at the card's peak for its
+     operand type; then each agent's CLI defaults at
      `--<agent>.learner-precision bfloat16` with the counters zeroed (the
      learner kernel 7 times, 8 for LRPG, the rollout kernel 8, nothing
-     else), and each agent at the other five legacy values for 3 train
-     steps at 1000 envs. (`--learner-bits PATH` saves, or compares with
-     PATH, the float32 learners' outputs and times, for an A/B against an
-     unpacked parent.)
+     else), and each agent at the other values (the legacy ones and the
+     four presets' modes) for 3 train steps at 1000 envs. (`--learner-bits
+     PATH` saves, or compares with PATH, the learners' outputs at float32,
+     bfloat16 and TF32 and their times, for an A/B against an unpacked
+     parent. `--plant-faults`, a one-off run after a change to the
+     modes, builds each planted fault of PROBE_FAULTS and LEARNER_FAULTS
+     from a patched copy of csrc/ and shows phase 32's checks catch it.)
 Then one JSON line of per-kernel numbers (each with its bound: the larger
 of its float32 operations over 67 TFLOP/s and its bytes over 3.35 TB/s,
-counted from this run's shapes) and, last, the device line. The script
+counted from this run's shapes; B3, B5, B7 and B9 also with each product
+mode's ms, bound, chain bound and launches) and, last, the device line. The script
 imports no JAX and nothing of the JAX package.
 """
 
@@ -1504,24 +1519,13 @@ def _stage_clock_build(src: str, tag: str):
 
 def _stage_clock_load(proc, path):
     """Waits for _stage_clock_build's nvcc and loads its library with the
-    main library's argument types."""
+    main library's argument types (_load_like_main)."""
     import ctypes
-
-    from cartpoleplusplus_tpu_torch.ops import _native
 
     out = proc.communicate(timeout=600)[0]
     assert proc.returncode == 0, f"stage-clock nvcc failed:\n{out}"
-    main_lib, lib = _native.load_library(), ctypes.CDLL(path)
-    for name in ("cp_ddpg_workspace_floats", "cp_ddpg_update_phase",
-                 "cp_dqn_workspace_floats", "cp_dqn_update_phase",
-                 "cp_naf_workspace_floats", "cp_naf_update_phase",
-                 "cp_lrpg_workspace_floats", "cp_lrpg_update_phase"):
-        if hasattr(lib, name):
-            fn = getattr(lib, name)
-            fn.argtypes = getattr(main_lib, name).argtypes
-            fn.restype = getattr(main_lib, name).restype
+    lib = _load_like_main(path)
     lib.cp_stage_clock_read.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    lib.cp_error_string = main_lib.cp_error_string
     return lib
 
 
@@ -1817,18 +1821,25 @@ def phase_b8(dev, floor_us):
                 near_tie_envs=n_tie, b4_ms=b4_ms, **bound)
 
 
-def _b9_flop(n, hidden) -> int:
-    """Float operations of one LRPG update over n rows: per row the
-    forward, the weight gradients and the input gradients below the head
-    (all but layer 0's) as 2 per multiply-add, and the LayerNorm, softmax
-    and entropy epilogues at ~10 per element; then Adam at ~10 per
-    parameter."""
+def _b9_split_flop(n, hidden) -> tuple:
+    """Float operations of one LRPG update over n rows: (the products': per
+    row the forward, the weight gradients and the input gradients below
+    the head (all but layer 0's) as 2 per multiply-add; the others: the
+    LayerNorm, softmax and entropy epilogues at ~10 per element per row,
+    then Adam at ~10 per parameter)."""
     dims = (42,) + tuple(hidden) + (5,)
     macs = _mlp_macs(dims)
     dx = _mlp_macs(dims[1:])
     p = sum(a * b + b for a, b in zip(dims[:-1], dims[1:])) \
         + 2 * sum(hidden)
-    return n * (2 * (2 * macs + dx) + 10 * (sum(hidden) + 5)) + 10 * p
+    return (n * 2 * (2 * macs + dx),
+            n * 10 * (sum(hidden) + 5) + 10 * p)
+
+
+def _b9_flop(n, hidden) -> int:
+    """Float operations of one LRPG update over n rows (_b9_split_flop's
+    two counts together)."""
+    return sum(_b9_split_flop(n, hidden))
 
 
 def _b9_inputs(dev, hidden, seed, n=B9_N):
@@ -4223,11 +4234,44 @@ def phase_tools(dev) -> dict:
     return out
 
 
-# The reduced product modes of the learners (learner_precision), and the
-# reference's bar for its bfloat16 kernel learner against its float32 plain
-# learner (tests/test_learner_kernel.py:545-578).
-PRECISION_MODES = ("bfloat16", "tensorfloat32")
+# The product modes of the learners besides float32 (learner_precision),
+# and the reference's bar for its bfloat16 kernel learner against its
+# float32 plain learner (tests/test_learner_kernel.py:545-578).
+PRECISION_MODES = ("bfloat16", "tensorfloat32", "BF16_BF16_F32_X3",
+                   "BF16_BF16_F32_X6", "F64_F64_F64", "F16_F16_F16")
 REF_RTOL, REF_ATOL = 2e-2, 2e-3
+_X3, _X6, _F64 = "BF16_BF16_F32_X3", "BF16_BF16_F32_X6", "F64_F64_F64"
+# The modes whose results lie within a tight bar of float32's, so that the
+# float32 kernel does not lie past their share: the product probe shows
+# them live (_product_probe), and _mode_holds requires bits other than
+# float32's.
+PROBED_MODES = ("BF16_BF16_F32_X3", "BF16_BF16_F32_X6", "F64_F64_F64")
+# The card's peak for each mode's products, from the H100 SXM's published
+# dense rates (NVIDIA's data sheet): the tensor cores' for the operand
+# type (bfloat16's for X3's and X6's bfloat16 part products, 3 and 6 per
+# product, and for float16; TF32's; IEEE float64's DMMA at F64), float32's
+# outside the tensor cores at float32. The other operations (LayerNorm,
+# softmax, Adam) are float32 at every mode. The chain bound beside it is
+# the rate of the units the kernels use: FFMA, and DFMA (34 TFLOP/s) at
+# F64.
+MODE_PEAK = {"float32": F32_FLOPS, "bfloat16": 989e12,
+             "tensorfloat32": 495e12, "BF16_BF16_F32_X3": 989e12,
+             "BF16_BF16_F32_X6": 989e12, "F64_F64_F64": 67e12,
+             "F16_F16_F16": 989e12}
+MODE_PASSES = {"BF16_BF16_F32_X3": 3, "BF16_BF16_F32_X6": 6}
+DFMA_FLOPS = 34e12
+# The modes whose products lie within float32's rounding of float32's (X6
+# keeps all 24 bits of each operand, F64 rounds its exact sum once): a
+# LayerNorm output within that rounding of the relu edge falls either way
+# between the twin at the mode and the float32 twin, so the kernel is held
+# to the nearer of the two, tensor by tensor (PERF.md §6: B3 K 1's
+# critic, one output at 2.1e-7).
+NEAR_F32_MODES = ("BF16_BF16_F32_X6", "F64_F64_F64")
+# The relative part of the one-update normwise bar per mode: B3's, and at
+# F16 one float16 step (2^-10), since a float32 sum in another order may
+# round a dot to the neighbouring float16.
+ONE_UPDATE_RTOL = {p: B3_RTOL for p in PRECISION_MODES}
+ONE_UPDATE_RTOL["F16_F16_F16"] = 2.0 ** -10
 # The fast preset's B3 shape (rollout 64, K 8, batch 8192).
 B3_FAST_BATCH, B3_FAST_K = 8192, 8
 # B9's window besides the defaults' 131,072 rows.
@@ -4240,9 +4284,26 @@ PRECISION_CLI_ENVS, PRECISION_CLI_STEPS = 1000, 3
 # readings behind each): after one update (B9: its one window), B3 after
 # K 16 at batch 256 (per mode) and after K 8 at batch 8192, B5 and B7
 # after K 8.
-ONE_UPDATE_SHARE = 1e-5
-B3_K_SHARE = {"bfloat16": 0.15, "tensorfloat32": 0.06}
-B3_FAST_SHARE, ROW_CHAIN_K_SHARE = 0.02, 0.0
+ONE_UPDATE_SHARE = {p: 1e-5 for p in PRECISION_MODES}
+ONE_UPDATE_SHARE["F16_F16_F16"] = 3e-4
+B3_K_SHARE = {"bfloat16": 0.15, "tensorfloat32": 0.06,
+              "BF16_BF16_F32_X3": 1e-5, "BF16_BF16_F32_X6": 1e-5,
+              "F64_F64_F64": 1e-5, "F16_F16_F16": 0.075}
+B3_FAST_SHARE = {"bfloat16": 0.02, "tensorfloat32": 0.02,
+                 "BF16_BF16_F32_X3": 1e-4, "BF16_BF16_F32_X6": 1e-5,
+                 "F64_F64_F64": 1e-5, "F16_F16_F16": 0.01}
+ROW_CHAIN_K_SHARE = 0.0
+
+
+# That each of X3, X6 and F64 launched its own instance, after one update
+# (_mode_identity): X3's kernel lies nearest its own twin, and each other
+# kernel nearer another twin than X3's, by a factor of IDENTITY_X3 at
+# least; against the nearer of the float32 and F64 twins, F64's kernel
+# lies nearer than float32's and float32's nearer than X6's (one rounding
+# a product against six) by IDENTITY_ORDER at least. Distances in ulps of
+# the twin, each element's capped at ULP_CAP. PERF.md §6 has the readings
+# (factors 1.83-4.2 and 1.45-22 at phase 32's one-update cases).
+IDENTITY_X3, IDENTITY_ORDER, ULP_CAP = 1.4, 1.2, 64
 
 
 def _flat_run(groups, losses) -> list:
@@ -4257,17 +4318,82 @@ def _beyond(got, want, rtol=B3_RTOL, atol=B3_ATOL) -> int:
                for a, b in zip(got, want))
 
 
-def _mode_holds(tag, run, twin, nets, one_update, share) -> dict:
+def _ulps(got, want) -> float:
+    """The mean distance of the tensor list `got` from `want` over all the
+    elements, in ulps of want's element (float32), each element's capped
+    at ULP_CAP: a LayerNorm output that falls the other way at the relu
+    edge moves some elements far, and the cap keeps them from outweighing
+    the rest."""
+    import torch
+
+    total, n = 0.0, 0
+    for a, b in zip(got, want):
+        mag = b.abs()
+        ulp = torch.nextafter(mag, torch.full_like(mag, math.inf)) - mag
+        total += float(((a.double() - b.double()).abs() / ulp.double())
+                       .clamp(max=ULP_CAP).sum())
+        n += a.numel()
+    return total / n
+
+
+def _mode_identity(tag, run, twin) -> dict:
+    """That each of X3, X6 and F64 launched its own instance (see
+    IDENTITY_X3): run(p) and twin(p) as in _mode_holds, after one update.
+    X6 and F64 lie within float32's rounding of float32, so no twin of
+    theirs is nearest their kernel in every case (a LayerNorm output at
+    the relu edge falls the other way in B3's twins at X6 and F64; at B9's
+    131,072 rows the X6 kernel lies nearer the F64 twin): they are told
+    apart by their error against the nearer of the float32 and F64 twins,
+    the F64 kernel's least (exact dots, rounded once), the X6 kernel's
+    most (six roundings a product). Returns the distances."""
+    modes = (None, _X3, _X6, _F64)
+    got = {p: _flat_run(*run(p)) for p in modes}
+    want = {q: _flat_run(*twin(q)) for q in modes}
+    d = {p: {q: _ulps(got[p], want[q]) for q in modes} for p in modes}
+    err = {p: min(d[p][None], d[p][_F64]) for p in modes}
+    names = {p: p or "float32" for p in modes}
+    table = {names[p]: {names[q]: v for q, v in d[p].items()} for p in modes}
+    nearest_other = min(v for q, v in d[_X3].items() if q != _X3)
+    assert d[_X3][_X3] * IDENTITY_X3 <= nearest_other, \
+        f"{tag}: the X3 kernel not nearest its own twin (ulps): {table}"
+    for p in (None, _X6, _F64):
+        assert min(v for q, v in d[p].items() if q != _X3) * IDENTITY_X3 \
+            <= d[p][_X3], f"{tag}: the {names[p]} kernel near the X3 " \
+                          f"twin (ulps): {table}"
+    assert err[_F64] * IDENTITY_ORDER <= err[None] and \
+        err[None] * IDENTITY_ORDER <= err[_X6], \
+        f"{tag}: the F64, float32 and X6 kernels' ulps from the nearer " \
+        f"of the float32 and F64 twins out of order: " \
+        f"{[err[p] for p in (_F64, None, _X6)]}; {table}"
+    print(f"{tag}: identity, the kernel at each mode against the twin at "
+          f"each (float32, X3, X6, F64; mean ulps, each capped at "
+          f"{ULP_CAP}): " + "; ".join(
+              f"{names[p]} " + " ".join(f"{v:.4g}" for v in d[p].values())
+              for p in modes)
+          + f"; from the nearer of the float32 and F64 twins: F64 "
+          f"{err[_F64]:.4g}, float32 {err[None]:.4g}, X6 {err[_X6]:.4g}",
+          flush=True)
+    return dict(ulps=table, err={names[p]: err[p] for p in modes})
+
+
+def _mode_holds(tag, run, twin, nets, one_update, share,
+                modes=PRECISION_MODES) -> dict:
     """A learner kernel at the product modes. run(p) and twin(p) give (the
     groups' parameter lists, the losses) of the kernel (synchronised) and
     of its twin at learner_precision p; the first `nets` groups are the
     networks and targets, the rest Adam's moments. The float32 spellings
-    ("float32", "highest") give the default's bits. At each reduced mode
-    two runs give the same bits, and against the twin at that mode at most
-    `share` (a number, or one for each mode) of all the elements lie past
-    B3's elementwise bar, while the float32 kernel against the same twin
-    has more past it than that limit (the check tells the modes apart:
-    PERF.md §6 has the readings behind each share). Where an ulp between
+    ("float32", "highest", "F32_F32_F32") give the default's bits, and
+    "BF16_BF16_F32" bfloat16's. At each other mode two runs give the same
+    bits, and against the twin at that mode at most `share` (a number, or
+    one for each mode) of all the elements lie past B3's elementwise bar,
+    while the float32 kernel against the same twin has more past it than
+    that limit (the check tells the modes apart: PERF.md §6 has the
+    readings behind each share); at X3, X6 and F64, which lie within that
+    bar of float32, the bits differ from float32's instead and the product
+    probe tells the modes apart; at X6 and F64 the kernel is held to the
+    nearer of the twin at its mode and the float32 twin (NEAR_F32_MODES),
+    and at F16 one update normwise within a float16 step
+    (ONE_UPDATE_RTOL). Where an ulp between
     two summation orders crosses a rounding edge, one term of a sum moves
     by a whole bfloat16 or TF32 step, so a few elements part: after one
     update (or B9's one window)
@@ -4279,55 +4405,75 @@ def _mode_holds(tag, run, twin, nets, one_update, share) -> dict:
     import torch
 
     base = _flat_run(*run(None))
-    for p in ("float32", "highest"):
+    for p, same_as in (("float32", None), ("highest", None),
+                       ("F32_F32_F32", None),
+                       ("BF16_BF16_F32", "bfloat16")):
+        want = base if same_as is None else _flat_run(*run(same_as))
         assert all(torch.equal(a, b) for a, b in zip(_flat_run(*run(p)),
-                                                     base)), \
-            f"{tag}: learner_precision={p!r} parts from the default's bits"
+                                                     want)), \
+            f"{tag}: learner_precision={p!r} parts from {same_as}'s bits"
     out = {}
-    for p in PRECISION_MODES:
+    twin32 = _flat_run(*twin(None))
+    n_held = sum(len(g) for g in run(None)[0][:nets])
+    for p in modes:
         want_g, want_l = twin(p)
         got_g, got_l = run(p)
         again = _flat_run(*run(p))
         got, want = _flat_run(got_g, got_l), _flat_run(want_g, want_l)
         assert all(torch.equal(a, b) for a, b in zip(got, again)), \
             f"{tag} {p}: two runs on the same inputs differ"
+        if p in NEAR_F32_MODES:
+            want = [w if _max_err(g, w) <= _max_err(g, w32) else w32
+                    for g, w, w32 in zip(got, want, twin32)]
         elements = sum(x.numel() for x in got)
         res = dict(beyond_tight=_beyond(got, want), elements=elements,
                    f32_beyond_tight=_beyond(base, want),
                    limit=int((share[p] if isinstance(share, dict)
                               else share) * elements))
-        assert res["beyond_tight"] <= res["limit"] < \
-            res["f32_beyond_tight"], \
-            f"{tag} {p}: elements past rtol {B3_RTOL}, atol {B3_ATOL} " \
-            f"(the kernel, its limit, the float32 kernel): {res}"
+        if p in PROBED_MODES:
+            assert res["beyond_tight"] <= res["limit"], \
+                f"{tag} {p}: elements past rtol {B3_RTOL}, atol {B3_ATOL} " \
+                f"(the kernel, its limit): {res}"
+            assert not all(torch.equal(a, b) for a, b in zip(got, base)), \
+                f"{tag} {p}: the float32 kernel's bits"
+        else:
+            assert res["beyond_tight"] <= res["limit"] < \
+                res["f32_beyond_tight"], \
+                f"{tag} {p}: elements past rtol {B3_RTOL}, atol {B3_ATOL} " \
+                f"(the kernel, its limit, the float32 kernel): {res}"
         if one_update:
             err = 0.0
             for i, (a, b) in enumerate(zip(got, want)):
                 e, scale = _max_err(a, b), float(b.abs().max())
-                assert e <= B3_ATOL + B3_RTOL * scale, \
+                assert e <= B3_ATOL + ONE_UPDATE_RTOL[p] * scale, \
                     f"{tag} {p} [{i}]: max abs err {e} at scale {scale}"
                 err = max(err, e)
         else:
-            held = zip(_flat_run(got_g[:nets], got_l),
-                       _flat_run(want_g[:nets], want_l))
+            n_loss = len(got_l)
+            held = zip(got[:n_held] + got[-n_loss:],
+                       want[:n_held] + want[-n_loss:])
             err = max(_close(f"{tag} {p} [{i}]", a, b, REF_RTOL, REF_ATOL)
                       for i, (a, b) in enumerate(held))
         out[p] = dict(res, max_abs_err=err)
+    if one_update:
+        out["identity"] = _mode_identity(tag, run, twin)
     print(f"{tag}: " + "; ".join(
         f"{p} max_abs_err {v['max_abs_err']:.3g} " + (
-            f"(normwise rtol {B3_RTOL}, atol {B3_ATOL})" if one_update else
+            f"(normwise rtol {ONE_UPDATE_RTOL[p]:.3g}, atol {B3_ATOL})"
+            if one_update else
             f"(networks, targets, losses: rtol {REF_RTOL}, atol {REF_ATOL})")
         + f", {v['beyond_tight']} of {v['elements']} elements past rtol "
         f"{B3_RTOL}, atol {B3_ATOL} elementwise (limit {v['limit']}; the "
         f"float32 kernel {v['f32_beyond_tight']})"
-        for p, v in out.items()) + "; float32, highest: the default's "
-        "bits", flush=True)
+        for p, v in out.items() if p in modes) + "; float32, highest, "
+        "F32_F32_F32: the "
+        "default's bits; BF16_BF16_F32: bfloat16's", flush=True)
     return out
 
 
 def _mode_times(fn, reps) -> dict:
-    """fn(p)'s CUDA-event ms at each product mode, in turns (float32,
-    bfloat16, TF32, then back): mode -> [ms, ms]."""
+    """fn(p)'s CUDA-event ms at each product mode, in turns (float32, then
+    each mode of PRECISION_MODES, then back): mode -> [ms, ms]."""
     order = (None,) + PRECISION_MODES
     out = {p or "float32": [] for p in order}
     for p in order + order[::-1]:
@@ -4335,23 +4481,226 @@ def _mode_times(fn, reps) -> dict:
     return out
 
 
-def _times_line(times: dict, bound_ms: float) -> str:
-    return ", ".join(f"{p} {' '.join(f'{t:.4f}' for t in ts)}"
+def _mode_bounds(prod: float, rest: float, nbytes: float) -> dict:
+    """Each product mode's bound for work of `prod` float32 product FLOPs
+    (X3 and X6: 3 and 6 part products each) and `rest` other FLOPs: the
+    larger of the bytes over the HBM rate and the operations over the
+    card's peak for their type (MODE_PEAK; at a mode other than float32
+    the tensor cores' products and the float32 units' rest run side by
+    side, so the larger of the two); chain_ms, the same at the rate of the
+    units the kernels use (FFMA; DFMA at F64)."""
+    t_bytes = nbytes / HBM_BYTES * 1e3
+    out = {}
+    for p in ("float32",) + PRECISION_MODES:
+        n = prod * MODE_PASSES.get(p, 1)
+        if p == "float32":
+            t_ops = (n + rest) / F32_FLOPS * 1e3
+        else:
+            t_ops = max(n / MODE_PEAK[p], rest / F32_FLOPS) * 1e3
+        if p == "F64_F64_F64":
+            t_chain = max(n / DFMA_FLOPS, rest / F32_FLOPS) * 1e3
+        else:
+            t_chain = (n + rest) / F32_FLOPS * 1e3
+        out[p] = dict(bound_ms=max(t_ops, t_bytes),
+                      bound_by="operations" if t_ops >= t_bytes else "bytes",
+                      library_ms=None, chain_ms=max(t_chain, t_bytes))
+    return out
+
+
+def _times_line(times: dict, bounds: dict) -> str:
+    return ", ".join(f"{p} {' '.join(f'{t:.4f}' for t in ts)} (bound "
+                     f"{bounds[p]['bound_ms']:.4f}, chain "
+                     f"{bounds[p]['chain_ms']:.4f})"
                      for p, ts in times.items()) + \
-        f" ms (bound {bound_ms:.4f} ms, FFMA arithmetic at every mode)"
+        " ms (bounds at each mode's peak: float32 67, bfloat16, float16 " \
+        "and X3's and X6's bfloat16 parts 989, TF32 495, F64 67 TFLOP/s; " \
+        "chains: FFMA 67, DFMA 34 TFLOP/s)"
 
 
-def phase_learner_precision(dev) -> dict:
-    """learner_precision on the card: B3, B5, B7 and B9 at each product
-    mode against their twins (_mode_holds) at the defaults (B3 batch 256
-    at "updated" and "pre", K 1 and 16; B5 K 1 and 8; B7 K 1 and 8 with the
-    clip at 10 and off; B9 at 131,072 rows and at 1,000), B3 also at the
-    fast preset's batch 8192 x K 8; each timed at float32, bfloat16 and
-    TF32 in turns;
-    then the CLI at each agent's defaults with `--<agent>.learner-precision
-    bfloat16` (the counters zeroed before each run and read after it: the
-    learner kernel as often as at float32, the rollout kernel every step),
-    and each agent at the other legacy values for a few steps."""
+# Planted faults, built and checked by `chip_smoke.py --plant-faults` (a
+# one-off run, not part of the default one): each is (what it breaks,
+# the patches (file in csrc/, text found once, its replacement), the
+# sources built, the phase-32 cases and the modes checked, and whether
+# the checks must catch it). The product helpers' (csrc/learner_stages.cuh),
+# which the product probe must catch at their mode; then the learners'
+# wiring, which _mode_holds must catch, and one it does not: a single
+# float32 product site in B9's F64 instance (one of its eight) moves
+# the kernel's error by less than the identity check resolves.
+_ROW_CHAIN_SOURCES = tuple(f"{n}_update{u}.cu" for n in ("ddpg", "dqn", "naf")
+                           for u in ("", "_x3x6", "_f64f16"))
+_B9_SOURCES = ("lrpg_update.cu", "lrpg_update_x3x6.cu",
+               "lrpg_update_f64f16.cu")
+PROBE_FAULTS = {
+    "X3 without lo.hi": (_X3, (
+        "learner_stages.cuh",
+        "    acc = fmaf(a.lo, b.hi, acc);\n    acc = fmaf(a.hi, b.lo, acc);\n"
+        "    return fmaf(a.hi, b.hi, acc);",
+        "    acc = fmaf(a.hi, b.lo, acc);\n    return fmaf(a.hi, b.hi, acc);")),
+    "X6 without mid.mid": (_X6, ("learner_stages.cuh",
+                                 "    acc = fmaf(a.mid, b.mid, acc);\n", "")),
+    "F64 with float32 accumulators": (_F64, (
+        "learner_stages.cuh", "  using In = double;\n  using Acc = double;",
+        "  using In = double;\n  using Acc = float;")),
+}
+LEARNER_FAULTS = {
+    "X6's and F64's instances swapped in CP_MM_INSTANCES": (
+        [("learner_stages.cuh", "x3x6(kMmX6), f64f16(kMmF64)",
+          "f64f16(kMmF64), x3x6(kMmX6)")], _ROW_CHAIN_SOURCES,
+        ("B3 K 1 updated", "B5 K 1", "B7 K 1 clip 10.0"), (_X6, _F64),
+        True),
+    "B3's X3 accessor returning the X6 instance": (
+        [("ddpg_update.cu",
+          "(m == kMmX3)\n    return reinterpret_cast<const void*>("
+          "ddpg_update_kernel<kMmX3>)",
+          "(m == kMmX3)\n    return reinterpret_cast<const void*>("
+          "ddpg_update_kernel<kMmX6>)")], _ROW_CHAIN_SOURCES[:3],
+        ("B3 K 1 updated",), (_X3,), True),
+    "grad_w_tile's staged X6 rows without mid": (
+        [("row_chain.cuh",
+          "        Gs[idx] =\n            mm_in<M>(j0 + e < out ? "
+          "__ldcg(G + b * out + j0 + e) : 0.0f);\n",
+          "        Gs[idx] =\n            mm_in<M>(j0 + e < out ? "
+          "__ldcg(G + b * out + j0 + e) : 0.0f);\n"
+          "        if constexpr (M == kMmX6) Gs[idx].mid = 0.0f;\n")],
+        _ROW_CHAIN_SOURCES, ("B3 K 1 updated", "B5 K 1", "B7 K 1 clip 10.0"),
+        (_X6,), True),
+    "B9's X3 and X6 dispatch swapped": (
+        [("lrpg_update.cu", "  if (d.mm == kMmX3)\n    return run_phase<kMmX3>",
+          "  if (d.mm != kMmX3)\n    return run_phase<kMmX3>")], _B9_SOURCES,
+        ("B9 N 1000",), (_X3, _X6), True),
+    "B9's head logits at float32 in the F64 instance": (
+        [("lrpg_update.cu",
+          "prod_rows<M, 1>(t.a, hl, MatRows{smem + woff, kPgHeadLd}",
+          "prod_rows<(M == kMmF64 ? kMmF32 : M), 1>(t.a, hl, "
+          "MatRows{smem + woff, kPgHeadLd}")], _B9_SOURCES,
+        ("B9 N 1000", f"B9 N {B9_N}"), (_F64,), False),
+}
+
+
+def _load_like_main(path: str):
+    """The library at `path`, its functions given the main library's
+    argument types (those it has)."""
+    import ctypes
+
+    from cartpoleplusplus_tpu_torch.ops import _native
+
+    main_lib, lib = _native.load_library(), ctypes.CDLL(path)
+    for name in ("cp_ddpg_workspace_floats", "cp_ddpg_update_phase",
+                 "cp_dqn_workspace_floats", "cp_dqn_update_phase",
+                 "cp_naf_workspace_floats", "cp_naf_update_phase",
+                 "cp_lrpg_workspace_floats", "cp_lrpg_update_phase",
+                 "cp_mm_probe", "cp_mm_split"):
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = getattr(main_lib, name).argtypes
+            fn.restype = getattr(main_lib, name).restype
+    lib.cp_error_string = main_lib.cp_error_string
+    return lib
+
+
+def _planted_build(tag: str, patches, sources):
+    """Starts nvcc, one process per source, on `sources` in a copy of
+    csrc/ with `patches` planted, for a library of its own (the main
+    library and csrc/ untouched). Returns a function that waits for them,
+    links the objects and loads the library (_load_like_main)."""
+    import os
+    import re
+    import shutil
+
+    from cartpoleplusplus_tpu_torch.ops import _native
+
+    out = os.path.join(_native.BUILD_DIR, "planted",
+                       re.sub(r"[^A-Za-z0-9]+", "_", tag))
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(_native.CSRC, out)
+    for name, old, new in patches:
+        path = os.path.join(out, name)
+        text = open(path).read()
+        assert text.count(old) == 1, f"planted {tag}: {old!r} in {name}"
+        with open(path, "w") as f:
+            f.write(text.replace(old, new))
+    nvcc, jobs = _native._nvcc(), []
+    for s in sources:
+        obj = os.path.join(out, s[:-3] + ".o")
+        jobs.append((obj, subprocess.Popen(
+            [nvcc, *_native.NVCC_FLAGS, "-c", "-o", obj,
+             os.path.join(out, s)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+
+    def load():
+        for _, proc in jobs:
+            log = proc.communicate(timeout=900)[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"planted {tag}: nvcc failed\n{log}")
+        lib = os.path.join(out, "libplanted.so")
+        subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                        "-shared", "-o", lib, *(o for o, _ in jobs)],
+                       check=True, capture_output=True, timeout=600)
+        return _load_like_main(lib)
+
+    return load
+
+
+def _product_probe(dev) -> dict:
+    """The product probe (csrc/mm_probe.cu, the learners' product helpers
+    alone) at every mode on lk.probe_operands (64 x 384 @ 384 x 64: low
+    mantissa bits set, sums that cancel): each mode's result equal bit for
+    bit to its own exact chain (ops.learner_kernel.mm_chain, stepped in
+    exact arithmetic on the CPU) and apart from every other mode's in more
+    than a tenth of the elements; the split (mm_split) on the card equal
+    to the CPU's on edge patterns and 100,000 random ones."""
+    import numpy as np
+    import torch
+
+    from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
+
+    a, b = lk.probe_operands(np.random.RandomState(0))
+    ta, tb = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+    chains = [lk.mm_chain(a, b, m) for m in range(len(lk.MODE_NAMES))]
+
+    def apart(got):
+        return [float((got.view(np.uint32) != c.view(np.uint32)).mean())
+                for c in chains]
+
+    out = {}
+    for m, name in enumerate(lk.MODE_NAMES):
+        shares = apart(lk.mm_probe(ta, tb, m).cpu().numpy())
+        assert shares[m] == 0.0, (name, shares)
+        assert all(x > 0.1 for i, x in enumerate(shares) if i != m), \
+            (name, shares)
+        out[name] = shares
+    rng = np.random.RandomState(1)
+    bits = np.concatenate([
+        np.array([0, 0x80000000, 1, 0x00008000, 0x3F808000, 0x3F818000,
+                  0x7F7F7FFF, 0x7F7F8000, 0x7F800000, 0xFF800000,
+                  0x7FC00000], np.uint32),
+        rng.randint(0, 2 ** 32, 100000, dtype=np.uint64).astype(np.uint32)])
+    x = torch.from_numpy(bits.view(np.float32).copy())
+    for m, name in enumerate(lk.MODE_NAMES):
+        got = lk.mm_split(x.to(dev), m).cpu().numpy()
+        want = lk.mm_split(x, m).numpy()
+        nan = np.isnan(want)
+        assert np.array_equal(np.isnan(got), nan), name
+        assert np.array_equal(got[~nan].view(np.uint32),
+                              want[~nan].view(np.uint32)), name
+    print("product probe (64 x 384 @ 384 x 64): each mode's share of "
+          "elements apart from each mode's exact chain " + "; ".join(
+              f"{n} [{', '.join(f'{x:.3f}' for x in v)}]"
+              for n, v in out.items())
+          + f" (in the order {', '.join(lk.MODE_NAMES)}); the split equal "
+          f"to the CPU's on {len(bits)} patterns at every mode",
+          flush=True)
+    return out
+
+
+def _precision_cases(dev):
+    """Phase 32's learner cases, one at a time (their inputs made as the
+    case comes): dicts of the kernel's key in the kernels line and the
+    case's label there, the tag _mode_holds prints, run(p) and twin(p),
+    the networks' group count, whether it is one update (or B9's one
+    window), the share of elements past B3's bar, and for the timed case
+    of each key `time`: (a title, fn(p), reps, the products' FLOPs, the
+    other FLOPs, the bytes)."""
     import torch
 
     from cartpoleplusplus_tpu_torch.agents.common import lr_schedule
@@ -4359,13 +4708,12 @@ def phase_learner_precision(dev) -> dict:
     from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
 
     card = _card()
-    out = {"card": card}
     hidden = (256, 256)
     la, lc = lk.actor_layout(42, hidden), lk.critic_layout(42, hidden)
     b3_lays = (la, lc, la, lc, la, la, lc, lc)
     b3_kw = dict(actor_lr=1e-4, critic_lr=1e-3, gamma=0.99, tau=0.01)
 
-    def b3_case(batch, k, agc):
+    def b3_case(batch, k, agc, label, share, reps=0):
         groups, batches = _b3_inputs(dev, hidden, batch, k, seed=21)
         kw = dict(b3_kw, actor_grad_critic=agc)
 
@@ -4384,42 +4732,28 @@ def phase_learner_precision(dev) -> dict:
                 batches, B3_T0, hidden, mm_precision=p, **kw)
             return res[:8], res[8:]
 
-        return groups, batches, kw, run, twin
+        key = "B3" if batch == B3_BATCH else "B3 fast"
+        case = dict(key=key, label=label, tag=f"B3 {label}", run=run,
+                    twin=twin, nets=4, one_update=k == 1, share=share)
+        if reps:
+            case["time"] = (
+                f"B3 batch {batch} x K {k} (card {card})",
+                lambda p: lk.ddpg_update_phase(groups, batches, B3_T0,
+                                               hidden, mm_precision=p, **kw),
+                reps, k * _b3_update_flop(hidden, batch), 0,
+                2 * _nbytes(*groups) + _nbytes(*batches) + 8 * k)
+        return case
 
-    res = {}
     for agc in ("updated", "pre"):
-        *_, run, twin = b3_case(B3_BATCH, 1, agc)
-        res[f"K 1 {agc}"] = _mode_holds(f"B3 K 1 {agc}", run, twin, 4, True,
-                                            ONE_UPDATE_SHARE)
-    groups, batches, kw, run, twin = b3_case(B3_BATCH, B3_K, "updated")
-    res[f"K {B3_K}"] = _mode_holds(f"B3 K {B3_K}", run, twin, 4, False,
-                                      B3_K_SHARE)
-
-    times = _mode_times(lambda p: lk.ddpg_update_phase(
-        groups, batches, B3_T0, hidden, mm_precision=p, **kw), 10)
-    bound = _bound(B3_K * _b3_update_flop(hidden, B3_BATCH),
-                   2 * _nbytes(*groups) + _nbytes(*batches) + 8 * B3_K)
-    print(f"B3 batch {B3_BATCH} x K {B3_K} (card {card}): "
-          f"{_times_line(times, bound['bound_ms'])}", flush=True)
-    out["B3"] = dict(holds=res, ms=times, **bound)
-    del groups, batches
-    groups, batches, kw, run, twin = b3_case(B3_FAST_BATCH, B3_FAST_K,
-                                             "updated")
-    res = _mode_holds(f"B3 batch {B3_FAST_BATCH} K {B3_FAST_K}", run, twin,
-                      4, False, B3_FAST_SHARE)
-    times = _mode_times(lambda p: lk.ddpg_update_phase(
-        groups, batches, B3_T0, hidden, mm_precision=p, **kw), 3)
-    bound = _bound(B3_FAST_K * _b3_update_flop(hidden, B3_FAST_BATCH),
-                   2 * _nbytes(*groups) + _nbytes(*batches) + 8 * B3_FAST_K)
-    print(f"B3 batch {B3_FAST_BATCH} x K {B3_FAST_K} (card {card}): "
-          f"{_times_line(times, bound['bound_ms'])}", flush=True)
-    out["B3 fast"] = dict(holds=res, ms=times, **bound)
-    del groups, batches
+        yield b3_case(B3_BATCH, 1, agc, f"K 1 {agc}", ONE_UPDATE_SHARE)
+    yield b3_case(B3_BATCH, B3_K, "updated", f"K {B3_K}", B3_K_SHARE, 10)
+    yield b3_case(B3_FAST_BATCH, B3_FAST_K, "updated",
+                  f"batch {B3_FAST_BATCH} K {B3_FAST_K}", B3_FAST_SHARE, 3)
 
     lay = lk.qnet_layout(42, hidden)
     b5_kw = dict(lr=5e-5, gamma=0.99, tau=0.01)
 
-    def b5_case(k):
+    def b5_case(k, share, reps=0):
         groups, batches = _b5_inputs(dev, hidden, B5_BATCH, k, seed=21)
 
         def run(p):
@@ -4435,31 +4769,29 @@ def phase_learner_precision(dev) -> dict:
                 hidden, mm_precision=p, **b5_kw)
             return res[:4], res[4:]
 
-        return groups, batches, run, twin
+        case = dict(key="B5", label=f"K {k}", tag=f"B5 K {k}", run=run,
+                    twin=twin, nets=2, one_update=k == 1, share=share)
+        if reps:
+            h0, h1 = hidden
+            fwd = 42 * h0 + h0 * h1 + h1 * 5
+            case["time"] = (
+                f"B5 batch {B5_BATCH} x K {k} (card {card})",
+                lambda p: lk.dqn_update_phase(groups, batches, B3_T0, hidden,
+                                              mm_precision=p, **b5_kw),
+                reps, k * 2 * B5_BATCH * (3 * fwd + (5 * h1 + h1 * h0)
+                                          + fwd), 0,
+                2 * _nbytes(*groups) + _nbytes(*batches) + 4 * k)
+        return case
 
-    res = {}
-    *_, run, twin = b5_case(1)
-    res["K 1"] = _mode_holds("B5 K 1", run, twin, 2, True, ONE_UPDATE_SHARE)
-    groups, batches, run, twin = b5_case(B5_K)
-    res[f"K {B5_K}"] = _mode_holds(f"B5 K {B5_K}", run, twin, 2, False,
-                                  ROW_CHAIN_K_SHARE)
-    times = _mode_times(lambda p: lk.dqn_update_phase(
-        groups, batches, B3_T0, hidden, mm_precision=p, **b5_kw), 10)
-    h0, h1 = hidden
-    fwd = 42 * h0 + h0 * h1 + h1 * 5
-    bound = _bound(B5_K * 2 * B5_BATCH * (3 * fwd + (5 * h1 + h1 * h0)
-                                          + fwd),
-                   2 * _nbytes(*groups) + _nbytes(*batches) + 4 * B5_K)
-    print(f"B5 batch {B5_BATCH} x K {B5_K} (card {card}): "
-          f"{_times_line(times, bound['bound_ms'])}", flush=True)
-    out["B5"] = dict(holds=res, ms=times, **bound)
+    yield b5_case(1, ONE_UPDATE_SHARE)
+    yield b5_case(B5_K, ROW_CHAIN_K_SHARE, 10)
 
     cfg = NAFConfig()
-    lay = lk.naf_layout(42, hidden)
+    lay7 = lk.naf_layout(42, hidden)
     b7_kw = dict(lr=cfg.lr, gamma=cfg.gamma, tau=cfg.tau,
                  lr_schedule=lr_schedule(cfg))
 
-    def b7_case(k, clip):
+    def b7_case(k, clip, share, reps=0):
         groups, batches = _b7_inputs(dev, hidden, B7_BATCH, k, seed=33)
         kw = dict(b7_kw, max_grad_norm=clip)
 
@@ -4468,36 +4800,34 @@ def phase_learner_precision(dev) -> dict:
             loss = lk.naf_update_phase(got, batches, B3_T0, hidden,
                                        mm_precision=p, **kw)
             torch.cuda.synchronize()
-            return [lk.group_views(g, lay) for g in got], [loss]
+            return [lk.group_views(g, lay7) for g in got], [loss]
 
         def twin(p):
             res = lk.naf_update_phase_math(
-                *[lk.group_views(g, lay) for g in groups], batches, B3_T0,
+                *[lk.group_views(g, lay7) for g in groups], batches, B3_T0,
                 hidden, mm_precision=p, **kw)
             return res[:4], res[4:5]
 
-        return groups, batches, kw, run, twin
+        label = f"K {k} clip {clip}"
+        case = dict(key="B7", label=label, tag=f"B7 {label}", run=run,
+                    twin=twin, nets=2, one_update=k == 1, share=share)
+        if reps:
+            case["time"] = (
+                f"B7 batch {B7_BATCH} x K {k}, clip {clip} (card {card})",
+                lambda p: lk.naf_update_phase(groups, batches, B3_T0, hidden,
+                                              mm_precision=p, **kw),
+                reps, k * _b7_update_flop(hidden, B7_BATCH), 0,
+                2 * _nbytes(*groups) + _nbytes(*batches) + 4 * k)
+        return case
 
-    res = {}
     for clip in (cfg.max_grad_norm, 0.0):
-        *_, run, twin = b7_case(1, clip)
-        res[f"K 1 clip {clip}"] = _mode_holds(f"B7 K 1 clip {clip}", run,
-                                              twin, 2, True, ONE_UPDATE_SHARE)
-    groups, batches, kw, run, twin = b7_case(B7_K, cfg.max_grad_norm)
-    res[f"K {B7_K}"] = _mode_holds(f"B7 K {B7_K} clip {cfg.max_grad_norm}",
-                                   run, twin, 2, False, ROW_CHAIN_K_SHARE)
-    times = _mode_times(lambda p: lk.naf_update_phase(
-        groups, batches, B3_T0, hidden, mm_precision=p, **kw), 10)
-    bound = _bound(B7_K * _b7_update_flop(hidden, B7_BATCH),
-                   2 * _nbytes(*groups) + _nbytes(*batches) + 4 * B7_K)
-    print(f"B7 batch {B7_BATCH} x K {B7_K}, clip {cfg.max_grad_norm} (card "
-          f"{card}): {_times_line(times, bound['bound_ms'])}", flush=True)
-    out["B7"] = dict(holds=res, ms=times, **bound)
+        yield b7_case(1, clip, ONE_UPDATE_SHARE)
+    yield b7_case(B7_K, cfg.max_grad_norm, ROW_CHAIN_K_SHARE, 10)
 
-    lay = lk.policy_layout(42, LRPG_HIDDEN)
+    lay9 = lk.policy_layout(42, LRPG_HIDDEN)
     b9_kw = dict(lr=3e-4, entropy_coef=0.1)
 
-    def b9_case(n):
+    def b9_case(n, reps=0):
         groups, window = _b9_inputs(dev, LRPG_HIDDEN, seed=29, n=n)
 
         def run(p):
@@ -4505,32 +4835,113 @@ def phase_learner_precision(dev) -> dict:
             loss = lk.lrpg_update_phase(got, window, B3_T0, LRPG_HIDDEN,
                                         mm_precision=p, **b9_kw)
             torch.cuda.synchronize()
-            return [lk.group_views(x, lay) for x in got], [loss]
+            return [lk.group_views(x, lay9) for x in got], [loss]
 
         def twin(p):
             res = lk.lrpg_update_phase_math(
-                *[lk.group_views(x, lay) for x in groups], window, B3_T0,
+                *[lk.group_views(x, lay9) for x in groups], window, B3_T0,
                 LRPG_HIDDEN, mm_precision=p, **b9_kw)
             return res[:3], res[3:]
 
-        return groups, window, run, twin
+        case = dict(key="B9", label=f"N {n}", tag=f"B9 N {n}", run=run,
+                    twin=twin, nets=1, one_update=True,
+                    share=ONE_UPDATE_SHARE)
+        if reps:
+            case["time"] = (
+                f"B9 N {n}, hidden {LRPG_HIDDEN} (card {card})",
+                lambda p: lk.lrpg_update_phase(groups, window, B3_T0,
+                                               LRPG_HIDDEN, mm_precision=p,
+                                               **b9_kw),
+                reps, *_b9_split_flop(n, LRPG_HIDDEN),
+                _nbytes(*window) + 2 * _nbytes(*groups) + 4)
+        return case
 
     # A window of 1000 rows besides the defaults' 131,072: the mean over
     # 131,072 rows hides a weight gradient's operand left unrounded.
-    *_, run, twin = b9_case(B9_SMALL_N)
-    res = {f"N {B9_SMALL_N}": _mode_holds(f"B9 N {B9_SMALL_N}", run, twin,
-                                          1, True, ONE_UPDATE_SHARE)}
-    groups, window, run, twin = b9_case(B9_N)
-    res[f"N {B9_N}"] = _mode_holds(f"B9 N {B9_N}", run, twin, 1, True,
-                                   ONE_UPDATE_SHARE)
-    times = _mode_times(lambda p: lk.lrpg_update_phase(
-        groups, window, B3_T0, LRPG_HIDDEN, mm_precision=p, **b9_kw), 10)
-    bound = _bound(_b9_flop(B9_N, LRPG_HIDDEN),
-                   _nbytes(*window) + 2 * _nbytes(*groups) + 4)
-    print(f"B9 N {B9_N}, hidden {LRPG_HIDDEN} (card {card}): "
-          f"{_times_line(times, bound['bound_ms'])}", flush=True)
-    out["B9"] = dict(holds=res, ms=times, **bound)
-    del groups, window
+    yield b9_case(B9_SMALL_N)
+    yield b9_case(B9_N, 10)
+
+
+def phase_planted_faults(dev) -> dict:
+    """`chip_smoke.py --plant-faults`, a one-off check of phase 32's own
+    checks: each planted fault built from a patched copy of csrc/ and
+    caught. The product helpers' (PROBE_FAULTS) by the product probe (its
+    mode's result off its own exact chain in more than a tenth of the
+    elements); the learners' (LEARNER_FAULTS) by _mode_holds, at the
+    fault's modes, in every case listed with it (where the fault is one
+    the checks must catch; the other's readings are printed)."""
+    import numpy as np
+    import torch
+
+    from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
+
+    loads = {tag: _planted_build(f"probe {tag}", [patch], ["mm_probe.cu"])
+             for tag, (_, patch) in PROBE_FAULTS.items()}
+    loads.update({tag: _planted_build(tag, patches, sources)
+                  for tag, (patches, sources, *_) in
+                  LEARNER_FAULTS.items()})
+    a, b = lk.probe_operands(np.random.RandomState(0))
+    ta, tb = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+    caught = {}
+    for tag, (mode, _) in PROBE_FAULTS.items():
+        m = lk.MODE_NAMES.index(mode)
+        with _use_library(loads[tag]()):
+            got = lk.mm_probe(ta, tb, m).cpu().numpy()
+        share = float((got.view(np.uint32)
+                       != lk.mm_chain(a, b, m).view(np.uint32)).mean())
+        assert share > 0.1, f"planted {tag} not caught: {share}"
+        caught[tag] = {"probe": f"{share:.4f} of the elements off the "
+                                f"{mode} chain"}
+    libs = {tag: loads[tag]() for tag in LEARNER_FAULTS}
+    for case in _precision_cases(dev):
+        for tag, (_, _, tags, modes, must) in LEARNER_FAULTS.items():
+            if case["tag"] not in tags:
+                continue
+            with _use_library(libs[tag]):
+                try:
+                    res = _mode_holds(case["tag"], case["run"], case["twin"],
+                                      case["nets"], case["one_update"],
+                                      case["share"], modes=modes)
+                except AssertionError as e:
+                    caught.setdefault(tag, {})[case["tag"]] = \
+                        str(e).splitlines()[0][:400]
+                    continue
+            assert not must, f"planted {tag} not caught at {case['tag']}"
+            caught.setdefault(tag, {})[case["tag"]] = \
+                f"not caught; ulps from the nearer of the float32 and F64 " \
+                f"twins: {res['identity']['err']}"
+    for tag, where in caught.items():
+        print(f"planted fault: {tag}: " + "; ".join(
+            v if v.startswith(k) else f"{k}: {v}" for k, v in where.items()),
+              flush=True)
+    return caught
+
+
+def phase_learner_precision(dev) -> dict:
+    """learner_precision on the card: the product probe against each
+    mode's exact chain (_product_probe); B3, B5, B7 and B9 at each product
+    mode against their twins (_mode_holds) at the defaults (B3 batch 256
+    at "updated" and "pre", K 1 and 16; B5 K 1 and 8; B7 K 1 and 8 with
+    the clip at 10 and off; B9 at 131,072 rows and at 1,000), B3 also at
+    the fast preset's batch 8192 x K 8, each timed at every mode in turns
+    with float32 (_precision_cases); then the CLI at each agent's defaults
+    with `--<agent>.learner-precision bfloat16` (the counters zeroed
+    before each run and read after it: the learner kernel as often as at
+    float32, the rollout kernel every step), and each agent at the other
+    values for a few steps."""
+    card = _card()
+    out = {"card": card, "probe": _product_probe(dev)}
+    for case in _precision_cases(dev):
+        entry = out.setdefault(case["key"], {"holds": {}})
+        entry["holds"][case["label"]] = _mode_holds(
+            case["tag"], case["run"], case["twin"], case["nets"],
+            case["one_update"], case["share"])
+        if "time" in case:
+            title, fn, reps, prod, rest, nbytes = case["time"]
+            times = _mode_times(fn, reps)
+            bounds = _mode_bounds(prod, rest, nbytes)
+            print(f"{title}: {_times_line(times, bounds)}", flush=True)
+            entry.update(ms=times, bounds=bounds, **bounds["float32"])
 
     # The CLI: each agent's defaults at bfloat16 (the launches the kernels
     # line reports), then the other legacy values at a small size.
@@ -4558,7 +4969,9 @@ def phase_learner_precision(dev) -> dict:
               f"{ {k: v for k, v in counts.items() if v} }; last loss "
               f"{lines[-1].get('critic_loss', lines[-1].get('loss')):.6g}",
               flush=True)
-    others = ("default", "tensorfloat32", "high", "float32", "highest")
+    others = ("default", "tensorfloat32", "high", "float32", "highest",
+              "BF16_BF16_F32_X3", "BF16_BF16_F32_X6", "F64_F64_F64",
+              "F16_F16_F16")
     for agent in learner:
         t = LRPG_T if agent == "lrpg" else 8
         for value in others:
@@ -4573,7 +4986,9 @@ def phase_learner_precision(dev) -> dict:
             assert rc == 0 and counts[learner[agent]] == n_learn, \
                 (agent, value, rc, counts)
             assert all(math.isfinite(v) for m in lines for v in m.values())
-    print(f"the other legacy values {others} through each agent's learner "
+            if value in PRECISION_MODES:
+                launches[f"{agent} {value}"] = counts
+    print(f"the other values {others} through each agent's learner "
           f"kernel ({PRECISION_CLI_ENVS} envs, {PRECISION_CLI_STEPS} train "
           f"steps each): rc 0, finite metrics, the learner kernel past the "
           f"warmup; CLI runs {time.perf_counter() - t0:.2f} s in all",
@@ -4583,14 +4998,14 @@ def phase_learner_precision(dev) -> dict:
 
 
 def learner_bits(dev, path: str) -> int:
-    """The float32 outputs of B3 ("updated", "pre"), B5, B7 (the clip at
-    10 and off) and B9 at their defaults through whichever package sits
-    beside the script (the wrappers' default call, which every version of
-    the package takes), and each kernel's ms (CUDA events): saved to
-    `path`, or, where `path` exists, compared with it bit for bit (exit 1
-    on a difference). Copy the script into an unpacked parent and run it
-    there and here in turns to hold a change to the parent's bits and
-    time."""
+    """The outputs of B3 ("updated", "pre"), B5, B7 (the clip at 10 and
+    off) and B9 at their defaults, at float32 (the wrappers' default call)
+    and at bfloat16 and TF32 (the modes every version of the package with
+    learner_precision takes), through whichever package sits beside the
+    script, and each kernel's ms (CUDA events): saved to `path`, or, where
+    `path` exists, compared with it bit for bit (exit 1 on a difference).
+    Copy the script into an unpacked parent and run it there and here in
+    turns to hold a change to the parent's bits and time."""
     import os
 
     import torch
@@ -4608,27 +5023,33 @@ def learner_bits(dev, path: str) -> int:
     calls = {}
     for agc in ("updated", "pre"):
         g, b = _b3_inputs(dev, hidden, B3_BATCH, B3_K, seed=21)
-        calls[f"B3 {agc}"] = (g, lambda gs, b=b, agc=agc: lk.ddpg_update_phase(
-            gs, b, B3_T0, hidden, actor_grad_critic=agc, **b3_kw))
+        calls[f"B3 {agc}"] = (g, lambda gs, kw, b=b, agc=agc:
+                              lk.ddpg_update_phase(
+                                  gs, b, B3_T0, hidden, actor_grad_critic=agc,
+                                  **b3_kw, **kw))
     g, b = _b5_inputs(dev, hidden, B5_BATCH, B5_K, seed=21)
-    calls["B5"] = (g, lambda gs, b=b: lk.dqn_update_phase(
-        gs, b, B3_T0, hidden, **b5_kw))
+    calls["B5"] = (g, lambda gs, kw, b=b: lk.dqn_update_phase(
+        gs, b, B3_T0, hidden, **b5_kw, **kw))
     for clip in (cfg.max_grad_norm, 0.0):
         g, b = _b7_inputs(dev, hidden, B7_BATCH, B7_K, seed=33)
-        calls[f"B7 clip {clip}"] = (g, lambda gs, b=b, clip=clip:
+        calls[f"B7 clip {clip}"] = (g, lambda gs, kw, b=b, clip=clip:
                                     lk.naf_update_phase(
                                         gs, b, B3_T0, hidden,
-                                        max_grad_norm=clip, **b7_kw))
+                                        max_grad_norm=clip, **b7_kw, **kw))
     g, w = _b9_inputs(dev, LRPG_HIDDEN, seed=29)
-    calls["B9"] = (g, lambda gs, w=w: lk.lrpg_update_phase(
-        gs, w, B3_T0, LRPG_HIDDEN, **b9_kw))
+    calls["B9"] = (g, lambda gs, kw, w=w: lk.lrpg_update_phase(
+        gs, w, B3_T0, LRPG_HIDDEN, **b9_kw, **kw))
     outs, ms = {}, {}
     for name, (groups, call) in calls.items():
-        got = [x.clone() for x in groups]
-        losses = call(got)
-        losses = list(losses) if isinstance(losses, tuple) else [losses]
-        outs[name] = [x.cpu() for x in got + losses]
-        ms[name] = _time_ms(lambda: call([x.clone() for x in groups]), 20)
+        for p in (None, "bfloat16", "tensorfloat32"):
+            kw = {} if p is None else dict(mm_precision=p)
+            tag = name if p is None else f"{name} {p}"
+            got = [x.clone() for x in groups]
+            losses = call(got, kw)
+            losses = list(losses) if isinstance(losses, tuple) else [losses]
+            outs[tag] = [x.cpu() for x in got + losses]
+            ms[tag] = _time_ms(lambda: call([x.clone() for x in groups], kw),
+                               20)
     torch.cuda.synchronize()
     print(json.dumps({"learner_ms": ms, "card": _card()}), flush=True)
     if not os.path.exists(path):
@@ -4700,6 +5121,13 @@ def main() -> int:
         _warm_card(dev, 2.0)
         print(json.dumps({"precision": phase_learner_precision(dev)}),
               flush=True)
+        return 0
+    if sys.argv[1:] == ["--plant-faults"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        print(_card(), flush=True)
+        _native.load_library()
+        print(json.dumps({"planted": phase_planted_faults(dev)}), flush=True)
         return 0
     if sys.argv[1:] == ["--b1-probe"]:
         probe = b1_probe(dev)
@@ -4864,6 +5292,12 @@ def main() -> int:
             entry["precision_ms"] = {
                 mode: statistics.mean(ts)
                 for mode, ts in precision[key]["ms"].items()}
+            entry["precision_bound_ms"] = {
+                mode: b["bound_ms"]
+                for mode, b in precision[key]["bounds"].items()}
+            entry["precision_chain_ms"] = {
+                mode: b["chain_ms"]
+                for mode, b in precision[key]["bounds"].items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

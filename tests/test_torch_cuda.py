@@ -14,6 +14,7 @@ import contextlib
 import io
 import json
 
+import numpy as np
 import pytest
 import torch
 
@@ -1326,16 +1327,35 @@ def test_gym_adapter_renders_through_b10(cuda):
 
 # --- learner_precision: B3, B5, B7 and B9 at bfloat16 and TF32 ----------------
 
-PRECISIONS = ("bfloat16", "tensorfloat32")
+PRECISIONS = ("bfloat16", "tensorfloat32", "BF16_BF16_F32_X3",
+              "BF16_BF16_F32_X6", "F64_F64_F64", "F16_F16_F16")
+# The modes within the learners' bar of float32 (the product probe below
+# tells them apart; _check_modes requires bits other than float32's).
+PROBED = ("BF16_BF16_F32_X3", "BF16_BF16_F32_X6", "F64_F64_F64")
+# The modes within float32's rounding of float32: a LayerNorm output that
+# close to the relu edge falls either way, so the kernel is held to the
+# nearer of the twin at its mode and the float32 twin, tensor by tensor
+# (chip_smoke.py's NEAR_F32_MODES).
+NEAR_F32 = ("BF16_BF16_F32_X6", "F64_F64_F64")
+# The relative part of the one-update normwise bar: the learners', and at
+# F16 one float16 step (2^-10).
+ONE_UPDATE_RTOL = {p: 2e-4 for p in PRECISIONS}
+ONE_UPDATE_RTOL["F16_F16_F16"] = 2.0 ** -10
 # The reference's bar for its bfloat16 kernel learner against its float32
 # plain learner (tests/test_learner_kernel.py:545-578).
 REF_BAR = dict(rtol=2e-2, atol=2e-3)
 # The share of all the elements that a reduced-mode kernel may have past
 # the learners' elementwise bar against its twin, where the float32 kernel
 # must have more (_check_modes; PERF.md §6 has the readings behind each):
-# after one update (B9: its one window), and B3, B5 and B7 after K 4.
-ONE_UPDATE_SHARE = 1e-5
-B3_K_SHARE, B5_K_SHARE, B7_K_SHARE = 0.03, 0.01, 0.0
+# after one update (B9: its one window), and B3, B5 and B7 after K 4; per
+# mode where they differ.
+ONE_UPDATE_SHARE = {p: 1e-5 for p in PRECISIONS}
+ONE_UPDATE_SHARE["F16_F16_F16"] = 3e-4
+B3_K_SHARE = {p: 0.03 for p in PRECISIONS}
+B3_K_SHARE["F16_F16_F16"] = 0.015
+B5_K_SHARE = {p: 0.01 for p in PRECISIONS}
+B7_K_SHARE = {p: 0.0 for p in PRECISIONS}
+B7_K_SHARE["F16_F16_F16"] = 1e-3
 
 
 def _outside(got, want, rtol=2e-4, atol=1e-5) -> int:
@@ -1355,10 +1375,14 @@ def _check_modes(run_kernel, run_twin, precision, one_update: bool,
     groups are the networks and targets, the rest Adam's moments), one
     counted launch and the same bits from a second run.
 
-    At most `share` of all the elements lie past the learners' elementwise
-    bar (rtol 2e-4, atol 1e-5), and the float32 kernel against the same
-    twin has more past it than that limit: the check tells the modes
-    apart. With rounded operands an ulp between two summation orders
+    At most `share` (per mode) of all the elements lie past the learners'
+    elementwise bar (rtol 2e-4, atol 1e-5), and the float32 kernel against
+    the same twin has more past it than that limit: the check tells the
+    modes apart; at X3, X6 and F64, which lie within that bar of float32,
+    the kernel's bits differ from float32's instead (the product probe
+    tells those modes apart), and at X6 and F64 the nearer of the twin at
+    the mode and the float32 twin is the reference (NEAR_F32). With
+    rounded operands an ulp between two summation orders
     moves an operand by a whole bfloat16 or TF32 step where it crosses a
     rounding edge (the twin on the card and the twin on the CPU part the
     same way), so a few elements part. Besides, after one update (or
@@ -1372,29 +1396,36 @@ def _check_modes(run_kernel, run_twin, precision, one_update: bool,
     (got_g, got_l), launched = run_kernel(precision)
     assert launched == 1
     got, want = _flat(got_g, got_l), _flat(want_g, want_l)
+    if precision in NEAR_F32:
+        want = [w if float((g - w).abs().max()) <= float((g - w32).abs()
+                                                          .max()) else w32
+                for g, w, w32 in zip(got, want, _flat(*run_twin(None)))]
     f32 = _flat(*run_kernel(None)[0])
-    limit = int(share * sum(x.numel() for x in got))
+    limit = int(share[precision] * sum(x.numel() for x in got))
     counts = (_outside(got, want), limit, _outside(f32, want))
-    assert counts[0] <= limit < counts[2], counts
+    if precision in PROBED:
+        assert counts[0] <= limit, counts
+        assert not all(torch.equal(a, b) for a, b in zip(got, f32))
+    else:
+        assert counts[0] <= limit < counts[2], counts
     if one_update:
+        rtol = ONE_UPDATE_RTOL[precision]
         for i, (a, b) in enumerate(zip(got, want)):
             err = float((a - b).abs().max())
-            assert err <= 1e-5 + 2e-4 * float(b.abs().max()), (i, err)
+            assert err <= 1e-5 + rtol * float(b.abs().max()), (i, err)
     else:
-        for a, b in zip(_flat(got_g[:nets], got_l),
-                        _flat(want_g[:nets], want_l)):
+        n_held, n_loss = sum(len(g) for g in got_g[:nets]), len(got_l)
+        for a, b in zip(got[:n_held] + got[-n_loss:],
+                        want[:n_held] + want[-n_loss:]):
             torch.testing.assert_close(a, b, **REF_BAR)
     (again_g, again_l), _ = run_kernel(precision)
     assert all(torch.equal(a, b) for a, b in zip(got,
                                                  _flat(again_g, again_l)))
 
 
-@pytest.mark.parametrize("k", [1, 4])
-@pytest.mark.parametrize("agc", ["updated", "pre"])
-@pytest.mark.parametrize("precision", PRECISIONS)
-def test_b3_at_reduced_precision_matches_its_twin(cuda, precision, agc, k):
-    """B3 at (256, 256), batch 200 (a ragged row tile), K 1 and 4 from
-    warmed moments, at both actor_grad_critic values."""
+def _b3_case(cuda, k, agc):
+    """B3 at (256, 256), batch 200 (a ragged row tile), K updates from
+    warmed moments: (kernel(p), twin(p)) as _check_modes takes them."""
     hidden = (256, 256)
     groups, batches = _b3_inputs(cuda, hidden, 200, k, seed=2)
     kw = dict(actor_lr=1e-3, critic_lr=2e-3, gamma=0.99, tau=0.05,
@@ -1417,14 +1448,11 @@ def test_b3_at_reduced_precision_matches_its_twin(cuda, precision, agc, k):
         views = [lk.group_views(g, lay) for g, lay in zip(got, lays)]
         return (views, losses), lk.ddpg_update_phase.launches - before
 
-    _check_modes(kernel, twin, precision, k == 1, 4,
-                 ONE_UPDATE_SHARE if k == 1 else B3_K_SHARE)
+    return kernel, twin
 
 
-@pytest.mark.parametrize("k", [1, 4])
-@pytest.mark.parametrize("precision", PRECISIONS)
-def test_b5_at_reduced_precision_matches_its_twin(cuda, precision, k):
-    """B5 at (256, 256), batch 200, K 1 and 4 from warmed moments."""
+def _b5_case(cuda, k):
+    """B5 at (256, 256), batch 200, K updates from warmed moments."""
     hidden = (256, 256)
     groups, batches = _b5_inputs(cuda, hidden, 200, k, seed=2)
     kw = dict(lr=1e-3, gamma=0.99, tau=0.05, double_dqn=True)
@@ -1445,16 +1473,12 @@ def test_b5_at_reduced_precision_matches_its_twin(cuda, precision, k):
         views = [lk.group_views(g, lay) for g in got]
         return (views, [loss]), lk.dqn_update_phase.launches - before
 
-    _check_modes(kernel, twin, precision, k == 1, 2,
-                 ONE_UPDATE_SHARE if k == 1 else B5_K_SHARE)
+    return kernel, twin
 
 
-@pytest.mark.parametrize("k", [1, 4])
-@pytest.mark.parametrize("clip", [10.0, 0.0], ids=["clip10", "noclip"])
-@pytest.mark.parametrize("precision", PRECISIONS)
-def test_b7_at_reduced_precision_matches_its_twin(cuda, precision, clip, k):
-    """B7 at (256, 256), batch 200, K 1 and 4 from warmed moments, the lr
-    schedule on, with the clip at 10 and off."""
+def _b7_case(cuda, k, clip):
+    """B7 at (256, 256), batch 200, K updates from warmed moments, the lr
+    schedule on, the clip at `clip`."""
     hidden = (256, 256)
     groups, batches = _b7_inputs(cuda, hidden, 200, k, seed=2)
     kw = dict(lr=1e-3, gamma=0.99, tau=0.05, max_grad_norm=clip,
@@ -1476,17 +1500,12 @@ def test_b7_at_reduced_precision_matches_its_twin(cuda, precision, clip, k):
         views = [lk.group_views(g, lay) for g in got]
         return (views, [loss]), lk.naf_update_phase.launches - before
 
-    _check_modes(kernel, twin, precision, k == 1, 2,
-                 ONE_UPDATE_SHARE if k == 1 else B7_K_SHARE)
+    return kernel, twin
 
 
-@pytest.mark.parametrize("hidden,n", [((64, 64), 1000), ((256, 300), 777)],
-                         ids=["smem", "workspace"])
-@pytest.mark.parametrize("precision", PRECISIONS)
-def test_b9_at_reduced_precision_matches_its_twin(cuda, precision, hidden, n):
-    """B9's one update from warmed moments on both of its routes (shared
-    memory at (64, 64), the workspace at (256, 300))."""
-    groups, window = _b9_inputs(cuda, hidden, n, seed=2)
+def _b9_case(cuda, hidden, n, seed=2):
+    """B9's one update over n rows from warmed moments."""
+    groups, window = _b9_inputs(cuda, hidden, n, seed=seed)
     kw = dict(lr=3e-4, entropy_coef=0.1)
     lay = lk.policy_layout(42, hidden)
 
@@ -1505,7 +1524,90 @@ def test_b9_at_reduced_precision_matches_its_twin(cuda, precision, hidden, n):
         views = [lk.group_views(g, lay) for g in got]
         return (views, [loss]), lk.lrpg_update_phase.launches - before
 
-    _check_modes(kernel, twin, precision, True, 1, ONE_UPDATE_SHARE)
+    return kernel, twin
+
+
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("agc", ["updated", "pre"])
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_b3_at_reduced_precision_matches_its_twin(cuda, precision, agc, k):
+    """B3 at (256, 256), batch 200 (a ragged row tile), K 1 and 4 from
+    warmed moments, at both actor_grad_critic values."""
+    _check_modes(*_b3_case(cuda, k, agc), precision, k == 1, 4,
+                 ONE_UPDATE_SHARE if k == 1 else B3_K_SHARE)
+
+
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_b5_at_reduced_precision_matches_its_twin(cuda, precision, k):
+    """B5 at (256, 256), batch 200, K 1 and 4 from warmed moments."""
+    _check_modes(*_b5_case(cuda, k), precision, k == 1, 2,
+                 ONE_UPDATE_SHARE if k == 1 else B5_K_SHARE)
+
+
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("clip", [10.0, 0.0], ids=["clip10", "noclip"])
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_b7_at_reduced_precision_matches_its_twin(cuda, precision, clip, k):
+    """B7 at (256, 256), batch 200, K 1 and 4 from warmed moments, the lr
+    schedule on, with the clip at 10 and off."""
+    _check_modes(*_b7_case(cuda, k, clip), precision, k == 1, 2,
+                 ONE_UPDATE_SHARE if k == 1 else B7_K_SHARE)
+
+
+@pytest.mark.parametrize("hidden,n", [((64, 64), 1000), ((256, 300), 777)],
+                         ids=["smem", "workspace"])
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_b9_at_reduced_precision_matches_its_twin(cuda, precision, hidden, n):
+    """B9's one update from warmed moments on both of its routes (shared
+    memory at (64, 64), the workspace at (256, 300))."""
+    _check_modes(*_b9_case(cuda, hidden, n), precision, True, 1,
+                 ONE_UPDATE_SHARE)
+
+
+def _ulps(got, want) -> float:
+    """Mean distance of got from want over all the elements, in ulps of
+    want's element, each capped at 64 (chip_smoke.py's _ulps)."""
+    total, n = 0.0, 0
+    for a, b in zip(got, want):
+        mag = b.abs()
+        ulp = torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
+        total += float(((a.double() - b.double()).abs() / ulp.double())
+                       .clamp(max=64).sum())
+        n += a.numel()
+    return total / n
+
+
+@pytest.mark.parametrize("case", [
+    "B3 updated", "B3 pre", "B5", "B7 clip10", "B7 noclip", "B9 smem",
+    "B9 workspace"])
+def test_each_preset_runs_its_own_instance(cuda, case):
+    """After one update, the kernel at each of float32, X3, X6 and F64
+    against the twin at each (chip_smoke.py's _mode_identity): X3's kernel
+    nearest its own twin and each other kernel nearer another twin than
+    X3's, by a factor of 1.4 at least; against the nearer of the float32
+    and F64 twins, F64's kernel nearer than float32's and float32's nearer
+    than X6's by 1.2 at least (exact dots; one rounding a product; six)."""
+    kernel, twin = {
+        "B3 updated": lambda: _b3_case(cuda, 1, "updated"),
+        "B3 pre": lambda: _b3_case(cuda, 1, "pre"),
+        "B5": lambda: _b5_case(cuda, 1),
+        "B7 clip10": lambda: _b7_case(cuda, 1, 10.0),
+        "B7 noclip": lambda: _b7_case(cuda, 1, 0.0),
+        "B9 smem": lambda: _b9_case(cuda, (64, 64), 1000),
+        "B9 workspace": lambda: _b9_case(cuda, (256, 300), 777),
+    }[case]()
+    modes = (None, "BF16_BF16_F32_X3", "BF16_BF16_F32_X6", "F64_F64_F64")
+    got = {p: _flat(*kernel(p)[0]) for p in modes}
+    want = {q: _flat(*twin(q)) for q in modes}
+    d = {p: {q: _ulps(got[p], want[q]) for q in modes} for p in modes}
+    x3, x6, f64 = modes[1:]
+    assert d[x3][x3] * 1.4 <= min(d[x3][q] for q in modes if q != x3), d
+    for p in (None, x6, f64):
+        assert min(d[p][q] for q in modes if q != x3) * 1.4 <= d[p][x3], d
+    err = {p: min(d[p][None], d[p][f64]) for p in modes}
+    assert err[f64] * 1.2 <= err[None] and err[None] * 1.2 <= err[x6], (
+        err, d)
 
 
 @pytest.mark.parametrize("agent", ["ddpg", "dqn", "naf", "lrpg"])
@@ -1537,3 +1639,74 @@ def test_learner_precision_cli_launches_the_learner_kernel(cuda, agent):
         assert steps[-1]["learner_impl"] == 1.0
     assert launches["bfloat16"] == launches[None] == (
         8 if agent == "lrpg" else 7)
+
+
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_b9_routes_give_the_same_bits_at_every_mode(cuda, precision):
+    """At each product mode the shared-memory route and the workspace route
+    of B9 give the same bits at (64, 64), where both take the network (at
+    F64 with its accumulators in double)."""
+    hidden, mode = (64, 64), lk.mm_mode(precision)
+    assert not lk.pg_tile_spills(42, hidden, mode)
+    groups, window = _b9_inputs(cuda, hidden, 1000, seed=4)
+    runs = []
+    for spill in (False, True):
+        got = [g.clone() for g in groups]
+        loss = lk._lrpg_launch(got, window, 100, hidden, 3e-4, 0.1, spill,
+                               mode)
+        torch.cuda.synchronize()
+        runs.append(got + [loss])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_b9_at_f64_takes_the_workspace_route_where_doubles_do_not_fit(cuda):
+    """At (80, 80) the float32 block fits in shared memory and F64's (its
+    accumulators in double) does not: the library rejects F64's
+    shared-memory route, and the wrapper takes the workspace route at F64
+    (never float32's instance), within the learners' bar of the twin at
+    F64 (or of the float32 twin, the nearer, as _check_modes holds F64)."""
+    hidden = (80, 80)
+    assert not lk.pg_tile_spills(42, hidden)
+    assert lk.pg_tile_spills(42, hidden, lk.F64)
+    groups, window = _b9_inputs(cuda, hidden, 1000, seed=5)
+    with pytest.raises(ValueError, match="rejected"):
+        lk._lrpg_launch([g.clone() for g in groups], window, 100, hidden,
+                        3e-4, 0.1, False, lk.F64)
+    _check_modes(*_b9_case(cuda, hidden, 1000, seed=5), "F64_F64_F64", True,
+                 1, ONE_UPDATE_SHARE)
+
+
+def test_product_probe_tells_the_modes_apart(cuda):
+    """csrc/mm_probe.cu (the learners' product helpers alone) at every mode
+    on lk.probe_operands: equal bit for bit to its own mode's exact chain
+    (lk.mm_chain on the CPU, the probe's plain version) and apart from
+    every other mode's in more than a tenth of the elements."""
+    a, b = lk.probe_operands(np.random.RandomState(3), rows=32, cols=48)
+    chains = [lk.mm_chain(a, b, m) for m in range(len(lk.MODE_NAMES))]
+    for m, name in enumerate(lk.MODE_NAMES):
+        got = lk.mm_probe(torch.from_numpy(a).to(cuda),
+                          torch.from_numpy(b).to(cuda), m).cpu().numpy()
+        for i, c in enumerate(chains):
+            share = float((got.view(np.uint32) != c.view(np.uint32)).mean())
+            assert (share == 0.0) if i == m else (share > 0.1), (name, i,
+                                                                 share)
+
+
+def test_split_on_the_card_is_the_cpus(cuda):
+    """Each mode's operand as the card's product helpers take it (X3's and
+    X6's bfloat16 parts, the rounded operand) equals the CPU's
+    (split_operand, round_operand) bit for bit on 100,000 random float32
+    patterns and the rounding edges; NaN where the CPU's is NaN."""
+    rng = np.random.RandomState(4)
+    bits = np.concatenate([
+        np.array([0, 0x80000000, 1, 0x3F808000, 0x7F7F7FFF, 0x7F7F8000,
+                  0x7F800000, 0xFF800000, 0x7FC00000], np.uint32),
+        rng.randint(0, 2 ** 32, 100000, dtype=np.uint64).astype(np.uint32)])
+    x = torch.from_numpy(bits.view(np.float32).copy())
+    for m in range(len(lk.MODE_NAMES)):
+        got = lk.mm_split(x.to(cuda), m).cpu().numpy()
+        want = lk.mm_split(x, m).numpy()
+        nan = np.isnan(want)
+        assert np.array_equal(np.isnan(got), nan)
+        assert np.array_equal(got[~nan].view(np.uint32),
+                              want[~nan].view(np.uint32))

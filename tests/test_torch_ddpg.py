@@ -289,7 +289,8 @@ def test_uniform_train_steps_track_jax_teacher_forced(learner):
 
 def test_unported_learner_settings_raise():
     """The learner setting the port does not take (a dot-algorithm preset
-    as learner_precision) raises at construction, and so does
+    the JAX package refuses too, as learner_precision) raises at
+    construction, and so does
     learner='kernel' where B3 does not cover the config. learner_precision
     "bfloat16", ported since, constructs on B3; bfloat16 nets, ported
     since, construct on the plain learner ("auto" and "xla") and raise
@@ -300,7 +301,7 @@ def test_unported_learner_settings_raise():
                                  learner="kernel"))
     assert agent.kernel_mode and agent.cfg.learner_precision == "bfloat16"
     with pytest.raises(ValueError, match="not ported"):
-        DDPG(env, DDPGConfig(learner_precision="BF16_BF16_F32_X3"))
+        DDPG(env, DDPGConfig(learner_precision="BF16_BF16_F32_X9"))
     for learner in ("auto", "xla"):
         agent = DDPG(env, DDPGConfig(dtype="bfloat16", learner=learner))
         assert not agent.kernel_mode and not agent.kernel_learner_ok()

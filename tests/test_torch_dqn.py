@@ -352,7 +352,8 @@ def test_train_cli_rejects_unported_dqn_neighbours(argv):
     """DQN, NAF and LRPG settings the port lacks exit 2. Pixel NAF, DQN
     block sampling, bfloat16 LRPG and DQN, and NAF's learner precision,
     rejected until they were ported, now train on the CPU and exit 0; a
-    dot-algorithm preset as the learner precision still exits 2."""
+    dot-algorithm preset the JAX package refuses too, as the learner
+    precision, still exits 2."""
     ported = any(f in argv for f in ("pixels", "--dqn.sample",
                                      "--lrpg.dtype", "--dqn.dtype",
                                      "--naf.learner-precision"))
@@ -360,7 +361,7 @@ def test_train_cli_rejects_unported_dqn_neighbours(argv):
     if "--naf.learner-precision" in argv:
         preset = list(argv)
         preset[preset.index("--naf.learner-precision") + 1] = \
-            "BF16_BF16_F32_X3"
+            "BF16_BF16_F32_X9"
         assert cli_rc(["--num-envs", "8", *preset]) == 2
 
 

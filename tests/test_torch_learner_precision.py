@@ -56,14 +56,21 @@ from test_torch_ddpg import DRAWS
 # The reference's bar for its kernel learner at "bfloat16" against the
 # float32 plain learner (tests/test_learner_kernel.py:545-578).
 REF_TOL = dict(rtol=2e-2, atol=2e-3)
-SPELLINGS = {lk.F32: (None, "float32", "highest"),
-             lk.BF16: ("bfloat16", "default"),
+SPELLINGS = {lk.F32: (None, "float32", "highest", "F32_F32_F32"),
+             lk.BF16: ("bfloat16", "default", "BF16_BF16_F32"),
              lk.TF32: ("tensorfloat32", "high")}
-# jax.lax.DotAlgorithmPreset's names, which jax.default_matmul_precision
-# also takes: the port does not.
-PRESETS = ("DEFAULT", "ANY_F8_ANY_F8_F32", "BF16_BF16_F32",
-           "BF16_BF16_F32_X3", "BF16_BF16_F32_X6", "TF32_TF32_F32",
-           "TF32_TF32_F32_X3", "F32_F32_F32", "F64_F64_F64")
+# The dot-algorithm presets (jax.lax.DotAlgorithmPreset's names, which
+# jax.default_matmul_precision also takes) that the port takes, as the JAX
+# package's kernel learners run them on the CPU, each with its mode.
+TAKEN_PRESETS = {"F32_F32_F32": lk.F32, "BF16_BF16_F32": lk.BF16,
+                 "BF16_BF16_F32_X3": lk.X3, "BF16_BF16_F32_X6": lk.X6,
+                 "F64_F64_F64": lk.F64, "F16_F16_F16": lk.F16}
+# The presets the JAX package's kernel learners refuse on the CPU, and so
+# the port: every other DotAlgorithmPreset name.
+PRESETS = tuple(p.name for p in jax.lax.DotAlgorithmPreset
+                if p.name not in TAKEN_PRESETS)
+# A name refused by both, as the refusal tests below spell it.
+REFUSED = "BF16_BF16_F32_X9"
 AGENTS = ("ddpg", "dqn", "naf", "lrpg")
 HIDDEN = (32, 32)
 
@@ -78,22 +85,54 @@ def _one_thread():
 def test_mm_mode_maps_the_legacy_values():
     """Every legacy value maps to its mode, as jax.lax.Precision names the
     same values: bfloat16/default DEFAULT (one bfloat16 pass),
-    tensorfloat32/high HIGH, float32/highest HIGHEST; None is float32."""
+    tensorfloat32/high HIGH, float32/highest HIGHEST; None is float32; the
+    aliases F32_F32_F32 and BF16_BF16_F32 map to float32 and bfloat16, and
+    PRECISIONS holds the legacy values and the presets taken."""
     want = {lk.F32: jax.lax.Precision.HIGHEST,
             lk.BF16: jax.lax.Precision.DEFAULT,
             lk.TF32: jax.lax.Precision.HIGH}
-    assert set(lk.PRECISIONS) == {v for vs in SPELLINGS.values() for v in vs}
+    assert set(lk.PRECISIONS) == ({v for vs in SPELLINGS.values() for v in vs}
+                                  | set(TAKEN_PRESETS))
     for mode, names in SPELLINGS.items():
         for name in names:
             assert lk.mm_mode(name) == mode
-            if name is not None:
+            if name is not None and name not in TAKEN_PRESETS:
                 assert jax.lax.Precision(name) == want[mode]
 
 
-@pytest.mark.parametrize("name", PRESETS + ("float64", "BFLOAT16", 1))
+def _jax_entry(name):
+    """The JAX package's DQN kernel entry (interpret mode) at
+    learner_precision `name` on a small phase: its loss (K,)."""
+    trees = dqn_t._trees(HIDDEN, seed=3)
+    bat = dqn_t._batches(seed=13, k=1)
+    run = jlk.dqn_update_phase(HIDDEN, dqn_t.F, 1, dqn_t.BM,
+                               block_size=dqn_t.BM, interpret=True,
+                               mm_precision=name, **dqn_t.LRS)
+    _, loss = jax.jit(run)(
+        tuple(jlk.flatten_actor(t, HIDDEN) for t in trees),
+        tuple(jnp.asarray(x) for x in bat), jnp.int32(40))
+    return np.asarray(loss)
+
+
+@pytest.mark.parametrize("name", PRESETS + ("float64", "BFLOAT16", 1, "F32",
+                                            "bf16_bf16_f32_x3"))
 def test_mm_mode_rejects_the_presets(name):
+    """Each name the JAX package's kernel entry refuses on the CPU (its
+    dot_general or jax.default_matmul_precision raises), the port refuses
+    too, saying so."""
     with pytest.raises(ValueError, match="is not ported; the port takes"):
         lk.mm_mode(name)
+    with pytest.raises(ValueError):
+        _jax_entry(name)
+
+
+@pytest.mark.parametrize("name", list(TAKEN_PRESETS))
+def test_mm_mode_takes_the_presets(name):
+    """Each preset the JAX package's kernel entry runs on the CPU, the port
+    takes: its mode, a finite loss from the JAX entry."""
+    assert lk.mm_mode(name) == TAKEN_PRESETS[name]
+    assert name in lk.PRECISIONS
+    assert np.isfinite(_jax_entry(name)).all()
 
 
 def _oracle(bits: np.ndarray, mant: int, ties_even: bool) -> np.ndarray:
@@ -309,7 +348,8 @@ def test_twin_at_reduced_precision_within_the_reference_bar(agent,
 
 def test_the_wrappers_take_the_setting_on_the_cpu():
     """Each wrapper on CPU buffers runs its twin at the given precision (the
-    groups move as the twin's do) and refuses a preset name."""
+    groups move as the twin's do) and refuses a name the JAX package
+    refuses too."""
     trees = dqn_t._trees(HIDDEN, seed=3)
     bat = tuple(torch.from_numpy(np.asarray(x))
                 for x in dqn_t._batches(seed=13, k=K))
@@ -325,71 +365,77 @@ def test_the_wrappers_take_the_setting_on_the_cpu():
             assert torch.equal(v, x)
     with pytest.raises(ValueError, match="is not ported"):
         lk.dqn_update_phase([g.clone() for g in groups], bat, 40, HIDDEN,
-                            mm_precision="BF16_BF16_F32_X3", **dqn_t.LRS)
+                            mm_precision=REFUSED, **dqn_t.LRS)
 
 
 # --- train steps at bfloat16 against the reference's plain learner --------
 
-def _floats_close(got, want, path=""):
-    """Two `to_tree` dicts: float tensors within REF_TOL, every integer,
+def _floats_close(got, want, path="", tol=REF_TOL):
+    """Two `to_tree` dicts: float tensors within `tol`, every integer,
     bool and count exact."""
     if isinstance(want, dict):
         assert set(got) == set(want), path
         for k in want:
-            _floats_close(got[k], want[k], f"{path}.{k}")
+            _floats_close(got[k], want[k], f"{path}.{k}", tol)
     elif isinstance(want, list):
         assert len(got) == len(want), path
         for a, b in zip(got, want):
-            _floats_close(a, b, path)
+            _floats_close(a, b, path, tol)
     elif isinstance(want, torch.Tensor) and want.is_floating_point():
         torch.testing.assert_close(got, want, msg=lambda m: f"{path}: {m}",
-                                   **REF_TOL)
+                                   **tol)
     elif isinstance(want, torch.Tensor):
         assert torch.equal(got, want), path
     else:
         assert got == want, path
 
 
-def _agents(name):
-    """(reference agent with the plain learner in float32, the port's agent
-    with the kernel learner's twin at bfloat16, the state converter, the
-    replay draws or None, K) at a small config."""
+def _agents(name, precision="bfloat16", jax_learner="xla"):
+    """(reference agent with the plain learner in float32, or with its
+    kernel learner at `precision` when jax_learner is "kernel", the port's
+    agent with the kernel learner's twin at `precision`, the state
+    converter, the replay draws or None, K) at a small config."""
     cont, disc = jparams.continuous_params(), JCartPoleParams()
+    jkw = ({} if jax_learner == "xla"
+           else dict(learner_precision=precision))
     if name == "ddpg":
         kw = dict(hidden=HIDDEN, rollout_steps=4, updates_per_step=2,
                   batch_size=32, replay_capacity_per_env=16,
                   warmup_env_steps=8)
-        return (JDDPG(JCartPole3D(cont, num_envs=64),
-                      JDDPGConfig(learner="xla", **kw)),
+        jagent = JDDPG(JCartPole3D(cont, num_envs=64),
+                       JDDPGConfig(learner=jax_learner, **jkw, **kw))
+        return (jagent,
                 DDPG(CartPole3D(continuous_params(), num_envs=64,
                                 device="cpu"),
                      DDPGConfig(learner="kernel",
-                                learner_precision="bfloat16", **kw)),
-                ddpg_state_from_jax, DRAWS["column"], 2)
+                                learner_precision=precision, **kw)),
+                lambda port, st: ddpg_state_from_jax(
+                    port, jagent.state_to_tree(st) if jagent.kernel_mode
+                    else st), DRAWS["column"], 2)
     if name in ("dqn", "naf"):
         kw = dict(hidden=HIDDEN, rollout_steps=4, updates_per_step=2,
                   batch_size=32, replay_capacity_per_env=16,
                   warmup_env_steps=8)
         if name == "dqn":
             return (JDQN(JCartPole3D(disc, num_envs=64),
-                         JDQNConfig(learner="xla", **kw)),
+                         JDQNConfig(learner=jax_learner, **jkw, **kw)),
                     DQN(CartPole3D(CartPoleParams(), num_envs=64,
                                    device="cpu"),
                         DQNConfig(learner="kernel",
-                                  learner_precision="bfloat16", **kw)),
+                                  learner_precision=precision, **kw)),
                     dqn_state_from_jax, DRAWS["column"], 2)
         return (JNAF(JCartPole3D(cont, num_envs=64),
-                     JNAFConfig(learner="xla", **kw)),
+                     JNAFConfig(learner=jax_learner, **jkw, **kw)),
                 NAF(CartPole3D(continuous_params(), num_envs=64,
                                device="cpu"),
                     NAFConfig(learner="kernel",
-                              learner_precision="bfloat16", **kw)),
+                              learner_precision=precision, **kw)),
                 naf_state_from_jax, DRAWS["column"], 2)
     kw = dict(hidden=HIDDEN, rollout_steps=8)
     return (JLRPG(JCartPole3D(disc, num_envs=64),
-                  JLRPGConfig(learner="xla", **kw)),
+                  JLRPGConfig(learner=jax_learner, **jkw, **kw)),
             LRPG(CartPole3D(CartPoleParams(), num_envs=64, device="cpu"),
-                 LRPGConfig(learner="kernel", learner_precision="bfloat16",
+                 LRPGConfig(learner="kernel", learner_precision=precision,
                             **kw)),
             lrpg_state_from_jax, None, 1)
 
@@ -403,13 +449,22 @@ def test_bf16_train_steps_track_the_reference_plain_learner(agent):
     (tests/test_learner_kernel.py:545-578): every network, target, Adam
     moment and the losses within rtol 2e-2 / atol 2e-3; counts, the ring's
     cursor and fill and the env state's integers exact."""
-    jagent, port, from_jax, draw, k = _agents(agent)
-    assert port.kernel_mode and not jagent.kernel_mode
+    _track_reference(agent, "bfloat16", "xla", REF_TOL, 4)
+
+
+def _track_reference(agent, precision, jax_learner, tol, steps):
+    """`steps` train steps of the port's kernel learner at `precision`,
+    each from the reference's state (its replay draws injected for DDPG,
+    DQN and NAF), against the reference agent (_agents): every float within
+    `tol`, every integer exact; a loss moved in all but the first step."""
+    jagent, port, from_jax, draw, k = _agents(agent, precision, jax_learner)
+    assert port.kernel_mode
+    assert jagent.kernel_mode == (jax_learner == "kernel")
     jstep = jax.jit(functools.partial(jagent.train_step, fused=False))
     jst = jagent.init(0)
     c = jagent.cfg
     learned = 0
-    for step in range(1, 5):
+    for step in range(1, steps + 1):
         host = jax.device_get(jst)
         indices = None
         if draw is not None:
@@ -425,18 +480,19 @@ def test_bf16_train_steps_track_the_reference_plain_learner(agent):
         try:
             _floats_close(
                 {key: v for key, v in to_tree(pst).items() if key != "rng"},
-                {key: v for key, v in to_tree(want).items() if key != "rng"})
+                {key: v for key, v in to_tree(want).items() if key != "rng"},
+                tol=tol)
             assert m["learner_impl"] == 1.0
             for key, v in jm.items():
                 if key in m and key not in ("learner_impl", "rollout_impl",
                                             "env_steps_per_sec"):
                     np.testing.assert_allclose(float(m[key]), float(v),
-                                               err_msg=key, **REF_TOL)
+                                               err_msg=key, **tol)
         except AssertionError as e:
             raise AssertionError(f"train step {step}: {e}") from e
         loss = m.get("critic_loss", m.get("loss"))
         learned += float(loss) != 0.0
-    assert learned >= 3
+    assert learned >= steps - 1
 
 
 # --- the CLI --------------------------------------------------------------
@@ -463,7 +519,7 @@ CLI_SMALL = {
 def test_cli_trains_at_bfloat16_on_the_kernel_learner(agent):
     """`--<agent>.learner kernel --<agent>.learner-precision bfloat16` on
     the CPU at 16 envs: rc 0, finite metrics, the kernel learner's twin
-    (learner_impl 1.0) past the warmup; a preset name exits 2."""
+    (learner_impl 1.0) past the warmup; a refused name exits 2."""
     base = ["--device", "cpu", "--agent", agent, "--num-envs", "16",
             "--log-interval", "1", *CLI_SMALL[agent],
             f"--{agent}.learner", "kernel"]
@@ -474,9 +530,8 @@ def test_cli_trains_at_bfloat16_on_the_kernel_learner(agent):
     assert lines and all(np.isfinite(v) for m in lines for v in m.values())
     assert lines[-1]["learner_impl"] == 1.0
     rc, _, err = _cli(base + ["--total-env-steps", "16",
-                              f"--{agent}.learner-precision",
-                              "BF16_BF16_F32_X3"])
-    assert rc == 2 and "BF16_BF16_F32_X3" in err
+                              f"--{agent}.learner-precision", REFUSED])
+    assert rc == 2 and REFUSED in err
 
 
 def test_cli_precision_under_a_preset_and_across_a_resume(tmp_path):
@@ -509,8 +564,9 @@ def test_cli_precision_under_a_preset_and_across_a_resume(tmp_path):
 
 
 def test_agents_take_every_legacy_value():
-    """Each agent constructs at every legacy value (the plain learner
-    ignores it, as the reference's does) and raises for a preset name."""
+    """Each agent constructs at every value the port takes (the plain
+    learner ignores it, as the reference's does) and raises for a refused
+    name."""
     cont = continuous_params()
     made = {"ddpg": lambda **kw: DDPG(CartPole3D(cont, num_envs=8,
                                                  device="cpu"),
@@ -529,6 +585,6 @@ def test_agents_take_every_legacy_value():
             for learner in ("kernel", "xla"):
                 agent = make(learner=learner, learner_precision=value)
                 assert agent.kernel_mode == (learner == "kernel")
-        with pytest.raises(ValueError, match="BF16_BF16_F32_X3"):
-            make(learner="kernel", learner_precision="BF16_BF16_F32_X3")
+        with pytest.raises(ValueError, match=REFUSED):
+            make(learner="kernel", learner_precision=REFUSED)
     assert "learner_precision" in inspect.signature(DDPGConfig).parameters

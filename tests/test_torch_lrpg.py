@@ -320,17 +320,17 @@ def test_lrpg_state_from_jax_round_trip():
 
 
 def test_lrpg_config_rejections():
-    """Unknown learners and a dot-algorithm preset as learner_precision
-    raise; learner_precision "highest", ported since, constructs on B9;
-    bfloat16 nets, ported since, take the plain learner and raise with
-    learner='kernel' (B9 is float32, as the reference's kernel_learner_ok
-    says)."""
+    """Unknown learners and a dot-algorithm preset the JAX package refuses
+    too, as learner_precision, raise; learner_precision "highest", ported
+    since, constructs on B9; bfloat16 nets, ported since, take the plain
+    learner and raise with learner='kernel' (B9 is float32, as the
+    reference's kernel_learner_ok says)."""
     env = CartPole3D(CartPoleParams(), num_envs=8, device="cpu")
     agent = LRPG(env, LRPGConfig(learner_precision="highest",
                                  learner="kernel"))
     assert agent.kernel_mode and agent.cfg.learner_precision == "highest"
     for bad in (dict(learner="tpu"),
-                dict(learner_precision="BF16_BF16_F32_X3")):
+                dict(learner_precision="BF16_BF16_F32_X9")):
         with pytest.raises(ValueError, match="not ported|unknown"):
             LRPG(env, LRPGConfig(**bad))
     agent = LRPG(env, LRPGConfig(dtype="bfloat16"))

@@ -357,8 +357,8 @@ def test_train_cli_cuda_rejects_shapes_b6_does_not_cover(argv):
 
 
 def test_unported_settings_and_the_discrete_env_raise():
-    """The setting the port lacks (a dot-algorithm preset as
-    learner_precision) raises at construction; learner_precision "highest",
+    """The setting the port lacks (a dot-algorithm preset the JAX package
+    refuses too, as learner_precision) raises at construction; learner_precision "highest",
     ported since, constructs on B7; bfloat16 nets, ported since, construct
     on the plain learner and raise with learner='kernel' (B7 is float32,
     as the reference's kernel_learner_ok says); block sampling, ported
@@ -368,7 +368,7 @@ def test_unported_settings_and_the_discrete_env_raise():
                                learner="kernel"))
     assert agent.kernel_mode and agent.cfg.learner_precision == "highest"
     with pytest.raises(ValueError, match="not ported"):
-        NAF(env, NAFConfig(learner_precision="BF16_BF16_F32_X3"))
+        NAF(env, NAFConfig(learner_precision="BF16_BF16_F32_X9"))
     agent = NAF(env, NAFConfig(dtype="bfloat16"))
     assert not agent.kernel_mode and agent.fusable()
     with pytest.raises(ValueError, match="not covered by the fused update"):
