@@ -64,7 +64,10 @@
 // kernel is instantiated per products' mode (dims.mm, learner_stages.cuh's
 // modes), and the launcher picks the instance; the X3, X6, F64 and F16
 // instances are built in ddpg_update_x3x6.cu and ddpg_update_f64f16.cu, this
-// source with CP_MM_PRESET_UNIT defined, beside this one.
+// source with CP_MM_PRESET_UNIT defined, beside this one. At the tensor
+// cores' modes (bfloat16, TF32, F16, X3, X6: mm_tc) every product of the
+// row chains runs on the tensor cores (row_chain.cuh's kTc, which B5 and
+// B7 leave off): kTcMode<M> below.
 #include "row_chain.cuh"
 
 // Mirror of ops/_native.py::LearnerDims.
@@ -74,9 +77,22 @@ struct LearnerDims {
   NetLayout actor, critic;
   int spill;  // 1: the items' buffers in the workspace at any width
   int mm;     // the products' mode (learner_stages.cuh's kMm*)
+  int* instance;  // when not null: the instance's id (kMmInstance)
 };
 
 namespace {
+
+// Whether mode M's products run on the tensor cores: bfloat16, X3 and F16.
+// X6 and TF32 keep their fmaf instances (PERF.md §6 has the readings): X6
+// on the tensor cores lies nearer the float32 and F64 twins than the
+// float32 kernel does after one update, against phase 32's identity check
+// (chip_smoke.py's _mode_identity), and its sums chained through the
+// tensor core drift past its share after K updates; TF32 on the tensor
+// cores holds its checks but runs slower than its fmaf instance (each
+// weight converts once per item in both, and TF32's conversion and
+// twice the mma and additions per k cost more than the fmaf it saves).
+template <int M>
+inline constexpr bool kTcMode = mm_tc<M> && M != kMmX6 && M != kMmTf32;
 
 constexpr int kActDim = 2;
 static_assert(kActDim <= kMaxJoin && kActDim <= kQLd, "the action's room");
@@ -129,8 +145,8 @@ __device__ __noinline__ void torso_fwd_once(
     const float* xa, int na, float* act, float* zr, int ldz, float* ring,
     const LearnerConsts& c, const FwdSave& sv, int b0, int nr, int B, int l0,
     int l1, const float* zmain) {
-  torso_fwd<M, R>(T, L, net, F, xa, na, act, zr, ldz, ring, c, sv, b0, nr,
-                  B, l0, l1, zmain);
+  torso_fwd<M, R, kTcMode<M>>(T, L, net, F, xa, na, act, zr, ldz, ring, c, sv,
+                          b0, nr, B, l0, l1, zmain);
 }
 
 template <int M>
@@ -139,8 +155,8 @@ __device__ __noinline__ void torso_bwd_once(
     const float* z, float* dh, float* dzs, int ldz, float* ring,
     const LearnerConsts& c, const BwdSave& sv, int b0, int nr, int B, int lo,
     float* tail) {
-  torso_bwd<M>(T, L, net, join, z, dh, dzs, ldz, ring, c, sv, b0, nr, B, lo,
-               tail);
+  torso_bwd<M, kTcMode<M>>(T, L, net, join, z, dh, dzs, ldz, ring, c, sv, b0,
+                           nr, B, lo, tail);
 }
 
 template <int M>
@@ -148,7 +164,8 @@ __device__ __noinline__ void grad_stage_once(
     const NetGrads* g, int n_nets, const Torso& T, int F, int B,
     const NetPtr* nets, const AdamStep& as, const LearnerConsts& c,
     float* sm) {
-  grad_stage<false, M>(g, n_nets, T, F, B, nets, as, c, sm, FlatStore{});
+  grad_stage<false, M, kTcMode<M>>(g, n_nets, T, F, B, nets, as, c, sm,
+                               FlatStore{});
 }
 
 // The critic's front on R rows whose layer-0 input is in act: layer 0 (its
@@ -160,12 +177,11 @@ __device__ __noinline__ void critic_front(
     const Torso& T, const NetLayout& LC, const float* net, int F, float* act,
     float* zr, int ldz, float* ring, const LearnerConsts& c,
     const FwdSave& sv, int b0, int nr, int B, float* zm) {
-  torso_fwd<M, R>(T, LC, net, F, nullptr, 0, act, zr, ldz, ring, c, sv, b0,
-                  nr, B, 0, 1, nullptr);
+  torso_fwd<M, R, kTcMode<M>>(T, LC, net, F, nullptr, 0, act, zr, ldz, ring, c,
+                          sv, b0, nr, B, 0, 1, nullptr);
   const int h0 = T.h(0), h1 = T.h(1);
-  rows_product<M, R, R + 4, true, kColsF>(act, h0, h1, net + LC.w(1),
-                                          h0 + kActDim, nullptr, zr, ldz,
-                                          ring);
+  rows_product<M, R, R + 4, true, kColsF, kTcMode<M>>(
+      act, h0, h1, net + LC.w(1), h0 + kActDim, nullptr, zr, ldz, ring);
   for (int o = threadIdx.x; o < nr * h1; o += kThreads) {
     const int r = o / h1, cc = o - r * h1;
     zm[static_cast<size_t>(b0 + r) * h1 + cc] = zr[r * ldz + cc];
@@ -232,10 +248,11 @@ __device__ void fwd_item(const LearnerDims& d, const LearnerConsts& c,
                                                    0},
                          b0, nr, B, 0, 0, nullptr);
     CP_MARK(3);  // the actor's torso
-    head_fwd<M, R>(net + LA.wh, net + LA.bh, kActDim, hl, act, ring,
-                   [&](int r, int a, float v) {
-                     if (r < nr) aout[(b0 + r) * kActDim + a] = tanhf(v);
-                   });
+    head_fwd<M, R, kTcMode<M>>(
+        net + LA.wh, net + LA.bh, kActDim, hl, act, ring,
+        [&](int r, int a, float v) {
+          if (r < nr) aout[(b0 + r) * kActDim + a] = tanhf(v);
+        });
     CP_MARK(4);  // its head
   } else if (p == kPassTargetFront || p == kPassActorFront) {
     const bool tgt = p == kPassTargetFront;
@@ -255,10 +272,10 @@ __device__ void fwd_item(const LearnerDims& d, const LearnerConsts& c,
     torso_fwd_once<M, R>(T, LC, C, F, xa, kActDim, act, zr, ldz, ring, c,
                          FwdSave{w.zC, w.hinC, w.hlastC, kActDim}, b0, nr,
                          B, 0, 0, nullptr);
-    head_fwd<M, R>(C + LC.wh, C + LC.bh, 1, hl, act, ring,
-                   [&](int r, int, float v) {
-                     if (r < nr) w.qC[b0 + r] = v;
-                   });
+    head_fwd<M, R, kTcMode<M>>(C + LC.wh, C + LC.bh, 1, hl, act, ring,
+                               [&](int r, int, float v) {
+                                 if (r < nr) w.qC[b0 + r] = v;
+                               });
     CP_MARK(6);  // the critic on (s, a)
   }
 }
@@ -301,13 +318,13 @@ __device__ void bwd_item(const LearnerDims& d, const LearnerConsts& c,
                             critic ? FwdSave{}
                                    : FwdSave{w.zQ, nullptr, nullptr, kActDim},
                             b0, nr, B, 1, 0, critic ? w.zTm : w.zQm);
-  head_fwd<M, kRowsB>(net + LC.wh, net + LC.bh, 1, hl, act, ring,
-                      [&](int r, int, float v) {
-                        if (critic)
-                          da[r] = v;
-                        else if (r < nr)
-                          w.qA[b0 + r] = v;
-                      });
+  head_fwd<M, kRowsB, kTcMode<M>>(net + LC.wh, net + LC.bh, 1, hl, act,
+                                  ring, [&](int r, int, float v) {
+                                    if (critic)
+                                      da[r] = v;
+                                    else if (r < nr)
+                                      w.qA[b0 + r] = v;
+                                  });
   CP_MARK(7);  // the critic's rest
   if (critic) {
     if (tid < kRowsB) {  // the TD epilogue, one row a thread
@@ -325,7 +342,7 @@ __device__ void bwd_item(const LearnerDims& d, const LearnerConsts& c,
       dqs[tid * kQLd] = g;
     }
     __syncthreads();
-    head_bwd<M>(dqs, 1, C + LC.wh, hl, dh, ldz);
+    head_bwd<M, kTcMode<M>>(dqs, 1, C + LC.wh, hl, dh, ldz);
     torso_bwd_once<M>(T, LC, C, kActDim, w.zC, dh, dzs, ldz, ring, c,
                       BwdSave{w.dzC, w.dyC, w.dyxhC}, b0, nr, B, 0, nullptr);
     CP_MARK(8);  // the TD epilogue and the critic's backward
@@ -333,7 +350,7 @@ __device__ void bwd_item(const LearnerDims& d, const LearnerConsts& c,
   }
   if (tid < kRowsB) dqs[tid * kQLd] = tid < nr ? c.neg_inv_batch : 0.0f;
   __syncthreads();
-  head_bwd<M>(dqs, 1, C + LC.wh, hl, dh, ldz);
+  head_bwd<M, kTcMode<M>>(dqs, 1, C + LC.wh, hl, dh, ldz);
   torso_bwd_once<M>(T, LC, C, kActDim, w.zQ, dh, dzs, ldz, ring, c,
                     BwdSave{}, b0, nr, B, 1, da);
   if (tid < kRowsB * kActDim) {  // through the tanh head
@@ -348,7 +365,7 @@ __device__ void bwd_item(const LearnerDims& d, const LearnerConsts& c,
     dps[r * kQLd + a] = g;
   }
   __syncthreads();
-  head_bwd<M>(dps, kActDim, A + LA.wh, hl, dh, ldz);
+  head_bwd<M, kTcMode<M>>(dps, kActDim, A + LA.wh, hl, dh, ldz);
   torso_bwd_once<M>(T, LA, A, 0, w.zA, dh, dzs, ldz, ring, c,
                     BwdSave{w.dzA, w.dyA, w.dyxhA}, b0, nr, B, 0, nullptr);
   CP_MARK(9);  // the actor's backward
@@ -362,6 +379,8 @@ __global__ void __launch_bounds__(kThreads, 1) ddpg_update_kernel(
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
   const int B = d.batch, F = d.obs_dim;
+  if (blockIdx.x == 0 && threadIdx.x == 0 && d.instance != nullptr)
+    *d.instance = kMmInstance<M, kTcMode<M>>;
   int* const tab = reinterpret_cast<int*>(smem + rp.region);
   const Torso T = stage_table(d.torso, table_ints(d), tab);
   const NetLayout LA = layout_on(d.actor, d.torso, T);

@@ -338,6 +338,307 @@ __device__ __forceinline__ float mm_out(mm_acc_t<M> acc) {
     return static_cast<float>(acc);
 }
 
+// --- the tensor cores' products ---------------------------------------------
+//
+// B9 at kMmBf16, kMmTf32, kMmF16, kMmX3 and kMmX6 (mm_tc), and B3 at
+// kMmBf16, kMmX3 and kMmF16 (ddpg_update.cu's kTcMode), form every product
+// with
+// mma.sync instead of the fmaf chains above: m16n8k16 on bfloat16 or
+// float16 operands, m16n8k8 on TF32 ones, float32 sums. The operands enter
+// as mm_in rounds or splits them (mma_pack, tf32_bits: the same bits,
+// packed two bfloat16 or float16 values a register), so every product is
+// exact, as in the chains. A k-block is 16 terms (8 at TF32); at X3 and X6
+// its part products are mmas in the twins' order, the smallest first
+// (mm_part); B9 adds each into the running float32 sum in the tensor core
+// (kAccChain), B3 adds each, made from zero, on the CUDA cores (kAccPass).
+// The dot's result goes on as mm_out gives it (F16: rounded to float16).
+// Bound at these modes (PERF.md §6): the products at the peak for their
+// operand type (989 TFLOP/s bfloat16 and float16, 495 TF32) take B9's
+// window ~5 us and B3's phase 6-89 us, so the float32 rest and, in B3,
+// the row chain's weight streaming set the pace. The fragments follow
+// PTX's layouts for mma.m16n8k16 and .m16n8k8 (lane l: g = l / 4, t = l %
+// 4): A's registers hold rows g and g + 8 at k 2t, 2t + 1 (+ 8); B's, k 2t,
+// 2t + 1 (+ 8) at column g; D's, rows g and g + 8 at columns 2t, 2t + 1.
+// A zero outside the product pads every edge (mma_floats' functions).
+
+// A build with CP_MM_FFMA defined keeps every mode on the fmaf chains (the
+// instances as they were before the tensor cores): chip_smoke.py builds
+// B3's and B9's sources so, apart, as phase 32's yardstick; the library
+// the wrappers load never defines it.
+#ifdef CP_MM_FFMA
+template <int M>
+inline constexpr bool mm_tc = false;
+#else
+template <int M>
+inline constexpr bool mm_tc = M == kMmBf16 || M == kMmTf32 ||
+                              M == kMmF16 || M == kMmX3 || M == kMmX6;
+#endif
+template <int M>
+inline constexpr int kMmaK = M == kMmTf32 ? 8 : 16;   // k of one mma
+template <int M>
+inline constexpr int kMmaParts = M == kMmX3 ? 2 : M == kMmX6 ? 3 : 1;
+// The id a learner kernel's instance writes where its dims ask for it
+// (LearnerDims::instance in ddpg_update.cu, PgDims::instance in
+// lrpg_update.cu): its mode, plus kMmTcId where its products run on the
+// tensor cores (ops/learner_kernel.py::last_instance reads it).
+constexpr int kMmTcId = 16;
+template <int M, bool kTc>
+inline constexpr int kMmInstance = M | (kTc ? kMmTcId : 0);
+
+__host__ __device__ constexpr bool mm_tc_mode(int m) {
+  return m == kMmBf16 ? mm_tc<kMmBf16>
+         : m == kMmTf32 ? mm_tc<kMmTf32>
+         : m == kMmF16  ? mm_tc<kMmF16>
+         : m == kMmX3   ? mm_tc<kMmX3>
+                        : m == kMmX6 && mm_tc<kMmX6>;
+}
+__host__ __device__ constexpr int mm_parts(int m) {
+  return m == kMmX3 ? 2 : m == kMmX6 ? 3 : 1;
+}
+
+// The part of the left (side 0) or right (side 1) operand in pass p of
+// mode m (ops/learner_kernel.py's _PASSES; parts 0 hi, 1 lo at X3 or mid
+// at X6, 2 lo): X3 lo.hi, hi.lo, hi.hi; X6 mid.mid, lo.hi, hi.lo, mid.hi,
+// hi.mid, hi.hi; one pass of part 0 at the other modes.
+__host__ __device__ constexpr int mm_part(int m, int p, int side) {
+  const int code = m == kMmX3   ? (side == 0 ? 0x001 : 0x010)
+                   : m == kMmX6 ? (side == 0 ? 0x001021 : 0x010201)
+                                : 0;
+  return (code >> (4 * p)) & 15;
+}
+__host__ __device__ constexpr int mm_passes(int m) {
+  return m == kMmX3 ? 3 : m == kMmX6 ? 6 : 1;
+}
+
+// bf16_rn(lo) and bf16_rn(hi) packed (lo in the low half) by one
+// conversion (round to nearest even, as bf16_rn; a NaN quiet).
+__device__ __forceinline__ unsigned cvt_bf16x2(float lo, float hi) {
+  unsigned r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+// The float32 values of a packed pair's halves.
+__device__ __forceinline__ float bf16_lo(unsigned p) {
+  return __uint_as_float(p << 16);
+}
+__device__ __forceinline__ float bf16_hi(unsigned p) {
+  return __uint_as_float(p & 0xffff0000u);
+}
+
+// x as a TF32 operand's register (mm_in<kMmTf32>'s bits; a NaN quiet).
+__device__ __forceinline__ unsigned tf32_bits(float x) {
+  const float r = mm_in<kMmTf32>(x);
+  return r != r ? 0x7fc00000u : __float_as_uint(r);
+}
+
+// Elements x0 (k) and x1 (k + 1) of an operand as mode M takes them, packed
+// two 16-bit values a register (x0 low): p[i] = part i (kMmBf16, kMmF16:
+// the rounded operand; X3: hi, lo; X6: hi, mid, lo).
+// (Each part is what mm_in gives, by the hardware's conversions: a
+// residual is taken where its part is finite, as mm_rest.)
+template <int M>
+__device__ __forceinline__ void mma_pack(float x0, float x1,
+                                         unsigned (&p)[kMmaParts<M>]) {
+  if constexpr (M == kMmF16) {
+    const __half2 h = __floats2half2_rn(x0, x1);
+    p[0] = *reinterpret_cast<const unsigned*>(&h);
+  } else if constexpr (M == kMmBf16) {
+    p[0] = cvt_bf16x2(x0, x1);
+  } else if constexpr (M == kMmX3 || M == kMmX6) {
+    p[0] = cvt_bf16x2(x0, x1);
+    float r0 = mm_rest(x0, bf16_lo(p[0])), r1 = mm_rest(x1, bf16_hi(p[0]));
+    p[1] = cvt_bf16x2(r0, r1);
+    if constexpr (M == kMmX6) {
+      r0 = r0 - bf16_lo(p[1]);
+      r1 = r1 - bf16_hi(p[1]);
+      p[2] = cvt_bf16x2(r0, r1);
+    }
+  }
+}
+
+// An operand given by its float32 elements: f(i, k) = element (i, k) of A
+// (i a row), or element (k, i) of B (i a column), 0 outside the product;
+// converted as the fragments are loaded. A source gives a b16 mode's pair
+// of elements (i, k), (i, k + 1) (k even) as packed parts (pair), and
+// TF32's as two registers (two).
+template <int M, class F>
+struct MmaFloats {
+  F f;
+  __device__ __forceinline__ void two(int i, int k, unsigned& lo,
+                                      unsigned& hi) const {
+    lo = tf32_bits(f(i, k));
+    hi = tf32_bits(f(i, k + 1));
+  }
+  __device__ __forceinline__ void pair(int i, int k,
+                                       unsigned (&p)[kMmaParts<M>]) const {
+    mma_pack<M>(f(i, k), f(i, k + 1), p);
+  }
+};
+template <int M, class F>
+__device__ __forceinline__ MmaFloats<M, F> mma_floats(F f) {
+  return MmaFloats<M, F>{f};
+}
+
+// As MmaFloats, where f2(i, k) (k even) gives elements k and k + 1 at once
+// (one 8-byte load where they lie side by side); f(i, k) one element.
+template <int M, class F, class F2>
+struct MmaPairs {
+  F f;
+  F2 f2;
+  __device__ __forceinline__ void two(int i, int k, unsigned& lo,
+                                      unsigned& hi) const {
+    const float2 v = f2(i, k);
+    lo = tf32_bits(v.x);
+    hi = tf32_bits(v.y);
+  }
+  __device__ __forceinline__ void pair(int i, int k,
+                                       unsigned (&p)[kMmaParts<M>]) const {
+    const float2 v = f2(i, k);
+    mma_pack<M>(v.x, v.y, p);
+  }
+};
+template <int M, class F, class F2>
+__device__ __forceinline__ MmaPairs<M, F, F2> mma_pairs(F f, F2 f2) {
+  return MmaPairs<M, F, F2>{f, f2};
+}
+
+// An operand packed in shared memory as mode M's parts, planes of `plane`
+// words: a pair (i, k), (i, k + 1) one word at p[(k / 2) ld + i] (b16
+// modes), an element (i, k) at p[k ld + i] (TF32).
+template <int M>
+struct MmaPacked {
+  const unsigned* p;
+  int ld, plane;
+  __device__ __forceinline__ void two(int i, int k, unsigned& lo,
+                                      unsigned& hi) const {
+    lo = p[k * ld + i];
+    hi = p[(k + 1) * ld + i];
+  }
+  __device__ __forceinline__ void pair(int i, int k,
+                                       unsigned (&o)[kMmaParts<M>]) const {
+#pragma unroll
+    for (int q = 0; q < kMmaParts<M>; ++q)
+      o[q] = p[q * plane + (k >> 1) * ld + i];
+  }
+};
+
+// One k-block's fragments: A (16 x kMmaK) and B (kMmaK x 8), per part.
+template <int M>
+struct MmaA {
+  unsigned r[kMmaParts<M>][4];
+};
+template <int M>
+struct MmaB {
+  unsigned r[kMmaParts<M>][2];
+};
+
+// A's fragment at rows m0 .., k k0 ..; s: a source (MmaFloats, or packed
+// parts) of A's elements.
+// At TF32 (m16n8k8) a lane's k slots t and t + 4 take the block's inputs
+// 2t and 2t + 1, in A and in B alike (a block's sum does not depend on the
+// order of its terms), so that the two lie side by side.
+template <int M, class S>
+__device__ __forceinline__ MmaA<M> mma_load_a(const S& s, int m0, int k0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  MmaA<M> a;
+  if constexpr (M == kMmTf32) {
+    s.two(m0 + g, k0 + 2 * t, a.r[0][0], a.r[0][2]);
+    s.two(m0 + g + 8, k0 + 2 * t, a.r[0][1], a.r[0][3]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      unsigned p[kMmaParts<M>];
+      s.pair(m0 + g + (q & 1) * 8, k0 + 2 * t + (q >> 1) * 8, p);
+#pragma unroll
+      for (int i = 0; i < kMmaParts<M>; ++i) a.r[i][q] = p[i];
+    }
+  }
+  return a;
+}
+
+// B's fragment at columns n0 .., k k0 ..; s(i, k): element (k, i) of B.
+template <int M, class S>
+__device__ __forceinline__ MmaB<M> mma_load_b(const S& s, int n0, int k0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  MmaB<M> b;
+  if constexpr (M == kMmTf32) {
+    s.two(n0 + g, k0 + 2 * t, b.r[0][0], b.r[0][1]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      unsigned p[kMmaParts<M>];
+      s.pair(n0 + g, k0 + 2 * t + q * 8, p);
+#pragma unroll
+      for (int i = 0; i < kMmaParts<M>; ++i) b.r[i][q] = p[i];
+    }
+  }
+  return b;
+}
+
+// d = a b + c, one mma.
+template <int M>
+__device__ __forceinline__ void mma_op(float (&d)[4], const unsigned (&a)[4],
+                                       const unsigned (&b)[2],
+                                       const float (&c)[4]) {
+  if constexpr (M == kMmTf32)
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%10, %11, %12, %13};\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+          "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+  else if constexpr (M == kMmF16)
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%10, %11, %12, %13};\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+          "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+  else
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%10, %11, %12, %13};\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+          "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+}
+
+// How a product's k-blocks reach its float32 sum (mma_add's kAcc; PERF.md
+// §6 has the readings behind each kernel's choice):
+//   kAccChain (B9): every mma takes the running sum as its C, so the
+//     tensor core adds each block's products (at X3 and X6 each part
+//     product, in turn) into the sum, aligning them to it and dropping
+//     low bits.
+//   kAccPass (B3, and the tensor-core probe): each part product of each
+//     k-block one mma from zero, added on the CUDA cores (round to
+//     nearest): the tensor core's own rounding stays within 16 products
+//     (8 at TF32). With exact blocks its bits are mma_chain's, so the
+//     probe holds the fragments, the parts and their order bit for bit.
+enum : int { kAccChain = 0, kAccPass = 1 };
+
+// acc += A B over one k-block: mode M's part products in order (mm_part)
+// as kAcc adds them. kSwap: A holds the twin's right operand (B its left),
+// so the passes take the parts the other way round.
+template <int M, bool kSwap, int kAcc>
+__device__ __forceinline__ void mma_add(const MmaA<M>& a, const MmaB<M>& b,
+                                        float (&acc)[4]) {
+  constexpr int kL = kSwap ? 1 : 0;
+#pragma unroll
+  for (int p = 0; p < mm_passes(M); ++p) {
+    const unsigned(&ra)[4] = a.r[mm_part(M, p, kL)];
+    const unsigned(&rb)[2] = b.r[mm_part(M, p, 1 - kL)];
+    if constexpr (kAcc == kAccChain) {
+      mma_op<M>(acc, ra, rb, acc);
+    } else {
+      const float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      float d[4];
+      mma_op<M>(d, ra, rb, z);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[q] = acc[q] + d[q];
+    }
+  }
+}
+
 // LayerNorm statistics of one row (one-pass variance, as the twin).
 __device__ __forceinline__ void ln_stats(const float* row, int n, float eps,
                                          int lane, float& mu, float& inv) {

@@ -53,6 +53,23 @@
 // and loss sums, which are no dots, stay float32 sums at every mode, held
 // in those doubles: sum_into); at kMmF16 the weight gradients' float32
 // sums are rounded to float16 there. Pass 2 makes no product.
+//
+// At the tensor cores' modes (bfloat16, TF32, F16, X3, X6: mm_tc) pass 1
+// forms every product with mma.sync (learner_stages.cuh's fragment
+// helpers) in place of the register-tiled fmaf chains: the tile's 64 rows
+// on the mma's M dimension (4 tiles of 16), the output features on N, the
+// inputs (or, for a weight gradient, the rows) on K, the sums chained
+// through the tensor core; mma_rows and mma_grad. On the shared-memory
+// route the weights are rounded or split
+// once per block into packed bfloat16, float16 or TF32 copies there
+// (PackedW: one copy per matrix, read directly for the forward and as its
+// transpose for dh = dz W), in place of the float32 copy; on the workspace
+// route each fragment's weights are read from the group buffer and
+// converted as they load. The activations and gradients, float32 in the
+// tile, are converted as their fragments load. Bound at these modes: the
+// products' ~4.9 GFLOP take ~5 us at bfloat16's 989 TFLOP/s, so the
+// window's bytes (~7 us) and the float32 rest (LayerNorm, softmax, the
+// bias and LayerNorm sums) set the bound.
 #include "learner_stages.cuh"
 
 // Mirror of ops/_native.py::PgDims.
@@ -64,6 +81,7 @@ struct PgDims {
   Torso torso;
   NetLayout net;
   int mm;      // the products' mode (learner_stages.cuh's kMm*)
+  int* instance;  // when not null: pass 1's instance id (kMmInstance)
 };
 
 // Mirror of ops/_native.py::PgConsts: the float32 constants, folded on the
@@ -87,6 +105,20 @@ constexpr int kMaxSmem = 232448;
 static_assert(kThreads == 4 * kPgRows, "4 threads per row");
 
 __host__ __device__ inline int pad4(int n) { return (n + 3) & ~3; }
+__host__ __device__ inline int pad16(int n) { return (n + 15) & ~15; }
+
+// 32-bit words of a row of a packed weight copy at tensor-core mode m, for
+// K inputs: pad16(K) bfloat16 or float16 values two a word (TF32: one),
+// and 4 words more, so that the 8 rows and 4 lanes of a fragment's load
+// fall in 32 different banks.
+__host__ __device__ inline int mma_row_words(int m, int K) {
+  return m == kMmTf32 ? pad16(K) + 4 : pad16(K) / 2 + 4;
+}
+// Words of one packed matrix of n outputs and K inputs, all its parts.
+__host__ __device__ inline long long mma_matrix_words(int m, int n, int K) {
+  return static_cast<long long>(mm_parts(m)) * pad16(n) *
+         mma_row_words(m, K);
+}
 
 // Floats of one accumulator of mode m: a double's two at kMmF64.
 __host__ __device__ inline int acc_floats(int m) {
@@ -306,6 +338,122 @@ __device__ __forceinline__ void prod_grad(const float* G, int out,
   }
 }
 
+// A packed weight copy (the shared-memory route at a tensor-core mode) as
+// the source of a product's B: W (n outputs x K inputs, torch's layout)
+// part by part, planes of `plane` words, rows of sw words. kT false: B(k,
+// c) = W[c][k] (the forward, a pair of inputs one word); kT: B(j, i) =
+// W[j][i] (dh = dz W, a pair of outputs two 16-bit loads).
+template <int M, bool kT>
+struct PackedW {
+  const unsigned* p;
+  int sw, plane;
+  __device__ __forceinline__ void two(int n, int k, unsigned& lo,
+                                      unsigned& hi) const {
+    lo = p[kT ? k * sw + n : n * sw + k];
+    hi = p[kT ? (k + 1) * sw + n : n * sw + k + 1];
+  }
+  __device__ __forceinline__ void pair(int n, int k,
+                                       unsigned (&o)[kMmaParts<M>]) const {
+#pragma unroll
+    for (int i = 0; i < kMmaParts<M>; ++i) {
+      const unsigned* q = p + i * plane;
+      if constexpr (kT) {
+        const unsigned short* h = reinterpret_cast<const unsigned short*>(q);
+        o[i] = static_cast<unsigned>(h[2 * k * sw + n]) |
+               static_cast<unsigned>(h[2 * (k + 1) * sw + n]) << 16;
+      } else {
+        o[i] = q[n * sw + k / 2];
+      }
+    }
+  }
+};
+
+// Y(c, r) = sum_k X(k, r) B(k, c) (+ bias[c]) for c < n and the tile's
+// rows on the tensor cores (prod_rows' function at a tensor-core mode): X
+// feature-major, zero past K; B from `w` (zeros past K and n); each
+// k-block's product added into the float32 sum by the tensor core
+// (kAccChain), then mm_out and the bias. A unit is a 16-row m-tile x kNT
+// n-tiles of 8 columns, its A
+// fragment loaded once a k-block for all of them; warp w takes units w, w
+// + kWarps, ...
+template <int M, class WS>
+__device__ __forceinline__ void mma_rows(const float* X, int K, const WS& w,
+                                         int n,
+                                         const float* __restrict__ bias,
+                                         float* Y) {
+  constexpr int kMT = kPgRows / 16, kNT = 4;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int ntn = (n + 7) / 8, units = kMT * ((ntn + kNT - 1) / kNT);
+  const auto xs = mma_floats<M>(
+      [=](int r, int k) { return k < K ? X[k * kPgLd + r] : 0.0f; });
+  for (int u = threadIdx.x >> 5; u < units; u += kWarps) {
+    const int m0 = (u % kMT) * 16, nt0 = (u / kMT) * kNT;
+    float acc[kNT][4] = {};
+    for (int k0 = 0; k0 < K; k0 += kMmaK<M>) {
+      const MmaA<M> a = mma_load_a<M>(xs, m0, k0);
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+        if (nt0 + j < ntn)
+          mma_add<M, false, kAccChain>(
+              a, mma_load_b<M>(w, (nt0 + j) * 8, k0), acc[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int r = m0 + g + (q >> 1) * 8;
+        const int c = (nt0 + j) * 8 + 2 * t + (q & 1);
+        if (c < n) {
+          const float v = mm_out<M>(acc[j][q]);
+          Y[c * kPgLd + r] = bias != nullptr ? v + __ldg(bias + c) : v;
+        }
+      }
+  }
+}
+
+// dst[j in + k] += sum_r G(j, r) X(k, r) over the tile's rows, j < out, k <
+// in, on the tensor cores (prod_grad's function at a tensor-core mode): a
+// unit is one 16 x 8 tile of the gradient, its accumulators read once and
+// written once, each k-block of rows added into them by the tensor core
+// (kAccChain); warp w takes units w, w + kWarps, ...
+template <int M>
+__device__ __forceinline__ void mma_grad(const float* G, int out,
+                                         const float* X, int in, float* dst) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int nt = (in + 7) / 8, units = (out + 15) / 16 * nt;
+  // Both operands' pairs lie side by side (rows r, r + 1 of a feature).
+  const auto gs = mma_pairs<M>(
+      [=](int j, int r) { return j < out ? G[j * kPgLd + r] : 0.0f; },
+      [=](int j, int r) {
+        return j < out ? *reinterpret_cast<const float2*>(G + j * kPgLd + r)
+                       : make_float2(0.0f, 0.0f);
+      });
+  const auto xs = mma_pairs<M>(
+      [=](int k, int r) { return k < in ? X[k * kPgLd + r] : 0.0f; },
+      [=](int k, int r) {
+        return k < in ? *reinterpret_cast<const float2*>(X + k * kPgLd + r)
+                      : make_float2(0.0f, 0.0f);
+      });
+  for (int u = threadIdx.x >> 5; u < units; u += kWarps) {
+    const int m0 = (u / nt) * 16, n0 = (u % nt) * 8;
+    float acc[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int j = m0 + g + (q >> 1) * 8, k = n0 + 2 * t + (q & 1);
+      acc[q] = j < out && k < in ? dst[j * in + k] : 0.0f;
+    }
+#pragma unroll 4
+    for (int r0 = 0; r0 < kPgRows; r0 += kMmaK<M>)
+      mma_add<M, false, kAccChain>(mma_load_a<M>(gs, m0, r0),
+                                   mma_load_b<M>(xs, n0, r0), acc);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int j = m0 + g + (q >> 1) * 8, k = n0 + 2 * t + (q & 1);
+      if (j < out && k < in) dst[j * in + k] = acc[q];
+    }
+  }
+}
+
 // dst += s for a sum that is no dot (a bias, LayerNorm or loss sum): a
 // float32 sum at every mode, whatever the accumulator's type (a double at
 // kMmF64 holds the float32 value).
@@ -472,6 +620,33 @@ __device__ __forceinline__ void load_obs(float* x0,
   if constexpr (kAsync) cp_async_commit();
 }
 
+// A forward product's B from W (n outputs x K inputs, torch's layout) in
+// device memory, B(k, c) = W[c][k], converted as the fragments load (the
+// workspace route at a tensor-core mode).
+template <int M>
+__device__ __forceinline__ auto w_fwd(const float* __restrict__ W, int n,
+                                      int K) {
+  return mma_floats<M>([=](int c, int k) {
+    return c < n && k < K ? __ldg(W + static_cast<size_t>(c) * K + k) : 0.0f;
+  });
+}
+// dh = dz W's B from W (n x K) in device memory: B(j, i) = W[j][i].
+template <int M>
+__device__ __forceinline__ auto w_bwd(const float* __restrict__ W, int n,
+                                      int K) {
+  return mma_floats<M>([=](int i, int j) {
+    return i < K && j < n ? __ldg(W + static_cast<size_t>(j) * K + i) : 0.0f;
+  });
+}
+// The packed copy of W (n x K) at word `off` of shared memory.
+template <int M, bool kT>
+__device__ __forceinline__ PackedW<M, kT> w_packed(const float* smem, int off,
+                                                   int n, int K) {
+  const int sw = mma_row_words(M, K);
+  return PackedW<M, kT>{reinterpret_cast<const unsigned*>(smem) + off, sw,
+                        pad16(n) * sw};
+}
+
 // Pass 1: block b sums the gradient and the loss terms of rows [b rpb,
 // min(N, (b + 1) rpb)) into ws[b (P + 1) ...], P = d.net.size, the loss
 // sum last; rpb is a multiple of kPgRows. kSpill: the workspace route (the
@@ -505,11 +680,41 @@ __global__ void __launch_bounds__(kThreads, 1) lrpg_grad_kernel(
   const int row_begin = blockIdx.x * rpb;
   const int row_end = min(N, row_begin + rpb);
   CP_MARK_START();
+  if (blockIdx.x == 0 && tid == 0 && d.instance != nullptr)
+    *d.instance = kMmInstance<M, mm_tc<M>>;
   if constexpr (!kSpill) load_obs<true>(t.x0[0], obs, row_begin, row_end, F);
   for (int i = tid; i <= P; i += kThreads) g[i] = 0.0f;
-  // The transposed weights: layer l's (K_l, pad4(H_l)) block, then the
-  // head's (H_{L-1}, 8); zeros first, then the weights over them.
-  if constexpr (!kSpill) {
+  // The weights' copy: at a tensor-core mode each matrix packed (every
+  // layer's W, then the head's: mma_matrix_words each); else transposed,
+  // layer l's (K_l, pad4(H_l)) block, then the head's (H_{L-1}, 8), zeros
+  // first, then the weights over them.
+  if constexpr (!kSpill && mm_tc<M>) {
+    unsigned* const pw = reinterpret_cast<unsigned*>(smem);
+    int off = 0;
+    for (int l = 0; l <= nl; ++l) {
+      const bool head = l == nl;
+      const int K = head ? hl : (l == 0 ? F : T.h(l - 1));
+      const int n = head ? kPgActions : T.h(l);
+      const float* W = prm + (head ? L.wh : L.w(l));
+      const int sw = mma_row_words(M, K), plane = pad16(n) * sw;
+      for (int i = tid; i < plane; i += kThreads) {
+        const int cc = i / sw, w = i - cc * sw;
+        const float* row = W + static_cast<size_t>(cc) * K;
+        if constexpr (M == kMmTf32) {
+          pw[off + i] = tf32_bits(cc < n && w < K ? __ldg(row + w) : 0.0f);
+        } else {
+          const int k = 2 * w;
+          unsigned q[kMmaParts<M>];
+          mma_pack<M>(cc < n && k < K ? __ldg(row + k) : 0.0f,
+                      cc < n && k + 1 < K ? __ldg(row + k + 1) : 0.0f, q);
+#pragma unroll
+          for (int j = 0; j < kMmaParts<M>; ++j)
+            pw[off + j * plane + i] = q[j];
+        }
+      }
+      off += kMmaParts<M> * plane;
+    }
+  } else if constexpr (!kSpill) {
     for (int i = tid; i < d.wt; i += kThreads) smem[i] = 0.0f;
     __syncthreads();
     int off = 0;
@@ -527,6 +732,13 @@ __global__ void __launch_bounds__(kThreads, 1) lrpg_grad_kernel(
     }
   }
 
+  // Floats (words) of a matrix's copy, n outputs x K inputs.
+  auto wsize = [](int n, int K) -> int {
+    if constexpr (mm_tc<M>)
+      return static_cast<int>(mma_matrix_words(M, n, K));
+    else
+      return K * pad4(n);
+  };
   int buf = 0;
   for (int row0 = row_begin; row0 < row_end; row0 += kPgRows, buf ^= 1) {
     const int nr = min(kPgRows, row_end - row0);
@@ -553,20 +765,32 @@ __global__ void __launch_bounds__(kThreads, 1) lrpg_grad_kernel(
       const int K = l == 0 ? F : T.h(l - 1);
       const int h = T.h(l);
       float* const zl = t.z + kPgLd * T.at(l);
-      if constexpr (kSpill)
+      if constexpr (mm_tc<M> && kSpill)
+        mma_rows<M>(in, K, w_fwd<M>(prm + L.w(l), h, K), h, prm + L.b(l),
+                    zl);
+      else if constexpr (mm_tc<M>)
+        mma_rows<M>(in, K, w_packed<M, false>(smem, woff, h, K), h,
+                    prm + L.b(l), zl);
+      else if constexpr (kSpill)
         prod_rows<M, 4>(in, K, MatStrided{prm + L.w(l), 1, K, h}, h,
                         prm + L.b(l), zl);
       else
         prod_rows<M, 4>(in, K, MatRows{smem + woff, pad4(h)}, h,
                         prm + L.b(l), zl);
-      woff += K * pad4(h);
+      woff += wsize(h, K);
       __syncthreads();
       ln_relu_fwd(zl, h, prm + L.s(l), prm + L.t(l), c.ln_eps, t.a,
                   t.mu + kPgRows * l, t.inv + kPgRows * l);
       __syncthreads();
     }
     CP_MARK(4);  // the torso's forward
-    if constexpr (kSpill)
+    if constexpr (mm_tc<M> && kSpill)
+      mma_rows<M>(t.a, hl, w_fwd<M>(prm + L.wh, kPgActions, hl), kPgActions,
+                  prm + L.bh, t.lg);
+    else if constexpr (mm_tc<M>)
+      mma_rows<M>(t.a, hl, w_packed<M, false>(smem, woff, kPgActions, hl),
+                  kPgActions, prm + L.bh, t.lg);
+    else if constexpr (kSpill)
       prod_rows<M, 1>(t.a, hl, MatStrided{prm + L.wh, 1, hl, kPgActions},
                       kPgActions, prm + L.bh, t.lg);
     else
@@ -621,9 +845,19 @@ __global__ void __launch_bounds__(kThreads, 1) lrpg_grad_kernel(
       const float s = warp_sum(t.loss[tid] + t.loss[tid + 32]);
       if (tid == 0) sum_into(g[P], s);
     }
-    prod_grad<M, 1>(t.lg, kPgActions, t.a, hl, g + L.wh);
+    if constexpr (mm_tc<M>)
+      mma_grad<M>(t.lg, kPgActions, t.a, hl, g + L.wh);
+    else
+      prod_grad<M, 1>(t.lg, kPgActions, t.a, hl, g + L.wh);
     grad_bias(t.lg, kPgActions, g + L.bh);
-    if constexpr (kSpill)
+    if constexpr (mm_tc<M> && kSpill)
+      mma_rows<M>(t.lg, kPgActions, w_bwd<M>(prm + L.wh, kPgActions, hl), hl,
+                  nullptr, t.dh);
+    else if constexpr (mm_tc<M>)
+      mma_rows<M>(t.lg, kPgActions,
+                  w_packed<M, true>(smem, woff, kPgActions, hl), hl, nullptr,
+                  t.dh);
+    else if constexpr (kSpill)
       prod_rows<M, 4>(t.lg, kPgActions, MatStrided{prm + L.wh, hl, 1, hl},
                       hl, nullptr, t.dh);
     else
@@ -635,7 +869,7 @@ __global__ void __launch_bounds__(kThreads, 1) lrpg_grad_kernel(
     for (int l = nl - 1; l >= 0; --l) {
       const int h = T.h(l);
       const int K = l == 0 ? F : T.h(l - 1);
-      woff -= K * pad4(h);
+      woff -= wsize(h, K);
       const float* const zl = t.z + kPgLd * T.at(l);
       const float* const mul = t.mu + kPgRows * l;
       const float* const invl = t.inv + kPgRows * l;
@@ -648,7 +882,9 @@ __global__ void __launch_bounds__(kThreads, 1) lrpg_grad_kernel(
       CP_MARK(8);  // the LayerNorm/relu backward
       const float* in = l == 0 ? x0 : t.a;
       ln_param_grads(zl, h, mul, invl, t.dh, g + L.s(l), g + L.t(l));
-      if (h >= 16)
+      if constexpr (mm_tc<M>)
+        mma_grad<M>(t.dz, h, in, K, g + L.w(l));
+      else if (h >= 16)
         prod_grad<M, 4>(t.dz, h, in, K, g + L.w(l));
       else
         prod_grad<M, 1>(t.dz, h, in, K, g + L.w(l));
@@ -656,7 +892,13 @@ __global__ void __launch_bounds__(kThreads, 1) lrpg_grad_kernel(
       __syncthreads();
       CP_MARK(9);  // the layer's weight, bias and LayerNorm gradients
       if (l > 0) {
-        if constexpr (kSpill)
+        if constexpr (mm_tc<M> && kSpill)
+          mma_rows<M>(t.dz, h, w_bwd<M>(prm + L.w(l), h, K), K, nullptr,
+                      t.dh);
+        else if constexpr (mm_tc<M>)
+          mma_rows<M>(t.dz, h, w_packed<M, true>(smem, woff, h, K), K,
+                      nullptr, t.dh);
+        else if constexpr (kSpill)
           prod_rows<M, 4>(t.dz, h, MatStrided{prm + L.w(l), K, 1, K}, K,
                           nullptr, t.dh);
         else
@@ -743,11 +985,18 @@ bool with_sums(const PgDims* dims, const int* widths, PgDims* d) {
       d->net.lay == nullptr ||
       !widths_ok(widths, d->torso.L, 1, &sum, &hmax, 0))
     return false;
+  // The weights' copy on the shared-memory route: packed at a tensor-core
+  // mode (mma_matrix_words), else transposed with the outputs padded to 4
+  // (the head's to kPgHeadLd).
   long long wt = 0;
-  for (int l = 0; l < d->torso.L; ++l)
-    wt += static_cast<long long>(l == 0 ? d->obs_dim : widths[l - 1]) *
-          pad4(widths[l]);
-  wt += static_cast<long long>(widths[d->torso.L - 1]) * kPgHeadLd;
+  for (int l = 0; l <= d->torso.L; ++l) {
+    const bool head = l == d->torso.L;
+    const int K = l == 0 ? d->obs_dim : widths[l - 1];
+    const int n = head ? kPgActions : widths[l];
+    wt += mm_tc_mode(d->mm) ? mma_matrix_words(d->mm, n, K)
+                            : static_cast<long long>(K) *
+                                  (head ? kPgHeadLd : pad4(n));
+  }
   if (wt > (1LL << 30)) return false;
   d->sum_h = static_cast<int>(sum);
   d->hmax = hmax;

@@ -41,6 +41,19 @@
 // the same bytes, fewer rows at a time), each dot's sum goes on as
 // mm_out gives it, and nothing else changes; at kMmF32 the code is the
 // float32 code it was.
+//
+// kTc (B3 at bfloat16, X3 and F16, ddpg_update.cu's kTcMode; B5 and B7
+// leave it false): every product on the tensor cores instead
+// (learner_stages.cuh's fragment helpers), the same items, ring and
+// stages. An item's rows go on the mma's N dimension (8; a backward item's
+// 4 pad it with zeros) and the outputs on M, 16 a tile, so a chunk of 32
+// inputs x 256 outputs is 2 tiles a warp over 2 k-blocks (4 at TF32);
+// the weights convert as their fragment loads from the ring, once per
+// item, since each serves the item's rows once. The heads, their
+// backward, the joined inputs and the critic's dQ/da are one warp's or
+// a few tiles' mma on zero-padded edges; a weight-gradient tile of 32 x
+// 32 is one 16 x 8 mma tile a warp, the batch on K, its staged rows
+// converted once into the fragments' packed words.
 #pragma once
 
 #include <cstdint>
@@ -70,6 +83,8 @@ constexpr int kMaxJoin = 2;       // inputs joined at layer 1, at most
 constexpr int kFixed = kRing + kRowsB * kQLd;
 constexpr int kGT = 32;           // a weight-gradient tile's edge
 constexpr int kGB = 256;          // batch rows of it staged at a time
+constexpr int kGLw = kGT + 8;     // words of a row of staged fragments
+constexpr int kTcRows = 128;      // batch rows a tensor-core tile stages
 static_assert(2 * kGB * kGT <= kFixed, "the gradient tile in the ring");
 static_assert(kThreads % kWk == 0, "whole chunk rows a pass");
 static_assert(kPanel == kThreads, "one output column a thread");
@@ -242,11 +257,127 @@ __device__ __forceinline__ void ring_start(float* ring, int n, int K,
 // weights stream through the ring kStages - 1 chunks ahead (the first of
 // them already in flight when `started`: ring_start). Both operands of
 // every product enter as mode M takes them. Ends with a barrier.
-template <int M, int R, int LDX, bool kTrans, int CC>
+//
+// rows_product's function on the tensor cores (kTc): warp w owns outputs
+// [32 w, 32 w + 32) of each panel (2 m-tiles), the R rows on N; each chunk
+// is 2 k-blocks (4 at TF32), each mma from zero added into the float32 sum;
+// the join's na inputs one k-block more at the panel's end.
+template <int M, int R, int LDX, bool kTrans>
+__device__ void rows_product_tc(const float* X, int K, int n, const float* W,
+                                int ldw, const float* bias, float* Y,
+                                int ldy, float* ring, bool started,
+                                const float* xa, int na) {
+  static_assert(R <= 8, "the rows on the mma's N");
+  constexpr int kMT = kPanel / 16 / kWarps;  // m-tiles of a warp a panel
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int nch = (K + kWk - 1) / kWk;
+  const int nq = nch * ((n + kPanel - 1) / kPanel);
+  const int vec = ring_vec(W, ldw);
+  if (!started) ring_start<kTrans>(ring, n, K, W, ldw);
+  const int mw = warp * kMT * 16;  // the warp's first output of a panel
+  float acc[kMT][4] = {};
+  for (int q = 0; q < nq; ++q) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // chunk q is in; chunk q - 1's slot is free
+    issue_chunk<kTrans>(ring, q + kStages - 1, nq, nch, n, K, W, ldw, vec);
+    const int c0 = (q / nch) * kPanel, k0 = (q % nch) * kWk;
+    const int pw = min(kPanel, n - c0), kc = min(kWk, K - k0);
+    if (mw < pw) {
+      const float* slot = ring + (q % kStages) * kWSlot;
+      const float* xp = X + k0 * LDX;
+      auto run = [&](const auto& ws, const auto& xs) {
+#pragma unroll
+        for (int kb = 0; kb < kWk; kb += kMmaK<M>) {
+          if (kb < kc) {
+            const MmaB<M> b = mma_load_b<M>(xs, 0, kb);
+#pragma unroll
+            for (int i = 0; i < kMT; ++i)
+              if (mw + 16 * i < pw)
+                mma_add<M, true, kAccPass>(
+                    mma_load_a<M>(ws, mw + 16 * i, kb), b, acc[i]);
+          }
+        }
+      };
+      // The edges (outputs past pw, inputs past kc) read as zeros; a
+      // warp whose tiles lie inside a whole chunk reads without the tests
+      // (a forward chunk's input pairs one 8-byte load).
+      const bool inside = mw + 16 * kMT <= pw && kc == kWk;
+      const auto xs = mma_floats<M>([=](int r, int k) {
+        return r < R ? xp[k * LDX + r] : 0.0f;
+      });
+      const auto xs_edge = mma_floats<M>([=](int r, int k) {
+        return r < R && k < kc ? xp[k * LDX + r] : 0.0f;
+      });
+      const auto ws_edge = mma_floats<M>([=](int c, int k) {
+        return c < pw && k < kc
+                   ? (kTrans ? slot[c * kWT + k] : slot[k * kWLd + c])
+                   : 0.0f;
+      });
+      if constexpr (kTrans) {
+        const auto ws = mma_pairs<M>(
+            [=](int c, int k) { return slot[c * kWT + k]; },
+            [=](int c, int k) {
+              return *reinterpret_cast<const float2*>(slot + c * kWT + k);
+            });
+        if (inside)
+          run(ws, xs);
+        else
+          run(ws_edge, xs_edge);
+      } else {
+        const auto ws = mma_floats<M>(
+            [=](int c, int k) { return slot[k * kWLd + c]; });
+        if (inside)
+          run(ws, xs);
+        else
+          run(ws_edge, xs_edge);
+      }
+    }
+    if (k0 + kWk >= K) {  // the panel's last chunk
+#pragma unroll
+      for (int i = 0; i < kMT; ++i) {
+        const int m0 = mw + 16 * i;
+        if (m0 >= pw) continue;
+        float jn[4] = {};
+        if (na > 0) {
+          const auto wa = mma_floats<M>([=](int c, int k) {
+            return c < pw && k < na
+                       ? W[static_cast<size_t>(c0 + c) * ldw + K + k]
+                       : 0.0f;
+          });
+          const auto xj = mma_floats<M>([=](int r, int k) {
+            return r < R && k < na ? xa[k * LDX + r] : 0.0f;
+          });
+          mma_add<M, true, kAccPass>(mma_load_a<M>(wa, m0, 0),
+                                     mma_load_b<M>(xj, 0, 0), jn);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = c0 + m0 + g + (e >> 1) * 8, r = 2 * t + (e & 1);
+          if (c < n && r < R) {
+            float v = mm_out<M>(acc[i][e]);
+            if (na > 0) v = v + mm_out<M>(jn[e]);
+            Y[r * ldy + c] = bias != nullptr ? v + bias[c] : v;
+          }
+          acc[i][e] = 0.0f;
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring and Y are read next
+}
+
+template <int M, int R, int LDX, bool kTrans, int CC, bool kTc = false>
 __device__ void rows_product(const float* X, int K, int n, const float* W,
                              int ldw, const float* bias, float* Y, int ldy,
                              float* ring, bool started = false,
                              const float* xa = nullptr, int na = 0) {
+  if constexpr (kTc) {
+    rows_product_tc<M, R, LDX, kTrans>(X, K, n, W, ldw, bias, Y, ldy, ring,
+                                       started, xa, na);
+    return;
+  }
   constexpr int kCols = kPanel / CC;         // threads of a row group
   constexpr int kGroups = kThreads / kCols;  // row groups
   constexpr int RH = R / kGroups;            // rows of a thread
@@ -391,8 +522,8 @@ struct FwdSave {
 // sums over its first inputs are given instead of multiplied (rows b0 .. of
 // a (batch, H_l0) region): z = (zmain + the join's sums) + b_l0. On return
 // act holds layer l1 - 1's output. The next layer's first chunks fly during
-// each LayerNorm. M: the products' mode.
-template <int M, int R>
+// each LayerNorm. M: the products' mode; kTc: on the tensor cores.
+template <int M, int R, bool kTc = false>
 __device__ __forceinline__ void torso_fwd(
     const Torso& T, const NetLayout& L, const float* net, int F,
     const float* xa, int na, float* act, float* zr, int ldz, float* ring,
@@ -409,20 +540,49 @@ __device__ __forceinline__ void torso_fwd(
     const float* W = net + L.w(l);
     if (l == l0 && zmain != nullptr) {  // the given sums, the join, the bias
       const int ldw = ldw_of(l);
-      for (int o = tid; o < R * h; o += kThreads) {
-        const int r = o / h, cc = o - r * h;
-        float v = zmain[static_cast<size_t>(b0 + min(r, nr - 1)) * h + cc];
-        mm_acc_t<M> a2 = 0.0f;
-        for (int i = 0; i < na; ++i)
-          a2 = mm_fma<M>(mm_in<M>(xa[i * LD + r]),
-                         mm_in<M>(W[static_cast<size_t>(cc) * ldw + K + i]),
-                         a2);
-        if (na > 0) v = v + mm_out<M>(a2);
-        zr[r * ldz + cc] = v + net[L.b(l) + cc];
+      if constexpr (kTc) {  // the join's sums an mma a 16-output tile
+        const int g = lane >> 2, t = lane & 3;
+        for (int m0 = warp * 16; m0 < h; m0 += kWarps * 16) {
+          float jn[4] = {};
+          if (na > 0) {
+            const auto wa = mma_floats<M>([=](int cc, int k) {
+              return cc < h && k < na
+                         ? W[static_cast<size_t>(cc) * ldw + K + k]
+                         : 0.0f;
+            });
+            const auto xj = mma_floats<M>([=](int r, int k) {
+              return r < R && k < na ? xa[k * LD + r] : 0.0f;
+            });
+            mma_add<M, true, kAccPass>(mma_load_a<M>(wa, m0, 0),
+                                       mma_load_b<M>(xj, 0, 0), jn);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int cc = m0 + g + (e >> 1) * 8, r = 2 * t + (e & 1);
+            if (cc < h && r < R) {
+              float v =
+                  zmain[static_cast<size_t>(b0 + min(r, nr - 1)) * h + cc];
+              if (na > 0) v = v + mm_out<M>(jn[e]);
+              zr[r * ldz + cc] = v + net[L.b(l) + cc];
+            }
+          }
+        }
+      } else {
+        for (int o = tid; o < R * h; o += kThreads) {
+          const int r = o / h, cc = o - r * h;
+          float v = zmain[static_cast<size_t>(b0 + min(r, nr - 1)) * h + cc];
+          mm_acc_t<M> a2 = 0.0f;
+          for (int i = 0; i < na; ++i)
+            a2 = mm_fma<M>(mm_in<M>(xa[i * LD + r]),
+                           mm_in<M>(W[static_cast<size_t>(cc) * ldw + K + i]),
+                           a2);
+          if (na > 0) v = v + mm_out<M>(a2);
+          zr[r * ldz + cc] = v + net[L.b(l) + cc];
+        }
       }
       __syncthreads();
     } else {
-      rows_product<M, R, LD, true, kColsF>(
+      rows_product<M, R, LD, true, kColsF, kTc>(
           act, K, h, W, ldw_of(l), net + L.b(l), zr, ldz, ring, l > l0,
           l == 1 ? xa : nullptr, l == 1 ? na : 0);
     }
@@ -467,8 +627,9 @@ __device__ __forceinline__ void torso_fwd(
 // < n_head (act feature-major, (hl, R + 4)), one thread an output, its
 // weights and bias first copied into the (free) ring where they fit;
 // emit(r, a, v) takes each (rows past the batch too); the products'
-// operands as mode M takes them. Ends with a barrier.
-template <int M, int R, class Emit>
+// operands as mode M takes them. Ends with a barrier. kTc: one warp's mma
+// chain over hl (n_head <= 16 outputs on M, the rows on N).
+template <int M, int R, bool kTc = false, class Emit>
 __device__ void head_fwd(const float* wh, const float* bh, int n_head,
                          int hl, const float* act, float* ring, Emit emit) {
   constexpr int LD = R + 4;
@@ -480,6 +641,31 @@ __device__ void head_fwd(const float* wh, const float* bh, int n_head,
     for (int i = tid; i < nwh + n_head; i += kThreads)
       ring[i] = i < nwh ? wh[i] : bh[i - nwh];
     __syncthreads();
+  }
+  if constexpr (kTc) {
+    if (tid < 32) {
+      const int g = tid >> 2, t = tid & 3;
+      const float* w = wh_in ? ring : wh;
+      const auto ws = mma_floats<M>([=](int a, int j) {
+        return a < n_head && j < hl ? w[a * hl + j] : 0.0f;
+      });
+      const auto xs = mma_floats<M>([=](int r, int j) {
+        return r < R && j < hl ? act[j * LD + r] : 0.0f;
+      });
+      float acc[4] = {};
+#pragma unroll 4
+      for (int k0 = 0; k0 < hl; k0 += kMmaK<M>)
+        mma_add<M, true, kAccPass>(mma_load_a<M>(ws, 0, k0),
+                                   mma_load_b<M>(xs, 0, k0), acc);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int a = g + (e >> 1) * 8, r = 2 * t + (e & 1);
+        if (a < n_head && r < R)
+          emit(r, a, mm_out<M>(acc[e]) + (wh_in ? ring[nwh + a] : bh[a]));
+      }
+    }
+    __syncthreads();
+    return;
   }
   if (tid < R * n_head) {
     const int r = tid / n_head, a = tid - r * n_head;
@@ -509,11 +695,34 @@ __device__ __forceinline__ void load_rows(const float* src, int F, int b0,
 
 // The head's backward of a backward item: dh[r ldz + cc] = sum_a dqs[r kQLd
 // + a] wh[a hl + cc] (from zero, a in order) for its kRowsB rows, the
-// operands as mode M takes them. Ends with a barrier.
-template <int M>
+// operands as mode M takes them. Ends with a barrier. kTc: an mma a
+// 16-output tile (the rows on N, n_head on K).
+template <int M, bool kTc = false>
 __device__ __forceinline__ void head_bwd(const float* dqs, int n_head,
                                          const float* wh, int hl, float* dh,
                                          int ldz) {
+  if constexpr (kTc) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const auto ws = mma_floats<M>([=](int cc, int a) {
+      return cc < hl && a < n_head ? wh[a * hl + cc] : 0.0f;
+    });
+    const auto ds = mma_floats<M>([=](int r, int a) {
+      return r < kRowsB && a < n_head ? dqs[r * kQLd + a] : 0.0f;
+    });
+    for (int m0 = (threadIdx.x >> 5) * 16; m0 < hl; m0 += kWarps * 16) {
+      float acc[4] = {};
+      for (int k0 = 0; k0 < n_head; k0 += kMmaK<M>)
+        mma_add<M, true, kAccPass>(mma_load_a<M>(ws, m0, k0),
+                                   mma_load_b<M>(ds, 0, k0), acc);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int cc = m0 + g + (e >> 1) * 8, r = 2 * t + (e & 1);
+        if (cc < hl && r < kRowsB) dh[r * ldz + cc] = mm_out<M>(acc[e]);
+      }
+    }
+    __syncthreads();
+    return;
+  }
   for (int o = threadIdx.x; o < kRowsB * hl; o += kThreads) {
     const int r = o / hl, cc = o - r * hl;
     mm_acc_t<M> acc = 0.0f;
@@ -540,8 +749,9 @@ struct BwdSave {
 // critic's dQ/da: the join columns of W_1, copied into the free ring
 // during the LayerNorm backward, each of the kRowsB x join sums in order
 // by one thread), into tail (kRowsB, kQLd). dh = dz W's first chunks fly
-// during each LayerNorm backward. M: the products' mode.
-template <int M>
+// during each LayerNorm backward. M: the products' mode; kTc: on the tensor
+// cores (dQ/da: one warp's mma chain over h, the join on M, the rows on N).
+template <int M, bool kTc = false>
 __device__ __forceinline__ void torso_bwd(
     const Torso& T, const NetLayout& L, const float* net, int join,
     const float* z, float* dh, float* dzs, int ldz, float* ring,
@@ -609,11 +819,31 @@ __device__ __forceinline__ void torso_bwd(
     }
     __syncthreads();
     if (pn > 0)
-      rows_product<M, kRowsB, kLdB, false, kColsB>(dzs, h, pn, W, ldw,
-                                                   nullptr, dh, ldz, ring,
-                                                   true);
+      rows_product<M, kRowsB, kLdB, false, kColsB, kTc>(dzs, h, pn, W, ldw,
+                                                        nullptr, dh, ldz,
+                                                        ring, true);
     if (tl) {
-      if (threadIdx.x < kRowsB * join) {
+      if constexpr (kTc) {
+        if (warp == 0) {
+          const int g = lane >> 2, t = lane & 3;
+          const auto ws = mma_floats<M>([=](int i, int j) {
+            return i < join && j < h ? ring[j * join + i] : 0.0f;
+          });
+          const auto ds = mma_floats<M>([=](int r, int j) {
+            return r < kRowsB && j < h ? dzs[j * kLdB + r] : 0.0f;
+          });
+          float acc[4] = {};
+#pragma unroll 4
+          for (int k0 = 0; k0 < h; k0 += kMmaK<M>)
+            mma_add<M, true, kAccPass>(mma_load_a<M>(ws, 0, k0),
+                                       mma_load_b<M>(ds, 0, k0), acc);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = g + (e >> 1) * 8, r = 2 * t + (e & 1);
+            if (i < join && r < kRowsB) tail[r * kQLd + i] = mm_out<M>(acc[e]);
+          }
+        }
+      } else if (threadIdx.x < kRowsB * join) {
         const int r = threadIdx.x / join, i = threadIdx.x - r * join;
         mm_acc_t<M> acc = 0.0f;
 #pragma unroll 8
@@ -725,8 +955,13 @@ __device__ void norm_slices(const FlatStore& fs, const int* ps, int nd,
 // threads); a thread owns 2 x 2 elements. Where an operand enters as parts
 // or as a double (kMmX3, kMmX6, kMmF64), a thread loads its elements, splits
 // or widens them once and stages them so, fewer rows at a time (the same
-// bytes), and the sum over b runs in the same order.
-template <bool kStore, int M>
+// bytes), and the sum over b runs in the same order. kTc: the tile on the
+// tensor cores, warp w its 16 x 8 piece (rows 16 (w % 2) .., columns 8 (w /
+// 2) ..), the batch on K; the rows come in by cp.async, kTcRows at a time
+// with the next in flight, and each element is converted once into the
+// packed words the fragments load (MmaPacked, rows of kGLw words, so that
+// a fragment's 32 loads fall in 32 banks).
+template <bool kStore, int M, bool kTc = false>
 __device__ void grad_w_tile(const float* G, int out, const float* X, int in,
                             int B, int off, int j0, int i0, const NetPtr& net,
                             float bc1, float bc2, float lr,
@@ -735,7 +970,102 @@ __device__ void grad_w_tile(const float* G, int out, const float* X, int in,
   using In = mm_in_t<M>;
   const int tid = threadIdx.x, ig = tid % 16, jg = tid / 16;
   mm_acc_t<M> acc[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
-  if constexpr (sizeof(In) == sizeof(float)) {
+  float tc[4] = {};  // kTc: the warp's D fragment
+  if constexpr (kTc) {
+    // kTcRows batch rows at a time: their float32 columns come in by
+    // cp.async (two buffers, the next rows in flight while these are
+    // used), then each element is converted once into the packed words
+    // the fragments load (per part, a pair of batch rows of a column one
+    // word; TF32: a row's element one word), rows of kGLw words.
+    constexpr int kP = kMmaParts<M>;
+    constexpr bool kPairs = M != kMmTf32;
+    constexpr int kPlane = (kPairs ? kTcRows / 2 : kTcRows) * kGLw;
+    constexpr int kStage = 2 * kTcRows * kGT;  // G's and X's floats
+    static_assert(2 * kStage + 2 * kP * kPlane <= kFixed,
+                  "the staged rows in the ring");
+    unsigned* const Gp = reinterpret_cast<unsigned*>(sm + 2 * kStage);
+    unsigned* const Xp = Gp + kP * kPlane;
+    const MmaPacked<M> ga{Gp, kGLw, kPlane}, xb{Xp, kGLw, kPlane};
+    const int warp = tid >> 5;
+    const bool gv = (reinterpret_cast<uintptr_t>(G) & 15) == 0 &&
+                    out % 4 == 0 && j0 + kGT <= out;
+    const bool xv = (reinterpret_cast<uintptr_t>(X) & 15) == 0 &&
+                    in % 4 == 0 && i0 + kGT <= in;
+    // Rows [b0, b0 + kTcRows) of G's and X's tile columns into buffer s
+    // (G's at sm + s kStage, X's after them), zeros past the edges.
+    auto issue = [&](int b0, int s) {
+      const int nb = min(kTcRows, B - b0);
+      float* const Gs = sm + s * kStage;
+      float* const Xs = Gs + kTcRows * kGT;
+      for (int idx = tid; idx < nb * kGT / 4; idx += kThreads) {
+        const int e = 4 * (idx % (kGT / 4));
+        const size_t b = static_cast<size_t>(b0 + idx / (kGT / 4));
+        float* const gs = Gs + 4 * idx;
+        float* const xs = Xs + 4 * idx;
+        if (gv) {
+          cp_async16(gs, G + b * out + j0 + e);
+        } else {
+          for (int u = 0; u < 4; ++u) {
+            if (j0 + e + u < out)
+              cp_async4(gs + u, G + b * out + j0 + e + u);
+            else
+              gs[u] = 0.0f;
+          }
+        }
+        if (xv) {
+          cp_async16(xs, X + b * in + i0 + e);
+        } else {
+          for (int u = 0; u < 4; ++u) {
+            if (i0 + e + u < in)
+              cp_async4(xs + u, X + b * in + i0 + e + u);
+            else
+              xs[u] = 0.0f;
+          }
+        }
+      }
+      cp_async_commit();
+    };
+    issue(0, 0);
+    for (int b0 = 0, s = 0; b0 < B; b0 += kTcRows, s ^= 1) {
+      const int nb = min(kTcRows, B - b0);
+      if (b0 + kTcRows < B) {
+        issue(b0 + kTcRows, s ^ 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();  // these rows are in; the last packed words read
+      const float* const Gs = sm + s * kStage;
+      const float* const Xs = Gs + kTcRows * kGT;
+      if constexpr (kPairs) {
+        for (int idx = tid; idx < kTcRows / 2 * kGT; idx += kThreads) {
+          const int pr = idx / kGT, e = idx - pr * kGT;
+          const bool r0 = 2 * pr < nb, r1 = 2 * pr + 1 < nb;
+          unsigned q[kP];
+          mma_pack<M>(r0 ? Gs[2 * pr * kGT + e] : 0.0f,
+                      r1 ? Gs[(2 * pr + 1) * kGT + e] : 0.0f, q);
+#pragma unroll
+          for (int u = 0; u < kP; ++u) Gp[u * kPlane + pr * kGLw + e] = q[u];
+          mma_pack<M>(r0 ? Xs[2 * pr * kGT + e] : 0.0f,
+                      r1 ? Xs[(2 * pr + 1) * kGT + e] : 0.0f, q);
+#pragma unroll
+          for (int u = 0; u < kP; ++u) Xp[u * kPlane + pr * kGLw + e] = q[u];
+        }
+      } else {
+        for (int idx = tid; idx < kTcRows * kGT; idx += kThreads) {
+          const int br = idx / kGT, e = idx - br * kGT;
+          Gp[br * kGLw + e] = tf32_bits(br < nb ? Gs[idx] : 0.0f);
+          Xp[br * kGLw + e] = tf32_bits(br < nb ? Xs[idx] : 0.0f);
+        }
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int k0 = 0; k0 < nb; k0 += kMmaK<M>)
+        mma_add<M, false, kAccPass>(mma_load_a<M>(ga, (warp & 1) * 16, k0),
+                                    mma_load_b<M>(xb, (warp >> 1) * 8, k0),
+                                    tc);
+    }
+  } else if constexpr (sizeof(In) == sizeof(float)) {
     float* const Gs = sm;              // (kGB, kGT)
     float* const Xs = sm + kGB * kGT;  // (kGB, kGT)
     // Whole 16-byte pieces where the rows allow and the tile is full.
@@ -826,15 +1156,27 @@ __device__ void grad_w_tile(const float* G, int out, const float* X, int in,
   int offs[4];
   bool ok[4];
   float gs[4];
+  if constexpr (kTc) {
+    const int lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int j = j0 + 2 * jg + a, i = i0 + 2 * ig + e;
-      offs[2 * a + e] = off + j * in + i;
-      ok[2 * a + e] = j < out && i < in;
-      gs[2 * a + e] = mm_out<M>(acc[a][e]);
+    for (int e = 0; e < 4; ++e) {
+      const int j = j0 + (warp & 1) * 16 + g + (e >> 1) * 8;
+      const int i = i0 + (warp >> 1) * 8 + 2 * t + (e & 1);
+      offs[e] = off + j * in + i;
+      ok[e] = j < out && i < in;
+      gs[e] = mm_out<M>(tc[e]);
     }
+  } else {
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = j0 + 2 * jg + a, i = i0 + 2 * ig + e;
+        offs[2 * a + e] = off + j * in + i;
+        ok[2 * a + e] = j < out && i < in;
+        gs[2 * a + e] = mm_out<M>(acc[a][e]);
+      }
+  }
   if constexpr (kStore) {
 #pragma unroll
     for (int u = 0; u < 4; ++u)
@@ -922,8 +1264,9 @@ __device__ __forceinline__ int w_tiles(const GradOp& op) {
 // one list dealt to the blocks round-robin. Each element is reduced in a
 // fixed order whichever block takes it. kStore (one network): the elements
 // go to the flat gradient, and the slices this block completes are summed
-// at the end of the stage. M: the weight gradients' products' mode.
-template <bool kStore, int M>
+// at the end of the stage. M: the weight gradients' products' mode; kTc: on
+// the tensor cores.
+template <bool kStore, int M, bool kTc = false>
 __device__ __forceinline__ void grad_stage(const NetGrads* g, int n_nets,
                                            const Torso& T, int F, int B,
                                            const NetPtr* nets,
@@ -958,7 +1301,7 @@ __device__ __forceinline__ void grad_stage(const NetGrads* g, int n_nets,
           const int m = w_tiles(op);
           if (rest < m) {
             const int ti = cdiv(op.in, kGT);
-            grad_w_tile<kStore, M>(op.g, op.out, op.x, op.in, B, op.off,
+            grad_w_tile<kStore, M, kTc>(op.g, op.out, op.x, op.in, B, op.off,
                                    (rest / ti) * kGT, (rest % ti) * kGT,
                                    nets[op.net], as.bc1, as.bc2,
                                    as.lr[op.net], c, sm, fs);

@@ -16,7 +16,9 @@ kernels then follow the plain torch twins operation by operation, and a
 termination threshold does not flip on a contraction. An explicit fmaf()
 is still fused: B3, B5, B7 (csrc/row_chain.cuh) and B9
 (csrc/lrpg_update.cu) use it in their matrix-product and batch-sum inner
-loops only (and fma() on doubles at the F64_F64_F64 product mode).
+loops only (and fma() on doubles at the F64_F64_F64 product mode); B3 and
+B9 at the tensor cores' product modes form their products with mma.sync
+instead (csrc/learner_stages.cuh).
 """
 
 from __future__ import annotations
@@ -105,12 +107,14 @@ class LearnerDims(ctypes.Structure):
     """Mirror of `struct LearnerDims` in csrc/ddpg_update.cu (B3); spill 1
     puts every row tile's buffers in the workspace at any width; mm, the
     products' mode (ops/learner_kernel.py::mm_mode), picks the kernel's
-    instance (as in DqnDims, NafDims and PgDims)."""
+    instance (as in DqnDims, NafDims and PgDims); instance, when not null,
+    a device int the instance writes its id to (as in PgDims)."""
 
     _fields_ = [(n, ctypes.c_int) for n in (
         "obs_dim", "batch", "k_updates", "merged")] + [
         ("torso", Torso), ("actor", NetLayout), ("critic", NetLayout),
-        ("spill", ctypes.c_int), ("mm", ctypes.c_int)]
+        ("spill", ctypes.c_int), ("mm", ctypes.c_int),
+        ("instance", ctypes.c_void_p)]
 
 
 class DqnDims(ctypes.Structure):
@@ -139,7 +143,8 @@ class PgDims(ctypes.Structure):
 
     _fields_ = [(n, ctypes.c_int) for n in (
         "obs_dim", "n_rows", "spill", "sum_h", "hmax", "wt")] + [
-        ("torso", Torso), ("net", NetLayout), ("mm", ctypes.c_int)]
+        ("torso", Torso), ("net", NetLayout), ("mm", ctypes.c_int),
+        ("instance", ctypes.c_void_p)]
 
 
 class PgConsts(ctypes.Structure):
@@ -344,6 +349,10 @@ def load_library() -> ctypes.CDLL:
     lib.cp_mm_probe.restype = ci
     lib.cp_mm_split.argtypes = [ci, vp, vp, ci, vp]
     lib.cp_mm_split.restype = ci
+    lib.cp_mma_probe.argtypes = [ci, vp, vp, vp, ci, ci, ci, vp]
+    lib.cp_mma_probe.restype = ci
+    lib.cp_mma_split.argtypes = [ci, vp, vp, ci, vp]
+    lib.cp_mma_split.restype = ci
     _lib = lib
     return lib
 

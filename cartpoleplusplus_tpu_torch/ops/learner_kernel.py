@@ -108,6 +108,16 @@ MODE_NAMES = ("float32", "bfloat16", "tensorfloat32", "BF16_BF16_F32_X3",
 # order they are summed, the smallest first.
 _PASSES = {X3: ((1, 0), (0, 1), (0, 0)),
            X6: ((1, 1), (2, 0), (0, 2), (1, 0), (0, 1), (0, 0))}
+# The modes at which B9 forms its products on the tensor cores (mm_tc in
+# csrc/learner_stages.cuh: mma.sync on the rounded operands or the parts),
+# and B3's (csrc/ddpg_update.cu's kTcMode: its X6 on the tensor cores did
+# not hold phase 32's checks, its TF32 ran slower than the fmaf instance;
+# PERF.md §6); B5, B7 and the other modes run the fmaf (DFMA) chains.
+TC_MODES = (BF16, TF32, X3, X6, F16)
+TC_MODES_OF = {"B3": (BF16, X3, F16), "B9": TC_MODES}
+# kMmTcId: added to the mode in the id an instance reports (last_instance)
+# where its products run on the tensor cores.
+INSTANCE_TC = 16
 
 
 def mm_mode(value) -> int:
@@ -493,17 +503,44 @@ def _acc_floats(mode: int) -> int:
     return 2 if mode == F64 else 1
 
 
+def _pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def mma_row_words(mode: int, k: int) -> int:
+    """32-bit words of a row of B9's packed weight copy at a tensor-core
+    mode (mma_row_words in csrc/lrpg_update.cu) for k inputs: pad16(k)
+    bfloat16 or float16 values two a word (TF32: one a word), and 4 words
+    against bank conflicts."""
+    return _pad16(k) + 4 if mode == TF32 else _pad16(k) // 2 + 4
+
+
+def pg_weight_floats(obs_dim: int, hidden: Sequence[int],
+                     mode: int = F32) -> int:
+    """Floats (32-bit words) of B9's copy of the weights on the
+    shared-memory route: at a tensor-core mode (TC_MODES) each matrix
+    (every layer's W, then the head's) packed, its parts (2 at X3, 3 at
+    X6, else 1) of pad16(outputs) rows of mma_row_words; else transposed
+    to (in, out) with the outputs padded to 4 (the head's to 8)."""
+    hidden = tuple(hidden)
+    ins = (obs_dim,) + hidden
+    outs = hidden + (NUM_ACTIONS,)
+    if mode in TC_MODES:
+        parts = {X3: 2, X6: 3}.get(mode, 1)
+        return sum(parts * _pad16(n) * mma_row_words(mode, k)
+                   for k, n in zip(ins, outs))
+    return (sum(k * _pad4(h) for k, h in zip(ins, hidden))
+            + hidden[-1] * _PG_HEAD_LD)
+
+
 def pg_smem_floats(obs_dim: int, hidden: Sequence[int],
                    mode: int = F32) -> int:
     """Floats of B9's block on the shared-memory route (smem_floats in
-    csrc/lrpg_update.cu): the weights transposed to (in, out) with the
-    outputs padded to 4 (the head's to 8), one accumulator per parameter
-    and the loss (padded to 4; doubles at F64), and a tile with two obs
-    buffers."""
+    csrc/lrpg_update.cu): the weights' copy (`pg_weight_floats`), one
+    accumulator per parameter and the loss (padded to 4; doubles at F64),
+    and a tile with two obs buffers."""
     hidden = tuple(hidden)
-    ins = (obs_dim,) + hidden[:-1]
-    wt = (sum(k * _pad4(h) for k, h in zip(ins, hidden))
-          + hidden[-1] * _PG_HEAD_LD)
+    wt = pg_weight_floats(obs_dim, hidden, mode)
     p = layout_size(policy_layout(obs_dim, hidden))
     return (wt + _acc_floats(mode) * _pad4(p + 1)
             + pg_tile_floats(obs_dim, hidden))
@@ -1042,6 +1079,30 @@ def lrpg_update_phase_math(params, m, v, window, t0: int, hidden, *, lr,
 # Workspaces by (device, stream, shape): a call reuses its stream's buffer
 # once the previous phase on that stream has finished with it.
 _workspaces: dict = {}
+# Per device, the ids the last launches of B3 and B9 wrote (LearnerDims::
+# instance, PgDims::instance): int32 (2,), -1 before any launch.
+_instances: dict = {}
+_INSTANCE_SLOT = {"B3": 0, "B9": 1}
+
+
+def _instance_ptr(dev, kernel: str) -> int:
+    buf = _instances.get(dev)
+    if buf is None:
+        buf = _instances[dev] = torch.full((2,), -1, dtype=torch.int32,
+                                           device=dev)
+    return buf[_INSTANCE_SLOT[kernel]].data_ptr()
+
+
+def last_instance(kernel: str, device) -> int:
+    """The id that the last launch of `kernel` ("B3" or "B9") on `device`
+    wrote from inside the kernel: its product mode (mm_mode), plus
+    INSTANCE_TC where its products ran on the tensor cores (the kernel's
+    TC_MODES_OF); -1 before any launch. Synchronises the device."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    buf = _instances.get(dev)
+    return -1 if buf is None else int(buf[_INSTANCE_SLOT[kernel]])
 
 
 def _check(t, shape, dtype, dev, what):
@@ -1191,7 +1252,7 @@ def _ddpg_launch(groups, batches, t0, hidden, kw, lr_schedule, merged,
     dims = _native.LearnerDims(
         obs_dim=obs_dim, batch=batch, k_updates=k_updates,
         merged=int(merged), torso=torso, actor=net_a, critic=net_c,
-        spill=int(spill), mm=mode)
+        spill=int(spill), mm=mode, instance=_instance_ptr(dev, "B3"))
     consts = _learner_consts(batch=batch, lr_schedule=lr_schedule, **kw)
     lib = _native.load_library()
     closs = torch.empty(k_updates, dtype=torch.float32, device=dev)
@@ -1481,7 +1542,8 @@ def _lrpg_launch(groups, window, t0, hidden, lr, entropy_coef, spill,
     torso, (net,), widths = _learner_shape(
         dev, hidden, (tuple(policy_layout(obs_dim, hidden)),))
     dims = _native.PgDims(obs_dim=obs_dim, n_rows=n, spill=int(spill),
-                          torso=torso, net=net, mm=mode)
+                          torso=torso, net=net, mm=mode,
+                          instance=_instance_ptr(dev, "B9"))
     bc1, bc2 = _bias_corrections(float(t0 + 1))
     consts = _native.PgConsts(
         inv_n=_f32(1.0 / n), coef=_f32(entropy_coef), lr=_f32(lr),
@@ -1633,3 +1695,114 @@ def mm_split(x: torch.Tensor, mode: int) -> torch.Tensor:
                              torch.cuda.current_stream().cuda_stream)
     _native.check(lib, rc, "mm_split")
     return out
+
+
+# --------------------------------------------------------------------------
+# The tensor cores' probe (csrc/mm_probe.cu, cp_mma_probe): B3's and B9's
+# fragment helpers alone.
+# --------------------------------------------------------------------------
+
+def mma_chain(a: np.ndarray, b: np.ndarray, mode: int) -> np.ndarray:
+    """A (rows, k) @ B (k, cols) (float32 numpy arrays) as the tensor cores'
+    helpers form it at `mode` (TC_MODES), where every k-block's part
+    product is exact in float32 (`mma_probe_operands`): k in blocks of 16
+    (8 at TF32, zeros past k), each block's part products in the order of
+    _PASSES (one product at the other modes) summed exactly, each added
+    into the float32 sum (round to nearest), then the dot's result rounded
+    to float16 at F16. The tensor cores' probe's plain version."""
+    if mode not in TC_MODES:
+        raise ValueError(f"mma_chain: mode {mode} is no tensor-core mode")
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    if mode in _PASSES:
+        pa = [x.numpy().astype(np.float64) for x in split_operand(ta, mode)]
+        pb = [x.numpy().astype(np.float64) for x in split_operand(tb, mode)]
+        terms = _PASSES[mode]
+    else:
+        pa = [round_operand(ta, mode).numpy().astype(np.float64)]
+        pb = [round_operand(tb, mode).numpy().astype(np.float64)]
+        terms = ((0, 0),)
+    k, step = a.shape[1], 8 if mode == TF32 else 16
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k0 in range(0, k, step):
+        for i, j in terms:
+            block = pa[i][:, k0:k0 + step] @ pb[j][k0:k0 + step, :]
+            acc = acc + block.astype(np.float32)
+    return acc.astype(np.float16).astype(np.float32) if mode == F16 else acc
+
+
+def mma_probe_operands(rng: np.random.RandomState, mode: int,
+                       rows: int = 64, k: int = 200, cols: int = 40):
+    """A (rows, k), B (k, cols), float32, whose block sums are exact in
+    float32 at `mode` (TC_MODES), so that the tensor cores' probe matches
+    `mma_chain` bit for bit whatever order the hardware adds a block in:
+    random signs, magnitudes in (1, 2) with as many significant bits as
+    the mode's parts hold (8; X3: 16, hi and lo), and at X6 hi (8 bits) +
+    mid (8 bits, in 2^-9 (1, 2)) + lo (4 bits, in 2^-18 [1, 2)), each part
+    what split_operand gives: every block's part products then lie on a
+    grid some 20 bits below their largest. k past a multiple of the block
+    exercises the zero padding."""
+
+    def signs(shape):
+        return rng.choice([-1.0, 1.0], shape)
+
+    def draw(shape):
+        if mode == X6:
+            x = (1.0 + rng.randint(1, 128, shape) / 128.0
+                 + signs(shape) * (1.0 + rng.randint(1, 128, shape) / 128.0)
+                 * 2.0 ** -9
+                 + signs(shape) * (1.0 + rng.randint(0, 8, shape) / 8.0)
+                 * 2.0 ** -18)
+        else:
+            bits = 16 if mode == X3 else 8
+            x = 1.0 + (rng.randint(1, 2 ** (bits - 1), shape)
+                       * 2.0 ** (1 - bits))
+        return (signs(shape) * x).astype(np.float32)
+
+    return draw((rows, k)), draw((k, cols))
+
+
+def mma_split(x: torch.Tensor, mode: int) -> torch.Tensor:
+    """(n, 3): each element of x (float32, 1-D) as the tensor cores'
+    helpers take it at `mode` (TC_MODES), as mm_split lays it out. CUDA
+    tensors launch the probe's kernel of the hardware's conversions
+    (cvt.rn.bf16x2, cvt.rn.f16x2, cvt.rna.tf32; cp_mma_split); CPU
+    tensors run mm_split, whose bits they must give."""
+    if x.dim() != 1 or mode not in TC_MODES:
+        raise ValueError(f"mma_split: {tuple(x.shape)}, mode {mode}")
+    if x.device.type == "cpu":
+        return mm_split(x, mode)
+    x = x.contiguous()
+    out = torch.empty(x.numel(), 3, dtype=torch.float32, device=x.device)
+    lib = _native.load_library()
+    with torch.cuda.device(x.device):
+        rc = lib.cp_mma_split(mode, x.data_ptr(), out.data_ptr(), x.numel(),
+                              torch.cuda.current_stream().cuda_stream)
+    _native.check(lib, rc, "mma_split")
+    return out
+
+
+def mma_probe(a: torch.Tensor, b: torch.Tensor, mode: int) -> torch.Tensor:
+    """a (rows, k) @ b (k, cols), float32, through B3's and B9's tensor-core
+    fragment helpers at `mode` (TC_MODES; rows a multiple of 16, cols of
+    8): one warp a 16 x 8 tile, each k-block's part products one mma from
+    zero, added into a float32 sum. CUDA tensors launch the probe kernel
+    (csrc/mm_probe.cu, cp_mma_probe) on the current stream; CPU tensors
+    run its plain version, `mma_chain`."""
+    if (a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]
+            or a.shape[0] % 16 or b.shape[1] % 8):
+        raise ValueError(f"mma_probe: {tuple(a.shape)} @ {tuple(b.shape)}")
+    if mode not in TC_MODES:
+        raise ValueError(f"mma_probe: mode {mode} is no tensor-core mode")
+    if a.device.type == "cpu":
+        return torch.from_numpy(mma_chain(a.numpy(), b.numpy(), mode))
+    a, b = a.contiguous(), b.contiguous()
+    rows, k = a.shape
+    out = torch.empty(rows, b.shape[1], dtype=torch.float32, device=a.device)
+    lib = _native.load_library()
+    with torch.cuda.device(a.device):
+        rc = lib.cp_mma_probe(mode, a.data_ptr(), b.data_ptr(),
+                              out.data_ptr(), rows, k, b.shape[1],
+                              torch.cuda.current_stream().cuda_stream)
+    _native.check(lib, rc, "mma_probe")
+    return out
+

@@ -145,8 +145,9 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      the plain learner; LRPG's peak card memory; then 2 train steps of
      pixel DQN under CARTPOLE_RENDER_CULL=1 (B11 18 times, B10 never);
   26. where a pixel DQN, NAF and LRPG train step's time goes, as phase 23
-     (LRPG: the window's returns and the plain update's gradient), with
-     env-steps/s and LRPG's peak card memory over one train step;
+     (LRPG: the window's returns and the plain update's gradient; 2
+     rounds), with env-steps/s and LRPG's peak card memory over one train
+     step;
   27. block sampling on state obs at the CLI defaults, `--agent dqn
      --dqn.sample block` (B4 8, B5 7) and `--agent naf --naf.learner
      kernel --naf.sample block` (B6 8, B7 7), and `--ddpg.sample uniform`
@@ -205,7 +206,7 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      with the pole 1.5 long through B1 at 4096 x 25 against its twin, its
      states apart from the defaults' run; checked_step clean over 8 steps
      at 4096 envs, then raising "non-finite pos in EnvState" on a
-     NaN-corrupted state; measure_env_steps_per_sec at 4096 envs x 512
+     NaN-corrupted state; measure_env_steps_per_sec at 4096 envs x 128
      steps of the plain env.step (no kernel); a 2-point sweep of a tiny
      DQN run (B4, B5) and the plot of its results (where matplotlib is
      installed; the card's machine has none, and the phase says so);
@@ -215,7 +216,11 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      cancel) at every mode equal bit for bit to its own mode's exact chain
      and apart from every other mode's in more than a tenth of the
      elements, and the operands' split on the card equal to the CPU's;
-     then B3, B5, B7 and B9 at each
+     the tensor-core probe (B3's and B9's mma fragment helpers alone) at
+     bfloat16, TF32, X3, X6 and F16 equal bit for bit to its plain version
+     (lk.mma_chain) on operands whose block sums are exact, and within
+     1e-5 of the terms' magnitudes of the twin's product on cancelling
+     ones; then B3, B5, B7 and B9 at each
      product mode against their twins at the same mode, at the defaults
      (B3 batch 256 at "updated" and "pre", B5, B7 with the clip at 10 and
      off, B9 at 131,072 rows and at 1,000): the float32 spellings give the
@@ -232,23 +237,33 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      the kernel at float32, X3, X6 and F64 against the twins of all four
      (_mode_identity: X3's kernel nearest its own twin; against the nearer
      of the float32 and F64 twins, F64's kernel nearer than float32's and
-     float32's than X6's); each kernel timed at every mode in turns with
+     float32's than X6's); after one update B3's and B9's id from inside
+     the kernel at each mode (the tensor cores' instance at bfloat16,
+     TF32, X3, X6 and F16); each kernel timed at every mode in turns with
      float32, each mode beside its bound at the card's peak for its
-     operand type; then each agent's CLI defaults at
+     operand type, and B3 and B9 at each tensor-core mode in turns with
+     the same sources built with CP_MM_FFMA (every mode on the fmaf
+     chains: the instances before the tensor cores; built while phases
+     3-31 run); then each agent's CLI defaults at
      `--<agent>.learner-precision bfloat16` with the counters zeroed (the
      learner kernel 7 times, 8 for LRPG, the rollout kernel 8, nothing
      else), and each agent at the other values (the legacy ones and the
      four presets' modes) for 3 train steps at 1000 envs. (`--learner-bits
-     PATH` saves, or compares with PATH, the learners' outputs at float32,
-     bfloat16 and TF32 and their times, for an A/B against an unpacked
-     parent. `--plant-faults`, a one-off run after a change to the
-     modes, builds each planted fault of PROBE_FAULTS and LEARNER_FAULTS
-     from a patched copy of csrc/ and shows phase 32's checks catch it.)
+     PATH` saves, or compares with PATH, the outputs of B5 and B7 at
+     every mode and of B3 and B9 at float32 and F64, and their times, for
+     an A/B against an unpacked parent; `--learner-times` times B3, B9
+     at every mode and B5, B7 at float32 through the package beside the
+     script, for the same A/B. `--plant-faults`, a one-off run
+     after a change to the modes, builds each planted fault of
+     PROBE_FAULTS, MMA_PROBE_FAULTS and LEARNER_FAULTS from a patched copy
+     of csrc/ and shows phase 32's checks catch it.)
 Then one JSON line of per-kernel numbers (each with its bound: the larger
 of its float32 operations over 67 TFLOP/s and its bytes over 3.35 TB/s,
 counted from this run's shapes; B3, B5, B7 and B9 also with each product
-mode's ms, bound, chain bound and launches) and, last, the device line. The script
-imports no JAX and nothing of the JAX package.
+mode's ms, bound, chain bound and launches, B3 and B9 with the fmaf
+instances' ms) and, last, the device line. A line "[phase: s]" after each
+phase gives its host seconds. The script imports no JAX and nothing of
+the JAX package.
 """
 
 from __future__ import annotations
@@ -274,6 +289,8 @@ B3_T0 = 100             # Adam count of the warmed state B3 starts from
 B3_RTOL, B3_ATOL = 2e-4, 1e-5
 BENCH_STEPS = 4096      # the physics-only benchmark's rollout length
 SPLIT_ROUNDS = 3        # round-robin passes over the train-step parts
+PIXEL_SPLIT_ROUNDS = 2  # phase 26's (each pixel agent's step is long)
+HARNESS_STEPS = 128     # phase 31's throughput harness, steps per env
 B4_EPS = (0.3, 0.0)     # compared exploration rates: mixed, then greedy
 B4_TIE = 1e-5           # a twin top-2 Q gap below this is a near-tie
 # Torsos compared beside the main-path shapes of the rollout kernels (B2,
@@ -1142,15 +1159,16 @@ def phase_step_split(dev):
     _print_split("train-step split", parts, lambda: agent.train_step(st))
 
 
-def _print_split(title, parts, step):
-    """Times each part alone, round-robin (host dispatch bounds these times,
-    so they drift with the host's load: each keeps its median round), and
-    profiles one `step()` for its device time and kernel count."""
+def _print_split(title, parts, step, n_rounds=SPLIT_ROUNDS):
+    """Times each part alone, round-robin over n_rounds (host dispatch
+    bounds these times, so they drift with the host's load: each keeps its
+    median round), and profiles one `step()` for its device time and
+    kernel count."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     rounds = {name: [] for name in parts}
-    for _ in range(SPLIT_ROUNDS):
+    for _ in range(n_rounds):
         for name, (fn, reps) in parts.items():
             rounds[name].append(_time_ms(fn, reps))
     ms = {name: statistics.median(v) for name, v in rounds.items()}
@@ -3109,7 +3127,7 @@ def phase_preset_kernels(dev):
     views = [lk.group_views(g, lay) for g, lay in zip(
         groups, (lay_a, lay_c, lay_a, lay_c, lay_a, lay_a, lay_c, lay_c))]
     plain_ms = _time_ms(lambda: lk.update_phase_math(
-        *views, batches, B3_T0, hidden, **kw), 3)
+        *views, batches, B3_T0, hidden, **kw), 1)
     b3 = dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
               **_bound(k * _b3_update_flop(hidden, b),
                        2 * _nbytes(*groups) + _nbytes(*batches) + 8 * k))
@@ -3129,7 +3147,7 @@ def phase_preset_kernels(dev):
     lay = lk.policy_layout(42, hidden)
     views = [lk.group_views(x, lay) for x in groups]
     plain_ms = _time_ms(lambda: lk.lrpg_update_phase_math(
-        *views, window, B3_T0, hidden, **kw), 5)
+        *views, window, B3_T0, hidden, **kw), 2)
     b9 = dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
               **_bound(_b9_flop(B9_FAST_N, hidden),
                        _nbytes(*window) + 2 * _nbytes(*groups) + 4))
@@ -3279,7 +3297,7 @@ def phase_pixel_agents_step_split(dev):
         phys = st.env_state.phys
         snaps = type(phys)(*(torch.cat([x] * env.params.action_repeats)
                              for x in phys))
-        reps = 1 if name == "lrpg" else 3
+        reps = 1 if name == "lrpg" else 2
         parts = {"whole train step": (lambda: agent.train_step(st), reps)}
         if name == "lrpg":
             def rollout():
@@ -3299,7 +3317,7 @@ def phase_pixel_agents_step_split(dev):
         parts[f"plain rollout ({t} env-steps)"] = (rollout, reps)
         parts[f"of which B10 render ({t} env-steps)"] = (
             lambda: [rk.render_frames(env.params, env.render_config, snaps)
-                     for _ in range(t)], 3)
+                     for _ in range(t)], 2)
         if name == "lrpg":
             obs_t, act_t, rew_t, done_t = traj
 
@@ -3334,12 +3352,13 @@ def phase_pixel_agents_step_split(dev):
                                                        batches))
 
             parts["late replay insert"] = (
-                lambda: agent.replay.add_trajectory(st.replay, *traj), 5)
-            parts["block presample"] = (presample, 5)
+                lambda: agent.replay.add_trajectory(st.replay, *traj), 3)
+            parts["block presample"] = (presample, 3)
             parts[f"plain learner, {c.updates_per_step} conv updates"] = (
-                plain_learner, 3)
+                plain_learner, 2)
         ms = _print_split(f"pixel {name} train-step split ({_card()})",
-                          parts, lambda: agent.train_step(st))
+                          parts, lambda: agent.train_step(st),
+                          PIXEL_SPLIT_ROUNDS)
         rate = env.num_envs * t / (ms["whole train step"] / 1e3)
         line = f"pixel {name}: {rate:.6g} env-steps/s over the whole step"
         if name == "lrpg":
@@ -4086,7 +4105,8 @@ def phase_tools(dev) -> dict:
     one render() (B10); params_from_urdf from an edited copy of the
     bodies through B1 at N_ENVS x B1_STEPS against its twin, apart from
     the defaults' run; checked_step clean over 8 steps, then raising on a
-    NaN-corrupted state; measure_env_steps_per_sec at N_ENVS x 512; a
+    NaN-corrupted state; measure_env_steps_per_sec at N_ENVS x
+    HARNESS_STEPS; a
     2-point sweep of a tiny DQN run, and the plot of its results where
     matplotlib is installed."""
     import os
@@ -4192,11 +4212,13 @@ def phase_tools(dev) -> dict:
     # The throughput harness (the plain env.step loop, no kernel).
     env = CartPole3D(CartPoleParams(), num_envs=N_ENVS, device=dev)
     _zero_counts()
-    rate = measure_env_steps_per_sec(env, num_steps=512, repeats=1)
+    rate = measure_env_steps_per_sec(env, num_steps=HARNESS_STEPS,
+                                     repeats=1)
     assert _only(_read_counts()), _read_counts()
     assert math.isfinite(rate["checksum"])
     out["harness"] = rate
-    print(f"measure_env_steps_per_sec ({N_ENVS} envs x 512 steps of the "
+    print(f"measure_env_steps_per_sec ({N_ENVS} envs x {HARNESS_STEPS} "
+          f"steps of the "
           f"plain env.step, best of 1 after a warm-up; card {card}): "
           f"{rate['env_steps_per_sec']:.6g} env-steps/s, "
           f"{rate['best_seconds']:.4f} s; backend {rate['backend']}",
@@ -4471,14 +4493,31 @@ def _mode_holds(tag, run, twin, nets, one_update, share,
     return out
 
 
-def _mode_times(fn, reps) -> dict:
+def _mode_times(fn, reps, ffma=None, kernel="B9") -> tuple:
     """fn(p)'s CUDA-event ms at each product mode, in turns (float32, then
-    each mode of PRECISION_MODES, then back): mode -> [ms, ms]."""
+    each mode of PRECISION_MODES, then back): (mode -> [ms, ms], and with
+    `ffma` (the CP_MM_FFMA library, _ffma_build) at each of `kernel`'s
+    tensor-core modes (lk.TC_MODES_OF) the same call through it, the fmaf
+    instance before the kernel's on the way out and after it on the way
+    back: mode -> [ms, ms])."""
+    from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
+
     order = (None,) + PRECISION_MODES
     out = {p or "float32": [] for p in order}
-    for p in order + order[::-1]:
-        out[p or "float32"].append(_time_ms(lambda: fn(p), reps))
-    return out
+    ref = {}
+    for way, seq in enumerate((order, order[::-1])):
+        for p in seq:
+            turns = (False,)
+            if ffma is not None and lk.mm_mode(p) in lk.TC_MODES_OF[kernel]:
+                turns = (True, False) if way == 0 else (False, True)
+            for use_ffma in turns:
+                if use_ffma:
+                    with _use_library(ffma):
+                        ref.setdefault(p, []).append(
+                            _time_ms(lambda: fn(p), reps))
+                else:
+                    out[p or "float32"].append(_time_ms(lambda: fn(p), reps))
+    return out, ref
 
 
 def _mode_bounds(prod: float, rest: float, nbytes: float) -> dict:
@@ -4507,14 +4546,21 @@ def _mode_bounds(prod: float, rest: float, nbytes: float) -> dict:
     return out
 
 
-def _times_line(times: dict, bounds: dict) -> str:
-    return ", ".join(f"{p} {' '.join(f'{t:.4f}' for t in ts)} (bound "
-                     f"{bounds[p]['bound_ms']:.4f}, chain "
+def _times_line(times: dict, bounds: dict, ffma=None) -> str:
+    def ms(ts):
+        return " ".join(f"{t:.4f}" for t in ts)
+
+    ffma = ffma or {}
+    return ", ".join(f"{p} {ms(ts)}"
+                     + (f" (fmaf instance {ms(ffma[p])})" if p in ffma
+                        else "")
+                     + f" (bound {bounds[p]['bound_ms']:.4f}, chain "
                      f"{bounds[p]['chain_ms']:.4f})"
                      for p, ts in times.items()) + \
         " ms (bounds at each mode's peak: float32 67, bfloat16, float16 " \
         "and X3's and X6's bfloat16 parts 989, TF32 495, F64 67 TFLOP/s; " \
-        "chains: FFMA 67, DFMA 34 TFLOP/s)"
+        "chains: FFMA 67, DFMA 34 TFLOP/s; fmaf instance: the same sources " \
+        "built with CP_MM_FFMA, in turns)"
 
 
 # Planted faults, built and checked by `chip_smoke.py --plant-faults` (a
@@ -4541,6 +4587,16 @@ PROBE_FAULTS = {
     "F64 with float32 accumulators": (_F64, (
         "learner_stages.cuh", "  using In = double;\n  using Acc = double;",
         "  using In = double;\n  using Acc = float;")),
+}
+# The tensor cores' fragment helpers' (csrc/learner_stages.cuh), which the
+# tensor-core probe (_mma_probe) must catch at their mode.
+MMA_PROBE_FAULTS = {
+    "X3's lo parts of a pair swapped": (_X3, (
+        "learner_stages.cuh", "    p[1] = cvt_bf16x2(r0, r1);",
+        "    p[1] = cvt_bf16x2(r1, r0);")),
+    "B's second k-block register from the first's inputs": ("bfloat16", (
+        "learner_stages.cuh", "      s.pair(n0 + g, k0 + 2 * t + q * 8, p);",
+        "      s.pair(n0 + g, k0 + 2 * t, p);")),
 }
 LEARNER_FAULTS = {
     "X6's and F64's instances swapped in CP_MM_INSTANCES": (
@@ -4589,7 +4645,7 @@ def _load_like_main(path: str):
                  "cp_dqn_workspace_floats", "cp_dqn_update_phase",
                  "cp_naf_workspace_floats", "cp_naf_update_phase",
                  "cp_lrpg_workspace_floats", "cp_lrpg_update_phase",
-                 "cp_mm_probe", "cp_mm_split"):
+                 "cp_mm_probe", "cp_mm_split", "cp_mma_probe"):
         if hasattr(lib, name):
             fn = getattr(lib, name)
             fn.argtypes = getattr(main_lib, name).argtypes
@@ -4690,6 +4746,62 @@ def _product_probe(dev) -> dict:
           + f" (in the order {', '.join(lk.MODE_NAMES)}); the split equal "
           f"to the CPU's on {len(bits)} patterns at every mode",
           flush=True)
+    out["mma"] = _mma_probe(dev)
+    return out
+
+
+def _mma_probe(dev) -> dict:
+    """The tensor cores' probe (csrc/mm_probe.cu's cp_mma_probe: B3's and
+    B9's fragment helpers alone) at each tensor-core mode: equal bit for
+    bit to its plain version (lk.mma_chain) on lk.mma_probe_operands,
+    whose block sums are exact (the fragments' layouts, the parts and
+    their order), and on lk.probe_operands (cancelling sums) within 1e-5
+    of the terms' magnitudes of the twin's product (lk._mm); and the
+    operands as the hardware's conversions give them (lk.mma_split) equal
+    to the CPU's split bit for bit on edge patterns and 100,000 random
+    ones. Returns each mode's largest error over the magnitudes."""
+    import numpy as np
+    import torch
+
+    from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
+
+    out = {}
+    rng = np.random.RandomState(1)
+    bits = np.concatenate([
+        np.array([0, 0x80000000, 1, 0x00008000, 0x3F808000, 0x3F818000,
+                  0x3F801000, 0x3F803000, 0x7F7F7FFF, 0x7F7F8000,
+                  0x7F7FF000, 0x477FF000, 0x7F800000, 0xFF800000,
+                  0x7FC00000, 0x7F800001], np.uint32),
+        rng.randint(0, 2 ** 32, 100000, dtype=np.uint64).astype(np.uint32)])
+    split_x = torch.from_numpy(bits.view(np.float32).copy())
+    a2, b2 = lk.probe_operands(np.random.RandomState(0))
+    ta2, tb2 = torch.from_numpy(a2), torch.from_numpy(b2)
+    mag = ta2.double().abs() @ tb2.double().abs()
+    for m in lk.TC_MODES:
+        name = lk.MODE_NAMES[m]
+        a, b = lk.mma_probe_operands(np.random.RandomState(0), m)
+        got = lk.mma_probe(torch.from_numpy(a).to(dev),
+                           torch.from_numpy(b).to(dev), m).cpu().numpy()
+        assert np.array_equal(got.view(np.uint32),
+                              lk.mma_chain(a, b, m).view(np.uint32)), name
+        got = lk.mma_probe(ta2.to(dev), tb2.to(dev), m).cpu().double()
+        err = (got - lk._mm(ta2, tb2, m).double()).abs()
+        bar = 1e-5 * mag + (2.0 ** -10 * got.abs() if m == lk.F16 else 0.0)
+        assert bool((err <= bar).all()), name
+        out[name] = float((err / mag).max())
+        got = lk.mma_split(split_x.to(dev), m).cpu().numpy()
+        want = lk.mm_split(split_x, m).numpy()
+        nan = np.isnan(want)
+        assert np.array_equal(np.isnan(got), nan), name
+        assert np.array_equal(got[~nan].view(np.uint32),
+                              want[~nan].view(np.uint32)), name
+    print("tensor-core probe (B3's and B9's mma fragment helpers): equal to "
+          "mma_chain bit for bit at each tensor-core mode on operands whose "
+          "block sums are exact; on cancelling operands (64 x 384 @ 384 x "
+          "64) the largest error against the twin's product over the terms' "
+          "magnitudes " + ", ".join(f"{n} {v:.3g}" for n, v in out.items())
+          + f" (bar 1e-5); the hardware's conversions equal to the CPU's "
+          f"split on {len(bits)} patterns at each mode", flush=True)
     return out
 
 
@@ -4867,6 +4979,8 @@ def phase_planted_faults(dev) -> dict:
     checks: each planted fault built from a patched copy of csrc/ and
     caught. The product helpers' (PROBE_FAULTS) by the product probe (its
     mode's result off its own exact chain in more than a tenth of the
+    elements); the tensor cores' fragment helpers' (MMA_PROBE_FAULTS) by
+    the tensor-core probe (off mma_chain in more than a tenth of the
     elements); the learners' (LEARNER_FAULTS) by _mode_holds, at the
     fault's modes, in every case listed with it (where the fault is one
     the checks must catch; the other's readings are printed)."""
@@ -4876,7 +4990,8 @@ def phase_planted_faults(dev) -> dict:
     from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
 
     loads = {tag: _planted_build(f"probe {tag}", [patch], ["mm_probe.cu"])
-             for tag, (_, patch) in PROBE_FAULTS.items()}
+             for tag, (_, patch) in {**PROBE_FAULTS,
+                                     **MMA_PROBE_FAULTS}.items()}
     loads.update({tag: _planted_build(tag, patches, sources)
                   for tag, (patches, sources, *_) in
                   LEARNER_FAULTS.items()})
@@ -4892,6 +5007,18 @@ def phase_planted_faults(dev) -> dict:
         assert share > 0.1, f"planted {tag} not caught: {share}"
         caught[tag] = {"probe": f"{share:.4f} of the elements off the "
                                 f"{mode} chain"}
+    for tag, (mode, _) in MMA_PROBE_FAULTS.items():
+        m = lk.MODE_NAMES.index(mode)
+        lib = loads[tag]()
+        ma, mb = lk.mma_probe_operands(np.random.RandomState(0), m)
+        with _use_library(lib):
+            got = lk.mma_probe(torch.from_numpy(ma).to(dev),
+                               torch.from_numpy(mb).to(dev), m).cpu().numpy()
+        share = float((got.view(np.uint32)
+                       != lk.mma_chain(ma, mb, m).view(np.uint32)).mean())
+        assert share > 0.1, f"planted {tag} not caught: {share}"
+        caught[tag] = {"probe": f"{share:.4f} of the elements off "
+                                f"mma_chain at {mode}"}
     libs = {tag: loads[tag]() for tag in LEARNER_FAULTS}
     for case in _precision_cases(dev):
         for tag, (_, _, tags, modes, must) in LEARNER_FAULTS.items():
@@ -4917,7 +5044,50 @@ def phase_planted_faults(dev) -> dict:
     return caught
 
 
-def phase_learner_precision(dev) -> dict:
+# B3's and B9's sources, which phase 32 builds again with CP_MM_FFMA
+# (csrc/learner_stages.cuh: every mode on the fmaf chains, the instances
+# as they were before the tensor cores) as the yardstick of its times.
+_TC_SOURCES = tuple(f"{n}_update{u}.cu" for n in ("ddpg", "lrpg")
+                    for u in ("", "_x3x6", "_f64f16"))
+
+
+def _ffma_build():
+    """Starts nvcc on _TC_SOURCES with CP_MM_FFMA defined, into a library
+    of its own (_planted_build's copy of csrc/; the main library and csrc/
+    untouched). Returns the function that waits for it and loads it."""
+    return _planted_build("ffma", [("learner_stages.cuh",
+                                    "#ifdef CP_MM_FFMA\n",
+                                    "#define CP_MM_FFMA 1\n"
+                                    "#ifdef CP_MM_FFMA\n")], _TC_SOURCES)
+
+
+def _instances_of(case) -> dict:
+    """The id the case's kernel (B3 or B9) wrote from inside each launch
+    (lk.last_instance), at float32 and each mode of PRECISION_MODES: the
+    mode, plus lk.INSTANCE_TC at the kernel's tensor-core modes
+    (lk.TC_MODES_OF; an fmaf instance there fails, and so does a
+    tensor-core one elsewhere)."""
+    import torch
+
+    from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
+
+    kernel = "B9" if case["key"] == "B9" else "B3"
+    out = {}
+    for p in (None,) + PRECISION_MODES:
+        lk._instances.clear()
+        case["run"](p)
+        got = lk.last_instance(kernel, torch.device("cuda", 0))
+        mode = lk.mm_mode(p)
+        tc = mode in lk.TC_MODES_OF[kernel]
+        want = mode + (lk.INSTANCE_TC if tc else 0)
+        assert got == want, f"{case['tag']} {p}: instance {got}, want {want}"
+        out[p or "float32"] = got
+    print(f"{case['tag']}: instance ids (the mode, + {lk.INSTANCE_TC} on the "
+          f"tensor cores) {out}", flush=True)
+    return out
+
+
+def phase_learner_precision(dev, ffma_load=None) -> dict:
     """learner_precision on the card: the product probe against each
     mode's exact chain (_product_probe); B3, B5, B7 and B9 at each product
     mode against their twins (_mode_holds) at the defaults (B3 batch 256
@@ -4931,17 +5101,25 @@ def phase_learner_precision(dev) -> dict:
     values for a few steps."""
     card = _card()
     out = {"card": card, "probe": _product_probe(dev)}
+    ffma = ffma_load() if ffma_load is not None else None
     for case in _precision_cases(dev):
         entry = out.setdefault(case["key"], {"holds": {}})
         entry["holds"][case["label"]] = _mode_holds(
             case["tag"], case["run"], case["twin"], case["nets"],
             case["one_update"], case["share"])
+        if case["key"] in ("B3", "B9") and case["one_update"]:
+            entry.setdefault("instances", {})[case["label"]] = \
+                _instances_of(case)
         if "time" in case:
             title, fn, reps, prod, rest, nbytes = case["time"]
-            times = _mode_times(fn, reps)
+            tc = case["key"] in ("B3", "B3 fast", "B9")
+            times, ref = _mode_times(fn, reps, ffma if tc else None,
+                                     "B9" if case["key"] == "B9" else "B3")
             bounds = _mode_bounds(prod, rest, nbytes)
-            print(f"{title}: {_times_line(times, bounds)}", flush=True)
+            print(f"{title}: {_times_line(times, bounds, ref)}", flush=True)
             entry.update(ms=times, bounds=bounds, **bounds["float32"])
+            if ref:
+                entry["ffma_ms"] = ref
 
     # The CLI: each agent's defaults at bfloat16 (the launches the kernels
     # line reports), then the other legacy values at a small size.
@@ -4999,13 +5177,15 @@ def phase_learner_precision(dev) -> dict:
 
 def learner_bits(dev, path: str) -> int:
     """The outputs of B3 ("updated", "pre"), B5, B7 (the clip at 10 and
-    off) and B9 at their defaults, at float32 (the wrappers' default call)
-    and at bfloat16 and TF32 (the modes every version of the package with
-    learner_precision takes), through whichever package sits beside the
-    script, and each kernel's ms (CUDA events): saved to `path`, or, where
-    `path` exists, compared with it bit for bit (exit 1 on a difference).
-    Copy the script into an unpacked parent and run it there and here in
-    turns to hold a change to the parent's bits and time."""
+    off) and B9 at their defaults, through whichever package sits beside
+    the script, and each kernel's ms (CUDA events): B5 and B7 at float32
+    (the wrappers' default call) and at every mode of PRECISION_MODES, B3
+    at float32, TF32, X6 and F64, B9 at float32 and F64 (their fmaf and
+    DFMA chains; their other modes run on the tensor cores and phase 32
+    holds them to their twins instead). Saved to `path`, or, where `path`
+    exists, compared with it bit for bit (exit 1 on a difference). Copy
+    the script into an unpacked parent and run it there and here in turns
+    to hold a change to the parent's bits and time."""
     import os
 
     import torch
@@ -5041,7 +5221,10 @@ def learner_bits(dev, path: str) -> int:
         gs, w, B3_T0, LRPG_HIDDEN, **b9_kw, **kw))
     outs, ms = {}, {}
     for name, (groups, call) in calls.items():
-        for p in (None, "bfloat16", "tensorfloat32"):
+        modes = ((None,) + PRECISION_MODES if name[:2] in ("B5", "B7")
+                 else (None, "tensorfloat32", _X6, _F64)
+                 if name[:2] == "B3" else (None, _F64))
+        for p in modes:
             kw = {} if p is None else dict(mm_precision=p)
             tag = name if p is None else f"{name} {p}"
             got = [x.clone() for x in groups]
@@ -5052,6 +5235,11 @@ def learner_bits(dev, path: str) -> int:
                                20)
     torch.cuda.synchronize()
     print(json.dumps({"learner_ms": ms, "card": _card()}), flush=True)
+    print("learner bits: B5 and B7 at float32 and every mode, B3 at "
+          "float32, TF32, X6 and F64, B9 at float32 and F64; B3's bfloat16, "
+          "X3 and F16 and B9's and its TF32 and X6 run on the tensor cores "
+          "and are held to their twins at the same mode in phase 32 "
+          "instead", flush=True)
     if not os.path.exists(path):
         torch.save(outs, path)
         print(f"learner bits saved to {path}", flush=True)
@@ -5062,6 +5250,54 @@ def learner_bits(dev, path: str) -> int:
             for name in outs}
     print(json.dumps({"bit_equal": same}), flush=True)
     return 0 if all(same.values()) else 1
+
+
+_LAP = [time.perf_counter()]
+
+
+def _lap(label: str) -> None:
+    """Prints the host seconds since the last lap (the run's phase times,
+    against its time limit)."""
+    now = time.perf_counter()
+    print(f"[{label}: {now - _LAP[0]:.1f} s]", flush=True)
+    _LAP[0] = now
+
+
+def learner_times(dev) -> dict:
+    """B3 (batch 256 x K 16, the fast preset's 8192 x K 8) and B9 (131,072
+    rows) at float32 and every mode of PRECISION_MODES, and B5 and B7 at
+    float32, at their defaults' inputs, through whichever package sits
+    beside the script: ms per phase (CUDA events). Copy the script into an
+    unpacked parent and run it there and here in turns (parent, change,
+    change, parent) to time a change against the parent on one card."""
+    from cartpoleplusplus_tpu_torch.agents.common import lr_schedule
+    from cartpoleplusplus_tpu_torch.agents.naf import NAFConfig
+    from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
+
+    hidden, out = (256, 256), {}
+    kw3 = dict(actor_lr=1e-4, critic_lr=1e-3, gamma=0.99, tau=0.01)
+    for batch, k, reps in ((B3_BATCH, B3_K, 10),
+                           (B3_FAST_BATCH, B3_FAST_K, 3)):
+        g, b = _b3_inputs(dev, hidden, batch, k, seed=21)
+        for p in (None,) + PRECISION_MODES:
+            out[f"B3 {batch} x K {k} {p or 'float32'}"] = _time_ms(
+                lambda: lk.ddpg_update_phase(g, b, B3_T0, hidden,
+                                             mm_precision=p, **kw3), reps)
+    g, w = _b9_inputs(dev, LRPG_HIDDEN, seed=29)
+    for p in (None,) + PRECISION_MODES:
+        out[f"B9 {p or 'float32'}"] = _time_ms(
+            lambda: lk.lrpg_update_phase(g, w, B3_T0, LRPG_HIDDEN,
+                                         mm_precision=p, lr=3e-4,
+                                         entropy_coef=0.1), 10)
+    g, b = _b5_inputs(dev, hidden, B5_BATCH, B5_K, seed=21)
+    out["B5 float32"] = _time_ms(lambda: lk.dqn_update_phase(
+        g, b, B3_T0, hidden, lr=5e-5, gamma=0.99, tau=0.01), 10)
+    cfg = NAFConfig()
+    g, b = _b7_inputs(dev, hidden, B7_BATCH, B7_K, seed=33)
+    out["B7 float32"] = _time_ms(lambda: lk.naf_update_phase(
+        g, b, B3_T0, hidden, lr=cfg.lr, gamma=cfg.gamma, tau=cfg.tau,
+        max_grad_norm=cfg.max_grad_norm, lr_schedule=lr_schedule(cfg)), 10)
+    return out
 
 
 def _warm_card(dev, seconds: float):
@@ -5094,6 +5330,13 @@ def main() -> int:
         print(json.dumps({"presample_ms": presample_times(dev),
                           "card": _card()}), flush=True)
         return 0
+    if sys.argv[1:] == ["--learner-times"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        _native.load_library()
+        _warm_card(dev, 2.0)
+        print(json.dumps({"learner_times_ms": learner_times(dev),
+                          "card": _card()}), flush=True)
+        return 0
     if sys.argv[1:2] == ["--learner-bits"] and len(sys.argv) == 3:
         _native.load_library()
         _warm_card(dev, 2.0)
@@ -5118,9 +5361,10 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
         print(_card(), flush=True)
         _native.load_library()
+        ffma_load = _ffma_build()
         _warm_card(dev, 2.0)
-        print(json.dumps({"precision": phase_learner_precision(dev)}),
-              flush=True)
+        print(json.dumps({"precision": phase_learner_precision(
+            dev, ffma_load)}), flush=True)
         return 0
     if sys.argv[1:] == ["--plant-faults"]:
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -5151,45 +5395,79 @@ def main() -> int:
     print(f"build: {build_s:.2f} s (nvcc, sm_90a"
           f"{'' if stale else '; library current, not rebuilt'}); "
           f"ptxas: {_ptxas_report(_native.BUILD_LOG)}", flush=True)
+    ffma_load = _ffma_build()  # phase 32's yardstick, built meanwhile
+    _lap("start and build")
 
     _warm_card(dev, 5.0)
     b1 = phase_b1(dev)
+    _lap("phase_b1")
     floor_us = b1["discrete"]["ms"] / B1_STEPS * 1e3  # B1 per env-step
     b2 = phase_b2(dev, floor_us)
+    _lap("phase_b2")
     b3 = phase_b3(dev)
+    _lap("phase_b3")
     main_launches = phase_main_path()
+    _lap("phase_main_path")
     b1_launches = phase_physics_rollout(dev)
+    _lap("phase_physics_rollout")
     phase_step_split(dev)
+    _lap("phase_step_split")
     b4 = phase_b4(dev, floor_us)
+    _lap("phase_b4")
     b5 = phase_b5(dev)
+    _lap("phase_b5")
     dqn_launches = phase_dqn_main_path()
+    _lap("phase_dqn_main_path")
     phase_dqn_step_split(dev)
+    _lap("phase_dqn_step_split")
     split = phase_stage_split(dev)
+    _lap("phase_stage_split")
     for label, most in SPLIT_BARRIERS.items():
         assert split[label]["barriers_per_update"] <= most, (label,
                                                              split[label])
     b8 = phase_b8(dev, floor_us)
+    _lap("phase_b8")
     b9 = phase_b9(dev)
+    _lap("phase_b9")
     lrpg_launches = phase_lrpg_main_path()
+    _lap("phase_lrpg_main_path")
     phase_lrpg_step_split(dev)
+    _lap("phase_lrpg_step_split")
     b6 = phase_b6(dev, floor_us)
+    _lap("phase_b6")
     b7 = phase_b7(dev)
+    _lap("phase_b7")
     naf_launches = phase_naf_main_path()
+    _lap("phase_naf_main_path")
     phase_naf_step_split(dev)
+    _lap("phase_naf_step_split")
     p_pix, poses, b10 = phase_b10(dev)
+    _lap("phase_b10")
     b11 = phase_b11(dev, p_pix, poses)
+    _lap("phase_b11")
     del poses
     pixel_launches, cull_launches = phase_pixel_main_path()
+    _lap("phase_pixel_main_path")
     phase_pixel_step_split(dev)
+    _lap("phase_pixel_step_split")
     phase_presets(dev)
+    _lap("phase_presets")
     phase_pixel_agents_main_path()
+    _lap("phase_pixel_agents_main_path")
     phase_pixel_agents_step_split(dev)
+    _lap("phase_pixel_agents_step_split")
     phase_sampling(dev)
+    _lap("phase_sampling")
     phase_render_bfloat16(dev)
+    _lap("phase_render_bfloat16")
     dist = phase_distribution(dev)["per_rank"]
+    _lap("phase_distribution")
     bf16 = phase_bfloat16_agents(dev)["launches"]
+    _lap("phase_bfloat16_agents")
     phase_tools(dev)
-    precision = phase_learner_precision(dev)
+    _lap("phase_tools")
+    precision = phase_learner_precision(dev, ffma_load)
+    _lap("phase_learner_precision")
 
     b1_main = b1["discrete"]  # the benchmark's default params
     kernels = [
@@ -5298,6 +5576,9 @@ def main() -> int:
             entry["precision_chain_ms"] = {
                 mode: b["chain_ms"]
                 for mode, b in precision[key]["bounds"].items()}
+            entry["precision_ffma_ms"] = {
+                mode: statistics.mean(ts)
+                for mode, ts in precision[key].get("ffma_ms", {}).items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1423,11 +1423,12 @@ def _check_modes(run_kernel, run_twin, precision, one_update: bool,
                                                  _flat(again_g, again_l)))
 
 
-def _b3_case(cuda, k, agc):
-    """B3 at (256, 256), batch 200 (a ragged row tile), K updates from
-    warmed moments: (kernel(p), twin(p)) as _check_modes takes them."""
-    hidden = (256, 256)
-    groups, batches = _b3_inputs(cuda, hidden, 200, k, seed=2)
+def _b3_case(cuda, k, agc, hidden=(256, 256), batch=200):
+    """B3 at `hidden` (default (256, 256)), batch 200 (a ragged row tile),
+    K updates from warmed moments: (kernel(p), twin(p)) as _check_modes
+    takes them."""
+    hidden = tuple(hidden)
+    groups, batches = _b3_inputs(cuda, hidden, batch, k, seed=2)
     kw = dict(actor_lr=1e-3, critic_lr=2e-3, gamma=0.99, tau=0.05,
               actor_grad_critic=agc, lr_schedule=(0.1, 50))
     la, lc = lk.actor_layout(42, hidden), lk.critic_layout(42, hidden)
@@ -1710,3 +1711,233 @@ def test_split_on_the_card_is_the_cpus(cuda):
         assert np.array_equal(np.isnan(got), nan)
         assert np.array_equal(got[~nan].view(np.uint32),
                               want[~nan].view(np.uint32))
+
+
+# --- the tensor cores' products of B3 and B9 -----------------------------
+
+TC_PRECISIONS = ("bfloat16", "tensorfloat32", "BF16_BF16_F32_X3",
+                 "BF16_BF16_F32_X6", "F16_F16_F16")
+B3_TC_PRECISIONS = ("bfloat16", "BF16_BF16_F32_X3", "F16_F16_F16")
+
+
+@pytest.mark.parametrize("precision", (None,) + PRECISIONS)
+def test_each_mode_reports_its_instance(cuda, precision):
+    """The id each instance of B3 and B9 writes from inside the kernel
+    (lk.last_instance): its mode, plus lk.INSTANCE_TC where its products
+    run on the tensor cores, B9 at bfloat16, TF32, X3, X6 and F16 and B3
+    at bfloat16, X3 and F16 (lk.TC_MODES_OF: an fmaf instance there
+    fails, and so does a tensor-core one elsewhere); float32, F64 and
+    B3's TF32 and X6 keep their chains. B3 at batch 200, K 1, both
+    actor_grad_critic values; B9 on both routes."""
+    mode = lk.mm_mode(precision)
+    want = mode + (lk.INSTANCE_TC if mode in lk.TC_MODES_OF["B3"] else 0)
+    for agc in ("updated", "pre"):
+        kernel, _ = _b3_case(cuda, 1, agc, hidden=(72, 40))
+        lk._instances.clear()
+        kernel(precision)
+        assert lk.last_instance("B3", cuda) == want, (agc, precision)
+    want = mode + (lk.INSTANCE_TC if mode in lk.TC_MODES_OF["B9"] else 0)
+    for hidden, n in (((64, 64), 1000), ((256, 300), 777)):
+        kernel, _ = _b9_case(cuda, hidden, n)
+        lk._instances.clear()
+        kernel(precision)
+        assert lk.last_instance("B9", cuda) == want, (hidden, precision)
+
+
+def test_mma_probe_matches_its_plain_version(cuda):
+    """csrc/mm_probe.cu's tensor-core probe (B3's and B9's fragment
+    helpers alone) at each tensor-core mode equals lk.mma_chain bit for bit
+    on lk.mma_probe_operands, whose block sums are exact (the fragments'
+    layouts, the passes' parts and their order), and on general operands
+    (lk.probe_operands) lies within float32's summation rounding of the
+    twin's product at that mode; and the operands as the hardware's
+    conversions give them (lk.mma_split) equal to the CPU's split bit for
+    bit on edge patterns and 100,000 random ones."""
+    rng = np.random.RandomState(11)
+    bits = np.concatenate([
+        np.array([0, 0x80000000, 1, 0x3F808000, 0x3F801000, 0x7F7F7FFF,
+                  0x7F7F8000, 0x7F7FF000, 0x477FF000, 0x7F800000,
+                  0xFF800000, 0x7FC00000, 0x7F800001], np.uint32),
+        rng.randint(0, 2 ** 32, 100000, dtype=np.uint64).astype(np.uint32)])
+    x = torch.from_numpy(bits.view(np.float32).copy())
+    for mode in lk.TC_MODES:
+        got = lk.mma_split(x.to(cuda), mode).cpu().numpy()
+        want = lk.mm_split(x, mode).numpy()
+        nan = np.isnan(want)
+        assert np.array_equal(np.isnan(got), nan)
+        assert np.array_equal(got[~nan].view(np.uint32),
+                              want[~nan].view(np.uint32)), lk.MODE_NAMES[mode]
+        a, b = lk.mma_probe_operands(np.random.RandomState(9), mode)
+        got = lk.mma_probe(torch.from_numpy(a).to(cuda),
+                           torch.from_numpy(b).to(cuda), mode).cpu().numpy()
+        want = lk.mma_chain(a, b, mode)
+        assert np.array_equal(got.view(np.uint32), want.view(np.uint32)), \
+            lk.MODE_NAMES[mode]
+        a, b = lk.probe_operands(np.random.RandomState(10), rows=32,
+                                 cols=48)
+        ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+        got = lk.mma_probe(ta.to(cuda), tb.to(cuda), mode).cpu().double()
+        twin = lk._mm(ta, tb, mode).double()
+        mag = (ta.double().abs() @ tb.double().abs())
+        bar = 1e-5 * mag + (2.0 ** -10 * twin.abs() if mode == lk.F16
+                            else 0.0)
+        assert bool(((got - twin).abs() <= bar).all()), lk.MODE_NAMES[mode]
+
+
+@pytest.mark.parametrize("hidden", [(72, 40), (72, 40, 20)], ids=str)
+@pytest.mark.parametrize("precision", B3_TC_PRECISIONS)
+def test_b3_on_the_tensor_cores_off_the_tile_widths(cuda, precision,
+                                                    hidden):
+    """B3 at widths that are no multiple of the mma tiles (72 and 40 of 16,
+    20 of 8) and at depth 3, one update at both actor_grad_critic values,
+    against its twin at the same mode (_check_modes, one update)."""
+    for agc in ("updated", "pre"):
+        _check_modes(*_b3_case(cuda, 1, agc, hidden=hidden), precision, True,
+                     4, ONE_UPDATE_SHARE)
+
+
+@pytest.mark.parametrize("precision", B3_TC_PRECISIONS)
+def test_b3_on_the_tensor_cores_at_batch_8192(cuda, precision):
+    """B3 at the fast preset's batch 8192 (the weight gradients' sums over
+    512 k-blocks), K 1, against its twin at the same mode."""
+    _check_modes(*_b3_case(cuda, 1, "updated", batch=8192), precision, True,
+                 4, ONE_UPDATE_SHARE)
+
+
+@pytest.mark.parametrize("hidden", [(72, 40), (72, 40, 20)], ids=str)
+@pytest.mark.parametrize("precision", TC_PRECISIONS)
+def test_b9_on_the_tensor_cores_off_the_tile_widths(cuda, precision,
+                                                    hidden):
+    """B9 at widths that are no multiple of the mma tiles and at depth 3:
+    against its twin at the same mode, and its two routes (the packed
+    weights in shared memory, the weights converted from the group buffer)
+    give the same bits."""
+    _check_modes(*_b9_case(cuda, hidden, 1000), precision, True, 1,
+                 ONE_UPDATE_SHARE)
+    mode = lk.mm_mode(precision)
+    assert not lk.pg_tile_spills(42, hidden, mode)
+    groups, window = _b9_inputs(cuda, hidden, 1000, seed=4)
+    runs = []
+    for spill in (False, True):
+        got = [g.clone() for g in groups]
+        loss = lk._lrpg_launch(got, window, 100, hidden, 3e-4, 0.1, spill,
+                               mode)
+        torch.cuda.synchronize()
+        runs.append(got + [loss])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+
+# sha256 of the learners' outputs that keep their fmaf (DFMA) instances:
+# B5 and B7 at every mode, B3 at float32, TF32, X6 and F64, B9 at float32
+# and F64 (learner_digests),
+# recorded from the kernels as they were before B3's and B9's tensor-core
+# instances, on an NVIDIA H100 80GB HBM3.
+FMAF_DIGESTS = {
+    "B5 float32":
+        "3c9fe689ad565d12ed578b980f67484f5e02322032f90c93f78ffd5d04cb7770",
+    "B5 bfloat16":
+        "f38f80f8c1a99642667cf7eefc9871e5fc27bb18d2cc6217973ccfc16e8a5a99",
+    "B5 tensorfloat32":
+        "a088d1c8b7aef002524bffd417ba344f9126dcc6c94e5f470c3d5a8a2a5e929c",
+    "B5 BF16_BF16_F32_X3":
+        "686079d9099736d00b9d206ad7e34fb6d4d7bc9b8f4d2db59e9db90a9a5c0da8",
+    "B5 BF16_BF16_F32_X6":
+        "5eb0848cee51dfaebff2e09a7a7b8cd49b9764149f2fde4371e9d1db80831d15",
+    "B5 F64_F64_F64":
+        "338024b5f3ed0c41baf1d09b330b742696d620e5d99df91340f156dc4a9e1872",
+    "B5 F16_F16_F16":
+        "b5a09bd1d58eec3fc0578cbef642ac66f67a3b7b3e84ac89012092838e857fff",
+    "B7 clip10 float32":
+        "b43e29ea48e6f2e6800aabb1b5cf1d6946ddf7422b1ef4c15c3445dc59634606",
+    "B7 clip10 bfloat16":
+        "0196f152fe138113f8e86dc84b62c2c4a08e3e408b5cd18c30c66b66dd62707e",
+    "B7 clip10 tensorfloat32":
+        "7eca4e8ed642f3034634b4af673874403cd7bc6b8fcaf78a9dd2fda5e4fc6368",
+    "B7 clip10 BF16_BF16_F32_X3":
+        "927b5a75ceac31e24e519943e8f37e847622a62a5e67ea77f01531fd9c8d98d0",
+    "B7 clip10 BF16_BF16_F32_X6":
+        "e9ed5ba8ae0d9397f34056b9ae8fddb7c0e923e8f0e5158c532738f771c4bcd0",
+    "B7 clip10 F64_F64_F64":
+        "ba9f96afe69b24bd43fd5eeda52a9cf58b87a058b1d77492957b21a9b85b29e0",
+    "B7 clip10 F16_F16_F16":
+        "1e97e2660844dec7c45033343d58805a7308e16df54b7fccfe59be80eafa190c",
+    "B7 noclip float32":
+        "9337b91a0be83bafe106d58091094bb6bcc6ec9aa3f852851ea6125e7872cd36",
+    "B7 noclip bfloat16":
+        "0d95675acadb938520a84cf459a42c9a50c84085a7e4cc9e353cfdce90396952",
+    "B7 noclip tensorfloat32":
+        "0b934d12af8eaa5401e9f49c4faf44d7b48fa38dc6d9cbf4e291a7ad7a72d9cc",
+    "B7 noclip BF16_BF16_F32_X3":
+        "300563d056802b9f84486a8fc8eb5bf19aa5a3f285198e65fcfd263e855fe9ff",
+    "B7 noclip BF16_BF16_F32_X6":
+        "2fecd72e830f5404d5a2a46737bd1ad5adda38390c21f5d3119dc2a32112e7be",
+    "B7 noclip F64_F64_F64":
+        "b781ee5d03b5637fda02fb1b006257ef9bfe15bc95a449bbc44ce46c958c60a0",
+    "B7 noclip F16_F16_F16":
+        "227043a8a9162d660459f144aef028bdbe39ca4c7e1485bac862b4f84bccc502",
+    "B3 updated float32":
+        "7d410445f5e5c9b72691b1019bc05ebd16073a512288e26a40efe2b201108d80",
+    "B3 updated tensorfloat32":
+        "49d3c8988de147802c446d6388cd920589f9c90c42a126ee9d39209f480aad56",
+    "B3 updated BF16_BF16_F32_X6":
+        "cb916c06493ad940dd27f4f08b344b0d0aaba683d29ff1691dd54ca16010f757",
+    "B3 updated F64_F64_F64":
+        "3cdf45cdac566d49c350f1577bba5a156995546f75556af0abee9490e3f82738",
+    "B3 pre float32":
+        "2d71621c2fafe725c6dbd77cb6ac9dea7b167dc9c8e85fc4cb9672d086c99863",
+    "B3 pre tensorfloat32":
+        "5b45e0fd01ec788540867c57ee2a75ca51c53f39e0d93d9f0d0b167737adfabc",
+    "B3 pre BF16_BF16_F32_X6":
+        "3318b415119fe03eec6a66eac4c98b799604bc743d49fd3a71cb6a1d535f3e4f",
+    "B3 pre F64_F64_F64":
+        "f98ce6080f4118695b6e879149def3e6f16b2c3c3396c20a6d2278c77a651fab",
+    "B9 smem float32":
+        "fa999cf042b756b5a5750c9df6d980ba4d30e8cf55da66fd3539eadf4555b3e7",
+    "B9 smem F64_F64_F64":
+        "562cfe6a12c4e6b9949a74e9e11a78ae2ced58000efe4f1b0a4f4b05e3a7c3e2",
+    "B9 workspace float32":
+        "eb884109cb546f74252510e785da3b32799ec3057d154851e680dcb65366efea",
+    "B9 workspace F64_F64_F64":
+        "9bfaa38655b7eb05c1dd3f706ae090c2f8558d04ade453bfc6d44fe4eb8ed284"}
+
+
+def learner_digests(cuda) -> dict:
+    """sha256 of each case's outputs (every group after the phase, then
+    the losses, as bytes) from the fixed inputs of _b3_case, _b5_case,
+    _b7_case and _b9_case: B5 (K 4) and B7 (K 4, the clip at 10 and off)
+    at float32 and every mode, B3 (K 4, "updated" and "pre") at float32,
+    TF32, X6 and F64, and B9 (N 1000 at (64, 64), N 777 at (256, 300)) at
+    float32 and F64."""
+    import hashlib
+
+    every = (None,) + PRECISIONS
+    b3 = (None, "tensorfloat32", "BF16_BF16_F32_X6", "F64_F64_F64")
+    cases = {"B5": (lambda: _b5_case(cuda, 4), every),
+             "B7 clip10": (lambda: _b7_case(cuda, 4, 10.0), every),
+             "B7 noclip": (lambda: _b7_case(cuda, 4, 0.0), every),
+             "B3 updated": (lambda: _b3_case(cuda, 4, "updated"), b3),
+             "B3 pre": (lambda: _b3_case(cuda, 4, "pre"), b3),
+             "B9 smem": (lambda: _b9_case(cuda, (64, 64), 1000),
+                         (None, "F64_F64_F64")),
+             "B9 workspace": (lambda: _b9_case(cuda, (256, 300), 777),
+                              (None, "F64_F64_F64"))}
+    out = {}
+    for name, (make, modes) in cases.items():
+        kernel, _ = make()
+        for p in modes:
+            h = hashlib.sha256()
+            for x in _flat(*kernel(p)[0]):
+                h.update(x.detach().cpu().contiguous().numpy().tobytes())
+            out[f"{name} {p or 'float32'}"] = h.hexdigest()
+    return out
+
+
+def test_fmaf_instances_keep_their_bits(cuda):
+    """B5 and B7 at every mode, B3 at float32, TF32, X6 and F64 and B9 at
+    float32 and F64 give the bits they gave before B3's and B9's tensor-core
+    instances (FMAF_DIGESTS): the shared row chains and product helpers
+    run the same arithmetic there."""
+    got = learner_digests(cuda)
+    assert set(got) == set(FMAF_DIGESTS)
+    assert {k: v for k, v in got.items() if FMAF_DIGESTS[k] != v} == {}
