@@ -21,6 +21,7 @@ from ..ops.naf_rollout import TAG_NAF_X, TAG_NAF_Y
 from ..ops.pg_rollout import TAG_PG_GUMBEL
 from ..ops.policy_rollout import TAG_OU_X, TAG_OU_Y
 from ..ops.q_rollout import TAG_EPS_ACT, TAG_EPS_GATE
+from ..utils import spans
 from ..utils.prng import hash_words, split_seed
 
 # Counter-PRNG stream tags for agent exploration (utils/prng.py; env-side
@@ -241,7 +242,17 @@ def dist_presample(agent, batch_size: int, indices, sample: str):
     """The agent's `presample` hook: unsharded, the ring's own draw; under
     SPMD the global draw assembled from every rank's rows; under shardmap
     batch_size / num_shards rows of this rank's ring from its shard
-    stream (or the given per-shard `indices`)."""
+    stream (or the given per-shard `indices`). It runs in the span
+    cp.replay.presample."""
+    draw = _dist_draw(agent, batch_size, indices, sample)
+
+    def presample(st, num_updates):
+        with spans.span("cp.replay.presample"):
+            return draw(st, num_updates)
+    return presample
+
+
+def _dist_draw(agent, batch_size: int, indices, sample: str):
     replay = agent.replay
     if agent.group is None:
         return replay_presample(replay, batch_size, indices, sample)

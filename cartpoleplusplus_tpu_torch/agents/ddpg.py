@@ -45,6 +45,7 @@ from ..models.nets import compute_dtype
 from ..ops import learner_kernel as lk
 from ..ops.policy_rollout import (fusable, policy_rollout,
                                   reference_policy_rollout)
+from ..utils import spans
 from ..utils.prng import split_seed
 from .common import (AdamState, adam_init, adam_update, bind_group,
                      bind_moments, check_block_batch, dist_presample,
@@ -384,55 +385,61 @@ class DDPG:
         reward, done) to the metrics as "traj", the event-log sink's
         input (the reference's `make_train_step(capture=True)`)."""
         c = self.cfg
-        sigma = self._sigma(st.env_steps)
-        kernel = self.kernel_rollout if fused is None else fused
-        run = policy_rollout if kernel else reference_policy_rollout
-        env_state, obs, noise, traj = run(
-            self.env, st.actor, c.ou_theta, st.env_state, st.obs, st.noise,
-            st.env_steps, sigma, c.rollout_steps)
-        late_insert = self.replay.quantize_obs
-        if not late_insert:
-            st = st._replace(replay=self.replay.add_trajectory(st.replay,
-                                                               *traj))
         env_steps = st.env_steps + c.rollout_steps
-        st = st._replace(env_state=env_state, obs=obs, noise=noise,
-                         env_steps=env_steps)
-        ready = c.warmup_env_steps <= 0 or env_steps >= c.warmup_env_steps
-        zero = torch.zeros((), dtype=torch.float32, device=self.env.device)
-        losses = {"critic_loss": zero, "actor_loss": zero}
-        presample = dist_presample(self, c.batch_size, indices, c.sample)
-        if not ready or c.updates_per_step <= 0:
-            pass
-        elif self.kernel_mode:
-            st, losses = self._kernel_update_phase(
-                st, presample(st, c.updates_per_step))
-        elif c.polyak_cadence == "per_step":
-            st, losses = self._frozen_target_update_scan(
-                st, presample(st, c.updates_per_step))
-        else:
-            st, losses = gated_update_scan(
-                st, self._update_once, c.updates_per_step, True, losses,
-                presample=presample)
-        if late_insert:
-            st = st._replace(replay=self.replay.add_trajectory(st.replay,
-                                                               *traj))
-        if c.polyak_cadence == "per_step" and ready:
-            # Compounded pull: K per-update Polyaks at rate tau move a
-            # target by 1-(1-tau)^K toward a fixed online net.
-            tau_eff = float(np.float32(1.0 - (1.0 - c.tau)
-                                       ** c.updates_per_step))
-            polyak(st.actor_target, st.actor, tau_eff)
-            polyak(st.critic_target, st.critic, tau_eff)
-        metrics = dict(losses)
-        metrics["reward_mean"], metrics["done_frac"] = global_means(
-            self, traj[2], traj[3])
-        metrics["env_steps"] = env_steps
-        # 1.0 = kernel B2 ran the rollout, 0.0 = the plain twin did.
-        metrics["rollout_impl"] = float(self.env.device.type == "cuda"
-                                        and kernel)
-        # 1.0 = kernel B3's wrapper ran the learner (its twin on the CPU),
-        # 0.0 = the plain learner did.
-        metrics["learner_impl"] = float(self.kernel_mode)
-        if capture:
-            metrics["traj"] = traj
-        return st, metrics
+        with spans.span("cp.train_step", str(env_steps)):
+            sigma = self._sigma(st.env_steps)
+            kernel = self.kernel_rollout if fused is None else fused
+            run = policy_rollout if kernel else reference_policy_rollout
+            with spans.span("cp.rollout"):
+                env_state, obs, noise, traj = run(
+                    self.env, st.actor, c.ou_theta, st.env_state, st.obs,
+                    st.noise, st.env_steps, sigma, c.rollout_steps)
+            late_insert = self.replay.quantize_obs
+            if not late_insert:
+                with spans.span("cp.replay.insert"):
+                    st = st._replace(
+                        replay=self.replay.add_trajectory(st.replay, *traj))
+            st = st._replace(env_state=env_state, obs=obs, noise=noise,
+                             env_steps=env_steps)
+            ready = (c.warmup_env_steps <= 0
+                     or env_steps >= c.warmup_env_steps)
+            zero = torch.zeros((), dtype=torch.float32,
+                               device=self.env.device)
+            losses = {"critic_loss": zero, "actor_loss": zero}
+            presample = dist_presample(self, c.batch_size, indices, c.sample)
+            if ready and c.updates_per_step > 0:
+                with spans.span("cp.learner"):
+                    if self.kernel_mode:
+                        st, losses = self._kernel_update_phase(
+                            st, presample(st, c.updates_per_step))
+                    elif c.polyak_cadence == "per_step":
+                        st, losses = self._frozen_target_update_scan(
+                            st, presample(st, c.updates_per_step))
+                    else:
+                        st, losses = gated_update_scan(
+                            st, self._update_once, c.updates_per_step, True,
+                            losses, presample=presample)
+            if late_insert:
+                with spans.span("cp.replay.insert"):
+                    st = st._replace(
+                        replay=self.replay.add_trajectory(st.replay, *traj))
+            if c.polyak_cadence == "per_step" and ready:
+                # Compounded pull: K per-update Polyaks at rate tau move a
+                # target by 1-(1-tau)^K toward a fixed online net.
+                tau_eff = float(np.float32(1.0 - (1.0 - c.tau)
+                                           ** c.updates_per_step))
+                polyak(st.actor_target, st.actor, tau_eff)
+                polyak(st.critic_target, st.critic, tau_eff)
+            metrics = dict(losses)
+            metrics["reward_mean"], metrics["done_frac"] = global_means(
+                self, traj[2], traj[3])
+            metrics["env_steps"] = env_steps
+            # 1.0 = kernel B2 ran the rollout, 0.0 = the plain twin did.
+            metrics["rollout_impl"] = float(self.env.device.type == "cuda"
+                                            and kernel)
+            # 1.0 = kernel B3's wrapper ran the learner (its twin on the
+            # CPU), 0.0 = the plain learner did.
+            metrics["learner_impl"] = float(self.kernel_mode)
+            if capture:
+                metrics["traj"] = traj
+            return st, metrics

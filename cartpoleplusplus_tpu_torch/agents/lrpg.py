@@ -48,6 +48,7 @@ from ..models.nets import compute_dtype
 from ..ops import learner_kernel as lk
 from ..ops.pg_rollout import (gumbel_max, pg_fusable, pg_policy_rollout,
                               reference_pg_rollout)
+from ..utils import spans
 from ..utils.prng import split_seed
 from ..dist.mesh import all_gather_cat, all_reduce_sum
 from .common import (AdamState, adam_init, adam_update, bind_group,
@@ -231,71 +232,77 @@ class LRPG:
         reward, done) to the metrics as "traj", the event-log sink's
         input (the reference's `make_train_step(capture=True)`)."""
         c = self.cfg
-        run = (pg_policy_rollout if self.kernel_rollout
-               else reference_pg_rollout)
-        env_state, obs, traj = run(
-            self.env, st.policy, st.env_state, st.obs, st.env_steps,
-            c.rollout_steps)
-        shardmap = self.group is not None and not self.spmd
-        if self.group is not None and self.spmd:
-            # The unsharded program: every rank takes the whole window.
-            obs_t, act_t, rew_t, done_t = (
-                all_gather_cat(x, self.group, dim=1) for x in traj)
-        else:
-            obs_t, act_t, rew_t, done_t = traj
-
-        def gmean(*xs):
-            """Window means, over every shard's window under shardmap
-            (equal shards: the mean of the shard means)."""
-            m = torch.stack([x.to(torch.float32).mean() for x in xs])
-            if shardmap:
-                m = all_reduce_sum(m, self.group) / self.num_shards
-            return m[0] if len(xs) == 1 else list(m)
-
-        # Bootstrap the cut-off tail with the baseline; window-centred,
-        # normalised advantages (the reference's comments say why).
-        g = returns_to_go(rew_t, done_t, c.gamma,
-                          st.baseline.expand(rew_t.shape[1]))
-        g_mean = gmean(g)
-        baseline = ((1.0 - c.baseline_rate) * st.baseline
-                    + c.baseline_rate * g_mean)
-        adv = g - g_mean
-        adv = adv / (torch.sqrt(gmean(adv * adv)) + 1e-6)
-
-        if self.kernel_mode:
-            n = obs_t.shape[0] * obs_t.shape[1]
-            window = (obs_t.reshape(n, -1), act_t.reshape(n), adv.reshape(n))
-            if shardmap:
-                window = tuple(all_gather_cat(x, self.group)
-                               for x in window)
-            loss = lk.lrpg_update_phase(
-                st.groups, window, st.opt.count, c.hidden,
-                lr=c.lr, entropy_coef=c.entropy_coef,
-                mm_precision=c.learner_precision)
-            opt = st.opt._replace(count=st.opt.count + 1)
-        else:
-            loss = self._loss(st.policy, obs_t, act_t, adv)
-            grads = torch.autograd.grad(loss, list(st.policy.parameters()))
-            loss, grads = pmean(self, loss, grads)
-            opt = adam_update(st.policy, grads, st.opt, c.lr)
-            loss = loss.detach()
-
         env_steps = st.env_steps + c.rollout_steps
-        st = st._replace(opt=opt, baseline=baseline, env_state=env_state,
-                         obs=obs, env_steps=env_steps)
-        reward_mean, done_frac = gmean(rew_t, done_t)
-        metrics = {
-            "loss": loss,
-            "return_mean": g_mean,
-            "reward_mean": reward_mean,
-            "done_frac": done_frac,
-            "env_steps": env_steps,
-            # 1.0 = kernel B8 ran the rollout, 0.0 = the plain twin did.
-            "rollout_impl": float(self.kernel_rollout),
-            # 1.0 = kernel B9's wrapper ran the update (its twin on the
-            # CPU), 0.0 = the plain learner did.
-            "learner_impl": float(self.kernel_mode),
-        }
-        if capture:
-            metrics["traj"] = traj
-        return st, metrics
+        with spans.span("cp.train_step", str(env_steps)):
+            run = (pg_policy_rollout if self.kernel_rollout
+                   else reference_pg_rollout)
+            with spans.span("cp.rollout"):
+                env_state, obs, traj = run(
+                    self.env, st.policy, st.env_state, st.obs, st.env_steps,
+                    c.rollout_steps)
+            shardmap = self.group is not None and not self.spmd
+            if self.group is not None and self.spmd:
+                # The unsharded program: every rank takes the whole window.
+                obs_t, act_t, rew_t, done_t = (
+                    all_gather_cat(x, self.group, dim=1) for x in traj)
+            else:
+                obs_t, act_t, rew_t, done_t = traj
+
+            def gmean(*xs):
+                """Window means, over every shard's window under shardmap
+                (equal shards: the mean of the shard means)."""
+                m = torch.stack([x.to(torch.float32).mean() for x in xs])
+                if shardmap:
+                    m = all_reduce_sum(m, self.group) / self.num_shards
+                return m[0] if len(xs) == 1 else list(m)
+
+            with spans.span("cp.learner"):
+                # Bootstrap the cut-off tail with the baseline;
+                # window-centred, normalised advantages (the reference's
+                # comments say why).
+                g = returns_to_go(rew_t, done_t, c.gamma,
+                                  st.baseline.expand(rew_t.shape[1]))
+                g_mean = gmean(g)
+                baseline = ((1.0 - c.baseline_rate) * st.baseline
+                            + c.baseline_rate * g_mean)
+                adv = g - g_mean
+                adv = adv / (torch.sqrt(gmean(adv * adv)) + 1e-6)
+
+                if self.kernel_mode:
+                    n = obs_t.shape[0] * obs_t.shape[1]
+                    window = (obs_t.reshape(n, -1), act_t.reshape(n),
+                              adv.reshape(n))
+                    if shardmap:
+                        window = tuple(all_gather_cat(x, self.group)
+                                       for x in window)
+                    loss = lk.lrpg_update_phase(
+                        st.groups, window, st.opt.count, c.hidden,
+                        lr=c.lr, entropy_coef=c.entropy_coef,
+                        mm_precision=c.learner_precision)
+                    opt = st.opt._replace(count=st.opt.count + 1)
+                else:
+                    loss = self._loss(st.policy, obs_t, act_t, adv)
+                    grads = torch.autograd.grad(
+                        loss, list(st.policy.parameters()))
+                    loss, grads = pmean(self, loss, grads)
+                    opt = adam_update(st.policy, grads, st.opt, c.lr)
+                    loss = loss.detach()
+
+            st = st._replace(opt=opt, baseline=baseline, env_state=env_state,
+                             obs=obs, env_steps=env_steps)
+            reward_mean, done_frac = gmean(rew_t, done_t)
+            metrics = {
+                "loss": loss,
+                "return_mean": g_mean,
+                "reward_mean": reward_mean,
+                "done_frac": done_frac,
+                "env_steps": env_steps,
+                # 1.0 = kernel B8 ran the rollout, 0.0 = the plain twin did.
+                "rollout_impl": float(self.kernel_rollout),
+                # 1.0 = kernel B9's wrapper ran the update (its twin on the
+                # CPU), 0.0 = the plain learner did.
+                "learner_impl": float(self.kernel_mode),
+            }
+            if capture:
+                metrics["traj"] = traj
+            return st, metrics

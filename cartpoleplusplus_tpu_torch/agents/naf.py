@@ -49,6 +49,7 @@ from ..models.nets import compute_dtype
 from ..ops import learner_kernel as lk
 from ..ops.naf_rollout import (naf_action, naf_fusable, naf_policy_rollout,
                                reference_naf_rollout)
+from ..utils import spans
 from ..utils.prng import split_seed
 from .common import (AdamState, adam_init, adam_update, bind_group,
                      bind_moments, check_block_batch, dist_presample,
@@ -318,41 +319,48 @@ class NAF:
         metrics as "traj", the event-log sink's input (the reference's
         `make_train_step(capture=True)`)."""
         c = self.cfg
-        run = (naf_policy_rollout if self.kernel_rollout
-               else reference_naf_rollout)
-        env_state, obs, traj = run(
-            self.env, st.net, st.env_state, st.obs, st.env_steps,
-            self._sigma(st.env_steps), c.rollout_steps)
-        late_insert = self.replay.quantize_obs
-        if not late_insert:
-            st = st._replace(replay=self.replay.add_trajectory(st.replay,
-                                                               *traj))
         env_steps = st.env_steps + c.rollout_steps
-        st = st._replace(env_state=env_state, obs=obs, env_steps=env_steps)
-        ready = c.warmup_env_steps <= 0 or env_steps >= c.warmup_env_steps
-        losses = {"loss": torch.zeros((), dtype=torch.float32,
-                                      device=self.env.device)}
-        presample = dist_presample(self, c.batch_size, indices, c.sample)
-        if ready and c.updates_per_step > 0:
-            if self.kernel_mode:
-                st, losses = self._kernel_update_phase(
-                    st, presample(st, c.updates_per_step))
-            else:
-                st, losses = gated_update_scan(
-                    st, self._update_once, c.updates_per_step, True, losses,
-                    presample=presample)
-        if late_insert:
-            st = st._replace(replay=self.replay.add_trajectory(st.replay,
-                                                               *traj))
-        metrics = dict(losses)
-        metrics["reward_mean"], metrics["done_frac"] = global_means(
-            self, traj[2], traj[3])
-        metrics["env_steps"] = env_steps
-        # 1.0 = kernel B6 ran the rollout, 0.0 = the plain twin did.
-        metrics["rollout_impl"] = float(self.kernel_rollout)
-        # 1.0 = kernel B7's wrapper ran the learner (its twin on the CPU),
-        # 0.0 = the plain learner did.
-        metrics["learner_impl"] = float(self.kernel_mode)
-        if capture:
-            metrics["traj"] = traj
-        return st, metrics
+        with spans.span("cp.train_step", str(env_steps)):
+            run = (naf_policy_rollout if self.kernel_rollout
+                   else reference_naf_rollout)
+            with spans.span("cp.rollout"):
+                env_state, obs, traj = run(
+                    self.env, st.net, st.env_state, st.obs, st.env_steps,
+                    self._sigma(st.env_steps), c.rollout_steps)
+            late_insert = self.replay.quantize_obs
+            if not late_insert:
+                with spans.span("cp.replay.insert"):
+                    st = st._replace(
+                        replay=self.replay.add_trajectory(st.replay, *traj))
+            st = st._replace(env_state=env_state, obs=obs,
+                             env_steps=env_steps)
+            ready = (c.warmup_env_steps <= 0
+                     or env_steps >= c.warmup_env_steps)
+            losses = {"loss": torch.zeros((), dtype=torch.float32,
+                                          device=self.env.device)}
+            presample = dist_presample(self, c.batch_size, indices, c.sample)
+            if ready and c.updates_per_step > 0:
+                with spans.span("cp.learner"):
+                    if self.kernel_mode:
+                        st, losses = self._kernel_update_phase(
+                            st, presample(st, c.updates_per_step))
+                    else:
+                        st, losses = gated_update_scan(
+                            st, self._update_once, c.updates_per_step, True,
+                            losses, presample=presample)
+            if late_insert:
+                with spans.span("cp.replay.insert"):
+                    st = st._replace(
+                        replay=self.replay.add_trajectory(st.replay, *traj))
+            metrics = dict(losses)
+            metrics["reward_mean"], metrics["done_frac"] = global_means(
+                self, traj[2], traj[3])
+            metrics["env_steps"] = env_steps
+            # 1.0 = kernel B6 ran the rollout, 0.0 = the plain twin did.
+            metrics["rollout_impl"] = float(self.kernel_rollout)
+            # 1.0 = kernel B7's wrapper ran the learner (its twin on the
+            # CPU), 0.0 = the plain learner did.
+            metrics["learner_impl"] = float(self.kernel_mode)
+            if capture:
+                metrics["traj"] = traj
+            return st, metrics

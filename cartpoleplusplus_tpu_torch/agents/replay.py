@@ -17,6 +17,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import spans
+
 
 class ReplayState(NamedTuple):
     """Ring-buffer contents. Leading dims: (num_envs, capacity_per_env).
@@ -202,9 +204,19 @@ class ReplayBuffer:
         """(env (K, Bm), slot) int64 on the ring's device, slot (K, Bm) or
         (K, 1) for a block's one slot per update: every minibatch row of a
         column, block or uniform draw over `num_envs` envs, the rows the
-        presamples read with take_rows."""
-        a, b = (torch.as_tensor(x, dtype=torch.int64, device=self.device)
-                for x in indices)
+        presamples read with take_rows. Draws made on the host reach the
+        device in one copy, which waits for the device's queue to drain
+        (a copy from pageable memory): the wait `indices`."""
+        a, b = (torch.as_tensor(x, dtype=torch.int64) for x in indices)
+        with spans.wait("indices"):
+            if (self.device.type != "cpu"
+                    and a.device.type == b.device.type == "cpu"):
+                flat = torch.cat([a.reshape(-1), b.reshape(-1)]).to(
+                    self.device)
+                a, b = (x.view(y.shape) for x, y in zip(
+                    flat.split([a.numel(), b.numel()]), (a, b)))
+            else:
+                a, b = a.to(self.device), b.to(self.device)
         if sample == "uniform":
             return a, b
         rows = torch.arange(batch_size, device=self.device)[None, :]

@@ -297,12 +297,19 @@ def build() -> float:
 
 
 def load_library() -> ctypes.CDLL:
-    """The kernel library, built first if missing or stale."""
+    """The kernel library, built first if missing or stale. Its counters:
+    `build_s`, the seconds of the staleness check and the build; `load_s`,
+    of the load and the entry points' signatures (0.0 until the library is
+    loaded); `builds`, the builds this process ran."""
     global _lib
     if _lib is not None:
         return _lib
+    t0 = time.perf_counter()
     if _stale():
         build()
+        load_library.builds += 1
+    t1 = time.perf_counter()
+    load_library.build_s += t1 - t0
     lib = ctypes.CDLL(LIB_PATH)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.cp_error_string.argtypes = [ci]
@@ -353,8 +360,14 @@ def load_library() -> ctypes.CDLL:
     lib.cp_mma_probe.restype = ci
     lib.cp_mma_split.argtypes = [ci, vp, vp, ci, vp]
     lib.cp_mma_split.restype = ci
+    load_library.load_s += time.perf_counter() - t1
     _lib = lib
     return lib
+
+
+load_library.build_s = 0.0
+load_library.load_s = 0.0
+load_library.builds = 0
 
 
 def struct_ptr(struct: ctypes.Structure) -> ctypes.c_void_p:

@@ -14,6 +14,7 @@ import torch
 
 from ..env.cartpole import CartPole3D, EnvState
 from ..physics import CartPoleParams, PhysState
+from ..utils import spans
 from ..utils.prng import hash_words, uniform
 from . import _native
 
@@ -99,23 +100,24 @@ def fused_rollout(env: CartPole3D, state: EnvState, num_steps: int):
         return reference_rollout(env, state, num_steps)
     if dev.type != "cuda":
         raise ValueError(f"fused_rollout runs on cuda or cpu, not {dev}")
-    if env.obs_mode != "pose_stack" or not env.auto_reset:
-        raise ValueError("the B1 kernel covers pose_stack envs with "
-                         "auto-reset only")
-    _check_state(env, state)
-    lib = _native.load_library()
-    out = _empty_state(state)
-    # The per-block checksum partials and the launch's block ticket.
-    work = torch.empty(lib.cp_fused_rollout_workspace(env.num_envs),
-                       dtype=torch.float64, device=dev)
-    checksum = torch.empty((), dtype=torch.float32, device=dev)
-    consts = _native.env_consts(env.params)
+    with spans.span("cp.prep.B1"):
+        if env.obs_mode != "pose_stack" or not env.auto_reset:
+            raise ValueError("the B1 kernel covers pose_stack envs with "
+                             "auto-reset only")
+        _check_state(env, state)
+        lib = _native.load_library()
+        out = _empty_state(state)
+        # The per-block checksum partials and the launch's block ticket.
+        work = torch.empty(lib.cp_fused_rollout_workspace(env.num_envs),
+                           dtype=torch.float64, device=dev)
+        checksum = torch.empty((), dtype=torch.float32, device=dev)
+        consts = _native.env_consts(env.params)
+        args = (_native.struct_ptr(consts), env.num_envs, num_steps,
+                *_state_ptrs(state), state.env_seed.data_ptr(),
+                *_state_ptrs(out), work.data_ptr(), checksum.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.cp_fused_rollout(
-            _native.struct_ptr(consts), env.num_envs, num_steps,
-            *_state_ptrs(state), state.env_seed.data_ptr(),
-            *_state_ptrs(out), work.data_ptr(), checksum.data_ptr(), stream)
+        rc = lib.cp_fused_rollout(*args)
     _native.check(lib, rc, "fused_rollout")
     fused_rollout.launches += 1
     return out, checksum

@@ -66,6 +66,7 @@ import numpy as np
 import torch
 
 from ..models.nets import softplus
+from ..utils import spans
 from . import _native
 
 _LN_EPS = 1e-6       # flax.linen.LayerNorm default epsilon
@@ -1194,34 +1195,42 @@ def ddpg_update_phase(groups, batches, t0: int, hidden, *, actor_lr: float,
     hidden = tuple(hidden)
     obs = batches[0]
     dev = groups[0].device
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"ddpg_update_phase runs on cuda or cpu, not {dev}")
-    if len(groups) != 8 or len(batches) != 5 or obs.dim() != 3:
-        raise ValueError("want 8 group buffers and 5 batch tensors")
-    k_updates, batch, obs_dim = obs.shape
-    if not covers(obs_dim, hidden):
-        raise ValueError(f"obs {obs_dim}, hidden {hidden}: not covered by "
-                         f"B3 (ops.learner_kernel.covers)")
-    if actor_grad_critic not in ("updated", "pre"):
-        raise ValueError(f"actor_grad_critic={actor_grad_critic!r}")
-    mode = mm_mode(mm_precision)
-    if k_updates < 1 or batch < 1:
-        raise ValueError(f"K {k_updates}, batch {batch}: need >= 1 each")
-    lay_a, lay_c = actor_layout(obs_dim, hidden), critic_layout(obs_dim,
-                                                                hidden)
-    lays = (lay_a, lay_c, lay_a, lay_c, lay_a, lay_a, lay_c, lay_c)
-    for i, (g, lay) in enumerate(zip(groups, lays)):
-        _check(g, (layout_size(lay),), torch.float32, dev, f"group {i}")
-    for t, shape, dtype, what in (
-            (batches[0], (k_updates, batch, obs_dim), torch.float32, "obs"),
-            (batches[1], (k_updates, batch, ACTION_DIM), torch.float32,
-             "action"),
-            (batches[2], (k_updates, batch), torch.float32, "reward"),
-            (batches[3], (k_updates, batch, obs_dim), torch.float32,
-             "next_obs"),
-            (batches[4], (k_updates, batch), torch.bool, "done")):
-        _check(t, shape, dtype, dev, what)
-    kw = dict(actor_lr=actor_lr, critic_lr=critic_lr, gamma=gamma, tau=tau)
+    with spans.span("cp.prep.B3"):
+        if dev.type not in ("cuda", "cpu"):
+            raise ValueError(f"ddpg_update_phase runs on cuda or cpu, not "
+                             f"{dev}")
+        if len(groups) != 8 or len(batches) != 5 or obs.dim() != 3:
+            raise ValueError("want 8 group buffers and 5 batch tensors")
+        k_updates, batch, obs_dim = obs.shape
+        if not covers(obs_dim, hidden):
+            raise ValueError(f"obs {obs_dim}, hidden {hidden}: not covered "
+                             f"by B3 (ops.learner_kernel.covers)")
+        if actor_grad_critic not in ("updated", "pre"):
+            raise ValueError(f"actor_grad_critic={actor_grad_critic!r}")
+        mode = mm_mode(mm_precision)
+        if k_updates < 1 or batch < 1:
+            raise ValueError(f"K {k_updates}, batch {batch}: need >= 1 each")
+        lay_a, lay_c = actor_layout(obs_dim, hidden), critic_layout(obs_dim,
+                                                                    hidden)
+        lays = (lay_a, lay_c, lay_a, lay_c, lay_a, lay_a, lay_c, lay_c)
+        for i, (g, lay) in enumerate(zip(groups, lays)):
+            _check(g, (layout_size(lay),), torch.float32, dev, f"group {i}")
+        for t, shape, dtype, what in (
+                (batches[0], (k_updates, batch, obs_dim), torch.float32,
+                 "obs"),
+                (batches[1], (k_updates, batch, ACTION_DIM), torch.float32,
+                 "action"),
+                (batches[2], (k_updates, batch), torch.float32, "reward"),
+                (batches[3], (k_updates, batch, obs_dim), torch.float32,
+                 "next_obs"),
+                (batches[4], (k_updates, batch), torch.bool, "done")):
+            _check(t, shape, dtype, dev, what)
+        kw = dict(actor_lr=actor_lr, critic_lr=critic_lr, gamma=gamma,
+                  tau=tau)
+        if dev.type == "cuda":
+            launch = _ddpg_prepare(groups, batches, t0, hidden, kw,
+                                   lr_schedule, actor_grad_critic == "pre",
+                                   False, mode)
 
     if dev.type == "cpu":
         views = [group_views(g, lay) for g, lay in zip(groups, lays)]
@@ -1234,13 +1243,14 @@ def ddpg_update_phase(groups, batches, t0: int, hidden, *, actor_lr: float,
                 d.copy_(s)
         return out[8], out[9]
 
-    return _ddpg_launch(groups, batches, t0, hidden, kw, lr_schedule,
-                        actor_grad_critic == "pre", False, mode)
+    return launch()
 
 
-def _ddpg_launch(groups, batches, t0, hidden, kw, lr_schedule, merged,
-                 spill, mode=F32):
-    """One launch of csrc/ddpg_update.cu on checked CUDA inputs; `spill`
+def _ddpg_prepare(groups, batches, t0, hidden, kw, lr_schedule, merged,
+                  spill, mode=F32):
+    """One launch of csrc/ddpg_update.cu on checked CUDA inputs, made
+    ready: the structures, the outputs and the workspace. Returns the
+    launch, a call of no arguments that returns (closs, aloss). `spill`
     puts the row tiles' buffers in the workspace at any width; `mode`
     (mm_mode) picks the kernel's instance."""
     k_updates, batch, obs_dim = batches[0].shape
@@ -1257,26 +1267,28 @@ def _ddpg_launch(groups, batches, t0, hidden, kw, lr_schedule, merged,
     lib = _native.load_library()
     closs = torch.empty(k_updates, dtype=torch.float32, device=dev)
     aloss = torch.empty(k_updates, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        key = ("ddpg", dev, stream, obs_dim, batch, hidden, merged, spill)
-        ws = _workspaces.get(key)
-        if ws is None:
-            size = lib.cp_ddpg_workspace_floats(_native.struct_ptr(dims),
-                                                widths)
-            if size <= 0:
-                raise ValueError(f"B3 rejected dims {key}")
-            ws = _workspaces[key] = torch.empty(size, dtype=torch.float32,
-                                                device=dev)
-        rc = lib.cp_ddpg_update_phase(
-            _native.struct_ptr(dims), widths, _native.struct_ptr(consts),
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    key = ("ddpg", dev, stream, obs_dim, batch, hidden, merged, spill)
+    ws = _workspaces.get(key)
+    if ws is None:
+        size = lib.cp_ddpg_workspace_floats(_native.struct_ptr(dims), widths)
+        if size <= 0:
+            raise ValueError(f"B3 rejected dims {key}")
+        ws = _workspaces[key] = torch.empty(size, dtype=torch.float32,
+                                            device=dev)
+    args = (_native.struct_ptr(dims), widths, _native.struct_ptr(consts),
             *(g.data_ptr() for g in groups),
             *(b.data_ptr() for b in batches),
             closs.data_ptr(), aloss.data_ptr(), ws.data_ptr(),
             ctypes.c_int(int(t0)), stream)
-    _native.check(lib, rc, "ddpg_update_phase")
-    ddpg_update_phase.launches += 1
-    return closs, aloss
+
+    def launch():
+        with torch.cuda.device(dev):
+            rc = lib.cp_ddpg_update_phase(*args)
+        _native.check(lib, rc, "ddpg_update_phase")
+        ddpg_update_phase.launches += 1
+        return closs, aloss
+    return launch
 
 
 ddpg_update_phase.launches = 0
@@ -1300,29 +1312,35 @@ def dqn_update_phase(groups, batches, t0: int, hidden, *, lr: float,
     hidden = tuple(hidden)
     obs = batches[0]
     dev = groups[0].device
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"dqn_update_phase runs on cuda or cpu, not {dev}")
-    if len(groups) != 4 or len(batches) != 5 or obs.dim() != 3:
-        raise ValueError("want 4 group buffers and 5 batch tensors")
-    k_updates, batch, obs_dim = obs.shape
-    if not dqn_covers(obs_dim, hidden):
-        raise ValueError(f"obs {obs_dim}, hidden {hidden}: not covered by "
-                         f"B5 (ops.learner_kernel.dqn_covers)")
-    mode = mm_mode(mm_precision)
-    if k_updates < 1 or batch < 1:
-        raise ValueError(f"K {k_updates}, batch {batch}: need >= 1 each")
-    lay = qnet_layout(obs_dim, hidden)
-    for i, g in enumerate(groups):
-        _check(g, (layout_size(lay),), torch.float32, dev, f"group {i}")
-    for t, shape, dtype, what in (
-            (batches[0], (k_updates, batch, obs_dim), torch.float32, "obs"),
-            (batches[1], (k_updates, batch), torch.int32, "action"),
-            (batches[2], (k_updates, batch), torch.float32, "reward"),
-            (batches[3], (k_updates, batch, obs_dim), torch.float32,
-             "next_obs"),
-            (batches[4], (k_updates, batch), torch.bool, "done")):
-        _check(t, shape, dtype, dev, what)
-    kw = dict(lr=lr, gamma=gamma, tau=tau, double_dqn=double_dqn)
+    with spans.span("cp.prep.B5"):
+        if dev.type not in ("cuda", "cpu"):
+            raise ValueError(f"dqn_update_phase runs on cuda or cpu, not "
+                             f"{dev}")
+        if len(groups) != 4 or len(batches) != 5 or obs.dim() != 3:
+            raise ValueError("want 4 group buffers and 5 batch tensors")
+        k_updates, batch, obs_dim = obs.shape
+        if not dqn_covers(obs_dim, hidden):
+            raise ValueError(f"obs {obs_dim}, hidden {hidden}: not covered "
+                             f"by B5 (ops.learner_kernel.dqn_covers)")
+        mode = mm_mode(mm_precision)
+        if k_updates < 1 or batch < 1:
+            raise ValueError(f"K {k_updates}, batch {batch}: need >= 1 each")
+        lay = qnet_layout(obs_dim, hidden)
+        for i, g in enumerate(groups):
+            _check(g, (layout_size(lay),), torch.float32, dev, f"group {i}")
+        for t, shape, dtype, what in (
+                (batches[0], (k_updates, batch, obs_dim), torch.float32,
+                 "obs"),
+                (batches[1], (k_updates, batch), torch.int32, "action"),
+                (batches[2], (k_updates, batch), torch.float32, "reward"),
+                (batches[3], (k_updates, batch, obs_dim), torch.float32,
+                 "next_obs"),
+                (batches[4], (k_updates, batch), torch.bool, "done")):
+            _check(t, shape, dtype, dev, what)
+        kw = dict(lr=lr, gamma=gamma, tau=tau, double_dqn=double_dqn)
+        if dev.type == "cuda":
+            launch = _dqn_prepare(groups, batches, t0, hidden, lr, gamma,
+                                  tau, double_dqn, False, mode)
 
     if dev.type == "cpu":
         views = [group_views(g, lay) for g in groups]
@@ -1333,15 +1351,15 @@ def dqn_update_phase(groups, batches, t0: int, hidden, *, lr: float,
                 d.copy_(s)
         return out[4]
 
-    return _dqn_launch(groups, batches, t0, hidden, lr, gamma, tau,
-                       double_dqn, False, mode)
+    return launch()
 
 
-def _dqn_launch(groups, batches, t0, hidden, lr, gamma, tau, double_dqn,
-                spill, mode=F32):
-    """One launch of csrc/dqn_update.cu on checked CUDA inputs; `spill`
-    puts the row tiles' buffers in the workspace at any width; `mode`
-    (mm_mode) picks the kernel's instance."""
+def _dqn_prepare(groups, batches, t0, hidden, lr, gamma, tau, double_dqn,
+                 spill, mode=F32):
+    """One launch of csrc/dqn_update.cu on checked CUDA inputs, made
+    ready; returns the launch, a call of no arguments that returns the
+    loss (K,). `spill` puts the row tiles' buffers in the workspace at any
+    width; `mode` (mm_mode) picks the kernel's instance."""
     k_updates, batch, obs_dim = batches[0].shape
     dev = groups[0].device
     lay = qnet_layout(obs_dim, hidden)
@@ -1354,25 +1372,27 @@ def _dqn_launch(groups, batches, t0, hidden, lr, gamma, tau, double_dqn,
                              gamma=gamma, tau=tau, lr_schedule=None)
     lib = _native.load_library()
     loss = torch.empty(k_updates, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        key = ("dqn", dev, stream, obs_dim, batch, hidden, spill)
-        ws = _workspaces.get(key)
-        if ws is None:
-            size = lib.cp_dqn_workspace_floats(_native.struct_ptr(dims),
-                                               widths)
-            if size <= 0:
-                raise ValueError(f"B5 rejected dims {key}")
-            ws = _workspaces[key] = torch.empty(size, dtype=torch.float32,
-                                                device=dev)
-        rc = lib.cp_dqn_update_phase(
-            _native.struct_ptr(dims), widths, _native.struct_ptr(consts),
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    key = ("dqn", dev, stream, obs_dim, batch, hidden, spill)
+    ws = _workspaces.get(key)
+    if ws is None:
+        size = lib.cp_dqn_workspace_floats(_native.struct_ptr(dims), widths)
+        if size <= 0:
+            raise ValueError(f"B5 rejected dims {key}")
+        ws = _workspaces[key] = torch.empty(size, dtype=torch.float32,
+                                            device=dev)
+    args = (_native.struct_ptr(dims), widths, _native.struct_ptr(consts),
             *(g.data_ptr() for g in groups),
             *(b.data_ptr() for b in batches), loss.data_ptr(),
             ws.data_ptr(), ctypes.c_int(int(t0)), stream)
-    _native.check(lib, rc, "dqn_update_phase")
-    dqn_update_phase.launches += 1
-    return loss
+
+    def launch():
+        with torch.cuda.device(dev):
+            rc = lib.cp_dqn_update_phase(*args)
+        _native.check(lib, rc, "dqn_update_phase")
+        dqn_update_phase.launches += 1
+        return loss
+    return launch
 
 
 dqn_update_phase.launches = 0
@@ -1398,31 +1418,37 @@ def naf_update_phase(groups, batches, t0: int, hidden, *, lr: float,
     hidden = tuple(hidden)
     obs = batches[0]
     dev = groups[0].device
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"naf_update_phase runs on cuda or cpu, not {dev}")
-    if len(groups) != 4 or len(batches) != 5 or obs.dim() != 3:
-        raise ValueError("want 4 group buffers and 5 batch tensors")
-    k_updates, batch, obs_dim = obs.shape
-    if not naf_covers(obs_dim, hidden):
-        raise ValueError(f"obs {obs_dim}, hidden {hidden}: not covered by "
-                         f"B7 (ops.learner_kernel.naf_covers)")
-    mode = mm_mode(mm_precision)
-    if k_updates < 1 or batch < 1:
-        raise ValueError(f"K {k_updates}, batch {batch}: need >= 1 each")
-    lay = naf_layout(obs_dim, hidden)
-    for i, g in enumerate(groups):
-        _check(g, (layout_size(lay),), torch.float32, dev, f"group {i}")
-    for t, shape, dtype, what in (
-            (batches[0], (k_updates, batch, obs_dim), torch.float32, "obs"),
-            (batches[1], (k_updates, batch, ACTION_DIM), torch.float32,
-             "action"),
-            (batches[2], (k_updates, batch), torch.float32, "reward"),
-            (batches[3], (k_updates, batch, obs_dim), torch.float32,
-             "next_obs"),
-            (batches[4], (k_updates, batch), torch.bool, "done")):
-        _check(t, shape, dtype, dev, what)
-    kw = dict(lr=lr, gamma=gamma, tau=tau, max_grad_norm=max_grad_norm,
-              lr_schedule=lr_schedule)
+    with spans.span("cp.prep.B7"):
+        if dev.type not in ("cuda", "cpu"):
+            raise ValueError(f"naf_update_phase runs on cuda or cpu, not "
+                             f"{dev}")
+        if len(groups) != 4 or len(batches) != 5 or obs.dim() != 3:
+            raise ValueError("want 4 group buffers and 5 batch tensors")
+        k_updates, batch, obs_dim = obs.shape
+        if not naf_covers(obs_dim, hidden):
+            raise ValueError(f"obs {obs_dim}, hidden {hidden}: not covered "
+                             f"by B7 (ops.learner_kernel.naf_covers)")
+        mode = mm_mode(mm_precision)
+        if k_updates < 1 or batch < 1:
+            raise ValueError(f"K {k_updates}, batch {batch}: need >= 1 each")
+        lay = naf_layout(obs_dim, hidden)
+        for i, g in enumerate(groups):
+            _check(g, (layout_size(lay),), torch.float32, dev, f"group {i}")
+        for t, shape, dtype, what in (
+                (batches[0], (k_updates, batch, obs_dim), torch.float32,
+                 "obs"),
+                (batches[1], (k_updates, batch, ACTION_DIM), torch.float32,
+                 "action"),
+                (batches[2], (k_updates, batch), torch.float32, "reward"),
+                (batches[3], (k_updates, batch, obs_dim), torch.float32,
+                 "next_obs"),
+                (batches[4], (k_updates, batch), torch.bool, "done")):
+            _check(t, shape, dtype, dev, what)
+        kw = dict(lr=lr, gamma=gamma, tau=tau, max_grad_norm=max_grad_norm,
+                  lr_schedule=lr_schedule)
+        if dev.type == "cuda":
+            launch = _naf_prepare(groups, batches, t0, hidden, kw, False,
+                                  mode)
 
     if dev.type == "cpu":
         views = [group_views(g, lay) for g in groups]
@@ -1433,13 +1459,14 @@ def naf_update_phase(groups, batches, t0: int, hidden, *, lr: float,
                 d.copy_(s)
         return out[4]
 
-    return _naf_launch(groups, batches, t0, hidden, kw, False, mode)
+    return launch()
 
 
-def _naf_launch(groups, batches, t0, hidden, kw, spill, mode=F32):
-    """One launch of csrc/naf_update.cu on checked CUDA inputs; `spill`
-    puts the row tiles' buffers in the workspace at any width; `mode`
-    (mm_mode) picks the kernel's instance."""
+def _naf_prepare(groups, batches, t0, hidden, kw, spill, mode=F32):
+    """One launch of csrc/naf_update.cu on checked CUDA inputs, made ready;
+    returns the launch, a call of no arguments that returns the loss (K,).
+    `spill` puts the row tiles' buffers in the workspace at any width;
+    `mode` (mm_mode) picks the kernel's instance."""
     k_updates, batch, obs_dim = batches[0].shape
     dev = groups[0].device
     lay = naf_layout(obs_dim, hidden)
@@ -1455,25 +1482,27 @@ def _naf_launch(groups, batches, t0, hidden, kw, spill, mode=F32):
                              tau=kw["tau"], lr_schedule=kw["lr_schedule"])
     lib = _native.load_library()
     loss = torch.empty(k_updates, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        key = ("naf", dev, stream, obs_dim, batch, hidden, spill)
-        ws = _workspaces.get(key)
-        if ws is None:
-            size = lib.cp_naf_workspace_floats(_native.struct_ptr(dims),
-                                               widths)
-            if size <= 0:
-                raise ValueError(f"B7 rejected dims {key}")
-            ws = _workspaces[key] = torch.empty(size, dtype=torch.float32,
-                                                device=dev)
-        rc = lib.cp_naf_update_phase(
-            _native.struct_ptr(dims), widths, _native.struct_ptr(consts),
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    key = ("naf", dev, stream, obs_dim, batch, hidden, spill)
+    ws = _workspaces.get(key)
+    if ws is None:
+        size = lib.cp_naf_workspace_floats(_native.struct_ptr(dims), widths)
+        if size <= 0:
+            raise ValueError(f"B7 rejected dims {key}")
+        ws = _workspaces[key] = torch.empty(size, dtype=torch.float32,
+                                            device=dev)
+    args = (_native.struct_ptr(dims), widths, _native.struct_ptr(consts),
             *(g.data_ptr() for g in groups),
             *(b.data_ptr() for b in batches), loss.data_ptr(),
             ws.data_ptr(), ctypes.c_int(int(t0)), stream)
-    _native.check(lib, rc, "naf_update_phase")
-    naf_update_phase.launches += 1
-    return loss
+
+    def launch():
+        with torch.cuda.device(dev):
+            rc = lib.cp_naf_update_phase(*args)
+        _native.check(lib, rc, "naf_update_phase")
+        naf_update_phase.launches += 1
+        return loss
+    return launch
 
 
 naf_update_phase.launches = 0
@@ -1498,25 +1527,32 @@ def lrpg_update_phase(groups, window, t0: int, hidden, *, lr: float,
     (`lrpg_covers`), or a malformed argument raises."""
     hidden = tuple(hidden)
     dev = groups[0].device
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"lrpg_update_phase runs on cuda or cpu, not {dev}")
-    if len(groups) != 3 or len(window) != 3 or window[0].dim() != 2:
-        raise ValueError("want 3 group buffers and 3 window tensors")
-    n, obs_dim = window[0].shape
-    if not lrpg_covers(obs_dim, hidden):
-        raise ValueError(f"obs {obs_dim}, hidden {hidden}: not covered by "
-                         f"B9 (ops.learner_kernel.lrpg_covers)")
-    mode = mm_mode(mm_precision)
-    if n < 1:
-        raise ValueError("the window has no rows")
-    lay = policy_layout(obs_dim, hidden)
-    for i, g in enumerate(groups):
-        _check(g, (layout_size(lay),), torch.float32, dev, f"group {i}")
-    for t, shape, dtype, what in (
-            (window[0], (n, obs_dim), torch.float32, "obs"),
-            (window[1], (n,), torch.int32, "action"),
-            (window[2], (n,), torch.float32, "advantage")):
-        _check(t, shape, dtype, dev, what)
+    with spans.span("cp.prep.B9"):
+        if dev.type not in ("cuda", "cpu"):
+            raise ValueError(f"lrpg_update_phase runs on cuda or cpu, not "
+                             f"{dev}")
+        if len(groups) != 3 or len(window) != 3 or window[0].dim() != 2:
+            raise ValueError("want 3 group buffers and 3 window tensors")
+        n, obs_dim = window[0].shape
+        if not lrpg_covers(obs_dim, hidden):
+            raise ValueError(f"obs {obs_dim}, hidden {hidden}: not covered "
+                             f"by B9 (ops.learner_kernel.lrpg_covers)")
+        mode = mm_mode(mm_precision)
+        if n < 1:
+            raise ValueError("the window has no rows")
+        lay = policy_layout(obs_dim, hidden)
+        for i, g in enumerate(groups):
+            _check(g, (layout_size(lay),), torch.float32, dev, f"group {i}")
+        for t, shape, dtype, what in (
+                (window[0], (n, obs_dim), torch.float32, "obs"),
+                (window[1], (n,), torch.int32, "action"),
+                (window[2], (n,), torch.float32, "advantage")):
+            _check(t, shape, dtype, dev, what)
+        if dev.type == "cuda":
+            launch = _lrpg_prepare(groups, window, t0, hidden, lr,
+                                   entropy_coef,
+                                   pg_tile_spills(obs_dim, hidden, mode),
+                                   mode)
 
     if dev.type == "cpu":
         views = [group_views(g, lay) for g in groups]
@@ -1527,16 +1563,16 @@ def lrpg_update_phase(groups, window, t0: int, hidden, *, lr: float,
             for d, s in zip(dst, src):
                 d.copy_(s)
         return out[3]
-    return _lrpg_launch(groups, window, t0, hidden, lr, entropy_coef,
-                        pg_tile_spills(obs_dim, hidden, mode), mode)
+    return launch()
 
 
-def _lrpg_launch(groups, window, t0, hidden, lr, entropy_coef, spill,
-                 mode=F32):
-    """One launch of csrc/lrpg_update.cu on checked CUDA inputs, on the
-    workspace route if `spill`, else on the shared-memory route (where its
-    block does not fit there, the library rejects the dims); `mode`
-    (mm_mode) picks the kernel's instance."""
+def _lrpg_prepare(groups, window, t0, hidden, lr, entropy_coef, spill,
+                  mode=F32):
+    """One launch of csrc/lrpg_update.cu on checked CUDA inputs, made
+    ready; returns the launch, a call of no arguments that returns the
+    loss (). On the workspace route if `spill`, else on the shared-memory
+    route (where its block does not fit there, the library rejects the
+    dims); `mode` (mm_mode) picks the kernel's instance."""
     n, obs_dim = window[0].shape
     dev = groups[0].device
     torso, (net,), widths = _learner_shape(
@@ -1552,26 +1588,27 @@ def _lrpg_launch(groups, window, t0, hidden, lr, entropy_coef, spill,
         ln_eps=_f32(_LN_EPS))
     lib = _native.load_library()
     loss = torch.empty((), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        key = ("lrpg", dev, stream, obs_dim, n, hidden, spill,
-               _acc_floats(mode))
-        ws = _workspaces.get(key)
-        if ws is None:
-            size = lib.cp_lrpg_workspace_floats(_native.struct_ptr(dims),
-                                                widths)
-            if size <= 0:
-                raise ValueError(f"B9 rejected dims {key}")
-            ws = _workspaces[key] = torch.empty(size, dtype=torch.float32,
-                                                device=dev)
-        rc = lib.cp_lrpg_update_phase(
-            _native.struct_ptr(dims), widths, _native.struct_ptr(consts),
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    key = ("lrpg", dev, stream, obs_dim, n, hidden, spill, _acc_floats(mode))
+    ws = _workspaces.get(key)
+    if ws is None:
+        size = lib.cp_lrpg_workspace_floats(_native.struct_ptr(dims), widths)
+        if size <= 0:
+            raise ValueError(f"B9 rejected dims {key}")
+        ws = _workspaces[key] = torch.empty(size, dtype=torch.float32,
+                                            device=dev)
+    args = (_native.struct_ptr(dims), widths, _native.struct_ptr(consts),
             *(g.data_ptr() for g in groups),
             *(w.data_ptr() for w in window), loss.data_ptr(), ws.data_ptr(),
             stream)
-    _native.check(lib, rc, "lrpg_update_phase")
-    lrpg_update_phase.launches += 1
-    return loss
+
+    def launch():
+        with torch.cuda.device(dev):
+            rc = lib.cp_lrpg_update_phase(*args)
+        _native.check(lib, rc, "lrpg_update_phase")
+        lrpg_update_phase.launches += 1
+        return loss
+    return launch
 
 
 lrpg_update_phase.launches = 0

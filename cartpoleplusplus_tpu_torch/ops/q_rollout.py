@@ -31,6 +31,7 @@ import torch
 
 from ..env.cartpole import CartPole3D, EnvState
 from ..models.nets import QNetMLP
+from ..utils import spans
 from ..utils.prng import hash_words, uniform
 from . import _native
 from .fused_rollout import _check_state, _empty_state, _state_ptrs
@@ -135,54 +136,56 @@ def launch_rollout(entry: str, kernel: str, gate, env: CartPole3D, net,
     2); `noise` is B2's OU state (B, 2). Returns (env state', obs', traj),
     with noise' after obs' when `noise` is given."""
     dev = state.steps.device
-    hidden = tuple(net.hidden)
-    b, f = env.num_envs, env.obs_size
-    discrete = env.params.discrete_actions
-    n_out = len(range(net.head.out_features)[head_rows])
-    if (not gate(env, hidden) or net.torso[0].in_features != f
-            or n_out != (NUM_ACTIONS if discrete else ACTION_DIM)):
-        raise ValueError(f"env/network shape not covered by the {kernel} "
-                         f"kernel (see ops.{gate.__module__.split('.')[-1]}."
-                         f"{gate.__name__})")
-    _check_state(env, state)
-    for t, shape in ((obs, (b, f)),) + (
-            () if noise is None else ((noise, (b, ACTION_DIM)),)):
-        if (t.device != dev or tuple(t.shape) != shape
-                or t.dtype != torch.float32 or not t.is_contiguous()):
-            raise ValueError(f"tensor {tuple(t.shape)} {t.dtype} on "
-                             f"{t.device}: want contiguous {shape} float32 "
-                             f"on {dev}")
-    params = pack_tile_net(net, head_rows)
-    if params.device != dev:
-        raise ValueError(f"network on {params.device}, env state on {dev}")
-    dims = _native.QDims(num_layers=len(hidden), obs_dim=f,
-                         width=max((f,) + hidden),
-                         wfloats=torso_weight_floats(f, hidden))
-    lib = _native.load_library()
-    n_work = lib.cp_q_workspace_floats(_native.struct_ptr(dims), b)
-    work = (torch.empty(n_work, dtype=torch.float32, device=dev)
-            if n_work else None)
-    act = ((num_steps, b), torch.int32) if discrete else (
-        (num_steps, b, ACTION_DIM), torch.float32)
-    traj = (torch.empty((num_steps, b, f), dtype=torch.float32, device=dev),
-            torch.empty(act[0], dtype=act[1], device=dev),
-            torch.empty((num_steps, b), dtype=torch.float32, device=dev),
-            torch.empty((num_steps, b), dtype=torch.bool, device=dev))
-    out = _empty_state(state)
-    obs_out = torch.empty_like(obs)
-    noise_io = () if noise is None else (noise, torch.empty_like(noise))
-    consts = _native.env_consts(env.params)
+    with spans.span("cp.prep." + kernel):
+        hidden = tuple(net.hidden)
+        b, f = env.num_envs, env.obs_size
+        discrete = env.params.discrete_actions
+        n_out = len(range(net.head.out_features)[head_rows])
+        if (not gate(env, hidden) or net.torso[0].in_features != f
+                or n_out != (NUM_ACTIONS if discrete else ACTION_DIM)):
+            raise ValueError(
+                f"env/network shape not covered by the {kernel} kernel (see "
+                f"ops.{gate.__module__.split('.')[-1]}.{gate.__name__})")
+        _check_state(env, state)
+        for t, shape in ((obs, (b, f)),) + (
+                () if noise is None else ((noise, (b, ACTION_DIM)),)):
+            if (t.device != dev or tuple(t.shape) != shape
+                    or t.dtype != torch.float32 or not t.is_contiguous()):
+                raise ValueError(f"tensor {tuple(t.shape)} {t.dtype} on "
+                                 f"{t.device}: want contiguous {shape} "
+                                 f"float32 on {dev}")
+        params = pack_tile_net(net, head_rows)
+        if params.device != dev:
+            raise ValueError(f"network on {params.device}, env state on "
+                             f"{dev}")
+        dims = _native.QDims(num_layers=len(hidden), obs_dim=f,
+                             width=max((f,) + hidden),
+                             wfloats=torso_weight_floats(f, hidden))
+        lib = _native.load_library()
+        n_work = lib.cp_q_workspace_floats(_native.struct_ptr(dims), b)
+        work = (torch.empty(n_work, dtype=torch.float32, device=dev)
+                if n_work else None)
+        act = ((num_steps, b), torch.int32) if discrete else (
+            (num_steps, b, ACTION_DIM), torch.float32)
+        traj = (torch.empty((num_steps, b, f), dtype=torch.float32,
+                            device=dev),
+                torch.empty(act[0], dtype=act[1], device=dev),
+                torch.empty((num_steps, b), dtype=torch.float32, device=dev),
+                torch.empty((num_steps, b), dtype=torch.bool, device=dev))
+        out = _empty_state(state)
+        obs_out = torch.empty_like(obs)
+        noise_io = () if noise is None else (noise, torch.empty_like(noise))
+        consts = _native.env_consts(env.params)
+        args = (_native.struct_ptr(consts), _native.struct_ptr(dims),
+                params.data_ptr(), _widths(hidden, dev).data_ptr(),
+                None if work is None else work.data_ptr(), *scalars, b,
+                num_steps, *_state_ptrs(state), state.env_seed.data_ptr(),
+                *(x.data_ptr() for x in noise_io[:1]), obs.data_ptr(),
+                *(x.data_ptr() for x in traj), *_state_ptrs(out),
+                *(x.data_ptr() for x in noise_io[1:]), obs_out.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, entry)(
-            _native.struct_ptr(consts), _native.struct_ptr(dims),
-            params.data_ptr(), _widths(hidden, dev).data_ptr(),
-            None if work is None else work.data_ptr(), *scalars, b,
-            num_steps, *_state_ptrs(state), state.env_seed.data_ptr(),
-            *(x.data_ptr() for x in noise_io[:1]), obs.data_ptr(),
-            *(x.data_ptr() for x in traj), *_state_ptrs(out),
-            *(x.data_ptr() for x in noise_io[1:]), obs_out.data_ptr(),
-            stream)
+        rc = getattr(lib, entry)(*args)
     _native.check(lib, rc, entry)
     return (out, obs_out) + noise_io[1:] + (traj,)
 

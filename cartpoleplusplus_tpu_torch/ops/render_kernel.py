@@ -29,6 +29,7 @@ import torch
 
 from ..env import pixels as px
 from ..physics import CartPoleParams, PhysState
+from ..utils import spans
 from . import _native
 
 
@@ -84,21 +85,22 @@ def _camera_tables(cfg: px.RenderConfig, device: torch.device):
 def _launch(p: CartPoleParams, cfg: px.RenderConfig, phys: PhysState,
             cull: bool) -> torch.Tensor:
     dev = phys.pos.device
-    if dev.type != "cuda":
-        raise ValueError(f"the render kernels run on cuda, not {dev}")
-    n = phys.pos.shape[0]
-    cols = torch.cat(px.env_columns(p, phys), dim=1).contiguous()
-    rows, cams = _camera_tables(cfg, dev)
-    nch = cfg.channels_per_camera * len(cfg.cameras)
-    out = torch.empty((n, cfg.height, cfg.width, nch), dtype=torch.float32,
-                      device=dev)
-    lib = _native.load_library()
-    consts = render_consts(p, cfg)
+    with spans.span("cp.prep.B11" if cull else "cp.prep.B10"):
+        if dev.type != "cuda":
+            raise ValueError(f"the render kernels run on cuda, not {dev}")
+        n = phys.pos.shape[0]
+        cols = torch.cat(px.env_columns(p, phys), dim=1).contiguous()
+        rows, cams = _camera_tables(cfg, dev)
+        nch = cfg.channels_per_camera * len(cfg.cameras)
+        out = torch.empty((n, cfg.height, cfg.width, nch),
+                          dtype=torch.float32, device=dev)
+        lib = _native.load_library()
+        consts = render_consts(p, cfg)
+        args = (_native.struct_ptr(consts), n, int(cull), cols.data_ptr(),
+                rows.data_ptr(), cams.data_ptr(), out.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.cp_render(_native.struct_ptr(consts), n, int(cull),
-                           cols.data_ptr(), rows.data_ptr(),
-                           cams.data_ptr(), out.data_ptr(), stream)
+        rc = lib.cp_render(*args)
     _native.check(lib, rc, "render_culled" if cull else "render_frames")
     return out
 

@@ -60,7 +60,8 @@ dumps up to 120 RGB frames of env 0, rendered through B10 on the card);
 envs') to a .cpe log (eventlog/); `--steps-per-dispatch k` runs windows
 of k train steps, logging and saving once per window; the canary
 (`--canary-*`) re-seeds a collapsed run; `--profile-dir` writes a
-torch.profiler Chrome trace.
+torch.profiler Chrome trace, which holds the program's `cp.*` spans
+(utils/spans.py).
 
 Under torchrun (WORLD_SIZE > 1) with `--use-mesh` (the default) the run is
 sharded (dist/): each rank owns `num_envs / world size` envs (the global
@@ -98,6 +99,7 @@ from .env import CartPole3D
 from .env.pixels import RenderConfig
 from .eventlog import EpisodeSink, EventLogWriter, next_episode_ids
 from .physics.params import CartPoleParams, continuous_params
+from .utils import spans
 
 # agent -> (class, config class).
 _AGENTS = {"ddpg": (DDPG, DDPGConfig), "dqn": (DQN, DQNConfig),
@@ -502,9 +504,10 @@ def _run(run: RunConfig, args, provided: set, mesh) -> int:
                 trajs.append(tuple(x[:, :log_envs].contiguous()
                                    for x in traj))
         if sink is not None:
-            sink.add_rollout(*(torch.cat(x).cpu().numpy()
-                               for x in zip(*trajs)))
-            trajs = None
+            with spans.wait("eventlog"):
+                rows = [torch.cat(x).cpu().numpy() for x in zip(*trajs)]
+            sink.add_rollout(*rows)
+            trajs = rows = None
         i += k
         if (canary_call is not None and i >= canary_call
                 and attempt <= run.canary_max_restarts):
@@ -542,7 +545,8 @@ def _run(run: RunConfig, args, provided: set, mesh) -> int:
             mgr.save(i - 1, state, force=True)
         if any((j + 1) % run.log_interval == 0 for j in window) \
                 or i == n_calls:
-            m = {key: float(v) for key, v in metrics.items()}  # waits
+            with spans.wait("log"):
+                m = {key: float(v) for key, v in metrics.items()}
             m["env_steps_per_sec"] = round(
                 run.num_envs * steps_per_call * (i - start_call)
                 / (time.perf_counter() - t0))

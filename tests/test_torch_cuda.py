@@ -248,8 +248,8 @@ def test_b3_routes_repeat_their_bits(cuda, agc):
     runs = []
     for spill in (False, True, False, True):
         got = [g.clone() for g in groups]
-        losses = lk._ddpg_launch(got, batches, 100, hidden, kw, None,
-                                 agc == "pre", spill)
+        losses = lk._ddpg_prepare(got, batches, 100, hidden, kw, None,
+                                  agc == "pre", spill)()
         torch.cuda.synchronize()
         runs.append(got + list(losses))
     for run in runs[1:]:
@@ -583,8 +583,8 @@ def test_b5_routes_repeat_their_bits(cuda, double_dqn):
     runs = []
     for spill in (False, True, False, True):
         got = [g.clone() for g in groups]
-        loss = lk._dqn_launch(got, batches, 100, hidden, 5e-5, 0.99, 0.01,
-                              double_dqn, spill)
+        loss = lk._dqn_prepare(got, batches, 100, hidden, 5e-5, 0.99,
+                               0.01, double_dqn, spill)()
         torch.cuda.synchronize()
         runs.append(got + [loss])
     for run in runs[1:]:
@@ -774,7 +774,8 @@ def test_b9_routes_give_the_same_bits(cuda, hidden):
     runs = []
     for spill in (False, True):
         got = [g.clone() for g in groups]
-        loss = lk._lrpg_launch(got, window, 100, hidden, 3e-4, 0.1, spill)
+        loss = lk._lrpg_prepare(got, window, 100, hidden, 3e-4, 0.1,
+                                spill)()
         torch.cuda.synchronize()
         runs.append(got + [loss])
     assert all(torch.equal(a, b) for a, b in zip(*runs))
@@ -790,7 +791,7 @@ def test_b9_rejects_uncovered_shapes(cuda):
                                       window[2]), 0, (32, 32), **kw)
     wide, wwin = _b9_inputs(cuda, (85, 85), 64, seed=0)
     with pytest.raises(ValueError, match="rejected"):  # no block in smem
-        lk._lrpg_launch(wide, wwin, 0, (85, 85), 1e-3, 0.1, False)
+        lk._lrpg_prepare(wide, wwin, 0, (85, 85), 1e-3, 0.1, False)()
 
 
 def test_lrpg_cli_launches_b8_and_b9_per_train_step(cuda):
@@ -1010,7 +1011,7 @@ def test_b7_routes_repeat_their_bits(cuda, clip):
     runs = []
     for spill in (False, True, False, True):
         got = [g.clone() for g in groups]
-        loss = lk._naf_launch(got, batches, 100, hidden, kw, spill)
+        loss = lk._naf_prepare(got, batches, 100, hidden, kw, spill)()
         torch.cuda.synchronize()
         runs.append(got + [loss])
     for run in runs[1:]:
@@ -1653,8 +1654,8 @@ def test_b9_routes_give_the_same_bits_at_every_mode(cuda, precision):
     runs = []
     for spill in (False, True):
         got = [g.clone() for g in groups]
-        loss = lk._lrpg_launch(got, window, 100, hidden, 3e-4, 0.1, spill,
-                               mode)
+        loss = lk._lrpg_prepare(got, window, 100, hidden, 3e-4, 0.1,
+                                spill, mode)()
         torch.cuda.synchronize()
         runs.append(got + [loss])
     assert all(torch.equal(a, b) for a, b in zip(*runs))
@@ -1671,8 +1672,8 @@ def test_b9_at_f64_takes_the_workspace_route_where_doubles_do_not_fit(cuda):
     assert lk.pg_tile_spills(42, hidden, lk.F64)
     groups, window = _b9_inputs(cuda, hidden, 1000, seed=5)
     with pytest.raises(ValueError, match="rejected"):
-        lk._lrpg_launch([g.clone() for g in groups], window, 100, hidden,
-                        3e-4, 0.1, False, lk.F64)
+        lk._lrpg_prepare([g.clone() for g in groups], window, 100, hidden,
+                         3e-4, 0.1, False, lk.F64)()
     _check_modes(*_b9_case(cuda, hidden, 1000, seed=5), "F64_F64_F64", True,
                  1, ONE_UPDATE_SHARE)
 
@@ -1820,8 +1821,8 @@ def test_b9_on_the_tensor_cores_off_the_tile_widths(cuda, precision,
     runs = []
     for spill in (False, True):
         got = [g.clone() for g in groups]
-        loss = lk._lrpg_launch(got, window, 100, hidden, 3e-4, 0.1, spill,
-                               mode)
+        loss = lk._lrpg_prepare(got, window, 100, hidden, 3e-4, 0.1,
+                                spill, mode)()
         torch.cuda.synchronize()
         runs.append(got + [loss])
     assert all(torch.equal(a, b) for a, b in zip(*runs))
@@ -1941,3 +1942,116 @@ def test_fmaf_instances_keep_their_bits(cuda):
     got = learner_digests(cuda)
     assert set(got) == set(FMAF_DIGESTS)
     assert {k: v for k, v in got.items() if FMAF_DIGESTS[k] != v} == {}
+
+
+# --- the host spans (utils/spans.py) --------------------------------------
+
+def _spans_opened(run) -> dict:
+    """{name: count} of the cp.* spans that `run()` opens under a
+    profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run()
+    torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.name.startswith("cp."):
+            out[e.name] = out.get(e.name, 0) + 1
+    return out
+
+
+def test_each_launch_opens_one_prep_span(cuda):
+    """Every kernel's wrapper, launched once under a profiler, opens its
+    cp.prep.<Bn> span once and no other span."""
+    from cartpoleplusplus_tpu_torch.env import pixels as px
+    from cartpoleplusplus_tpu_torch.ops import render_kernel as rk
+
+    h = (64, 64)
+    cont = CartPole3D(continuous_params(), num_envs=B, device=cuda)
+    disc = CartPole3D(CartPoleParams(), num_envs=B, device=cuda)
+    (cs, co), (ds, do) = cont.reset(9), disc.reset(9)
+    actor, q = _random_actor(cuda, h, 1), _random_qnet(cuda, h, 1)
+    naf, policy = _random_naf(cuda, h, 1), _random_policy(cuda, h, 1)
+    noise = torch.zeros((B, 2), device=cuda)
+    g3, b3 = _b3_inputs(cuda, h, 200, 2, seed=2)
+    g5, b5 = _b5_inputs(cuda, h, 200, 2, seed=2)
+    g7, b7 = _b7_inputs(cuda, h, 200, 2, seed=2)
+    g9, w9 = _b9_inputs(cuda, h, 1000, seed=2)
+    p, phys = continuous_params(), _pixel_poses(cuda, B, seed=1)
+    cfg = px.RenderConfig(width=48, height=48, grayscale=True)
+    runs = {
+        "B1": lambda: fr.fused_rollout(disc, ds, 3),
+        "B2": lambda: pr.policy_rollout(cont, actor, 0.15, cs, co, noise, 7,
+                                        0.2, 3),
+        "B3": lambda: lk.ddpg_update_phase(g3, b3, 30, h, actor_lr=1e-3,
+                                           critic_lr=2e-3, gamma=0.99,
+                                           tau=0.05),
+        "B4": lambda: qr.q_policy_rollout(disc, q, ds, do, 7, 0.3, 3),
+        "B5": lambda: lk.dqn_update_phase(g5, b5, 30, h, lr=1e-3,
+                                          gamma=0.99, tau=0.05),
+        "B6": lambda: nr.naf_policy_rollout(cont, naf, cs, co, 7, 0.2, 3),
+        "B7": lambda: lk.naf_update_phase(g7, b7, 30, h, lr=1e-3,
+                                          gamma=0.99, tau=0.05,
+                                          max_grad_norm=10.0),
+        "B8": lambda: pg.pg_policy_rollout(disc, policy, ds, do, 7, 3),
+        "B9": lambda: lk.lrpg_update_phase(g9, w9, 100, h, lr=3e-4,
+                                           entropy_coef=0.1),
+        "B10": lambda: rk.render_frames(p, cfg, phys),
+        "B11": lambda: rk.render_culled(p, cfg, phys),
+    }
+    got = {k: _spans_opened(run) for k, run in runs.items()}
+    assert got == {k: {f"cp.prep.{k}": 1} for k in runs}
+
+
+@pytest.mark.parametrize("agent", ["ddpg", "dqn"])
+def test_every_sync_of_a_train_step_lies_in_a_wait_span(cuda, agent,
+                                                        monkeypatch):
+    """10 train steps at the benchmark cells' settings (DDPG at its
+    defaults over 4096 envs; DQN over 4096 envs at rollout 64 and K 8
+    updates of batch 8192): the synchronisations that torch's sync debug
+    mode reports are as many as the crossings of the cp.wait sites, and
+    each lies inside one, so the host blocks on the card nowhere else."""
+    import warnings
+
+    from cartpoleplusplus_tpu_torch.agents import (DDPG, DQN, DDPGConfig,
+                                                   DQNConfig)
+    from cartpoleplusplus_tpu_torch.utils import spans
+
+    if agent == "ddpg":
+        a = DDPG(CartPole3D(continuous_params(), num_envs=4096, device=cuda),
+                 DDPGConfig())
+    else:
+        a = DQN(CartPole3D(CartPoleParams(), num_envs=4096, device=cuda),
+                DQNConfig(rollout_steps=64, updates_per_step=8,
+                          batch_size=8192, warmup_env_steps=0))
+    st = a.init(5)
+    for _ in range(3):   # past the warm-up and every first call's caches
+        st, _ = a.train_step(st)
+    torch.cuda.synchronize()
+    real, crossed = spans.span, []
+    before = sum(spans.wait.counts.values())
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+
+        def syncs():
+            return sum("called a synchronizing" in str(w.message)
+                       for w in caught)
+
+        @contextlib.contextmanager
+        def watched(name, args=None):
+            n = syncs()
+            with real(name, args):
+                yield
+            if name.startswith("cp.wait."):
+                crossed.append((name, syncs() - n))
+
+        monkeypatch.setattr(spans, "span", watched)
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(10):
+                st, _ = a.train_step(st)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert crossed == [("cp.wait.indices", 1)] * 10
+    assert sum(spans.wait.counts.values()) - before == syncs() == 10
