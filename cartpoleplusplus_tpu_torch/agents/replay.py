@@ -8,6 +8,11 @@ are not stored: the transition at slot i reads its successor from slot
 i+1, and the slot just before the cursor is never sampled (its successor
 is stale); done transitions bootstrap with 0, so a stale successor across
 an episode boundary is multiplied by zero.
+
+`INDEX_COPIES` counts the presamples' copies of host draws to the ring's
+device: `staged` to a CUDA ring, through page-locked memory and ordered on
+the stream without a wait; `blocking` to a ring on any other device. A CPU
+ring, or draws already on the device, count neither.
 """
 
 from __future__ import annotations
@@ -19,11 +24,14 @@ import torch
 
 from ..utils import spans
 
+INDEX_COPIES = {"staged": 0, "blocking": 0}
+
 
 class ReplayState(NamedTuple):
     """Ring-buffer contents. Leading dims: (num_envs, capacity_per_env).
     The cursor and fill count are host integers (the host drives the
-    inserts, so reading them never waits for the device)."""
+    inserts, so neither reading them nor drawing from them waits for the
+    device)."""
 
     obs: torch.Tensor     # (B, C, flat obs) float32, or uint8 when quantized
     action: torch.Tensor  # (B, C) int32 or (B, C, act_dim) float32
@@ -205,18 +213,10 @@ class ReplayBuffer:
         (K, 1) for a block's one slot per update: every minibatch row of a
         column, block or uniform draw over `num_envs` envs, the rows the
         presamples read with take_rows. Draws made on the host reach the
-        device in one copy, which waits for the device's queue to drain
-        (a copy from pageable memory): the wait `indices`."""
-        a, b = (torch.as_tensor(x, dtype=torch.int64) for x in indices)
-        with spans.wait("indices"):
-            if (self.device.type != "cpu"
-                    and a.device.type == b.device.type == "cpu"):
-                flat = torch.cat([a.reshape(-1), b.reshape(-1)]).to(
-                    self.device)
-                a, b = (x.view(y.shape) for x, y in zip(
-                    flat.split([a.numel(), b.numel()]), (a, b)))
-            else:
-                a, b = a.to(self.device), b.to(self.device)
+        device in one copy (_to_ring): to a CUDA ring from page-locked
+        memory, queued on the current stream without waiting for it."""
+        a, b = self._to_ring(*(torch.as_tensor(x, dtype=torch.int64)
+                               for x in indices))
         if sample == "uniform":
             return a, b
         rows = torch.arange(batch_size, device=self.device)[None, :]
@@ -230,6 +230,27 @@ class ReplayBuffer:
         if batch_size != k_cols * num_envs:
             j = (b[:, None] + j) % (k_cols * num_envs)
         return j % num_envs, torch.gather(a, 1, j // num_envs)
+
+    def _to_ring(self, a, b):
+        """(a, b) on the ring's device, handed over at the wait site
+        `indices`. Host draws bound for a CUDA ring go in one copy from a
+        page-locked buffer of torch's caching host allocator with
+        non_blocking=True: the copy is ordered on the current stream and
+        the host goes on at once. The allocator hands the buffer out again
+        only after the event that the copy recorded has passed, so no copy
+        still queued reads a buffer written over."""
+        if (self.device.type == "cpu"
+                or not a.device.type == b.device.type == "cpu"):
+            with spans.wait("indices"):
+                return a.to(self.device), b.to(self.device)
+        n = (a.numel(), b.numel())
+        staged = self.device.type == "cuda"
+        flat = torch.empty(sum(n), dtype=torch.int64, pin_memory=staged)
+        torch.cat([a.reshape(-1), b.reshape(-1)], out=flat)
+        with spans.wait("indices"):
+            flat = flat.to(self.device, non_blocking=staged)
+        INDEX_COPIES["staged" if staged else "blocking"] += 1
+        return (x.view(y.shape) for x, y in zip(flat.split(n), (a, b)))
 
     def take_rows(self, rs: ReplayState, env, slot):
         """The transitions (obs, action, reward, next_obs, done) at ring

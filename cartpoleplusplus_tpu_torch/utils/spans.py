@@ -22,10 +22,13 @@ The spans, all named `cp.`:
                        checks, weight packing, allocations, the launch
                        structures (a learner's span holds its checks on
                        CPU tensors too, before the twin)
-  cp.wait.<site>       a place where the host blocks until the device has
-                       drained its queue: `indices` (the presample's index
-                       copy), `log` and `eventlog` (train.py's metric and
-                       trajectory fetches)
+  cp.wait.<site>       a place where the host hands data to or takes it
+                       from the device: `indices` (the presample's index
+                       copy, staged through page-locked memory and queued
+                       on the stream, so it does not block), `log` and
+                       `eventlog` (train.py's metric and trajectory
+                       fetches, which block until the device has drained
+                       its queue)
 
 `wait(site)` counts every crossing of a site in `wait.counts`, profiler
 or not.
@@ -67,8 +70,8 @@ span.counts = collections.Counter()
 
 
 def wait(site: str):
-    """The span `cp.wait.<site>` around a blocking read; counts the
-    crossing."""
+    """The span `cp.wait.<site>` around a transfer between host and
+    device; counts the crossing."""
     wait.counts[site] += 1
     return span("cp.wait." + site)
 

@@ -2009,9 +2009,10 @@ def test_every_sync_of_a_train_step_lies_in_a_wait_span(cuda, agent,
                                                         monkeypatch):
     """10 train steps at the benchmark cells' settings (DDPG at its
     defaults over 4096 envs; DQN over 4096 envs at rollout 64 and K 8
-    updates of batch 8192): the synchronisations that torch's sync debug
-    mode reports are as many as the crossings of the cp.wait sites, and
-    each lies inside one, so the host blocks on the card nowhere else."""
+    updates of batch 8192): torch's sync debug mode reports no
+    synchronisation at all, and each step crosses the cp.wait site
+    `indices` once without one (the index copy is staged through
+    page-locked memory), so the host never blocks on the card there."""
     import warnings
 
     from cartpoleplusplus_tpu_torch.agents import (DDPG, DQN, DDPGConfig,
@@ -2053,5 +2054,109 @@ def test_every_sync_of_a_train_step_lies_in_a_wait_span(cuda, agent,
                 st, _ = a.train_step(st)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    assert crossed == [("cp.wait.indices", 1)] * 10
-    assert sum(spans.wait.counts.values()) - before == syncs() == 10
+    assert crossed == [("cp.wait.indices", 0)] * 10
+    assert sum(spans.wait.counts.values()) - before == 10
+    assert syncs() == 0
+
+
+# --- the staged index copy (agents/replay.py::ReplayBuffer._to_ring) -------
+
+def _card_agent(cuda, name, **cfg):
+    """The agent `name` over 4096 envs on the card, its config's defaults
+    but for `cfg`."""
+    from cartpoleplusplus_tpu_torch.agents import (DDPG, DQN, NAF,
+                                                   DDPGConfig, DQNConfig,
+                                                   NAFConfig)
+
+    cls, cfg_cls, params = {
+        "ddpg": (DDPG, DDPGConfig, continuous_params()),
+        "dqn": (DQN, DQNConfig, CartPoleParams()),
+        "naf": (NAF, NAFConfig, continuous_params())}[name]
+    return cls(CartPole3D(params, num_envs=4096, device=cuda),
+               cfg_cls(**cfg))
+
+
+def _bits(x, path="") -> dict:
+    """{path: (dtype, shape, bytes)} of every tensor in an agent's state or
+    metrics (nets by their state_dict, generators by their state), and
+    {path: value} of every other leaf."""
+    if isinstance(x, torch.nn.Module):
+        x = x.state_dict()
+    if isinstance(x, torch.Generator):
+        x = x.get_state()
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().contiguous()
+        return {path: (x.dtype, tuple(x.shape), x.numpy().tobytes())}
+    if hasattr(x, "_asdict"):
+        x = x._asdict()
+    if isinstance(x, dict):
+        items = x.items()
+    elif isinstance(x, (list, tuple)):
+        items = enumerate(x)
+    else:
+        return {path: x}
+    out = {}
+    for k, v in items:
+        out.update(_bits(v, f"{path}.{k}"))
+    return out
+
+
+@pytest.mark.parametrize("name,sample", [
+    ("ddpg", "column"), ("ddpg", "uniform"), ("dqn", "column"),
+    ("dqn", "block")])
+def test_steps_queued_ahead_give_the_bits_of_synchronised_steps(cuda, name,
+                                                                sample):
+    """Six train steps queued behind a long sleep on the card, so that
+    every step's staged index copy is pending at once, leave every ring
+    buffer, net, target net, Adam moment, generator and returned metric
+    equal, bit for bit, to the same six steps from the same seed with a
+    synchronize after each. A staging buffer handed out again before its
+    copy ran would change the draws and so the bits. Ring capacity 64:
+    the ring wraps within the steps."""
+
+    def run(queued: bool):
+        a = _card_agent(cuda, name, sample=sample,
+                        replay_capacity_per_env=64)
+        st = a.init(11)
+        for _ in range(3):   # past the warm-up and every first call's caches
+            st, _ = a.train_step(st)
+        torch.cuda.synchronize()
+        if queued:
+            torch.cuda._sleep(3_000_000_000)
+            slept = torch.cuda.Event()
+            slept.record()
+        metrics = []
+        for _ in range(6):
+            st, m = a.train_step(st)
+            metrics.append({k: v for k, v in m.items()
+                            if isinstance(v, torch.Tensor)})
+            if not queued:
+                torch.cuda.synchronize()
+        if queued:
+            assert not slept.query(), "the steps did not queue ahead"
+        torch.cuda.synchronize()
+        return _bits(st), _bits(metrics)
+
+    synced, queued = run(False), run(True)
+    for got, want in zip(queued, synced):
+        assert got.keys() == want.keys()
+        assert [k for k in want if got[k] != want[k]] == []
+
+
+@pytest.mark.parametrize("name", ["ddpg", "dqn", "naf"])
+def test_each_learning_step_stages_one_index_copy(cuda, name):
+    """On the card every learning step copies its draws once, staged
+    through page-locked memory, and never with a blocking copy."""
+    from cartpoleplusplus_tpu_torch.agents import replay
+
+    a = _card_agent(cuda, name, replay_capacity_per_env=64)
+    st = a.init(3)
+    before = dict(replay.INDEX_COPIES)
+    learned = 0
+    for _ in range(5):
+        st, m = a.train_step(st)
+        learned += m["env_steps"] >= a.cfg.warmup_env_steps
+    torch.cuda.synchronize()
+    assert learned == 4
+    assert {k: v - before[k] for k, v in replay.INDEX_COPIES.items()} == {
+        "staged": learned, "blocking": 0}

@@ -1,9 +1,10 @@
 """The port's host spans and wait counters (utils/spans.py) on the CPU:
 under a profiler each agent's train step opens one `cp.train_step`
 around its layers' spans, the presample's index copy counts one wait per
-learning step, the kernel library counts its build and load, and with no
-profiler recording a span is the shared null context and costs nothing
-else. Small sizes: 16 envs, hidden (16, 16). No JAX."""
+learning step (a CPU ring copies none, staged or blocking), the kernel
+library counts its build and load, and with no profiler recording a span
+is the shared null context and costs nothing else. Small sizes: 16 envs,
+hidden (16, 16). No JAX."""
 
 import contextlib
 import io
@@ -20,7 +21,7 @@ from cartpoleplusplus_tpu_torch import CartPole3D, CartPoleParams
 from cartpoleplusplus_tpu_torch import train
 from cartpoleplusplus_tpu_torch.agents import (DDPG, DQN, LRPG, NAF,
                                                DDPGConfig, DQNConfig,
-                                               LRPGConfig, NAFConfig)
+                                               LRPGConfig, NAFConfig, replay)
 from cartpoleplusplus_tpu_torch.ops import _native
 from cartpoleplusplus_tpu_torch.physics.params import continuous_params
 from cartpoleplusplus_tpu_torch.utils import spans
@@ -46,11 +47,12 @@ def _one_thread():
     torch.set_num_threads(1)
 
 
-def _agent(name, learner):
+def _agent(name, learner, **extra):
     cls, cfg_cls, continuous, cfg = AGENTS[name]
     params = continuous_params() if continuous else CartPoleParams()
     env = CartPole3D(params, num_envs=B, device="cpu")
-    agent = cls(env, cfg_cls(hidden=(16, 16), learner=learner, **cfg))
+    agent = cls(env, cfg_cls(hidden=(16, 16), learner=learner, **cfg,
+                             **extra))
     return agent, agent.init(3)
 
 
@@ -113,6 +115,17 @@ def test_the_index_copy_counts_one_wait_per_learning_step(name):
         learned += m["env_steps"] >= REPLAY["warmup_env_steps"]
     assert learned == 3
     assert spans.wait.counts["indices"] - before == learned
+
+
+@pytest.mark.parametrize("sample", ["column", "block", "uniform"])
+@pytest.mark.parametrize("name", ["ddpg", "dqn", "naf"])
+def test_a_cpu_ring_counts_no_index_copy(name, sample):
+    agent, st = _agent(name, "xla", sample=sample)
+    before, waits = dict(replay.INDEX_COPIES), spans.wait.counts["indices"]
+    for _ in range(4):
+        st, _ = agent.train_step(st)
+    assert spans.wait.counts["indices"] - waits == 3
+    assert replay.INDEX_COPIES == before
 
 
 def test_without_a_profiler_a_span_is_the_shared_null_context(opened):
