@@ -957,6 +957,37 @@ def test_b7_matches_twin(cuda, hidden, clip, sched):
                                                  got2 + [loss2]))
 
 
+@pytest.mark.parametrize("clip", [10.0, 0.05], ids=["clip10", "fires"])
+def test_b7_at_the_suite_batch_matches_twin(cuda, clip):
+    """B7 at the `naf.suite` cell's shapes, K 8 updates of batch 8192 on
+    (256, 256), from warmed moments under the lr schedule, with the clip
+    at 10 and firing: every group and the loss vector within the
+    reference's kernel-vs-XLA bar (rtol 2e-4, atol 1e-5), and the same
+    bits from a second run."""
+    hidden = (256, 256)
+    groups, batches = _b7_inputs(cuda, hidden, 8192, 8, seed=3)
+    kw = dict(lr=5e-4, gamma=0.99, tau=0.01, max_grad_norm=clip,
+              lr_schedule=(0.1, 5000))
+    lay = lk.naf_layout(42, hidden)
+    want = lk.naf_update_phase_math(
+        *[lk.group_views(g, lay) for g in groups], batches, 30, hidden, **kw)
+    if clip == 0.05:
+        assert bool((want[5] > clip).all()), want[5]
+    runs = []
+    for _ in range(2):
+        got = [g.clone() for g in groups]
+        loss = lk.naf_update_phase(got, batches, 30, hidden, **kw)
+        torch.cuda.synchronize()
+        runs.append((got, loss))
+    (got, loss), (got2, loss2) = runs
+    for g, w in zip(got, want[:4]):
+        for v, x in zip(lk.group_views(g, lay), w):
+            torch.testing.assert_close(v, x, rtol=2e-4, atol=1e-5)
+    torch.testing.assert_close(loss, want[4], rtol=2e-4, atol=1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(got + [loss],
+                                                 got2 + [loss2]))
+
+
 def test_b7_covers_matches_the_kernel(cuda):
     """The kernel takes exactly the shapes `naf_covers` admits (a nonzero
     workspace): any depth and width; no torso at all is rejected."""
@@ -979,14 +1010,14 @@ def test_b7_plan_matches_the_kernel(cuda):
     """The kernel's workspace equals `naf_workspace_floats` (its plan:
     4-row forward and backward items, their buffers in shared memory up to
     one layer of 2449 at obs 42 and in the workspace past it, or wherever
-    spill asks), at batches 200 and 256 and on both sides of the
+    spill asks), at batches 200, 256 and 8192 and on both sides of the
     boundary."""
     lib = _native.load_library()
     for hidden in ((256, 256), (8,) * 5, (2449,), (2450,), (4096,),
                    (64, 48, 32)):
         torso, (net,), widths = lk._learner_shape(
             cuda, hidden, (tuple(lk.naf_layout(42, hidden)),))
-        for batch in (200, 256):
+        for batch in (200, 256, 8192):
             for spill in (False, True):
                 dims = _native.NafDims(obs_dim=42, batch=batch, k_updates=8,
                                        max_norm=10.0, torso=torso, q=net,
@@ -2004,28 +2035,32 @@ def test_each_launch_opens_one_prep_span(cuda):
     assert got == {k: {f"cp.prep.{k}": 1} for k in runs}
 
 
-@pytest.mark.parametrize("agent", ["ddpg", "dqn"])
+# The suite cadence of the benchmark's `*.suite` cells.
+SUITE = dict(rollout_steps=64, updates_per_step=8, batch_size=8192,
+             warmup_env_steps=0)
+
+
+@pytest.mark.parametrize("agent", ["ddpg", "dqn", "naf"])
 def test_every_sync_of_a_train_step_lies_in_a_wait_span(cuda, agent,
                                                         monkeypatch):
     """10 train steps at the benchmark cells' settings (DDPG at its
-    defaults over 4096 envs; DQN over 4096 envs at rollout 64 and K 8
-    updates of batch 8192): torch's sync debug mode reports no
-    synchronisation at all, and each step crosses the cp.wait site
-    `indices` once without one (the index copy is staged through
-    page-locked memory), so the host never blocks on the card there."""
+    defaults over 4096 envs; DQN, and NAF with its kernel learner, over
+    4096 envs at rollout 64 and K 8 updates of batch 8192): torch's sync
+    debug mode reports no synchronisation at all, and each step crosses
+    the cp.wait site `indices` once without one (the index copy is staged
+    through page-locked memory), so the host never blocks on the card
+    there."""
     import warnings
 
-    from cartpoleplusplus_tpu_torch.agents import (DDPG, DQN, DDPGConfig,
-                                                   DQNConfig)
     from cartpoleplusplus_tpu_torch.utils import spans
 
     if agent == "ddpg":
-        a = DDPG(CartPole3D(continuous_params(), num_envs=4096, device=cuda),
-                 DDPGConfig())
+        a = _card_agent(cuda, "ddpg")
+    elif agent == "dqn":
+        a = _card_agent(cuda, "dqn", **SUITE)
     else:
-        a = DQN(CartPole3D(CartPoleParams(), num_envs=4096, device=cuda),
-                DQNConfig(rollout_steps=64, updates_per_step=8,
-                          batch_size=8192, warmup_env_steps=0))
+        a = _card_agent(cuda, "naf", learner="auto", **SUITE)
+        assert a.kernel_mode and a.kernel_rollout
     st = a.init(5)
     for _ in range(3):   # past the warm-up and every first call's caches
         st, _ = a.train_step(st)
@@ -2103,7 +2138,7 @@ def _bits(x, path="") -> dict:
 
 @pytest.mark.parametrize("name,sample", [
     ("ddpg", "column"), ("ddpg", "uniform"), ("dqn", "column"),
-    ("dqn", "block")])
+    ("dqn", "block"), ("naf", "column")])
 def test_steps_queued_ahead_give_the_bits_of_synchronised_steps(cuda, name,
                                                                 sample):
     """Six train steps queued behind a long sleep on the card, so that
@@ -2112,11 +2147,14 @@ def test_steps_queued_ahead_give_the_bits_of_synchronised_steps(cuda, name,
     equal, bit for bit, to the same six steps from the same seed with a
     synchronize after each. A staging buffer handed out again before its
     copy ran would change the draws and so the bits. Ring capacity 64:
-    the ring wraps within the steps."""
+    the ring wraps within the steps. NAF runs the kernel learner, as its
+    benchmark cell does."""
+    cfg = dict(sample=sample, replay_capacity_per_env=64)
+    if name == "naf":
+        cfg["learner"] = "auto"
 
     def run(queued: bool):
-        a = _card_agent(cuda, name, sample=sample,
-                        replay_capacity_per_env=64)
+        a = _card_agent(cuda, name, **cfg)
         st = a.init(11)
         for _ in range(3):   # past the warm-up and every first call's caches
             st, _ = a.train_step(st)
