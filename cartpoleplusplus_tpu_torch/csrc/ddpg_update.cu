@@ -38,6 +38,15 @@
 //      d loss / dQ = -1/B down to dQ/da (no parameter gradients), the
 //      tanh's backward, then the actor's head and layers.
 //   6. Actor gradients, Adam and Polyak.
+// At large batch a stage's items are wide instead (row_chain.cuh's kRowsW
+// = 32 rows, float32 alone): each streamed weight chunk then serves 32
+// rows of products, not 4 or 8. The rule is the shape's (ddpg_row_plan,
+// ops/learner_kernel.py::ddpg_plan): a stage goes wide where its wide
+// items still fill three quarters of the grid's blocks, one block an SM;
+// at batch 8192 every stage (768, 256, 512 and 256 items on 132 SMs), at
+// the defaults' 256 none. A plan with wide stages launches
+// ddpg_update_kernel_wide, the float32 kernel built with them; the other
+// kernels have none of their code. The items' heights change no bit.
 // Splitting the critic at layer 1 keeps each forward item to one network's
 // chain (the actor's and the critic's fronts run side by side). At "pre"
 // the actor's chain reads the critic as it was before the update, so the
@@ -63,7 +72,8 @@
 // folded on the host. No float atomics: two runs give the same bits. The
 // kernel is instantiated per products' mode (dims.mm, learner_stages.cuh's
 // modes), and the launcher picks the instance; the X3, X6, F64 and F16
-// instances are built in ddpg_update_x3x6.cu and ddpg_update_f64f16.cu, this
+// instances are built in ddpg_update_x3x6.cu and ddpg_update_f64f16.cu, and
+// the float32 one with the wide row items in ddpg_update_wide.cu, this
 // source with CP_MM_PRESET_UNIT defined, beside this one. At the tensor
 // cores' modes (bfloat16, TF32, F16, X3, X6: mm_tc) every product of the
 // row chains runs on the tensor cores (row_chain.cuh's kTc, which B5 and
@@ -78,6 +88,7 @@ struct LearnerDims {
   int spill;  // 1: the items' buffers in the workspace at any width
   int mm;     // the products' mode (learner_stages.cuh's kMm*)
   int* instance;  // when not null: the instance's id (kMmInstance)
+  int route;  // row_chain.cuh's wide_stages: 0 the rule, 1 narrow, 2 wide
 };
 
 namespace {
@@ -96,14 +107,17 @@ inline constexpr bool kTcMode = mm_tc<M> && M != kMmX6 && M != kMmTf32;
 
 constexpr int kActDim = 2;
 static_assert(kActDim <= kMaxJoin && kActDim <= kQLd, "the action's room");
-constexpr int kLdB4 = kRowsB + 4;  // feature stride of a backward item's rows
-// A forward item's action rows (feature-major) after its pre-LN rows; a
-// backward item's dQ/da and d loss / d pre-tanh rows after its dz, then
-// (the critic's rest of the forward) its activations over wmax features
-// and its action rows.
-constexpr int kFwdExtra = kActDim * kLdF;
-__host__ __device__ inline int bwd_extra(int wmax) {
-  return 2 * kRowsB * kQLd + kLdB4 * wmax + kActDim * kLdB4;
+// A forward item's action rows (feature-major, R + 4) after its pre-LN
+// rows; a backward item's dQ/da and d loss / d pre-tanh rows after its dz,
+// then (the critic's rest of the forward) its activations over wmax
+// features and its action rows (feature-major, R + 4), and a wide item's
+// d loss / dQ rows (a narrow item's sit in the fixed part).
+__host__ __device__ constexpr int fwd_extra(int R) {
+  return kActDim * (R + 4);
+}
+__host__ __device__ inline int bwd_extra(int wmax, int R) {
+  return 2 * R * kQLd + (R + 4) * wmax + kActDim * (R + 4) +
+         (R > kRowsB ? R * kQLd : 0);
 }
 
 // The workspace: per-layer regions of the rows the gradient stages and the
@@ -149,14 +163,14 @@ __device__ __noinline__ void torso_fwd_once(
                           b0, nr, B, l0, l1, zmain);
 }
 
-template <int M>
+template <int M, int R>
 __device__ __noinline__ void torso_bwd_once(
     const Torso& T, const NetLayout& L, const float* net, int join,
     const float* z, float* dh, float* dzs, int ldz, float* ring,
     const LearnerConsts& c, const BwdSave& sv, int b0, int nr, int B, int lo,
     float* tail) {
-  torso_bwd<M, kTcMode<M>>(T, L, net, join, z, dh, dzs, ldz, ring, c, sv, b0,
-                           nr, B, lo, tail);
+  torso_bwd<M, kTcMode<M>, R>(T, L, net, join, z, dh, dzs, ldz, ring, c, sv,
+                              b0, nr, B, lo, tail);
 }
 
 template <int M>
@@ -180,7 +194,7 @@ __device__ __noinline__ void critic_front(
   torso_fwd<M, R, kTcMode<M>>(T, LC, net, F, nullptr, 0, act, zr, ldz, ring, c,
                           sv, b0, nr, B, 0, 1, nullptr);
   const int h0 = T.h(0), h1 = T.h(1);
-  rows_product<M, R, R + 4, true, kColsF, kTcMode<M>>(
+  rows_product<M, R, R + 4, true, prod_cols(R), kTcMode<M>>(
       act, h0, h1, net + LC.w(1), h0 + kActDim, nullptr, zr, ldz, ring);
   for (int o = threadIdx.x; o < nr * h1; o += kThreads) {
     const int r = o / h1, cc = o - r * h1;
@@ -188,13 +202,15 @@ __device__ __noinline__ void critic_front(
   }
 }
 
-// The action rows of a backward item: xa[a][r] = src[(b0 + r) 2 + a] for
-// the nr real rows, 0 past them (stride kLdB4). Ends with a barrier.
+// The action rows of a backward item of R rows: xa[a][r] = src[(b0 + r) 2
+// + a] for the nr real rows, 0 past them (stride R + 4). Ends with a
+// barrier.
+template <int R>
 __device__ __forceinline__ void load_actions(const float* src, int b0,
                                              int nr, float* xa) {
-  if (threadIdx.x < kRowsB * kActDim) {
+  if (threadIdx.x < R * kActDim) {
     const int r = threadIdx.x / kActDim, a = threadIdx.x - r * kActDim;
-    xa[a * kLdB4 + r] =
+    xa[a * (R + 4) + r] =
         r < nr ? src[static_cast<size_t>(b0 + r) * kActDim + a] : 0.0f;
   }
   __syncthreads();
@@ -206,10 +222,6 @@ enum : int { kPassTarget = 0, kPassTargetFront = 1, kPassCritic = 2,
 // passes give the card 128 items at batch 256 (at "pre" the five passes
 // share one stage at kRowsF).
 constexpr int kRowsA = 4;
-template <int R>
-struct Rows {
-  static constexpr int value = R;
-};
 enum : int { kBwdCritic = 0, kBwdActor = 1 };
 
 // Forward item of pass p over the R rows from b0: kPassTarget, the target
@@ -280,31 +292,33 @@ __device__ void fwd_item(const LearnerDims& d, const LearnerConsts& c,
   }
 }
 
-// Backward item over the kRowsB rows from b0. kBwdCritic: the target
-// critic's rest on (s', a') (layer 1 from its front's sums and a', the
-// layers above, the head: Q'), the TD epilogue and the critic's backward
-// (its dz, dy, dy * xhat kept). kBwdActor: the critic's rest on (s,
-// pi(s)) (its pre-LN rows kept; Q into w.qA), its backward from d loss /
-// dQ = -1/B down to dQ/da, the tanh's backward into w.dpreA, then the
-// actor's backward (kept).
-template <int M>
+// Backward item over the R rows from b0 (kRowsB, or a wide item's kRowsW).
+// kBwdCritic: the target critic's rest on (s', a') (layer 1 from its
+// front's sums and a', the layers above, the head: Q'), the TD epilogue
+// and the critic's backward (its dz, dy, dy * xhat kept). kBwdActor: the
+// critic's rest on (s, pi(s)) (its pre-LN rows kept; Q into w.qA), its
+// backward from d loss / dQ = -1/B down to dQ/da, the tanh's backward into
+// w.dpreA, then the actor's backward (kept).
+template <int M, int R>
 __device__ void bwd_item(const LearnerDims& d, const LearnerConsts& c,
                          const Workspace& w, const RowPlan& rp,
                          const Torso& T, const NetLayout& LA,
                          const NetLayout& LC, const Groups& gr,
                          const Batches& bt, int k, int b0, int which,
                          float* smem, float* bufs) {
+  constexpr int LB = ld_b(R), L4 = R + 4;
   const int tid = threadIdx.x;
   const int B = d.batch, F = d.obs_dim, hl = T.h(T.L - 1);
-  const int ldz = rp.ldz, nr = min(kRowsB, B - b0);
+  const int ldz = rp.ldz, nr = min(R, B - b0);
   float* const ring = smem;
-  float* const dqs = smem + kRing;           // (kRowsB, kQLd) d loss / dQ
-  float* const dh = bufs;                    // (kRowsB, ldz); the rest's zr
-  float* const dzs = bufs + kRowsB * ldz;    // (ldz, kLdB)
-  float* const da = dzs + kLdB * ldz;        // (kRowsB, kQLd) dQ/da; Q'
-  float* const dps = da + kRowsB * kQLd;     // (kRowsB, kQLd) d / d pre-tanh
-  float* const act = dps + kRowsB * kQLd;    // (wmax, kLdB4) the rest's rows
-  float* const xa = act + kLdB4 * rp.wmax;   // (kActDim, kLdB4)
+  float* const dh = bufs;                    // (R, ldz); the rest's zr
+  float* const dzs = bufs + R * ldz;         // (ldz, LB)
+  float* const da = dzs + LB * ldz;          // (R, kQLd) dQ/da; Q'
+  float* const dps = da + R * kQLd;          // (R, kQLd) d / d pre-tanh
+  float* const act = dps + R * kQLd;         // (wmax, L4) the rest's rows
+  float* const xa = act + L4 * rp.wmax;      // (kActDim, L4)
+  // (R, kQLd) d loss / dQ
+  float* const dqs = R > kRowsB ? xa + kActDim * L4 : smem + kRing;
   const float* A = gr.g[0];
   const float* C = gr.g[1];
   const bool critic = which == kBwdCritic;
@@ -312,22 +326,21 @@ __device__ void bwd_item(const LearnerDims& d, const LearnerConsts& c,
   const size_t kb = static_cast<size_t>(k) * B;
 
   __syncthreads();  // the last item is done with the buffers
-  load_actions(critic ? w.aN : w.aA, b0, nr, xa);
-  torso_fwd_once<M, kRowsB>(T, LC, net, F, xa, kActDim, act, dh, ldz, ring,
-                            c,
-                            critic ? FwdSave{}
-                                   : FwdSave{w.zQ, nullptr, nullptr, kActDim},
-                            b0, nr, B, 1, 0, critic ? w.zTm : w.zQm);
-  head_fwd<M, kRowsB, kTcMode<M>>(net + LC.wh, net + LC.bh, 1, hl, act,
-                                  ring, [&](int r, int, float v) {
-                                    if (critic)
-                                      da[r] = v;
-                                    else if (r < nr)
-                                      w.qA[b0 + r] = v;
-                                  });
+  load_actions<R>(critic ? w.aN : w.aA, b0, nr, xa);
+  torso_fwd_once<M, R>(T, LC, net, F, xa, kActDim, act, dh, ldz, ring, c,
+                       critic ? FwdSave{}
+                              : FwdSave{w.zQ, nullptr, nullptr, kActDim},
+                       b0, nr, B, 1, 0, critic ? w.zTm : w.zQm);
+  head_fwd<M, R, kTcMode<M>>(net + LC.wh, net + LC.bh, 1, hl, act, ring,
+                             [&](int r, int, float v) {
+                               if (critic)
+                                 da[r] = v;
+                               else if (r < nr)
+                                 w.qA[b0 + r] = v;
+                             });
   CP_MARK(7);  // the critic's rest
   if (critic) {
-    if (tid < kRowsB) {  // the TD epilogue, one row a thread
+    if (tid < R) {  // the TD epilogue, one row a thread
       float g = 0.0f;
       if (tid < nr) {
         const int b = b0 + tid;
@@ -342,18 +355,19 @@ __device__ void bwd_item(const LearnerDims& d, const LearnerConsts& c,
       dqs[tid * kQLd] = g;
     }
     __syncthreads();
-    head_bwd<M, kTcMode<M>>(dqs, 1, C + LC.wh, hl, dh, ldz);
-    torso_bwd_once<M>(T, LC, C, kActDim, w.zC, dh, dzs, ldz, ring, c,
-                      BwdSave{w.dzC, w.dyC, w.dyxhC}, b0, nr, B, 0, nullptr);
+    head_bwd<M, kTcMode<M>, R>(dqs, 1, C + LC.wh, hl, dh, ldz);
+    torso_bwd_once<M, R>(T, LC, C, kActDim, w.zC, dh, dzs, ldz, ring, c,
+                         BwdSave{w.dzC, w.dyC, w.dyxhC}, b0, nr, B, 0,
+                         nullptr);
     CP_MARK(8);  // the TD epilogue and the critic's backward
     return;
   }
-  if (tid < kRowsB) dqs[tid * kQLd] = tid < nr ? c.neg_inv_batch : 0.0f;
+  if (tid < R) dqs[tid * kQLd] = tid < nr ? c.neg_inv_batch : 0.0f;
   __syncthreads();
-  head_bwd<M, kTcMode<M>>(dqs, 1, C + LC.wh, hl, dh, ldz);
-  torso_bwd_once<M>(T, LC, C, kActDim, w.zQ, dh, dzs, ldz, ring, c,
-                    BwdSave{}, b0, nr, B, 1, da);
-  if (tid < kRowsB * kActDim) {  // through the tanh head
+  head_bwd<M, kTcMode<M>, R>(dqs, 1, C + LC.wh, hl, dh, ldz);
+  torso_bwd_once<M, R>(T, LC, C, kActDim, w.zQ, dh, dzs, ldz, ring, c,
+                       BwdSave{}, b0, nr, B, 1, da);
+  if (tid < R * kActDim) {  // through the tanh head
     const int r = tid / kActDim, a = tid - r * kActDim;
     float g = 0.0f;
     if (r < nr) {
@@ -365,17 +379,21 @@ __device__ void bwd_item(const LearnerDims& d, const LearnerConsts& c,
     dps[r * kQLd + a] = g;
   }
   __syncthreads();
-  head_bwd<M, kTcMode<M>>(dps, kActDim, A + LA.wh, hl, dh, ldz);
-  torso_bwd_once<M>(T, LA, A, 0, w.zA, dh, dzs, ldz, ring, c,
-                    BwdSave{w.dzA, w.dyA, w.dyxhA}, b0, nr, B, 0, nullptr);
+  head_bwd<M, kTcMode<M>, R>(dps, kActDim, A + LA.wh, hl, dh, ldz);
+  torso_bwd_once<M, R>(T, LA, A, 0, w.zA, dh, dzs, ldz, ring, c,
+                       BwdSave{w.dzA, w.dyA, w.dyxhA}, b0, nr, B, 0,
+                       nullptr);
   CP_MARK(9);  // the actor's backward
 }
 
-template <int M>
-__global__ void __launch_bounds__(kThreads, 1) ddpg_update_kernel(
-    const LearnerDims d, const LearnerConsts c, const Workspace w,
-    const Groups gr, const Batches bt, float* __restrict__ closs,
-    float* __restrict__ aloss, const int t0, const RowPlan rp) {
+// The K-update phase: the body of ddpg_update_kernel (the narrow items)
+// and, kWide, of ddpg_update_kernel_wide (the stages that rp.wide marks in
+// wide items).
+template <int M, bool kWide>
+__device__ __forceinline__ void ddpg_update(
+    const LearnerDims& d, const LearnerConsts& c, const Workspace& w,
+    const Groups& gr, const Batches& bt, float* __restrict__ closs,
+    float* __restrict__ aloss, const int t0, const RowPlan& rp) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
   const int B = d.batch, F = d.obs_dim;
@@ -387,25 +405,30 @@ __global__ void __launch_bounds__(kThreads, 1) ddpg_update_kernel(
   const NetLayout LC = layout_on(d.critic, d.torso, T);
   const NetPtr nets[2] = {{gr.g[0], gr.g[2], gr.g[4], gr.g[5]},
                           {gr.g[1], gr.g[3], gr.g[6], gr.g[7]}};
-  const int tiles_b = (B + kRowsB - 1) / kRowsB;
   auto bufs_of = [&](int item) {
     return rp.spill ? w.tiles + rp.tile_floats * item : smem + kFixed;
   };
-  // The forward items of passes p0 .. p0 + np - 1 over tiles of R rows,
-  // the backward items of kinds q0 .. q0 + nq - 1: (pass or kind, tile),
-  // dealt round-robin.
-  auto forward = [&](auto rows, int k, int p0, int np) {
-    constexpr int R = decltype(rows)::value;
-    const int tiles = (B + R - 1) / R;
-    for (int item = blockIdx.x; item < np * tiles; item += gridDim.x)
-      fwd_item<M, R>(d, c, w, rp, T, LA, LC, gr, bt, k, (item % tiles) * R,
-                     p0 + item / tiles, smem, bufs_of(item));
+  // Stage s: the forward items of passes p0 .. p0 + np - 1 over tiles of
+  // `narrow` rows, or the backward items of kinds q0 .. q0 + nq - 1 over
+  // tiles of kRowsB: (pass or kind, tile), dealt round-robin; in wide items
+  // where the plan marks the stage (stage_rows).
+  auto forward = [&](int s, auto narrow, int k, int p0, int np) {
+    stage_rows<kWide, decltype(narrow)::value>(rp, s, [&](auto rows) {
+      constexpr int R = decltype(rows)::value;
+      const int tiles = (B + R - 1) / R;
+      for (int item = blockIdx.x; item < np * tiles; item += gridDim.x)
+        fwd_item<M, R>(d, c, w, rp, T, LA, LC, gr, bt, k, (item % tiles) * R,
+                       p0 + item / tiles, smem, bufs_of(item));
+    });
   };
-  auto backward = [&](int k, int q0, int nq) {
-    for (int item = blockIdx.x; item < nq * tiles_b; item += gridDim.x)
-      bwd_item<M>(d, c, w, rp, T, LA, LC, gr, bt, k,
-                  (item % tiles_b) * kRowsB, q0 + item / tiles_b, smem,
-                  bufs_of(item));
+  auto backward = [&](int s, int k, int q0, int nq) {
+    stage_rows<kWide, kRowsB>(rp, s, [&](auto rows) {
+      constexpr int R = decltype(rows)::value;
+      const int tiles = (B + R - 1) / R;
+      for (int item = blockIdx.x; item < nq * tiles; item += gridDim.x)
+        bwd_item<M, R>(d, c, w, rp, T, LA, LC, gr, bt, k, (item % tiles) * R,
+                       q0 + item / tiles, smem, bufs_of(item));
+    });
   };
 
   for (int k = 0; k < d.k_updates; ++k) {
@@ -426,26 +449,34 @@ __global__ void __launch_bounds__(kThreads, 1) ddpg_update_kernel(
          w.dyxhA, w.hinA, w.dpreA, w.hlastA, w.qA, LA}};
 
     if (d.merged) {  // "pre": the actor's chain beside the critic's
-      forward(Rows<kRowsF>{}, k, kPassTarget, 5);
+      forward(0, Rows<kRowsF>{}, k, kPassTarget, 5);
       grid.sync();
-      backward(k, kBwdCritic, 2);
+      backward(1, k, kBwdCritic, 2);
       grid.sync();
       grad_stage_once<M>(g, 2, T, F, B, nets, as, c, smem);
     } else {  // "updated": critic Adam before the actor's chain
-      forward(Rows<kRowsF>{}, k, kPassTarget, 3);
+      forward(0, Rows<kRowsF>{}, k, kPassTarget, 3);
       grid.sync();
-      backward(k, kBwdCritic, 1);
+      backward(1, k, kBwdCritic, 1);
       grid.sync();
       grad_stage_once<M>(g, 1, T, F, B, nets, as, c, smem);
       grid.sync();
-      forward(Rows<kRowsA>{}, k, kPassActor, 2);
+      forward(2, Rows<kRowsA>{}, k, kPassActor, 2);
       grid.sync();
-      backward(k, kBwdActor, 1);
+      backward(3, k, kBwdActor, 1);
       grid.sync();
       grad_stage_once<M>(g + 1, 1, T, F, B, nets, as, c, smem);
     }
     grid.sync();
   }
+}
+
+template <int M>
+__global__ void __launch_bounds__(kThreads, 1) ddpg_update_kernel(
+    const LearnerDims d, const LearnerConsts c, const Workspace w,
+    const Groups gr, const Batches bt, float* __restrict__ closs,
+    float* __restrict__ aloss, const int t0, const RowPlan rp) {
+  ddpg_update<M, false>(d, c, w, gr, bt, closs, aloss, t0, rp);
 }
 
 // The dims as the host checks them against its copy of the widths; *sum
@@ -454,17 +485,47 @@ bool dims_ok(const LearnerDims& d, const int* widths, long long* sum,
              int* hmax) {
   return d.obs_dim >= 1 && d.batch >= 1 && d.k_updates >= 1 &&
          (d.merged == 0 || d.merged == 1) && (d.spill == 0 || d.spill == 1) &&
-         mm_ok(d.mm) && d.torso.tab != nullptr && d.actor.lay != nullptr &&
+         d.route >= 0 && d.route <= 2 && mm_ok(d.mm) &&
+         d.torso.tab != nullptr && d.actor.lay != nullptr &&
          d.critic.lay != nullptr &&
          widths_ok(widths, d.torso.L, 2, sum, hmax, 0);
 }
 
-// The items' plan: the spill route when d.spill asks for it or an item's
-// buffers do not fit in shared memory beside the ring and the table.
+// The items of each stage of an update, stage s in wide items where bit s
+// of `wide` is set (else kRowsF, kRowsB, kRowsA rows): at "updated" the
+// critic's forward (3 passes), its backward, the actor's forward (2
+// passes), its backward; at "pre" the five passes' forward and both
+// chains' backward. Returns the number of stages.
+int ddpg_stages(const LearnerDims& d, int wide, int* items) {
+  auto tiles = [&](int s, int rows) {
+    const int r = (wide >> s & 1) ? kRowsW : rows;
+    return (d.batch + r - 1) / r;
+  };
+  if (d.merged) {
+    items[0] = 5 * tiles(0, kRowsF);
+    items[1] = 2 * tiles(1, kRowsB);
+    return 2;
+  }
+  items[0] = 3 * tiles(0, kRowsF);
+  items[1] = tiles(1, kRowsB);
+  items[2] = 2 * tiles(2, kRowsA);
+  items[3] = tiles(3, kRowsB);
+  return 4;
+}
+
+// The items' plan: the stages that take wide items (float32 alone, by
+// d.route and the rule over the device's SMs), and the spill route when
+// d.spill asks for it or an item's buffers do not fit in shared memory
+// beside the ring and the table.
 RowPlan ddpg_row_plan(const LearnerDims& d, int hmax) {
   const int wmax = d.obs_dim > hmax ? d.obs_dim : hmax;
+  int items[4];
+  const int n = ddpg_stages(d, ~0, items);
+  const int wide =
+      d.mm == kMmF32 ? wide_stages(items, n, d.route) : 0;
   return row_plan(d.obs_dim, hmax, table_ints(d), d.spill, kRowsF,
-                  kFwdExtra, bwd_extra(wmax));
+                  fwd_extra(kRowsF), bwd_extra(wmax, kRowsB), wide,
+                  fwd_extra(kRowsW), bwd_extra(wmax, kRowsW), d.route);
 }
 
 // Carves the workspace from `base` (or only counts floats when it is null).
@@ -483,13 +544,10 @@ long long carve(const LearnerDims& d, const int* widths, float* base,
   const long long B = d.batch;
   const long long hl = widths[d.torso.L - 1];
   const long long ins = sum - hl;   // the layer inputs H_0 .. H_{L-2}
-  const long long tiles_f = (B + kRowsF - 1) / kRowsF;
-  const long long tiles_b = (B + kRowsB - 1) / kRowsB;
-  const long long tiles_a = (B + kRowsA - 1) / kRowsA;
-  const long long n_f = d.merged ? 5 * tiles_f
-                                 : (3 * tiles_f > 2 * tiles_a ? 3 * tiles_f
-                                                              : 2 * tiles_a);
-  const long long n_b = (d.merged ? 2 : 1) * tiles_b;
+  int items[4];
+  long long n_items = 0;  // the largest stage's
+  for (int s = 0, n = ddpg_stages(d, rp.wide, items); s < n; ++s)
+    n_items = items[s] > n_items ? items[s] : n_items;
   *w = Workspace{};
   w->zC = take(B * sum);
   w->hinC = take(B * (ins + kActDim));
@@ -513,8 +571,7 @@ long long carve(const LearnerDims& d, const int* widths, float* base,
   w->aA = take(B * kActDim);
   w->qA = take(B);
   w->dpreA = take(B * kActDim);
-  w->tiles = rp.spill ? take((n_f > n_b ? n_f : n_b) * rp.tile_floats)
-                      : nullptr;
+  w->tiles = rp.spill ? take(n_items * rp.tile_floats) : nullptr;
   return off;
 }
 
@@ -526,6 +583,28 @@ long long carve(const LearnerDims& d, const int* widths, float* base,
 // mode.
 const void* cp_ddpg_x3x6_kernel(int m);
 const void* cp_ddpg_f64f16_kernel(int m);
+const void* cp_ddpg_wide_kernel();
+
+// The float32 kernel with the wide items (a plan with rp.wide set), a
+// kernel of its own: beside the narrow items' code in one kernel, their
+// registers spilled the narrow items' and slowed them. It is made in
+// ddpg_update_wide.cu, this source with CP_MM_PRESET_UNIT 3, so that it
+// builds beside the others (in a stage-clock build, which compiles
+// this source alone, here); the launcher takes it from
+// cp_ddpg_wide_kernel.
+#if CP_MM_PRESET_UNIT == 3 || \
+    (CP_MM_PRESET_UNIT == 0 && defined(CP_STAGE_CLOCK))
+__global__ void __launch_bounds__(kThreads, 1) ddpg_update_kernel_wide(
+    const LearnerDims d, const LearnerConsts c, const Workspace w,
+    const Groups gr, const Batches bt, float* __restrict__ closs,
+    float* __restrict__ aloss, const int t0, const RowPlan rp) {
+  ddpg_update<kMmF32, true>(d, c, w, gr, bt, closs, aloss, t0, rp);
+}
+
+const void* cp_ddpg_wide_kernel() {
+  return reinterpret_cast<const void*>(ddpg_update_kernel_wide);
+}
+#endif
 
 #if CP_MM_PRESET_UNIT == 1
 const void* cp_ddpg_x3x6_kernel(int m) {
@@ -543,7 +622,7 @@ const void* cp_ddpg_f64f16_kernel(int m) {
     return reinterpret_cast<const void*>(ddpg_update_kernel<kMmF16>);
   return nullptr;
 }
-#else
+#elif CP_MM_PRESET_UNIT == 0
 extern "C" {
 
 // Floats of workspace cp_ddpg_update_phase needs for these dims (0 when the
@@ -564,7 +643,9 @@ long long cp_ddpg_workspace_floats(const LearnerDims* dims,
 // (updated in place); batches: obs (K, B, F), act (K, B, 2), rew (K, B),
 // nobs (K, B, F), done (K, B) bool; closs/aloss (K,); workspace:
 // cp_ddpg_workspace_floats(dims, widths) floats; t0: the Adam count before
-// the phase; dims->mm picks the kernel's instance. Returns a cudaError_t.
+// the phase; dims->mm picks the kernel's instance; wide, when not null,
+// gets the stages the launch took in wide items (RowPlan.wide). Returns a
+// cudaError_t.
 int cp_ddpg_update_phase(const LearnerDims* dims, const int* widths,
                          const LearnerConsts* consts, float* actor,
                          float* critic, float* actor_t, float* critic_t,
@@ -572,7 +653,7 @@ int cp_ddpg_update_phase(const LearnerDims* dims, const int* widths,
                          const float* obs, const float* act, const float* rew,
                          const float* nobs, const bool* done, float* closs,
                          float* aloss, float* workspace, int t0,
-                         void* stream) {
+                         void* stream, int* wide) {
   LearnerDims d = *dims;
   LearnerConsts c = *consts;
   long long sum;
@@ -585,18 +666,22 @@ int cp_ddpg_update_phase(const LearnerDims* dims, const int* widths,
   Batches bt = {obs, act, rew, nobs, done};
   RowPlan rp = ddpg_row_plan(d, hmax);
   const size_t smem = plan_smem(rp, table_ints(d));
-  // Each instance keeps its own block count.
-  static int blocks[kMmModes] = {};
-  static size_t blocks_smem[kMmModes] = {};
+  // Each instance keeps its own block count; the wide kernel (a float32
+  // plan with wide stages) the last.
+  static int blocks[kMmModes + 1] = {};
+  static size_t blocks_smem[kMmModes + 1] = {};
   const void* kernels[kMmModes] =
       CP_MM_INSTANCES(ddpg_update_kernel, cp_ddpg_x3x6_kernel,
                       cp_ddpg_f64f16_kernel);
-  if (kernels[d.mm] == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
+  const int slot = rp.wide != 0 ? kMmModes : d.mm;
+  const void* kernel = rp.wide != 0 ? cp_ddpg_wide_kernel() : kernels[d.mm];
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   void* args[] = {&d, &c, &w, &gr, &bt, &closs, &aloss, &t0, &rp};
-  return static_cast<int>(launch_cooperative(
-      kernels[d.mm], smem, args, static_cast<cudaStream_t>(stream),
-      blocks[d.mm], blocks_smem[d.mm]));
+  const cudaError_t err = launch_cooperative(
+      kernel, smem, args, static_cast<cudaStream_t>(stream), blocks[slot],
+      blocks_smem[slot]);
+  if (err == cudaSuccess && wide != nullptr) *wide = rp.wide;
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -34,6 +34,12 @@
 //     squares of its kNormParts fixed slices as they complete; after a
 //     barrier, adam_flat sums the partials in order, scales and applies
 //     Adam and Polyak.
+// At large batch the forward and backward items are wide instead
+// (row_chain.cuh's kRowsW = 32 rows, float32 alone), by B5's rule
+// (naf_row_plan, ops/learner_kernel.py::naf_plan): at the `naf.suite`
+// cell's batch 8192 both stages (512 and 256 items on 132 SMs), at the
+// defaults' 256 neither, in naf_update_kernel_wide as B5's. The items'
+// heights change no bit.
 // 3 grid barriers per update without the clip, 4 with it, at any depth.
 // Every sum keeps the order of the earlier stage-engine design (2L + 6
 // grid-synced stages per update; row_chain.cuh), so B7 gives its bits. No
@@ -44,7 +50,8 @@
 // The kernel is instantiated per products' mode (dims.mm,
 // learner_stages.cuh's modes), and the launcher picks the instance; the X3,
 // X6, F64 and F16 instances are built in naf_update_x3x6.cu and
-// naf_update_f64f16.cu, this source with CP_MM_PRESET_UNIT defined, beside
+// naf_update_f64f16.cu, and the float32 one with the wide row items in
+// naf_update_wide.cu, this source with CP_MM_PRESET_UNIT defined, beside
 // this one.
 #include "row_chain.cuh"
 
@@ -56,6 +63,7 @@ struct NafDims {
   NetLayout q;
   int spill;       // 1: the items' buffers in the workspace at any width
   int mm;          // the products' mode (learner_stages.cuh's kMm*)
+  int route;       // row_chain.cuh's wide_stages: 0 the rule, 1 narrow, 2 wide
 };
 
 namespace {
@@ -66,7 +74,6 @@ static_assert(kHead <= kQLd, "a head row in a row of d loss / d head");
 // target's and the online net's passes give the card 128 items at batch
 // 256 (64 at 8 rows).
 constexpr int kRowsN = 4;
-constexpr int kLdN = kRowsN + 4;  // feature stride of its activations
 
 // The workspace: per-layer regions of the rows the gradient stage reads
 // (layer l's (batch, H_l) rows at layer_rows(region, l), the layer inputs
@@ -140,44 +147,45 @@ __host__ __device__ inline int table_ints(const NafDims& d) {
 
 // Forward item: pass p (0: the target on s', head row v into w.vT; 1: the
 // online net on s, its 6 head rows into w.pre, its pre-LN rows and layer
-// inputs kept) over the kRowsN rows from b0.
-template <int M>
+// inputs kept) over the R rows from b0 (kRowsN, or a wide item's kRowsW).
+template <int M, int R>
 __device__ void fwd_item(const NafDims& d, const LearnerConsts& c,
                          const NafWorkspace& w, const RowPlan& rp,
                          const Torso& T, const NetLayout& L, const float* net,
                          const NafBatches& bt, int k, int b0, int p,
                          float* smem, float* bufs) {
   const int B = d.batch, F = d.obs_dim;
-  const int nr = min(kRowsN, B - b0);
-  float* const act = bufs;                    // (wmax, kLdN)
-  float* const zr = bufs + kLdN * rp.wmax;    // (kRowsN, ldz)
+  const int nr = min(R, B - b0);
+  float* const act = bufs;                     // (wmax, R + 4)
+  float* const zr = bufs + (R + 4) * rp.wmax;  // (R, ldz)
   const size_t kb = static_cast<size_t>(k) * B;
 
   __syncthreads();  // the last item is done with the buffers
-  load_rows<kRowsN>((p == 0 ? bt.nobs : bt.obs) + kb * F, F, b0, nr, act);
+  load_rows<R>((p == 0 ? bt.nobs : bt.obs) + kb * F, F, b0, nr, act);
   const FwdSave sv = p == 1 ? FwdSave{w.zS, w.hin, w.hlast, 0} : FwdSave{};
-  torso_fwd<M, kRowsN>(T, L, net, F, nullptr, 0, act, zr, rp.ldz, smem, c,
-                       sv, b0, nr, B);
+  torso_fwd<M, R>(T, L, net, F, nullptr, 0, act, zr, rp.ldz, smem, c, sv, b0,
+                  nr, B);
   const int hl = T.h(T.L - 1);
   if (p == 0) {
-    head_fwd<M, kRowsN>(net + L.wh, net + L.bh, 1, hl, act, smem,
-                        [&](int r, int, float v) {
-                          if (r < nr) w.vT[b0 + r] = v;
-                        });
+    head_fwd<M, R>(net + L.wh, net + L.bh, 1, hl, act, smem,
+                   [&](int r, int, float v) {
+                     if (r < nr) w.vT[b0 + r] = v;
+                   });
   } else {
     float* const pre = w.pre + static_cast<size_t>(b0) * kHead;
-    head_fwd<M, kRowsN>(net + L.wh, net + L.bh, kHead, hl, act, smem,
-                        [&](int r, int a, float v) {
-                          if (r < nr) pre[r * kHead + a] = v;
-                        });
+    head_fwd<M, R>(net + L.wh, net + L.bh, kHead, hl, act, smem,
+                   [&](int r, int a, float v) {
+                     if (r < nr) pre[r * kHead + a] = v;
+                   });
   }
   CP_MARK(3);  // the forward item
 }
 
-// Backward item: the kRowsB rows from b0: the NAF epilogue, the head
-// backward, and per layer the LayerNorm/relu backward and dh = dz W;
-// writes dz, dy, dy * xhat, d loss / d head and the TD errors.
-template <int M>
+// Backward item: the R rows from b0 (kRowsB, or a wide item's kRowsW): the
+// NAF epilogue, the head backward, and per layer the LayerNorm/relu
+// backward and dh = dz W; writes dz, dy, dy * xhat, d loss / d head and
+// the TD errors.
+template <int M, int R>
 __device__ void bwd_item(const NafDims& d, const LearnerConsts& c,
                          const NafWorkspace& w, const RowPlan& rp,
                          const Torso& T, const NetLayout& L, const float* Q,
@@ -185,14 +193,15 @@ __device__ void bwd_item(const NafDims& d, const LearnerConsts& c,
                          float* bufs) {
   const int tid = threadIdx.x;
   const int B = d.batch, hl = T.h(T.L - 1);
-  const int ldz = rp.ldz, nr = min(kRowsB, B - b0);
+  const int ldz = rp.ldz, nr = min(R, B - b0);
   float* const ring = smem;
-  float* const dqs = smem + kRing;          // (kRowsB, kQLd) d loss / d head
-  float* const dh = bufs;                   // (kRowsB, ldz)
-  float* const dzs = bufs + kRowsB * ldz;   // (hmax, kLdB)
+  float* const dh = bufs;                   // (R, ldz)
+  float* const dzs = bufs + R * ldz;        // (hmax, ld_b(R))
+  // (R, kQLd) d loss / d head: a narrow item's in the fixed part
+  float* const dqs = R > kRowsB ? dzs + ld_b(R) * ldz : smem + kRing;
 
   __syncthreads();  // the last item is done with the buffers
-  if (tid < kRowsB) {  // the NAF epilogue, one row a thread
+  if (tid < R) {  // the NAF epilogue, one row a thread
     float* const dqr = dqs + tid * kQLd;
     if (tid < nr) {
       naf_row(w, bt, k, B, b0 + tid, c, dqr);
@@ -201,18 +210,21 @@ __device__ void bwd_item(const NafDims& d, const LearnerConsts& c,
     }
   }
   __syncthreads();
-  head_bwd<M>(dqs, kHead, Q + L.wh, hl, dh, ldz);
-  torso_bwd<M>(T, L, Q, 0, w.zS, dh, dzs, ldz, ring, c,
-               BwdSave{w.dz, w.dy, w.dyxh}, b0, nr, B, 0, nullptr);
+  head_bwd<M, false, R>(dqs, kHead, Q + L.wh, hl, dh, ldz);
+  torso_bwd<M, false, R>(T, L, Q, 0, w.zS, dh, dzs, ldz, ring, c,
+                         BwdSave{w.dz, w.dy, w.dyxh}, b0, nr, B, 0, nullptr);
   CP_MARK(4);  // the backward item
 }
 
-template <int M>
-__global__ void __launch_bounds__(kThreads, 1) naf_update_kernel(
-    const NafDims d, const LearnerConsts c, const NafWorkspace w,
+// The K-update phase: the body of naf_update_kernel (the narrow items) and,
+// kWide, of naf_update_kernel_wide (the stages that rp.wide marks in wide
+// items).
+template <int M, bool kWide>
+__device__ __forceinline__ void naf_update(
+    const NafDims& d, const LearnerConsts& c, const NafWorkspace& w,
     float* __restrict__ qp, float* __restrict__ qtp, float* __restrict__ m,
-    float* __restrict__ v, const NafBatches bt, float* __restrict__ loss,
-    const int t0, const RowPlan rp) {
+    float* __restrict__ v, const NafBatches& bt, float* __restrict__ loss,
+    const int t0, const RowPlan& rp) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
   const int B = d.batch, F = d.obs_dim;
@@ -221,10 +233,26 @@ __global__ void __launch_bounds__(kThreads, 1) naf_update_kernel(
   const NetLayout L = layout_on(d.q, d.torso, T);
   const NetPtr nets[1] = {{qp, qtp, m, v}};
   const bool clip = d.max_norm > 0.0f;
-  const int tiles_f = (B + kRowsN - 1) / kRowsN;
-  const int tiles_b = (B + kRowsB - 1) / kRowsB;
   auto bufs_of = [&](int item) {
     return rp.spill ? w.tiles + rp.tile_floats * item : smem + kFixed;
+  };
+  // Forward items: (pass, tile of R rows), the target's passes first;
+  // backward items: a tile each. Stage 0 (1) in wide items where the plan
+  // marks it (stage_rows).
+  auto forward = [&](auto rows, int k) {
+    constexpr int R = decltype(rows)::value;
+    const int tiles = (B + R - 1) / R;
+    for (int item = blockIdx.x; item < 2 * tiles; item += gridDim.x) {
+      const int p = item / tiles;
+      fwd_item<M, R>(d, c, w, rp, T, L, p == 0 ? qtp : qp, bt, k,
+                     (item % tiles) * R, p, smem, bufs_of(item));
+    }
+  };
+  auto backward = [&](auto rows, int k) {
+    constexpr int R = decltype(rows)::value;
+    for (int item = blockIdx.x; item < (B + R - 1) / R; item += gridDim.x)
+      bwd_item<M, R>(d, c, w, rp, T, L, qp, bt, k, item * R, smem,
+                     bufs_of(item));
   };
   if (clip && blockIdx.x == 0) {  // the slices' counts start at zero
     for (int i = threadIdx.x; i < kNormParts; i += kThreads) {
@@ -243,16 +271,9 @@ __global__ void __launch_bounds__(kThreads, 1) naf_update_kernel(
     as.lr[0] = as.lr[1] =
         c.sched ? c.actor_lr + frac * c.actor_lr_delta : c.actor_lr;
 
-    // Forward items: (pass, tile), the target's passes first.
-    for (int item = blockIdx.x; item < 2 * tiles_f; item += gridDim.x) {
-      const int p = item / tiles_f;
-      fwd_item<M>(d, c, w, rp, T, L, p == 0 ? qtp : qp, bt, k,
-                  (item % tiles_f) * kRowsN, p, smem, bufs_of(item));
-    }
+    stage_rows<kWide, kRowsN>(rp, 0, [&](auto rows) { forward(rows, k); });
     grid.sync();
-    for (int item = blockIdx.x; item < tiles_b; item += gridDim.x)
-      bwd_item<M>(d, c, w, rp, T, L, qp, bt, k, item * kRowsB, smem,
-                  bufs_of(item));
+    stage_rows<kWide, kRowsB>(rp, 1, [&](auto rows) { backward(rows, k); });
     grid.sync();
     // ---- every gradient element (clip), Adam, Polyak; the loss ----
     const NetGrads ng{0, 0, kHead, 1, c.inv_batch, loss + k,
@@ -272,21 +293,48 @@ __global__ void __launch_bounds__(kThreads, 1) naf_update_kernel(
   }
 }
 
+template <int M>
+__global__ void __launch_bounds__(kThreads, 1) naf_update_kernel(
+    const NafDims d, const LearnerConsts c, const NafWorkspace w,
+    float* __restrict__ qp, float* __restrict__ qtp, float* __restrict__ m,
+    float* __restrict__ v, const NafBatches bt, float* __restrict__ loss,
+    const int t0, const RowPlan rp) {
+  naf_update<M, false>(d, c, w, qp, qtp, m, v, bt, loss, t0, rp);
+}
+
 // The dims as the host checks them against its copy of the widths; *sum
 // and *hmax get the widths' sum and max.
 bool dims_ok(const NafDims& d, const int* widths, long long* sum,
              int* hmax) {
   return d.obs_dim >= 1 && d.batch >= 1 && d.k_updates >= 1 &&
          d.max_norm >= 0.0f && d.q.size >= 1 &&
-         (d.spill == 0 || d.spill == 1) && mm_ok(d.mm) &&
-         d.torso.tab != nullptr && d.q.lay != nullptr &&
+         (d.spill == 0 || d.spill == 1) && d.route >= 0 && d.route <= 2 &&
+         mm_ok(d.mm) && d.torso.tab != nullptr && d.q.lay != nullptr &&
          widths_ok(widths, d.torso.L, 1, sum, hmax, 0);
 }
 
-// The items' plan: the spill route when d.spill asks for it or an item's
-// buffers do not fit in shared memory beside the ring and the table.
+// The items of each stage of an update, stage s in wide items where bit s
+// of `wide` is set (else kRowsN, kRowsB rows): the forward (2 passes), the
+// backward. Returns the number of stages.
+int naf_stages(const NafDims& d, int wide, int* items) {
+  const int rf = wide & 1 ? kRowsW : kRowsN, rb = wide & 2 ? kRowsW : kRowsB;
+  items[0] = 2 * ((d.batch + rf - 1) / rf);
+  items[1] = (d.batch + rb - 1) / rb;
+  return 2;
+}
+
+// The items' plan: the stages that take wide items (float32 alone, by
+// d.route and the rule over the device's SMs), and the spill route when
+// d.spill asks for it or an item's buffers do not fit in shared memory
+// beside the ring and the table. A wide backward item's d loss / d head
+// rows follow its dz.
 RowPlan naf_row_plan(const NafDims& d, int hmax) {
-  return row_plan(d.obs_dim, hmax, table_ints(d), d.spill, kRowsN, 0, 0);
+  int items[2];
+  const int n = naf_stages(d, ~0, items);
+  const int wide =
+      d.mm == kMmF32 ? wide_stages(items, n, d.route) : 0;
+  return row_plan(d.obs_dim, hmax, table_ints(d), d.spill, kRowsN, 0, 0,
+                  wide, 0, kRowsW * kQLd, d.route);
 }
 
 // Carves the workspace from `base` (or only counts floats when it is null).
@@ -304,9 +352,9 @@ long long carve(const NafDims& d, const int* widths, float* base,
   const RowPlan rp = naf_row_plan(d, hmax);
   const long long B = d.batch;
   const long long hl = widths[d.torso.L - 1];
-  const long long tiles_f = (B + kRowsN - 1) / kRowsN;
-  const long long tiles_b = (B + kRowsB - 1) / kRowsB;
-  const long long items = 2 * tiles_f > tiles_b ? 2 * tiles_f : tiles_b;
+  int st[2];
+  naf_stages(d, rp.wide, st);
+  const long long items = st[0] > st[1] ? st[0] : st[1];  // the larger stage
   *w = NafWorkspace{};
   w->zS = take(B * sum);
   w->hin = take(B * (sum - hl));
@@ -333,6 +381,26 @@ long long carve(const NafDims& d, const int* widths, float* base,
 // mode.
 const void* cp_naf_x3x6_kernel(int m);
 const void* cp_naf_f64f16_kernel(int m);
+const void* cp_naf_wide_kernel();
+
+// The float32 kernel with the wide items (a plan with rp.wide set), a
+// kernel of its own, as ddpg_update.cu's: made in naf_update_wide.cu
+// (CP_MM_PRESET_UNIT 3; in a stage-clock build, here) and taken from
+// cp_naf_wide_kernel.
+#if CP_MM_PRESET_UNIT == 3 || \
+    (CP_MM_PRESET_UNIT == 0 && defined(CP_STAGE_CLOCK))
+__global__ void __launch_bounds__(kThreads, 1) naf_update_kernel_wide(
+    const NafDims d, const LearnerConsts c, const NafWorkspace w,
+    float* __restrict__ qp, float* __restrict__ qtp, float* __restrict__ m,
+    float* __restrict__ v, const NafBatches bt, float* __restrict__ loss,
+    const int t0, const RowPlan rp) {
+  naf_update<kMmF32, true>(d, c, w, qp, qtp, m, v, bt, loss, t0, rp);
+}
+
+const void* cp_naf_wide_kernel() {
+  return reinterpret_cast<const void*>(naf_update_kernel_wide);
+}
+#endif
 
 #if CP_MM_PRESET_UNIT == 1
 const void* cp_naf_x3x6_kernel(int m) {
@@ -350,7 +418,7 @@ const void* cp_naf_f64f16_kernel(int m) {
     return reinterpret_cast<const void*>(naf_update_kernel<kMmF16>);
   return nullptr;
 }
-#else
+#elif CP_MM_PRESET_UNIT == 0
 extern "C" {
 
 // Floats of workspace cp_naf_update_phase needs for these dims (0 when the
@@ -370,13 +438,15 @@ long long cp_naf_workspace_floats(const NafDims* dims, const int* widths) {
 // buffers (updated in place); batches: obs (K, B, F), act (K, B, 2), rew
 // (K, B), nobs (K, B, F), done (K, B) bool; loss (K,); workspace:
 // cp_naf_workspace_floats(dims, widths) floats; t0: the Adam count before
-// the phase; dims->mm picks the kernel's instance. Returns a cudaError_t.
+// the phase; dims->mm picks the kernel's instance; wide, when not null,
+// gets the stages the launch took in wide items (RowPlan.wide). Returns a
+// cudaError_t.
 int cp_naf_update_phase(const NafDims* dims, const int* widths,
                         const LearnerConsts* consts, float* q, float* q_t,
                         float* m, float* v, const float* obs,
                         const float* act, const float* rew, const float* nobs,
                         const bool* done, float* loss, float* workspace,
-                        int t0, void* stream) {
+                        int t0, void* stream, int* wide) {
   NafDims d = *dims;
   LearnerConsts c = *consts;
   long long sum;
@@ -388,18 +458,22 @@ int cp_naf_update_phase(const NafDims* dims, const int* widths,
   NafBatches bt = {obs, act, rew, nobs, done};
   RowPlan rp = naf_row_plan(d, hmax);
   const size_t smem = plan_smem(rp, table_ints(d));
-  // Each instance keeps its own block count.
-  static int blocks[kMmModes] = {};
-  static size_t blocks_smem[kMmModes] = {};
+  // Each instance keeps its own block count; the wide kernel (a float32
+  // plan with wide stages) the last.
+  static int blocks[kMmModes + 1] = {};
+  static size_t blocks_smem[kMmModes + 1] = {};
   const void* kernels[kMmModes] =
       CP_MM_INSTANCES(naf_update_kernel, cp_naf_x3x6_kernel,
                       cp_naf_f64f16_kernel);
-  if (kernels[d.mm] == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
+  const int slot = rp.wide != 0 ? kMmModes : d.mm;
+  const void* kernel = rp.wide != 0 ? cp_naf_wide_kernel() : kernels[d.mm];
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   void* args[] = {&d, &c, &w, &q, &q_t, &m, &v, &bt, &loss, &t0, &rp};
-  return static_cast<int>(launch_cooperative(
-      kernels[d.mm], smem, args, static_cast<cudaStream_t>(stream),
-      blocks[d.mm], blocks_smem[d.mm]));
+  const cudaError_t err = launch_cooperative(
+      kernel, smem, args, static_cast<cudaStream_t>(stream), blocks[slot],
+      blocks_smem[slot]);
+  if (err == cudaSuccess && wide != nullptr) *wide = rp.wide;
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

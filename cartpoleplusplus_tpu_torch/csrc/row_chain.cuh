@@ -14,6 +14,21 @@
 //   * Backward items: a tile of kRowsB = 4 rows: a kernel's epilogue, the
 //     head's backward, and per layer the LayerNorm/relu backward and dh =
 //     dz W through the same ring (head_bwd, torso_bwd).
+//   * Wide items (B3, B5 and B7 at float32): a forward or backward item of
+//     kRowsW = 32 rows, so that each streamed chunk serves 32 rows of
+//     products, not 4 or 8. A product thread owns kColsW = 4 columns x 8
+//     rows of accumulators (rows_product at R = kRowsW); each warp walks
+//     R / kWarps rows of a LayerNorm or its backward in turn, each in
+//     ln_stats' lane order; a wide item's dz rows sit at a feature stride
+//     of R + 4 (ld_b). The rule (wide_stages): a stage takes wide items
+//     where they still fill three quarters of the grid's blocks, one block
+//     an SM (at batch 8192 every stage of B3, B5 and B7; at 256 none),
+//     and, unless the narrow items spill too, where their buffers fit
+//     beside the ring; the launch reads the SM count itself (device_sms).
+//     The plan (RowPlan.wide) marks the stages that take them, and a plan
+//     that marks any launches the learner's float32 kernel built with them
+//     (stage_rows' kWide; in *_update_wide.cu, a translation unit of its
+//     own); its other kernels have no wide code.
 //   * The gradient stage: every weight gradient in 32 x 32 tiles, the
 //     tile's columns of the whole batch staged in shared memory and each
 //     thread summing 2 x 2 elements over the batch in order; the bias and
@@ -63,11 +78,11 @@
 namespace {
 
 constexpr int kRowsF = 8;         // batch rows of a forward item
-constexpr int kLdF = kRowsF + 4;  // feature stride of its activations
 constexpr int kRowsB = 4;         // batch rows of a backward item
 constexpr int kLdB = kRowsB;      // feature stride of its dz
-constexpr int kColsF = 2;         // output columns of a forward thread
-constexpr int kColsB = 2;         // output columns of a backward thread
+constexpr int kColsF = 2;         // output columns of a narrow item's thread
+constexpr int kRowsW = 32;        // batch rows of a wide item
+constexpr int kColsW = 4;         // output columns of a wide item's thread
 constexpr int kWk = 32;           // weight rows (inputs) of a chunk
 constexpr int kStages = 3;        // chunks in the ring
 constexpr int kPanel = 256;       // output columns of a chunk
@@ -95,36 +110,114 @@ constexpr int kDynSmem = 232448 - 4096;
 
 __host__ __device__ inline int pad4(int n) { return (n + 3) & ~3; }
 
+// The feature stride of a backward item's dz rows: kLdB for the narrow
+// items, R + 4 for a wide one (a LayerNorm backward's lanes write 4-way,
+// not 32-way, into one bank).
+__host__ __device__ constexpr int ld_b(int R) {
+  return R <= kRowsB ? kLdB : R + 4;
+}
+// Output columns of a product thread over R rows: kColsF for a narrow
+// item, forward or backward; kColsW for a wide one.
+__host__ __device__ constexpr int prod_cols(int R) {
+  return R >= kRowsW ? kColsW : kColsF;
+}
+// An item's rows, as a type (a stage's run takes Rows<R>{}).
+template <int R>
+struct Rows {
+  static constexpr int value = R;
+};
+
+// The SMs of the current device, the grid (one block an SM) that the rule
+// for the wide items plans on; 0 where the runtime does not answer.
+inline int device_sms() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  return sms;
+}
+
+// The rule for the wide items, per stage of an update: bit s of the result
+// is set where stage s takes wide items, of which it has items[s]. route 0:
+// where they fill three quarters of the grid's blocks at least, one block
+// an SM of the current device (device_sms; none where it has none); 1:
+// none; 2: every stage.
+inline int wide_stages(const int* items, int n, int route) {
+  const int sms = route == 0 ? device_sms() : 0;
+  int mask = 0;
+  for (int s = 0; s < n; ++s)
+    if (route == 2 || (route == 0 && sms > 0 && 4 * items[s] >= 3 * sms))
+      mask |= 1 << s;
+  return mask;
+}
+
 // Where an item's buffers go: in shared memory after the fixed part, or
-// (spill) in the item's slice of the workspace, tile_floats each.
+// (spill) in the item's slice of the workspace, tile_floats each; wide,
+// the stages that take wide items (wide_stages).
 struct RowPlan {
   int spill, wmax, ldz;
   int region;  // floats of a block's shared region; the table follows
   long long tile_floats;
+  int wide;
 };
 
-// The items' plan for a torso whose widest layer is hmax: a forward item
-// of rows_f rows takes its activations (feature-major, rows_f + 4, over
-// max(obs_dim, hmax) features), its pre-LN rows (row-major, ldz) and
-// fwd_extra floats; a backward item its dh rows (row-major, ldz), its dz
-// (feature-major, kLdB, over ldz features) and bwd_extra floats. Both use
-// one buffer of the larger size, in the workspace when spill asks for it
-// or it does not fit in shared memory beside the ring and the table (n_tab
-// ints).
+// Floats of an item's buffers: a forward item of rows_f rows takes its
+// activations (feature-major, rows_f + 4, over wmax features), its pre-LN
+// rows (row-major, ldz) and fwd_extra floats; a backward item of rows_b
+// rows its dh rows (row-major, ldz), its dz (feature-major, ld_b(rows_b),
+// over ldz features) and bwd_extra floats; the larger.
+inline long long item_floats(int wmax, int ldz, int rows_f, int fwd_extra,
+                             int rows_b, int bwd_extra) {
+  const long long fwd = static_cast<long long>(rows_f + 4) * wmax +
+                        static_cast<long long>(rows_f) * ldz + fwd_extra;
+  const long long bwd =
+      static_cast<long long>(rows_b + ld_b(rows_b)) * ldz + bwd_extra;
+  return fwd > bwd ? fwd : bwd;
+}
+
+// The items' plan for a torso whose widest layer is hmax: the narrow
+// items' buffers (forward rows_f rows and fwd_extra, backward kRowsB rows
+// and bwd_extra floats) or, where `wide` (wide_stages) marks a stage, the
+// larger of them and the wide items' (kRowsW rows, wfwd_extra and
+// wbwd_extra floats), one buffer of that size, in the workspace when spill
+// asks for it or it does not fit in shared memory beside the ring and the
+// table (n_tab ints). Under the rule (route 0) the wide items are taken
+// only where their buffers fit there or the narrow ones do not either.
 inline RowPlan row_plan(int obs_dim, int hmax, int n_tab, int spill,
-                        int rows_f, int fwd_extra, int bwd_extra) {
+                        int rows_f, int fwd_extra, int bwd_extra,
+                        int wide = 0, int wfwd_extra = 0, int wbwd_extra = 0,
+                        int route = 0) {
   RowPlan rp{};
   rp.wmax = obs_dim > hmax ? obs_dim : hmax;
   rp.ldz = pad4(hmax);
-  const long long fwd = static_cast<long long>(rows_f + 4) * rp.wmax +
-                        static_cast<long long>(rows_f) * rp.ldz + fwd_extra;
-  const long long bwd = static_cast<long long>(kRowsB + kLdB) * rp.ldz +
-                        bwd_extra;
-  const long long bufs = fwd > bwd ? fwd : bwd;
+  const long long narrow = item_floats(rp.wmax, rp.ldz, rows_f, fwd_extra,
+                                       kRowsB, bwd_extra);
+  const long long wb = item_floats(rp.wmax, rp.ldz, kRowsW, wfwd_extra,
+                                   kRowsW, wbwd_extra);
+  auto fits = [&](long long b) { return (kFixed + b + n_tab) * 4 <= kDynSmem; };
+  if (route == 0 && !spill && fits(narrow) && !fits(wb)) wide = 0;
+  rp.wide = wide;
+  const long long bufs = wide != 0 && wb > narrow ? wb : narrow;
   rp.tile_floats = (bufs + 31) / 32 * 32;
-  rp.spill = spill || (kFixed + bufs + n_tab) * 4 > kDynSmem;
+  rp.spill = spill || !fits(bufs);
   rp.region = kFixed + (rp.spill ? 0 : static_cast<int>(bufs));
   return rp;
+}
+
+// Runs stage s of an update as run(Rows<R>{}): R = kRowsW in a kernel with
+// the wide items (kWide: the float32 instance that a plan with wide stages
+// launches) where the plan marks the stage, else `narrow`.
+template <bool kWide, int narrow, class Run>
+__device__ __forceinline__ void stage_rows(const RowPlan& rp, int s,
+                                           Run run) {
+  if constexpr (kWide) {
+    if (rp.wide >> s & 1) {
+      run(Rows<kRowsW>{});
+      return;
+    }
+  }
+  run(Rows<narrow>{});
 }
 
 // Bytes of a block's dynamic shared memory under the plan.
@@ -514,11 +607,12 @@ struct FwdSave {
 };
 
 // The torso of one network, layers l0 .. l1 - 1 (l1 <= 0: to the last),
-// over R rows from b0 (nr of them real; a forward item's kRowsF, or a
-// backward item's kRowsB): act (wmax, R + 4) holds each row's input to
-// layer l0 (feature-major); layer l's pre-LN rows z = x W_l^T + b_l (layer
-// 1 joining na inputs xa, feature-major (na, R + 4), when na > 0) go to zr
-// (R, ldz), their LayerNorm + relu back into act. With zmain, layer l0's
+// over R rows from b0 (nr of them real; a forward item's kRowsF, a
+// backward item's kRowsB, or a wide item's kRowsW): act (wmax, R + 4)
+// holds each row's input to layer l0 (feature-major); layer l's pre-LN
+// rows z = x W_l^T + b_l (layer 1 joining na inputs xa, feature-major (na,
+// R + 4), when na > 0) go to zr (R, ldz), their LayerNorm + relu back into
+// act, one warp a row (R / kWarps rows a warp in turn). With zmain, layer l0's
 // sums over its first inputs are given instead of multiplied (rows b0 .. of
 // a (batch, H_l0) region): z = (zmain + the join's sums) + b_l0. On return
 // act holds layer l1 - 1's output. The next layer's first chunks fly during
@@ -582,7 +676,7 @@ __device__ __forceinline__ void torso_fwd(
       }
       __syncthreads();
     } else {
-      rows_product<M, R, LD, true, kColsF, kTc>(
+      rows_product<M, R, LD, true, prod_cols(R), kTc>(
           act, K, h, W, ldw_of(l), net + L.b(l), zr, ldz, ring, l > l0,
           l == 1 ? xa : nullptr, l == 1 ? na : 0);
     }
@@ -694,14 +788,15 @@ __device__ __forceinline__ void load_rows(const float* src, int F, int b0,
 }
 
 // The head's backward of a backward item: dh[r ldz + cc] = sum_a dqs[r kQLd
-// + a] wh[a hl + cc] (from zero, a in order) for its kRowsB rows, the
-// operands as mode M takes them. Ends with a barrier. kTc: an mma a
-// 16-output tile (the rows on N, n_head on K).
-template <int M, bool kTc = false>
+// + a] wh[a hl + cc] (from zero, a in order) for its R rows, the operands
+// as mode M takes them. Ends with a barrier. kTc: an mma a 16-output tile
+// (the rows on N, n_head on K).
+template <int M, bool kTc = false, int R = kRowsB>
 __device__ __forceinline__ void head_bwd(const float* dqs, int n_head,
                                          const float* wh, int hl, float* dh,
                                          int ldz) {
   if constexpr (kTc) {
+    static_assert(R == kRowsB, "the narrow items on the tensor cores");
     const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
     const auto ws = mma_floats<M>([=](int cc, int a) {
       return cc < hl && a < n_head ? wh[a * hl + cc] : 0.0f;
@@ -723,7 +818,7 @@ __device__ __forceinline__ void head_bwd(const float* dqs, int n_head,
     __syncthreads();
     return;
   }
-  for (int o = threadIdx.x; o < kRowsB * hl; o += kThreads) {
+  for (int o = threadIdx.x; o < R * hl; o += kThreads) {
     const int r = o / hl, cc = o - r * hl;
     mm_acc_t<M> acc = 0.0f;
     for (int a = 0; a < n_head; ++a)
@@ -740,23 +835,26 @@ struct BwdSave {
   float *dz, *dy, *dyxh;
 };
 
-// The backward of one network's torso over a backward item's kRowsB rows
-// from b0 (nr real): dh (kRowsB, ldz) holds the gradient at the last
-// layer's output; z, the pass's per-layer pre-LN rows. For l = L - 1 down
-// to lo: the LayerNorm/relu backward into dzs (hmax, kLdB) and the saves,
-// then dh = dz W_l over the layer's input columns for l > lo. With `tail`
-// (lo = 1): at layer 1 the gradient at the joined input instead (the
+// The backward of one network's torso over a backward item's R rows from
+// b0 (nr real; kRowsB, or a wide item's kRowsW): dh (R, ldz) holds the
+// gradient at the last layer's output; z, the pass's per-layer pre-LN
+// rows. For l = L - 1 down to lo: the LayerNorm/relu backward into dzs
+// (hmax, ld_b(R)) and the saves, one warp a row (R / kWarps rows a warp in
+// turn), then dh = dz W_l over the layer's input columns for l > lo. With
+// `tail` (lo = 1): at layer 1 the gradient at the joined input instead (the
 // critic's dQ/da: the join columns of W_1, copied into the free ring
-// during the LayerNorm backward, each of the kRowsB x join sums in order
-// by one thread), into tail (kRowsB, kQLd). dh = dz W's first chunks fly
-// during each LayerNorm backward. M: the products' mode; kTc: on the tensor
-// cores (dQ/da: one warp's mma chain over h, the join on M, the rows on N).
-template <int M, bool kTc = false>
+// during the LayerNorm backward, each of the R x join sums in order by one
+// thread), into tail (R, kQLd). dh = dz W's first chunks fly during each
+// LayerNorm backward. M: the products' mode; kTc: on the tensor cores
+// (dQ/da: one warp's mma chain over h, the join on M, the rows on N).
+template <int M, bool kTc = false, int R = kRowsB>
 __device__ __forceinline__ void torso_bwd(
     const Torso& T, const NetLayout& L, const float* net, int join,
     const float* z, float* dh, float* dzs, int ldz, float* ring,
     const LearnerConsts& c, const BwdSave& sv, int b0, int nr, int B, int lo,
     float* tail) {
+  static_assert(!kTc || R == kRowsB, "the narrow items on the tensor cores");
+  constexpr int LB = ld_b(R);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int l = T.L - 1; l >= lo; --l) {
     const int h = T.h(l);
@@ -773,10 +871,9 @@ __device__ __forceinline__ void torso_bwd(
       for (int i = threadIdx.x; i < h * join; i += kThreads)
         ring[i] = W[static_cast<size_t>(i / join) * ldw + col0 + i % join];
     }
-    if (warp < kRowsB) {  // one warp a row: dz, dy, dy * xhat
-      const int r = warp;
+    for (int r = warp; r < R; r += kWarps) {  // a row a warp: dz, dy, dy xhat
       if (r >= nr) {
-        for (int j = lane; j < h; j += 32) dzs[j * kLdB + r] = 0.0f;
+        for (int j = lane; j < h; j += 32) dzs[j * LB + r] = 0.0f;
       } else {
         const size_t row = static_cast<size_t>(b0 + r) * h;
         const float* zrow = layer_rows(z, T, l, B) + row;
@@ -808,7 +905,7 @@ __device__ __forceinline__ void torso_bwd(
           const float dy = y > 0.0f ? dhr[j] : 0.0f;
           const float dxh = dy * s[j];
           const float dz = inv * (dxh - m1 - xh * m2);
-          dzs[j * kLdB + r] = dz;
+          dzs[j * LB + r] = dz;
           if (gdz != nullptr) {
             gdz[j] = dz;
             gdy[j] = dy;
@@ -819,9 +916,8 @@ __device__ __forceinline__ void torso_bwd(
     }
     __syncthreads();
     if (pn > 0)
-      rows_product<M, kRowsB, kLdB, false, kColsB, kTc>(dzs, h, pn, W, ldw,
-                                                        nullptr, dh, ldz,
-                                                        ring, true);
+      rows_product<M, R, LB, false, prod_cols(R), kTc>(
+          dzs, h, pn, W, ldw, nullptr, dh, ldz, ring, true);
     if (tl) {
       if constexpr (kTc) {
         if (warp == 0) {
@@ -843,12 +939,12 @@ __device__ __forceinline__ void torso_bwd(
             if (i < join && r < kRowsB) tail[r * kQLd + i] = mm_out<M>(acc[e]);
           }
         }
-      } else if (threadIdx.x < kRowsB * join) {
+      } else if (threadIdx.x < R * join) {
         const int r = threadIdx.x / join, i = threadIdx.x - r * join;
         mm_acc_t<M> acc = 0.0f;
 #pragma unroll 8
         for (int j = 0; j < h; ++j)
-          acc = mm_fma<M>(mm_in<M>(dzs[j * kLdB + r]),
+          acc = mm_fma<M>(mm_in<M>(dzs[j * LB + r]),
                           mm_in<M>(ring[j * join + i]), acc);
         tail[r * kQLd + i] = mm_out<M>(acc);
       }

@@ -108,33 +108,38 @@ class LearnerDims(ctypes.Structure):
     puts every row tile's buffers in the workspace at any width; mm, the
     products' mode (ops/learner_kernel.py::mm_mode), picks the kernel's
     instance (as in DqnDims, NafDims and PgDims); instance, when not null,
-    a device int the instance writes its id to (as in PgDims)."""
+    a device int the instance writes its id to (as in PgDims); route, the
+    wide items' route (ops/learner_kernel.py::ddpg_plan: 0 by the rule
+    over the device's SMs; 1 none; 2 every stage)."""
 
     _fields_ = [(n, ctypes.c_int) for n in (
         "obs_dim", "batch", "k_updates", "merged")] + [
         ("torso", Torso), ("actor", NetLayout), ("critic", NetLayout),
         ("spill", ctypes.c_int), ("mm", ctypes.c_int),
-        ("instance", ctypes.c_void_p)]
+        ("instance", ctypes.c_void_p), ("route", ctypes.c_int)]
 
 
 class DqnDims(ctypes.Structure):
     """Mirror of `struct DqnDims` in csrc/dqn_update.cu (B5); spill 1
-    puts every row tile's buffers in the workspace at any width."""
+    puts every row tile's buffers in the workspace at any width; route
+    as in LearnerDims."""
 
     _fields_ = [(n, ctypes.c_int) for n in (
         "obs_dim", "batch", "k_updates", "double_dqn")] + [
         ("torso", Torso), ("q", NetLayout), ("spill", ctypes.c_int),
-        ("mm", ctypes.c_int)]
+        ("mm", ctypes.c_int), ("route", ctypes.c_int)]
 
 
 class NafDims(ctypes.Structure):
     """Mirror of `struct NafDims` in csrc/naf_update.cu (B7); spill 1
-    puts every row tile's buffers in the workspace at any width."""
+    puts every row tile's buffers in the workspace at any width; route
+    as in LearnerDims."""
 
     _fields_ = [(n, ctypes.c_int) for n in (
         "obs_dim", "batch", "k_updates")] + [
         ("max_norm", ctypes.c_float), ("torso", Torso), ("q", NetLayout),
-        ("spill", ctypes.c_int), ("mm", ctypes.c_int)]
+        ("spill", ctypes.c_int), ("mm", ctypes.c_int),
+        ("route", ctypes.c_int)]
 
 
 class PgDims(ctypes.Structure):
@@ -327,7 +332,7 @@ def load_library() -> ctypes.CDLL:
     lib.cp_ddpg_workspace_floats.argtypes = [vp, vp]
     lib.cp_ddpg_workspace_floats.restype = ctypes.c_longlong
     lib.cp_ddpg_update_phase.argtypes = [vp] * 3 + [vp] * 8 + [vp] * 5 + [
-        vp, vp, vp, ci, vp]
+        vp, vp, vp, ci, vp, vp]
     lib.cp_ddpg_update_phase.restype = ci
     lib.cp_q_workspace_floats.argtypes = [vp, ci]
     lib.cp_q_workspace_floats.restype = ctypes.c_longlong
@@ -337,12 +342,12 @@ def load_library() -> ctypes.CDLL:
     lib.cp_dqn_workspace_floats.argtypes = [vp, vp]
     lib.cp_dqn_workspace_floats.restype = ctypes.c_longlong
     lib.cp_dqn_update_phase.argtypes = [vp] * 3 + [vp] * 4 + [vp] * 5 + [
-        vp, vp, ci, vp]
+        vp, vp, ci, vp, vp]
     lib.cp_dqn_update_phase.restype = ci
     lib.cp_naf_workspace_floats.argtypes = [vp, vp]
     lib.cp_naf_workspace_floats.restype = ctypes.c_longlong
     lib.cp_naf_update_phase.argtypes = [vp] * 3 + [vp] * 4 + [vp] * 5 + [
-        vp, vp, ci, vp]
+        vp, vp, ci, vp, vp]
     lib.cp_naf_update_phase.restype = ci
     lib.cp_pg_rollout.argtypes = [vp] * 5 + [ci, ci, ci] + [vp] * 19 + [vp]
     lib.cp_pg_rollout.restype = ci

@@ -310,83 +310,177 @@ def _r32(n: int) -> int:
 
 # csrc/row_chain.cuh, the row chains of B3, B5 and B7.
 _ROWS_F = 8              # kRowsF: a forward item's batch rows (B3, B5)
-_LD_F = _ROWS_F + 4      # kLdF: the feature stride of its activations
 _ROWS_N = 4              # kRowsN in csrc/naf_update.cu: B7's forward rows
 _ROWS_A = 4              # kRowsA in csrc/ddpg_update.cu: B3's actor pass
 _ROWS_B = 4              # kRowsB: a backward item's batch rows
 _LD_B = _ROWS_B          # kLdB: the feature stride of its dz
+_ROWS_W = 32             # kRowsW: a wide item's batch rows (B3, B5)
 _QLD = 8                 # kQLd: the stride of a row's head values
 # kFixed: the weight ring (3 chunks of 256 x 36 floats) and a backward
 # item's d loss / d head (4 rows of 8 floats).
 _ROW_FIXED = 3 * 256 * 36 + _ROWS_B * _QLD
-_B3_FWD_EXTRA = ACTION_DIM * _LD_F   # kFwdExtra in csrc/ddpg_update.cu
+# The SMs of an H100 SXM: the grid, one block an SM, that the plan mirrors
+# below assume where their caller names no card (the kernels read the
+# device's own count; csrc/row_chain.cuh::device_sms).
+H100_SMS = 132
 
 
-def _b3_bwd_extra(obs_dim: int, hidden: tuple) -> int:
+def _b3_fwd_extra(rows: int) -> int:
+    """fwd_extra in csrc/ddpg_update.cu: a forward item's action rows."""
+    return ACTION_DIM * (rows + 4)
+
+
+def _b3_bwd_extra(obs_dim: int, hidden: tuple, rows: int = _ROWS_B) -> int:
     """bwd_extra in csrc/ddpg_update.cu: a backward item's dQ/da and d loss
-    / d pre-tanh rows, then the critic's rest of the forward: its 4 rows'
-    activations over max(obs_dim, widths) features and action rows."""
-    ld4 = _ROWS_B + 4
-    return (2 * _ROWS_B * _QLD + ld4 * max(obs_dim, *hidden)
-            + ACTION_DIM * ld4)
+    / d pre-tanh rows, then the critic's rest of the forward: its rows'
+    activations over max(obs_dim, widths) features and action rows; a
+    wide item's d loss / dQ rows besides."""
+    ld4 = rows + 4
+    return (2 * rows * _QLD + ld4 * max(obs_dim, *hidden)
+            + ACTION_DIM * ld4 + (rows * _QLD if rows > _ROWS_B else 0))
+
+
+def _wide_stages(items, route: int, sms: int) -> int:
+    """wide_stages in csrc/row_chain.cuh, the rule for the wide items: bit
+    s is set where stage s of an update, of items[s] wide items, takes
+    them. route 0: where they fill three quarters of the grid's blocks at
+    least, one block an SM of `sms` (the kernels' device_sms; 0: none); 1:
+    no stage; 2: every stage."""
+    mask = 0
+    for s, n in enumerate(items):
+        if route == 2 or (route == 0 and sms > 0 and 4 * n >= 3 * sms):
+            mask |= 1 << s
+    return mask
+
+
+def _item_floats(wmax: int, ldz: int, rows_f: int, fwd_extra: int,
+                 rows_b: int, bwd_extra: int) -> int:
+    """item_floats in csrc/row_chain.cuh: the larger of a forward item's
+    buffers (its rows_f rows' activations, feature-major at rows_f + 4
+    over wmax features, their pre-LN rows, row-major at ldz, and
+    fwd_extra floats) and a backward item's (its rows_b rows of dh, their
+    dz at a feature stride of 4 (narrow) or rows_b + 4 (wide), and
+    bwd_extra floats)."""
+    ld_b = _LD_B if rows_b <= _ROWS_B else rows_b + 4
+    return max((rows_f + 4) * wmax + rows_f * ldz + fwd_extra,
+               (rows_b + ld_b) * ldz + bwd_extra)
 
 
 def _row_plan(obs_dim: int, hidden: tuple, n_tab: int, spill: bool,
-              fwd_extra: int = 0, bwd_extra: int = 0, rows_f: int = _ROWS_F):
+              fwd_extra: int = 0, bwd_extra: int = 0, rows_f: int = _ROWS_F,
+              wide: int = 0, wfwd_extra: int = 0, wbwd_extra: int = 0,
+              route: int = 0):
     """row_plan in csrc/row_chain.cuh: (floats of an item's buffers rounded
-    up to 32, spill, bytes of a block's dynamic shared memory). A forward
-    item's buffers: its rows_f rows' activations, feature-major (stride
-    rows_f + 4) over max(obs_dim, widths) features, their pre-LN rows,
-    row-major at a stride of the widest layer padded to 4, and fwd_extra
-    floats; a backward item's: its 4 rows of dh and their dz at that
-    stride and bwd_extra floats. They sit in shared memory beside the
-    weight ring and the device table (n_tab ints) unless that takes more
-    than MAX_SMEM less 4 KB or `spill` asks for it, then in the
-    workspace."""
+    up to 32, spill, bytes of a block's dynamic shared memory, the stages
+    that take wide items). The narrow items' buffers (`_item_floats`:
+    forward rows_f rows, backward 4, over the widest of obs_dim and the
+    widths, at a row stride of the widest layer padded to 4) or, where
+    `wide` (`_wide_stages`) marks a stage, the larger of them and the wide
+    items' (32 rows, wfwd_extra and wbwd_extra floats). They sit in shared
+    memory beside the weight ring and the device table (n_tab ints) unless
+    that takes more than MAX_SMEM less 4 KB or `spill` asks for it, then in
+    the workspace. Under the rule (route 0) the wide items are taken only
+    where their buffers fit there or the narrow ones do not either."""
     hmax = max(hidden)
-    ldz = _pad4(hmax)
-    fwd = (rows_f + 4) * max(obs_dim, hmax) + rows_f * ldz + fwd_extra
-    bwd = (_ROWS_B + _LD_B) * ldz + bwd_extra
-    bufs = max(fwd, bwd)
-    spill = bool(spill) or 4 * (_ROW_FIXED + bufs + n_tab) > (
-        _native.MAX_SMEM - 4096)
+    wmax, ldz = max(obs_dim, hmax), _pad4(hmax)
+    narrow = _item_floats(wmax, ldz, rows_f, fwd_extra, _ROWS_B, bwd_extra)
+    wb = _item_floats(wmax, ldz, _ROWS_W, wfwd_extra, _ROWS_W, wbwd_extra)
+
+    def fits(b):
+        return 4 * (_ROW_FIXED + b + n_tab) <= _native.MAX_SMEM - 4096
+
+    if route == 0 and not spill and fits(narrow) and not fits(wb):
+        wide = 0
+    bufs = max(narrow, wb) if wide else narrow
+    spill = bool(spill) or not fits(bufs)
     return (_r32(bufs), spill,
-            4 * (_ROW_FIXED + (0 if spill else bufs) + n_tab))
+            4 * (_ROW_FIXED + (0 if spill else bufs) + n_tab), wide)
+
+
+@functools.lru_cache(maxsize=None)
+def _b5_plan(obs_dim, hidden, batch, spill, mode, sms, route, double_dqn):
+    """dqn_row_plan and dqn_stages in csrc/dqn_update.cu: (the items of the
+    forward and backward stages, tile floats, spill, the wide stages). The
+    forward stage runs 3 passes under double DQN, else 2."""
+    def stages(wide):
+        rf = _ROWS_W if wide & 1 else _ROWS_F
+        rb = _ROWS_W if wide & 2 else _ROWS_B
+        return (3 if double_dqn else 2) * -(-batch // rf), -(-batch // rb)
+
+    wide = _wide_stages(stages(-1), route, sms) if mode == F32 else 0
+    tile, spill, _, wide = _row_plan(
+        obs_dim, tuple(hidden), 6 * len(hidden), spill, wide=wide,
+        wbwd_extra=_ROWS_W * _QLD, route=route)
+    return stages(wide), tile, spill, wide
 
 
 def dqn_plan(obs_dim: int, hidden: Sequence[int], batch: int,
-             spill: bool = False):
+             spill: bool = False, *, mode: int = F32, sms: int = H100_SMS,
+             route: int = 0, double_dqn: bool = True):
     """B5's plan (dqn_row_plan in csrc/dqn_update.cu): (forward item rows,
     forward items, spill). A forward item runs one of the three passes
     through every layer for 8 batch rows (a backward item, 4 rows); an
     item's buffers sit in shared memory beside the weight ring unless that
     takes more than MAX_SMEM less 4 KB (one layer wider than 1468 at obs
-    42) or `spill` asks for it, then in the workspace."""
-    hidden = tuple(hidden)
-    items = 3 * -(-batch // _ROWS_F)
-    return (_ROWS_F, items,
-            _row_plan(obs_dim, hidden, 6 * len(hidden), spill)[1])
+    42) or `spill` asks for it, then in the workspace. Each stage takes
+    wide items of 32 rows instead (float32 alone) where they fill three
+    quarters of a grid of `sms` blocks (`_wide_stages`; route 1: never, 2:
+    always): at batch 8192 both stages, at 256 neither. Without
+    `double_dqn` the forward stage runs 2 passes, not 3. A mirror of the
+    kernel's plan for the tests: the wrappers take the kernel's own."""
+    items, _, spill, wide = _b5_plan(obs_dim, tuple(hidden), batch,
+                                     bool(spill), mode, sms, route,
+                                     bool(double_dqn))
+    return (_ROWS_W if wide & 1 else _ROWS_F), items[0], spill
 
 
 def dqn_workspace_floats(obs_dim: int, hidden: Sequence[int], batch: int,
-                         spill: bool = False) -> int:
+                         spill: bool = False, *, mode: int = F32,
+                         sms: int = H100_SMS, route: int = 0,
+                         double_dqn: bool = True) -> int:
     """Floats of B5's workspace (cp_dqn_workspace_floats), each piece
     rounded up to 32: per layer the online net's pre-LN rows on s, dz, dy
     and dy * xhat; the layer inputs past layer 0 and the last layer's
     output; d loss / dQ and the Huber terms; the three passes' Q values;
-    on the spill route every forward item's buffers."""
+    on the spill route the buffers of every item of the larger stage."""
     hidden = tuple(hidden)
-    _, items, spill = dqn_plan(obs_dim, hidden, batch, spill)
+    items, tile, spill, _ = _b5_plan(obs_dim, hidden, batch, bool(spill),
+                                     mode, sms, route, bool(double_dqn))
     s, hl = sum(hidden), hidden[-1]
-    tile = _row_plan(obs_dim, hidden, 6 * len(hidden), spill)[0]
     return (4 * _r32(batch * s) + _r32(batch * (s - hl)) + _r32(batch * hl)
             + _r32(batch * NUM_ACTIONS) + _r32(batch)
             + _r32(3 * batch * NUM_ACTIONS)
-            + (items * tile if spill else 0))
+            + (max(items) * tile if spill else 0))
+
+
+@functools.lru_cache(maxsize=None)
+def _b3_plan(obs_dim, hidden, batch, actor_grad_critic, spill, mode, sms,
+             route):
+    """ddpg_row_plan and ddpg_stages in csrc/ddpg_update.cu: (the items of
+    each stage, tile floats, spill, shared-memory bytes, the wide
+    stages)."""
+    hidden = tuple(hidden)
+
+    def stages(wide):
+        def tiles(s, rows):
+            return -(-batch // (_ROWS_W if wide >> s & 1 else rows))
+        if actor_grad_critic == "pre":
+            return 5 * tiles(0, _ROWS_F), 2 * tiles(1, _ROWS_B)
+        return (3 * tiles(0, _ROWS_F), tiles(1, _ROWS_B),
+                2 * tiles(2, _ROWS_A), tiles(3, _ROWS_B))
+
+    wide = _wide_stages(stages(-1), route, sms) if mode == F32 else 0
+    tile, spill, smem, wide = _row_plan(
+        obs_dim, hidden, 10 * len(hidden), spill, _b3_fwd_extra(_ROWS_F),
+        _b3_bwd_extra(obs_dim, hidden), wide=wide,
+        wfwd_extra=_b3_fwd_extra(_ROWS_W),
+        wbwd_extra=_b3_bwd_extra(obs_dim, hidden, _ROWS_W), route=route)
+    return stages(wide), tile, spill, smem, wide
 
 
 def ddpg_plan(obs_dim: int, hidden: Sequence[int], batch: int,
-              actor_grad_critic: str = "updated", spill: bool = False):
+              actor_grad_critic: str = "updated", spill: bool = False, *,
+              mode: int = F32, sms: int = H100_SMS, route: int = 0):
     """B3's plan (ddpg_row_plan in csrc/ddpg_update.cu): (forward item
     rows, the items of each forward and backward stage of an update in
     order, spill, bytes of a block's dynamic shared memory). At "updated"
@@ -396,22 +490,24 @@ def ddpg_plan(obs_dim: int, hidden: Sequence[int], batch: int,
     backward), then the actor's forward (4 rows: the actor, the critic's
     front) and backward (the critic's rest, its backward to dQ/da, the
     actor's); at "pre" one forward stage of all five passes (8 rows) and
-    one backward stage of both chains. A forward item's buffers also hold its action rows, a
-    backward item's dQ/da, d loss / d pre-tanh and the rest's rows; they
-    spill past two layers of 1468 at obs 42."""
-    hidden = tuple(hidden)
-    tf, tb = -(-batch // _ROWS_F), -(-batch // _ROWS_B)
-    ta = -(-batch // _ROWS_A)
-    items = ((5 * tf, 2 * tb) if actor_grad_critic == "pre"
-             else (3 * tf, tb, 2 * ta, tb))
-    _, spill, smem = _row_plan(obs_dim, hidden, 10 * len(hidden), spill,
-                               _B3_FWD_EXTRA, _b3_bwd_extra(obs_dim, hidden))
-    return _ROWS_F, items, spill, smem
+    one backward stage of both chains. A forward item's buffers also hold
+    its action rows, a backward item's dQ/da, d loss / d pre-tanh and the
+    rest's rows; they spill past two layers of 1468 at obs 42. Each stage
+    takes wide items of 32 rows instead (float32 alone) where they fill
+    three quarters of a grid of `sms` blocks (`_wide_stages`; route 1:
+    never, 2: always) and their buffers fit where the narrow ones do: at
+    batch 8192 every stage, at 256 none. A mirror of the kernel's plan for
+    the tests: the wrappers take the kernel's own."""
+    items, _, spill, smem, wide = _b3_plan(obs_dim, tuple(hidden), batch,
+                                           actor_grad_critic, bool(spill),
+                                           mode, sms, route)
+    return (_ROWS_W if wide & 1 else _ROWS_F), items, spill, smem
 
 
 def ddpg_workspace_floats(obs_dim: int, hidden: Sequence[int], batch: int,
                           actor_grad_critic: str = "updated",
-                          spill: bool = False) -> int:
+                          spill: bool = False, *, mode: int = F32,
+                          sms: int = H100_SMS, route: int = 0) -> int:
     """Floats of B3's workspace (cp_ddpg_workspace_floats), each piece
     rounded up to 32: for the online critic on (s, a) per layer its pre-LN
     rows, dz, dy and dy * xhat, its layer inputs past layer 0 (the action
@@ -422,11 +518,10 @@ def ddpg_workspace_floats(obs_dim: int, hidden: Sequence[int], batch: int,
     action; pi(s), Q(s, pi(s)) and d loss / d pre-tanh; on the spill route
     the buffers of every item of the largest stage."""
     hidden = tuple(hidden)
-    _, items, spill, _ = ddpg_plan(obs_dim, hidden, batch,
-                                   actor_grad_critic, spill)
+    items, tile, spill, _, _ = _b3_plan(obs_dim, hidden, batch,
+                                        actor_grad_critic, bool(spill), mode,
+                                        sms, route)
     s, hl, h1 = sum(hidden), hidden[-1], hidden[1]
-    tile = _row_plan(obs_dim, hidden, 10 * len(hidden), spill,
-                     _B3_FWD_EXTRA, _b3_bwd_extra(obs_dim, hidden))[0]
     critic = (4 * _r32(batch * s) + _r32(batch * (s - hl + ACTION_DIM))
               + _r32(batch * hl) + _r32(batch * h1)
               + _r32(batch * ACTION_DIM) + 3 * _r32(batch))
@@ -442,23 +537,43 @@ def naf_covers(obs_dim: int, hidden: Sequence[int]) -> bool:
     return dqn_covers(obs_dim, hidden)
 
 
+@functools.lru_cache(maxsize=None)
+def _b7_plan(obs_dim, hidden, batch, spill, mode, sms, route):
+    """naf_row_plan and naf_stages in csrc/naf_update.cu: (the items of
+    the forward and backward stages, tile floats, spill, shared-memory
+    bytes, the wide stages)."""
+    def stages(wide):
+        rf = _ROWS_W if wide & 1 else _ROWS_N
+        rb = _ROWS_W if wide & 2 else _ROWS_B
+        return 2 * -(-batch // rf), -(-batch // rb)
+
+    wide = _wide_stages(stages(-1), route, sms) if mode == F32 else 0
+    tile, spill, smem, wide = _row_plan(
+        obs_dim, tuple(hidden), 6 * len(hidden), spill, rows_f=_ROWS_N,
+        wide=wide, wbwd_extra=_ROWS_W * _QLD, route=route)
+    return stages(wide), tile, spill, smem, wide
+
+
 def naf_plan(obs_dim: int, hidden: Sequence[int], batch: int,
-             spill: bool = False):
+             spill: bool = False, *, mode: int = F32, sms: int = H100_SMS,
+             route: int = 0):
     """B7's plan (naf_row_plan in csrc/naf_update.cu): (forward item rows,
     the items of its forward and backward stages, spill, bytes of a
     block's dynamic shared memory). The forward stage runs the target on
     s' and the online net on s over 4-row tiles (128 items at batch 256),
     the backward stage 4-row tiles; the buffers spill past one layer of
-    2449 at obs 42."""
-    hidden = tuple(hidden)
-    items = (2 * -(-batch // _ROWS_N), -(-batch // _ROWS_B))
-    _, spill, smem = _row_plan(obs_dim, hidden, 6 * len(hidden), spill,
-                               rows_f=_ROWS_N)
-    return _ROWS_N, items, spill, smem
+    2449 at obs 42. Each stage takes wide items of 32 rows instead by
+    B5's rule (`dqn_plan`): at batch 8192 both stages, at 256 neither. A
+    mirror of the kernel's plan for the tests: the wrappers take the
+    kernel's own."""
+    items, _, spill, smem, wide = _b7_plan(obs_dim, tuple(hidden), batch,
+                                           bool(spill), mode, sms, route)
+    return (_ROWS_W if wide & 1 else _ROWS_N), items, spill, smem
 
 
 def naf_workspace_floats(obs_dim: int, hidden: Sequence[int], batch: int,
-                         spill: bool = False) -> int:
+                         spill: bool = False, *, mode: int = F32,
+                         sms: int = H100_SMS, route: int = 0) -> int:
     """Floats of B7's workspace (cp_naf_workspace_floats), each piece
     rounded up to 32: per layer the online net's pre-LN rows on s, dz, dy
     and dy * xhat; its layer inputs past layer 0 and its last layer's
@@ -467,10 +582,9 @@ def naf_workspace_floats(obs_dim: int, hidden: Sequence[int], batch: int,
     sums and counts; on the spill route the buffers of every item of the
     larger stage."""
     hidden = tuple(hidden)
-    _, items, spill, _ = naf_plan(obs_dim, hidden, batch, spill)
+    items, tile, spill, _, _ = _b7_plan(obs_dim, hidden, batch, bool(spill),
+                                        mode, sms, route)
     s, hl = sum(hidden), hidden[-1]
-    tile = _row_plan(obs_dim, hidden, 6 * len(hidden), spill,
-                     rows_f=_ROWS_N)[0]
     size = layout_size(naf_layout(obs_dim, hidden))
     return (4 * _r32(batch * s) + _r32(batch * (s - hl)) + _r32(batch * hl)
             + 2 * _r32(batch) + 2 * _r32(batch * NAF_HEAD) + _r32(size)
@@ -1247,12 +1361,13 @@ def ddpg_update_phase(groups, batches, t0: int, hidden, *, actor_lr: float,
 
 
 def _ddpg_prepare(groups, batches, t0, hidden, kw, lr_schedule, merged,
-                  spill, mode=F32):
+                  spill, mode=F32, route=0):
     """One launch of csrc/ddpg_update.cu on checked CUDA inputs, made
     ready: the structures, the outputs and the workspace. Returns the
     launch, a call of no arguments that returns (closs, aloss). `spill`
     puts the row tiles' buffers in the workspace at any width; `mode`
-    (mm_mode) picks the kernel's instance."""
+    (mm_mode) picks the kernel's instance; `route` (`ddpg_plan`) 0 takes
+    the wide items by the rule, 1 never, 2 in every stage."""
     k_updates, batch, obs_dim = batches[0].shape
     dev = groups[0].device
     lay_a, lay_c = actor_layout(obs_dim, hidden), critic_layout(obs_dim,
@@ -1262,16 +1377,21 @@ def _ddpg_prepare(groups, batches, t0, hidden, kw, lr_schedule, merged,
     dims = _native.LearnerDims(
         obs_dim=obs_dim, batch=batch, k_updates=k_updates,
         merged=int(merged), torso=torso, actor=net_a, critic=net_c,
-        spill=int(spill), mm=mode, instance=_instance_ptr(dev, "B3"))
+        spill=int(spill), mm=mode, instance=_instance_ptr(dev, "B3"),
+        route=route)
     consts = _learner_consts(batch=batch, lr_schedule=lr_schedule, **kw)
     lib = _native.load_library()
     closs = torch.empty(k_updates, dtype=torch.float32, device=dev)
     aloss = torch.empty(k_updates, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    key = ("ddpg", dev, stream, obs_dim, batch, hidden, merged, spill)
+    wide = ctypes.c_int(0)  # the stages the launch took in wide items
+    key = ("ddpg", dev, stream, obs_dim, batch, hidden, merged, spill, mode,
+           route)
     ws = _workspaces.get(key)
     if ws is None:
-        size = lib.cp_ddpg_workspace_floats(_native.struct_ptr(dims), widths)
+        with torch.cuda.device(dev):
+            size = lib.cp_ddpg_workspace_floats(_native.struct_ptr(dims),
+                                                   widths)
         if size <= 0:
             raise ValueError(f"B3 rejected dims {key}")
         ws = _workspaces[key] = torch.empty(size, dtype=torch.float32,
@@ -1280,18 +1400,22 @@ def _ddpg_prepare(groups, batches, t0, hidden, kw, lr_schedule, merged,
             *(g.data_ptr() for g in groups),
             *(b.data_ptr() for b in batches),
             closs.data_ptr(), aloss.data_ptr(), ws.data_ptr(),
-            ctypes.c_int(int(t0)), stream)
+            ctypes.c_int(int(t0)), stream, ctypes.addressof(wide))
 
     def launch():
         with torch.cuda.device(dev):
             rc = lib.cp_ddpg_update_phase(*args)
         _native.check(lib, rc, "ddpg_update_phase")
         ddpg_update_phase.launches += 1
+        ddpg_update_phase.wide_launches += wide.value != 0
         return closs, aloss
     return launch
 
 
 ddpg_update_phase.launches = 0
+# Launches that took the wide items in a stage at least, as the kernel
+# reports them (`ddpg_plan` mirrors its rule).
+ddpg_update_phase.wide_launches = 0
 
 
 @torch.no_grad()
@@ -1355,28 +1479,34 @@ def dqn_update_phase(groups, batches, t0: int, hidden, *, lr: float,
 
 
 def _dqn_prepare(groups, batches, t0, hidden, lr, gamma, tau, double_dqn,
-                 spill, mode=F32):
+                 spill, mode=F32, route=0):
     """One launch of csrc/dqn_update.cu on checked CUDA inputs, made
     ready; returns the launch, a call of no arguments that returns the
     loss (K,). `spill` puts the row tiles' buffers in the workspace at any
-    width; `mode` (mm_mode) picks the kernel's instance."""
+    width; `mode` (mm_mode) picks the kernel's instance; `route`
+    (`dqn_plan`) 0 takes the wide items by the rule, 1 never, 2 in both
+    stages."""
     k_updates, batch, obs_dim = batches[0].shape
     dev = groups[0].device
     lay = qnet_layout(obs_dim, hidden)
     torso, (net,), widths = _learner_shape(dev, hidden, (tuple(lay),))
     dims = _native.DqnDims(obs_dim=obs_dim, batch=batch, k_updates=k_updates,
                            double_dqn=int(double_dqn), torso=torso, q=net,
-                           spill=int(spill), mm=mode)
+                           spill=int(spill), mm=mode, route=route)
     # The Q-net is net 0 of the gradient stage: its lr rides in actor_lr.
     consts = _learner_consts(batch=batch, actor_lr=lr, critic_lr=lr,
                              gamma=gamma, tau=tau, lr_schedule=None)
     lib = _native.load_library()
     loss = torch.empty(k_updates, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    key = ("dqn", dev, stream, obs_dim, batch, hidden, spill)
+    wide = ctypes.c_int(0)  # the stages the launch took in wide items
+    key = ("dqn", dev, stream, obs_dim, batch, hidden, double_dqn, spill,
+           mode, route)
     ws = _workspaces.get(key)
     if ws is None:
-        size = lib.cp_dqn_workspace_floats(_native.struct_ptr(dims), widths)
+        with torch.cuda.device(dev):
+            size = lib.cp_dqn_workspace_floats(_native.struct_ptr(dims),
+                                                  widths)
         if size <= 0:
             raise ValueError(f"B5 rejected dims {key}")
         ws = _workspaces[key] = torch.empty(size, dtype=torch.float32,
@@ -1384,18 +1514,23 @@ def _dqn_prepare(groups, batches, t0, hidden, lr, gamma, tau, double_dqn,
     args = (_native.struct_ptr(dims), widths, _native.struct_ptr(consts),
             *(g.data_ptr() for g in groups),
             *(b.data_ptr() for b in batches), loss.data_ptr(),
-            ws.data_ptr(), ctypes.c_int(int(t0)), stream)
+            ws.data_ptr(), ctypes.c_int(int(t0)), stream,
+            ctypes.addressof(wide))
 
     def launch():
         with torch.cuda.device(dev):
             rc = lib.cp_dqn_update_phase(*args)
         _native.check(lib, rc, "dqn_update_phase")
         dqn_update_phase.launches += 1
+        dqn_update_phase.wide_launches += wide.value != 0
         return loss
     return launch
 
 
 dqn_update_phase.launches = 0
+# Launches that took the wide items in a stage at least, as the kernel
+# reports them (`dqn_plan` mirrors its rule).
+dqn_update_phase.wide_launches = 0
 
 
 @torch.no_grad()
@@ -1462,11 +1597,13 @@ def naf_update_phase(groups, batches, t0: int, hidden, *, lr: float,
     return launch()
 
 
-def _naf_prepare(groups, batches, t0, hidden, kw, spill, mode=F32):
+def _naf_prepare(groups, batches, t0, hidden, kw, spill, mode=F32,
+                 route=0):
     """One launch of csrc/naf_update.cu on checked CUDA inputs, made ready;
     returns the launch, a call of no arguments that returns the loss (K,).
     `spill` puts the row tiles' buffers in the workspace at any width;
-    `mode` (mm_mode) picks the kernel's instance."""
+    `mode` (mm_mode) picks the kernel's instance; `route` (`naf_plan`) 0
+    takes the wide items by the rule, 1 never, 2 in both stages."""
     k_updates, batch, obs_dim = batches[0].shape
     dev = groups[0].device
     lay = naf_layout(obs_dim, hidden)
@@ -1475,7 +1612,7 @@ def _naf_prepare(groups, batches, t0, hidden, kw, spill, mode=F32):
     dims = _native.NafDims(
         obs_dim=obs_dim, batch=batch, k_updates=k_updates,
         max_norm=_f32(max_grad_norm) if max_grad_norm > 0.0 else 0.0,
-        torso=torso, q=net, spill=int(spill), mm=mode)
+        torso=torso, q=net, spill=int(spill), mm=mode, route=route)
     # The NafNet is net 0 of the gradient stage: its lr rides in actor_lr.
     consts = _learner_consts(batch=batch, actor_lr=kw["lr"],
                              critic_lr=kw["lr"], gamma=kw["gamma"],
@@ -1483,10 +1620,13 @@ def _naf_prepare(groups, batches, t0, hidden, kw, spill, mode=F32):
     lib = _native.load_library()
     loss = torch.empty(k_updates, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    key = ("naf", dev, stream, obs_dim, batch, hidden, spill)
+    wide = ctypes.c_int(0)  # the stages the launch took in wide items
+    key = ("naf", dev, stream, obs_dim, batch, hidden, spill, mode, route)
     ws = _workspaces.get(key)
     if ws is None:
-        size = lib.cp_naf_workspace_floats(_native.struct_ptr(dims), widths)
+        with torch.cuda.device(dev):
+            size = lib.cp_naf_workspace_floats(_native.struct_ptr(dims),
+                                                  widths)
         if size <= 0:
             raise ValueError(f"B7 rejected dims {key}")
         ws = _workspaces[key] = torch.empty(size, dtype=torch.float32,
@@ -1494,18 +1634,23 @@ def _naf_prepare(groups, batches, t0, hidden, kw, spill, mode=F32):
     args = (_native.struct_ptr(dims), widths, _native.struct_ptr(consts),
             *(g.data_ptr() for g in groups),
             *(b.data_ptr() for b in batches), loss.data_ptr(),
-            ws.data_ptr(), ctypes.c_int(int(t0)), stream)
+            ws.data_ptr(), ctypes.c_int(int(t0)), stream,
+            ctypes.addressof(wide))
 
     def launch():
         with torch.cuda.device(dev):
             rc = lib.cp_naf_update_phase(*args)
         _native.check(lib, rc, "naf_update_phase")
         naf_update_phase.launches += 1
+        naf_update_phase.wide_launches += wide.value != 0
         return loss
     return launch
 
 
 naf_update_phase.launches = 0
+# Launches that took the wide items in a stage at least, as the kernel
+# reports them (`naf_plan` mirrors its rule).
+naf_update_phase.wide_launches = 0
 
 
 @torch.no_grad()

@@ -130,10 +130,17 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      (B10) with its weights-only saves (no replay or env field on disk);
      the fast ddpg train step, each preset's checkpoint save and the
      event-log sink timed; and the presets' new kernel shapes against
-     their twins: B3 at batch 8192, K 8 from warmed moments and B9 over a
+     their twins: B3 at batch 8192, K 8 from warmed moments (each launch
+     in the wide row items, counted in `wide_launches`) and B9 over a
      65,536-row window. The canary is disarmed (`--canary-env-steps 0`)
      in the runs that count launches and saves: an untrained policy fails
      it;
+  24b. the suite cells' other learners at their shape (`python3
+     chip_smoke.py --suite-learners` runs it alone): B5 with double DQN on
+     and off and B7 with its clip at 10, batch 8192 x K 8 on (256, 256)
+     from warmed moments, against their twins at B3's bar, two runs bit
+     for bit, every launch in the wide row items (`wide_launches`), and
+     each timed;
   25. pixel DQN, NAF and LRPG main paths with the counters zeroed:
      `train.main --obs-mode pixels --agent dqn|naf|lrpg` at the pixels
      preset's env fields (2048 envs, 48 x 48 gray uint8 frame-diff, 2
@@ -2774,6 +2781,7 @@ FAST_WINDOWS = 2                 # dispatch windows of a preset run
 # Each preset's rollout length t and dispatch window spd (train.py's
 # _PRESETS and the agents' defaults), and what phase 24 sets beside them.
 FAST_DDPG = dict(t=64, k=8, batch=8192, spd=32, interval=16, log_envs=64)
+SUITE_LEARNER = (8192, 8)  # the `*.suite` cells' learner batch and K
 FAST_LRPG = dict(envs=2048, t=32, spd=16)
 FAST_NAF = dict(t=8, spd=16)
 PIXELS = dict(t=8, spd=16)
@@ -3118,8 +3126,9 @@ def phase_preset_kernels(dev):
     hidden = (256, 256)
     b, k = FAST_DDPG["batch"], FAST_DDPG["k"]
     kw = dict(actor_lr=1e-4, critic_lr=1e-3, gamma=0.99, tau=0.01)
-    errs, bitwise, groups, batches = _b3_compare(dev, hidden, k, batch=b,
-                                                 **kw)
+    errs, bitwise, groups, batches = _all_wide(
+        lk.ddpg_update_phase, lambda: _b3_compare(dev, hidden, k, batch=b,
+                                                  **kw))
     assert bitwise, "B3 at batch 8192: two runs differ"
     ms = _time_ms(lambda: lk.ddpg_update_phase(groups, batches, B3_T0,
                                                hidden, **kw), 10)
@@ -3157,6 +3166,58 @@ def phase_preset_kernels(dev):
           f"ms, bound {b9['bound_ms']:.4f} ms by {b9['bound_by']} [{_card()}]",
           flush=True)
     return b3, b9
+
+
+def _all_wide(phase, run):
+    """run()'s result; every launch of the learner wrapper `phase` that it
+    made must have taken the wide row items (`phase.wide_launches`)."""
+    before = phase.launches, phase.wide_launches
+    out = run()
+    n, wide = phase.launches - before[0], phase.wide_launches - before[1]
+    assert n >= 1 and wide == n, \
+        f"{phase.__name__}: {wide} of {n} launches in the wide items"
+    return out
+
+
+def phase_suite_learners(dev):
+    """B5 (double DQN on and off) and B7 (clip 10) at the suite cells'
+    learner shape, batch 8192 x K 8 on (256, 256) from warmed moments, in
+    their wide row items (B3 at that shape: phase_preset_kernels): each
+    against its twin at B3's bar, two runs bit for bit, every launch
+    counted in `wide_launches`; then each timed (CUDA events)."""
+    from cartpoleplusplus_tpu_torch.agents.common import lr_schedule
+    from cartpoleplusplus_tpu_torch.agents.naf import NAFConfig
+    from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
+
+    hidden, (b, k), out = (256, 256), SUITE_LEARNER, {}
+    groups, batches = _b5_inputs(dev, hidden, b, k, seed=21)
+    for double_dqn in (True, False):
+        tag = f"B5 {'double' if double_dqn else 'max'}"
+        errs = _all_wide(lk.dqn_update_phase, lambda: _b5_compare(
+            groups, batches, hidden, double_dqn, tag))
+        ms = _all_wide(lk.dqn_update_phase, lambda: _time_ms(
+            lambda: lk.dqn_update_phase(groups, batches, B3_T0, hidden,
+                                        lr=5e-5, gamma=0.99, tau=0.01,
+                                        double_dqn=double_dqn), 5))
+        out[tag] = dict(max_abs_err=max(errs.values()), ms=ms)
+    del groups, batches
+    cfg = NAFConfig()
+    kw = dict(lr=cfg.lr, gamma=cfg.gamma, tau=cfg.tau, max_grad_norm=10.0,
+              lr_schedule=lr_schedule(cfg))
+    groups, batches = _b7_inputs(dev, hidden, b, k, seed=33)
+    errs = _all_wide(lk.naf_update_phase, lambda: _b7_compare(
+        groups, batches, hidden, kw, "clip 10.0"))
+    ms = _all_wide(lk.naf_update_phase, lambda: _time_ms(
+        lambda: lk.naf_update_phase(groups, batches, B3_T0, hidden, **kw),
+        5))
+    out["B7 clip 10.0"] = dict(max_abs_err=max(errs.values()), ms=ms)
+    for tag, r in out.items():
+        print(f"{tag} at batch {b} x K {k}, hidden {hidden}, wide row "
+              f"items: max_abs_err {r['max_abs_err']:.3g} (rtol {B3_RTOL}, "
+              f"atol {B3_ATOL}); two runs bitwise equal; every launch "
+              f"wide; kernel {r['ms']:.4f} ms per phase [{_card()}]",
+              flush=True)
+    return out
 
 
 def phase_presets(dev):
@@ -4573,7 +4634,7 @@ def _times_line(times: dict, bounds: dict, ffma=None) -> str:
 # float32 product site in B9's F64 instance (one of its eight) moves
 # the kernel's error by less than the identity check resolves.
 _ROW_CHAIN_SOURCES = tuple(f"{n}_update{u}.cu" for n in ("ddpg", "dqn", "naf")
-                           for u in ("", "_x3x6", "_f64f16"))
+                           for u in ("", "_x3x6", "_f64f16", "_wide"))
 _B9_SOURCES = ("lrpg_update.cu", "lrpg_update_x3x6.cu",
                "lrpg_update_f64f16.cu")
 PROBE_FAULTS = {
@@ -4609,7 +4670,7 @@ LEARNER_FAULTS = {
           "(m == kMmX3)\n    return reinterpret_cast<const void*>("
           "ddpg_update_kernel<kMmX3>)",
           "(m == kMmX3)\n    return reinterpret_cast<const void*>("
-          "ddpg_update_kernel<kMmX6>)")], _ROW_CHAIN_SOURCES[:3],
+          "ddpg_update_kernel<kMmX6>)")], _ROW_CHAIN_SOURCES[:4],
         ("B3 K 1 updated",), (_X3,), True),
     "grad_w_tile's staged X6 rows without mid": (
         [("row_chain.cuh",
@@ -5048,7 +5109,8 @@ def phase_planted_faults(dev) -> dict:
 # (csrc/learner_stages.cuh: every mode on the fmaf chains, the instances
 # as they were before the tensor cores) as the yardstick of its times.
 _TC_SOURCES = tuple(f"{n}_update{u}.cu" for n in ("ddpg", "lrpg")
-                    for u in ("", "_x3x6", "_f64f16"))
+                    for u in ("", "_x3x6", "_f64f16")) + (
+                        "ddpg_update_wide.cu",)
 
 
 def _ffma_build():
@@ -5337,6 +5399,13 @@ def main() -> int:
         print(json.dumps({"learner_times_ms": learner_times(dev),
                           "card": _card()}), flush=True)
         return 0
+    if sys.argv[1:] == ["--suite-learners"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(_card(), flush=True)
+        _native.load_library()
+        print(json.dumps({"suite_learners": phase_suite_learners(dev)}),
+              flush=True)
+        return 0
     if sys.argv[1:2] == ["--learner-bits"] and len(sys.argv) == 3:
         _native.load_library()
         _warm_card(dev, 2.0)
@@ -5452,6 +5521,8 @@ def main() -> int:
     _lap("phase_pixel_step_split")
     phase_presets(dev)
     _lap("phase_presets")
+    phase_suite_learners(dev)
+    _lap("phase_suite_learners")
     phase_pixel_agents_main_path()
     _lap("phase_pixel_agents_main_path")
     phase_pixel_agents_step_split(dev)

@@ -601,6 +601,188 @@ def test_b5_rejects_uncovered_shapes(cuda):
                             + batches[2:], 0, (32, 32), **kw)
 
 
+# --- the wide row items of B3 and B5 (csrc/row_chain.cuh, kRowsW) ----------
+
+SUITE_BATCH, SUITE_K = 8192, 8  # the `*.suite` cells' learner shape
+
+
+def test_wide_item_plans_match_the_kernels(cuda):
+    """B3's, B5's and B7's workspaces equal `ddpg_workspace_floats`,
+    `dqn_workspace_floats` and `naf_workspace_floats` by the wide items'
+    rule (route 0 over the card's SMs, which the kernels read themselves)
+    and both forced routes, at batch 256 (narrow), 1568 (B5's forward wide
+    under double DQN, narrow without), 2048 (B3's forward stages wide, its
+    backward narrow) and 8192 (every stage wide), on both sides of the
+    spill boundary, and where the wide items' buffers would not fit but
+    the narrow ones do ((512, 512): narrow by the rule)."""
+    lib = _native.load_library()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for hidden in ((256, 256), (512, 512), (1536, 1536), (64, 48, 32)):
+        la, lc = lk.actor_layout(42, hidden), lk.critic_layout(42, hidden)
+        torso, (na, nc), widths = lk._learner_shape(cuda, hidden,
+                                                    (tuple(la), tuple(lc)))
+        lq = lk.qnet_layout(42, hidden)
+        qtorso, (nq,), qwidths = lk._learner_shape(cuda, hidden, (tuple(lq),))
+        ntorso, (nn,), nwidths = lk._learner_shape(
+            cuda, hidden, (tuple(lk.naf_layout(42, hidden)),))
+        for batch in (256, 1568, 2048, 8192):
+            for route in (0, 1, 2):
+                for spill in (False, True):
+                    kw = dict(sms=sms, route=route)
+                    for agc in ("updated", "pre"):
+                        dims = _native.LearnerDims(
+                            obs_dim=42, batch=batch, k_updates=8,
+                            merged=int(agc == "pre"), torso=torso, actor=na,
+                            critic=nc, spill=int(spill), route=route)
+                        assert lib.cp_ddpg_workspace_floats(
+                            _native.struct_ptr(dims), widths) == \
+                            lk.ddpg_workspace_floats(42, hidden, batch, agc,
+                                                     spill, **kw), (
+                            hidden, batch, route, spill, agc)
+                    for double_dqn in (True, False):
+                        dims = _native.DqnDims(
+                            obs_dim=42, batch=batch, k_updates=8,
+                            double_dqn=int(double_dqn), torso=qtorso, q=nq,
+                            spill=int(spill), route=route)
+                        assert lib.cp_dqn_workspace_floats(
+                            _native.struct_ptr(dims), qwidths) == \
+                            lk.dqn_workspace_floats(
+                                42, hidden, batch, spill,
+                                double_dqn=double_dqn, **kw), (
+                            hidden, batch, route, spill, double_dqn)
+                    dims = _native.NafDims(
+                        obs_dim=42, batch=batch, k_updates=8, max_norm=10.0,
+                        torso=ntorso, q=nn, spill=int(spill), route=route)
+                    assert lib.cp_naf_workspace_floats(
+                        _native.struct_ptr(dims), nwidths) == \
+                        lk.naf_workspace_floats(42, hidden, batch, spill,
+                                                **kw), (
+                        hidden, batch, route, spill)
+    assert lk.ddpg_plan(42, (256, 256), 8192, sms=sms)[0] == 32
+    assert lk.dqn_plan(42, (256, 256), 8192, sms=sms)[0] == 32
+    assert lk.naf_plan(42, (256, 256), 8192, sms=sms)[0] == 32
+
+
+@pytest.mark.parametrize("agc", ["updated", "pre"])
+def test_b3_wide_and_narrow_items_give_the_same_bits(cuda, agc):
+    """At the suite cells' batch 8192 (K 2, hidden (256, 256)) B3's wide
+    items (the rule's route), its narrow items (forced), the wide items
+    forced and on the spill route (their buffers in the workspace), and
+    the rule's route again give the same bits, parameters, moments,
+    targets and losses."""
+    hidden = (256, 256)
+    assert lk.ddpg_plan(42, hidden, SUITE_BATCH, agc)[:3:2] == (32, False)
+    groups, batches = _b3_inputs(cuda, hidden, SUITE_BATCH, 2, seed=5)
+    kw = dict(actor_lr=1e-4, critic_lr=1e-3, gamma=0.99, tau=0.01)
+    runs = []
+    for spill, route in ((False, 0), (False, 1), (True, 2), (False, 0)):
+        got = [g.clone() for g in groups]
+        losses = lk._ddpg_prepare(got, batches, 100, hidden, kw, None,
+                                  agc == "pre", spill, route=route)()
+        torch.cuda.synchronize()
+        runs.append(got + list(losses))
+    for run in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], run))
+
+
+@pytest.mark.parametrize("double_dqn", [True, False], ids=["double", "max"])
+def test_b5_wide_and_narrow_items_give_the_same_bits(cuda, double_dqn):
+    """At the suite cells' batch 8192 (K 2, hidden (256, 256)) B5's wide
+    items (the rule's route), its narrow items (forced), the wide items
+    forced and on the spill route, and the rule's route again give the
+    same bits; and a ragged batch of 200 in forced wide items (7 tiles,
+    the last of 8 rows) gives its narrow items' bits, also five layers
+    deep."""
+    assert lk.dqn_plan(42, (256, 256), SUITE_BATCH) == (32, 768, False)
+    for hidden, batch, routes in (
+            ((256, 256), SUITE_BATCH, ((False, 0), (False, 1), (True, 2),
+                                       (False, 0))),
+            ((256, 256), 200, ((False, 1), (False, 2), (True, 2))),
+            ((8,) * 5, 200, ((False, 1), (False, 2)))):
+        groups, batches = _b5_inputs(cuda, hidden, batch, 2, seed=5)
+        runs = []
+        for spill, route in routes:
+            got = [g.clone() for g in groups]
+            loss = lk._dqn_prepare(got, batches, 100, hidden, 5e-5, 0.99,
+                                   0.01, double_dqn, spill, route=route)()
+            torch.cuda.synchronize()
+            runs.append(got + [loss])
+        for run in runs[1:]:
+            assert all(torch.equal(a, b) for a, b in zip(runs[0], run))
+
+
+def test_b3_ragged_wide_items_give_the_narrow_bits(cuda):
+    """A ragged batch of 200 (7 tiles, the last of 8 rows) at hidden (64,
+    48, 32): B3's wide items forced give its narrow items' bits at
+    "updated" and "pre"."""
+    hidden = (64, 48, 32)
+    groups, batches = _b3_inputs(cuda, hidden, 200, 3, seed=6)
+    kw = dict(actor_lr=1e-3, critic_lr=2e-3, gamma=0.99, tau=0.05)
+    for merged in (False, True):
+        runs = []
+        for route in (1, 2):
+            got = [g.clone() for g in groups]
+            losses = lk._ddpg_prepare(got, batches, 30, hidden, kw,
+                                      (0.1, 50), merged, False,
+                                      route=route)()
+            torch.cuda.synchronize()
+            runs.append(got + list(losses))
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_b3_at_the_suite_batch_matches_twin(cuda):
+    """B3 at float32 at the `ddpg.suite` cell's shapes, K 8 updates of
+    batch 8192 on (256, 256) at "updated", in its wide items: every group
+    and both loss vectors within the reference's kernel-vs-XLA bar (rtol
+    2e-4, atol 1e-5), and one counted launch that took the wide items."""
+    hidden = (256, 256)
+    groups, batches = _b3_inputs(cuda, hidden, SUITE_BATCH, SUITE_K, seed=3)
+    kw = dict(actor_lr=1e-4, critic_lr=1e-3, gamma=0.99, tau=0.01)
+    la, lc = lk.actor_layout(42, hidden), lk.critic_layout(42, hidden)
+    lays = (la, lc, la, lc, la, la, lc, lc)
+    want = lk.update_phase_math(
+        *[lk.group_views(g, lay) for g, lay in zip(groups, lays)], batches,
+        30, hidden, **kw)
+    got = [g.clone() for g in groups]
+    before = (lk.ddpg_update_phase.launches,
+              lk.ddpg_update_phase.wide_launches)
+    losses = lk.ddpg_update_phase(got, batches, 30, hidden, **kw)
+    torch.cuda.synchronize()
+    assert (lk.ddpg_update_phase.launches,
+            lk.ddpg_update_phase.wide_launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    for g, lay, w in zip(got, lays, want[:8]):
+        for v, x in zip(lk.group_views(g, lay), w):
+            torch.testing.assert_close(v, x, rtol=2e-4, atol=1e-5)
+    for a, b in zip(losses, want[8:]):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("double_dqn", [True, False], ids=["double", "max"])
+def test_b5_at_the_suite_batch_matches_twin(cuda, double_dqn):
+    """B5 at the `dqn.suite` cell's shapes, K 8 updates of batch 8192 on
+    (256, 256), in its wide items: every group and the loss vector within
+    the reference's kernel-vs-XLA bar (rtol 2e-4, atol 1e-5), and one
+    counted launch that took the wide items."""
+    hidden = (256, 256)
+    groups, batches = _b5_inputs(cuda, hidden, SUITE_BATCH, SUITE_K, seed=3)
+    kw = dict(lr=5e-5, gamma=0.99, tau=0.01, double_dqn=double_dqn)
+    lay = lk.qnet_layout(42, hidden)
+    want = lk.dqn_update_phase_math(
+        *[lk.group_views(g, lay) for g in groups], batches, 30, hidden, **kw)
+    got = [g.clone() for g in groups]
+    before = (lk.dqn_update_phase.launches, lk.dqn_update_phase.wide_launches)
+    loss = lk.dqn_update_phase(got, batches, 30, hidden, **kw)
+    torch.cuda.synchronize()
+    assert (lk.dqn_update_phase.launches,
+            lk.dqn_update_phase.wide_launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    for g, w in zip(got, want[:4]):
+        for v, x in zip(lk.group_views(g, lay), w):
+            torch.testing.assert_close(v, x, rtol=2e-4, atol=1e-5)
+    torch.testing.assert_close(loss, want[4], rtol=2e-4, atol=1e-5)
+
+
 def _random_policy(dev, hidden, seed):
     """A PolicyMLP with its LayerNorm parameters and head redrawn, the
     head's scale falling with the width so that the logits' spread does
@@ -976,8 +1158,10 @@ def test_b7_at_the_suite_batch_matches_twin(cuda, clip):
     runs = []
     for _ in range(2):
         got = [g.clone() for g in groups]
+        wide = lk.naf_update_phase.wide_launches
         loss = lk.naf_update_phase(got, batches, 30, hidden, **kw)
         torch.cuda.synchronize()
+        assert lk.naf_update_phase.wide_launches == wide + 1
         runs.append((got, loss))
     (got, loss), (got2, loss2) = runs
     for g, w in zip(got, want[:4]):
@@ -1011,21 +1195,26 @@ def test_b7_plan_matches_the_kernel(cuda):
     4-row forward and backward items, their buffers in shared memory up to
     one layer of 2449 at obs 42 and in the workspace past it, or wherever
     spill asks), at batches 200, 256 and 8192 and on both sides of the
-    boundary."""
+    boundary: in the narrow items (route 1, the plan of the tensor-core
+    and preset modes at any batch) and by the wide items' rule over the
+    card's SMs (route 0: wide items of 32 rows at 8192)."""
     lib = _native.load_library()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for hidden in ((256, 256), (8,) * 5, (2449,), (2450,), (4096,),
                    (64, 48, 32)):
         torso, (net,), widths = lk._learner_shape(
             cuda, hidden, (tuple(lk.naf_layout(42, hidden)),))
         for batch in (200, 256, 8192):
             for spill in (False, True):
-                dims = _native.NafDims(obs_dim=42, batch=batch, k_updates=8,
-                                       max_norm=10.0, torso=torso, q=net,
-                                       spill=int(spill))
-                size = lib.cp_naf_workspace_floats(_native.struct_ptr(dims),
-                                                   widths)
-                assert size == lk.naf_workspace_floats(42, hidden, batch,
-                                                       spill), (hidden, batch)
+                for route in (1, 0):
+                    dims = _native.NafDims(
+                        obs_dim=42, batch=batch, k_updates=8, max_norm=10.0,
+                        torso=torso, q=net, spill=int(spill), route=route)
+                    size = lib.cp_naf_workspace_floats(
+                        _native.struct_ptr(dims), widths)
+                    assert size == lk.naf_workspace_floats(
+                        42, hidden, batch, spill, sms=sms, route=route), (
+                        hidden, batch, route)
 
 
 @pytest.mark.parametrize("clip", [10.0, 0.0], ids=["clip10", "noclip"])
@@ -1047,6 +1236,35 @@ def test_b7_routes_repeat_their_bits(cuda, clip):
         runs.append(got + [loss])
     for run in runs[1:]:
         assert all(torch.equal(a, b) for a, b in zip(runs[0], run))
+
+
+@pytest.mark.parametrize("clip", [10.0, 0.0], ids=["clip10", "noclip"])
+def test_b7_wide_and_narrow_items_give_the_same_bits(cuda, clip):
+    """At the `naf.suite` cell's batch 8192 (K 2, hidden (256, 256), the lr
+    schedule) B7's wide items (the rule's route), its narrow items
+    (forced), the wide items forced and on the spill route, and the rule's
+    route again give the same bits, with the clip and without it; and a
+    ragged batch of 200 in forced wide items gives its narrow items'
+    bits, also five layers deep."""
+    assert lk.naf_plan(42, (256, 256), SUITE_BATCH)[:3] == (
+        32, (512, 256), False)
+    kw = dict(lr=5e-4, gamma=0.99, tau=0.01, max_grad_norm=clip,
+              lr_schedule=(0.1, 5000))
+    for hidden, batch, routes in (
+            ((256, 256), SUITE_BATCH, ((False, 0), (False, 1), (True, 2),
+                                       (False, 0))),
+            ((256, 256), 200, ((False, 1), (False, 2), (True, 2))),
+            ((8,) * 5, 200, ((False, 1), (False, 2)))):
+        groups, batches = _b7_inputs(cuda, hidden, batch, 2, seed=5)
+        runs = []
+        for spill, route in routes:
+            got = [g.clone() for g in groups]
+            loss = lk._naf_prepare(got, batches, 100, hidden, kw, spill,
+                                   route=route)()
+            torch.cuda.synchronize()
+            runs.append(got + [loss])
+        for run in runs[1:]:
+            assert all(torch.equal(a, b) for a, b in zip(runs[0], run))
 
 
 def test_b7_rejects_uncovered_shapes(cuda):
@@ -2198,3 +2416,29 @@ def test_each_learning_step_stages_one_index_copy(cuda, name):
     assert learned == 4
     assert {k: v - before[k] for k, v in replay.INDEX_COPIES.items()} == {
         "staged": learned, "blocking": 0}
+
+
+@pytest.mark.parametrize("name,cfg,wide", [
+    ("ddpg", SUITE, 1), ("dqn", SUITE, 1), ("naf", SUITE, 1),
+    ("ddpg", {}, 0)],
+    ids=["ddpg.suite", "dqn.suite", "naf.suite", "ddpg.default"])
+def test_learning_steps_count_their_wide_launches(cuda, name, cfg, wide):
+    """At the suite cadence (batch 8192) each DDPG, DQN and NAF (kernel
+    learner) learning step launches its learner once, in the wide items
+    (`wide_launches`); at the DDPG defaults (batch 256) it launches it in
+    the narrow items only."""
+    phase = {"ddpg": lk.ddpg_update_phase, "dqn": lk.dqn_update_phase,
+             "naf": lk.naf_update_phase}[name]
+    if name == "naf":
+        cfg = dict(cfg, learner="auto")
+    a = _card_agent(cuda, name, replay_capacity_per_env=64, **cfg)
+    st = a.init(7)
+    before = phase.launches, phase.wide_launches
+    learned = 0
+    for _ in range(3):
+        st, m = a.train_step(st)
+        learned += m["env_steps"] >= a.cfg.warmup_env_steps
+    torch.cuda.synchronize()
+    assert learned >= 2
+    assert (phase.launches - before[0],
+            phase.wide_launches - before[1]) == (learned, wide * learned)

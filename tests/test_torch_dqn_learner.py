@@ -22,6 +22,7 @@ from cartpoleplusplus_tpu_torch.agents import DQN, DQNConfig
 from cartpoleplusplus_tpu_torch.agents.common import resolve_learner
 from cartpoleplusplus_tpu_torch.models import QNetMLP
 from cartpoleplusplus_tpu_torch.models.from_jax import qnet_state_dict
+from cartpoleplusplus_tpu_torch.ops import _native
 from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
 from test_torch_ddpg import _perturb
 
@@ -215,6 +216,69 @@ def test_b5_plan_and_workspace():
         rows + 96 * tile)
     assert lk.dqn_workspace_floats(F, (8,) * 5, 200) == (
         4 * 200 * 40 + 200 * 32 + 200 * 8 + 1024 + 224 + 3008)
+
+
+# B5's plan by the wide items' rule at (256, 256), obs 42, on an H100's
+# 132 SMs: per case the batch, the keyword arguments, dqn_plan's (forward
+# rows, forward items, spill) and the backward stage's items.
+B5_WIDE_CASES = {
+    "256": (256, {}, (8, 96, False), 64),
+    "8192": (8192, {}, (32, 768, False), 256),
+    # the forward wide from 1025 (99 items of 32 rows fill three quarters
+    # of 132 blocks), the backward from 3137
+    "1024": (1024, {}, (8, 384, False), 256),
+    "1025": (1025, {}, (32, 99, False), 257),
+    "3136": (3136, {}, (32, 294, False), 784),
+    "3137": (3137, {}, (32, 297, False), 99),
+    "8192-bf16": (8192, {"mode": lk.BF16}, (8, 3072, False), 2048),
+    "8192-narrow": (8192, {"route": 1}, (8, 3072, False), 2048),
+    "256-wide": (256, {"route": 2}, (32, 24, False), 8),
+    "8192-spill": (8192, {"spill": True}, (32, 768, True), 256),
+    # without double DQN the forward stage runs 2 passes: wide from 1569
+    # (100 items of 32 rows), narrow at 1568 (98)
+    "1568-max": (1568, {"double_dqn": False}, (8, 392, False), 392),
+    "1569-max": (1569, {"double_dqn": False}, (32, 100, False), 393),
+    "8192-max": (8192, {"double_dqn": False}, (32, 512, False), 256),
+}
+
+
+@pytest.mark.parametrize("case", list(B5_WIDE_CASES))
+def test_b5_plan_and_workspace_by_the_wide_rule(case):
+    """B5's plan by the wide items' rule: a stage takes items of 32 rows
+    where they fill three quarters of the grid's blocks (one an SM), at
+    float32 alone, counting the forward passes the kernel runs (2 without
+    double DQN); today's items at the defaults' batch 256; the shared
+    memory within MAX_SMEM less 4 KB; the workspace's rows, and on the
+    spill route the larger stage's items' buffers, on both sides of the
+    threshold."""
+    batch, kw, want, n_b = B5_WIDE_CASES[case]
+    hid = (256, 256)
+    assert lk.dqn_plan(F, hid, batch, **kw) == want
+    items, tile, spill, wide = lk._b5_plan(
+        F, hid, batch, kw.get("spill", False), kw.get("mode", lk.F32),
+        kw.get("sms", lk.H100_SMS), kw.get("route", 0),
+        kw.get("double_dqn", True))
+    assert items == (want[1], n_b) and spill == want[2]
+    smem = lk._row_plan(F, hid, 12, spill, wide=wide,
+                        wbwd_extra=32 * 8)[2]
+    assert smem <= _native.MAX_SMEM - 4096
+    # the wide backward item's dh, dz and d loss / dQ; the narrow forward's
+    assert tile == (68 * 256 + 32 * 8 if wide else 12 * 256 + 8 * 256)
+    rows = (4 * batch * 512 + batch * 256 + batch * 256 + batch * 5 + batch
+            + 3 * batch * 5)
+    if batch % 32 == 0:
+        assert lk.dqn_workspace_floats(F, hid, batch, **kw) == (
+            rows + (max(items) * tile if spill else 0))
+
+
+def test_b5_wide_plan_at_other_widths():
+    """Where the wide items' buffers would not fit beside the ring but the
+    narrow ones do ((512, 512), (1024,)), the rule keeps the narrow items;
+    where neither fits ((2048,)) the wide items go to the workspace."""
+    assert lk.dqn_plan(F, (512, 512), 8192) == (8, 3072, False)
+    assert lk.dqn_plan(F, (1024,), 8192) == (8, 3072, False)
+    assert lk.dqn_plan(F, (2048,), 8192) == (32, 768, True)
+    assert lk.dqn_plan(F, (512, 512), 8192, route=2) == (32, 768, True)
 
 
 def test_learner_resolution():

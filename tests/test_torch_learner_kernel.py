@@ -32,6 +32,7 @@ from cartpoleplusplus_tpu_torch.models.from_jax import (
     critic_state_dict,
     ddpg_state_from_jax,
 )
+from cartpoleplusplus_tpu_torch.ops import _native
 from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
 from cartpoleplusplus_tpu_torch.physics.params import continuous_params
 from test_torch_ddpg import _column_indices, _perturb
@@ -195,6 +196,84 @@ def test_b3_plan_and_workspace():
     assert lk.ddpg_workspace_floats(F, (8,) * 5, 200) == (
         4 * 200 * 40 + 6816 + 2 * 200 * 8 + 416 + 3 * 224
         + 5 * 200 * 40 + 200 * 32 + 2 * 200 * 8 + 2 * 416 + 224)
+
+
+def _b3_rows(b):
+    """B3's workspace floats but the items' buffers at batch b, (256,
+    256), obs 42: the critic's and the actor's rows."""
+    return (4 * b * 512 + b * 258 + b * 256 + b * 256 + 2 * b + 3 * b
+            + 5 * b * 512 + b * 256 + b * 256 + b * 256 + 2 * 2 * b + b)
+
+
+# The wide items' plan at (256, 256), obs 42, on an H100's 132 SMs: per
+# case the batch, the actor's gradient mode, the keyword arguments, and
+# ddpg_plan's (forward rows, items, spill, shared-memory bytes).
+WIDE_SMEM = 4 * (3 * 256 * 36 + 32 + 27464 + 20)  # ring, wide buffers, table
+B3_WIDE_CASES = {
+    "256": (256, "updated", {}, (8, (96, 64, 128, 64), False, 131376)),
+    "8192": (8192, "updated", {}, (32, (768, 256, 512, 256), False,
+                                   WIDE_SMEM)),
+    "8192-pre": (8192, "pre", {}, (32, (1280, 512), False, WIDE_SMEM)),
+    # the critic's forward wide from 1025 (99 items of 32 rows fill three
+    # quarters of 132 blocks), the actor's from 1569, the backward from 3137
+    "1024": (1024, "updated", {}, (8, (384, 256, 512, 256), False, 131376)),
+    "1025": (1025, "updated", {}, (32, (99, 257, 514, 257), False,
+                                   WIDE_SMEM)),
+    "2048": (2048, "updated", {}, (32, (192, 512, 128, 512), False,
+                                   WIDE_SMEM)),
+    "3136": (3136, "updated", {}, (32, (294, 784, 196, 784), False,
+                                   WIDE_SMEM)),
+    "3137": (3137, "updated", {}, (32, (297, 99, 198, 99), False,
+                                   WIDE_SMEM)),
+    "8192-bf16": (8192, "updated", {"mode": lk.BF16},
+                  (8, (3072, 2048, 4096, 2048), False, 131376)),
+    "8192-narrow": (8192, "updated", {"route": 1},
+                    (8, (3072, 2048, 4096, 2048), False, 131376)),
+    "8192-no-sms": (8192, "updated", {"sms": 0},
+                    (8, (3072, 2048, 4096, 2048), False, 131376)),
+    "256-wide": (256, "updated", {"route": 2}, (32, (24, 8, 16, 8), False,
+                                                WIDE_SMEM)),
+    "8192-spill": (8192, "updated", {"spill": True},
+                   (32, (768, 256, 512, 256), True,
+                    4 * (3 * 256 * 36 + 32 + 20))),
+}
+
+
+@pytest.mark.parametrize("case", list(B3_WIDE_CASES))
+def test_b3_plan_and_workspace_by_the_wide_rule(case):
+    """B3's plan by the wide items' rule: a stage takes items of 32 rows
+    where they fill three quarters of the grid's blocks (one an SM), at
+    float32 alone; today's items at the defaults' batch 256; the shared
+    memory within MAX_SMEM less 4 KB; the workspace's rows, and on the
+    spill route the largest stage's items' buffers, on both sides of the
+    threshold."""
+    batch, agc, kw, want = B3_WIDE_CASES[case]
+    hid = (256, 256)
+    got = lk.ddpg_plan(F, hid, batch, agc, **kw)
+    assert got == want
+    assert got[3] <= _native.MAX_SMEM - 4096
+    # An item's buffers, rounded up to 32 floats: the narrow forward
+    # item's, or (a stage wide) the wide backward item's: dh and dz, dQ/da
+    # and d loss / d pre-tanh, the rest's rows and actions, d loss / dQ.
+    tile = (68 * 256 + 2 * 32 * 8 + 36 * 256 + 2 * 36 + 32 * 8 + 24
+            if got[0] == 32 else 12 * 256 + 8 * 256 + 2 * 12 + 8)
+    if batch % 32 == 0:
+        assert lk.ddpg_workspace_floats(F, hid, batch, agc, **kw) == (
+            _b3_rows(batch) + (max(got[1]) * tile if got[2] else 0))
+
+
+def test_b3_wide_plan_at_other_widths():
+    """Where the wide items' buffers would not fit beside the ring but the
+    narrow ones do ((512, 512), (1024,)), the rule keeps the narrow items;
+    where neither fits ((1536, 1536)) the wide items go to the workspace."""
+    assert lk.ddpg_plan(F, (512, 512), 8192)[:3] == (
+        8, (3072, 2048, 4096, 2048), False)
+    assert lk.ddpg_plan(F, (1024,), 8192)[:3] == (
+        8, (3072, 2048, 4096, 2048), False)
+    assert lk.ddpg_plan(F, (1536, 1536), 8192)[:3] == (
+        32, (768, 256, 512, 256), True)
+    assert lk.ddpg_plan(F, (512, 512), 8192, route=2)[:3] == (
+        32, (768, 256, 512, 256), True)
 
 
 def test_wrapper_rejects_bad_arguments():

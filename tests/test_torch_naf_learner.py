@@ -23,6 +23,7 @@ from cartpoleplusplus_tpu_torch.agents.common import resolve_learner
 from cartpoleplusplus_tpu_torch.models import NafNet
 from cartpoleplusplus_tpu_torch.models.from_jax import (naf_state_dict,
                                                          unflatten_naf)
+from cartpoleplusplus_tpu_torch.ops import _native
 from cartpoleplusplus_tpu_torch.ops import learner_kernel as lk
 from cartpoleplusplus_tpu_torch.physics.params import continuous_params
 
@@ -273,6 +274,46 @@ def test_b7_plan_and_workspace():
     assert lk.naf_workspace_floats(F, (8,) * 5, 200) == (
         4 * 200 * 40 + 200 * 32 + 200 * 8 + 2 * 224 + 2 * 1216
         + -(-small // 32) * 32 + 512)
+
+
+# B7's plan by the wide items' rule at (256, 256), obs 42, on an H100's
+# 132 SMs: per case the batch, the keyword arguments and naf_plan's result.
+NAF_WIDE_SMEM = 4 * (3 * 256 * 36 + 32 + 68 * 256 + 32 * 8 + 12)
+B7_WIDE_CASES = {
+    "256": (256, {}, (4, (128, 64), False, 123056)),
+    "8192": (8192, {}, (32, (512, 256), False, NAF_WIDE_SMEM)),
+    # the forward wide from 1569 (2 x 50 items of 32 rows fill three
+    # quarters of 132 blocks), the backward from 3137
+    "1568": (1568, {}, (4, (784, 392), False, 123056)),
+    "1569": (1569, {}, (32, (100, 393), False, NAF_WIDE_SMEM)),
+    "3137": (3137, {}, (32, (198, 99), False, NAF_WIDE_SMEM)),
+    "8192-bf16": (8192, {"mode": lk.BF16}, (4, (4096, 2048), False, 123056)),
+    "8192-narrow": (8192, {"route": 1}, (4, (4096, 2048), False, 123056)),
+    "8192-spill": (8192, {"spill": True}, (32, (512, 256), True,
+                                           4 * (3 * 256 * 36 + 32 + 12))),
+}
+
+
+@pytest.mark.parametrize("case", list(B7_WIDE_CASES))
+def test_b7_plan_and_workspace_by_the_wide_rule(case):
+    """B7's plan by B5's wide items' rule: a stage takes items of 32 rows
+    where they fill three quarters of the grid's blocks (one an SM), at
+    float32 alone; today's items at the defaults' batch 256; the shared
+    memory within MAX_SMEM less 4 KB; on the spill route the larger
+    stage's items' buffers in the workspace."""
+    batch, kw, want = B7_WIDE_CASES[case]
+    hid = (256, 256)
+    got = lk.naf_plan(F, hid, batch, **kw)
+    assert got == want
+    assert got[3] <= _native.MAX_SMEM - 4096
+    # the wide backward item's dh, dz and d loss / d head; the narrow
+    # forward item's
+    tile = 68 * 256 + 32 * 8 if got[0] == 32 else 8 * 256 + 4 * 256
+    rows = (4 * batch * 512 + batch * 256 + batch * 256 + 2 * batch
+            + 2 * batch * 6 + 79392 + 2 * 256)
+    if batch % 32 == 0:
+        assert lk.naf_workspace_floats(F, hid, batch, **kw) == (
+            rows + (max(got[1]) * tile if got[2] else 0))
 
 
 def test_learner_resolution():
